@@ -1,0 +1,36 @@
+"""Model registry of the port (srtpu/models/__init__.py). EDSR is ported;
+the other families of srtpu are listed in ROADMAP.md, in the order they
+will be ported."""
+
+from __future__ import annotations
+
+import inspect
+
+from torch import nn
+
+from .common import Conv2d, Trunk, UpscaleTail, mean_shift, pixel_shuffle
+from .edsr import EDSR
+
+MODEL_REGISTRY: dict[str, type[nn.Module]] = {'EDSR': EDSR}
+# srtpu families the port does not have yet
+NOT_PORTED = ('DDBPN', 'RCAN', 'RDN', 'SRCNN', 'SRGAN', 'SRResNet', 'WDSR')
+
+
+def create_model(name: str, **kwargs) -> nn.Module:
+    """Instantiate a registered model, dropping kwargs it doesn't declare
+    (as srtpu's create_model does, so one config can drive any model)."""
+    key = {k.lower(): k for k in MODEL_REGISTRY}.get(name.lower())
+    if key is None:
+        if name.lower() in {k.lower() for k in NOT_PORTED}:
+            raise NotImplementedError(
+                f'{name} is not ported to srtpu_torch yet; see ROADMAP.md '
+                f'for the order of the port')
+        raise ValueError(f'Unknown model {name!r}. Available: '
+                         f'{", ".join(sorted(MODEL_REGISTRY))}')
+    cls = MODEL_REGISTRY[key]
+    accepted = inspect.signature(cls).parameters
+    return cls(**{k: v for k, v in kwargs.items() if k in accepted})
+
+
+__all__ = ['EDSR', 'MODEL_REGISTRY', 'NOT_PORTED', 'Conv2d', 'Trunk',
+           'UpscaleTail', 'create_model', 'mean_shift', 'pixel_shuffle']

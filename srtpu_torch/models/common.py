@@ -1,0 +1,157 @@
+"""Building blocks of the EDSR predict path (NHWC, HWIO weights).
+
+Counterparts of ``srtpu/models/common.py``: ``Conv2d`` (torch-default
+init), ``mean_shift``, ``pixel_shuffle``, ``Trunk`` (``CSTrunk``) and
+``UpscaleTail`` (``CSUpscaleTail`` with ``act=None, final_ksize=3``).
+Parameters are f32; ``dtype`` is the compute type (bf16 on the card).
+Every module's ``forward`` takes ``plain=False``: True runs the kernels'
+plain PyTorch versions on any device, which is how a run on the card is
+held against the kernels.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import (conv3x3_fwd, conv3x3_plain, trunk_fwd, trunk_plain,
+                   upsample_fwd, upsample_plain)
+from ..ops.layout import (b_phase_dense, b_pm, pixel_shuffle, pm_to_nhwc,
+                          w_phase_dense, w_pm_hwio)
+
+# DIV2K training-set RGB statistics (srtpu/models/common.py:29-30)
+DIV2K_RGB_MEAN = (0.4488, 0.4371, 0.4040)
+
+__all__ = ['DIV2K_RGB_MEAN', 'Conv2d', 'Trunk', 'UpscaleTail', 'mean_shift',
+           'pixel_shuffle', 'uniform_param']
+
+
+def uniform_param(shape, bound: float, device, generator: torch.Generator
+                  ) -> nn.Parameter:
+    """f32 parameter drawn from U(-bound, bound) (torch's Conv2d default
+    for kernel and bias, srtpu ``torch_uniform_init``). ``generator`` is a
+    CPU generator, so a seed gives the same weights on every device."""
+    t = torch.empty(shape).uniform_(-bound, bound, generator=generator)
+    return nn.Parameter(t.to(device))
+
+
+def mean_shift(x: torch.Tensor, sign: int, rgb_range: float = 1.0,
+               rgb_mean: Sequence[float] = DIV2K_RGB_MEAN,
+               rgb_std: Sequence[float] = (1.0, 1.0, 1.0)) -> torch.Tensor:
+    """Frozen DIV2K mean shift in x's dtype: sign=-1 subtracts the mean,
+    +1 adds it back (srtpu/models/common.py:206-216)."""
+    mean = torch.tensor(rgb_mean, dtype=x.dtype, device=x.device)
+    std = torch.tensor(rgb_std, dtype=x.dtype, device=x.device)
+    return x / std + sign * rgb_range * mean / std
+
+
+class Conv2d(nn.Module):
+    """'same' k x k conv on NHWC with an HWIO weight. In the compute dtype
+    as srtpu's ``Conv2d``: the conv's result rounds to ``dtype``, then the
+    bias (cast to ``dtype``) is added. A plain ``F.conv2d``: srtpu leaves
+    this conv (the 3 -> C head) to XLA, not to a kernel."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, *,
+                 device=None, generator: torch.Generator):
+        super().__init__()
+        bound = 1.0 / math.sqrt(kernel_size * kernel_size * in_ch)
+        self.weight = uniform_param(
+            (kernel_size, kernel_size, in_ch, out_ch), bound, device,
+            generator)
+        self.bias = uniform_param((out_ch,), bound, device, generator)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        w = self.weight.to(dtype)
+        y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2).float(),
+                     w.permute(3, 2, 0, 1).float(),
+                     padding=w.shape[0] // 2)
+        return y.permute(0, 2, 3, 1).to(dtype) + self.bias.to(dtype)
+
+
+class Trunk(nn.Module):
+    """EDSR trunk: n_resblocks resblocks (K1), the close conv (K2) and the
+    global skip (srtpu ``CSTrunk``). Block weights are stacked HWIO:
+    w1, w2 (L, 3, 3, C, C); b1, b2 (L, C)."""
+
+    def __init__(self, n_feats: int = 64, n_resblocks: int = 16,
+                 res_scale: float = 1.0, *, device=None,
+                 generator: torch.Generator):
+        super().__init__()
+        self.res_scale = res_scale
+        n, nb = n_feats, n_resblocks
+        bound = 1.0 / math.sqrt(9 * n)
+        self.w1 = uniform_param((nb, 3, 3, n, n), bound, device, generator)
+        self.b1 = uniform_param((nb, n), bound, device, generator)
+        self.w2 = uniform_param((nb, 3, 3, n, n), bound, device, generator)
+        self.b2 = uniform_param((nb, n), bound, device, generator)
+        self.close_weight = uniform_param((3, 3, n, n), bound, device,
+                                          generator)
+        self.close_bias = uniform_param((n,), bound, device, generator)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                plain: bool = False) -> torch.Tensor:
+        trunk = trunk_plain if plain else trunk_fwd
+        conv = conv3x3_plain if plain else conv3x3_fwd
+        xd = x.to(dtype)
+        res = trunk(xd, self.w1.to(dtype), self.b1.float(),
+                    self.w2.to(dtype), self.b2.float(), self.res_scale)
+        res = conv(res, self.close_weight.to(dtype), self.close_bias.float())
+        return res + xd       # the skip is one more rounding, as in srtpu
+
+
+class UpscaleTail(nn.Module):
+    """Sub-pixel upscaler + final 3x3 conv (srtpu ``CSUpscaleTail`` with
+    act=None, final_ksize=3; reference UpscaleBlock + Conv2d).
+
+    Stages are x2 (log2(scale) of them) or one x3. Every stage but the
+    last runs K3 (conv + shuffle). The last stays phase-major at coarse
+    resolution (K2 with ``w_pm_hwio``), and the final conv runs as a
+    phase-dense coarse conv over its r*r*C channels (K2 with
+    ``w_phase_dense``, c_out padded to 16); ``pm_to_nhwc`` then gives the
+    fine image. Weights are stored as the plain tail's: up{i}_weight HWIO
+    (3, 3, C, r*r*C) and up{i}_bias in PixelShuffle order, final_weight
+    (3, 3, C, ch)."""
+
+    def __init__(self, scale_factor: int = 4, n_feats: int = 64,
+                 channels: int = 3, *, device=None,
+                 generator: torch.Generator):
+        super().__init__()
+        if scale_factor not in (2, 3, 4, 8):
+            raise ValueError(f'scale_factor must be 2, 3, 4 or 8, got '
+                             f'{scale_factor}')
+        self.rs = [3] if scale_factor == 3 else \
+            [2] * int(math.log2(scale_factor))
+        self.channels = channels
+        n = n_feats
+        bound = 1.0 / math.sqrt(9 * n)
+        for i, r in enumerate(self.rs):
+            self.register_parameter(f'up{i}_weight', uniform_param(
+                (3, 3, n, r * r * n), bound, device, generator))
+            self.register_parameter(f'up{i}_bias', uniform_param(
+                (r * r * n,), bound, device, generator))
+        self.final_weight = uniform_param((3, 3, n, channels), bound, device,
+                                          generator)
+        self.final_bias = uniform_param((channels,), bound, device,
+                                        generator)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                plain: bool = False) -> torch.Tensor:
+        ups = upsample_plain if plain else upsample_fwd
+        conv = conv3x3_plain if plain else conv3x3_fwd
+        y = x.to(dtype)
+        for i, r in enumerate(self.rs[:-1]):
+            y = ups(y, getattr(self, f'up{i}_weight').to(dtype),
+                    getattr(self, f'up{i}_bias').float(), r)
+        r, last = self.rs[-1], len(self.rs) - 1
+        y = conv(y, w_pm_hwio(getattr(self, f'up{last}_weight'), r)
+                 .to(dtype).contiguous(),
+                 b_pm(getattr(self, f'up{last}_bias'), r).float()
+                 .contiguous())
+        wpd = w_phase_dense(self.final_weight, r).to(dtype).contiguous()
+        bpd = b_phase_dense(self.final_bias, r, wpd.shape[-1]).float()
+        y = conv(y, wpd, bpd.contiguous())
+        return pm_to_nhwc(y, r, self.channels)

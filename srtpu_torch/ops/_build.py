@@ -1,0 +1,110 @@
+"""Build the port's CUDA kernels with nvcc and bind them through ctypes.
+
+Every ``csrc/*.cu`` compiles into one shared library with a plain C
+interface, at first use, into ``build/srtpu_torch/`` beside the package
+(git-ignored). The library's name carries a hash of the sources and
+flags, so an edited source rebuilds and an unchanged one loads at once.
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises on anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'srtpu_torch'
+NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures: name -> argtypes (every entry point returns int)
+SIGNATURES = {
+    'srt_conv3x3_fwd': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    'srt_upsample_fwd': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    'srt_resblock_fwd': [_P, _P, _P, _P, _P, ctypes.c_float, _P, _I, _I, _I,
+                         _I, _P],
+}
+
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get('CUDA_HOME') or '/usr/local/cuda'
+    found = shutil.which('nvcc') or str(Path(cuda_home) / 'bin' / 'nvcc')
+    if not Path(found).exists():
+        raise RuntimeError('nvcc not found: the CUDA kernels need the CUDA '
+                           'toolkit (set CUDA_HOME or put nvcc on PATH)')
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob('*.cu*')):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` unless the library for these sources exists;
+    return its path. nvcc's output (ptxas registers, shared memory,
+    spills) is kept beside it as ``.log``."""
+    so = BUILD_DIR / f'libsrtpu_kernels_{_digest()}.so'
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f'.{os.getpid()}.tmp')
+    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
+           *(str(s) for s in sorted(CSRC.glob('*.cu')))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
+                           f'{proc.stdout}{proc.stderr}')
+    so.with_suffix('.log').write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, so)     # atomic: a concurrent reader sees all or none
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The bound kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f'{what}: CUDA error {err}')
+
+
+def expect(t, name: str, dtype, shape, device) -> None:
+    """Raise unless ``t`` is what a kernel takes: on ``device``, of
+    ``dtype`` and ``shape``, contiguous and 16-byte aligned (the kernels
+    move 16-byte vectors)."""
+    if t.device != device:
+        raise ValueError(f'{name} is on {t.device}, expected {device}')
+    if t.dtype != dtype:
+        raise TypeError(f'{name} is {t.dtype}, the kernel takes {dtype}')
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f'{name} has shape {tuple(t.shape)}, expected '
+                         f'{tuple(shape)}')
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f'{name} must be contiguous and 16-byte aligned')
+
+
+def stream(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,229 @@
+// Shared building blocks of the port's 3x3 convolution kernels (sm_90a).
+//
+// Layout: activations are NHWC bf16, weights HWIO bf16 (3, 3, Cin, Cout),
+// biases f32. A block computes one output tile of TH x TW pixels of one
+// image as an implicit GEMM on the tensor cores (nvcuda::wmma, bf16 in,
+// f32 accumulate):
+//
+//   out[p, n] = sum_{tap, k} X[p + tap_offset, k] * W[tap, k, n]
+//
+// The input tile (with its halo) is staged in shared memory as a
+// flattened run of pixels whose row width WX is the tile width plus the
+// halo. Output position p = oy * WX + ox then reads input pixel
+// p + ty * WX + tx for tap (ty, tx): every tap is a constant pixel offset,
+// so any 16 consecutive positions form one wmma A tile with a constant
+// row stride. Positions with ox >= TW (the halo columns) are computed and
+// discarded; the slack pixels past the tile are zero.
+//
+// Shared-memory pixel stride is Cin + 16 bf16: a multiple of 16 elements
+// keeps every wmma pointer 32-byte aligned, and the extra 32 bytes spread
+// consecutive pixels over the banks.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+namespace srt {
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+
+typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
+typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> AFrag;
+typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> BFrag;
+
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr size_t align128(size_t n) {
+  return (n + 127) / 128 * 128;
+}
+
+// Copy the (rows x wx) NHWC window of image b whose top-left pixel is
+// (y0, x0) into dst as npix flattened pixels of stride CIN + 16. Pixels
+// outside the image and the slack past rows * wx are zero (SAME padding).
+template <int CIN>
+__device__ __forceinline__ void load_tile(bf16* __restrict__ dst,
+                                          const bf16* __restrict__ x, int b,
+                                          int H, int W, int y0, int x0,
+                                          int rows, int wx, int npix) {
+  constexpr int PS = CIN + 16;
+  constexpr int VEC = CIN / 8;  // 16-byte vectors per pixel
+  const int total = npix * VEC;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int p = i / VEC, v = i % VEC;
+    const int ly = p / wx, lx = p % wx;
+    const int gy = y0 + ly, gx = x0 + lx;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (ly < rows && gy >= 0 && gy < H && gx >= 0 && gx < W) {
+      val = *reinterpret_cast<const uint4*>(
+          x + (((size_t)b * H + gy) * W + gx) * CIN + v * 8);
+    }
+    *reinterpret_cast<uint4*>(dst + (size_t)p * PS + v * 8) = val;
+  }
+}
+
+// Copy output columns [n0, n0 + NB) of an HWIO weight (9 * CIN rows of
+// cout) into dst as (9 * CIN, NB) row-major.
+template <int CIN, int NB>
+__device__ __forceinline__ void load_weights(bf16* __restrict__ dst,
+                                             const bf16* __restrict__ w,
+                                             int cout, int n0) {
+  constexpr int VEC = NB / 8;
+  constexpr int total = 9 * CIN * VEC;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int row = i / VEC, v = i % VEC;
+    *reinterpret_cast<uint4*>(dst + (size_t)row * NB + v * 8) =
+        *reinterpret_cast<const uint4*>(w + (size_t)row * cout + n0 + v * 8);
+  }
+}
+
+// acc[n] = 3x3 conv of the staged tile xs at the 16 flattened positions
+// starting at p0, for output columns [16 n, 16 n + 16) of the staged
+// weights ws.
+template <int CIN, int NB>
+__device__ __forceinline__ void mma_3x3(AccFrag (&acc)[NB / 16],
+                                        const bf16* __restrict__ xs,
+                                        const bf16* __restrict__ ws, int p0,
+                                        int wx) {
+  constexpr int PS = CIN + 16;
+#pragma unroll
+  for (int n = 0; n < NB / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
+#pragma unroll 1
+  for (int tap = 0; tap < 9; ++tap) {
+    const bf16* a_base = xs + (size_t)(p0 + (tap / 3) * wx + tap % 3) * PS;
+    const bf16* b_base = ws + (size_t)tap * CIN * NB;
+#pragma unroll
+    for (int k0 = 0; k0 < CIN; k0 += 16) {
+      AFrag a;
+      wmma::load_matrix_sync(a, a_base + k0, PS);
+#pragma unroll
+      for (int n = 0; n < NB / 16; ++n) {
+        BFrag bw;
+        wmma::load_matrix_sync(bw, b_base + (size_t)k0 * NB + n * 16, NB);
+        wmma::mma_sync(acc[n], a, bw, acc[n]);
+      }
+    }
+  }
+}
+
+// Stage one 16x16 accumulator in the warp's f32 scratch and hand back the
+// 8 values this lane owns: row lane / 2, columns 8 * (lane % 2) .. +7.
+__device__ __forceinline__ void lane_values(float* __restrict__ scr,
+                                            const AccFrag& acc, int lane,
+                                            float (&v)[8]) {
+  wmma::store_matrix_sync(scr, acc, 16, wmma::mem_row_major);
+  __syncwarp();
+  const float* src = scr + (lane >> 1) * 16 + (lane & 1) * 8;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = src[j];
+  __syncwarp();
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
+  uint4 u;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    __nv_bfloat162 t = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+    w[j] = *reinterpret_cast<uint32_t*>(&t);
+  }
+  return u;
+}
+
+__device__ __forceinline__ void unpack8(uint4 u, float (&v)[8]) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    __nv_bfloat162 t = *reinterpret_cast<const __nv_bfloat162*>(&w[j]);
+    float2 f = __bfloat1622float2(t);
+    v[2 * j] = f.x;
+    v[2 * j + 1] = f.y;
+  }
+}
+
+// Dynamic shared memory above 48 KB needs an opt-in per kernel.
+template <typename K>
+inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+// Shared-memory plan of conv3x3_kernel.
+template <int CIN, int NB, int TH, int TW>
+struct ConvPlan {
+  static constexpr int PS = CIN + 16;
+  static constexpr int WX = TW + 2;                // tile + 1-pixel halo
+  static constexpr int MF = (TH * WX + 15) / 16;   // 16-row wmma tiles
+  static constexpr int NPIX = MF * 16 + 2 * WX + 2;  // + reads of tap (2,2)
+  static constexpr size_t XS = align128((size_t)NPIX * PS * 2);
+  static constexpr size_t WS = align128((size_t)9 * CIN * NB * 2);
+  static constexpr size_t SCR = (size_t)kWarps * 256 * 4;
+  static constexpr size_t SMEM = XS + WS + SCR;
+};
+
+// One 3x3 SAME conv + bias (+ ReLU) over an NHWC image batch.
+//
+// grid = (ceil(W / TW), ceil(H / TH), B * cout / NB); block z covers image
+// z / (cout / NB) and the NB output channels of chunk z % (cout / NB).
+// SHUFFLE = false: out is NHWC (B, H, W, cout).
+// SHUFFLE = true: the weight's output channels are phase-major
+// ((a * r + b) * NB + c) and chunk j = a * r + b is stored straight to
+// fine pixel (r * y + a, r * x + b) of out (B, r H, r W, NB): the pixel
+// shuffle is the store's indexing.
+template <int CIN, int NB, int TH, int TW, bool SHUFFLE>
+__global__ void __launch_bounds__(kThreads)
+    conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                   const float* __restrict__ bias, bf16* __restrict__ out,
+                   int H, int W, int cout, int relu, int r) {
+  typedef ConvPlan<CIN, NB, TH, TW> P;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  bf16* ws = reinterpret_cast<bf16*>(smem + P::XS);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* scr = reinterpret_cast<float*>(smem + P::XS + P::WS) + warp * 256;
+
+  const int nchunks = cout / NB;
+  const int b = blockIdx.z / nchunks, chunk = blockIdx.z % nchunks;
+  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+
+  load_tile<CIN>(xs, x, b, H, W, y0 - 1, x0 - 1, TH + 2, P::WX, P::NPIX);
+  load_weights<CIN, NB>(ws, w, cout, chunk * NB);
+  __syncthreads();
+
+  for (int mf = warp; mf < P::MF; mf += kWarps) {
+    AccFrag acc[NB / 16];
+    mma_3x3<CIN, NB>(acc, xs, ws, mf * 16, P::WX);
+    const int p = mf * 16 + (lane >> 1);
+    const int oy = p / P::WX, ox = p % P::WX;
+    const int gy = y0 + oy, gx = x0 + ox;
+    const bool valid = oy < TH && ox < TW && gy < H && gx < W;
+#pragma unroll
+    for (int n = 0; n < NB / 16; ++n) {
+      float v[8];
+      lane_values(scr, acc[n], lane, v);
+      if (!valid) continue;
+      const int c0 = n * 16 + (lane & 1) * 8;  // channel within the chunk
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        v[j] += bias[chunk * NB + c0 + j];
+        if (relu) v[j] = fmaxf(v[j], 0.0f);
+      }
+      bf16* dst;
+      if (SHUFFLE) {
+        const int a = chunk / r, bb = chunk % r;
+        dst = out + (((size_t)b * H * r + gy * r + a) * ((size_t)W * r) +
+                     (size_t)gx * r + bb) * NB + c0;
+      } else {
+        dst = out + (((size_t)b * H + gy) * W + gx) * cout + chunk * NB + c0;
+      }
+      *reinterpret_cast<uint4*>(dst) = pack8(v);
+    }
+  }
+}
+
+}  // namespace srt

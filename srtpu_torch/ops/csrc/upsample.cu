@@ -1,0 +1,40 @@
+// K3: one sub-pixel upscale stage, a 3x3 conv C -> r*r*C + bias with the
+// pixel shuffle folded into the store.
+//
+// Replaces srtpu/ops/cs_conv.py:upsample_cs_fwd (kernel body
+// _ups_fwd_kernel). The TPU kernel interleaves phases with selection
+// matmuls because its lanes cannot be strided; here each block computes
+// one phase (a, b) for a tile of coarse pixels and writes its 64 channels
+// straight to fine pixel (r*y + a, r*x + b) of the (B, rH, rW, C) output,
+// so the r*r*C intermediate never exists in device memory.
+//
+// What bounds it on the H100: per coarse pixel 2 * 9 * 64 * 256 = 295
+// kFLOP against 128 bytes read and 512 bytes written (r = 2), ~460
+// FLOP/byte: compute-bound, so the tensor cores (wmma bf16, f32
+// accumulate) carry it. The input tile is re-read from L2 once per phase
+// (r*r blocks per tile); each store is one 128-byte run of channels.
+
+#include "tile_conv.cuh"
+
+namespace {
+constexpr int kTH = 7, kTW = 16;
+}
+
+// x (B, H, W, 64) bf16; w_pm (3, 3, 64, r*r*64) bf16 with phase-major
+// output channels ((a*r + b)*64 + c); b_pm (r*r*64) f32, same order;
+// out (B, r*H, r*W, 64) bf16. Returns a cudaError_t.
+extern "C" int srt_upsample_fwd(const void* x, const void* w_pm,
+                                const void* b_pm, void* out, int B, int H,
+                                int W, int C, int r, void* stream) {
+  if (C != 64 || r < 2) return (int)cudaErrorInvalidValue;
+  typedef srt::ConvPlan<64, 64, kTH, kTW> P;
+  auto kernel = srt::conv3x3_kernel<64, 64, kTH, kTW, true>;
+  cudaError_t err = srt::allow_smem(kernel, P::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, B * r * r);
+  kernel<<<grid, srt::kThreads, P::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const srt::bf16*>(x), static_cast<const srt::bf16*>(w_pm),
+      static_cast<const float*>(b_pm), static_cast<srt::bf16*>(out), H, W,
+      r * r * C, 0, r);
+  return (int)cudaGetLastError();
+}

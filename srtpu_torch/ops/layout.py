@@ -1,0 +1,107 @@
+"""Weight and activation rearrangements of the EDSR path, NHWC/HWIO.
+
+Counterparts of the layout helpers in ``srtpu/ops/cs_conv.py``. The TPU
+package stores its weights in the channel-sublane (CS) arrangement; the
+port runs NHWC activations and HWIO weights, so it needs only:
+
+* the CS -> HWIO unstacking of stored JAX weights (``w_hwio_from_cs``,
+  ``w_ps_hwio``), used by :mod:`srtpu_torch.convert`;
+* the math rewrites of the upscale tail, which are not layout: the last
+  upscale conv with phase-major output channels (``w_pm_hwio``,
+  ``b_pm``), the fine final conv recast as a coarse "phase-dense" conv
+  over those channels (``w_phase_dense``), and the final phase-major ->
+  NHWC rearrangement (``pm_to_nhwc``).
+
+Phase-major channel order is ``(a * r + b) * C + c`` for output pixel
+``(r * y + a, r * x + b)``; torch's PixelShuffle order is
+``c * r * r + a * r + b``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def w_hwio_from_cs(w_csd: torch.Tensor, c_in: int, c_out: int,
+                   kk: int = 3) -> torch.Tensor:
+    """(L, kk*C', kk*C) CS arrangement [(dy, c_out), (dx, c_in)] ->
+    (L, kk, kk, C, C') HWIO stack (cs_conv.py:w_hwio_from_cs)."""
+    n = w_csd.shape[0]
+    return w_csd.reshape(n, kk, c_out, kk, c_in).permute(0, 1, 3, 4, 2)
+
+
+def w_ps_hwio(w_arr: torch.Tensor, c: int, r: int) -> torch.Tensor:
+    """(r*r, 3C, 3C) phase-major CS stacks -> HWIO (3, 3, C, r*r*C) in
+    torch PixelShuffle channel order (cs_conv.py:w_ps_hwio)."""
+    v = w_arr.reshape(r, r, 3, c, 3, c)          # a, b, dy, c', dx, cin
+    return v.permute(2, 4, 5, 3, 0, 1).reshape(3, 3, c, c * r * r)
+
+
+def w_pm_hwio(w_hwio: torch.Tensor, r: int) -> torch.Tensor:
+    """HWIO (k, k, C, r*r*C') in torch PixelShuffle order -> the same conv
+    with phase-major output channels (cs_conv.py:w_pm_hwio, which starts
+    from the CS stacks)."""
+    kh, kw, c_in, c_out = w_hwio.shape
+    c = c_out // (r * r)
+    return w_hwio.reshape(kh, kw, c_in, c, r * r).transpose(3, 4) \
+        .reshape(kh, kw, c_in, c_out)
+
+
+def b_pm(b: torch.Tensor, r: int) -> torch.Tensor:
+    """(r*r*C,) bias in PixelShuffle order -> phase-major order."""
+    return b.reshape(-1, r * r).t().reshape(-1)
+
+
+def phase_dense_ck(fk: int, r: int) -> int:
+    """Coarse tap span of :func:`w_phase_dense` for a fine fk x fk conv
+    (cs_conv.py:phase_dense_ck): 3 for fk=3."""
+    hw = fk // 2
+    lo = -(hw // r) - (1 if hw % r else 0)       # floor(-hw / r)
+    return (r - 1 + hw) // r - lo + 1
+
+
+def w_phase_dense(w_hwio: torch.Tensor, r: int) -> torch.Tensor:
+    """Fine fk x fk conv HWIO (fk, fk, Cin, ch) -> coarse conv HWIO
+    (ck, ck, r*r*Cin, CO) reading and writing phase-major channel blocks
+    (cs_conv.py:w_phase_dense). A fine tap at offset (u - fk//2) from
+    fine position r*y + a lands on phase (a + u - fk//2) % r at coarse
+    offset floor((a + u - fk//2) / r). CO pads r*r*ch up to a multiple
+    of 16 with zero columns (the kernel's output tile width)."""
+    fk, _, cin, ch = w_hwio.shape
+    hw = fk // 2
+    lo = -(hw // r) - (1 if hw % r else 0)
+    ck = phase_dense_ck(fk, r)
+    co = -(-r * r * ch // 16) * 16
+    wpd = w_hwio.new_zeros((ck, ck, r, r, cin, co))
+    for a in range(r):
+        for b in range(r):
+            for u in range(fk):
+                for v in range(fk):
+                    fy, fx = a + u - hw, b + v - hw
+                    oc = (a * r + b) * ch
+                    wpd[fy // r - lo, fx // r - lo, fy % r, fx % r, :,
+                        oc:oc + ch] = w_hwio[u, v]
+    return wpd.reshape(ck, ck, r * r * cin, co)
+
+
+def b_phase_dense(b: torch.Tensor, r: int, co: int) -> torch.Tensor:
+    """Final-conv bias (ch,) -> the phase-dense conv's (co,) bias."""
+    return torch.cat([b.repeat(r * r), b.new_zeros(co - r * r * b.shape[0])])
+
+
+def pm_to_nhwc(y_pm: torch.Tensor, r: int, ch: int) -> torch.Tensor:
+    """Phase-major coarse NHWC (B, H, W, >= r*r*ch) -> fine NHWC
+    (B, r*H, r*W, ch); channels past r*r*ch are alignment padding
+    (cs_conv.py:pm_to_nhwc)."""
+    bsz, h, w, _ = y_pm.shape
+    y = y_pm[..., :r * r * ch].reshape(bsz, h, w, r, r, ch)
+    return y.permute(0, 1, 3, 2, 4, 5).reshape(bsz, h * r, w * r, ch)
+
+
+def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """NHWC (B, H, W, C*r*r) -> (B, H*r, W*r, C), torch PixelShuffle
+    channel order c*r*r + a*r + b (srtpu/models/common.py:pixel_shuffle)."""
+    bsz, h, w, crr = x.shape
+    c = crr // (r * r)
+    x = x.reshape(bsz, h, w, c, r, r).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(bsz, h * r, w * r, c)
