@@ -1,14 +1,25 @@
-"""Command line of the port (srtpu/cli.py). Only ``predict`` so far::
+"""Command line of the port (srtpu/cli.py): ``fit`` and ``predict``::
+
+    python -m srtpu_torch fit --datasets_dir D --train_datasets T [U ...] \\
+        --model EDSR --scale_factor 4 --n_feats 64 --n_resblocks 16 \\
+        --batch_size 16 --patch_size 128 --losses l1 --optimizer ADAM \\
+        --optimizer_params lr=1e-4 --max_epochs 20 --precision bf16 \\
+        --device cuda --seed 42 --default_root_dir OUT
 
     python -m srtpu_torch predict --weights W.pt --model EDSR \\
         --scale_factor 4 --n_feats 64 --n_resblocks 16 \\
         --datasets_dir D --predict_datasets X [Y ...] \\
         --default_root_dir OUT --precision bf16 --device cuda
 
-``--weights`` is a state dict written by ``python -m srtpu_torch.convert``
-(or ``torch.save(model.state_dict())``); without it the model is drawn
-from ``--seed``. ``--device cuda`` without a card raises: there is no
-fallback to the CPU.
+The flags are srtpu's config keys; the defaults follow
+``srtpu/config.py``. ``fit`` draws the model and the loader's stream from
+``--seed``, logs to ``<default_root_dir>/run.log`` and writes the final
+weights to ``<default_root_dir>/final_weights.pt``, which ``predict
+--weights`` reads (as does ``python -m srtpu_torch.convert``'s output).
+``fit`` runs no validation and writes no checkpoints yet (ROADMAP.md
+queue 1, items 4 and 7). ``--device cuda`` without a card raises: there
+is no fallback to the CPU. On the card x3 and ``--precision 32`` raise:
+the kernels take bf16 and no x3 tail shape (ROADMAP.md §3, F4).
 """
 
 from __future__ import annotations
@@ -16,6 +27,7 @@ from __future__ import annotations
 import argparse
 import logging
 import sys
+from pathlib import Path
 
 import torch
 
@@ -26,22 +38,36 @@ from .train import Trainer, TrainerConfig
 _logger = logging.getLogger('srtpu_torch')
 
 
+def _model_args(p: argparse.ArgumentParser, seed: int) -> None:
+    p.add_argument('--model', default='EDSR')
+    p.add_argument('--scale_factor', type=int, default=4)
+    p.add_argument('--n_feats', type=int, default=64)
+    p.add_argument('--n_resblocks', type=int, default=16)
+    p.add_argument('--datasets_dir', default='datasets')
+    p.add_argument('--default_root_dir', default='.')
+    p.add_argument('--precision', choices=('bf16', '32'), default='bf16')
+    p.add_argument('--device', default='cuda')
+    p.add_argument('--seed', type=int, default=seed)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog='python -m srtpu_torch')
     sub = p.add_subparsers(dest='command', required=True)
+    fit = sub.add_parser('fit', help='train a model on train datasets')
+    _model_args(fit, seed=42)
+    fit.add_argument('--train_datasets', nargs='+', required=True)
+    fit.add_argument('--batch_size', type=int, default=16)
+    fit.add_argument('--patch_size', type=int, default=128)
+    fit.add_argument('--losses', default='l1')
+    fit.add_argument('--optimizer', default='ADAM')
+    fit.add_argument('--optimizer_params', nargs='*', default=[])
+    fit.add_argument('--max_epochs', type=int, default=2000)
+    fit.add_argument('--limit_train_batches', type=int, default=None)
     pr = sub.add_parser('predict', help='super-resolve predict datasets')
+    _model_args(pr, seed=0)
     pr.add_argument('--weights', default=None,
                     help='torch state dict (.pt); default: init from --seed')
-    pr.add_argument('--model', default='EDSR')
-    pr.add_argument('--scale_factor', type=int, default=4)
-    pr.add_argument('--n_feats', type=int, default=64)
-    pr.add_argument('--n_resblocks', type=int, default=16)
-    pr.add_argument('--datasets_dir', default='datasets')
     pr.add_argument('--predict_datasets', nargs='+', required=True)
-    pr.add_argument('--default_root_dir', default='.')
-    pr.add_argument('--precision', choices=('bf16', '32'), default='bf16')
-    pr.add_argument('--device', default='cuda')
-    pr.add_argument('--seed', type=int, default=0)
     return p
 
 
@@ -54,27 +80,60 @@ def resolve_device(name: str) -> torch.device:
 
 
 def build_model(args, device: torch.device) -> torch.nn.Module:
-    """The model ``predict`` runs: drawn from ``args.seed``, then loaded
-    from ``args.weights`` when given."""
+    """The model drawn from ``args.seed``, then loaded from
+    ``args.weights`` when given."""
+    if device.type == 'cuda' and (args.precision != 'bf16'
+                                  or args.scale_factor == 3):
+        raise ValueError('on CUDA the kernels take bf16 and x2/x4/x8 only: '
+                         'pass --precision bf16 and a scale of 2, 4 or 8 '
+                         '(or --device cpu)')
     dtype = torch.bfloat16 if args.precision == 'bf16' else None
     model = create_model(args.model, scale_factor=args.scale_factor,
                          n_feats=args.n_feats, n_resblocks=args.n_resblocks,
                          dtype=dtype, device=device,
                          generator=torch.Generator().manual_seed(args.seed))
-    if args.weights:
-        state = torch.load(args.weights, map_location='cpu',
-                           weights_only=True)
+    weights = getattr(args, 'weights', None)
+    if weights:
+        state = torch.load(weights, map_location='cpu', weights_only=True)
         model.load_state_dict(state)
-        _logger.info('loaded weights from %s', args.weights)
+        _logger.info('loaded weights from %s', weights)
     else:
         _logger.info('no --weights: parameters initialised from seed %d',
                      args.seed)
-    return model.eval()
+    return model
+
+
+def cmd_fit(args) -> int:
+    device = resolve_device(args.device)
+    model = build_model(args, device)
+    root = Path(args.default_root_dir)
+    root.mkdir(parents=True, exist_ok=True)
+    log = logging.FileHandler(root / 'run.log')
+    log.setFormatter(logging.Formatter('%(asctime)s %(name)s %(message)s'))
+    _logger.addHandler(log)
+    try:
+        dm = SRData(datasets_dir=args.datasets_dir,
+                    train_datasets=args.train_datasets,
+                    batch_size=args.batch_size, patch_size=args.patch_size,
+                    scale_factor=args.scale_factor, seed=args.seed)
+        trainer = Trainer(TrainerConfig(
+            default_root_dir=str(root), max_epochs=args.max_epochs,
+            limit_train_batches=args.limit_train_batches))
+        trainer.fit(model, dm, losses=args.losses,
+                    optimizer_name=args.optimizer,
+                    optimizer_params=args.optimizer_params)
+        torch.save(model.state_dict(), root / 'final_weights.pt')
+        _logger.info('fit done: %d steps; weights at %s', trainer.global_step,
+                     root / 'final_weights.pt')
+    finally:
+        _logger.removeHandler(log)
+        log.close()
+    return 0
 
 
 def cmd_predict(args) -> int:
     device = resolve_device(args.device)
-    model = build_model(args, device)
+    model = build_model(args, device).eval()
     dm = SRData(datasets_dir=args.datasets_dir,
                 predict_datasets=args.predict_datasets,
                 scale_factor=args.scale_factor)
@@ -85,9 +144,9 @@ def cmd_predict(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format='%(asctime)s %(name)s %(message)s')
-    return {'predict': cmd_predict}[args.command](args)
+    logging.basicConfig(format='%(asctime)s %(name)s %(message)s')
+    _logger.setLevel(logging.INFO)
+    return {'fit': cmd_fit, 'predict': cmd_predict}[args.command](args)
 
 
 if __name__ == '__main__':

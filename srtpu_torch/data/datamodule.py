@@ -1,32 +1,73 @@
-"""The predict half of srtpu's ``SRData`` (srtpu/data/datamodule.py)."""
+"""SRData (srtpu/data/datamodule.py): training and predict datasets
+under ``datasets_dir``.
+
+A training dataset is ``<datasets_dir>/<name>/HR`` with its LR, when
+present, at ``<name>/LR/X{scale}``; ``.npy``/``.npz`` folders read
+through :class:`NpySource`, image folders through
+:class:`ImageFolderSource`. A predict dataset is a flat LR folder, or
+``<name>/LR/X{scale}`` / ``<name>/LR``. Validation datasets are not
+ported yet (ROADMAP.md queue 1, items 4 and 7): asking for one raises.
+"""
 
 from __future__ import annotations
 
-from .pipeline import PredictLoader
-from .sources import predict_dir
+from pathlib import Path
+
+from .pipeline import PredictLoader, TrainLoader
+from .sources import ConcatSource, ImageFolderSource, NpySource, predict_dir
 
 
 class SRData:
-    """Predict datasets under ``datasets_dir``: each a flat image folder,
-    or ``<name>/LR/X{scale}`` / ``<name>/LR``. Inputs are edge-padded to
-    ``eval_bucket`` multiples, as srtpu's predict loader does."""
-
     def __init__(self, datasets_dir: str = 'datasets',
+                 train_datasets: list[str] | tuple[str, ...] = (),
                  predict_datasets: list[str] | tuple[str, ...] = (),
-                 scale_factor: int = 4, eval_bucket: int = 32):
-        self.datasets_dir = datasets_dir
+                 eval_datasets: list[str] | tuple[str, ...] = (),
+                 batch_size: int = 16, patch_size: int = 128,
+                 scale_factor: int = 4, seed: int = 0, eval_bucket: int = 32):
+        if eval_datasets:
+            raise NotImplementedError(
+                'validation datasets are not ported to srtpu_torch yet '
+                '(ROADMAP.md queue 1, items 4 and 7)')
+        self.datasets_dir = Path(datasets_dir)
+        self.train_dataset_names = list(train_datasets)
         self.predict_dataset_names = list(predict_datasets)
+        self.batch_size = batch_size
+        self.patch_size = patch_size
         self.scale_factor = scale_factor
+        self.seed = seed
         self.eval_bucket = eval_bucket
+        self._train_source = None
         self._folders = None
 
+    def _train_source_of(self, name: str):
+        hr = self.datasets_dir / name / 'HR'
+        if not hr.is_dir():
+            raise FileNotFoundError(f'Could not find HR images for dataset '
+                                    f'{name} in {hr}.')
+        lr = self.datasets_dir / name / 'LR' / f'X{self.scale_factor}'
+        npy = any(hr.glob('*.npy')) or any(hr.glob('*.npz'))
+        cls = NpySource if npy else ImageFolderSource
+        return cls(hr, lr if lr.is_dir() else None, self.scale_factor,
+                   cache=True)     # every epoch re-reads every image
+
     def setup(self, stage: str = 'predict') -> None:
-        if stage != 'predict':
+        if stage == 'fit':
+            self._train_source = ConcatSource(
+                [self._train_source_of(n) for n in self.train_dataset_names])
+        elif stage == 'predict':
+            self._folders = [predict_dir(self.datasets_dir, n,
+                                         self.scale_factor)
+                             for n in self.predict_dataset_names]
+        else:
             raise NotImplementedError(
-                f'srtpu_torch has only the predict stage so far, not '
-                f'{stage!r}; see ROADMAP.md')
-        self._folders = [predict_dir(self.datasets_dir, n, self.scale_factor)
-                         for n in self.predict_dataset_names]
+                f'srtpu_torch has the fit and predict stages, not '
+                f'{stage!r} (ROADMAP.md queue 1, item 4)')
+
+    def train_loader(self) -> TrainLoader:
+        if self._train_source is None:
+            raise RuntimeError('call setup("fit") first')
+        return TrainLoader(self._train_source, self.batch_size,
+                           self.patch_size, self.scale_factor, seed=self.seed)
 
     def predict_loaders(self) -> list[PredictLoader]:
         if self._folders is None:

@@ -1,5 +1,6 @@
-"""Host-side predict batching: bucket padding and center crops
-(srtpu/data/pipeline.py:85-111, EvalLoader's predict mode :357-365)."""
+"""Host-side batching (srtpu/data/pipeline.py): the training loader's
+patch sampling and augmentation, predict bucket padding and center
+crops."""
 
 from __future__ import annotations
 
@@ -8,13 +9,14 @@ from typing import Iterator, NamedTuple
 
 import numpy as np
 
-from .sources import list_images, load_image
+from .sources import Source, list_images, load_image
 
 
 class Batch(NamedTuple):
-    lr: np.ndarray                # (1, H', W', 3) float32, bucket-padded
-    names: tuple[str, ...]
-    hr_size: tuple[int, int]      # SR size before padding: (H * s, W * s)
+    lr: np.ndarray                # (N, H', W', 3) float32
+    hr: np.ndarray | None = None  # training: (N, patch, patch, 3) float32
+    names: tuple[str, ...] = ()
+    hr_size: tuple[int, int] | None = None   # predict: SR size unpadded
 
 
 def center_crop(img: np.ndarray, th: int, tw: int) -> np.ndarray:
@@ -42,6 +44,99 @@ def pad_to_bucket(img: np.ndarray, bucket: int):
         return img, (h, w)
     padded = np.pad(img, ((0, ph - h), (0, pw - w), (0, 0)), mode='edge')
     return padded, (h, w)
+
+
+class TrainLoader:
+    """Shuffled epochs of aligned random LR/HR patches with 8-way
+    augmentation, one static batch shape (srtpu ``TrainLoader`` in one
+    process). It draws srtpu's random stream exactly: per epoch
+    ``default_rng((seed, epoch))``, a permutation of the items, then per
+    batch the vectorized crop and augment draws (srtpu
+    ``_draw_params``), so a seed gives srtpu's batches bit for bit.
+    Batches are made on the host, in the consumer's thread."""
+
+    def __init__(self, source: Source, batch_size: int, patch_size: int,
+                 scale_factor: int, augment: bool = True, seed: int = 0,
+                 drop_remainder: bool = True):
+        if patch_size % scale_factor:
+            raise ValueError(f'patch size ({patch_size}) must be divisible '
+                             f'by scale ({scale_factor})')
+        self._source = source
+        self._batch = batch_size
+        self._patch = patch_size
+        self._scale = scale_factor
+        self._augment = augment
+        self._seed = seed
+        self._drop = drop_remainder
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        n = len(self._source)
+        return n // self._batch if self._drop else -(-n // self._batch)
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+
+    def peek(self) -> Batch:
+        """One batch for shape inspection, from a stream of its own (the
+        epochs' streams are untouched)."""
+        rng = np.random.default_rng((self._seed, 2 ** 31))
+        n = len(self._source)
+        idx = np.resize(np.arange(min(self._batch, n)), self._batch)
+        return self._make_batch(idx, rng)
+
+    def _draw_params(self, rng, lrs):
+        n = len(lrs)
+        lp = self._patch // self._scale
+        lhs = np.array([a.shape[0] for a in lrs])
+        lws = np.array([a.shape[1] for a in lrs])
+        ys = rng.integers(0, lhs - lp + 1).astype(np.int32)
+        xs = rng.integers(0, lws - lp + 1).astype(np.int32)
+        if self._augment:
+            rots = rng.integers(0, 4, n).astype(np.int32)
+            hfs = rng.integers(0, 2, n).astype(np.int32)
+            vfs = rng.integers(0, 2, n).astype(np.int32)
+        else:
+            rots = hfs = vfs = np.zeros(n, np.int32)
+        return ys, xs, rots, hfs, vfs
+
+    def _make_batch(self, indices, rng) -> Batch:
+        n = len(indices)
+        lp, s = self._patch // self._scale, self._scale
+        items = [self._source.get(int(i)) for i in indices]
+        lrs = [np.ascontiguousarray(lr, np.float32) for lr, _, _ in items]
+        hrs = [np.ascontiguousarray(hr, np.float32) for _, hr, _ in items]
+        ys, xs, rots, hfs, vfs = self._draw_params(rng, lrs)
+        out_lr = np.empty((n, lp, lp, 3), np.float32)
+        out_hr = np.empty((n, self._patch, self._patch, 3), np.float32)
+        for j in range(n):
+            y, x = int(ys[j]), int(xs[j])
+            lr_p = lrs[j][y:y + lp, x:x + lp]
+            hr_p = hrs[j][y * s:(y + lp) * s, x * s:(x + lp) * s]
+            if rots[j]:
+                lr_p = np.rot90(lr_p, rots[j])
+                hr_p = np.rot90(hr_p, rots[j])
+            if hfs[j]:
+                lr_p, hr_p = lr_p[:, ::-1], hr_p[:, ::-1]
+            if vfs[j]:
+                lr_p, hr_p = lr_p[::-1], hr_p[::-1]
+            out_lr[j] = lr_p
+            out_hr[j] = hr_p
+        return Batch(lr=out_lr, hr=out_hr,
+                     names=tuple(name for _, _, name in items))
+
+    def __iter__(self) -> Iterator[Batch]:
+        rng = np.random.default_rng((self._seed, self._epoch))
+        order = rng.permutation(len(self._source))
+        try:
+            for b in range(len(self)):
+                idx = order[b * self._batch:(b + 1) * self._batch]
+                if len(idx) < self._batch:      # only without drop
+                    idx = np.concatenate(
+                        [idx, order[:self._batch - len(idx)]])
+                yield self._make_batch(idx, rng)
+        finally:
+            self._epoch += 1
 
 
 class PredictLoader:

@@ -1,9 +1,16 @@
-"""Predict inputs: locate a predict dataset's LR folder, list its images
-and decode them to float32 HWC arrays in [0, 1]
-(srtpu/data/sources.py, srtpu/data/datamodule.py:135-160).
+"""Dataset sources (srtpu/data/sources.py): decode images to float32 HWC
+arrays in [0, 1] with srtpu's uint8/uint16 -> float conversion.
 
-``.npy`` files need nothing beyond numpy; ``.png``/``.jpg``/... decode
-through Pillow, which is imported only when such a file is read.
+* :class:`NpySource` and :class:`ImageFolderSource` read a training
+  dataset's ``HR`` folder and, when it exists, its ``LR/X{scale}``
+  folder (paired by sorted order); :class:`ConcatSource` chains them;
+* predict datasets are flat LR folders (:func:`predict_dir`,
+  :func:`list_images`).
+
+``.npy`` files need nothing beyond numpy. ``.png``/``.jpg``/... decode
+through Pillow, and a dataset without ``LR/X{scale}`` synthesizes its LR
+with Pillow's bicubic resize, as srtpu does; Pillow is imported only
+then, and its absence raises a clear error: supply the LR instead.
 """
 
 from __future__ import annotations
@@ -13,6 +20,7 @@ from pathlib import Path
 import numpy as np
 
 IMG_EXTENSIONS = {'.jpg', '.jpeg', '.png', '.ppm', '.bmp'}
+NPY_EXTENSIONS = {'.npy', '.npz'}
 PREDICT_EXTENSIONS = IMG_EXTENSIONS | {'.npy'}
 
 
@@ -24,22 +32,114 @@ def to_float(arr: np.ndarray) -> np.ndarray:
     return arr.astype(np.float32)
 
 
-def load_image(path) -> np.ndarray:
-    """(H, W, 3) float32 image."""
-    path = Path(path)
-    if path.suffix.lower() == '.npy':
-        arr = np.load(path)
-        if arr.ndim != 3 or arr.shape[-1] != 3:
-            raise ValueError(f'{path}: expected an (H, W, 3) array, got '
-                             f'{arr.shape}')
-        return to_float(arr)
+def _pillow(what: str):
     try:
         from PIL import Image
     except ImportError as e:
-        raise RuntimeError(f'{path}: decoding {path.suffix} needs Pillow; '
-                           f'pass .npy images instead') from e
-    with Image.open(path) as im:
+        raise RuntimeError(f'{what} needs Pillow, which is not installed; '
+                           f'supply .npy images (and their LR at '
+                           f'LR/X<scale>) instead') from e
+    return Image
+
+
+def _load_npy(path) -> np.ndarray:
+    arr = np.load(path)
+    if not isinstance(arr, np.ndarray):  # .npz archive: first array
+        arr = arr[list(arr.files)[0]]
+    return to_float(arr)
+
+
+def load_image(path) -> np.ndarray:
+    """(H, W, 3) float32 image from ``.npy``/``.npz`` or an image file."""
+    path = Path(path)
+    if path.suffix.lower() in NPY_EXTENSIONS:
+        arr = _load_npy(path)
+        if arr.ndim != 3 or arr.shape[-1] != 3:
+            raise ValueError(f'{path}: expected an (H, W, 3) array, got '
+                             f'{arr.shape}')
+        return arr
+    with _pillow(f'decoding {path}').open(path) as im:
         return to_float(np.asarray(im.convert('RGB')))
+
+
+def bicubic_downscale(hr: np.ndarray, scale: int) -> np.ndarray:
+    """Pillow bicubic downscale of a [0, 1] image, quantized to uint8 as
+    srtpu's ``bicubic_downscale`` does."""
+    image = _pillow('synthesizing a missing LR (no LR/X<scale> folder)')
+    h, w = hr.shape[:2]
+    img = image.fromarray((np.clip(hr, 0, 1) * 255.0 + 0.5).astype(np.uint8))
+    return to_float(np.asarray(img.resize((w // scale, h // scale),
+                                          image.BICUBIC)))
+
+
+class Source:
+    """Interface: len() items; get(i) -> (lr, hr, name)."""
+
+    def __len__(self) -> int:
+        raise NotImplementedError
+
+    def get(self, index: int):
+        raise NotImplementedError
+
+
+class _FolderSource(Source):
+    """HR files of one extension set, with LR paired by sorted order or
+    synthesized; decoded items cached in RAM when ``cache``."""
+
+    extensions: set[str] = set()
+
+    def __init__(self, hr_dir, lr_dir=None, scale_factor: int = 4,
+                 cache: bool = False):
+        self._scale = scale_factor
+        self._hr_files = self._list(hr_dir)
+        self._lr_files = None if lr_dir is None else self._list(lr_dir)
+        if self._lr_files is not None and \
+                len(self._lr_files) != len(self._hr_files):
+            raise ValueError(f'LR/HR count mismatch: {len(self._lr_files)} '
+                             f'vs {len(self._hr_files)}')
+        self._cache: dict[int, tuple] | None = {} if cache else None
+
+    def _list(self, folder) -> list[Path]:
+        return sorted(f for f in Path(folder).glob('*')
+                      if f.suffix.lower() in self.extensions)
+
+    def __len__(self) -> int:
+        return len(self._hr_files)
+
+    def get(self, index: int):
+        if self._cache is not None and index in self._cache:
+            return self._cache[index]
+        path = self._hr_files[index]
+        hr = load_image(path)
+        lr = bicubic_downscale(hr, self._scale) if self._lr_files is None \
+            else load_image(self._lr_files[index])
+        item = (lr, hr, path.stem)
+        if self._cache is not None:
+            self._cache[index] = item
+        return item
+
+
+class NpySource(_FolderSource):
+    extensions = NPY_EXTENSIONS
+
+
+class ImageFolderSource(_FolderSource):
+    extensions = IMG_EXTENSIONS
+
+
+class ConcatSource(Source):
+    """Concatenation of sources (srtpu ``ConcatSource``)."""
+
+    def __init__(self, sources: list[Source]):
+        self._sources = sources
+        self._offsets = np.cumsum([0] + [len(s) for s in sources])
+
+    def __len__(self):
+        return int(self._offsets[-1])
+
+    def get(self, index):
+        src = int(np.searchsorted(self._offsets, index, side='right')) - 1
+        return self._sources[src].get(index - int(self._offsets[src]))
 
 
 def predict_dir(datasets_dir, name: str, scale: int) -> Path:

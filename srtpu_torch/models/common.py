@@ -1,12 +1,15 @@
-"""Building blocks of the EDSR predict path (NHWC, HWIO weights).
+"""Building blocks of the EDSR model (NHWC, HWIO weights).
 
 Counterparts of ``srtpu/models/common.py``: ``Conv2d`` (torch-default
 init), ``mean_shift``, ``pixel_shuffle``, ``Trunk`` (``CSTrunk``) and
 ``UpscaleTail`` (``CSUpscaleTail`` with ``act=None, final_ksize=3``).
 Parameters are f32; ``dtype`` is the compute type (bf16 on the card).
-Every module's ``forward`` takes ``plain=False``: True runs the kernels'
-plain PyTorch versions on any device, which is how a run on the card is
-held against the kernels.
+The kernel ops take the f32 parameters and cast inside, so under
+autograd their weight grads come back in f32 (as srtpu's ``custom_vjp``s
+do); the tail's weight rewrites (``w_pm_hwio``, ``w_phase_dense``) stay
+f32 and differentiable. Every module's ``forward`` takes ``plain=False``:
+True runs the kernels' plain PyTorch versions on any device, which is
+how a run on the card is held against the kernels.
 """
 
 from __future__ import annotations
@@ -18,8 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import (conv3x3_fwd, conv3x3_plain, trunk_fwd, trunk_plain,
-                   upsample_fwd, upsample_plain)
+from ..ops import conv3x3, trunk, upsample
 from ..ops.layout import (b_phase_dense, b_pm, pixel_shuffle, pm_to_nhwc,
                           w_phase_dense, w_pm_hwio)
 
@@ -94,12 +96,10 @@ class Trunk(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype,
                 plain: bool = False) -> torch.Tensor:
-        trunk = trunk_plain if plain else trunk_fwd
-        conv = conv3x3_plain if plain else conv3x3_fwd
         xd = x.to(dtype)
-        res = trunk(xd, self.w1.to(dtype), self.b1.float(),
-                    self.w2.to(dtype), self.b2.float(), self.res_scale)
-        res = conv(res, self.close_weight.to(dtype), self.close_bias.float())
+        res = trunk(xd, self.w1, self.b1, self.w2, self.b2, self.res_scale,
+                    plain)
+        res = conv3x3(res, self.close_weight, self.close_bias, plain)
         return res + xd       # the skip is one more rounding, as in srtpu
 
 
@@ -140,18 +140,14 @@ class UpscaleTail(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype,
                 plain: bool = False) -> torch.Tensor:
-        ups = upsample_plain if plain else upsample_fwd
-        conv = conv3x3_plain if plain else conv3x3_fwd
         y = x.to(dtype)
         for i, r in enumerate(self.rs[:-1]):
-            y = ups(y, getattr(self, f'up{i}_weight').to(dtype),
-                    getattr(self, f'up{i}_bias').float(), r)
+            y = upsample(y, getattr(self, f'up{i}_weight'),
+                         getattr(self, f'up{i}_bias'), r, plain)
         r, last = self.rs[-1], len(self.rs) - 1
-        y = conv(y, w_pm_hwio(getattr(self, f'up{last}_weight'), r)
-                 .to(dtype).contiguous(),
-                 b_pm(getattr(self, f'up{last}_bias'), r).float()
-                 .contiguous())
-        wpd = w_phase_dense(self.final_weight, r).to(dtype).contiguous()
-        bpd = b_phase_dense(self.final_bias, r, wpd.shape[-1]).float()
-        y = conv(y, wpd, bpd.contiguous())
+        y = conv3x3(y, w_pm_hwio(getattr(self, f'up{last}_weight'), r),
+                    b_pm(getattr(self, f'up{last}_bias'), r), plain)
+        wpd = w_phase_dense(self.final_weight, r)
+        bpd = b_phase_dense(self.final_bias, r, wpd.shape[-1])
+        y = conv3x3(y, wpd, bpd, plain)
         return pm_to_nhwc(y, r, self.channels)

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc and bind them through ctypes.
 
-Every ``csrc/*.cu`` compiles into one shared library with a plain C
-interface, at first use, into ``build/srtpu_torch/`` beside the package
+Every ``csrc/*.cu`` compiles (one nvcc per source, all started
+together) and links into one shared library with a plain C interface,
+at first use, into ``build/srtpu_torch/`` beside the package
 (git-ignored). The library's name carries a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one loads at once.
 Each C entry point launches on the stream it is given and returns
@@ -20,16 +21,21 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'srtpu_torch'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+              '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures: name -> argtypes (every entry point returns int)
 SIGNATURES = {
     'srt_conv3x3_fwd': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     'srt_upsample_fwd': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    'srt_resblock_fwd': [_P, _P, _P, _P, _P, ctypes.c_float, _P, _I, _I, _I,
-                         _I, _P],
+    'srt_upsample_bwd_dx': [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    'srt_resblock_fwd': [_P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P],
+    'srt_resblock_bwd': [_P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P],
+    'srt_conv_wgrad': [_P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _I,
+                       _I, _I, _F, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -52,22 +58,43 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(procs: list) -> str:
+    """Wait for every nvcc process; raise with its output if one failed."""
+    out = []
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed ({proc.returncode}): '
+                               f'{" ".join(cmd)}\n{stdout}{stderr}')
+        out.append(stdout + stderr)
+    return ''.join(out)
+
+
+def _start(cmd: list) -> tuple:
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless the library for these sources exists;
-    return its path. nvcc's output (ptxas registers, shared memory,
-    spills) is kept beside it as ``.log``."""
+    return its path. One nvcc per source runs in parallel, then one links.
+    nvcc's output (ptxas registers, shared memory, spills) is kept beside
+    the library as ``.log``."""
     so = BUILD_DIR / f'libsrtpu_kernels_{_digest()}.so'
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f'.{os.getpid()}.tmp')
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
-           *(str(s) for s in sorted(CSRC.glob('*.cu')))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                           f'{proc.stdout}{proc.stderr}')
-    so.with_suffix('.log').write_text(proc.stdout + proc.stderr)
+    nvcc = _nvcc()
+    objs = [tmp.with_name(f'{tmp.name}.{src.stem}.o')
+            for src in sorted(CSRC.glob('*.cu'))]
+    log = _run([_start([nvcc, *NVCC_FLAGS, '-c', '-o', str(obj), str(src)])
+                for src, obj in zip(sorted(CSRC.glob('*.cu')), objs)])
+    log += _run([_start([nvcc, *NVCC_FLAGS, '-shared', '-o', str(tmp),
+                         *(str(o) for o in objs)])])
+    for obj in objs:
+        obj.unlink()
+    so.with_suffix('.log').write_text(log)
     os.replace(tmp, so)     # atomic: a concurrent reader sees all or none
     return so
 

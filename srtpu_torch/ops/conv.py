@@ -1,9 +1,14 @@
-"""K2: 3x3 SAME conv + bias (+ ReLU), NHWC bf16 -> bf16, f32 sums.
+"""K2: 3x3 SAME conv + bias, NHWC bf16 -> bf16, f32 sums, and its
+backward.
 
-Replaces ``srtpu/ops/cs_conv.py:conv3x3_cs_fwd``; the kernel is
+Replaces ``srtpu/ops/cs_conv.py:conv3x3_cs_fwd`` and ``conv3x3_cs_bwd``
+(behind ``conv3x3_cs`` / ``conv3x3_cs_pre``). The forward kernel is
 ``csrc/conv.cu``, whose head note says what bounds it on the H100 and
-how its design answers that. :func:`conv3x3_fwd` launches the kernel for
-CUDA tensors and takes the plain version only for CPU tensors.
+how its design answers that; the backward's dx is the same kernel with
+the transposed weight and no bias, its dW and db the weight-grad kernel
+(:mod:`.wgrad`). :func:`conv3x3_fwd` and :func:`conv3x3_bwd` launch the
+kernels for CUDA tensors and take the plain versions only for CPU
+tensors. :func:`conv3x3` is the differentiable op (:class:`Conv3x3Fn`).
 """
 
 from __future__ import annotations
@@ -12,15 +17,18 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .layout import w_t
+from .wgrad import conv_wgrad, conv_wgrad_plain
 
 
-def conv_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+def conv_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None
              ) -> torch.Tensor:
-    """kxk SAME conv of NHWC ``x`` with HWIO ``w`` plus ``b``, in f32 with
-    no rounding (the kernels' accumulator, before the bf16 store)."""
+    """kxk SAME conv of NHWC ``x`` with HWIO ``w`` (plus ``b``), in f32
+    with no rounding (the kernels' accumulator, before the bf16 store)."""
     y = F.conv2d(x.permute(0, 3, 1, 2).float(),
                  w.permute(3, 2, 0, 1).float(), padding=w.shape[0] // 2)
-    return y.permute(0, 2, 3, 1) + b.float()
+    y = y.permute(0, 2, 3, 1)
+    return y if b is None else y + b.float()
 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -33,19 +41,44 @@ def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y.to(x.dtype).contiguous()
 
 
+def conv3x3_bwd_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain backward, rounding where ``_conv_bwd_kernel`` does: dx = one
+    rounding to x.dtype of the f32 transposed conv of g; dW = sum over
+    pixels of x (x) g in f32 (HWIO); db = sum of g in f32."""
+    dx = conv_f32(g, w_t(w)).to(x.dtype).contiguous()
+    return (dx, *conv_wgrad_plain(x, g))
+
+
+def _lib_conv(x, w, b, out, relu: bool) -> None:
+    bsz, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.srt_conv3x3_fwd(
+            x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
+            out.data_ptr(), bsz, h, wd, cin, cout, int(relu),
+            _build.stream(x.device))
+    _build.check(err, 'srt_conv3x3_fwd')
+
+
+def _engine_takes(cin: int, cout: int) -> bool:
+    return ((cin in (16, 64) and cout % 64 == 0)
+            or (cin == 256 and cout % 16 == 0))
+
+
 def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                 relu: bool = False) -> torch.Tensor:
     """x (B, H, W, Cin) bf16; w (3, 3, Cin, Cout) bf16; b (Cout,) f32 ->
-    (B, H, W, Cout) bf16. On CUDA: Cin = 64 with Cout % 64 == 0, or
-    Cin = 256 with Cout % 16 == 0 (the EDSR tail's shapes)."""
+    (B, H, W, Cout) bf16. On CUDA: Cin = 16 or 64 with Cout % 64 == 0,
+    or Cin = 256 with Cout % 16 == 0 (the EDSR tail's shapes)."""
     if x.device.type == 'cpu':
         return conv3x3_plain(x, w, b, relu)
     if x.device.type != 'cuda':
         raise ValueError(f'conv3x3_fwd: no kernel for device {x.device}')
     bsz, h, wd, cin = x.shape
     cout = w.shape[-1]
-    if not ((cin == 64 and cout % 64 == 0)
-            or (cin == 256 and cout % 16 == 0)):
+    if not _engine_takes(cin, cout):
         raise ValueError(f'conv3x3_fwd: no kernel for {cin} -> {cout} '
                          f'channels')
     dev = x.device
@@ -53,14 +86,69 @@ def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     _build.expect(w, 'w', torch.bfloat16, (3, 3, cin, cout), dev)
     _build.expect(b, 'b', torch.float32, (cout,), dev)
     out = torch.empty((bsz, h, wd, cout), dtype=torch.bfloat16, device=dev)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.srt_conv3x3_fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                                  out.data_ptr(), bsz, h, wd, cin, cout,
-                                  int(relu), _build.stream(dev))
-    _build.check(err, 'srt_conv3x3_fwd')
+    _lib_conv(x, w, b, out, relu)
     conv3x3_fwd.launches += 1
     return out
 
 
+def conv3x3_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x (B, H, W, Cin) bf16; w (3, 3, Cin, Cout) bf16; g (B, H, W, Cout)
+    bf16 -> dx bf16, dW (3, 3, Cin, Cout) f32, db (Cout,) f32. On CUDA:
+    the EDSR path's 64 -> 64, 64 -> 256 and 256 -> 16."""
+    if x.device.type == 'cpu':
+        return conv3x3_bwd_plain(x, w, g)
+    if x.device.type != 'cuda':
+        raise ValueError(f'conv3x3_bwd: no kernel for device {x.device}')
+    bsz, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    if not _engine_takes(cout, cin):
+        raise ValueError(f'conv3x3_bwd: no kernel for {cin} -> {cout} '
+                         f'channels')
+    dev = x.device
+    _build.expect(x, 'x', torch.bfloat16, (bsz, h, wd, cin), dev)
+    _build.expect(w, 'w', torch.bfloat16, (3, 3, cin, cout), dev)
+    _build.expect(g, 'g', torch.bfloat16, (bsz, h, wd, cout), dev)
+    dx = torch.empty_like(x)
+    _lib_conv(g, w_t(w).contiguous(), None, dx, False)
+    conv3x3_bwd.launches += 1
+    return (dx, *conv_wgrad(x, g))
+
+
 conv3x3_fwd.launches = 0
+conv3x3_bwd.launches = 0
+
+
+class Conv3x3Fn(torch.autograd.Function):
+    """Differentiable K2 (srtpu ``conv3x3_cs``): takes the f32 weight and
+    bias, casts the weight to x's dtype inside, saves (x, weight) and
+    returns dW and db in f32."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, plain: bool):
+        wd = w.to(x.dtype).contiguous()
+        y = (conv3x3_plain if plain else conv3x3_fwd)(
+            x, wd, b.float().contiguous())
+        ctx.save_for_backward(x, wd)
+        ctx.plain = plain
+        ctx.dtypes = (w.dtype, b.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wd = ctx.saved_tensors
+        dx, dw, db = (conv3x3_bwd_plain if ctx.plain else conv3x3_bwd)(
+            x, wd, g.contiguous())
+        return dx, dw.to(ctx.dtypes[0]), db.to(ctx.dtypes[1]), None
+
+
+def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+            plain: bool = False) -> torch.Tensor:
+    """3x3 SAME conv + bias in x's dtype from f32 (or any) parameters:
+    the autograd op when a gradient is wanted, else the forward alone.
+    ``plain`` runs the plain versions on any device."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
+                                    or b.requires_grad):
+        return Conv3x3Fn.apply(x, w, b, plain)
+    return (conv3x3_plain if plain else conv3x3_fwd)(
+        x, w.to(x.dtype).contiguous(), b.float().contiguous())

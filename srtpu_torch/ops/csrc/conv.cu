@@ -16,6 +16,13 @@
 // memory once per tile (1.4x for the halo at 7 x 16 tiles), feeds the
 // tensor cores through wmma bf16 tiles and keeps the sums in f32
 // registers; only the bf16 result is written. No wgmma/TMA yet.
+//
+// The same entry point, with no bias and the transposed weight
+// w[2 - ky, 2 - kx, co, ci], is the dx half of K2's backward
+// (srtpu/ops/cs_conv.py:conv3x3_cs_bwd, _conv_bwd_kernel): dx is the
+// transposed conv of the cotangent, summed in f32 and rounded once. Its
+// shapes on the EDSR path are 64 -> 64, 256 -> 64 and 16 -> 256 (the
+// phase-dense conv's cotangent has 16 channels: the Cin = 16 instance).
 
 #include "tile_conv.cuh"
 
@@ -41,13 +48,15 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* out,
 
 }  // namespace
 
-// x (B, H, W, cin) bf16; w (3, 3, cin, cout) bf16; b (cout) f32;
-// out (B, H, W, cout) bf16. Supported: cin = 64 with cout % 64 == 0, and
-// cin = 256 with cout % 16 == 0. Returns a cudaError_t.
+// x (B, H, W, cin) bf16; w (3, 3, cin, cout) bf16; b (cout) f32 or null;
+// out (B, H, W, cout) bf16. Supported: cin = 16 or 64 with cout % 64 == 0,
+// and cin = 256 with cout % 16 == 0. Returns a cudaError_t.
 extern "C" int srt_conv3x3_fwd(const void* x, const void* w, const void* b,
                                void* out, int B, int H, int W, int cin,
                                int cout, int relu, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cin == 16 && cout % 64 == 0)
+    return (int)launch<16, 64>(x, w, b, out, B, H, W, cout, relu, s);
   if (cin == 64 && cout % 64 == 0)
     return (int)launch<64, 64>(x, w, b, out, B, H, W, cout, relu, s);
   if (cin == 256 && cout % 16 == 0)

@@ -42,14 +42,47 @@ __host__ __device__ constexpr size_t align128(size_t n) {
   return (n + 127) / 128 * 128;
 }
 
+__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
+  uint4 u;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    __nv_bfloat162 t = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+    w[j] = *reinterpret_cast<uint32_t*>(&t);
+  }
+  return u;
+}
+
+__device__ __forceinline__ void unpack8(uint4 u, float (&v)[8]) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    __nv_bfloat162 t = *reinterpret_cast<const __nv_bfloat162*>(&w[j]);
+    float2 f = __bfloat1622float2(t);
+    v[2 * j] = f.x;
+    v[2 * j + 1] = f.y;
+  }
+}
+
+// bf16(scale * v) for the 8 bf16 values of v.
+__device__ __forceinline__ uint4 scale8(uint4 u, float scale) {
+  float v[8];
+  unpack8(u, v);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] *= scale;
+  return pack8(v);
+}
+
 // Copy the (rows x wx) NHWC window of image b whose top-left pixel is
 // (y0, x0) into dst as npix flattened pixels of stride CIN + 16. Pixels
 // outside the image and the slack past rows * wx are zero (SAME padding).
+// scale != 1 stores bf16(scale * x) instead of x.
 template <int CIN>
 __device__ __forceinline__ void load_tile(bf16* __restrict__ dst,
                                           const bf16* __restrict__ x, int b,
                                           int H, int W, int y0, int x0,
-                                          int rows, int wx, int npix) {
+                                          int rows, int wx, int npix,
+                                          float scale = 1.0f) {
   constexpr int PS = CIN + 16;
   constexpr int VEC = CIN / 8;  // 16-byte vectors per pixel
   const int total = npix * VEC;
@@ -61,6 +94,36 @@ __device__ __forceinline__ void load_tile(bf16* __restrict__ dst,
     if (ly < rows && gy >= 0 && gy < H && gx >= 0 && gx < W) {
       val = *reinterpret_cast<const uint4*>(
           x + (((size_t)b * H + gy) * W + gx) * CIN + v * 8);
+      if (scale != 1.0f) val = scale8(val, scale);
+    }
+    *reinterpret_cast<uint4*>(dst + (size_t)p * PS + v * 8) = val;
+  }
+}
+
+// load_tile for the phase-major coarse view of a fine NHWC tensor xf
+// (B, r*H, r*W, CIN / (r*r)): coarse pixel (gy, gx), channel
+// (a*r + b)*c + k is fine pixel (r*gy + a, r*gx + b), channel k. This
+// is the gather of srtpu's _ups_deint_kernel, done while loading.
+template <int CIN>
+__device__ __forceinline__ void load_tile_gather(bf16* __restrict__ dst,
+                                                 const bf16* __restrict__ xf,
+                                                 int b, int H, int W, int y0,
+                                                 int x0, int rows, int wx,
+                                                 int npix, int r) {
+  constexpr int PS = CIN + 16;
+  constexpr int VEC = CIN / 8;
+  const int c = CIN / (r * r);
+  const int total = npix * VEC;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int p = i / VEC, v = i % VEC;
+    const int ly = p / wx, lx = p % wx;
+    const int gy = y0 + ly, gx = x0 + lx;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (ly < rows && gy >= 0 && gy < H && gx >= 0 && gx < W) {
+      const int ab = v * 8 / c, k = v * 8 % c;
+      val = *reinterpret_cast<const uint4*>(
+          xf + (((size_t)b * H * r + (size_t)gy * r + ab / r) * W * r +
+                (size_t)gx * r + ab % r) * c + k);
     }
     *reinterpret_cast<uint4*>(dst + (size_t)p * PS + v * 8) = val;
   }
@@ -123,28 +186,6 @@ __device__ __forceinline__ void lane_values(float* __restrict__ scr,
   __syncwarp();
 }
 
-__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
-  uint4 u;
-  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    __nv_bfloat162 t = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
-    w[j] = *reinterpret_cast<uint32_t*>(&t);
-  }
-  return u;
-}
-
-__device__ __forceinline__ void unpack8(uint4 u, float (&v)[8]) {
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(&u);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    __nv_bfloat162 t = *reinterpret_cast<const __nv_bfloat162*>(&w[j]);
-    float2 f = __bfloat1622float2(t);
-    v[2 * j] = f.x;
-    v[2 * j + 1] = f.y;
-  }
-}
-
 // Dynamic shared memory above 48 KB needs an opt-in per kernel.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {
@@ -166,7 +207,8 @@ struct ConvPlan {
   static constexpr size_t SMEM = XS + WS + SCR;
 };
 
-// One 3x3 SAME conv + bias (+ ReLU) over an NHWC image batch.
+// One 3x3 SAME conv + bias (+ ReLU) over an NHWC image batch. bias may
+// be null (no bias: the transposed convs of the backward passes).
 //
 // grid = (ceil(W / TW), ceil(H / TH), B * cout / NB); block z covers image
 // z / (cout / NB) and the NB output channels of chunk z % (cout / NB).
@@ -175,7 +217,9 @@ struct ConvPlan {
 // ((a * r + b) * NB + c) and chunk j = a * r + b is stored straight to
 // fine pixel (r * y + a, r * x + b) of out (B, r H, r W, NB): the pixel
 // shuffle is the store's indexing.
-template <int CIN, int NB, int TH, int TW, bool SHUFFLE>
+// GATHER = true: x is a fine NHWC tensor (B, r H, r W, CIN / (r r)) read
+// as its phase-major coarse view (load_tile_gather); H, W are coarse.
+template <int CIN, int NB, int TH, int TW, bool SHUFFLE, bool GATHER = false>
 __global__ void __launch_bounds__(kThreads)
     conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                    const float* __restrict__ bias, bf16* __restrict__ out,
@@ -191,7 +235,11 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.z / nchunks, chunk = blockIdx.z % nchunks;
   const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
 
-  load_tile<CIN>(xs, x, b, H, W, y0 - 1, x0 - 1, TH + 2, P::WX, P::NPIX);
+  if (GATHER)
+    load_tile_gather<CIN>(xs, x, b, H, W, y0 - 1, x0 - 1, TH + 2, P::WX,
+                          P::NPIX, r);
+  else
+    load_tile<CIN>(xs, x, b, H, W, y0 - 1, x0 - 1, TH + 2, P::WX, P::NPIX);
   load_weights<CIN, NB>(ws, w, cout, chunk * NB);
   __syncthreads();
 
@@ -210,7 +258,7 @@ __global__ void __launch_bounds__(kThreads)
       const int c0 = n * 16 + (lane & 1) * 8;  // channel within the chunk
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        v[j] += bias[chunk * NB + c0 + j];
+        if (bias) v[j] += bias[chunk * NB + c0 + j];
         if (relu) v[j] = fmaxf(v[j], 0.0f);
       }
       bf16* dst;

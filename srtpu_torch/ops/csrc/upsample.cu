@@ -16,6 +16,14 @@
 
 #include "tile_conv.cuh"
 
+// Backward (srtpu's upsample_cs_bwd: _ups_deint_kernel, then
+// _ups_conv_bwd_kernel): dx = sum over the r*r phases of the transposed
+// conv of each phase's cotangent. That is ONE transposed conv r*r*C -> C
+// over the phase-major coarse view of the fine cotangent, so the
+// de-interleave becomes the load's address (load_tile_gather) and the
+// f32 sum over all phases is rounded once, as on the TPU. dW and db come
+// from the weight-grad kernel (wgrad.cu), which gathers the same way.
+
 namespace {
 constexpr int kTH = 7, kTW = 16;
 }
@@ -36,5 +44,25 @@ extern "C" int srt_upsample_fwd(const void* x, const void* w_pm,
       static_cast<const srt::bf16*>(x), static_cast<const srt::bf16*>(w_pm),
       static_cast<const float*>(b_pm), static_cast<srt::bf16*>(out), H, W,
       r * r * C, 0, r);
+  return (int)cudaGetLastError();
+}
+
+// g (B, r*H, r*W, C) bf16 fine cotangent; wt (3, 3, r*r*C, C) bf16, the
+// transposed phase-major weight wt[ky, kx, (a*r + b)*C + c, ci] =
+// w_pm[2 - ky, 2 - kx, ci, (a*r + b)*C + c]; dx (B, H, W, C) bf16.
+// Supported: C = 64, r = 2. Returns a cudaError_t.
+extern "C" int srt_upsample_bwd_dx(const void* g, const void* wt, void* dx,
+                                   int B, int H, int W, int C, int r,
+                                   void* stream) {
+  if (C != 64 || r != 2) return (int)cudaErrorInvalidValue;
+  constexpr int kCin = 4 * 64, kNB = 16;
+  typedef srt::ConvPlan<kCin, kNB, kTH, kTW> P;
+  auto kernel = srt::conv3x3_kernel<kCin, kNB, kTH, kTW, false, true>;
+  cudaError_t err = srt::allow_smem(kernel, P::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, B * (C / kNB));
+  kernel<<<grid, srt::kThreads, P::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const srt::bf16*>(g), static_cast<const srt::bf16*>(wt),
+      nullptr, static_cast<srt::bf16*>(dx), H, W, C, 0, r);
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,11 @@ port runs NHWC activations and HWIO weights, so it needs only:
   upscale conv with phase-major output channels (``w_pm_hwio``,
   ``b_pm``), the fine final conv recast as a coarse "phase-dense" conv
   over those channels (``w_phase_dense``), and the final phase-major ->
-  NHWC rearrangement (``pm_to_nhwc``).
+  NHWC rearrangement (``pm_to_nhwc``);
+* for the backward passes: the transposed conv weight (``w_t``), the
+  fine cotangent read phase-major (``pm_from_fine``, the work of
+  ``_ups_deint_kernel``) and the inverses of ``w_pm_hwio`` / ``b_pm``
+  that return the upscale grads in stored PixelShuffle order.
 
 Phase-major channel order is ``(a * r + b) * C + c`` for output pixel
 ``(r * y + a, r * x + b)``; torch's PixelShuffle order is
@@ -50,6 +54,35 @@ def w_pm_hwio(w_hwio: torch.Tensor, r: int) -> torch.Tensor:
 def b_pm(b: torch.Tensor, r: int) -> torch.Tensor:
     """(r*r*C,) bias in PixelShuffle order -> phase-major order."""
     return b.reshape(-1, r * r).t().reshape(-1)
+
+
+def w_ps_from_pm(w_pm: torch.Tensor, r: int) -> torch.Tensor:
+    """Inverse of :func:`w_pm_hwio`: phase-major output channels back to
+    PixelShuffle order."""
+    kh, kw, c_in, c_out = w_pm.shape
+    return w_pm.reshape(kh, kw, c_in, r * r, c_out // (r * r)) \
+        .transpose(3, 4).reshape(kh, kw, c_in, c_out)
+
+
+def b_ps_from_pm(b: torch.Tensor, r: int) -> torch.Tensor:
+    """Inverse of :func:`b_pm`."""
+    return b.reshape(r * r, -1).t().reshape(-1)
+
+
+def w_t(w: torch.Tensor) -> torch.Tensor:
+    """HWIO (..., k, k, Cin, Cout) -> the transposed conv's weight
+    (..., k, k, Cout, Cin) with w_t[ky, kx, co, ci] = w[k-1-ky, k-1-kx,
+    ci, co]: conv(g, w_t(w)) is the gradient of conv(x, w) w.r.t. x."""
+    return w.flip(-4, -3).transpose(-2, -1)
+
+
+def pm_from_fine(y: torch.Tensor, r: int) -> torch.Tensor:
+    """Fine NHWC (B, r*H, r*W, C) -> its phase-major coarse view (B, H, W,
+    r*r*C): the inverse of :func:`pm_to_nhwc`, exact (a permutation)."""
+    bsz, fh, fw, c = y.shape
+    h, w = fh // r, fw // r
+    return y.reshape(bsz, h, r, w, r, c).permute(0, 1, 3, 2, 4, 5) \
+        .reshape(bsz, h, w, r * r * c)
 
 
 def phase_dense_ck(fk: int, r: int) -> int:

@@ -1,4 +1,6 @@
 from .loop import Trainer, TrainerConfig
-from .steps import make_predict_step
+from .state import TrainState
+from .steps import make_predict_step, make_train_step
 
-__all__ = ['Trainer', 'TrainerConfig', 'make_predict_step']
+__all__ = ['TrainState', 'Trainer', 'TrainerConfig', 'make_predict_step',
+           'make_train_step']

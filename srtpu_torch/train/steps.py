@@ -1,8 +1,35 @@
-"""Step functions (srtpu/train/steps.py). Predict only so far."""
+"""Step functions (srtpu/train/steps.py): the train step and the predict
+step."""
 
 from __future__ import annotations
 
 import torch
+
+from .state import TrainState
+
+
+def make_train_step(composite_loss, plain: bool = False):
+    """``train_step(state, lr, hr) -> logs`` (srtpu ``train_step_body``):
+    the forward in the model's compute dtype, ``composite_loss(sr.float(),
+    hr.float())``, backward, one optimizer step. Gradients are cleared
+    (set to None) before the backward, so after a step ``p.grad`` holds
+    that step's gradients. Logs are 0-dim tensors on the device, read
+    without a host sync: ``{'loss', 'loss/<name>'}``. ``plain`` runs the
+    kernels' plain versions (the reference a card run is held against).
+    """
+    def train_step(state: TrainState, lr_img: torch.Tensor,
+                   hr_img: torch.Tensor) -> dict[str, torch.Tensor]:
+        state.optimizer.zero_grad(set_to_none=True)
+        sr = state.model(lr_img, plain=plain)
+        total, parts = composite_loss(sr.float(), hr_img.float())
+        total.backward()
+        state.optimizer.step()
+        state.step += 1
+        logs = {'loss': sum(parts.values()).detach()}
+        logs.update({f'loss/{k}': v.detach() for k, v in parts.items()})
+        return logs
+
+    return train_step
 
 
 def make_predict_step(model: torch.nn.Module):

@@ -8,15 +8,21 @@ has no JAX, so the repo's conftest is left out)::
 Tolerances as in chip_smoke.py: kernel and plain version round at the
 same points and differ only in the order of the f32 sums, so an output
 may land one bf16 step (2^-7 of the largest magnitude) away; K1's
-skips carry such steps on through the blocks.
+skips carry such steps on through the blocks. The backward kernels'
+dW and db sum the same bf16 products in f32 in another order: 1e-4 of
+the largest magnitude; the trunk's weight grads read its bf16 dh1 chain,
+which may sit one step apart: one step of the largest magnitude.
 """
 
 import pytest
 import torch
 
 from srtpu_torch.models import create_model
-from srtpu_torch.ops import (conv3x3_fwd, conv3x3_plain, trunk_fwd,
-                             trunk_plain, upsample_fwd, upsample_plain)
+from srtpu_torch.ops import (conv3x3_bwd, conv3x3_bwd_plain, conv3x3_fwd,
+                             conv3x3_plain, conv_wgrad, trunk_bwd,
+                             trunk_bwd_plain, trunk_fwd, trunk_plain,
+                             upsample_bwd, upsample_bwd_plain, upsample_fwd,
+                             upsample_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -67,6 +73,90 @@ def test_kernel_matches_plain(device, case, h, w):
     assert got.shape == ref.shape and got.dtype == ref.dtype
     tol = steps * 2.0 ** -7 * ref.float().abs().max().item()
     assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+def _bwd_case(gen, case, batch, h, w, device):
+    """(kernel, plain, args, dx steps, weight-grad tolerance in steps or
+    None for 1e-4 relative) of one backward at an h x w LR."""
+    if case == 'trunk':
+        w1, b1 = _conv(gen, 64, 64, device, (3,))
+        w2, b2 = _conv(gen, 64, 64, device, (3,))
+        x = _u(gen, (batch, h, w, 64), 1.0, device)
+        _, xs, h1s = trunk_fwd(x, w1, b1, w2, b2, 0.5, save=True)
+        args = (xs, h1s, _u(gen, (batch, h, w, 64), 1.0, device), w1, w2,
+                0.5)
+        return trunk_bwd, trunk_bwd_plain, args, 2, 1
+    if case == 'ups':
+        wt, _ = _conv(gen, 64, 256, device)
+        args = (_u(gen, (batch, h, w, 64), 1.0, device), wt,
+                _u(gen, (batch, 2 * h, 2 * w, 64), 1.0, device), 2)
+        return upsample_bwd, upsample_bwd_plain, args, 1, None
+    cin, cout = {'close': (64, 64), 'pm': (64, 256), 'pd': (256, 16)}[case]
+    wt, _ = _conv(gen, cin, cout, device)
+    args = (_u(gen, (batch, h, w, cin), 1.0, device), wt,
+            _u(gen, (batch, h, w, cout), 1.0, device))
+    return conv3x3_bwd, conv3x3_bwd_plain, args, 1, None
+
+
+def _assert_close(got, ref, steps=None):
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    top = ref.float().abs().max().item()
+    tol = steps * 2.0 ** -7 * top if steps else 1e-4 * top
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize('h,w', [(1, 1), (7, 16), (9, 33), (40, 17)])
+@pytest.mark.parametrize('case', ['close', 'pm', 'pd', 'ups', 'trunk'])
+def test_bwd_kernel_matches_plain(device, case, h, w):
+    """Each backward kernel (dx, and dW / db through the weight-grad
+    kernel) against its plain backward, and bit-identical on a second
+    call (no float atomics)."""
+    gen = torch.Generator().manual_seed(h * 100 + w + 7)
+    fn, plain, args, dx_steps, dw_steps = _bwd_case(gen, case, 2, h, w,
+                                                    device)
+    before = fn.launches, conv_wgrad.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches > before[0] and conv_wgrad.launches > before[1]
+    ref = plain(*args)
+    _assert_close(got[0], ref[0], dx_steps)
+    for g_t, r_t in zip(got[1:], ref[1:]):
+        assert g_t.dtype == torch.float32
+        _assert_close(g_t, r_t, dw_steps)
+    again = fn(*args)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_train_step_kernel_path_matches_plain(device):
+    """One EDSR x4 step (L1, Adam), kernel path against plain path from
+    the same params and batch: the loss within 2^-7 relative, every
+    gradient within 2^-4 of its largest magnitude (the two paths' bf16
+    activations may sit a rounding step apart, which the backward
+    carries on)."""
+    from srtpu_torch.losses import parse_losses
+    from srtpu_torch.optim import build_optimizer
+    from srtpu_torch.train import TrainState, make_train_step
+    gen = torch.Generator().manual_seed(5)
+    lr = torch.rand((2, 12, 20, 3), generator=gen).to(device)
+    hr = torch.rand((2, 48, 80, 3), generator=gen).to(device)
+    grads, losses = [], []
+    for plain in (False, True):
+        model = create_model('EDSR', scale_factor=4, n_feats=64,
+                             n_resblocks=2, dtype=torch.bfloat16,
+                             device=device,
+                             generator=torch.Generator().manual_seed(4))
+        state = TrainState(model, build_optimizer(
+            'ADAM', ['lr=1e-4'], model.parameters()))
+        step = make_train_step(parse_losses('l1'), plain=plain)
+        logs = step(state, lr, hr)
+        losses.append(float(logs['loss']))
+        grads.append([p.grad for p in model.parameters()])
+    assert abs(losses[0] - losses[1]) <= 2.0 ** -7 * losses[1]
+    for got, ref in zip(*grads):
+        assert got.dtype == torch.float32
+        top = ref.abs().max().item()
+        assert (got - ref).abs().max().item() <= 2.0 ** -4 * top
 
 
 @pytest.mark.parametrize('scale', [2, 4, 8])

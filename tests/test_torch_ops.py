@@ -3,7 +3,10 @@
 (a) each NHWC/HWIO layout helper against its cs_conv counterpart;
 (b) each kernel's plain PyTorch version against the JAX Pallas kernel it
 replaces, run in interpret mode (as tests/test_ops_cs.py runs them), with
-inputs and outputs through nhwc_to_cs / cs_to_nhwc.
+inputs and outputs through nhwc_to_cs / cs_to_nhwc;
+(c) each plain backward against ``jax.vjp`` of the same Pallas kernels,
+gradients through cs_to_nhwc / w_hwio_from_cs / w_ps_hwio;
+(d) each autograd op against torch autograd of the plain forward.
 
 Tolerances: f32 cases 1e-4 abs, as test_ops_cs.py uses — both sides sum
 the same f32 products in another order. The bf16 case allows one bf16
@@ -12,6 +15,7 @@ sides round at the same points, so only a sum that lands next to a bf16
 rounding boundary can come out one step apart.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -35,7 +39,7 @@ def _rand(rng, *shape, scale=1.0):
 
 
 def _np(t):
-    return np.asarray(t, dtype=np.float32)
+    return np.array(t, dtype=np.float32)
 
 
 # ---------------------------------------------------------------- (a) layout
@@ -181,13 +185,200 @@ def test_trunk_plain_matches_pallas():
 def test_cuda_wrappers_reject_other_devices():
     """The wrappers take the plain version only for CPU tensors; any other
     device must launch the kernel or raise — never fall back."""
-    from srtpu_torch.ops import conv3x3_fwd, trunk_fwd, upsample_fwd
+    from srtpu_torch.ops import (conv3x3_bwd, conv3x3_fwd, conv_wgrad,
+                                 trunk_bwd, trunk_fwd, upsample_bwd,
+                                 upsample_fwd)
     x = torch.zeros(1, 4, 4, 64, device='meta')
     w = torch.zeros(3, 3, 64, 64, device='meta')
     b = torch.zeros(64, device='meta')
-    with pytest.raises(ValueError, match='no kernel'):
-        conv3x3_fwd(x, w, b)
-    with pytest.raises(ValueError, match='no kernel'):
-        upsample_fwd(x, w, b, 2)
-    with pytest.raises(ValueError, match='no kernel'):
-        trunk_fwd(x, w[None], b[None], w[None], b[None], 1.0)
+    w4 = torch.zeros(3, 3, 64, 256, device='meta')
+    g4 = torch.zeros(1, 8, 8, 64, device='meta')
+    calls = [lambda: conv3x3_fwd(x, w, b),
+             lambda: upsample_fwd(x, w, b, 2),
+             lambda: trunk_fwd(x, w[None], b[None], w[None], b[None], 1.0),
+             lambda: conv3x3_bwd(x, w, x),
+             lambda: upsample_bwd(x, w4, g4, 2),
+             lambda: trunk_bwd(x[None], x[None], x, w[None], w[None], 1.0),
+             lambda: conv_wgrad(x, x)]
+    for call in calls:
+        with pytest.raises(ValueError, match='no kernel'):
+            call()
+
+
+# ------------------------------------ (c) plain backwards vs Pallas vjp
+#
+# Tolerances: f32 1e-4 abs on dx, and 1e-4 of the largest magnitude on
+# dW / db (sums over all pixels: the same f32 products in another
+# order). bf16 compute: dx within one bf16 step of its largest magnitude
+# (both sides round once, at the same point); dW / db sum bf16 products
+# exactly in f32, so 1e-4 of the largest magnitude again. The trunk's
+# chain carries a flipped step on through the blocks: four steps on dx
+# and on the weight grads (which read the chain's bf16 dh1).
+
+
+def _close(got, ref, steps=None, rel=1e-4, atol=None):
+    if torch.is_tensor(got):
+        got = got.detach().float()
+    got, ref = _np(got), _np(ref)
+    assert got.shape == ref.shape
+    top = np.abs(ref).max()
+    tol = atol if atol is not None else \
+        (steps * 2.0 ** -7 * top if steps else rel * top)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=tol)
+
+
+def _jdt(dtype):
+    return {'f32': (jnp.float32, torch.float32),
+            'bf16': (jnp.bfloat16, torch.bfloat16)}[dtype]
+
+
+def _dx_steps(dtype, steps):
+    return dict(steps=steps) if dtype == 'bf16' else dict(atol=1e-4)
+
+
+@pytest.mark.parametrize('c_in,c_out,dtype', [
+    (16, 16, 'f32'), (16, 64, 'f32'), (64, 16, 'f32'), (16, 64, 'bf16')])
+@pytest.mark.parametrize('pre', [False, True])
+def test_conv_bwd_plain_matches_pallas(c_in, c_out, dtype, pre):
+    """K2's backward (conv3x3_cs_bwd) through both wrappers: conv3x3_cs
+    (HWIO weight: the close conv, the phase-dense final conv) and
+    conv3x3_cs_pre (CS-arranged weight: the phase-major upscale conv)."""
+    from srtpu_torch.ops import conv3x3_bwd_plain
+    jdt, tdt = _jdt(dtype)
+    rng = np.random.default_rng(20)
+    x = _rand(rng, B, H, W, c_in)
+    w = _rand(rng, 3, 3, c_in, c_out, scale=0.1)
+    b = _rand(rng, c_out, scale=0.1)
+    g = _rand(rng, B, H, W, c_out)
+    if pre:
+        fn = lambda xc, wc, bc: cs_conv.conv3x3_cs_pre(xc, wc, bc, W, K)
+        w_in = cs_conv.w_cs(jnp.asarray(w))
+    else:
+        fn = lambda xc, wc, bc: cs_conv.conv3x3_cs(xc, wc, bc, W, K)
+        w_in = jnp.asarray(w)
+    _, vjp = jax.vjp(fn, _to_cs(x, jdt), w_in, jnp.asarray(b))
+    dx, dw, db = vjp(_to_cs(g, jdt))
+    if pre:
+        dw = layout.w_hwio_from_cs(torch.from_numpy(_np(dw))[None], c_in,
+                                   c_out)[0]
+    got = conv3x3_bwd_plain(torch.from_numpy(x).to(tdt),
+                            torch.from_numpy(w).to(tdt),
+                            torch.from_numpy(g).to(tdt))
+    assert got[0].dtype == tdt and got[1].dtype == got[2].dtype == \
+        torch.float32
+    _close(got[0], cs_conv.cs_to_nhwc(dx, K, H, W), **_dx_steps(dtype, 1))
+    _close(got[1], dw)
+    _close(got[2], db)
+
+
+@pytest.mark.parametrize('r,dtype', [(2, 'f32'), (3, 'f32'), (2, 'bf16')])
+def test_upsample_bwd_plain_matches_pallas(r, dtype):
+    """K3's backward (_ups_deint_kernel + _ups_conv_bwd_kernel): the fine
+    cotangent read phase-major, dx one rounding over all r*r phases, dW
+    and db per phase in f32 — returned in PixelShuffle order."""
+    from srtpu_torch.ops import upsample_bwd_plain
+    jdt, tdt = _jdt(dtype)
+    c = 16
+    rng = np.random.default_rng(21)
+    x = _rand(rng, B, H, W, c)
+    w = _rand(rng, 3, 3, c, r * r * c, scale=0.1)   # PixelShuffle order
+    b = _rand(rng, r * r * c, scale=0.1)
+    g = _rand(rng, B, r * H, r * W, c)
+    fn = lambda xc, wc, bc: cs_conv.upsample_cs(xc, wc, bc, W, K, H, r)
+    _, vjp = jax.vjp(fn, _to_cs(x, jdt), cs_conv.w_ps_cs(jnp.asarray(w), r),
+                     jnp.asarray(b).reshape(c, r * r).T)
+    dx, dw_ps, db_ps = vjp(_to_cs(g, jdt))
+    got = upsample_bwd_plain(torch.from_numpy(x).to(tdt),
+                             torch.from_numpy(w).to(tdt),
+                             torch.from_numpy(g).to(tdt), r)
+    _close(got[0], cs_conv.cs_to_nhwc(dx, K, H, W), **_dx_steps(dtype, 1))
+    _close(got[1], layout.w_ps_hwio(torch.from_numpy(_np(dw_ps)), c, r))
+    _close(got[2], _np(db_ps).T.reshape(-1))
+
+
+@pytest.mark.parametrize('dtype', ['f32', 'bf16'])
+def test_trunk_bwd_plain_matches_pallas(dtype):
+    """K1's backward (trunk_bwd_mega) from the port's saved xs / h1s."""
+    from srtpu_torch.ops import trunk_bwd_plain
+    jdt, tdt = _jdt(dtype)
+    c, n_blocks, res_scale = 16, 2, 0.7
+    rng = np.random.default_rng(22)
+    x = _rand(rng, B, H, W, c)
+    w1 = _rand(rng, n_blocks, 3, 3, c, c, scale=0.1)
+    w2 = _rand(rng, n_blocks, 3, 3, c, c, scale=0.1)
+    b1 = _rand(rng, n_blocks, c, scale=0.1)
+    b2 = _rand(rng, n_blocks, c, scale=0.1)
+    g = _rand(rng, B, H, W, c)
+    fn = lambda xc, a, bb, cc, d: cs_conv.trunk_cs_mega(
+        xc, a, bb, cc, d, res_scale, W, K)
+    _, vjp = jax.vjp(fn, _to_cs(x, jdt), cs_conv.w_cs_batch(jnp.asarray(w1)),
+                     jnp.asarray(b1), cs_conv.w_cs_batch(jnp.asarray(w2)),
+                     jnp.asarray(b2))
+    dx, dw1, db1, dw2, db2 = vjp(_to_cs(g, jdt))
+    tw1, tw2 = torch.from_numpy(w1).to(tdt), torch.from_numpy(w2).to(tdt)
+    _, xs, h1s = trunk_plain(torch.from_numpy(x).to(tdt), tw1,
+                             torch.from_numpy(b1), tw2, torch.from_numpy(b2),
+                             res_scale, save=True)
+    got = trunk_bwd_plain(xs, h1s, torch.from_numpy(g).to(tdt), tw1, tw2,
+                          res_scale)
+    steps = dict(steps=4) if dtype == 'bf16' else {}
+    _close(got[0], cs_conv.cs_to_nhwc(dx, K, H, W), **_dx_steps(dtype, 4))
+    for t, ref in ((got[1], dw1), (got[3], dw2)):
+        _close(t, layout.w_hwio_from_cs(torch.from_numpy(_np(ref)), c, c),
+               **steps)
+    _close(got[2], db1, **steps)
+    _close(got[4], db2, **steps)
+
+
+# ------------- (d) the autograd ops against autograd of the plain forward
+
+
+def _grads(out, inputs, ct):
+    return torch.autograd.grad(out, inputs, ct)
+
+
+@pytest.mark.parametrize('op', ['conv', 'conv_wide', 'upsample', 'trunk'])
+def test_autograd_op_matches_autograd_of_plain(op):
+    """Each op's Function (plain=True: its plain backward) against torch
+    autograd through the plain forward, f32 on the CPU: 1e-4 of the
+    largest magnitude (the same f32 sums in another order)."""
+    from srtpu_torch.ops import conv3x3, trunk, upsample
+    from srtpu_torch.ops.conv import conv_f32
+    rng = np.random.default_rng(30)
+
+    def p(*shape, scale=1.0):
+        return torch.from_numpy(_rand(rng, *shape, scale=scale)) \
+            .requires_grad_()
+
+    c = 16
+    if op == 'trunk':
+        params = [p(B, H, W, c), p(2, 3, 3, c, c, scale=0.1),
+                  p(2, c, scale=0.1), p(2, 3, 3, c, c, scale=0.1),
+                  p(2, c, scale=0.1)]
+        got_out = trunk(*params, 0.5, plain=True)
+
+        def ref_fn(x, w1, b1, w2, b2):
+            for i in range(2):
+                h1 = conv_f32(x, w1[i], b1[i]).clamp_min(0)
+                x = conv_f32(h1, w2[i], b2[i]) * 0.5 + x
+            return x
+    elif op == 'upsample':
+        params = [p(B, H, W, c), p(3, 3, c, 4 * c, scale=0.1),
+                  p(4 * c, scale=0.1)]
+        got_out = upsample(*params, 2, plain=True)
+
+        def ref_fn(x, w, b):
+            return layout.pixel_shuffle(conv_f32(x, w, b), 2)
+    else:
+        cin, cout = (c, c) if op == 'conv' else (4 * c, c)
+        params = [p(B, H, W, cin), p(3, 3, cin, cout, scale=0.1),
+                  p(cout, scale=0.1)]
+        got_out = conv3x3(*params, plain=True)
+        ref_fn = conv_f32
+    ref_out = ref_fn(*params)
+    ct = torch.from_numpy(_rand(rng, *ref_out.shape))
+    _close(got_out.detach(), ref_out.detach())
+    for got, ref in zip(_grads(got_out, params, ct),
+                        _grads(ref_out, params, ct)):
+        assert got.dtype == torch.float32
+        _close(got, ref)

@@ -5,8 +5,8 @@
     JAX tree through srtpu_torch.convert), f32, PNGs equal to +-1 uint8
     level (the two sides sum in another order, so a value next to a
     rounding boundary can land one level apart);
-(e) importing srtpu_torch and running its CPU predict leaves jax and flax
-    out of sys.modules;
+(e) importing srtpu_torch and running its CPU fit and predict leaves jax,
+    flax and srtpu out of sys.modules;
 (f) --device cuda without CUDA raises.
 Plus the pieces the slice is built from: PNG writing, bucket padding and
 center crops against srtpu's.
@@ -117,20 +117,37 @@ def _run(code, cwd):
 
 
 def test_predict_cli_imports_no_jax(tmp_path):
+    """``fit`` then ``predict`` (with the weights fit wrote) through the
+    CLI, in a process that must never import jax, flax or srtpu."""
     datasets = _write_dataset(tmp_path)
+    train = datasets / 'Train'
+    (train / 'HR').mkdir(parents=True)
+    (train / 'LR' / 'X4').mkdir(parents=True)
+    rng = np.random.default_rng(8)
+    for i in range(2):
+        hr = rng.random((32, 32, 3), np.float32)
+        np.save(train / 'HR' / f'{i}.npy', hr)
+        np.save(train / 'LR' / 'X4' / f'{i}.npy',
+                hr.reshape(8, 4, 8, 4, 3).mean((1, 3)))
     code = (
         'import sys\n'
         'import srtpu_torch.convert\n'
         'from srtpu_torch.cli import main\n'
+        'net = ["--device", "cpu", "--n_feats", "8", "--n_resblocks", "1"]\n'
+        f'fit = main(["fit", "--datasets_dir", {str(datasets)!r}, '
+        '"--train_datasets", "Train", "--batch_size", "2", '
+        '"--patch_size", "16", "--max_epochs", "1", '
+        '"--default_root_dir", "run", *net])\n'
         f'rc = main(["predict", "--datasets_dir", {str(datasets)!r}, '
         '"--predict_datasets", "Demo", "--default_root_dir", "out", '
-        '"--device", "cpu", "--n_feats", "8", "--n_resblocks", "1"])\n'
+        '"--weights", "run/final_weights.pt", *net])\n'
         'bad = sorted(m for m in sys.modules\n'
         '             if m.split(".")[0] in ("jax", "flax", "srtpu"))\n'
-        'print(rc, bad)\n')
+        'print(fit, rc, bad)\n')
     proc = _run(code, tmp_path)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == '0 []'
+    assert proc.stdout.strip() == '0 0 []'
+    assert 'epoch 1/1  loss' in (tmp_path / 'run' / 'run.log').read_text()
     assert _png(tmp_path / 'out' / 'Demo' / 'a.png').shape == (96, 160, 3)
 
 
