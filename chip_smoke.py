@@ -1,5 +1,5 @@
-"""Drive srtpu_torch's EDSR-baseline x4 predict and training on one CUDA
-card.
+"""Drive srtpu_torch's EDSR-baseline x4 and RCAN-10x16 x4 predict and
+training on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -31,10 +31,32 @@ Phases, each of which raises on failure (nothing is caught):
    batches, kernel-path steps against plain-path steps (gradients and
    losses), ms per step and patches/s of both, and device time by
    kernel from torch.profiler.
-The line before the last is a JSON object with each kernel's launches
-(in the fit run), error and times; the last line is ``{"ok": true,
-"device": {...}}``. Without CUDA (or without the repo) it exits nonzero
-and prints no result.
+2c. K5 (RCAN's RCAB) forward and backward against their plain versions:
+   one RCAB and one 16-block residual group at the training shape
+   (batch 16, LR 32x32), one RCAB at the predict shape (batch 1,
+   128x128) and at a ragged batch 2 of 67x45: the forward's out, h1 and
+   r2, the backward's dx and eight f32 grads (the group's: ten), errors
+   beside tolerances, two calls bit-identical, kernel and plain times;
+5. the RCAN predict slice: phase 3's path and images with ``--model
+   RCAN`` at full width and depth (64 features, 10 groups of 16 RCABs,
+   reduction 16): per image 160 K5 forward and 11 K2 forward launches,
+   no K1 or K3; PNGs at 4x; kernel path against plain path; device
+   time by kernel group of the 512x352 forward (torch.profiler);
+6. the RCAN fit slice: phase 4 with ``--model RCAN`` at full width and
+   depth: every K5 and K2 forward and backward on every step, the loss
+   falling, kernel-path against plain-path steps, ms/step and patches/s,
+   device time by kernel group.
+The line before the last is a JSON object with, per kernel, its launches
+in the four main-path runs (EDSR predict and fit, RCAN predict and fit;
+``launches`` is their sum), its largest error against its plain version,
+its time and the plain version's at the main path's shapes, the least
+time the card could take for the same work (``bound_ms``: the larger of
+the bytes the function must move over 3.35 TB/s and its matrix FLOPs
+over 989 TFLOP/s bf16, NVIDIA's H100 SXM figures) and the time of one
+PyTorch call computing the same function where there is one
+(``library_ms``, a yardstick the port never calls). The last line is
+``{"ok": true, "device": {...}}``. Without CUDA (or without the repo)
+it exits nonzero and prints no result.
 """
 
 from __future__ import annotations
@@ -50,13 +72,17 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from srtpu_torch import cli
 from srtpu_torch.data import pad_to_bucket
 from srtpu_torch.losses import parse_losses
 from srtpu_torch.ops import (_build, conv3x3_bwd, conv3x3_bwd_plain,
                              conv3x3_fwd, conv3x3_plain, conv_wgrad,
-                             conv_wgrad_plain, trunk_bwd, trunk_bwd_plain, trunk_fwd,
+                             conv_wgrad_plain, rcab_bwd, rcab_bwd_plain,
+                             rcab_fwd, rcab_fwd_plain, resgroup_bwd,
+                             resgroup_bwd_plain, resgroup_fwd, resgroup_plain,
+                             trunk_bwd, trunk_bwd_plain, trunk_fwd,
                              trunk_plain, upsample_bwd, upsample_bwd_plain,
                              upsample_fwd, upsample_plain)
 from srtpu_torch.optim import build_optimizer
@@ -91,9 +117,41 @@ BWD_DW_STEPS = {'K1': 1, 'K2': None, 'K3': None}
 # activations may sit a step apart through 16 blocks, and the backward
 # carries that on); losses over five steps within 2^-10 relative.
 STEP_GRAD_TOL, STEP_LOSS_TOL = 2.0 ** -6, 2.0 ** -10
+# RCAN's attention MLP (wd, bd, wu, bu): their grads pass through the
+# ReLU mask of z, C/r = 4 values per image recomputed from each path's
+# bf16 r2; a z next to 0 can flip for one image and move the grad by
+# that image's whole term (of 16), so 2^-4 of the largest magnitude.
+MLP_STEP_GRAD_TOL = 2.0 ** -4
+MLP_PARAMS = ('.wd', '.bd', '.wu', '.bu')
 # SR image in [0, 1], kernel path vs plain path: every K1 difference
 # passes through the tail's convs (gain < 1 at this init).
 SLICE_MAX_TOL, SLICE_MEAN_TOL = 2.0 ** -5, 2.0 ** -9
+
+# RCAN-10x16 x4 (srtpu bench.py's flagship of the family)
+GROUPS, RCABS, REDUCTION = 10, 16, 16
+CR = C // REDUCTION
+RCAN_ARGS = ['--n_resgroups', str(GROUPS), '--n_resblocks', str(RCABS),
+             '--reduction', str(REDUCTION)]
+# per image of an RCAN x4 predict: one K5 forward per RCAB; K2 the ten
+# group close convs and the trunk close conv; the tail is cuDNN
+RCAN_PREDICT_LAUNCHES = {rcab_fwd: GROUPS * RCABS, conv3x3_fwd: GROUPS + 1,
+                         trunk_fwd: 0, upsample_fwd: 0}
+# per RCAN train step: K5 each way per RCAB, K2 each way per close conv,
+# the weight grads once per K2 backward and twice per group (all 16
+# RCABs' dW1 in one launch, dW2 in another)
+RCAN_STEP_LAUNCHES = {rcab_fwd: GROUPS * RCABS, rcab_bwd: GROUPS * RCABS,
+                      conv3x3_fwd: GROUPS + 1, conv3x3_bwd: GROUPS + 1,
+                      conv_wgrad: GROUPS + 1 + 2 * GROUPS, trunk_fwd: 0,
+                      trunk_bwd: 0, upsample_fwd: 0, upsample_bwd: 0}
+# K5 against its plain version: one bf16 step of the largest magnitude
+# per RCAB (out, h1, r2, dx, the conv weight grads: they read the bf16
+# dr2 and dh1, which follow a gate whose f32 sums run in another order);
+# the pool / MLP grads, f32 sums in another order: 1e-4 relative. Over a
+# 16-block group four steps for everything, as K1's trunk: a step in one
+# block's output moves every later block's pool, gate and grads.
+RCAB_STEPS, RCAB_MLP_REL, GROUP_STEPS = 1, 1e-4, 4
+# The H100 SXM's published peaks (NVIDIA data sheet), for bound_ms
+PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 
 
 def need(cond, msg: str) -> None:
@@ -125,6 +183,80 @@ def median_ms(fn, launches: int = 20, windows: int = 5) -> float:
     return float(np.median(times))
 
 
+def nbytes(*objs) -> int:
+    """Bytes of every tensor in objs (tuples and lists walked)."""
+    total = 0
+    for o in objs:
+        if torch.is_tensor(o):
+            total += o.numel() * o.element_size()
+        elif isinstance(o, (tuple, list)):
+            total += nbytes(*o)
+    return total
+
+
+def bound(flops: float, moved: int) -> tuple[float, float]:
+    """(ms the card needs for ``flops`` bf16 matrix FLOPs, ms it needs to
+    move ``moved`` bytes once), at the published peaks."""
+    return flops / PEAK_BF16_FLOPS * 1e3, moved / PEAK_BYTES_PER_S * 1e3
+
+
+def new_stats(kids) -> dict:
+    return {k: {'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0,
+                'ops_ms': 0.0, 'bytes_ms': 0.0, 'bound_ms': 0.0,
+                'library_ms': None} for k in kids}
+
+
+def record(st: dict, ms: float, plain_ms: float, flops: float, moved: int,
+           lib=None) -> None:
+    """Add one use of a kernel at the main path's shapes to its stats:
+    its time, the plain version's, its bound and the library call's."""
+    ops_ms, bytes_ms = bound(flops, moved)
+    st['ms'] += ms
+    st['plain_ms'] += plain_ms
+    st['ops_ms'] += ops_ms
+    st['bytes_ms'] += bytes_ms
+    st['bound_ms'] += max(ops_ms, bytes_ms)
+    if lib is not None:
+        st['library_ms'] = (st['library_ms'] or 0.0) + median_ms(lib)
+
+
+def lib_conv(x, w, b):
+    """One F.conv2d in bf16, channels-last: K2's forward yardstick."""
+    xc = x.permute(0, 3, 1, 2)
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    bb = b.to(x.dtype)
+    return lambda: F.conv2d(xc, wc, bb, padding=1)
+
+
+def lib_conv_bwd(x, w, g):
+    """One aten.convolution_backward (dx, dW, db) in bf16: K2's backward
+    yardstick."""
+    xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    return lambda: torch.ops.aten.convolution_backward(
+        gc, xc, wc, [wc.shape[0]], [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+        [True, True, True])
+
+
+def lib_wgrad(x, g):
+    """One torch.nn.grad.conv2d_weight in bf16 over J stacked jobs as J
+    conv groups (dW only): the weight-grad kernel's yardstick."""
+    j, b, h, w, c = x.shape
+    co = g.shape[-1]
+    cl = torch.channels_last
+    xi = x.permute(1, 0, 4, 2, 3).reshape(b, j * c, h, w).contiguous(
+        memory_format=cl)
+    gi = g.permute(1, 0, 4, 2, 3).reshape(b, j * co, h, w).contiguous(
+        memory_format=cl)
+    return lambda: torch.nn.grad.conv2d_weight(xi, (j * co, c, 3, 3), gi,
+                                               padding=1, groups=j)
+
+
+def conv_flops(bhw: int, cin: int, cout: int) -> float:
+    """Matrix FLOPs of one 3x3 conv over bhw output pixels."""
+    return 2.0 * 9 * cin * cout * bhw
+
+
 def card() -> tuple[torch.device, str]:
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false')
@@ -153,8 +285,9 @@ def _uniform(gen, shape, bound, device, dtype):
 
 
 def kernel_cases(h: int, w: int, device) -> list[tuple]:
-    """(kernel id, label, wrapper, plain, args) at the shapes predict gives
-    each kernel for an h x w LR image."""
+    """(kernel id, label, wrapper, plain, args, matrix FLOPs, library
+    call or None) at the shapes predict gives each kernel for an h x w LR
+    image."""
     gen = torch.Generator().manual_seed(h * 1000 + w)
     bf = torch.bfloat16
 
@@ -168,27 +301,34 @@ def kernel_cases(h: int, w: int, device) -> list[tuple]:
 
     w1, b1 = conv(C, C, (L,))
     w2, b2 = conv(C, C, (L,))
+    # drawn in the order of the cases (the data of earlier runs)
+    trunk = (act(1, h, w, C), w1, b1, w2, b2, 1.0)
+    close = (act(1, h, w, C), *conv(C, C))
+    ups = (act(1, h, w, C), *conv(C, 4 * C), 2)
+    pm = (act(1, 2 * h, 2 * w, C), *conv(C, 4 * C))
+    pd = (act(1, 2 * h, 2 * w, 4 * C), *conv(4 * C, 16))
     return [
-        ('K1', f'trunk L={L} {h}x{w}', trunk_fwd, trunk_plain,
-         (act(1, h, w, C), w1, b1, w2, b2, 1.0)),
-        ('K2', f'close 64->64 {h}x{w}', conv3x3_fwd, conv3x3_plain,
-         (act(1, h, w, C), *conv(C, C))),
-        ('K3', f'upsample r=2 {h}x{w}', upsample_fwd, upsample_plain,
-         (act(1, h, w, C), *conv(C, 4 * C), 2)),
+        ('K1', f'trunk L={L} {h}x{w}', trunk_fwd, trunk_plain, trunk,
+         2 * L * conv_flops(h * w, C, C), None),
+        ('K2', f'close 64->64 {h}x{w}', conv3x3_fwd, conv3x3_plain, close,
+         conv_flops(h * w, C, C), lib_conv(*close)),
+        ('K3', f'upsample r=2 {h}x{w}', upsample_fwd, upsample_plain, ups,
+         conv_flops(h * w, C, 4 * C), None),
         ('K2', f'phase-major 64->256 {2 * h}x{2 * w}', conv3x3_fwd,
-         conv3x3_plain, (act(1, 2 * h, 2 * w, C), *conv(C, 4 * C))),
+         conv3x3_plain, pm, conv_flops(4 * h * w, C, 4 * C), lib_conv(*pm)),
         ('K2', f'phase-dense 256->16 {2 * h}x{2 * w}', conv3x3_fwd,
-         conv3x3_plain, (act(1, 2 * h, 2 * w, 4 * C), *conv(4 * C, 16))),
+         conv3x3_plain, pd, conv_flops(4 * h * w, 4 * C, 16), lib_conv(*pd)),
     ]
 
 
 def check_kernels(device) -> dict:
     """Phase 2. Returns per kernel id: max error over all shapes, and
-    kernel / plain ms summed over its uses at the first (aligned) size."""
-    stats = {k: {'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0}
-             for k in TOL_STEPS}
+    kernel / plain / bound / library ms summed over its uses at the first
+    (aligned) size."""
+    stats = new_stats(TOL_STEPS)
     for i, (h, w) in enumerate(KERNEL_SIZES):
-        for kid, label, fn, plain, args in kernel_cases(h, w, device):
+        for kid, label, fn, plain, args, flops, lib in kernel_cases(
+                h, w, device):
             got = fn(*args)
             torch.cuda.synchronize()
             ref = plain(*args)
@@ -214,8 +354,7 @@ def check_kernels(device) -> dict:
             s = stats[kid]
             s['max_abs_err'] = max(s['max_abs_err'], err)
             if i == 0:
-                s['ms'] += ms
-                s['plain_ms'] += plain_ms
+                record(s, ms, plain_ms, flops, nbytes(args, got), lib)
     return stats
 
 
@@ -230,8 +369,9 @@ def _err(got, ref, steps) -> tuple[float, float, float]:
 
 
 def bwd_cases(bsz: int, h: int, w: int, device) -> list[tuple]:
-    """(kernel id, label, wrapper, plain, args) at the shapes a train
-    step gives each backward for a batch of h x w LR patches."""
+    """(kernel id, label, wrapper, plain, args, matrix FLOPs, library
+    call or None) at the shapes a train step gives each backward for a
+    batch of h x w LR patches."""
     gen = torch.Generator().manual_seed(bsz * 10000 + h * 100 + w)
     bf = torch.bfloat16
 
@@ -248,32 +388,39 @@ def bwd_cases(bsz: int, h: int, w: int, device) -> list[tuple]:
     _, xs, h1s = trunk_fwd(act(bsz, h, w, C), w1, b1, w2, b2, 1.0,
                            save=True)
     h2, w2_ = 2 * h, 2 * w
+    px, px2 = bsz * h * w, bsz * h2 * w2_
+    # drawn in the order of the cases (the data of earlier runs)
+    trunk = (xs, h1s, act(bsz, h, w, C), w1, w2, 1.0)
+    close = (act(bsz, h, w, C), weight(C, C), act(bsz, h, w, C))
+    ups = (act(bsz, h, w, C), weight(C, 4 * C), act(bsz, h2, w2_, C), 2)
+    pm = (act(bsz, h2, w2_, C), weight(C, 4 * C), act(bsz, h2, w2_, 4 * C))
+    pd = (act(bsz, h2, w2_, 4 * C), weight(4 * C, 16), act(bsz, h2, w2_, 16))
+    # a backward is two convs' work: dx, and dW through the weight grads
     return [
         ('K1b', f'trunk bwd L={L} {bsz}x{h}x{w}', trunk_bwd, trunk_bwd_plain,
-         (xs, h1s, act(bsz, h, w, C), w1, w2, 1.0)),
+         trunk, 4 * L * conv_flops(px, C, C), None),
         ('K2b', f'close bwd 64->64 {bsz}x{h}x{w}', conv3x3_bwd,
-         conv3x3_bwd_plain, (act(bsz, h, w, C), weight(C, C),
-                             act(bsz, h, w, C))),
+         conv3x3_bwd_plain, close, 2 * conv_flops(px, C, C),
+         lib_conv_bwd(*close)),
         ('K3b', f'upsample bwd r=2 {bsz}x{h}x{w}', upsample_bwd,
-         upsample_bwd_plain, (act(bsz, h, w, C), weight(C, 4 * C),
-                              act(bsz, h2, w2_, C), 2)),
+         upsample_bwd_plain, ups, 2 * conv_flops(px, C, 4 * C), None),
         ('K2b', f'phase-major bwd 64->256 {bsz}x{h2}x{w2_}', conv3x3_bwd,
-         conv3x3_bwd_plain, (act(bsz, h2, w2_, C), weight(C, 4 * C),
-                             act(bsz, h2, w2_, 4 * C))),
+         conv3x3_bwd_plain, pm, 2 * conv_flops(px2, C, 4 * C),
+         lib_conv_bwd(*pm)),
         ('K2b', f'phase-dense bwd 256->16 {bsz}x{h2}x{w2_}', conv3x3_bwd,
-         conv3x3_bwd_plain, (act(bsz, h2, w2_, 4 * C), weight(4 * C, 16),
-                             act(bsz, h2, w2_, 16))),
+         conv3x3_bwd_plain, pd, 2 * conv_flops(px2, 4 * C, 16),
+         lib_conv_bwd(*pd)),
         ('W', f'weight grads of the trunk L={L} {bsz}x{h}x{w}', conv_wgrad,
-         conv_wgrad_plain, (xs, h1s)),
+         conv_wgrad_plain, (xs, h1s), L * conv_flops(px, C, C),
+         lib_wgrad(xs, h1s)),
     ]
 
 
 def check_bwd_kernels(device) -> dict:
     """Phase 2b. Returns per kernel id: max dx error (the weight-grad
-    kernel: max dW error) over all shapes, and kernel / plain ms summed
-    over its uses at the training shapes."""
-    stats = {k: {'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0}
-             for k in ('K1s', 'K1b', 'K2b', 'K3b', 'W')}
+    kernel: max dW error) over all shapes, and kernel / plain / bound /
+    library ms summed over its uses at the training shapes."""
+    stats = new_stats(('K1s', 'K1b', 'K2b', 'K3b', 'W'))
     for i, (bsz, h, w) in enumerate(((TRAIN_BATCH, TRAIN_PATCH // SCALE,
                                       TRAIN_PATCH // SCALE), (2, 67, 45))):
         # K1's forward in its saving variant: output, block inputs, h1
@@ -294,11 +441,13 @@ def check_bwd_kernels(device) -> dict:
                                               err)
         if i == 0:
             st = stats['K1s']
-            st['ms'] = median_ms(lambda: trunk_fwd(*args, save=True))
-            st['plain_ms'] = median_ms(lambda: trunk_plain(*args, save=True))
+            record(st, median_ms(lambda: trunk_fwd(*args, save=True)),
+                   median_ms(lambda: trunk_plain(*args, save=True)),
+                   2 * L * conv_flops(bsz * h * w, C, C), nbytes(args, got))
             print(f'K1s trunk fwd, saving, L={L} {bsz}x{h}x{w}: kernel '
                   f'{st["ms"]:.4f} ms plain {st["plain_ms"]:.4f} ms')
-        for kid, label, fn, plain, args in bwd_cases(bsz, h, w, device):
+        for kid, label, fn, plain, args, flops, lib in bwd_cases(
+                bsz, h, w, device):
             got = fn(*args)
             torch.cuda.synchronize()
             ref = plain(*args)
@@ -323,8 +472,126 @@ def check_bwd_kernels(device) -> dict:
             st = stats[kid]
             st['max_abs_err'] = max(st['max_abs_err'], errs[0][0])
             if i == 0:
-                st['ms'] += ms
-                st['plain_ms'] += plain_ms
+                record(st, ms, plain_ms, flops, nbytes(args, got), lib)
+    return stats
+
+
+def rcab_params(gen, device, lead=()):
+    """One RCAB's (or a stack's) weights at srtpu's init bounds: conv
+    weights bf16, biases and the attention MLP f32."""
+    cb = 1.0 / (9 * C) ** 0.5
+    f32 = torch.float32
+    return (_uniform(gen, (*lead, 3, 3, C, C), cb, device, torch.bfloat16),
+            _uniform(gen, (*lead, C), cb, device, f32),
+            _uniform(gen, (*lead, 3, 3, C, C), cb, device, torch.bfloat16),
+            _uniform(gen, (*lead, C), cb, device, f32),
+            _uniform(gen, (*lead, C, CR), C ** -0.5, device, f32),
+            _uniform(gen, (*lead, CR), C ** -0.5, device, f32),
+            _uniform(gen, (*lead, CR, C), CR ** -0.5, device, f32),
+            _uniform(gen, (*lead, C), CR ** -0.5, device, f32))
+
+
+def _check_all(label, names, got, ref, tols) -> float:
+    """Every output against its reference within its tolerance (steps of
+    the largest magnitude, or a float: that relative share of it);
+    returns the first error."""
+    parts, first = [], None
+    for name, g_t, r_t, tol in zip(names, got, ref, tols):
+        steps = tol if isinstance(tol, int) else None
+        err, lim, top = _err(g_t, r_t, steps)
+        if not isinstance(tol, int):
+            lim = tol * top
+        parts.append(f'{name} {err:.4g}/{lim:.4g}')
+        need(np.isfinite(err) and err <= lim, f'{label} {name}: {err} > {lim}')
+        first = err if first is None else first
+    print(f'{label}: max_abs/tol ' + ', '.join(parts))
+    return first
+
+
+def check_rcab_kernels(device) -> dict:
+    """Phase 2c. K5's forward (saving) and backward against the plain
+    versions, one RCAB at the training, predict and ragged shapes and a
+    16-block group at the training shape; two calls bit-identical.
+    Returns K5 / K5b stats, timed at the training shape (per RCAB call)."""
+    stats = new_stats(('K5', 'K5b'))
+    mlp_tol = [RCAB_MLP_REL] * 4
+    bwd_names = ('dx', 'dw1', 'db1', 'dw2', 'db2', 'dwd', 'dbd', 'dwu', 'dbu')
+    shapes = ((TRAIN_BATCH, TRAIN_PATCH // SCALE, TRAIN_PATCH // SCALE),
+              (1, 128, 128), (2, 67, 45))
+    for i, (bsz, h, w) in enumerate(shapes):
+        gen = torch.Generator().manual_seed(bsz * 7919 + h * 101 + w)
+        prm = rcab_params(gen, device)
+        x = _uniform(gen, (bsz, h, w, C), 1.0, device, torch.bfloat16)
+        g = _uniform(gen, (bsz, h, w, C), 1.0, device, torch.bfloat16)
+        tag = f'{bsz}x{h}x{w}'
+        got = rcab_fwd(x, *prm, save=True)
+        torch.cuda.synchronize()
+        ref = rcab_fwd_plain(x, *prm, save=True)
+        need(all(torch.equal(a, b) for a, b in
+                 zip(got, rcab_fwd(x, *prm, save=True))),
+             f'K5 fwd {tag}: two calls differ')
+        err = _check_all(f'K5 rcab fwd (saving) {tag}', ('out', 'h1', 'r2'),
+                         got, ref, [RCAB_STEPS] * 3)
+        stats['K5']['max_abs_err'] = max(stats['K5']['max_abs_err'], err)
+        # the backward from the plain forward's saved h1, r2
+        bargs = (x, ref[1], ref[2], g, prm[0], prm[2], *prm[4:])
+        bgot = rcab_bwd(*bargs)
+        torch.cuda.synchronize()
+        bref = rcab_bwd_plain(*bargs)
+        need(all(torch.equal(a, b) for a, b in zip(bgot, rcab_bwd(*bargs))),
+             f'K5 bwd {tag}: two calls differ')
+        err = _check_all(f'K5 rcab bwd {tag}', bwd_names, bgot, bref,
+                         [RCAB_STEPS] * 5 + mlp_tol)
+        stats['K5b']['max_abs_err'] = max(stats['K5b']['max_abs_err'], err)
+        fms = median_ms(lambda: rcab_fwd(x, *prm, save=True))
+        fpl = median_ms(lambda: rcab_fwd_plain(x, *prm, save=True))
+        bms = median_ms(lambda: rcab_bwd(*bargs))
+        bpl = median_ms(lambda: rcab_bwd_plain(*bargs))
+        nms = median_ms(lambda: rcab_fwd(x, *prm))
+        print(f'K5 {tag}: fwd saving kernel {fms:.4f} ms plain {fpl:.4f} ms; '
+              f'fwd (predict, no saving) kernel {nms:.4f} ms; bwd (incl. 2 '
+              f'weight-grad launches) kernel {bms:.4f} ms plain {bpl:.4f} ms')
+        if i == 0:
+            px = bsz * h * w
+            record(stats['K5'], fms, fpl, 2 * conv_flops(px, C, C),
+                   nbytes(x, prm, got))
+            record(stats['K5b'], bms, bpl, 4 * conv_flops(px, C, C),
+                   nbytes(bargs, bgot))
+
+    # a 16-block residual group at the training shape
+    bsz, h, w = shapes[0]
+    gen = torch.Generator().manual_seed(2024)
+    w1, b1, w2, b2, wd, bd, wu, bu = rcab_params(gen, device, (RCABS,))
+    wc = _uniform(gen, (3, 3, C, C), 1.0 / (9 * C) ** 0.5, device,
+                  torch.bfloat16)
+    bc = _uniform(gen, (C,), 1.0 / (9 * C) ** 0.5, device, torch.float32)
+    prm = (w1, b1, w2, b2, wd, bd, wu, bu, wc, bc)
+    x = _uniform(gen, (bsz, h, w, C), 1.0, device, torch.bfloat16)
+    g = _uniform(gen, (bsz, h, w, C), 1.0, device, torch.bfloat16)
+    tag = f'L={RCABS} {bsz}x{h}x{w}'
+    got = resgroup_fwd(x, *prm, save=True)
+    torch.cuda.synchronize()
+    ref = resgroup_plain(x, *prm, save=True)
+    need(all(torch.equal(a, b) for a, b in
+             zip(got, resgroup_fwd(x, *prm, save=True))),
+         f'group fwd {tag}: two calls differ')
+    _check_all(f'K5 group fwd (saving) {tag}', ('out', 'xs', 'h1s', 'r2s'),
+               got, ref, [GROUP_STEPS] * 4)
+    bargs = (*ref[1:], g, w1, w2, wd, bd, wu, bu, wc)
+    bgot = resgroup_bwd(*bargs)
+    torch.cuda.synchronize()
+    bref = resgroup_bwd_plain(*bargs)
+    need(all(torch.equal(a, b) for a, b in zip(bgot, resgroup_bwd(*bargs))),
+         f'group bwd {tag}: two calls differ')
+    _check_all(f'K5 group bwd {tag}', (*bwd_names, 'dwc', 'dbc'), bgot, bref,
+               [GROUP_STEPS] * 11)
+    times = [median_ms(fn, 5, 3) for fn in (
+        lambda: resgroup_fwd(x, *prm, save=True),
+        lambda: resgroup_plain(x, *prm, save=True),
+        lambda: resgroup_bwd(*bargs), lambda: resgroup_bwd_plain(*bargs))]
+    print(f'K5 group {tag}: fwd saving kernel {times[0]:.4f} ms plain '
+          f'{times[1]:.4f} ms; bwd kernel {times[2]:.4f} ms plain '
+          f'{times[3]:.4f} ms')
     return stats
 
 
@@ -337,8 +604,13 @@ def png_size(path: Path) -> tuple[int, int]:
     return h, w
 
 
-def run_slice(device, smi: str) -> dict:
-    """Phase 3. Returns the launch counts of the main-path run."""
+def run_slice(device, smi: str, model: str = 'EDSR', extra=(),
+              expected=EXPECTED_LAUNCHES, rules=None) -> dict:
+    """Phase 3 (EDSR) and 5 (RCAN, ``extra`` its CLI flags): predict
+    through the CLI, the launch counters per image (``expected``), the
+    PNGs, kernel path against plain path; with ``rules``, device time
+    by kernel group of the largest image's forward. Returns the launch
+    counts of the main-path run."""
     rng = np.random.default_rng(SEED)
     with tempfile.TemporaryDirectory(prefix='srtpu_smoke_') as tmp:
         demo = Path(tmp) / 'datasets' / 'Demo'
@@ -351,23 +623,23 @@ def run_slice(device, smi: str) -> dict:
             name = f'img{h}x{w}'
             images[name] = img.astype(np.float32)
             np.save(demo / f'{name}.npy', images[name])
-        argv = ['predict', '--model', 'EDSR', '--scale_factor', str(SCALE),
-                '--n_feats', str(C), '--n_resblocks', str(L),
+        argv = ['predict', '--model', model, '--scale_factor', str(SCALE),
+                '--n_feats', str(C), '--n_resblocks', str(L), *extra,
                 '--datasets_dir', str(Path(tmp) / 'datasets'),
                 '--predict_datasets', 'Demo', '--precision', 'bf16',
                 '--device', 'cuda', '--seed', str(SEED)]
         warm = argv + ['--default_root_dir', str(Path(tmp) / 'warm')]
         need(cli.main(warm) == 0, 'warm-up predict')   # cuDNN plans, allocator
         out = Path(tmp) / 'out'
-        for k in EXPECTED_LAUNCHES:
+        for k in expected:
             k.launches = 0
         t0 = time.perf_counter()
         rc = cli.main(argv + ['--default_root_dir', str(out)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {k: k.launches for k in EXPECTED_LAUNCHES}
+        counts = {k: k.launches for k in expected}
         need(rc == 0, f'predict returned {rc}')
-        for k, per_image in EXPECTED_LAUNCHES.items():
+        for k, per_image in expected.items():
             need(counts[k] == per_image * len(images),
                  f'{k.__name__}: {counts[k]} launches, expected '
                  f'{per_image} x {len(images)}')
@@ -377,25 +649,26 @@ def run_slice(device, smi: str) -> dict:
                  f'{name}.png is {size}')
         mpix = sum(SCALE * SCALE * img.shape[0] * img.shape[1]
                    for img in images.values()) / 1e6
-        print(f'predict CLI (incl. PNG encode + write): {len(images)} images '
+        print(f'{model} predict CLI (incl. PNG encode + write): '
+              f'{len(images)} images '
               f'in {wall:.3f} s = {len(images) / wall:.3f} images/s, '
               f'{mpix / wall:.3f} MPix/s  [{smi}]')
 
-        model = cli.build_model(cli.build_parser().parse_args(argv), device)
+        net = cli.build_model(cli.build_parser().parse_args(argv), device)
         for name, img in images.items():
             lr = torch.from_numpy(pad_to_bucket(img, 32)[0][None]).to(device)
             h, w = SCALE * img.shape[0], SCALE * img.shape[1]
             with torch.inference_mode():
-                sr_k = model(lr).float().clamp(0, 1)[0, :h, :w]
-                sr_p = model(lr, plain=True).float().clamp(0, 1)[0, :h, :w]
-                ms = median_ms(lambda: model(lr), launches=1)
-                plain_ms = median_ms(lambda: model(lr, plain=True),
+                sr_k = net(lr).float().clamp(0, 1)[0, :h, :w]
+                sr_p = net(lr, plain=True).float().clamp(0, 1)[0, :h, :w]
+                ms = median_ms(lambda: net(lr), launches=1)
+                plain_ms = median_ms(lambda: net(lr, plain=True),
                                      launches=1)
             need(sr_k.shape == (h, w, 3) and bool(torch.isfinite(sr_k).all()),
                  f'{name}: SR shape {tuple(sr_k.shape)} or non-finite')
             diff = (sr_k - sr_p).abs()
             err, mean = diff.max().item(), diff.mean().item()
-            print(f'slice {name} (LR {tuple(lr.shape[1:3])}): '
+            print(f'{model} slice {name} (LR {tuple(lr.shape[1:3])}): '
                   f'max_abs {err:.4g}'
                   f' (tol {SLICE_MAX_TOL:.4g}) mean_abs {mean:.3g} (tol '
                   f'{SLICE_MEAN_TOL:.3g}) | forward kernels {ms:.3f} ms = '
@@ -409,6 +682,10 @@ def run_slice(device, smi: str) -> dict:
             need(check.read_bytes() ==
                  (out / 'Demo' / f'{name}.png').read_bytes(),
                  f'{name}.png differs from the checked kernel-path SR')
+        if rules:
+            with torch.inference_mode():
+                _profile(lambda: net(lr), ms, smi, rules,
+                         f'{model} predict forward, LR {tuple(lr.shape[1:3])}')
     return counts
 
 
@@ -424,57 +701,66 @@ class _LossLog(logging.Handler):
             self.losses.append(float(record.args[2]))
 
 
-def _profile_steps(step, state, lr, hr, step_ms: float, smi: str) -> None:
-    """Device time by kernel over three train steps (torch.profiler), and
-    its share of ``step_ms``, the step time measured without the
-    profiler (whose own host cost inflates the traced wall time)."""
+# kernel-name substring -> group of the profile, first match wins
+EDSR_PROFILE = (('resblock_bwd_kernel', 'K1 bwd dx chain'),
+                ('resblock_kernel', 'K1 fwd'), ('wgrad', 'weight grads'),
+                ('conv3x3_kernel<64, 64, 7, 16, true', 'K3 fwd'),
+                ('conv3x3_kernel<256, 16, 7, 16, false, true', 'K3 bwd dx'),
+                ('conv3x3_kernel', 'K2 fwd + bwd dx'))
+RCAN_PROFILE = (('rcab_pair_kernel', 'K5 fwd conv pair (F1)'),
+                ('rcab_pool_mlp_kernel', 'K5 fwd pool + MLP (F2)'),
+                ('rcab_gate_kernel', 'K5 fwd gate (F3)'),
+                ('rcab_ca_sums_kernel', 'K5 bwd pool sums (B1)'),
+                ('rcab_ca_bwd_kernel', 'K5 bwd MLP (B2)'),
+                ('rcab_mlp_grads_kernel', 'K5 bwd MLP (B2)'),
+                ('rcab_dr2_kernel', 'K5 bwd dr2 (B3)'),
+                ('rcab_chain_kernel', 'K5 bwd dx chain (B4)'),
+                ('wgrad', 'weight grads'),
+                ('conv3x3_kernel', 'K2 fwd + bwd dx'))
+OTHER = 'other (cuDNN head/tail, Adam, casts, copies)'
+
+
+def _profile(run, ms: float, smi: str, rules, what: str) -> None:
+    """Device time by kernel group (``rules``) over three calls of
+    ``run`` (torch.profiler), and its share of ``ms``, the call's time
+    measured without the profiler (whose own host cost inflates the
+    traced wall time)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
-            step(state, lr, hr)
+            run()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / 3
-    groups = {'K1 fwd': 0.0, 'K1 bwd dx chain': 0.0, 'K2 fwd + bwd dx': 0.0,
-              'K3 fwd': 0.0, 'K3 bwd dx': 0.0, 'weight grads': 0.0,
-              'other (cuDNN head, Adam, casts, copies)': 0.0}
+    groups = {key: 0.0 for _, key in rules}
+    groups[OTHER] = 0.0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(e, 'self_device_time_total', None)
         if us is None:
             us = e.self_cuda_time_total
-        name = e.key
-        if 'resblock_bwd_kernel' in name:
-            key = 'K1 bwd dx chain'
-        elif 'resblock_kernel' in name:
-            key = 'K1 fwd'
-        elif 'wgrad' in name:
-            key = 'weight grads'
-        elif 'conv3x3_kernel<64, 64, 7, 16, true' in name:
-            key = 'K3 fwd'
-        elif 'conv3x3_kernel<256, 16, 7, 16, false, true' in name:
-            key = 'K3 bwd dx'
-        elif 'conv3x3_kernel' in name:
-            key = 'K2 fwd + bwd dx'
-        else:
-            key = 'other (cuDNN head, Adam, casts, copies)'
+        key = next((k for sub, k in rules if sub in e.key), OTHER)
         groups[key] += us / 1e3 / 3
     device = sum(groups.values())
     if device == 0.0:
         print('profiler: no device time recorded')
         return
-    print(f'train step device time by kernel (torch.profiler, 3 steps): '
-          f'device {device:.3f} ms/step = {device / step_ms:.3f} of the '
-          f'{step_ms:.3f} ms step (traced wall {wall:.3f} ms/step)  [{smi}]')
-    for key, ms in groups.items():
-        print(f'  {key}: {ms:.3f} ms ({ms / device:.3f})')
+    print(f'{what} device time by kernel (torch.profiler, 3 calls): '
+          f'device {device:.3f} ms = {device / ms:.3f} of the {ms:.3f} ms '
+          f'call (traced wall {wall:.3f} ms)  [{smi}]')
+    for key, t in groups.items():
+        print(f'  {key}: {t:.3f} ms ({t / device:.3f})')
 
 
-def run_train(device, smi: str) -> dict:
-    """Phase 4. Returns the launch counts of the fit run."""
+def run_train(device, smi: str, model: str = 'EDSR', extra=(),
+              expected=STEP_LAUNCHES, rules=EDSR_PROFILE) -> dict:
+    """Phase 4 (EDSR) and 6 (RCAN, ``extra`` its CLI flags): fit through
+    the CLI, the launch counters per step (``expected``), the loss,
+    kernel-path against plain-path steps, step times, the profile.
+    Returns the launch counts of the fit run."""
     rng = np.random.default_rng(SEED)
     hr_size = 3 * TRAIN_PATCH // 2
     with tempfile.TemporaryDirectory(prefix='srtpu_smoke_fit_') as tmp:
@@ -490,8 +776,8 @@ def run_train(device, smi: str) -> dict:
             lr = hr.reshape(hr_size // SCALE, SCALE, hr_size // SCALE, SCALE,
                             3).mean((1, 3))
             np.save(lr_dir / f'{i:02d}.npy', lr.astype(np.float32))
-        argv = ['fit', '--model', 'EDSR', '--scale_factor', str(SCALE),
-                '--n_feats', str(C), '--n_resblocks', str(L),
+        argv = ['fit', '--model', model, '--scale_factor', str(SCALE),
+                '--n_feats', str(C), '--n_resblocks', str(L), *extra,
                 '--datasets_dir', str(data), '--train_datasets', 'Train',
                 '--batch_size', str(TRAIN_BATCH), '--patch_size',
                 str(TRAIN_PATCH), '--losses', 'l1', '--optimizer', 'ADAM',
@@ -501,16 +787,16 @@ def run_train(device, smi: str) -> dict:
                 str(Path(tmp) / 'run')]
         log = _LossLog()
         logging.getLogger('srtpu_torch.train.loop').addHandler(log)
-        for k in STEP_LAUNCHES:
+        for k in expected:
             k.launches = 0
         t0 = time.perf_counter()
         rc = cli.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {k: k.launches for k in STEP_LAUNCHES}
+        counts = {k: k.launches for k in expected}
         logging.getLogger('srtpu_torch.train.loop').removeHandler(log)
         need(rc == 0, f'fit returned {rc}')
-        for k, per_step in STEP_LAUNCHES.items():
+        for k, per_step in expected.items():
             need(counts[k] == per_step * TRAIN_STEPS,
                  f'{k.__name__}: {counts[k]} launches in fit, expected '
                  f'{per_step} x {TRAIN_STEPS}')
@@ -518,7 +804,8 @@ def run_train(device, smi: str) -> dict:
         need(len(losses) == TRAIN_STEPS and all(map(np.isfinite, losses)),
              f'fit losses {losses}')
         first, last = np.mean(losses[:5]), np.mean(losses[-5:])
-        print(f'fit CLI: {TRAIN_STEPS} steps in {wall:.3f} s (incl. model '
+        print(f'{model} fit CLI: {TRAIN_STEPS} steps in {wall:.3f} s '
+              f'(incl. model '
               f'init, .npy reads, batching, logs); losses '
               + ' '.join(f'{v:.4f}' for v in losses)
               + f'; mean first 5 {first:.5f} last 5 {last:.5f}  [{smi}]')
@@ -527,7 +814,7 @@ def run_train(device, smi: str) -> dict:
              'fit wrote no final_weights.pt')
 
         # kernel path vs plain path from the same params and batches
-        model = cli.build_model(cli.build_parser().parse_args(argv), device)
+        net = cli.build_model(cli.build_parser().parse_args(argv), device)
         from srtpu_torch.data import SRData
         dm = SRData(datasets_dir=str(data), train_datasets=['Train'],
                     batch_size=TRAIN_BATCH, patch_size=TRAIN_PATCH,
@@ -542,7 +829,7 @@ def run_train(device, smi: str) -> dict:
                             torch.from_numpy(b.hr).to(device)))
         paths = {}
         for plain in (False, True):
-            m = copy.deepcopy(model)
+            m = copy.deepcopy(net)
             paths[plain] = (make_train_step(parse_losses('l1'), plain=plain),
                             TrainState(m, build_optimizer(
                                 'ADAM', ['lr=1e-4'], m.parameters())))
@@ -551,22 +838,28 @@ def run_train(device, smi: str) -> dict:
             for plain, (step, state) in paths.items():
                 step_losses[plain].append(float(step(state, lr, hr)['loss']))
             if j == 0:      # gradients from identical params and batch
-                worst, worst_name = 0.0, ''
+                rels = {False: {}, True: {}}     # by: is an attention MLP
                 for (name, pk), pp in zip(
                         paths[False][1].model.named_parameters(),
                         paths[True][1].model.parameters()):
                     need(pk.grad.dtype == torch.float32, f'{name} grad dtype')
-                    rel = ((pk.grad - pp.grad).abs().max()
-                           / pp.grad.abs().max()).item()
-                    if rel > worst:
-                        worst, worst_name = rel, name
-                print(f'train step, kernel vs plain path: worst gradient '
-                      f'{worst_name} max_abs/max|ref| {worst:.4g} (tol '
-                      f'{STEP_GRAD_TOL:.4g})')
-                need(worst <= STEP_GRAD_TOL, f'{worst_name} gradient')
+                    rels[name.endswith(MLP_PARAMS)][name] = (
+                        (pk.grad - pp.grad).abs().max()
+                        / pp.grad.abs().max()).item()
+                for mlp, tol in ((False, STEP_GRAD_TOL),
+                                 (True, MLP_STEP_GRAD_TOL)):
+                    if not rels[mlp]:
+                        continue
+                    top = sorted(rels[mlp].items(), key=lambda kv: -kv[1])
+                    print(f'{model} train step, kernel vs plain path: '
+                          f'worst {"attention-MLP " if mlp else ""}gradients '
+                          f'max_abs/max|ref| ' + ', '.join(
+                              f'{n} {v:.4g}' for n, v in top[:4])
+                          + f' (tol {tol:.4g})')
+                    need(top[0][1] <= tol, f'{top[0][0]} gradient')
         rels = [abs(a - b) / b for a, b in zip(step_losses[False],
                                                step_losses[True])]
-        print('train losses kernel / plain: ' + ' '.join(
+        print(f'{model} train losses kernel / plain: ' + ' '.join(
             f'{a:.5f}/{b:.5f}' for a, b in zip(step_losses[False],
                                                step_losses[True]))
             + f'; max rel {max(rels):.4g} (tol {STEP_LOSS_TOL:.4g})')
@@ -577,22 +870,31 @@ def run_train(device, smi: str) -> dict:
             times[plain] = median_ms(lambda: step(state, lr, hr),
                                      launches=5, windows=3)
         for plain, label in ((False, 'kernel'), (True, 'plain')):
-            print(f'train step ({label} path): {times[plain]:.3f} ms/step = '
+            print(f'{model} train step ({label} path): '
+                  f'{times[plain]:.3f} ms/step = '
                   f'{TRAIN_BATCH * 1e3 / times[plain]:.2f} patches/s '
                   f'(batch {TRAIN_BATCH}, LR {TRAIN_PATCH // SCALE}x'
                   f'{TRAIN_PATCH // SCALE} -> HR {TRAIN_PATCH}x{TRAIN_PATCH}, '
                   f'L1 + Adam)  [{smi}]')
-        _profile_steps(paths[False][0], paths[False][1], lr, hr,
-                       times[False], smi)
+        step, state = paths[False]
+        _profile(lambda: step(state, lr, hr), times[False], smi, rules,
+                 f'{model} train step')
     return counts
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     device, smi = card()
     stats = check_kernels(device)
     stats.update(check_bwd_kernels(device))
-    predict_counts = run_slice(device, smi)
-    fit_counts = run_train(device, smi)
+    stats.update(check_rcab_kernels(device))
+    # the four main-path runs, each with the counters set to 0 before it
+    runs = {'edsr_predict': run_slice(device, smi),
+            'edsr_fit': run_train(device, smi)}
+    runs['rcan_predict'] = run_slice(device, smi, 'RCAN', RCAN_ARGS,
+                                     RCAN_PREDICT_LAUNCHES, RCAN_PROFILE)
+    runs['rcan_fit'] = run_train(device, smi, 'RCAN', RCAN_ARGS,
+                                 RCAN_STEP_LAUNCHES, RCAN_PROFILE)
     rep = 'srtpu/ops/cs_conv.py:'
     meta = [('K1', 'K1 trunk_fwd (fused resblock)', trunk_fwd, 'trunk.cu',
              rep + '1496'),
@@ -605,13 +907,29 @@ def main() -> None:
              'conv.cu', rep + '581'),
             ('K3b', 'K3 upsample_bwd (dx, de-interleave in the load; with '
              'its weight grads)', upsample_bwd, 'upsample.cu', rep + '975'),
-            ('W', 'conv_wgrad (dW, db of the K1/K2/K3 backward passes)',
-             conv_wgrad, 'wgrad.cu', rep + '452')]
-    print(json.dumps({'kernels': [
-        {'name': name, 'route': 'cuda', 'source': 'srtpu_torch/ops/csrc/' + src,
-         'replaces': r, 'launches': fit_counts[fn],
-         'predict_launches': predict_counts.get(fn, 0), **stats[kid]}
-        for kid, name, fn, src, r in meta]}))
+            ('W', 'conv_wgrad (dW, db of the K1/K2/K3/K5 backward passes)',
+             conv_wgrad, 'wgrad.cu', rep + '452'),
+            ('K5', 'K5 rcab_fwd (RCAB conv pair, pool + MLP, gate)',
+             rcab_fwd, 'rcab.cu', rep + '2593'),
+            ('K5b', 'K5 rcab_bwd (pool sums, MLP bwd, dr2, dx chain; with its '
+             'weight grads)', rcab_bwd, 'rcab.cu', rep + '2618')]
+    rows = []
+    for kid, name, fn, src, r in meta:
+        st = stats[kid]
+        by_path = {path: counts.get(fn, 0) for path, counts in runs.items()}
+        need(sum(by_path.values()) > 0, f'{name}: no main-path launch')
+        rows.append({
+            'name': name, 'route': 'cuda',
+            'source': 'srtpu_torch/ops/csrc/' + src, 'replaces': r,
+            'launches': sum(by_path.values()), 'launches_by_path': by_path,
+            'max_abs_err': st['max_abs_err'], 'ms': st['ms'],
+            'plain_ms': st['plain_ms'], 'bound_ms': st['bound_ms'],
+            'bound_by': ('operations' if st['ops_ms'] >= st['bytes_ms']
+                         else 'bytes'),
+            'library_ms': st['library_ms']})
+    print(f'chip_smoke ran {time.perf_counter() - t_start:.1f} s '
+          f'(kernel build included)')
+    print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -16,10 +16,15 @@ The flags are srtpu's config keys; the defaults follow
 ``--seed``, logs to ``<default_root_dir>/run.log`` and writes the final
 weights to ``<default_root_dir>/final_weights.pt``, which ``predict
 --weights`` reads (as does ``python -m srtpu_torch.convert``'s output).
-``fit`` runs no validation and writes no checkpoints yet (ROADMAP.md
-queue 1, items 4 and 7). ``--device cuda`` without a card raises: there
-is no fallback to the CPU. On the card x3 and ``--precision 32`` raise:
-the kernels take bf16 and no x3 tail shape (ROADMAP.md §3, F4).
+``--model RCAN`` adds ``--n_resgroups`` (default 10) and
+``--reduction`` (default 16), srtpu's RCAN keys; a model ignores the
+flags it does not declare. ``fit`` runs no validation and writes no
+checkpoints yet (ROADMAP.md queue 1, items 4 and 7). ``--device cuda``
+without a card raises: there is no fallback to the CPU. On the card
+``--precision 32`` raises (the kernels take bf16), and so does x3 for
+EDSR, whose x3 tail needs a K2 shape the port lacks (ROADMAP.md §3, F4);
+RCAN runs x3 on the card, since its tail is cuDNN (each model's
+``CARD_SCALES``).
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from pathlib import Path
 import torch
 
 from .data import SRData
-from .models import create_model
+from .models import create_model, model_class
 from .train import Trainer, TrainerConfig
 
 _logger = logging.getLogger('srtpu_torch')
@@ -43,6 +48,8 @@ def _model_args(p: argparse.ArgumentParser, seed: int) -> None:
     p.add_argument('--scale_factor', type=int, default=4)
     p.add_argument('--n_feats', type=int, default=64)
     p.add_argument('--n_resblocks', type=int, default=16)
+    p.add_argument('--n_resgroups', type=int, default=10)
+    p.add_argument('--reduction', type=int, default=16)
     p.add_argument('--datasets_dir', default='datasets')
     p.add_argument('--default_root_dir', default='.')
     p.add_argument('--precision', choices=('bf16', '32'), default='bf16')
@@ -82,15 +89,18 @@ def resolve_device(name: str) -> torch.device:
 def build_model(args, device: torch.device) -> torch.nn.Module:
     """The model drawn from ``args.seed``, then loaded from
     ``args.weights`` when given."""
+    scales = model_class(args.model).CARD_SCALES
     if device.type == 'cuda' and (args.precision != 'bf16'
-                                  or args.scale_factor == 3):
-        raise ValueError('on CUDA the kernels take bf16 and x2/x4/x8 only: '
-                         'pass --precision bf16 and a scale of 2, 4 or 8 '
-                         '(or --device cpu)')
+                                  or args.scale_factor not in scales):
+        raise ValueError(
+            f'on CUDA the kernels take bf16 and {args.model} runs scales '
+            f'{", ".join(map(str, scales))}: pass --precision bf16 and one '
+            f'of those scales (or --device cpu)')
     dtype = torch.bfloat16 if args.precision == 'bf16' else None
     model = create_model(args.model, scale_factor=args.scale_factor,
                          n_feats=args.n_feats, n_resblocks=args.n_resblocks,
-                         dtype=dtype, device=device,
+                         n_resgroups=args.n_resgroups,
+                         reduction=args.reduction, dtype=dtype, device=device,
                          generator=torch.Generator().manual_seed(args.seed))
     weights = getattr(args, 'weights', None)
     if weights:

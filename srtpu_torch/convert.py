@@ -1,4 +1,4 @@
-"""JAX EDSR parameters -> an srtpu_torch state dict.
+"""JAX EDSR and RCAN parameters -> an srtpu_torch state dict.
 
 Reads either EDSR tree srtpu stores:
 
@@ -10,7 +10,20 @@ Reads either EDSR tree srtpu stores:
   kernel (3*ch, 3*C);
 * the ``use_pallas=False`` tree: ``Conv2d_0`` (head),
   ``ResBlock_{i}/Conv2d_{0,1}``, ``Conv2d_1`` (close),
-  ``UpscaleBlock_0/Conv2d_{j}`` and ``Conv2d_2`` (final), all HWIO.
+  ``UpscaleBlock_0/Conv2d_{j}`` and ``Conv2d_2`` (final), all HWIO;
+
+and either RCAN tree:
+
+* ``use_pallas='cs'``: ``Conv2d_0`` (head), ``CSResidualGroup_{i}/{w1,
+  b1, w2, b2, wd, bd, wu, bu, wc, bc}`` with CS-stacked w1, w2 (L, 3C,
+  3C) and a CS wc (3C, 3C), ``trunk_close_kernel`` (CS) and
+  ``trunk_close_bias``, ``UpscaleBlock_0/Conv2d_{j}`` and ``Conv2d_1``
+  (final);
+* ``use_pallas=False``: ``Conv2d_0`` (head), ``ResidualGroup_{i}/
+  RCAB_{j}/{Conv2d_0, Conv2d_1, CALayer_0/{Conv2d_0, Conv2d_1}}`` (the
+  attention's 1x1 kernels give wd and wu) and ``ResidualGroup_{i}/
+  Conv2d_0`` (group close), ``Conv2d_1`` (trunk close),
+  ``UpscaleBlock_0/Conv2d_{j}`` and ``Conv2d_2`` (final).
 
 A tree is nested dicts of numpy arrays, with or without the top-level
 ``params`` key. Any JAX host can write one as a flat ``.npz``
@@ -34,9 +47,67 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, dtype=np.float32).copy())
 
 
+def _conv(sd: dict, name: str, node: dict) -> None:
+    sd[f'{name}.weight'] = _t(node['kernel'])
+    sd[f'{name}.bias'] = _t(node['bias'])
+
+
+def _seq(node: dict, prefix: str) -> list:
+    """node[prefix + '0'], node[prefix + '1'], ... while present."""
+    out = []
+    while f'{prefix}{len(out)}' in node:
+        out.append(node[f'{prefix}{len(out)}'])
+    return out
+
+
+def _rcan_from_jax(p: dict) -> dict[str, torch.Tensor]:
+    sd: dict[str, torch.Tensor] = {}
+    _conv(sd, 'head', p['Conv2d_0'])
+    n = sd['head.weight'].shape[-1]
+    for j, conv in enumerate(_seq(p['UpscaleBlock_0'], 'Conv2d_')):
+        _conv(sd, f'upscale.convs.{j}', conv)
+    if 'CSResidualGroup_0' in p:
+        for i, grp in enumerate(_seq(p, 'CSResidualGroup_')):
+            pre = f'groups.{i}.'
+            for k in ('b1', 'b2', 'wd', 'bd', 'wu', 'bu', 'bc'):
+                sd[pre + k] = _t(grp[k])
+            for k in ('w1', 'w2'):
+                sd[pre + k] = w_hwio_from_cs(_t(grp[k]), n, n).contiguous()
+            sd[pre + 'wc'] = w_hwio_from_cs(_t(grp['wc'])[None], n, n)[0] \
+                .contiguous()
+        sd['trunk_close_weight'] = w_hwio_from_cs(
+            _t(p['trunk_close_kernel'])[None], n, n)[0].contiguous()
+        sd['trunk_close_bias'] = _t(p['trunk_close_bias'])
+        _conv(sd, 'final', p['Conv2d_1'])
+        return sd
+    for i, grp in enumerate(_seq(p, 'ResidualGroup_')):
+        pre = f'groups.{i}.'
+        blocks = _seq(grp, 'RCAB_')
+        for k, conv, leaf in (('w1', 'Conv2d_0', 'kernel'),
+                              ('b1', 'Conv2d_0', 'bias'),
+                              ('w2', 'Conv2d_1', 'kernel'),
+                              ('b2', 'Conv2d_1', 'bias')):
+            sd[pre + k] = torch.stack([_t(b[conv][leaf]) for b in blocks])
+        ca = [b['CALayer_0'] for b in blocks]
+        for w, b, conv in (('wd', 'bd', 'Conv2d_0'), ('wu', 'bu', 'Conv2d_1')):
+            # 1x1 kernels (1, 1, I, O) -> (I, O)
+            sd[pre + w] = torch.stack([_t(a[conv]['kernel'])[0, 0]
+                                       for a in ca])
+            sd[pre + b] = torch.stack([_t(a[conv]['bias']) for a in ca])
+        sd[pre + 'wc'] = _t(grp['Conv2d_0']['kernel'])
+        sd[pre + 'bc'] = _t(grp['Conv2d_0']['bias'])
+    sd['trunk_close_weight'] = _t(p['Conv2d_1']['kernel'])
+    sd['trunk_close_bias'] = _t(p['Conv2d_1']['bias'])
+    _conv(sd, 'final', p['Conv2d_2'])
+    return sd
+
+
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
-    """State dict of :class:`srtpu_torch.models.EDSR` from a JAX EDSR tree."""
+    """State dict of :class:`srtpu_torch.models.EDSR` or ``RCAN`` from a
+    JAX tree of that model, dispatched on the tree's keys."""
     p = tree.get('params', tree)
+    if 'CSResidualGroup_0' in p or 'ResidualGroup_0' in p:
+        return _rcan_from_jax(p)
     head = p['Conv2d_0']
     sd = {'head.weight': _t(head['kernel']), 'head.bias': _t(head['bias'])}
     n = sd['head.weight'].shape[-1]
@@ -62,9 +133,7 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
             .contiguous()
         sd['tail.final_bias'] = _t(tail['final_bias'])
         return sd
-    blocks = []
-    while f'ResBlock_{len(blocks)}' in p:
-        blocks.append(p[f'ResBlock_{len(blocks)}'])
+    blocks = _seq(p, 'ResBlock_')
     for j in (1, 2):            # the block's conv j is its Conv2d_{j - 1}
         convs = [blk[f'Conv2d_{j - 1}'] for blk in blocks]
         sd[f'trunk.w{j}'] = torch.stack([_t(c['kernel']) for c in convs])

@@ -1,6 +1,6 @@
-"""Model registry of the port (srtpu/models/__init__.py). EDSR is ported;
-the other families of srtpu are listed in ROADMAP.md, in the order they
-will be ported."""
+"""Model registry of the port (srtpu/models/__init__.py). EDSR and RCAN
+are ported; the other families of srtpu are listed in ROADMAP.md, in the
+order they will be ported."""
 
 from __future__ import annotations
 
@@ -8,17 +8,18 @@ import inspect
 
 from torch import nn
 
-from .common import Conv2d, Trunk, UpscaleTail, mean_shift, pixel_shuffle
+from .common import (Conv2d, Trunk, UpscaleBlock, UpscaleTail, mean_shift,
+                     pixel_shuffle)
 from .edsr import EDSR
+from .rcan import RCAN
 
-MODEL_REGISTRY: dict[str, type[nn.Module]] = {'EDSR': EDSR}
+MODEL_REGISTRY: dict[str, type[nn.Module]] = {'EDSR': EDSR, 'RCAN': RCAN}
 # srtpu families the port does not have yet
-NOT_PORTED = ('DDBPN', 'RCAN', 'RDN', 'SRCNN', 'SRGAN', 'SRResNet', 'WDSR')
+NOT_PORTED = ('DDBPN', 'RDN', 'SRCNN', 'SRGAN', 'SRResNet', 'WDSR')
 
 
-def create_model(name: str, **kwargs) -> nn.Module:
-    """Instantiate a registered model, dropping kwargs it doesn't declare
-    (as srtpu's create_model does, so one config can drive any model)."""
+def model_class(name: str) -> type[nn.Module]:
+    """The registered class of ``name`` (any case)."""
     key = {k.lower(): k for k in MODEL_REGISTRY}.get(name.lower())
     if key is None:
         if name.lower() in {k.lower() for k in NOT_PORTED}:
@@ -27,10 +28,17 @@ def create_model(name: str, **kwargs) -> nn.Module:
                 f'for the order of the port')
         raise ValueError(f'Unknown model {name!r}. Available: '
                          f'{", ".join(sorted(MODEL_REGISTRY))}')
-    cls = MODEL_REGISTRY[key]
+    return MODEL_REGISTRY[key]
+
+
+def create_model(name: str, **kwargs) -> nn.Module:
+    """Instantiate a registered model, dropping kwargs it doesn't declare
+    (as srtpu's create_model does, so one config can drive any model)."""
+    cls = model_class(name)
     accepted = inspect.signature(cls).parameters
     return cls(**{k: v for k, v in kwargs.items() if k in accepted})
 
 
-__all__ = ['EDSR', 'MODEL_REGISTRY', 'NOT_PORTED', 'Conv2d', 'Trunk',
-           'UpscaleTail', 'create_model', 'mean_shift', 'pixel_shuffle']
+__all__ = ['EDSR', 'MODEL_REGISTRY', 'NOT_PORTED', 'RCAN', 'Conv2d', 'Trunk',
+           'UpscaleBlock', 'UpscaleTail', 'create_model', 'mean_shift',
+           'model_class', 'pixel_shuffle']

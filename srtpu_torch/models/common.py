@@ -1,8 +1,9 @@
-"""Building blocks of the EDSR model (NHWC, HWIO weights).
+"""Building blocks of the models (NHWC, HWIO weights).
 
 Counterparts of ``srtpu/models/common.py``: ``Conv2d`` (torch-default
-init), ``mean_shift``, ``pixel_shuffle``, ``Trunk`` (``CSTrunk``) and
-``UpscaleTail`` (``CSUpscaleTail`` with ``act=None, final_ksize=3``).
+init), ``mean_shift``, ``pixel_shuffle``, ``Trunk`` (``CSTrunk``),
+``UpscaleTail`` (``CSUpscaleTail`` with ``act=None, final_ksize=3``) and
+``UpscaleBlock`` (the XLA sub-pixel upscaler).
 Parameters are f32; ``dtype`` is the compute type (bf16 on the card).
 The kernel ops take the f32 parameters and cast inside, so under
 autograd their weight grads come back in f32 (as srtpu's ``custom_vjp``s
@@ -28,8 +29,8 @@ from ..ops.layout import (b_phase_dense, b_pm, pixel_shuffle, pm_to_nhwc,
 # DIV2K training-set RGB statistics (srtpu/models/common.py:29-30)
 DIV2K_RGB_MEAN = (0.4488, 0.4371, 0.4040)
 
-__all__ = ['DIV2K_RGB_MEAN', 'Conv2d', 'Trunk', 'UpscaleTail', 'mean_shift',
-           'pixel_shuffle', 'uniform_param']
+__all__ = ['DIV2K_RGB_MEAN', 'Conv2d', 'Trunk', 'UpscaleBlock', 'UpscaleTail',
+           'mean_shift', 'pixel_shuffle', 'uniform_param']
 
 
 def uniform_param(shape, bound: float, device, generator: torch.Generator
@@ -151,3 +152,28 @@ class UpscaleTail(nn.Module):
         bpd = b_phase_dense(self.final_bias, r, wpd.shape[-1])
         y = conv3x3(y, wpd, bpd, plain)
         return pm_to_nhwc(y, r, self.channels)
+
+
+class UpscaleBlock(nn.Module):
+    """Sub-pixel upscaler (srtpu ``UpscaleBlock``, act=None):
+    log2(scale) stages (one at x3) of a 3x3 conv C -> r*r*C, r = 3 at x3
+    and 2 otherwise, then ``pixel_shuffle``. srtpu runs it in XLA, outside
+    any Pallas kernel, so each conv is the port's ``Conv2d`` (cuDNN on
+    the card); ``plain`` changes nothing here."""
+
+    def __init__(self, scale_factor: int = 4, n_feats: int = 64, *,
+                 device=None, generator: torch.Generator):
+        super().__init__()
+        if scale_factor not in (2, 3, 4, 8):
+            raise ValueError(f'scale_factor must be 2, 3, 4 or 8, got '
+                             f'{scale_factor}')
+        self.r = 3 if scale_factor == 3 else 2
+        self.convs = nn.ModuleList(
+            Conv2d(n_feats, n_feats * self.r * self.r, 3, device=device,
+                   generator=generator)
+            for _ in range(int(math.log2(scale_factor))))
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        for conv in self.convs:
+            x = pixel_shuffle(conv(x, dtype), self.r)
+        return x

@@ -36,6 +36,8 @@ SIGNATURES = {
     'srt_resblock_bwd': [_P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P],
     'srt_conv_wgrad': [_P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _I,
                        _I, _I, _F, _I, _P],
+    'srt_rcab_fwd': [_P] * 15 + [_I] * 5 + [_P],
+    'srt_rcab_bwd': [_P] * 19 + [_I] * 5 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -117,10 +119,11 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f'{what}: CUDA error {err}')
 
 
-def expect(t, name: str, dtype, shape, device) -> None:
+def expect(t, name: str, dtype, shape, device, aligned: bool = True) -> None:
     """Raise unless ``t`` is what a kernel takes: on ``device``, of
-    ``dtype`` and ``shape``, contiguous and 16-byte aligned (the kernels
-    move 16-byte vectors)."""
+    ``dtype`` and ``shape``, contiguous and, with ``aligned``, 16-byte
+    aligned (the kernels move 16-byte vectors; small tensors read one
+    value at a time pass ``aligned=False``)."""
     if t.device != device:
         raise ValueError(f'{name} is on {t.device}, expected {device}')
     if t.dtype != dtype:
@@ -128,7 +131,7 @@ def expect(t, name: str, dtype, shape, device) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f'{name} has shape {tuple(t.shape)}, expected '
                          f'{tuple(shape)}')
-    if not t.is_contiguous() or t.data_ptr() % 16:
+    if not t.is_contiguous() or (aligned and t.data_ptr() % 16):
         raise ValueError(f'{name} must be contiguous and 16-byte aligned')
 
 

@@ -12,6 +12,10 @@ skips carry such steps on through the blocks. The backward kernels'
 dW and db sum the same bf16 products in f32 in another order: 1e-4 of
 the largest magnitude; the trunk's weight grads read its bf16 dh1 chain,
 which may sit one step apart: one step of the largest magnitude.
+K5 (RCAB): the forward's out, h1 and r2 within one step, the backward's
+dx within one step and its weight grads within one step (they read the
+bf16 dr2 and dh1, computed from a gate whose f32 pool and MLP sums run in
+another order); over a group, as K1's trunk.
 """
 
 import pytest
@@ -19,10 +23,12 @@ import torch
 
 from srtpu_torch.models import create_model
 from srtpu_torch.ops import (conv3x3_bwd, conv3x3_bwd_plain, conv3x3_fwd,
-                             conv3x3_plain, conv_wgrad, trunk_bwd,
-                             trunk_bwd_plain, trunk_fwd, trunk_plain,
-                             upsample_bwd, upsample_bwd_plain, upsample_fwd,
-                             upsample_plain)
+                             conv3x3_plain, conv_wgrad, rcab_bwd,
+                             rcab_bwd_plain, rcab_fwd, rcab_fwd_plain,
+                             resgroup_bwd, resgroup_bwd_plain, resgroup_fwd,
+                             resgroup_plain, trunk_bwd, trunk_bwd_plain,
+                             trunk_fwd, trunk_plain, upsample_bwd,
+                             upsample_bwd_plain, upsample_fwd, upsample_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -183,3 +189,83 @@ def test_wrapper_rejects_unsupported_shapes(device):
         conv3x3_fwd(torch.zeros(1, 4, 4, 64, device=device),
                     torch.zeros(3, 3, 64, 64, device=device),
                     torch.zeros(64, device=device))
+
+
+def _mlp(gen, device, lead=(), c=64, cr=4):
+    return (_u(gen, (*lead, c, cr), c ** -0.5, device, torch.float32),
+            _u(gen, (*lead, cr), c ** -0.5, device, torch.float32),
+            _u(gen, (*lead, cr, c), cr ** -0.5, device, torch.float32),
+            _u(gen, (*lead, c), cr ** -0.5, device, torch.float32))
+
+
+@pytest.mark.parametrize('h,w', [(1, 1), (7, 16), (9, 33), (40, 17)])
+def test_rcab_kernel_matches_plain(device, h, w):
+    """K5 forward (saving: out, h1, r2) and backward (dx and the eight
+    f32 grads) against the plain versions; the backward bit-identical
+    on a second call."""
+    gen = torch.Generator().manual_seed(h * 100 + w + 11)
+    w1, b1 = _conv(gen, 64, 64, device)
+    w2, b2 = _conv(gen, 64, 64, device)
+    prm = (w1, b1, w2, b2, *_mlp(gen, device))
+    x = _u(gen, (2, h, w, 64), 1.0, device)
+    before = rcab_fwd.launches
+    got = rcab_fwd(x, *prm, save=True)
+    torch.cuda.synchronize()
+    assert rcab_fwd.launches == before + 1
+    ref = rcab_fwd_plain(x, *prm, save=True)
+    for g_t, r_t in zip(got, ref):
+        _assert_close(g_t, r_t, 1)
+    assert torch.equal(rcab_fwd(x, *prm), got[0])
+    _, h1, r2 = ref
+    g = _u(gen, (2, h, w, 64), 1.0, device)
+    args = (x, h1, r2, g, w1, w2, *prm[4:])
+    before = rcab_bwd.launches, conv_wgrad.launches
+    got = rcab_bwd(*args)
+    torch.cuda.synchronize()
+    assert rcab_bwd.launches == before[0] + 1
+    assert conv_wgrad.launches == before[1] + 2
+    ref = rcab_bwd_plain(*args)
+    for g_t, r_t in zip(got, ref):
+        assert g_t.dtype == r_t.dtype
+        _assert_close(g_t, r_t, 1)
+    assert all(torch.equal(a, b) for a, b in zip(got, rcab_bwd(*args)))
+
+
+@pytest.mark.parametrize('h,w', [(7, 16), (9, 33)])
+def test_resgroup_kernel_matches_plain(device, h, w):
+    """A 3-block group forward (saving) and backward, kernel path against
+    plain: activations and dx within 2 steps, weight grads within 2 steps
+    (2^-6) of their largest magnitude."""
+    gen = torch.Generator().manual_seed(h * 100 + w + 13)
+    w1, b1 = _conv(gen, 64, 64, device, (3,))
+    w2, b2 = _conv(gen, 64, 64, device, (3,))
+    wc, bc = _conv(gen, 64, 64, device)
+    prm = (w1, b1, w2, b2, *_mlp(gen, device, (3,)), wc, bc)
+    x = _u(gen, (2, h, w, 64), 1.0, device)
+    got = resgroup_fwd(x, *prm, save=True)
+    ref = resgroup_plain(x, *prm, save=True)
+    for g_t, r_t in zip(got, ref):
+        _assert_close(g_t, r_t, 2)
+    g = _u(gen, (2, h, w, 64), 1.0, device)
+    saved, weights = ref[1:], (w1, w2, *prm[4:8], wc)
+    got = resgroup_bwd(*saved, g, *weights)
+    ref = resgroup_bwd_plain(*saved, g, *weights)
+    for g_t, r_t in zip(got, ref):
+        _assert_close(g_t, r_t, 2)
+
+
+@pytest.mark.parametrize('scale', [2, 3, 4])
+def test_rcan_kernel_path_matches_plain(device, scale):
+    """RCAN (2 groups of 2 RCABs, 64 features) on the card, kernel path
+    against plain path; x3 runs here because RCAN's tail is cuDNN."""
+    model = create_model('RCAN', scale_factor=scale, n_feats=64,
+                         n_resblocks=2, n_resgroups=2, dtype=torch.bfloat16,
+                         device=device,
+                         generator=torch.Generator().manual_seed(scale))
+    gen = torch.Generator().manual_seed(1)
+    lr = torch.rand((2, 20, 28, 3), generator=gen).to(device)
+    with torch.inference_mode():
+        got = model(lr).float()
+        ref = model(lr, plain=True).float()
+    assert got.shape == (2, 20 * scale, 28 * scale, 3)
+    assert (got - ref).abs().max().item() <= 2.0 ** -6
