@@ -1,5 +1,5 @@
-"""Drive srtpu_torch's EDSR-baseline x4 and RCAN-10x16 x4 predict and
-training on one CUDA card.
+"""Drive srtpu_torch's EDSR-baseline x4, RCAN-10x16 x4 and SRResNet x4
+predict and training on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -46,13 +46,40 @@ Phases, each of which raises on failure (nothing is caught):
    depth: every K5 and K2 forward and backward on every step, the loss
    falling, kernel-path against plain-path steps, ms/step and patches/s,
    device time by kernel group.
+2d. K4 (SRResNet's BatchNorm block) against its plain versions: each of
+   its six functions (F1, F2, F3, B1, B2, B3) at the training shape
+   (batch 16, LR 32x32, 64 channels) and at a ragged batch 2 of 67x45,
+   every output (y, h1, the statistics, out, the sums S_g / S_gx =
+   dbeta / dgamma, dz, dy, du, db, dalpha) within per-element limits
+   (bn_block.kernel_limits: an f32 sum within its f32 rounding), the
+   backward fed sums that make db a real value, a db summed from the
+   bf16 dy shown to fail its limit, two calls bit-identical, kernel and
+   plain times; then a 16-block trunk + close, forward and backward
+   (every grad, dW1 / dW2 through the weight-grad kernel, and the
+   running statistics) against an f32 path, and two faults planted in
+   B2 caught by that check. Phases 2 and 2b also hold K2 at 5x5
+   (SRResNet's phase-dense 256 -> 16) forward and backward at the tail's
+   shapes;
+7. the SRResNet predict slice: phase 3's path and images with ``--model
+   SRResNet`` (64 features, 16 resblocks, x4): eval mode, so per image
+   K3 1, K2 3x3 1, K2 5x5 1 and no K4; PNGs at 4x; kernel path against
+   plain path;
+8. the SRResNet fit slice: phase 4 with ``--model SRResNet`` at full
+   width and depth: per step F1, F3, B1, B3 17 times (16 blocks + the
+   close), F2 and B2 16, K2 and K3 forward and backward, 36 weight-grad
+   launches; the loss falling, the running statistics finite and moved;
+   the gradients of a kernel-path and a plain-path step against an f32
+   step, the planted faults caught there too; five steps' losses,
+   ms/step, patches/s, device time by kernel group.
 The line before the last is a JSON object with, per kernel, its launches
-in the four main-path runs (EDSR predict and fit, RCAN predict and fit;
+in the six main-path runs (EDSR, RCAN and SRResNet predict and fit;
 ``launches`` is their sum), its largest error against its plain version,
-its time and the plain version's at the main path's shapes, the least
-time the card could take for the same work (``bound_ms``: the larger of
-the bytes the function must move over 3.35 TB/s and its matrix FLOPs
-over 989 TFLOP/s bf16, NVIDIA's H100 SXM figures) and the time of one
+its time (K4's: its kernels' own device time from torch.profiler; the
+others: the wrapper's CUDA-event time) and the plain version's at the
+main path's shapes, the least time the card could take for the same
+work (``bound_ms``: the larger of the bytes the function must move over
+3.35 TB/s and its matrix FLOPs over 989 TFLOP/s bf16, NVIDIA's H100 SXM
+figures) and the time of one
 PyTorch call computing the same function where there is one
 (``library_ms``, a yardstick the port never calls). The last line is
 ``{"ok": true, "device": {...}}``. Without CUDA (or without the repo)
@@ -61,6 +88,7 @@ it exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import logging
@@ -77,9 +105,14 @@ import torch.nn.functional as F
 from srtpu_torch import cli
 from srtpu_torch.data import pad_to_bucket
 from srtpu_torch.losses import parse_losses
-from srtpu_torch.ops import (_build, conv3x3_bwd, conv3x3_bwd_plain,
-                             conv3x3_fwd, conv3x3_plain, conv_wgrad,
-                             conv_wgrad_plain, rcab_bwd, rcab_bwd_plain,
+from srtpu_torch.models import create_model
+from srtpu_torch.ops import (_build, b1_plain, b1_sums, b2_call, b2_plain,
+                             b3_call, b3_plain, bn_block, conv3x3_bwd,
+                             conv3x3_bwd_plain, conv3x3_fwd, conv3x3_plain,
+                             conv_wgrad, conv_wgrad_plain, f1_conv_stats,
+                             f1_plain,
+                             f2_norm_act_conv_stats, f2_plain, f3_norm_skip,
+                             f3_plain, rcab_bwd, rcab_bwd_plain,
                              rcab_fwd, rcab_fwd_plain, resgroup_bwd,
                              resgroup_bwd_plain, resgroup_fwd, resgroup_plain,
                              trunk_bwd, trunk_bwd_plain, trunk_fwd,
@@ -105,13 +138,13 @@ TRAIN_BATCH, TRAIN_PATCH, TRAIN_STEPS = 16, 128, 20
 # the order of the f32 sums, so a result next to a bf16 rounding boundary
 # can come out one step apart. K2/K3: one step at the largest magnitude.
 # K1 chains 16 blocks whose skips carry such a step on: four steps.
-TOL_STEPS = {'K1': 4, 'K2': 1, 'K3': 1}
+TOL_STEPS = {'K1': 4, 'K2': 1, 'K3': 1, 'K25': 1}
 # Backward: dx as the forward (K1's chain: four steps over 16 blocks);
 # dW / db sum the same bf16 products in f32 in another order, 1e-4 of
 # the largest magnitude; K1's weight grads read its bf16 dh1 chain,
 # where a value may sit one step apart: one step.
-BWD_DX_STEPS = {'K1': 4, 'K2': 1, 'K3': 1}
-BWD_DW_STEPS = {'K1': 1, 'K2': None, 'K3': None}
+BWD_DX_STEPS = {'K1': 4, 'K2': 1, 'K3': 1, 'K25': 1}
+BWD_DW_STEPS = {'K1': 1, 'K2': None, 'K3': None, 'K25': None}
 # Train step, kernel path vs plain path from the same params and batch:
 # every gradient within 2^-6 of its largest magnitude (the paths' bf16
 # activations may sit a step apart through 16 blocks, and the backward
@@ -150,6 +183,50 @@ RCAN_STEP_LAUNCHES = {rcab_fwd: GROUPS * RCABS, rcab_bwd: GROUPS * RCABS,
 # 16-block group four steps for everything, as K1's trunk: a step in one
 # block's output moves every later block's pool, gate and grads.
 RCAB_STEPS, RCAB_MLP_REL, GROUP_STEPS = 1, 1e-4, 4
+# SRResNet x4 (srtpu bench.py's row, srtpu's defaults): 64 features, 16
+# BN resblocks, the CLI's shared --n_feats / --n_resblocks
+K4_FNS = {'F1': f1_conv_stats, 'F2': f2_norm_act_conv_stats,
+          'F3': f3_norm_skip, 'B1': b1_sums, 'B2': b2_call, 'B3': b3_call}
+K4_PLAIN = {'F1': f1_plain, 'F2': f2_plain, 'F3': f3_plain, 'B1': b1_plain,
+            'B2': b2_plain, 'B3': b3_plain}
+# K2's 5x5 launches, counted apart by its wrappers (a counter is a
+# wrapper's ``launches`` or a (wrapper, attribute) pair)
+CONV5_FWD, CONV5_BWD = (conv3x3_fwd, 'launches_5x5'), (conv3x3_bwd,
+                                                       'launches_5x5')
+# per image of an SRResNet x4 predict: eval mode runs the BN trunk on its
+# running statistics through stock convs (srtpu's XLA path), so no K4;
+# the tail runs K3 (first x2 stage), K2 3x3 (phase-major last stage) and
+# K2 5x5 (the 9x9 output conv, phase-dense)
+SRRESNET_PREDICT_LAUNCHES = {upsample_fwd: 1, conv3x3_fwd: 1, CONV5_FWD: 1,
+                             trunk_fwd: 0, rcab_fwd: 0,
+                             **{fn: 0 for fn in K4_FNS.values()}}
+# per SRResNet train step: F1, F3, B1, B3 in every block and the close,
+# F2 and B2 in every block; the tail's K2 and K3 each way; weight grads
+# twice per block, once for the close, the K2 3x3 and 5x5 and K3
+SRRESNET_STEP_LAUNCHES = {
+    f1_conv_stats: L + 1, f2_norm_act_conv_stats: L, f3_norm_skip: L + 1,
+    b1_sums: L + 1, b2_call: L, b3_call: L + 1, conv3x3_fwd: 1,
+    conv3x3_bwd: 1, CONV5_FWD: 1, CONV5_BWD: 1, upsample_fwd: 1,
+    upsample_bwd: 1, conv_wgrad: 2 * L + 4, trunk_fwd: 0, trunk_bwd: 0,
+    rcab_fwd: 0, rcab_bwd: 0}
+# K4 against its plain version, one function on the same inputs: per
+# element limits from bn_block.kernel_limits (a bf16 output one step of
+# its largest magnitude; an f32 sum its f32 rounding, 2^-20 of the sum of
+# its terms' magnitudes, plus what the bf16 values it reads differ by).
+# The 16-block trunk + close: each batch norm divides a difference by
+# its channel's batch deviation and the skips carry it on, so the kernel
+# and plain bf16 paths are each held to the f32 path: the kernel's error
+# within BN_TRUNK_VS_F32 times the plain path's (plus one bf16 step); the
+# running statistics kernel vs plain within 2^-6 of their magnitude.
+BN_TRUNK_VS_F32, BN_TRUNK_STAT_REL = 2.0, 2.0 ** -6
+# A conv bias right before a batch norm gets no gradient (the BN subtracts
+# the batch mean): its gradient, sum dy, is f32 rounding noise on every
+# path, held to the f32 rounding of that sum (bn_block.F32_SUM of its
+# bn_block.db_scale per channel, taken on the f32 path).
+PRE_BN = ('b1', 'b2', 'close_b')
+# the K4 kernels' names (torch.profiler), for their own device time
+K4_KERNELS = ('bn_conv_stats_kernel', 'bn_norm_skip_kernel', 'bn_sums_kernel',
+              'bn_bwd_conv_kernel', 'bn_reduce_kernel')
 # The H100 SXM's published peaks (NVIDIA data sheet), for bound_ms
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 
@@ -158,6 +235,17 @@ def need(cond, msg: str) -> None:
     """Fail the run (an ``assert`` would vanish under ``python -O``)."""
     if not cond:
         raise RuntimeError(f'chip_smoke: {msg}')
+
+
+def _counter(key) -> tuple:
+    """A launch counter as (wrapper, attribute): a wrapper's ``launches``,
+    or a (wrapper, attribute) pair such as CONV5_FWD."""
+    return key if isinstance(key, tuple) else (key, 'launches')
+
+
+def _counter_name(key) -> str:
+    fn, attr = _counter(key)
+    return fn.__name__ if attr == 'launches' else f'{fn.__name__}.{attr}'
 
 
 def median_ms(fn, launches: int = 20, windows: int = 5) -> float:
@@ -225,7 +313,7 @@ def lib_conv(x, w, b):
     xc = x.permute(0, 3, 1, 2)
     wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     bb = b.to(x.dtype)
-    return lambda: F.conv2d(xc, wc, bb, padding=1)
+    return lambda: F.conv2d(xc, wc, bb, padding=w.shape[0] // 2)
 
 
 def lib_conv_bwd(x, w, g):
@@ -233,9 +321,10 @@ def lib_conv_bwd(x, w, g):
     yardstick."""
     xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
     wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    pad = w.shape[0] // 2
     return lambda: torch.ops.aten.convolution_backward(
-        gc, xc, wc, [wc.shape[0]], [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
-        [True, True, True])
+        gc, xc, wc, [wc.shape[0]], [1, 1], [pad, pad], [1, 1], False, [0, 0],
+        1, [True, True, True])
 
 
 def lib_wgrad(x, g):
@@ -252,9 +341,9 @@ def lib_wgrad(x, g):
                                                padding=1, groups=j)
 
 
-def conv_flops(bhw: int, cin: int, cout: int) -> float:
-    """Matrix FLOPs of one 3x3 conv over bhw output pixels."""
-    return 2.0 * 9 * cin * cout * bhw
+def conv_flops(bhw: int, cin: int, cout: int, k: int = 3) -> float:
+    """Matrix FLOPs of one k x k conv over bhw output pixels."""
+    return 2.0 * k * k * cin * cout * bhw
 
 
 def card() -> tuple[torch.device, str]:
@@ -307,6 +396,10 @@ def kernel_cases(h: int, w: int, device) -> list[tuple]:
     ups = (act(1, h, w, C), *conv(C, 4 * C), 2)
     pm = (act(1, 2 * h, 2 * w, C), *conv(C, 4 * C))
     pd = (act(1, 2 * h, 2 * w, 4 * C), *conv(4 * C, 16))
+    # SRResNet's phase-dense 9x9 output conv: 5x5, 256 -> 16
+    w5 = _uniform(gen, (5, 5, 4 * C, 16), (25 * 4 * C) ** -0.5, device, bf)
+    pd5 = (act(1, 2 * h, 2 * w, 4 * C), w5,
+           _uniform(gen, (16,), 0.05, device, torch.float32))
     return [
         ('K1', f'trunk L={L} {h}x{w}', trunk_fwd, trunk_plain, trunk,
          2 * L * conv_flops(h * w, C, C), None),
@@ -318,6 +411,9 @@ def kernel_cases(h: int, w: int, device) -> list[tuple]:
          conv3x3_plain, pm, conv_flops(4 * h * w, C, 4 * C), lib_conv(*pm)),
         ('K2', f'phase-dense 256->16 {2 * h}x{2 * w}', conv3x3_fwd,
          conv3x3_plain, pd, conv_flops(4 * h * w, 4 * C, 16), lib_conv(*pd)),
+        ('K25', f'phase-dense 5x5 256->16 {2 * h}x{2 * w}', conv3x3_fwd,
+         conv3x3_plain, pd5, conv_flops(4 * h * w, 4 * C, 16, 5),
+         lib_conv(*pd5)),
     ]
 
 
@@ -395,6 +491,9 @@ def bwd_cases(bsz: int, h: int, w: int, device) -> list[tuple]:
     ups = (act(bsz, h, w, C), weight(C, 4 * C), act(bsz, h2, w2_, C), 2)
     pm = (act(bsz, h2, w2_, C), weight(C, 4 * C), act(bsz, h2, w2_, 4 * C))
     pd = (act(bsz, h2, w2_, 4 * C), weight(4 * C, 16), act(bsz, h2, w2_, 16))
+    pd5 = (act(bsz, h2, w2_, 4 * C),
+           _uniform(gen, (5, 5, 4 * C, 16), (25 * 4 * C) ** -0.5, device, bf),
+           act(bsz, h2, w2_, 16))
     # a backward is two convs' work: dx, and dW through the weight grads
     return [
         ('K1b', f'trunk bwd L={L} {bsz}x{h}x{w}', trunk_bwd, trunk_bwd_plain,
@@ -413,6 +512,9 @@ def bwd_cases(bsz: int, h: int, w: int, device) -> list[tuple]:
         ('W', f'weight grads of the trunk L={L} {bsz}x{h}x{w}', conv_wgrad,
          conv_wgrad_plain, (xs, h1s), L * conv_flops(px, C, C),
          lib_wgrad(xs, h1s)),
+        ('K25b', f'phase-dense 5x5 bwd 256->16 {bsz}x{h2}x{w2_}',
+         conv3x3_bwd, conv3x3_bwd_plain, pd5,
+         2 * conv_flops(px2, 4 * C, 16, 5), lib_conv_bwd(*pd5)),
     ]
 
 
@@ -420,7 +522,7 @@ def check_bwd_kernels(device) -> dict:
     """Phase 2b. Returns per kernel id: max dx error (the weight-grad
     kernel: max dW error) over all shapes, and kernel / plain / bound /
     library ms summed over its uses at the training shapes."""
-    stats = new_stats(('K1s', 'K1b', 'K2b', 'K3b', 'W'))
+    stats = new_stats(('K1s', 'K1b', 'K2b', 'K3b', 'W', 'K25b'))
     for i, (bsz, h, w) in enumerate(((TRAIN_BATCH, TRAIN_PATCH // SCALE,
                                       TRAIN_PATCH // SCALE), (2, 67, 45))):
         # K1's forward in its saving variant: output, block inputs, h1
@@ -491,18 +593,36 @@ def rcab_params(gen, device, lead=()):
             _uniform(gen, (*lead, C), CR ** -0.5, device, f32))
 
 
+def _nearest(d, lim) -> int:
+    """The flat index of the error ``d`` nearest its limit (the largest
+    d / lim; a NaN error first)."""
+    ratio = torch.nan_to_num(d / lim, nan=0.0, posinf=float('inf'))
+    return int(torch.argmax(torch.where(d.isnan(), float('inf'), ratio)))
+
+
 def _check_all(label, names, got, ref, tols) -> float:
     """Every output against its reference within its tolerance (steps of
-    the largest magnitude, or a float: that relative share of it);
-    returns the first error."""
+    the largest magnitude; a float: that relative share of it; a tensor:
+    per-element limits that broadcast to the output, printed at the
+    element nearest its limit as error/limit@element, beside the largest
+    error); returns the first output's largest error."""
     parts, first = [], None
     for name, g_t, r_t, tol in zip(names, got, ref, tols):
         steps = tol if isinstance(tol, int) else None
         err, lim, top = _err(g_t, r_t, steps)
-        if not isinstance(tol, int):
-            lim = tol * top
-        parts.append(f'{name} {err:.4g}/{lim:.4g}')
-        need(np.isfinite(err) and err <= lim, f'{label} {name}: {err} > {lim}')
+        if torch.is_tensor(tol):
+            d = (g_t.float() - r_t.float()).abs()
+            lim_t = tol.float().expand_as(d)
+            i = _nearest(d, lim_t)
+            at, lim = d.flatten()[i].item(), lim_t.flatten()[i].item()
+            parts.append(f'{name} {at:.4g}/{lim:.4g}@{i} (max {err:.4g}, '
+                         f'|ref| {top:.4g})')
+        else:
+            if not isinstance(tol, int):
+                lim = tol * top
+            at = err
+            parts.append(f'{name} {err:.4g}/{lim:.4g}')
+        need(np.isfinite(at) and at <= lim, f'{label} {name}: {at} > {lim}')
         first = err if first is None else first
     print(f'{label}: max_abs/tol ' + ', '.join(parts))
     return first
@@ -595,6 +715,251 @@ def check_rcab_kernels(device) -> dict:
     return stats
 
 
+def _off_sums(gen, t, device) -> torch.Tensor:
+    """A backward's two channel sums (2, C) drawn at random, at the scale
+    of sums of t over its m pixels (sqrt(m) times its rms) but not t's:
+    the BN's input gradient dy then does not sum to 0, so db = sum dy is
+    a real value a wrong kernel cannot match by returning noise."""
+    m = t.shape[0] * t.shape[1] * t.shape[2]
+    rms = t.float().pow(2).mean().sqrt().item()
+    return _uniform(gen, (2, C), m ** 0.5 * rms, device, torch.float32)
+
+
+def bn_case(gen, device, bsz: int, h: int, w: int) -> dict:
+    """Inputs of one SRResNet BN block at 64 channels (srtpu's init bounds
+    for the convs; BN scale and shift off their init), with the
+    statistics, h1 and dz that F1, F2 and B2's plain versions give, and
+    the backward's sums drawn apart from their cotangents (_off_sums)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cb = 1.0 / (9 * C) ** 0.5
+    u = _uniform(gen, (bsz, h, w, C), 1.0, device, bf)
+    w1, w2 = (_uniform(gen, (3, 3, C, C), cb, device, bf) for _ in range(2))
+    b1, b2 = (_uniform(gen, (C,), cb, device, f32) for _ in range(2))
+    gam = [1.0 + _uniform(gen, (C,), 0.5, device, f32) for _ in range(2)]
+    bet = [_uniform(gen, (C,), 0.3, device, f32) for _ in range(2)]
+    alpha = torch.full((1,), 0.25, device=device)
+    g = _uniform(gen, (bsz, h, w, C), 1.0, device, bf)
+    y1, st1 = f1_plain(u, w1, b1, gam[0], bet[0])
+    y2, _, st2 = f2_plain(y1, st1, alpha, w2, b2, gam[1], bet[1])
+    sums2 = _off_sums(gen, g, device)
+    dz = b2_plain(g, y2, st2, gam[1], sums2, y1, st1, alpha, w2)[0]
+    sums1 = _off_sums(gen, dz, device)
+    px = bsz * h * w
+    cf = conv_flops(px, C, C)
+    return {
+        'F1': ((u, w1, b1, gam[0], bet[0]), cf, ('y', 'st')),
+        'F2': ((y1, st1, alpha, w2, b2, gam[1], bet[1]), cf,
+               ('y2', 'h1', 'st2')),
+        'F3': ((y2, st2, u), 0.0, ('out',)),
+        'B1': ((g, y2, st2), 0.0, ('S_g, S_gx (dbeta2, dgamma2)',)),
+        'B2': ((g, y2, st2, gam[1], sums2, y1, st1, alpha, w2), cf,
+               ('dz', 'dy2', 'db2', 'dalpha', 'S_dz, S_dzx (dbeta1, '
+                'dgamma1)')),
+        'B3': ((dz, y1, st1, gam[0], sums1, w1, g), cf, ('du', 'dy1',
+                                                         'db1'))}
+
+
+def _as_list(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+@contextlib.contextmanager
+def _db_scales(scales: dict, prefix: str = ''):
+    """Inside the block the plain B2 and B3 record each call's
+    bn_block.db_scale per channel (whose f32 rounding bounds db = sum
+    dy); on leaving, ``scales`` gets them under the pre-BN bias each
+    belongs to: the backward runs the close's B3 first, then blocks L-1
+    ... 0."""
+    rec = {'b2': [], 'b3': []}
+    saved = dict(bn_block.PLAIN)
+    for key in rec:
+        def call(*args, _fn=saved[key], _key=key):
+            out = _fn(*args)
+            rec[_key].append(bn_block.db_scale(*args[2:5], out[1]))
+            return out
+        bn_block.PLAIN[key] = call
+    try:
+        yield
+    finally:
+        bn_block.PLAIN.update(saved)
+    scales[prefix + 'close_b'] = rec['b3'][0]
+    scales[prefix + 'b1'] = torch.stack(rec['b3'][:0:-1])
+    scales[prefix + 'b2'] = torch.stack(rec['b2'][::-1])
+
+
+def _no_prelu_bwd(b2):
+    """B2 without the PReLU backward: dz = dh1 where z < 0 too."""
+    def call(g, y2, st2, ga2, sums2, y1, st1, alpha, w2):
+        return b2(g, y2, st2, ga2, sums2, y1, st1, torch.ones_like(alpha), w2)
+    return call
+
+
+def _no_xhat_t2(b2):
+    """B2 whose BN2 backward drops dy's xhat * t2 term (S_gx read as 0)."""
+    def call(g, y2, st2, ga2, sums2, *rest):
+        return b2(g, y2, st2, ga2, sums2 * sums2.new_tensor([[1.0], [0.0]]),
+                  *rest)
+    return call
+
+
+# faults planted in the kernel path's B2, each of which the trunk's and
+# the train step's checks against the f32 path must catch
+PLANTED = {'B2 without the PReLU backward': _no_prelu_bwd,
+           "B2 without dy's xhat * t2 term": _no_xhat_t2}
+
+
+@contextlib.contextmanager
+def _planted(fault):
+    """The kernel path's B2 replaced by ``fault`` of it inside the block."""
+    b2 = bn_block.KERNELS['b2']
+    bn_block.KERNELS['b2'] = fault(b2)
+    try:
+        yield
+    finally:
+        bn_block.KERNELS['b2'] = b2
+
+
+def _vs_f32(got: dict, plain: dict, f32: dict, scales: dict) -> list:
+    """(error / limit, text) per tensor of the kernel path ``got`` (by
+    name) against the f32 path: within BN_TRUNK_VS_F32 times the plain
+    bf16 path's error plus one bf16 step of |f32|'s largest; a pre-BN bias
+    (in ``scales``, its db_scale per channel): |grad| within F32_SUM of
+    that scale, its f32 rounding (the f32 path's grad is rounding noise
+    too, so it is no reference there)."""
+    rows = []
+    for n, ref in f32.items():
+        if n in scales:
+            lim_t = bn_block.F32_SUM * scales[n]
+            d = got[n].float().abs()
+            i = _nearest(d, lim_t)
+            e_k, lim = d.flatten()[i].item(), lim_t.flatten()[i].item()
+            text = (f'{n} |grad| {e_k:.4g}/{lim:.4g}@{i} (largest: kernel '
+                    f'{d.max().item():.4g}, plain '
+                    f'{plain[n].abs().max().item():.4g}, scale '
+                    f'{scales[n].max().item():.4g})')
+        else:
+            e_k = (got[n].float() - ref.float()).abs().max().item()
+            e_p = (plain[n].float() - ref.float()).abs().max().item()
+            top = ref.float().abs().max().item()
+            lim = BN_TRUNK_VS_F32 * e_p + bn_block.STEP * top
+            text = f'{n} {e_k:.4g}/{e_p:.4g}/{lim:.4g} (|f32| {top:.4g})'
+        rows.append((e_k / lim, text))
+    return sorted(rows, key=lambda r: -r[0])
+
+
+def _catches(rows: list, what: str, label: str) -> None:
+    """A planted fault's rows: at least one over its limit."""
+    caught = [t for r, t in rows if not r <= 1.0]
+    need(caught, f'{label}: the planted fault ({what}) passed')
+    print(f'{label}, planted fault ({what}): caught by {len(caught)} of '
+          f'{len(rows)} tensors; the worst (error/limit {rows[0][0]:.4g}): '
+          + '; '.join(caught[:3]))
+
+
+def check_bn_kernels(device) -> dict:
+    """Phase 2d. K4's six functions against their plain versions at the
+    training shape and a ragged one (per-element limits of
+    bn_block.kernel_limits; a db summed from the bf16 dy shown to fail
+    them), two calls bit-identical, times at the training shape (the K4
+    kernels' own device time from torch.profiler, and the wrapper's
+    CUDA-event time); then a 16-block BN trunk + close, forward and
+    backward, kernel path against plain path and f32 path, and each
+    planted fault caught. Returns per-function stats."""
+    stats = new_stats(K4_FNS)
+    for i, (bsz, h, w) in enumerate(((TRAIN_BATCH, TRAIN_PATCH // SCALE,
+                                      TRAIN_PATCH // SCALE), (2, 67, 45))):
+        gen = torch.Generator().manual_seed(bsz * 7907 + h * 103 + w)
+        case = bn_case(gen, device, bsz, h, w)
+        tag = f'{bsz}x{h}x{w}'
+        for kid, fn in K4_FNS.items():
+            args, flops, names = case[kid]
+            got = _as_list(fn(*args))
+            torch.cuda.synchronize()
+            ref = _as_list(K4_PLAIN[kid](*args))
+            need(all(torch.equal(a, b) for a, b in
+                     zip(got, _as_list(fn(*args)))),
+                 f'K4 {kid} {tag}: two calls differ')
+            tols = bn_block.kernel_limits(kid.lower(), args, ref, got)
+            err = _check_all(f'K4 {kid} {tag}', names, got, ref, tols)
+            if kid in ('B2', 'B3'):
+                # srtpu sums the f32 dy into db: one summed from the bf16
+                # dy (the operand of the weight grads) must fail the limit
+                d16 = (ref[1].float().sum((0, 1, 2)) - ref[2]).abs()
+                over = int((d16 > tols[2]).sum())
+                print(f'K4 {kid} {tag}: a db summed from the bf16 dy would '
+                      f'be off by up to {d16.max().item():.4g}, over its '
+                      f'limit (up to {tols[2].max().item():.4g}) in {over} '
+                      f'of {C} channels')
+                need(over > 0, f'K4 {kid}: the db limit passes a bf16 sum')
+            st = stats[kid]
+            st['max_abs_err'] = max(st['max_abs_err'], err)
+            if i == 0:
+                ms = median_ms(lambda: fn(*args))
+                dev_ms = _kernel_device_ms(lambda: fn(*args), K4_KERNELS)
+                plain_ms = median_ms(lambda: K4_PLAIN[kid](*args))
+                print(f'K4 {kid} {tag}: kernel {dev_ms:.4f} ms (its kernels'
+                      f' on the device, torch.profiler; the wrapper call '
+                      f'{ms:.4f} ms, CUDA events) plain {plain_ms:.4f} ms')
+                record(st, dev_ms, plain_ms, flops, nbytes(args, got))
+
+    # a 16-block trunk + close at the training shape, train mode
+    bsz, h, w = TRAIN_BATCH, TRAIN_PATCH // SCALE, TRAIN_PATCH // SCALE
+    trunk = create_model('SRResNet', scale_factor=SCALE, n_feats=C,
+                         n_resblocks=L, dtype=torch.bfloat16, device=device,
+                         generator=torch.Generator().manual_seed(7)).trunk
+    gen = torch.Generator().manual_seed(8)
+    with torch.no_grad():
+        for name in ('bn1_scale', 'bn2_scale', 'close_bn_scale'):
+            getattr(trunk, name).add_(
+                _uniform(gen, getattr(trunk, name).shape, 0.5, device,
+                         torch.float32))
+    x = _uniform(gen, (bsz, h, w, C), 1.0, device, torch.bfloat16)
+    g = _uniform(gen, (bsz, h, w, C), 1.0, device, torch.bfloat16)
+
+    def run(dtype, plain):
+        m = copy.deepcopy(trunk).train()
+        xi = x.to(dtype).clone().requires_grad_()
+        out = m(xi, dtype, plain)
+        out.backward(g.to(dtype))
+        return m, {'out': out, 'dx': xi.grad,
+                   **{n: p.grad for n, p in m.named_parameters()}}
+
+    # the kernel path, the plain path (both bf16) and the plain path in
+    # f32 with no rounding at all, from one set of params and inputs
+    scales = {}
+    mk, tk = run(torch.bfloat16, False)
+    mp, tp = run(torch.bfloat16, True)
+    with _db_scales(scales):
+        _, tf = run(torch.float32, True)
+    torch.cuda.synchronize()
+    # Through 16 batch norms the two bf16 paths part by more than a few
+    # rounding steps (each BN divides a difference by its channel's batch
+    # deviation), so both are held to the unrounded f32 path (_vs_f32).
+    rows = _vs_f32(tk, tp, tf, scales)
+    label = f'K4 BN trunk L={L} + close {bsz}x{h}x{w}, fwd and bwd'
+    print(f'{label}, max_abs vs the f32 path, kernel/plain/tol (|f32|): '
+          + ', '.join(t for _, t in rows))
+    need(all(r <= 1.0 for r, _ in rows),
+         f'{label}: ' + '; '.join(t for r, t in rows if not r <= 1.0))
+    bk, bp = dict(mk.named_buffers()), dict(mp.named_buffers())
+    _check_all('K4 BN trunk running statistics, kernel vs plain', list(bk),
+               list(bk.values()), list(bp.values()),
+               [BN_TRUNK_STAT_REL] * len(bk))
+    for what, fault in PLANTED.items():
+        with _planted(fault):
+            _, bad = run(torch.bfloat16, False)
+        _catches(_vs_f32(bad, tp, tf, scales), what, label)
+
+    def step(m, plain):
+        xi = x.clone().requires_grad_()
+        m(xi, torch.bfloat16, plain).backward(g)
+    times = [median_ms(lambda: step(mk, False), 3, 3),
+             median_ms(lambda: step(mp, True), 3, 3)]
+    print(f'K4 BN trunk L={L} + close {bsz}x{h}x{w}: fwd + bwd kernel '
+          f'{times[0]:.4f} ms plain {times[1]:.4f} ms')
+    return stats
+
+
 def png_size(path: Path) -> tuple[int, int]:
     """(height, width) from a PNG's IHDR chunk."""
     head = path.read_bytes()[:24]
@@ -632,16 +997,16 @@ def run_slice(device, smi: str, model: str = 'EDSR', extra=(),
         need(cli.main(warm) == 0, 'warm-up predict')   # cuDNN plans, allocator
         out = Path(tmp) / 'out'
         for k in expected:
-            k.launches = 0
+            setattr(*_counter(k), 0)
         t0 = time.perf_counter()
         rc = cli.main(argv + ['--default_root_dir', str(out)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {k: k.launches for k in expected}
+        counts = {k: getattr(*_counter(k)) for k in expected}
         need(rc == 0, f'predict returned {rc}')
         for k, per_image in expected.items():
             need(counts[k] == per_image * len(images),
-                 f'{k.__name__}: {counts[k]} launches, expected '
+                 f'{_counter_name(k)}: {counts[k]} launches, expected '
                  f'{per_image} x {len(images)}')
         for name, img in images.items():
             size = png_size(out / 'Demo' / f'{name}.png')
@@ -654,7 +1019,9 @@ def run_slice(device, smi: str, model: str = 'EDSR', extra=(),
               f'in {wall:.3f} s = {len(images) / wall:.3f} images/s, '
               f'{mpix / wall:.3f} MPix/s  [{smi}]')
 
-        net = cli.build_model(cli.build_parser().parse_args(argv), device)
+        # eval mode, as the CLI's predict (SRResNet's batch norm)
+        net = cli.build_model(cli.build_parser().parse_args(argv),
+                              device).eval()
         for name, img in images.items():
             lr = torch.from_numpy(pad_to_bucket(img, 32)[0][None]).to(device)
             h, w = SCALE * img.shape[0], SCALE * img.shape[1]
@@ -717,7 +1084,53 @@ RCAN_PROFILE = (('rcab_pair_kernel', 'K5 fwd conv pair (F1)'),
                 ('rcab_chain_kernel', 'K5 bwd dx chain (B4)'),
                 ('wgrad', 'weight grads'),
                 ('conv3x3_kernel', 'K2 fwd + bwd dx'))
+SRRESNET_PROFILE = (
+    ('bn_conv_stats_kernel<false>', 'K4 F1 conv + stats'),
+    ('bn_conv_stats_kernel<true>', 'K4 F2 norm + PReLU + conv + stats'),
+    ('bn_norm_skip_kernel', 'K4 F3 norm + skip'),
+    ('bn_sums_kernel', 'K4 B1 sums'),
+    ('bn_bwd_conv_kernel<true>', 'K4 B2 BN2 bwd + convT + PReLU bwd'),
+    ('bn_bwd_conv_kernel<false>', 'K4 B3 BN1 bwd + convT + skip'),
+    ('bn_reduce_kernel', 'K4 fixed-order reductions + finalize'),
+    ('wgrad', 'weight grads'),
+    ('conv3x3_kernel<64, 64, 7, 16, true', 'K3 fwd'),
+    ('conv3x3_kernel<256, 16, 7, 16, false, true', 'K3 bwd dx'),
+    ('conv3x3_kernel<256, 16, 6, 16', 'K2 5x5 fwd'),
+    ('conv3x3_kernel<16, 64, 6, 16', 'K2 5x5 bwd dx'),
+    ('conv3x3_kernel', 'K2 3x3 fwd + bwd dx'))
 OTHER = 'other (cuDNN head/tail, Adam, casts, copies)'
+
+
+def _device_us(prof, names=None) -> dict:
+    """Device time (µs) by kernel name from a finished torch.profiler run,
+    of the kernels whose names contain one of ``names`` (all if None)."""
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if names is not None and not any(n in e.key for n in names):
+            continue
+        us = getattr(e, 'self_device_time_total', None)
+        out[e.key] = us if us is not None else e.self_cuda_time_total
+    return out
+
+
+def _kernel_device_ms(run, names, calls: int = 10) -> float:
+    """Device time per call of ``run`` (torch.profiler, ``calls`` calls)
+    of the kernels whose names contain one of ``names``: a kernel's own
+    time, without its wrapper's other launches (a transposed weight's
+    copy) or host work."""
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    us = sum(_device_us(prof, names).values())
+    need(us > 0, f'profiler: no device time for {names}')
+    return us / 1e3 / calls
 
 
 def _profile(run, ms: float, smi: str, rules, what: str) -> None:
@@ -736,13 +1149,8 @@ def _profile(run, ms: float, smi: str, rules, what: str) -> None:
     wall = (time.perf_counter() - t0) * 1e3 / 3
     groups = {key: 0.0 for _, key in rules}
     groups[OTHER] = 0.0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, 'self_device_time_total', None)
-        if us is None:
-            us = e.self_cuda_time_total
-        key = next((k for sub, k in rules if sub in e.key), OTHER)
+    for name, us in _device_us(prof).items():
+        key = next((k for sub, k in rules if sub in name), OTHER)
         groups[key] += us / 1e3 / 3
     device = sum(groups.values())
     if device == 0.0:
@@ -755,11 +1163,71 @@ def _profile(run, ms: float, smi: str, rules, what: str) -> None:
         print(f'  {key}: {t:.3f} ms ({t / device:.3f})')
 
 
+def _grads(m) -> dict:
+    return {n: p.grad for n, p in m.named_parameters()}
+
+
+def _grads_vs_plain(model: str, net, lr, hr, paths) -> None:
+    """EDSR's and RCAN's train step gradients, kernel path against plain
+    path from identical params and batch: within STEP_GRAD_TOL of the
+    largest magnitude (RCAN's attention MLP: MLP_STEP_GRAD_TOL)."""
+    rels = {False: {}, True: {}}     # by: is an attention MLP
+    for (name, pk), pp in zip(paths[False][1].model.named_parameters(),
+                              paths[True][1].model.parameters()):
+        need(pk.grad.dtype == torch.float32, f'{name} grad dtype')
+        rels[name.endswith(MLP_PARAMS)][name] = (
+            (pk.grad - pp.grad).abs().max() / pp.grad.abs().max()).item()
+    for mlp, tol in ((False, STEP_GRAD_TOL), (True, MLP_STEP_GRAD_TOL)):
+        if not rels[mlp]:
+            continue
+        top = sorted(rels[mlp].items(), key=lambda kv: -kv[1])
+        print(f'{model} train step, kernel vs plain path: worst '
+              f'{"attention-MLP " if mlp else ""}gradients max_abs/max|ref| '
+              + ', '.join(f'{n} {v:.4g}' for n, v in top[:4])
+              + f' (tol {tol:.4g})')
+        need(top[0][1] <= tol, f'{top[0][0]} gradient')
+
+
+def _grads_vs_f32(model: str, net, lr, hr, paths) -> None:
+    """SRResNet's train step gradients, held to an f32 step (_vs_f32):
+    through 16 batch norms the kernel and plain bf16 paths part by more
+    than a few rounding steps. Then a kernel step with each planted fault
+    (PLANTED), from the same params and batch, must fail that check."""
+    m32 = copy.deepcopy(net)
+    m32.dtype = None                     # f32 compute, no rounding
+    scales = {}
+    with _db_scales(scales, 'trunk.'):
+        make_train_step(parse_losses('l1'), plain=True)(TrainState(
+            m32, build_optimizer('ADAM', ['lr=1e-4'], m32.parameters())),
+            lr, hr)
+    gk, gp, gf = (_grads(m) for m in (paths[False][1].model,
+                                       paths[True][1].model, m32))
+    for n, t in gk.items():
+        need(t.dtype == torch.float32, f'{n} grad dtype')
+    rows = _vs_f32(gk, gp, gf, scales)
+    label = f'{model} train step gradients'
+    need(all(r <= 1.0 for r, _ in rows),
+         f'{label}: ' + '; '.join(t for r, t in rows if not r <= 1.0))
+    print(f'{label}, max_abs vs the f32 step, kernel/plain/tol (|f32|), '
+          f'the four nearest their tolerance: '
+          + ', '.join(t for _, t in rows[:4]) + '; the pre-BN biases: '
+          + ', '.join(t for _, t in rows if '|grad|' in t))
+    for what, fault in PLANTED.items():
+        m = copy.deepcopy(net)
+        with _planted(fault):
+            make_train_step(parse_losses('l1'))(TrainState(
+                m, build_optimizer('ADAM', ['lr=1e-4'], m.parameters())),
+                lr, hr)
+        _catches(_vs_f32(_grads(m), gp, gf, scales), what, label)
+
+
 def run_train(device, smi: str, model: str = 'EDSR', extra=(),
-              expected=STEP_LAUNCHES, rules=EDSR_PROFILE) -> dict:
-    """Phase 4 (EDSR) and 6 (RCAN, ``extra`` its CLI flags): fit through
-    the CLI, the launch counters per step (``expected``), the loss,
-    kernel-path against plain-path steps, step times, the profile.
+              expected=STEP_LAUNCHES, rules=EDSR_PROFILE,
+              compare=_grads_vs_plain) -> dict:
+    """Phase 4 (EDSR), 6 (RCAN) and 8 (SRResNet; ``extra`` the model's
+    CLI flags): fit through the CLI, the launch counters per step
+    (``expected``), the loss, the first kernel-path and plain-path steps'
+    gradients (``compare``), five steps' losses, step times, the profile.
     Returns the launch counts of the fit run."""
     rng = np.random.default_rng(SEED)
     hr_size = 3 * TRAIN_PATCH // 2
@@ -788,18 +1256,18 @@ def run_train(device, smi: str, model: str = 'EDSR', extra=(),
         log = _LossLog()
         logging.getLogger('srtpu_torch.train.loop').addHandler(log)
         for k in expected:
-            k.launches = 0
+            setattr(*_counter(k), 0)
         t0 = time.perf_counter()
         rc = cli.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {k: k.launches for k in expected}
+        counts = {k: getattr(*_counter(k)) for k in expected}
         logging.getLogger('srtpu_torch.train.loop').removeHandler(log)
         need(rc == 0, f'fit returned {rc}')
         for k, per_step in expected.items():
             need(counts[k] == per_step * TRAIN_STEPS,
-                 f'{k.__name__}: {counts[k]} launches in fit, expected '
-                 f'{per_step} x {TRAIN_STEPS}')
+                 f'{_counter_name(k)}: {counts[k]} launches in fit, '
+                 f'expected {per_step} x {TRAIN_STEPS}')
         losses = log.losses
         need(len(losses) == TRAIN_STEPS and all(map(np.isfinite, losses)),
              f'fit losses {losses}')
@@ -812,6 +1280,14 @@ def run_train(device, smi: str, model: str = 'EDSR', extra=(),
         need(last < first, 'the fit loss did not fall')
         need((Path(tmp) / 'run' / 'final_weights.pt').is_file(),
              'fit wrote no final_weights.pt')
+        saved = torch.load(Path(tmp) / 'run' / 'final_weights.pt',
+                           weights_only=True)
+        for name in (k for k in saved if '.mean' in k or '.var' in k):
+            t, init = saved[name].float(), float('.var' in name)
+            need(bool(torch.isfinite(t).all()) and bool((t != init).any()),
+                 f'{name}: running statistics not finite or never moved')
+            print(f'{model} fit: {name} finite, moved from {init}: mean '
+                  f'{t.mean().item():.4g}')
 
         # kernel path vs plain path from the same params and batches
         net = cli.build_model(cli.build_parser().parse_args(argv), device)
@@ -838,25 +1314,7 @@ def run_train(device, smi: str, model: str = 'EDSR', extra=(),
             for plain, (step, state) in paths.items():
                 step_losses[plain].append(float(step(state, lr, hr)['loss']))
             if j == 0:      # gradients from identical params and batch
-                rels = {False: {}, True: {}}     # by: is an attention MLP
-                for (name, pk), pp in zip(
-                        paths[False][1].model.named_parameters(),
-                        paths[True][1].model.parameters()):
-                    need(pk.grad.dtype == torch.float32, f'{name} grad dtype')
-                    rels[name.endswith(MLP_PARAMS)][name] = (
-                        (pk.grad - pp.grad).abs().max()
-                        / pp.grad.abs().max()).item()
-                for mlp, tol in ((False, STEP_GRAD_TOL),
-                                 (True, MLP_STEP_GRAD_TOL)):
-                    if not rels[mlp]:
-                        continue
-                    top = sorted(rels[mlp].items(), key=lambda kv: -kv[1])
-                    print(f'{model} train step, kernel vs plain path: '
-                          f'worst {"attention-MLP " if mlp else ""}gradients '
-                          f'max_abs/max|ref| ' + ', '.join(
-                              f'{n} {v:.4g}' for n, v in top[:4])
-                          + f' (tol {tol:.4g})')
-                    need(top[0][1] <= tol, f'{top[0][0]} gradient')
+                compare(model, net, lr, hr, paths)
         rels = [abs(a - b) / b for a, b in zip(step_losses[False],
                                                step_losses[True])]
         print(f'{model} train losses kernel / plain: ' + ' '.join(
@@ -888,14 +1346,21 @@ def main() -> None:
     stats = check_kernels(device)
     stats.update(check_bwd_kernels(device))
     stats.update(check_rcab_kernels(device))
-    # the four main-path runs, each with the counters set to 0 before it
+    stats.update(check_bn_kernels(device))
+    # the six main-path runs, each with the counters set to 0 before it
     runs = {'edsr_predict': run_slice(device, smi),
             'edsr_fit': run_train(device, smi)}
     runs['rcan_predict'] = run_slice(device, smi, 'RCAN', RCAN_ARGS,
                                      RCAN_PREDICT_LAUNCHES, RCAN_PROFILE)
     runs['rcan_fit'] = run_train(device, smi, 'RCAN', RCAN_ARGS,
                                  RCAN_STEP_LAUNCHES, RCAN_PROFILE)
+    runs['srresnet_predict'] = run_slice(device, smi, 'SRResNet', (),
+                                         SRRESNET_PREDICT_LAUNCHES)
+    runs['srresnet_fit'] = run_train(device, smi, 'SRResNet', (),
+                                     SRRESNET_STEP_LAUNCHES, SRRESNET_PROFILE,
+                                     _grads_vs_f32)
     rep = 'srtpu/ops/cs_conv.py:'
+    bn = 'srtpu/ops/bn_resblock_cs.py:'
     meta = [('K1', 'K1 trunk_fwd (fused resblock)', trunk_fwd, 'trunk.cu',
              rep + '1496'),
             ('K2', 'K2 conv3x3_fwd', conv3x3_fwd, 'conv.cu', rep + '538'),
@@ -912,7 +1377,24 @@ def main() -> None:
             ('K5', 'K5 rcab_fwd (RCAB conv pair, pool + MLP, gate)',
              rcab_fwd, 'rcab.cu', rep + '2593'),
             ('K5b', 'K5 rcab_bwd (pool sums, MLP bwd, dr2, dx chain; with its '
-             'weight grads)', rcab_bwd, 'rcab.cu', rep + '2618')]
+             'weight grads)', rcab_bwd, 'rcab.cu', rep + '2618'),
+            ('K25', 'K2 conv3x3_fwd at 5x5 (SRResNet phase-dense 256->16)',
+             CONV5_FWD, 'conv.cu', rep + '538'),
+            ('K25b', 'K2 conv3x3_bwd at 5x5 (dx 16->256; with its 5x5 '
+             'weight grads)', CONV5_BWD, 'conv.cu', rep + '581'),
+            ('F1', 'K4 f1_conv_stats (conv + bias, stats of the stored y; '
+             'reduce + finalize)', f1_conv_stats, 'bn_block.cu', bn + '315'),
+            ('F2', 'K4 f2_norm_act_conv_stats (h1 = prelu(BN1) in the load, '
+             'conv, stats)', f2_norm_act_conv_stats, 'bn_block.cu',
+             bn + '324'),
+            ('F3', 'K4 f3_norm_skip', f3_norm_skip, 'bn_block.cu',
+             bn + '333'),
+            ('B1', 'K4 b1_sums (S_g, S_gx)', b1_sums, 'bn_block.cu',
+             bn + '346'),
+            ('B2', 'K4 b2_call (BN2 bwd in the load, convT, PReLU bwd, BN1 '
+             'sums)', b2_call, 'bn_block.cu', bn + '360'),
+            ('B3', 'K4 b3_call (BN1 bwd in the load, convT, skip)', b3_call,
+             'bn_block.cu', bn + '387')]
     rows = []
     for kid, name, fn, src, r in meta:
         st = stats[kid]

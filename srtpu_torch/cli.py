@@ -17,14 +17,18 @@ The flags are srtpu's config keys; the defaults follow
 weights to ``<default_root_dir>/final_weights.pt``, which ``predict
 --weights`` reads (as does ``python -m srtpu_torch.convert``'s output).
 ``--model RCAN`` adds ``--n_resgroups`` (default 10) and
-``--reduction`` (default 16), srtpu's RCAN keys; a model ignores the
-flags it does not declare. ``fit`` runs no validation and writes no
-checkpoints yet (ROADMAP.md queue 1, items 4 and 7). ``--device cuda``
-without a card raises: there is no fallback to the CPU. On the card
-``--precision 32`` raises (the kernels take bf16), and so does x3 for
-EDSR, whose x3 tail needs a K2 shape the port lacks (ROADMAP.md §3, F4);
-RCAN runs x3 on the card, since its tail is cuDNN (each model's
-``CARD_SCALES``).
+``--reduction`` (default 16), srtpu's RCAN keys; ``--model SRResNet``
+takes ``--n_feats``, ``--n_resblocks`` and ``--scale_factor``; a model
+ignores the flags it does not declare. ``fit`` trains in train mode
+(SRResNet's batch norm on batch statistics, updating its running ones)
+and ``predict`` runs eval mode; ``final_weights.pt`` holds the running
+statistics, so ``predict --weights`` reads what ``fit`` left. ``fit``
+runs no validation and writes no checkpoints yet (ROADMAP.md queue 1,
+items 4 and 7). ``--device cuda`` without a card raises: there is no
+fallback to the CPU. On the card ``--precision 32`` raises (the kernels
+take bf16), and so does x3 for EDSR and SRResNet, whose x3 tails need K2
+shapes the port lacks (ROADMAP.md §3, F4); RCAN runs x3 on the card,
+since its tail is cuDNN (each model's ``CARD_SCALES``).
 """
 
 from __future__ import annotations
@@ -95,7 +99,8 @@ def build_model(args, device: torch.device) -> torch.nn.Module:
         raise ValueError(
             f'on CUDA the kernels take bf16 and {args.model} runs scales '
             f'{", ".join(map(str, scales))}: pass --precision bf16 and one '
-            f'of those scales (or --device cpu)')
+            f'of those scales (or --device cpu); the other scales need K2 '
+            f'shapes the port lacks (ROADMAP.md F4)')
     dtype = torch.bfloat16 if args.precision == 'bf16' else None
     model = create_model(args.model, scale_factor=args.scale_factor,
                          n_feats=args.n_feats, n_resblocks=args.n_resblocks,

@@ -1,4 +1,4 @@
-"""JAX EDSR and RCAN parameters -> an srtpu_torch state dict.
+"""JAX EDSR, RCAN and SRResNet parameters -> an srtpu_torch state dict.
 
 Reads either EDSR tree srtpu stores:
 
@@ -25,10 +25,29 @@ and either RCAN tree:
   Conv2d_0`` (group close), ``Conv2d_1`` (trunk close),
   ``UpscaleBlock_0/Conv2d_{j}`` and ``Conv2d_2`` (final).
 
+and either SRResNet tree, which also needs its ``batch_stats`` collection
+(the running statistics of batch norm):
+
+* ``use_pallas='cs'``: ``BasicBlock_0/{Conv2d_0, PReLU_0}`` (the 9x9 head
+  and its slope), ``CSBNTrunk_0/{w1, b1, bn1_scale, bn1_bias, alpha, w2,
+  b2, bn2_scale, bn2_bias, close_w, close_b, close_bn_scale,
+  close_bn_bias}`` (w1, w2 (L, 3C, 3C) and close_w (1, 3C, 3C) in the CS
+  arrangement; the close vectors (1, C)), ``CSUpscaleTail_0/{up{i}_kernel,
+  up{i}_bias, up{i}_alpha, final_kernel, final_bias}`` (a CS 9x9 final
+  kernel (9*ch, 9*C)) and ``batch_stats/CSBNTrunk_0/{mean1, var1, mean2,
+  var2, mean_close, var_close}``;
+* ``use_pallas=False``: ``BasicBlock_0/{Conv2d_0, PReLU_0}``,
+  ``ResBlock_{i}/{Conv2d_0, BatchNorm_0, PReLU_0, Conv2d_1,
+  BatchNorm_1}``, ``BasicBlock_1/{Conv2d_0, BatchNorm_0}`` (the close),
+  ``UpscaleBlock_0/{Conv2d_{j}, PReLU_{j}}``, ``Conv2d_0`` (the 9x9 final
+  conv) and ``batch_stats/{ResBlock_{i}/BatchNorm_{0,1}, BasicBlock_1/
+  BatchNorm_0}/{mean, var}``.
+
 A tree is nested dicts of numpy arrays, with or without the top-level
-``params`` key. Any JAX host can write one as a flat ``.npz``
-(``np.savez(path, **{'params/CSTrunk_0/w1': ..., ...})``); :func:`load_npz`
-reads it back. Command line::
+``params`` key (an SRResNet tree with it, beside ``batch_stats``). Any
+JAX host can write one as a flat ``.npz`` (``np.savez(path,
+**{'params/CSTrunk_0/w1': ..., 'batch_stats/...': ..., ...})``);
+:func:`load_npz` reads it back. Command line::
 
     python -m srtpu_torch.convert in.npz out.pt
 """
@@ -102,36 +121,104 @@ def _rcan_from_jax(p: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
+def _cs_tail(sd: dict, tail: dict, n: int) -> None:
+    """``CSUpscaleTail_0`` -> ``tail.*``: phase-major CS upscale weights
+    (r*r, 3C, 3C) and biases (r*r, C) to PixelShuffle order, the slopes
+    (SRResNet's), and the CS final kernel (k*ch, k*C) to HWIO."""
+    i = 0
+    while f'up{i}_kernel' in tail:
+        w = _t(tail[f'up{i}_kernel'])
+        r = int(round(w.shape[0] ** 0.5))
+        sd[f'tail.up{i}_weight'] = w_ps_hwio(w, n, r).contiguous()
+        # phase-major (r*r, C) -> PixelShuffle order c*r*r + a*r + b
+        sd[f'tail.up{i}_bias'] = _t(tail[f'up{i}_bias']).t().reshape(-1)
+        if f'up{i}_alpha' in tail:
+            sd[f'tail.up{i}_alpha'] = _t(tail[f'up{i}_alpha'])
+        i += 1
+    wf = _t(tail['final_kernel'])
+    fk = wf.shape[1] // n
+    sd['tail.final_weight'] = w_hwio_from_cs(wf[None], n, wf.shape[0] // fk,
+                                             fk)[0].contiguous()
+    sd['tail.final_bias'] = _t(tail['final_bias'])
+
+
+def _srresnet_from_jax(p: dict, stats: dict) -> dict[str, torch.Tensor]:
+    if not stats:
+        raise ValueError('an SRResNet tree needs its batch_stats collection '
+                         '(the running statistics of batch norm)')
+    sd: dict[str, torch.Tensor] = {}
+    _conv(sd, 'head', p['BasicBlock_0']['Conv2d_0'])
+    sd['head_act.alpha'] = _t(p['BasicBlock_0']['PReLU_0']['alpha'])
+    n = sd['head.weight'].shape[-1]
+    if 'CSBNTrunk_0' in p:
+        tr, st = p['CSBNTrunk_0'], stats['CSBNTrunk_0']
+        for k in ('b1', 'bn1_scale', 'bn1_bias', 'alpha', 'b2', 'bn2_scale',
+                  'bn2_bias'):
+            sd[f'trunk.{k}'] = _t(tr[k])
+        for k in ('w1', 'w2'):
+            sd[f'trunk.{k}'] = w_hwio_from_cs(_t(tr[k]), n, n).contiguous()
+        sd['trunk.close_w'] = w_hwio_from_cs(_t(tr['close_w']), n, n)[0] \
+            .contiguous()
+        for k in ('close_b', 'close_bn_scale', 'close_bn_bias'):
+            sd[f'trunk.{k}'] = _t(tr[k])[0]
+        for k in ('mean1', 'var1', 'mean2', 'var2'):
+            sd[f'trunk.{k}'] = _t(st[k])
+        for k in ('mean_close', 'var_close'):
+            sd[f'trunk.{k}'] = _t(st[k])[0]
+        _cs_tail(sd, p['CSUpscaleTail_0'], n)
+        return sd
+    blocks = _seq(p, 'ResBlock_')
+    bstats = [stats[f'ResBlock_{i}'] for i in range(len(blocks))]
+    for j in (1, 2):            # the block's conv j is its Conv2d_{j - 1}
+        convs = [blk[f'Conv2d_{j - 1}'] for blk in blocks]
+        sd[f'trunk.w{j}'] = torch.stack([_t(c['kernel']) for c in convs])
+        sd[f'trunk.b{j}'] = torch.stack([_t(c['bias']) for c in convs])
+        for name, leaf, tree in ((f'bn{j}_scale', 'scale', blocks),
+                                 (f'bn{j}_bias', 'bias', blocks),
+                                 (f'mean{j}', 'mean', bstats),
+                                 (f'var{j}', 'var', bstats)):
+            sd[f'trunk.{name}'] = torch.stack(
+                [_t(b[f'BatchNorm_{j - 1}'][leaf]) for b in tree])
+    sd['trunk.alpha'] = torch.stack([_t(b['PReLU_0']['alpha'])
+                                     for b in blocks])
+    close, cst = p['BasicBlock_1'], stats['BasicBlock_1']['BatchNorm_0']
+    sd['trunk.close_w'] = _t(close['Conv2d_0']['kernel'])
+    sd['trunk.close_b'] = _t(close['Conv2d_0']['bias'])
+    sd['trunk.close_bn_scale'] = _t(close['BatchNorm_0']['scale'])
+    sd['trunk.close_bn_bias'] = _t(close['BatchNorm_0']['bias'])
+    sd['trunk.mean_close'], sd['trunk.var_close'] = _t(cst['mean']), \
+        _t(cst['var'])
+    up = p['UpscaleBlock_0']
+    for i, conv in enumerate(_seq(up, 'Conv2d_')):
+        sd[f'tail.up{i}_weight'] = _t(conv['kernel'])
+        sd[f'tail.up{i}_bias'] = _t(conv['bias'])
+        sd[f'tail.up{i}_alpha'] = _t(up[f'PReLU_{i}']['alpha'])
+    sd['tail.final_weight'] = _t(p['Conv2d_0']['kernel'])
+    sd['tail.final_bias'] = _t(p['Conv2d_0']['bias'])
+    return sd
+
+
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
-    """State dict of :class:`srtpu_torch.models.EDSR` or ``RCAN`` from a
-    JAX tree of that model, dispatched on the tree's keys."""
+    """State dict of :class:`srtpu_torch.models.EDSR`, ``RCAN`` or
+    ``SRResNet`` from a JAX tree of that model (an SRResNet tree with its
+    ``batch_stats``), dispatched on the tree's keys."""
     p = tree.get('params', tree)
     if 'CSResidualGroup_0' in p or 'ResidualGroup_0' in p:
         return _rcan_from_jax(p)
+    if 'BasicBlock_0' in p:
+        return _srresnet_from_jax(p, tree.get('batch_stats', {}))
     head = p['Conv2d_0']
     sd = {'head.weight': _t(head['kernel']), 'head.bias': _t(head['bias'])}
     n = sd['head.weight'].shape[-1]
     if 'CSTrunk_0' in p:
-        tr, tail = p['CSTrunk_0'], p['CSUpscaleTail_0']
+        tr = p['CSTrunk_0']
         sd['trunk.w1'] = w_hwio_from_cs(_t(tr['w1']), n, n).contiguous()
         sd['trunk.b1'] = _t(tr['b1'])
         sd['trunk.w2'] = w_hwio_from_cs(_t(tr['w2']), n, n).contiguous()
         sd['trunk.b2'] = _t(tr['b2'])
         sd['trunk.close_weight'] = _t(tr['close_kernel'])
         sd['trunk.close_bias'] = _t(tr['close_bias'])
-        i = 0
-        while f'up{i}_kernel' in tail:
-            w = _t(tail[f'up{i}_kernel'])
-            r = int(round(w.shape[0] ** 0.5))
-            sd[f'tail.up{i}_weight'] = w_ps_hwio(w, n, r).contiguous()
-            # phase-major (r*r, C) -> PixelShuffle order c*r*r + a*r + b
-            sd[f'tail.up{i}_bias'] = _t(tail[f'up{i}_bias']).t().reshape(-1)
-            i += 1
-        wf = _t(tail['final_kernel'])
-        ch = wf.shape[0] // 3
-        sd['tail.final_weight'] = w_hwio_from_cs(wf[None], n, ch)[0] \
-            .contiguous()
-        sd['tail.final_bias'] = _t(tail['final_bias'])
+        _cs_tail(sd, p['CSUpscaleTail_0'], n)
         return sd
     blocks = _seq(p, 'ResBlock_')
     for j in (1, 2):            # the block's conv j is its Conv2d_{j - 1}

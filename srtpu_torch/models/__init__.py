@@ -1,5 +1,5 @@
-"""Model registry of the port (srtpu/models/__init__.py). EDSR and RCAN
-are ported; the other families of srtpu are listed in ROADMAP.md, in the
+"""Model registry of the port (srtpu/models/__init__.py). EDSR, RCAN and
+SRResNet are ported; the other families of srtpu are listed in ROADMAP.md, in the
 order they will be ported."""
 
 from __future__ import annotations
@@ -8,14 +8,16 @@ import inspect
 
 from torch import nn
 
-from .common import (Conv2d, Trunk, UpscaleBlock, UpscaleTail, mean_shift,
-                     pixel_shuffle)
+from .common import (BNTrunk, Conv2d, PReLU, Trunk, UpscaleBlock,
+                     UpscaleTail, mean_shift, pixel_shuffle)
 from .edsr import EDSR
 from .rcan import RCAN
+from .srresnet import SRResNet
 
-MODEL_REGISTRY: dict[str, type[nn.Module]] = {'EDSR': EDSR, 'RCAN': RCAN}
+MODEL_REGISTRY: dict[str, type[nn.Module]] = {'EDSR': EDSR, 'RCAN': RCAN,
+                                              'SRResNet': SRResNet}
 # srtpu families the port does not have yet
-NOT_PORTED = ('DDBPN', 'RDN', 'SRCNN', 'SRGAN', 'SRResNet', 'WDSR')
+NOT_PORTED = ('DDBPN', 'RDN', 'SRCNN', 'SRGAN', 'WDSR')
 
 
 def model_class(name: str) -> type[nn.Module]:
@@ -39,6 +41,6 @@ def create_model(name: str, **kwargs) -> nn.Module:
     return cls(**{k: v for k, v in kwargs.items() if k in accepted})
 
 
-__all__ = ['EDSR', 'MODEL_REGISTRY', 'NOT_PORTED', 'RCAN', 'Conv2d', 'Trunk',
-           'UpscaleBlock', 'UpscaleTail', 'create_model', 'mean_shift',
-           'model_class', 'pixel_shuffle']
+__all__ = ['BNTrunk', 'EDSR', 'MODEL_REGISTRY', 'NOT_PORTED', 'PReLU', 'RCAN',
+           'SRResNet', 'Conv2d', 'Trunk', 'UpscaleBlock', 'UpscaleTail',
+           'create_model', 'mean_shift', 'model_class', 'pixel_shuffle']

@@ -1,9 +1,9 @@
 """Building blocks of the models (NHWC, HWIO weights).
 
 Counterparts of ``srtpu/models/common.py``: ``Conv2d`` (torch-default
-init), ``mean_shift``, ``pixel_shuffle``, ``Trunk`` (``CSTrunk``),
-``UpscaleTail`` (``CSUpscaleTail`` with ``act=None, final_ksize=3``) and
-``UpscaleBlock`` (the XLA sub-pixel upscaler).
+init), ``PReLU``, ``mean_shift``, ``pixel_shuffle``, ``Trunk``
+(``CSTrunk``), ``BNTrunk`` (``CSBNTrunk``), ``UpscaleTail``
+(``CSUpscaleTail``) and ``UpscaleBlock`` (the XLA sub-pixel upscaler).
 Parameters are f32; ``dtype`` is the compute type (bf16 on the card).
 The kernel ops take the f32 parameters and cast inside, so under
 autograd their weight grads come back in f32 (as srtpu's ``custom_vjp``s
@@ -23,14 +23,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import conv3x3, trunk, upsample
+from ..ops.bn_block import bn_close, bn_close_ref, bn_resblock, bn_resblock_ref
 from ..ops.layout import (b_phase_dense, b_pm, pixel_shuffle, pm_to_nhwc,
                           w_phase_dense, w_pm_hwio)
 
 # DIV2K training-set RGB statistics (srtpu/models/common.py:29-30)
 DIV2K_RGB_MEAN = (0.4488, 0.4371, 0.4040)
 
-__all__ = ['DIV2K_RGB_MEAN', 'Conv2d', 'Trunk', 'UpscaleBlock', 'UpscaleTail',
-           'mean_shift', 'pixel_shuffle', 'uniform_param']
+__all__ = ['DIV2K_RGB_MEAN', 'BNTrunk', 'Conv2d', 'PReLU', 'Trunk',
+           'UpscaleBlock', 'UpscaleTail', 'mean_shift', 'pixel_shuffle',
+           'prelu', 'uniform_param']
 
 
 def uniform_param(shape, bound: float, device, generator: torch.Generator
@@ -75,6 +77,24 @@ class Conv2d(nn.Module):
         return y.permute(0, 2, 3, 1).to(dtype) + self.bias.to(dtype)
 
 
+def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """PReLU with one slope, applied in x's dtype (srtpu ``PReLU``: the
+    slope is cast to x's dtype)."""
+    return torch.where(x >= 0, x, alpha.to(x.dtype) * x)
+
+
+class PReLU(nn.Module):
+    """torch ``nn.PReLU()`` semantics: one scalar slope ``alpha``, f32,
+    initialised to 0.25 (srtpu/models/common.py:191-203)."""
+
+    def __init__(self, init: float = 0.25, *, device=None):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.full((1,), init, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return prelu(x, self.alpha)
+
+
 class Trunk(nn.Module):
     """EDSR trunk: n_resblocks resblocks (K1), the close conv (K2) and the
     global skip (srtpu ``CSTrunk``). Block weights are stacked HWIO:
@@ -104,29 +124,122 @@ class Trunk(nn.Module):
         return res + xd       # the skip is one more rounding, as in srtpu
 
 
+class BNTrunk(nn.Module):
+    """SRResNet trunk (srtpu ``CSBNTrunk``): n_resblocks BatchNorm
+    resblocks (conv - BN - PReLU - conv - BN + skip), the closing conv +
+    BN and the global skip. Weights stacked HWIO: w1, w2 (L, 3, 3, C, C);
+    b1, b2, bn{1,2}_scale, bn{1,2}_bias (L, C); alpha (L, 1); the close
+    conv close_w (3, 3, C, C), close_b, close_bn_scale, close_bn_bias
+    (C,). Running statistics are buffers: mean1, var1, mean2, var2 (L, C),
+    mean_close, var_close (C,) (srtpu's ``batch_stats``).
+
+    Train mode runs K4 (:func:`bn_resblock` per block, :func:`bn_close`)
+    on batch statistics and then updates the running statistics once,
+    ra <- 0.9 ra + 0.1 batch with the biased batch variance (srtpu's
+    BatchNorm, momentum 0.9). Eval mode normalises with the running
+    statistics on stock PyTorch convs (:func:`bn_resblock_ref`), as srtpu
+    runs eval on XLA; ``plain`` changes nothing there. SRGAN's reflect
+    padding is not ported."""
+
+    MOMENTUM = 0.9
+
+    def __init__(self, n_feats: int = 64, n_resblocks: int = 16,
+                 reflect: bool = False, *, device=None,
+                 generator: torch.Generator):
+        super().__init__()
+        if reflect:
+            raise NotImplementedError(
+                'the reflect-padded BN trunk (SRGAN, K4 reflect) is not '
+                'ported to srtpu_torch yet; see ROADMAP.md')
+        n, nb = n_feats, n_resblocks
+        bound = 1.0 / math.sqrt(9 * n)
+
+        def const(shape, v):
+            return nn.Parameter(torch.full(shape, v, device=device))
+
+        self.w1 = uniform_param((nb, 3, 3, n, n), bound, device, generator)
+        self.b1 = uniform_param((nb, n), bound, device, generator)
+        self.bn1_scale, self.bn1_bias = const((nb, n), 1.0), const((nb, n), 0.)
+        self.alpha = const((nb, 1), 0.25)
+        self.w2 = uniform_param((nb, 3, 3, n, n), bound, device, generator)
+        self.b2 = uniform_param((nb, n), bound, device, generator)
+        self.bn2_scale, self.bn2_bias = const((nb, n), 1.0), const((nb, n), 0.)
+        self.close_w = uniform_param((3, 3, n, n), bound, device, generator)
+        self.close_b = uniform_param((n,), bound, device, generator)
+        self.close_bn_scale = const((n,), 1.0)
+        self.close_bn_bias = const((n,), 0.0)
+        for name, shape, v in (('mean1', (nb, n), 0.0), ('var1', (nb, n), 1.0),
+                               ('mean2', (nb, n), 0.0), ('var2', (nb, n), 1.0),
+                               ('mean_close', (n,), 0.0),
+                               ('var_close', (n,), 1.0)):
+            self.register_buffer(name, torch.full(shape, v, device=device))
+
+    def _blocks(self):
+        """Each block's parameters; one unbind per stack, so the backward
+        stacks each parameter's grads once instead of adding L
+        zero-padded copies."""
+        return list(zip(*(t.unbind(0) for t in (
+            self.w1, self.b1, self.bn1_scale, self.bn1_bias, self.alpha,
+            self.w2, self.b2, self.bn2_scale, self.bn2_bias))))
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                plain: bool = False) -> torch.Tensor:
+        xd = x.to(dtype).contiguous()
+        close = (self.close_w, self.close_b, self.close_bn_scale,
+                 self.close_bn_bias)
+        if not self.training:
+            u = xd
+            for i, prm in enumerate(self._blocks()):
+                u = bn_resblock_ref(u, *prm, self.mean1[i], self.var1[i],
+                                    self.mean2[i], self.var2[i])
+            return bn_close_ref(u, xd, *close, self.mean_close,
+                                self.var_close)
+        u, stats = xd, []
+        for prm in self._blocks():
+            u, st = bn_resblock(u, *prm, plain=plain)
+            stats.append(st)
+        out, (mc, vc) = bn_close(u, xd, *close, plain=plain)
+        with torch.no_grad():
+            mom = self.MOMENTUM
+            for name, batch in zip(('mean1', 'var1', 'mean2', 'var2'),
+                                   (torch.stack(s) for s in zip(*stats))):
+                ra = getattr(self, name)
+                ra.copy_(mom * ra + (1 - mom) * batch)
+            for ra, batch in ((self.mean_close, mc), (self.var_close, vc)):
+                ra.copy_(mom * ra + (1 - mom) * batch)
+        return out
+
+
 class UpscaleTail(nn.Module):
-    """Sub-pixel upscaler + final 3x3 conv (srtpu ``CSUpscaleTail`` with
-    act=None, final_ksize=3; reference UpscaleBlock + Conv2d).
+    """Sub-pixel upscaler + final conv (srtpu ``CSUpscaleTail``). EDSR's:
+    act=None, final_ksize=3 (reference UpscaleBlock + Conv2d); SRResNet's:
+    act='prelu', final_ksize=9 (a PReLU after every stage, with its own
+    slope up{i}_alpha, and a 9x9 HR output conv).
 
     Stages are x2 (log2(scale) of them) or one x3. Every stage but the
     last runs K3 (conv + shuffle). The last stays phase-major at coarse
-    resolution (K2 with ``w_pm_hwio``), and the final conv runs as a
-    phase-dense coarse conv over its r*r*C channels (K2 with
-    ``w_phase_dense``, c_out padded to 16); ``pm_to_nhwc`` then gives the
-    fine image. Weights are stored as the plain tail's: up{i}_weight HWIO
-    (3, 3, C, r*r*C) and up{i}_bias in PixelShuffle order, final_weight
-    (3, 3, C, ch)."""
+    resolution (K2 with ``w_pm_hwio``; a scalar-slope PReLU is exact on
+    phase-major channels), and the final conv runs as a phase-dense
+    coarse conv over its r*r*C channels (K2 with ``w_phase_dense``, c_out
+    padded to 16): 3x3 for final_ksize 3, 5x5 for 9 at r = 2;
+    ``pm_to_nhwc`` then gives the fine image. Weights are stored as the
+    plain tail's: up{i}_weight HWIO (3, 3, C, r*r*C) and up{i}_bias in
+    PixelShuffle order, final_weight (k, k, C, ch)."""
 
     def __init__(self, scale_factor: int = 4, n_feats: int = 64,
-                 channels: int = 3, *, device=None,
+                 channels: int = 3, act: str | None = None,
+                 final_ksize: int = 3, *, device=None,
                  generator: torch.Generator):
         super().__init__()
         if scale_factor not in (2, 3, 4, 8):
             raise ValueError(f'scale_factor must be 2, 3, 4 or 8, got '
                              f'{scale_factor}')
+        if act not in (None, 'prelu'):
+            raise ValueError(f"act must be None or 'prelu', got {act!r}")
         self.rs = [3] if scale_factor == 3 else \
             [2] * int(math.log2(scale_factor))
         self.channels = channels
+        self.act = act
         n = n_feats
         bound = 1.0 / math.sqrt(9 * n)
         for i, r in enumerate(self.rs):
@@ -134,20 +247,29 @@ class UpscaleTail(nn.Module):
                 (3, 3, n, r * r * n), bound, device, generator))
             self.register_parameter(f'up{i}_bias', uniform_param(
                 (r * r * n,), bound, device, generator))
-        self.final_weight = uniform_param((3, 3, n, channels), bound, device,
-                                          generator)
-        self.final_bias = uniform_param((channels,), bound, device,
+            if act:
+                self.register_parameter(f'up{i}_alpha', nn.Parameter(
+                    torch.full((1,), 0.25, device=device)))
+        bound_f = 1.0 / math.sqrt(final_ksize * final_ksize * n)
+        self.final_weight = uniform_param(
+            (final_ksize, final_ksize, n, channels), bound_f, device,
+            generator)
+        self.final_bias = uniform_param((channels,), bound_f, device,
                                         generator)
+
+    def _act(self, y: torch.Tensor, i: int) -> torch.Tensor:
+        return prelu(y, getattr(self, f'up{i}_alpha')) if self.act else y
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype,
                 plain: bool = False) -> torch.Tensor:
         y = x.to(dtype)
         for i, r in enumerate(self.rs[:-1]):
-            y = upsample(y, getattr(self, f'up{i}_weight'),
-                         getattr(self, f'up{i}_bias'), r, plain)
+            y = self._act(upsample(y, getattr(self, f'up{i}_weight'),
+                                   getattr(self, f'up{i}_bias'), r, plain), i)
         r, last = self.rs[-1], len(self.rs) - 1
         y = conv3x3(y, w_pm_hwio(getattr(self, f'up{last}_weight'), r),
                     b_pm(getattr(self, f'up{last}_bias'), r), plain)
+        y = self._act(y, last)
         wpd = w_phase_dense(self.final_weight, r)
         bpd = b_phase_dense(self.final_bias, r, wpd.shape[-1])
         y = conv3x3(y, wpd, bpd, plain)

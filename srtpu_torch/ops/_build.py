@@ -34,8 +34,13 @@ SIGNATURES = {
     'srt_upsample_bwd_dx': [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     'srt_resblock_fwd': [_P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P],
     'srt_resblock_bwd': [_P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P],
+    'srt_conv5x5_fwd': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     'srt_conv_wgrad': [_P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _I,
-                       _I, _I, _F, _I, _P],
+                       _I, _I, _F, _I, _I, _P],
+    'srt_bn_conv_stats': [_P] * 11 + [_I] * 3 + [_P],
+    'srt_bn_norm_skip': [_P] * 4 + [_L, _P],
+    'srt_bn_sums': [_P] * 5 + [_L, _P],
+    'srt_bn_bwd_conv': [_P] * 15 + [_I] * 3 + [_P],
     'srt_rcab_fwd': [_P] * 15 + [_I] * 5 + [_P],
     'srt_rcab_bwd': [_P] * 19 + [_I] * 5 + [_P],
 }

@@ -1,5 +1,5 @@
-"""K2: 3x3 SAME conv + bias, NHWC bf16 -> bf16, f32 sums, and its
-backward.
+"""K2: 3x3 (and 5x5) SAME conv + bias, NHWC bf16 -> bf16, f32 sums, and
+its backward.
 
 Replaces ``srtpu/ops/cs_conv.py:conv3x3_cs_fwd`` and ``conv3x3_cs_bwd``
 (behind ``conv3x3_cs`` / ``conv3x3_cs_pre``). The forward kernel is
@@ -8,7 +8,9 @@ how its design answers that; the backward's dx is the same kernel with
 the transposed weight and no bias, its dW and db the weight-grad kernel
 (:mod:`.wgrad`). :func:`conv3x3_fwd` and :func:`conv3x3_bwd` launch the
 kernels for CUDA tensors and take the plain versions only for CPU
-tensors. :func:`conv3x3` is the differentiable op (:class:`Conv3x3Fn`).
+tensors. Each counts its launches per kernel size: ``launches`` at 3x3,
+``launches_5x5`` at 5x5 (SRResNet's phase-dense final conv).
+:func:`conv3x3` is the differentiable op (:class:`Conv3x3Fn`).
 """
 
 from __future__ import annotations
@@ -45,78 +47,93 @@ def conv3x3_bwd_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain backward, rounding where ``_conv_bwd_kernel`` does: dx = one
     rounding to x.dtype of the f32 transposed conv of g; dW = sum over
-    pixels of x (x) g in f32 (HWIO); db = sum of g in f32."""
+    pixels of x (x) g in f32 (HWIO, 3x3 or 5x5 as w); db = sum of g in
+    f32."""
     dx = conv_f32(g, w_t(w)).to(x.dtype).contiguous()
-    return (dx, *conv_wgrad_plain(x, g))
+    return (dx, *conv_wgrad_plain(x, g, k=w.shape[0]))
 
 
-def _lib_conv(x, w, b, out, relu: bool) -> None:
+def _engine_takes(cin: int, cout: int, k: int) -> bool:
+    if k == 5:
+        return (cin == 256 and cout % 16 == 0) or (cin == 16
+                                                   and cout % 64 == 0)
+    return k == 3 and ((cin in (16, 64) and cout % 64 == 0)
+                       or (cin == 256 and cout % 16 == 0))
+
+
+def _launch(x, w, b, relu: bool, name: str) -> torch.Tensor:
+    """Check x (B, H, W, Cin) bf16, w (k, k, Cin, Cout) bf16 and b (Cout,)
+    f32 or None, and launch K2 (k = 3 or 5) into a new output."""
+    if x.device.type != 'cuda':
+        raise ValueError(f'{name}: no kernel for device {x.device}')
     bsz, h, wd, cin = x.shape
-    cout = w.shape[-1]
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        err = lib.srt_conv3x3_fwd(
+    k, cout = w.shape[0], w.shape[-1]
+    if not _engine_takes(cin, cout, k):
+        raise ValueError(f'{name}: no kernel for {k}x{k} {cin} -> {cout} '
+                         f'channels')
+    dev = x.device
+    _build.expect(x, 'x', torch.bfloat16, (bsz, h, wd, cin), dev)
+    _build.expect(w, 'w', torch.bfloat16, (k, k, cin, cout), dev)
+    if b is not None:
+        _build.expect(b, 'b', torch.float32, (cout,), dev)
+    out = torch.empty((bsz, h, wd, cout), dtype=torch.bfloat16, device=dev)
+    entry = 'srt_conv5x5_fwd' if k == 5 else 'srt_conv3x3_fwd'
+    with torch.cuda.device(dev):
+        err = getattr(_build.library(), entry)(
             x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
             out.data_ptr(), bsz, h, wd, cin, cout, int(relu),
-            _build.stream(x.device))
-    _build.check(err, 'srt_conv3x3_fwd')
+            _build.stream(dev))
+    _build.check(err, entry)
+    return out
 
 
-def _engine_takes(cin: int, cout: int) -> bool:
-    return ((cin in (16, 64) and cout % 64 == 0)
-            or (cin == 256 and cout % 16 == 0))
+def _count(fn, w: torch.Tensor) -> None:
+    """One launch of ``fn``'s kernel at ``w``'s size."""
+    if w.shape[0] == 5:
+        fn.launches_5x5 += 1
+    else:
+        fn.launches += 1
 
 
 def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                 relu: bool = False) -> torch.Tensor:
-    """x (B, H, W, Cin) bf16; w (3, 3, Cin, Cout) bf16; b (Cout,) f32 ->
-    (B, H, W, Cout) bf16. On CUDA: Cin = 16 or 64 with Cout % 64 == 0,
-    or Cin = 256 with Cout % 16 == 0 (the EDSR tail's shapes)."""
+    """x (B, H, W, Cin) bf16; w (k, k, Cin, Cout) bf16; b (Cout,) f32 ->
+    (B, H, W, Cout) bf16. On CUDA, k = 3: Cin = 16 or 64 with Cout % 64
+    == 0, or Cin = 256 with Cout % 16 == 0 (the EDSR tail's shapes); k =
+    5: Cin = 256 with Cout % 16 == 0 (SRResNet's phase-dense final conv)
+    or Cin = 16 with Cout % 64 == 0 (its transposed conv)."""
     if x.device.type == 'cpu':
         return conv3x3_plain(x, w, b, relu)
-    if x.device.type != 'cuda':
-        raise ValueError(f'conv3x3_fwd: no kernel for device {x.device}')
-    bsz, h, wd, cin = x.shape
-    cout = w.shape[-1]
-    if not _engine_takes(cin, cout):
-        raise ValueError(f'conv3x3_fwd: no kernel for {cin} -> {cout} '
-                         f'channels')
-    dev = x.device
-    _build.expect(x, 'x', torch.bfloat16, (bsz, h, wd, cin), dev)
-    _build.expect(w, 'w', torch.bfloat16, (3, 3, cin, cout), dev)
-    _build.expect(b, 'b', torch.float32, (cout,), dev)
-    out = torch.empty((bsz, h, wd, cout), dtype=torch.bfloat16, device=dev)
-    _lib_conv(x, w, b, out, relu)
-    conv3x3_fwd.launches += 1
+    out = _launch(x, w, b, relu, 'conv3x3_fwd')
+    _count(conv3x3_fwd, w)
     return out
 
 
 def conv3x3_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x (B, H, W, Cin) bf16; w (3, 3, Cin, Cout) bf16; g (B, H, W, Cout)
-    bf16 -> dx bf16, dW (3, 3, Cin, Cout) f32, db (Cout,) f32. On CUDA:
-    the EDSR path's 64 -> 64, 64 -> 256 and 256 -> 16."""
+    """x (B, H, W, Cin) bf16; w (k, k, Cin, Cout) bf16; g (B, H, W, Cout)
+    bf16 -> dx bf16, dW (k, k, Cin, Cout) f32, db (Cout,) f32. On CUDA:
+    the EDSR path's 64 -> 64, 64 -> 256 and 256 -> 16 at 3x3, SRResNet's
+    256 -> 16 at 5x5."""
     if x.device.type == 'cpu':
         return conv3x3_bwd_plain(x, w, g)
     if x.device.type != 'cuda':
         raise ValueError(f'conv3x3_bwd: no kernel for device {x.device}')
     bsz, h, wd, cin = x.shape
-    cout = w.shape[-1]
-    if not _engine_takes(cout, cin):
-        raise ValueError(f'conv3x3_bwd: no kernel for {cin} -> {cout} '
-                         f'channels')
+    k, cout = w.shape[0], w.shape[-1]
+    if not _engine_takes(cout, cin, k):
+        raise ValueError(f'conv3x3_bwd: no kernel for {k}x{k} {cin} -> '
+                         f'{cout} channels')
     dev = x.device
     _build.expect(x, 'x', torch.bfloat16, (bsz, h, wd, cin), dev)
-    _build.expect(w, 'w', torch.bfloat16, (3, 3, cin, cout), dev)
     _build.expect(g, 'g', torch.bfloat16, (bsz, h, wd, cout), dev)
-    dx = torch.empty_like(x)
-    _lib_conv(g, w_t(w).contiguous(), None, dx, False)
-    conv3x3_bwd.launches += 1
-    return (dx, *conv_wgrad(x, g))
+    dx = _launch(g, w_t(w).contiguous(), None, False, 'conv3x3_bwd')
+    _count(conv3x3_bwd, w)
+    return (dx, *conv_wgrad(x, g, k=k))
 
 
-conv3x3_fwd.launches = 0
-conv3x3_bwd.launches = 0
+for _fn in (conv3x3_fwd, conv3x3_bwd):
+    _fn.launches = _fn.launches_5x5 = 0
 
 
 class Conv3x3Fn(torch.autograd.Function):
@@ -144,7 +161,8 @@ class Conv3x3Fn(torch.autograd.Function):
 
 def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             plain: bool = False) -> torch.Tensor:
-    """3x3 SAME conv + bias in x's dtype from f32 (or any) parameters:
+    """3x3 (or 5x5, as w) SAME conv + bias in x's dtype from f32 (or any)
+    parameters:
     the autograd op when a gradient is wanted, else the forward alone.
     ``plain`` runs the plain versions on any device."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad

@@ -1,6 +1,7 @@
-// Shared building blocks of the port's 3x3 convolution kernels (sm_90a).
+// Shared building blocks of the port's 3x3 (and 5x5) convolution kernels
+// (sm_90a).
 //
-// Layout: activations are NHWC bf16, weights HWIO bf16 (3, 3, Cin, Cout),
+// Layout: activations are NHWC bf16, weights HWIO bf16 (k, k, Cin, Cout),
 // biases f32. A block computes one output tile of TH x TW pixels of one
 // image as an implicit GEMM on the tensor cores (nvcuda::wmma, bf16 in,
 // f32 accumulate):
@@ -129,14 +130,15 @@ __device__ __forceinline__ void load_tile_gather(bf16* __restrict__ dst,
   }
 }
 
-// Copy output columns [n0, n0 + NB) of an HWIO weight (9 * CIN rows of
-// cout) into dst as (9 * CIN, NB) row-major.
-template <int CIN, int NB>
+// Copy output columns [n0, n0 + NB) of TAPS taps of an HWIO weight
+// (TAPS * CIN rows of cout, from w) into dst as (TAPS * CIN, NB)
+// row-major.
+template <int CIN, int NB, int TAPS = 9>
 __device__ __forceinline__ void load_weights(bf16* __restrict__ dst,
                                              const bf16* __restrict__ w,
                                              int cout, int n0) {
   constexpr int VEC = NB / 8;
-  constexpr int total = 9 * CIN * VEC;
+  constexpr int total = TAPS * CIN * VEC;
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
     const int row = i / VEC, v = i % VEC;
     *reinterpret_cast<uint4*>(dst + (size_t)row * NB + v * 8) =
@@ -144,20 +146,20 @@ __device__ __forceinline__ void load_weights(bf16* __restrict__ dst,
   }
 }
 
-// acc[n] = 3x3 conv of the staged tile xs at the 16 flattened positions
-// starting at p0, for output columns [16 n, 16 n + 16) of the staged
-// weights ws.
-template <int CIN, int NB>
-__device__ __forceinline__ void mma_3x3(AccFrag (&acc)[NB / 16],
-                                        const bf16* __restrict__ xs,
-                                        const bf16* __restrict__ ws, int p0,
-                                        int wx) {
+// acc[n] += the taps of rows ky0 .. ky0 + ROWS - 1 of a KK x KK conv of
+// the staged tile xs at the 16 flattened positions starting at p0, for
+// output columns [16 n, 16 n + 16) of the staged weights ws (those rows'
+// ROWS * KK taps). Taps in row-major order, then input channels.
+template <int CIN, int NB, int KK, int ROWS>
+__device__ __forceinline__ void mma_taps(AccFrag (&acc)[NB / 16],
+                                         const bf16* __restrict__ xs,
+                                         const bf16* __restrict__ ws, int p0,
+                                         int wx, int ky0) {
   constexpr int PS = CIN + 16;
-#pragma unroll
-  for (int n = 0; n < NB / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
 #pragma unroll 1
-  for (int tap = 0; tap < 9; ++tap) {
-    const bf16* a_base = xs + (size_t)(p0 + (tap / 3) * wx + tap % 3) * PS;
+  for (int tap = 0; tap < ROWS * KK; ++tap) {
+    const bf16* a_base =
+        xs + (size_t)(p0 + (ky0 + tap / KK) * wx + tap % KK) * PS;
     const bf16* b_base = ws + (size_t)tap * CIN * NB;
 #pragma unroll
     for (int k0 = 0; k0 < CIN; k0 += 16) {
@@ -171,6 +173,19 @@ __device__ __forceinline__ void mma_3x3(AccFrag (&acc)[NB / 16],
       }
     }
   }
+}
+
+// acc[n] = 3x3 conv of the staged tile xs at the 16 flattened positions
+// starting at p0, for output columns [16 n, 16 n + 16) of the staged
+// weights ws (all 9 taps).
+template <int CIN, int NB>
+__device__ __forceinline__ void mma_3x3(AccFrag (&acc)[NB / 16],
+                                        const bf16* __restrict__ xs,
+                                        const bf16* __restrict__ ws, int p0,
+                                        int wx) {
+#pragma unroll
+  for (int n = 0; n < NB / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
+  mma_taps<CIN, NB, 3, 3>(acc, xs, ws, p0, wx, 0);
 }
 
 // Stage one 16x16 accumulator in the warp's f32 scratch and hand back the
@@ -194,21 +209,29 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// Shared-memory plan of conv3x3_kernel.
-template <int CIN, int NB, int TH, int TW>
+// Shared-memory plan of conv3x3_kernel: a KK x KK conv (KK = 3 or 5)
+// whose weights are staged WROWS rows of taps at a time.
+template <int CIN, int NB, int TH, int TW, int KK = 3, int WROWS = KK>
 struct ConvPlan {
+  static_assert(KK % 2 == 1 && KK % WROWS == 0, "odd taps, whole rows");
   static constexpr int PS = CIN + 16;
-  static constexpr int WX = TW + 2;                // tile + 1-pixel halo
+  static constexpr int WX = TW + KK - 1;           // tile + (KK / 2) halo
   static constexpr int MF = (TH * WX + 15) / 16;   // 16-row wmma tiles
-  static constexpr int NPIX = MF * 16 + 2 * WX + 2;  // + reads of tap (2,2)
+  static constexpr int MT = (MF + kWarps - 1) / kWarps;  // tiles per warp
+  // + the reads of the last tap (KK - 1, KK - 1)
+  static constexpr int NPIX = MF * 16 + (KK - 1) * (WX + 1);
   static constexpr size_t XS = align128((size_t)NPIX * PS * 2);
-  static constexpr size_t WS = align128((size_t)9 * CIN * NB * 2);
+  static constexpr size_t WS = align128((size_t)WROWS * KK * CIN * NB * 2);
   static constexpr size_t SCR = (size_t)kWarps * 256 * 4;
   static constexpr size_t SMEM = XS + WS + SCR;
 };
 
-// One 3x3 SAME conv + bias (+ ReLU) over an NHWC image batch. bias may
-// be null (no bias: the transposed convs of the backward passes).
+// One KK x KK SAME conv + bias (+ ReLU) over an NHWC image batch (KK = 3
+// unless given; 5 for SRResNet's phase-dense final conv). bias may be
+// null (no bias: the transposed convs of the backward passes). The
+// weights are staged WROWS rows of taps at a time (fewer than KK where
+// the whole weight would not fit beside the tile), each warp keeping its
+// tiles' sums in registers across the rows.
 //
 // grid = (ceil(W / TW), ceil(H / TH), B * cout / NB); block z covers image
 // z / (cout / NB) and the NB output channels of chunk z % (cout / NB).
@@ -219,12 +242,14 @@ struct ConvPlan {
 // shuffle is the store's indexing.
 // GATHER = true: x is a fine NHWC tensor (B, r H, r W, CIN / (r r)) read
 // as its phase-major coarse view (load_tile_gather); H, W are coarse.
-template <int CIN, int NB, int TH, int TW, bool SHUFFLE, bool GATHER = false>
+template <int CIN, int NB, int TH, int TW, bool SHUFFLE, bool GATHER = false,
+          int KK = 3, int WROWS = KK>
 __global__ void __launch_bounds__(kThreads)
     conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                    const float* __restrict__ bias, bf16* __restrict__ out,
                    int H, int W, int cout, int relu, int r) {
-  typedef ConvPlan<CIN, NB, TH, TW> P;
+  typedef ConvPlan<CIN, NB, TH, TW, KK, WROWS> P;
+  constexpr int HALO = KK / 2;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* xs = reinterpret_cast<bf16*>(smem);
   bf16* ws = reinterpret_cast<bf16*>(smem + P::XS);
@@ -236,16 +261,33 @@ __global__ void __launch_bounds__(kThreads)
   const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
 
   if (GATHER)
-    load_tile_gather<CIN>(xs, x, b, H, W, y0 - 1, x0 - 1, TH + 2, P::WX,
-                          P::NPIX, r);
+    load_tile_gather<CIN>(xs, x, b, H, W, y0 - HALO, x0 - HALO, TH + KK - 1,
+                          P::WX, P::NPIX, r);
   else
-    load_tile<CIN>(xs, x, b, H, W, y0 - 1, x0 - 1, TH + 2, P::WX, P::NPIX);
-  load_weights<CIN, NB>(ws, w, cout, chunk * NB);
-  __syncthreads();
+    load_tile<CIN>(xs, x, b, H, W, y0 - HALO, x0 - HALO, TH + KK - 1, P::WX,
+                   P::NPIX);
+  AccFrag acc[P::MT][NB / 16];
+#pragma unroll
+  for (int t = 0; t < P::MT; ++t)
+#pragma unroll
+    for (int n = 0; n < NB / 16; ++n) wmma::fill_fragment(acc[t][n], 0.0f);
+  for (int ky0 = 0; ky0 < KK; ky0 += WROWS) {
+    if (ky0) __syncthreads();  // every warp is done with the previous rows
+    load_weights<CIN, NB, WROWS * KK>(ws, w + (size_t)ky0 * KK * CIN * cout,
+                                      cout, chunk * NB);
+    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < P::MT; ++t) {
+      const int mf = warp + t * kWarps;
+      if (mf < P::MF)
+        mma_taps<CIN, NB, KK, WROWS>(acc[t], xs, ws, mf * 16, P::WX, ky0);
+    }
+  }
 
-  for (int mf = warp; mf < P::MF; mf += kWarps) {
-    AccFrag acc[NB / 16];
-    mma_3x3<CIN, NB>(acc, xs, ws, mf * 16, P::WX);
+#pragma unroll
+  for (int t = 0; t < P::MT; ++t) {
+    const int mf = warp + t * kWarps;
+    if (mf >= P::MF) continue;
     const int p = mf * 16 + (lane >> 1);
     const int oy = p / P::WX, ox = p % P::WX;
     const int gy = y0 + oy, gx = x0 + ox;
@@ -253,7 +295,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int n = 0; n < NB / 16; ++n) {
       float v[8];
-      lane_values(scr, acc[n], lane, v);
+      lane_values(scr, acc[t][n], lane, v);
       if (!valid) continue;
       const int c0 = n * 16 + (lane & 1) * 8;  // channel within the chunk
 #pragma unroll

@@ -1,7 +1,8 @@
-// Weight gradient of a 3x3 SAME conv, shared by the backward passes of
-// K1, K2 and K3:
-//   dW[ky, kx, ci, co] = sum over pixels p of X[p + (ky - 1, kx - 1), ci]
-//                        * G[p, co]                      (f32 sums),
+// Weight gradient of a k x k SAME conv (k = 3, or 5 for SRResNet's
+// phase-dense final conv), shared by the backward passes of K1-K5:
+//   dW[ky, kx, ci, co] = sum over pixels p of
+//                        X[p + (ky - k/2, kx - k/2), ci] * G[p, co]
+//                                                        (f32 sums),
 //   db[co]             = sum over pixels p of G[p, co]   (f32 sums),
 // with X and G NHWC bf16 and dW HWIO f32.
 //
@@ -28,51 +29,65 @@
 // fine tensor (B, r H, r W, Cout / (r r)), giving the phase-major dW of
 // the upscale stage. J stacked jobs (the trunk's L blocks) share one
 // launch.
+//
+// 5x5 (256 -> 16): 25 * 256 / 16 = 400 row tiles of dW per output chunk,
+// too many accumulators for one block; the rows are split over NRG = 5
+// row groups (one per tap row ky, a grid dimension), each block of 10
+// warps keeping 8 row tiles. X is staged with a 2-pixel halo; the order
+// of every sum is fixed as for 3x3.
 
 #include "tile_conv.cuh"
 
 namespace {
 
 constexpr int kTH = 8, kTW = 16;
-constexpr int kWarpsW = 12, kThreadsW = kWarpsW * 32;
 
 typedef nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, srt::bf16,
                             nvcuda::wmma::col_major>
     AColFrag;
 
-template <int CIN, int NB>
+// KK x KK taps; WARPS warps per block, each keeping RT row tiles (16
+// rows of dW: one tap, 16 input channels) of one of NRG row groups.
+template <int CIN, int NB, int KK, int WARPS, int NRG>
 struct WgradPlan {
   static constexpr int PS = CIN + 16;               // X pixel stride
   static constexpr int PG = NB + 16;                // G pixel stride
-  static constexpr int WX = kTW + 2;
+  static constexpr int WX = kTW + KK - 1;
   static constexpr int MF = (kTH * WX + 15) / 16;   // 16-position chunks
-  static constexpr int NPIX = MF * 16 + 2 * WX + 2;
-  static constexpr int RT = 9 * CIN / 16 / kWarpsW;  // row tiles per warp
+  static constexpr int NPIX = MF * 16 + (KK - 1) * (WX + 1);
+  static constexpr int ROWS = KK * KK * CIN / 16;   // row tiles of dW
+  static constexpr int RT = ROWS / NRG / WARPS;     // row tiles per warp
   static constexpr int CT = NB / 16;                 // column tiles
+  static constexpr int THREADS = WARPS * 32;
   static constexpr size_t XS = srt::align128((size_t)NPIX * PS * 2);
   static constexpr size_t GS = srt::align128((size_t)MF * 16 * PG * 2);
   static constexpr size_t SMEM = XS + GS;
-  static_assert((9 * CIN / 16) % kWarpsW == 0, "row tiles per warp");
+  static_assert(ROWS % (NRG * WARPS) == 0, "row tiles per warp");
 };
 
-// grid = (nparts, cout / NB, J). Block (part, chunk, job) sums tiles
-// [part * tpp, (part + 1) * tpp) of job's images into the NB output
-// channels of chunk, and writes its partial (9 * CIN x cout slice, plus
-// db) at slot (job, part) of the workspaces.
-template <int CIN, int NB, bool GATHER>
-__global__ void __launch_bounds__(kThreadsW, 1)
+// grid = (nparts, NRG * cout / NB, J). Block (part, rg * nchunks + chunk,
+// job) sums tiles [part * tpp, (part + 1) * tpp) of job's images into the
+// NB output channels of chunk, for the dW rows of row group rg, and
+// writes its partial (its rows of the KK * KK * CIN x cout slice; db from
+// row group 0) at slot (job, part) of the workspaces.
+template <int CIN, int NB, bool GATHER, int KK = 3, int WARPS = 12,
+          int NRG = 1>
+__global__ void __launch_bounds__(WARPS * 32, 1)
     wgrad_kernel(const srt::bf16* __restrict__ x,
                  const srt::bf16* __restrict__ g, float* __restrict__ ws_w,
                  float* __restrict__ ws_b, int B, int H, int W, int cout,
                  int r, float gscale, long long x_stride, long long g_stride,
                  int tpp) {
-  typedef WgradPlan<CIN, NB> P;
+  typedef WgradPlan<CIN, NB, KK, WARPS, NRG> P;
   using srt::bf16;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* xs = reinterpret_cast<bf16*>(smem);
   bf16* gsm = reinterpret_cast<bf16*>(smem + P::XS);
   const int warp = threadIdx.x >> 5;
-  const int part = blockIdx.x, chunk = blockIdx.y, job = blockIdx.z;
+  const int nchunks = cout / NB;
+  const int part = blockIdx.x, job = blockIdx.z;
+  const int chunk = blockIdx.y % nchunks, rg = blockIdx.y / nchunks;
+  const int row0 = rg * (P::ROWS / NRG) + warp * P::RT;  // first row tile
   x += job * x_stride;
   g += job * g_stride;
 
@@ -92,8 +107,8 @@ __global__ void __launch_bounds__(kThreadsW, 1)
     const int b = t / (tiles_y * tiles_x), rem = t % (tiles_y * tiles_x);
     const int y0 = rem / tiles_x * kTH, x0 = rem % tiles_x * kTW;
     __syncthreads();  // the previous tile's reads are done
-    srt::load_tile<CIN>(xs, x, b, H, W, y0 - 1, x0 - 1, kTH + 2, P::WX,
-                        P::NPIX);
+    srt::load_tile<CIN>(xs, x, b, H, W, y0 - KK / 2, x0 - KK / 2,
+                        kTH + KK - 1, P::WX, P::NPIX);
     constexpr int VG = NB / 8;
     for (int i = threadIdx.x; i < P::MF * 16 * VG; i += blockDim.x) {
       const int p = i / VG, v = i % VG;
@@ -130,11 +145,11 @@ __global__ void __launch_bounds__(kThreadsW, 1)
                                     P::PG);
 #pragma unroll
       for (int i = 0; i < P::RT; ++i) {
-        const int row = warp * P::RT + i;  // (tap, 16-channel group of ci)
+        const int row = row0 + i;  // (tap, 16-channel group of ci)
         const int tap = row / (CIN / 16), ci0 = row % (CIN / 16) * 16;
         AColFrag a;
         nvcuda::wmma::load_matrix_sync(
-            a, xs + (size_t)(mf * 16 + tap / 3 * P::WX + tap % 3) * P::PS +
+            a, xs + (size_t)(mf * 16 + tap / KK * P::WX + tap % KK) * P::PS +
                    ci0,
             P::PS);
 #pragma unroll
@@ -145,15 +160,16 @@ __global__ void __launch_bounds__(kThreadsW, 1)
   }
 
   const size_t slot = (size_t)job * gridDim.x + part;
-  float* wout = ws_w + slot * 9 * CIN * cout;
+  float* wout = ws_w + slot * KK * KK * CIN * cout;
 #pragma unroll
   for (int i = 0; i < P::RT; ++i)
 #pragma unroll
     for (int j = 0; j < P::CT; ++j)
       nvcuda::wmma::store_matrix_sync(
-          wout + (size_t)(warp * P::RT + i) * 16 * cout + chunk * NB + j * 16,
+          wout + (size_t)(row0 + i) * 16 * cout + chunk * NB + j * 16,
           acc[i][j], cout, nvcuda::wmma::mem_row_major);
-  if (threadIdx.x < NB) ws_b[slot * cout + chunk * NB + threadIdx.x] = bsum;
+  if (rg == 0 && threadIdx.x < NB)
+    ws_b[slot * cout + chunk * NB + threadIdx.x] = bsum;
 }
 
 // out[j, i] = sum over p of ws[j, p, i], p in order (n values per slot).
@@ -179,19 +195,20 @@ cudaError_t reduce(const float* ws, float* out, int nparts, long long n,
   return cudaGetLastError();
 }
 
-template <int CIN, int NB, bool GATHER>
+template <int CIN, int NB, bool GATHER, int KK = 3, int WARPS = 12,
+          int NRG = 1>
 cudaError_t launch(const void* x, const void* g, float* ws_w, float* ws_b,
                    int J, long long x_stride, long long g_stride, int B,
                    int H, int W, int cout, int r, float gscale, int nparts,
                    cudaStream_t stream) {
-  typedef WgradPlan<CIN, NB> P;
-  auto kernel = wgrad_kernel<CIN, NB, GATHER>;
+  typedef WgradPlan<CIN, NB, KK, WARPS, NRG> P;
+  auto kernel = wgrad_kernel<CIN, NB, GATHER, KK, WARPS, NRG>;
   cudaError_t err = srt::allow_smem(kernel, P::SMEM);
   if (err != cudaSuccess) return err;
   const int ntiles = B * ((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW);
   const int tpp = (ntiles + nparts - 1) / nparts;
-  dim3 grid(nparts, cout / NB, J);
-  kernel<<<grid, kThreadsW, P::SMEM, stream>>>(
+  dim3 grid(nparts, NRG * (cout / NB), J);
+  kernel<<<grid, P::THREADS, P::SMEM, stream>>>(
       static_cast<const srt::bf16*>(x), static_cast<const srt::bf16*>(g),
       ws_w, ws_b, B, H, W, cout, r, gscale, x_stride, g_stride, tpp);
   return cudaGetLastError();
@@ -202,21 +219,29 @@ cudaError_t launch(const void* x, const void* g, float* ws_w, float* ws_b,
 // J jobs; job j reads x + j * x_stride (B, H, W, cin) bf16 and
 // g + j * g_stride: (B, H, W, cout) bf16, or with r > 1 the fine
 // (B, r*H, r*W, cout / (r*r)) bf16 read phase-major. Writes dw
-// (J, 3, 3, cin, cout) f32 and db (J, cout) f32. ws_w (J, nparts, 9 * cin
-// * cout) and ws_b (J, nparts, cout) f32 are scratch; nparts <= the
-// number of 8 x 16 tiles. Supported: cin = 64 with cout % 64 == 0
-// (cout = r*r*64 when gathering), cin = 256 with cout % 16 == 0.
-// Returns a cudaError_t.
+// (J, k, k, cin, cout) f32 and db (J, cout) f32. ws_w (J, nparts, k * k *
+// cin * cout) and ws_b (J, nparts, cout) f32 are scratch; nparts <= the
+// number of 8 x 16 tiles. Supported with k = 3: cin = 64 with cout % 64
+// == 0 (cout = r*r*64 when gathering), cin = 256 with cout % 16 == 0;
+// with k = 5: cin = 256 with cout % 16 == 0, r = 1. Returns a
+// cudaError_t.
 extern "C" int srt_conv_wgrad(const void* x, const void* g, void* ws_w,
                               void* ws_b, void* dw, void* db, int J,
                               long long x_stride, long long g_stride, int B,
                               int H, int W, int cin, int cout, int r,
-                              float gscale, int nparts, void* stream) {
+                              float gscale, int nparts, int k,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws_w);
   float* bws = static_cast<float*>(ws_b);
   cudaError_t err;
-  if (cin == 64 && cout % 64 == 0 && r > 1 && cout / (r * r) % 8 == 0)
+  if (k == 5 && cin == 256 && cout % 16 == 0 && r <= 1)
+    err = launch<256, 16, false, 5, 10, 5>(x, g, w, bws, J, x_stride,
+                                           g_stride, B, H, W, cout, 1,
+                                           gscale, nparts, s);
+  else if (k != 3)
+    return (int)cudaErrorInvalidValue;
+  else if (cin == 64 && cout % 64 == 0 && r > 1 && cout / (r * r) % 8 == 0)
     err = launch<64, 64, true>(x, g, w, bws, J, x_stride, g_stride, B, H, W,
                                cout, r, gscale, nparts, s);
   else if (cin == 64 && cout % 64 == 0 && r <= 1)
@@ -228,7 +253,8 @@ extern "C" int srt_conv_wgrad(const void* x, const void* g, void* ws_w,
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
-  err = reduce(w, static_cast<float*>(dw), nparts, 9LL * cin * cout, J, s);
+  err = reduce(w, static_cast<float*>(dw), nparts,
+               (long long)k * k * cin * cout, J, s);
   if (err != cudaSuccess) return (int)err;
   return (int)reduce(bws, static_cast<float*>(db), nparts, cout, J, s);
 }

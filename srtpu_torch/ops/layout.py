@@ -24,6 +24,7 @@ Phase-major channel order is ``(a * r + b) * C + c`` for output pixel
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def w_hwio_from_cs(w_csd: torch.Tensor, c_in: int, c_out: int,
@@ -99,22 +100,28 @@ def w_phase_dense(w_hwio: torch.Tensor, r: int) -> torch.Tensor:
     (cs_conv.py:w_phase_dense). A fine tap at offset (u - fk//2) from
     fine position r*y + a lands on phase (a + u - fk//2) % r at coarse
     offset floor((a + u - fk//2) / r). CO pads r*r*ch up to a multiple
-    of 16 with zero columns (the kernel's output tile width)."""
+    of 16 with zero columns (the kernel's output tile width).
+
+    Along each axis the pair (coarse tap ky, input phase p) is one index
+    t = r*ky + p, and output phase a's tap u sits at t = u + a - fk//2 -
+    r*lo: so each output phase's block is w zero-padded by that shift,
+    a handful of ops (and one autograd node each) whatever fk is."""
     fk, _, cin, ch = w_hwio.shape
     hw = fk // 2
     lo = -(hw // r) - (1 if hw % r else 0)
     ck = phase_dense_ck(fk, r)
     co = -(-r * r * ch // 16) * 16
-    wpd = w_hwio.new_zeros((ck, ck, r, r, cin, co))
+    n = r * ck
+    blocks = []
     for a in range(r):
         for b in range(r):
-            for u in range(fk):
-                for v in range(fk):
-                    fy, fx = a + u - hw, b + v - hw
-                    oc = (a * r + b) * ch
-                    wpd[fy // r - lo, fx // r - lo, fy % r, fx % r, :,
-                        oc:oc + ch] = w_hwio[u, v]
-    return wpd.reshape(ck, ck, r * r * cin, co)
+            oy, ox = a - hw - r * lo, b - hw - r * lo
+            blocks.append(F.pad(w_hwio, (0, 0, 0, 0, ox, n - fk - ox,
+                                         oy, n - fk - oy)))
+    wpd = torch.stack(blocks, -2)                   # (n, n, cin, r*r, ch)
+    wpd = wpd.reshape(ck, r, ck, r, cin, r * r * ch).permute(0, 2, 1, 3, 4, 5)
+    return F.pad(wpd.reshape(ck, ck, r * r * cin, r * r * ch),
+                 (0, co - r * r * ch))
 
 
 def b_phase_dense(b: torch.Tensor, r: int, co: int) -> torch.Tensor:

@@ -1,7 +1,9 @@
-"""Weight gradient of a 3x3 SAME conv: dW and db in f32, the half of the
-K1, K2 and K3 backward passes that the TPU kernels accumulate in
-resident f32 scratch (``srtpu/ops/cs_conv.py``: ``_conv_bwd_kernel``,
-``_ups_conv_bwd_kernel``, ``_trunk_bwd_kernel_mega``).
+"""Weight gradient of a k x k SAME conv (k = 3, or 5 for SRResNet's
+phase-dense final conv): dW and db in f32, the half of the K1-K5
+backward passes that the TPU kernels accumulate in resident f32 scratch
+(``srtpu/ops/cs_conv.py``: ``_conv_bwd_kernel``, ``_ups_conv_bwd_kernel``,
+``_trunk_bwd_kernel_mega``; ``srtpu/ops/bn_resblock_cs.py``: ``_b2_kernel``,
+``_b3_kernel``).
 
 The kernel is ``csrc/wgrad.cu``, whose head note says what bounds it on
 the H100 and how it stays deterministic (per-block partials added in a
@@ -33,18 +35,19 @@ def _gather(g: torch.Tensor, gscale: float, r: int) -> torch.Tensor:
     return g
 
 
-def _dw_one(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def _dw_one(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
     bsz, h, w, cin = x.shape
-    cols = F.unfold(x.permute(0, 3, 1, 2).float(), 3, padding=1)
+    cols = F.unfold(x.permute(0, 3, 1, 2).float(), k, padding=k // 2)
     dw = torch.einsum('bkp,bpc->kc', cols, g.reshape(bsz, h * w, -1).float())
-    return dw.reshape(cin, 3, 3, -1).permute(1, 2, 0, 3)
+    return dw.reshape(cin, k, k, -1).permute(1, 2, 0, 3)
 
 
 def conv_wgrad_plain(x: torch.Tensor, g: torch.Tensor, gscale: float = 1.0,
-                     r: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+                     r: int = 1, k: int = 3
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version: x (..., B, H, W, Cin); g (..., B, H, W, Cout), or for
     r > 1 fine (..., B, r*H, r*W, Cout / (r*r)) read phase-major. Returns
-    dW (..., 3, 3, Cin, Cout) and db (..., Cout), f32 sums of the
+    dW (..., k, k, Cin, Cout) and db (..., Cout), f32 sums of the
     products of the bf16 (or f32) inputs."""
     lead = x.shape[:-4]
     xs = x.reshape(-1, *x.shape[-4:])
@@ -52,42 +55,49 @@ def conv_wgrad_plain(x: torch.Tensor, g: torch.Tensor, gscale: float = 1.0,
     dws, dbs = [], []
     for xj, gj in zip(xs, gs):
         gj = _gather(gj, gscale, r)
-        dws.append(_dw_one(xj, gj))
+        dws.append(_dw_one(xj, gj, k))
         dbs.append(gj.float().sum((0, 1, 2)))
     return (torch.stack(dws).reshape(*lead, *dws[0].shape),
             torch.stack(dbs).reshape(*lead, -1))
 
 
+def _kernel_takes(cin: int, cout: int, r: int, k: int) -> bool:
+    if k == 5:
+        return cin == 256 and cout % 16 == 0 and r <= 1
+    return k == 3 and ((cin == 64 and cout % 64 == 0)
+                       or (cin == 256 and cout % 16 == 0 and r <= 1))
+
+
 def conv_wgrad(x: torch.Tensor, g: torch.Tensor, gscale: float = 1.0,
-               r: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
-    """As :func:`conv_wgrad_plain`, with bf16 x and g. On CUDA: Cin = 64
-    with Cout % 64 == 0 (Cout = r*r*64 when gathering), or Cin = 256 with
-    Cout % 16 == 0; leading dims of x and g are stacked jobs, one
-    launch for all."""
+               r: int = 1, k: int = 3) -> tuple[torch.Tensor, torch.Tensor]:
+    """As :func:`conv_wgrad_plain`, with bf16 x and g. On CUDA, k = 3: Cin
+    = 64 with Cout % 64 == 0 (Cout = r*r*64 when gathering), or Cin = 256
+    with Cout % 16 == 0; k = 5: Cin = 256 with Cout % 16 == 0. Leading
+    dims of x and g are stacked jobs, one launch for all."""
     if x.device.type == 'cpu':
-        return conv_wgrad_plain(x, g, gscale, r)
+        return conv_wgrad_plain(x, g, gscale, r, k)
     if x.device.type != 'cuda':
         raise ValueError(f'conv_wgrad: no kernel for device {x.device}')
     lead = tuple(x.shape[:-4])
     bsz, h, w, cin = x.shape[-4:]
     cout = g.shape[-1] * (r * r if r > 1 else 1)
-    if not ((cin == 64 and cout % 64 == 0)
-            or (cin == 256 and cout % 16 == 0 and r <= 1)):
+    if not _kernel_takes(cin, cout, r, k):
         raise ValueError(f'conv_wgrad: no kernel for {cin} -> {cout} '
-                         f'channels (r={r})')
+                         f'channels (r={r}, k={k})')
     dev = x.device
     n_jobs = math.prod(lead)
     g_shape = (*lead, bsz, r * h, r * w, cout // (r * r)) if r > 1 \
         else (*lead, bsz, h, w, cout)
     _build.expect(x, 'x', torch.bfloat16, x.shape, dev)
     _build.expect(g, 'g', torch.bfloat16, g_shape, dev)
-    chunks = cout // (64 if cin == 64 else 16)
+    # blocks per part: output chunks, times the 5 row groups at k = 5
+    chunks = cout // (64 if cin == 64 else 16) * (5 if k == 5 else 1)
     tiles = bsz * -(-h // TH) * -(-w // TW)
     nparts = max(1, min(tiles, TARGET_BLOCKS // (n_jobs * chunks)))
     f32 = dict(dtype=torch.float32, device=dev)
-    ws_w = torch.empty((n_jobs, nparts, 9 * cin * cout), **f32)
+    ws_w = torch.empty((n_jobs, nparts, k * k * cin * cout), **f32)
     ws_b = torch.empty((n_jobs, nparts, cout), **f32)
-    dw = torch.empty((*lead, 3, 3, cin, cout), **f32)
+    dw = torch.empty((*lead, k, k, cin, cout), **f32)
     db = torch.empty((*lead, cout), **f32)
     lib = _build.library()
     with torch.cuda.device(dev):
@@ -95,7 +105,7 @@ def conv_wgrad(x: torch.Tensor, g: torch.Tensor, gscale: float = 1.0,
             x.data_ptr(), g.data_ptr(), ws_w.data_ptr(), ws_b.data_ptr(),
             dw.data_ptr(), db.data_ptr(), n_jobs, bsz * h * w * cin,
             g[(0,) * len(lead)].numel(), bsz, h, w, cin, cout, r,
-            float(gscale), nparts, _build.stream(dev))
+            float(gscale), nparts, k, _build.stream(dev))
     _build.check(err, 'srt_conv_wgrad')
     conv_wgrad.launches += 1
     return dw, db

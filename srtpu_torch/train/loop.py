@@ -51,7 +51,8 @@ class Trainer:
             optimizer_name: str = 'ADAM',
             optimizer_params: list[str] | None = None) -> TrainState:
         """Train ``model`` in place on ``datamodule``'s train datasets on
-        the model's device; returns the final :class:`TrainState`."""
+        the model's device, in train mode (its mode is restored after);
+        returns the final :class:`TrainState`."""
         cfg = self.cfg
         if cfg.monitor or cfg.ckpt_path:
             raise NotImplementedError(
@@ -68,6 +69,15 @@ class Trainer:
                      n_params * 4 / 2 ** 20)
         limit = 1 if cfg.fast_dev_run else cfg.limit_train_batches
         max_epochs = 1 if cfg.fast_dev_run else cfg.max_epochs
+        was_training = model.training
+        model.train()       # srtpu's train=True: batch statistics
+        try:
+            self._epochs(state, train_step, loader, device, limit, max_epochs)
+        finally:
+            model.train(was_training)
+        return state
+
+    def _epochs(self, state, train_step, loader, device, limit, max_epochs):
         for epoch in range(max_epochs):
             loader.set_epoch(epoch)
             t0 = time.time()
@@ -83,11 +93,10 @@ class Trainer:
             loss = float(logs['loss']) if logs else 0.0    # waits for the step
             _logger.info('epoch %d/%d  loss %.4f  %.1f items/s', epoch + 1,
                          max_epochs, loss, items / max(time.time() - t0, 1e-9))
-        return state
 
     def predict(self, model: torch.nn.Module, datamodule) -> list[Path]:
         """Super-resolve every predict image on the model's device: forward
-        the bucket-padded LR, crop the SR to its true size, write
+        the bucket-padded LR in eval mode, crop the SR to its true size, write
         ``<root>/<dataset>/<name>.png`` and, for images of at least
         96 x 96, ``<name>_center.png``. Returns the SR image paths."""
         datamodule.setup('predict')

@@ -16,6 +16,8 @@ def make_train_step(composite_loss, plain: bool = False):
     that step's gradients. Logs are 0-dim tensors on the device, read
     without a host sync: ``{'loss', 'loss/<name>'}``. ``plain`` runs the
     kernels' plain versions (the reference a card run is held against).
+    The step runs the model in the mode it is in: ``Trainer.fit`` puts it
+    in train mode (srtpu's ``train=True``).
     """
     def train_step(state: TrainState, lr_img: torch.Tensor,
                    hr_img: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -33,10 +35,17 @@ def make_train_step(composite_loss, plain: bool = False):
 
 
 def make_predict_step(model: torch.nn.Module):
-    """``lr -> clip(model(lr).float(), 0, 1)`` without autograd
-    (srtpu make_predict_step)."""
+    """``lr -> clip(model(lr).float(), 0, 1)`` without autograd, in eval
+    mode (srtpu make_predict_step runs ``train=False``: batch norm reads
+    its running statistics and leaves them as they are); the model's
+    mode is restored after each call."""
     def predict_step(lr: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode():
-            return model(lr).float().clamp(0.0, 1.0)
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.inference_mode():
+                return model(lr).float().clamp(0.0, 1.0)
+        finally:
+            model.train(was_training)
 
     return predict_step

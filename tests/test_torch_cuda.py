@@ -16,12 +16,21 @@ K5 (RCAB): the forward's out, h1 and r2 within one step, the backward's
 dx within one step and its weight grads within one step (they read the
 bf16 dr2 and dh1, computed from a gate whose f32 pool and MLP sums run in
 another order); over a group, as K1's trunk.
+K4 (SRResNet's BN block): within the per-element limits of
+``bn_block.kernel_limits``: every bf16 output within one step; an f32
+sum within its f32 rounding (2^-20 of the sum of its terms' magnitudes)
+plus what the bf16 values it reads differ by; the backward fed sums that
+make db a real value.
 """
 
 import pytest
 import torch
 
 from srtpu_torch.models import create_model
+from srtpu_torch.ops import (b1_plain, b1_sums, b2_call, b2_plain, b3_call,
+                             b3_plain, bn_block, f1_conv_stats, f1_plain,
+                             f2_norm_act_conv_stats, f2_plain, f3_norm_skip,
+                             f3_plain)
 from srtpu_torch.ops import (conv3x3_bwd, conv3x3_bwd_plain, conv3x3_fwd,
                              conv3x3_plain, conv_wgrad, rcab_bwd,
                              rcab_bwd_plain, rcab_fwd, rcab_fwd_plain,
@@ -269,3 +278,132 @@ def test_rcan_kernel_path_matches_plain(device, scale):
         ref = model(lr, plain=True).float()
     assert got.shape == (2, 20 * scale, 28 * scale, 3)
     assert (got - ref).abs().max().item() <= 2.0 ** -6
+
+
+def _bn_case(gen, device, h, w, batch=2):
+    """Inputs of one BN block at 64 channels: activations, a weight, f32
+    vectors, and the statistics of y1 and y2 as F1 and F2 give them."""
+    f32 = torch.float32
+    u = _u(gen, (batch, h, w, 64), 1.0, device)
+    w1, b1 = _conv(gen, 64, 64, device)
+    w2, b2 = _conv(gen, 64, 64, device)
+    gam = [_u(gen, (64,), 0.5, device, f32) + 1.0 for _ in range(2)]
+    bet = [_u(gen, (64,), 0.3, device, f32) for _ in range(2)]
+    alpha = torch.full((1,), 0.25, device=device)
+    y1, st1 = f1_plain(u, w1, b1, gam[0], bet[0])
+    y2, h1, st2 = f2_plain(y1, st1, alpha, w2, b2, gam[1], bet[1])
+    g = _u(gen, (batch, h, w, 64), 1.0, device)
+    return dict(u=u, w1=w1, b1=b1, w2=w2, b2=b2, gam=gam, bet=bet,
+                alpha=alpha, y1=y1, st1=st1, y2=y2, h1=h1, st2=st2, g=g)
+
+
+def _off_sums(gen, t):
+    """Backward sums (2, 64) at the scale of t's but not t's, so that db
+    = sum dy is a real value."""
+    m = t.shape[0] * t.shape[1] * t.shape[2]
+    rms = t.float().pow(2).mean().sqrt().item()
+    return _u(gen, (2, 64), m ** 0.5 * rms, t.device, torch.float32)
+
+
+def _k4_calls(gen, c):
+    """(kernel, plain, args) of the six K4 functions on one case."""
+    sums2 = _off_sums(gen, c['g'])
+    dz = b2_plain(c['g'], c['y2'], c['st2'], c['gam'][1], sums2, c['y1'],
+                  c['st1'], c['alpha'], c['w2'])[0]
+    sums1 = _off_sums(gen, dz)
+    return {
+        'f1': (f1_conv_stats, f1_plain,
+               (c['u'], c['w1'], c['b1'], c['gam'][0], c['bet'][0])),
+        'f2': (f2_norm_act_conv_stats, f2_plain,
+               (c['y1'], c['st1'], c['alpha'], c['w2'], c['b2'], c['gam'][1],
+                c['bet'][1])),
+        'f3': (f3_norm_skip, f3_plain, (c['y2'], c['st2'], c['u'])),
+        'b1': (b1_sums, b1_plain, (c['g'], c['y2'], c['st2'])),
+        'b2': (b2_call, b2_plain,
+               (c['g'], c['y2'], c['st2'], c['gam'][1], sums2, c['y1'],
+                c['st1'], c['alpha'], c['w2'])),
+        'b3': (b3_call, b3_plain,
+               (dz, c['y1'], c['st1'], c['gam'][0], sums1, c['w1'], c['g'])),
+    }
+
+
+def _flat(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+@pytest.mark.parametrize('h,w', [(1, 1), (7, 16), (9, 33), (40, 17)])
+@pytest.mark.parametrize('fn', ['f1', 'f2', 'f3', 'b1', 'b2', 'b3'])
+def test_k4_kernel_matches_plain(device, fn, h, w):
+    """Each K4 kernel against its plain version on the same inputs, one
+    launch counted, and bit-identical on a second call (no float
+    atomics)."""
+    gen = torch.Generator().manual_seed(h * 100 + w + 17)
+    kernel, plain, args = _k4_calls(gen, _bn_case(gen, device, h, w))[fn]
+    before = kernel.launches
+    got = _flat(kernel(*args))
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ref = _flat(plain(*args))
+    assert len(got) == len(ref)
+    lims = bn_block.kernel_limits(fn, args, ref, got)
+    for g_t, r_t, lim in zip(got, ref, lims):
+        assert g_t.dtype == r_t.dtype and g_t.shape == r_t.shape
+        assert bool(((g_t.float() - r_t.float()).abs() <= lim).all())
+    assert all(torch.equal(a, b) for a, b in zip(got, _flat(kernel(*args))))
+
+
+@pytest.mark.parametrize('h,w', [(1, 1), (6, 16), (9, 33), (40, 17)])
+def test_conv5x5_kernel_matches_plain(device, h, w):
+    """K2 at 5x5, SRResNet's phase-dense 256 -> 16 conv: the forward
+    within one step, the backward's dx within one step and dW, db within
+    1e-4 of their largest magnitude; the backward bit-identical twice."""
+    gen = torch.Generator().manual_seed(h * 100 + w + 19)
+    x = _u(gen, (2, h, w, 256), 1.0, device)
+    wt = _u(gen, (5, 5, 256, 16), (25 * 256) ** -0.5, device)
+    b = _u(gen, (16,), 0.1, device, torch.float32)
+    before = conv3x3_fwd.launches_5x5, conv3x3_fwd.launches
+    got = conv3x3_fwd(x, wt, b)
+    torch.cuda.synchronize()
+    assert (conv3x3_fwd.launches_5x5, conv3x3_fwd.launches) == (
+        before[0] + 1, before[1])
+    _assert_close(got, conv3x3_plain(x, wt, b), 1)
+    g = _u(gen, (2, h, w, 16), 1.0, device)
+    before = conv3x3_bwd.launches_5x5, conv3x3_bwd.launches
+    got = conv3x3_bwd(x, wt, g)
+    assert (conv3x3_bwd.launches_5x5, conv3x3_bwd.launches) == (
+        before[0] + 1, before[1])
+    ref = conv3x3_bwd_plain(x, wt, g)
+    assert got[1].shape == (5, 5, 256, 16)
+    _assert_close(got[0], ref[0], 1)
+    for g_t, r_t in zip(got[1:], ref[1:]):
+        _assert_close(g_t, r_t)
+    assert all(torch.equal(a, b) for a, b in zip(got, conv3x3_bwd(x, wt, g)))
+
+
+@pytest.mark.parametrize('scale', [2, 4, 8])
+@pytest.mark.parametrize('train', [False, True])
+def test_srresnet_kernel_path_matches_plain(device, scale, train):
+    """SRResNet (2 resblocks, 64 features) on the card, kernel path
+    against plain path: eval mode (K2, K3; the BN trunk on running
+    statistics) and train mode (K4 too, batch statistics); x3 raises."""
+    model = create_model('SRResNet', scale_factor=scale, n_feats=64,
+                         n_resblocks=2, dtype=torch.bfloat16, device=device,
+                         generator=torch.Generator().manual_seed(scale))
+    model.train(train)
+    gen = torch.Generator().manual_seed(2)
+    lr = torch.rand((2, 20, 28, 3), generator=gen).to(device)
+    with torch.no_grad():
+        got = model(lr).float()
+        ref = model(lr, plain=True).float()
+    assert got.shape == (2, 20 * scale, 28 * scale, 3)
+    # batch norm rescales a step's difference by the batch deviation
+    assert (got - ref).abs().max().item() <= 2.0 ** -5
+
+
+def test_srresnet_x3_raises_on_cuda(device):
+    model = create_model('SRResNet', scale_factor=3, n_feats=64,
+                         n_resblocks=1, dtype=torch.bfloat16, device=device,
+                         generator=torch.Generator().manual_seed(0)).eval()
+    with pytest.raises(ValueError, match='no kernel'):
+        with torch.inference_mode():
+            model(torch.rand((1, 8, 8, 3), device=device))
