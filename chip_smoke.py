@@ -1,5 +1,5 @@
-"""Drive srtpu_torch's EDSR-baseline x4, RCAN-10x16 x4 and SRResNet x4
-predict and training on one CUDA card.
+"""Drive srtpu_torch's EDSR-baseline x4, RCAN-10x16 x4, SRResNet x4 and
+RDN-B x4 predict and training on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -71,8 +71,25 @@ Phases, each of which raises on failure (nothing is caught):
    the gradients of a kernel-path and a plain-path step against an f32
    step, the planted faults caught there too; five steps' losses,
    ms/step, patches/s, device time by kernel group.
+2e. K6 (RDN's dense-block trunk) against its plain versions at the full
+   B config (16 blocks of 8 layers, G = G0 = 64): the forward (cat and
+   every saved buffer; the predict variant's shared buffer gives the
+   same cat), one block's backward chain (dx, dout, dwf, dbf, db) and
+   its 36 pair weight grads, at the training shape (batch 16, LR 32x32),
+   the predict shape (batch 1, 128x128) and a ragged batch 2 of 67x45,
+   every output beside its tolerance, two calls bit-identical, kernel
+   and plain times;
+9. the RDN predict slice: phase 3's path and images with ``--model RDN``
+   (config B): per image one K6 forward and two K2 (SFE2, GFF2), no other
+   kernel; PNGs at 4x; kernel path against plain path; device time by
+   kernel group of the 512x352 forward;
+10. the RDN fit slice: phase 4 with ``--model RDN`` at full width and
+   depth: per step one K6 forward, 16 chains and 16 pair weight-grad
+   calls, K2 2 + 2 and its 2 weight grads; the loss falling, kernel-path
+   against plain-path gradients and losses, ms/step, patches/s, device
+   time by kernel group.
 The line before the last is a JSON object with, per kernel, its launches
-in the six main-path runs (EDSR, RCAN and SRResNet predict and fit;
+in the eight main-path runs (EDSR, RCAN, SRResNet and RDN predict and fit;
 ``launches`` is their sum), its largest error against its plain version,
 its time (K4's: its kernels' own device time from torch.profiler; the
 others: the wrapper's CUDA-event time) and the plain version's at the
@@ -118,6 +135,10 @@ from srtpu_torch.ops import (_build, b1_plain, b1_sums, b2_call, b2_plain,
                              trunk_bwd, trunk_bwd_plain, trunk_fwd,
                              trunk_plain, upsample_bwd, upsample_bwd_plain,
                              upsample_fwd, upsample_plain)
+from srtpu_torch.ops.layout import w_t
+from srtpu_torch.ops.rdn import (pack, rdb_bwd_chain, rdb_bwd_chain_plain,
+                                 rdb_bwd_dw, rdb_bwd_dw_plain, rdn_fwd,
+                                 rdn_fwd_plain)
 from srtpu_torch.optim import build_optimizer
 from srtpu_torch.train import TrainState, make_train_step
 from srtpu_torch.utils.logging import save_image
@@ -227,6 +248,32 @@ PRE_BN = ('b1', 'b2', 'close_b')
 # the K4 kernels' names (torch.profiler), for their own device time
 K4_KERNELS = ('bn_conv_stats_kernel', 'bn_norm_skip_kernel', 'bn_sums_kernel',
               'bn_bwd_conv_kernel', 'bn_reduce_kernel')
+# RDN-B x4 (srtpu bench.py:115-116, rdn_config='B'): 16 blocks of 8 dense
+# layers at growth G = G0 = 64; the CLI's --rdn_config / --growth0
+RDN_D, RDN_C, RDN_G0 = 16, 8, 64
+RDN_ARGS = ['--rdn_config', 'B', '--growth0', str(RDN_G0)]
+RDN_PAIRS = RDN_C * (RDN_C + 1) // 2
+# per image of an RDN x4 predict: one K6 forward (all 16 blocks), K2 for
+# SFE2 and GFF2; SFE1, GFF1 and the tail are cuDNN / a matmul
+RDN_PREDICT_LAUNCHES = {rdn_fwd: 1, conv3x3_fwd: 2, rdb_bwd_chain: 0,
+                        rdb_bwd_dw: 0, trunk_fwd: 0, rcab_fwd: 0,
+                        upsample_fwd: 0}
+# per RDN train step: K6 forward once, its chain and pair weight grads
+# once per block; K2 each way for SFE2 and GFF2 with their weight grads
+RDN_STEP_LAUNCHES = {rdn_fwd: 1, rdb_bwd_chain: RDN_D, rdb_bwd_dw: RDN_D,
+                     conv3x3_fwd: 2, conv3x3_bwd: 2, conv_wgrad: 2,
+                     trunk_fwd: 0, trunk_bwd: 0, rcab_fwd: 0, rcab_bwd: 0,
+                     upsample_fwd: 0, upsample_bwd: 0}
+# K6 against its plain version on the same inputs. Both round at the same
+# points; a value next to a bf16 rounding boundary lands a step apart and
+# the later layers of its block read it, and the block skips carry it on
+# through 16 blocks: the forward's cat and buffers within four steps of
+# their largest magnitude (K1's trunk), one block's chain dx and dout
+# within two. db sums the f32 dout behind such a value: one step. dwf,
+# dbf and the pair weight grads sum the same bf16 operands in another
+# order: 1e-4 relative.
+K6_STEPS, K6B_STEPS = 4, {'dx': 2, 'dout': 2, 'dwf': 1e-4, 'dbf': 1e-4,
+                          'db': 1}
 # The H100 SXM's published peaks (NVIDIA data sheet), for bound_ms
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 
@@ -960,6 +1007,114 @@ def check_bn_kernels(device) -> dict:
     return stats
 
 
+def rdn_case(gen, device, bsz: int, h: int, w: int) -> tuple:
+    """K6's forward inputs at the B config (x, packed dense weights,
+    biases, fusion weight and bias) at srtpu's init bounds."""
+    bf, f32 = torch.bfloat16, torch.float32
+    c_tot = RDN_G0 * (RDN_C + 1)
+    ws = [_uniform(gen, (RDN_D, 3, 3, RDN_G0 * (i + 1), RDN_G0),
+                   (9 * RDN_G0 * (i + 1)) ** -0.5, device, bf)
+          for i in range(RDN_C)]
+    return (_uniform(gen, (bsz, h, w, RDN_G0), 1.0, device, bf), pack(ws),
+            _uniform(gen, (RDN_D, RDN_C, RDN_G0), 0.05, device, f32),
+            _uniform(gen, (RDN_D, c_tot, RDN_G0), c_tot ** -0.5, device, bf),
+            _uniform(gen, (RDN_D, RDN_G0), c_tot ** -0.5, device, f32))
+
+
+def check_rdn_kernels(device) -> dict:
+    """Phase 2e. K6's forward (saving), one block's chain and its pair
+    weight grads against the plain versions at the training, predict and
+    ragged shapes; two calls bit-identical. Returns K6 / K6b / K6w stats,
+    timed at the training shape (the forward per call of all 16 blocks,
+    the chain and the weight grads per block)."""
+    stats = new_stats(('K6', 'K6b', 'K6w'))
+    c_tot = RDN_G0 * (RDN_C + 1)
+    shapes = ((TRAIN_BATCH, TRAIN_PATCH // SCALE, TRAIN_PATCH // SCALE),
+              (1, 128, 128), (2, 67, 45))
+    for i, (bsz, h, w) in enumerate(shapes):
+        gen = torch.Generator().manual_seed(bsz * 7883 + h * 107 + w)
+        args = rdn_case(gen, device, bsz, h, w)
+        tag = f'D={RDN_D} C={RDN_C} {bsz}x{h}x{w}'
+        got = rdn_fwd(*args, save=True)
+        torch.cuda.synchronize()
+        ref = rdn_fwd_plain(*args, save=True)
+        again = rdn_fwd(*args, save=True)
+        need(all(torch.equal(a, b) for a, b in zip(got, again)),
+             f'K6 fwd {tag}: two calls differ')
+        del again
+        need(torch.equal(rdn_fwd(*args), got[0]),
+             f'K6 fwd {tag}: the shared-buffer (predict) cat differs')
+        err = _check_all(f'K6 rdn fwd (saving) {tag}', ('cat', 'bufs'), got,
+                         ref, [K6_STEPS] * 2)
+        stats['K6']['max_abs_err'] = max(stats['K6']['max_abs_err'], err)
+        px = bsz * h * w
+        fwd_flops = RDN_D * (RDN_PAIRS * conv_flops(px, RDN_G0, RDN_G0)
+                             + 2.0 * px * c_tot * RDN_G0)
+        fms = median_ms(lambda: rdn_fwd(*args, save=True), 5, 3)
+        fpl = median_ms(lambda: rdn_fwd_plain(*args, save=True), 2, 3)
+        nms = median_ms(lambda: rdn_fwd(*args), 5, 3)
+        if i == 0:
+            record(stats['K6'], fms, fpl, fwd_flops, nbytes(args, got))
+        # one block's backward from the plain forward's buffers, the last
+        # block (the chain's first) and the first
+        bufs = ref[1]
+        del got, ref
+        g = _uniform(gen, (bsz, h, w, RDN_G0), 1.0, device, torch.bfloat16)
+        ct = _uniform(gen, (bsz, h, w, RDN_D * RDN_G0), 1.0, device,
+                      torch.bfloat16)
+        wtpk = w_t(args[1]).contiguous()
+        wft = args[3].transpose(1, 2).contiguous()
+        for l in (RDN_D - 1, 0):
+            bargs = (bufs, l, g, ct, wtpk, wft)
+            bgot = rdb_bwd_chain(*bargs)
+            torch.cuda.synchronize()
+            bref = rdb_bwd_chain_plain(*bargs)
+            need(all(torch.equal(a, b) for a, b in
+                     zip(bgot, rdb_bwd_chain(*bargs))),
+                 f'K6 chain {tag} block {l}: two calls differ')
+            err = _check_all(f'K6 rdb_bwd_chain {tag} block {l}', K6B_STEPS,
+                             bgot, bref, list(K6B_STEPS.values()))
+            stats['K6b']['max_abs_err'] = max(stats['K6b']['max_abs_err'],
+                                              err)
+            dw = rdb_bwd_dw(bufs, l, bref[1])
+            torch.cuda.synchronize()
+            dw_ref = rdb_bwd_dw_plain(bufs, l, bref[1])
+            need(torch.equal(dw, rdb_bwd_dw(bufs, l, bref[1])),
+                 f'K6 dW {tag} block {l}: two calls differ')
+            err = _check_all(f'K6 rdb_bwd_dw {tag} block {l}',
+                             (f'dW ({RDN_PAIRS} pairs)',), [dw], [dw_ref],
+                             [1e-4])
+            stats['K6w']['max_abs_err'] = max(stats['K6w']['max_abs_err'],
+                                              err)
+        l = RDN_D - 1
+        bargs = (bufs, l, g, ct, wtpk, wft)
+        cms = median_ms(lambda: rdb_bwd_chain(*bargs), 5, 3)
+        cpl = median_ms(lambda: rdb_bwd_chain_plain(*bargs), 2, 3)
+        dms = median_ms(lambda: rdb_bwd_dw(bufs, l, bref[1]), 5, 3)
+        dpl = median_ms(lambda: rdb_bwd_dw_plain(bufs, l, bref[1]), 2, 3)
+        print(f'K6 {tag}: fwd saving kernel {fms:.4f} ms plain {fpl:.4f} ms; '
+              f'fwd (predict, one buffer) kernel {nms:.4f} ms; per block: '
+              f'chain kernel {cms:.4f} ms plain {cpl:.4f} ms, pair weight '
+              f'grads kernel {dms:.4f} ms plain {dpl:.4f} ms')
+        if i == 0:
+            # the chain: the fusion's backward (dbuf and dwf, two 1x1
+            # products) and the transposed convs of the 36 pairs; its
+            # bytes: the block's buffer, g, ct's slice and the block's
+            # weights in, dx, dout and the f32 grads out
+            bwd_1x1 = 2 * 2.0 * px * c_tot * RDN_G0
+            moved = (nbytes(bufs[l], g, wtpk[l], wft[l], bgot)
+                     + ct.numel() * ct.element_size() // RDN_D)
+            record(stats['K6b'], cms, cpl,
+                   RDN_PAIRS * conv_flops(px, RDN_G0, RDN_G0) + bwd_1x1,
+                   moved)
+            record(stats['K6w'], dms, dpl,
+                   RDN_PAIRS * conv_flops(px, RDN_G0, RDN_G0),
+                   nbytes(bufs[l], bref[1], dw))
+        del bufs
+        torch.cuda.empty_cache()
+    return stats
+
+
 def png_size(path: Path) -> tuple[int, int]:
     """(height, width) from a PNG's IHDR chunk."""
     head = path.read_bytes()[:24]
@@ -1098,6 +1253,16 @@ SRRESNET_PROFILE = (
     ('conv3x3_kernel<256, 16, 6, 16', 'K2 5x5 fwd'),
     ('conv3x3_kernel<16, 64, 6, 16', 'K2 5x5 bwd dx'),
     ('conv3x3_kernel', 'K2 3x3 fwd + bwd dx'))
+RDN_PROFILE = (('rdn_dense_kernel', 'K6 fwd dense layers'),
+               ('rdn_lff_kernel', 'K6 fwd fusion'),
+               ('rdn_copy_in_kernel', 'K6 fwd copy-in'),
+               ('rdn_lff_bwd_kernel', 'K6b fusion bwd'),
+               ('rdn_chain_kernel', 'K6b dx chain'),
+               ('rdn_dw_kernel<1', 'K6b dwf'),
+               ('rdn_dw_kernel<3', 'K6w pair weight grads'),
+               ('rdn_reduce', 'K6 fixed-order reductions'),
+               ('wgrad', 'weight grads (K2)'),
+               ('conv3x3_kernel', 'K2 fwd + bwd dx'))
 OTHER = 'other (cuDNN head/tail, Adam, casts, copies)'
 
 
@@ -1347,7 +1512,8 @@ def main() -> None:
     stats.update(check_bwd_kernels(device))
     stats.update(check_rcab_kernels(device))
     stats.update(check_bn_kernels(device))
-    # the six main-path runs, each with the counters set to 0 before it
+    stats.update(check_rdn_kernels(device))
+    # the eight main-path runs, each with the counters set to 0 before it
     runs = {'edsr_predict': run_slice(device, smi),
             'edsr_fit': run_train(device, smi)}
     runs['rcan_predict'] = run_slice(device, smi, 'RCAN', RCAN_ARGS,
@@ -1359,6 +1525,10 @@ def main() -> None:
     runs['srresnet_fit'] = run_train(device, smi, 'SRResNet', (),
                                      SRRESNET_STEP_LAUNCHES, SRRESNET_PROFILE,
                                      _grads_vs_f32)
+    runs['rdn_predict'] = run_slice(device, smi, 'RDN', RDN_ARGS,
+                                    RDN_PREDICT_LAUNCHES, RDN_PROFILE)
+    runs['rdn_fit'] = run_train(device, smi, 'RDN', RDN_ARGS,
+                                RDN_STEP_LAUNCHES, RDN_PROFILE)
     rep = 'srtpu/ops/cs_conv.py:'
     bn = 'srtpu/ops/bn_resblock_cs.py:'
     meta = [('K1', 'K1 trunk_fwd (fused resblock)', trunk_fwd, 'trunk.cu',
@@ -1394,7 +1564,13 @@ def main() -> None:
             ('B2', 'K4 b2_call (BN2 bwd in the load, convT, PReLU bwd, BN1 '
              'sums)', b2_call, 'bn_block.cu', bn + '360'),
             ('B3', 'K4 b3_call (BN1 bwd in the load, convT, skip)', b3_call,
-             'bn_block.cu', bn + '387')]
+             'bn_block.cu', bn + '387'),
+            ('K6', 'K6 rdn_fwd (16 dense blocks: 8 dense layers + the 1x1 '
+             'fusion each; saving)', rdn_fwd, 'rdn.cu', rep + '2174'),
+            ('K6b', 'K6 rdb_bwd_chain (one block: fusion bwd, dwf, dx chain, '
+             'db)', rdb_bwd_chain, 'rdn.cu', rep + '2265'),
+            ('K6w', 'K6 rdb_bwd_dw (one block: 36 pair weight grads)',
+             rdb_bwd_dw, 'rdn.cu', rep + '2340')]
     rows = []
     for kid, name, fn, src, r in meta:
         st = stats[kid]

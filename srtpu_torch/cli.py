@@ -18,8 +18,10 @@ weights to ``<default_root_dir>/final_weights.pt``, which ``predict
 --weights`` reads (as does ``python -m srtpu_torch.convert``'s output).
 ``--model RCAN`` adds ``--n_resgroups`` (default 10) and
 ``--reduction`` (default 16), srtpu's RCAN keys; ``--model SRResNet``
-takes ``--n_feats``, ``--n_resblocks`` and ``--scale_factor``; a model
-ignores the flags it does not declare. ``fit`` trains in train mode
+takes ``--n_feats``, ``--n_resblocks`` and ``--scale_factor``; ``--model
+RDN`` takes ``--rdn_config`` (default B: 16 blocks of 8 layers, growth
+64) and ``--growth0`` (default 64), srtpu's RDN keys; a model ignores the
+flags it does not declare. ``fit`` trains in train mode
 (SRResNet's batch norm on batch statistics, updating its running ones)
 and ``predict`` runs eval mode; ``final_weights.pt`` holds the running
 statistics, so ``predict --weights`` reads what ``fit`` left. ``fit``
@@ -27,8 +29,8 @@ runs no validation and writes no checkpoints yet (ROADMAP.md queue 1,
 items 4 and 7). ``--device cuda`` without a card raises: there is no
 fallback to the CPU. On the card ``--precision 32`` raises (the kernels
 take bf16), and so does x3 for EDSR and SRResNet, whose x3 tails need K2
-shapes the port lacks (ROADMAP.md §3, F4); RCAN runs x3 on the card,
-since its tail is cuDNN (each model's ``CARD_SCALES``).
+shapes the port lacks (ROADMAP.md §3, F4); RCAN and RDN run x3 on the
+card, since their tails are cuDNN (each model's ``CARD_SCALES``).
 """
 
 from __future__ import annotations
@@ -54,6 +56,8 @@ def _model_args(p: argparse.ArgumentParser, seed: int) -> None:
     p.add_argument('--n_resblocks', type=int, default=16)
     p.add_argument('--n_resgroups', type=int, default=10)
     p.add_argument('--reduction', type=int, default=16)
+    p.add_argument('--rdn_config', default='B')
+    p.add_argument('--growth0', type=int, default=64)
     p.add_argument('--datasets_dir', default='datasets')
     p.add_argument('--default_root_dir', default='.')
     p.add_argument('--precision', choices=('bf16', '32'), default='bf16')
@@ -105,7 +109,9 @@ def build_model(args, device: torch.device) -> torch.nn.Module:
     model = create_model(args.model, scale_factor=args.scale_factor,
                          n_feats=args.n_feats, n_resblocks=args.n_resblocks,
                          n_resgroups=args.n_resgroups,
-                         reduction=args.reduction, dtype=dtype, device=device,
+                         reduction=args.reduction,
+                         rdn_config=args.rdn_config, growth0=args.growth0,
+                         dtype=dtype, device=device,
                          generator=torch.Generator().manual_seed(args.seed))
     weights = getattr(args, 'weights', None)
     if weights:

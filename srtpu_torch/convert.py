@@ -1,4 +1,5 @@
-"""JAX EDSR, RCAN and SRResNet parameters -> an srtpu_torch state dict.
+"""JAX EDSR, RCAN, SRResNet and RDN parameters -> an srtpu_torch state
+dict.
 
 Reads either EDSR tree srtpu stores:
 
@@ -42,6 +43,20 @@ and either SRResNet tree, which also needs its ``batch_stats`` collection
   ``UpscaleBlock_0/{Conv2d_{j}, PReLU_{j}}``, ``Conv2d_0`` (the 9x9 final
   conv) and ``batch_stats/{ResBlock_{i}/BatchNorm_{0,1}, BasicBlock_1/
   BatchNorm_0}/{mean, var}``.
+
+and either RDN tree (configs the port runs: G = G0, a 16-multiple):
+
+* ``use_pallas='cs'``: ``Conv2d_0`` (SFE1), ``sfe2_kernel`` (CS),
+  ``sfe2_bias``, ``dense{i}_kernel`` (D, 3G, 3 (i + 1) G0) CS stacks and
+  ``dense{i}_bias`` (D, G), ``lff_kernel`` (D, G0, c_tot) and
+  ``lff_bias``, ``gff1_kernel`` (G0, D G0) and ``gff1_bias``,
+  ``gff2_kernel`` (CS) and ``gff2_bias``, then the tail ``Conv2d_1``,
+  ``Conv2d_2`` (and ``Conv2d_3`` at x4), the last being the final conv;
+* ``use_pallas=False``: ``Conv2d_0`` (SFE1), ``Conv2d_1`` (SFE2),
+  ``_RDB_{l}/Conv2d_{i}`` (the dense layers, HWIO) and
+  ``_RDB_{l}/Conv2d_{C}`` (the 1x1 fusion), ``Conv2d_2`` (GFF1, 1x1),
+  ``Conv2d_3`` (GFF2) and the tail from ``Conv2d_4``
+  (tests/test_ops_cs.py:472-493 maps one tree onto the other).
 
 A tree is nested dicts of numpy arrays, with or without the top-level
 ``params`` key (an SRResNet tree with it, beside ``batch_stats``). Any
@@ -198,11 +213,63 @@ def _srresnet_from_jax(p: dict, stats: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
+def _rdn_tail(sd: dict, convs: list) -> None:
+    """The tail's convs in order: the upscale stages, then the final."""
+    for j, conv in enumerate(convs[:-1]):
+        _conv(sd, f'upscale.convs.{j}', conv)
+    _conv(sd, 'final', convs[-1])
+
+
+def _rdn_from_jax(p: dict) -> dict[str, torch.Tensor]:
+    sd: dict[str, torch.Tensor] = {}
+    _conv(sd, 'sfe1', p['Conv2d_0'])
+    g0 = sd['sfe1.weight'].shape[-1]
+    if 'sfe2_kernel' in p:
+        for k in ('sfe2', 'gff2'):
+            sd[f'{k}_weight'] = w_hwio_from_cs(_t(p[f'{k}_kernel'])[None], g0,
+                                               g0)[0].contiguous()
+            sd[f'{k}_bias'] = _t(p[f'{k}_bias'])
+        i = 0
+        while f'dense{i}_kernel' in p:
+            w = _t(p[f'dense{i}_kernel'])
+            sd[f'dense{i}_weight'] = w_hwio_from_cs(
+                w, w.shape[2] // 3, w.shape[1] // 3).contiguous()
+            sd[f'dense{i}_bias'] = _t(p[f'dense{i}_bias'])
+            i += 1
+        sd['lff_weight'] = _t(p['lff_kernel']).transpose(1, 2).contiguous()
+        sd['lff_bias'] = _t(p['lff_bias'])
+        sd['gff1_weight'] = _t(p['gff1_kernel']).t().contiguous()
+        sd['gff1_bias'] = _t(p['gff1_bias'])
+        _rdn_tail(sd, _seq(p, 'Conv2d_')[1:])
+        return sd
+    blocks = _seq(p, '_RDB_')
+    layers = [_seq(blk, 'Conv2d_') for blk in blocks]
+    n = len(layers[0]) - 1            # dense layers; the last is the fusion
+    for i in range(n):
+        sd[f'dense{i}_weight'] = torch.stack([_t(ly[i]['kernel'])
+                                              for ly in layers])
+        sd[f'dense{i}_bias'] = torch.stack([_t(ly[i]['bias'])
+                                            for ly in layers])
+    sd['lff_weight'] = torch.stack([_t(ly[n]['kernel'])[0, 0]
+                                    for ly in layers])
+    sd['lff_bias'] = torch.stack([_t(ly[n]['bias']) for ly in layers])
+    convs = _seq(p, 'Conv2d_')
+    for k, conv in (('sfe2', convs[1]), ('gff2', convs[3])):
+        sd[f'{k}_weight'], sd[f'{k}_bias'] = _t(conv['kernel']), \
+            _t(conv['bias'])
+    sd['gff1_weight'] = _t(convs[2]['kernel'])[0, 0]
+    sd['gff1_bias'] = _t(convs[2]['bias'])
+    _rdn_tail(sd, convs[4:])
+    return sd
+
+
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
-    """State dict of :class:`srtpu_torch.models.EDSR`, ``RCAN`` or
-    ``SRResNet`` from a JAX tree of that model (an SRResNet tree with its
-    ``batch_stats``), dispatched on the tree's keys."""
+    """State dict of :class:`srtpu_torch.models.EDSR`, ``RCAN``,
+    ``SRResNet`` or ``RDN`` from a JAX tree of that model (an SRResNet
+    tree with its ``batch_stats``), dispatched on the tree's keys."""
     p = tree.get('params', tree)
+    if 'sfe2_kernel' in p or '_RDB_0' in p:
+        return _rdn_from_jax(p)
     if 'CSResidualGroup_0' in p or 'ResidualGroup_0' in p:
         return _rcan_from_jax(p)
     if 'BasicBlock_0' in p:

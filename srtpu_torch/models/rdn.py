@@ -1,0 +1,121 @@
+"""RDN: residual dense network (srtpu/models/rdn.py, use_pallas='cs').
+
+SFE1 (a 3x3 conv 3 -> G0, cuDNN here as XLA in srtpu), SFE2 (K2), the K6
+trunk of D residual dense blocks (``ops.rdn_trunk``: C dense 3x3 layers
+growing a concat buffer, a 1x1 local fusion and a skip per block, the D
+outputs concatenated), GFF1 (a 1x1 conv D G0 -> G0: one matmul, as srtpu
+leaves it to XLA), GFF2 (K2) plus SFE1's output, then srtpu's XLA tail:
+``UpscaleBlock(scale, G)`` and a final 3x3 conv (cuDNN here). No mean
+shift. The flagship is RDN-B x4: D = 16 blocks of C = 8 layers at G =
+G0 = 64, bf16 compute on f32 parameters.
+
+The trunk always runs K6. srtpu picks its trunk with a module global
+(``cs_conv._RDN_FWD``; K9's per-block ``rdn_trunk_cs2`` is still to
+port, ROADMAP.md §2) and falls back to XLA convs whenever the TPU's VMEM
+plan fails (``cs_plan_s(..., 1024, 1088)``: every predict size above
+about 32x32 LR). That limit is VMEM, not math: the same stored
+parameters give the same function, and on the card K6 runs at every
+size. Configs srtpu's ``cs_ok`` gate refuses (config A, whose G = 32
+differs from G0; widths that are not 16-multiples, or past 64 not
+64-multiples) take srtpu's per-block XLA path and another parameter
+tree; the port does not have it yet and raises (ROADMAP.md item 12).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ..ops import conv3x3, rdn_trunk
+from .common import Conv2d, UpscaleBlock, uniform_param
+
+RDN_CONFIGS = {
+    'A': (20, 6, 32),
+    'B': (16, 8, 64),
+}
+
+
+def cs_ok(n_layers: int, growth: int, growth0: int) -> bool:
+    """srtpu's gate of the CS trunk (rdn.py:71-74): uniform growth, a
+    16-multiple width, and every dense input width up to 64 or a
+    64-multiple."""
+    return (growth == growth0 and growth0 % 16 == 0
+            and all(growth0 * (i + 1) <= 64 or growth0 * (i + 1) % 64 == 0
+                    for i in range(n_layers + 1)))
+
+
+class RDN(nn.Module):
+    """NHWC f32 images in [0, 1] -> NHWC SR images in ``dtype`` (the input's
+    dtype when None). Parameters (srtpu's init bounds, rdn.py:115-132):
+    sfe1 (Conv2d), sfe2_weight (3, 3, G0, G0) and sfe2_bias;
+    dense{i}_weight (D, 3, 3, (i + 1) G0, G) and dense{i}_bias (D, G);
+    lff_weight (D, c_tot, G0) and lff_bias (D, G0); gff1_weight (D G0,
+    G0) and gff1_bias; gff2_weight (3, 3, G0, G0) and gff2_bias;
+    upscale (UpscaleBlock) and final (Conv2d). ``device`` places them;
+    ``generator`` (a CPU ``torch.Generator``) draws them."""
+
+    # Scales the card runs: the tail is cuDNN, so every RDN scale.
+    CARD_SCALES = (2, 3, 4)
+
+    def __init__(self, scale_factor: int = 4, channels: int = 3,
+                 rdn_config: str = 'B', growth0: int = 64,
+                 dtype: torch.dtype | None = None, *, device=None,
+                 generator: torch.Generator):
+        super().__init__()
+        if scale_factor not in self.CARD_SCALES:
+            raise ValueError('RDN scale must be 2, 3 or 4.')
+        d, c, g = RDN_CONFIGS[rdn_config]
+        if not cs_ok(c, g, growth0):
+            raise NotImplementedError(
+                f'RDN config {rdn_config!r} at growth0={growth0} runs '
+                f"srtpu's per-block XLA path, which is not ported to "
+                f'srtpu_torch yet; see ROADMAP.md item 12')
+        self.scale_factor = scale_factor
+        self.channels = channels
+        self.dtype = dtype
+        self.n_blocks, self.n_layers = d, c
+        g0 = growth0
+        c_tot = g0 * (c + 1)
+
+        def u(name, shape, bound):
+            self.register_parameter(name, uniform_param(shape, bound, device,
+                                                        generator))
+
+        self.sfe1 = Conv2d(channels, g0, 3, device=device,
+                           generator=generator)
+        u('sfe2_weight', (3, 3, g0, g0), 1 / math.sqrt(9 * g0))
+        u('sfe2_bias', (g0,), 1 / math.sqrt(9 * g0))
+        for i in range(c):
+            cin = g0 + i * g
+            u(f'dense{i}_weight', (d, 3, 3, cin, g), 1 / math.sqrt(9 * cin))
+            u(f'dense{i}_bias', (d, g), 1 / math.sqrt(9 * cin))
+        u('lff_weight', (d, c_tot, g0), 1 / math.sqrt(c_tot))
+        u('lff_bias', (d, g0), 1 / math.sqrt(c_tot))
+        u('gff1_weight', (d * g0, g0), 1 / math.sqrt(d * g0))
+        u('gff1_bias', (g0,), 1 / math.sqrt(d * g0))
+        u('gff2_weight', (3, 3, g0, g0), 1 / math.sqrt(9 * g0))
+        u('gff2_bias', (g0,), 1 / math.sqrt(9 * g0))
+        self.upscale = UpscaleBlock(scale_factor, g, device=device,
+                                    generator=generator)
+        self.final = Conv2d(g, channels, 3, device=device,
+                            generator=generator)
+
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """``plain=True`` runs every kernel's plain PyTorch version instead
+        (the reference the kernels are held against on the card)."""
+        dtype = self.dtype or x.dtype
+        # cuDNN may hand SFE1's output back in NCHW memory (a permuted
+        # view); the kernels read dense NHWC
+        f1 = self.sfe1(x, dtype).contiguous()
+        y = conv3x3(f1, self.sfe2_weight, self.sfe2_bias, plain)
+        ws = [getattr(self, f'dense{i}_weight') for i in range(self.n_layers)]
+        bs = [getattr(self, f'dense{i}_bias') for i in range(self.n_layers)]
+        cat = rdn_trunk(y, ws, bs, self.lff_weight, self.lff_bias, plain)
+        # GFF1 in the compute dtype, then its bias (srtpu's einsum + add)
+        y = torch.matmul(cat, self.gff1_weight.to(dtype)) \
+            + self.gff1_bias.to(dtype)
+        y = conv3x3(y.contiguous(), self.gff2_weight, self.gff2_bias,
+                    plain) + f1
+        return self.final(self.upscale(y, dtype), dtype)

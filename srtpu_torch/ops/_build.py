@@ -43,6 +43,9 @@ SIGNATURES = {
     'srt_bn_bwd_conv': [_P] * 15 + [_I] * 3 + [_P],
     'srt_rcab_fwd': [_P] * 15 + [_I] * 5 + [_P],
     'srt_rcab_bwd': [_P] * 19 + [_I] * 5 + [_P],
+    'srt_rdn_fwd': [_P] * 7 + [_I] * 6 + [_P],
+    'srt_rdb_bwd_chain': [_P] * 3 + [_I] * 2 + [_P] * 10 + [_I] * 5 + [_P],
+    'srt_rdb_bwd_dw': [_P] * 4 + [_I] * 5 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

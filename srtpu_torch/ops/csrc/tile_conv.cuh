@@ -77,13 +77,15 @@ __device__ __forceinline__ uint4 scale8(uint4 u, float scale) {
 // Copy the (rows x wx) NHWC window of image b whose top-left pixel is
 // (y0, x0) into dst as npix flattened pixels of stride CIN + 16. Pixels
 // outside the image and the slack past rows * wx are zero (SAME padding).
-// scale != 1 stores bf16(scale * x) instead of x.
+// scale != 1 stores bf16(scale * x) instead of x. ps is x's pixel stride
+// in elements: CIN for a tensor of CIN channels, more for a CIN-channel
+// slice of a wider one (RDN's concat buffer).
 template <int CIN>
 __device__ __forceinline__ void load_tile(bf16* __restrict__ dst,
                                           const bf16* __restrict__ x, int b,
                                           int H, int W, int y0, int x0,
                                           int rows, int wx, int npix,
-                                          float scale = 1.0f) {
+                                          float scale = 1.0f, int ps = CIN) {
   constexpr int PS = CIN + 16;
   constexpr int VEC = CIN / 8;  // 16-byte vectors per pixel
   const int total = npix * VEC;
@@ -94,7 +96,7 @@ __device__ __forceinline__ void load_tile(bf16* __restrict__ dst,
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (ly < rows && gy >= 0 && gy < H && gx >= 0 && gx < W) {
       val = *reinterpret_cast<const uint4*>(
-          x + (((size_t)b * H + gy) * W + gx) * CIN + v * 8);
+          x + (((size_t)b * H + gy) * W + gx) * ps + v * 8);
       if (scale != 1.0f) val = scale8(val, scale);
     }
     *reinterpret_cast<uint4*>(dst + (size_t)p * PS + v * 8) = val;

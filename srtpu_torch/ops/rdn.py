@@ -1,0 +1,361 @@
+"""K6: RDN's residual dense block trunk, forward and backward.
+
+Replaces ``srtpu/ops/cs_conv.py:rdn_all_fwd`` (body
+``_rdn_all_fwd_kernel``), ``rdb_bwd_chain_all``
+(``_rdb_bwd_chain_kernel_sp``) and ``rdb_bwd_dw_all``
+(``_rdb_bwd_dw_kernel_sp``), behind ``rdn_trunk_cat_cs``. The kernels are
+``csrc/rdn.cu``, whose head note says what bounds them on the H100 and
+how the design replaces the TPU kernels' VMEM-resident concat buffer.
+:func:`rdn_fwd`, :func:`rdb_bwd_chain` and :func:`rdb_bwd_dw` launch the
+kernels for CUDA tensors and take the plain versions only for CPU
+tensors; :func:`rdn_trunk` is the differentiable op (:class:`RDNTrunkFn`).
+
+A trunk is D blocks of C dense layers at growth G = G0. Layer i of a
+block reads the concat of the block input and layers 0..i-1, (i + 1) G0
+channels, and appends h_i = relu(conv3x3 + b_i); a 1x1 local fusion of
+all c_tot = (C + 1) G0 channels, its bias and the block input give the
+block output. The D outputs come back concatenated, ``cat`` (B, H, W,
+D G0), the input of RDN's global fusion.
+
+Shapes (the port's layout, NHWC activations):
+  x (B, H, W, G0); the dense weights packed chunk-major, wpk (D,
+  n_pairs, 3, 3, G0, G0), pair i (i + 1) / 2 + j being layer i's HWIO
+  sub-kernel on input chunk j (:func:`pack`, srtpu ``w_rdn_chunk_major``);
+  b (D, C, G0) f32; the fusion wf (D, c_tot, G0), bf (D, G0) f32; the
+  saved concat buffers bufs (D, B, H, W, c_tot). The backward takes the
+  pairs' transposed kernels wtpk = ``w_t(wpk)`` (srtpu
+  ``w_rdn_chunks_T``) and wft (D, G0, c_tot). Activations and conv
+  weights in the compute dtype (bf16 on the card), sums in f32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .conv import conv_f32
+from .layout import w_t
+from .wgrad import conv_wgrad_plain
+
+G = 64                  # the kernels' growth: one 64-channel chunk
+CONV_TH, CONV_TW = 7, 16  # the dense layers' and the chain's pixel tile
+DW_TH, DW_TW = 8, 16    # the weight-grad kernel's pixel tile
+FUSE_PIX = 64           # pixels per block of the 1x1 fusion kernels
+TARGET_BLOCKS = 264     # two blocks per SM of the H100's 132
+
+
+def n_pairs(n_layers: int) -> int:
+    """(layer, input chunk) pairs of a block: C (C + 1) / 2."""
+    return n_layers * (n_layers + 1) // 2
+
+
+def pack(ws) -> torch.Tensor:
+    """Per-layer HWIO stacks ws[i] (D, 3, 3, (i + 1) G0, G0) -> (D,
+    n_pairs, 3, 3, G0, G0), chunk-major: pair i (i + 1) / 2 + j holds
+    layer i's input channels [j G0, (j + 1) G0)."""
+    parts = []
+    for i, w in enumerate(ws):
+        d, kh, kw, cin, g = w.shape
+        parts.append(w.reshape(d, kh, kw, i + 1, cin // (i + 1), g)
+                     .permute(0, 3, 1, 2, 4, 5))
+    return torch.cat(parts, 1).contiguous()
+
+
+def unpack(wpk: torch.Tensor, n_layers: int) -> tuple:
+    """Inverse of :func:`pack` (also the dW pairs' layout): (D, n_pairs,
+    3, 3, G0, G) -> per-layer (D, 3, 3, (i + 1) G0, G)."""
+    out, p = [], 0
+    for i in range(n_layers):
+        v = wpk[:, p:p + i + 1]
+        d, n, kh, kw, g0, g = v.shape
+        out.append(v.permute(0, 2, 3, 1, 4, 5).reshape(d, kh, kw, n * g0, g))
+        p += i + 1
+    return tuple(out)
+
+
+def _layer_t(wtpk_l: torch.Tensor, i: int) -> torch.Tensor:
+    """Layer i's transposed kernel from one block's wtpk (n_pairs, 3, 3,
+    G, G0): (3, 3, G, (i + 1) G0), so that conv(dout_i, it) is the
+    gradient of layer i's conv w.r.t. chunks 0..i."""
+    p = n_pairs(i)
+    return wtpk_l[p:p + i + 1].permute(1, 2, 3, 0, 4).reshape(
+        3, 3, wtpk_l.shape[3], -1)
+
+
+def rdn_fwd_plain(x, wpk, b, wf, bf, save: bool = False):
+    """Plain version, rounding where ``_rdn_all_fwd_kernel`` does: each
+    dense layer sums its input chunks in f32, adds the f32 bias, applies
+    ReLU and rounds h to x's dtype into the block's buffer; the fusion
+    takes wf against the buffer in f32 plus bf, and out = x.dtype(f32(x)
+    + fused). Returns cat (B, H, W, D G0) and, with ``save``, the buffer
+    stack (D, B, H, W, c_tot) (without it one buffer serves every
+    block)."""
+    d, n_layers, g0 = b.shape
+    ws = unpack(wpk, n_layers)
+    bsz, h, w, _ = x.shape
+    bufs = x.new_empty((d if save else 1, bsz, h, w, wf.shape[1]))
+    cat = x.new_empty((bsz, h, w, d * g0))
+    xrun = x
+    for l in range(d):
+        buf = bufs[l if save else 0]
+        buf[..., :g0] = xrun
+        for i in range(n_layers):
+            lo = g0 * (i + 1)
+            buf[..., lo:lo + g0] = conv_f32(buf[..., :lo], ws[i][l],
+                                            b[l, i]).clamp_min(0.0)
+        fused = buf.float() @ wf[l].float() + bf[l].float()
+        xrun = (xrun.float() + fused).to(x.dtype)
+        cat[..., l * g0:(l + 1) * g0] = xrun
+    return (cat, bufs) if save else cat
+
+
+def rdb_bwd_chain_plain(bufs, l: int, g_run, ct, wtpk, wft):
+    """Plain backward chain of block ``l``, rounding where
+    ``_rdb_bwd_chain_kernel_sp`` does: gf = f32(g_run) + f32(ct's block
+    slice), gc = gf in the buffer's dtype; dwf = buf^T gc, dbf = sum gf;
+    dbuf = gc wf^T in f32; then per layer in reverse dout = (h > 0 ?
+    dbuf_i : 0) on the stored h, db_i = sum dout in f32, doutb = dout
+    rounded (saved), dbuf_0..i += convT(doutb); dx = bf16(dbuf_0 + gf).
+    Returns dx (B, H, W, G0), dout (B, H, W, C G0), and the f32 dwf
+    (c_tot, G0), dbf (G0,), db (C, G0)."""
+    buf = bufs[l]
+    dt = buf.dtype
+    g0 = g_run.shape[-1]
+    n_layers = buf.shape[-1] // g0 - 1
+    gf = g_run.float() + ct[..., l * g0:(l + 1) * g0].float()
+    gc = gf.to(dt)
+    dwf = torch.einsum('bhwc,bhwo->co', buf.float(), gc.float())
+    dbuf = gc.float() @ wft[l].float()
+    dout = buf.new_empty((*g_run.shape[:3], n_layers * g0))
+    db = gf.new_empty((n_layers, g0))
+    for i in reversed(range(n_layers)):
+        lo = g0 * (i + 1)
+        d_i = torch.where(buf[..., lo:lo + g0].float() > 0,
+                          dbuf[..., lo:lo + g0], 0.0)
+        db[i] = d_i.sum((0, 1, 2))
+        doutb = d_i.to(dt)
+        dout[..., g0 * i:g0 * (i + 1)] = doutb
+        dbuf[..., :lo] += conv_f32(doutb, _layer_t(wtpk[l], i))
+    dx = (dbuf[..., :g0] + gf).to(dt)
+    return dx, dout, dwf, gf.sum((0, 1, 2)), db
+
+
+def rdb_bwd_dw_plain(bufs, l: int, dout):
+    """Plain per-(layer, chunk) 3x3 weight grads of block ``l``
+    (``_rdb_bwd_dw_kernel_sp``): layer i's grad on chunk j sums the
+    bf16 doutb_i against chunk j of the bf16 buffer in f32. Returns
+    (n_pairs, 3, 3, G0, G0) f32 in :func:`pack`'s pair order."""
+    buf = bufs[l]
+    g0 = buf.shape[-1] - dout.shape[-1]
+    out = []
+    for i in range(dout.shape[-1] // g0):
+        dw = conv_wgrad_plain(buf[..., :g0 * (i + 1)],
+                              dout[..., g0 * i:g0 * (i + 1)])[0]
+        out.append(dw.reshape(3, 3, i + 1, g0, -1).permute(2, 0, 1, 3, 4))
+    return torch.cat(out)
+
+
+def _check(name: str, t: torch.Tensor) -> None:
+    if t.device.type != 'cuda':
+        raise ValueError(f'{name}: no kernel for device {t.device}')
+    if t.shape[-1] != G:
+        raise ValueError(f'{name}: no kernel for G0={t.shape[-1]}')
+
+
+def rdn_fwd(x, wpk, b, wf, bf, save: bool = False):
+    """As :func:`rdn_fwd_plain`. On CUDA: G0 = G = 64, bf16 activations
+    and weights; one call is D (C + 1) launches plus one copy of x into
+    the first buffer (without ``save`` the blocks share one buffer, the
+    fusion writing the next block's input in place)."""
+    if x.device.type == 'cpu':
+        return rdn_fwd_plain(x, wpk, b, wf, bf, save)
+    _check('rdn_fwd', x)
+    bsz, h, w, _ = x.shape
+    d, n_layers, _ = b.shape
+    c_tot = G * (n_layers + 1)
+    dev = x.device
+    bf16 = torch.bfloat16
+    _build.expect(x, 'x', bf16, (bsz, h, w, G), dev)
+    _build.expect(wpk, 'wpk', bf16, (d, n_pairs(n_layers), 3, 3, G, G), dev)
+    _build.expect(b, 'b', torch.float32, (d, n_layers, G), dev)
+    _build.expect(wf, 'wf', bf16, (d, c_tot, G), dev)
+    _build.expect(bf, 'bf', torch.float32, (d, G), dev)
+    bufs = torch.empty((d if save else 1, bsz, h, w, c_tot), dtype=bf16,
+                       device=dev)
+    cat = torch.empty((bsz, h, w, d * G), dtype=bf16, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.library().srt_rdn_fwd(
+            x.data_ptr(), wpk.data_ptr(), b.data_ptr(), wf.data_ptr(),
+            bf.data_ptr(), bufs.data_ptr(), cat.data_ptr(), int(save), bsz,
+            h, w, d, n_layers, _build.stream(dev))
+    _build.check(err, 'srt_rdn_fwd')
+    rdn_fwd.launches += 1
+    return (cat, bufs) if save else cat
+
+
+def _tiles(bsz: int, h: int, w: int, th: int, tw: int) -> int:
+    return bsz * -(-h // th) * -(-w // tw)
+
+
+def _expect_bufs(bufs, l: int, dev):
+    if bufs.dim() != 5 or not 0 <= l < bufs.shape[0]:
+        raise ValueError(f'rdb_bwd: block {l} of bufs {tuple(bufs.shape)}')
+    c_tot = bufs.shape[-1]
+    if c_tot % G or c_tot < 2 * G:
+        raise ValueError(f'rdb_bwd: no kernel for c_tot={c_tot}')
+    _build.expect(bufs, 'bufs', torch.bfloat16, bufs.shape, dev)
+    return c_tot // G - 1
+
+
+def rdb_bwd_chain(bufs, l: int, g_run, ct, wtpk, wft):
+    """As :func:`rdb_bwd_chain_plain`. On CUDA: G0 = 64, bf16 buffers,
+    cotangents and weights; one call is C + 5 launches (the fusion's
+    backward, its weight grad and a reduction, one dx-chain step per
+    layer, the bias-grad reductions)."""
+    if g_run.device.type == 'cpu':
+        return rdb_bwd_chain_plain(bufs, l, g_run, ct, wtpk, wft)
+    _check('rdb_bwd_chain', g_run)
+    dev = g_run.device
+    n_layers = _expect_bufs(bufs, l, dev)
+    d, bsz, h, w, c_tot = bufs.shape
+    bf16 = torch.bfloat16
+    _build.expect(g_run, 'g_run', bf16, (bsz, h, w, G), dev)
+    _build.expect(ct, 'ct', bf16, (bsz, h, w, d * G), dev)
+    _build.expect(wtpk, 'wtpk', bf16, (d, n_pairs(n_layers), 3, 3, G, G),
+                  dev)
+    _build.expect(wft, 'wft', bf16, (d, G, c_tot), dev)
+    jobs = c_tot // G
+    nparts = max(1, min(_tiles(bsz, h, w, DW_TH, DW_TW),
+                        TARGET_BLOCKS // jobs))
+    f32 = dict(dtype=torch.float32, device=dev)
+    part = torch.empty(
+        (-(-bsz * h * w // FUSE_PIX)
+         + n_layers * _tiles(bsz, h, w, CONV_TH, CONV_TW)) * G
+        + jobs * nparts * G * G, **f32)
+    dbuf = torch.empty((bsz, h, w, c_tot), **f32)
+    gc = torch.empty_like(g_run)
+    dx = torch.empty_like(g_run)
+    dout = torch.empty((bsz, h, w, n_layers * G), dtype=bf16, device=dev)
+    dwf = torch.empty((c_tot, G), **f32)
+    dbf = torch.empty((G,), **f32)
+    db = torch.empty((n_layers, G), **f32)
+    with torch.cuda.device(dev):
+        err = _build.library().srt_rdb_bwd_chain(
+            bufs[l].data_ptr(), g_run.data_ptr(), ct.data_ptr(), l, d,
+            wtpk[l].data_ptr(), wft[l].data_ptr(), dbuf.data_ptr(),
+            gc.data_ptr(), part.data_ptr(), dout.data_ptr(), dx.data_ptr(),
+            dwf.data_ptr(), dbf.data_ptr(), db.data_ptr(), bsz, h, w,
+            n_layers, nparts, _build.stream(dev))
+    _build.check(err, 'srt_rdb_bwd_chain')
+    rdb_bwd_chain.launches += 1
+    return dx, dout, dwf, dbf, db
+
+
+def rdb_bwd_dw(bufs, l: int, dout):
+    """As :func:`rdb_bwd_dw_plain`. On CUDA: G0 = 64, bf16; one call is
+    two launches (the n_pairs weight grads as per-block partials, then a
+    fixed-order reduction)."""
+    if dout.device.type == 'cpu':
+        return rdb_bwd_dw_plain(bufs, l, dout)
+    dev = dout.device
+    if dev.type != 'cuda':
+        raise ValueError(f'rdb_bwd_dw: no kernel for device {dev}')
+    n_layers = _expect_bufs(bufs, l, dev)
+    _, bsz, h, w, _ = bufs.shape
+    _build.expect(dout, 'dout', torch.bfloat16, (bsz, h, w, n_layers * G),
+                  dev)
+    jobs = n_pairs(n_layers)
+    nparts = max(1, min(_tiles(bsz, h, w, DW_TH, DW_TW),
+                        TARGET_BLOCKS // jobs))
+    f32 = dict(dtype=torch.float32, device=dev)
+    ws = torch.empty((jobs, nparts, 9 * G * G), **f32)
+    dw = torch.empty((jobs, 3, 3, G, G), **f32)
+    with torch.cuda.device(dev):
+        err = _build.library().srt_rdb_bwd_dw(
+            bufs[l].data_ptr(), dout.data_ptr(), ws.data_ptr(),
+            dw.data_ptr(), bsz, h, w, n_layers, nparts, _build.stream(dev))
+    _build.check(err, 'srt_rdb_bwd_dw')
+    rdb_bwd_dw.launches += 1
+    return dw
+
+
+rdn_fwd.launches = 0
+rdb_bwd_chain.launches = 0
+rdb_bwd_dw.launches = 0
+
+
+def rdn_trunk_bwd(bufs, ct, wpk, wf, plain: bool = False):
+    """Backward of the trunk (srtpu ``_rdn3_vjp_bwd``) from the saved
+    buffers, the cotangent ct of cat and the forward's packed weights:
+    blocks in reverse, each chain fed the running g and its slice of ct,
+    then its weight grads. Returns dx and the f32 grads (dwpk (D,
+    n_pairs, 3, 3, G0, G0), db (D, C, G0), dwf (D, c_tot, G0), dbf (D,
+    G0))."""
+    kernel = not plain and ct.device.type != 'cpu'
+    chain = rdb_bwd_chain if kernel else rdb_bwd_chain_plain
+    dw_fn = rdb_bwd_dw if kernel else rdb_bwd_dw_plain
+    d, bsz, h, w, c_tot = bufs.shape
+    g0 = wf.shape[-1]
+    wtpk = w_t(wpk).contiguous()
+    wft = wf.transpose(1, 2).contiguous()
+    f32 = dict(dtype=torch.float32, device=ct.device)
+    dwpk = torch.empty(wpk.shape, **f32)
+    db = torch.empty((d, c_tot // g0 - 1, g0), **f32)
+    dwf = torch.empty((d, c_tot, g0), **f32)
+    dbf = torch.empty((d, g0), **f32)
+    g = ct.new_zeros((bsz, h, w, g0))
+    for l in reversed(range(d)):
+        g, dout, dwf[l], dbf[l], db[l] = chain(bufs, l, g, ct, wtpk, wft)
+        dwpk[l] = dw_fn(bufs, l, dout)
+    return g, dwpk, db, dwf, dbf
+
+
+def _cast(x, ws, bs, wf, bf):
+    """The kernels' operands from the parameters (srtpu ``_rdn3_fwd``):
+    dense and fusion weights in x's dtype (the dense ones packed),
+    biases f32 and stacked."""
+    wpk = pack([w.to(x.dtype) for w in ws])
+    b = torch.stack([t.float() for t in bs], 1).contiguous()
+    return (wpk, b, wf.to(x.dtype).contiguous(), bf.float().contiguous())
+
+
+class RDNTrunkFn(torch.autograd.Function):
+    """Differentiable K6 trunk (srtpu ``rdn_trunk_cat_cs``): x, the
+    fusion wf, bf, ``plain``, then the C dense weights and the C dense
+    biases. f32 parameters in, cast inside; saves the buffer stack;
+    returns f32 grads."""
+
+    @staticmethod
+    def forward(ctx, x, wf, bf, plain: bool, *wbs):
+        n = len(wbs) // 2
+        wpk, b, wfd, bff = _cast(x, wbs[:n], wbs[n:], wf, bf)
+        cat, bufs = (rdn_fwd_plain if plain else rdn_fwd)(
+            x, wpk, b, wfd, bff, save=True)
+        ctx.save_for_backward(bufs, wpk, wfd)
+        ctx.plain = plain
+        ctx.dtypes = tuple(t.dtype for t in (wf, bf, *wbs))
+        return cat
+
+    @staticmethod
+    def backward(ctx, ct):
+        bufs, wpk, wfd = ctx.saved_tensors
+        dx, dwpk, db, dwf, dbf = rdn_trunk_bwd(
+            bufs, ct.contiguous(), wpk, wfd, ctx.plain)
+        n = db.shape[1]
+        grads = (dwf, dbf, *unpack(dwpk, n), *db.unbind(1))
+        return (dx, grads[0].to(ctx.dtypes[0]), grads[1].to(ctx.dtypes[1]),
+                None, *(g.to(t) for g, t in zip(grads[2:], ctx.dtypes[2:])))
+
+
+def rdn_trunk(x, ws, bs, wf, bf, plain: bool = False) -> torch.Tensor:
+    """The D dense blocks in x's dtype from f32 (or any) parameters: ws
+    and bs the C per-layer stacks (D, 3, 3, (i + 1) G0, G0) and (D, G0),
+    wf (D, c_tot, G0), bf (D, G0). Returns cat (B, H, W, D G0): the
+    autograd op when a gradient is wanted, else the forward alone (one
+    buffer, no saved stack). ``plain`` runs the plain versions on any
+    device."""
+    params = (wf, bf, *ws, *bs)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *params)):
+        return RDNTrunkFn.apply(x, wf, bf, plain, *ws, *bs)
+    return (rdn_fwd_plain if plain else rdn_fwd)(x, *_cast(x, ws, bs, wf, bf))

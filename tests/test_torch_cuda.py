@@ -21,12 +21,18 @@ K4 (SRResNet's BN block): within the per-element limits of
 sum within its f32 rounding (2^-20 of the sum of its terms' magnitudes)
 plus what the bf16 values it reads differ by; the backward fed sums that
 make db a real value.
+K6 (RDN's dense blocks): the bf16 outputs (cat, the buffers, dx, dout)
+within two steps: a value a step apart is read by the later layers of
+its block; the chain's bias grads db within one step of their largest
+magnitude (they sum f32 dout behind such a value), its dwf, dbf and the
+pair weight grads (the same bf16 operands) within 1e-4.
 """
 
 import pytest
 import torch
 
 from srtpu_torch.models import create_model
+from srtpu_torch.models import rdn as rdn_model
 from srtpu_torch.ops import (b1_plain, b1_sums, b2_call, b2_plain, b3_call,
                              b3_plain, bn_block, f1_conv_stats, f1_plain,
                              f2_norm_act_conv_stats, f2_plain, f3_norm_skip,
@@ -38,6 +44,8 @@ from srtpu_torch.ops import (conv3x3_bwd, conv3x3_bwd_plain, conv3x3_fwd,
                              resgroup_plain, trunk_bwd, trunk_bwd_plain,
                              trunk_fwd, trunk_plain, upsample_bwd,
                              upsample_bwd_plain, upsample_fwd, upsample_plain)
+from srtpu_torch.ops import rdn as k6
+from srtpu_torch.ops.layout import w_t
 
 pytestmark = pytest.mark.cuda
 
@@ -407,3 +415,131 @@ def test_srresnet_x3_raises_on_cuda(device):
     with pytest.raises(ValueError, match='no kernel'):
         with torch.inference_mode():
             model(torch.rand((1, 8, 8, 3), device=device))
+
+
+def _k6_case(gen, device, h, w, batch=2, d=2, c=3):
+    """Inputs of the K6 functions at G0 = 64 (x, packed dense weights,
+    biases, fusion weight and bias) at srtpu's init bounds."""
+    f32 = torch.float32
+    c_tot = 64 * (c + 1)
+    ws = [_u(gen, (d, 3, 3, 64 * (i + 1), 64), (576 * (i + 1)) ** -0.5,
+             device) for i in range(c)]
+    return (_u(gen, (batch, h, w, 64), 1.0, device), k6.pack(ws),
+            _u(gen, (d, c, 64), 0.05, device, f32),
+            _u(gen, (d, c_tot, 64), c_tot ** -0.5, device),
+            _u(gen, (d, 64), c_tot ** -0.5, device, f32))
+
+
+@pytest.mark.parametrize('h,w', [(1, 1), (7, 16), (9, 33), (40, 17)])
+def test_k6_fwd_kernel_matches_plain(device, h, w):
+    """K6's forward (2 blocks of 3 layers) against its plain version: cat
+    and every saved buffer, one call counted, bit-identical twice; the
+    predict variant (one shared buffer) gives the same cat."""
+    gen = torch.Generator().manual_seed(h * 100 + w + 23)
+    args = _k6_case(gen, device, h, w)
+    before = k6.rdn_fwd.launches
+    cat, bufs = k6.rdn_fwd(*args, save=True)
+    torch.cuda.synchronize()
+    assert k6.rdn_fwd.launches == before + 1
+    ref_cat, ref_bufs = k6.rdn_fwd_plain(*args, save=True)
+    _assert_close(cat, ref_cat, 2)
+    _assert_close(bufs, ref_bufs, 2)
+    again = k6.rdn_fwd(*args, save=True)
+    assert torch.equal(again[0], cat) and torch.equal(again[1], bufs)
+    assert torch.equal(k6.rdn_fwd(*args), cat)
+
+
+@pytest.mark.parametrize('h,w', [(1, 1), (7, 16), (9, 33), (40, 17)])
+def test_k6_bwd_kernels_match_plain(device, h, w):
+    """K6's chain and weight grads against their plain versions, block by
+    block in reverse from the plain forward's buffers, each bit-identical
+    on a second call (no float atomics)."""
+    gen = torch.Generator().manual_seed(h * 100 + w + 29)
+    x, wpk, b, wf, bf = _k6_case(gen, device, h, w)
+    _, bufs = k6.rdn_fwd_plain(x, wpk, b, wf, bf, save=True)
+    d = bufs.shape[0]
+    g = _u(gen, x.shape, 1.0, device)
+    ct = _u(gen, (*x.shape[:3], 64 * d), 1.0, device)
+    wtpk, wft = w_t(wpk).contiguous(), wf.transpose(1, 2).contiguous()
+    for l in reversed(range(d)):
+        before = k6.rdb_bwd_chain.launches, k6.rdb_bwd_dw.launches
+        got = k6.rdb_bwd_chain(bufs, l, g, ct, wtpk, wft)
+        torch.cuda.synchronize()
+        ref = k6.rdb_bwd_chain_plain(bufs, l, g, ct, wtpk, wft)
+        for g_t, r_t, steps in zip(got, ref, (2, 2, None, None, 1)):
+            _assert_close(g_t, r_t, steps)
+        assert all(torch.equal(a, c) for a, c in
+                   zip(got, k6.rdb_bwd_chain(bufs, l, g, ct, wtpk, wft)))
+        dw = k6.rdb_bwd_dw(bufs, l, ref[1])
+        assert (k6.rdb_bwd_chain.launches, k6.rdb_bwd_dw.launches) == (
+            before[0] + 2, before[1] + 1)
+        _assert_close(dw, k6.rdb_bwd_dw_plain(bufs, l, ref[1]))
+        assert torch.equal(dw, k6.rdb_bwd_dw(bufs, l, ref[1]))
+        g = ref[0]
+
+
+def _rdn(monkeypatch, device, scale):
+    """RDN at 2 blocks of 3 layers, G = G0 = 64, bf16."""
+    monkeypatch.setitem(rdn_model.RDN_CONFIGS, 'T', (2, 3, 64))
+    return create_model('RDN', scale_factor=scale, rdn_config='T',
+                        growth0=64, dtype=torch.bfloat16, device=device,
+                        generator=torch.Generator().manual_seed(scale))
+
+
+@pytest.mark.parametrize('scale', [2, 3, 4])
+def test_rdn_kernel_path_matches_plain(device, monkeypatch, scale):
+    """RDN on the card, kernel path against plain path; x3 runs (the tail
+    is cuDNN). Per forward: K6 once, K2 twice (SFE2, GFF2)."""
+    model = _rdn(monkeypatch, device, scale)
+    lr = torch.rand((2, 20, 28, 3),
+                    generator=torch.Generator().manual_seed(3)).to(device)
+    before = k6.rdn_fwd.launches, conv3x3_fwd.launches
+    with torch.inference_mode():
+        got = model(lr).float()
+        assert (k6.rdn_fwd.launches, conv3x3_fwd.launches) == (
+            before[0] + 1, before[1] + 2)
+        ref = model(lr, plain=True).float()
+    assert got.shape == (2, 20 * scale, 28 * scale, 3)
+    assert (got - ref).abs().max().item() <= 2.0 ** -6
+
+
+def test_rdn_train_step_kernel_path_matches_plain(device, monkeypatch):
+    """One RDN x4 step (L1, Adam), kernel path against plain path from
+    the same params and batch: the loss within 2^-7 relative, every
+    gradient f32 and within 2^-4 of its largest magnitude (as EDSR's);
+    K6 forward once, chain and weight grads once per block."""
+    from srtpu_torch.losses import parse_losses
+    from srtpu_torch.optim import build_optimizer
+    from srtpu_torch.train import TrainState, make_train_step
+    gen = torch.Generator().manual_seed(6)
+    lr = torch.rand((2, 12, 20, 3), generator=gen).to(device)
+    hr = torch.rand((2, 48, 80, 3), generator=gen).to(device)
+    grads, losses = [], []
+    counters = (k6.rdn_fwd, k6.rdb_bwd_chain, k6.rdb_bwd_dw)
+    for plain in (False, True):
+        model = _rdn(monkeypatch, device, 4)
+        state = TrainState(model, build_optimizer(
+            'ADAM', ['lr=1e-4'], model.parameters()))
+        before = [fn.launches for fn in counters]
+        logs = make_train_step(parse_losses('l1'), plain=plain)(state, lr, hr)
+        torch.cuda.synchronize()
+        assert [fn.launches - n for fn, n in zip(counters, before)] == (
+            [0, 0, 0] if plain else [1, 2, 2])
+        losses.append(float(logs['loss']))
+        grads.append([p.grad for p in model.parameters()])
+    assert abs(losses[0] - losses[1]) <= 2.0 ** -7 * losses[1]
+    for got, ref in zip(*grads):
+        assert got.dtype == torch.float32
+        top = ref.abs().max().item()
+        assert (got - ref).abs().max().item() <= 2.0 ** -4 * top
+
+
+def test_k6_wrappers_reject_what_the_kernels_do_not_take(device):
+    gen = torch.Generator().manual_seed(0)
+    x, wpk, b, wf, bf = _k6_case(gen, device, 4, 4)
+    with pytest.raises(ValueError, match='no kernel'):
+        k6.rdn_fwd(x[..., :32].contiguous(), wpk, b, wf, bf)
+    with pytest.raises(TypeError):
+        k6.rdn_fwd(x.float(), wpk, b, wf, bf)
+    with pytest.raises(ValueError):
+        k6.rdn_fwd(x, wpk, b, wf[:, :128].contiguous(), bf)
