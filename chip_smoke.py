@@ -1,5 +1,5 @@
-"""Drive srtpu_torch's EDSR-baseline x4, RCAN-10x16 x4, SRResNet x4 and
-RDN-B x4 predict and training on one CUDA card.
+"""Drive srtpu_torch's EDSR-baseline x4, RCAN-10x16 x4, SRResNet x4,
+RDN-B x4 and DDBPN x4 predict and training on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -57,7 +57,11 @@ Phases, each of which raises on failure (nothing is caught):
    plain times; then a 16-block trunk + close, forward and backward
    (every grad, dW1 / dW2 through the weight-grad kernel, and the
    running statistics) against an f32 path, and two faults planted in
-   B2 caught by that check. Phases 2 and 2b also hold K2 at 5x5
+   B2 caught by that check: besides every tensor's largest error, each
+   block's BN2 backward dy per element against the f32 path, and its
+   invariants (per channel, dy sums to 0 and is orthogonal to xhat, so
+   mean(dy) and mean(dy * xhat) are 0 in f32) against the f32 path's;
+   the margin of each fault is printed. Phases 2 and 2b also hold K2 at 5x5
    (SRResNet's phase-dense 256 -> 16) forward and backward at the tail's
    shapes;
 7. the SRResNet predict slice: phase 3's path and images with ``--model
@@ -69,7 +73,8 @@ Phases, each of which raises on failure (nothing is caught):
    close), F2 and B2 16, K2 and K3 forward and backward, 36 weight-grad
    launches; the loss falling, the running statistics finite and moved;
    the gradients of a kernel-path and a plain-path step against an f32
-   step, the planted faults caught there too; five steps' losses,
+   step (with phase 2d's per-block dy checks), the planted faults caught
+   there too; five steps' losses,
    ms/step, patches/s, device time by kernel group.
 2e. K6 (RDN's dense-block trunk) against its plain versions at the full
    B config (16 blocks of 8 layers, G = G0 = 64): the forward (cat and
@@ -88,9 +93,33 @@ Phases, each of which raises on failure (nothing is caught):
    calls, K2 2 + 2 and its 2 weight grads; the loss falling, kernel-path
    against plain-path gradients and losses, ms/step, patches/s, device
    time by kernel group.
+2f. K2's general path (c_in walked in chunks; any multiples of 16)
+   against its plain version at every shape DDBPN and the x3 tails give
+   it: forward 32 -> 512, 512 -> 32, 512 -> 48 (x4), 32 -> 128, 128 -> 32,
+   128 -> 16 (x2) and 576 -> 32 at 3x3 and 5x5 (x3), and the backward of
+   each (dx the reverse shape, dW and db through the weight-grad kernel's
+   general path), at the training shape (batch 16, LR 32x32), the
+   predict shape (batch 1, 128x128) and a ragged batch 2 of 67x45; errors
+   beside K2's tolerances, two calls bit-identical, kernel, plain and
+   library times;
+11. the DDBPN predict slice: phase 3's path and images with ``--model
+   DDBPN`` at srtpu's defaults (n0 128, nr 32, depth 6): per image 39 K2
+   forward launches on the general path (33 projection convs, 6
+   output-conv blocks) and no K1, K3, K4, K5 or K6; PNGs at 4x; kernel
+   path against plain path; device time by kernel group of the 512x352
+   forward;
+12. the DDBPN fit slice: phase 4 with ``--model DDBPN`` at the defaults:
+   per step 39 K2 forward, 39 K2 dx and 39 weight-grad launches, the loss
+   falling, every dead-tap weight gradient exactly 0, kernel-path against
+   plain-path gradients and losses, ms/step, patches/s, device time by
+   kernel group;
+13. EDSR and SRResNet at x3 on the card: one predict image each through
+   the CLI (their phase-dense 576 -> 32 tails, 3x3 and 5x5, on K2's
+   general path), kernel path against plain path.
 The line before the last is a JSON object with, per kernel, its launches
-in the eight main-path runs (EDSR, RCAN, SRResNet and RDN predict and fit;
-``launches`` is their sum), its largest error against its plain version,
+in the main-path runs (EDSR, RCAN, SRResNet, RDN and DDBPN predict and
+fit, EDSR and SRResNet x3 predict; ``launches`` is their sum), its
+largest error against its plain version,
 its time (K4's: its kernels' own device time from torch.profiler; the
 others: the wrapper's CUDA-event time) and the plain version's at the
 main path's shapes, the least time the card could take for the same
@@ -274,6 +303,53 @@ RDN_STEP_LAUNCHES = {rdn_fwd: 1, rdb_bwd_chain: RDN_D, rdb_bwd_dw: RDN_D,
 # order: 1e-4 relative.
 K6_STEPS, K6B_STEPS = 4, {'dx': 2, 'dout': 2, 'dwf': 1e-4, 'dbf': 1e-4,
                           'db': 1}
+# Each block's BN2 backward dy against the f32 path (phase 2d's trunk and
+# phase 8's step): per element within BN_TRUNK_VS_F32 times the plain
+# path's largest error in its channel plus one bf16 step of the element;
+# its invariants, mean(dy) and mean(dy * xhat) per channel (0 in f32: the
+# BN backward subtracts both projections), within BN_INVARIANT_VS_F32
+# times the plain path's largest error of that block's row. A term missing
+# from dy breaks the invariants coherently over all of a channel's pixels.
+BN_INVARIANT_VS_F32 = 4.0
+# K2's general path (conv_chunked_kernel) and the weight-grad kernel's
+# (wgrad_chunk_kernel), counted apart from the instances of their own
+K2G_FWD, K2G_BWD = (conv3x3_fwd, 'launches_general'), (conv3x3_bwd,
+                                                       'launches_general')
+K2G5_FWD = (conv3x3_fwd, 'launches_general_5x5')
+WGG = (conv_wgrad, 'launches_general')
+# (c_in, c_out, k) at which DDBPN and the x3 tails run K2's general path:
+# DDBPN x4 (nr 32) up, down and output convs, x2 up, down and output
+# convs, EDSR's and SRResNet's x3 phase-dense convs; each backward's dx
+# is the reverse shape (x2's 16 -> 128 an instance of its own)
+K2G_SHAPES = ((32, 512, 3), (512, 32, 3), (512, 48, 3), (32, 128, 3),
+              (128, 32, 3), (128, 16, 3), (576, 32, 3), (576, 32, 5))
+K2G_X4 = K2G_SHAPES[:3]       # DDBPN x4's: the main path's (JSON times)
+# DDBPN x4 at srtpu's defaults (srtpu/models/ddbpn.py:220-229, timed by
+# srtpu's bench.py:118-119): n0 128, nr 32, depth 6; the CLI's flags
+DDBPN_N0, DDBPN_NR, DDBPN_DEPTH = 128, 32, 6
+DDBPN_ARGS = ['--n0', str(DDBPN_N0), '--nr', str(DDBPN_NR), '--depth',
+              str(DDBPN_DEPTH)]
+# three projection convs in each of the 2 depth - 1 units, one output conv
+# per HR block: 33 + 6
+DDBPN_CONVS = 3 * (2 * DDBPN_DEPTH - 1) + DDBPN_DEPTH
+NO_FWD_BUT_K2G = {trunk_fwd: 0, upsample_fwd: 0, rcab_fwd: 0, rdn_fwd: 0,
+                  conv3x3_fwd: 0, CONV5_FWD: 0,
+                  **{fn: 0 for fn in K4_FNS.values()}}
+# per image of a DDBPN x4 predict: every K2 on the general path
+DDBPN_PREDICT_LAUNCHES = {K2G_FWD: DDBPN_CONVS, **NO_FWD_BUT_K2G}
+# per DDBPN x4 train step: K2 forward, dx and weight grads per conv
+DDBPN_STEP_LAUNCHES = {K2G_FWD: DDBPN_CONVS, K2G_BWD: DDBPN_CONVS,
+                       WGG: DDBPN_CONVS, conv3x3_bwd: 0, conv_wgrad: 0,
+                       trunk_bwd: 0, upsample_bwd: 0, rcab_bwd: 0,
+                       rdb_bwd_chain: 0, rdb_bwd_dw: 0, **NO_FWD_BUT_K2G}
+# per image of an x3 predict (one stage of r = 3, no K3): EDSR's trunk K1,
+# K2 for the close and the phase-major 64 -> 576 (instances of their own)
+# and the phase-dense 576 -> 32 (general); SRResNet's (eval mode, no K4)
+# 64 -> 576 and its 5x5 576 -> 32 (general)
+EDSR_X3_LAUNCHES = {trunk_fwd: L, conv3x3_fwd: 2, K2G_FWD: 1, upsample_fwd: 0}
+SRRESNET_X3_LAUNCHES = {conv3x3_fwd: 1, K2G5_FWD: 1, CONV5_FWD: 0,
+                        upsample_fwd: 0, trunk_fwd: 0,
+                        **{fn: 0 for fn in K4_FNS.values()}}
 # The H100 SXM's published peaks (NVIDIA data sheet), for bound_ms
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 
@@ -374,9 +450,9 @@ def lib_conv_bwd(x, w, g):
         1, [True, True, True])
 
 
-def lib_wgrad(x, g):
-    """One torch.nn.grad.conv2d_weight in bf16 over J stacked jobs as J
-    conv groups (dW only): the weight-grad kernel's yardstick."""
+def lib_wgrad(x, g, k: int = 3):
+    """One torch.nn.grad.conv2d_weight (k x k) in bf16 over J stacked jobs
+    as J conv groups (dW only): the weight-grad kernel's yardstick."""
     j, b, h, w, c = x.shape
     co = g.shape[-1]
     cl = torch.channels_last
@@ -384,8 +460,8 @@ def lib_wgrad(x, g):
         memory_format=cl)
     gi = g.permute(1, 0, 4, 2, 3).reshape(b, j * co, h, w).contiguous(
         memory_format=cl)
-    return lambda: torch.nn.grad.conv2d_weight(xi, (j * co, c, 3, 3), gi,
-                                               padding=1, groups=j)
+    return lambda: torch.nn.grad.conv2d_weight(xi, (j * co, c, k, k), gi,
+                                               padding=k // 2, groups=j)
 
 
 def conv_flops(bhw: int, cin: int, cout: int, k: int = 3) -> float:
@@ -895,12 +971,73 @@ def _vs_f32(got: dict, plain: dict, f32: dict, scales: dict) -> list:
 
 
 def _catches(rows: list, what: str, label: str) -> None:
-    """A planted fault's rows: at least one over its limit."""
+    """A planted fault's rows: at least one over its limit. Prints the
+    margin (the worst error/limit) and the per-block dy rows' own."""
+    rows = sorted(rows, key=lambda r: -r[0])
     caught = [t for r, t in rows if not r <= 1.0]
     need(caught, f'{label}: the planted fault ({what}) passed')
     print(f'{label}, planted fault ({what}): caught by {len(caught)} of '
-          f'{len(rows)} tensors; the worst (error/limit {rows[0][0]:.4g}): '
-          + '; '.join(caught[:3]))
+          f'{len(rows)} checks; margin (the worst error/limit) '
+          f'{rows[0][0]:.4g}: ' + '; '.join(caught[:3]) + '; per block: '
+          + ', '.join(f'{t} = {r:.4g}' for r, t in rows if 'BN2' in t))
+
+
+@contextlib.contextmanager
+def _dy_record(table: dict, store):
+    """Inside the block, each call of ``table``'s B2 (bn_block.KERNELS or
+    PLAIN; a planted fault included) appends its block's BN2 backward dy
+    (f32) and that dy's invariants per channel, (mean(dy), mean(dy *
+    xhat2)) as (2, C), to ``store`` (blocks L-1 ... 0). No-op for None."""
+    if store is None:
+        yield
+        return
+    saved = table['b2']
+
+    def call(g, y2, st2, *rest):
+        out = saved(g, y2, st2, *rest)
+        dy = out[1].float()
+        xh = bn_block._xhat(y2, st2)
+        store.append((dy, torch.stack([dy.mean((0, 1, 2)),
+                                       (dy * xh).mean((0, 1, 2))])))
+        return out
+    table['b2'] = call
+    try:
+        yield
+    finally:
+        table['b2'] = saved
+
+
+def _dy_rows(rk: list, rp: list, rf: list) -> list:
+    """(error / limit, text) rows of each block's BN2 backward dy on the
+    kernel path (``rk`` from _dy_record) against the f32 path (``rf``),
+    with the plain bf16 path's (``rp``) setting the scale: per element
+    (BN_TRUNK_VS_F32 times the plain path's largest error in the element's
+    channel plus one bf16 step of the element), and the invariants per
+    block and channel (BN_INVARIANT_VS_F32 times the plain path's largest
+    error of the block's row). The worst block of each."""
+    need(len(rk) == len(rp) == len(rf) > 0, 'dy records per block')
+    el, inv = (0.0, ''), (0.0, '')
+    n = len(rk)
+    for j, ((dk, pk), (dp, pp), (df, pf)) in enumerate(zip(rk, rp, rf)):
+        lim = (BN_TRUNK_VS_F32 * (dp - df).abs().amax((0, 1, 2))
+               + bn_block.STEP * df.abs())
+        d = (dk - df).abs()
+        i = _nearest(d, lim)
+        r = (d.flatten()[i] / lim.flatten()[i]).item()
+        if not r <= el[0]:
+            el = (r, f"each block's BN2 dy per element {d.flatten()[i]:.4g}"
+                     f"/{lim.flatten()[i]:.4g}@{i} (block {n - 1 - j})")
+        lim_p = BN_INVARIANT_VS_F32 * (pp - pf).abs().amax(1, keepdim=True)
+        dp_ = (pk - pf).abs()
+        i = _nearest(dp_, lim_p.expand_as(dp_))
+        r = (dp_.flatten()[i] / lim_p.expand_as(dp_).flatten()[i]).item()
+        if not r <= inv[0]:
+            what = ('mean(dy)', 'mean(dy*xhat)')[i // dp_.shape[1]]
+            inv = (r, f"BN2 backward invariant {what} {dp_.flatten()[i]:.4g}"
+                      f"/{lim_p.expand_as(dp_).flatten()[i]:.4g} (block "
+                      f"{n - 1 - j}, channel {i % dp_.shape[1]}; |f32| "
+                      f"{pf.abs().max().item():.3g})")
+    return [el, inv]
 
 
 def check_bn_kernels(device) -> dict:
@@ -963,29 +1100,34 @@ def check_bn_kernels(device) -> dict:
     x = _uniform(gen, (bsz, h, w, C), 1.0, device, torch.bfloat16)
     g = _uniform(gen, (bsz, h, w, C), 1.0, device, torch.bfloat16)
 
-    def run(dtype, plain):
+    def run(dtype, plain, rec):
         m = copy.deepcopy(trunk).train()
         xi = x.to(dtype).clone().requires_grad_()
-        out = m(xi, dtype, plain)
-        out.backward(g.to(dtype))
+        with _dy_record(bn_block.PLAIN if plain else bn_block.KERNELS, rec):
+            out = m(xi, dtype, plain)
+            out.backward(g.to(dtype))
         return m, {'out': out, 'dx': xi.grad,
                    **{n: p.grad for n, p in m.named_parameters()}}
 
     # the kernel path, the plain path (both bf16) and the plain path in
     # f32 with no rounding at all, from one set of params and inputs
-    scales = {}
-    mk, tk = run(torch.bfloat16, False)
-    mp, tp = run(torch.bfloat16, True)
+    scales, rk, rp, rf = {}, [], [], []
+    mk, tk = run(torch.bfloat16, False, rk)
+    mp, tp = run(torch.bfloat16, True, rp)
     with _db_scales(scales):
-        _, tf = run(torch.float32, True)
+        _, tf = run(torch.float32, True, rf)
     torch.cuda.synchronize()
     # Through 16 batch norms the two bf16 paths part by more than a few
     # rounding steps (each BN divides a difference by its channel's batch
-    # deviation), so both are held to the unrounded f32 path (_vs_f32).
+    # deviation), so both are held to the unrounded f32 path (_vs_f32),
+    # and so is each block's BN2 backward dy (_dy_rows).
     rows = _vs_f32(tk, tp, tf, scales)
+    dy_rows = _dy_rows(rk, rp, rf)
     label = f'K4 BN trunk L={L} + close {bsz}x{h}x{w}, fwd and bwd'
     print(f'{label}, max_abs vs the f32 path, kernel/plain/tol (|f32|): '
-          + ', '.join(t for _, t in rows))
+          + ', '.join(t for _, t in rows) + '; per block, error/limit: '
+          + ', '.join(f'{t} = {r:.4g}' for r, t in dy_rows))
+    rows = sorted(rows + dy_rows, key=lambda r: -r[0])
     need(all(r <= 1.0 for r, _ in rows),
          f'{label}: ' + '; '.join(t for r, t in rows if not r <= 1.0))
     bk, bp = dict(mk.named_buffers()), dict(mp.named_buffers())
@@ -993,9 +1135,11 @@ def check_bn_kernels(device) -> dict:
                list(bk.values()), list(bp.values()),
                [BN_TRUNK_STAT_REL] * len(bk))
     for what, fault in PLANTED.items():
+        bad_dy = []
         with _planted(fault):
-            _, bad = run(torch.bfloat16, False)
-        _catches(_vs_f32(bad, tp, tf, scales), what, label)
+            _, bad = run(torch.bfloat16, False, bad_dy)
+        _catches(_vs_f32(bad, tp, tf, scales) + _dy_rows(bad_dy, rp, rf),
+                 what, label)
 
     def step(m, plain):
         xi = x.clone().requires_grad_()
@@ -1115,6 +1259,96 @@ def check_rdn_kernels(device) -> dict:
     return stats
 
 
+def check_k2_general(device, smi: str) -> dict:
+    """Phase 2f. K2's general path against its plain version at every
+    (c_in, c_out, k) of K2G_SHAPES, forward and backward (dx, dW, db), at
+    the training, predict and ragged shapes; two calls bit-identical;
+    kernel, plain and library times at the first two. Returns K2g (3x3
+    forward, timed: DDBPN x4's three shapes at the predict shape), K2gb
+    (3x3 backward with its weight grads, at the training shape), Wg (the
+    weight grads alone, at the training shape) and K2g5 (5x5 forward, at
+    the predict shape) stats; each error the largest over all shapes."""
+    stats = new_stats(('K2g', 'K2gb', 'Wg', 'K2g5'))
+    shapes = ((TRAIN_BATCH, TRAIN_PATCH // SCALE, TRAIN_PATCH // SCALE),
+              (1, 128, 128), (2, 67, 45))
+    bf = torch.bfloat16
+    for i, (bsz, h, w) in enumerate(shapes):
+        for cin, cout, k in K2G_SHAPES:
+            gen = torch.Generator().manual_seed(bsz * 7877 + h * 109 + w
+                                                + cin * 3 + cout + k)
+            x = _uniform(gen, (bsz, h, w, cin), 1.0, device, bf)
+            wt = _uniform(gen, (k, k, cin, cout), (k * k * cin) ** -0.5,
+                          device, bf)
+            b = _uniform(gen, (cout,), 0.1, device, torch.float32)
+            g = _uniform(gen, (bsz, h, w, cout), 1.0, device, bf)
+            tag = f'{k}x{k} {cin}->{cout} {bsz}x{h}x{w}'
+            got = conv3x3_fwd(x, wt, b)
+            torch.cuda.synchronize()
+            ref = conv3x3_plain(x, wt, b)
+            need(torch.equal(got, conv3x3_fwd(x, wt, b)),
+                 f'K2 general fwd {tag}: two calls differ')
+            e_f = _check_all(f'K2 general fwd {tag}', ('y',), [got], [ref],
+                             [TOL_STEPS['K2']])
+            bgot = conv3x3_bwd(x, wt, g)
+            torch.cuda.synchronize()
+            bref = conv3x3_bwd_plain(x, wt, g)
+            need(all(torch.equal(a, c) for a, c in
+                     zip(bgot, conv3x3_bwd(x, wt, g))),
+                 f'K2 general bwd {tag}: two calls differ')
+            e_b = _check_all(f'K2 general bwd {tag} (dx {cout}->{cin})',
+                             ('dx', 'dW', 'db'), bgot, bref,
+                             [BWD_DX_STEPS['K2'], 1e-4, 1e-4])
+            # no main path runs the 5x5 backward (SRResNet x3 fit): its
+            # errors are checked and printed, not kept for the JSON line
+            errs = {'K2g' if k == 3 else 'K2g5': e_f,
+                    'Wg': _err(bgot[1], bref[1], None)[0]}
+            if k == 3:
+                errs['K2gb'] = e_b
+            for key, e in errs.items():
+                stats[key]['max_abs_err'] = max(stats[key]['max_abs_err'], e)
+            if i == 2:
+                continue
+            px = bsz * h * w
+            t = {name: median_ms(fn, 10, 3) for name, fn in (
+                ('fwd', lambda: conv3x3_fwd(x, wt, b)),
+                ('fwd_plain', lambda: conv3x3_plain(x, wt, b)),
+                ('fwd_lib', lib_conv(x, wt, b)),
+                ('bwd', lambda: conv3x3_bwd(x, wt, g)),
+                ('bwd_plain', lambda: conv3x3_bwd_plain(x, wt, g)),
+                ('bwd_lib', lib_conv_bwd(x, wt, g)),
+                ('w', lambda: conv_wgrad(x, g, k=k)),
+                ('w_plain', lambda: conv_wgrad_plain(x, g, k=k)),
+                ('w_lib', lib_wgrad(x[None], g[None], k)))}
+            f_fl = conv_flops(px, cin, cout, k)
+            print(f'K2 general {tag}: fwd kernel {t["fwd"]:.4f} ms plain '
+                  f'{t["fwd_plain"]:.4f} lib {t["fwd_lib"]:.4f} (bound '
+                  f'{max(bound(f_fl, nbytes(x, wt, b, got))):.5f}); bwd '
+                  f'kernel {t["bwd"]:.4f} plain {t["bwd_plain"]:.4f} lib '
+                  f'{t["bwd_lib"]:.4f} (bound '
+                  f'{max(bound(2 * f_fl, nbytes(x, wt, g, bgot))):.5f}); '
+                  f'weight grads kernel {t["w"]:.4f} plain '
+                  f'{t["w_plain"]:.4f} lib {t["w_lib"]:.4f} (bound '
+                  f'{max(bound(f_fl, nbytes(x, g, bgot[1:]))):.5f})  [{smi}]')
+            if (cin, cout, k) in K2G_X4 and i == 1:
+                stats['K2g']['library_ms'] = (stats['K2g']['library_ms']
+                                              or 0.0) + t['fwd_lib']
+                record(stats['K2g'], t['fwd'], t['fwd_plain'], f_fl,
+                       nbytes(x, wt, b, got))
+            if (cin, cout, k) in K2G_X4 and i == 0:
+                for key, pre, fl, moved in (
+                        ('K2gb', 'bwd', 2 * f_fl, nbytes(x, wt, g, bgot)),
+                        ('Wg', 'w', f_fl, nbytes(x, g, bgot[1:]))):
+                    stats[key]['library_ms'] = (stats[key]['library_ms']
+                                                or 0.0) + t[pre + '_lib']
+                    record(stats[key], t[pre], t[pre + '_plain'], fl, moved)
+            if k == 5 and i == 1:
+                stats['K2g5']['library_ms'] = t['fwd_lib']
+                record(stats['K2g5'], t['fwd'], t['fwd_plain'], f_fl,
+                       nbytes(x, wt, b, got))
+        torch.cuda.empty_cache()
+    return stats
+
+
 def png_size(path: Path) -> tuple[int, int]:
     """(height, width) from a PNG's IHDR chunk."""
     head = path.read_bytes()[:24]
@@ -1125,25 +1359,27 @@ def png_size(path: Path) -> tuple[int, int]:
 
 
 def run_slice(device, smi: str, model: str = 'EDSR', extra=(),
-              expected=EXPECTED_LAUNCHES, rules=None) -> dict:
-    """Phase 3 (EDSR) and 5 (RCAN, ``extra`` its CLI flags): predict
-    through the CLI, the launch counters per image (``expected``), the
-    PNGs, kernel path against plain path; with ``rules``, device time
-    by kernel group of the largest image's forward. Returns the launch
-    counts of the main-path run."""
+              expected=EXPECTED_LAUNCHES, rules=None, scale: int = SCALE,
+              sizes=SLICE_SIZES) -> dict:
+    """Phase 3 (EDSR) and 5, 7, 9, 11, 13 (``extra`` the model's CLI
+    flags): predict at ``scale`` through the CLI on images of ``sizes``,
+    the launch counters per image (``expected``), the PNGs, kernel path
+    against plain path; with ``rules``, device time by kernel group of
+    the largest image's forward. Returns the launch counts of the
+    main-path run."""
     rng = np.random.default_rng(SEED)
     with tempfile.TemporaryDirectory(prefix='srtpu_smoke_') as tmp:
         demo = Path(tmp) / 'datasets' / 'Demo'
         demo.mkdir(parents=True)
         images = {}
-        for h, w in SLICE_SIZES:
+        for h, w in sizes:
             lo = rng.random((h // 8 + 1, w // 8 + 1, 3))
             img = np.kron(lo, np.ones((8, 8, 1)))[:h, :w] * 0.8 \
                 + rng.random((h, w, 3)) * 0.2
             name = f'img{h}x{w}'
             images[name] = img.astype(np.float32)
             np.save(demo / f'{name}.npy', images[name])
-        argv = ['predict', '--model', model, '--scale_factor', str(SCALE),
+        argv = ['predict', '--model', model, '--scale_factor', str(scale),
                 '--n_feats', str(C), '--n_resblocks', str(L), *extra,
                 '--datasets_dir', str(Path(tmp) / 'datasets'),
                 '--predict_datasets', 'Demo', '--precision', 'bf16',
@@ -1165,11 +1401,11 @@ def run_slice(device, smi: str, model: str = 'EDSR', extra=(),
                  f'{per_image} x {len(images)}')
         for name, img in images.items():
             size = png_size(out / 'Demo' / f'{name}.png')
-            need(size == (SCALE * img.shape[0], SCALE * img.shape[1]),
+            need(size == (scale * img.shape[0], scale * img.shape[1]),
                  f'{name}.png is {size}')
-        mpix = sum(SCALE * SCALE * img.shape[0] * img.shape[1]
+        mpix = sum(scale * scale * img.shape[0] * img.shape[1]
                    for img in images.values()) / 1e6
-        print(f'{model} predict CLI (incl. PNG encode + write): '
+        print(f'{model} x{scale} predict CLI (incl. PNG encode + write): '
               f'{len(images)} images '
               f'in {wall:.3f} s = {len(images) / wall:.3f} images/s, '
               f'{mpix / wall:.3f} MPix/s  [{smi}]')
@@ -1179,7 +1415,7 @@ def run_slice(device, smi: str, model: str = 'EDSR', extra=(),
                               device).eval()
         for name, img in images.items():
             lr = torch.from_numpy(pad_to_bucket(img, 32)[0][None]).to(device)
-            h, w = SCALE * img.shape[0], SCALE * img.shape[1]
+            h, w = scale * img.shape[0], scale * img.shape[1]
             with torch.inference_mode():
                 sr_k = net(lr).float().clamp(0, 1)[0, :h, :w]
                 sr_p = net(lr, plain=True).float().clamp(0, 1)[0, :h, :w]
@@ -1190,7 +1426,8 @@ def run_slice(device, smi: str, model: str = 'EDSR', extra=(),
                  f'{name}: SR shape {tuple(sr_k.shape)} or non-finite')
             diff = (sr_k - sr_p).abs()
             err, mean = diff.max().item(), diff.mean().item()
-            print(f'{model} slice {name} (LR {tuple(lr.shape[1:3])}): '
+            print(f'{model} x{scale} slice {name} '
+                  f'(LR {tuple(lr.shape[1:3])}): '
                   f'max_abs {err:.4g}'
                   f' (tol {SLICE_MAX_TOL:.4g}) mean_abs {mean:.3g} (tol '
                   f'{SLICE_MEAN_TOL:.3g}) | forward kernels {ms:.3f} ms = '
@@ -1263,6 +1500,15 @@ RDN_PROFILE = (('rdn_dense_kernel', 'K6 fwd dense layers'),
                ('rdn_reduce', 'K6 fixed-order reductions'),
                ('wgrad', 'weight grads (K2)'),
                ('conv3x3_kernel', 'K2 fwd + bwd dx'))
+DDBPN_PROFILE = (
+    ('conv_chunked_kernel<32, 64', 'K2 32->512 (up fwd, down dx)'),
+    ('conv_chunked_kernel<64, 32', 'K2 512->32 (down fwd, up dx)'),
+    ('conv_chunked_kernel<64, 16', 'K2 512->48 (output conv fwd)'),
+    ('conv_chunked_kernel<16, 64', 'K2 48->512 (output conv dx)'),
+    ('wgrad_chunk_kernel', 'weight grads (general path)'),
+    ('wgrad_reduce', 'weight grads fixed-order reductions'),
+    ('gemm', '1x1 bottlenecks and head (cuBLAS)'),
+    ('nvjet', '1x1 bottlenecks and head (cuBLAS)'))
 OTHER = 'other (cuDNN head/tail, Adam, casts, copies)'
 
 
@@ -1354,36 +1600,74 @@ def _grads_vs_plain(model: str, net, lr, hr, paths) -> None:
 
 
 def _grads_vs_f32(model: str, net, lr, hr, paths) -> None:
-    """SRResNet's train step gradients, held to an f32 step (_vs_f32):
+    """SRResNet's train step gradients, held to an f32 step (_vs_f32),
+    and each block's BN2 backward dy with them (_dy_rows, from a rerun of
+    the first step's kernel and plain paths: the same params and batch):
     through 16 batch norms the kernel and plain bf16 paths part by more
     than a few rounding steps. Then a kernel step with each planted fault
     (PLANTED), from the same params and batch, must fail that check."""
+    def step(m, plain, rec):
+        with _dy_record(bn_block.PLAIN if plain else bn_block.KERNELS, rec):
+            make_train_step(parse_losses('l1'), plain=plain)(TrainState(
+                m, build_optimizer('ADAM', ['lr=1e-4'], m.parameters())),
+                lr, hr)
+        return m
+
     m32 = copy.deepcopy(net)
     m32.dtype = None                     # f32 compute, no rounding
-    scales = {}
+    scales, rk, rp, rf = {}, [], [], []
     with _db_scales(scales, 'trunk.'):
-        make_train_step(parse_losses('l1'), plain=True)(TrainState(
-            m32, build_optimizer('ADAM', ['lr=1e-4'], m32.parameters())),
-            lr, hr)
+        step(m32, True, rf)
+    step(copy.deepcopy(net), False, rk)
+    step(copy.deepcopy(net), True, rp)
     gk, gp, gf = (_grads(m) for m in (paths[False][1].model,
                                        paths[True][1].model, m32))
     for n, t in gk.items():
         need(t.dtype == torch.float32, f'{n} grad dtype')
     rows = _vs_f32(gk, gp, gf, scales)
+    dy_rows = _dy_rows(rk, rp, rf)
     label = f'{model} train step gradients'
-    need(all(r <= 1.0 for r, _ in rows),
-         f'{label}: ' + '; '.join(t for r, t in rows if not r <= 1.0))
+    need(all(r <= 1.0 for r, _ in rows + dy_rows),
+         f'{label}: ' + '; '.join(t for r, t in rows + dy_rows
+                                  if not r <= 1.0))
     print(f'{label}, max_abs vs the f32 step, kernel/plain/tol (|f32|), '
           f'the four nearest their tolerance: '
           + ', '.join(t for _, t in rows[:4]) + '; the pre-BN biases: '
-          + ', '.join(t for _, t in rows if '|grad|' in t))
+          + ', '.join(t for _, t in rows if '|grad|' in t)
+          + '; per block, error/limit: '
+          + ', '.join(f'{t} = {r:.4g}' for r, t in dy_rows))
     for what, fault in PLANTED.items():
-        m = copy.deepcopy(net)
+        bad_dy = []
         with _planted(fault):
-            make_train_step(parse_losses('l1'))(TrainState(
-                m, build_optimizer('ADAM', ['lr=1e-4'], m.parameters())),
-                lr, hr)
-        _catches(_vs_f32(_grads(m), gp, gf, scales), what, label)
+            m = step(copy.deepcopy(net), False, bad_dy)
+        _catches(_vs_f32(_grads(m), gp, gf, scales)
+                 + _dy_rows(bad_dy, rp, rf), what, label)
+
+
+def _grads_ddbpn(model: str, net, lr, hr, paths) -> None:
+    """DDBPN's train step gradients, kernel path against plain path
+    (_grads_vs_plain), and every dead-tap slot's gradient on the kernel
+    path exactly 0 (each projection weight against its mask, the output
+    conv's against its own), with the live slots' not all 0."""
+    _grads_vs_plain(model, net, lr, hr, paths)
+    m = paths[False][1].model
+    masks = {True: m.m_up, False: m.m_down}
+    dead = live = 0
+    for i, unit in enumerate(m.units):
+        for name, is_up in (('a0', unit.up), ('b0', not unit.up),
+                            ('a1', unit.up)):
+            gr, mask = getattr(unit, f'{name}_weight').grad, masks[is_up]
+            need(bool((gr[mask == 0] == 0).all()),
+                 f'units.{i}.{name}: a dead-tap slot has a gradient')
+            dead += int((mask == 0).sum())
+            live += int((gr[mask != 0] != 0).sum())
+    gr = m.out_weight.grad
+    need(bool((gr[:, m.m_out == 0] == 0).all()),
+         'out_weight: a dead-tap slot has a gradient')
+    dead += int((m.m_out == 0).sum()) * gr.shape[0]
+    need(live > 0, 'no live projection weight got a gradient')
+    print(f'{model} train step: all {dead} dead-tap weight slots have '
+          f'gradient exactly 0 on the card; {live} live slots nonzero')
 
 
 def run_train(device, smi: str, model: str = 'EDSR', extra=(),
@@ -1513,7 +1797,8 @@ def main() -> None:
     stats.update(check_rcab_kernels(device))
     stats.update(check_bn_kernels(device))
     stats.update(check_rdn_kernels(device))
-    # the eight main-path runs, each with the counters set to 0 before it
+    stats.update(check_k2_general(device, smi))
+    # the main-path runs, each with the counters set to 0 before it
     runs = {'edsr_predict': run_slice(device, smi),
             'edsr_fit': run_train(device, smi)}
     runs['rcan_predict'] = run_slice(device, smi, 'RCAN', RCAN_ARGS,
@@ -1529,6 +1814,16 @@ def main() -> None:
                                     RDN_PREDICT_LAUNCHES, RDN_PROFILE)
     runs['rdn_fit'] = run_train(device, smi, 'RDN', RDN_ARGS,
                                 RDN_STEP_LAUNCHES, RDN_PROFILE)
+    runs['ddbpn_predict'] = run_slice(device, smi, 'DDBPN', DDBPN_ARGS,
+                                      DDBPN_PREDICT_LAUNCHES, DDBPN_PROFILE)
+    runs['ddbpn_fit'] = run_train(device, smi, 'DDBPN', DDBPN_ARGS,
+                                  DDBPN_STEP_LAUNCHES, DDBPN_PROFILE,
+                                  _grads_ddbpn)
+    for model, expected in (('EDSR', EDSR_X3_LAUNCHES),
+                            ('SRResNet', SRRESNET_X3_LAUNCHES)):
+        runs[f'{model.lower()}_x3_predict'] = run_slice(
+            device, smi, model, (), expected, scale=3,
+            sizes=SLICE_SIZES[:1])
     rep = 'srtpu/ops/cs_conv.py:'
     bn = 'srtpu/ops/bn_resblock_cs.py:'
     meta = [('K1', 'K1 trunk_fwd (fused resblock)', trunk_fwd, 'trunk.cu',
@@ -1570,7 +1865,17 @@ def main() -> None:
             ('K6b', 'K6 rdb_bwd_chain (one block: fusion bwd, dwf, dx chain, '
              'db)', rdb_bwd_chain, 'rdn.cu', rep + '2265'),
             ('K6w', 'K6 rdb_bwd_dw (one block: 36 pair weight grads)',
-             rdb_bwd_dw, 'rdn.cu', rep + '2340')]
+             rdb_bwd_dw, 'rdn.cu', rep + '2340'),
+            ('K2g', 'K2 conv3x3_fwd, general path (c_in in chunks: DDBPN '
+             'x4 32->512, 512->32, 512->48; EDSR x3 576->32)', K2G_FWD,
+             'conv.cu', rep + '538'),
+            ('K2gb', 'K2 conv3x3_bwd, general path (dx 512->32, 32->512, '
+             '48->512; with its weight grads)', K2G_BWD, 'conv.cu',
+             rep + '581'),
+            ('Wg', 'conv_wgrad, general path (dW, db of DDBPN x4: (32, 512),'
+             ' (512, 32), (512, 48))', WGG, 'wgrad.cu', rep + '452'),
+            ('K2g5', 'K2 conv3x3_fwd at 5x5, general path (SRResNet x3 '
+             '576->32)', K2G5_FWD, 'conv.cu', rep + '538')]
     rows = []
     for kid, name, fn, src, r in meta:
         st = stats[kid]

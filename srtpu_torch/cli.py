@@ -20,7 +20,9 @@ weights to ``<default_root_dir>/final_weights.pt``, which ``predict
 ``--reduction`` (default 16), srtpu's RCAN keys; ``--model SRResNet``
 takes ``--n_feats``, ``--n_resblocks`` and ``--scale_factor``; ``--model
 RDN`` takes ``--rdn_config`` (default B: 16 blocks of 8 layers, growth
-64) and ``--growth0`` (default 64), srtpu's RDN keys; a model ignores the
+64) and ``--growth0`` (default 64), srtpu's RDN keys; ``--model DDBPN``
+takes ``--n0`` (default 128), ``--nr`` (default 32) and ``--depth``
+(default 6), the DDBPN fields of srtpu's config; a model ignores the
 flags it does not declare. ``fit`` trains in train mode
 (SRResNet's batch norm on batch statistics, updating its running ones)
 and ``predict`` runs eval mode; ``final_weights.pt`` holds the running
@@ -28,9 +30,8 @@ statistics, so ``predict --weights`` reads what ``fit`` left. ``fit``
 runs no validation and writes no checkpoints yet (ROADMAP.md queue 1,
 items 4 and 7). ``--device cuda`` without a card raises: there is no
 fallback to the CPU. On the card ``--precision 32`` raises (the kernels
-take bf16), and so does x3 for EDSR and SRResNet, whose x3 tails need K2
-shapes the port lacks (ROADMAP.md §3, F4); RCAN and RDN run x3 on the
-card, since their tails are cuDNN (each model's ``CARD_SCALES``).
+take bf16), and so does DDBPN x8, which srtpu runs on XLA rather than its
+kernel path (ROADMAP.md §3, F4; each model's ``CARD_SCALES``).
 """
 
 from __future__ import annotations
@@ -58,6 +59,9 @@ def _model_args(p: argparse.ArgumentParser, seed: int) -> None:
     p.add_argument('--reduction', type=int, default=16)
     p.add_argument('--rdn_config', default='B')
     p.add_argument('--growth0', type=int, default=64)
+    p.add_argument('--n0', type=int, default=128)
+    p.add_argument('--nr', type=int, default=32)
+    p.add_argument('--depth', type=int, default=6)
     p.add_argument('--datasets_dir', default='datasets')
     p.add_argument('--default_root_dir', default='.')
     p.add_argument('--precision', choices=('bf16', '32'), default='bf16')
@@ -103,14 +107,15 @@ def build_model(args, device: torch.device) -> torch.nn.Module:
         raise ValueError(
             f'on CUDA the kernels take bf16 and {args.model} runs scales '
             f'{", ".join(map(str, scales))}: pass --precision bf16 and one '
-            f'of those scales (or --device cpu); the other scales need K2 '
-            f'shapes the port lacks (ROADMAP.md F4)')
+            f'of those scales (or --device cpu); the others have no kernel '
+            f'path yet (ROADMAP.md F4)')
     dtype = torch.bfloat16 if args.precision == 'bf16' else None
     model = create_model(args.model, scale_factor=args.scale_factor,
                          n_feats=args.n_feats, n_resblocks=args.n_resblocks,
                          n_resgroups=args.n_resgroups,
                          reduction=args.reduction,
                          rdn_config=args.rdn_config, growth0=args.growth0,
+                         n0=args.n0, nr=args.nr, depth=args.depth,
                          dtype=dtype, device=device,
                          generator=torch.Generator().manual_seed(args.seed))
     weights = getattr(args, 'weights', None)

@@ -1,5 +1,5 @@
-"""JAX EDSR, RCAN, SRResNet and RDN parameters -> an srtpu_torch state
-dict.
+"""JAX EDSR, RCAN, SRResNet, RDN and DDBPN parameters -> an srtpu_torch
+state dict.
 
 Reads either EDSR tree srtpu stores:
 
@@ -58,6 +58,22 @@ and either RDN tree (configs the port runs: G = G0, a 16-multiple):
   ``Conv2d_3`` (GFF2) and the tail from ``Conv2d_4``
   (tests/test_ops_cs.py:472-493 maps one tree onto the other).
 
+and either DDBPN tree:
+
+* ``use_pallas='cs'``: ``Conv2d_0`` (the 3x3 head), ``Conv2d_1`` (the 1x1
+  head), ``head_alpha{0,1}``, ``CSDenseProjection_{i}/{bneck_kernel,
+  bneck_bias, bneck_alpha, a0_*, b0_*, a1_*}`` with CS-arranged coarse
+  projection kernels (up (3 r*r*nr, 3 nr), down (3 nr, 3 r*r*nr)),
+  ``out_kernel`` (depth, 3 CO, 3 r*r*nr) (CS, one phase-dense conv per HR
+  block) and ``out_bias``;
+* ``use_pallas=False``: ``Conv2d_{0,1}`` and ``PReLU_{0,1}`` (the head),
+  ``DenseProjection_{i}/{Conv2d_0, PReLU_0}`` (the bottleneck, where
+  present) and ``_ProjectionConv_{j}/{ConvTranspose2d_0 | Conv2d_0}`` with
+  its ``PReLU``, the fine k x k kernels rearranged by ``ops.ddbpn``'s
+  ``w_up_pm`` / ``w_down_pd``, and ``Conv2d_2`` (the output conv) by
+  ``layout.w_phase_dense`` per block (srtpu/ops/ddbpn_cs.py:145-185 maps
+  one tree onto the other).
+
 A tree is nested dicts of numpy arrays, with or without the top-level
 ``params`` key (an SRResNet tree with it, beside ``batch_stats``). Any
 JAX host can write one as a flat ``.npz`` (``np.savez(path,
@@ -74,7 +90,8 @@ import sys
 import numpy as np
 import torch
 
-from .ops.layout import w_hwio_from_cs, w_ps_hwio
+from .ops.ddbpn import _PROJ_PARAMS, w_down_pd, w_up_pm
+from .ops.layout import w_hwio_from_cs, w_phase_dense, w_ps_hwio
 
 
 def _t(a) -> torch.Tensor:
@@ -263,13 +280,75 @@ def _rdn_from_jax(p: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
+def _cs_hwio(w) -> torch.Tensor:
+    """A CS-arranged 3x3 kernel (..., 3 C', 3 C) -> HWIO (..., 3, 3, C,
+    C')."""
+    w = _t(w)
+    lead = w.shape[:-2]
+    w = w.reshape(-1, *w.shape[-2:])
+    out = w_hwio_from_cs(w, w.shape[-1] // 3, w.shape[-2] // 3)
+    return out.reshape(*lead, *out.shape[1:]).contiguous()
+
+
+def _ddbpn_from_jax(p: dict) -> dict[str, torch.Tensor]:
+    sd: dict[str, torch.Tensor] = {}
+    for i in (0, 1):
+        _conv(sd, f'head{i}', p[f'Conv2d_{i}'])
+    nr = sd['head1.weight'].shape[-1]
+    if 'CSDenseProjection_0' in p:
+        for i in (0, 1):
+            sd[f'head_alpha{i}'] = _t(p[f'head_alpha{i}'])
+        for i, unit in enumerate(_seq(p, 'CSDenseProjection_')):
+            for k, v in unit.items():
+                # the projection kernels are CS-arranged; the bottleneck's
+                # (c_tot, nr) is the port's as it is
+                cs = k.endswith('_kernel') and k != 'bneck_kernel'
+                sd[f'units.{i}.{k.replace("_kernel", "_weight")}'] = \
+                    _cs_hwio(v) if cs else _t(v)
+        sd['out_weight'] = _cs_hwio(p['out_kernel'])
+        sd['out_bias'] = _t(p['out_bias'])
+        return sd
+    for i in (0, 1):
+        sd[f'head_alpha{i}'] = _t(p[f'PReLU_{i}']['alpha'])
+    units = _seq(p, 'DenseProjection_')
+    # the scale from the projection kernel's size (k = 6, 8, 12)
+    k_proj = next(iter(units[0]['_ProjectionConv_0'].values()))['kernel']
+    r = {k: s for s, (k, _, _) in _PROJ_PARAMS.items()}[k_proj.shape[0]]
+    for i, unit in enumerate(units):
+        pre = f'units.{i}.'
+        off = 0
+        if 'Conv2d_0' in unit:              # the 1x1 bottleneck
+            sd[pre + 'bneck_weight'] = _t(unit['Conv2d_0']['kernel'])[0, 0]
+            sd[pre + 'bneck_bias'] = _t(unit['Conv2d_0']['bias'])
+            sd[pre + 'bneck_alpha'] = _t(unit['PReLU_0']['alpha'])
+            off = 1
+        for j, name in enumerate(('a0', 'b0', 'a1')):
+            pc = unit[f'_ProjectionConv_{j}']
+            leaf = pc.get('ConvTranspose2d_0', pc.get('Conv2d_0'))
+            w = _t(leaf['kernel'])
+            sd[f'{pre}{name}_weight'] = (
+                w_up_pm(w, r) if 'ConvTranspose2d_0' in pc
+                else w_down_pd(w, r))
+            sd[f'{pre}{name}_bias'] = _t(leaf['bias'])
+            sd[f'{pre}{name}_alpha'] = _t(unit[f'PReLU_{off + j}']['alpha'])
+    wf = _t(p['Conv2d_2']['kernel'])               # (3, 3, depth * nr, ch)
+    sd['out_weight'] = torch.stack([
+        w_phase_dense(wf[:, :, t * nr:(t + 1) * nr], r)
+        for t in range(wf.shape[2] // nr)])
+    sd['out_bias'] = _t(p['Conv2d_2']['bias'])
+    return sd
+
+
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     """State dict of :class:`srtpu_torch.models.EDSR`, ``RCAN``,
-    ``SRResNet`` or ``RDN`` from a JAX tree of that model (an SRResNet
-    tree with its ``batch_stats``), dispatched on the tree's keys."""
+    ``SRResNet``, ``RDN`` or ``DDBPN`` from a JAX tree of that model (an
+    SRResNet tree with its ``batch_stats``), dispatched on the tree's
+    keys."""
     p = tree.get('params', tree)
     if 'sfe2_kernel' in p or '_RDB_0' in p:
         return _rdn_from_jax(p)
+    if 'CSDenseProjection_0' in p or 'DenseProjection_0' in p:
+        return _ddbpn_from_jax(p)
     if 'CSResidualGroup_0' in p or 'ResidualGroup_0' in p:
         return _rcan_from_jax(p)
     if 'BasicBlock_0' in p:

@@ -1,6 +1,6 @@
 """Model registry of the port (srtpu/models/__init__.py). EDSR, RCAN,
-SRResNet and RDN are ported; the other families of srtpu are listed in
-ROADMAP.md, in the order they will be ported."""
+SRResNet, RDN and DDBPN are ported; the other families of srtpu are
+listed in ROADMAP.md, in the order they will be ported."""
 
 from __future__ import annotations
 
@@ -10,16 +10,17 @@ from torch import nn
 
 from .common import (BNTrunk, Conv2d, PReLU, Trunk, UpscaleBlock,
                      UpscaleTail, mean_shift, pixel_shuffle)
+from .ddbpn import DDBPN
 from .edsr import EDSR
 from .rcan import RCAN
 from .rdn import RDN
 from .srresnet import SRResNet
 
-MODEL_REGISTRY: dict[str, type[nn.Module]] = {'EDSR': EDSR, 'RCAN': RCAN,
-                                              'RDN': RDN,
+MODEL_REGISTRY: dict[str, type[nn.Module]] = {'DDBPN': DDBPN, 'EDSR': EDSR,
+                                              'RCAN': RCAN, 'RDN': RDN,
                                               'SRResNet': SRResNet}
 # srtpu families the port does not have yet
-NOT_PORTED = ('DDBPN', 'SRCNN', 'SRGAN', 'WDSR')
+NOT_PORTED = ('SRCNN', 'SRGAN', 'WDSR')
 
 
 def model_class(name: str) -> type[nn.Module]:
@@ -43,6 +44,7 @@ def create_model(name: str, **kwargs) -> nn.Module:
     return cls(**{k: v for k, v in kwargs.items() if k in accepted})
 
 
-__all__ = ['BNTrunk', 'EDSR', 'MODEL_REGISTRY', 'NOT_PORTED', 'PReLU', 'RCAN',
-           'RDN', 'SRResNet', 'Conv2d', 'Trunk', 'UpscaleBlock', 'UpscaleTail',
-           'create_model', 'mean_shift', 'model_class', 'pixel_shuffle']
+__all__ = ['BNTrunk', 'DDBPN', 'EDSR', 'MODEL_REGISTRY', 'NOT_PORTED',
+           'PReLU', 'RCAN', 'RDN', 'SRResNet', 'Conv2d', 'Trunk',
+           'UpscaleBlock', 'UpscaleTail', 'create_model', 'mean_shift',
+           'model_class', 'pixel_shuffle']

@@ -17,9 +17,9 @@ class EDSR(nn.Module):
     dtype when None). ``device`` places the parameters; ``generator`` (a
     CPU ``torch.Generator``) draws them."""
 
-    # Scales the card runs: x3's phase-dense conv (576 -> 32) is a shape
-    # K2 does not take (ROADMAP.md F4).
-    CARD_SCALES = (2, 4, 8)
+    # Scales the card runs: every EDSR scale (x3's phase-dense conv is
+    # 576 -> 32, on K2's general path).
+    CARD_SCALES = (2, 3, 4, 8)
 
     def __init__(self, scale_factor: int = 4, channels: int = 3,
                  n_feats: int = 64, n_resblocks: int = 16,

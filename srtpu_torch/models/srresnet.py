@@ -24,9 +24,9 @@ class SRResNet(nn.Module):
     # Eval-mode batch norm is per pixel (running statistics), so a padded
     # or tiled image gives the same values on its real pixels.
     GLOBAL_POOLING = False
-    # Scales the card runs: x3's phase-dense conv is 576 -> 32 at 5x5, a
-    # shape K2 does not take (ROADMAP.md F4).
-    CARD_SCALES = (2, 4, 8)
+    # Scales the card runs: every SRResNet scale (x3's phase-dense conv is
+    # 576 -> 32 at 5x5, on K2's general path).
+    CARD_SCALES = (2, 3, 4, 8)
 
     def __init__(self, scale_factor: int = 4, channels: int = 3,
                  n_feats: int = 64, n_resblocks: int = 16,

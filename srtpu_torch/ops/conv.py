@@ -1,5 +1,5 @@
 """K2: 3x3 (and 5x5) SAME conv + bias, NHWC bf16 -> bf16, f32 sums, and
-its backward.
+its backward, at any channel counts that are multiples of 16.
 
 Replaces ``srtpu/ops/cs_conv.py:conv3x3_cs_fwd`` and ``conv3x3_cs_bwd``
 (behind ``conv3x3_cs`` / ``conv3x3_cs_pre``). The forward kernel is
@@ -8,8 +8,10 @@ how its design answers that; the backward's dx is the same kernel with
 the transposed weight and no bias, its dW and db the weight-grad kernel
 (:mod:`.wgrad`). :func:`conv3x3_fwd` and :func:`conv3x3_bwd` launch the
 kernels for CUDA tensors and take the plain versions only for CPU
-tensors. Each counts its launches per kernel size: ``launches`` at 3x3,
-``launches_5x5`` at 5x5 (SRResNet's phase-dense final conv).
+tensors. Each counts its launches per kernel size and path:
+``launches`` at 3x3 and ``launches_5x5`` at 5x5 (SRResNet's phase-dense
+final conv) on the instances of their own, ``launches_general`` and
+``launches_general_5x5`` on the general path (DDBPN, the x3 tails).
 :func:`conv3x3` is the differentiable op (:class:`Conv3x3Fn`).
 """
 
@@ -53,12 +55,21 @@ def conv3x3_bwd_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor
     return (dx, *conv_wgrad_plain(x, g, k=w.shape[0]))
 
 
-def _engine_takes(cin: int, cout: int, k: int) -> bool:
+def _own_instance(cin: int, cout: int, k: int) -> bool:
+    """The EDSR, SRResNet and RDN shapes, on instances of their own (as
+    ``csrc/conv.cu`` dispatches them)."""
     if k == 5:
         return (cin == 256 and cout % 16 == 0) or (cin == 16
                                                    and cout % 64 == 0)
     return k == 3 and ((cin in (16, 64) and cout % 64 == 0)
                        or (cin == 256 and cout % 16 == 0))
+
+
+def _engine_takes(cin: int, cout: int, k: int) -> bool:
+    """K2 takes a k = 3 or 5 conv whose cin and cout are multiples of 16:
+    :func:`_own_instance`'s shapes, and every other on the general path
+    (``csrc/conv.cu``: conv_chunked_kernel)."""
+    return k in (3, 5) and cin % 16 == 0 and cout % 16 == 0
 
 
 def _launch(x, w, b, relu: bool, name: str) -> torch.Tensor:
@@ -88,20 +99,23 @@ def _launch(x, w, b, relu: bool, name: str) -> torch.Tensor:
 
 
 def _count(fn, w: torch.Tensor) -> None:
-    """One launch of ``fn``'s kernel at ``w``'s size."""
-    if w.shape[0] == 5:
-        fn.launches_5x5 += 1
-    else:
-        fn.launches += 1
+    """One launch of ``fn``'s kernel at ``w``'s (the launched weight's)
+    size and path."""
+    k, cin, cout = w.shape[0], w.shape[-2], w.shape[-1]
+    attr = 'launches' if _own_instance(cin, cout, k) else 'launches_general'
+    attr += '_5x5' if k == 5 else ''
+    setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                 relu: bool = False) -> torch.Tensor:
     """x (B, H, W, Cin) bf16; w (k, k, Cin, Cout) bf16; b (Cout,) f32 ->
-    (B, H, W, Cout) bf16. On CUDA, k = 3: Cin = 16 or 64 with Cout % 64
-    == 0, or Cin = 256 with Cout % 16 == 0 (the EDSR tail's shapes); k =
-    5: Cin = 256 with Cout % 16 == 0 (SRResNet's phase-dense final conv)
-    or Cin = 16 with Cout % 64 == 0 (its transposed conv)."""
+    (B, H, W, Cout) bf16. On CUDA, k = 3 or 5 with Cin and Cout multiples
+    of 16: the EDSR tail's 64 -> 64, 64 -> 256, 256 -> 16 and SRResNet's
+    5x5 256 -> 16 on their own instances; DDBPN's projections (x4: 32 ->
+    512, 512 -> 32; x2: 32 -> 128, 128 -> 32), its output convs (512 ->
+    48, 128 -> 16) and the x3 tails' phase-dense 576 -> 32 (3x3 and 5x5)
+    on the general path."""
     if x.device.type == 'cpu':
         return conv3x3_plain(x, w, b, relu)
     out = _launch(x, w, b, relu, 'conv3x3_fwd')
@@ -112,9 +126,11 @@ def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def conv3x3_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (B, H, W, Cin) bf16; w (k, k, Cin, Cout) bf16; g (B, H, W, Cout)
-    bf16 -> dx bf16, dW (k, k, Cin, Cout) f32, db (Cout,) f32. On CUDA:
-    the EDSR path's 64 -> 64, 64 -> 256 and 256 -> 16 at 3x3, SRResNet's
-    256 -> 16 at 5x5."""
+    bf16 -> dx bf16, dW (k, k, Cin, Cout) f32, db (Cout,) f32. On CUDA at
+    every shape :func:`conv3x3_fwd` takes: dx is the forward kernel on
+    the transposed weight (DDBPN x4's 512 -> 32, 32 -> 512, 48 -> 512;
+    x2's 128 -> 32, 32 -> 128, 16 -> 128; the x3 tails' 32 -> 576), dW
+    and db the weight-grad kernel at (Cin, Cout)."""
     if x.device.type == 'cpu':
         return conv3x3_bwd_plain(x, w, g)
     if x.device.type != 'cuda':
@@ -127,13 +143,15 @@ def conv3x3_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor
     dev = x.device
     _build.expect(x, 'x', torch.bfloat16, (bsz, h, wd, cin), dev)
     _build.expect(g, 'g', torch.bfloat16, (bsz, h, wd, cout), dev)
-    dx = _launch(g, w_t(w).contiguous(), None, False, 'conv3x3_bwd')
-    _count(conv3x3_bwd, w)
+    wt = w_t(w).contiguous()
+    dx = _launch(g, wt, None, False, 'conv3x3_bwd')
+    _count(conv3x3_bwd, wt)
     return (dx, *conv_wgrad(x, g, k=k))
 
 
 for _fn in (conv3x3_fwd, conv3x3_bwd):
     _fn.launches = _fn.launches_5x5 = 0
+    _fn.launches_general = _fn.launches_general_5x5 = 0
 
 
 class Conv3x3Fn(torch.autograd.Function):

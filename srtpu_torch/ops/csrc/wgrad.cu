@@ -35,6 +35,17 @@
 // row groups (one per tap row ky, a grid dimension), each block of 10
 // warps keeping 8 row tiles. X is staged with a 2-pixel halo; the order
 // of every sum is fixed as for 3x3.
+//
+// The general path (wgrad_chunk_kernel: any other cin and cout that are
+// multiples of 16, r = 1, k = 3 or 5) serves K2's general path: DDBPN's
+// (32, 512), (512, 32), (512, 48) at x4 and (32, 128), (128, 32),
+// (128, 16) at x2, and the x3 tails' (576, 32) at 3x3 and 5x5. At cin 512
+// X's tile would take 192 KB and 3x3 (576, 32) has 288 row tiles of dW,
+// so the rows are split by input channel: row group rg is the CK-channel
+// chunk rg of X (CK = 64, 32 or 16; 5x5 at most 32), which is all a block
+// stages of X; its k * k * CK / 16 row tiles go to WARPS warps, and the
+// output channels to NB-wide chunks (32 or 16). Partials and their
+// fixed-order reduction as above.
 
 #include "tile_conv.cuh"
 
@@ -172,6 +183,127 @@ __global__ void __launch_bounds__(WARPS * 32, 1)
     ws_b[slot * cout + chunk * NB + threadIdx.x] = bsum;
 }
 
+// The general path's plan: the block's X chunk of CK channels, its G chunk
+// of NB channels, and the chunk's KK * KK * CK / 16 row tiles of dW over
+// WARPS warps.
+template <int CK, int NB, int KK, int WARPS>
+struct WgradChunkPlan {
+  static constexpr int PS = CK + 16;
+  static constexpr int PG = NB + 16;
+  static constexpr int WX = kTW + KK - 1;
+  static constexpr int MF = (kTH * WX + 15) / 16;
+  static constexpr int NPIX = MF * 16 + (KK - 1) * (WX + 1);
+  static constexpr int ROWS = KK * KK * CK / 16;
+  static constexpr int RT = ROWS / WARPS;
+  static constexpr int CT = NB / 16;
+  static constexpr int THREADS = WARPS * 32;
+  static constexpr size_t XS = srt::align128((size_t)NPIX * PS * 2);
+  static constexpr size_t GS = srt::align128((size_t)MF * 16 * PG * 2);
+  static constexpr size_t SMEM = XS + GS;
+  static_assert(ROWS % WARPS == 0, "row tiles per warp");
+};
+
+// grid = (nparts, (cin / CK) * (cout / NB), J). Block (part, rg * nchunks
+// + chunk, job) sums tiles [part * tpp, (part + 1) * tpp) of job's images
+// into dW rows (tap, rg * CK .. rg * CK + CK - 1), columns chunk * NB ..
+// + NB - 1, and (row group 0) db, as wgrad_kernel's partial at slot (job,
+// part).
+template <int CK, int NB, int KK, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32, 1)
+    wgrad_chunk_kernel(const srt::bf16* __restrict__ x,
+                       const srt::bf16* __restrict__ g,
+                       float* __restrict__ ws_w, float* __restrict__ ws_b,
+                       int B, int H, int W, int cin, int cout, float gscale,
+                       long long x_stride, long long g_stride, int tpp) {
+  typedef WgradChunkPlan<CK, NB, KK, WARPS> P;
+  using srt::bf16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  bf16* gsm = reinterpret_cast<bf16*>(smem + P::XS);
+  const int warp = threadIdx.x >> 5;
+  const int nchunks = cout / NB;
+  const int part = blockIdx.x, job = blockIdx.z;
+  const int chunk = blockIdx.y % nchunks, rg = blockIdx.y / nchunks;
+  x += job * x_stride;
+  g += job * g_stride;
+
+  const int tiles_x = (W + kTW - 1) / kTW, tiles_y = (H + kTH - 1) / kTH;
+  const int ntiles = B * tiles_y * tiles_x;
+  const int t0 = part * tpp, t1 = min(t0 + tpp, ntiles);
+
+  srt::AccFrag acc[P::RT][P::CT];
+#pragma unroll
+  for (int i = 0; i < P::RT; ++i)
+#pragma unroll
+    for (int j = 0; j < P::CT; ++j)
+      nvcuda::wmma::fill_fragment(acc[i][j], 0.0f);
+  float bsum = 0.0f;
+
+  for (int t = t0; t < t1; ++t) {
+    const int b = t / (tiles_y * tiles_x), rem = t % (tiles_y * tiles_x);
+    const int y0 = rem / tiles_x * kTH, x0 = rem % tiles_x * kTW;
+    __syncthreads();  // the previous tile's reads are done
+    srt::load_tile<CK>(xs, x + rg * CK, b, H, W, y0 - KK / 2, x0 - KK / 2,
+                       kTH + KK - 1, P::WX, P::NPIX, 1.0f, cin);
+    constexpr int VG = NB / 8;
+    for (int i = threadIdx.x; i < P::MF * 16 * VG; i += blockDim.x) {
+      const int p = i / VG, v = i % VG;
+      const int oy = p / P::WX, ox = p % P::WX;
+      const int gy = y0 + oy, gx = x0 + ox;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (oy < kTH && ox < kTW && gy < H && gx < W) {
+        val = *reinterpret_cast<const uint4*>(
+            g + (((size_t)b * H + gy) * W + gx) * cout + chunk * NB + v * 8);
+        if (gscale != 1.0f) val = srt::scale8(val, gscale);
+      }
+      *reinterpret_cast<uint4*>(gsm + (size_t)p * P::PG + v * 8) = val;
+    }
+    __syncthreads();
+
+    if (rg == 0 && threadIdx.x < NB)
+      for (int p = 0; p < P::MF * 16; ++p)
+        bsum += __bfloat162float(gsm[(size_t)p * P::PG + threadIdx.x]);
+
+    for (int mf = 0; mf < P::MF; ++mf) {
+      srt::BFrag bg[P::CT];
+#pragma unroll
+      for (int j = 0; j < P::CT; ++j)
+        nvcuda::wmma::load_matrix_sync(bg[j], gsm + (size_t)mf * 16 * P::PG +
+                                               j * 16,
+                                    P::PG);
+#pragma unroll
+      for (int i = 0; i < P::RT; ++i) {
+        const int row = warp * P::RT + i;  // (tap, 16-channel group)
+        const int tap = row / (CK / 16), ci0 = row % (CK / 16) * 16;
+        AColFrag a;
+        nvcuda::wmma::load_matrix_sync(
+            a, xs + (size_t)(mf * 16 + tap / KK * P::WX + tap % KK) * P::PS +
+                   ci0,
+            P::PS);
+#pragma unroll
+        for (int j = 0; j < P::CT; ++j)
+          nvcuda::wmma::mma_sync(acc[i][j], a, bg[j], acc[i][j]);
+      }
+    }
+  }
+
+  const size_t slot = (size_t)job * gridDim.x + part;
+  float* wout = ws_w + slot * KK * KK * (size_t)cin * cout;
+#pragma unroll
+  for (int i = 0; i < P::RT; ++i) {
+    const int row = warp * P::RT + i;
+    const int tap = row / (CK / 16), ci0 = row % (CK / 16) * 16;
+#pragma unroll
+    for (int j = 0; j < P::CT; ++j)
+      nvcuda::wmma::store_matrix_sync(
+          wout + ((size_t)tap * cin + rg * CK + ci0) * cout + chunk * NB +
+              j * 16,
+          acc[i][j], cout, nvcuda::wmma::mem_row_major);
+  }
+  if (rg == 0 && threadIdx.x < NB)
+    ws_b[slot * cout + chunk * NB + threadIdx.x] = bsum;
+}
+
 // out[j, i] = sum over p of ws[j, p, i], p in order (n values per slot).
 __global__ void wgrad_reduce(const float* __restrict__ ws,
                              float* __restrict__ out, int nparts, long long n,
@@ -214,6 +346,63 @@ cudaError_t launch(const void* x, const void* g, float* ws_w, float* ws_b,
   return cudaGetLastError();
 }
 
+template <int CK, int NB, int KK, int WARPS>
+cudaError_t launch_chunk(const void* x, const void* g, float* ws_w,
+                         float* ws_b, int J, long long x_stride,
+                         long long g_stride, int B, int H, int W, int cin,
+                         int cout, float gscale, int nparts,
+                         cudaStream_t stream) {
+  typedef WgradChunkPlan<CK, NB, KK, WARPS> P;
+  auto kernel = wgrad_chunk_kernel<CK, NB, KK, WARPS>;
+  cudaError_t err = srt::allow_smem(kernel, P::SMEM);
+  if (err != cudaSuccess) return err;
+  const int ntiles = B * ((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW);
+  const int tpp = (ntiles + nparts - 1) / nparts;
+  dim3 grid(nparts, (cin / CK) * (cout / NB), J);
+  kernel<<<grid, P::THREADS, P::SMEM, stream>>>(
+      static_cast<const srt::bf16*>(x), static_cast<const srt::bf16*>(g),
+      ws_w, ws_b, B, H, W, cin, cout, gscale, x_stride, g_stride, tpp);
+  return cudaGetLastError();
+}
+
+// The general path at CK: NB = 32 or 16, the larger that divides cout.
+// Warps: 3x3 nine (CK 16, 32) or twelve (CK 64), each keeping CK / 16
+// (3 at CK 64) row tiles; 5x5 CK / 16 * 5 warps of 5 row tiles (one tap
+// row of a 16-channel group).
+template <int CK, int KK>
+cudaError_t chunk_nb(const void* x, const void* g, float* ws_w, float* ws_b,
+                     int J, long long x_stride, long long g_stride, int B,
+                     int H, int W, int cin, int cout, float gscale,
+                     int nparts, cudaStream_t s) {
+  constexpr int WARPS = KK == 5 ? CK / 16 * 5 : CK == 64 ? 12 : 9;
+  if (cout % 32 == 0)
+    return launch_chunk<CK, 32, KK, WARPS>(x, g, ws_w, ws_b, J, x_stride,
+                                           g_stride, B, H, W, cin, cout,
+                                           gscale, nparts, s);
+  return launch_chunk<CK, 16, KK, WARPS>(x, g, ws_w, ws_b, J, x_stride,
+                                         g_stride, B, H, W, cin, cout, gscale,
+                                         nparts, s);
+}
+
+// The general path: CK = 64 (3x3 only), 32 or 16, the largest that
+// divides cin (srtpu_torch/ops/wgrad.py:_plan mirrors this choice).
+template <int KK>
+cudaError_t chunked(const void* x, const void* g, float* ws_w, float* ws_b,
+                    int J, long long x_stride, long long g_stride, int B,
+                    int H, int W, int cin, int cout, float gscale, int nparts,
+                    cudaStream_t s) {
+  if constexpr (KK == 3) {
+    if (cin % 64 == 0)
+      return chunk_nb<64, KK>(x, g, ws_w, ws_b, J, x_stride, g_stride, B, H,
+                              W, cin, cout, gscale, nparts, s);
+  }
+  if (cin % 32 == 0)
+    return chunk_nb<32, KK>(x, g, ws_w, ws_b, J, x_stride, g_stride, B, H, W,
+                            cin, cout, gscale, nparts, s);
+  return chunk_nb<16, KK>(x, g, ws_w, ws_b, J, x_stride, g_stride, B, H, W,
+                          cin, cout, gscale, nparts, s);
+}
+
 }  // namespace
 
 // J jobs; job j reads x + j * x_stride (B, H, W, cin) bf16 and
@@ -221,10 +410,11 @@ cudaError_t launch(const void* x, const void* g, float* ws_w, float* ws_b,
 // (B, r*H, r*W, cout / (r*r)) bf16 read phase-major. Writes dw
 // (J, k, k, cin, cout) f32 and db (J, cout) f32. ws_w (J, nparts, k * k *
 // cin * cout) and ws_b (J, nparts, cout) f32 are scratch; nparts <= the
-// number of 8 x 16 tiles. Supported with k = 3: cin = 64 with cout % 64
-// == 0 (cout = r*r*64 when gathering), cin = 256 with cout % 16 == 0;
-// with k = 5: cin = 256 with cout % 16 == 0, r = 1. Returns a
-// cudaError_t.
+// number of 8 x 16 tiles. Own instances with k = 3: cin = 64 with cout %
+// 64 == 0 (cout = r*r*64 when gathering), cin = 256 with cout % 16 == 0;
+// with k = 5: cin = 256 with cout % 16 == 0, r = 1. Any other cin and
+// cout that are multiples of 16, with r = 1, take the general path.
+// Returns a cudaError_t.
 extern "C" int srt_conv_wgrad(const void* x, const void* g, void* ws_w,
                               void* ws_b, void* dw, void* db, int J,
                               long long x_stride, long long g_stride, int B,
@@ -239,6 +429,9 @@ extern "C" int srt_conv_wgrad(const void* x, const void* g, void* ws_w,
     err = launch<256, 16, false, 5, 10, 5>(x, g, w, bws, J, x_stride,
                                            g_stride, B, H, W, cout, 1,
                                            gscale, nparts, s);
+  else if (k == 5 && cin % 16 == 0 && cout % 16 == 0 && r <= 1)
+    err = chunked<5>(x, g, w, bws, J, x_stride, g_stride, B, H, W, cin, cout,
+                     gscale, nparts, s);
   else if (k != 3)
     return (int)cudaErrorInvalidValue;
   else if (cin == 64 && cout % 64 == 0 && r > 1 && cout / (r * r) % 8 == 0)
@@ -250,6 +443,9 @@ extern "C" int srt_conv_wgrad(const void* x, const void* g, void* ws_w,
   else if (cin == 256 && cout % 16 == 0 && r <= 1)
     err = launch<256, 16, false>(x, g, w, bws, J, x_stride, g_stride, B, H,
                                  W, cout, 1, gscale, nparts, s);
+  else if (cin % 16 == 0 && cout % 16 == 0 && r <= 1)
+    err = chunked<3>(x, g, w, bws, J, x_stride, g_stride, B, H, W, cin, cout,
+                     gscale, nparts, s);
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;

@@ -1,5 +1,5 @@
-"""Weight gradient of a k x k SAME conv (k = 3, or 5 for SRResNet's
-phase-dense final conv): dW and db in f32, the half of the K1-K5
+"""Weight gradient of a k x k SAME conv (k = 3, or 5 for the phase-dense
+final convs of SRResNet's tail): dW and db in f32, the half of the K1-K5
 backward passes that the TPU kernels accumulate in resident f32 scratch
 (``srtpu/ops/cs_conv.py``: ``_conv_bwd_kernel``, ``_ups_conv_bwd_kernel``,
 ``_trunk_bwd_kernel_mega``; ``srtpu/ops/bn_resblock_cs.py``: ``_b2_kernel``,
@@ -8,7 +8,9 @@ backward passes that the TPU kernels accumulate in resident f32 scratch
 The kernel is ``csrc/wgrad.cu``, whose head note says what bounds it on
 the H100 and how it stays deterministic (per-block partials added in a
 fixed order). :func:`conv_wgrad` launches it for CUDA tensors and takes
-the plain version only for CPU tensors.
+the plain version only for CPU tensors; it counts ``launches`` on the
+instances of their own and ``launches_general`` on the general path
+(any other multiples of 16: DDBPN's and the x3 tails' shapes).
 """
 
 from __future__ import annotations
@@ -61,19 +63,38 @@ def conv_wgrad_plain(x: torch.Tensor, g: torch.Tensor, gscale: float = 1.0,
             torch.stack(dbs).reshape(*lead, -1))
 
 
-def _kernel_takes(cin: int, cout: int, r: int, k: int) -> bool:
+def _own_instance(cin: int, cout: int, r: int, k: int) -> bool:
+    """The shapes with an instance of their own (the EDSR, RCAN, SRResNet
+    and RDN paths); the rest go to the general path."""
     if k == 5:
         return cin == 256 and cout % 16 == 0 and r <= 1
     return k == 3 and ((cin == 64 and cout % 64 == 0)
                        or (cin == 256 and cout % 16 == 0 and r <= 1))
 
 
+def _kernel_takes(cin: int, cout: int, r: int, k: int) -> bool:
+    return _own_instance(cin, cout, r, k) or (
+        k in (3, 5) and cin % 16 == 0 and cout % 16 == 0 and r <= 1)
+
+
+def _blocks_per_part(cin: int, cout: int, r: int, k: int) -> int:
+    """Blocks of one job's part: the kernel's grid.y. Own instances: the
+    output chunks (times the 5 tap-row groups at 5x5); the general path
+    (wgrad.cu: chunked): the X chunks of CK channels times the output
+    chunks of NB, CK and NB chosen as there."""
+    if _own_instance(cin, cout, r, k):
+        return cout // (64 if cin == 64 else 16) * (5 if k == 5 else 1)
+    ck = 64 if k == 3 and cin % 64 == 0 else 32 if cin % 32 == 0 else 16
+    nb = 32 if cout % 32 == 0 else 16
+    return cin // ck * (cout // nb)
+
+
 def conv_wgrad(x: torch.Tensor, g: torch.Tensor, gscale: float = 1.0,
                r: int = 1, k: int = 3) -> tuple[torch.Tensor, torch.Tensor]:
-    """As :func:`conv_wgrad_plain`, with bf16 x and g. On CUDA, k = 3: Cin
-    = 64 with Cout % 64 == 0 (Cout = r*r*64 when gathering), or Cin = 256
-    with Cout % 16 == 0; k = 5: Cin = 256 with Cout % 16 == 0. Leading
-    dims of x and g are stacked jobs, one launch for all."""
+    """As :func:`conv_wgrad_plain`, with bf16 x and g. On CUDA, k = 3 or 5
+    with Cin and Cout multiples of 16 (r = 1), and at k = 3 Cin = 64 with
+    Cout = r*r*64 when gathering. Leading dims of x and g are stacked
+    jobs, one launch for all."""
     if x.device.type == 'cpu':
         return conv_wgrad_plain(x, g, gscale, r, k)
     if x.device.type != 'cuda':
@@ -90,8 +111,7 @@ def conv_wgrad(x: torch.Tensor, g: torch.Tensor, gscale: float = 1.0,
         else (*lead, bsz, h, w, cout)
     _build.expect(x, 'x', torch.bfloat16, x.shape, dev)
     _build.expect(g, 'g', torch.bfloat16, g_shape, dev)
-    # blocks per part: output chunks, times the 5 row groups at k = 5
-    chunks = cout // (64 if cin == 64 else 16) * (5 if k == 5 else 1)
+    chunks = _blocks_per_part(cin, cout, r, k)
     tiles = bsz * -(-h // TH) * -(-w // TW)
     nparts = max(1, min(tiles, TARGET_BLOCKS // (n_jobs * chunks)))
     f32 = dict(dtype=torch.float32, device=dev)
@@ -107,8 +127,12 @@ def conv_wgrad(x: torch.Tensor, g: torch.Tensor, gscale: float = 1.0,
             g[(0,) * len(lead)].numel(), bsz, h, w, cin, cout, r,
             float(gscale), nparts, k, _build.stream(dev))
     _build.check(err, 'srt_conv_wgrad')
-    conv_wgrad.launches += 1
+    if _own_instance(cin, cout, r, k):
+        conv_wgrad.launches += 1
+    else:
+        conv_wgrad.launches_general += 1
     return dw, db
 
 
-conv_wgrad.launches = 0
+# launches on the instances of their own, and on the general path
+conv_wgrad.launches = conv_wgrad.launches_general = 0

@@ -46,8 +46,8 @@ def build_optimizer(name: str, params: dict[str, Any] | list[str] | None,
                     parameters: Iterable[torch.nn.Parameter]
                     ) -> torch.optim.Optimizer:
     """The optimizer ``name`` with parsed ``params`` over ``parameters``,
-    with srtpu's defaults (lr 1e-3 for ADAM, 1e-2 for SGD). Parameters
-    the optimizer does not take raise, as in srtpu."""
+    with srtpu's defaults (lr 1e-2 for ``SGD`` as written, else 1e-3).
+    Parameters the optimizer does not take raise, as in srtpu."""
     kw = parse_optimizer_params(params) if not isinstance(params, dict) \
         else dict(params or {})
     key = name.lower()
@@ -55,16 +55,20 @@ def build_optimizer(name: str, params: dict[str, Any] | list[str] | None,
         raise NotImplementedError(
             f'optimizer {name} is not ported to srtpu_torch yet (ROADMAP.md '
             f'queue 1, item 16); ported: ADAM, SGD')
-    lr = kw.pop('lr', 1e-2 if key == 'sgd' else 1e-3)
+    # srtpu picks the default from the name as written: 'sgd' gets 1e-3
+    lr = kw.pop('lr', 1e-3 if name not in ('SGD', 'RMSprop') else 1e-2)
     weight_decay = kw.pop('weight_decay', 0.0)
     if key == 'adam':
         betas = kw.pop('betas', (0.9, 0.999))
         cls, args = torch.optim.Adam, dict(betas=(betas[0], betas[1]),
                                            eps=kw.pop('eps', 1e-8))
     elif key == 'sgd':
+        momentum = kw.pop('momentum', 0.0)
+        # optax's Nesterov trace at momentum 0 is plain SGD; torch's SGD
+        # refuses nesterov without momentum
         cls, args = torch.optim.SGD, dict(
-            momentum=kw.pop('momentum', 0.0),
-            nesterov=bool(kw.pop('nesterov', False)))
+            momentum=momentum,
+            nesterov=bool(kw.pop('nesterov', False)) and momentum != 0)
     else:
         raise ValueError(
             f'Optimizer not recognized: {name}. Supported optimizers: '

@@ -21,6 +21,7 @@ K4 (SRResNet's BN block): within the per-element limits of
 sum within its f32 rounding (2^-20 of the sum of its terms' magnitudes)
 plus what the bf16 values it reads differ by; the backward fed sums that
 make db a real value.
+K2's general path (DDBPN's shapes, the x3 tails' 576 -> 32) as K2.
 K6 (RDN's dense blocks): the bf16 outputs (cat, the buffers, dx, dout)
 within two steps: a value a step apart is read by the later layers of
 its block; the chain's bias grads db within one step of their largest
@@ -182,7 +183,7 @@ def test_train_step_kernel_path_matches_plain(device):
         assert (got - ref).abs().max().item() <= 2.0 ** -4 * top
 
 
-@pytest.mark.parametrize('scale', [2, 4, 8])
+@pytest.mark.parametrize('scale', [2, 3, 4, 8])
 def test_edsr_kernel_path_matches_plain(device, scale):
     model = create_model('EDSR', scale_factor=scale, n_feats=64,
                          n_resblocks=2, dtype=torch.bfloat16, device=device,
@@ -197,8 +198,8 @@ def test_edsr_kernel_path_matches_plain(device, scale):
 
 
 def test_wrapper_rejects_unsupported_shapes(device):
-    x = torch.zeros(1, 4, 4, 32, dtype=torch.bfloat16, device=device)
-    w = torch.zeros(3, 3, 32, 32, dtype=torch.bfloat16, device=device)
+    x = torch.zeros(1, 4, 4, 24, dtype=torch.bfloat16, device=device)
+    w = torch.zeros(3, 3, 24, 32, dtype=torch.bfloat16, device=device)
     b = torch.zeros(32, device=device)
     with pytest.raises(ValueError, match='no kernel'):
         conv3x3_fwd(x, w, b)
@@ -388,12 +389,13 @@ def test_conv5x5_kernel_matches_plain(device, h, w):
     assert all(torch.equal(a, b) for a, b in zip(got, conv3x3_bwd(x, wt, g)))
 
 
-@pytest.mark.parametrize('scale', [2, 4, 8])
+@pytest.mark.parametrize('scale', [2, 3, 4, 8])
 @pytest.mark.parametrize('train', [False, True])
 def test_srresnet_kernel_path_matches_plain(device, scale, train):
     """SRResNet (2 resblocks, 64 features) on the card, kernel path
     against plain path: eval mode (K2, K3; the BN trunk on running
-    statistics) and train mode (K4 too, batch statistics); x3 raises."""
+    statistics) and train mode (K4 too, batch statistics); x3's 576 -> 32
+    5x5 tail on K2's general path."""
     model = create_model('SRResNet', scale_factor=scale, n_feats=64,
                          n_resblocks=2, dtype=torch.bfloat16, device=device,
                          generator=torch.Generator().manual_seed(scale))
@@ -408,13 +410,96 @@ def test_srresnet_kernel_path_matches_plain(device, scale, train):
     assert (got - ref).abs().max().item() <= 2.0 ** -5
 
 
-def test_srresnet_x3_raises_on_cuda(device):
-    model = create_model('SRResNet', scale_factor=3, n_feats=64,
-                         n_resblocks=1, dtype=torch.bfloat16, device=device,
-                         generator=torch.Generator().manual_seed(0)).eval()
-    with pytest.raises(ValueError, match='no kernel'):
-        with torch.inference_mode():
-            model(torch.rand((1, 8, 8, 3), device=device))
+# K2's general path: DDBPN x4 (nr 32) and x2, the x3 tails; (cin, cout, k)
+GENERAL_SHAPES = [(32, 512, 3), (512, 32, 3), (512, 48, 3), (32, 128, 3),
+                  (128, 32, 3), (128, 16, 3), (576, 32, 3), (576, 32, 5)]
+
+
+@pytest.mark.parametrize('h,w', [(1, 1), (7, 16), (9, 33)])
+@pytest.mark.parametrize('cin,cout,k', GENERAL_SHAPES)
+def test_k2_general_path_matches_plain(device, cin, cout, k, h, w):
+    """K2 at the general path's shapes: the forward within one step,
+    the backward's dx (the reverse shape) within one step and dW, db
+    within 1e-4 of their largest magnitude, one launch of each counted,
+    the backward bit-identical twice."""
+    from srtpu_torch.ops.conv import _own_instance
+    gen = torch.Generator().manual_seed(cin * 7 + cout + k + h * 100 + w)
+    x = _u(gen, (2, h, w, cin), 1.0, device)
+    wt = _u(gen, (k, k, cin, cout), (k * k * cin) ** -0.5, device)
+    b = _u(gen, (cout,), 0.1, device, torch.float32)
+    sfx = '_5x5' if k == 5 else ''
+    before = getattr(conv3x3_fwd, 'launches_general' + sfx)
+    got = conv3x3_fwd(x, wt, b)
+    torch.cuda.synchronize()
+    assert getattr(conv3x3_fwd, 'launches_general' + sfx) == before + 1
+    _assert_close(got, conv3x3_plain(x, wt, b), 1)
+    g = _u(gen, (2, h, w, cout), 1.0, device)
+    # dx is the reverse shape: DDBPN x2's 16 -> 128 has an own instance
+    dx_attr = ('launches' if _own_instance(cout, cin, k)
+               else 'launches_general') + sfx
+    before = getattr(conv3x3_bwd, dx_attr), conv_wgrad.launches_general
+    got = conv3x3_bwd(x, wt, g)
+    torch.cuda.synchronize()
+    assert (getattr(conv3x3_bwd, dx_attr), conv_wgrad.launches_general) == (
+        before[0] + 1, before[1] + 1)
+    ref = conv3x3_bwd_plain(x, wt, g)
+    _assert_close(got[0], ref[0], 1)
+    for g_t, r_t in zip(got[1:], ref[1:]):
+        _assert_close(g_t, r_t)
+    assert all(torch.equal(a, c) for a, c in zip(got, conv3x3_bwd(x, wt, g)))
+
+
+def _ddbpn(device, scale, seed=0):
+    return create_model('DDBPN', scale_factor=scale, n0=32, nr=32, depth=3,
+                        dtype=torch.bfloat16, device=device,
+                        generator=torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.parametrize('scale', [2, 4])
+def test_ddbpn_kernel_path_matches_plain(device, scale):
+    """DDBPN (nr 32, depth 3) on the card, kernel path against plain
+    path: 3 K2 launches per unit (5 units) and one per HR block (3)."""
+    model = _ddbpn(device, scale, scale)
+    lr = torch.rand((2, 20, 28, 3),
+                    generator=torch.Generator().manual_seed(3)).to(device)
+    before = conv3x3_fwd.launches_general
+    with torch.inference_mode():
+        got = model(lr).float()
+        assert conv3x3_fwd.launches_general == before + 15 + 3
+        ref = model(lr, plain=True).float()
+    assert got.shape == (2, 20 * scale, 28 * scale, 3)
+    assert (got - ref).abs().max().item() <= 2.0 ** -6
+
+
+def test_ddbpn_train_step_kernel_path_matches_plain(device):
+    """One DDBPN x4 step (L1, Adam), kernel path against plain path from
+    the same params and batch (as EDSR's); every dead-tap slot's gradient
+    exactly 0 on the card."""
+    from srtpu_torch.losses import parse_losses
+    from srtpu_torch.optim import build_optimizer
+    from srtpu_torch.train import TrainState, make_train_step
+    gen = torch.Generator().manual_seed(6)
+    lr = torch.rand((2, 12, 20, 3), generator=gen).to(device)
+    hr = torch.rand((2, 48, 80, 3), generator=gen).to(device)
+    grads, losses = [], []
+    for plain in (False, True):
+        model = _ddbpn(device, 4, 1)
+        state = TrainState(model, build_optimizer(
+            'ADAM', ['lr=1e-4'], model.parameters()))
+        logs = make_train_step(parse_losses('l1'), plain=plain)(state, lr, hr)
+        losses.append(float(logs['loss']))
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    assert abs(losses[0] - losses[1]) <= 2.0 ** -7 * losses[1]
+    for n, got in grads[0].items():
+        assert got.dtype == torch.float32
+        top = grads[1][n].abs().max().item()
+        assert (got - grads[1][n]).abs().max().item() <= 2.0 ** -4 * top, n
+    masks = {True: model.m_up, False: model.m_down}
+    for i, unit in enumerate(model.units):
+        for name, is_up in (('a0', unit.up), ('b0', not unit.up),
+                            ('a1', unit.up)):
+            g = grads[0][f'units.{i}.{name}_weight']
+            assert torch.all(g[masks[is_up] == 0] == 0), (i, name)
 
 
 def _k6_case(gen, device, h, w, batch=2, d=2, c=3):

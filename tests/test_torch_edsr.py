@@ -98,7 +98,7 @@ def test_convert_npz_roundtrip(tmp_path):
 
 def test_create_model_registry():
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        create_model('DDBPN', generator=torch.Generator())
+        create_model('SRCNN', generator=torch.Generator())
     with pytest.raises(ValueError, match='Unknown model'):
         create_model('NoSuchNet', generator=torch.Generator())
     # kwargs the model doesn't declare are dropped, as in srtpu

@@ -737,15 +737,20 @@ def test_trainer_fit_trains_and_predict_evaluates(tmp_path):
 
 
 def test_cli_refuses_srresnet_x3_on_cuda():
-    """SRResNet's x3 tail needs a 576 -> 32 5x5 phase-dense conv that K2
-    does not take: refused at model build, naming ROADMAP's F4, before
-    any card is touched; x2, x4 and x8 are the card's scales."""
+    """SRResNet's x3 tail, a 576 -> 32 5x5 phase-dense conv, is on K2's
+    general path, so x3 is one of the card's scales with x2, x4 and x8
+    and is no longer refused; x3 in f32 still is (the kernels take
+    bf16), at model build, naming ROADMAP's F4, before any card is
+    touched."""
     from srtpu_torch import cli
     from srtpu_torch.models import SRResNet
-    assert SRResNet.CARD_SCALES == (2, 4, 8)
+    from srtpu_torch.ops import conv
+    assert SRResNet.CARD_SCALES == (2, 3, 4, 8)
+    assert conv._engine_takes(576, 32, 5) and conv._engine_takes(32, 576, 5)
     args = cli.build_parser().parse_args(
         ['fit', '--model', 'SRResNet', '--scale_factor', '3',
-         '--train_datasets', 'Train', '--device', 'cuda'])
+         '--precision', '32', '--train_datasets', 'Train', '--device',
+         'cuda'])
     with pytest.raises(ValueError, match='F4'):
         cli.build_model(args, torch.device('cuda'))
 
