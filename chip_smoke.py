@@ -1,5 +1,5 @@
 """Drive srtpu_torch's EDSR-baseline x4, RCAN-10x16 x4, SRResNet x4,
-RDN-B x4 and DDBPN x4 predict and training on one CUDA card.
+RDN-B x4, DDBPN x4 and WDSR-B x4 predict and training on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -116,9 +116,33 @@ Phases, each of which raises on failure (nothing is caught):
 13. EDSR and SRResNet at x3 on the card: one predict image each through
    the CLI (their phase-dense 576 -> 32 tails, 3x3 and 5x5, on K2's
    general path), kernel path against plain path.
+2g. K7 (WDSR-B's block) forward and backward against their plain
+   versions at C = 128 (e 768, Lp 112): the training shape (batch 16, LR
+   32x32), the predict shape (batch 1, 128x128) and a ragged batch 2 of
+   67x45; out, dx and the six f32 grads beside their tolerances, two
+   calls bit-identical, kernel, plain and bound times (the bound counts
+   the block's work at its bottleneck L = 102, not the kernels' padded
+   Lp), and one bf16 block on cuDNN (channels-last weights, benchmark
+   mode) timed each way beside;
+14. the WDSR-B predict slice: phase 3's path and images with ``--model
+   WDSR --use_pallas cs`` at srtpu's defaults (128 features, 16 blocks,
+   x4): per image 16 K7 forward launches and no K1-K6; PNGs at 4x;
+   kernel path against plain path; device time by kernel group at
+   512x352; the same images' forward times on the stock route
+   (``--use_pallas false``, same weights) beside;
+15. the WDSR-B fit slice: phase 4 with ``--model WDSR --use_pallas cs``:
+   per step 16 K7 forward and 16 K7 backward launches, the loss falling,
+   kernel-path against plain-path gradients (v, g and bias of every conv)
+   and losses, ms/step, patches/s, device share and time by kernel
+   group, and the stock route's step from the same params beside;
+16. a short SRResNet x3 fit (4 BN blocks, LR 32x32 patches, 10 steps):
+   the 5x5 phase-dense 576 -> 32 conv's backward (dx 32 -> 576 and its
+   weight grads) on K2's general path on a main path, gradients against
+   an f32 step.
 The line before the last is a JSON object with, per kernel, its launches
-in the main-path runs (EDSR, RCAN, SRResNet, RDN and DDBPN predict and
-fit, EDSR and SRResNet x3 predict; ``launches`` is their sum), its
+in the main-path runs (EDSR, RCAN, SRResNet, RDN, DDBPN and WDSR predict
+and fit, EDSR and SRResNet x3 predict, SRResNet x3 fit; ``launches`` is
+their sum), its
 largest error against its plain version,
 its time (K4's: its kernels' own device time from torch.profiler; the
 others: the wrapper's CUDA-event time) and the plain version's at the
@@ -168,6 +192,8 @@ from srtpu_torch.ops.layout import w_t
 from srtpu_torch.ops.rdn import (pack, rdb_bwd_chain, rdb_bwd_chain_plain,
                                  rdb_bwd_dw, rdb_bwd_dw_plain, rdn_fwd,
                                  rdn_fwd_plain)
+from srtpu_torch.ops.wdsr import (wdsr_bwd, wdsr_bwd_plain, wdsr_fwd,
+                                  wdsr_fwd_plain, wdsr_lp)
 from srtpu_torch.optim import build_optimizer
 from srtpu_torch.train import TrainState, make_train_step
 from srtpu_torch.utils.logging import save_image
@@ -350,6 +376,43 @@ EDSR_X3_LAUNCHES = {trunk_fwd: L, conv3x3_fwd: 2, K2G_FWD: 1, upsample_fwd: 0}
 SRRESNET_X3_LAUNCHES = {conv3x3_fwd: 1, K2G5_FWD: 1, CONV5_FWD: 0,
                         upsample_fwd: 0, trunk_fwd: 0,
                         **{fn: 0 for fn in K4_FNS.values()}}
+# SRResNet x3 fit (the 5x5 phase-dense 576 -> 32 backward on K2's general
+# path): 4 BN blocks (cut from 16: the tail is what it exercises), batch
+# 16 of LR 32x32 (patch 96), 10 steps; the counters it is sure of
+K2G5_BWD = (conv3x3_bwd, 'launches_general_5x5')
+X3_FIT_BLOCKS, X3_FIT_PATCH, X3_FIT_STEPS = 4, 96, 10
+SRRESNET_X3_STEP_LAUNCHES = {conv3x3_fwd: 1, K2G5_FWD: 1, K2G5_BWD: 1,
+                             WGG: 1, CONV5_FWD: 0, CONV5_BWD: 0,
+                             upsample_fwd: 0, upsample_bwd: 0}
+# WDSR-B x4 at srtpu's defaults (srtpu/models/wdsr.py:124-133, srtpu
+# bench.py:99-100): block B, 128 features, 16 blocks, res_scale 1, on
+# srtpu's kernel route ('cs': K7 runs each block); the stock route
+# (--use_pallas false: cuDNN weight-normed convs) is timed beside it
+WDSR_C, WDSR_L = 128, 16
+WDSR_E, (WDSR_LV, WDSR_LP) = 6 * WDSR_C, wdsr_lp(WDSR_C)
+WDSR_ARGS = ['--n_feats', str(WDSR_C), '--n_resblocks', str(WDSR_L),
+             '--use_pallas', 'cs']
+WDSR_STOCK = ('--use_pallas', 'false')
+NO_OTHER_FWD = {trunk_fwd: 0, upsample_fwd: 0, rcab_fwd: 0, rdn_fwd: 0,
+                conv3x3_fwd: 0, K2G_FWD: 0, CONV5_FWD: 0, K2G5_FWD: 0,
+                **{fn: 0 for fn in K4_FNS.values()}}
+# per image of a WDSR-B x4 predict: one K7 forward per block; the skip,
+# head and tail are cuDNN
+WDSR_PREDICT_LAUNCHES = {wdsr_fwd: WDSR_L, wdsr_bwd: 0, **NO_OTHER_FWD}
+# per WDSR-B train step: K7 each way per block (its backward's dW3 / db3
+# launches are counted on K7b, not on the weight-grad kernel's counters)
+WDSR_STEP_LAUNCHES = {wdsr_fwd: WDSR_L, wdsr_bwd: WDSR_L, conv3x3_bwd: 0,
+                      K2G_BWD: 0, conv_wgrad: 0, WGG: 0, trunk_bwd: 0,
+                      upsample_bwd: 0, rcab_bwd: 0, rdb_bwd_chain: 0,
+                      **NO_OTHER_FWD}
+# K7 against its plain version on the same inputs: h1 and h2 round at the
+# same points, but a value next to a bf16 rounding boundary may land a
+# step apart and the next product reads it: out and dx within two steps
+# of their largest magnitude; the f32 weight and bias grads, sums of
+# products of those bf16 values, within one step.
+K7_STEPS = {'out': 2}
+K7B_STEPS = {'dx': 2, 'dw1': 1, 'db1': 1, 'dw2': 1, 'db2': 1, 'dw3': 1,
+             'db3': 1}
 # The H100 SXM's published peaks (NVIDIA data sheet), for bound_ms
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 
@@ -1266,9 +1329,11 @@ def check_k2_general(device, smi: str) -> dict:
     kernel, plain and library times at the first two. Returns K2g (3x3
     forward, timed: DDBPN x4's three shapes at the predict shape), K2gb
     (3x3 backward with its weight grads, at the training shape), Wg (the
-    weight grads alone, at the training shape) and K2g5 (5x5 forward, at
-    the predict shape) stats; each error the largest over all shapes."""
-    stats = new_stats(('K2g', 'K2gb', 'Wg', 'K2g5'))
+    weight grads alone, at the training shape), K2g5 (5x5 forward, at
+    the predict shape) and K2g5b (5x5 backward with its weight grads, at
+    the training shape: SRResNet x3's fit) stats; each error the largest
+    over all shapes."""
+    stats = new_stats(('K2g', 'K2gb', 'Wg', 'K2g5', 'K2g5b'))
     shapes = ((TRAIN_BATCH, TRAIN_PATCH // SCALE, TRAIN_PATCH // SCALE),
               (1, 128, 128), (2, 67, 45))
     bf = torch.bfloat16
@@ -1298,12 +1363,9 @@ def check_k2_general(device, smi: str) -> dict:
             e_b = _check_all(f'K2 general bwd {tag} (dx {cout}->{cin})',
                              ('dx', 'dW', 'db'), bgot, bref,
                              [BWD_DX_STEPS['K2'], 1e-4, 1e-4])
-            # no main path runs the 5x5 backward (SRResNet x3 fit): its
-            # errors are checked and printed, not kept for the JSON line
             errs = {'K2g' if k == 3 else 'K2g5': e_f,
+                    'K2gb' if k == 3 else 'K2g5b': e_b,
                     'Wg': _err(bgot[1], bref[1], None)[0]}
-            if k == 3:
-                errs['K2gb'] = e_b
             for key, e in errs.items():
                 stats[key]['max_abs_err'] = max(stats[key]['max_abs_err'], e)
             if i == 2:
@@ -1345,6 +1407,133 @@ def check_k2_general(device, smi: str) -> dict:
                 stats['K2g5']['library_ms'] = t['fwd_lib']
                 record(stats['K2g5'], t['fwd'], t['fwd_plain'], f_fl,
                        nbytes(x, wt, b, got))
+            if k == 5 and i == 0:
+                stats['K2g5b']['library_ms'] = t['bwd_lib']
+                record(stats['K2g5b'], t['bwd'], t['bwd_plain'], 2 * f_fl,
+                       nbytes(x, wt, g, bgot))
+        torch.cuda.empty_cache()
+    return stats
+
+
+def wdsr_case(gen, device, bsz: int, h: int, w: int) -> tuple:
+    """K7's operands at WDSR-B's width (C 128, e 768, L 102 padded to Lp
+    112 with zero rows) at srtpu's init bounds, and a cotangent g."""
+    bf, f32 = torch.bfloat16, torch.float32
+    c, e, lv, lp = WDSR_C, WDSR_E, WDSR_LV, WDSR_LP
+
+    def padded(t, dim):
+        return F.pad(t, (0, 0) * (t.dim() - 1 - dim) + (0, lp - lv))
+    return (_uniform(gen, (bsz, h, w, c), 1.0, device, bf),
+            _uniform(gen, (c, e), c ** -0.5, device, bf),
+            _uniform(gen, (e,), c ** -0.5, device, f32),
+            padded(_uniform(gen, (e, lv), e ** -0.5, device, bf), 1),
+            padded(_uniform(gen, (lv,), e ** -0.5, device, f32), 0),
+            padded(_uniform(gen, (3, 3, lv, c), (9 * lv) ** -0.5, device,
+                            bf), 2).contiguous(),
+            _uniform(gen, (c,), (9 * lv) ** -0.5, device, f32),
+            _uniform(gen, (bsz, h, w, c), 1.0, device, bf))
+
+
+def stock_block(x, w1, b1, w2, b2, w3, b3, res_scale: float = 1.0):
+    """One WDSR-B block on the stock route, cuDNN in bf16 channels-last:
+    1x1, ReLU, 1x1, 3x3, x res_scale, + x. x is NHWC (its NCHW view goes
+    in), the weights OIHW in channels-last memory and the biases bf16
+    (stock_operands), as lib_conv's."""
+    xc = x.permute(0, 3, 1, 2)
+    h = F.conv2d(xc, w1, b1).relu()
+    h = F.conv2d(h, w2, b2)
+    return F.conv2d(h, w3, b3, padding=1) * res_scale + xc
+
+
+def stock_operands(x, w1, b1, w2, b2, w3, b3) -> list:
+    """stock_block's leaves from K7's unpadded operands (w1 (C, e), w2
+    (e, L), w3 HWIO (3, 3, L, C)): weights OIHW channels-last, biases in
+    x's dtype, each a leaf that takes a gradient."""
+    cl = torch.channels_last
+
+    def oihw(w):
+        w = w.t()[:, :, None, None] if w.dim() == 2 else w.permute(3, 2, 0, 1)
+        return w.contiguous(memory_format=cl)
+    return [t.detach().clone().requires_grad_() if t is x else
+            t.detach().requires_grad_() for t in
+            (x, oihw(w1), b1.to(x.dtype), oihw(w2), b2.to(x.dtype), oihw(w3),
+             b3.to(x.dtype))]
+
+
+def check_wdsr_kernels(device, smi: str) -> dict:
+    """Phase 2g. K7's forward and backward against the plain versions at
+    the training shape (batch 16, LR 32x32), the predict shape (batch 1,
+    128x128) and a ragged batch 2 of 67x45, C = 128, res_scale 1 (srtpu's
+    default): every output beside its tolerance, two calls bit-identical,
+    kernel and plain times, the bound; and one stock-route block (cuDNN)
+    timed beside, each way. Returns K7 / K7b stats, timed at the training
+    shape (per block)."""
+    stats = new_stats(('K7', 'K7b'))
+    shapes = ((TRAIN_BATCH, TRAIN_PATCH // SCALE, TRAIN_PATCH // SCALE),
+              (1, 128, 128), (2, 67, 45))
+    for i, (bsz, h, w) in enumerate(shapes):
+        gen = torch.Generator().manual_seed(bsz * 7907 + h * 113 + w)
+        x, *prm, g = wdsr_case(gen, device, bsz, h, w)
+        fargs, bargs = (x, *prm, 1.0), (x, g, *prm[:5], 1.0)
+        tag = f'C={WDSR_C} e={WDSR_E} Lp={WDSR_LP} {bsz}x{h}x{w}'
+        got = wdsr_fwd(*fargs)
+        torch.cuda.synchronize()
+        ref = wdsr_fwd_plain(*fargs)
+        need(torch.equal(got, wdsr_fwd(*fargs)),
+             f'K7 fwd {tag}: two calls differ')
+        err = _check_all(f'K7 wdsr fwd {tag}', K7_STEPS, [got], [ref],
+                         list(K7_STEPS.values()))
+        stats['K7']['max_abs_err'] = max(stats['K7']['max_abs_err'], err)
+        bgot = wdsr_bwd(*bargs)
+        torch.cuda.synchronize()
+        bref = wdsr_bwd_plain(*bargs)
+        need(all(torch.equal(a, b) for a, b in zip(bgot, wdsr_bwd(*bargs))),
+             f'K7 bwd {tag}: two calls differ')
+        err = _check_all(f'K7 wdsr bwd {tag}', K7B_STEPS, bgot, bref,
+                         list(K7B_STEPS.values()))
+        stats['K7b']['max_abs_err'] = max(stats['K7b']['max_abs_err'], err)
+        if i == 2:
+            continue
+        # the function's work and bytes at the bottleneck width L (the
+        # padding to Lp is the kernels' choice): wdsr_cs.py:154 (forward)
+        # and :193 (backward, twice the work) at L
+        px, lv = bsz * h * w, WDSR_LV
+        fwd_flops = 2.0 * px * (WDSR_E * WDSR_C + lv * WDSR_E
+                                + 9 * WDSR_C * lv)
+        fun = (x, prm[0], prm[1], prm[2][:, :lv], prm[3][:lv],
+               prm[4][:, :, :lv], prm[5])
+        fms = median_ms(lambda: wdsr_fwd(*fargs), 10, 3)
+        fpl = median_ms(lambda: wdsr_fwd_plain(*fargs), 3, 3)
+        bms = median_ms(lambda: wdsr_bwd(*bargs), 10, 3)
+        bpl = median_ms(lambda: wdsr_bwd_plain(*bargs), 3, 3)
+        f_moved = nbytes(fun, got)
+        b_moved = nbytes(g, fun[:6], bgot[:3], bgot[3][:, :lv],
+                         bgot[4][:lv], bgot[5][:, :, :lv], bgot[6])
+        f_bound = max(bound(fwd_flops, f_moved))
+        b_bound = max(bound(2 * fwd_flops, b_moved))
+        # the stock route's block, forward and forward + backward, with
+        # cuDNN's benchmark mode on (its fastest algorithms)
+        sw = stock_operands(*fun)
+        gc = g.permute(0, 3, 1, 2)
+        bench_mode = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = True
+        with torch.no_grad():
+            sms = median_ms(lambda: stock_block(*sw), 10, 3)
+        sbms = median_ms(lambda: torch.autograd.grad(
+            stock_block(*sw), sw, gc), 10, 3)
+        torch.backends.cudnn.benchmark = bench_mode
+        print(f'K7 {tag}: fwd kernel {fms:.4f} ms plain {fpl:.4f} ms bound '
+              f'{f_bound:.5f} ms; bwd (incl. dW3 / db3) kernel {bms:.4f} ms '
+              f'plain {bpl:.4f} ms bound {b_bound:.5f} ms  [{smi}]')
+        print(f'K7 {tag}: stock route, one block on cuDNN (1x1, ReLU, 1x1, '
+              f'3x3, x res_scale + x; bf16, activations and weights '
+              f'channels-last, benchmark mode): fwd {sms:.4f} ms, fwd + bwd '
+              f'{sbms:.4f} ms (a reference, not library_ms: no single '
+              f'PyTorch call computes the block)  [{smi}]')
+        if i == 0:
+            record(stats['K7'], fms, fpl, fwd_flops, f_moved)
+            record(stats['K7b'], bms, bpl, 2 * fwd_flops, b_moved)
+        del got, ref, bgot, bref, sw
         torch.cuda.empty_cache()
     return stats
 
@@ -1360,13 +1549,14 @@ def png_size(path: Path) -> tuple[int, int]:
 
 def run_slice(device, smi: str, model: str = 'EDSR', extra=(),
               expected=EXPECTED_LAUNCHES, rules=None, scale: int = SCALE,
-              sizes=SLICE_SIZES) -> dict:
-    """Phase 3 (EDSR) and 5, 7, 9, 11, 13 (``extra`` the model's CLI
+              sizes=SLICE_SIZES, alt=()) -> dict:
+    """Phase 3 (EDSR) and 5, 7, 9, 11, 13, 14 (``extra`` the model's CLI
     flags): predict at ``scale`` through the CLI on images of ``sizes``,
     the launch counters per image (``expected``), the PNGs, kernel path
     against plain path; with ``rules``, device time by kernel group of
-    the largest image's forward. Returns the launch counts of the
-    main-path run."""
+    the largest image's forward; with ``alt`` (flags of another route of
+    the same model and weights), that route's forward time per image
+    beside. Returns the launch counts of the main-path run."""
     rng = np.random.default_rng(SEED)
     with tempfile.TemporaryDirectory(prefix='srtpu_smoke_') as tmp:
         demo = Path(tmp) / 'datasets' / 'Demo'
@@ -1413,6 +1603,8 @@ def run_slice(device, smi: str, model: str = 'EDSR', extra=(),
         # eval mode, as the CLI's predict (SRResNet's batch norm)
         net = cli.build_model(cli.build_parser().parse_args(argv),
                               device).eval()
+        net_alt = cli.build_model(cli.build_parser().parse_args(
+            argv + list(alt)), device).eval() if alt else None
         for name, img in images.items():
             lr = torch.from_numpy(pad_to_bucket(img, 32)[0][None]).to(device)
             h, w = scale * img.shape[0], scale * img.shape[1]
@@ -1435,6 +1627,15 @@ def run_slice(device, smi: str, model: str = 'EDSR', extra=(),
                   f'plain {plain_ms:.3f} ms  [{smi}]')
             need(err <= SLICE_MAX_TOL and mean <= SLICE_MEAN_TOL,
                  f'{name}: kernel path vs plain path')
+            if net_alt is not None:
+                with torch.inference_mode():
+                    sr_a = net_alt(lr).float().clamp(0, 1)[0, :h, :w]
+                    alt_ms = median_ms(lambda: net_alt(lr), launches=1)
+                print(f'{model} x{scale} slice {name}, {" ".join(alt)} '
+                      f'(same weights): forward {alt_ms:.3f} ms = '
+                      f'{1e3 / alt_ms:.2f} images/s (kernel route '
+                      f'{ms:.3f} ms); max_abs vs the kernel route '
+                      f'{(sr_a - sr_k).abs().max().item():.4g}  [{smi}]')
             # the CLI's PNG is this checked SR image, saved the same way
             check = Path(tmp) / 'check.png'
             save_image(sr_k.cpu().numpy(), check)
@@ -1445,6 +1646,10 @@ def run_slice(device, smi: str, model: str = 'EDSR', extra=(),
             with torch.inference_mode():
                 _profile(lambda: net(lr), ms, smi, rules,
                          f'{model} predict forward, LR {tuple(lr.shape[1:3])}')
+                if net_alt is not None:
+                    _profile(lambda: net_alt(lr), alt_ms, smi, rules,
+                             f'{model} predict forward, {" ".join(alt)}, '
+                             f'LR {tuple(lr.shape[1:3])}')
     return counts
 
 
@@ -1509,6 +1714,24 @@ DDBPN_PROFILE = (
     ('wgrad_reduce', 'weight grads fixed-order reductions'),
     ('gemm', '1x1 bottlenecks and head (cuBLAS)'),
     ('nvjet', '1x1 bottlenecks and head (cuBLAS)'))
+WDSR_PROFILE = (
+    ('wdsr_pw_fwd_kernel', 'K7 fused 1x1 pair -> h2 (h1 in shared memory)'),
+    ('Dh2Out', 'K7b dh2 = convT(gs)'),
+    ('ScaleSkipOut', 'K7 3x3 + res_scale + skip'),
+    ('wdsr_pw_bwd_kernel', 'K7b fused pointwise bwd (h1 recomputed; dx, '
+     'dW1, dW2)'),
+    ('wdsr_reduce', 'K7b fixed-order reductions'),
+    ('wgrad_chunk_kernel', 'K7b dW3, db3 (weight-grad kernel)'),
+    ('wgrad_reduce', 'K7b dW3, db3 reductions'),
+    ('fprop', 'stock route: cuDNN conv forward'),
+    ('dgrad', 'stock route: cuDNN conv dx'),
+    ('wgrad', 'stock route: cuDNN conv dW'),
+    ('gemm', 'GEMMs (cuBLAS / cuDNN 1x1)'),
+    ('nvjet', 'GEMMs (cuBLAS / cuDNN 1x1)'))
+SRRESNET_X3_PROFILE = (
+    ('conv_chunked_kernel', 'K2 general path (x3 phase-dense 5x5, dx)'),
+    ('wgrad_chunk_kernel', 'weight grads, general path (5x5 576->32)'),
+    *SRRESNET_PROFILE)
 OTHER = 'other (cuDNN head/tail, Adam, casts, copies)'
 
 
@@ -1672,17 +1895,23 @@ def _grads_ddbpn(model: str, net, lr, hr, paths) -> None:
 
 def run_train(device, smi: str, model: str = 'EDSR', extra=(),
               expected=STEP_LAUNCHES, rules=EDSR_PROFILE,
-              compare=_grads_vs_plain) -> dict:
-    """Phase 4 (EDSR), 6 (RCAN) and 8 (SRResNet; ``extra`` the model's
-    CLI flags): fit through the CLI, the launch counters per step
-    (``expected``), the loss, the first kernel-path and plain-path steps'
-    gradients (``compare``), five steps' losses, step times, the profile.
-    Returns the launch counts of the fit run."""
+              compare=_grads_vs_plain, scale: int = SCALE,
+              patch: int = TRAIN_PATCH, steps: int = TRAIN_STEPS,
+              alt=()) -> dict:
+    """Phase 4 (EDSR), 6 (RCAN), 8 (SRResNet), 10, 12, 15 and 16
+    (``extra`` the model's CLI flags): fit through the CLI at ``scale``
+    on ``patch`` HR patches for ``steps`` steps, the launch counters per
+    step (``expected``), the loss, the first kernel-path and plain-path
+    steps' gradients (``compare``), five steps' losses, step times (with
+    ``alt``, flags of another route of the same model, that route's step
+    time from the same params beside), the profile. Returns the launch
+    counts of the fit run."""
     rng = np.random.default_rng(SEED)
-    hr_size = 3 * TRAIN_PATCH // 2
+    hr_size = 3 * patch // 2
     with tempfile.TemporaryDirectory(prefix='srtpu_smoke_fit_') as tmp:
         data = Path(tmp) / 'datasets'
-        hr_dir, lr_dir = data / 'Train' / 'HR', data / 'Train' / 'LR' / 'X4'
+        hr_dir = data / 'Train' / 'HR'
+        lr_dir = data / 'Train' / 'LR' / f'X{scale}'
         hr_dir.mkdir(parents=True)
         lr_dir.mkdir(parents=True)
         for i in range(TRAIN_BATCH):     # one step per epoch
@@ -1690,16 +1919,16 @@ def run_train(device, smi: str, model: str = 'EDSR', extra=(),
             hr = (np.kron(lo, np.ones((8, 8, 1))) * 0.8
                   + rng.random((hr_size, hr_size, 3)) * 0.2).astype(np.float32)
             np.save(hr_dir / f'{i:02d}.npy', hr)
-            lr = hr.reshape(hr_size // SCALE, SCALE, hr_size // SCALE, SCALE,
+            lr = hr.reshape(hr_size // scale, scale, hr_size // scale, scale,
                             3).mean((1, 3))
             np.save(lr_dir / f'{i:02d}.npy', lr.astype(np.float32))
-        argv = ['fit', '--model', model, '--scale_factor', str(SCALE),
+        argv = ['fit', '--model', model, '--scale_factor', str(scale),
                 '--n_feats', str(C), '--n_resblocks', str(L), *extra,
                 '--datasets_dir', str(data), '--train_datasets', 'Train',
                 '--batch_size', str(TRAIN_BATCH), '--patch_size',
-                str(TRAIN_PATCH), '--losses', 'l1', '--optimizer', 'ADAM',
+                str(patch), '--losses', 'l1', '--optimizer', 'ADAM',
                 '--optimizer_params', 'lr=1e-4', '--max_epochs',
-                str(TRAIN_STEPS), '--precision', 'bf16', '--device', 'cuda',
+                str(steps), '--precision', 'bf16', '--device', 'cuda',
                 '--seed', str(SEED), '--default_root_dir',
                 str(Path(tmp) / 'run')]
         log = _LossLog()
@@ -1714,14 +1943,14 @@ def run_train(device, smi: str, model: str = 'EDSR', extra=(),
         logging.getLogger('srtpu_torch.train.loop').removeHandler(log)
         need(rc == 0, f'fit returned {rc}')
         for k, per_step in expected.items():
-            need(counts[k] == per_step * TRAIN_STEPS,
+            need(counts[k] == per_step * steps,
                  f'{_counter_name(k)}: {counts[k]} launches in fit, '
-                 f'expected {per_step} x {TRAIN_STEPS}')
+                 f'expected {per_step} x {steps}')
         losses = log.losses
-        need(len(losses) == TRAIN_STEPS and all(map(np.isfinite, losses)),
+        need(len(losses) == steps and all(map(np.isfinite, losses)),
              f'fit losses {losses}')
         first, last = np.mean(losses[:5]), np.mean(losses[-5:])
-        print(f'{model} fit CLI: {TRAIN_STEPS} steps in {wall:.3f} s '
+        print(f'{model} x{scale} fit CLI: {steps} steps in {wall:.3f} s '
               f'(incl. model '
               f'init, .npy reads, batching, logs); losses '
               + ' '.join(f'{v:.4f}' for v in losses)
@@ -1742,8 +1971,8 @@ def run_train(device, smi: str, model: str = 'EDSR', extra=(),
         net = cli.build_model(cli.build_parser().parse_args(argv), device)
         from srtpu_torch.data import SRData
         dm = SRData(datasets_dir=str(data), train_datasets=['Train'],
-                    batch_size=TRAIN_BATCH, patch_size=TRAIN_PATCH,
-                    scale_factor=SCALE, seed=SEED)
+                    batch_size=TRAIN_BATCH, patch_size=patch,
+                    scale_factor=scale, seed=SEED)
         dm.setup('fit')
         loader = dm.train_loader()
         batches = []
@@ -1772,20 +2001,30 @@ def run_train(device, smi: str, model: str = 'EDSR', extra=(),
             + f'; max rel {max(rels):.4g} (tol {STEP_LOSS_TOL:.4g})')
         need(max(rels) <= STEP_LOSS_TOL, 'kernel vs plain path losses')
         lr, hr = batches[0]
+        labels = {False: 'kernel path', True: 'plain path'}
+        if alt:
+            m = cli.build_model(cli.build_parser().parse_args(
+                argv + list(alt)), device)
+            m.load_state_dict(net.state_dict())
+            paths['alt'] = (make_train_step(parse_losses('l1')), TrainState(
+                m, build_optimizer('ADAM', ['lr=1e-4'], m.parameters())))
+            labels['alt'] = ' '.join(alt)
         times = {}
-        for plain, (step, state) in paths.items():
-            times[plain] = median_ms(lambda: step(state, lr, hr),
-                                     launches=5, windows=3)
-        for plain, label in ((False, 'kernel'), (True, 'plain')):
-            print(f'{model} train step ({label} path): '
-                  f'{times[plain]:.3f} ms/step = '
-                  f'{TRAIN_BATCH * 1e3 / times[plain]:.2f} patches/s '
-                  f'(batch {TRAIN_BATCH}, LR {TRAIN_PATCH // SCALE}x'
-                  f'{TRAIN_PATCH // SCALE} -> HR {TRAIN_PATCH}x{TRAIN_PATCH}, '
+        for key, (step, state) in paths.items():
+            times[key] = median_ms(lambda: step(state, lr, hr),
+                                   launches=5, windows=3)
+        for key, label in labels.items():
+            print(f'{model} x{scale} train step ({label}): '
+                  f'{times[key]:.3f} ms/step = '
+                  f'{TRAIN_BATCH * 1e3 / times[key]:.2f} patches/s '
+                  f'(batch {TRAIN_BATCH}, LR {patch // scale}x'
+                  f'{patch // scale} -> HR {patch}x{patch}, '
                   f'L1 + Adam)  [{smi}]')
-        step, state = paths[False]
-        _profile(lambda: step(state, lr, hr), times[False], smi, rules,
-                 f'{model} train step')
+        for key in (False, 'alt') if alt else (False,):
+            step, state = paths[key]
+            _profile(lambda: step(state, lr, hr), times[key], smi, rules,
+                     f'{model} x{scale} train step'
+                     + ('' if key is False else f', {labels[key]}'))
     return counts
 
 
@@ -1798,6 +2037,7 @@ def main() -> None:
     stats.update(check_bn_kernels(device))
     stats.update(check_rdn_kernels(device))
     stats.update(check_k2_general(device, smi))
+    stats.update(check_wdsr_kernels(device, smi))
     # the main-path runs, each with the counters set to 0 before it
     runs = {'edsr_predict': run_slice(device, smi),
             'edsr_fit': run_train(device, smi)}
@@ -1824,6 +2064,16 @@ def main() -> None:
         runs[f'{model.lower()}_x3_predict'] = run_slice(
             device, smi, model, (), expected, scale=3,
             sizes=SLICE_SIZES[:1])
+    runs['wdsr_predict'] = run_slice(device, smi, 'WDSR', WDSR_ARGS,
+                                     WDSR_PREDICT_LAUNCHES, WDSR_PROFILE,
+                                     alt=WDSR_STOCK)
+    runs['wdsr_fit'] = run_train(device, smi, 'WDSR', WDSR_ARGS,
+                                 WDSR_STEP_LAUNCHES, WDSR_PROFILE,
+                                 alt=WDSR_STOCK)
+    runs['srresnet_x3_fit'] = run_train(
+        device, smi, 'SRResNet', ['--n_resblocks', str(X3_FIT_BLOCKS)],
+        SRRESNET_X3_STEP_LAUNCHES, SRRESNET_X3_PROFILE, _grads_vs_f32,
+        scale=3, patch=X3_FIT_PATCH, steps=X3_FIT_STEPS)
     rep = 'srtpu/ops/cs_conv.py:'
     bn = 'srtpu/ops/bn_resblock_cs.py:'
     meta = [('K1', 'K1 trunk_fwd (fused resblock)', trunk_fwd, 'trunk.cu',
@@ -1875,7 +2125,16 @@ def main() -> None:
             ('Wg', 'conv_wgrad, general path (dW, db of DDBPN x4: (32, 512),'
              ' (512, 32), (512, 48))', WGG, 'wgrad.cu', rep + '452'),
             ('K2g5', 'K2 conv3x3_fwd at 5x5, general path (SRResNet x3 '
-             '576->32)', K2G5_FWD, 'conv.cu', rep + '538')]
+             '576->32)', K2G5_FWD, 'conv.cu', rep + '538'),
+            ('K2g5b', 'K2 conv3x3_bwd at 5x5, general path (SRResNet x3 dx '
+             '32->576; with its weight grads)', K2G5_BWD, 'conv.cu',
+             rep + '581'),
+            ('K7', 'K7 wdsr_fwd (WDSR-B block: fused 1x1 pair, h1 in shared '
+             'memory; 3x3 + res_scale + skip)', wdsr_fwd, 'wdsr.cu',
+             'srtpu/ops/wdsr_cs.py:135'),
+            ('K7b', 'K7 wdsr_bwd (h2 recomputed, dh2, fused pointwise bwd '
+             'with h1 recomputed, reductions; with dW3, db3)', wdsr_bwd,
+             'wdsr.cu', 'srtpu/ops/wdsr_cs.py:159')]
     rows = []
     for kid, name, fn, src, r in meta:
         st = stats[kid]

@@ -12,18 +12,27 @@
         --default_root_dir OUT --precision bf16 --device cuda
 
 The flags are srtpu's config keys; the defaults follow
-``srtpu/config.py``. ``fit`` draws the model and the loader's stream from
-``--seed``, logs to ``<default_root_dir>/run.log`` and writes the final
-weights to ``<default_root_dir>/final_weights.pt``, which ``predict
---weights`` reads (as does ``python -m srtpu_torch.convert``'s output).
+``srtpu/config.py``. A model's own flags (``--n_feats``,
+``--n_resblocks`` and those below) are passed only when given, so a model
+takes its own defaults for the rest, as srtpu's CLI builds a model from
+its config's ``init_args`` alone. ``fit`` draws the model and the
+loader's stream from ``--seed``, logs to ``<default_root_dir>/run.log``
+and writes the final weights to ``<default_root_dir>/final_weights.pt``,
+which ``predict --weights`` reads (as does ``python -m
+srtpu_torch.convert``'s output).
 ``--model RCAN`` adds ``--n_resgroups`` (default 10) and
 ``--reduction`` (default 16), srtpu's RCAN keys; ``--model SRResNet``
 takes ``--n_feats``, ``--n_resblocks`` and ``--scale_factor``; ``--model
 RDN`` takes ``--rdn_config`` (default B: 16 blocks of 8 layers, growth
 64) and ``--growth0`` (default 64), srtpu's RDN keys; ``--model DDBPN``
 takes ``--n0`` (default 128), ``--nr`` (default 32) and ``--depth``
-(default 6), the DDBPN fields of srtpu's config; a model ignores the
-flags it does not declare. ``fit`` trains in train mode
+(default 6), the DDBPN fields of srtpu's config; ``--model WDSR`` takes
+``--block_type`` (A or B, default B), ``--n_feats`` (default 128),
+``--n_resblocks`` (default 16), ``--res_scale`` (default 1.0) and
+``--use_pallas`` (``false``, the default: stock weight-normed convs,
+cuDNN on the card; ``cs``: K7 runs each B block; ``true``, srtpu's legacy
+fused block, is not ported and raises), srtpu's WDSR keys; a model
+ignores the flags it does not declare. ``fit`` trains in train mode
 (SRResNet's batch norm on batch statistics, updating its running ones)
 and ``predict`` runs eval mode; ``final_weights.pt`` holds the running
 statistics, so ``predict --weights`` reads what ``fit`` left. ``fit``
@@ -50,18 +59,29 @@ from .train import Trainer, TrainerConfig
 _logger = logging.getLogger('srtpu_torch')
 
 
+def _use_pallas(value: str):
+    """srtpu's ``use_pallas`` from the flag: false, true or cs."""
+    routes = {'false': False, 'true': True, 'cs': 'cs'}
+    if value.lower() not in routes:
+        raise argparse.ArgumentTypeError(
+            f'--use_pallas takes false, true or cs, not {value!r}')
+    return routes[value.lower()]
+
+
+# the model's own keys (srtpu's init_args): a flag the caller does not
+# give is not passed, so the model takes its own default, as srtpu builds
+# a model from its config's init_args alone (srtpu/cli.py:194)
+MODEL_FLAGS = {'n_feats': int, 'n_resblocks': int, 'n_resgroups': int,
+               'reduction': int, 'rdn_config': str, 'growth0': int,
+               'n0': int, 'nr': int, 'depth': int, 'block_type': str,
+               'res_scale': float, 'use_pallas': _use_pallas}
+
+
 def _model_args(p: argparse.ArgumentParser, seed: int) -> None:
     p.add_argument('--model', default='EDSR')
     p.add_argument('--scale_factor', type=int, default=4)
-    p.add_argument('--n_feats', type=int, default=64)
-    p.add_argument('--n_resblocks', type=int, default=16)
-    p.add_argument('--n_resgroups', type=int, default=10)
-    p.add_argument('--reduction', type=int, default=16)
-    p.add_argument('--rdn_config', default='B')
-    p.add_argument('--growth0', type=int, default=64)
-    p.add_argument('--n0', type=int, default=128)
-    p.add_argument('--nr', type=int, default=32)
-    p.add_argument('--depth', type=int, default=6)
+    for name, kind in MODEL_FLAGS.items():
+        p.add_argument(f'--{name}', type=kind, default=argparse.SUPPRESS)
     p.add_argument('--datasets_dir', default='datasets')
     p.add_argument('--default_root_dir', default='.')
     p.add_argument('--precision', choices=('bf16', '32'), default='bf16')
@@ -110,14 +130,11 @@ def build_model(args, device: torch.device) -> torch.nn.Module:
             f'of those scales (or --device cpu); the others have no kernel '
             f'path yet (ROADMAP.md F4)')
     dtype = torch.bfloat16 if args.precision == 'bf16' else None
+    given = {k: getattr(args, k) for k in MODEL_FLAGS if hasattr(args, k)}
     model = create_model(args.model, scale_factor=args.scale_factor,
-                         n_feats=args.n_feats, n_resblocks=args.n_resblocks,
-                         n_resgroups=args.n_resgroups,
-                         reduction=args.reduction,
-                         rdn_config=args.rdn_config, growth0=args.growth0,
-                         n0=args.n0, nr=args.nr, depth=args.depth,
                          dtype=dtype, device=device,
-                         generator=torch.Generator().manual_seed(args.seed))
+                         generator=torch.Generator().manual_seed(args.seed),
+                         **given)
     weights = getattr(args, 'weights', None)
     if weights:
         state = torch.load(weights, map_location='cpu', weights_only=True)

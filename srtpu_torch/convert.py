@@ -1,5 +1,5 @@
-"""JAX EDSR, RCAN, SRResNet, RDN and DDBPN parameters -> an srtpu_torch
-state dict.
+"""JAX EDSR, RCAN, SRResNet, RDN, DDBPN and WDSR parameters -> an
+srtpu_torch state dict.
 
 Reads either EDSR tree srtpu stores:
 
@@ -73,6 +73,20 @@ and either DDBPN tree:
   ``w_up_pm`` / ``w_down_pd``, and ``Conv2d_2`` (the output conv) by
   ``layout.w_phase_dense`` per block (srtpu/ops/ddbpn_cs.py:145-185 maps
   one tree onto the other).
+
+and every WDSR tree:
+
+* block B, ``use_pallas=False``: ``WNConv2d_0`` (the 5x5 skip),
+  ``WNConv2d_1`` (the head), ``_BlockB_{i}/WNConv2d_{0,1,2}`` (expand,
+  linear, conv) and the last ``WNConv2d_k`` (the tail), each ``{v, g,
+  bias}``;
+* block B, ``use_pallas='cs'`` or ``True``: the same skip, head and tail,
+  and ``_BlockB_{i}/{expand,linear,conv}_{v,g,b}`` (the 1x1 ``v``s stored
+  as (1, 1, cin, cout));
+* block A: ``_BlockA_{i}/WNConv2d_{0,1}``;
+
+all to one state dict (``WNConv2d``'s ``v``, ``g``, ``bias`` per conv),
+which runs on either of the port's routes.
 
 A tree is nested dicts of numpy arrays, with or without the top-level
 ``params`` key (an SRResNet tree with it, beside ``batch_stats``). Any
@@ -339,12 +353,41 @@ def _ddbpn_from_jax(p: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
+def _wn(sd: dict, name: str, node: dict, prefix: str = '') -> None:
+    """A weight-normed conv's ``{v, g, bias}`` (or, with ``prefix``,
+    ``{prefix}_v``, ``{prefix}_g``, ``{prefix}_b``) -> ``name.*``."""
+    leaves = ('v', 'g', 'bias') if not prefix else tuple(
+        f'{prefix}_{k}' for k in ('v', 'g', 'b'))
+    for k, leaf in zip(('v', 'g', 'bias'), leaves):
+        sd[f'{name}.{k}'] = _t(node[leaf])
+
+
+def _wdsr_from_jax(p: dict) -> dict[str, torch.Tensor]:
+    sd: dict[str, torch.Tensor] = {}
+    convs = _seq(p, 'WNConv2d_')
+    for name, node in (('skip', convs[0]), ('head', convs[1]),
+                       ('tail', convs[-1])):
+        _wn(sd, name, node)
+    for i, blk in enumerate(_seq(p, '_BlockA_')):
+        for j in (0, 1):
+            _wn(sd, f'blocks.{i}.conv{j}', blk[f'WNConv2d_{j}'])
+    for i, blk in enumerate(_seq(p, '_BlockB_')):
+        for j, name in enumerate(('expand', 'linear', 'conv')):
+            if 'expand_v' in blk:
+                _wn(sd, f'blocks.{i}.{name}', blk, name)
+            else:
+                _wn(sd, f'blocks.{i}.{name}', blk[f'WNConv2d_{j}'])
+    return sd
+
+
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     """State dict of :class:`srtpu_torch.models.EDSR`, ``RCAN``,
-    ``SRResNet``, ``RDN`` or ``DDBPN`` from a JAX tree of that model (an
-    SRResNet tree with its ``batch_stats``), dispatched on the tree's
-    keys."""
+    ``SRResNet``, ``RDN``, ``DDBPN`` or ``WDSR`` from a JAX tree of that
+    model (an SRResNet tree with its ``batch_stats``), dispatched on the
+    tree's keys."""
     p = tree.get('params', tree)
+    if 'WNConv2d_0' in p:
+        return _wdsr_from_jax(p)
     if 'sfe2_kernel' in p or '_RDB_0' in p:
         return _rdn_from_jax(p)
     if 'CSDenseProjection_0' in p or 'DenseProjection_0' in p:

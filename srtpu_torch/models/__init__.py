@@ -1,5 +1,5 @@
 """Model registry of the port (srtpu/models/__init__.py). EDSR, RCAN,
-SRResNet, RDN and DDBPN are ported; the other families of srtpu are
+SRResNet, RDN, DDBPN and WDSR are ported; the other families of srtpu are
 listed in ROADMAP.md, in the order they will be ported."""
 
 from __future__ import annotations
@@ -15,12 +15,14 @@ from .edsr import EDSR
 from .rcan import RCAN
 from .rdn import RDN
 from .srresnet import SRResNet
+from .wdsr import WDSR
 
 MODEL_REGISTRY: dict[str, type[nn.Module]] = {'DDBPN': DDBPN, 'EDSR': EDSR,
                                               'RCAN': RCAN, 'RDN': RDN,
-                                              'SRResNet': SRResNet}
+                                              'SRResNet': SRResNet,
+                                              'WDSR': WDSR}
 # srtpu families the port does not have yet
-NOT_PORTED = ('SRCNN', 'SRGAN', 'WDSR')
+NOT_PORTED = ('SRCNN', 'SRGAN')
 
 
 def model_class(name: str) -> type[nn.Module]:
@@ -46,5 +48,5 @@ def create_model(name: str, **kwargs) -> nn.Module:
 
 __all__ = ['BNTrunk', 'DDBPN', 'EDSR', 'MODEL_REGISTRY', 'NOT_PORTED',
            'PReLU', 'RCAN', 'RDN', 'SRResNet', 'Conv2d', 'Trunk',
-           'UpscaleBlock', 'UpscaleTail', 'create_model', 'mean_shift',
-           'model_class', 'pixel_shuffle']
+           'UpscaleBlock', 'UpscaleTail', 'WDSR', 'create_model',
+           'mean_shift', 'model_class', 'pixel_shuffle']

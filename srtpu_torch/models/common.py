@@ -1,9 +1,10 @@
 """Building blocks of the models (NHWC, HWIO weights).
 
 Counterparts of ``srtpu/models/common.py``: ``Conv2d`` (torch-default
-init), ``PReLU``, ``mean_shift``, ``pixel_shuffle``, ``Trunk``
-(``CSTrunk``), ``BNTrunk`` (``CSBNTrunk``), ``UpscaleTail``
-(``CSUpscaleTail``) and ``UpscaleBlock`` (the XLA sub-pixel upscaler).
+init), ``WNConv2d`` (weight-normed, WDSR's), ``PReLU``, ``mean_shift``,
+``pixel_shuffle``, ``Trunk`` (``CSTrunk``), ``BNTrunk`` (``CSBNTrunk``),
+``UpscaleTail`` (``CSUpscaleTail``) and ``UpscaleBlock`` (the XLA
+sub-pixel upscaler).
 Parameters are f32; ``dtype`` is the compute type (bf16 on the card).
 The kernel ops take the f32 parameters and cast inside, so under
 autograd their weight grads come back in f32 (as srtpu's ``custom_vjp``s
@@ -31,8 +32,8 @@ from ..ops.layout import (b_phase_dense, b_pm, pixel_shuffle, pm_to_nhwc,
 DIV2K_RGB_MEAN = (0.4488, 0.4371, 0.4040)
 
 __all__ = ['DIV2K_RGB_MEAN', 'BNTrunk', 'Conv2d', 'PReLU', 'Trunk',
-           'UpscaleBlock', 'UpscaleTail', 'mean_shift', 'pixel_shuffle',
-           'prelu', 'uniform_param']
+           'UpscaleBlock', 'UpscaleTail', 'WNConv2d', 'mean_shift',
+           'pixel_shuffle', 'prelu', 'uniform_param']
 
 
 def uniform_param(shape, bound: float, device, generator: torch.Generator
@@ -70,11 +71,42 @@ class Conv2d(nn.Module):
         self.bias = uniform_param((out_ch,), bound, device, generator)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        w = self.weight.to(dtype)
-        y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2).float(),
-                     w.permute(3, 2, 0, 1).float(),
-                     padding=w.shape[0] // 2)
-        return y.permute(0, 2, 3, 1).to(dtype) + self.bias.to(dtype)
+        return _conv(x, self.weight, self.bias, dtype)
+
+
+def _conv(x, w, b, dtype):
+    """'same' conv of NHWC x with HWIO w in ``dtype``: the result rounds to
+    ``dtype``, then b (cast to ``dtype``) is added."""
+    w = w.to(dtype)
+    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2).float(),
+                 w.permute(3, 2, 0, 1).float(), padding=w.shape[0] // 2)
+    return y.permute(0, 2, 3, 1).to(dtype) + b.to(dtype)
+
+
+class WNConv2d(nn.Module):
+    """Weight-normed 'same' k x k conv (srtpu ``WNConv2d``,
+    srtpu/models/common.py:142-188): parameters ``v`` (HWIO), ``g``
+    (C_out) and ``bias``; the weight w = v g / sqrt(sum_{h,w,i} v^2 +
+    1e-12) in f32. v and the bias draw from U(+-1/sqrt(fan_in)), and g
+    starts at ||v||, so the first forward is the plain conv's. The conv
+    runs as ``Conv2d``'s: stock ``F.conv2d`` (srtpu leaves it to XLA)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, *,
+                 device=None, generator: torch.Generator):
+        super().__init__()
+        bound = 1.0 / math.sqrt(kernel_size * kernel_size * in_ch)
+        self.v = uniform_param((kernel_size, kernel_size, in_ch, out_ch),
+                               bound, device, generator)
+        self.g = nn.Parameter(self.v.detach().reshape(-1, out_ch).norm(dim=0))
+        self.bias = uniform_param((out_ch,), bound, device, generator)
+
+    def weight(self) -> torch.Tensor:
+        """The materialised f32 weight, differentiable in v and g."""
+        norm = torch.sqrt(self.v.square().sum((0, 1, 2)) + 1e-12)
+        return self.v * (self.g / norm)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return _conv(x, self.weight(), self.bias, dtype)
 
 
 def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:

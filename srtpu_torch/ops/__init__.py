@@ -2,10 +2,11 @@
 ``trunk_fwd`` / ``trunk_bwd``, K2 ``conv3x3_fwd`` / ``conv3x3_bwd`` (3x3
 and 5x5, counted apart), K3 ``upsample_fwd`` / ``upsample_bwd``, K4 ``f1_conv_stats`` ... ``b3_call`` (SRResNet's BN
 block), K5 ``rcab_fwd`` / ``rcab_bwd``, K6 ``rdn_fwd`` / ``rdb_bwd_chain`` /
-``rdb_bwd_dw`` (RDN's dense blocks) and the shared weight-grad kernel
+``rdb_bwd_dw`` (RDN's dense blocks), K7 ``wdsr_fwd`` / ``wdsr_bwd``
+(WDSR-B's block, in :mod:`.wdsr`) and the shared weight-grad kernel
 ``conv_wgrad``; ``trunk``, ``conv3x3``, ``upsample``, ``bn_resblock``,
-``bn_close``, ``resgroup`` and ``rdn_trunk`` are the differentiable ops.
-Kernels build on first use (``_build``)."""
+``bn_close``, ``resgroup``, ``rdn_trunk`` and ``wdsr.wdsr_block`` are the
+differentiable ops. Kernels build on first use (``_build``)."""
 
 from .bn_block import (BNCloseFn, BNResBlockFn, b1_plain, b1_sums, b2_call,
                        b2_plain, b3_call, b3_plain, bn_close, bn_close_ref,

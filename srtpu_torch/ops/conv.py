@@ -68,7 +68,8 @@ def _own_instance(cin: int, cout: int, k: int) -> bool:
 def _engine_takes(cin: int, cout: int, k: int) -> bool:
     """K2 takes a k = 3 or 5 conv whose cin and cout are multiples of 16:
     :func:`_own_instance`'s shapes, and every other on the general path
-    (``csrc/conv.cu``: conv_chunked_kernel)."""
+    (``csrc/conv.cu`` through ``csrc/tile_conv.cuh``'s
+    conv_chunked_kernel)."""
     return k in (3, 5) and cin % 16 == 0 and cout % 16 == 0
 
 

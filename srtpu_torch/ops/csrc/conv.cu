@@ -37,7 +37,8 @@
 // above the ridge, so the tensor cores bound it.
 //
 // The general path (srt_conv3x3_fwd / srt_conv5x5_fwd at any other cin
-// and cout that are multiples of 16; conv_chunked_kernel) serves DDBPN's
+// and cout that are multiples of 16; tile_conv.cuh's conv_chunked_kernel,
+// which K7's 3x3 shares with another epilogue) serves DDBPN's
 // back-projections, which srtpu runs as K2 calls over phase-major
 // channels (srtpu/models/ddbpn.py:185-192, :333-335): at nr = 32 and x4
 // the up convs are 32 -> 512, the down convs 512 -> 32, the output conv
@@ -62,149 +63,33 @@ namespace {
 constexpr int kTH = 7, kTW = 16;  // 7 x 18 flattened positions = 8 wmma tiles
 constexpr int kTH5 = 6;           // 5x5: 6 x 20 positions = 8 wmma tiles
 
-// Copy output columns [n0, n0 + NB) of the rows of one CK-channel chunk of
-// TAPS taps of an HWIO weight with cin input channels (w points at the
-// first tap's first row of the chunk) into dst as (TAPS * CK, NB)
-// row-major: row tap * CK + k is w's row tap * cin + k.
-template <int CK, int NB, int TAPS>
-__device__ __forceinline__ void load_weights_chunk(
-    srt::bf16* __restrict__ dst, const srt::bf16* __restrict__ w, int cin,
-    int cout, int n0) {
-  constexpr int VEC = NB / 8;
-  constexpr int total = TAPS * CK * VEC;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int row = i / VEC, v = i % VEC;
-    const int tap = row / CK, k = row % CK;
-    *reinterpret_cast<uint4*>(dst + (size_t)row * NB + v * 8) =
-        *reinterpret_cast<const uint4*>(w + ((size_t)tap * cin + k) * cout +
-                                        n0 + v * 8);
-  }
-}
-
-// One KK x KK SAME conv + bias (+ ReLU) over an NHWC batch with cin input
-// channels, cin % CK == 0, walked CK channels at a time. grid and out as
-// conv3x3_kernel (SHUFFLE = false); the plan is its ConvPlan at CK.
-template <int CK, int NB, int TH, int TW, int KK, int WROWS>
-__global__ void __launch_bounds__(srt::kThreads)
-    conv_chunked_kernel(const srt::bf16* __restrict__ x,
-                        const srt::bf16* __restrict__ w,
-                        const float* __restrict__ bias,
-                        srt::bf16* __restrict__ out, int H, int W, int cin,
-                        int cout, int relu) {
-  typedef srt::ConvPlan<CK, NB, TH, TW, KK, WROWS> P;
-  using srt::bf16;
-  constexpr int HALO = KK / 2;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  bf16* ws = reinterpret_cast<bf16*>(smem + P::XS);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* scr = reinterpret_cast<float*>(smem + P::XS + P::WS) + warp * 256;
-
-  const int nchunks = cout / NB;
-  const int b = blockIdx.z / nchunks, chunk = blockIdx.z % nchunks;
-  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-
-  srt::AccFrag acc[P::MT][NB / 16];
+// The general path's epilogue (srt::conv_chunked): + bias (when given),
+// ReLU (when asked), one rounding to bf16.
+struct BiasReluOut {
+  const float* bias;
+  srt::bf16* out;
+  int relu;
+  __device__ __forceinline__ void operator()(float (&v)[8], size_t at,
+                                             int co) const {
 #pragma unroll
-  for (int t = 0; t < P::MT; ++t)
-#pragma unroll
-    for (int n = 0; n < NB / 16; ++n)
-      nvcuda::wmma::fill_fragment(acc[t][n], 0.0f);
-  for (int c0 = 0; c0 < cin; c0 += CK) {
-    if (c0) __syncthreads();  // every warp is done with the last chunk
-    srt::load_tile<CK>(xs, x + c0, b, H, W, y0 - HALO, x0 - HALO,
-                       TH + KK - 1, P::WX, P::NPIX, 1.0f, cin);
-    for (int ky0 = 0; ky0 < KK; ky0 += WROWS) {
-      if (ky0) __syncthreads();  // every warp is done with the last rows
-      load_weights_chunk<CK, NB, WROWS * KK>(
-          ws, w + ((size_t)ky0 * KK * cin + c0) * cout, cin, cout,
-          chunk * NB);
-      __syncthreads();
-#pragma unroll
-      for (int t = 0; t < P::MT; ++t) {
-        const int mf = warp + t * srt::kWarps;
-        if (mf < P::MF)
-          srt::mma_taps<CK, NB, KK, WROWS>(acc[t], xs, ws, mf * 16, P::WX,
-                                           ky0);
-      }
+    for (int j = 0; j < 8; ++j) {
+      if (bias) v[j] += bias[co + j];
+      if (relu) v[j] = fmaxf(v[j], 0.0f);
     }
+    *reinterpret_cast<uint4*>(out + at) = srt::pack8(v);
   }
+};
 
-#pragma unroll
-  for (int t = 0; t < P::MT; ++t) {
-    const int mf = warp + t * srt::kWarps;
-    if (mf >= P::MF) continue;
-    const int p = mf * 16 + (lane >> 1);
-    const int oy = p / P::WX, ox = p % P::WX;
-    const int gy = y0 + oy, gx = x0 + ox;
-    const bool valid = oy < TH && ox < TW && gy < H && gx < W;
-#pragma unroll
-    for (int n = 0; n < NB / 16; ++n) {
-      float v[8];
-      srt::lane_values(scr, acc[t][n], lane, v);
-      if (!valid) continue;
-      const int c = chunk * NB + n * 16 + (lane & 1) * 8;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (bias) v[j] += bias[c + j];
-        if (relu) v[j] = fmaxf(v[j], 0.0f);
-      }
-      *reinterpret_cast<uint4*>(out + (((size_t)b * H + gy) * W + gx) * cout +
-                                c) = srt::pack8(v);
-    }
-  }
-}
-
-template <int CK, int NB, int KK, int WROWS>
-cudaError_t launch_chunked(const void* x, const void* w, const void* b,
-                           void* out, int B, int H, int W, int cin, int cout,
-                           int relu, cudaStream_t stream) {
-  constexpr int TH = KK == 3 ? kTH : kTH5;
-  typedef srt::ConvPlan<CK, NB, TH, kTW, KK, WROWS> P;
-  auto kernel = conv_chunked_kernel<CK, NB, TH, kTW, KK, WROWS>;
-  cudaError_t err = srt::allow_smem(kernel, P::SMEM);
-  if (err != cudaSuccess) return err;
-  dim3 grid((W + kTW - 1) / kTW, (H + TH - 1) / TH, B * (cout / NB));
-  kernel<<<grid, srt::kThreads, P::SMEM, stream>>>(
-      static_cast<const srt::bf16*>(x), static_cast<const srt::bf16*>(w),
-      static_cast<const float*>(b), static_cast<srt::bf16*>(out), H, W, cin,
-      cout, relu);
-  return cudaGetLastError();
-}
-
-// The general path at CK: NB = 64, 32 or 16, the largest that divides cout.
-template <int CK, int KK, int WROWS>
-cudaError_t chunked_nb(const void* x, const void* w, const void* b, void* out,
-                       int B, int H, int W, int cin, int cout, int relu,
-                       cudaStream_t s) {
-  if (cout % 64 == 0)
-    return launch_chunked<CK, 64, KK, WROWS>(x, w, b, out, B, H, W, cin, cout,
-                                             relu, s);
-  if (cout % 32 == 0)
-    return launch_chunked<CK, 32, KK, WROWS>(x, w, b, out, B, H, W, cin, cout,
-                                             relu, s);
-  return launch_chunked<CK, 16, KK, WROWS>(x, w, b, out, B, H, W, cin, cout,
-                                           relu, s);
-}
-
-// The general path: cin and cout multiples of 16; CK = 64 (3x3 only), 32
-// or 16, the largest that divides cin. 5x5 stages one row of taps at a
-// time (25 taps of a 32 x 64 chunk would take 102 KB).
+// The general path: cin and cout multiples of 16 (srt::conv_chunked).
 template <int KK>
 cudaError_t chunked(const void* x, const void* w, const void* b, void* out,
                     int B, int H, int W, int cin, int cout, int relu,
                     cudaStream_t s) {
-  constexpr int WROWS = KK == 3 ? 3 : 1;
-  if (cin % 16 || cout % 16) return cudaErrorInvalidValue;
-  if constexpr (KK == 3) {
-    if (cin % 64 == 0)
-      return chunked_nb<64, KK, WROWS>(x, w, b, out, B, H, W, cin, cout, relu,
-                                       s);
-  }
-  if (cin % 32 == 0)
-    return chunked_nb<32, KK, WROWS>(x, w, b, out, B, H, W, cin, cout, relu,
-                                     s);
-  return chunked_nb<16, KK, WROWS>(x, w, b, out, B, H, W, cin, cout, relu, s);
+  return srt::conv_chunked<KK>(
+      static_cast<const srt::bf16*>(x), static_cast<const srt::bf16*>(w),
+      BiasReluOut{static_cast<const float*>(b), static_cast<srt::bf16*>(out),
+                  relu},
+      1.0f, B, H, W, cin, cout, s);
 }
 
 template <int CIN, int NB, int KK = 3, int WROWS = KK>

@@ -318,4 +318,147 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Copy output columns [n0, n0 + NB) of the rows of one CK-channel chunk of
+// TAPS taps of an HWIO weight with cin input channels (w points at the
+// first tap's first row of the chunk) into dst as (TAPS * CK, NB)
+// row-major: row tap * CK + k is w's row tap * cin + k.
+template <int CK, int NB, int TAPS>
+__device__ __forceinline__ void load_weights_chunk(bf16* __restrict__ dst,
+                                                   const bf16* __restrict__ w,
+                                                   int cin, int cout, int n0) {
+  constexpr int VEC = NB / 8;
+  constexpr int total = TAPS * CK * VEC;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int row = i / VEC, v = i % VEC;
+    const int tap = row / CK, k = row % CK;
+    *reinterpret_cast<uint4*>(dst + (size_t)row * NB + v * 8) =
+        *reinterpret_cast<const uint4*>(w + ((size_t)tap * cin + k) * cout +
+                                        n0 + v * 8);
+  }
+}
+
+// The chunked-input conv: one KK x KK SAME conv over an NHWC batch with
+// any cin % CK == 0, walked CK channels at a time. Each chunk's tile
+// (load_tile with the pixel stride cin; in_scale != 1 stages bf16(in_scale
+// * x)) and that chunk's weights (WROWS rows of taps at a time) are added
+// into the same f32 accumulators in registers, so the result is summed
+// once over all of cin. K2's general path (conv.cu) and K7's 3x3 and dh2
+// (wdsr.cu) share it; they differ only in the epilogue: epi(v, at, co)
+// receives the 8 f32 sums v of output channels co .. co + 7 of the pixel
+// whose first output element is at - co in the NHWC (B, H, W, cout)
+// output, and stores them. grid and chunks as conv3x3_kernel (SHUFFLE =
+// false); the plan is its ConvPlan at CK.
+template <int CK, int NB, int TH, int TW, int KK, int WROWS, class Epi>
+__global__ void __launch_bounds__(kThreads)
+    conv_chunked_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                        Epi epi, float in_scale, int H, int W, int cin,
+                        int cout) {
+  typedef ConvPlan<CK, NB, TH, TW, KK, WROWS> P;
+  constexpr int HALO = KK / 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  bf16* ws = reinterpret_cast<bf16*>(smem + P::XS);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* scr = reinterpret_cast<float*>(smem + P::XS + P::WS) + warp * 256;
+
+  const int nchunks = cout / NB;
+  const int b = blockIdx.z / nchunks, chunk = blockIdx.z % nchunks;
+  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+
+  AccFrag acc[P::MT][NB / 16];
+#pragma unroll
+  for (int t = 0; t < P::MT; ++t)
+#pragma unroll
+    for (int n = 0; n < NB / 16; ++n) wmma::fill_fragment(acc[t][n], 0.0f);
+  for (int c0 = 0; c0 < cin; c0 += CK) {
+    if (c0) __syncthreads();  // every warp is done with the last chunk
+    load_tile<CK>(xs, x + c0, b, H, W, y0 - HALO, x0 - HALO, TH + KK - 1,
+                  P::WX, P::NPIX, in_scale, cin);
+    for (int ky0 = 0; ky0 < KK; ky0 += WROWS) {
+      if (ky0) __syncthreads();  // every warp is done with the last rows
+      load_weights_chunk<CK, NB, WROWS * KK>(
+          ws, w + ((size_t)ky0 * KK * cin + c0) * cout, cin, cout,
+          chunk * NB);
+      __syncthreads();
+#pragma unroll
+      for (int t = 0; t < P::MT; ++t) {
+        const int mf = warp + t * kWarps;
+        if (mf < P::MF)
+          mma_taps<CK, NB, KK, WROWS>(acc[t], xs, ws, mf * 16, P::WX, ky0);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int t = 0; t < P::MT; ++t) {
+    const int mf = warp + t * kWarps;
+    if (mf >= P::MF) continue;
+    const int p = mf * 16 + (lane >> 1);
+    const int oy = p / P::WX, ox = p % P::WX;
+    const int gy = y0 + oy, gx = x0 + ox;
+    const bool valid = oy < TH && ox < TW && gy < H && gx < W;
+#pragma unroll
+    for (int n = 0; n < NB / 16; ++n) {
+      float v[8];
+      lane_values(scr, acc[t][n], lane, v);
+      if (!valid) continue;
+      const int co = chunk * NB + n * 16 + (lane & 1) * 8;
+      epi(v, (((size_t)b * H + gy) * W + gx) * cout + co, co);
+    }
+  }
+}
+
+template <int CK, int NB, int KK, int WROWS, class Epi>
+cudaError_t launch_chunked(const bf16* x, const bf16* w, Epi epi,
+                           float in_scale, int B, int H, int W, int cin,
+                           int cout, cudaStream_t stream) {
+  // 3x3: 7 x 18 flattened positions = 8 wmma tiles; 5x5: 6 x 20
+  constexpr int TH = KK == 3 ? 7 : 6, TW = 16;
+  typedef ConvPlan<CK, NB, TH, TW, KK, WROWS> P;
+  auto kernel = conv_chunked_kernel<CK, NB, TH, TW, KK, WROWS, Epi>;
+  cudaError_t err = allow_smem(kernel, P::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B * (cout / NB));
+  kernel<<<grid, kThreads, P::SMEM, stream>>>(x, w, epi, in_scale, H, W, cin,
+                                              cout);
+  return cudaGetLastError();
+}
+
+// The chunked conv at CK: NB = 64, 32 or 16, the largest that divides cout.
+template <int CK, int KK, int WROWS, class Epi>
+cudaError_t chunked_nb(const bf16* x, const bf16* w, Epi epi, float in_scale,
+                       int B, int H, int W, int cin, int cout,
+                       cudaStream_t s) {
+  if (cout % 64 == 0)
+    return launch_chunked<CK, 64, KK, WROWS>(x, w, epi, in_scale, B, H, W,
+                                             cin, cout, s);
+  if (cout % 32 == 0)
+    return launch_chunked<CK, 32, KK, WROWS>(x, w, epi, in_scale, B, H, W,
+                                             cin, cout, s);
+  return launch_chunked<CK, 16, KK, WROWS>(x, w, epi, in_scale, B, H, W, cin,
+                                           cout, s);
+}
+
+// The chunked conv: cin and cout multiples of 16; CK = 64 (3x3 only), 32
+// or 16, the largest that divides cin. 3x3 stages a chunk's 9 taps at
+// once, 5x5 one row of 5 taps at a time (25 taps of a 32 x 64 chunk would
+// take 102 KB).
+template <int KK, class Epi>
+cudaError_t conv_chunked(const bf16* x, const bf16* w, Epi epi,
+                         float in_scale, int B, int H, int W, int cin,
+                         int cout, cudaStream_t s) {
+  constexpr int WROWS = KK == 3 ? 3 : 1;
+  if (cin % 16 || cout % 16) return cudaErrorInvalidValue;
+  if constexpr (KK == 3) {
+    if (cin % 64 == 0)
+      return chunked_nb<64, KK, WROWS>(x, w, epi, in_scale, B, H, W, cin,
+                                       cout, s);
+  }
+  if (cin % 32 == 0)
+    return chunked_nb<32, KK, WROWS>(x, w, epi, in_scale, B, H, W, cin, cout,
+                                     s);
+  return chunked_nb<16, KK, WROWS>(x, w, epi, in_scale, B, H, W, cin, cout,
+                                   s);
+}
+
 }  // namespace srt

@@ -97,6 +97,19 @@ def conv_wgrad(x: torch.Tensor, g: torch.Tensor, gscale: float = 1.0,
     jobs, one launch for all."""
     if x.device.type == 'cpu':
         return conv_wgrad_plain(x, g, gscale, r, k)
+    out = wgrad_launch(x, g, gscale, r, k)
+    cin, cout = x.shape[-1], g.shape[-1] * (r * r if r > 1 else 1)
+    if _own_instance(cin, cout, r, k):
+        conv_wgrad.launches += 1
+    else:
+        conv_wgrad.launches_general += 1
+    return out
+
+
+def wgrad_launch(x: torch.Tensor, g: torch.Tensor, gscale: float = 1.0,
+                 r: int = 1, k: int = 3) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`conv_wgrad`'s launch on CUDA tensors, counted by its caller
+    (K7's backward counts it on its own wrapper)."""
     if x.device.type != 'cuda':
         raise ValueError(f'conv_wgrad: no kernel for device {x.device}')
     lead = tuple(x.shape[:-4])
@@ -127,10 +140,6 @@ def conv_wgrad(x: torch.Tensor, g: torch.Tensor, gscale: float = 1.0,
             g[(0,) * len(lead)].numel(), bsz, h, w, cin, cout, r,
             float(gscale), nparts, k, _build.stream(dev))
     _build.check(err, 'srt_conv_wgrad')
-    if _own_instance(cin, cout, r, k):
-        conv_wgrad.launches += 1
-    else:
-        conv_wgrad.launches_general += 1
     return dw, db
 
 

@@ -27,6 +27,10 @@ within two steps: a value a step apart is read by the later layers of
 its block; the chain's bias grads db within one step of their largest
 magnitude (they sum f32 dout behind such a value), its dwf, dbf and the
 pair weight grads (the same bf16 operands) within 1e-4.
+K7 (WDSR-B's block): out and dx within two steps (h1 and h2 round at the
+same points, but a value a step apart is read by the next product), the
+f32 weight and bias grads within one step (they sum products of those
+bf16 values).
 """
 
 import pytest
@@ -46,6 +50,7 @@ from srtpu_torch.ops import (conv3x3_bwd, conv3x3_bwd_plain, conv3x3_fwd,
                              trunk_fwd, trunk_plain, upsample_bwd,
                              upsample_bwd_plain, upsample_fwd, upsample_plain)
 from srtpu_torch.ops import rdn as k6
+from srtpu_torch.ops import wdsr as k7
 from srtpu_torch.ops.layout import w_t
 
 pytestmark = pytest.mark.cuda
@@ -628,3 +633,117 @@ def test_k6_wrappers_reject_what_the_kernels_do_not_take(device):
         k6.rdn_fwd(x.float(), wpk, b, wf, bf)
     with pytest.raises(ValueError):
         k6.rdn_fwd(x, wpk, b, wf[:, :128].contiguous(), bf)
+
+
+def _k7_case(gen, device, bsz, h, w, c):
+    """K7's operands at width c (e = 6c; the bottleneck L = int(0.8 c)
+    zero-padded to Lp, as wdsr_block pads it) at srtpu's init bounds, and
+    a cotangent."""
+    f32 = torch.float32
+    e = 6 * c
+    lv, lp = k7.wdsr_lp(c)
+    w2 = _u(gen, (e, lp), e ** -0.5, device)
+    w2[:, lv:] = 0
+    b2 = _u(gen, (lp,), e ** -0.5, device, f32)
+    b2[lv:] = 0
+    w3 = _u(gen, (3, 3, lp, c), (9 * lv) ** -0.5, device)
+    w3[:, :, lv:] = 0
+    return (_u(gen, (bsz, h, w, c), 1.0, device),
+            _u(gen, (c, e), c ** -0.5, device),
+            _u(gen, (e,), c ** -0.5, device, f32), w2, b2, w3,
+            _u(gen, (c,), (9 * lv) ** -0.5, device, f32),
+            _u(gen, (bsz, h, w, c), 1.0, device))
+
+
+@pytest.mark.parametrize('h,w', [(1, 1), (7, 16), (9, 33), (40, 17)])
+@pytest.mark.parametrize('c', [16, 64, 128])
+def test_k7_kernels_match_plain(device, c, h, w):
+    """K7's forward and backward against their plain versions at res_scale
+    0.5: out and dx within two bf16 steps of their largest magnitude (h1
+    and h2 round at the same points, but a value next to a rounding
+    boundary may land a step apart and the next product reads it), the
+    f32 grads within one step; each call counted once, bit-identical on a
+    second call (no float atomics)."""
+    gen = torch.Generator().manual_seed(c * 1000 + h * 100 + w)
+    x, w1, b1, w2, b2, w3, b3, g = _k7_case(gen, device, 2, h, w, c)
+    before = k7.wdsr_fwd.launches, k7.wdsr_bwd.launches
+    out = k7.wdsr_fwd(x, w1, b1, w2, b2, w3, b3, 0.5)
+    torch.cuda.synchronize()
+    _assert_close(out, k7.wdsr_fwd_plain(x, w1, b1, w2, b2, w3, b3, 0.5), 2)
+    assert torch.equal(out, k7.wdsr_fwd(x, w1, b1, w2, b2, w3, b3, 0.5))
+    got = k7.wdsr_bwd(x, g, w1, b1, w2, b2, w3, 0.5)
+    torch.cuda.synchronize()
+    ref = k7.wdsr_bwd_plain(x, g, w1, b1, w2, b2, w3, 0.5)
+    for g_t, r_t, steps in zip(got, ref, (2, 1, 1, 1, 1, 1, 1)):
+        _assert_close(g_t, r_t, steps)
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, k7.wdsr_bwd(x, g, w1, b1, w2, b2, w3, 0.5)))
+    assert (k7.wdsr_fwd.launches, k7.wdsr_bwd.launches) == (
+        before[0] + 2, before[1] + 2)
+
+
+def test_k7_wrappers_reject_what_the_kernels_do_not_take(device):
+    """C not a multiple of 16, or wider than 128, raises on the card."""
+    gen = torch.Generator().manual_seed(0)
+    for c in (24, 144):
+        x, w1, b1, w2, b2, w3, b3, g = _k7_case(gen, device, 1, 4, 4, c)
+        with pytest.raises(ValueError, match='no kernel'):
+            k7.wdsr_fwd(x, w1, b1, w2, b2, w3, b3, 1.0)
+        with pytest.raises(ValueError, match='no kernel'):
+            k7.wdsr_bwd(x, g, w1, b1, w2, b2, w3, 1.0)
+
+
+def _wdsr(device, scale, n_feats=128, seed=0):
+    """WDSR-B on K7's route ('cs'), 2 blocks, bf16."""
+    return create_model('WDSR', scale_factor=scale, n_feats=n_feats,
+                        n_resblocks=2, use_pallas='cs', dtype=torch.bfloat16,
+                        device=device,
+                        generator=torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.parametrize('scale', [2, 3, 4, 8])
+def test_wdsr_kernel_path_matches_plain(device, scale):
+    """WDSR-B predict on the card, kernel path against plain path at every
+    scale (the tail is cuDNN): one K7 forward per block, the SR image
+    within 2^-6."""
+    model = _wdsr(device, scale)
+    lr = torch.rand((2, 20, 28, 3),
+                    generator=torch.Generator().manual_seed(5)).to(device)
+    before = k7.wdsr_fwd.launches
+    with torch.inference_mode():
+        got = model(lr).float()
+        assert k7.wdsr_fwd.launches == before + 2
+        ref = model(lr, plain=True).float()
+    assert got.shape == (2, 20 * scale, 28 * scale, 3)
+    assert (got - ref).abs().max().item() <= 2.0 ** -6
+
+
+def test_wdsr_train_step_kernel_path_matches_plain(device):
+    """One WDSR-B x4 step (L1, Adam), kernel path against plain path from
+    the same params and batch: the loss within 2^-7 relative, every
+    gradient (v, g and bias of every conv) f32 and within 2^-4 of its
+    largest magnitude (as RDN's); K7 once each way per block."""
+    from srtpu_torch.losses import parse_losses
+    from srtpu_torch.optim import build_optimizer
+    from srtpu_torch.train import TrainState, make_train_step
+    gen = torch.Generator().manual_seed(6)
+    lr = torch.rand((2, 12, 20, 3), generator=gen).to(device)
+    hr = torch.rand((2, 48, 80, 3), generator=gen).to(device)
+    grads, losses = [], []
+    for plain in (False, True):
+        model = _wdsr(device, 4)
+        state = TrainState(model, build_optimizer(
+            'ADAM', ['lr=1e-4'], model.parameters()))
+        before = k7.wdsr_fwd.launches, k7.wdsr_bwd.launches
+        logs = make_train_step(parse_losses('l1'), plain=plain)(state, lr, hr)
+        torch.cuda.synchronize()
+        assert (k7.wdsr_fwd.launches - before[0],
+                k7.wdsr_bwd.launches - before[1]) == ((0, 0) if plain
+                                                       else (2, 2))
+        losses.append(float(logs['loss']))
+        grads.append([p.grad for p in model.parameters()])
+    assert abs(losses[0] - losses[1]) <= 2.0 ** -7 * losses[1]
+    for got, ref in zip(*grads):
+        assert got.dtype == torch.float32
+        top = ref.abs().max().item()
+        assert (got - ref).abs().max().item() <= 2.0 ** -4 * top
