@@ -1,5 +1,6 @@
 """Drive srtpu_torch's EDSR-baseline x4, RCAN-10x16 x4, SRResNet x4,
-RDN-B x4, DDBPN x4 and WDSR-B x4 predict and training on one CUDA card.
+RDN-B x4, DDBPN x4, WDSR-B x4 and SRGAN x4 predict and training on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -139,14 +140,37 @@ Phases, each of which raises on failure (nothing is caught):
    the 5x5 phase-dense 576 -> 32 conv's backward (dx 32 -> 576 and its
    weight grads) on K2's general path on a main path, gradients against
    an f32 step.
+2h. K4r (K4 with REFLECT boundaries, SRGAN's generator block): F1, F2,
+   B2 and B3 with reflect=True against their plain versions at the
+   training shape (batch 16, LR 32x32) and at a ragged batch 2 of 23x37,
+   within bn_block.kernel_limits, two calls bit-identical; two planted
+   faults, the forward's halo left at zero (the SAME kernel in place of
+   F1 and F2) and B2 / B3 with the fold dropped, must fail those limits
+   (each margin printed); each K4r function's time beside K4's on the
+   same inputs; one reflect block on cuDNN in bf16 (channels-last
+   weights, benchmark mode) timed beside a K4r block, forward and
+   forward + backward;
+17. the SRGAN predict slice: phase 3's path and images with ``--model
+   SRGAN`` at srtpu's sizes (ngf = ndf = 64, 16 blocks, x4): eval mode,
+   so no kernel of the port runs (the trunk on its running statistics
+   through reflect-padded stock convs, as srtpu's eval on XLA); PNGs at
+   4x; the forward times;
+18. the SRGAN fit slice: ``fit --model SRGAN --use_pallas cs`` at batch
+   16, patch 128, 20 adversarial steps (D then G, VGG19 relu5_4 content
+   term): per step K4r F1 and B3 17, F2 and B2 16, K4's F3 and B1 17 and
+   33 reflect weight grads; g_loss and d_loss finite, the running
+   statistics moved; a kernel-path and a plain-path step held to an f32
+   step (every generator gradient, each block's BN2 dy); the step's time
+   on the kernel and plain paths (and the kernel path with TF32 off),
+   patches/s, the device share and device time by group (K4r, Adam, the
+   rest; D, VGG19 and the generator timed alone).
 The line before the last is a JSON object with, per kernel, its launches
-in the main-path runs (EDSR, RCAN, SRResNet, RDN, DDBPN and WDSR predict
-and fit, EDSR and SRResNet x3 predict, SRResNet x3 fit; ``launches`` is
-their sum), its
-largest error against its plain version,
-its time (K4's: its kernels' own device time from torch.profiler; the
-others: the wrapper's CUDA-event time) and the plain version's at the
-main path's shapes, the least time the card could take for the same
+in the main-path runs (EDSR, RCAN, SRResNet, RDN, DDBPN, WDSR and SRGAN
+predict and fit, EDSR and SRResNet x3 predict, SRResNet x3 fit;
+``launches`` is their sum), its largest error against its plain
+version, its time (K4's and K4r's: its kernels' own device time from
+torch.profiler; the others: the wrapper's CUDA-event time) and the
+plain version's at the main path's shapes, the least time the card could take for the same
 work (``bound_ms``: the larger of the bytes the function must move over
 3.35 TB/s and its matrix FLOPs over 989 TFLOP/s bf16, NVIDIA's H100 SXM
 figures) and the time of one
@@ -174,7 +198,7 @@ import torch.nn.functional as F
 
 from srtpu_torch import cli
 from srtpu_torch.data import pad_to_bucket
-from srtpu_torch.losses import parse_losses
+from srtpu_torch.losses import VGGLoss, parse_losses
 from srtpu_torch.models import create_model
 from srtpu_torch.ops import (_build, b1_plain, b1_sums, b2_call, b2_plain,
                              b3_call, b3_plain, bn_block, conv3x3_bwd,
@@ -195,7 +219,8 @@ from srtpu_torch.ops.rdn import (pack, rdb_bwd_chain, rdb_bwd_chain_plain,
 from srtpu_torch.ops.wdsr import (wdsr_bwd, wdsr_bwd_plain, wdsr_fwd,
                                   wdsr_fwd_plain, wdsr_lp)
 from srtpu_torch.optim import build_optimizer
-from srtpu_torch.train import TrainState, make_train_step
+from srtpu_torch.train import (TrainState, create_gan_state,
+                               make_gan_train_step, make_train_step)
 from srtpu_torch.utils.logging import save_image
 
 C, L, SCALE = 64, 16, 4
@@ -302,7 +327,15 @@ BN_TRUNK_VS_F32, BN_TRUNK_STAT_REL = 2.0, 2.0 ** -6
 PRE_BN = ('b1', 'b2', 'close_b')
 # the K4 kernels' names (torch.profiler), for their own device time
 K4_KERNELS = ('bn_conv_stats_kernel', 'bn_norm_skip_kernel', 'bn_sums_kernel',
-              'bn_bwd_conv_kernel', 'bn_reduce_kernel')
+              'bn_bwd_conv_kernel', 'bn_reduce_kernel', 'bn_fold_ring_kernel')
+# K4r (SRGAN's generator block): F1, F2, B2 and B3 with reflect=True,
+# counted apart from K4's SAME launches; F3 and B1 pad nothing and are
+# K4's own. Phase 2h's shapes: the training shape and a ragged one (not a
+# multiple of the 7 x 16 tile).
+K4R = ('F1', 'F2', 'B2', 'B3')
+K4R_COUNTERS = {k: (K4_FNS[k], 'launches_reflect') for k in K4R}
+K4R_SIZES = ((TRAIN_BATCH, TRAIN_PATCH // SCALE, TRAIN_PATCH // SCALE),
+             (2, 23, 37))
 # RDN-B x4 (srtpu bench.py:115-116, rdn_config='B'): 16 blocks of 8 dense
 # layers at growth G = G0 = 64; the CLI's --rdn_config / --growth0
 RDN_D, RDN_C, RDN_G0 = 16, 8, 64
@@ -343,6 +376,23 @@ K2G_FWD, K2G_BWD = (conv3x3_fwd, 'launches_general'), (conv3x3_bwd,
                                                        'launches_general')
 K2G5_FWD = (conv3x3_fwd, 'launches_general_5x5')
 WGG = (conv_wgrad, 'launches_general')
+# SRGAN x4 at srtpu's sizes (srtpu/models/srgan.py:146-150, bench.py's
+# recipe): ngf = ndf = 64, 16 blocks, on srtpu's kernel route's key
+SRGAN_ARGS = ['--ngf', str(C), '--ndf', str(C), '--n_blocks', str(L),
+              '--use_pallas', 'cs']
+# per image of an SRGAN x4 predict: eval mode, no kernel of the port
+SRGAN_PREDICT_LAUNCHES = {**{k: 0 for k in K4R_COUNTERS.values()},
+                          **{fn: 0 for fn in K4_FNS.values()},
+                          conv3x3_fwd: 0, upsample_fwd: 0, conv_wgrad: 0}
+# per SRGAN train step: K4r F1 and B3 in every block and the close, F2
+# and B2 in every block; K4's F3 and B1 likewise; the reflect weight
+# grads twice per block and once for the close; no SAME K4, K2 or K3
+SRGAN_STEP_LAUNCHES = {
+    K4R_COUNTERS['F1']: L + 1, K4R_COUNTERS['F2']: L,
+    K4R_COUNTERS['B2']: L, K4R_COUNTERS['B3']: L + 1, f3_norm_skip: L + 1,
+    b1_sums: L + 1, conv_wgrad: 2 * L + 1, WGG: 0,
+    **{K4_FNS[k]: 0 for k in K4R}, conv3x3_fwd: 0, conv3x3_bwd: 0,
+    upsample_fwd: 0, upsample_bwd: 0}
 # (c_in, c_out, k) at which DDBPN and the x3 tails run K2's general path:
 # DDBPN x4 (nr 32) up, down and output convs, x2 up, down and output
 # convs, EDSR's and SRResNet's x3 phase-dense convs; each backward's dx
@@ -911,11 +961,13 @@ def _off_sums(gen, t, device) -> torch.Tensor:
     return _uniform(gen, (2, C), m ** 0.5 * rms, device, torch.float32)
 
 
-def bn_case(gen, device, bsz: int, h: int, w: int) -> dict:
+def bn_case(gen, device, bsz: int, h: int, w: int,
+            reflect: bool = False) -> dict:
     """Inputs of one SRResNet BN block at 64 channels (srtpu's init bounds
     for the convs; BN scale and shift off their init), with the
     statistics, h1 and dz that F1, F2 and B2's plain versions give, and
-    the backward's sums drawn apart from their cotangents (_off_sums)."""
+    the backward's sums drawn apart from their cotangents (_off_sums);
+    the conv functions' args end with ``reflect`` (SRGAN's block)."""
     bf, f32 = torch.bfloat16, torch.float32
     cb = 1.0 / (9 * C) ** 0.5
     u = _uniform(gen, (bsz, h, w, C), 1.0, device, bf)
@@ -925,24 +977,25 @@ def bn_case(gen, device, bsz: int, h: int, w: int) -> dict:
     bet = [_uniform(gen, (C,), 0.3, device, f32) for _ in range(2)]
     alpha = torch.full((1,), 0.25, device=device)
     g = _uniform(gen, (bsz, h, w, C), 1.0, device, bf)
-    y1, st1 = f1_plain(u, w1, b1, gam[0], bet[0])
-    y2, _, st2 = f2_plain(y1, st1, alpha, w2, b2, gam[1], bet[1])
+    rf = reflect
+    y1, st1 = f1_plain(u, w1, b1, gam[0], bet[0], rf)
+    y2, _, st2 = f2_plain(y1, st1, alpha, w2, b2, gam[1], bet[1], rf)
     sums2 = _off_sums(gen, g, device)
-    dz = b2_plain(g, y2, st2, gam[1], sums2, y1, st1, alpha, w2)[0]
+    dz = b2_plain(g, y2, st2, gam[1], sums2, y1, st1, alpha, w2, rf)[0]
     sums1 = _off_sums(gen, dz, device)
     px = bsz * h * w
     cf = conv_flops(px, C, C)
     return {
-        'F1': ((u, w1, b1, gam[0], bet[0]), cf, ('y', 'st')),
-        'F2': ((y1, st1, alpha, w2, b2, gam[1], bet[1]), cf,
+        'F1': ((u, w1, b1, gam[0], bet[0], rf), cf, ('y', 'st')),
+        'F2': ((y1, st1, alpha, w2, b2, gam[1], bet[1], rf), cf,
                ('y2', 'h1', 'st2')),
         'F3': ((y2, st2, u), 0.0, ('out',)),
         'B1': ((g, y2, st2), 0.0, ('S_g, S_gx (dbeta2, dgamma2)',)),
-        'B2': ((g, y2, st2, gam[1], sums2, y1, st1, alpha, w2), cf,
+        'B2': ((g, y2, st2, gam[1], sums2, y1, st1, alpha, w2, rf), cf,
                ('dz', 'dy2', 'db2', 'dalpha', 'S_dz, S_dzx (dbeta1, '
                 'dgamma1)')),
-        'B3': ((dz, y1, st1, gam[0], sums1, w1, g), cf, ('du', 'dy1',
-                                                         'db1'))}
+        'B3': ((dz, y1, st1, gam[0], sums1, w1, g, rf), cf,
+               ('du', 'dy1', 'db1'))}
 
 
 def _as_list(out):
@@ -975,8 +1028,9 @@ def _db_scales(scales: dict, prefix: str = ''):
 
 def _no_prelu_bwd(b2):
     """B2 without the PReLU backward: dz = dh1 where z < 0 too."""
-    def call(g, y2, st2, ga2, sums2, y1, st1, alpha, w2):
-        return b2(g, y2, st2, ga2, sums2, y1, st1, torch.ones_like(alpha), w2)
+    def call(g, y2, st2, ga2, sums2, y1, st1, alpha, *rest):
+        return b2(g, y2, st2, ga2, sums2, y1, st1, torch.ones_like(alpha),
+                  *rest)
     return call
 
 
@@ -1211,6 +1265,121 @@ def check_bn_kernels(device) -> dict:
              median_ms(lambda: step(mp, True), 3, 3)]
     print(f'K4 BN trunk L={L} + close {bsz}x{h}x{w}: fwd + bwd kernel '
           f'{times[0]:.4f} ms plain {times[1]:.4f} ms')
+    return stats
+
+
+def _margin(got, ref, tols) -> float:
+    """The worst error / limit over a function's outputs."""
+    return max(((g.float() - r.float()).abs() / lim.float()).max().item()
+               for g, r, lim in zip(got, ref, tols))
+
+
+def stock_reflect_block(x, w1, b1, ga1, be1, alpha, w2, b2, ga2, be2):
+    """One SRGAN generator block on stock PyTorch in bf16: reflect pad +
+    cuDNN conv (weights channels-last, as lib_conv makes them), cuDNN
+    batch norm on batch statistics, PReLU, again, + skip. x is an NCHW
+    view of an NHWC tensor: K4r's yardstick, never called by the port."""
+    def conv(t, w, b):
+        return F.conv2d(F.pad(t, (1, 1, 1, 1), mode='reflect'), w, b)
+    h = F.batch_norm(conv(x, w1, b1), None, None, ga1, be1, training=True,
+                     eps=bn_block.EPS)
+    h = F.batch_norm(conv(F.prelu(h, alpha), w2, b2), None, None, ga2, be2,
+                     training=True, eps=bn_block.EPS)
+    return h + x
+
+
+def check_bn_reflect_kernels(device, smi: str) -> dict:
+    """Phase 2h. K4r: F1, F2, B2 and B3 with reflect=True against their
+    plain versions at the training shape and a ragged one (per-element
+    limits of bn_block.kernel_limits), two calls bit-identical; the SAME
+    kernel on the same inputs (F1, F2: the halo left at zero; B2, B3: the
+    fold dropped) must fail those limits, margin printed; K4r's device
+    times beside K4's on the same inputs; a K4r block and a bf16 cuDNN
+    reflect block, forward and forward + backward. Returns the stats of
+    F1r, F2r, B2r and B3r."""
+    stats = new_stats([k + 'r' for k in K4R])
+    for i, (bsz, h, w) in enumerate(K4R_SIZES):
+        gen = torch.Generator().manual_seed(bsz * 7919 + h * 101 + w)
+        case = bn_case(gen, device, bsz, h, w, reflect=True)
+        tag = f'{bsz}x{h}x{w}'
+        for kid in K4R:
+            fn, plain = K4_FNS[kid], K4_PLAIN[kid]
+            args, flops, names = case[kid]
+            got = _as_list(fn(*args))
+            torch.cuda.synchronize()
+            ref = _as_list(plain(*args))
+            need(all(torch.equal(a, b) for a, b in
+                     zip(got, _as_list(fn(*args)))),
+                 f'K4r {kid} {tag}: two calls differ')
+            tols = bn_block.kernel_limits(kid.lower(), args, ref, got)
+            err = _check_all(f'K4r {kid} {tag}', names, got, ref, tols)
+            fault = ('the halo left at zero' if kid.startswith('F')
+                     else 'the fold dropped')
+            margin = _margin(_as_list(fn(*args[:-1], False)), ref, tols)
+            print(f'K4r {kid} {tag}, planted fault ({fault}: the SAME '
+                  f'kernel): margin (the worst error/limit) {margin:.4g}')
+            need(margin > 1.0, f'K4r {kid} {tag}: {fault} passed')
+            st = stats[kid + 'r']
+            st['max_abs_err'] = max(st['max_abs_err'], err)
+            if i == 0:
+                dev_ms = _kernel_device_ms(lambda: fn(*args), K4_KERNELS)
+                same_ms = _kernel_device_ms(lambda: fn(*args[:-1], False),
+                                            K4_KERNELS)
+                plain_ms = median_ms(lambda: plain(*args))
+                print(f'K4r {kid} {tag}: kernel {dev_ms:.4f} ms (its '
+                      f'kernels on the device, torch.profiler) against K4 '
+                      f'(SAME) {same_ms:.4f} ms on the same inputs = '
+                      f'{dev_ms / same_ms:.3f}x; plain {plain_ms:.4f} ms  '
+                      f'[{smi}]')
+                record(st, dev_ms, plain_ms, flops, nbytes(args, got))
+
+    # one block, K4r against a bf16 cuDNN reflect block, at the training
+    # shape with the same weights
+    bsz, h, w = K4R_SIZES[0]
+    gen = torch.Generator().manual_seed(17)
+    cb = 1.0 / (9 * C) ** 0.5
+    x = _uniform(gen, (bsz, h, w, C), 1.0, device, torch.bfloat16)
+    g = _uniform(gen, (bsz, h, w, C), 1.0, device, torch.bfloat16)
+    prm = [_uniform(gen, (3, 3, C, C), cb, device, torch.float32),
+           _uniform(gen, (C,), cb, device, torch.float32),
+           1.0 + _uniform(gen, (C,), 0.5, device, torch.float32),
+           _uniform(gen, (C,), 0.3, device, torch.float32),
+           torch.full((1,), 0.25, device=device),
+           _uniform(gen, (3, 3, C, C), cb, device, torch.float32),
+           _uniform(gen, (C,), cb, device, torch.float32),
+           1.0 + _uniform(gen, (C,), 0.5, device, torch.float32),
+           _uniform(gen, (C,), 0.3, device, torch.float32)]
+    prm = [p.requires_grad_() for p in prm]
+    cl = torch.channels_last
+    sprm = [(p.detach().permute(3, 2, 0, 1) if p.dim() == 4 else p.detach())
+            .to(torch.bfloat16) for p in prm]
+    sprm = [p.contiguous(memory_format=cl) if p.dim() == 4 else p
+            for p in sprm]
+    sprm = [p.requires_grad_() for p in sprm]
+    xs, gs = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+
+    def k4r(backward):
+        xi = x.clone().requires_grad_(backward)
+        out, _ = bn_block.bn_resblock(xi, *prm, reflect=True)
+        if backward:
+            out.backward(g)
+
+    def stock(backward):
+        xi = xs.clone().requires_grad_(backward)
+        out = stock_reflect_block(xi, *sprm)
+        if backward:
+            out.backward(gs)
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        times = [median_ms(lambda: f(b), 10, 3) for b in (False, True)
+                 for f in (k4r, stock)]
+    finally:
+        torch.backends.cudnn.benchmark = bench
+    print(f'K4r block {bsz}x{h}x{w}: forward {times[0]:.4f} ms (a bf16 '
+          f'cuDNN reflect block, channels-last weights, benchmark mode: '
+          f'{times[1]:.4f} ms); forward + backward {times[2]:.4f} ms '
+          f'(cuDNN {times[3]:.4f} ms)  [{smi}]')
     return stats
 
 
@@ -1549,12 +1718,13 @@ def png_size(path: Path) -> tuple[int, int]:
 
 def run_slice(device, smi: str, model: str = 'EDSR', extra=(),
               expected=EXPECTED_LAUNCHES, rules=None, scale: int = SCALE,
-              sizes=SLICE_SIZES, alt=()) -> dict:
+              sizes=SLICE_SIZES, alt=(), profile_all: bool = False) -> dict:
     """Phase 3 (EDSR) and 5, 7, 9, 11, 13, 14 (``extra`` the model's CLI
     flags): predict at ``scale`` through the CLI on images of ``sizes``,
     the launch counters per image (``expected``), the PNGs, kernel path
     against plain path; with ``rules``, device time by kernel group of
-    the largest image's forward; with ``alt`` (flags of another route of
+    the largest image's forward (``profile_all``: each image's, with the
+    largest unmatched kernels); with ``alt`` (flags of another route of
     the same model and weights), that route's forward time per image
     beside. Returns the launch counts of the main-path run."""
     rng = np.random.default_rng(SEED)
@@ -1627,6 +1797,11 @@ def run_slice(device, smi: str, model: str = 'EDSR', extra=(),
                   f'plain {plain_ms:.3f} ms  [{smi}]')
             need(err <= SLICE_MAX_TOL and mean <= SLICE_MEAN_TOL,
                  f'{name}: kernel path vs plain path')
+            if rules and profile_all:
+                with torch.inference_mode():
+                    _profile(lambda: net(lr), ms, smi, rules,
+                             f'{model} predict forward, LR '
+                             f'{tuple(lr.shape[1:3])}', top=6)
             if net_alt is not None:
                 with torch.inference_mode():
                     sr_a = net_alt(lr).float().clamp(0, 1)[0, :h, :w]
@@ -1642,7 +1817,7 @@ def run_slice(device, smi: str, model: str = 'EDSR', extra=(),
             need(check.read_bytes() ==
                  (out / 'Demo' / f'{name}.png').read_bytes(),
                  f'{name}.png differs from the checked kernel-path SR')
-        if rules:
+        if rules and not profile_all:
             with torch.inference_mode():
                 _profile(lambda: net(lr), ms, smi, rules,
                          f'{model} predict forward, LR {tuple(lr.shape[1:3])}')
@@ -1654,15 +1829,19 @@ def run_slice(device, smi: str, model: str = 'EDSR', extra=(),
 
 
 class _LossLog(logging.Handler):
-    """Collects the loss of each ``epoch %d/%d  loss %.4f ...`` record."""
+    """Collects the losses of each ``epoch %d/%d  loss %.4f ...`` record:
+    ``losses`` the first (the loss; an SRGAN's g_loss), ``rows`` all
+    (an SRGAN's g_loss, d_loss)."""
 
     def __init__(self):
         super().__init__()
         self.losses: list[float] = []
+        self.rows: list[tuple] = []
 
     def emit(self, record):
         if record.msg.startswith('epoch '):
-            self.losses.append(float(record.args[2]))
+            self.rows.append(tuple(float(a) for a in record.args[2:-1]))
+            self.losses.append(self.rows[-1][0])
 
 
 # kernel-name substring -> group of the profile, first match wins
@@ -1682,12 +1861,12 @@ RCAN_PROFILE = (('rcab_pair_kernel', 'K5 fwd conv pair (F1)'),
                 ('wgrad', 'weight grads'),
                 ('conv3x3_kernel', 'K2 fwd + bwd dx'))
 SRRESNET_PROFILE = (
-    ('bn_conv_stats_kernel<false>', 'K4 F1 conv + stats'),
-    ('bn_conv_stats_kernel<true>', 'K4 F2 norm + PReLU + conv + stats'),
+    ('bn_conv_stats_kernel<false', 'K4 F1 conv + stats'),
+    ('bn_conv_stats_kernel<true', 'K4 F2 norm + PReLU + conv + stats'),
     ('bn_norm_skip_kernel', 'K4 F3 norm + skip'),
     ('bn_sums_kernel', 'K4 B1 sums'),
-    ('bn_bwd_conv_kernel<true>', 'K4 B2 BN2 bwd + convT + PReLU bwd'),
-    ('bn_bwd_conv_kernel<false>', 'K4 B3 BN1 bwd + convT + skip'),
+    ('bn_bwd_conv_kernel<true', 'K4 B2 BN2 bwd + convT + PReLU bwd'),
+    ('bn_bwd_conv_kernel<false', 'K4 B3 BN1 bwd + convT + skip'),
     ('bn_reduce_kernel', 'K4 fixed-order reductions + finalize'),
     ('wgrad', 'weight grads'),
     ('conv3x3_kernel<64, 64, 7, 16, true', 'K3 fwd'),
@@ -1732,6 +1911,30 @@ SRRESNET_X3_PROFILE = (
     ('conv_chunked_kernel', 'K2 general path (x3 phase-dense 5x5, dx)'),
     ('wgrad_chunk_kernel', 'weight grads, general path (5x5 576->32)'),
     *SRRESNET_PROFILE)
+SRGAN_PROFILE = (
+    ('bn_fold_ring_kernel', 'K4r B2 / B3 fold ring'),
+    ('bn_conv_stats_kernel<false, true', 'K4r F1 conv + stats'),
+    ('bn_conv_stats_kernel<true, true', 'K4r F2 norm + PReLU + conv + '
+     'stats'),
+    ('bn_bwd_conv_kernel<true, true', 'K4r B2 BN2 bwd + convT + fold + '
+     'PReLU bwd'),
+    ('bn_bwd_conv_kernel<false, true', 'K4r B3 BN1 bwd + convT + fold + '
+     'skip'),
+    ('bn_norm_skip_kernel', 'K4 F3 norm + skip'),
+    ('bn_sums_kernel', 'K4 B1 sums'),
+    ('bn_reduce_kernel', 'K4 fixed-order reductions + finalize'),
+    ('wgrad_kernel<', 'K4r weight grads (reflect)'),
+    ('wgrad_reduce', 'K4r weight grads (reflect)'),
+    ('multi_tensor_apply', 'Adam (G and D)'))
+# SRGAN predict: eval mode, stock PyTorch only (f32 cuDNN convs on
+# bf16-rounded inputs, TF32 off as set above)
+SRGAN_PREDICT_PROFILE = (
+    ('reflection_pad', 'reflect pads'),
+    ('fft', 'cuDNN convs (FFT)'),
+    ('winograd', 'cuDNN convs (Winograd)'),
+    ('fprop', 'cuDNN convs (implicit GEMM)'),
+    ('convolve', 'cuDNN convs (implicit GEMM)'),
+    ('elementwise', 'elementwise (casts, BN apply, PReLU, adds, tanh)'))
 OTHER = 'other (cuDNN head/tail, Adam, casts, copies)'
 
 
@@ -1767,11 +1970,13 @@ def _kernel_device_ms(run, names, calls: int = 10) -> float:
     return us / 1e3 / calls
 
 
-def _profile(run, ms: float, smi: str, rules, what: str) -> None:
+def _profile(run, ms: float, smi: str, rules, what: str,
+             top: int = 0) -> None:
     """Device time by kernel group (``rules``) over three calls of
     ``run`` (torch.profiler), and its share of ``ms``, the call's time
     measured without the profiler (whose own host cost inflates the
-    traced wall time)."""
+    traced wall time); with ``top``, that many of the largest kernels of
+    the unmatched group by name."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1783,9 +1988,12 @@ def _profile(run, ms: float, smi: str, rules, what: str) -> None:
     wall = (time.perf_counter() - t0) * 1e3 / 3
     groups = {key: 0.0 for _, key in rules}
     groups[OTHER] = 0.0
+    other = {}
     for name, us in _device_us(prof).items():
         key = next((k for sub, k in rules if sub in name), OTHER)
         groups[key] += us / 1e3 / 3
+        if key == OTHER:
+            other[name] = us / 1e3 / 3
     device = sum(groups.values())
     if device == 0.0:
         print('profiler: no device time recorded')
@@ -1795,6 +2003,8 @@ def _profile(run, ms: float, smi: str, rules, what: str) -> None:
           f'call (traced wall {wall:.3f} ms)  [{smi}]')
     for key, t in groups.items():
         print(f'  {key}: {t:.3f} ms ({t / device:.3f})')
+    for name, t in sorted(other.items(), key=lambda kv: -kv[1])[:top]:
+        print(f'    {t:.3f} ms  {name[:110]}')
 
 
 def _grads(m) -> dict:
@@ -1893,6 +2103,46 @@ def _grads_ddbpn(model: str, net, lr, hr, paths) -> None:
           f'gradient exactly 0 on the card; {live} live slots nonzero')
 
 
+def fit_data(root: Path, scale: int, patch: int) -> Path:
+    """A synthetic training set of TRAIN_BATCH smooth-plus-noise .npy HR
+    images of 1.5 patches (one step per epoch) and their box-filtered LR
+    at ``scale``, drawn from SEED; returns its datasets directory."""
+    rng = np.random.default_rng(SEED)
+    hr_size = 3 * patch // 2
+    data = root / 'datasets'
+    hr_dir = data / 'Train' / 'HR'
+    lr_dir = data / 'Train' / 'LR' / f'X{scale}'
+    hr_dir.mkdir(parents=True)
+    lr_dir.mkdir(parents=True)
+    for i in range(TRAIN_BATCH):
+        lo = rng.random((hr_size // 8, hr_size // 8, 3))
+        hr = (np.kron(lo, np.ones((8, 8, 1))) * 0.8
+              + rng.random((hr_size, hr_size, 3)) * 0.2).astype(np.float32)
+        np.save(hr_dir / f'{i:02d}.npy', hr)
+        lr = hr.reshape(hr_size // scale, scale, hr_size // scale, scale,
+                        3).mean((1, 3))
+        np.save(lr_dir / f'{i:02d}.npy', lr.astype(np.float32))
+    return data
+
+
+def fit_batches(data: Path, scale: int, patch: int, device, n: int = 5):
+    """The first batch of each of ``n`` epochs of the fit loader (seed
+    SEED), on the device: the batches the CLI's fit trained on."""
+    from srtpu_torch.data import SRData
+    dm = SRData(datasets_dir=str(data), train_datasets=['Train'],
+                batch_size=TRAIN_BATCH, patch_size=patch,
+                scale_factor=scale, seed=SEED)
+    dm.setup('fit')
+    loader = dm.train_loader()
+    batches = []
+    for epoch in range(n):
+        loader.set_epoch(epoch)
+        b = next(iter(loader))
+        batches.append((torch.from_numpy(b.lr).to(device),
+                        torch.from_numpy(b.hr).to(device)))
+    return batches
+
+
 def run_train(device, smi: str, model: str = 'EDSR', extra=(),
               expected=STEP_LAUNCHES, rules=EDSR_PROFILE,
               compare=_grads_vs_plain, scale: int = SCALE,
@@ -1906,22 +2156,8 @@ def run_train(device, smi: str, model: str = 'EDSR', extra=(),
     ``alt``, flags of another route of the same model, that route's step
     time from the same params beside), the profile. Returns the launch
     counts of the fit run."""
-    rng = np.random.default_rng(SEED)
-    hr_size = 3 * patch // 2
     with tempfile.TemporaryDirectory(prefix='srtpu_smoke_fit_') as tmp:
-        data = Path(tmp) / 'datasets'
-        hr_dir = data / 'Train' / 'HR'
-        lr_dir = data / 'Train' / 'LR' / f'X{scale}'
-        hr_dir.mkdir(parents=True)
-        lr_dir.mkdir(parents=True)
-        for i in range(TRAIN_BATCH):     # one step per epoch
-            lo = rng.random((hr_size // 8, hr_size // 8, 3))
-            hr = (np.kron(lo, np.ones((8, 8, 1))) * 0.8
-                  + rng.random((hr_size, hr_size, 3)) * 0.2).astype(np.float32)
-            np.save(hr_dir / f'{i:02d}.npy', hr)
-            lr = hr.reshape(hr_size // scale, scale, hr_size // scale, scale,
-                            3).mean((1, 3))
-            np.save(lr_dir / f'{i:02d}.npy', lr.astype(np.float32))
+        data = fit_data(Path(tmp), scale, patch)
         argv = ['fit', '--model', model, '--scale_factor', str(scale),
                 '--n_feats', str(C), '--n_resblocks', str(L), *extra,
                 '--datasets_dir', str(data), '--train_datasets', 'Train',
@@ -1969,18 +2205,7 @@ def run_train(device, smi: str, model: str = 'EDSR', extra=(),
 
         # kernel path vs plain path from the same params and batches
         net = cli.build_model(cli.build_parser().parse_args(argv), device)
-        from srtpu_torch.data import SRData
-        dm = SRData(datasets_dir=str(data), train_datasets=['Train'],
-                    batch_size=TRAIN_BATCH, patch_size=patch,
-                    scale_factor=scale, seed=SEED)
-        dm.setup('fit')
-        loader = dm.train_loader()
-        batches = []
-        for epoch in range(5):
-            loader.set_epoch(epoch)
-            b = next(iter(loader))
-            batches.append((torch.from_numpy(b.lr).to(device),
-                            torch.from_numpy(b.hr).to(device)))
+        batches = fit_batches(data, scale, patch, device)
         paths = {}
         for plain in (False, True):
             m = copy.deepcopy(net)
@@ -2028,6 +2253,195 @@ def run_train(device, smi: str, model: str = 'EDSR', extra=(),
     return counts
 
 
+def _all_device_ms(run, calls: int = 3) -> float:
+    """Device time of every kernel per call of ``run`` (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    return sum(_device_us(prof).values()) / 1e3 / calls
+
+
+def _gan_parts(net, vgg, lr, hr, smi: str) -> None:
+    """Device time of the SRGAN step's parts, each run alone at the
+    step's shapes (torch.profiler, every kernel): the generator forward +
+    backward and its K4r share, the discriminator's three forwards and
+    two backwards, VGG19's two forwards and one backward, the two Adam
+    updates."""
+    g, d = net.generator, net.discriminator
+    state = create_gan_state(net, 1e-4)
+
+    def gen():
+        g(lr).float().square().mean().backward()
+
+    def disc():
+        d.train()
+        sr = g(lr).detach()
+        (d(hr).float().mean() + d(sr).float().mean()).backward()
+        d.eval()
+        sr.requires_grad_()
+        d.requires_grad_(False)
+        d(sr).float().mean().backward()
+        d.requires_grad_(True)
+        d.train()
+
+    def vg():
+        sr = g(lr).detach().float().requires_grad_()
+        vgg(sr, hr).backward()
+
+    def adam():
+        state.g_opt.step()
+        state.d_opt.step()
+    with torch.no_grad():
+        sr_ms = _all_device_ms(lambda: g(lr))
+    parts = {'generator forward + backward': _all_device_ms(gen),
+             'of which K4r (its kernels)': _kernel_device_ms(
+                 gen, K4_KERNELS + ('wgrad_kernel<', 'wgrad_reduce')),
+             'discriminator (3 forward, 2 backward)':
+                 _all_device_ms(disc) - sr_ms,
+             'VGG19 to relu5_4 (2 forward, 1 backward; f32, TF32 '
+             f'{"on" if torch.backends.cudnn.allow_tf32 else "off"})':
+                 _all_device_ms(vg) - sr_ms,
+             'Adam (G and D)': _all_device_ms(adam)}
+    print('SRGAN x4 train step parts, each alone at the step\'s shapes '
+          f'(device ms, torch.profiler)  [{smi}]: ' + ', '.join(
+              f'{k} {v:.3f}' for k, v in parts.items()))
+
+
+def run_gan_train(device, smi: str) -> dict:
+    """Phase 18. ``fit --model SRGAN --use_pallas cs`` through the CLI at
+    batch 16, patch 128, TRAIN_STEPS adversarial steps: the launch
+    counters per step, g_loss and d_loss finite, the running statistics
+    moved; from one set of params and batch, a kernel-path and a
+    plain-path step held to an f32 step (every generator gradient and each
+    block's BN2 dy, as phase 8); five steps' losses; the step's time on
+    both paths (TF32 at PyTorch's default, on, for the VGG19's f32 convs
+    as the CLI runs them; the kernel path also with it off); the device
+    share and time by group. Returns the launch counts of the fit run."""
+    scale, patch, steps = SCALE, TRAIN_PATCH, TRAIN_STEPS
+    with tempfile.TemporaryDirectory(prefix='srtpu_smoke_gan_') as tmp:
+        data = fit_data(Path(tmp), scale, patch)
+        argv = ['fit', '--model', 'SRGAN', '--scale_factor', str(scale),
+                *SRGAN_ARGS, '--datasets_dir', str(data),
+                '--train_datasets', 'Train', '--batch_size',
+                str(TRAIN_BATCH), '--patch_size', str(patch),
+                '--optimizer_params', 'lr=1e-4', '--max_epochs', str(steps),
+                '--precision', 'bf16', '--device', 'cuda', '--seed',
+                str(SEED), '--default_root_dir', str(Path(tmp) / 'run')]
+        log = _LossLog()
+        logging.getLogger('srtpu_torch.train.loop').addHandler(log)
+        for k in SRGAN_STEP_LAUNCHES:
+            setattr(*_counter(k), 0)
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: getattr(*_counter(k)) for k in SRGAN_STEP_LAUNCHES}
+        logging.getLogger('srtpu_torch.train.loop').removeHandler(log)
+        need(rc == 0, f'fit returned {rc}')
+        for k, per_step in SRGAN_STEP_LAUNCHES.items():
+            need(counts[k] == per_step * steps,
+                 f'{_counter_name(k)}: {counts[k]} launches in fit, '
+                 f'expected {per_step} x {steps}')
+        need(len(log.rows) == steps and np.isfinite(log.rows).all(),
+             f'fit losses {log.rows}')
+        print(f'SRGAN x{scale} fit CLI: {steps} steps in {wall:.3f} s (incl. '
+              f'model init, VGG19 init, .npy reads, batching, logs); g_loss/'
+              f'd_loss ' + ' '.join(f'{a:.4f}/{b:.4f}' for a, b in log.rows)
+              + f'  [{smi}]')
+        saved = torch.load(Path(tmp) / 'run' / 'final_weights.pt',
+                           weights_only=True)
+        stats = [k for k in saved if '.mean' in k or '.var' in k]
+        for name in stats:
+            t, init = saved[name].float(), float('.var' in name)
+            need(bool(torch.isfinite(t).all()) and bool((t != init).any()),
+                 f'{name}: running statistics not finite or never moved')
+        print(f'SRGAN fit: {len(stats)} running statistics finite and moved')
+
+        # kernel path, plain path and an f32 step from one set of params
+        net = cli.build_model(cli.build_parser().parse_args(argv), device)
+        net.train()
+        batches = fit_batches(data, scale, patch, device)
+        vgg = VGGLoss(device=device)
+
+        def path(plain, dtype=torch.bfloat16):
+            m = copy.deepcopy(net)
+            m.generator.dtype = m.discriminator.dtype = dtype
+            return (make_gan_train_step(vgg_loss=vgg, plain=plain),
+                    create_gan_state(m, 1e-4))
+        paths = {False: path(False), True: path(True)}
+        lr, hr = batches[0]
+        scales, rk, rp, rf = {}, [], [], []
+        with _dy_record(bn_block.KERNELS, rk):
+            paths[False][0](paths[False][1], lr, hr)
+        with _dy_record(bn_block.PLAIN, rp):
+            paths[True][0](paths[True][1], lr, hr)
+        step32, st32 = path(True, None)
+        with _db_scales(scales, 'trunk.'), _dy_record(bn_block.PLAIN, rf):
+            step32(st32, lr, hr)
+        gk, gp, gf = (_grads(s.generator) for s in (
+            paths[False][1], paths[True][1], st32))
+        for n, t in gk.items():
+            need(t.dtype == torch.float32, f'{n} grad dtype')
+        rows = _vs_f32(gk, gp, gf, scales)
+        dy_rows = _dy_rows(rk, rp, rf)
+        label = f'SRGAN x{scale} train step generator gradients'
+        need(all(r <= 1.0 for r, _ in rows + dy_rows),
+             f'{label}: ' + '; '.join(t for r, t in rows + dy_rows
+                                      if not r <= 1.0))
+        print(f'{label}, max_abs vs the f32 step, kernel/plain/tol (|f32|), '
+              f'the four nearest their tolerance: '
+              + ', '.join(t for _, t in rows[:4]) + '; the pre-BN biases: '
+              + ', '.join(t for _, t in rows if '|grad|' in t)
+              + '; per block, error/limit: '
+              + ', '.join(f'{t} = {r:.4g}' for r, t in dy_rows))
+        losses = {False: [], True: []}
+        for j, (lr, hr) in enumerate(batches[1:]):
+            for plain, (step, state) in paths.items():
+                losses[plain].append(step(state, lr, hr))
+        for key in ('g_loss', 'd_loss'):
+            k, p = ([float(lg[key]) for lg in losses[x]] for x in (False,
+                                                                   True))
+            need(np.isfinite(k + p).all(), f'{key} not finite')
+            print(f'SRGAN train {key} kernel / plain: ' + ' '.join(
+                f'{a:.5f}/{b:.5f}' for a, b in zip(k, p)))
+        g_rel = max(abs(float(a['g_loss']) - float(b['g_loss']))
+                    / abs(float(b['g_loss']))
+                    for a, b in zip(losses[False], losses[True]))
+        print(f'SRGAN g_loss kernel vs plain: max rel {g_rel:.4g} (tol '
+              f'{STEP_LOSS_TOL:.4g})')
+        need(g_rel <= STEP_LOSS_TOL, 'kernel vs plain path g_loss')
+
+        lr, hr = batches[0]
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
+        try:
+            times = {key: median_ms(lambda: step(state, lr, hr),
+                                    launches=5, windows=3)
+                     for key, (step, state) in paths.items()}
+            step, state = paths[False]
+            _profile(lambda: step(state, lr, hr), times[False], smi,
+                     SRGAN_PROFILE, f'SRGAN x{scale} train step', top=8)
+            _gan_parts(net, vgg, lr, hr, smi)
+            torch.backends.cudnn.allow_tf32 = False
+            times['tf32 off'] = median_ms(lambda: step(state, lr, hr),
+                                          launches=5, windows=3)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        for key, label in ((False, 'kernel path'), (True, 'plain path'),
+                           ('tf32 off', 'kernel path, cuDNN TF32 off')):
+            print(f'SRGAN x{scale} train step ({label}): {times[key]:.3f} '
+                  f'ms/step = {TRAIN_BATCH * 1e3 / times[key]:.2f} patches/s '
+                  f'(batch {TRAIN_BATCH}, LR {patch // scale}x'
+                  f'{patch // scale} -> HR {patch}x{patch}, D + G steps, '
+                  f'VGG19 relu5_4, Adam)  [{smi}]')
+    return counts
+
+
 def main() -> None:
     t_start = time.perf_counter()
     device, smi = card()
@@ -2038,6 +2452,7 @@ def main() -> None:
     stats.update(check_rdn_kernels(device))
     stats.update(check_k2_general(device, smi))
     stats.update(check_wdsr_kernels(device, smi))
+    stats.update(check_bn_reflect_kernels(device, smi))
     # the main-path runs, each with the counters set to 0 before it
     runs = {'edsr_predict': run_slice(device, smi),
             'edsr_fit': run_train(device, smi)}
@@ -2074,6 +2489,10 @@ def main() -> None:
         device, smi, 'SRResNet', ['--n_resblocks', str(X3_FIT_BLOCKS)],
         SRRESNET_X3_STEP_LAUNCHES, SRRESNET_X3_PROFILE, _grads_vs_f32,
         scale=3, patch=X3_FIT_PATCH, steps=X3_FIT_STEPS)
+    runs['srgan_predict'] = run_slice(device, smi, 'SRGAN', SRGAN_ARGS,
+                                      SRGAN_PREDICT_LAUNCHES,
+                                      SRGAN_PREDICT_PROFILE, profile_all=True)
+    runs['srgan_fit'] = run_gan_train(device, smi)
     rep = 'srtpu/ops/cs_conv.py:'
     bn = 'srtpu/ops/bn_resblock_cs.py:'
     meta = [('K1', 'K1 trunk_fwd (fused resblock)', trunk_fwd, 'trunk.cu',
@@ -2134,7 +2553,18 @@ def main() -> None:
              'srtpu/ops/wdsr_cs.py:135'),
             ('K7b', 'K7 wdsr_bwd (h2 recomputed, dh2, fused pointwise bwd '
              'with h1 recomputed, reductions; with dW3, db3)', wdsr_bwd,
-             'wdsr.cu', 'srtpu/ops/wdsr_cs.py:159')]
+             'wdsr.cu', 'srtpu/ops/wdsr_cs.py:159'),
+            ('F1r', 'K4r f1_conv_stats, reflect (mirrored halo; stats of '
+             'the stored y)', K4R_COUNTERS['F1'], 'bn_block.cu', bn + '315'),
+            ('F2r', 'K4r f2_norm_act_conv_stats, reflect (h1 of the '
+             'mirrored pixel in the halo)', K4R_COUNTERS['F2'],
+             'bn_block.cu', bn + '324'),
+            ('B2r', 'K4r b2_call, reflect (fold ring launch, convT + fold '
+             'before the PReLU bwd and BN1 sums)', K4R_COUNTERS['B2'],
+             'bn_block.cu', bn + '360'),
+            ('B3r', 'K4r b3_call, reflect (fold ring launch, convT + fold '
+             'before the skip and its rounding)', K4R_COUNTERS['B3'],
+             'bn_block.cu', bn + '387')]
     rows = []
     for kid, name, fn, src, r in meta:
         st = stats[kid]

@@ -31,8 +31,13 @@ takes ``--n0`` (default 128), ``--nr`` (default 32) and ``--depth``
 ``--n_resblocks`` (default 16), ``--res_scale`` (default 1.0) and
 ``--use_pallas`` (``false``, the default: stock weight-normed convs,
 cuDNN on the card; ``cs``: K7 runs each B block; ``true``, srtpu's legacy
-fused block, is not ported and raises), srtpu's WDSR keys; a model
-ignores the flags it does not declare. ``fit`` trains in train mode
+fused block, is not ported and raises), srtpu's WDSR keys; ``--model
+SRGAN`` takes ``--ngf``, ``--ndf`` (default 64 each), ``--n_blocks``
+(default 16) and ``--use_pallas`` (accepted for srtpu's trees; the
+card's train mode runs K4r whatever it says), and ``fit`` trains it
+adversarially (its ``--losses`` and ``--optimizer`` are ignored, the lr
+of ``--optimizer_params`` taken, as srtpu's); a model ignores the flags
+it does not declare. ``fit`` trains in train mode
 (SRResNet's batch norm on batch statistics, updating its running ones)
 and ``predict`` runs eval mode; ``final_weights.pt`` holds the running
 statistics, so ``predict --weights`` reads what ``fit`` left. ``fit``
@@ -74,7 +79,8 @@ def _use_pallas(value: str):
 MODEL_FLAGS = {'n_feats': int, 'n_resblocks': int, 'n_resgroups': int,
                'reduction': int, 'rdn_config': str, 'growth0': int,
                'n0': int, 'nr': int, 'depth': int, 'block_type': str,
-               'res_scale': float, 'use_pallas': _use_pallas}
+               'res_scale': float, 'use_pallas': _use_pallas, 'ngf': int,
+               'ndf': int, 'n_blocks': int}
 
 
 def _model_args(p: argparse.ArgumentParser, seed: int) -> None:

@@ -1,4 +1,4 @@
-"""JAX EDSR, RCAN, SRResNet, RDN, DDBPN and WDSR parameters -> an
+"""JAX EDSR, RCAN, SRResNet, RDN, DDBPN, WDSR and SRGAN parameters -> an
 srtpu_torch state dict.
 
 Reads either EDSR tree srtpu stores:
@@ -87,6 +87,24 @@ and every WDSR tree:
 
 all to one state dict (``WNConv2d``'s ``v``, ``g``, ``bias`` per conv),
 which runs on either of the port's routes.
+
+and either SRGAN tree (``params`` and ``batch_stats`` each hold
+``generator`` and ``discriminator``, as srtpu's combined G+D view):
+
+* the generator, ``use_pallas=False``: ``Conv2d_0`` (the 9x9 head),
+  ``PReLU_0``, ``_SRGANBlock_{i}/{Conv2d_0, BatchNorm_0, PReLU_0,
+  Conv2d_1, BatchNorm_1}``, ``Conv2d_1`` + ``BatchNorm_0`` (the close),
+  ``UpscaleBlock_0/{Conv2d_{j}, PReLU_{j}}`` and ``Conv2d_2`` (the 9x9
+  output), with ``batch_stats/generator/{_SRGANBlock_{i}/BatchNorm_{0,1},
+  BatchNorm_0}/{mean, var}``;
+* the generator, ``use_pallas='cs'``: ``Conv2d_0``, ``PReLU_0``,
+  ``CSBNTrunk_0`` (as SRResNet's) in place of the blocks and the close,
+  ``UpscaleBlock_0`` and ``Conv2d_1`` (the output), with
+  ``batch_stats/generator/CSBNTrunk_0``;
+* the discriminator: ``Conv2d_0`` .. ``Conv2d_9`` and ``BatchNorm_0`` ..
+  ``BatchNorm_6`` with their ``batch_stats``;
+
+both into the port's one stacked trunk.
 
 A tree is nested dicts of numpy arrays, with or without the top-level
 ``params`` key (an SRResNet tree with it, beside ``batch_stats``). Any
@@ -188,6 +206,48 @@ def _cs_tail(sd: dict, tail: dict, n: int) -> None:
     sd['tail.final_bias'] = _t(tail['final_bias'])
 
 
+def _cs_bn_trunk(sd: dict, pre: str, tr: dict, st: dict, n: int) -> None:
+    """``CSBNTrunk_0`` and its batch_stats -> ``{pre}*`` (BNTrunk)."""
+    for k in ('b1', 'bn1_scale', 'bn1_bias', 'alpha', 'b2', 'bn2_scale',
+              'bn2_bias'):
+        sd[pre + k] = _t(tr[k])
+    for k in ('w1', 'w2'):
+        sd[pre + k] = w_hwio_from_cs(_t(tr[k]), n, n).contiguous()
+    sd[pre + 'close_w'] = w_hwio_from_cs(_t(tr['close_w']), n, n)[0] \
+        .contiguous()
+    for k in ('close_b', 'close_bn_scale', 'close_bn_bias'):
+        sd[pre + k] = _t(tr[k])[0]
+    for k in ('mean1', 'var1', 'mean2', 'var2'):
+        sd[pre + k] = _t(st[k])
+    for k in ('mean_close', 'var_close'):
+        sd[pre + k] = _t(st[k])[0]
+
+
+def _bn_blocks(sd: dict, pre: str, blocks: list, bstats: list, close: dict,
+               close_bn: dict, close_st: dict) -> None:
+    """Per-block BN resblocks (each ``{Conv2d_0, BatchNorm_0, PReLU_0,
+    Conv2d_1, BatchNorm_1}``, their stats) and the close's conv, BN and
+    stats -> ``{pre}*`` (BNTrunk, stacked)."""
+    for j in (1, 2):            # the block's conv j is its Conv2d_{j - 1}
+        convs = [blk[f'Conv2d_{j - 1}'] for blk in blocks]
+        sd[f'{pre}w{j}'] = torch.stack([_t(c['kernel']) for c in convs])
+        sd[f'{pre}b{j}'] = torch.stack([_t(c['bias']) for c in convs])
+        for name, leaf, tree in ((f'bn{j}_scale', 'scale', blocks),
+                                 (f'bn{j}_bias', 'bias', blocks),
+                                 (f'mean{j}', 'mean', bstats),
+                                 (f'var{j}', 'var', bstats)):
+            sd[pre + name] = torch.stack(
+                [_t(b[f'BatchNorm_{j - 1}'][leaf]) for b in tree])
+    sd[pre + 'alpha'] = torch.stack([_t(b['PReLU_0']['alpha'])
+                                     for b in blocks])
+    sd[pre + 'close_w'] = _t(close['kernel'])
+    sd[pre + 'close_b'] = _t(close['bias'])
+    sd[pre + 'close_bn_scale'] = _t(close_bn['scale'])
+    sd[pre + 'close_bn_bias'] = _t(close_bn['bias'])
+    sd[pre + 'mean_close'] = _t(close_st['mean'])
+    sd[pre + 'var_close'] = _t(close_st['var'])
+
+
 def _srresnet_from_jax(p: dict, stats: dict) -> dict[str, torch.Tensor]:
     if not stats:
         raise ValueError('an SRResNet tree needs its batch_stats collection '
@@ -197,43 +257,15 @@ def _srresnet_from_jax(p: dict, stats: dict) -> dict[str, torch.Tensor]:
     sd['head_act.alpha'] = _t(p['BasicBlock_0']['PReLU_0']['alpha'])
     n = sd['head.weight'].shape[-1]
     if 'CSBNTrunk_0' in p:
-        tr, st = p['CSBNTrunk_0'], stats['CSBNTrunk_0']
-        for k in ('b1', 'bn1_scale', 'bn1_bias', 'alpha', 'b2', 'bn2_scale',
-                  'bn2_bias'):
-            sd[f'trunk.{k}'] = _t(tr[k])
-        for k in ('w1', 'w2'):
-            sd[f'trunk.{k}'] = w_hwio_from_cs(_t(tr[k]), n, n).contiguous()
-        sd['trunk.close_w'] = w_hwio_from_cs(_t(tr['close_w']), n, n)[0] \
-            .contiguous()
-        for k in ('close_b', 'close_bn_scale', 'close_bn_bias'):
-            sd[f'trunk.{k}'] = _t(tr[k])[0]
-        for k in ('mean1', 'var1', 'mean2', 'var2'):
-            sd[f'trunk.{k}'] = _t(st[k])
-        for k in ('mean_close', 'var_close'):
-            sd[f'trunk.{k}'] = _t(st[k])[0]
+        _cs_bn_trunk(sd, 'trunk.', p['CSBNTrunk_0'], stats['CSBNTrunk_0'], n)
         _cs_tail(sd, p['CSUpscaleTail_0'], n)
         return sd
     blocks = _seq(p, 'ResBlock_')
-    bstats = [stats[f'ResBlock_{i}'] for i in range(len(blocks))]
-    for j in (1, 2):            # the block's conv j is its Conv2d_{j - 1}
-        convs = [blk[f'Conv2d_{j - 1}'] for blk in blocks]
-        sd[f'trunk.w{j}'] = torch.stack([_t(c['kernel']) for c in convs])
-        sd[f'trunk.b{j}'] = torch.stack([_t(c['bias']) for c in convs])
-        for name, leaf, tree in ((f'bn{j}_scale', 'scale', blocks),
-                                 (f'bn{j}_bias', 'bias', blocks),
-                                 (f'mean{j}', 'mean', bstats),
-                                 (f'var{j}', 'var', bstats)):
-            sd[f'trunk.{name}'] = torch.stack(
-                [_t(b[f'BatchNorm_{j - 1}'][leaf]) for b in tree])
-    sd['trunk.alpha'] = torch.stack([_t(b['PReLU_0']['alpha'])
-                                     for b in blocks])
-    close, cst = p['BasicBlock_1'], stats['BasicBlock_1']['BatchNorm_0']
-    sd['trunk.close_w'] = _t(close['Conv2d_0']['kernel'])
-    sd['trunk.close_b'] = _t(close['Conv2d_0']['bias'])
-    sd['trunk.close_bn_scale'] = _t(close['BatchNorm_0']['scale'])
-    sd['trunk.close_bn_bias'] = _t(close['BatchNorm_0']['bias'])
-    sd['trunk.mean_close'], sd['trunk.var_close'] = _t(cst['mean']), \
-        _t(cst['var'])
+    close = p['BasicBlock_1']
+    _bn_blocks(sd, 'trunk.', blocks,
+               [stats[f'ResBlock_{i}'] for i in range(len(blocks))],
+               close['Conv2d_0'], close['BatchNorm_0'],
+               stats['BasicBlock_1']['BatchNorm_0'])
     up = p['UpscaleBlock_0']
     for i, conv in enumerate(_seq(up, 'Conv2d_')):
         sd[f'tail.up{i}_weight'] = _t(conv['kernel'])
@@ -241,6 +273,41 @@ def _srresnet_from_jax(p: dict, stats: dict) -> dict[str, torch.Tensor]:
         sd[f'tail.up{i}_alpha'] = _t(up[f'PReLU_{i}']['alpha'])
     sd['tail.final_weight'] = _t(p['Conv2d_0']['kernel'])
     sd['tail.final_bias'] = _t(p['Conv2d_0']['bias'])
+    return sd
+
+
+def _srgan_from_jax(p: dict, stats: dict) -> dict[str, torch.Tensor]:
+    if not stats:
+        raise ValueError('an SRGAN tree needs its batch_stats collection '
+                         '(the running statistics of batch norm)')
+    gp, gst = p['generator'], stats['generator']
+    sd: dict[str, torch.Tensor] = {}
+    _conv(sd, 'generator.head', gp['Conv2d_0'])
+    sd['generator.head_act.alpha'] = _t(gp['PReLU_0']['alpha'])
+    n = sd['generator.head.weight'].shape[-1]
+    if 'CSBNTrunk_0' in gp:
+        _cs_bn_trunk(sd, 'generator.trunk.', gp['CSBNTrunk_0'],
+                     gst['CSBNTrunk_0'], n)
+        out = gp['Conv2d_1']
+    else:
+        blocks = _seq(gp, '_SRGANBlock_')
+        _bn_blocks(sd, 'generator.trunk.', blocks,
+                   [gst[f'_SRGANBlock_{i}'] for i in range(len(blocks))],
+                   gp['Conv2d_1'], gp['BatchNorm_0'], gst['BatchNorm_0'])
+        out = gp['Conv2d_2']
+    up = gp['UpscaleBlock_0']
+    for j, conv in enumerate(_seq(up, 'Conv2d_')):
+        _conv(sd, f'generator.upscale.convs.{j}', conv)
+        sd[f'generator.upscale.acts.{j}.alpha'] = _t(up[f'PReLU_{j}']['alpha'])
+    _conv(sd, 'generator.out', out)
+    dp, dst = p['discriminator'], stats['discriminator']
+    for i, conv in enumerate(_seq(dp, 'Conv2d_')):
+        _conv(sd, f'discriminator.convs.{i}', conv)
+    for i, bn in enumerate(_seq(dp, 'BatchNorm_')):
+        pre = f'discriminator.bns.{i}.'
+        sd[pre + 'scale'], sd[pre + 'bias'] = _t(bn['scale']), _t(bn['bias'])
+        st = dst[f'BatchNorm_{i}']
+        sd[pre + 'mean'], sd[pre + 'var'] = _t(st['mean']), _t(st['var'])
     return sd
 
 
@@ -382,10 +449,12 @@ def _wdsr_from_jax(p: dict) -> dict[str, torch.Tensor]:
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     """State dict of :class:`srtpu_torch.models.EDSR`, ``RCAN``,
-    ``SRResNet``, ``RDN``, ``DDBPN`` or ``WDSR`` from a JAX tree of that
-    model (an SRResNet tree with its ``batch_stats``), dispatched on the
-    tree's keys."""
+    ``SRResNet``, ``RDN``, ``DDBPN``, ``WDSR`` or ``SRGAN`` from a JAX tree
+    of that model (an SRResNet or SRGAN tree with its ``batch_stats``),
+    dispatched on the tree's keys."""
     p = tree.get('params', tree)
+    if 'generator' in p:
+        return _srgan_from_jax(p, tree.get('batch_stats', {}))
     if 'WNConv2d_0' in p:
         return _wdsr_from_jax(p)
     if 'sfe2_kernel' in p or '_RDB_0' in p:

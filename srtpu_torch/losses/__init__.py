@@ -4,7 +4,10 @@
 with srtpu's parsing, error messages and log keys. The registry keeps
 srtpu's twelve names; ``l1``, ``mae``, ``l2`` and ``mse`` are ported, and
 asking for any other raises ``NotImplementedError`` (ROADMAP.md queue 1,
-item 15). No ported loss has trainable parameters.
+item 15). No ported loss has trainable parameters. SRGAN's adversarial
+step uses :func:`gan_loss`, :func:`tv_loss` and :class:`VGGLoss`
+(VGG19 features on srtpu's random init unless converted weights are on
+disk) outside the DSL, as srtpu's does.
 """
 
 from __future__ import annotations
@@ -15,7 +18,9 @@ from typing import Callable
 
 import torch
 
-from .basic import l1_loss, l2_loss
+from .basic import l1_loss, l2_loss, tv_loss
+from .gan import gan_loss
+from .vgg import VGGLoss
 
 _logger = logging.getLogger(__name__)
 
@@ -99,5 +104,6 @@ def parse_losses(losses_str: str) -> CompositeLoss:
     return CompositeLoss(subs)
 
 
-__all__ = ['CompositeLoss', 'NOT_PORTED', 'PORTED', 'SubLoss', 'l1_loss',
-           'l2_loss', 'parse_losses', 'supported_losses']
+__all__ = ['CompositeLoss', 'NOT_PORTED', 'PORTED', 'SubLoss', 'VGGLoss',
+           'gan_loss', 'l1_loss', 'l2_loss', 'parse_losses',
+           'supported_losses', 'tv_loss']

@@ -1,6 +1,6 @@
 """Model registry of the port (srtpu/models/__init__.py). EDSR, RCAN,
-SRResNet, RDN, DDBPN and WDSR are ported; the other families of srtpu are
-listed in ROADMAP.md, in the order they will be ported."""
+SRResNet, RDN, DDBPN, WDSR and SRGAN are ported; SRCNN, srtpu's last
+family, is listed in ROADMAP.md (queue 1, item 8)."""
 
 from __future__ import annotations
 
@@ -14,15 +14,17 @@ from .ddbpn import DDBPN
 from .edsr import EDSR
 from .rcan import RCAN
 from .rdn import RDN
+from .srgan import SRGAN, SRGANDiscriminator, SRGANGenerator
 from .srresnet import SRResNet
 from .wdsr import WDSR
 
 MODEL_REGISTRY: dict[str, type[nn.Module]] = {'DDBPN': DDBPN, 'EDSR': EDSR,
                                               'RCAN': RCAN, 'RDN': RDN,
+                                              'SRGAN': SRGAN,
                                               'SRResNet': SRResNet,
                                               'WDSR': WDSR}
 # srtpu families the port does not have yet
-NOT_PORTED = ('SRCNN', 'SRGAN')
+NOT_PORTED = ('SRCNN',)
 
 
 def model_class(name: str) -> type[nn.Module]:
@@ -47,6 +49,7 @@ def create_model(name: str, **kwargs) -> nn.Module:
 
 
 __all__ = ['BNTrunk', 'DDBPN', 'EDSR', 'MODEL_REGISTRY', 'NOT_PORTED',
-           'PReLU', 'RCAN', 'RDN', 'SRResNet', 'Conv2d', 'Trunk',
+           'PReLU', 'RCAN', 'RDN', 'SRGAN', 'SRGANDiscriminator',
+           'SRGANGenerator', 'SRResNet', 'Conv2d', 'Trunk',
            'UpscaleBlock', 'UpscaleTail', 'WDSR', 'create_model',
            'mean_shift', 'model_class', 'pixel_shuffle']

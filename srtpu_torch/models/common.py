@@ -58,12 +58,21 @@ def mean_shift(x: torch.Tensor, sign: int, rgb_range: float = 1.0,
 class Conv2d(nn.Module):
     """'same' k x k conv on NHWC with an HWIO weight. In the compute dtype
     as srtpu's ``Conv2d``: the conv's result rounds to ``dtype``, then the
-    bias (cast to ``dtype``) is added. A plain ``F.conv2d``: srtpu leaves
-    this conv (the 3 -> C head) to XLA, not to a kernel."""
+    bias (cast to ``dtype``) is added. ``padding='reflect'`` pads k // 2
+    mirrored pixels instead of zeros (srtpu's ``_reflect_pad`` before a
+    'valid' conv: SRGAN's 9x9 head and output); ``stride`` as srtpu's
+    ``strides`` at padding k // 2 (SRGAN's discriminator). A plain
+    ``F.conv2d``: srtpu leaves these convs (the 3 -> C head) to XLA, not
+    to a kernel."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, *,
-                 device=None, generator: torch.Generator):
+                 padding: str = 'same', stride: int = 1, device=None,
+                 generator: torch.Generator):
         super().__init__()
+        if padding not in ('same', 'reflect'):
+            raise ValueError(f"padding must be 'same' or 'reflect', got "
+                             f"{padding!r}")
+        self.reflect, self.stride = padding == 'reflect', stride
         bound = 1.0 / math.sqrt(kernel_size * kernel_size * in_ch)
         self.weight = uniform_param(
             (kernel_size, kernel_size, in_ch, out_ch), bound, device,
@@ -71,15 +80,20 @@ class Conv2d(nn.Module):
         self.bias = uniform_param((out_ch,), bound, device, generator)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return _conv(x, self.weight, self.bias, dtype)
+        return _conv(x, self.weight, self.bias, dtype, self.reflect,
+                     self.stride)
 
 
-def _conv(x, w, b, dtype):
-    """'same' conv of NHWC x with HWIO w in ``dtype``: the result rounds to
-    ``dtype``, then b (cast to ``dtype``) is added."""
+def _conv(x, w, b, dtype, reflect: bool = False, stride: int = 1):
+    """'same' (or reflect-padded) conv of NHWC x with HWIO w in ``dtype``:
+    the result rounds to ``dtype``, then b (cast to ``dtype``) is
+    added."""
     w = w.to(dtype)
-    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2).float(),
-                 w.permute(3, 2, 0, 1).float(), padding=w.shape[0] // 2)
+    p = w.shape[0] // 2
+    xc = x.to(dtype).permute(0, 3, 1, 2).float()
+    if reflect:
+        xc, p = F.pad(xc, (p, p, p, p), mode='reflect'), 0
+    y = F.conv2d(xc, w.permute(3, 2, 0, 1).float(), stride=stride, padding=p)
     return y.permute(0, 2, 3, 1).to(dtype) + b.to(dtype)
 
 
@@ -170,8 +184,10 @@ class BNTrunk(nn.Module):
     ra <- 0.9 ra + 0.1 batch with the biased batch variance (srtpu's
     BatchNorm, momentum 0.9). Eval mode normalises with the running
     statistics on stock PyTorch convs (:func:`bn_resblock_ref`), as srtpu
-    runs eval on XLA; ``plain`` changes nothing there. SRGAN's reflect
-    padding is not ported."""
+    runs eval on XLA; ``plain`` changes nothing there. ``reflect`` gives
+    every conv REFLECT boundaries (SRGAN's generator): K4r in train mode,
+    reflect-padded stock convs in eval mode. K4's kernels take 64
+    channels: other widths run train mode on the CPU only."""
 
     MOMENTUM = 0.9
 
@@ -179,10 +195,7 @@ class BNTrunk(nn.Module):
                  reflect: bool = False, *, device=None,
                  generator: torch.Generator):
         super().__init__()
-        if reflect:
-            raise NotImplementedError(
-                'the reflect-padded BN trunk (SRGAN, K4 reflect) is not '
-                'ported to srtpu_torch yet; see ROADMAP.md')
+        self.reflect = reflect
         n, nb = n_feats, n_resblocks
         bound = 1.0 / math.sqrt(9 * n)
 
@@ -219,18 +232,23 @@ class BNTrunk(nn.Module):
         xd = x.to(dtype).contiguous()
         close = (self.close_w, self.close_b, self.close_bn_scale,
                  self.close_bn_bias)
+        rf = self.reflect
         if not self.training:
             u = xd
             for i, prm in enumerate(self._blocks()):
                 u = bn_resblock_ref(u, *prm, self.mean1[i], self.var1[i],
-                                    self.mean2[i], self.var2[i])
+                                    self.mean2[i], self.var2[i], rf)
             return bn_close_ref(u, xd, *close, self.mean_close,
-                                self.var_close)
+                                self.var_close, rf)
+        if xd.is_cuda and not plain and xd.shape[-1] != 64:
+            raise ValueError(
+                f'BNTrunk: K4 takes 64 channels on CUDA, got '
+                f'{xd.shape[-1]} (train mode; eval mode runs any width)')
         u, stats = xd, []
         for prm in self._blocks():
-            u, st = bn_resblock(u, *prm, plain=plain)
+            u, st = bn_resblock(u, *prm, plain=plain, reflect=rf)
             stats.append(st)
-        out, (mc, vc) = bn_close(u, xd, *close, plain=plain)
+        out, (mc, vc) = bn_close(u, xd, *close, plain=plain, reflect=rf)
         with torch.no_grad():
             mom = self.MOMENTUM
             for name, batch in zip(('mean1', 'var1', 'mean2', 'var2'),
@@ -309,25 +327,33 @@ class UpscaleTail(nn.Module):
 
 
 class UpscaleBlock(nn.Module):
-    """Sub-pixel upscaler (srtpu ``UpscaleBlock``, act=None):
-    log2(scale) stages (one at x3) of a 3x3 conv C -> r*r*C, r = 3 at x3
-    and 2 otherwise, then ``pixel_shuffle``. srtpu runs it in XLA, outside
-    any Pallas kernel, so each conv is the port's ``Conv2d`` (cuDNN on
-    the card); ``plain`` changes nothing here."""
+    """Sub-pixel upscaler (srtpu ``UpscaleBlock``): log2(scale) stages
+    (one at x3) of a 3x3 conv C -> r*r*C, r = 3 at x3 and 2 otherwise,
+    then ``pixel_shuffle``; with ``act='prelu'`` (SRGAN's) a PReLU after
+    each stage's shuffle, one slope per stage (``acts``). srtpu runs it
+    in XLA, outside any Pallas kernel, so each conv is the port's
+    ``Conv2d`` (cuDNN on the card); ``plain`` changes nothing here."""
 
-    def __init__(self, scale_factor: int = 4, n_feats: int = 64, *,
-                 device=None, generator: torch.Generator):
+    def __init__(self, scale_factor: int = 4, n_feats: int = 64,
+                 act: str | None = None, *, device=None,
+                 generator: torch.Generator):
         super().__init__()
         if scale_factor not in (2, 3, 4, 8):
             raise ValueError(f'scale_factor must be 2, 3, 4 or 8, got '
                              f'{scale_factor}')
+        if act not in (None, 'prelu'):
+            raise ValueError(f"act must be None or 'prelu', got {act!r}")
         self.r = 3 if scale_factor == 3 else 2
+        stages = int(math.log2(scale_factor))
         self.convs = nn.ModuleList(
             Conv2d(n_feats, n_feats * self.r * self.r, 3, device=device,
-                   generator=generator)
-            for _ in range(int(math.log2(scale_factor))))
+                   generator=generator) for _ in range(stages))
+        self.acts = nn.ModuleList(
+            PReLU(device=device) for _ in range(stages if act else 0))
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        for conv in self.convs:
+        for i, conv in enumerate(self.convs):
             x = pixel_shuffle(conv(x, dtype), self.r)
+            if self.acts:
+                x = self.acts[i](x)
         return x

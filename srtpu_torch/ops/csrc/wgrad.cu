@@ -27,8 +27,11 @@
 // Modes: scale != 1 reads G as bf16(scale * G) (the trunk's gs); r > 1
 // reads G through the phase gather of srtpu's _ups_deint_kernel from a
 // fine tensor (B, r H, r W, Cout / (r r)), giving the phase-major dW of
-// the upscale stage. J stacked jobs (the trunk's L blocks) share one
-// launch.
+// the upscale stage; reflect (3x3, Cin = 64) is the weight gradient of a
+// REFLECT conv (SRGAN's BN blocks, K4r): X's halo holds the mirrored
+// pixel (srt::load_tile's REFLECT mode), dW = sum over p of
+// reflect_pad(X)[p + tap] G[p] (srtpu's _gs_roll_reflect). J stacked jobs
+// (the trunk's L blocks) share one launch.
 //
 // 5x5 (256 -> 16): 25 * 256 / 16 = 400 row tiles of dW per output chunk,
 // too many accumulators for one block; the rows are split over NRG = 5
@@ -82,7 +85,7 @@ struct WgradPlan {
 // writes its partial (its rows of the KK * KK * CIN x cout slice; db from
 // row group 0) at slot (job, part) of the workspaces.
 template <int CIN, int NB, bool GATHER, int KK = 3, int WARPS = 12,
-          int NRG = 1>
+          int NRG = 1, bool REFLECT = false>
 __global__ void __launch_bounds__(WARPS * 32, 1)
     wgrad_kernel(const srt::bf16* __restrict__ x,
                  const srt::bf16* __restrict__ g, float* __restrict__ ws_w,
@@ -118,8 +121,8 @@ __global__ void __launch_bounds__(WARPS * 32, 1)
     const int b = t / (tiles_y * tiles_x), rem = t % (tiles_y * tiles_x);
     const int y0 = rem / tiles_x * kTH, x0 = rem % tiles_x * kTW;
     __syncthreads();  // the previous tile's reads are done
-    srt::load_tile<CIN>(xs, x, b, H, W, y0 - KK / 2, x0 - KK / 2,
-                        kTH + KK - 1, P::WX, P::NPIX);
+    srt::load_tile<CIN, REFLECT>(xs, x, b, H, W, y0 - KK / 2, x0 - KK / 2,
+                                 kTH + KK - 1, P::WX, P::NPIX);
     constexpr int VG = NB / 8;
     for (int i = threadIdx.x; i < P::MF * 16 * VG; i += blockDim.x) {
       const int p = i / VG, v = i % VG;
@@ -328,13 +331,13 @@ cudaError_t reduce(const float* ws, float* out, int nparts, long long n,
 }
 
 template <int CIN, int NB, bool GATHER, int KK = 3, int WARPS = 12,
-          int NRG = 1>
+          int NRG = 1, bool REFLECT = false>
 cudaError_t launch(const void* x, const void* g, float* ws_w, float* ws_b,
                    int J, long long x_stride, long long g_stride, int B,
                    int H, int W, int cout, int r, float gscale, int nparts,
                    cudaStream_t stream) {
   typedef WgradPlan<CIN, NB, KK, WARPS, NRG> P;
-  auto kernel = wgrad_kernel<CIN, NB, GATHER, KK, WARPS, NRG>;
+  auto kernel = wgrad_kernel<CIN, NB, GATHER, KK, WARPS, NRG, REFLECT>;
   cudaError_t err = srt::allow_smem(kernel, P::SMEM);
   if (err != cudaSuccess) return err;
   const int ntiles = B * ((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW);
@@ -414,18 +417,25 @@ cudaError_t chunked(const void* x, const void* g, float* ws_w, float* ws_b,
 // 64 == 0 (cout = r*r*64 when gathering), cin = 256 with cout % 16 == 0;
 // with k = 5: cin = 256 with cout % 16 == 0, r = 1. Any other cin and
 // cout that are multiples of 16, with r = 1, take the general path.
-// Returns a cudaError_t.
+// reflect != 0 (REFLECT boundaries, H, W >= 2): k = 3, cin = 64, cout %
+// 64 == 0, r = 1 only. Returns a cudaError_t.
 extern "C" int srt_conv_wgrad(const void* x, const void* g, void* ws_w,
                               void* ws_b, void* dw, void* db, int J,
                               long long x_stride, long long g_stride, int B,
                               int H, int W, int cin, int cout, int r,
-                              float gscale, int nparts, int k,
+                              float gscale, int nparts, int k, int reflect,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws_w);
   float* bws = static_cast<float*>(ws_b);
   cudaError_t err;
-  if (k == 5 && cin == 256 && cout % 16 == 0 && r <= 1)
+  if (reflect) {
+    if (k != 3 || cin != 64 || cout % 64 || r > 1 || H < 2 || W < 2)
+      return (int)cudaErrorInvalidValue;
+    err = launch<64, 64, false, 3, 12, 1, true>(x, g, w, bws, J, x_stride,
+                                                g_stride, B, H, W, cout, 1,
+                                                gscale, nparts, s);
+  } else if (k == 5 && cin == 256 && cout % 16 == 0 && r <= 1)
     err = launch<256, 16, false, 5, 10, 5>(x, g, w, bws, J, x_stride,
                                            g_stride, B, H, W, cout, 1,
                                            gscale, nparts, s);

@@ -1,9 +1,10 @@
 """Weight gradient of a k x k SAME conv (k = 3, or 5 for the phase-dense
-final convs of SRResNet's tail): dW and db in f32, the half of the K1-K5
-backward passes that the TPU kernels accumulate in resident f32 scratch
-(``srtpu/ops/cs_conv.py``: ``_conv_bwd_kernel``, ``_ups_conv_bwd_kernel``,
-``_trunk_bwd_kernel_mega``; ``srtpu/ops/bn_resblock_cs.py``: ``_b2_kernel``,
-``_b3_kernel``).
+final convs of SRResNet's tail), or of a 3x3 REFLECT conv (SRGAN's BN
+blocks: torch ReflectionPad2d(1) + a valid conv): dW and db in f32, the
+half of the K1-K5 backward passes that the TPU kernels accumulate in
+resident f32 scratch (``srtpu/ops/cs_conv.py``: ``_conv_bwd_kernel``,
+``_ups_conv_bwd_kernel``, ``_trunk_bwd_kernel_mega``;
+``srtpu/ops/bn_resblock_cs.py``: ``_b2_kernel``, ``_b3_kernel``).
 
 The kernel is ``csrc/wgrad.cu``, whose head note says what bounds it on
 the H100 and how it stays deterministic (per-block partials added in a
@@ -37,27 +38,32 @@ def _gather(g: torch.Tensor, gscale: float, r: int) -> torch.Tensor:
     return g
 
 
-def _dw_one(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+def _dw_one(x: torch.Tensor, g: torch.Tensor, k: int,
+            reflect: bool = False) -> torch.Tensor:
     bsz, h, w, cin = x.shape
-    cols = F.unfold(x.permute(0, 3, 1, 2).float(), k, padding=k // 2)
+    xc = x.permute(0, 3, 1, 2).float()
+    if reflect:
+        xc = F.pad(xc, (k // 2,) * 4, mode='reflect')
+    cols = F.unfold(xc, k, padding=0 if reflect else k // 2)
     dw = torch.einsum('bkp,bpc->kc', cols, g.reshape(bsz, h * w, -1).float())
     return dw.reshape(cin, k, k, -1).permute(1, 2, 0, 3)
 
 
 def conv_wgrad_plain(x: torch.Tensor, g: torch.Tensor, gscale: float = 1.0,
-                     r: int = 1, k: int = 3
+                     r: int = 1, k: int = 3, reflect: bool = False
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version: x (..., B, H, W, Cin); g (..., B, H, W, Cout), or for
     r > 1 fine (..., B, r*H, r*W, Cout / (r*r)) read phase-major. Returns
     dW (..., k, k, Cin, Cout) and db (..., Cout), f32 sums of the
-    products of the bf16 (or f32) inputs."""
+    products of the bf16 (or f32) inputs; ``reflect`` reads x's halo
+    mirrored."""
     lead = x.shape[:-4]
     xs = x.reshape(-1, *x.shape[-4:])
     gs = g.reshape(-1, *g.shape[-4:])
     dws, dbs = [], []
     for xj, gj in zip(xs, gs):
         gj = _gather(gj, gscale, r)
-        dws.append(_dw_one(xj, gj, k))
+        dws.append(_dw_one(xj, gj, k, reflect))
         dbs.append(gj.float().sum((0, 1, 2)))
     return (torch.stack(dws).reshape(*lead, *dws[0].shape),
             torch.stack(dbs).reshape(*lead, -1))
@@ -90,14 +96,16 @@ def _blocks_per_part(cin: int, cout: int, r: int, k: int) -> int:
 
 
 def conv_wgrad(x: torch.Tensor, g: torch.Tensor, gscale: float = 1.0,
-               r: int = 1, k: int = 3) -> tuple[torch.Tensor, torch.Tensor]:
+               r: int = 1, k: int = 3, reflect: bool = False
+               ) -> tuple[torch.Tensor, torch.Tensor]:
     """As :func:`conv_wgrad_plain`, with bf16 x and g. On CUDA, k = 3 or 5
     with Cin and Cout multiples of 16 (r = 1), and at k = 3 Cin = 64 with
-    Cout = r*r*64 when gathering. Leading dims of x and g are stacked
-    jobs, one launch for all."""
+    Cout = r*r*64 when gathering; ``reflect`` at k = 3, Cin = 64, Cout a
+    multiple of 64, r = 1 and H, W >= 2 (counted on ``launches``).
+    Leading dims of x and g are stacked jobs, one launch for all."""
     if x.device.type == 'cpu':
-        return conv_wgrad_plain(x, g, gscale, r, k)
-    out = wgrad_launch(x, g, gscale, r, k)
+        return conv_wgrad_plain(x, g, gscale, r, k, reflect)
+    out = wgrad_launch(x, g, gscale, r, k, reflect)
     cin, cout = x.shape[-1], g.shape[-1] * (r * r if r > 1 else 1)
     if _own_instance(cin, cout, r, k):
         conv_wgrad.launches += 1
@@ -107,7 +115,8 @@ def conv_wgrad(x: torch.Tensor, g: torch.Tensor, gscale: float = 1.0,
 
 
 def wgrad_launch(x: torch.Tensor, g: torch.Tensor, gscale: float = 1.0,
-                 r: int = 1, k: int = 3) -> tuple[torch.Tensor, torch.Tensor]:
+                 r: int = 1, k: int = 3, reflect: bool = False
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`conv_wgrad`'s launch on CUDA tensors, counted by its caller
     (K7's backward counts it on its own wrapper)."""
     if x.device.type != 'cuda':
@@ -115,9 +124,12 @@ def wgrad_launch(x: torch.Tensor, g: torch.Tensor, gscale: float = 1.0,
     lead = tuple(x.shape[:-4])
     bsz, h, w, cin = x.shape[-4:]
     cout = g.shape[-1] * (r * r if r > 1 else 1)
-    if not _kernel_takes(cin, cout, r, k):
+    if not _kernel_takes(cin, cout, r, k) or reflect and not (
+            k == 3 and cin == 64 and cout % 64 == 0 and r <= 1
+            and min(h, w) >= 2):
         raise ValueError(f'conv_wgrad: no kernel for {cin} -> {cout} '
-                         f'channels (r={r}, k={k})')
+                         f'channels (r={r}, k={k}, reflect={reflect}, '
+                         f'{h}x{w})')
     dev = x.device
     n_jobs = math.prod(lead)
     g_shape = (*lead, bsz, r * h, r * w, cout // (r * r)) if r > 1 \
@@ -138,7 +150,7 @@ def wgrad_launch(x: torch.Tensor, g: torch.Tensor, gscale: float = 1.0,
             x.data_ptr(), g.data_ptr(), ws_w.data_ptr(), ws_b.data_ptr(),
             dw.data_ptr(), db.data_ptr(), n_jobs, bsz * h * w * cin,
             g[(0,) * len(lead)].numel(), bsz, h, w, cin, cout, r,
-            float(gscale), nparts, k, _build.stream(dev))
+            float(gscale), nparts, k, int(reflect), _build.stream(dev))
     _build.check(err, 'srt_conv_wgrad')
     return dw, db
 

@@ -2,10 +2,18 @@
 
 ``fit`` covers srtpu's epoch loop: ``max_epochs``,
 ``limit_train_batches``, ``fast_dev_run``, the per-epoch progress line
-(``epoch %d/%d  loss %.4f  %.1f items/s``) and ``global_step``. The
-model's current weights are the initial state (srtpu's ``seed`` draws
-them; here the caller does, as ``python -m srtpu_torch fit --seed``
-does for the weights and the loader).
+(``epoch %d/%d  loss %.4f  %.1f items/s``) and ``global_step``. An
+:class:`~srtpu_torch.models.SRGAN` trains adversarially instead
+(srtpu's ``_fit_gan``): the loss DSL is ignored, the step is
+:func:`~srtpu_torch.train.gan.make_gan_train_step` with its VGG19 term,
+both optimizers take the lr of ``optimizer_params`` (default 1e-4), and
+the line is ``epoch %d/%d  g_loss %.4f  d_loss %.4f  %.1f items/s``. The
+model trains the generator and discriminator it holds, with its own
+``dtype`` (srtpu's ``_fit_gan`` rebuilds its generator positionally and
+so drops the dtype, ROADMAP.md F8). The model's current weights are the
+initial state (srtpu's ``seed`` draws them; here the caller does, as
+``python -m srtpu_torch fit --seed`` does for the weights and the
+loader).
 Validation, checkpoints, trackers and image dumps are not ported yet
 (ROADMAP.md queue 1, items 4 and 7): asking for them raises.
 ``predict`` is the direct full-image path of srtpu's
@@ -22,9 +30,11 @@ from pathlib import Path
 import torch
 
 from ..data.pipeline import center_crop
-from ..losses import parse_losses
-from ..optim import build_optimizer
+from ..losses import VGGLoss, parse_losses
+from ..models import SRGAN
+from ..optim import build_optimizer, parse_optimizer_params
 from ..utils.logging import save_image
+from .gan import create_gan_state, make_gan_train_step
 from .state import TrainState
 from .steps import make_predict_step, make_train_step
 
@@ -49,21 +59,38 @@ class Trainer:
 
     def fit(self, model: torch.nn.Module, datamodule, losses: str = 'l1',
             optimizer_name: str = 'ADAM',
-            optimizer_params: list[str] | None = None) -> TrainState:
+            optimizer_params: list[str] | None = None):
         """Train ``model`` in place on ``datamodule``'s train datasets on
         the model's device, in train mode (its mode is restored after);
-        returns the final :class:`TrainState`."""
+        returns the final :class:`TrainState` (an SRGAN's:
+        :class:`~srtpu_torch.train.gan.GANTrainState`)."""
         cfg = self.cfg
         if cfg.monitor or cfg.ckpt_path:
             raise NotImplementedError(
                 'checkpoints (monitor, ckpt_path) are not ported to '
                 'srtpu_torch yet (ROADMAP.md queue 1, item 7)')
         datamodule.setup('fit')
-        state = TrainState(model, build_optimizer(
-            optimizer_name, optimizer_params, model.parameters()))
-        train_step = make_train_step(parse_losses(losses))
-        loader = datamodule.train_loader()
         device = next(model.parameters()).device
+        if isinstance(model, SRGAN):
+            lr = parse_optimizer_params(optimizer_params).get('lr', 1e-4)
+            vgg = VGGLoss(device=device)
+            if not vgg.pretrained:
+                _logger.warning(
+                    '=' * 66 + "\nWARNING: SRGAN's VGG content term is "
+                    'running on deterministic random-init features (no '
+                    'converted pretrained weights found) — the training '
+                    'objective will not match the reference. Convert '
+                    'weights with tools/convert_torch_weights.py into '
+                    '$SRTPU_WEIGHTS_DIR.\n' + '=' * 66)
+            state = create_gan_state(model, lr)
+            train_step = make_gan_train_step(vgg_loss=vgg)
+            keys = ('g_loss', 'd_loss')
+        else:
+            state = TrainState(model, build_optimizer(
+                optimizer_name, optimizer_params, model.parameters()))
+            train_step = make_train_step(parse_losses(losses))
+            keys = ('loss',)
+        loader = datamodule.train_loader()
         n_params = sum(p.numel() for p in model.parameters())
         _logger.info('model parameters: %s (%.2f MB fp32)', f'{n_params:,}',
                      n_params * 4 / 2 ** 20)
@@ -72,12 +99,14 @@ class Trainer:
         was_training = model.training
         model.train()       # srtpu's train=True: batch statistics
         try:
-            self._epochs(state, train_step, loader, device, limit, max_epochs)
+            self._epochs(state, train_step, loader, device, limit, max_epochs,
+                         keys)
         finally:
             model.train(was_training)
         return state
 
-    def _epochs(self, state, train_step, loader, device, limit, max_epochs):
+    def _epochs(self, state, train_step, loader, device, limit, max_epochs,
+                keys):
         for epoch in range(max_epochs):
             loader.set_epoch(epoch)
             t0 = time.time()
@@ -90,9 +119,11 @@ class Trainer:
                 logs = train_step(state, lr, hr)
                 self.global_step += 1
                 items += lr.shape[0]
-            loss = float(logs['loss']) if logs else 0.0    # waits for the step
-            _logger.info('epoch %d/%d  loss %.4f  %.1f items/s', epoch + 1,
-                         max_epochs, loss, items / max(time.time() - t0, 1e-9))
+            # reading a loss waits for the step
+            losses = [float(logs[k]) if logs else 0.0 for k in keys]
+            _logger.info('epoch %d/%d  ' + '  '.join(f'{k} %.4f' for k in keys)
+                         + '  %.1f items/s', epoch + 1, max_epochs, *losses,
+                         items / max(time.time() - t0, 1e-9))
 
     def predict(self, model: torch.nn.Module, datamodule) -> list[Path]:
         """Super-resolve every predict image on the model's device: forward

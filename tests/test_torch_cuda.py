@@ -31,6 +31,9 @@ K7 (WDSR-B's block): out and dx within two steps (h1 and h2 round at the
 same points, but a value a step apart is read by the next product), the
 f32 weight and bias grads within one step (they sum products of those
 bf16 values).
+K4r (K4 with REFLECT boundaries, SRGAN's block): as K4, within
+``bn_block.kernel_limits``; the SAME kernel on the same inputs (a halo
+left at zero, a dropped fold) must fail them.
 """
 
 import pytest
@@ -747,3 +750,175 @@ def test_wdsr_train_step_kernel_path_matches_plain(device):
         assert got.dtype == torch.float32
         top = ref.abs().max().item()
         assert (got - ref).abs().max().item() <= 2.0 ** -4 * top
+
+
+# ------------------------------------------------------ K4r and SRGAN
+
+def _k4r_calls(gen, device, bsz, h, w):
+    """(kernel, plain, args) of K4r's four functions (reflect=True last)
+    on one block's inputs at 64 channels."""
+    f32 = torch.float32
+    u, g = (_u(gen, (bsz, h, w, 64), 1.0, device) for _ in range(2))
+    w1, b1 = _conv(gen, 64, 64, device)
+    w2, b2 = _conv(gen, 64, 64, device)
+    gam = [_u(gen, (64,), 0.5, device, f32) + 1.0 for _ in range(2)]
+    bet = [_u(gen, (64,), 0.3, device, f32) for _ in range(2)]
+    al = torch.full((1,), 0.25, device=device)
+    y1, st1 = f1_plain(u, w1, b1, gam[0], bet[0], True)
+    y2, _, st2 = f2_plain(y1, st1, al, w2, b2, gam[1], bet[1], True)
+    sums2 = _off_sums(gen, g)
+    dz = b2_plain(g, y2, st2, gam[1], sums2, y1, st1, al, w2, True)[0]
+    return {
+        'f1': (f1_conv_stats, f1_plain, (u, w1, b1, gam[0], bet[0], True)),
+        'f2': (f2_norm_act_conv_stats, f2_plain,
+               (y1, st1, al, w2, b2, gam[1], bet[1], True)),
+        'b2': (b2_call, b2_plain,
+               (g, y2, st2, gam[1], sums2, y1, st1, al, w2, True)),
+        'b3': (b3_call, b3_plain,
+               (dz, y1, st1, gam[0], _off_sums(gen, dz), w1, g, True))}
+
+
+@pytest.mark.parametrize('bsz,h,w', [(16, 32, 32), (2, 23, 37), (2, 3, 5),
+                                     (1, 2, 2)])
+@pytest.mark.parametrize('fn', ['f1', 'f2', 'b2', 'b3'])
+def test_k4r_kernel_matches_plain(device, fn, bsz, h, w):
+    """Each K4r kernel against its plain version (reflect=True) at the
+    training shape, a ragged one, H = 3 (rows 1 and H - 2 one row) and the
+    smallest image a mirror takes: within the limits, one reflect launch
+    counted (none on K4's SAME counter), bit-identical twice; the SAME
+    kernel on the same inputs (F: a halo left at zero; B: the fold
+    dropped) fails the limits."""
+    gen = torch.Generator().manual_seed(bsz * 1000 + h * 100 + w + 23)
+    kernel, plain, args = _k4r_calls(gen, device, bsz, h, w)[fn]
+    before = kernel.launches, kernel.launches_reflect
+    got = _flat(kernel(*args))
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.launches_reflect) == (before[0],
+                                                          before[1] + 1)
+    ref = _flat(plain(*args))
+    lims = bn_block.kernel_limits(fn, args, ref, got)
+    for g_t, r_t, lim in zip(got, ref, lims):
+        assert g_t.dtype == r_t.dtype and g_t.shape == r_t.shape
+        assert bool(((g_t.float() - r_t.float()).abs() <= lim).all())
+    assert all(torch.equal(a, b) for a, b in zip(got, _flat(kernel(*args))))
+    bad = _flat(kernel(*args[:-1], False))
+    assert any(bool(((b_t.float() - r_t.float()).abs() > lim).any())
+               for b_t, r_t, lim in zip(bad, ref, lims))
+
+
+def test_k4r_and_reflect_wgrad_refuse_what_they_do_not_take(device):
+    """A mirror needs two pixels each way (torch's ReflectionPad2d(1)
+    too); the reflect weight grad takes 64 -> 64-multiple channels."""
+    x = torch.zeros(2, 1, 5, 64, device=device, dtype=torch.bfloat16)
+    w = torch.zeros(3, 3, 64, 64, device=device, dtype=torch.bfloat16)
+    v = torch.zeros(64, device=device)
+    with pytest.raises(ValueError, match='reflect needs'):
+        f1_conv_stats(x, w, v, v, v, True)
+    y = torch.zeros(2, 4, 4, 32, device=device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='no kernel'):
+        conv_wgrad(y, y, reflect=True)
+
+
+@pytest.mark.parametrize('bsz,h,w', [(16, 32, 32), (2, 23, 37), (2, 3, 5)])
+def test_reflect_wgrad_kernel_matches_plain(device, bsz, h, w):
+    """The weight grad of a REFLECT conv (x's halo mirrored): dW and db
+    within 1e-4 of their largest magnitude, counted on ``launches``."""
+    from srtpu_torch.ops.wgrad import conv_wgrad_plain
+    gen = torch.Generator().manual_seed(bsz + h + w)
+    x, g = (_u(gen, (bsz, h, w, 64), 1.0, device) for _ in range(2))
+    before = conv_wgrad.launches
+    got = conv_wgrad(x, g, reflect=True)
+    torch.cuda.synchronize()
+    assert conv_wgrad.launches == before + 1
+    for a, b in zip(got, conv_wgrad_plain(x, g, reflect=True)):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+def _srgan(device, scale, ngf=64, seed=0):
+    return create_model('SRGAN', scale_factor=scale, ngf=ngf, ndf=64,
+                        n_blocks=2, use_pallas='cs', dtype=torch.bfloat16,
+                        device=device,
+                        generator=torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.parametrize('scale', [2, 3, 4, 8])
+@pytest.mark.parametrize('train', [False, True])
+def test_srgan_kernel_path_matches_plain(device, scale, train):
+    """SRGAN's generator (2 blocks, 64 features) on the card at every
+    scale: eval mode runs no kernel of the port (the same image on both
+    paths); train mode runs K4r (F1 three times: two blocks and the
+    close), the SR image within 2^-5 of the plain path's (batch norm
+    rescales a step's difference by the batch deviation)."""
+    model = _srgan(device, scale)
+    model.train(train)
+    lr = torch.rand((2, 20, 28, 3),
+                    generator=torch.Generator().manual_seed(3)).to(device)
+    before = f1_conv_stats.launches_reflect
+    with torch.no_grad():
+        got = model(lr).float()
+        assert f1_conv_stats.launches_reflect == before + (3 if train else 0)
+        ref = model(lr, plain=True).float()
+    assert got.shape == (2, 20 * scale, 28 * scale, 3)
+    assert bool(torch.isfinite(got).all())
+    assert (got - ref).abs().max().item() <= (2.0 ** -5 if train else 0.0)
+
+
+def test_srgan_gan_step_kernel_path_matches_plain(device):
+    """One adversarial step (D then G, VGG19 relu5_4) at x4 on the kernel
+    path, the plain path and the plain path in f32 (the generator and
+    discriminator unrounded), from the same params and batch: K4r's
+    launches per step (F1 and B3: blocks + close); every log of the
+    kernel path within 2^-7 relative of the plain path's (vgg_loss, a
+    feature MSE of ~1e-16 on random weights, and adv_loss at 2^-4: they
+    sum differences the two paths' images move most); each generator
+    gradient f32 and, as chip_smoke's BN checks, held to the f32 step:
+    within twice the plain path's error plus one bf16 step of its
+    largest magnitude (through the batch norms the two bf16 paths part by
+    more than a few steps), but the biases whose gradient reflect
+    padding makes exactly 0 (rounding noise on every path)."""
+    from srtpu_torch.losses import VGGLoss
+    from srtpu_torch.train import create_gan_state, make_gan_train_step
+    gen = torch.Generator().manual_seed(8)
+    lr = torch.rand((2, 16, 24, 3), generator=gen).to(device)
+    hr = torch.rand((2, 64, 96, 3), generator=gen).to(device)
+    vgg = VGGLoss(device=device)
+    grads, logs = [], []
+    for plain, dtype in ((False, torch.bfloat16), (True, torch.bfloat16),
+                         (True, None)):
+        model = _srgan(device, 4).train()
+        model.generator.dtype = model.discriminator.dtype = dtype
+        state = create_gan_state(model, 1e-4)
+        before = [k.launches_reflect for k in (f1_conv_stats, b2_call,
+                                               b3_call)]
+        logs.append(make_gan_train_step(vgg_loss=vgg, plain=plain)(
+            state, lr, hr))
+        torch.cuda.synchronize()
+        after = [k.launches_reflect for k in (f1_conv_stats, b2_call,
+                                              b3_call)]
+        assert [a - b for a, b in zip(after, before)] == (
+            [0, 0, 0] if plain else [3, 2, 3])
+        grads.append(dict(model.generator.named_parameters()))
+    for k, ref in logs[1].items():
+        tol = 2.0 ** -4 if k in ('vgg_loss', 'adv_loss') else 2.0 ** -7
+        assert abs(logs[0][k].item() - ref.item()) <= tol * abs(ref.item()), k
+    noise = ('trunk.b1', 'trunk.b2', 'trunk.bn2_bias', 'trunk.close_b')
+    for n, p in grads[0].items():
+        assert p.grad.dtype == torch.float32
+        if n in noise:
+            continue
+        f32 = grads[2][n].grad
+        e_k = (p.grad - f32).abs().max().item()
+        e_p = (grads[1][n].grad - f32).abs().max().item()
+        assert e_k <= 2 * e_p + 2.0 ** -7 * f32.abs().max().item(), n
+
+
+def test_srgan_train_mode_takes_64_channels_on_cuda(device):
+    """K4's kernels take 64 channels: a narrower SRGAN trains on the card
+    only on the plain path; eval mode runs any width."""
+    model = _srgan(device, 4, ngf=32)
+    lr = torch.rand((1, 8, 8, 3), device=device)
+    with torch.no_grad():
+        assert model.eval()(lr).shape == (1, 32, 32, 3)
+        with pytest.raises(ValueError, match='64 channels'):
+            model.train()(lr)
+        assert model(lr, plain=True).shape == (1, 32, 32, 3)
