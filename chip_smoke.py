@@ -1,6 +1,6 @@
 """Drive srtpu_torch's EDSR-baseline x4, RCAN-10x16 x4, SRResNet x4,
 RDN-B x4, DDBPN x4, WDSR-B x4 and SRGAN x4 predict and training on one
-CUDA card.
+CUDA card, and EDSR's, RCAN's and WDSR-B's ``use_pallas=True`` routes.
 
     python3 chip_smoke.py
 
@@ -164,9 +164,30 @@ Phases, each of which raises on failure (nothing is caught):
    on the kernel and plain paths (and the kernel path with TF32 off),
    patches/s, the device share and device time by group (K4r, Adam, the
    rest; D, VGG19 and the generator timed alone).
+2i. K8 (srtpu's use_pallas=True forms): K8a (EDSR's fused block, out and
+   h1), K8b (RCAN's channel-attention gate) and K8c (WDSR-B's fused
+   block at C = 128) against their plain versions at the training shape
+   (batch 16, LR 32x32), the predict shape (batch 1, 128x128) and a
+   ragged batch 2 of 67x45: every output within one bf16 step of its
+   largest magnitude, two calls bit-identical, kernel, plain and bound
+   times (no single PyTorch call computes any of them: library null);
+19. the EDSR True route: phase 3's path and images with ``--model EDSR
+   --use_pallas true`` (64 features, 16 blocks): per image 16 K8a
+   launches and no K1, K2 or K3; PNGs at 4x; kernel path against plain
+   path; then ``fit --use_pallas true`` (phase 4's recipe, 20 steps): 16
+   K8a launches per step (the backward stock) and none of K1-K3 or the
+   weight-grad kernel, the loss falling, kernel-path against plain-path
+   gradients and five losses, ms/step, patches/s, the device share and
+   device time by kernel group; the 'cs' route of the same weights timed
+   beside (forward per image, step, profile);
+20. the RCAN True route, as 19 with ``--model RCAN`` (10 groups of 16
+   RCABs): per image and step 160 K8b launches and no K5 or K2;
+21. the WDSR-B True route, as 19 with ``--model WDSR`` (128 features, 16
+   blocks): per image and step 16 K8c launches and no K7.
 The line before the last is a JSON object with, per kernel, its launches
 in the main-path runs (EDSR, RCAN, SRResNet, RDN, DDBPN, WDSR and SRGAN
-predict and fit, EDSR and SRResNet x3 predict, SRResNet x3 fit;
+predict and fit, EDSR and SRResNet x3 predict, SRResNet x3 fit, and the
+EDSR, RCAN and WDSR-B True routes' predict and fit;
 ``launches`` is their sum), its largest error against its plain
 version, its time (K4's and K4r's: its kernels' own device time from
 torch.profiler; the others: the wrapper's CUDA-event time) and the
@@ -212,12 +233,16 @@ from srtpu_torch.ops import (_build, b1_plain, b1_sums, b2_call, b2_plain,
                              trunk_bwd, trunk_bwd_plain, trunk_fwd,
                              trunk_plain, upsample_bwd, upsample_bwd_plain,
                              upsample_fwd, upsample_plain)
+from srtpu_torch.ops.ca_layer import ca_layer_fwd, ca_layer_plain
 from srtpu_torch.ops.layout import w_t
 from srtpu_torch.ops.rdn import (pack, rdb_bwd_chain, rdb_bwd_chain_plain,
                                  rdb_bwd_dw, rdb_bwd_dw_plain, rdn_fwd,
                                  rdn_fwd_plain)
+from srtpu_torch.ops.resblock import resblock_fused_fwd, resblock_fused_plain
 from srtpu_torch.ops.wdsr import (wdsr_bwd, wdsr_bwd_plain, wdsr_fwd,
                                   wdsr_fwd_plain, wdsr_lp)
+from srtpu_torch.ops.wdsr_block import (wdsr_block_fused_fwd,
+                                        wdsr_block_fused_plain)
 from srtpu_torch.optim import build_optimizer
 from srtpu_torch.train import (TrainState, create_gan_state,
                                make_gan_train_step, make_train_step)
@@ -463,6 +488,29 @@ WDSR_STEP_LAUNCHES = {wdsr_fwd: WDSR_L, wdsr_bwd: WDSR_L, conv3x3_bwd: 0,
 K7_STEPS = {'out': 2}
 K7B_STEPS = {'dx': 2, 'dw1': 1, 'db1': 1, 'dw2': 1, 'db2': 1, 'dw3': 1,
              'db3': 1}
+# srtpu's use_pallas=True routes (K8), at the same full widths and depths
+# as their 'cs' runs: EDSR-baseline (K8a per block), RCAN-10x16 (K8b per
+# RCAB), WDSR-B at 128 features (K8c per block); the 'cs' route of the
+# same weights is timed beside each
+TRUE_ARGS, CS_ROUTE = ['--use_pallas', 'true'], ('--use_pallas', 'cs')
+K8_OFF = {trunk_fwd: 0, upsample_fwd: 0, conv3x3_fwd: 0, rcab_fwd: 0,
+          wdsr_fwd: 0}
+K8_OFF_BWD = {trunk_bwd: 0, upsample_bwd: 0, conv3x3_bwd: 0, rcab_bwd: 0,
+              wdsr_bwd: 0, conv_wgrad: 0}
+# per image and per train step: the K8 kernel once per block (per RCAB);
+# the backward is stock PyTorch (srtpu's is XLA), and so are the close
+# convs and the tail: no K1-K3, K5 or K7 launch
+EDSR_TRUE_LAUNCHES = {resblock_fused_fwd: L, **K8_OFF}
+EDSR_TRUE_STEP_LAUNCHES = {**EDSR_TRUE_LAUNCHES, **K8_OFF_BWD}
+RCAN_TRUE_LAUNCHES = {ca_layer_fwd: GROUPS * RCABS, **K8_OFF}
+RCAN_TRUE_STEP_LAUNCHES = {**RCAN_TRUE_LAUNCHES, **K8_OFF_BWD}
+WDSR_TRUE_LAUNCHES = {wdsr_block_fused_fwd: WDSR_L, **K8_OFF}
+WDSR_TRUE_STEP_LAUNCHES = {**WDSR_TRUE_LAUNCHES, **K8_OFF_BWD}
+# K8 against its plain version on the same inputs: both compute the same
+# f32 function and round once (K8a's h1 once more), the kernels' hi + lo
+# pairs within 2^-17 of f32: every output within one bf16 step of its
+# largest magnitude
+K8_STEPS = 1
 # The H100 SXM's published peaks (NVIDIA data sheet), for bound_ms
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 
@@ -1707,6 +1755,80 @@ def check_wdsr_kernels(device, smi: str) -> dict:
     return stats
 
 
+def k8_cases(gen, device, bsz: int, h: int, w: int) -> dict:
+    """Each K8 function's (wrapper, plain, args, kwargs, matrix FLOPs) at
+    an h x w batch, srtpu's init bounds: K8a at 64 channels (res_scale 1,
+    h1 saved, as training runs it), K8b at 64 channels, reduction 16
+    (f32 weights), K8c at WDSR-B's 128 (e 768, L 102, unpadded: the
+    wrapper pads)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    px = bsz * h * w
+    cb = (9 * C) ** -0.5
+    a = (_uniform(gen, (bsz, h, w, C), 1.0, device, bf),
+         _uniform(gen, (3, 3, C, C), cb, device, bf),
+         _uniform(gen, (C,), cb, device, f32),
+         _uniform(gen, (3, 3, C, C), cb, device, bf),
+         _uniform(gen, (C,), cb, device, f32), 1.0)
+    b = (_uniform(gen, (bsz, h, w, C), 1.0, device, bf),
+         _uniform(gen, (C, CR), C ** -0.5, device, f32),
+         _uniform(gen, (CR,), C ** -0.5, device, f32),
+         _uniform(gen, (CR, C), CR ** -0.5, device, f32),
+         _uniform(gen, (C,), CR ** -0.5, device, f32))
+    c, e, lv = WDSR_C, WDSR_E, WDSR_LV
+    cc = (_uniform(gen, (bsz, h, w, c), 1.0, device, bf),
+          _uniform(gen, (c, e), c ** -0.5, device, bf),
+          _uniform(gen, (e,), c ** -0.5, device, f32),
+          _uniform(gen, (e, lv), e ** -0.5, device, bf),
+          _uniform(gen, (lv,), e ** -0.5, device, f32),
+          _uniform(gen, (3, 3, lv, c), (9 * lv) ** -0.5, device, bf),
+          _uniform(gen, (c,), (9 * lv) ** -0.5, device, f32), 1.0)
+    return {
+        'K8a': (resblock_fused_fwd, resblock_fused_plain, a,
+                {'save_h1': True}, 2 * conv_flops(px, C, C)),
+        'K8b': (ca_layer_fwd, ca_layer_plain, b, {}, 0.0),
+        'K8c': (wdsr_block_fused_fwd, wdsr_block_fused_plain, cc, {},
+                2.0 * px * (e * c + lv * e + 9 * c * lv))}
+
+
+def check_k8_kernels(device, smi: str) -> dict:
+    """Phase 2i. K8a (out and h1), K8b and K8c against their plain versions
+    at the training shape (batch 16, LR 32x32), the predict shape (batch
+    1, 128x128) and a ragged batch 2 of 67x45: every output within one
+    bf16 step of its largest magnitude, two calls bit-identical; kernel,
+    plain and bound times (no library call computes any of the three).
+    Returns K8a / K8b / K8c stats, timed at the training shape."""
+    stats = new_stats(('K8a', 'K8b', 'K8c'))
+    shapes = ((TRAIN_BATCH, TRAIN_PATCH // SCALE, TRAIN_PATCH // SCALE),
+              (1, 128, 128), (2, 67, 45))
+    for i, (bsz, h, w) in enumerate(shapes):
+        gen = torch.Generator().manual_seed(bsz * 7919 + h * 127 + w)
+        for kid, (fn, plain, args, kw, flops) in k8_cases(
+                gen, device, bsz, h, w).items():
+            got = _as_list(fn(*args, **kw))
+            torch.cuda.synchronize()
+            ref = _as_list(plain(*args, **kw))
+            tag = f'{kid} {bsz}x{h}x{w}x{args[0].shape[-1]}'
+            need(all(torch.equal(a, b) for a, b in
+                     zip(got, _as_list(fn(*args, **kw)))),
+                 f'{tag}: two calls differ')
+            names = ('out', 'h1')[:len(got)]
+            err = _check_all(tag, names, got, ref, [K8_STEPS] * len(got))
+            stats[kid]['max_abs_err'] = max(stats[kid]['max_abs_err'], err)
+            if i == 2:
+                continue
+            ms = median_ms(lambda: fn(*args, **kw))
+            plain_ms = median_ms(lambda: plain(*args, **kw), 5, 3)
+            moved = nbytes(args, got)
+            print(f'{tag}: kernel {ms:.4f} ms plain {plain_ms:.4f} ms '
+                  f'bound {max(bound(flops, moved)):.5f} ms ({flops / 1e9:.3f}'
+                  f' GFLOP, {moved / 1e6:.3f} MB)  [{smi}]')
+            if i == 0:
+                record(stats[kid], ms, plain_ms, flops, moved)
+            del got, ref
+        torch.cuda.empty_cache()
+    return stats
+
+
 def png_size(path: Path) -> tuple[int, int]:
     """(height, width) from a PNG's IHDR chunk."""
     head = path.read_bytes()[:24]
@@ -1719,14 +1841,14 @@ def png_size(path: Path) -> tuple[int, int]:
 def run_slice(device, smi: str, model: str = 'EDSR', extra=(),
               expected=EXPECTED_LAUNCHES, rules=None, scale: int = SCALE,
               sizes=SLICE_SIZES, alt=(), profile_all: bool = False) -> dict:
-    """Phase 3 (EDSR) and 5, 7, 9, 11, 13, 14 (``extra`` the model's CLI
-    flags): predict at ``scale`` through the CLI on images of ``sizes``,
-    the launch counters per image (``expected``), the PNGs, kernel path
-    against plain path; with ``rules``, device time by kernel group of
-    the largest image's forward (``profile_all``: each image's, with the
-    largest unmatched kernels); with ``alt`` (flags of another route of
-    the same model and weights), that route's forward time per image
-    beside. Returns the launch counts of the main-path run."""
+    """Phase 3 (EDSR) and 5, 7, 9, 11, 13, 14, 19-21 (``extra`` the
+    model's CLI flags): predict at ``scale`` through the CLI on images of
+    ``sizes``, the launch counters per image (``expected``), the PNGs,
+    kernel path against plain path; with ``rules``, device time by kernel
+    group of the largest image's forward (``profile_all``: each image's,
+    with the largest unmatched kernels); with ``alt`` (flags of another
+    route of the same model and weights), that route's forward time per
+    image beside. Returns the launch counts of the main-path run."""
     rng = np.random.default_rng(SEED)
     with tempfile.TemporaryDirectory(prefix='srtpu_smoke_') as tmp:
         demo = Path(tmp) / 'datasets' / 'Demo'
@@ -1935,6 +2057,45 @@ SRGAN_PREDICT_PROFILE = (
     ('fprop', 'cuDNN convs (implicit GEMM)'),
     ('convolve', 'cuDNN convs (implicit GEMM)'),
     ('elementwise', 'elementwise (casts, BN apply, PReLU, adds, tanh)'))
+# srtpu's use_pallas=True routes and, beside each, its 'cs' route: the
+# route's K8 kernel, the port's own weight-grad kernels (the 'cs' routes'),
+# the 'cs' route's kernels, then the stock ops the True routes run (cuDNN
+# convs in f32, cuBLAS, Adam)
+PORT_WGRAD_RULES = (('wgrad_kernel', 'weight grads (wgrad.cu)'),
+                    ('wgrad_chunk_kernel', 'weight grads (wgrad.cu)'),
+                    ('wgrad_reduce', 'weight grads (wgrad.cu)'))
+STOCK_RULES = (('dgrad', 'stock: cuDNN conv dx'),
+               ('wgrad', 'stock: cuDNN conv dW'),
+               ('fprop', 'stock: cuDNN conv forward'),
+               ('convolve', 'stock: cuDNN conv'),
+               ('gemm', 'stock: GEMMs (cuBLAS / cuDNN)'),
+               ('nvjet', 'stock: GEMMs (cuBLAS / cuDNN)'),
+               ('multi_tensor_apply', 'Adam'),
+               ('reduce', 'stock: reductions (bias grads, pools)'),
+               ('elementwise', 'stock: elementwise (casts, masks, skips)'))
+
+
+def _true_profile(k8_rules, cs_rules) -> tuple:
+    """The True route's K8 rules, the port's weight grads (apart from
+    cuDNN's 'wgrad'), the 'cs' route's own kernels, then the stock ops'."""
+    stock = dict(STOCK_RULES)
+    rules = {}
+    for sub, label in (*k8_rules, *PORT_WGRAD_RULES,
+                       *(r for r in cs_rules if r[0] not in stock),
+                       *STOCK_RULES):
+        rules.setdefault(sub, label)        # the first rule of a name wins
+    return tuple(rules.items())
+
+
+EDSR_TRUE_PROFILE = _true_profile(
+    (('resblock_f32_kernel', 'K8a fused block (f32 h1)'),), EDSR_PROFILE)
+RCAN_TRUE_PROFILE = _true_profile(
+    (('ca_pool_kernel', 'K8b channel sums'),
+     ('ca_mlp_kernel', 'K8b pool + MLP + sigmoid'),
+     ('ca_apply_kernel', 'K8b gating')), RCAN_PROFILE)
+WDSR_TRUE_PROFILE = _true_profile(
+    (('wdsr_pw_fwd_kernel<true>', 'K8c 1x1 pair -> v (hi, lo)'),
+     ('ScaleSkipOut', 'K8c / K7 3x3 + res_scale + skip')), WDSR_PROFILE)
 OTHER = 'other (cuDNN head/tail, Adam, casts, copies)'
 
 
@@ -2148,7 +2309,7 @@ def run_train(device, smi: str, model: str = 'EDSR', extra=(),
               compare=_grads_vs_plain, scale: int = SCALE,
               patch: int = TRAIN_PATCH, steps: int = TRAIN_STEPS,
               alt=()) -> dict:
-    """Phase 4 (EDSR), 6 (RCAN), 8 (SRResNet), 10, 12, 15 and 16
+    """Phase 4 (EDSR), 6 (RCAN), 8 (SRResNet), 10, 12, 15, 16 and 19-21
     (``extra`` the model's CLI flags): fit through the CLI at ``scale``
     on ``patch`` HR patches for ``steps`` steps, the launch counters per
     step (``expected``), the loss, the first kernel-path and plain-path
@@ -2249,7 +2410,7 @@ def run_train(device, smi: str, model: str = 'EDSR', extra=(),
             step, state = paths[key]
             _profile(lambda: step(state, lr, hr), times[key], smi, rules,
                      f'{model} x{scale} train step'
-                     + ('' if key is False else f', {labels[key]}'))
+                     + ('' if key is False else f', {labels[key]}'), top=3)
     return counts
 
 
@@ -2453,6 +2614,7 @@ def main() -> None:
     stats.update(check_k2_general(device, smi))
     stats.update(check_wdsr_kernels(device, smi))
     stats.update(check_bn_reflect_kernels(device, smi))
+    stats.update(check_k8_kernels(device, smi))
     # the main-path runs, each with the counters set to 0 before it
     runs = {'edsr_predict': run_slice(device, smi),
             'edsr_fit': run_train(device, smi)}
@@ -2493,6 +2655,19 @@ def main() -> None:
                                       SRGAN_PREDICT_LAUNCHES,
                                       SRGAN_PREDICT_PROFILE, profile_all=True)
     runs['srgan_fit'] = run_gan_train(device, smi)
+    for model, args, (pred, step), rules in (
+            ('EDSR', TRUE_ARGS, (EDSR_TRUE_LAUNCHES, EDSR_TRUE_STEP_LAUNCHES),
+             EDSR_TRUE_PROFILE),
+            ('RCAN', RCAN_ARGS + TRUE_ARGS,
+             (RCAN_TRUE_LAUNCHES, RCAN_TRUE_STEP_LAUNCHES), RCAN_TRUE_PROFILE),
+            ('WDSR', WDSR_ARGS + TRUE_ARGS,
+             (WDSR_TRUE_LAUNCHES, WDSR_TRUE_STEP_LAUNCHES),
+             WDSR_TRUE_PROFILE)):
+        key = model.lower() + '_true'
+        runs[key + '_predict'] = run_slice(device, smi, model, args, pred,
+                                           rules, alt=CS_ROUTE)
+        runs[key + '_fit'] = run_train(device, smi, model, args, step, rules,
+                                       alt=CS_ROUTE)
     rep = 'srtpu/ops/cs_conv.py:'
     bn = 'srtpu/ops/bn_resblock_cs.py:'
     meta = [('K1', 'K1 trunk_fwd (fused resblock)', trunk_fwd, 'trunk.cu',
@@ -2564,7 +2739,16 @@ def main() -> None:
              'bn_block.cu', bn + '360'),
             ('B3r', 'K4r b3_call, reflect (fold ring launch, convT + fold '
              'before the skip and its rounding)', K4R_COUNTERS['B3'],
-             'bn_block.cu', bn + '387')]
+             'bn_block.cu', bn + '387'),
+            ('K8a', 'K8a resblock_fused_fwd (EDSR use_pallas=True: fused '
+             'block, f32 h1 as bf16 hi + lo; saving h1)', resblock_fused_fwd,
+             'resblock.cu', 'srtpu/ops/resblock.py:165'),
+            ('K8b', 'K8b ca_layer_fwd (RCAN use_pallas=True: channel sums, '
+             'per-image gate, gating)', ca_layer_fwd, 'ca_layer.cu',
+             'srtpu/ops/ca_layer.py:41'),
+            ('K8c', 'K8c wdsr_block_fused_fwd (WDSR-B use_pallas=True: 1x1 '
+             'pair with f32 a and v as hi + lo, 3x3 + res_scale + skip)',
+             wdsr_block_fused_fwd, 'wdsr.cu', 'srtpu/ops/wdsr_block.py:71')]
     rows = []
     for kid, name, fn, src, r in meta:
         st = stats[kid]

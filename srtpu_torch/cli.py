@@ -15,7 +15,15 @@ The flags are srtpu's config keys; the defaults follow
 ``srtpu/config.py``. A model's own flags (``--n_feats``,
 ``--n_resblocks`` and those below) are passed only when given, so a model
 takes its own defaults for the rest, as srtpu's CLI builds a model from
-its config's ``init_args`` alone. ``fit`` draws the model and the
+its config's ``init_args`` alone. ``--use_pallas`` (``false``, ``true``
+or ``cs``) picks srtpu's route for EDSR, RCAN and WDSR, on one set of
+parameters: EDSR and RCAN default to ``cs`` (K1-K3 / K5 and K2);
+``true`` runs srtpu's fused NHWC forms, K8a per EDSR block, K8b per
+RCAN gate and K8c per WDSR-B block, their other convs stock; ``false``
+runs every conv stock (cuDNN on the card). On CUDA a width a K8 kernel
+does not take raises at the first forward, naming ROADMAP.md F4 (K8a 64
+channels; K8b a multiple of 8; K8c a multiple of 16 up to 128).
+``fit`` draws the model and the
 loader's stream from ``--seed``, logs to ``<default_root_dir>/run.log``
 and writes the final weights to ``<default_root_dir>/final_weights.pt``,
 which ``predict --weights`` reads (as does ``python -m
@@ -30,8 +38,8 @@ takes ``--n0`` (default 128), ``--nr`` (default 32) and ``--depth``
 ``--block_type`` (A or B, default B), ``--n_feats`` (default 128),
 ``--n_resblocks`` (default 16), ``--res_scale`` (default 1.0) and
 ``--use_pallas`` (``false``, the default: stock weight-normed convs,
-cuDNN on the card; ``cs``: K7 runs each B block; ``true``, srtpu's legacy
-fused block, is not ported and raises), srtpu's WDSR keys; ``--model
+cuDNN on the card; ``cs``: K7 runs each B block; ``true``: K8c runs each
+B block), srtpu's WDSR keys; ``--model
 SRGAN`` takes ``--ngf``, ``--ndf`` (default 64 each), ``--n_blocks``
 (default 16) and ``--use_pallas`` (accepted for srtpu's trees; the
 card's train mode runs K4r whatever it says), and ``fit`` trains it

@@ -1,7 +1,7 @@
 """JAX EDSR, RCAN, SRResNet, RDN, DDBPN, WDSR and SRGAN parameters -> an
 srtpu_torch state dict.
 
-Reads either EDSR tree srtpu stores:
+Reads every EDSR tree srtpu stores:
 
 * the default ``use_pallas='cs'`` tree: ``Conv2d_0``, ``CSTrunk_0/{w1, b1,
   w2, b2, close_kernel, close_bias}`` with block weights stacked in the
@@ -12,8 +12,10 @@ Reads either EDSR tree srtpu stores:
 * the ``use_pallas=False`` tree: ``Conv2d_0`` (head),
   ``ResBlock_{i}/Conv2d_{0,1}``, ``Conv2d_1`` (close),
   ``UpscaleBlock_0/Conv2d_{j}`` and ``Conv2d_2`` (final), all HWIO;
+* the ``use_pallas=True`` tree: the same, with ``FusedResBlock_{i}/{kernel1,
+  bias1, kernel2, bias2}`` in place of the ``ResBlock``s;
 
-and either RCAN tree:
+and every RCAN tree:
 
 * ``use_pallas='cs'``: ``Conv2d_0`` (head), ``CSResidualGroup_{i}/{w1,
   b1, w2, b2, wd, bd, wu, bu, wc, bc}`` with CS-stacked w1, w2 (L, 3C,
@@ -24,7 +26,11 @@ and either RCAN tree:
   RCAB_{j}/{Conv2d_0, Conv2d_1, CALayer_0/{Conv2d_0, Conv2d_1}}`` (the
   attention's 1x1 kernels give wd and wu) and ``ResidualGroup_{i}/
   Conv2d_0`` (group close), ``Conv2d_1`` (trunk close),
-  ``UpscaleBlock_0/Conv2d_{j}`` and ``Conv2d_2`` (final).
+  ``UpscaleBlock_0/Conv2d_{j}`` and ``Conv2d_2`` (final);
+* ``use_pallas=True``: the same, with the fused gate's ``CALayer_0/{w1,
+  b1, w2, b2}`` (wd, bd, wu, bu as they are) in each RCAB;
+
+each into the one state dict every route of the model runs.
 
 and either SRResNet tree, which also needs its ``batch_stats`` collection
 (the running statistics of batch norm):
@@ -172,11 +178,16 @@ def _rcan_from_jax(p: dict) -> dict[str, torch.Tensor]:
                               ('b2', 'Conv2d_1', 'bias')):
             sd[pre + k] = torch.stack([_t(b[conv][leaf]) for b in blocks])
         ca = [b['CALayer_0'] for b in blocks]
-        for w, b, conv in (('wd', 'bd', 'Conv2d_0'), ('wu', 'bu', 'Conv2d_1')):
+        for w, b, j in (('wd', 'bd', 0), ('wu', 'bu', 1)):
+            if 'w1' in ca[0]:           # the fused gate's own (I, O)
+                sd[pre + w] = torch.stack([_t(a[f'w{j + 1}']) for a in ca])
+                sd[pre + b] = torch.stack([_t(a[f'b{j + 1}']) for a in ca])
+                continue
             # 1x1 kernels (1, 1, I, O) -> (I, O)
-            sd[pre + w] = torch.stack([_t(a[conv]['kernel'])[0, 0]
+            sd[pre + w] = torch.stack([_t(a[f'Conv2d_{j}']['kernel'])[0, 0]
                                        for a in ca])
-            sd[pre + b] = torch.stack([_t(a[conv]['bias']) for a in ca])
+            sd[pre + b] = torch.stack([_t(a[f'Conv2d_{j}']['bias'])
+                                       for a in ca])
         sd[pre + 'wc'] = _t(grp['Conv2d_0']['kernel'])
         sd[pre + 'bc'] = _t(grp['Conv2d_0']['bias'])
     sd['trunk_close_weight'] = _t(p['Conv2d_1']['kernel'])
@@ -478,11 +489,15 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
         sd['trunk.close_bias'] = _t(tr['close_bias'])
         _cs_tail(sd, p['CSUpscaleTail_0'], n)
         return sd
-    blocks = _seq(p, 'ResBlock_')
-    for j in (1, 2):            # the block's conv j is its Conv2d_{j - 1}
-        convs = [blk[f'Conv2d_{j - 1}'] for blk in blocks]
-        sd[f'trunk.w{j}'] = torch.stack([_t(c['kernel']) for c in convs])
-        sd[f'trunk.b{j}'] = torch.stack([_t(c['bias']) for c in convs])
+    if 'FusedResBlock_0' in p:
+        blocks = [(b['kernel1'], b['bias1'], b['kernel2'], b['bias2'])
+                  for b in _seq(p, 'FusedResBlock_')]
+    else:                       # the block's conv j is its Conv2d_{j - 1}
+        blocks = [(b['Conv2d_0']['kernel'], b['Conv2d_0']['bias'],
+                   b['Conv2d_1']['kernel'], b['Conv2d_1']['bias'])
+                  for b in _seq(p, 'ResBlock_')]
+    for k, leaves in zip(('w1', 'b1', 'w2', 'b2'), zip(*blocks)):
+        sd[f'trunk.{k}'] = torch.stack([_t(a) for a in leaves])
     sd['trunk.close_weight'] = _t(p['Conv2d_1']['kernel'])
     sd['trunk.close_bias'] = _t(p['Conv2d_1']['bias'])
     up = p['UpscaleBlock_0']

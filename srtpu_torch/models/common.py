@@ -4,7 +4,10 @@ Counterparts of ``srtpu/models/common.py``: ``Conv2d`` (torch-default
 init), ``WNConv2d`` (weight-normed, WDSR's), ``PReLU``, ``mean_shift``,
 ``pixel_shuffle``, ``Trunk`` (``CSTrunk``), ``BNTrunk`` (``CSBNTrunk``),
 ``UpscaleTail`` (``CSUpscaleTail``) and ``UpscaleBlock`` (the XLA
-sub-pixel upscaler).
+sub-pixel upscaler). ``Trunk.forward_nhwc`` and
+``UpscaleTail.forward_stock`` run srtpu's other EDSR routes (the fused
+NHWC blocks, K8a, or stock ``ResBlock``s; the XLA tail) on the same
+parameters.
 Parameters are f32; ``dtype`` is the compute type (bf16 on the card).
 The kernel ops take the f32 parameters and cast inside, so under
 autograd their weight grads come back in f32 (as srtpu's ``custom_vjp``s
@@ -23,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import conv3x3, trunk, upsample
+from ..ops import conv3x3, resblock_fused, trunk, upsample
 from ..ops.bn_block import bn_close, bn_close_ref, bn_resblock, bn_resblock_ref
 from ..ops.layout import (b_phase_dense, b_pm, pixel_shuffle, pm_to_nhwc,
                           w_phase_dense, w_pm_hwio)
@@ -168,6 +171,26 @@ class Trunk(nn.Module):
                     plain)
         res = conv3x3(res, self.close_weight, self.close_bias, plain)
         return res + xd       # the skip is one more rounding, as in srtpu
+
+    def forward_nhwc(self, x: torch.Tensor, dtype: torch.dtype,
+                     fused: bool, plain: bool = False) -> torch.Tensor:
+        """srtpu's NHWC routes on these parameters: ``fused`` runs K8a per
+        block (``FusedResBlock``: f32 h1, bf16 weight grads), else srtpu's
+        ``ResBlock`` (stock convs, ``res * res_scale + x`` in ``dtype``);
+        both close with a stock conv and the global skip, as srtpu's XLA.
+        ``plain`` runs K8a's plain version."""
+        xd = x.to(dtype)
+        res = xd
+        for w1, b1, w2, b2 in zip(*(t.unbind(0) for t in (
+                self.w1, self.b1, self.w2, self.b2))):
+            if fused:
+                res = resblock_fused(res, w1, b1, w2, b2, self.res_scale,
+                                     plain)
+            else:
+                r = _conv(torch.relu(_conv(res, w1, b1, dtype)), w2, b2,
+                          dtype)
+                res = r * self.res_scale + res
+        return _conv(res, self.close_weight, self.close_bias, dtype) + xd
 
 
 class BNTrunk(nn.Module):
@@ -324,6 +347,18 @@ class UpscaleTail(nn.Module):
         bpd = b_phase_dense(self.final_bias, r, wpd.shape[-1])
         y = conv3x3(y, wpd, bpd, plain)
         return pm_to_nhwc(y, r, self.channels)
+
+    def forward_stock(self, x: torch.Tensor, dtype: torch.dtype
+                      ) -> torch.Tensor:
+        """srtpu's XLA tail on these weights (``UpscaleBlock`` and the
+        final ``Conv2d``): each stage a stock conv and ``pixel_shuffle``
+        (with its PReLU when ``act``), then the final conv, stock."""
+        y = x.to(dtype)
+        for i, r in enumerate(self.rs):
+            y = self._act(pixel_shuffle(_conv(
+                y, getattr(self, f'up{i}_weight'),
+                getattr(self, f'up{i}_bias'), dtype), r), i)
+        return _conv(y, self.final_weight, self.final_bias, dtype)
 
 
 class UpscaleBlock(nn.Module):

@@ -1,10 +1,22 @@
-"""RCAN: residual groups of channel-attention blocks (srtpu/models/rcan.py,
-use_pallas='cs'). Mean shift, head conv, n_resgroups residual groups
-(K5, each closed by a K2 conv and a group skip), the trunk close conv
-(K2) and the global skip, then srtpu's XLA tail: ``UpscaleBlock`` and a
-final 3x3 conv (cuDNN here). The flagship is RCAN-10x16 x4: 64
-features, 10 groups of 16 RCABs, reduction 16, bf16 compute on f32
-parameters.
+"""RCAN: residual groups of channel-attention blocks (srtpu/models/rcan.py).
+Mean shift, head conv, n_resgroups residual groups (each closed by a conv
+and a group skip), the trunk close conv and the global skip, then
+srtpu's XLA tail: ``UpscaleBlock`` and a final 3x3 conv (cuDNN here).
+The flagship is RCAN-10x16 x4: 64 features, 10 groups of 16 RCABs,
+reduction 16, bf16 compute on f32 parameters.
+
+Routes, as srtpu's ``use_pallas``, all on the same stacked parameters
+(one state dict runs on each):
+
+* ``'cs'`` (srtpu's default): K5 per RCAB, every close conv on K2;
+* ``True``: srtpu's ``ResidualGroup`` / ``RCAB`` path with the fused
+  gate, K8b, in every RCAB (``CALayer(use_pallas=True)``: f32 pool, MLP
+  and sigmoid, f32 weights); the RCAB convs and every close conv stock.
+  srtpu's gate ``ca_layer_fits`` (VMEM, up to about LR 128x128) sends
+  larger images to its XLA reference, the same f32 function; K8b runs at
+  every size here;
+* ``False``: the same path with srtpu's stock gate (mean, two 1x1 convs
+  and the sigmoid in the compute dtype).
 """
 
 from __future__ import annotations
@@ -14,8 +26,8 @@ import math
 import torch
 from torch import nn
 
-from ..ops import conv3x3, resgroup
-from .common import Conv2d, UpscaleBlock, mean_shift, uniform_param
+from ..ops import ca_gate, conv3x3, resgroup
+from .common import Conv2d, UpscaleBlock, _conv, mean_shift, uniform_param
 
 
 class ResidualGroup(nn.Module):
@@ -46,9 +58,33 @@ class ResidualGroup(nn.Module):
         self.wc = param((3, 3, n, n), cb)
         self.bc = param((n,), cb)
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        return resgroup(x, self.w1, self.b1, self.w2, self.b2, self.wd,
-                        self.bd, self.wu, self.bu, self.wc, self.bc, plain)
+    def forward(self, x: torch.Tensor, plain: bool = False,
+                use_pallas: bool | str = 'cs') -> torch.Tensor:
+        """``'cs'``: K5 and K2 (``resgroup``); ``True`` / ``False``: srtpu's
+        ``RCAB`` path in x's dtype, the gate K8b / stock."""
+        if use_pallas == 'cs':
+            return resgroup(x, self.w1, self.b1, self.w2, self.b2, self.wd,
+                            self.bd, self.wu, self.bu, self.wc, self.bc,
+                            plain)
+        dt, res = x.dtype, x
+        for w1, b1, w2, b2, wd, bd, wu, bu in zip(*(t.unbind(0) for t in (
+                self.w1, self.b1, self.w2, self.b2, self.wd, self.bd,
+                self.wu, self.bu))):
+            r = _conv(torch.relu(_conv(res, w1, b1, dt)), w2, b2, dt)
+            r = (ca_gate(r, wd, bd, wu, bu, plain) if use_pallas
+                 else ca_stock(r, wd, bd, wu, bu))
+            res = r + res
+        return _conv(res, self.wc, self.bc, dt) + x
+
+
+def ca_stock(x, wd, bd, wu, bu) -> torch.Tensor:
+    """srtpu's ``CALayer(use_pallas=False)`` in x's dtype: the mean over H
+    W (f32 sums, rounded to x's dtype), a 1x1 conv to C/r, ReLU, a 1x1
+    conv back, sigmoid, x * gate."""
+    dt = x.dtype
+    y = x.float().mean((1, 2), keepdim=True).to(dt)
+    y = torch.relu(_conv(y, wd[None, None], bd, dt))
+    return x * torch.sigmoid(_conv(y, wu[None, None], bu, dt))
 
 
 class RCAN(nn.Module):
@@ -65,9 +101,14 @@ class RCAN(nn.Module):
     def __init__(self, scale_factor: int = 4, channels: int = 3,
                  n_feats: int = 64, n_resblocks: int = 16,
                  n_resgroups: int = 10, reduction: int = 16,
+                 use_pallas: bool | str = 'cs',
                  dtype: torch.dtype | None = None, *, device=None,
                  generator: torch.Generator):
         super().__init__()
+        if use_pallas not in (False, True, 'cs'):
+            raise ValueError(f"use_pallas must be False, True or 'cs', got "
+                             f'{use_pallas!r}')
+        self.use_pallas = use_pallas
         self.scale_factor = scale_factor
         self.channels = channels
         self.dtype = dtype
@@ -91,11 +132,16 @@ class RCAN(nn.Module):
         if self.channels == 3:
             x = mean_shift(x, sign=-1)
         x = self.head(x, dtype)
-        res = x
+        res, route = x, self.use_pallas
         for group in self.groups:
-            res = group(res, plain)
-        res = conv3x3(res, self.trunk_close_weight, self.trunk_close_bias,
-                      plain) + x
+            res = group(res, plain, route)
+        if route == 'cs':
+            res = conv3x3(res, self.trunk_close_weight,
+                          self.trunk_close_bias, plain)
+        else:
+            res = _conv(res, self.trunk_close_weight, self.trunk_close_bias,
+                        dtype)
+        res = res + x
         x = self.final(self.upscale(res, dtype), dtype)
         if self.channels == 3:
             x = mean_shift(x, sign=1)

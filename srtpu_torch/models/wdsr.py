@@ -15,18 +15,26 @@ Routes, as srtpu's ``use_pallas``:
 * ``False`` (srtpu's default): every conv is a stock weight-normed conv
   (``WNConv2d``: cuDNN on the card, as XLA in srtpu);
 * ``'cs'``, block B: each block's weight norm is taken in f32 under
-  autograd and K7 runs the block (``ops.wdsr_block``). srtpu runs its XLA
-  fallback on the same parameters where its VMEM plan fails (every
-  predict size above about 32x32 LR) or its width gate does (n_feats % 64
-  != 0); that limit is VMEM, not math, so on the card K7 runs at every
-  size and every width it takes (C a multiple of 16 up to 128). Block A
-  with ``'cs'`` runs its stock convs, as srtpu does;
-* ``True`` (srtpu's legacy fused NHWC block, K8) is not ported and
-  raises.
+  autograd and K7 runs the block (``ops.wdsr.wdsr_block``). srtpu runs
+  its XLA fallback on the same parameters where its VMEM plan fails
+  (every predict size above about 32x32 LR) or its width gate does
+  (n_feats % 64 != 0); that limit is VMEM, not math, so on the card K7
+  runs at every size and every width it takes (C a multiple of 16 up to
+  128). Block A with ``'cs'`` runs its stock convs, as srtpu does;
+* ``True``, block B: srtpu's fused NHWC block (``_BlockB._fused``):
+  each block's weight norm in f32 under autograd, then K8c, which keeps
+  the expanded activation and the bottleneck in f32 (``ops.wdsr_block``;
+  the backward by autograd through its plain version, as srtpu's
+  ``custom_vjp`` rematerialises in XLA, the weight grads rounded to the
+  cast weights' bf16). srtpu's VMEM gate ``wdsr_block_fits`` fails at its
+  own 128 features even at LR 32x32 and sends the block to its XLA
+  reference, the same f32 function; K8c runs at every size here (C a
+  multiple of 16 up to 128; others raise on the card, ROADMAP.md F4).
+  Block A ignores the flag, as srtpu's does.
 
-Both routes store the same parameters: per conv ``v``, ``g`` and
-``bias`` (srtpu's 'cs' tree names them ``expand_*``, ``linear_*`` and
-``conv_*``), so one state dict runs on either route.
+Every route stores the same parameters: per conv ``v``, ``g`` and
+``bias`` (srtpu's 'cs' and True trees name them ``expand_*``,
+``linear_*`` and ``conv_*``), so one state dict runs on each route.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from torch import nn
 
 from ..ops.layout import pixel_shuffle
 from ..ops.wdsr import wdsr_block
+from ..ops.wdsr_block import wdsr_block_fused
 from .common import DIV2K_RGB_MEAN, WNConv2d
 
 EXPAND, LINEAR = 6, 0.8
@@ -54,19 +63,25 @@ class _BlockA(nn.Module):
 
 
 class _BlockB(nn.Module):
-    def __init__(self, n: int, res_scale: float, kernel: bool, **kw):
+    """``kernel``: K7 (the 'cs' route); ``fused``: K8c (True); neither:
+    stock convs."""
+
+    def __init__(self, n: int, res_scale: float, use_pallas: bool | str,
+                 **kw):
         super().__init__()
-        self.res_scale, self.kernel = res_scale, kernel
+        self.res_scale = res_scale
+        self.kernel, self.fused = use_pallas == 'cs', use_pallas is True
         self.expand = WNConv2d(n, n * EXPAND, 1, **kw)
         self.linear = WNConv2d(n * EXPAND, int(n * LINEAR), 1, **kw)
         self.conv = WNConv2d(int(n * LINEAR), n, 3, **kw)
 
     def forward(self, x, dtype, plain: bool = False):
-        if self.kernel:
-            return wdsr_block(x, self.expand.weight()[0, 0],
-                              self.expand.bias, self.linear.weight()[0, 0],
-                              self.linear.bias, self.conv.weight(),
-                              self.conv.bias, self.res_scale, plain)
+        if self.kernel or self.fused:
+            op = wdsr_block if self.kernel else wdsr_block_fused
+            return op(x, self.expand.weight()[0, 0], self.expand.bias,
+                      self.linear.weight()[0, 0], self.linear.bias,
+                      self.conv.weight(), self.conv.bias, self.res_scale,
+                      plain)
         res = torch.relu(self.expand(x, dtype))
         res = self.conv(self.linear(res, dtype), dtype)
         return res * self.res_scale + x
@@ -95,11 +110,7 @@ class WDSR(nn.Module):
         if block_type not in ('A', 'B'):
             raise ValueError(f"block_type must be 'A' or 'B', got "
                              f'{block_type!r}')
-        if use_pallas is True:
-            raise NotImplementedError(
-                "WDSR use_pallas=True (srtpu's legacy fused NHWC block, K8) "
-                'is not ported to srtpu_torch yet; see ROADMAP.md §2')
-        if use_pallas not in (False, 'cs'):
+        if use_pallas not in (False, True, 'cs'):
             raise ValueError(f"use_pallas must be False, True or 'cs', got "
                              f'{use_pallas!r}')
         self.scale_factor, self.channels, self.dtype = (scale_factor,
@@ -108,17 +119,16 @@ class WDSR(nn.Module):
         out = scale_factor * scale_factor * channels
         self.skip = WNConv2d(channels, out, 5, **kw)
         self.head = WNConv2d(channels, n_feats, 3, **kw)
-        kernel = use_pallas == 'cs' and block_type == 'B'
         self.blocks = nn.ModuleList(
             _BlockA(n_feats, res_scale, **kw) if block_type == 'A'
-            else _BlockB(n_feats, res_scale, kernel, **kw)
+            else _BlockB(n_feats, res_scale, use_pallas, **kw)
             for _ in range(n_resblocks))
         self.tail = WNConv2d(n_feats, out, 3, **kw)
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        """``plain=True`` runs K7's plain PyTorch version instead (the
-        reference the kernels are held against on the card); it changes
-        nothing on the stock route."""
+        """``plain=True`` runs K7's or K8c's plain PyTorch version
+        instead (the reference the kernels are held against on the card);
+        it changes nothing on the stock route."""
         dtype = self.dtype or x.dtype
         r = self.scale_factor
         if self.channels == 3:
@@ -127,7 +137,7 @@ class WDSR(nn.Module):
             x = x - mean
         s = pixel_shuffle(self.skip(x, dtype), r)
         # cuDNN may hand the head's output back in NCHW memory (a permuted
-        # view); K7 reads dense NHWC
+        # view); K7 and K8c read dense NHWC
         y = self.head(x, dtype).contiguous()
         for blk in self.blocks:
             y = blk(y, dtype, plain)

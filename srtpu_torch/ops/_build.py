@@ -48,6 +48,9 @@ SIGNATURES = {
     'srt_rdb_bwd_dw': [_P] * 4 + [_I] * 5 + [_P],
     'srt_wdsr_fwd': [_P] * 7 + [_F] + [_P] * 2 + [_I] * 6 + [_P],
     'srt_wdsr_bwd': [_P] * 7 + [_F] + [_P] * 5 + [_I] * 7 + [_P],
+    'srt_resblock_f32_fwd': [_P] * 5 + [_F] + [_P] * 2 + [_I] * 4 + [_P],
+    'srt_ca_layer_fwd': [_P] * 7 + [_I] * 5 + [_P],
+    'srt_wdsr_block_fwd': [_P] * 7 + [_F] + [_P] * 2 + [_I] * 6 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

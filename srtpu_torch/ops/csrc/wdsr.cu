@@ -60,6 +60,31 @@
 // Widths: C a multiple of 16 up to 128 (the accumulators are at most 8
 // 16-column tiles per warp), e = 6C a multiple of 96, Lp a multiple of 16
 // up to 128. The wrapper (srtpu_torch/ops/wdsr.py) raises for others.
+//
+// K8c (srt_wdsr_block_fwd) is the forward of srtpu's fused NHWC WDSR-B
+// block (its use_pallas=True route), which keeps the activations in f32:
+//   a   = relu(x W1 + b1)                      f32 (not rounded)
+//   v   = a W2 + b2                            f32 (not rounded)
+//   out = bf16((conv3x3(v; W3) + b3) * res_scale + x)   one rounding.
+// It replaces srtpu/ops/wdsr_block.py:wdsr_block_fused_fwd (body
+// _wdsr_kernel), behind wdsr_block_fused / _BlockB._fused. K7 rounds h1
+// and h2 to bf16 before the next product, so it cannot serve. Here every
+// f32 activation t that a product reads is carried as hi = bf16(t), lo =
+// bf16(t - hi), and the product runs twice into the same f32
+// accumulators (hi W + lo W; the weights are bf16 values, as srtpu casts
+// them, so each product is exact in f32 and t - hi - lo is below 2^-17
+// |t|): the f32 product to that error on the bf16 tensor cores, where
+// TF32 (10-bit mantissa) would not reach it. Two launches:
+//   wdsr_pw_fwd_kernel<true>: the pointwise kernel above, with a chunk's a
+//     split into hi and lo halves in shared memory and the W2 product run
+//     on both; its epilogue adds b2 and stores v as [hi | lo] (B H W,
+//     2 Lp) bf16, the f32 v in the bytes an f32 tensor would take;
+//   the 3x3 of v: the chunked conv over those 2 Lp channels with W3
+//     stacked twice along its input channels ([W3; W3], (3, 3, 2 Lp, C)):
+//     conv(hi, W3) + conv(lo, W3) in one sum, ScaleSkipOut's epilogue.
+// Bound as K7's forward (the function's work at L = 102: 9.64 GFLOP at
+// the training shape, 9.7 us); the hi/lo halves double the W2 and 3x3
+// products' tensor-core work. L pads to Lp with zero rows, as K7's.
 
 #include "tile_conv.cuh"
 
@@ -84,10 +109,11 @@ constexpr int kMaxN = 8;        // C / 16 and Lp / 16 at most
 // Shared-memory plan of the pointwise kernels (byte offsets; leading
 // dimensions in elements, each a 16-multiple so every wmma pointer is
 // 32-byte aligned).
+// hilo (K8c's forward) adds the lo half of the h1 chunk (h1lo).
 struct PwPlan {
   int ldx, ldl, ldw1, ldw2, lde;
-  size_t xs, dh2, w1, w2, h1, dh1, scr, db1, total;
-  __host__ __device__ PwPlan(int c, int lp, bool bwd) {
+  size_t xs, dh2, w1, w2, h1, h1lo, dh1, scr, db1, total;
+  __host__ __device__ PwPlan(int c, int lp, bool bwd, bool hilo = false) {
     ldx = c + 16;
     ldl = lp + 16;
     ldw1 = kEC + 16;
@@ -104,6 +130,8 @@ struct PwPlan {
     o += srt::align128((size_t)kEC * ldw2 * 2);
     h1 = o;
     o += srt::align128((size_t)kP * lde * 2);
+    h1lo = o;
+    if (hilo) o += srt::align128((size_t)kP * lde * 2);
     dh1 = o;
     if (bwd) o += srt::align128((size_t)kP * lde * 2);
     scr = o;
@@ -153,12 +181,14 @@ __device__ __forceinline__ void load_chunk(const PwPlan& P, bf16* w1s,
 }
 
 // The warp's 16 rows of the h1 chunk ch: bf16(relu(x W1c + b1c)) into
-// h1s (kP, lde).
+// h1s (kP, lde); with h1lo (K8c), the f32 value's lo half, bf16(h1 -
+// bf16(h1)), into h1lo.
 __device__ __forceinline__ void h1_chunk(const PwPlan& P, const bf16* xs,
                                          const bf16* w1s, bf16* h1s,
                                          float* scr,
                                          const float* __restrict__ b1, int c,
-                                         int ch, int warp, int lane) {
+                                         int ch, int warp, int lane,
+                                         bf16* h1lo = nullptr) {
   AccFrag a[kNE];
 #pragma unroll
   for (int n = 0; n < kNE; ++n) wmma::fill_fragment(a[n], 0.0f);
@@ -183,25 +213,36 @@ __device__ __forceinline__ void h1_chunk(const PwPlan& P, const bf16* xs,
       v[j] = fmaxf(v[j] + b1[ch * kEC + n * 16 + c0 + j], 0.0f);
     *reinterpret_cast<uint4*>(h1s + (size_t)row * P.lde + n * 16 + c0) =
         srt::pack8(v);
+    if (h1lo) {
+      float lo[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        lo[j] = v[j] - __bfloat162float(__float2bfloat16_rn(v[j]));
+      *reinterpret_cast<uint4*>(h1lo + (size_t)row * P.lde + n * 16 + c0) =
+          srt::pack8(lo);
+    }
   }
   __syncwarp();
 }
 
 // h2 = bf16(relu(x W1 + b1) W2 + b2) for 128 pixels per block; h1 walked in
 // chunks of kEC. x (S, c), w1 (c, e), w2 (e, lp) bf16; b1, b2 f32; h2 (S,
-// lp) bf16.
+// lp) bf16. HILO (K8c): h1 stays f32 as hi + lo halves, both multiplied
+// by W2, and h2 is the f32 v stored as [hi | lo] (S, 2 lp) bf16.
+template <bool HILO>
 __global__ void __launch_bounds__(srt::kThreads, 1)
     wdsr_pw_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                        const float* __restrict__ b1,
                        const bf16* __restrict__ w2,
                        const float* __restrict__ b2, bf16* __restrict__ h2,
                        long long S, int c, int e, int lp) {
-  const PwPlan P(c, lp, false);
+  const PwPlan P(c, lp, false, HILO);
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* xs = reinterpret_cast<bf16*>(smem + P.xs);
   bf16* w1s = reinterpret_cast<bf16*>(smem + P.w1);
   bf16* w2s = reinterpret_cast<bf16*>(smem + P.w2);
   bf16* h1s = reinterpret_cast<bf16*>(smem + P.h1);
+  bf16* h1lo = HILO ? reinterpret_cast<bf16*>(smem + P.h1lo) : nullptr;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* scr = reinterpret_cast<float*>(smem + P.scr) + warp * 256;
   const long long p0 = (long long)blockIdx.x * kP;
@@ -215,25 +256,31 @@ __global__ void __launch_bounds__(srt::kThreads, 1)
     __syncthreads();  // every warp is done with the last chunk's weights
     load_chunk(P, w1s, w2s, w1, w2, c, e, lp, ch);
     __syncthreads();
-    h1_chunk(P, xs, w1s, h1s, scr, b1, c, ch, warp, lane);
+    h1_chunk(P, xs, w1s, h1s, scr, b1, c, ch, warp, lane, h1lo);
 #pragma unroll
-    for (int k = 0; k < kNE; ++k) {
-      AFrag fa;
-      wmma::load_matrix_sync(fa, h1s + (size_t)warp * 16 * P.lde + k * 16,
-                             P.lde);
+    for (int half = 0; half < (HILO ? 2 : 1); ++half) {
+      const bf16* as = half ? h1lo : h1s;
 #pragma unroll
-      for (int n = 0; n < kMaxN; ++n) {
-        if (n < nl) {
-          BFrag fb;
-          wmma::load_matrix_sync(fb, w2s + (size_t)k * 16 * P.ldw2 + n * 16,
-                                 P.ldw2);
-          wmma::mma_sync(acc[n], fa, fb, acc[n]);
+      for (int k = 0; k < kNE; ++k) {
+        AFrag fa;
+        wmma::load_matrix_sync(fa, as + (size_t)warp * 16 * P.lde + k * 16,
+                               P.lde);
+#pragma unroll
+        for (int n = 0; n < kMaxN; ++n) {
+          if (n < nl) {
+            BFrag fb;
+            wmma::load_matrix_sync(fb,
+                                   w2s + (size_t)k * 16 * P.ldw2 + n * 16,
+                                   P.ldw2);
+            wmma::mma_sync(acc[n], fa, fb, acc[n]);
+          }
         }
       }
     }
   }
   const long long p = p0 + warp * 16 + (lane >> 1);
   const int c0 = (lane & 1) * 8;
+  const int ld = HILO ? 2 * lp : lp;
 #pragma unroll
   for (int n = 0; n < kMaxN; ++n) {
     if (n >= nl) continue;
@@ -242,7 +289,15 @@ __global__ void __launch_bounds__(srt::kThreads, 1)
     if (p >= S) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) v[j] += b2[n * 16 + c0 + j];
-    *reinterpret_cast<uint4*>(h2 + p * lp + n * 16 + c0) = srt::pack8(v);
+    *reinterpret_cast<uint4*>(h2 + p * ld + n * 16 + c0) = srt::pack8(v);
+    if (HILO) {
+      float lo[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        lo[j] = v[j] - __bfloat162float(__float2bfloat16_rn(v[j]));
+      *reinterpret_cast<uint4*>(h2 + p * ld + lp + n * 16 + c0) =
+          srt::pack8(lo);
+    }
   }
 }
 
@@ -484,14 +539,15 @@ bool widths_ok(int c, int e, int lp) {
          lp % 16 == 0 && lp > 0 && lp <= 16 * kMaxN;
 }
 
+template <bool HILO = false>
 cudaError_t pw_fwd(const void* x, const void* w1, const void* b1,
                    const void* w2, const void* b2, void* h2, long long S,
                    int c, int e, int lp, cudaStream_t s) {
-  const PwPlan P(c, lp, false);
-  cudaError_t err = srt::allow_smem(wdsr_pw_fwd_kernel, P.total);
+  const PwPlan P(c, lp, false, HILO);
+  cudaError_t err = srt::allow_smem(wdsr_pw_fwd_kernel<HILO>, P.total);
   if (err != cudaSuccess) return err;
-  wdsr_pw_fwd_kernel<<<(unsigned)((S + kP - 1) / kP), srt::kThreads, P.total,
-                       s>>>(
+  wdsr_pw_fwd_kernel<HILO><<<(unsigned)((S + kP - 1) / kP), srt::kThreads,
+                             P.total, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
       static_cast<const float*>(b1), static_cast<const bf16*>(w2),
       static_cast<const float*>(b2), static_cast<bf16*>(h2), S, c, e, lp);
@@ -562,4 +618,26 @@ extern "C" int srt_wdsr_bwd(const void* x, const void* g, const void* w1,
   wdsr_reduce<<<(int)(want < 4096 ? want : 4096), 256, 0, s>>>(
       static_cast<const float*>(ws), static_cast<float*>(red), used, wsz);
   return (int)cudaGetLastError();
+}
+
+// K8c: x (B, H, W, c) bf16; w1 (c, e), w2 (e, lp) bf16; w3cat (3, 3, 2 lp,
+// c) bf16, W3 stacked twice along its input channels; b1 (e), b2 (lp), b3
+// (c) f32; vcat (B, H, W, 2 lp) bf16 scratch (v as [hi | lo]); out (B, H,
+// W, c) bf16. Returns a cudaError_t.
+extern "C" int srt_wdsr_block_fwd(const void* x, const void* w1,
+                                  const void* b1, const void* w2,
+                                  const void* b2, const void* w3cat,
+                                  const void* b3, float scale, void* vcat,
+                                  void* out, int B, int H, int W, int c,
+                                  int e, int lp, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!widths_ok(c, e, lp)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = pw_fwd<true>(x, w1, b1, w2, b2, vcat,
+                                 (long long)B * H * W, c, e, lp, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)srt::conv_chunked<3>(
+      static_cast<const bf16*>(vcat), static_cast<const bf16*>(w3cat),
+      ScaleSkipOut{static_cast<const float*>(b3), static_cast<const bf16*>(x),
+                   scale, static_cast<bf16*>(out)},
+      1.0f, B, H, W, 2 * lp, c, s);
 }

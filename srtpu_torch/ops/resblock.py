@@ -1,0 +1,157 @@
+"""K8a: srtpu's fused NHWC EDSR resblock (``use_pallas=True``), its
+forward on the card, its backward in stock PyTorch.
+
+Replaces ``srtpu/ops/resblock.py:resblock_fused_h1`` (body
+``_resblock_kernel_h1``) behind ``resblock_fused_v2`` / ``FusedResBlock``,
+and ``resblock_fused`` (``_resblock_kernel``, the same body without h1).
+The kernel is ``csrc/resblock.cu``, whose head note says what bounds it
+on the H100 and how it keeps the f32 h1 on bf16 tensor cores.
+:func:`resblock_fused_fwd` launches it for CUDA tensors and takes the
+plain version only for CPU tensors; it counts its calls in ``launches``.
+:func:`resblock_fused` is the differentiable op
+(:class:`FusedResBlockFn`).
+
+One block, NHWC x (B, H, W, C) in the compute dtype, HWIO w1, w2 (3, 3,
+C, C) in x's dtype, f32 b1, b2: h1 = relu(conv(x, W1) + b1) in f32, out
+= x.dtype((conv(h1, W2) + b2) * res_scale + x) with conv2 reading the
+f32 h1; h1 is also emitted rounded to x.dtype, for the backward.
+
+srtpu's backward (``_rb2_bwd``) is XLA, so it is stock PyTorch here
+(:func:`resblock_fused_bwd`): f32 conv VJPs from the saved x and
+x.dtype h1, the ReLU mask from that saved h1, and the weight grads
+rounded to the weights' dtype (bf16 on the card), as srtpu returns them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .conv import conv_f32
+
+KERNEL_C = 64           # the kernel's one width (EDSR-baseline's)
+
+
+def resblock_fused_plain(x, w1, b1, w2, b2, res_scale: float,
+                         save_h1: bool = False):
+    """Plain version of the kernel: f32 convs from x's values, h1 never
+    rounded before conv2, out rounded once to x.dtype; ``save_h1``
+    returns ``(out, h1)`` with h1 rounded to x.dtype."""
+    h1 = conv_f32(x, w1, b1).clamp_min(0.0)
+    out = (conv_f32(h1, w2, b2) * res_scale + x.float()).to(x.dtype) \
+        .contiguous()
+    return (out, h1.to(x.dtype).contiguous()) if save_h1 else out
+
+
+def _check(name: str, x) -> None:
+    """Raise unless the kernel takes x: 64 channels, on a CUDA tensor."""
+    if x.shape[-1] != KERNEL_C:
+        raise ValueError(
+            f'{name}: no kernel for C={x.shape[-1]} (K8a takes '
+            f'{KERNEL_C} channels; ROADMAP.md F4)')
+    if x.device.type != 'cuda':
+        raise ValueError(f'{name}: no kernel for device {x.device}')
+
+
+def resblock_fused_fwd(x, w1, b1, w2, b2, res_scale: float,
+                       save_h1: bool = False):
+    """As :func:`resblock_fused_plain`. On CUDA: bf16 x (B, H, W, 64), w1,
+    w2 (3, 3, 64, 64) bf16, b1, b2 (64,) f32; one launch, which writes h1
+    only with ``save_h1``."""
+    if x.device.type == 'cpu':
+        return resblock_fused_plain(x, w1, b1, w2, b2, res_scale, save_h1)
+    _check('resblock_fused_fwd', x)
+    bsz, h, w, c = x.shape
+    dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
+    _build.expect(x, 'x', bf16, (bsz, h, w, c), dev)
+    for name, t in (('w1', w1), ('w2', w2)):
+        _build.expect(t, name, bf16, (3, 3, c, c), dev)
+    for name, t in (('b1', b1), ('b2', b2)):
+        _build.expect(t, name, f32, (c,), dev, aligned=False)
+    out = torch.empty_like(x)
+    h1 = torch.empty_like(x) if save_h1 else None
+    with torch.cuda.device(dev):
+        err = _build.library().srt_resblock_f32_fwd(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), float(res_scale), out.data_ptr(),
+            h1.data_ptr() if save_h1 else None, bsz, h, w, c,
+            _build.stream(dev))
+    _build.check(err, 'srt_resblock_f32_fwd')
+    resblock_fused_fwd.launches += 1
+    return (out, h1) if save_h1 else out
+
+
+resblock_fused_fwd.launches = 0
+
+
+def _conv_vjp(x, w, g):
+    """(dx, dW) of the f32 SAME conv of NHWC ``x`` with HWIO ``w`` at the
+    NHWC cotangent ``g``: one ``aten.convolution_backward`` in f32."""
+    p = w.shape[0] // 2
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2),
+        w.permute(3, 2, 0, 1), None, [1, 1], [p, p], [1, 1], False, [0, 0],
+        1, [True, True, False])
+    return dx.permute(0, 2, 3, 1), dw.permute(2, 3, 1, 0)
+
+
+def resblock_fused_bwd(x, h1, g, w1, w2, res_scale: float):
+    """srtpu's ``_rb2_bwd`` in stock ops: gs = f32(g) * res_scale; dh1,
+    dW2 = the f32 conv VJP at (h1, W2); dh1 masked where the saved h1 is
+    not > 0; dx, dW1 = the f32 conv VJP at (x, W1), dx + f32(g). Returns
+    dx in x's dtype, dW1 and dW2 rounded to the weights' dtype, db1 and
+    db2 f32."""
+    gs = g.float() * res_scale
+    dh1, dw2 = _conv_vjp(h1.float(), w2.float(), gs)
+    dh1 = dh1 * (h1.float() > 0)
+    dx, dw1 = _conv_vjp(x.float(), w1.float(), dh1)
+    dx = (dx + g.float()).to(x.dtype).contiguous()
+    return (dx, dw1.to(w1.dtype), dh1.sum((0, 1, 2)), dw2.to(w2.dtype),
+            gs.sum((0, 1, 2)))
+
+
+def _cast(x, w1, b1, w2, b2):
+    """The kernel's operands: weights in x's dtype, biases f32."""
+    dt = x.dtype
+    return (w1.to(dt).contiguous(), b1.float().contiguous(),
+            w2.to(dt).contiguous(), b2.float().contiguous())
+
+
+class FusedResBlockFn(torch.autograd.Function):
+    """Differentiable K8a (srtpu ``resblock_fused_v2``): f32 (or any)
+    parameters in, cast to x's dtype (the biases to f32) inside; saves x,
+    the x.dtype h1 and the cast weights; the grads of the weights are
+    their x.dtype values in the parameters' dtype (srtpu's weight grads
+    come back in the cast weights' dtype)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, res_scale: float, plain: bool):
+        ops = _cast(x, w1, b1, w2, b2)
+        out, h1 = (resblock_fused_plain if plain else resblock_fused_fwd)(
+            x, *ops, res_scale, save_h1=True)
+        ctx.save_for_backward(x, h1, ops[0], ops[2])
+        ctx.res_scale = res_scale
+        ctx.dtypes = tuple(t.dtype for t in (w1, b1, w2, b2))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, h1, w1, w2 = ctx.saved_tensors
+        grads = resblock_fused_bwd(x, h1, g.contiguous(), w1, w2,
+                                   ctx.res_scale)
+        return (grads[0], *(t.to(d) for t, d in zip(grads[1:], ctx.dtypes)),
+                None, None)
+
+
+def resblock_fused(x, w1, b1, w2, b2, res_scale: float = 1.0,
+                   plain: bool = False) -> torch.Tensor:
+    """One EDSR resblock on srtpu's fused NHWC route in x's dtype from f32
+    (or any) weights: the autograd op when a gradient is wanted, else the
+    forward alone without h1 (srtpu's ``resblock_fused``). ``plain`` runs
+    the plain version on any device."""
+    x = x.contiguous()
+    params = (w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
+        return FusedResBlockFn.apply(x, *params, res_scale, plain)
+    return (resblock_fused_plain if plain else resblock_fused_fwd)(
+        x, *_cast(x, *params), res_scale)

@@ -89,7 +89,7 @@ def _check(name: str, x, w1, w2):
     if c % 16 or c > MAX_C or e % E_CHUNK or lp % 16 or lp > MAX_C:
         raise ValueError(f'{name}: no kernel for C={c}, e={e}, Lp={lp} (C '
                          f'and Lp multiples of 16 up to {MAX_C}, e of '
-                         f'{E_CHUNK})')
+                         f'{E_CHUNK}; ROADMAP.md F4)')
     if x.device.type != 'cuda':
         raise ValueError(f'{name}: no kernel for device {x.device}')
 

@@ -34,6 +34,11 @@ bf16 values).
 K4r (K4 with REFLECT boundaries, SRGAN's block): as K4, within
 ``bn_block.kernel_limits``; the SAME kernel on the same inputs (a halo
 left at zero, a dropped fold) must fail them.
+K8 (srtpu's use_pallas=True forms: K8a EDSR's fused block, K8b RCAN's
+gate, K8c WDSR-B's fused block): kernel and plain version compute the
+same f32 function and round once (K8a's h1 once more); the kernels carry
+the f32 activations as bf16 hi + lo pairs (2^-17 relative), so every
+output within one bf16 step of its largest magnitude.
 """
 
 import pytest
@@ -52,8 +57,11 @@ from srtpu_torch.ops import (conv3x3_bwd, conv3x3_bwd_plain, conv3x3_fwd,
                              resgroup_plain, trunk_bwd, trunk_bwd_plain,
                              trunk_fwd, trunk_plain, upsample_bwd,
                              upsample_bwd_plain, upsample_fwd, upsample_plain)
+from srtpu_torch.ops import ca_layer as k8b
 from srtpu_torch.ops import rdn as k6
+from srtpu_torch.ops import resblock as k8a
 from srtpu_torch.ops import wdsr as k7
+from srtpu_torch.ops import wdsr_block as k8c
 from srtpu_torch.ops.layout import w_t
 
 pytestmark = pytest.mark.cuda
@@ -922,3 +930,140 @@ def test_srgan_train_mode_takes_64_channels_on_cuda(device):
         with pytest.raises(ValueError, match='64 channels'):
             model.train()(lr)
         assert model(lr, plain=True).shape == (1, 32, 32, 3)
+
+
+# --------------------------------------------------------------- K8
+
+K8_SHAPES = [(16, 32, 32), (1, 128, 128), (2, 67, 45)]
+
+
+def _k8_case(gen, device, kind, bsz, h, w, c):
+    """One K8 function's operands at srtpu's init bounds: K8a's (x, w1,
+    b1, w2, b2), K8b's (x, w1, b1, w2, b2) at reduction 16 (f32 weights),
+    K8c's (x, w1, b1, w2, b2, w3, b3) at e = 6C, L = int(0.8 C)."""
+    f32 = torch.float32
+    x = _u(gen, (bsz, h, w, c), 1.0, device)
+    if kind == 'a':
+        return (x, *_conv(gen, c, c, device), *_conv(gen, c, c, device))
+    if kind == 'b':
+        cr = max(c // 16, 1)
+        return (x, _u(gen, (c, cr), c ** -0.5, device, f32),
+                _u(gen, (cr,), c ** -0.5, device, f32),
+                _u(gen, (cr, c), cr ** -0.5, device, f32),
+                _u(gen, (c,), cr ** -0.5, device, f32))
+    e, lv = 6 * c, int(0.8 * c)
+    return (x, _u(gen, (c, e), c ** -0.5, device),
+            _u(gen, (e,), c ** -0.5, device, f32),
+            _u(gen, (e, lv), e ** -0.5, device),
+            _u(gen, (lv,), e ** -0.5, device, f32),
+            _u(gen, (3, 3, lv, c), (9 * lv) ** -0.5, device),
+            _u(gen, (c,), (9 * lv) ** -0.5, device, f32))
+
+
+K8_FNS = {'a': (k8a.resblock_fused_fwd, k8a.resblock_fused_plain, 64),
+          'b': (k8b.ca_layer_fwd, k8b.ca_layer_plain, 64),
+          'c': (k8c.wdsr_block_fused_fwd, k8c.wdsr_block_fused_plain, 128)}
+
+
+@pytest.mark.parametrize('bsz,h,w', K8_SHAPES)
+@pytest.mark.parametrize('kind', ['a', 'b', 'c'])
+def test_k8_kernel_matches_plain(device, kind, bsz, h, w):
+    """K8a (out and h1, res_scale 0.5), K8b and K8c (res_scale 0.5, C 128)
+    against their plain versions at chip_smoke's shapes: within one bf16
+    step of the largest magnitude, one launch counted per call, the same
+    bits on a second call."""
+    fn, plain, c = K8_FNS[kind]
+    gen = torch.Generator().manual_seed(bsz * 1000 + h * 10 + w)
+    args = _k8_case(gen, device, kind, bsz, h, w, c)
+    kw = {'save_h1': True} if kind == 'a' else {}
+    if kind != 'b':
+        args = (*args, 0.5)
+    before = fn.launches
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref = plain(*args, **kw)
+    got, ref = (list(t) if kind == 'a' else [t] for t in (got, ref))
+    for g_t, r_t in zip(got, ref):
+        _assert_close(g_t, r_t, 1)
+    again = fn(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, again if kind == 'a' else [again]))
+
+
+def test_k8_wrappers_reject_what_the_kernels_do_not_take(device):
+    """K8a takes 64 channels, K8b a multiple of 8, K8c a multiple of 16 up
+    to 128: others raise on the card, naming ROADMAP.md F4."""
+    gen = torch.Generator().manual_seed(0)
+    for kind, c in (('a', 32), ('a', 128), ('b', 12), ('c', 24),
+                    ('c', 144)):
+        fn = K8_FNS[kind][0]
+        args = _k8_case(gen, device, kind, 1, 4, 4, c)
+        with pytest.raises(ValueError, match=f'no kernel for C={c}.*F4'):
+            fn(*args) if kind == 'b' else fn(*args, 1.0)
+
+
+K8_MODELS = {'EDSR': (dict(n_feats=64, n_resblocks=2),
+                      k8a.resblock_fused_fwd, 2),
+             'RCAN': (dict(n_feats=64, n_resgroups=2, n_resblocks=2),
+                      k8b.ca_layer_fwd, 4),
+             'WDSR': (dict(n_feats=128, n_resblocks=2),
+                      k8c.wdsr_block_fused_fwd, 2)}
+
+
+def _k8_model(device, name, scale):
+    kw = K8_MODELS[name][0]
+    return create_model(name, scale_factor=scale, use_pallas=True,
+                        dtype=torch.bfloat16, device=device,
+                        generator=torch.Generator().manual_seed(1), **kw)
+
+
+@pytest.mark.parametrize('scale', [2, 4])
+@pytest.mark.parametrize('name', ['EDSR', 'RCAN', 'WDSR'])
+def test_true_route_kernel_path_matches_plain(device, name, scale):
+    """The use_pallas=True routes' predict on the card, kernel path
+    against plain path: one K8 launch per block (per RCAB), the SR image
+    within 2^-6."""
+    model = _k8_model(device, name, scale)
+    fn, per_image = K8_MODELS[name][1:]
+    lr = torch.rand((2, 20, 28, 3),
+                    generator=torch.Generator().manual_seed(5)).to(device)
+    before = fn.launches
+    with torch.inference_mode():
+        got = model(lr).float()
+        assert fn.launches == before + per_image
+        ref = model(lr, plain=True).float()
+    assert got.shape == (2, 20 * scale, 28 * scale, 3)
+    assert (got - ref).abs().max().item() <= 2.0 ** -6
+
+
+@pytest.mark.parametrize('name', ['EDSR', 'RCAN', 'WDSR'])
+def test_true_route_train_step_kernel_path_matches_plain(device, name):
+    """One x4 step (L1, Adam) on each True route, kernel path against
+    plain path from the same params and batch: the loss within 2^-7
+    relative, every gradient f32 and within 2^-4 of its largest magnitude
+    (as K7's route); the K8 kernel once per block per step (the backward
+    is stock)."""
+    from srtpu_torch.losses import parse_losses
+    from srtpu_torch.optim import build_optimizer
+    from srtpu_torch.train import TrainState, make_train_step
+    fn, per_step = K8_MODELS[name][1:]
+    gen = torch.Generator().manual_seed(6)
+    lr = torch.rand((2, 12, 20, 3), generator=gen).to(device)
+    hr = torch.rand((2, 48, 80, 3), generator=gen).to(device)
+    grads, losses = [], []
+    for plain in (False, True):
+        model = _k8_model(device, name, 4)
+        state = TrainState(model, build_optimizer(
+            'ADAM', ['lr=1e-4'], model.parameters()))
+        before = fn.launches
+        logs = make_train_step(parse_losses('l1'), plain=plain)(state, lr, hr)
+        torch.cuda.synchronize()
+        assert fn.launches - before == (0 if plain else per_step)
+        losses.append(float(logs['loss']))
+        grads.append([p.grad for p in model.parameters()])
+    assert abs(losses[0] - losses[1]) <= 2.0 ** -7 * losses[1]
+    for got, ref in zip(*grads):
+        assert got.dtype == torch.float32
+        top = ref.abs().max().item()
+        assert (got - ref).abs().max().item() <= 2.0 ** -4 * top

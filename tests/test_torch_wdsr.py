@@ -40,8 +40,10 @@ SRTPU_CS_OFF_TPU=1 for the model, whose cs_conv.PATH_LOG then shows
     with ``--use_pallas cs``.
 (h) the CLI's model flags: a flag not given is not passed, so WDSR builds
     srtpu's 128 features and the other families build as before;
-    ``--use_pallas true`` raises naming ROADMAP.md; ``cs`` at a width K7
-    does not take raises off the CPU and runs the plain version on it.
+    ``--use_pallas true`` builds K8c's route for WDSR and K8a's and K8b's
+    for EDSR and RCAN, and raises naming ROADMAP.md F4 off the CPU at a
+    width the K8 kernel does not take; ``cs`` at a width K7 does not take
+    raises off the CPU and runs the plain version on it.
 """
 
 import jax
@@ -487,9 +489,26 @@ def test_cli_other_families_build_as_before(name, old):
         assert torch.equal(got[k], want[k]), k
 
 
-def test_cli_use_pallas_true_raises():
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        _built(['--model', 'WDSR', '--use_pallas', 'true'])
+@pytest.mark.parametrize('name,flags,route,c', [
+    ('WDSR', ['--n_feats', '24'], lambda m: m.blocks[0].fused, 24),
+    ('EDSR', ['--n_feats', '16'], lambda m: m.use_pallas is True, 16),
+    ('RCAN', ['--n_feats', '12', '--reduction', '4', '--n_resgroups', '1'],
+     lambda m: m.use_pallas is True, 12)])
+def test_cli_use_pallas_true_raises(name, flags, route, c):
+    """--use_pallas true builds srtpu's fused route (K8c, K8a, K8b): on
+    the CPU it runs the plain version; off it, at a width its K8 kernel
+    does not take, the forward reaches the kernel's wrapper, which raises
+    naming ROADMAP.md F4."""
+    model = _built(['--model', name, *flags, '--n_resblocks', '1',
+                    '--use_pallas', 'true', '--scale_factor', '2'])
+    assert route(model)
+    with torch.inference_mode():
+        out = model(torch.rand(1, 6, 6, 3))
+    assert out.shape == (1, 12, 12, 3) and bool(torch.isfinite(out).all())
+    with pytest.raises(ValueError, match=f'no kernel for C={c}.*ROADMAP.md '
+                                         f'F4'):
+        with torch.inference_mode():
+            model.to('meta')(torch.rand(1, 6, 6, 3, device='meta'))
 
 
 def test_cs_at_a_width_k7_does_not_take():
