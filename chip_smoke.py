@@ -1,6 +1,8 @@
 """Drive srtpu_torch's EDSR-baseline x4, RCAN-10x16 x4, SRResNet x4,
 RDN-B x4, DDBPN x4, WDSR-B x4 and SRGAN x4 predict and training on one
-CUDA card, and EDSR's, RCAN's and WDSR-B's ``use_pallas=True`` routes.
+CUDA card, EDSR's, RCAN's and WDSR-B's ``use_pallas=True`` routes, the
+ops of srtpu's other trunk forms, EDSR at 86 resblocks (where srtpu
+leaves its mega trunk) and EDSR at 256 features (srtpu's XLA trunk).
 
     python3 chip_smoke.py
 
@@ -184,10 +186,34 @@ Phases, each of which raises on failure (nothing is caught):
    RCABs): per image and step 160 K8b launches and no K5 or K2;
 21. the WDSR-B True route, as 19 with ``--model WDSR`` (128 features, 16
    blocks): per image and step 16 K8c launches and no K7.
+2j. the counterparts of srtpu's other trunk forms and K8a's fused
+   backward against their plain versions at the training shape (batch
+   16, LR 32x32), two calls bit-identical, with kernel, plain, bound and
+   library times: K1 over 86 blocks (srtpu's per-block ``trunk_cs``
+   there) and at one block (``resblock_cs``), K6 at one RDN-B block
+   (the 'calls' trunk: forward, chain, pair weight grads), K9c (the 8
+   dense-layer convs of one block, forward and backward; ``F.conv2d``
+   and ``aten.convolution_backward`` beside), K9d at res_scale 1.0 and
+   0.1 (the True route's stock backward beside); then the main-path runs
+   of the ops no model keyword reaches: ``resblock_cs`` and
+   ``resblock_fused_v3`` at EDSR True's training shape,
+   ``rdn_trunk_calls`` (its forward bit-identical to the grid trunk's)
+   and ``rdn_trunk_layers`` at RDN-B's trunk shape, each forward and
+   backward with its launches counted and its gradients against its
+   plain path;
+22. EDSR x4 at 64 features and 86 resblocks (res_scale 0.1), the
+   shallowest 64-feature trunk srtpu sends to ``trunk_cs``: a 10-step
+   ``fit`` through the CLI on K1 (86 launches each way per step), the
+   gradients against the plain path;
+23. EDSR x4 at 256 features, 32 resblocks, res_scale 0.1 (the EDSR
+   paper's): predict at LR 128x128 and a 10-step ``fit`` through the
+   CLI on srtpu's XLA trunk and tail (stock ops): no kernel of the port
+   runs, which the counters show; ms and patches/s.
 The line before the last is a JSON object with, per kernel, its launches
 in the main-path runs (EDSR, RCAN, SRResNet, RDN, DDBPN, WDSR and SRGAN
-predict and fit, EDSR and SRResNet x3 predict, SRResNet x3 fit, and the
-EDSR, RCAN and WDSR-B True routes' predict and fit;
+predict and fit, EDSR and SRResNet x3 predict, SRResNet x3 fit, the
+EDSR, RCAN and WDSR-B True routes' predict and fit, EDSR 64 x 86 fit,
+and phase 2j's op runs;
 ``launches`` is their sum), its largest error against its plain
 version, its time (K4's and K4r's: its kernels' own device time from
 torch.profiler; the others: the wrapper's CUDA-event time) and the
@@ -230,15 +256,21 @@ from srtpu_torch.ops import (_build, b1_plain, b1_sums, b2_call, b2_plain,
                              f3_plain, rcab_bwd, rcab_bwd_plain,
                              rcab_fwd, rcab_fwd_plain, resgroup_bwd,
                              resgroup_bwd_plain, resgroup_fwd, resgroup_plain,
-                             trunk_bwd, trunk_bwd_plain, trunk_fwd,
-                             trunk_plain, upsample_bwd, upsample_bwd_plain,
-                             upsample_fwd, upsample_plain)
+                             resblock_cs, trunk_bwd, trunk_bwd_plain,
+                             trunk_fwd, trunk_plain, upsample_bwd,
+                             upsample_bwd_plain, upsample_fwd,
+                             upsample_plain)
 from srtpu_torch.ops.ca_layer import ca_layer_fwd, ca_layer_plain
 from srtpu_torch.ops.layout import w_t
 from srtpu_torch.ops.rdn import (pack, rdb_bwd_chain, rdb_bwd_chain_plain,
                                  rdb_bwd_dw, rdb_bwd_dw_plain, rdn_fwd,
-                                 rdn_fwd_plain)
-from srtpu_torch.ops.resblock import resblock_fused_fwd, resblock_fused_plain
+                                 rdn_fwd_plain, rdn_trunk, rdn_trunk_calls,
+                                 rdn_trunk_layers)
+from srtpu_torch.ops.resblock import (resblock_bwd_fused,
+                                      resblock_bwd_fused_plain,
+                                      resblock_fused_bwd, resblock_fused_fwd,
+                                      resblock_fused_plain,
+                                      resblock_fused_v3)
 from srtpu_torch.ops.wdsr import (wdsr_bwd, wdsr_bwd_plain, wdsr_fwd,
                                   wdsr_fwd_plain, wdsr_lp)
 from srtpu_torch.ops.wdsr_block import (wdsr_block_fused_fwd,
@@ -511,6 +543,45 @@ WDSR_TRUE_STEP_LAUNCHES = {**WDSR_TRUE_LAUNCHES, **K8_OFF_BWD}
 # pairs within 2^-17 of f32: every output within one bf16 step of its
 # largest magnitude
 K8_STEPS = 1
+# EDSR x4 at 64 features and 86 resblocks: the shallowest 64-feature trunk
+# srtpu sends to its per-block trunk_cs: 2 * 86 * 192^2 * 4 bytes of
+# mega-trunk dW accumulators pass its 24 MiB TPU budget (85 blocks do
+# not). The port runs K1 at every depth (it keeps no such accumulators).
+# res_scale 0.1, the EDSR paper's setting for deep trunks (Lim et al.
+# 2017), keeps the random-init activations bounded over 86 blocks; 10 fit
+# steps
+EDSR86_L, EDSR86_RS, EDSR86_STEPS = 86, 0.1, 10
+EDSR86_ARGS = ['--n_resblocks', str(EDSR86_L), '--res_scale',
+               str(EDSR86_RS)]
+# per step: K1 each way per block; K2, K3 and the weight grads as
+# EDSR-baseline's
+EDSR86_STEP_LAUNCHES = {**STEP_LAUNCHES, trunk_fwd: EDSR86_L,
+                        trunk_bwd: EDSR86_L}
+# EDSR's paper configuration (Lim et al. 2017, the reference's EDSR): 256
+# features, 32 resblocks, res_scale 0.1. Past 96 features srtpu runs its
+# trunk and tail on XLA, so the port runs stock ops there (ROADMAP F10):
+# no kernel of the port, forward or backward
+EDSR_BIG_ARGS = ['--n_feats', '256', '--n_resblocks', '32', '--res_scale',
+                 '0.1']
+EDSR_BIG_STEPS = 10
+NO_KERNEL = {k: 0 for k in (
+    trunk_fwd, trunk_bwd, conv3x3_fwd, conv3x3_bwd, K2G_FWD, K2G_BWD, upsample_fwd, upsample_bwd, conv_wgrad,
+    WGG, resblock_fused_fwd, resblock_bwd_fused)}
+# Phase 2j. K1 over 86 blocks (res_scale 0.1): a value a bf16 step apart
+# in one block's output is carried on by the skips, as in K1's 16-block
+# trunk (four steps): the forward's out, xs, h1s and the backward's dx
+# within eight steps of their largest magnitude, and the kernel's error
+# against the unrounded f32 trunk no more than twice the plain path's;
+# the weight grads one step (they read the bf16 dh1 chain). K1 at one
+# block: every bf16 output within one step, the f32 grads one step. K6 at
+# one RDN-B block: as K6's trunk (two steps; the chain's as K6B_STEPS).
+# K9c, each dense layer: K2's (one step; dW and db 1e-4). K9d: dx within
+# one step, its f32 dW and db within 1e-4 of their largest magnitude
+# (f32 sums of f32 products in another order).
+K1S_STEPS, K1S_DW_STEPS = 8, 1
+# the op runs of phase 2j: EDSR True's training shape (K9d, resblock_cs),
+# RDN-B's trunk at the training shape (the calls trunk, K9c)
+K9D_SCALES = (1.0, 0.1)
 # The H100 SXM's published peaks (NVIDIA data sheet), for bound_ms
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 
@@ -806,7 +877,7 @@ def check_bwd_kernels(device) -> dict:
     """Phase 2b. Returns per kernel id: max dx error (the weight-grad
     kernel: max dW error) over all shapes, and kernel / plain / bound /
     library ms summed over its uses at the training shapes."""
-    stats = new_stats(('K1s', 'K1b', 'K2b', 'K3b', 'W', 'K25b'))
+    stats = new_stats(('K1sv', 'K1b', 'K2b', 'K3b', 'W', 'K25b'))
     for i, (bsz, h, w) in enumerate(((TRAIN_BATCH, TRAIN_PATCH // SCALE,
                                       TRAIN_PATCH // SCALE), (2, 67, 45))):
         # K1's forward in its saving variant: output, block inputs, h1
@@ -823,10 +894,10 @@ def check_bwd_kernels(device) -> dict:
             print(f'K1s trunk fwd, saving {what} L={L} {bsz}x{h}x{w}: '
                   f'max_abs {err:.4g} tol {tol:.4g}')
             need(err <= tol, f'K1 saving variant {what}: {err} > {tol}')
-            stats['K1s']['max_abs_err'] = max(stats['K1s']['max_abs_err'],
-                                              err)
+            stats['K1sv']['max_abs_err'] = max(stats['K1sv']['max_abs_err'],
+                                               err)
         if i == 0:
-            st = stats['K1s']
+            st = stats['K1sv']
             record(st, median_ms(lambda: trunk_fwd(*args, save=True)),
                    median_ms(lambda: trunk_plain(*args, save=True)),
                    2 * L * conv_flops(bsz * h * w, C, C), nbytes(args, got))
@@ -1829,6 +1900,322 @@ def check_k8_kernels(device, smi: str) -> dict:
     return stats
 
 
+def _timed(st: dict, fn, plain, flops: float, moved: int, lib=None,
+           launches: int = 5, plain_launches: int = 2) -> tuple:
+    """Kernel and plain ms of one call (CUDA events, median of 3
+    windows), recorded in ``st``; returns both."""
+    ms = median_ms(fn, launches, 3)
+    plain_ms = median_ms(plain, plain_launches, 3)
+    record(st, ms, plain_ms, flops, moved, lib)
+    return ms, plain_ms
+
+
+def _print_times(tag: str, ms: float, plain_ms: float, flops: float,
+                 moved: int, smi: str, extra: str = '') -> None:
+    print(f'{tag}: kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound '
+          f'{max(bound(flops, moved)):.5f} ms ({flops / 1e9:.3f} GFLOP, '
+          f'{moved / 1e6:.3f} MB){extra}  [{smi}]')
+
+
+def _same_twice(fn, got, what: str) -> None:
+    need(all(torch.equal(a, b) for a, b in zip(_as_list(got),
+                                               _as_list(fn()))),
+         f'{what}: two calls differ')
+
+
+def check_form_kernels(device, smi: str) -> dict:
+    """Phase 2j. The counterparts of srtpu's other trunk forms and K8a's
+    fused backward, each against its plain version at the shape its path
+    gives it (the training shape, batch 16, LR 32x32), two calls
+    bit-identical, with kernel, plain, bound and library times: K1 over
+    86 blocks (srtpu's trunk_cs there; forward saving and backward) and
+    at one block (resblock_cs), K6 at one RDN-B block (the calls trunk:
+    forward, chain, pair weight grads), K9c (the 8 dense-layer convs of
+    one block, forward and backward), K9d at res_scale 1.0 and 0.1 (the
+    stock backward of EDSR's True route timed beside)."""
+    ids = ('K1s', 'K1sb', 'K9a', 'K9ab', 'K9b', 'K9bc', 'K9bw', 'K9c',
+           'K9cb', 'K9d')
+    stats = new_stats(ids)
+    bsz, h, w = TRAIN_BATCH, TRAIN_PATCH // SCALE, TRAIN_PATCH // SCALE
+    px = bsz * h * w
+    bf, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator().manual_seed(2026)
+    cb = (9 * C) ** -0.5
+
+    # K1 over 86 blocks, res_scale 0.1
+    nb, rs = EDSR86_L, EDSR86_RS
+    args = (_uniform(gen, (bsz, h, w, C), 1.0, device, bf),
+            _uniform(gen, (nb, 3, 3, C, C), cb, device, bf),
+            _uniform(gen, (nb, C), cb, device, f32),
+            _uniform(gen, (nb, 3, 3, C, C), cb, device, bf),
+            _uniform(gen, (nb, C), cb, device, f32), rs)
+    tag = f'K1s trunk_fwd L={nb} res_scale {rs} {bsz}x{h}x{w}'
+    got = trunk_fwd(*args, save=True)
+    torch.cuda.synchronize()
+    ref = trunk_plain(*args, save=True)
+    _same_twice(lambda: trunk_fwd(*args, save=True), got, tag)
+    err = _check_all(f'{tag} fwd (saving)', ('out', 'xs', 'h1s'), got, ref,
+                     [K1S_STEPS] * 3)
+    exact = trunk_plain(*(a.float() if torch.is_tensor(a) else a
+                          for a in args))
+    e_k = (got[0].float() - exact).abs().max().item()
+    e_p = (ref[0].float() - exact).abs().max().item()
+    print(f'{tag} fwd vs the unrounded f32 trunk: kernel {e_k:.4g} plain '
+          f'{e_p:.4g}')
+    need(e_k <= 2 * e_p, f'{tag}: the kernel drifts from f32')
+    del exact, ref
+    stats['K1s']['max_abs_err'] = err
+    flops, moved = 2 * nb * conv_flops(px, C, C), nbytes(args, got)
+    ms, pms = _timed(stats['K1s'], lambda: trunk_fwd(*args, save=True),
+                     lambda: trunk_plain(*args, save=True), flops, moved)
+    _print_times(f'{tag} fwd', ms, pms, flops, moved, smi)
+    g = _uniform(gen, (bsz, h, w, C), 1.0, device, bf)
+    bargs = (got[1], got[2], g, args[1], args[3], rs)
+    bgot = trunk_bwd(*bargs)
+    torch.cuda.synchronize()
+    bref = trunk_bwd_plain(*bargs)
+    _same_twice(lambda: trunk_bwd(*bargs), bgot, f'{tag} bwd')
+    err = _check_all(f'{tag} bwd', ('dx', 'dW1', 'db1', 'dW2', 'db2'), bgot,
+                     bref, [K1S_STEPS] + [K1S_DW_STEPS] * 4)
+    stats['K1sb']['max_abs_err'] = err
+    flops, moved = 4 * nb * conv_flops(px, C, C), nbytes(bargs, bgot)
+    ms, pms = _timed(stats['K1sb'], lambda: trunk_bwd(*bargs),
+                     lambda: trunk_bwd_plain(*bargs), flops, moved, None, 3,
+                     1)
+    _print_times(f'{tag} bwd', ms, pms, flops, moved, smi)
+    del got, bgot, bref, bargs
+    torch.cuda.empty_cache()
+
+    # K1 at one block (resblock_cs is the L = 1 trunk)
+    one = (args[0], *(t[:1] for t in args[1:5]), rs)
+    tag = f'K9a trunk_fwd L=1 {bsz}x{h}x{w}'
+    got = trunk_fwd(*one, save=True)
+    torch.cuda.synchronize()
+    _same_twice(lambda: trunk_fwd(*one, save=True), got, tag)
+    stats['K9a']['max_abs_err'] = _check_all(
+        f'{tag} fwd', ('out', 'xs', 'h1s'), got,
+        trunk_plain(*one, save=True), [1] * 3)
+    flops, moved = 2 * conv_flops(px, C, C), nbytes(one, got)
+    ms, pms = _timed(stats['K9a'], lambda: trunk_fwd(*one, save=True),
+                     lambda: trunk_plain(*one, save=True), flops, moved)
+    _print_times(f'{tag} fwd', ms, pms, flops, moved, smi)
+    bargs = (got[1], got[2], g, one[1], one[3], rs)
+    bgot = trunk_bwd(*bargs)
+    torch.cuda.synchronize()
+    _same_twice(lambda: trunk_bwd(*bargs), bgot, f'{tag} bwd')
+    stats['K9ab']['max_abs_err'] = _check_all(
+        f'{tag} bwd', ('dx', 'dW1', 'db1', 'dW2', 'db2'), bgot,
+        trunk_bwd_plain(*bargs), [1] * 5)
+    flops, moved = 4 * conv_flops(px, C, C), nbytes(bargs, bgot)
+    ms, pms = _timed(stats['K9ab'], lambda: trunk_bwd(*bargs),
+                     lambda: trunk_bwd_plain(*bargs), flops, moved)
+    _print_times(f'{tag} bwd', ms, pms, flops, moved, smi)
+    del args, one, got, bgot, bargs
+    torch.cuda.empty_cache()
+
+    # K6 at one RDN-B block per call (block 0 of the 16-block stacks)
+    c_tot = RDN_G0 * (RDN_C + 1)
+    x, wpk, b, wf, bfb = rdn_case(gen, device, bsz, h, w)
+    blk = (x, wpk[:1], b[:1], wf[:1], bfb[:1])
+    tag = f'K9b rdn_fwd D=1 (one block, C={RDN_C}) {bsz}x{h}x{w}'
+    got = rdn_fwd(*blk, save=True)
+    torch.cuda.synchronize()
+    _same_twice(lambda: rdn_fwd(*blk, save=True), got, tag)
+    out_p, bufs_p = rdn_fwd_plain(*blk, save=True)
+    stats['K9b']['max_abs_err'] = _check_all(
+        tag, ('out', 'buf'), got, (out_p, bufs_p), [2, 2])
+    flops = RDN_PAIRS * conv_flops(px, RDN_G0, RDN_G0) \
+        + 2.0 * px * c_tot * RDN_G0
+    moved = nbytes(blk, got)
+    ms, pms = _timed(stats['K9b'], lambda: rdn_fwd(*blk, save=True),
+                     lambda: rdn_fwd_plain(*blk, save=True), flops, moved)
+    _print_times(tag, ms, pms, flops, moved, smi)
+    bufs = bufs_p
+    gl = _uniform(gen, (bsz, h, w, RDN_G0), 1.0, device, bf)
+    zero = torch.zeros_like(gl)
+    wtpk = w_t(wpk[:1]).contiguous()
+    wft = wf[:1].transpose(1, 2).contiguous()
+    cargs = (bufs, 0, gl, zero, wtpk, wft)
+    tag = f'K9b rdb_bwd_chain (one block, cotangent rounded) {bsz}x{h}x{w}'
+    cgot = rdb_bwd_chain(*cargs)
+    torch.cuda.synchronize()
+    _same_twice(lambda: rdb_bwd_chain(*cargs), cgot, tag)
+    cref = rdb_bwd_chain_plain(*cargs)
+    stats['K9bc']['max_abs_err'] = _check_all(
+        tag, K6B_STEPS, cgot, cref, list(K6B_STEPS.values()))
+    flops = RDN_PAIRS * conv_flops(px, RDN_G0, RDN_G0) \
+        + 2 * 2.0 * px * c_tot * RDN_G0
+    moved = nbytes(bufs, gl, wtpk, wft, cgot)
+    ms, pms = _timed(stats['K9bc'], lambda: rdb_bwd_chain(*cargs),
+                     lambda: rdb_bwd_chain_plain(*cargs), flops, moved)
+    _print_times(tag, ms, pms, flops, moved, smi)
+    tag = f'K9b rdb_bwd_dw (one block, {RDN_PAIRS} pairs) {bsz}x{h}x{w}'
+    dw = rdb_bwd_dw(bufs, 0, cref[1])
+    torch.cuda.synchronize()
+    _same_twice(lambda: rdb_bwd_dw(bufs, 0, cref[1]), dw, tag)
+    stats['K9bw']['max_abs_err'] = _check_all(
+        tag, ('dW',), [dw], [rdb_bwd_dw_plain(bufs, 0, cref[1])], [1e-4])
+    flops = RDN_PAIRS * conv_flops(px, RDN_G0, RDN_G0)
+    moved = nbytes(bufs, cref[1], dw)
+    ms, pms = _timed(stats['K9bw'], lambda: rdb_bwd_dw(bufs, 0, cref[1]),
+                     lambda: rdb_bwd_dw_plain(bufs, 0, cref[1]), flops,
+                     moved)
+    _print_times(tag, ms, pms, flops, moved, smi)
+
+    # K9c: the 8 dense-layer convs of that block on K2 (c_in 64 (i + 1))
+    ws = [_uniform(gen, (3, 3, RDN_G0 * (i + 1), RDN_G0),
+                   (9 * RDN_G0 * (i + 1)) ** -0.5, device, bf)
+          for i in range(RDN_C)]
+    bs = [b[0, i].contiguous() for i in range(RDN_C)]
+    buf = x
+    for i in range(RDN_C):
+        cin = RDN_G0 * (i + 1)
+        fargs = (buf, ws[i], bs[i])
+        tag = f'K9c dense layer {i} {cin}->64 + ReLU {bsz}x{h}x{w}'
+        o = conv3x3_fwd(*fargs, relu=True)
+        torch.cuda.synchronize()
+        _same_twice(lambda: conv3x3_fwd(*fargs, relu=True), o, tag)
+        err = _check_all(tag, ('out',), [o],
+                         [conv3x3_plain(*fargs, relu=True)], [1])
+        stats['K9c']['max_abs_err'] = max(stats['K9c']['max_abs_err'], err)
+        flops, moved = conv_flops(px, cin, RDN_G0), nbytes(fargs, o)
+        ms, pms = _timed(stats['K9c'],
+                         lambda: conv3x3_fwd(*fargs, relu=True),
+                         lambda: conv3x3_plain(*fargs, relu=True), flops,
+                         moved, lib_conv(*fargs))
+        d_o = _uniform(gen, (bsz, h, w, RDN_G0), 1.0, device, bf)
+        bargs = (buf, ws[i], d_o)
+        bgot = conv3x3_bwd(*bargs)
+        torch.cuda.synchronize()
+        _same_twice(lambda: conv3x3_bwd(*bargs), bgot, f'{tag} bwd')
+        err = _check_all(f'{tag} bwd', ('dx', 'dW', 'db'), bgot,
+                         conv3x3_bwd_plain(*bargs), [1, 1e-4, 1e-4])
+        stats['K9cb']['max_abs_err'] = max(stats['K9cb']['max_abs_err'],
+                                           err)
+        bflops, bmoved = 2 * flops, nbytes(bargs, bgot)
+        bms, bpms = _timed(stats['K9cb'], lambda: conv3x3_bwd(*bargs),
+                           lambda: conv3x3_bwd_plain(*bargs), bflops,
+                           bmoved, lib_conv_bwd(*bargs))
+        _print_times(tag, ms, pms, flops, moved, smi,
+                     f'; bwd kernel {bms:.4f} ms plain {bpms:.4f} ms')
+        buf = torch.cat([buf, o], -1)
+    for kid in ('K9c', 'K9cb'):
+        st = stats[kid]
+        print(f'{kid} the 8 layers of one block: kernel {st["ms"]:.4f} ms '
+              f'plain {st["plain_ms"]:.4f} ms bound {st["bound_ms"]:.5f} ms '
+              f'library {st["library_ms"]:.4f} ms  [{smi}]')
+    del x, wpk, b, wf, bfb, blk, got, bufs, cgot, cref, dw, buf, bufs_p
+    torch.cuda.empty_cache()
+
+    # K9d at EDSR True's training shape, res_scale 1.0 and 0.1
+    for j, rs in enumerate(K9D_SCALES):
+        a = k8_cases(gen, device, bsz, h, w)['K8a'][2][:5]
+        _, h1 = resblock_fused_fwd(*a, rs, save_h1=True)
+        dargs = (a[0], h1, _uniform(gen, (bsz, h, w, C), 1.0, device, bf),
+                 a[1], a[3], rs)
+        tag = f'K9d resblock_bwd_fused res_scale {rs} {bsz}x{h}x{w}x{C}'
+        got = resblock_bwd_fused(*dargs)
+        torch.cuda.synchronize()
+        _same_twice(lambda: resblock_bwd_fused(*dargs), got, tag)
+        err = _check_all(tag, ('dx', 'dW1', 'db1', 'dW2', 'db2'), got,
+                         resblock_bwd_fused_plain(*dargs),
+                         [K8_STEPS] + [1e-4] * 4)
+        stats['K9d']['max_abs_err'] = max(stats['K9d']['max_abs_err'], err)
+        flops, moved = 4 * conv_flops(px, C, C), nbytes(dargs, got[0])
+        ms = median_ms(lambda: resblock_bwd_fused(*dargs))
+        pms = median_ms(lambda: resblock_bwd_fused_plain(*dargs), 5, 3)
+        stock = median_ms(lambda: resblock_fused_bwd(*dargs), 5, 3)
+        if j == 0:
+            record(stats['K9d'], ms, pms, flops, moved)
+        _print_times(tag, ms, pms, flops, moved, smi,
+                     f'; the stock backward of the True route {stock:.4f} ms')
+        del got, dargs, a, h1
+    torch.cuda.empty_cache()
+    return stats
+
+
+def run_op_paths(device, smi: str) -> dict:
+    """Phase 2j's main-path runs of the ops no model keyword reaches (the
+    counters set to 0 before each, read after): ``resblock_cs`` (K1 at L
+    = 1) and ``resblock_fused_v3`` (K8a forward, K9d backward) at EDSR
+    True's training shape, ``rdn_trunk_calls`` (K6 one block per call;
+    its forward bit-identical to the grid trunk's) and
+    ``rdn_trunk_layers`` (K9c) at RDN-B's trunk shape (16 blocks of 8
+    layers, batch 16, LR 32x32), each forward and backward through
+    autograd from f32 parameters, against the op's plain path (the
+    gradients within STEP_GRAD_TOL of their largest magnitude)."""
+    bsz, h, w = TRAIN_BATCH, TRAIN_PATCH // SCALE, TRAIN_PATCH // SCALE
+    gen = torch.Generator().manual_seed(SEED)
+    f32 = torch.float32
+    cb = (9 * C) ** -0.5
+    x = _uniform(gen, (bsz, h, w, C), 1.0, device, torch.bfloat16)
+    block = [_uniform(gen, s, cb, device, f32)
+             for s in ((3, 3, C, C), (C,), (3, 3, C, C), (C,))]
+    c_tot = RDN_G0 * (RDN_C + 1)
+    rdn = ([_uniform(gen, (RDN_D, 3, 3, RDN_G0 * (i + 1), RDN_G0),
+                     (9 * RDN_G0 * (i + 1)) ** -0.5, device, f32)
+            for i in range(RDN_C)]
+           + [_uniform(gen, (RDN_D, RDN_G0), 0.05, device, f32)
+              for _ in range(RDN_C)]
+           + [_uniform(gen, (RDN_D, c_tot, RDN_G0), c_tot ** -0.5, device,
+                       f32),
+              _uniform(gen, (RDN_D, RDN_G0), c_tot ** -0.5, device, f32)])
+
+    def op_resblock_cs(prm, plain):
+        return [resblock_cs(x, *prm, 0.1, plain)]
+
+    def op_v3(prm, plain):
+        return [resblock_fused_v3(x, *prm, 0.1, plain)]
+
+    def rdn_op(fn):
+        def op(prm, plain):
+            return list(fn(x, prm[:RDN_C], prm[RDN_C:2 * RDN_C], prm[-2],
+                           prm[-1], plain))
+        return op
+
+    with torch.no_grad():
+        rdn_args = (x, rdn[:RDN_C], rdn[RDN_C:2 * RDN_C], rdn[-2], rdn[-1])
+        need(torch.equal(torch.cat(rdn_trunk_calls(*rdn_args), -1),
+                         rdn_trunk(*rdn_args)),
+             'rdn_trunk_calls: forward differs from the grid trunk')
+
+    runs = {}
+    for key, op, params, expected in (
+            ('resblock_cs_op', op_resblock_cs, block,
+             {trunk_fwd: 1, trunk_bwd: 1}),
+            ('resblock_v3_op', op_v3, block,
+             {resblock_fused_fwd: 1, resblock_bwd_fused: 1}),
+            ('rdn_calls_op', rdn_op(rdn_trunk_calls), rdn,
+             {rdn_fwd: RDN_D, rdb_bwd_chain: RDN_D, rdb_bwd_dw: RDN_D}),
+            ('rdn_layers_op', rdn_op(rdn_trunk_layers), rdn,
+             # K2's own instances take c_in 64 and 256 (layers 0 and 3),
+             # its general path the other six; every dx is 64 -> c_in
+             {conv3x3_fwd: RDN_D * 2, K2G_FWD: RDN_D * (RDN_C - 2),
+              conv3x3_bwd: RDN_D * RDN_C, K2G_BWD: 0})):
+        grads = {}
+        for plain in (True, False):
+            prm = [t.clone().requires_grad_() for t in params]
+            if not plain:
+                for k in expected:
+                    setattr(*_counter(k), 0)
+            outs = op(prm, plain)
+            sum(o.float().square().mean() for o in outs).backward()
+            torch.cuda.synchronize()
+            if not plain:
+                runs[key] = {k: getattr(*_counter(k)) for k in expected}
+            grads[plain] = [t.grad for t in prm]
+        need(runs[key] == expected,
+             f'{key}: launches {runs[key]}, expected {expected}')
+        worst = max((gk - gp).abs().max().item() / gp.abs().max().item()
+                    for gk, gp in zip(grads[False], grads[True]))
+        print(f'{key}: launches ' + ', '.join(
+            f'{_counter_name(k)} {v}' for k, v in runs[key].items())
+            + f'; gradients kernel vs plain path, worst max_abs/max|ref| '
+            f'{worst:.4g} (tol {STEP_GRAD_TOL:.4g})  [{smi}]')
+        need(worst <= STEP_GRAD_TOL, f'{key}: gradients')
+    return runs
+
+
 def png_size(path: Path) -> tuple[int, int]:
     """(height, width) from a PNG's IHDR chunk."""
     head = path.read_bytes()[:24]
@@ -2615,9 +3002,11 @@ def main() -> None:
     stats.update(check_wdsr_kernels(device, smi))
     stats.update(check_bn_reflect_kernels(device, smi))
     stats.update(check_k8_kernels(device, smi))
+    stats.update(check_form_kernels(device, smi))
     # the main-path runs, each with the counters set to 0 before it
-    runs = {'edsr_predict': run_slice(device, smi),
-            'edsr_fit': run_train(device, smi)}
+    runs = run_op_paths(device, smi)
+    runs['edsr_predict'] = run_slice(device, smi)
+    runs['edsr_fit'] = run_train(device, smi)
     runs['rcan_predict'] = run_slice(device, smi, 'RCAN', RCAN_ARGS,
                                      RCAN_PREDICT_LAUNCHES, RCAN_PROFILE)
     runs['rcan_fit'] = run_train(device, smi, 'RCAN', RCAN_ARGS,
@@ -2668,6 +3057,18 @@ def main() -> None:
                                            rules, alt=CS_ROUTE)
         runs[key + '_fit'] = run_train(device, smi, model, args, step, rules,
                                        alt=CS_ROUTE)
+    runs['edsr86_fit'] = run_train(device, smi, 'EDSR', EDSR86_ARGS,
+                                   EDSR86_STEP_LAUNCHES, EDSR_PROFILE,
+                                   steps=EDSR86_STEPS)
+    print('EDSR x4 256 features / 32 resblocks / res_scale 0.1: no kernel '
+          "of the port runs on this path (srtpu's XLA trunk and tail past "
+          '96 features, stock PyTorch ops here)')
+    runs['edsr_big_predict'] = run_slice(device, smi, 'EDSR', EDSR_BIG_ARGS,
+                                         NO_KERNEL, STOCK_RULES,
+                                         sizes=SLICE_SIZES[:1])
+    runs['edsr_big_fit'] = run_train(device, smi, 'EDSR', EDSR_BIG_ARGS,
+                                     NO_KERNEL, STOCK_RULES,
+                                     steps=EDSR_BIG_STEPS)
     rep = 'srtpu/ops/cs_conv.py:'
     bn = 'srtpu/ops/bn_resblock_cs.py:'
     meta = [('K1', 'K1 trunk_fwd (fused resblock)', trunk_fwd, 'trunk.cu',
@@ -2748,11 +3149,48 @@ def main() -> None:
              'srtpu/ops/ca_layer.py:41'),
             ('K8c', 'K8c wdsr_block_fused_fwd (WDSR-B use_pallas=True: 1x1 '
              'pair with f32 a and v as hi + lo, 3x3 + res_scale + skip)',
-             wdsr_block_fused_fwd, 'wdsr.cu', 'srtpu/ops/wdsr_block.py:71')]
+             wdsr_block_fused_fwd, 'wdsr.cu', 'srtpu/ops/wdsr_block.py:71'),
+            ('K1s', "K1 trunk_fwd as srtpu's per-block trunk_cs (one fused "
+             'resblock launch per block; EDSR 64 x 86)', trunk_fwd,
+             'trunk.cu', rep + '1271', ('edsr86',)),
+            ('K1sb', "K1 trunk_bwd as srtpu's per-block trunk_cs (one dx-chain "
+             'launch per block; with its weight grads; EDSR 64 x 86)',
+             trunk_bwd, 'trunk.cu', rep + '1297', ('edsr86',)),
+            ('K9a', 'K1 trunk_fwd at L = 1 as srtpu resblock_cs (one '
+             'resblock on HWIO weights, saving h1)', trunk_fwd, 'trunk.cu',
+             rep + '749', ('resblock_cs',)),
+            ('K9ab', 'K1 trunk_bwd at L = 1 as srtpu resblock_cs (dx chain; '
+             'with its weight grads)', trunk_bwd, 'trunk.cu', rep + '771',
+             ('resblock_cs',)),
+            ('K9b', "K6 rdn_fwd at D = 1 as srtpu rdb_fused_fwd (RDN's calls "
+             'trunk: one dense block per call, 8 layers + the 1x1 fusion, '
+             'saving its buffer)', rdn_fwd, 'rdn.cu', rep + '1843',
+             ('rdn_calls',)),
+            ('K9bc', 'K6 rdb_bwd_chain on the calls trunk (one block; its '
+             'cotangent rounded once before)', rdb_bwd_chain, 'rdn.cu',
+             rep + '1922', ('rdn_calls',)),
+            ('K9bw', 'K6 rdb_bwd_dw on the calls trunk (one block: 36 pair '
+             'weight grads)', rdb_bwd_dw, 'rdn.cu', rep + '1990',
+             ('rdn_calls',)),
+            ('K9c', 'K9c conv3x3_fwd per dense layer of rdn_trunk_layers '
+             '(c_in 64 (i + 1) -> 64 + ReLU; 8 layers of one block)',
+             [conv3x3_fwd, K2G_FWD], 'conv.cu', rep + '1623',
+             ('rdn_layers',)),
+            ('K9cb', 'K9c conv3x3_bwd per dense layer (dx 64 -> c_in; with '
+             'its weight grads; 8 layers of one block)',
+             [conv3x3_bwd, K2G_BWD], 'conv.cu', rep + '1648',
+             ('rdn_layers',)),
+            ('K9d', "K9d resblock_bwd_fused (K8a's backward: gs and dh1 as "
+             'bf16 hi + lo, two chunked convs, weight grads, fold)',
+             resblock_bwd_fused, 'resblock_bwd.cu',
+             'srtpu/ops/resblock.py:316')]
     rows = []
-    for kid, name, fn, src, r in meta:
+    for kid, name, fn, src, r, *only in meta:
         st = stats[kid]
-        by_path = {path: counts.get(fn, 0) for path, counts in runs.items()}
+        keys = fn if isinstance(fn, list) else [fn]
+        by_path = {path: sum(counts.get(k, 0) for k in keys)
+                   for path, counts in runs.items()
+                   if not only or path.startswith(only[0])}
         need(sum(by_path.values()) > 0, f'{name}: no main-path launch')
         rows.append({
             'name': name, 'route': 'cuda',

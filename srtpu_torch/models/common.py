@@ -7,7 +7,8 @@ init), ``WNConv2d`` (weight-normed, WDSR's), ``PReLU``, ``mean_shift``,
 sub-pixel upscaler). ``Trunk.forward_nhwc`` and
 ``UpscaleTail.forward_stock`` run srtpu's other EDSR routes (the fused
 NHWC blocks, K8a, or stock ``ResBlock``s; the XLA tail) on the same
-parameters.
+parameters. Past 96 features ``Trunk`` and ``UpscaleTail`` take srtpu's
+XLA fallbacks of its CS modules (stock ops, no kernel), as srtpu does.
 Parameters are f32; ``dtype`` is the compute type (bf16 on the card).
 The kernel ops take the f32 parameters and cast inside, so under
 autograd their weight grads come back in f32 (as srtpu's ``custom_vjp``s
@@ -28,8 +29,10 @@ from torch import nn
 
 from ..ops import conv3x3, resblock_fused, trunk, upsample
 from ..ops.bn_block import bn_close, bn_close_ref, bn_resblock, bn_resblock_ref
+from ..ops.conv import conv3x3_plain, conv_f32
 from ..ops.layout import (b_phase_dense, b_pm, pixel_shuffle, pm_to_nhwc,
                           w_phase_dense, w_pm_hwio)
+from ..ops.trunk import trunk_xla
 
 # DIV2K training-set RGB statistics (srtpu/models/common.py:29-30)
 DIV2K_RGB_MEAN = (0.4488, 0.4371, 0.4040)
@@ -144,10 +147,23 @@ class PReLU(nn.Module):
         return prelu(x, self.alpha)
 
 
+# srtpu's CSTrunk runs its CS kernels up to 96 features and XLA convs past
+# them (srtpu/models/common.py:387-392: the CS layout wins only while C
+# under-fills the TPU's 128 lanes); the port takes the same gate, so past
+# 96 features it computes srtpu's XLA math. At or below it srtpu also
+# switches its backward form by a TPU VMEM budget (_MEGA_ACC_BUDGET);
+# K1 keeps no such accumulators and computes both forms' function, so
+# the port has one route there.
+CS_MAX_FEATS = 96
+
+
 class Trunk(nn.Module):
-    """EDSR trunk: n_resblocks resblocks (K1), the close conv (K2) and the
-    global skip (srtpu ``CSTrunk``). Block weights are stacked HWIO:
-    w1, w2 (L, 3, 3, C, C); b1, b2 (L, C)."""
+    """EDSR trunk: n_resblocks resblocks, the close conv and the global
+    skip (srtpu ``CSTrunk``). Block weights are stacked HWIO: w1, w2 (L,
+    3, 3, C, C); b1, b2 (L, C). K1 and K2 up to CS_MAX_FEATS features
+    (64 on the card; other widths raise there, ROADMAP.md F4), srtpu's
+    XLA math in stock ops past them (``ops.trunk.trunk_xla``: h1 kept in
+    f32, no kernel)."""
 
     def __init__(self, n_feats: int = 64, n_resblocks: int = 16,
                  res_scale: float = 1.0, *, device=None,
@@ -155,6 +171,7 @@ class Trunk(nn.Module):
         super().__init__()
         self.res_scale = res_scale
         n, nb = n_feats, n_resblocks
+        self.xla = n > CS_MAX_FEATS
         bound = 1.0 / math.sqrt(9 * n)
         self.w1 = uniform_param((nb, 3, 3, n, n), bound, device, generator)
         self.b1 = uniform_param((nb, n), bound, device, generator)
@@ -167,6 +184,10 @@ class Trunk(nn.Module):
     def forward(self, x: torch.Tensor, dtype: torch.dtype,
                 plain: bool = False) -> torch.Tensor:
         xd = x.to(dtype)
+        if self.xla:
+            return trunk_xla(xd, self.w1, self.b1, self.w2, self.b2,
+                             self.res_scale, self.close_weight,
+                             self.close_bias)
         res = trunk(xd, self.w1, self.b1, self.w2, self.b2, self.res_scale,
                     plain)
         res = conv3x3(res, self.close_weight, self.close_bias, plain)
@@ -295,9 +316,10 @@ class UpscaleTail(nn.Module):
     phase-major channels), and the final conv runs as a phase-dense
     coarse conv over its r*r*C channels (K2 with ``w_phase_dense``, c_out
     padded to 16): 3x3 for final_ksize 3, 5x5 for 9 at r = 2;
-    ``pm_to_nhwc`` then gives the fine image. Weights are stored as the
-    plain tail's: up{i}_weight HWIO (3, 3, C, r*r*C) and up{i}_bias in
-    PixelShuffle order, final_weight (k, k, C, ch)."""
+    ``pm_to_nhwc`` then gives the fine image. Past 96 features the tail
+    is srtpu's XLA fallback instead (:meth:`forward_xla`). Weights are
+    stored as the plain tail's: up{i}_weight HWIO (3, 3, C, r*r*C) and
+    up{i}_bias in PixelShuffle order, final_weight (k, k, C, ch)."""
 
     def __init__(self, scale_factor: int = 4, n_feats: int = 64,
                  channels: int = 3, act: str | None = None,
@@ -313,6 +335,7 @@ class UpscaleTail(nn.Module):
             [2] * int(math.log2(scale_factor))
         self.channels = channels
         self.act = act
+        self.n_feats = n_feats
         n = n_feats
         bound = 1.0 / math.sqrt(9 * n)
         for i, r in enumerate(self.rs):
@@ -335,6 +358,8 @@ class UpscaleTail(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype,
                 plain: bool = False) -> torch.Tensor:
+        if self.n_feats > CS_MAX_FEATS:
+            return self.forward_xla(x, dtype)
         y = x.to(dtype)
         for i, r in enumerate(self.rs[:-1]):
             y = self._act(upsample(y, getattr(self, f'up{i}_weight'),
@@ -347,6 +372,23 @@ class UpscaleTail(nn.Module):
         bpd = b_phase_dense(self.final_bias, r, wpd.shape[-1])
         y = conv3x3(y, wpd, bpd, plain)
         return pm_to_nhwc(y, r, self.channels)
+
+    def forward_xla(self, x: torch.Tensor, dtype: torch.dtype
+                    ) -> torch.Tensor:
+        """srtpu ``CSUpscaleTail``'s XLA fallback, which it takes past 96
+        features (srtpu/models/common.py:525, :574-583), in stock ops:
+        each stage ``_xla_upstage`` (the conv rounded to ``dtype``, its
+        f32 bias added and rounded again, ``pixel_shuffle``, the PReLU
+        when ``act``), then ``conv3x3_reference`` (f32 conv + f32 bias,
+        one rounding). No kernel of the port runs here."""
+        y = x.to(dtype)
+        for i, r in enumerate(self.rs):
+            w = getattr(self, f'up{i}_weight').to(dtype)
+            y = (conv_f32(y, w).to(dtype).float()
+                 + getattr(self, f'up{i}_bias').float()).to(dtype)
+            y = self._act(pixel_shuffle(y, r), i)
+        return conv3x3_plain(y, self.final_weight.to(dtype),
+                             self.final_bias.float())
 
     def forward_stock(self, x: torch.Tensor, dtype: torch.dtype
                       ) -> torch.Tensor:

@@ -10,15 +10,20 @@ shift. The flagship is RDN-B x4: D = 16 blocks of C = 8 layers at G =
 G0 = 64, bf16 compute on f32 parameters.
 
 The trunk always runs K6. srtpu picks its trunk with a module global
-(``cs_conv._RDN_FWD``; K9's per-block ``rdn_trunk_cs2`` is still to
-port, ROADMAP.md §2) and falls back to XLA convs whenever the TPU's VMEM
-plan fails (``cs_plan_s(..., 1024, 1088)``: every predict size above
-about 32x32 LR). That limit is VMEM, not math: the same stored
-parameters give the same function, and on the card K6 runs at every
-size. Configs srtpu's ``cs_ok`` gate refuses (config A, whose G = 32
-differs from G0; widths that are not 16-multiples, or past 64 not
-64-multiples) take srtpu's per-block XLA path and another parameter
-tree; the port does not have it yet and raises (ROADMAP.md item 12).
+(``cs_conv._RDN_FWD``: 'grid', its default, or 'calls', the per-block
+``rdn_trunk_cs2``); both take the same parameters and compute the same
+forward, and K6 already runs each block's backward as its own calls, so
+the port keeps no such switch (ROADMAP.md F3). Its per-block op
+``ops.rdn.rdn_trunk_calls`` ports 'calls' with that form's one extra
+rounding of each block's cotangent. srtpu also falls back to XLA convs
+whenever the TPU's VMEM plan fails (``cs_plan_s(..., 1024, 1088)``:
+every predict size above about 32x32 LR). That limit is VMEM, not math:
+the same stored parameters give the same function, and on the card K6
+runs at every size. Configs srtpu's ``cs_ok`` gate refuses (config A,
+whose G = 32 differs from G0; widths that are not 16-multiples, or past
+64 not 64-multiples) take srtpu's per-block XLA path and another
+parameter tree; the port does not have it yet and raises (ROADMAP.md
+item 12).
 """
 
 from __future__ import annotations

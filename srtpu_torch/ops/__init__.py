@@ -1,16 +1,26 @@
 """The port's kernels, each beside its plain PyTorch version: K1
-``trunk_fwd`` / ``trunk_bwd``, K2 ``conv3x3_fwd`` / ``conv3x3_bwd`` (3x3
-and 5x5, counted apart), K3 ``upsample_fwd`` / ``upsample_bwd``, K4 ``f1_conv_stats`` ... ``b3_call`` (SRResNet's BN
-block), K5 ``rcab_fwd`` / ``rcab_bwd``, K6 ``rdn_fwd`` / ``rdb_bwd_chain`` /
-``rdb_bwd_dw`` (RDN's dense blocks), K7 ``wdsr_fwd`` / ``wdsr_bwd``
-(WDSR-B's block, in :mod:`.wdsr`), K8 (srtpu's ``use_pallas=True``
-forms): K8a ``resblock_fused_fwd`` (EDSR's block), K8b ``ca_layer_fwd``
-(RCAN's attention gate), K8c ``wdsr_block_fused_fwd`` (WDSR-B's block,
-in :mod:`.wdsr_block`), and the shared weight-grad kernel
-``conv_wgrad``; ``trunk``, ``conv3x3``, ``upsample``, ``bn_resblock``,
-``bn_close``, ``resgroup``, ``rdn_trunk``, ``wdsr.wdsr_block``,
-``resblock_fused``, ``ca_gate`` and ``wdsr_block.wdsr_block_fused`` are
-the differentiable ops. Kernels build on first use (``_build``)."""
+``trunk_fwd`` / ``trunk_bwd`` (EDSR's trunk: one launch per block, the
+counterpart of srtpu's mega trunk and of its per-block ``trunk_cs`` and
+``resblock_cs`` alike), K2 ``conv3x3_fwd`` / ``conv3x3_bwd`` (3x3 and
+5x5, counted apart), K3 ``upsample_fwd`` / ``upsample_bwd``, K4
+``f1_conv_stats`` ... ``b3_call`` (SRResNet's BN block), K5 ``rcab_fwd``
+/ ``rcab_bwd``, K6 ``rdn_fwd`` / ``rdb_bwd_chain`` / ``rdb_bwd_dw``
+(RDN's dense blocks, all D or one per call), K7 ``wdsr_fwd`` /
+``wdsr_bwd`` (WDSR-B's block, in :mod:`.wdsr`), K8 (srtpu's
+``use_pallas=True`` forms): K8a ``resblock_fused_fwd`` (EDSR's block)
+with K9d ``resblock_bwd_fused`` (its fused backward), K8b
+``ca_layer_fwd`` (RCAN's attention gate), K8c ``wdsr_block_fused_fwd``
+(WDSR-B's block, in :mod:`.wdsr_block`), and the shared weight-grad
+kernel ``conv_wgrad``. The differentiable ops: ``trunk``,
+``resblock_cs`` (``trunk`` at L = 1 on HWIO weights), ``conv3x3``,
+``upsample``, ``bn_resblock``, ``bn_close``, ``resgroup``, ``rdn_trunk``
+and, in :mod:`.rdn`, ``rdn_trunk_calls`` (srtpu's per-block 'calls'
+trunk on K6) and ``rdn_trunk_layers`` (srtpu's round-2 trunk, one K2
+launch per dense layer), ``wdsr.wdsr_block``, ``resblock_fused``,
+``resblock_fused_v3`` (K8a forward, K9d backward), ``ca_gate`` and
+``wdsr_block.wdsr_block_fused``. ``trunk.trunk_xla`` is srtpu's XLA
+trunk past 96 features (stock ops). Kernels build on first use
+(``_build``)."""
 
 from .bn_block import (BNCloseFn, BNResBlockFn, b1_plain, b1_sums, b2_call,
                        b2_plain, b3_call, b3_plain, bn_close, bn_close_ref,
@@ -23,19 +33,27 @@ from .conv import (Conv3x3Fn, conv3x3, conv3x3_bwd, conv3x3_bwd_plain,
 from .rcab import (ResGroupFn, rcab_bwd, rcab_bwd_plain, rcab_fwd,
                    rcab_fwd_plain, resgroup, resgroup_bwd, resgroup_bwd_plain,
                    resgroup_fwd, resgroup_plain)
-from .resblock import (FusedResBlockFn, resblock_fused,
-                       resblock_fused_bwd, resblock_fused_fwd,
-                       resblock_fused_plain)
-from .rdn import (RDNTrunkFn, rdb_bwd_chain, rdb_bwd_chain_plain, rdb_bwd_dw,
-                  rdb_bwd_dw_plain, rdn_fwd, rdn_fwd_plain, rdn_trunk)
-from .trunk import (TrunkFn, trunk, trunk_bwd, trunk_bwd_plain, trunk_fwd,
-                    trunk_plain)
+from .resblock import (FusedResBlockFn, FusedResBlockV3Fn,
+                       resblock_bwd_fused, resblock_bwd_fused_plain,
+                       resblock_fused, resblock_fused_bwd,
+                       resblock_fused_fwd, resblock_fused_plain,
+                       resblock_fused_v3)
+from .rdn import (RDNCallsFn, RDNLayersFn, RDNTrunkFn, rdb_bwd_chain,
+                  rdb_bwd_chain_plain, rdb_bwd_dw, rdb_bwd_dw_plain, rdn_fwd,
+                  rdn_fwd_plain, rdn_trunk, rdn_trunk_calls,
+                  rdn_trunk_layers)
+from .trunk import (TrunkFn, resblock_cs, trunk, trunk_bwd, trunk_bwd_plain,
+                    trunk_fwd, trunk_plain, trunk_xla)
 from .upsample import (UpsampleFn, upsample, upsample_bwd, upsample_bwd_plain,
                        upsample_fwd, upsample_plain)
 from .wgrad import conv_wgrad, conv_wgrad_plain
 
 __all__ = ['BNCloseFn', 'BNResBlockFn', 'CALayerFn', 'Conv3x3Fn',
-           'FusedResBlockFn', 'RDNTrunkFn', 'ResGroupFn', 'TrunkFn',
+           'FusedResBlockFn', 'FusedResBlockV3Fn', 'RDNCallsFn',
+           'RDNLayersFn', 'RDNTrunkFn', 'ResGroupFn', 'TrunkFn',
+           'rdn_trunk_calls', 'rdn_trunk_layers', 'resblock_bwd_fused',
+           'resblock_bwd_fused_plain', 'resblock_cs', 'resblock_fused_v3',
+           'trunk_xla',
            'UpsampleFn', 'b1_plain', 'b1_sums', 'b2_call', 'b2_plain',
            'b3_call', 'b3_plain', 'bn_close', 'bn_close_ref', 'bn_resblock',
            'bn_resblock_ref', 'ca_gate', 'ca_layer_fwd', 'ca_layer_plain',

@@ -51,6 +51,7 @@ SIGNATURES = {
     'srt_resblock_f32_fwd': [_P] * 5 + [_F] + [_P] * 2 + [_I] * 4 + [_P],
     'srt_ca_layer_fwd': [_P] * 7 + [_I] * 5 + [_P],
     'srt_wdsr_block_fwd': [_P] * 7 + [_F] + [_P] * 2 + [_I] * 6 + [_P],
+    'srt_resblock_f32_bwd': [_P] * 5 + [_F] + [_P] * 11 + [_I] * 5 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -10,6 +10,23 @@ how the design replaces the TPU kernels' VMEM-resident concat buffer.
 kernels for CUDA tensors and take the plain versions only for CPU
 tensors; :func:`rdn_trunk` is the differentiable op (:class:`RDNTrunkFn`).
 
+srtpu's two other trunk forms run on the same stored parameters:
+
+* :func:`rdn_trunk_calls` (K9b; srtpu ``rdn_trunk_cs2``, which its RDN
+  takes when ``cs_conv._RDN_FWD == 'calls'``): one block per call,
+  :func:`rdn_fwd` on that block's slice of the stacks (D = 1: srtpu
+  ``rdb_fused_fwd``), its backward K6's per-block chain and pair weight
+  grads (srtpu ``rdb_bwd_chain`` / ``rdb_bwd_dw``, which the grid form
+  runs per block too), fed the block's cotangent rounded once,
+  bf16(f32(g) + f32(ct_l)), as srtpu rounds it. Its launches count on
+  K6's wrappers.
+* :func:`rdn_trunk_layers` (K9c; srtpu's round-2 ``rdn_trunk_cs``): each
+  dense layer one K2 launch with ReLU over the growing concat
+  (``conv3x3_cs_fwd_stk`` / ``conv3x3_cs_bwd_stk``), the 1x1 fusion, the
+  skip and the backward's sums in stock ops with srtpu's XLA roundings.
+
+Both return the D block outputs, which RDN concatenates.
+
 A trunk is D blocks of C dense layers at growth G = G0. Layer i of a
 block reads the concat of the block input and layers 0..i-1, (i + 1) G0
 channels, and appends h_i = relu(conv3x3 + b_i); a 1x1 local fusion of
@@ -33,6 +50,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .conv import conv3x3_bwd, conv3x3_bwd_plain, conv3x3_fwd, conv3x3_plain
 from .conv import conv_f32
 from .layout import w_t
 from .wgrad import conv_wgrad_plain
@@ -339,12 +357,8 @@ class RDNTrunkFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         bufs, wpk, wfd = ctx.saved_tensors
-        dx, dwpk, db, dwf, dbf = rdn_trunk_bwd(
-            bufs, ct.contiguous(), wpk, wfd, ctx.plain)
-        n = db.shape[1]
-        grads = (dwf, dbf, *unpack(dwpk, n), *db.unbind(1))
-        return (dx, grads[0].to(ctx.dtypes[0]), grads[1].to(ctx.dtypes[1]),
-                None, *(g.to(t) for g, t in zip(grads[2:], ctx.dtypes[2:])))
+        return _param_grads(ctx, *rdn_trunk_bwd(
+            bufs, ct.contiguous(), wpk, wfd, ctx.plain))
 
 
 def rdn_trunk(x, ws, bs, wf, bf, plain: bool = False) -> torch.Tensor:
@@ -359,3 +373,215 @@ def rdn_trunk(x, ws, bs, wf, bf, plain: bool = False) -> torch.Tensor:
             t.requires_grad for t in (x, *params)):
         return RDNTrunkFn.apply(x, wf, bf, plain, *ws, *bs)
     return (rdn_fwd_plain if plain else rdn_fwd)(x, *_cast(x, ws, bs, wf, bf))
+
+
+# ------------------------------------------- K9b: srtpu's 'calls' trunk
+
+def _block_ops(wpk, b, wf, bf, l: int) -> tuple:
+    """Block l's operands of the packed stacks, as (1, ...) slices."""
+    return wpk[l:l + 1], b[l:l + 1], wf[l:l + 1], bf[l:l + 1]
+
+
+def rdn_calls_fwd(x, wpk, b, wf, bf, plain: bool = False,
+                  save: bool = True):
+    """The D blocks one :func:`rdn_fwd` call each (srtpu ``_rdn2_fwd``)
+    from :func:`_cast`'s operands: returns the D block outputs and, with
+    ``save``, the D blocks' buffers, each (1, B, H, W, c_tot)."""
+    fwd = rdn_fwd_plain if plain else rdn_fwd
+    outs, bufs = [], []
+    for l in range(b.shape[0]):
+        ops = _block_ops(wpk, b, wf, bf, l)
+        if save:
+            x, buf = fwd(x, *ops, save=True)
+            bufs.append(buf)
+        else:
+            x = fwd(x, *ops)
+        outs.append(x)
+    return (outs, bufs) if save else outs
+
+
+def rdn_calls_bwd(bufs, cts, wpk, wf, plain: bool = False):
+    """Backward of the 'calls' trunk (srtpu ``_rdn2_vjp_bwd``): blocks in
+    reverse, each chain fed gl = bf16(f32(g) + f32(ct_l)), the running
+    g and block l's output cotangent rounded once as srtpu rounds them
+    (the grid form's chain adds them in f32 inside), then the block's
+    pair weight grads in one call (srtpu splits its pairs into calls of
+    ``_DW_PAIRS_PER_CALL`` for VMEM; each pair's sum is the same). cts:
+    the D output cotangents (None for an unused output); bufs: the D
+    blocks' buffers of :func:`rdn_calls_fwd`. Returns dx and the f32
+    grads as :func:`rdn_trunk_bwd`."""
+    kernel = not plain and bufs[0].device.type != 'cpu'
+    chain = rdb_bwd_chain if kernel else rdb_bwd_chain_plain
+    dw_fn = rdb_bwd_dw if kernel else rdb_bwd_dw_plain
+    d = len(bufs)
+    _, bsz, h, w, c_tot = bufs[0].shape
+    g0 = wf.shape[-1]
+    wtpk = w_t(wpk).contiguous()
+    wft = wf.transpose(1, 2).contiguous()
+    f32 = dict(dtype=torch.float32, device=bufs[0].device)
+    dwpk = torch.empty(wpk.shape, **f32)
+    db = torch.empty((d, c_tot // g0 - 1, g0), **f32)
+    dwf = torch.empty((d, c_tot, g0), **f32)
+    dbf = torch.empty((d, g0), **f32)
+    zero = bufs[0].new_zeros((bsz, h, w, g0))
+    g = zero
+    for l in reversed(range(d)):
+        ct = zero if cts[l] is None else cts[l]
+        gl = (g.float() + ct.float()).to(zero.dtype).contiguous()
+        g, dout, dwf[l], dbf[l], db[l] = chain(
+            bufs[l], 0, gl, zero, wtpk[l:l + 1], wft[l:l + 1])
+        dwpk[l] = dw_fn(bufs[l], 0, dout)
+    return g, dwpk, db, dwf, dbf
+
+
+class RDNCallsFn(torch.autograd.Function):
+    """Differentiable K9b trunk (srtpu ``rdn_trunk_cs2``): arguments as
+    :class:`RDNTrunkFn`'s; returns the D block outputs; saves the D
+    blocks' buffers; f32 grads."""
+
+    @staticmethod
+    def forward(ctx, x, wf, bf, plain: bool, *wbs):
+        n = len(wbs) // 2
+        wpk, b, wfd, bff = _cast(x, wbs[:n], wbs[n:], wf, bf)
+        outs, bufs = rdn_calls_fwd(x, wpk, b, wfd, bff, plain)
+        ctx.save_for_backward(wpk, wfd, *bufs)
+        ctx.plain = plain
+        ctx.dtypes = tuple(t.dtype for t in (wf, bf, *wbs))
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        wpk, wfd, *bufs = ctx.saved_tensors
+        dx, dwpk, db, dwf, dbf = rdn_calls_bwd(
+            bufs, [None if c is None else c.contiguous() for c in cts], wpk,
+            wfd, ctx.plain)
+        return _param_grads(ctx, dx, dwpk, db, dwf, dbf)
+
+
+def _param_grads(ctx, dx, dwpk, db, dwf, dbf) -> tuple:
+    """The autograd grads of (x, wf, bf, plain, *ws, *bs) from the packed
+    f32 grads, in the parameters' dtypes."""
+    n = db.shape[1]
+    grads = (dwf, dbf, *unpack(dwpk, n), *db.unbind(1))
+    return (dx, grads[0].to(ctx.dtypes[0]), grads[1].to(ctx.dtypes[1]),
+            None, *(g.to(t) for g, t in zip(grads[2:], ctx.dtypes[2:])))
+
+
+def rdn_trunk_calls(x, ws, bs, wf, bf, plain: bool = False) -> tuple:
+    """The D dense blocks in srtpu's 'calls' form, in x's dtype from f32
+    (or any) parameters laid out as :func:`rdn_trunk`'s: returns the D
+    block outputs (B, H, W, G0) (the autograd op when a gradient is
+    wanted, else the forward alone). ``plain`` runs the plain versions
+    on any device."""
+    params = (wf, bf, *ws, *bs)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *params)):
+        return RDNCallsFn.apply(x, wf, bf, plain, *ws, *bs)
+    return tuple(rdn_calls_fwd(x, *_cast(x, ws, bs, wf, bf), plain,
+                               save=False))
+
+
+# ------------------------------------ K9c: srtpu's round-2 per-layer trunk
+
+def rdn_layers_fwd(x, wsd, bsf, wfd, bff, plain: bool = False):
+    """srtpu ``_rdn_fwd``: per block, each dense layer i one K2 launch
+    with ReLU (``conv3x3_cs_fwd_stk``) on the concat so far, appended to
+    it; the fusion a product rounded to x's dtype, plus its bias rounded
+    to x's dtype, plus the block input, each add rounded (srtpu's bf16
+    einsum and adds). wsd: the C per-layer HWIO stacks in x's dtype; bsf
+    their f32 biases (D, G0); wfd (D, c_tot, G0) in x's dtype, bff (D,
+    G0). Returns the D outputs and the D concat buffers."""
+    conv = conv3x3_plain if plain else conv3x3_fwd
+    dt = x.dtype
+    outs, bufs = [], []
+    for l in range(wfd.shape[0]):
+        buf = x
+        for w, b in zip(wsd, bsf):
+            buf = torch.cat([buf, conv(buf, w[l], b[l], relu=True)], -1)
+        fused = (buf.float() @ wfd[l].float()).to(dt) + bff[l].to(dt)
+        x = fused + x
+        outs.append(x)
+        bufs.append(buf)
+    return outs, bufs
+
+
+def rdn_layers_bwd(bufs, cts, wsd, wfd, plain: bool = False):
+    """srtpu ``_rdn_vjp_bwd`` from the saved buffers and the D output
+    cotangents, with its roundings: g = g + ct_l in x's dtype; dwf and
+    dbf f32 sums of g against the buffer; dbuf = g wf^T rounded to x's
+    dtype; per layer in reverse the dout masked from the buffer, K2's
+    backward (``conv3x3_cs_bwd_stk``) on the concat it read, its dx
+    added into dbuf in x's dtype; the block's dx = dbuf's first G0
+    channels + g in x's dtype. Returns dx, the per-layer f32 dW (D, 3,
+    3, (i + 1) G0, G0) and db (D, G0), dwf (D, c_tot, G0), dbf (D, G0)."""
+    bwd = conv3x3_bwd_plain if plain else conv3x3_bwd
+    d, n_layers = len(bufs), len(wsd)
+    g0 = wfd.shape[-1]
+    dws = [[None] * d for _ in range(n_layers)]
+    dbs = [[None] * d for _ in range(n_layers)]
+    dwf, dbf = [None] * d, [None] * d
+    g = bufs[0].new_zeros((*bufs[0].shape[:3], g0))
+    for l in reversed(range(d)):
+        if cts[l] is not None:
+            g = g + cts[l]
+        buf = bufs[l]
+        gf, buff = g.float(), buf.float()
+        dwf[l] = torch.einsum('bhwc,bhwo->co', buff, gf)
+        dbf[l] = gf.sum((0, 1, 2))
+        dbuf = (gf @ wfd[l].float().t()).to(g.dtype)
+        for i in reversed(range(n_layers)):
+            lo = g0 * (i + 1)
+            do = torch.where(buff[..., lo:lo + g0] > 0, dbuf[..., lo:lo + g0],
+                             0.0).to(g.dtype).contiguous()
+            dxp, dws[i][l], dbs[i][l] = bwd(buf[..., :lo].contiguous(),
+                                            wsd[i][l], do)
+            dbuf[..., :lo] += dxp
+        g = dbuf[..., :g0] + g
+    return (g, [torch.stack(t) for t in dws], [torch.stack(t) for t in dbs],
+            torch.stack(dwf), torch.stack(dbf))
+
+
+class RDNLayersFn(torch.autograd.Function):
+    """Differentiable K9c trunk (srtpu ``rdn_trunk_cs``): arguments as
+    :class:`RDNTrunkFn`'s; returns the D block outputs; saves the D
+    concat buffers; f32 grads."""
+
+    @staticmethod
+    def forward(ctx, x, wf, bf, plain: bool, *wbs):
+        n = len(wbs) // 2
+        wsd = [w.to(x.dtype).contiguous() for w in wbs[:n]]
+        bsf = [b.float().contiguous() for b in wbs[n:]]
+        wfd = wf.to(x.dtype).contiguous()
+        outs, bufs = rdn_layers_fwd(x, wsd, bsf, wfd, bf.float(), plain)
+        ctx.save_for_backward(wfd, *wsd, *bufs)
+        ctx.plain, ctx.n = plain, n
+        ctx.dtypes = tuple(t.dtype for t in (wf, bf, *wbs))
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        wfd, *rest = ctx.saved_tensors
+        wsd, bufs = rest[:ctx.n], rest[ctx.n:]
+        dx, dws, dbs, dwf, dbf = rdn_layers_bwd(
+            bufs, [None if c is None else c.contiguous() for c in cts], wsd,
+            wfd, ctx.plain)
+        grads = (dwf, dbf, *dws, *dbs)
+        return (dx, grads[0].to(ctx.dtypes[0]), grads[1].to(ctx.dtypes[1]),
+                None, *(g.to(t) for g, t in zip(grads[2:], ctx.dtypes[2:])))
+
+
+def rdn_trunk_layers(x, ws, bs, wf, bf, plain: bool = False) -> tuple:
+    """The D dense blocks in srtpu's round-2 per-layer form (K9c), in x's
+    dtype from f32 (or any) parameters laid out as :func:`rdn_trunk`'s:
+    returns the D block outputs (the autograd op when a gradient is
+    wanted, else the forward alone). On CUDA every dense layer is a K2
+    launch (G0 = 64: c_in 64 (i + 1) -> 64); ``plain`` runs K2's plain
+    version on any device."""
+    params = (wf, bf, *ws, *bs)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *params)):
+        return RDNLayersFn.apply(x, wf, bf, plain, *ws, *bs)
+    return tuple(rdn_layers_fwd(
+        x, [w.to(x.dtype).contiguous() for w in ws],
+        [b.float().contiguous() for b in bs], wf.to(x.dtype).contiguous(),
+        bf.float(), plain)[0])

@@ -16,10 +16,21 @@ C, C) in x's dtype, f32 b1, b2: h1 = relu(conv(x, W1) + b1) in f32, out
 = x.dtype((conv(h1, W2) + b2) * res_scale + x) with conv2 reading the
 f32 h1; h1 is also emitted rounded to x.dtype, for the backward.
 
-srtpu's backward (``_rb2_bwd``) is XLA, so it is stock PyTorch here
-(:func:`resblock_fused_bwd`): f32 conv VJPs from the saved x and
-x.dtype h1, the ReLU mask from that saved h1, and the weight grads
-rounded to the weights' dtype (bf16 on the card), as srtpu returns them.
+srtpu's backward of ``resblock_fused_v2`` (``_rb2_bwd``) is XLA, so it
+is stock PyTorch here (:func:`resblock_fused_bwd`): f32 conv VJPs from
+the saved x and x.dtype h1, the ReLU mask from that saved h1, and the
+weight grads rounded to the weights' dtype (bf16 on the card), as srtpu
+returns them. EDSR's True route runs that structure.
+
+K9d: srtpu's ``resblock_fused_v3`` computes the same backward in its
+Pallas kernel ``resblock_bwd_fused`` (``_resblock_bwd_kernel``); here
+``csrc/resblock_bwd.cu``, whose head note says what bounds it and how it
+keeps gs and dh1 in f32 on bf16 tensor cores. :func:`resblock_bwd_fused`
+launches it for CUDA tensors (counted in ``launches``) and takes the
+plain version (:func:`resblock_bwd_fused_plain`, the f32 math of
+``_rb2_bwd``) only for CPU tensors; :func:`resblock_fused_v3` is the
+differentiable op (:class:`FusedResBlockV3Fn`: K8a forward, K9d
+backward).
 """
 
 from __future__ import annotations
@@ -28,6 +39,8 @@ import torch
 
 from . import _build
 from .conv import conv_f32
+from .layout import w_t
+from .wgrad import wgrad_parts
 
 KERNEL_C = 64           # the kernel's one width (EDSR-baseline's)
 
@@ -95,19 +108,71 @@ def _conv_vjp(x, w, g):
     return dx.permute(0, 2, 3, 1), dw.permute(2, 3, 1, 0)
 
 
-def resblock_fused_bwd(x, h1, g, w1, w2, res_scale: float):
-    """srtpu's ``_rb2_bwd`` in stock ops: gs = f32(g) * res_scale; dh1,
-    dW2 = the f32 conv VJP at (h1, W2); dh1 masked where the saved h1 is
-    not > 0; dx, dW1 = the f32 conv VJP at (x, W1), dx + f32(g). Returns
-    dx in x's dtype, dW1 and dW2 rounded to the weights' dtype, db1 and
-    db2 f32."""
+def resblock_bwd_fused_plain(x, h1, g, w1, w2, res_scale: float):
+    """srtpu's ``_rb2_bwd`` math in stock ops, all in f32 (the math of
+    K9d, srtpu's ``_resblock_bwd_kernel``): gs = f32(g) * res_scale;
+    dh1, dW2 = the f32 conv VJP at (h1, W2); dh1 masked where the saved
+    h1 is not > 0; dx, dW1 = the f32 conv VJP at (x, W1), dx + f32(g).
+    Returns dx in x's dtype and the f32 dW1, db1, dW2, db2."""
     gs = g.float() * res_scale
     dh1, dw2 = _conv_vjp(h1.float(), w2.float(), gs)
     dh1 = dh1 * (h1.float() > 0)
     dx, dw1 = _conv_vjp(x.float(), w1.float(), dh1)
     dx = (dx + g.float()).to(x.dtype).contiguous()
-    return (dx, dw1.to(w1.dtype), dh1.sum((0, 1, 2)), dw2.to(w2.dtype),
-            gs.sum((0, 1, 2)))
+    return dx, dw1, dh1.sum((0, 1, 2)), dw2, gs.sum((0, 1, 2))
+
+
+def resblock_fused_bwd(x, h1, g, w1, w2, res_scale: float):
+    """srtpu's ``_rb2_bwd``, the stock backward of EDSR's True route:
+    :func:`resblock_bwd_fused_plain` with dW1 and dW2 rounded to the
+    weights' dtype."""
+    dx, dw1, db1, dw2, db2 = resblock_bwd_fused_plain(x, h1, g, w1, w2,
+                                                      res_scale)
+    return dx, dw1.to(w1.dtype), db1, dw2.to(w2.dtype), db2
+
+
+def resblock_bwd_fused(x, h1, g, w1, w2, res_scale: float):
+    """K9d: as :func:`resblock_bwd_fused_plain`. On CUDA: bf16 x, h1, g
+    (B, H, W, 64) and w1, w2 (3, 3, 64, 64); one call is seven launches
+    (the gs split, two chunked convs, two weight-grad launches and their
+    reductions, the fold of the hi and lo halves)."""
+    if g.device.type == 'cpu':
+        return resblock_bwd_fused_plain(x, h1, g, w1, w2, res_scale)
+    _check('resblock_bwd_fused', g)
+    bsz, h, w, c = g.shape
+    dev, bf16 = g.device, torch.bfloat16
+    for name, t in (('x', x), ('h1', h1), ('g', g)):
+        _build.expect(t, name, bf16, (bsz, h, w, c), dev)
+    for name, t in (('w1', w1), ('w2', w2)):
+        _build.expect(t, name, bf16, (3, 3, c, c), dev)
+    # the transposed kernels, stacked twice along their inputs: the
+    # convs read [hi | lo] pairs
+    w1t2, w2t2 = (torch.cat([w_t(t)] * 2, 2).contiguous() for t in (w1, w2))
+    nparts = wgrad_parts(bsz, h, w, c, 2 * c)   # the [hi | lo] pairs
+    f32 = dict(dtype=torch.float32, device=dev)
+    gsp = torch.empty((bsz, h, w, 2 * c), dtype=bf16, device=dev)
+    dh1p = torch.empty_like(gsp)
+    ws_w = torch.empty((nparts, 9 * c * 2 * c), **f32)
+    ws_b = torch.empty((nparts, 2 * c), **f32)
+    dwx = torch.empty((2, 9 * c * 2 * c), **f32)
+    dbx = torch.empty((2, 2 * c), **f32)
+    dx = torch.empty_like(g)
+    dw1, dw2 = (torch.empty((3, 3, c, c), **f32) for _ in 'ab')
+    db1, db2 = (torch.empty((c,), **f32) for _ in 'ab')
+    with torch.cuda.device(dev):
+        err = _build.library().srt_resblock_f32_bwd(
+            x.data_ptr(), h1.data_ptr(), g.data_ptr(), w1t2.data_ptr(),
+            w2t2.data_ptr(), float(res_scale), gsp.data_ptr(),
+            dh1p.data_ptr(), dx.data_ptr(), ws_w.data_ptr(), ws_b.data_ptr(),
+            dwx.data_ptr(), dbx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+            dw2.data_ptr(), db2.data_ptr(), bsz, h, w, c, nparts,
+            _build.stream(dev))
+    _build.check(err, 'srt_resblock_f32_bwd')
+    resblock_bwd_fused.launches += 1
+    return dx, dw1, db1, dw2, db2
+
+
+resblock_bwd_fused.launches = 0
 
 
 def _cast(x, w1, b1, w2, b2):
@@ -153,5 +218,46 @@ def resblock_fused(x, w1, b1, w2, b2, res_scale: float = 1.0,
     params = (w1, b1, w2, b2)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
         return FusedResBlockFn.apply(x, *params, res_scale, plain)
+    return (resblock_fused_plain if plain else resblock_fused_fwd)(
+        x, *_cast(x, *params), res_scale)
+
+
+class FusedResBlockV3Fn(torch.autograd.Function):
+    """Differentiable K8a + K9d (srtpu ``resblock_fused_v3``): as
+    :class:`FusedResBlockFn`, the backward K9d (:func:`resblock_bwd_fused`)
+    instead of stock ops; the weight grads rounded to the cast weights'
+    dtype (srtpu's ``_rb3_bwd``), then to the parameters'."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, res_scale: float, plain: bool):
+        ops = _cast(x, w1, b1, w2, b2)
+        out, h1 = (resblock_fused_plain if plain else resblock_fused_fwd)(
+            x, *ops, res_scale, save_h1=True)
+        ctx.save_for_backward(x, h1, ops[0], ops[2])
+        ctx.res_scale, ctx.plain = res_scale, plain
+        ctx.dtypes = tuple(t.dtype for t in (w1, b1, w2, b2))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, h1, w1, w2 = ctx.saved_tensors
+        dx, dw1, db1, dw2, db2 = (
+            resblock_bwd_fused_plain if ctx.plain else resblock_bwd_fused)(
+                x, h1, g.contiguous(), w1, w2, ctx.res_scale)
+        grads = (dw1.to(w1.dtype), db1, dw2.to(w2.dtype), db2)
+        return (dx, *(t.to(d) for t, d in zip(grads, ctx.dtypes)), None,
+                None)
+
+
+def resblock_fused_v3(x, w1, b1, w2, b2, res_scale: float = 1.0,
+                      plain: bool = False) -> torch.Tensor:
+    """One EDSR resblock, K8a forward and K9d backward (srtpu
+    ``resblock_fused_v3``), in x's dtype from f32 (or any) weights: the
+    autograd op when a gradient is wanted, else the forward alone.
+    ``plain`` runs the plain versions on any device."""
+    x = x.contiguous()
+    params = (w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
+        return FusedResBlockV3Fn.apply(x, *params, res_scale, plain)
     return (resblock_fused_plain if plain else resblock_fused_fwd)(
         x, *_cast(x, *params), res_scale)

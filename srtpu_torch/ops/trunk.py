@@ -2,14 +2,25 @@
 backward.
 
 Replaces ``srtpu/ops/cs_conv.py:trunk_fwd_mega`` and ``trunk_bwd_mega``
-(behind ``trunk_cs_mega``); the kernels are ``csrc/trunk.cu``, whose head
-notes say what bounds them on the H100, how their design answers that,
-and why the loop over blocks runs here on the host. The backward's
-weight grads come from the weight-grad kernel (:mod:`.wgrad`), one
-launch per conv for all blocks. :func:`trunk_fwd` and :func:`trunk_bwd`
-launch the kernels for CUDA tensors and take the plain versions only
-for CPU tensors. :func:`trunk` is the differentiable op
-(:class:`TrunkFn`).
+(behind ``trunk_cs_mega``), and with them srtpu's per-block forms of the
+same block: ``_rb_fwd_call_stk`` / ``_rb_bwd_call_stk`` (behind
+``trunk_cs``, which srtpu's ``CSTrunk`` takes once the mega backward's
+dW accumulators pass its TPU VMEM budget) and ``resblock_cs_fwd_h1`` /
+``resblock_cs_bwd`` (behind ``resblock_cs``, one block on HWIO weights).
+Those compute what K1 computes, block by block; K1 already launches one
+kernel per block and keeps no such accumulators, so one route serves
+every depth, and :func:`resblock_cs` is :func:`trunk` at L = 1. srtpu's
+``s_valid`` (the dead lanes of a padded CS packing) has no counterpart:
+NHWC has no dead lanes.
+
+The kernels are ``csrc/trunk.cu``, whose head notes say what bounds them
+on the H100, how their design answers that, and why the loop over blocks
+runs here on the host. The backward's weight grads come from the
+weight-grad kernel (:mod:`.wgrad`), one launch per conv for all blocks.
+:func:`trunk_fwd` and :func:`trunk_bwd` launch the kernels for CUDA
+tensors and take the plain versions only for CPU tensors. :func:`trunk`
+is the differentiable op (:class:`TrunkFn`). :func:`trunk_xla` is
+srtpu's XLA trunk past 96 features, in stock ops (no kernel).
 """
 
 from __future__ import annotations
@@ -19,7 +30,10 @@ import torch
 from . import _build
 from .conv import conv3x3_plain, conv_f32
 from .layout import w_t
+from .resblock import resblock_fused_plain
 from .wgrad import conv_wgrad, conv_wgrad_plain
+
+KERNEL_C = 64           # the kernels' one width (EDSR-baseline's)
 
 
 def trunk_plain(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
@@ -65,8 +79,9 @@ def trunk_bwd_plain(xs: torch.Tensor, h1s: torch.Tensor, g: torch.Tensor,
 def _check(name: str, x: torch.Tensor) -> None:
     if x.device.type != 'cuda':
         raise ValueError(f'{name}: no kernel for device {x.device}')
-    if x.shape[-1] != 64:
-        raise ValueError(f'{name}: no kernel for C={x.shape[-1]}')
+    if x.shape[-1] != KERNEL_C:
+        raise ValueError(f'{name}: no kernel for C={x.shape[-1]} (K1 takes '
+                         f'{KERNEL_C} channels; ROADMAP.md F4)')
 
 
 def trunk_fwd(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
@@ -196,3 +211,31 @@ def trunk(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
     return (trunk_plain if plain else trunk_fwd)(
         x, w1s.to(dt).contiguous(), b1s.float().contiguous(),
         w2s.to(dt).contiguous(), b2s.float().contiguous(), res_scale)
+
+
+def resblock_cs(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                w2: torch.Tensor, b2: torch.Tensor, res_scale: float = 1.0,
+                plain: bool = False) -> torch.Tensor:
+    """One EDSR resblock on HWIO weights (srtpu ``resblock_cs``): w1, w2
+    (3, 3, C, C), b1, b2 (C,). :func:`trunk` at L = 1, so its launches
+    count on K1's wrappers; the grads come back in the parameters'
+    dtypes, as srtpu's ``_rb_cs_vjp_bwd`` returns the weight grads in the
+    weights'."""
+    return trunk(x.contiguous(), w1[None], b1[None], w2[None], b2[None],
+                 res_scale, plain)
+
+
+def trunk_xla(x, w1s, b1s, w2s, b2s, res_scale: float, close_w, close_b):
+    """srtpu ``CSTrunk``'s XLA fallback, which it takes past 96 features
+    (srtpu/models/common.py:387-416), in stock differentiable ops on x's
+    dtype: per block ``resblock_reference`` (the weights rounded to x's
+    dtype, f32 convs, h1 kept in f32, out rounded once), then
+    ``conv3x3_reference`` (f32 conv + f32 bias, one rounding) and the
+    skip in x's dtype. No kernel of the port runs here."""
+    dt = x.dtype
+    res = x
+    for w1, b1, w2, b2 in zip(*(t.unbind(0) for t in (w1s, b1s, w2s,
+                                                       b2s))):
+        res = resblock_fused_plain(res, w1.to(dt), b1.float(), w2.to(dt),
+                                   b2.float(), res_scale)
+    return conv3x3_plain(res, close_w.to(dt), close_b.float()) + x

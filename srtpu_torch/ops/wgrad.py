@@ -95,6 +95,16 @@ def _blocks_per_part(cin: int, cout: int, r: int, k: int) -> int:
     return cin // ck * (cout // nb)
 
 
+def wgrad_parts(bsz: int, h: int, w: int, cin: int, cout: int, r: int = 1,
+                k: int = 3, n_jobs: int = 1) -> int:
+    """Partitions of the TH x TW pixel tiles per job, each summed into a
+    fixed-order f32 partial: enough to fill TARGET_BLOCKS blocks, at most
+    one per tile. The workspace of every caller is (n_jobs, this, ...)."""
+    tiles = bsz * -(-h // TH) * -(-w // TW)
+    return max(1, min(tiles, TARGET_BLOCKS
+                      // (n_jobs * _blocks_per_part(cin, cout, r, k))))
+
+
 def conv_wgrad(x: torch.Tensor, g: torch.Tensor, gscale: float = 1.0,
                r: int = 1, k: int = 3, reflect: bool = False
                ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -136,9 +146,7 @@ def wgrad_launch(x: torch.Tensor, g: torch.Tensor, gscale: float = 1.0,
         else (*lead, bsz, h, w, cout)
     _build.expect(x, 'x', torch.bfloat16, x.shape, dev)
     _build.expect(g, 'g', torch.bfloat16, g_shape, dev)
-    chunks = _blocks_per_part(cin, cout, r, k)
-    tiles = bsz * -(-h // TH) * -(-w // TW)
-    nparts = max(1, min(tiles, TARGET_BLOCKS // (n_jobs * chunks)))
+    nparts = wgrad_parts(bsz, h, w, cin, cout, r, k, n_jobs)
     f32 = dict(dtype=torch.float32, device=dev)
     ws_w = torch.empty((n_jobs, nparts, k * k * cin * cout), **f32)
     ws_b = torch.empty((n_jobs, nparts, cout), **f32)

@@ -39,6 +39,15 @@ gate, K8c WDSR-B's fused block): kernel and plain version compute the
 same f32 function and round once (K8a's h1 once more); the kernels carry
 the f32 activations as bf16 hi + lo pairs (2^-17 relative), so every
 output within one bf16 step of its largest magnitude.
+``resblock_cs`` (one block on HWIO weights) is K1 at L = 1: as K1. The
+per-block 'calls' RDN trunk launches K6's kernels: as K6, its forward
+bit-identical to the grid form's. K9c (the per-layer trunk) is K2 per
+dense layer: the block outputs within two steps (a step in one layer is
+read by the next), the f32 weight grads within two steps of their
+largest magnitude (they read the bf16 dout, masked from the glue's bf16
+dbuf, into which each layer's dx adds a rounding). K9d (K8a's fused
+backward): dx within one step; dW and db, f32 sums of f32 products,
+within 1e-4 of their largest magnitude.
 """
 
 import pytest
@@ -57,6 +66,7 @@ from srtpu_torch.ops import (conv3x3_bwd, conv3x3_bwd_plain, conv3x3_fwd,
                              resgroup_plain, trunk_bwd, trunk_bwd_plain,
                              trunk_fwd, trunk_plain, upsample_bwd,
                              upsample_bwd_plain, upsample_fwd, upsample_plain)
+from srtpu_torch.ops import resblock_cs
 from srtpu_torch.ops import ca_layer as k8b
 from srtpu_torch.ops import rdn as k6
 from srtpu_torch.ops import resblock as k8a
@@ -142,7 +152,8 @@ def _assert_close(got, ref, steps=None):
     assert got.shape == ref.shape and got.dtype == ref.dtype
     top = ref.float().abs().max().item()
     tol = steps * 2.0 ** -7 * top if steps else 1e-4 * top
-    assert (got.float() - ref.float()).abs().max().item() <= tol
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol, (err, tol, top)
 
 
 @pytest.mark.parametrize('h,w', [(1, 1), (7, 16), (9, 33), (40, 17)])
@@ -1067,3 +1078,206 @@ def test_true_route_train_step_kernel_path_matches_plain(device, name):
         assert got.dtype == torch.float32
         top = ref.abs().max().item()
         assert (got - ref).abs().max().item() <= 2.0 ** -4 * top
+
+
+# ----------------------------------------- K1s, K9a, K9b, K9c, K9d
+
+@pytest.mark.parametrize('bsz,h,w', [(16, 32, 32), (2, 23, 37)])
+def test_resblock_cs_matches_plain_on_k1(device, bsz, h, w):
+    """``resblock_cs`` (srtpu's one block on HWIO weights) is K1 at L =
+    1: through autograd from f32 weights, kernel path against plain path
+    (out and dx within one step, the weight grads one step: they read
+    the bf16 dh1), one K1 launch each way counted on K1's wrappers."""
+    gen = torch.Generator().manual_seed(bsz + h + w)
+    prm = [t.float() for t in _conv(gen, 64, 64, device)
+           + _conv(gen, 64, 64, device)]
+    x = _u(gen, (bsz, h, w, 64), 1.0, device)
+    res = []
+    for plain in (False, True):
+        p = [t.clone().requires_grad_() for t in prm]
+        xt = x.clone().requires_grad_()
+        f0, b0 = trunk_fwd.launches, trunk_bwd.launches
+        y = resblock_cs(xt, *p, 0.1, plain)
+        y.float().square().sum().backward()
+        torch.cuda.synchronize()
+        assert (trunk_fwd.launches - f0, trunk_bwd.launches - b0) == (
+            (0, 0) if plain else (1, 1))
+        res.append([y.detach(), xt.grad, *(t.grad for t in p)])
+    for got, ref in zip(*res):
+        _assert_close(got, ref, 1)
+
+
+def test_edsr_past_96_features_runs_no_kernel(device):
+    """F10: EDSR at 128 features takes srtpu's XLA trunk and tail on the
+    card (stock ops), forward and backward, launching none of K1, K2, K3
+    or the weight-grad kernel; a 32-feature trunk raises naming
+    ROADMAP.md F4 (K1 takes 64 channels)."""
+    fns = (trunk_fwd, trunk_bwd, conv3x3_fwd, conv3x3_bwd, upsample_fwd, upsample_bwd, conv_wgrad)
+    before = [f.launches for f in fns]
+    model = create_model('EDSR', n_feats=128, n_resblocks=2, res_scale=0.1,
+                         dtype=torch.bfloat16, device=device,
+                         generator=torch.Generator().manual_seed(2))
+    lr = torch.rand((2, 12, 20, 3),
+                    generator=torch.Generator().manual_seed(3)).to(device)
+    y = model(lr)
+    y.float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert y.shape == (2, 48, 80, 3) and bool(torch.isfinite(y).all())
+    assert [f.launches for f in fns] == before
+    assert all(bool(torch.isfinite(p.grad).all())
+               for p in model.parameters())
+    narrow = create_model('EDSR', n_feats=32, n_resblocks=2,
+                          dtype=torch.bfloat16, device=device,
+                          generator=torch.Generator().manual_seed(2))
+    with pytest.raises(ValueError, match='no kernel for C=32.*F4'):
+        narrow(lr)
+
+
+def _rdn_ops(gen, device, d=2, c=8, g0=64):
+    """RDN trunk parameters (per-layer stacks, f32 as the model holds
+    them) at srtpu's init bounds."""
+    f32 = torch.float32
+    c_tot = g0 * (c + 1)
+    ws = [_u(gen, (d, 3, 3, g0 * (i + 1), g0), (9 * g0 * (i + 1)) ** -0.5,
+             device, f32) for i in range(c)]
+    bs = [_u(gen, (d, g0), 0.05, device, f32) for _ in range(c)]
+    return (ws, bs, _u(gen, (d, c_tot, g0), c_tot ** -0.5, device, f32),
+            _u(gen, (d, g0), c_tot ** -0.5, device, f32))
+
+
+@pytest.mark.parametrize('bsz,h,w', [(4, 32, 32), (2, 23, 37)])
+def test_k9b_calls_trunk_matches_grid_and_plain(device, bsz, h, w):
+    """K9b: the 'calls' trunk of 2 blocks (one K6 launch set per block)
+    against the grid form (the same forward bits) and its plain path:
+    the outputs within two steps; the backward from the same saved
+    buffers within two steps of each gradient's largest magnitude (the
+    chain's bf16 dx and dout a step apart feed the next block and the
+    weight grads); end to end, every gradient within 2^-4 (as RCAN's
+    attention MLP: each path recomputes the ReLU masks from its own
+    bf16 buffers, and a value next to 0 that flips moves a whole term);
+    one K6 forward (D = 1) per block, one chain and one pair weight-grad
+    call per block in the backward."""
+    gen = torch.Generator().manual_seed(bsz * 100 + h + w)
+    ws, bs, wf, bf = _rdn_ops(gen, device)
+    x = _u(gen, (bsz, h, w, 64), 1.0, device)
+    cts = [_u(gen, (bsz, h, w, 64), 1.0, device) for _ in range(2)]
+    res = []
+    for plain in (False, True):
+        prm = [t.clone().requires_grad_() for t in (*ws, *bs, wf, bf)]
+        counts = [f.launches for f in (k6.rdn_fwd, k6.rdb_bwd_chain,
+                                       k6.rdb_bwd_dw)]
+        outs = k6.rdn_trunk_calls(x, prm[:8], prm[8:16], prm[16], prm[17],
+                                  plain)
+        sum((o.float() * c.float()).sum() for o, c in zip(outs, cts)) \
+            .backward()
+        torch.cuda.synchronize()
+        new = [f.launches for f in (k6.rdn_fwd, k6.rdb_bwd_chain,
+                                    k6.rdb_bwd_dw)]
+        assert [a - b for a, b in zip(new, counts)] == (
+            [0] * 3 if plain else [2, 2, 2]), (new, counts)
+        res.append(([o.detach() for o in outs], [p.grad for p in prm]))
+    with torch.no_grad():
+        grid = k6.rdn_trunk(x, ws, bs, wf, bf)
+    assert torch.equal(torch.cat(res[0][0], -1), grid)
+    for got, ref in zip(res[0][0], res[1][0]):
+        _assert_close(got, ref, 2)
+    for i, (got, ref) in enumerate(zip(res[0][1], res[1][1])):
+        assert got.dtype == torch.float32
+        err, top = (got - ref).abs().max().item(), ref.abs().max().item()
+        assert err <= 2.0 ** -4 * top, (i, err, top)
+    wpk, b, wfd, bff = k6._cast(x, ws, bs, wf, bf)
+    _, bufs = k6.rdn_calls_fwd(x, wpk, b, wfd, bff)
+    for got, ref in zip(*(k6.rdn_calls_bwd(bufs, cts, wpk, wfd, plain)
+                          for plain in (False, True))):
+        _assert_close(got, ref, 2)
+
+
+def test_k9c_layers_trunk_matches_plain(device):
+    """K9c: the per-layer trunk (one K2 launch per dense layer, c_in 64 (i
+    + 1) -> 64 with ReLU) of 2 blocks of 8 layers at batch 4, 32x32,
+    against its plain path: outputs within two steps; the backward from
+    the same saved buffers within two steps of each gradient's largest
+    magnitude; end to end, every gradient within 2^-4 (the ReLU masks
+    recomputed per path, as K9b's); 16 K2 forwards and 16 K2
+    backwards."""
+    gen = torch.Generator().manual_seed(9)
+    ws, bs, wf, bf = _rdn_ops(gen, device)
+    x = _u(gen, (4, 32, 32, 64), 1.0, device)
+    cts = [_u(gen, (4, 32, 32, 64), 1.0, device) for _ in range(2)]
+    res = []
+    for plain in (False, True):
+        prm = [t.clone().requires_grad_() for t in (*ws, *bs, wf, bf)]
+        f0 = conv3x3_fwd.launches + conv3x3_fwd.launches_general
+        b0 = conv3x3_bwd.launches + conv3x3_bwd.launches_general
+        outs = k6.rdn_trunk_layers(x, prm[:8], prm[8:16], prm[16], prm[17],
+                                   plain)
+        sum((o.float() * c.float()).sum() for o, c in zip(outs, cts)) \
+            .backward()
+        torch.cuda.synchronize()
+        fwd = conv3x3_fwd.launches + conv3x3_fwd.launches_general - f0
+        bwd = conv3x3_bwd.launches + conv3x3_bwd.launches_general - b0
+        assert (fwd, bwd) == ((0, 0) if plain else (16, 16)), (fwd, bwd)
+        res.append(([o.detach() for o in outs], [p.grad for p in prm]))
+    for got, ref in zip(res[0][0], res[1][0]):
+        _assert_close(got, ref, 2)
+    for i, (got, ref) in enumerate(zip(res[0][1], res[1][1])):
+        assert got.dtype == torch.float32
+        err, top = (got - ref).abs().max().item(), ref.abs().max().item()
+        assert err <= 2.0 ** -4 * top, (i, err, top)
+    wsd = [w.to(x.dtype).contiguous() for w in ws]
+    _, bufs = k6.rdn_layers_fwd(x, wsd, bs, wf.to(x.dtype), bf)
+    grads = [k6.rdn_layers_bwd(bufs, cts, wsd, wf.to(x.dtype), plain)
+             for plain in (False, True)]
+    _assert_close(grads[0][0], grads[1][0], 2)
+    for part in (1, 2):
+        for got, ref in zip(grads[0][part], grads[1][part]):
+            _assert_close(got, ref, 2)
+    for got, ref in zip(grads[0][3:], grads[1][3:]):
+        _assert_close(got, ref, 2)
+
+
+@pytest.mark.parametrize('res_scale', [1.0, 0.1])
+@pytest.mark.parametrize('bsz,h,w', K8_SHAPES)
+def test_k9d_matches_plain(device, bsz, h, w, res_scale):
+    """K9d (K8a's fused backward) against its plain version: dx within
+    one bf16 step, the f32 dW1, db1, dW2, db2 within 1e-4 of their
+    largest magnitude; one launch counted; the same bits twice."""
+    gen = torch.Generator().manual_seed(bsz * 31 + h + w)
+    x, w1, b1, w2, b2 = _k8_case(gen, device, 'a', bsz, h, w, 64)
+    g = _u(gen, (bsz, h, w, 64), 1.0, device)
+    _, h1 = k8a.resblock_fused_fwd(x, w1, b1, w2, b2, res_scale,
+                                   save_h1=True)
+    before = k8a.resblock_bwd_fused.launches
+    got = k8a.resblock_bwd_fused(x, h1, g, w1, w2, res_scale)
+    torch.cuda.synchronize()
+    assert k8a.resblock_bwd_fused.launches == before + 1
+    ref = k8a.resblock_bwd_fused_plain(x, h1, g, w1, w2, res_scale)
+    _assert_close(got[0], ref[0], 1)
+    for g_t, r_t in zip(got[1:], ref[1:]):
+        assert g_t.dtype == torch.float32
+        _assert_close(g_t, r_t)
+    again = k8a.resblock_bwd_fused(x, h1, g, w1, w2, res_scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_k9d_op_and_wrappers(device):
+    """resblock_fused_v3 (K8a forward, K9d backward) against its plain
+    path; K9d raises on what it does not take (32 channels, naming
+    ROADMAP.md F4)."""
+    gen = torch.Generator().manual_seed(4)
+    x = _u(gen, (2, 20, 28, 64), 1.0, device)
+    prm = [t.float() for t in _conv(gen, 64, 64, device)
+           + _conv(gen, 64, 64, device)]
+    res = []
+    for plain in (False, True):
+        p = [t.clone().requires_grad_() for t in prm]
+        xt = x.clone().requires_grad_()
+        k8a.resblock_fused_v3(xt, *p, 0.1, plain).float().square().sum() \
+            .backward()
+        res.append([xt.grad, *(t.grad for t in p)])
+    for got, ref in zip(*res):
+        _assert_close(got, ref, 1)
+    args = _k8_case(gen, device, 'a', 1, 4, 4, 32)
+    with pytest.raises(ValueError, match='no kernel for C=32.*F4'):
+        k8a.resblock_bwd_fused(args[0], args[0], args[0], args[1], args[3],
+                               1.0)
