@@ -17,7 +17,9 @@ Phases, each of which raises on failure (nothing is caught):
    against its plain version at the training shapes (batch 16, LR 32x32,
    64 channels, 16 resblocks; the tail's convs at 64x64) and at a ragged
    batch 2 of 67x45, with errors, tolerances and times, and two calls
-   bit-identical (the weight grads use no float atomics);
+   bit-identical (the weight grads use no float atomics); K2's backward
+   rows (and those of 2f and 2j) also split into their two launches, dx
+   and the weight grads, each timed beside its bound;
 3. the predict slice: ``python -m srtpu_torch predict``'s own function
    on three synthetic LR images (128x128, 250x170 which needs bucket
    padding, 512x352), EDSR-baseline x4 (64 features, 16 resblocks,
@@ -96,15 +98,19 @@ Phases, each of which raises on failure (nothing is caught):
    calls, K2 2 + 2 and its 2 weight grads; the loss falling, kernel-path
    against plain-path gradients and losses, ms/step, patches/s, device
    time by kernel group.
-2f. K2's general path (c_in walked in chunks; any multiples of 16)
-   against its plain version at every shape DDBPN and the x3 tails give
+2f. K2 (its wgmma engine, conv_sm90.cuh; any multiples of 16) against
+   its plain version at every general shape DDBPN and the x3 tails give
    it: forward 32 -> 512, 512 -> 32, 512 -> 48 (x4), 32 -> 128, 128 -> 32,
-   128 -> 16 (x2) and 576 -> 32 at 3x3 and 5x5 (x3), and the backward of
-   each (dx the reverse shape, dW and db through the weight-grad kernel's
-   general path), at the training shape (batch 16, LR 32x32), the
+   128 -> 16 (x2), 576 -> 32 at 3x3 and 5x5 and 64 -> 576 (x3), and the
+   backward of each (dx the reverse shape, dW and db through the
+   weight-grad kernel), at the training shape (batch 16, LR 32x32), the
    predict shape (batch 1, 128x128) and a ragged batch 2 of 67x45; errors
    beside K2's tolerances, two calls bit-identical, kernel, plain and
    library times;
+2k. K2's forward at the training shape (batch 16, LR 32x32) at each
+   shape of the EDSR x4 tail, SRResNet's 5x5, DDBPN x4 and the x3 tails,
+   against its plain version, two calls bit-identical, with kernel,
+   plain, bound and library times;
 11. the DDBPN predict slice: phase 3's path and images with ``--model
    DDBPN`` at srtpu's defaults (n0 128, nr 32, depth 6): per image 39 K2
    forward launches on the general path (33 projection convs, 6
@@ -222,7 +228,11 @@ work (``bound_ms``: the larger of the bytes the function must move over
 3.35 TB/s and its matrix FLOPs over 989 TFLOP/s bf16, NVIDIA's H100 SXM
 figures) and the time of one
 PyTorch call computing the same function where there is one
-(``library_ms``, a yardstick the port never calls). The last line is
+(``library_ms``, a yardstick the port never calls, timed with cuDNN's
+heuristics as set here; ``library_bench_ms`` the same call with
+``torch.backends.cudnn.benchmark`` on). K2's backward rows add ``dx_ms``
+/ ``dx_bound_ms`` and ``wgrad_ms`` / ``wgrad_bound_ms``, their two
+launches. The last line is
 ``{"ok": true, "device": {...}}``. Without CUDA (or without the repo)
 it exits nonzero and prints no result.
 """
@@ -261,6 +271,7 @@ from srtpu_torch.ops import (_build, b1_plain, b1_sums, b2_call, b2_plain,
                              upsample_bwd_plain, upsample_fwd,
                              upsample_plain)
 from srtpu_torch.ops.ca_layer import ca_layer_fwd, ca_layer_plain
+from srtpu_torch.ops.conv import conv3x3_dx
 from srtpu_torch.ops.layout import w_t
 from srtpu_torch.ops.rdn import (pack, rdb_bwd_chain, rdb_bwd_chain_plain,
                                  rdb_bwd_dw, rdb_bwd_dw_plain, rdn_fwd,
@@ -427,8 +438,9 @@ K6_STEPS, K6B_STEPS = 4, {'dx': 2, 'dout': 2, 'dwf': 1e-4, 'dbf': 1e-4,
 # times the plain path's largest error of that block's row. A term missing
 # from dy breaks the invariants coherently over all of a channel's pixels.
 BN_INVARIANT_VS_F32 = 4.0
-# K2's general path (conv_chunked_kernel) and the weight-grad kernel's
-# (wgrad_chunk_kernel), counted apart from the instances of their own
+# K2's general shapes (DDBPN's, the x3 tails', RDN's dense layers past 64
+# channels; one engine runs every shape, the counters keep the classes
+# apart) and the weight-grad kernel's general path (wgrad_chunk_kernel)
 K2G_FWD, K2G_BWD = (conv3x3_fwd, 'launches_general'), (conv3x3_bwd,
                                                        'launches_general')
 K2G5_FWD = (conv3x3_fwd, 'launches_general_5x5')
@@ -450,12 +462,13 @@ SRGAN_STEP_LAUNCHES = {
     b1_sums: L + 1, conv_wgrad: 2 * L + 1, WGG: 0,
     **{K4_FNS[k]: 0 for k in K4R}, conv3x3_fwd: 0, conv3x3_bwd: 0,
     upsample_fwd: 0, upsample_bwd: 0}
-# (c_in, c_out, k) at which DDBPN and the x3 tails run K2's general path:
-# DDBPN x4 (nr 32) up, down and output convs, x2 up, down and output
-# convs, EDSR's and SRResNet's x3 phase-dense convs; each backward's dx
-# is the reverse shape (x2's 16 -> 128 an instance of its own)
+# (c_in, c_out, k) of phase 2f: DDBPN x4 (nr 32) up, down and output
+# convs, x2 up, down and output convs, EDSR's and SRResNet's x3
+# phase-dense convs, and the x3 tails' phase-major 64 -> 576 (counted on
+# ``launches``: c_in 64); each backward's dx is the reverse shape
 K2G_SHAPES = ((32, 512, 3), (512, 32, 3), (512, 48, 3), (32, 128, 3),
-              (128, 32, 3), (128, 16, 3), (576, 32, 3), (576, 32, 5))
+              (128, 32, 3), (128, 16, 3), (576, 32, 3), (576, 32, 5),
+              (64, 576, 3))
 K2G_X4 = K2G_SHAPES[:3]       # DDBPN x4's: the main path's (JSON times)
 # DDBPN x4 at srtpu's defaults (srtpu/models/ddbpn.py:220-229, timed by
 # srtpu's bench.py:118-119): n0 128, nr 32, depth 6; the CLI's flags
@@ -646,7 +659,28 @@ def bound(flops: float, moved: int) -> tuple[float, float]:
 def new_stats(kids) -> dict:
     return {k: {'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0,
                 'ops_ms': 0.0, 'bytes_ms': 0.0, 'bound_ms': 0.0,
-                'library_ms': None} for k in kids}
+                'library_ms': None, 'library_bench_ms': None} for k in kids}
+
+
+def lib_ms(lib) -> tuple[float, float]:
+    """A library call's ms as configured here (cuDNN's heuristics pick
+    the algorithm) and with ``torch.backends.cudnn.benchmark`` on (cuDNN
+    times its algorithms at the first call of a shape and keeps the
+    fastest), the setting restored after."""
+    heuristic = median_ms(lib)
+    before = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        bench = median_ms(lib)
+    finally:
+        torch.backends.cudnn.benchmark = before
+    return heuristic, bench
+
+
+def add_lib(st: dict, times: tuple[float, float]) -> None:
+    """Add a library call's (heuristic, benchmark) ms to ``st``."""
+    for key, v in zip(('library_ms', 'library_bench_ms'), times):
+        st[key] = (st[key] or 0.0) + v
 
 
 def record(st: dict, ms: float, plain_ms: float, flops: float, moved: int,
@@ -660,7 +694,26 @@ def record(st: dict, ms: float, plain_ms: float, flops: float, moved: int,
     st['bytes_ms'] += bytes_ms
     st['bound_ms'] += max(ops_ms, bytes_ms)
     if lib is not None:
-        st['library_ms'] = (st['library_ms'] or 0.0) + median_ms(lib)
+        add_lib(st, lib_ms(lib))
+
+
+def bwd_split(st: dict, x, w, g, smi: str, tag: str) -> None:
+    """K2's backward as its two launches, each timed beside its bound and
+    added to ``st``: dx (``conv3x3_dx``, the engine on the forward
+    weight) and the weight grads (dW, db)."""
+    k, cin, cout = w.shape[0], w.shape[-2], w.shape[-1]
+    px = x.shape[0] * x.shape[1] * x.shape[2]
+    dx = conv3x3_dx(g, w)
+    dw = conv_wgrad(x, g, k=k)
+    dx_ms = median_ms(lambda: conv3x3_dx(g, w))
+    wg_ms = median_ms(lambda: conv_wgrad(x, g, k=k))
+    dx_b = max(bound(conv_flops(px, cout, cin, k), nbytes(g, w, dx)))
+    wg_b = max(bound(conv_flops(px, cin, cout, k), nbytes(x, g, dw)))
+    for key, v in (('dx_ms', dx_ms), ('dx_bound_ms', dx_b),
+                   ('wgrad_ms', wg_ms), ('wgrad_bound_ms', wg_b)):
+        st[key] = st.get(key, 0.0) + v
+    print(f'{tag} split: dx {dx_ms:.4f} ms (bound {dx_b:.5f}) | weight '
+          f'grads {wg_ms:.4f} ms (bound {wg_b:.5f})  [{smi}]')
 
 
 def lib_conv(x, w, b):
@@ -873,7 +926,7 @@ def bwd_cases(bsz: int, h: int, w: int, device) -> list[tuple]:
     ]
 
 
-def check_bwd_kernels(device) -> dict:
+def check_bwd_kernels(device, smi: str) -> dict:
     """Phase 2b. Returns per kernel id: max dx error (the weight-grad
     kernel: max dW error) over all shapes, and kernel / plain / bound /
     library ms summed over its uses at the training shapes."""
@@ -930,6 +983,8 @@ def check_bwd_kernels(device) -> dict:
             st['max_abs_err'] = max(st['max_abs_err'], errs[0][0])
             if i == 0:
                 record(st, ms, plain_ms, flops, nbytes(args, got), lib)
+                if kid in ('K2b', 'K25b'):
+                    bwd_split(st, *args, smi, f'{kid} {label}')
     return stats
 
 
@@ -1662,44 +1717,101 @@ def check_k2_general(device, smi: str) -> dict:
             t = {name: median_ms(fn, 10, 3) for name, fn in (
                 ('fwd', lambda: conv3x3_fwd(x, wt, b)),
                 ('fwd_plain', lambda: conv3x3_plain(x, wt, b)),
-                ('fwd_lib', lib_conv(x, wt, b)),
                 ('bwd', lambda: conv3x3_bwd(x, wt, g)),
                 ('bwd_plain', lambda: conv3x3_bwd_plain(x, wt, g)),
-                ('bwd_lib', lib_conv_bwd(x, wt, g)),
                 ('w', lambda: conv_wgrad(x, g, k=k)),
-                ('w_plain', lambda: conv_wgrad_plain(x, g, k=k)),
-                ('w_lib', lib_wgrad(x[None], g[None], k)))}
+                ('w_plain', lambda: conv_wgrad_plain(x, g, k=k)))}
+            t.update((name, lib_ms(fn)) for name, fn in (
+                ('fwd_lib', lib_conv(x, wt, b)),
+                ('bwd_lib', lib_conv_bwd(x, wt, g)),
+                ('w_lib', lib_wgrad(x[None], g[None], k))))
             f_fl = conv_flops(px, cin, cout, k)
             print(f'K2 general {tag}: fwd kernel {t["fwd"]:.4f} ms plain '
-                  f'{t["fwd_plain"]:.4f} lib {t["fwd_lib"]:.4f} (bound '
+                  f'{t["fwd_plain"]:.4f} lib {t["fwd_lib"][0]:.4f} / '
+                  f'benchmark {t["fwd_lib"][1]:.4f} (bound '
                   f'{max(bound(f_fl, nbytes(x, wt, b, got))):.5f}); bwd '
                   f'kernel {t["bwd"]:.4f} plain {t["bwd_plain"]:.4f} lib '
-                  f'{t["bwd_lib"]:.4f} (bound '
+                  f'{t["bwd_lib"][0]:.4f} / {t["bwd_lib"][1]:.4f} (bound '
                   f'{max(bound(2 * f_fl, nbytes(x, wt, g, bgot))):.5f}); '
                   f'weight grads kernel {t["w"]:.4f} plain '
-                  f'{t["w_plain"]:.4f} lib {t["w_lib"]:.4f} (bound '
+                  f'{t["w_plain"]:.4f} lib {t["w_lib"][0]:.4f} / '
+                  f'{t["w_lib"][1]:.4f} (bound '
                   f'{max(bound(f_fl, nbytes(x, g, bgot[1:]))):.5f})  [{smi}]')
             if (cin, cout, k) in K2G_X4 and i == 1:
-                stats['K2g']['library_ms'] = (stats['K2g']['library_ms']
-                                              or 0.0) + t['fwd_lib']
+                add_lib(stats['K2g'], t['fwd_lib'])
                 record(stats['K2g'], t['fwd'], t['fwd_plain'], f_fl,
                        nbytes(x, wt, b, got))
             if (cin, cout, k) in K2G_X4 and i == 0:
                 for key, pre, fl, moved in (
                         ('K2gb', 'bwd', 2 * f_fl, nbytes(x, wt, g, bgot)),
                         ('Wg', 'w', f_fl, nbytes(x, g, bgot[1:]))):
-                    stats[key]['library_ms'] = (stats[key]['library_ms']
-                                                or 0.0) + t[pre + '_lib']
+                    add_lib(stats[key], t[pre + '_lib'])
                     record(stats[key], t[pre], t[pre + '_plain'], fl, moved)
+                bwd_split(stats['K2gb'], x, wt, g, smi, f'K2gb {tag}')
             if k == 5 and i == 1:
-                stats['K2g5']['library_ms'] = t['fwd_lib']
+                add_lib(stats['K2g5'], t['fwd_lib'])
                 record(stats['K2g5'], t['fwd'], t['fwd_plain'], f_fl,
                        nbytes(x, wt, b, got))
             if k == 5 and i == 0:
-                stats['K2g5b']['library_ms'] = t['bwd_lib']
+                add_lib(stats['K2g5b'], t['bwd_lib'])
                 record(stats['K2g5b'], t['bwd'], t['bwd_plain'], 2 * f_fl,
                        nbytes(x, wt, g, bgot))
+                bwd_split(stats['K2g5b'], x, wt, g, smi, f'K2g5b {tag}')
         torch.cuda.empty_cache()
+    return stats
+
+
+# Phase 2k: K2's forward at the training shape (batch 16, LR 32x32): (k,
+# c_in, c_out, LR multiple) of the EDSR x4 tail (the close conv, which
+# RCAN's and RDN's share, at LR; the phase-major and phase-dense convs at
+# 2x), SRResNet's 5x5 phase-dense conv, DDBPN x4's three and the x3 tails
+# (EDSR's phase-major 64 -> 576 and 3x3 576 -> 32, SRResNet's 5x5 576 ->
+# 32, all at LR)
+K2_TRAIN_FWD = {'K2t': ((3, C, C, 1), (3, C, 4 * C, 2), (3, 4 * C, 16, 2)),
+                'K25t': ((5, 4 * C, 16, 2),),
+                'K2gt': tuple((k, ci, co, 1) for ci, co, k in K2G_X4),
+                'K2x3t': ((3, C, 9 * C, 1), (3, 9 * C, 32, 1),
+                          (5, 9 * C, 32, 1))}
+
+
+def check_k2_train_fwd(device, smi: str) -> dict:
+    """Phase 2k. K2's forward at the training shape at every shape of
+    K2_TRAIN_FWD against its plain version (one step), two calls
+    bit-identical; kernel, plain, bound and library times (cuDNN's
+    heuristic and benchmark mode), summed per row."""
+    stats = new_stats(K2_TRAIN_FWD)
+    bsz, lr = TRAIN_BATCH, TRAIN_PATCH // SCALE
+    for kid, shapes in K2_TRAIN_FWD.items():
+        st = stats[kid]
+        for k, cin, cout, m in shapes:
+            h = lr * m
+            gen = torch.Generator().manual_seed(k * 100003 + cin * 101 + cout)
+            x = _uniform(gen, (bsz, h, h, cin), 1.0, device, torch.bfloat16)
+            wt = _uniform(gen, (k, k, cin, cout), (k * k * cin) ** -0.5,
+                          device, torch.bfloat16)
+            b = _uniform(gen, (cout,), 0.1, device, torch.float32)
+            tag = f'{kid} {k}x{k} {cin}->{cout} {bsz}x{h}x{h}'
+            got = conv3x3_fwd(x, wt, b)
+            torch.cuda.synchronize()
+            need(torch.equal(got, conv3x3_fwd(x, wt, b)),
+                 f'{tag}: two calls differ')
+            err = _check_all(tag, ('y',), [got], [conv3x3_plain(x, wt, b)],
+                             [TOL_STEPS['K2']])
+            st['max_abs_err'] = max(st['max_abs_err'], err)
+            flops, moved = conv_flops(bsz * h * h, cin, cout, k), nbytes(
+                x, wt, b, got)
+            ms = median_ms(lambda: conv3x3_fwd(x, wt, b))
+            pms = median_ms(lambda: conv3x3_plain(x, wt, b), 5, 3)
+            lib = lib_ms(lib_conv(x, wt, b))
+            print(f'{tag}: kernel {ms:.4f} ms plain {pms:.4f} bound '
+                  f'{max(bound(flops, moved)):.5f} library {lib[0]:.4f} / '
+                  f'benchmark {lib[1]:.4f}  [{smi}]')
+            record(st, ms, pms, flops, moved)
+            add_lib(st, lib)
+        print(f'{kid} forward at the training shape, summed: kernel '
+              f'{st["ms"]:.4f} ms plain {st["plain_ms"]:.4f} bound '
+              f'{st["bound_ms"]:.5f} library {st["library_ms"]:.4f} / '
+              f'benchmark {st["library_bench_ms"]:.4f}  [{smi}]')
     return stats
 
 
@@ -2096,6 +2208,7 @@ def check_form_kernels(device, smi: str) -> dict:
         bms, bpms = _timed(stats['K9cb'], lambda: conv3x3_bwd(*bargs),
                            lambda: conv3x3_bwd_plain(*bargs), bflops,
                            bmoved, lib_conv_bwd(*bargs))
+        bwd_split(stats['K9cb'], *bargs, smi, f'K9cb {tag}')
         _print_times(tag, ms, pms, flops, moved, smi,
                      f'; bwd kernel {bms:.4f} ms plain {bpms:.4f} ms')
         buf = torch.cat([buf, o], -1)
@@ -2103,7 +2216,8 @@ def check_form_kernels(device, smi: str) -> dict:
         st = stats[kid]
         print(f'{kid} the 8 layers of one block: kernel {st["ms"]:.4f} ms '
               f'plain {st["plain_ms"]:.4f} ms bound {st["bound_ms"]:.5f} ms '
-              f'library {st["library_ms"]:.4f} ms  [{smi}]')
+              f'library {st["library_ms"]:.4f} ms (benchmark '
+              f'{st["library_bench_ms"]:.4f})  [{smi}]')
     del x, wpk, b, wf, bfb, blk, got, bufs, cgot, cref, dw, buf, bufs_p
     torch.cuda.empty_cache()
 
@@ -2358,7 +2472,7 @@ EDSR_PROFILE = (('resblock_bwd_kernel', 'K1 bwd dx chain'),
                 ('resblock_kernel', 'K1 fwd'), ('wgrad', 'weight grads'),
                 ('conv3x3_kernel<64, 64, 7, 16, true', 'K3 fwd'),
                 ('conv3x3_kernel<256, 16, 7, 16, false, true', 'K3 bwd dx'),
-                ('conv3x3_kernel', 'K2 fwd + bwd dx'))
+                ('conv_sm90_kernel', 'K2 fwd + bwd dx'))
 RCAN_PROFILE = (('rcab_pair_kernel', 'K5 fwd conv pair (F1)'),
                 ('rcab_pool_mlp_kernel', 'K5 fwd pool + MLP (F2)'),
                 ('rcab_gate_kernel', 'K5 fwd gate (F3)'),
@@ -2368,7 +2482,7 @@ RCAN_PROFILE = (('rcab_pair_kernel', 'K5 fwd conv pair (F1)'),
                 ('rcab_dr2_kernel', 'K5 bwd dr2 (B3)'),
                 ('rcab_chain_kernel', 'K5 bwd dx chain (B4)'),
                 ('wgrad', 'weight grads'),
-                ('conv3x3_kernel', 'K2 fwd + bwd dx'))
+                ('conv_sm90_kernel', 'K2 fwd + bwd dx'))
 SRRESNET_PROFILE = (
     ('bn_conv_stats_kernel<false', 'K4 F1 conv + stats'),
     ('bn_conv_stats_kernel<true', 'K4 F2 norm + PReLU + conv + stats'),
@@ -2380,9 +2494,11 @@ SRRESNET_PROFILE = (
     ('wgrad', 'weight grads'),
     ('conv3x3_kernel<64, 64, 7, 16, true', 'K3 fwd'),
     ('conv3x3_kernel<256, 16, 7, 16, false, true', 'K3 bwd dx'),
-    ('conv3x3_kernel<256, 16, 6, 16', 'K2 5x5 fwd'),
-    ('conv3x3_kernel<16, 64, 6, 16', 'K2 5x5 bwd dx'),
-    ('conv3x3_kernel', 'K2 3x3 fwd + bwd dx'))
+    # K2's engine by (N atom, atoms, k16 steps a slice, split, dx): the 5x5
+    # 256 -> 16 and its 16 -> 256 dx; the 3x3 64 -> 256 and its dx
+    ('conv_sm90_kernel<16, 1, 4,', 'K2 5x5 fwd'),
+    ('conv_sm90_kernel<64, 2, 1,', 'K2 5x5 bwd dx'),
+    ('conv_sm90_kernel', 'K2 3x3 fwd + bwd dx'))
 RDN_PROFILE = (('rdn_dense_kernel', 'K6 fwd dense layers'),
                ('rdn_lff_kernel', 'K6 fwd fusion'),
                ('rdn_copy_in_kernel', 'K6 fwd copy-in'),
@@ -2392,12 +2508,12 @@ RDN_PROFILE = (('rdn_dense_kernel', 'K6 fwd dense layers'),
                ('rdn_dw_kernel<3', 'K6w pair weight grads'),
                ('rdn_reduce', 'K6 fixed-order reductions'),
                ('wgrad', 'weight grads (K2)'),
-               ('conv3x3_kernel', 'K2 fwd + bwd dx'))
+               ('conv_sm90_kernel', 'K2 fwd + bwd dx'))
 DDBPN_PROFILE = (
-    ('conv_chunked_kernel<32, 64', 'K2 32->512 (up fwd, down dx)'),
-    ('conv_chunked_kernel<64, 32', 'K2 512->32 (down fwd, up dx)'),
-    ('conv_chunked_kernel<64, 16', 'K2 512->48 (output conv fwd)'),
-    ('conv_chunked_kernel<16, 64', 'K2 48->512 (output conv dx)'),
+    ('conv_sm90_kernel<64, 2, 2,', 'K2 32->512 (up fwd, down dx)'),
+    ('conv_sm90_kernel<32, 1, 4,', 'K2 512->32 (down fwd, up dx)'),
+    ('conv_sm90_kernel<16, 3, 4,', 'K2 512->48 (output conv fwd)'),
+    ('conv_sm90_kernel<64, 2, 1,', 'K2 48->512 (output conv dx)'),
     ('wgrad_chunk_kernel', 'weight grads (general path)'),
     ('wgrad_reduce', 'weight grads fixed-order reductions'),
     ('gemm', '1x1 bottlenecks and head (cuBLAS)'),
@@ -2417,7 +2533,8 @@ WDSR_PROFILE = (
     ('gemm', 'GEMMs (cuBLAS / cuDNN 1x1)'),
     ('nvjet', 'GEMMs (cuBLAS / cuDNN 1x1)'))
 SRRESNET_X3_PROFILE = (
-    ('conv_chunked_kernel', 'K2 general path (x3 phase-dense 5x5, dx)'),
+    ('conv_sm90_kernel<32, 1, 4,', 'K2 5x5 576->32 (x3 phase-dense fwd)'),
+    ('conv_sm90_kernel<64, 3, 2,', 'K2 5x5 32->576 (its dx)'),
     ('wgrad_chunk_kernel', 'weight grads, general path (5x5 576->32)'),
     *SRRESNET_PROFILE)
 SRGAN_PROFILE = (
@@ -2994,11 +3111,12 @@ def main() -> None:
     t_start = time.perf_counter()
     device, smi = card()
     stats = check_kernels(device)
-    stats.update(check_bwd_kernels(device))
+    stats.update(check_bwd_kernels(device, smi))
     stats.update(check_rcab_kernels(device))
     stats.update(check_bn_kernels(device))
     stats.update(check_rdn_kernels(device))
     stats.update(check_k2_general(device, smi))
+    stats.update(check_k2_train_fwd(device, smi))
     stats.update(check_wdsr_kernels(device, smi))
     stats.update(check_bn_reflect_kernels(device, smi))
     stats.update(check_k8_kernels(device, smi))
@@ -3090,6 +3208,19 @@ def main() -> None:
              'weight grads)', rcab_bwd, 'rcab.cu', rep + '2618'),
             ('K25', 'K2 conv3x3_fwd at 5x5 (SRResNet phase-dense 256->16)',
              CONV5_FWD, 'conv.cu', rep + '538'),
+            ('K2t', 'K2 conv3x3_fwd at the training shape (EDSR x4 tail: '
+             '64->64, 64->256, 256->16)', conv3x3_fwd, 'conv.cu',
+             rep + '538', ('edsr_fit',)),
+            ('K25t', 'K2 conv3x3_fwd at 5x5 at the training shape (SRResNet '
+             '256->16)', CONV5_FWD, 'conv.cu', rep + '538',
+             ('srresnet_fit',)),
+            ('K2gt', 'K2 conv3x3_fwd at the training shape (DDBPN x4 '
+             '32->512, 512->32, 512->48)', K2G_FWD, 'conv.cu', rep + '538',
+             ('ddbpn_fit',)),
+            ('K2x3t', 'K2 conv3x3_fwd at the training shape (x3 tails: EDSR '
+             '64->576, 576->32; SRResNet 5x5 576->32)',
+             [conv3x3_fwd, K2G_FWD, K2G5_FWD], 'conv.cu', rep + '538',
+             ('edsr_x3', 'srresnet_x3')),
             ('K25b', 'K2 conv3x3_bwd at 5x5 (dx 16->256; with its 5x5 '
              'weight grads)', CONV5_BWD, 'conv.cu', rep + '581'),
             ('F1', 'K4 f1_conv_stats (conv + bias, stats of the stored y; '
@@ -3111,17 +3242,17 @@ def main() -> None:
              'db)', rdb_bwd_chain, 'rdn.cu', rep + '2265'),
             ('K6w', 'K6 rdb_bwd_dw (one block: 36 pair weight grads)',
              rdb_bwd_dw, 'rdn.cu', rep + '2340'),
-            ('K2g', 'K2 conv3x3_fwd, general path (c_in in chunks: DDBPN '
-             'x4 32->512, 512->32, 512->48; EDSR x3 576->32)', K2G_FWD,
+            ('K2g', 'K2 conv3x3_fwd, general shapes (DDBPN x4 32->512, '
+             '512->32, 512->48; EDSR x3 576->32)', K2G_FWD,
              'conv.cu', rep + '538'),
-            ('K2gb', 'K2 conv3x3_bwd, general path (dx 512->32, 32->512, '
+            ('K2gb', 'K2 conv3x3_bwd, general shapes (dx 512->32, 32->512, '
              '48->512; with its weight grads)', K2G_BWD, 'conv.cu',
              rep + '581'),
             ('Wg', 'conv_wgrad, general path (dW, db of DDBPN x4: (32, 512),'
              ' (512, 32), (512, 48))', WGG, 'wgrad.cu', rep + '452'),
-            ('K2g5', 'K2 conv3x3_fwd at 5x5, general path (SRResNet x3 '
+            ('K2g5', 'K2 conv3x3_fwd at 5x5, general shapes (SRResNet x3 '
              '576->32)', K2G5_FWD, 'conv.cu', rep + '538'),
-            ('K2g5b', 'K2 conv3x3_bwd at 5x5, general path (SRResNet x3 dx '
+            ('K2g5b', 'K2 conv3x3_bwd at 5x5, general shapes (SRResNet x3 dx '
              '32->576; with its weight grads)', K2G5_BWD, 'conv.cu',
              rep + '581'),
             ('K7', 'K7 wdsr_fwd (WDSR-B block: fused 1x1 pair, h1 in shared '
@@ -3200,7 +3331,11 @@ def main() -> None:
             'plain_ms': st['plain_ms'], 'bound_ms': st['bound_ms'],
             'bound_by': ('operations' if st['ops_ms'] >= st['bytes_ms']
                          else 'bytes'),
-            'library_ms': st['library_ms']})
+            'library_ms': st['library_ms'],
+            **{key: st[key] for key in ('library_bench_ms', 'dx_ms',
+                                        'dx_bound_ms', 'wgrad_ms',
+                                        'wgrad_bound_ms')
+               if st.get(key) is not None}})
     print(f'chip_smoke ran {time.perf_counter() - t_start:.1f} s '
           f'(kernel build included)')
     print(json.dumps({'kernels': rows}))

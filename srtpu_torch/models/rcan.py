@@ -8,7 +8,11 @@ reduction 16, bf16 compute on f32 parameters.
 Routes, as srtpu's ``use_pallas``, all on the same stacked parameters
 (one state dict runs on each):
 
-* ``'cs'`` (srtpu's default): K5 per RCAB, every close conv on K2;
+* ``'cs'`` (srtpu's default): K5 per RCAB, every close conv on K2, up
+  to ``CS_MAX_FEATS`` (96) features. Past them srtpu's ``CSRCANTrunk``
+  runs its groups' XLA math (``xla_apply``), and so does the port, in
+  stock ops (``ops.rcab.resgroup_xla``, the trunk close conv as
+  ``conv3x3_reference``): no kernel;
 * ``True``: srtpu's ``ResidualGroup`` / ``RCAB`` path with the fused
   gate, K8b, in every RCAB (``CALayer(use_pallas=True)``: f32 pool, MLP
   and sigmoid, f32 weights); the RCAB convs and every close conv stock.
@@ -26,8 +30,9 @@ import math
 import torch
 from torch import nn
 
-from ..ops import ca_gate, conv3x3, resgroup
-from .common import Conv2d, UpscaleBlock, _conv, mean_shift, uniform_param
+from ..ops import ca_gate, conv3x3, conv3x3_plain, resgroup, resgroup_xla
+from .common import (CS_MAX_FEATS, Conv2d, UpscaleBlock, _conv, mean_shift,
+                     uniform_param)
 
 
 class ResidualGroup(nn.Module):
@@ -35,13 +40,15 @@ class ResidualGroup(nn.Module):
     stacked weights, HWIO conv weights w1, w2 (L, 3, 3, C, C), biases b1,
     b2 (L, C), the attention MLP wd (L, C, C/r), bd (L, C/r), wu (L, C/r,
     C), bu (L, C), and the close conv wc (3, 3, C, C), bc (C,); srtpu's
-    init bounds."""
+    init bounds. Past ``CS_MAX_FEATS`` features the ``'cs'`` route is
+    srtpu's XLA group (``xla``)."""
 
     def __init__(self, n_feats: int = 64, reduction: int = 16,
                  n_resblocks: int = 16, *, device=None,
                  generator: torch.Generator):
         super().__init__()
         n, nb, cr = n_feats, n_resblocks, n_feats // reduction
+        self.xla = n > CS_MAX_FEATS
         cb = 1.0 / math.sqrt(9 * n)
 
         def param(shape, bound):
@@ -60,12 +67,15 @@ class ResidualGroup(nn.Module):
 
     def forward(self, x: torch.Tensor, plain: bool = False,
                 use_pallas: bool | str = 'cs') -> torch.Tensor:
-        """``'cs'``: K5 and K2 (``resgroup``); ``True`` / ``False``: srtpu's
-        ``RCAB`` path in x's dtype, the gate K8b / stock."""
+        """``'cs'``: K5 and K2 (``resgroup``), past ``CS_MAX_FEATS``
+        srtpu's XLA group (``resgroup_xla``); ``True`` / ``False``:
+        srtpu's ``RCAB`` path in x's dtype, the gate K8b / stock."""
         if use_pallas == 'cs':
-            return resgroup(x, self.w1, self.b1, self.w2, self.b2, self.wd,
-                            self.bd, self.wu, self.bu, self.wc, self.bc,
-                            plain)
+            prm = (self.w1, self.b1, self.w2, self.b2, self.wd, self.bd,
+                   self.wu, self.bu, self.wc, self.bc)
+            if self.xla:
+                return resgroup_xla(x, *prm)
+            return resgroup(x, *prm, plain)
         dt, res = x.dtype, x
         for w1, b1, w2, b2, wd, bd, wu, bu in zip(*(t.unbind(0) for t in (
                 self.w1, self.b1, self.w2, self.b2, self.wd, self.bd,
@@ -109,6 +119,7 @@ class RCAN(nn.Module):
             raise ValueError(f"use_pallas must be False, True or 'cs', got "
                              f'{use_pallas!r}')
         self.use_pallas = use_pallas
+        self.xla = n_feats > CS_MAX_FEATS
         self.scale_factor = scale_factor
         self.channels = channels
         self.dtype = dtype
@@ -135,7 +146,11 @@ class RCAN(nn.Module):
         res, route = x, self.use_pallas
         for group in self.groups:
             res = group(res, plain, route)
-        if route == 'cs':
+        if route == 'cs' and self.xla:
+            # srtpu's conv3x3_reference on the weight rounded to dtype
+            res = conv3x3_plain(res, self.trunk_close_weight.to(dtype),
+                                self.trunk_close_bias.float())
+        elif route == 'cs':
             res = conv3x3(res, self.trunk_close_weight,
                           self.trunk_close_bias, plain)
         else:

@@ -19,7 +19,8 @@ trunk on K6) and ``rdn_trunk_layers`` (srtpu's round-2 trunk, one K2
 launch per dense layer), ``wdsr.wdsr_block``, ``resblock_fused``,
 ``resblock_fused_v3`` (K8a forward, K9d backward), ``ca_gate`` and
 ``wdsr_block.wdsr_block_fused``. ``trunk.trunk_xla`` is srtpu's XLA
-trunk past 96 features (stock ops). Kernels build on first use
+trunk past 96 features (stock ops), ``rcab.resgroup_xla`` its RCAN
+residual group there. Kernels build on first use
 (``_build``)."""
 
 from .bn_block import (BNCloseFn, BNResBlockFn, b1_plain, b1_sums, b2_call,
@@ -32,7 +33,7 @@ from .conv import (Conv3x3Fn, conv3x3, conv3x3_bwd, conv3x3_bwd_plain,
                    conv3x3_fwd, conv3x3_plain)
 from .rcab import (ResGroupFn, rcab_bwd, rcab_bwd_plain, rcab_fwd,
                    rcab_fwd_plain, resgroup, resgroup_bwd, resgroup_bwd_plain,
-                   resgroup_fwd, resgroup_plain)
+                   resgroup_fwd, resgroup_plain, resgroup_xla)
 from .resblock import (FusedResBlockFn, FusedResBlockV3Fn,
                        resblock_bwd_fused, resblock_bwd_fused_plain,
                        resblock_fused, resblock_fused_bwd,
@@ -53,7 +54,7 @@ __all__ = ['BNCloseFn', 'BNResBlockFn', 'CALayerFn', 'Conv3x3Fn',
            'RDNLayersFn', 'RDNTrunkFn', 'ResGroupFn', 'TrunkFn',
            'rdn_trunk_calls', 'rdn_trunk_layers', 'resblock_bwd_fused',
            'resblock_bwd_fused_plain', 'resblock_cs', 'resblock_fused_v3',
-           'trunk_xla',
+           'resgroup_xla', 'trunk_xla',
            'UpsampleFn', 'b1_plain', 'b1_sums', 'b2_call', 'b2_plain',
            'b3_call', 'b3_plain', 'bn_close', 'bn_close_ref', 'bn_resblock',
            'bn_resblock_ref', 'ca_gate', 'ca_layer_fwd', 'ca_layer_plain',

@@ -35,6 +35,7 @@ SIGNATURES = {
     'srt_resblock_fwd': [_P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P],
     'srt_resblock_bwd': [_P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P],
     'srt_conv5x5_fwd': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    'srt_conv_dx': [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     'srt_conv_wgrad': [_P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _I,
                        _I, _I, _F, _I, _I, _I, _P],
     'srt_bn_conv_stats': [_P] * 11 + [_I] * 4 + [_P],
@@ -150,5 +151,8 @@ def expect(t, name: str, dtype, shape, device, aligned: bool = True) -> None:
 
 
 def stream(device) -> int:
+    """The raw handle of ``device``'s current stream (PyTorch's own
+    lookup, without building a Stream object: it is on every launch's
+    host path)."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -2,20 +2,26 @@
 its backward, at any channel counts that are multiples of 16.
 
 Replaces ``srtpu/ops/cs_conv.py:conv3x3_cs_fwd`` and ``conv3x3_cs_bwd``
-(behind ``conv3x3_cs`` / ``conv3x3_cs_pre``). The forward kernel is
-``csrc/conv.cu``, whose head note says what bounds it on the H100 and
-how its design answers that; the backward's dx is the same kernel with
-the transposed weight and no bias, its dW and db the weight-grad kernel
-(:mod:`.wgrad`). :func:`conv3x3_fwd` and :func:`conv3x3_bwd` launch the
-kernels for CUDA tensors and take the plain versions only for CPU
-tensors. Each counts its launches per kernel size and path:
-``launches`` at 3x3 and ``launches_5x5`` at 5x5 (SRResNet's phase-dense
-final conv) on the instances of their own, ``launches_general`` and
-``launches_general_5x5`` on the general path (DDBPN, the x3 tails).
+(behind ``conv3x3_cs`` / ``conv3x3_cs_pre``) and their stacked forms
+(``conv3x3_cs_fwd_stk``, ``conv3x3_cs_bwd_stk``: RDN's dense layers). The
+forward kernel is ``csrc/conv.cu`` on the wgmma engine of
+``csrc/conv_sm90.cuh``; conv.cu's head note says what bounds each shape
+class on the H100 and how the design answers that. The backward's dx is
+the same kernel with the transposed weight and no bias, its dW and db
+the weight-grad kernel (:mod:`.wgrad`). :func:`conv3x3_fwd` and
+:func:`conv3x3_bwd` launch the kernels for CUDA tensors and take the
+plain versions only for CPU tensors. Each counts its launches by kernel
+size and shape class (one engine runs them all): ``launches`` at 3x3 and
+``launches_5x5`` at 5x5 for the EDSR, SRResNet and RDN shapes
+(:func:`_own_instance`), ``launches_general`` and
+``launches_general_5x5`` for the others (DDBPN, the x3 tails, RDN's
+dense layers past 64 channels).
 :func:`conv3x3` is the differentiable op (:class:`Conv3x3Fn`).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -55,9 +61,17 @@ def conv3x3_bwd_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor
     return (dx, *conv_wgrad_plain(x, g, k=w.shape[0]))
 
 
+def conv3x3_dx_plain(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain dx of a conv with weight w from its output's cotangent g: the
+    f32 conv of g with :func:`~.layout.w_t` (w), rounded once to g's
+    dtype."""
+    return conv_f32(g, w_t(w)).to(g.dtype).contiguous()
+
+
 def _own_instance(cin: int, cout: int, k: int) -> bool:
-    """The EDSR, SRResNet and RDN shapes, on instances of their own (as
-    ``csrc/conv.cu`` dispatches them)."""
+    """The EDSR, SRResNet and RDN shapes: the shape class the launch
+    counters ``launches`` / ``launches_5x5`` count (the others count on
+    ``launches_general*``)."""
     if k == 5:
         return (cin == 256 and cout % 16 == 0) or (cin == 16
                                                    and cout % 64 == 0)
@@ -66,11 +80,17 @@ def _own_instance(cin: int, cout: int, k: int) -> bool:
 
 
 def _engine_takes(cin: int, cout: int, k: int) -> bool:
-    """K2 takes a k = 3 or 5 conv whose cin and cout are multiples of 16:
-    :func:`_own_instance`'s shapes, and every other on the general path
-    (``csrc/conv.cu`` through ``csrc/tile_conv.cuh``'s
-    conv_chunked_kernel)."""
+    """K2 takes a k = 3 or 5 conv whose cin and cout are multiples of 16
+    (``csrc/conv_sm90.cuh``: 64-, 32- or 16-channel slices of cin, an N of
+    16 to 192 that divides cout)."""
     return k in (3, 5) and cin % 16 == 0 and cout % 16 == 0
+
+
+def _on(dev):
+    """torch.cuda.device(dev), or nothing when dev is current (entering it
+    costs microseconds a launch)."""
+    return (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+            else torch.cuda.device(dev))
 
 
 def _launch(x, w, b, relu: bool, name: str) -> torch.Tensor:
@@ -88,9 +108,9 @@ def _launch(x, w, b, relu: bool, name: str) -> torch.Tensor:
     _build.expect(w, 'w', torch.bfloat16, (k, k, cin, cout), dev)
     if b is not None:
         _build.expect(b, 'b', torch.float32, (cout,), dev)
-    out = torch.empty((bsz, h, wd, cout), dtype=torch.bfloat16, device=dev)
+    out = x.new_empty((bsz, h, wd, cout))
     entry = 'srt_conv5x5_fwd' if k == 5 else 'srt_conv3x3_fwd'
-    with torch.cuda.device(dev):
+    with _on(dev):
         err = getattr(_build.library(), entry)(
             x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
             out.data_ptr(), bsz, h, wd, cin, cout, int(relu),
@@ -99,10 +119,36 @@ def _launch(x, w, b, relu: bool, name: str) -> torch.Tensor:
     return out
 
 
-def _count(fn, w: torch.Tensor) -> None:
-    """One launch of ``fn``'s kernel at ``w``'s (the launched weight's)
-    size and path."""
-    k, cin, cout = w.shape[0], w.shape[-2], w.shape[-1]
+def conv3x3_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dx of a k x k SAME conv with weight w (k, k, Cin, Cout) from its
+    output's cotangent g (B, H, W, Cout): the transposed conv, f32 sums
+    rounded once to g's dtype (B, H, W, Cin). On CUDA (bf16, channels
+    multiples of 16) K2's engine reading w itself, its taps reversed
+    (``csrc/conv_dx.cu``); on the CPU :func:`conv3x3_dx_plain`."""
+    if g.device.type == 'cpu':
+        return conv3x3_dx_plain(g, w)
+    if g.device.type != 'cuda':
+        raise ValueError(f'conv3x3_dx: no kernel for device {g.device}')
+    bsz, h, wd, cout = g.shape
+    k, cin = w.shape[0], w.shape[-2]
+    if not _engine_takes(cout, cin, k):
+        raise ValueError(f'conv3x3_dx: no kernel for {k}x{k} {cout} -> '
+                         f'{cin} channels')
+    dev = g.device
+    _build.expect(g, 'g', torch.bfloat16, (bsz, h, wd, cout), dev)
+    _build.expect(w, 'w', torch.bfloat16, (k, k, cin, cout), dev)
+    dx = g.new_empty((bsz, h, wd, cin))
+    with _on(dev):
+        err = _build.library().srt_conv_dx(
+            g.data_ptr(), w.data_ptr(), dx.data_ptr(), bsz, h, wd, cout, cin,
+            k, _build.stream(dev))
+    _build.check(err, 'srt_conv_dx')
+    return dx
+
+
+def _count(fn, k: int, cin: int, cout: int) -> None:
+    """One launch of ``fn``'s kernel at a k x k cin -> cout conv, on its
+    shape class's counter."""
     attr = 'launches' if _own_instance(cin, cout, k) else 'launches_general'
     attr += '_5x5' if k == 5 else ''
     setattr(fn, attr, getattr(fn, attr) + 1)
@@ -113,14 +159,14 @@ def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """x (B, H, W, Cin) bf16; w (k, k, Cin, Cout) bf16; b (Cout,) f32 ->
     (B, H, W, Cout) bf16. On CUDA, k = 3 or 5 with Cin and Cout multiples
     of 16: the EDSR tail's 64 -> 64, 64 -> 256, 256 -> 16 and SRResNet's
-    5x5 256 -> 16 on their own instances; DDBPN's projections (x4: 32 ->
-    512, 512 -> 32; x2: 32 -> 128, 128 -> 32), its output convs (512 ->
-    48, 128 -> 16) and the x3 tails' phase-dense 576 -> 32 (3x3 and 5x5)
-    on the general path."""
+    5x5 256 -> 16 (counted on ``launches*``); DDBPN's projections (x4: 32
+    -> 512, 512 -> 32; x2: 32 -> 128, 128 -> 32), its output convs (512
+    -> 48, 128 -> 16) and the x3 tails' phase-dense 576 -> 32 (3x3 and
+    5x5) (counted on ``launches_general*``)."""
     if x.device.type == 'cpu':
         return conv3x3_plain(x, w, b, relu)
     out = _launch(x, w, b, relu, 'conv3x3_fwd')
-    _count(conv3x3_fwd, w)
+    _count(conv3x3_fwd, w.shape[0], w.shape[-2], w.shape[-1])
     return out
 
 
@@ -128,10 +174,11 @@ def conv3x3_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (B, H, W, Cin) bf16; w (k, k, Cin, Cout) bf16; g (B, H, W, Cout)
     bf16 -> dx bf16, dW (k, k, Cin, Cout) f32, db (Cout,) f32. On CUDA at
-    every shape :func:`conv3x3_fwd` takes: dx is the forward kernel on
-    the transposed weight (DDBPN x4's 512 -> 32, 32 -> 512, 48 -> 512;
-    x2's 128 -> 32, 32 -> 128, 16 -> 128; the x3 tails' 32 -> 576), dW
-    and db the weight-grad kernel at (Cin, Cout)."""
+    every shape :func:`conv3x3_fwd` takes: dx is :func:`conv3x3_dx`, the
+    forward's engine on w read as the transposed conv's weight (DDBPN
+    x4's 512 -> 32, 32 -> 512, 48 -> 512; x2's 128 -> 32, 32 -> 128, 16
+    -> 128; the x3 tails' 32 -> 576), counted by that Cout -> Cin conv's
+    shape class; dW and db the weight-grad kernel at (Cin, Cout)."""
     if x.device.type == 'cpu':
         return conv3x3_bwd_plain(x, w, g)
     if x.device.type != 'cuda':
@@ -141,12 +188,9 @@ def conv3x3_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor
     if not _engine_takes(cout, cin, k):
         raise ValueError(f'conv3x3_bwd: no kernel for {k}x{k} {cin} -> '
                          f'{cout} channels')
-    dev = x.device
-    _build.expect(x, 'x', torch.bfloat16, (bsz, h, wd, cin), dev)
-    _build.expect(g, 'g', torch.bfloat16, (bsz, h, wd, cout), dev)
-    wt = w_t(w).contiguous()
-    dx = _launch(g, wt, None, False, 'conv3x3_bwd')
-    _count(conv3x3_bwd, wt)
+    _build.expect(x, 'x', torch.bfloat16, (bsz, h, wd, cin), x.device)
+    dx = conv3x3_dx(g, w)   # checks g and w
+    _count(conv3x3_bwd, k, cout, cin)
     return (dx, *conv_wgrad(x, g, k=k))
 
 

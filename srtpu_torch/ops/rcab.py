@@ -241,7 +241,7 @@ def resgroup_fwd(x, w1s, b1s, w2s, b2s, wds, bds, wus, bus, wc, bc,
         cur = x
         for prm in blocks:
             cur = (rcab_fwd if kernel else rcab_fwd_plain)(cur, *prm)
-    out = (conv3x3_fwd if kernel else conv3x3_plain)(cur, wc, bc) + x
+    out = (conv3x3_plain if plain else conv3x3_fwd)(cur, wc, bc) + x
     return (out, xs, h1s, r2s) if save else out
 
 
@@ -262,7 +262,7 @@ def resgroup_bwd(xs, h1s, r2s, g, w1s, w2s, wds, bds, wus, bus, wc,
     (w1s, b1s, w2s, b2s, wds, bds, wus, bus, wc, bc)."""
     kernel = not plain and g.device.type != 'cpu'
     n = w1s.shape[0]
-    gc, dwc, dbc = (conv3x3_bwd if kernel else conv3x3_bwd_plain)(
+    gc, dwc, dbc = (conv3x3_bwd_plain if plain else conv3x3_bwd)(
         xs[n], wc, g)
     w1t, w2t = w_t(w1s).contiguous(), w_t(w2s).contiguous()
     dr2s, dh1s = torch.empty_like(h1s), torch.empty_like(h1s)
@@ -327,3 +327,22 @@ def resgroup(x, w1s, b1s, w2s, b2s, wds, bds, wus, bus, wc, bc,
             t.requires_grad for t in (x, *params)):
         return ResGroupFn.apply(x, *params, plain)
     return resgroup_fwd(x, *_cast(x, *params), plain=plain)
+
+
+def resgroup_xla(x, w1s, b1s, w2s, b2s, wds, bds, wus, bus, wc, bc):
+    """srtpu ``CSResidualGroup.xla_apply``, which its RCAN trunk takes past
+    96 features (srtpu/models/rcan.py:130-147, :235-240), in stock
+    differentiable ops on x's dtype: per RCAB ``conv3x3_reference`` twice
+    on the f32 weights (f32 conv + f32 bias, rounded to x's dtype; ReLU
+    between), ``ca_gate_reference`` (f32 pool, MLP and sigmoid; the gate
+    rounded to x's dtype, r * gate in x's dtype) and the skip in x's
+    dtype; then the close conv as ``conv3x3_reference`` and the group skip.
+    No kernel of the port runs here."""
+    res = x
+    for w1, b1, w2, b2, wd, bd, wu, bu in _blocks(w1s, b1s, w2s, b2s, wds,
+                                                  bds, wus, bus):
+        r = conv3x3_plain(res, w1.float(), b1.float(), relu=True)
+        r = conv3x3_plain(r, w2.float(), b2.float())
+        q = _attention(r.float(), wd, bd, wu, bu)[2]
+        res = res + r * q[:, None, None, :].to(r.dtype)
+    return conv3x3_plain(res, wc.float(), bc.float()) + x

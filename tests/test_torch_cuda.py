@@ -1133,6 +1133,26 @@ def test_edsr_past_96_features_runs_no_kernel(device):
         narrow(lr)
 
 
+def test_rcan_past_96_features_runs_no_kernel(device):
+    """F11: RCAN's 'cs' route at 128 features takes srtpu's XLA residual
+    groups and trunk close conv on the card (stock ops), forward and
+    backward, launching none of K5, K2 or the weight-grad kernel."""
+    fns = (rcab_fwd, rcab_bwd, conv3x3_fwd, conv3x3_bwd, conv_wgrad)
+    before = [f.launches for f in fns]
+    model = create_model('RCAN', n_feats=128, n_resgroups=1, n_resblocks=2,
+                         reduction=16, dtype=torch.bfloat16, device=device,
+                         generator=torch.Generator().manual_seed(2))
+    lr = torch.rand((2, 12, 20, 3),
+                    generator=torch.Generator().manual_seed(3)).to(device)
+    y = model(lr)
+    y.float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert y.shape == (2, 48, 80, 3) and bool(torch.isfinite(y).all())
+    assert [f.launches for f in fns] == before
+    assert all(bool(torch.isfinite(p.grad).all())
+               for p in model.parameters())
+
+
 def _rdn_ops(gen, device, d=2, c=8, g0=64):
     """RDN trunk parameters (per-layer stacks, f32 as the model holds
     them) at srtpu's init bounds."""

@@ -360,3 +360,45 @@ def test_predict_cli_true_route_matches_srtpu_trainer(tmp_path):
         assert port.shape == ref.shape
         assert np.abs(port - ref).max() <= 1
     assert port.shape == (96, 96, 3)
+
+
+# ------------------------------------- (g) F12: past srtpu's VMEM gate
+
+def test_f12_edsr_true_past_resblock_fits_within_route_tolerance():
+    """F12, EDSR's True route past srtpu's ``resblock_fits``: srtpu takes
+    ``resblock_reference`` there (XLA; h1 kept in f32 for the weight
+    grads, which come back rounded to bf16), the port K8a at every size
+    (its weight grads from the saved bf16 h1). At 64 features, one block,
+    batch 1, LR 104x104 (past the gate's 10 MiB), bf16, under test (b)'s
+    weighted sin loss: the value and every gradient within test (b)'s
+    bf16 tolerance, 2^-6 of each tensor's largest magnitude. ``pytest -s``
+    prints each gap."""
+    c, hw = 64, 104
+    assert not jrb.resblock_fits((1, hw, hw, c), jnp.bfloat16)
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((1, hw, hw, c)).astype(np.float32) * 0.5
+    cb = (9 * c) ** -0.5
+    prm = (_u(rng, cb, 3, 3, c, c), _u(rng, cb, c), _u(rng, cb, 3, 3, c, c),
+           _u(rng, cb, c))
+    row_w = np.arange(1, c + 1, dtype=np.float32) / c
+
+    def loss(xx, w1, b1, w2, b2):
+        y = jrb.resblock_reference(xx, w1.astype(jnp.bfloat16), b1,
+                                   w2.astype(jnp.bfloat16), b2, RS)
+        return jnp.sum(jnp.sin(y.astype(jnp.float32)) * row_w)
+
+    v_ref, g_ref = jax.value_and_grad(loss, argnums=(0, 1, 2, 3, 4))(
+        jnp.asarray(x, jnp.bfloat16), *map(jnp.asarray, prm))
+    xt = torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+    pt = [torch.from_numpy(a).requires_grad_() for a in prm]
+    out = k8a.resblock_fused(xt, *pt, RS)
+    v = (torch.sin(out.float()) * torch.from_numpy(row_w)).sum()
+    v.backward()
+    tol = _tol('bf16')
+    gaps = [abs(v.item() - float(v_ref)) / abs(float(v_ref))]
+    for got, ref in zip((xt.grad, *(t.grad for t in pt)), g_ref):
+        got, ref = _np(got), _np(ref)
+        gaps.append(float(np.abs(got - ref).max() / np.abs(ref).max()))
+    print('F12 EDSR True past resblock_fits, max |d| / max |ref| of value, '
+          'dx, dw1, db1, dw2, db2:', ' '.join(f'{g:.3g}' for g in gaps))
+    assert max(gaps) <= tol, gaps

@@ -280,3 +280,93 @@ def test_convert_npz_roundtrip(tmp_path, use_pallas):
     assert main([str(tmp_path / 'p.npz'), str(tmp_path / 'p.pt')]) == 0
     _port(4, params).load_state_dict(
         torch.load(tmp_path / 'p.pt', weights_only=True))
+
+
+# ---------------------------------------------- (f) F11: past 96 features
+
+def _boom(*a, **kw):
+    raise AssertionError('a kernel op of the port ran past 96 features')
+
+
+@pytest.mark.parametrize('scale', [2, 4])
+def test_rcan_past_96_features_is_srtpus_xla_path(monkeypatch, scale):
+    """F11: at 128 features srtpu's CSRCANTrunk runs its groups' XLA math
+    (``xla_apply``: r2 rounded, the gate in bf16, the skips rounded, the
+    close convs as conv3x3_reference) though its kernels are on
+    (SRTPU_CS_OFF_TPU=1); the port's 'cs' route computes the same in
+    stock ops, no K5 or K2 op: bf16, one group of 2 RCABs, LR 16x16.
+
+    The trunk's output (the upscale stage's input): at most 1/8 of its
+    values apart at all, their mean difference at most 2^-13. The f32
+    sums run in another order on the two sides, so a value next to a
+    bf16 rounding boundary lands a step apart; a one-step flip of a bf16
+    gate value scales a whole channel of an image (1/128 of the values),
+    and the trunk close conv reads 1,152 values for each output, so such
+    steps spread (about 6% apart, mean 2^-14.5 here). K5's math (r2 kept
+    in f32, one rounding per RCAB) leaves about 27% apart, mean 2^-12.1.
+    The SR image: every value within 2^-6 of the largest magnitude (as
+    EDSR past 96 features)."""
+    import flax.linen as fnn
+    import srtpu_torch.models.rcan as port_rcan
+    monkeypatch.setenv('SRTPU_CS_OFF_TPU', '1')
+    for name in ('resgroup', 'conv3x3'):
+        monkeypatch.setattr(port_rcan, name, _boom)
+    x = np.random.default_rng(scale).random((2, 16, 16, 3), np.float32)
+    kw = dict(scale_factor=scale, n_feats=128, n_resblocks=2, n_resgroups=1,
+              reduction=16)
+    m = jax_create_model('RCAN', dtype=jnp.bfloat16, **kw)
+    params = m.init(jax.random.PRNGKey(scale), jnp.asarray(x))
+    seen = {}
+
+    def trunk_out(next_fun, args, kwargs, context):
+        if type(context.module).__name__ == 'UpscaleBlock':
+            seen['ref'] = np.asarray(args[0].astype(jnp.float32))
+        return next_fun(*args, **kwargs)
+
+    cs_conv.PATH_LOG.clear()
+    with fnn.intercept_methods(trunk_out):
+        ref = np.asarray(m.apply(params, jnp.asarray(x)).astype(jnp.float32))
+    assert set(cs_conv.PATH_LOG.values()) == {'xla'}
+    port = create_model('RCAN', dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(0), **kw)
+    port.load_state_dict(params_from_jax(_tree_np(params)))
+    port.upscale.register_forward_pre_hook(
+        lambda mod, args: seen.update(got=args[0].float().numpy()))
+    got = _port_out(port, x)
+    assert seen['got'].shape == seen['ref'].shape == (2, 16, 16, 128)
+    diff = np.abs(seen['got'] - seen['ref'])
+    assert (diff > 0).mean() <= 1 / 8, (diff > 0).mean()
+    assert diff.mean() <= 2.0 ** -13, diff.mean()
+    assert got.shape == ref.shape == (2, 16 * scale, 16 * scale, 3)
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=2.0 ** -6 * np.abs(ref).max())
+
+
+def test_f12_rcan_cs_past_s_max_within_route_tolerance(monkeypatch):
+    """F12, RCAN's 'cs' route past srtpu's ``S_MAX`` (8,320 lanes a kernel
+    group): srtpu's CSRCANTrunk takes ``xla_apply`` there (r2 rounded, the
+    gate in bf16, the skips rounded), and RCAN is left out of tiled
+    predict; the port runs K5's math (r2 in f32, one rounding per RCAB) at
+    every size. At 64 features, one group of 2 RCABs, reduction 16, batch
+    1, LR 96x96 (9,216 lanes), bf16, x2: the SR image within the bf16
+    tolerance of (b), 2^-6 (outputs below 2). ``pytest -s`` prints the
+    gap."""
+    monkeypatch.setenv('SRTPU_CS_OFF_TPU', '1')
+    x = np.random.default_rng(96).random((1, 96, 96, 3), np.float32)
+    kw = dict(scale_factor=2, n_feats=64, n_resblocks=2, n_resgroups=1,
+              reduction=16)
+    m = jax_create_model('RCAN', dtype=jnp.bfloat16, **kw)
+    params = m.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    cs_conv.PATH_LOG.clear()
+    ref = np.asarray(m.apply(params, jnp.asarray(x)).astype(jnp.float32))
+    assert set(cs_conv.PATH_LOG.values()) == {'xla'}
+    port = create_model('RCAN', dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(0), **kw)
+    port.load_state_dict(params_from_jax(_tree_np(params)))
+    got = _port_out(port, x)
+    assert got.shape == ref.shape == (1, 192, 192, 3)
+    assert np.abs(ref).max() < 2
+    gap = float(np.abs(got - ref).max())
+    print(f'F12 RCAN cs past S_MAX: max |d| {gap:.4g} (2^{np.log2(gap):.2f}),'
+          f' share apart {(got != ref).mean():.4g}')
+    assert gap <= 2.0 ** -6, gap

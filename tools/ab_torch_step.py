@@ -1,0 +1,136 @@
+"""Interleaved A/B of srtpu_torch between two source trees on one card:
+train-step and predict times of the models chip_smoke.py runs.
+
+    python tools/ab_torch_step.py TREE_A TREE_B [--models EDSR,DDBPN]
+                                  [--rounds 2]
+
+TREE_A and TREE_B are checkouts of this repository (for example the
+parent commit unpacked with ``git archive`` into a git-ignored directory,
+and ``.``). Each (tree, model) runs in a process of its own that imports
+srtpu_torch from that tree (its kernels build into that tree's
+``build/``), draws the model from seed 0 at chip_smoke.py's
+configuration, and times, with CUDA events, the train step (batch 16, LR
+32x32, x4, bf16, L1, Adam at lr 1e-4; 5 steps a window, the median of 3
+windows) and one predict forward of an LR 128x128 image (the median of
+5), on random inputs; it prints one JSON line. Each round runs A, B, B,
+A, so a drift of the card or its host falls on both trees alike. The
+last lines are a table of every run and the medians per tree, with the
+card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+# chip_smoke.py's model flags (srtpu's bench rows)
+MODELS = {
+    'EDSR': [],
+    'RCAN': ['--n_resgroups', '10', '--n_resblocks', '16', '--reduction',
+             '16'],
+    'SRResNet': [],
+    'RDN': ['--rdn_config', 'B', '--growth0', '64'],
+    'DDBPN': ['--n0', '128', '--nr', '32', '--depth', '6'],
+    'WDSR': ['--n_feats', '128', '--n_resblocks', '16', '--use_pallas',
+             'cs'],
+}
+
+
+def median_ms(fn, calls: int, windows: int) -> float:
+    import numpy as np
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
+def worker(tree: str, model: str) -> None:
+    """Time one model from ``tree`` and print one JSON line."""
+    sys.path.insert(0, str(Path(tree).resolve()))
+    import torch
+    from srtpu_torch import cli
+    from srtpu_torch.losses import parse_losses
+    from srtpu_torch.optim import build_optimizer
+    from srtpu_torch.train import TrainState, make_train_step
+
+    device = torch.device('cuda', 0)
+    argv = ['fit', '--model', model, '--scale_factor', '4', '--precision',
+            'bf16', '--device', 'cuda', '--seed', '0', '--train_datasets',
+            'Train', *MODELS[model]]
+    net = cli.build_model(cli.build_parser().parse_args(argv), device)
+    gen = torch.Generator().manual_seed(0)
+    lr = torch.rand((16, 32, 32, 3), generator=gen).to(device)
+    hr = torch.rand((16, 128, 128, 3), generator=gen).to(device)
+    step = make_train_step(parse_losses('l1'))
+    state = TrainState(net, build_optimizer('ADAM', ['lr=1e-4'],
+                                            net.parameters()))
+    step_ms = median_ms(lambda: step(state, lr, hr), 5, 3)
+    net.eval()
+    image = torch.rand((1, 128, 128, 3), generator=gen).to(device)
+    with torch.no_grad():
+        predict_ms = median_ms(lambda: net(image), 1, 5)
+    import srtpu_torch
+    print(json.dumps({'tree': tree, 'model': model, 'step_ms': step_ms,
+                      'predict_ms': predict_ms,
+                      'package': str(Path(srtpu_torch.__file__).parent)}))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('trees', nargs='*')
+    ap.add_argument('--models', default='EDSR,DDBPN')
+    ap.add_argument('--rounds', type=int, default=2)
+    ap.add_argument('--worker', nargs=2, metavar=('TREE', 'MODEL'))
+    args = ap.parse_args()
+    if args.worker:
+        worker(*args.worker)
+        return
+    if len(args.trees) != 2:
+        ap.error('give two trees')
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    a, b = args.trees
+    rows = []
+    for model in args.models.split(','):
+        for _ in range(args.rounds):
+            for tree in (a, b, b, a):
+                proc = subprocess.run(
+                    [sys.executable, __file__, '--worker', tree, model],
+                    capture_output=True, text=True)
+                if proc.returncode:
+                    raise SystemExit(f'{tree} {model}: {proc.stderr[-4000:]}')
+                row = json.loads(proc.stdout.strip().splitlines()[-1])
+                print(json.dumps(row), flush=True)
+                rows.append(row)
+    import numpy as np
+    print(f'card: {smi}')
+    for model in args.models.split(','):
+        for tree in (a, b):
+            got = [r for r in rows if r['model'] == model
+                   and r['tree'] == tree]
+            print(f'{model} {tree}: step ms '
+                  + ' '.join(f'{r["step_ms"]:.3f}' for r in got)
+                  + f' (median {np.median([r["step_ms"] for r in got]):.3f})'
+                  '; predict LR 128x128 ms '
+                  + ' '.join(f'{r["predict_ms"]:.3f}' for r in got)
+                  + f' (median '
+                  f'{np.median([r["predict_ms"] for r in got]):.3f})')
+
+
+if __name__ == '__main__':
+    main()
