@@ -111,6 +111,14 @@ Phases, each of which raises on failure (nothing is caught):
    shape of the EDSR x4 tail, SRResNet's 5x5, DDBPN x4 and the x3 tails,
    against its plain version, two calls bit-identical, with kernel,
    plain, bound and library times;
+2l. the weight-grad engine (W) at every class the main paths launch
+   (``W_CASES``: stacked jobs, a scaled cotangent, the r = 2 gather,
+   REFLECT, 3x3 and 5x5 256 -> 16, DDBPN x4's three, 576 -> 32 at 3x3
+   and 5x5, K9c's 64 i -> 64, K7's 112 -> 128, K9d's 64 -> 128) at the
+   training shape and at 2 x 67 x 45, against its plain version within
+   1e-4 of the largest magnitude, two calls bit-identical, with its
+   time, bound and ``conv2d_weight``'s (cuDNN's heuristics and benchmark
+   mode) at the training shape (the W row's ``classes``);
 11. the DDBPN predict slice: phase 3's path and images with ``--model
    DDBPN`` at srtpu's defaults (n0 128, nr 32, depth 6): per image 39 K2
    forward launches on the general path (33 projection convs, 6
@@ -232,7 +240,9 @@ PyTorch call computing the same function where there is one
 heuristics as set here; ``library_bench_ms`` the same call with
 ``torch.backends.cudnn.benchmark`` on). K2's backward rows add ``dx_ms``
 / ``dx_bound_ms`` and ``wgrad_ms`` / ``wgrad_bound_ms``, their two
-launches. The last line is
+launches, and ``wgrad_library_ms`` / ``wgrad_library_bench_ms``, the
+weight grads' own ``conv2d_weight``; the W row adds ``classes``, phase
+2l's. The last line is
 ``{"ok": true, "device": {...}}``. Without CUDA (or without the repo)
 it exits nonzero and prints no result.
 """
@@ -440,7 +450,8 @@ K6_STEPS, K6B_STEPS = 4, {'dx': 2, 'dout': 2, 'dwf': 1e-4, 'dbf': 1e-4,
 BN_INVARIANT_VS_F32 = 4.0
 # K2's general shapes (DDBPN's, the x3 tails', RDN's dense layers past 64
 # channels; one engine runs every shape, the counters keep the classes
-# apart) and the weight-grad kernel's general path (wgrad_chunk_kernel)
+# apart) and the weight grads of those shapes (one engine too, counted
+# on conv_wgrad.launches_general)
 K2G_FWD, K2G_BWD = (conv3x3_fwd, 'launches_general'), (conv3x3_bwd,
                                                        'launches_general')
 K2G5_FWD = (conv3x3_fwd, 'launches_general_5x5')
@@ -709,11 +720,15 @@ def bwd_split(st: dict, x, w, g, smi: str, tag: str) -> None:
     wg_ms = median_ms(lambda: conv_wgrad(x, g, k=k))
     dx_b = max(bound(conv_flops(px, cout, cin, k), nbytes(g, w, dx)))
     wg_b = max(bound(conv_flops(px, cin, cout, k), nbytes(x, g, dw)))
+    wg_lib = lib_ms(lib_wgrad(x[None], g[None], k))
     for key, v in (('dx_ms', dx_ms), ('dx_bound_ms', dx_b),
-                   ('wgrad_ms', wg_ms), ('wgrad_bound_ms', wg_b)):
+                   ('wgrad_ms', wg_ms), ('wgrad_bound_ms', wg_b),
+                   ('wgrad_library_ms', wg_lib[0]),
+                   ('wgrad_library_bench_ms', wg_lib[1])):
         st[key] = st.get(key, 0.0) + v
     print(f'{tag} split: dx {dx_ms:.4f} ms (bound {dx_b:.5f}) | weight '
-          f'grads {wg_ms:.4f} ms (bound {wg_b:.5f})  [{smi}]')
+          f'grads {wg_ms:.4f} ms (bound {wg_b:.5f}; conv2d_weight '
+          f'{wg_lib[0]:.4f} / benchmark {wg_lib[1]:.4f})  [{smi}]')
 
 
 def lib_conv(x, w, b):
@@ -1761,6 +1776,108 @@ def check_k2_general(device, smi: str) -> dict:
     return stats
 
 
+# Phase 2l: the weight-grad engine (W, csrc/wgrad.cu) at every class the
+# main paths launch (tests/test_torch_wgrad_shapes.py holds the models'
+# classes to this list): (label, k, c_in, c_out, r, reflect, gscale, jobs,
+# LR multiple). Each at the training shape (batch 16, LR 32x32 times the
+# multiple) and at 2 x 67 x 45 (times the multiple), against
+# conv_wgrad_plain within 1e-4 of the largest magnitude (f32 sums of the
+# same bf16 products in another order), two calls bit-identical; at the
+# training shape its time, its bound and torch.nn.grad.conv2d_weight's
+# with cuDNN's heuristics and in benchmark mode (one call computes the
+# same function where there is no gather and no reflect). The device's
+# time alone, without the wrapper's host time: tools/wgrad_plans.py.
+W_CASES = (
+    ('EDSR / RCAN trunk, 16 stacked jobs', 3, C, C, 1, False, 1.0, L, 1),
+    ('trunk dW2 at res_scale 0.1, 16 stacked jobs', 3, C, C, 1, False, 0.1,
+     L, 1),
+    ('EDSR 64 x 86 trunk dW2, 86 stacked jobs, res_scale 0.1', 3, C, C, 1,
+     False, EDSR86_RS, EDSR86_L, 1),
+    ('close 64->64 (K2b, K4 BN block)', 3, C, C, 1, False, 1.0, 1, 1),
+    ('K3 r=2 gather 64->256', 3, C, 4 * C, 2, False, 1.0, 1, 1),
+    ('phase-major 64->256 at 2x', 3, C, 4 * C, 1, False, 1.0, 1, 2),
+    ('phase-dense 256->16 at 2x', 3, 4 * C, 16, 1, False, 1.0, 1, 2),
+    ('phase-dense 5x5 256->16 at 2x', 5, 4 * C, 16, 1, False, 1.0, 1, 2),
+    ('K4r reflect 64->64 (SRGAN)', 3, C, C, 1, True, 1.0, 1, 1),
+    *((f'DDBPN x4 {ci}->{co}', k, ci, co, 1, False, 1.0, 1, 1)
+      for ci, co, k in K2G_X4),
+    ('x3 phase-major 64->576', 3, C, 9 * C, 1, False, 1.0, 1, 1),
+    ('x3 phase-dense 576->32', 3, 9 * C, 32, 1, False, 1.0, 1, 1),
+    ('x3 phase-dense 5x5 576->32', 5, 9 * C, 32, 1, False, 1.0, 1, 1),
+    *((f'K9c dense layer {C * i}->{C}', 3, C * i, C, 1, False, 1.0, 1, 1)
+      for i in range(1, 9)),
+    ('K7 dW3 112->128', 3, 112, WDSR_C, 1, False, 1.0, 1, 1),
+    ('K9d [hi | lo] 64->128', 3, C, 2 * C, 1, False, 1.0, 1, 1),
+)
+
+
+def w_cases(device, bsz: int, h: int, w: int) -> list[tuple]:
+    """(label, k, c_in, c_out, r, reflect, gscale, jobs, x, g) of each W
+    case for a batch of h x w LR patches."""
+    gen = torch.Generator().manual_seed(bsz * 1000 + h * 10 + w)
+    out = []
+    for label, k, cin, cout, r, rf, gs, jobs, mult in W_CASES:
+        hh, ww = h * mult, w * mult
+        lead = (jobs,) if jobs > 1 else ()
+        gshape = ((*lead, bsz, r * hh, r * ww, cout // (r * r)) if r > 1
+                  else (*lead, bsz, hh, ww, cout))
+        x = _uniform(gen, (*lead, bsz, hh, ww, cin), 1.0, device,
+                     torch.bfloat16)
+        g = _uniform(gen, gshape, 1.0, device, torch.bfloat16)
+        out.append((label, k, cin, cout, r, rf, gs, jobs, x, g))
+    return out
+
+
+def check_w_classes(device, smi: str) -> tuple[list, float]:
+    """Phase 2l. Returns the W row's classes (each at the training shape:
+    ms, bound, bound_by, library ms in both modes) and the largest dW
+    error over all cases."""
+    classes, worst = [], 0.0
+    for i, (bsz, h, w) in enumerate(((TRAIN_BATCH, TRAIN_PATCH // SCALE,
+                                      TRAIN_PATCH // SCALE), (2, 67, 45))):
+        for label, k, cin, cout, r, rf, gs, jobs, x, g in w_cases(
+                device, bsz, h, w):
+            run = lambda: conv_wgrad(x, g, gs, r, k, rf)
+            got = run()
+            torch.cuda.synchronize()
+            ref = conv_wgrad_plain(x, g, gs, r, k, rf)
+            tag = f'{label} {bsz}x{x.shape[-3]}x{x.shape[-2]}'
+            need(all(torch.equal(a, b) for a, b in zip(got, run())),
+                 f'W {tag}: two calls differ')
+            errs = [_err(a, b, None) for a, b in zip(got, ref)]
+            for e, t, _ in errs:
+                need(np.isfinite(e) and e <= t, f'W {tag}: {e} > {t}')
+            worst = max(worst, errs[0][0])
+            line = (f'W {tag}: dW max_abs {errs[0][0]:.4g} tol '
+                    f'{errs[0][1]:.4g}, db {errs[1][0]:.4g} tol '
+                    f'{errs[1][1]:.4g}; deterministic')
+            if i == 0:
+                ms = median_ms(run)
+                ops_ms, bytes_ms = bound(
+                    conv_flops(x.numel() // cin, cin, cout, k),
+                    nbytes(x, g, got))
+                lib = (None, None)
+                if r == 1 and not rf:
+                    lead = (lambda t: t) if jobs > 1 else (lambda t: t[None])
+                    lib = lib_ms(lib_wgrad(lead(x), lead(g), k))
+                classes.append({
+                    'case': label, 'ms': ms,
+                    'bound_ms': max(ops_ms, bytes_ms),
+                    'bound_by': 'operations' if ops_ms >= bytes_ms
+                    else 'bytes',
+                    'library_ms': lib[0], 'library_bench_ms': lib[1],
+                    'max_abs_err': errs[0][0]})
+                line += (f' | kernel {ms:.4f} ms, bound '
+                         f'{max(ops_ms, bytes_ms):.5f} '
+                         f'({classes[-1]["bound_by"]}), conv2d_weight '
+                         + ('none' if lib[0] is None else
+                            f'{lib[0]:.4f} / benchmark {lib[1]:.4f}'))
+            print(f'{line}  [{smi}]')
+            del got, ref, x, g
+        torch.cuda.empty_cache()
+    return classes, worst
+
+
 # Phase 2k: K2's forward at the training shape (batch 16, LR 32x32): (k,
 # c_in, c_out, LR multiple) of the EDSR x4 tail (the close conv, which
 # RCAN's and RDN's share, at LR; the phase-major and phase-dense convs at
@@ -2514,7 +2631,7 @@ DDBPN_PROFILE = (
     ('conv_sm90_kernel<32, 1, 4,', 'K2 512->32 (down fwd, up dx)'),
     ('conv_sm90_kernel<16, 3, 4,', 'K2 512->48 (output conv fwd)'),
     ('conv_sm90_kernel<64, 2, 1,', 'K2 48->512 (output conv dx)'),
-    ('wgrad_chunk_kernel', 'weight grads (general path)'),
+    ('wgrad_sm90_kernel', 'weight grads (general shapes)'),
     ('wgrad_reduce', 'weight grads fixed-order reductions'),
     ('gemm', '1x1 bottlenecks and head (cuBLAS)'),
     ('nvjet', '1x1 bottlenecks and head (cuBLAS)'))
@@ -2525,7 +2642,7 @@ WDSR_PROFILE = (
     ('wdsr_pw_bwd_kernel', 'K7b fused pointwise bwd (h1 recomputed; dx, '
      'dW1, dW2)'),
     ('wdsr_reduce', 'K7b fixed-order reductions'),
-    ('wgrad_chunk_kernel', 'K7b dW3, db3 (weight-grad kernel)'),
+    ('wgrad_sm90_kernel', 'K7b dW3, db3 (weight-grad kernel)'),
     ('wgrad_reduce', 'K7b dW3, db3 reductions'),
     ('fprop', 'stock route: cuDNN conv forward'),
     ('dgrad', 'stock route: cuDNN conv dx'),
@@ -2535,7 +2652,7 @@ WDSR_PROFILE = (
 SRRESNET_X3_PROFILE = (
     ('conv_sm90_kernel<32, 1, 4,', 'K2 5x5 576->32 (x3 phase-dense fwd)'),
     ('conv_sm90_kernel<64, 3, 2,', 'K2 5x5 32->576 (its dx)'),
-    ('wgrad_chunk_kernel', 'weight grads, general path (5x5 576->32)'),
+    ('wgrad_sm90_kernel', 'weight grads (5x5 576->32 and the rest)'),
     *SRRESNET_PROFILE)
 SRGAN_PROFILE = (
     ('bn_fold_ring_kernel', 'K4r B2 / B3 fold ring'),
@@ -2549,7 +2666,7 @@ SRGAN_PROFILE = (
     ('bn_norm_skip_kernel', 'K4 F3 norm + skip'),
     ('bn_sums_kernel', 'K4 B1 sums'),
     ('bn_reduce_kernel', 'K4 fixed-order reductions + finalize'),
-    ('wgrad_kernel<', 'K4r weight grads (reflect)'),
+    ('wgrad_sm90_kernel', 'K4r weight grads (reflect)'),
     ('wgrad_reduce', 'K4r weight grads (reflect)'),
     ('multi_tensor_apply', 'Adam (G and D)'))
 # SRGAN predict: eval mode, stock PyTorch only (f32 cuDNN convs on
@@ -2565,8 +2682,7 @@ SRGAN_PREDICT_PROFILE = (
 # route's K8 kernel, the port's own weight-grad kernels (the 'cs' routes'),
 # the 'cs' route's kernels, then the stock ops the True routes run (cuDNN
 # convs in f32, cuBLAS, Adam)
-PORT_WGRAD_RULES = (('wgrad_kernel', 'weight grads (wgrad.cu)'),
-                    ('wgrad_chunk_kernel', 'weight grads (wgrad.cu)'),
+PORT_WGRAD_RULES = (('wgrad_sm90_kernel', 'weight grads (wgrad.cu)'),
                     ('wgrad_reduce', 'weight grads (wgrad.cu)'))
 STOCK_RULES = (('dgrad', 'stock: cuDNN conv dx'),
                ('wgrad', 'stock: cuDNN conv dW'),
@@ -2965,7 +3081,7 @@ def _gan_parts(net, vgg, lr, hr, smi: str) -> None:
         sr_ms = _all_device_ms(lambda: g(lr))
     parts = {'generator forward + backward': _all_device_ms(gen),
              'of which K4r (its kernels)': _kernel_device_ms(
-                 gen, K4_KERNELS + ('wgrad_kernel<', 'wgrad_reduce')),
+                 gen, K4_KERNELS + ('wgrad_sm90_kernel', 'wgrad_reduce')),
              'discriminator (3 forward, 2 backward)':
                  _all_device_ms(disc) - sr_ms,
              'VGG19 to relu5_4 (2 forward, 1 backward; f32, TF32 '
@@ -3117,6 +3233,8 @@ def main() -> None:
     stats.update(check_rdn_kernels(device))
     stats.update(check_k2_general(device, smi))
     stats.update(check_k2_train_fwd(device, smi))
+    stats['W']['classes'], w_err = check_w_classes(device, smi)
+    stats['W']['max_abs_err'] = max(stats['W']['max_abs_err'], w_err)
     stats.update(check_wdsr_kernels(device, smi))
     stats.update(check_bn_reflect_kernels(device, smi))
     stats.update(check_k8_kernels(device, smi))
@@ -3334,7 +3452,8 @@ def main() -> None:
             'library_ms': st['library_ms'],
             **{key: st[key] for key in ('library_bench_ms', 'dx_ms',
                                         'dx_bound_ms', 'wgrad_ms',
-                                        'wgrad_bound_ms')
+                                        'wgrad_bound_ms', 'wgrad_library_ms',
+                                        'wgrad_library_bench_ms', 'classes')
                if st.get(key) is not None}})
     print(f'chip_smoke ran {time.perf_counter() - t_start:.1f} s '
           f'(kernel build included)')

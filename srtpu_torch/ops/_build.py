@@ -11,6 +11,7 @@ Each C entry point launches on the stream it is given and returns
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -37,7 +38,7 @@ SIGNATURES = {
     'srt_conv5x5_fwd': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     'srt_conv_dx': [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     'srt_conv_wgrad': [_P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _I,
-                       _I, _I, _F, _I, _I, _I, _P],
+                       _I, _I, _F, _I, _I, _I, _I, _P],
     'srt_bn_conv_stats': [_P] * 11 + [_I] * 4 + [_P],
     'srt_bn_norm_skip': [_P] * 4 + [_L, _P],
     'srt_bn_sums': [_P] * 5 + [_L, _P],
@@ -52,7 +53,7 @@ SIGNATURES = {
     'srt_resblock_f32_fwd': [_P] * 5 + [_F] + [_P] * 2 + [_I] * 4 + [_P],
     'srt_ca_layer_fwd': [_P] * 7 + [_I] * 5 + [_P],
     'srt_wdsr_block_fwd': [_P] * 7 + [_F] + [_P] * 2 + [_I] * 6 + [_P],
-    'srt_resblock_f32_bwd': [_P] * 5 + [_F] + [_P] * 11 + [_I] * 5 + [_P],
+    'srt_resblock_f32_bwd': [_P] * 5 + [_F] + [_P] * 11 + [_I] * 6 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -148,6 +149,15 @@ def expect(t, name: str, dtype, shape, device, aligned: bool = True) -> None:
                          f'{tuple(shape)}')
     if not t.is_contiguous() or (aligned and t.data_ptr() % 16):
         raise ValueError(f'{name} must be contiguous and 16-byte aligned')
+
+
+def on(device):
+    """torch.cuda.device(device), or nothing when it is current (entering
+    it costs microseconds a launch)."""
+    import torch
+    return (contextlib.nullcontext()
+            if device.index == torch.cuda.current_device()
+            else torch.cuda.device(device))
 
 
 def stream(device) -> int:

@@ -21,7 +21,6 @@ dense layers past 64 channels).
 
 from __future__ import annotations
 
-import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -86,13 +85,6 @@ def _engine_takes(cin: int, cout: int, k: int) -> bool:
     return k in (3, 5) and cin % 16 == 0 and cout % 16 == 0
 
 
-def _on(dev):
-    """torch.cuda.device(dev), or nothing when dev is current (entering it
-    costs microseconds a launch)."""
-    return (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
-            else torch.cuda.device(dev))
-
-
 def _launch(x, w, b, relu: bool, name: str) -> torch.Tensor:
     """Check x (B, H, W, Cin) bf16, w (k, k, Cin, Cout) bf16 and b (Cout,)
     f32 or None, and launch K2 (k = 3 or 5) into a new output."""
@@ -110,7 +102,7 @@ def _launch(x, w, b, relu: bool, name: str) -> torch.Tensor:
         _build.expect(b, 'b', torch.float32, (cout,), dev)
     out = x.new_empty((bsz, h, wd, cout))
     entry = 'srt_conv5x5_fwd' if k == 5 else 'srt_conv3x3_fwd'
-    with _on(dev):
+    with _build.on(dev):
         err = getattr(_build.library(), entry)(
             x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
             out.data_ptr(), bsz, h, wd, cin, cout, int(relu),
@@ -138,7 +130,7 @@ def conv3x3_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _build.expect(g, 'g', torch.bfloat16, (bsz, h, wd, cout), dev)
     _build.expect(w, 'w', torch.bfloat16, (k, k, cin, cout), dev)
     dx = g.new_empty((bsz, h, wd, cin))
-    with _on(dev):
+    with _build.on(dev):
         err = _build.library().srt_conv_dx(
             g.data_ptr(), w.data_ptr(), dx.data_ptr(), bsz, h, wd, cout, cin,
             k, _build.stream(dev))

@@ -36,7 +36,8 @@
 // B2's and B3's staged dy is zero outside the image under both paddings:
 // the transposed conv of a SAME conv is a SAME conv. dW1 = corr(u, bf16
 // dy1) and dW2 = corr(h1, bf16 dy2) come from wgrad.cu, which reads u and
-// h1 with the padding of the forward (REFLECT: the mirrored halo); h1 is
+// h1 with the padding of the forward (REFLECT: the halo mirrored in shared
+// memory after its TMA load); h1 is
 // the one F2 saved (2 MB per block at the training shape, as K1's saving
 // forward keeps its h1) instead of a load transform in wgrad.cu.
 //

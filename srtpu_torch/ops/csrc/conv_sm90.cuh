@@ -56,25 +56,19 @@
 //
 // Tensor maps are encoded on the host per call (cuTensorMapEncodeTiled,
 // taken through cudaGetDriverEntryPoint: no -lcuda) and passed as
-// __grid_constant__ kernel parameters.
+// __grid_constant__ kernel parameters. The mbarrier rings, TMA, ldmatrix
+// and wgmma helpers are sm90.cuh's, shared with the weight grads'
+// engine (wgrad.cu).
 #pragma once
 
-#include <cooperative_groups.h>
-#include <cuda.h>  // CUtensorMap and its enums only: no driver call linked
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace srt90 {
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int kConsumers = 2;                        // warpgroups
 constexpr int kThreads = (4 * kConsumers + 1) * 32;  // + one producer warp
 constexpr int kTH = 4 * kConsumers;                  // tile rows: one a warp
 constexpr int kTW = 16;                              // a warp's wgmma rows
-constexpr int kMaxSmem = 232448;                     // a block's most
-constexpr int kSmPool = 233472;                      // an SM's, 1 KB a block
 
 struct Params {
   const float* bias;  // cout f32, or null
@@ -88,165 +82,6 @@ struct Params {
   uint32_t a_stage, b_stage;  // stage strides (1024-aligned)
   uint32_t a_bytes, b_bytes;  // bytes a stage's TMA loads write
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait until the phase of parity ``parity`` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving accumulator reads or writes across the
-// wgmma fences and waits (it cannot see the asynchronous writes).
-template <int R>
-__device__ __forceinline__ void fence_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// D[64 x 16] += A (registers) * B (shared memory; TRANSB 1: N-major, 0:
-// K-major)
-template <int TRANSB>
-__device__ __forceinline__ void wgmma_n16(float (&d)[8],
-                                          const uint32_t (&a)[4],
-                                          uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
-        "n"(TRANSB));
-}
-
-// D[64 x 32] += A (registers) * B (shared memory; TRANSB 1: N-major, 0:
-// K-major)
-template <int TRANSB>
-__device__ __forceinline__ void wgmma_n32(float (&d)[16],
-                                          const uint32_t (&a)[4],
-                                          uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
-        "n"(TRANSB));
-}
-
-// D[64 x 64] += A (registers) * B (shared memory; TRANSB 1: N-major, 0:
-// K-major)
-template <int TRANSB>
-__device__ __forceinline__ void wgmma_n64(float (&d)[32],
-                                          const uint32_t (&a)[4],
-                                          uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
-        "n"(TRANSB));
-}
-
-template <int NA, bool TB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[NA / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t desc) {
-  constexpr int TRANSB = TB ? 0 : 1;
-  if constexpr (NA == 64) wgmma_n64<TRANSB>(d, a, desc);
-  else if constexpr (NA == 32) wgmma_n32<TRANSB>(d, a, desc);
-  else wgmma_n16<TRANSB>(d, a, desc);
-}
 
 // Blocks an SM is to hold: two where the f32 sums (BN / 2 a thread) and
 // A's two register buffers (8 NKS) leave room for two blocks' registers.
@@ -282,10 +117,10 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NA * NAT, NKS))
   const uint32_t a_ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t b_ring = a_ring + p.sa * p.a_stage;
   // a_full[sa], a_empty[sa], b_full[sb], b_empty[sb]
-  const uint32_t a_full = b_ring + p.sb * p.b_stage;
-  const uint32_t a_empty = a_full + 8u * p.sa;
-  const uint32_t b_full = a_empty + 8u * p.sa;
-  const uint32_t b_empty = b_full + 8u * p.sb;
+  const Ring a_full{b_ring + p.sb * p.b_stage, p.sa};
+  const Ring a_empty{a_full.bar + 8u * p.sa, p.sa};
+  const Ring b_full{a_empty.bar + 8u * p.sa, p.sb};
+  const Ring b_empty{b_full.bar + 8u * p.sb, p.sb};
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rank = blockIdx.x % SPLIT, cta = blockIdx.x / SPLIT;
@@ -299,14 +134,10 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NA * NAT, NKS))
   float acc[NAT][NA / 2];
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < p.sa; ++s) {
-      mbar_init(a_full + 8u * s, 1);
-      mbar_init(a_empty + 8u * s, 4 * kConsumers);
-    }
-    for (int s = 0; s < p.sb; ++s) {
-      mbar_init(b_full + 8u * s, 1);
-      mbar_init(b_empty + 8u * s, 4 * kConsumers);
-    }
+    a_full.init(1);
+    a_empty.init(4 * kConsumers);
+    b_full.init(1);
+    b_empty.init(4 * kConsumers);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -316,25 +147,25 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NA * NAT, NKS))
     if (lane == 0) {
       int g = 0;
       for (int s = s0; s < s1; ++s) {
-        const int sa = (s - s0) % p.sa, ra = (s - s0) / p.sa;
-        mbar_wait(a_empty + 8u * sa, (ra & 1) ^ 1);
-        mbar_expect_tx(a_full + 8u * sa, p.a_bytes);
-        tma_load_4d(a_ring + sa * p.a_stage, &xmap, a_full + 8u * sa,
+        const int sa = (s - s0) % p.sa;
+        a_empty.wait_free(s - s0);
+        mbar_expect_tx(a_full.at(s - s0), p.a_bytes);
+        tma_load_4d(a_ring + sa * p.a_stage, &xmap, a_full.at(s - s0),
                     s * KC, x0 - halo, y0 - halo, b);
         for (int r = 0; r < rows; ++r, ++g) {
           const int sb = g % p.sb;
-          mbar_wait(b_empty + 8u * sb, ((g / p.sb) & 1) ^ 1);
-          mbar_expect_tx(b_full + 8u * sb, p.b_bytes);
+          b_empty.wait_free(g);
+          mbar_expect_tx(b_full.at(g), p.b_bytes);
           // TB: the stage's taps come from the far end, in reverse
           const int tap0 = TB ? p.taps - (r + 1) * p.tg : r * p.tg;
 #pragma unroll
           for (int at = 0; at < NAT; ++at) {
             const uint32_t dst = b_ring + sb * p.b_stage + at * p.tg * BTAP;
             if (TB)
-              tma_load_3d(dst, &wmap, b_full + 8u * sb, s * KC, n0 + at * NA,
+              tma_load_3d(dst, &wmap, b_full.at(g), s * KC, n0 + at * NA,
                           tap0);
             else
-              tma_load_3d(dst, &wmap, b_full + 8u * sb, n0 + at * NA, s * KC,
+              tma_load_3d(dst, &wmap, b_full.at(g), n0 + at * NA, s * KC,
                           tap0);
           }
         }
@@ -366,20 +197,19 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NA * NAT, NKS))
       const int s = i / p.taps, t = i - s * p.taps;  // s counts from s0
       const int g = i / p.tg, tg = i - g * p.tg;  // B stage, its tap
       const int sa = s % p.sa, sb = g % p.sb;
-      if (t == 0) mbar_wait(a_full + 8u * sa, (s / p.sa) & 1);
-      if (tg == 0) mbar_wait(b_full + 8u * sb, (g / p.sb) & 1);
+      if (t == 0) a_full.wait(s);
+      if (tg == 0) b_full.wait(g);
       const int ty = t / p.kk, tx = t - ty * p.kk;
       const uint32_t pix = (oy + ty) * p.wx + frow + tx;
       const uint32_t a_base = a_ring + sa * p.a_stage;
   #pragma unroll
       for (int ks = 0; ks < NKS; ++ks) {
-        uint32_t off = pix * RB + (2 * ks + fchunk) * 16;
-        off ^= ((off >> 7) & AMASK) << 4;
-        ldmatrix_x4(a[ks], a_base + off);
+        ldmatrix_x4(a[ks], a_base + swz(pix * RB + (2 * ks + fchunk) * 16,
+                                        AMASK));
       }
       if (t == p.taps - 1) {  // the slice's A is in registers: free its stage
         __syncwarp();
-        if (lane == 0) mbar_arrive(a_empty + 8u * sa);
+        if (lane == 0) a_empty.arrive(s);
         __syncwarp();
       }
       const uint32_t b_base =
@@ -407,14 +237,14 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NA * NAT, NKS))
         wgmma_wait<0>();
         if (tg == p.tg - 1) {
           __syncwarp();
-          if (lane == 0) mbar_arrive(b_empty + 8u * sb);
+          if (lane == 0) b_empty.arrive(g);
           __syncwarp();
         }
       } else {
         wgmma_wait<1>();  // step i - 1's wgmmas are done
         if (i > 0 && tg == 0) {  // and it was its B stage's last tap
           __syncwarp();
-          if (lane == 0) mbar_arrive(b_empty + 8u * ((g - 1) % p.sb));
+          if (lane == 0) b_empty.arrive(g - 1);
           __syncwarp();
         }
       }
@@ -495,52 +325,12 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NA * NAT, NKS))
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// The driver's tensor-map encoder, looked up once.
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
-}
-
-inline CUtensorMapSwizzle swizzle_of(int row_bytes) {
-  return row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-         : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                           : CU_TENSOR_MAP_SWIZZLE_32B;
-}
-
-inline uint32_t align1024(uint32_t n) { return (n + 1023u) & ~1023u; }
-
 // Blocks of ``kernel`` an SM holds by its registers and threads.
 template <class K>
 int blocks_per_sm(K kernel) {
   int blocks = 1;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, 0);
   return blocks < 1 ? 1 : blocks > 3 ? 3 : blocks;
-}
-
-// The card's SMs, looked up once.
-inline int sm_count() {
-  static const int n = [] {
-    int dev = 0, count = 132;
-    if (cudaGetDevice(&dev) == cudaSuccess)
-      cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    return count;
-  }();
-  return n;
 }
 
 // Launch the engine at BN = NA * NAT (a divisor of cout), KC = 16 NKS

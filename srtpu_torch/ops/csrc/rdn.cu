@@ -48,8 +48,9 @@
 //   rdn_reduce: the partials in a fixed order (dwf, dbf, db).
 //  Weight grads (srt_rdb_bwd_dw): rdn_dw_kernel<3> over the block's
 //   C (C + 1) / 2 (layer, chunk) pairs, each a 3x3 weight grad of chunk j
-//   against doutb_i (wgrad.cu's plan, with the buffer's channel stride),
-//   per-block partials, then rdn_reduce.
+//   against doutb_i (the wmma plan wgrad.cu had before its wgmma engine,
+//   with the buffer's channel stride), per-block partials, then
+//   rdn_reduce; K6's own, to be redesigned with K6.
 //
 // What bounds it on the H100. A dense layer's 3x3 conv costs 2 * 9 * 64
 // * 64 = 73.7 kFLOP per pixel and input chunk; a block (C = 8) does 36
@@ -409,7 +410,8 @@ __global__ void __launch_bounds__(srt::kThreads)
   }
 }
 
-// Weight grads over pixel tiles of 8 x 16 (wgrad.cu's plan): a KK x KK
+// Weight grads over pixel tiles of 8 x 16 (wgrad.cu's former wmma plan,
+// kept here for K6 alone): a KK x KK
 // (3, or 1 for the fusion) weight grad of a 64-channel chunk X of buf
 // against a 64-channel chunk G, as WARPS warps each keeping RT row tiles
 // (16 rows of dW: one tap, 16 input channels) of all 4 column tiles.

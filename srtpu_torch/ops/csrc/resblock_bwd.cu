@@ -23,8 +23,9 @@
 //     h1 > 0 and stores dh1p = [hi | lo];
 //  3. the chunked conv of dh1p with W1's transposed kernel stacked
 //     twice; the epilogue (DxOut) adds g and rounds once into dx;
-//  4. the weight-grad kernel (wgrad.cu: per-block f32 partials added in a
-//     fixed order, no float atomics) on (h1, gsp) and (x, dh1p): dW and
+//  4. the weight-grad engine (wgrad.cu: a cluster's f32 sums added in
+//     rank order, partial slots in order, no float atomics) on (h1, gsp)
+//     and (x, dh1p): dW and
 //     db over 128 output channels, then rb_fold_kernel adds the hi and lo
 //     halves: dW2, db2, dW1, db1.
 //
@@ -42,8 +43,8 @@ extern "C" int srt_conv_wgrad(const void* x, const void* g, void* ws_w,
                               void* ws_b, void* dw, void* db, int J,
                               long long x_stride, long long g_stride, int B,
                               int H, int W, int cin, int cout, int r,
-                              float gscale, int nparts, int k, int reflect,
-                              void* stream);
+                              float gscale, int cluster, int nclusters, int k,
+                              int reflect, void* stream);
 
 namespace {
 
@@ -150,18 +151,21 @@ __global__ void rb_fold_kernel(const float* __restrict__ dwx,
 // x, h1, g (B, H, W, 64) bf16; w1t2, w2t2 (3, 3, 128, 64) bf16: the
 // transposed kernels of W1 and W2 (flipped taps, in and out swapped)
 // stacked twice along their input channels. Scratch: gsp, dh1p (B, H, W,
-// 128) bf16; ws_w (nparts, 9 64 128) and ws_b (nparts, 128) f32 (the
-// weight-grad kernel's partials, nparts as wgrad.py plans them at (64,
-// 128)); dwx (2, 9 64 128) and dbx (2, 128) f32. Writes dx (B, H, W, 64)
+// 128) bf16; ws_w (slots, 9 64 128) and ws_b (slots, 128) f32 (the
+// weight grads' partial slots of the split (cluster, nclusters) that
+// wgrad.py:wgrad_parts plans at (64, 128), as wgrad_workspace sizes them:
+// nclusters where it is more than one, else none); dwx (2, 9 64 128) and
+// dbx (2, 128) f32.
+// Writes dx (B, H, W, 64)
 // bf16, dw1, dw2 (3, 3, 64, 64) and db1, db2 (64) f32. Returns a
 // cudaError_t.
 extern "C" int srt_resblock_f32_bwd(
     const void* x, const void* h1, const void* g, const void* w1t2,
     const void* w2t2, float scale, void* gsp, void* dh1p, void* dx,
     void* ws_w, void* ws_b, void* dwx, void* dbx, void* dw1, void* db1,
-    void* dw2, void* db2, int B, int H, int W, int C, int nparts,
-    void* stream) {
-  if (C != kC || nparts < 1) return (int)cudaErrorInvalidValue;
+    void* dw2, void* db2, int B, int H, int W, int C, int cluster,
+    int nclusters, void* stream) {
+  if (C != kC) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long P = (long long)B * H * W;
   const long long n8 = P * (kC / 8);
@@ -181,10 +185,12 @@ extern "C" int srt_resblock_f32_bwd(
   float* bx = static_cast<float*>(dbx);
   // job 0: dW1 = corr(x, dh1); job 1: dW2 = corr(h1, gs)
   int err = srt_conv_wgrad(x, dh1p, ws_w, ws_b, wx, bx, 1, 0, 0, B, H, W,
-                           kC, kC2, 1, 1.0f, nparts, 3, 0, stream);
+                           kC, kC2, 1, 1.0f, cluster, nclusters, 3, 0,
+                           stream);
   if (err) return err;
   err = srt_conv_wgrad(h1, gsp, ws_w, ws_b, wx + 9 * kC * kC2, bx + kC2, 1,
-                       0, 0, B, H, W, kC, kC2, 1, 1.0f, nparts, 3, 0, stream);
+                       0, 0, B, H, W, kC, kC2, 1, 1.0f, cluster, nclusters,
+                       3, 0, stream);
   if (err) return err;
   rb_fold_kernel<<<144, 256, 0, s>>>(
       wx, bx, static_cast<float*>(dw1), static_cast<float*>(db1),

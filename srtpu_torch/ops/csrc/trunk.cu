@@ -67,8 +67,9 @@ __global__ void __launch_bounds__(srt::kThreads)
 //   dh1 = bf16(h1 > 0 ? convT(gs, W2) : 0),
 //   dx  = bf16(convT(dh1, W1) + g).
 // Replaces the dx chain of srtpu/ops/cs_conv.py:trunk_bwd_mega; its dW1,
-// dW2, db1, db2 come from the weight-grad kernel (wgrad.cu), one launch
-// per conv for all blocks at once. Bound as the forward: 147 kFLOP per
+// dW2, db1, db2 come from the weight-grad engine (wgrad.cu: the blocks as
+// stacked jobs, gs read as bf16(scale * g)), one launch per conv for all
+// blocks at once. Bound as the forward: 147 kFLOP per
 // pixel against 512 bytes (g, h1 in; dx, dh1 out), ~290 FLOP/byte, at
 // the card's bf16 ridge. The tile plan is the forward's
 // (fused_block.cuh pair_backward, which rcab.cu shares with its own

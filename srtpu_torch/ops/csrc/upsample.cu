@@ -22,7 +22,8 @@
 // over the phase-major coarse view of the fine cotangent, so the
 // de-interleave becomes the load's address (load_tile_gather) and the
 // f32 sum over all phases is rounded once, as on the TPU. dW and db come
-// from the weight-grad kernel (wgrad.cu), which gathers the same way.
+// from the weight-grad engine (wgrad.cu), which reads the fine cotangent
+// phase-major through a 5-D tensor map.
 
 namespace {
 constexpr int kTH = 7, kTW = 16;

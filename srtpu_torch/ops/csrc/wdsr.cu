@@ -9,8 +9,9 @@
 //   dh2b = bf16(dh2), dh1 = [h1 > 0] dh2b W2^T (f32), db1 = sum dh1,
 //   dh1b = bf16(dh1), dW2 = h1^T dh2b, dW1 = x^T dh1b,
 //   dx = bf16(g + dh1b W1^T)                 one rounding.
-// dW3 and db3 are the weight-grad kernel's (wgrad.cu) on (h2, g) with
-// gscale = res_scale, launched by the Python wrapper after srt_wdsr_bwd.
+// dW3 and db3 are the weight-grad engine's (wgrad.cu) on (h2, g) with
+// gscale = res_scale (g scaled in shared memory), launched by the Python
+// wrapper after srt_wdsr_bwd.
 //
 // Replaces srtpu/ops/wdsr_cs.py:_fwd_call (body _fwd_kernel) and
 // _bwd_call (_bwd_kernel), behind wdsr_block_cs.

@@ -40,7 +40,7 @@ import torch
 from . import _build
 from .conv import conv_f32
 from .layout import w_t
-from .wgrad import wgrad_parts
+from .wgrad import wgrad_parts, wgrad_workspace
 
 KERNEL_C = 64           # the kernel's one width (EDSR-baseline's)
 
@@ -133,9 +133,11 @@ def resblock_fused_bwd(x, h1, g, w1, w2, res_scale: float):
 
 def resblock_bwd_fused(x, h1, g, w1, w2, res_scale: float):
     """K9d: as :func:`resblock_bwd_fused_plain`. On CUDA: bf16 x, h1, g
-    (B, H, W, 64) and w1, w2 (3, 3, 64, 64); one call is seven launches
-    (the gs split, two chunked convs, two weight-grad launches and their
-    reductions, the fold of the hi and lo halves)."""
+    (B, H, W, 64) and w1, w2 (3, 3, 64, 64); one call is the gs split,
+    two chunked convs, two weight-grad launches (each with the in-order
+    reductions of its partial slots where its split has more than one
+    cluster, :func:`.wgrad.wgrad_parts`) and the fold of the hi and lo
+    halves."""
     if g.device.type == 'cpu':
         return resblock_bwd_fused_plain(x, h1, g, w1, w2, res_scale)
     _check('resblock_bwd_fused', g)
@@ -148,12 +150,12 @@ def resblock_bwd_fused(x, h1, g, w1, w2, res_scale: float):
     # the transposed kernels, stacked twice along their inputs: the
     # convs read [hi | lo] pairs
     w1t2, w2t2 = (torch.cat([w_t(t)] * 2, 2).contiguous() for t in (w1, w2))
-    nparts = wgrad_parts(bsz, h, w, c, 2 * c)   # the [hi | lo] pairs
+    # the weight grads' split at the [hi | lo] pairs (64 -> 128)
+    cluster, clusters = wgrad_parts(bsz, h, w, c, 2 * c)
+    ws_w, ws_b = wgrad_workspace(1, cluster, clusters, c, 2 * c, 3, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     gsp = torch.empty((bsz, h, w, 2 * c), dtype=bf16, device=dev)
     dh1p = torch.empty_like(gsp)
-    ws_w = torch.empty((nparts, 9 * c * 2 * c), **f32)
-    ws_b = torch.empty((nparts, 2 * c), **f32)
     dwx = torch.empty((2, 9 * c * 2 * c), **f32)
     dbx = torch.empty((2, 2 * c), **f32)
     dx = torch.empty_like(g)
@@ -165,7 +167,7 @@ def resblock_bwd_fused(x, h1, g, w1, w2, res_scale: float):
             w2t2.data_ptr(), float(res_scale), gsp.data_ptr(),
             dh1p.data_ptr(), dx.data_ptr(), ws_w.data_ptr(), ws_b.data_ptr(),
             dwx.data_ptr(), dbx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-            dw2.data_ptr(), db2.data_ptr(), bsz, h, w, c, nparts,
+            dw2.data_ptr(), db2.data_ptr(), bsz, h, w, c, cluster, clusters,
             _build.stream(dev))
     _build.check(err, 'srt_resblock_f32_bwd')
     resblock_bwd_fused.launches += 1

@@ -63,15 +63,17 @@ def trunk_bwd_plain(xs: torch.Tensor, h1s: torch.Tensor, g: torch.Tensor,
     (bf16 meaning x's dtype; sums in f32). Returns dx and the stacked
     f32 (dW1, db1, dW2, db2)."""
     dt = xs.dtype
-    gs_all, dh1_all = [], []
+    g_all, dh1_all = [], []
     for l in reversed(range(xs.shape[0])):
         gs = (g.float() * res_scale).to(dt)
         dh1 = torch.where(h1s[l].float() > 0, conv_f32(gs, w_t(w2s[l])),
                           0.0).to(dt)
+        g_all.append(g)
         g = (conv_f32(dh1, w_t(w1s[l])) + g.float()).to(dt)
-        gs_all.append(gs)
         dh1_all.append(dh1)
-    dw2, db2 = conv_wgrad_plain(h1s, torch.stack(gs_all[::-1]))
+    # gs again as the kernel path reads it: bf16(res_scale * g)
+    dw2, db2 = conv_wgrad_plain(h1s, torch.stack(g_all[::-1]),
+                                gscale=res_scale)
     dw1, db1 = conv_wgrad_plain(xs, torch.stack(dh1_all[::-1]))
     return g.contiguous(), dw1, db1, dw2, db2
 
