@@ -88,7 +88,12 @@ Phases, each of which raises on failure (nothing is caught):
    its 36 pair weight grads, at the training shape (batch 16, LR 32x32),
    the predict shape (batch 1, 128x128) and a ragged batch 2 of 67x45,
    every output beside its tolerance, two calls bit-identical, kernel
-   and plain times;
+   and plain times; at the training and predict shapes each function's
+   device time alone (a CUDA graph of its calls), CUDA-event and host
+   time, beside cuDNN's calls for the same work (``rdn_reference``: the
+   eight dense-layer convs and the 1x1 fusion, forward over 16 blocks,
+   ``convolution_backward`` and ``conv2d_weight`` for one block), and
+   the chain's device time by kernel;
 9. the RDN predict slice: phase 3's path and images with ``--model RDN``
    (config B): per image one K6 forward and two K2 (SFE2, GFF2), no other
    kernel; PNGs at 4x; kernel path against plain path; device time by
@@ -286,7 +291,7 @@ from srtpu_torch.ops.layout import w_t
 from srtpu_torch.ops.rdn import (pack, rdb_bwd_chain, rdb_bwd_chain_plain,
                                  rdb_bwd_dw, rdb_bwd_dw_plain, rdn_fwd,
                                  rdn_fwd_plain, rdn_trunk, rdn_trunk_calls,
-                                 rdn_trunk_layers)
+                                 rdn_trunk_layers, unpack)
 from srtpu_torch.ops.resblock import (resblock_bwd_fused,
                                       resblock_bwd_fused_plain,
                                       resblock_fused_bwd, resblock_fused_fwd,
@@ -426,6 +431,7 @@ RDN_PREDICT_LAUNCHES = {rdn_fwd: 1, conv3x3_fwd: 2, rdb_bwd_chain: 0,
                         upsample_fwd: 0}
 # per RDN train step: K6 forward once, its chain and pair weight grads
 # once per block; K2 each way for SFE2 and GFF2 with their weight grads
+# (K6's own launches of K2's and W's engines count on K6's wrappers)
 RDN_STEP_LAUNCHES = {rdn_fwd: 1, rdb_bwd_chain: RDN_D, rdb_bwd_dw: RDN_D,
                      conv3x3_fwd: 2, conv3x3_bwd: 2, conv_wgrad: 2,
                      trunk_fwd: 0, trunk_bwd: 0, rcab_fwd: 0, rcab_bwd: 0,
@@ -440,6 +446,14 @@ RDN_STEP_LAUNCHES = {rdn_fwd: 1, rdb_bwd_chain: RDN_D, rdb_bwd_dw: RDN_D,
 # order: 1e-4 relative.
 K6_STEPS, K6B_STEPS = 4, {'dx': 2, 'dout': 2, 'dwf': 1e-4, 'dbf': 1e-4,
                           'db': 1}
+# Phase 2e's K6 shapes (the training shape, the predict shape and a
+# ragged batch) and the block counts K6 is held at on the card: RDN_D (the
+# grid trunk, 2e) and 1 (the calls trunk's per-block forward, 2j), each
+# at RDN_C dense layers (tests/test_torch_k6_plans.py holds that these
+# cover the plans RDN-B launches)
+K6_SHAPES = ((TRAIN_BATCH, TRAIN_PATCH // SCALE, TRAIN_PATCH // SCALE),
+             (1, 128, 128), (2, 67, 45))
+K6_BLOCKS = (RDN_D, 1)
 # Each block's BN2 backward dy against the f32 path (phase 2d's trunk and
 # phase 8's step): per element within BN_TRUNK_VS_F32 times the plain
 # path's largest error in its channel plus one bf16 step of the element;
@@ -647,6 +661,50 @@ def median_ms(fn, launches: int = 20, windows: int = 5) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / launches)
+    return float(np.median(times))
+
+
+def graph_ms(fn, calls: int = 20, windows: int = 5) -> float:
+    """Median over ``windows`` of the CUDA-event time of one replay of a
+    CUDA graph of ``calls`` calls of ``fn``, per call: the device's time
+    alone. Back-to-back calls (:func:`median_ms`) measure the host's
+    enqueue instead where a kernel is faster than its wrapper."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return float(sorted(times)[len(times) // 2])
+
+
+def host_ms(fn, calls: int = 7) -> float:
+    """Median host time of one call of ``fn`` with the device idle before
+    it: the wrapper's checks, allocations and launches (its enqueue)."""
+    fn()
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
     return float(np.median(times))
 
 
@@ -1102,6 +1160,14 @@ def check_rcab_kernels(device) -> dict:
                    nbytes(x, prm, got))
             record(stats['K5b'], bms, bpl, 4 * conv_flops(px, C, C),
                    nbytes(bargs, bgot))
+            # the device's time alone (CUDA graphs): the backward's seven
+            # launches are host-bound in back-to-back calls
+            for kid, fn in (('K5', lambda: rcab_fwd(x, *prm, save=True)),
+                            ('K5b', lambda: rcab_bwd(*bargs))):
+                stats[kid]['device_ms'] = graph_ms(fn)
+                stats[kid]['host_ms'] = host_ms(fn)
+                print(f'{kid} {tag}: device {stats[kid]["device_ms"]:.4f} ms '
+                      f'a call, host {stats[kid]["host_ms"]:.4f} ms')
 
     # a 16-block residual group at the training shape
     bsz, h, w = shapes[0]
@@ -1586,17 +1652,52 @@ def rdn_case(gen, device, bsz: int, h: int, w: int) -> tuple:
             _uniform(gen, (RDN_D, RDN_G0), c_tot ** -0.5, device, f32))
 
 
-def check_rdn_kernels(device) -> dict:
+def rdn_reference(buf, wpk_l, b_l, wf_l, bf_l, g) -> tuple:
+    """cuDNN's calls for the work of one K6 block (bf16, channels-last;
+    no PyTorch call computes K6's function, so this is a target, not a
+    library time): the forward's eight dense-layer convs (c_in 64 (i +
+    1) -> 64 on the buffer's prefix, copied contiguous) and the 576 -> 64
+    1x1 fusion, and their ``convolution_backward`` (dx, dW, db) at the
+    cotangent g, and the weight grads alone (``conv2d_weight``, the pair
+    weight grads' work). buf: the block's buffer (B, H, W, c_tot); wpk_l,
+    b_l, wf_l, bf_l: its packed weights, biases, fusion weight and
+    bias."""
+    n_layers = b_l.shape[0]
+    ws = unpack(wpk_l[None], n_layers)
+    xs = [buf[..., :RDN_G0 * (i + 1)].contiguous() for i in range(n_layers)]
+    wf = wf_l.reshape(1, 1, *wf_l.shape)
+    fwd = [lib_conv(x, w[0], b) for x, w, b in zip(xs, ws, b_l)]
+    fwd.append(lib_conv(buf, wf, bf_l))
+    bwd = [lib_conv_bwd(x, w[0], g) for x, w in zip(xs, ws)]
+    bwd.append(lib_conv_bwd(buf, wf, g))
+    dw = [lib_wgrad(x[None], g[None]) for x in xs]
+    return fwd, bwd, dw
+
+
+def _rdn_times(tag: str, fns: dict, smi: str) -> dict:
+    """Each K6 function's (and its reference's) device time alone (CUDA
+    graph), CUDA-event time of back-to-back calls and host time a call;
+    printed and returned by name."""
+    out = {}
+    for name, fn in fns.items():
+        out[name] = (graph_ms(fn, 5, 3), median_ms(fn, 5, 3), host_ms(fn))
+        print(f'K6 {tag} {name}: device {out[name][0]:.4f} ms, CUDA events '
+              f'{out[name][1]:.4f} ms, host {out[name][2]:.4f} ms a call  '
+              f'[{smi}]', flush=True)
+    return out
+
+
+def check_rdn_kernels(device, smi: str) -> dict:
     """Phase 2e. K6's forward (saving), one block's chain and its pair
     weight grads against the plain versions at the training, predict and
     ragged shapes; two calls bit-identical. Returns K6 / K6b / K6w stats,
     timed at the training shape (the forward per call of all 16 blocks,
-    the chain and the weight grads per block)."""
+    the chain and the weight grads per block), with their device times
+    alone and cuDNN's for the same work (:func:`rdn_reference`; at the
+    predict shape too, printed)."""
     stats = new_stats(('K6', 'K6b', 'K6w'))
     c_tot = RDN_G0 * (RDN_C + 1)
-    shapes = ((TRAIN_BATCH, TRAIN_PATCH // SCALE, TRAIN_PATCH // SCALE),
-              (1, 128, 128), (2, 67, 45))
-    for i, (bsz, h, w) in enumerate(shapes):
+    for i, (bsz, h, w) in enumerate(K6_SHAPES):
         gen = torch.Generator().manual_seed(bsz * 7883 + h * 107 + w)
         args = rdn_case(gen, device, bsz, h, w)
         tag = f'D={RDN_D} C={RDN_C} {bsz}x{h}x{w}'
@@ -1653,7 +1754,25 @@ def check_rdn_kernels(device) -> dict:
                                               err)
         l = RDN_D - 1
         bargs = (bufs, l, g, ct, wtpk, wft)
+        if i < 2:
+            fwd_ref, bwd_ref, dw_ref = rdn_reference(
+                bufs[l], args[1][l], args[2][l], args[3][l], args[4][l], g)
+            dev = _rdn_times(tag, {
+                'fwd (16 blocks, saving)': lambda: rdn_fwd(*args, save=True),
+                'chain (one block)': lambda: rdb_bwd_chain(*bargs),
+                'pair weight grads (one block)':
+                    lambda: rdb_bwd_dw(bufs, l, bref[1]),
+                'cuDNN reference fwd (16 x 8 convs + 1x1)':
+                    lambda: [f() for _ in range(RDN_D) for f in fwd_ref],
+                'cuDNN reference bwd (one block: 8 convs + 1x1)':
+                    lambda: [f() for f in bwd_ref],
+                'cuDNN reference dW (one block: 8 conv2d_weight)':
+                    lambda: [f() for f in dw_ref]}, smi)
+            del fwd_ref, bwd_ref, dw_ref
         cms = median_ms(lambda: rdb_bwd_chain(*bargs), 5, 3)
+        if i == 0:
+            _profile(lambda: rdb_bwd_chain(*bargs), cms, smi, (),
+                     f'K6 chain {tag} (one block)', top=12)
         cpl = median_ms(lambda: rdb_bwd_chain_plain(*bargs), 2, 3)
         dms = median_ms(lambda: rdb_bwd_dw(bufs, l, bref[1]), 5, 3)
         dpl = median_ms(lambda: rdb_bwd_dw_plain(bufs, l, bref[1]), 2, 3)
@@ -1675,6 +1794,13 @@ def check_rdn_kernels(device) -> dict:
             record(stats['K6w'], dms, dpl,
                    RDN_PAIRS * conv_flops(px, RDN_G0, RDN_G0),
                    nbytes(bufs[l], bref[1], dw))
+            times = list(dev.values())
+            for kid, (d_ms, _, h_ms), ref in zip(
+                    ('K6', 'K6b', 'K6w'), times[:3],
+                    (times[3], times[4], times[5])):
+                stats[kid].update(device_ms=d_ms, host_ms=h_ms,
+                                  reference_ms=ref[1],
+                                  reference_device_ms=ref[0])
         del bufs
         torch.cuda.empty_cache()
     return stats
@@ -1806,6 +1932,9 @@ W_CASES = (
     ('x3 phase-dense 5x5 576->32', 5, 9 * C, 32, 1, False, 1.0, 1, 1),
     *((f'K9c dense layer {C * i}->{C}', 3, C * i, C, 1, False, 1.0, 1, 1)
       for i in range(1, 9)),
+    # K6's pair weight grads' split (rdb_bwd_dw: 36 jobs of 64 -> 64 in
+    # one launch, its pairs mode), here on stacked copies
+    ('K6 pairs 64->64, 36 stacked jobs', 3, C, C, 1, False, 1.0, 36, 1),
     ('K7 dW3 112->128', 3, 112, WDSR_C, 1, False, 1.0, 1, 1),
     ('K9d [hi | lo] 64->128', 3, C, 2 * C, 1, False, 1.0, 1, 1),
 )
@@ -2258,7 +2387,9 @@ def check_form_kernels(device, smi: str) -> dict:
     moved = nbytes(blk, got)
     ms, pms = _timed(stats['K9b'], lambda: rdn_fwd(*blk, save=True),
                      lambda: rdn_fwd_plain(*blk, save=True), flops, moved)
-    _print_times(tag, ms, pms, flops, moved, smi)
+    stats['K9b']['device_ms'] = graph_ms(lambda: rdn_fwd(*blk, save=True))
+    _print_times(tag, ms, pms, flops, moved, smi,
+                 f'; device {stats["K9b"]["device_ms"]:.4f} ms')
     bufs = bufs_p
     gl = _uniform(gen, (bsz, h, w, RDN_G0), 1.0, device, bf)
     zero = torch.zeros_like(gl)
@@ -2277,7 +2408,9 @@ def check_form_kernels(device, smi: str) -> dict:
     moved = nbytes(bufs, gl, wtpk, wft, cgot)
     ms, pms = _timed(stats['K9bc'], lambda: rdb_bwd_chain(*cargs),
                      lambda: rdb_bwd_chain_plain(*cargs), flops, moved)
-    _print_times(tag, ms, pms, flops, moved, smi)
+    stats['K9bc']['device_ms'] = graph_ms(lambda: rdb_bwd_chain(*cargs))
+    _print_times(tag, ms, pms, flops, moved, smi,
+                 f'; device {stats["K9bc"]["device_ms"]:.4f} ms')
     tag = f'K9b rdb_bwd_dw (one block, {RDN_PAIRS} pairs) {bsz}x{h}x{w}'
     dw = rdb_bwd_dw(bufs, 0, cref[1])
     torch.cuda.synchronize()
@@ -2289,7 +2422,10 @@ def check_form_kernels(device, smi: str) -> dict:
     ms, pms = _timed(stats['K9bw'], lambda: rdb_bwd_dw(bufs, 0, cref[1]),
                      lambda: rdb_bwd_dw_plain(bufs, 0, cref[1]), flops,
                      moved)
-    _print_times(tag, ms, pms, flops, moved, smi)
+    stats['K9bw']['device_ms'] = graph_ms(lambda: rdb_bwd_dw(bufs, 0,
+                                                             cref[1]))
+    _print_times(tag, ms, pms, flops, moved, smi,
+                 f'; device {stats["K9bw"]["device_ms"]:.4f} ms')
 
     # K9c: the 8 dense-layer convs of that block on K2 (c_in 64 (i + 1))
     ws = [_uniform(gen, (3, 3, RDN_G0 * (i + 1), RDN_G0),
@@ -2616,15 +2752,21 @@ SRRESNET_PROFILE = (
     ('conv_sm90_kernel<16, 1, 4,', 'K2 5x5 fwd'),
     ('conv_sm90_kernel<64, 2, 1,', 'K2 5x5 bwd dx'),
     ('conv_sm90_kernel', 'K2 3x3 fwd + bwd dx'))
-RDN_PROFILE = (('rdn_dense_kernel', 'K6 fwd dense layers'),
-               ('rdn_lff_kernel', 'K6 fwd fusion'),
+# K6 on the engines (csrc/conv_sm90.cuh by its EPI argument, csrc/wgrad.cu
+# by its K6 argument): the dense layers (EPI 1), the fusion (3), the chain
+# (2), dwf (W at k = 1), the pairs
+RDN_PROFILE = (('false, 1>', 'K6 fwd dense layers (K2 engine, EPI 1)'),
+               ('false, 3>', 'K6 fwd fusion (K2 engine, k = 1, EPI 3)'),
                ('rdn_copy_in_kernel', 'K6 fwd copy-in'),
-               ('rdn_lff_bwd_kernel', 'K6b fusion bwd'),
-               ('rdn_chain_kernel', 'K6b dx chain'),
-               ('rdn_dw_kernel<1', 'K6b dwf'),
-               ('rdn_dw_kernel<3', 'K6w pair weight grads'),
-               ('rdn_reduce', 'K6 fixed-order reductions'),
-               ('wgrad', 'weight grads (K2)'),
+               ('false, 2>', 'K6b chain: fusion bwd + dx per layer + masks '
+                '(K2 engine, EPI 2)'),
+               ('rdn_gc_kernel', 'K6b gc, dbf partials'),
+               ('wgrad_sm90_kernel<64, 64, 1, true>',
+                'K6b dwf (W engine, k = 1)'),
+               ('rdn_reduce', 'K6b fixed-order reductions'),
+               ('wgrad_sm90_kernel<64, 64, 3, true>',
+                'K6w pair weight grads (W engine, pairs mode)'),
+               ('wgrad', "weight grads: K2's (W engine)"),
                ('conv_sm90_kernel', 'K2 fwd + bwd dx'))
 DDBPN_PROFILE = (
     ('conv_sm90_kernel<64, 2, 2,', 'K2 32->512 (up fwd, down dx)'),
@@ -3230,7 +3372,7 @@ def main() -> None:
     stats.update(check_bwd_kernels(device, smi))
     stats.update(check_rcab_kernels(device))
     stats.update(check_bn_kernels(device))
-    stats.update(check_rdn_kernels(device))
+    stats.update(check_rdn_kernels(device, smi))
     stats.update(check_k2_general(device, smi))
     stats.update(check_k2_train_fwd(device, smi))
     stats['W']['classes'], w_err = check_w_classes(device, smi)
@@ -3453,7 +3595,10 @@ def main() -> None:
             **{key: st[key] for key in ('library_bench_ms', 'dx_ms',
                                         'dx_bound_ms', 'wgrad_ms',
                                         'wgrad_bound_ms', 'wgrad_library_ms',
-                                        'wgrad_library_bench_ms', 'classes')
+                                        'wgrad_library_bench_ms', 'classes',
+                                        'device_ms', 'host_ms',
+                                        'reference_ms',
+                                        'reference_device_ms')
                if st.get(key) is not None}})
     print(f'chip_smoke ran {time.perf_counter() - t_start:.1f} s '
           f'(kernel build included)')

@@ -46,8 +46,9 @@ SIGNATURES = {
     'srt_rcab_fwd': [_P] * 15 + [_I] * 5 + [_P],
     'srt_rcab_bwd': [_P] * 19 + [_I] * 5 + [_P],
     'srt_rdn_fwd': [_P] * 7 + [_I] * 6 + [_P],
-    'srt_rdb_bwd_chain': [_P] * 3 + [_I] * 2 + [_P] * 10 + [_I] * 5 + [_P],
-    'srt_rdb_bwd_dw': [_P] * 4 + [_I] * 5 + [_P],
+    'srt_rdb_bwd_chain': [_P] * 3 + [_I] * 2 + [_P] * 12 + [_I] * 6 + [_P],
+    'srt_rdb_bwd_dw': [_P] * 4 + [_I] * 6 + [_P],
+    'srt_rdn_conv': [_P, _I, _P, _I, _P, _P] + [_I] * 7 + [_P],
     'srt_wdsr_fwd': [_P] * 7 + [_F] + [_P] * 2 + [_I] * 6 + [_P],
     'srt_wdsr_bwd': [_P] * 7 + [_F] + [_P] * 5 + [_I] * 7 + [_P],
     'srt_resblock_f32_fwd': [_P] * 5 + [_F] + [_P] * 2 + [_I] * 4 + [_P],

@@ -59,6 +59,21 @@
 // __grid_constant__ kernel parameters. The mbarrier rings, TMA, ldmatrix
 // and wgmma helpers are sm90.cuh's, shared with the weight grads'
 // engine (wgrad.cu).
+//
+// K6 (rdn.cu) runs its dense layers, its 1x1 fusion and its backward
+// chain on this engine, through runtime strides (ConvArgs, ParamsK6): the
+// activations' pixel stride (a layer reads a channel prefix of the
+// block's concat buffer), the output's pixel stride (it writes a channel
+// slice of it), and weights packed in 64-channel pairs along K or N (the
+// B map then 5-D: (inner, outer, taps, K groups, N groups)); k = 1 as well
+// as 3 and 5. The EPI template argument keeps them apart from K2's
+// instances (EPI 0: K2's Params, one HWIO weight's 3-D map, its
+// epilogue): 1, the dense layers', K2's bf16(act(sums + bias)) at an
+// output pixel stride; 3, the fusion's residual, bf16(res + (sums +
+// bias)) to two outputs; 2, the backward chain's f32 read-add-write of
+// the sums into its dbuf (each atom's loads issued together), the mask of
+// the layer below formed by the block that holds that layer's chunk, its
+// bias grad's per-tile partials, and the last layer's dx.
 #pragma once
 
 #include "sm90.cuh"
@@ -69,6 +84,27 @@ constexpr int kConsumers = 2;                        // warpgroups
 constexpr int kThreads = (4 * kConsumers + 1) * 32;  // + one producer warp
 constexpr int kTH = 4 * kConsumers;                  // tile rows: one a warp
 constexpr int kTW = 16;                              // a warp's wgmma rows
+
+// EPI 2 (K6's chain): the sums go to the f32 buffer dbuf (pixel stride
+// ops), added to what it holds (accum) or not. The block that holds its
+// 64-channel chunk m = mask_chunk (final after this launch) also forms
+// the layer below's cotangent from it, dout = bf16(h > 0 ? dbuf : 0) with
+// h that layer's output, and each tile's f32 sum of it (pixels in a fixed
+// order) into db_part. With dx, the last layer: dx = bf16(dbuf + (f32(g)
+// + f32(ct))) in place of dbuf.
+struct ChainEpi {
+  float* dbuf;
+  int accum;         // dbuf += sums (else dbuf = sums)
+  int mask_chunk;    // chunk m of dbuf, or -1
+  const bf16* h;     // h at chunk m's channels (pixel stride hps)
+  bf16* dout;        // dout (pixel stride dps)
+  float* db_part;    // (B * tiles, 64) f32
+  int hps, dps;
+  const bf16* g;     // dx's operands: g and dx pixel stride gps, ct ctps
+  const bf16* ct;
+  bf16* dx;
+  int gps, ctps;
+};
 
 struct Params {
   const float* bias;  // cout f32, or null
@@ -82,6 +118,146 @@ struct Params {
   uint32_t a_stage, b_stage;  // stage strides (1024-aligned)
   uint32_t a_bytes, b_bytes;  // bytes a stage's TMA loads write
 };
+
+// K6's launches (EPI 1-3) add to K2's Params: the output's pixel stride,
+// the weight's pairs and the epilogues' operands.
+struct ParamsK6 : Params {
+  int ops;       // out's (EPI 2: dbuf's) pixel stride, elements
+  int wgroups;   // w in 64-channel pairs (the 5-D map)
+  int wgk, wgn;  // K and N extent of one weight group
+  // EPI 3: out = bf16(res + (sums + bias)), and the same to out2 unless
+  // null (pixel strides rps, o2ps)
+  const bf16* res;
+  bf16* out2;
+  int rps, o2ps;
+  ChainEpi ch;  // EPI 2
+};
+
+template <int EPI>
+struct ParamsFor {
+  typedef ParamsK6 type;
+};
+template <>
+struct ParamsFor<0> {
+  typedef Params type;
+};
+
+// K6's chain epilogue (EPI 2; ChainEpi says what it writes). acc: the
+// block's sums, atom at's register 4 j + 2 h + e at pixel column lane / 4
+// + 8 h of tile row `warp`, channel n0 + 64 at + 8 j + 2 (lane % 4) + e.
+// red: 2 KB of shared memory for the bias grad's warp sums.
+template <int NA, int NAT>
+__device__ __forceinline__ void chain_epilogue(float (&acc)[NAT][NA / 2],
+                                               const ParamsK6& p, float* red,
+                                               int warp, int lane, int b,
+                                               int y0, int x0, int n0,
+                                               int gtile) {
+  static_assert(NA == 64, "an atom is one 64-channel chunk");
+  constexpr int J = NA / 8;
+  const ChainEpi& e = p.ch;
+  const int gy = y0 + warp, cl = 2 * (lane & 3);
+  const int m0 = e.mask_chunk * 64 - n0;  // the masked chunk in the block
+  const int mat = e.mask_chunk >= 0 && m0 >= 0 && m0 < NA * NAT ? m0 / NA
+                                                                 : -1;
+  bool ok[2];
+  size_t pix[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gx = x0 + (lane >> 2) + 8 * h;
+    ok[h] = gy < p.H && gx < p.W;
+    pix[h] = ok[h] ? ((size_t)b * p.H + gy) * p.W + gx : 0;
+  }
+  float dsum[J][2];
+#pragma unroll
+  for (int j = 0; j < J; ++j) dsum[j][0] = dsum[j][1] = 0.0f;
+  // A pixel and an atom at a time, each step's loads issued together
+  // before its arithmetic and stores (a store may alias a later load, so
+  // the compiler would keep them in order, one round trip each).
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!ok[h]) continue;
+    float* const d = e.dbuf + pix[h] * p.ops;
+#pragma unroll
+    for (int at = 0; at < NAT; ++at) {
+      const int c = n0 + at * NA + cl;  // + 8 j: the channel in dbuf
+      float2 v[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        v[j] = e.accum ? *reinterpret_cast<const float2*>(d + c + 8 * j)
+                       : make_float2(0.0f, 0.0f);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const float s0 = acc[at][4 * j + 2 * h];
+        const float s1 = acc[at][4 * j + 2 * h + 1];
+        v[j] = e.accum ? make_float2(v[j].x + s0, v[j].y + s1)
+                       : make_float2(s0, s1);
+      }
+      if (e.dx) {  // the last layer: dx = bf16(dbuf + gf)
+        __nv_bfloat162 gg[J], cc[J];
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          gg[j] = *reinterpret_cast<const __nv_bfloat162*>(
+              e.g + pix[h] * e.gps + c + 8 * j);
+          cc[j] = *reinterpret_cast<const __nv_bfloat162*>(
+              e.ct + pix[h] * e.ctps + c + 8 * j);
+        }
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const float2 a = __bfloat1622float2(gg[j]);
+          const float2 b2 = __bfloat1622float2(cc[j]);
+          *reinterpret_cast<__nv_bfloat162*>(e.dx + pix[h] * e.gps + c +
+                                             8 * j) =
+              __floats2bfloat162_rn(v[j].x + (a.x + b2.x),
+                                    v[j].y + (a.y + b2.y));
+        }
+        continue;
+      }
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        *reinterpret_cast<float2*>(d + c + 8 * j) = v[j];
+      if (at != mat) continue;
+      __nv_bfloat162 hv[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        hv[j] = *reinterpret_cast<const __nv_bfloat162*>(
+            e.h + pix[h] * e.hps + cl + 8 * j);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const float2 hf = __bfloat1622float2(hv[j]);
+        const float d0 = hf.x > 0.0f ? v[j].x : 0.0f;
+        const float d1 = hf.y > 0.0f ? v[j].y : 0.0f;
+        *reinterpret_cast<__nv_bfloat162*>(e.dout + pix[h] * e.dps + cl +
+                                           8 * j) =
+            __floats2bfloat162_rn(d0, d1);
+        dsum[j][0] += d0;
+        dsum[j][1] += d1;
+      }
+    }
+  }
+  if (mat < 0) return;  // uniform over the block
+  // db: the 8 lanes of one lane % 4 (8 pixel columns) in a fixed order,
+  // then the 8 warps (tile rows) in order
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1)
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      dsum[j][0] += __shfl_xor_sync(0xffffffffu, dsum[j][0], o);
+      dsum[j][1] += __shfl_xor_sync(0xffffffffu, dsum[j][1], o);
+    }
+  if (lane < 4)
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      red[warp * 64 + 8 * j + 2 * lane] = dsum[j][0];
+      red[warp * 64 + 8 * j + 2 * lane + 1] = dsum[j][1];
+    }
+  asm volatile("bar.sync 1, %0;" ::"n"(4 * kConsumers * 32) : "memory");
+  if (threadIdx.x < 64) {
+    float sum = red[threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < 4 * kConsumers; ++w) sum += red[w * 64 + threadIdx.x];
+    e.db_part[(size_t)gtile * 64 + threadIdx.x] = sum;
+  }
+}
 
 // Blocks an SM is to hold: two where the f32 sums (BN / 2 a thread) and
 // A's two register buffers (8 NKS) leave room for two blocks' registers.
@@ -101,13 +277,17 @@ __host__ __device__ constexpr int min_blocks(int bn, int nks) {
 // TB (the backward's dx): w is the forward's HWIO weight (k, k, cout, cin)
 // of the conv whose input gradient this is, read K-major (wgmma's
 // untransposed B) with its taps in reverse order: the transposed conv,
-// with no transposed copy of the weight.
-template <int NA, int NAT, int NKS, int SPLIT, bool TB>
+// with no transposed copy of the weight. EPI: 0, K2's (one HWIO weight,
+// bf16(act(sums + bias)) stored at pixel stride cout); 1 and 2, K6's
+// (ParamsK6): 1 the forward's dense layers (K2's epilogue at an output
+// pixel stride), 2 the backward chain's, 3 the fusion's residual.
+template <int NA, int NAT, int NKS, int SPLIT, bool TB, int EPI>
 __global__ void __launch_bounds__(kThreads, min_blocks(NA * NAT, NKS))
     conv_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
                      const __grid_constant__ CUtensorMap wmap,
-                     const Params p) {
+                     const typename ParamsFor<EPI>::type p) {
   static_assert(SPLIT == 1 || SPLIT == 2, "cin whole, or in two halves");
+  static_assert(EPI != 2 || SPLIT == 1, "the chain's sums are whole");
   constexpr int BN = NA * NAT, KC = 16 * NKS;
   constexpr uint32_t BROW = NA * 2;   // bytes of one B row (one ci) of an atom
   constexpr uint32_t BTAP = KC * BROW;  // one tap of an atom
@@ -161,12 +341,24 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NA * NAT, NKS))
 #pragma unroll
           for (int at = 0; at < NAT; ++at) {
             const uint32_t dst = b_ring + sb * p.b_stage + at * p.tg * BTAP;
-            if (TB)
-              tma_load_3d(dst, &wmap, b_full.at(g), s * KC, n0 + at * NA,
-                          tap0);
-            else
-              tma_load_3d(dst, &wmap, b_full.at(g), n0 + at * NA, s * KC,
-                          tap0);
+            const int n = n0 + at * NA, k = s * KC;
+            bool pairs = false;
+            if constexpr (EPI != 0) pairs = p.wgroups;
+            if (!pairs) {  // one HWIO tensor: the 3-D map
+              if (TB)
+                tma_load_3d(dst, &wmap, b_full.at(g), k, n, tap0);
+              else
+                tma_load_3d(dst, &wmap, b_full.at(g), n, k, tap0);
+            } else if constexpr (EPI != 0) {
+              // pairs: the atom's N and the slice's K as (group, offset)
+              const int gn = n / p.wgn, gk = k / p.wgk;
+              if (TB)
+                tma_load_5d(dst, &wmap, b_full.at(g), k - gk * p.wgk,
+                            n - gn * p.wgn, tap0, gk, gn);
+              else
+                tma_load_5d(dst, &wmap, b_full.at(g), n - gn * p.wgn,
+                            k - gk * p.wgk, tap0, gk, gn);
+            }
           }
         }
       }
@@ -292,6 +484,16 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NA * NAT, NKS))
     }
   }
   if (warp == 4 * kConsumers || rank > 0) return;
+  if constexpr (EPI == 2) {
+    // the 2 KB after the barriers; the tile's index over the images
+    const uint32_t red = b_empty.bar + 8u * p.sb;
+    chain_epilogue<NA, NAT>(
+        acc, p,
+        reinterpret_cast<float*>(smem_raw + (red - smem_u32(smem_raw))),
+        warp, lane, b, y0, x0, n0,
+        b * (int)(gridDim.x / (p.ntiles * SPLIT)) + tile);
+    return;
+  }
 
   // Epilogue: register d[4 j + 2 h + e] of an atom is pixel column
   // lane / 4 + 8 h, channel 8 j + 2 (lane % 4) + e.
@@ -303,7 +505,12 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NA * NAT, NKS))
     const int gx = x0 + (lane >> 2) + 8 * h;
     if (gx >= p.W) continue;
     const int c0 = n0 + 2 * (lane & 3);
-    bf16* dst = p.out + (((size_t)b * p.H + gy) * p.W + gx) * p.cout + c0;
+    const size_t pix = ((size_t)b * p.H + gy) * p.W + gx;
+    bf16* dst;
+    if constexpr (EPI == 0)
+      dst = p.out + pix * p.cout + c0;
+    else
+      dst = p.out + pix * p.ops + c0;
 #pragma unroll
     for (int at = 0; at < NAT; ++at) {
 #pragma unroll
@@ -318,8 +525,20 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NA * NAT, NKS))
           v0 = fmaxf(v0, 0.0f);
           v1 = fmaxf(v1, 0.0f);
         }
-        *reinterpret_cast<__nv_bfloat162*>(dst + c) =
-            __floats2bfloat162_rn(v0, v1);
+        if constexpr (EPI == 3) {  // the residual, added after the bias
+          const float2 r = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(p.res + pix * p.rps +
+                                                       c0 + c));
+          v0 = r.x + v0;
+          v1 = r.y + v1;
+        }
+        const __nv_bfloat162 o = __floats2bfloat162_rn(v0, v1);
+        *reinterpret_cast<__nv_bfloat162*>(dst + c) = o;
+        if constexpr (EPI == 3) {
+          if (p.out2)
+            *reinterpret_cast<__nv_bfloat162*>(p.out2 + pix * p.o2ps + c0 +
+                                               c) = o;
+        }
       }
     }
   }
@@ -333,26 +552,52 @@ int blocks_per_sm(K kernel) {
   return blocks < 1 ? 1 : blocks > 3 ? 3 : blocks;
 }
 
+// One launch's operands. x: (B, H, W, xps) bf16, of which the conv reads
+// channels [0, cin). w: the HWIO weight (k, k, cin, cout) (TB: the
+// forward's (k, k, cout, cin)); with pack_k (pack_n) its K (N) in 64-
+// channel groups, each group's (k, k, 64, cout) ((k, k, cin, 64)) block
+// whole and the groups consecutive: K6's pairs (rdn.py:pack). out: (B, H,
+// W, ops) bf16, channels [0, cout) written. res, out2: EPI 3's; ch: EPI
+// 2's (its dbuf at pixel stride ops). EPI 0 (K2) takes xps = cin, ops =
+// cout and one HWIO weight.
+struct ConvArgs {
+  const bf16* x;
+  int xps;
+  const bf16* w;
+  int pack_k, pack_n;
+  const float* bias;
+  void* out;
+  int ops;
+  int B, H, W, cin, cout, kk, relu;
+  const bf16* res;
+  int rps;
+  bf16* out2;
+  int o2ps;
+  ChainEpi ch;
+};
+
 // Launch the engine at BN = NA * NAT (a divisor of cout), KC = 16 NKS
 // (the largest of 64, 32, 16 that divides cin), each tile's channel
-// slices split over SPLIT blocks of a cluster; TB: w is the forward HWIO
-// weight (k, k, cout, cin) of which this is the transposed conv.
-template <int NA, int NAT, int NKS, int SPLIT, bool TB>
-cudaError_t launch(const bf16* x, const bf16* w, const float* bias, bf16* out,
-                   int B, int H, int W, int cin, int cout, int kk, int relu,
-                   cudaStream_t stream) {
+// slices split over SPLIT blocks of a cluster.
+template <int NA, int NAT, int NKS, int SPLIT, bool TB, int EPI>
+cudaError_t launch(const ConvArgs& a, cudaStream_t stream) {
   constexpr int BN = NA * NAT, KC = 16 * NKS;
   const EncodeTiled encode = encode_tiled();
   if (!encode) return cudaErrorNotSupported;
-  auto kernel = conv_sm90_kernel<NA, NAT, NKS, SPLIT, TB>;
+  if (EPI == 0 && (a.xps != a.cin || a.ops != a.cout || a.pack_k || a.pack_n))
+    return cudaErrorInvalidValue;
+  auto kernel = conv_sm90_kernel<NA, NAT, NKS, SPLIT, TB, EPI>;
   static const cudaError_t allowed = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (allowed != cudaSuccess) return allowed;
+  const int B = a.B, H = a.H, W = a.W, cin = a.cin, cout = a.cout, kk = a.kk;
   const int wx = kTW + kk - 1, hx = kTH + kk - 1;
   const uint32_t a_bytes = (uint32_t)KC * 2 * wx * hx;
   const uint32_t b_tap = (uint32_t)KC * BN * 2;
   const int sa = cin / KC < 2 ? cin / KC : 2;
-  const int fixed = 1024 + sa * (int)align1024(a_bytes) + 16 * (sa + 8);
+  // EPI 2: the bias grad's warp sums after the barriers
+  const int fixed = 1024 + sa * (int)align1024(a_bytes) + 16 * (sa + 8) +
+                    (EPI == 2 ? 2048 : 0);
   // B stages of a row of k taps, two of them beside A, in the shared
   // memory of as many blocks an SM as the registers allow (looked up once
   // for this instance) or as fewer blocks make room for (rows of taps
@@ -372,44 +617,52 @@ cudaError_t launch(const bf16* x, const bf16* w, const float* bias, bf16* out,
   int sb = (budget - fixed) / (int)align1024(b_bytes);
   sb = sb < 2 ? 2 : sb > 8 ? 8 : sb;
 
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   CUtensorMap xmap, wmap;
-  // x as (cin, W, H, B); one box is the tile with its halo, KC channels
+  // x as (cin, W, H, B) at pixel stride xps; one box is the tile with its
+  // halo, KC channels
+  const cuuint64_t xps = (cuuint64_t)a.xps * 2;
   const cuuint64_t xdim[4] = {(cuuint64_t)cin, (cuuint64_t)W, (cuuint64_t)H,
                               (cuuint64_t)B};
-  const cuuint64_t xstride[3] = {(cuuint64_t)cin * 2, (cuuint64_t)W * cin * 2,
-                                 (cuuint64_t)H * W * cin * 2};
+  const cuuint64_t xstride[3] = {xps, W * xps, H * W * xps};
   const cuuint32_t xbox[4] = {(cuuint32_t)KC, (cuuint32_t)wx, (cuuint32_t)hx,
                               1};
   if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-             const_cast<bf16*>(x), xdim, xstride, xbox, ones,
+             const_cast<bf16*>(a.x), xdim, xstride, xbox, ones,
              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(KC * 2),
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
-  // w as (cout, cin, k * k), one box an atom: NA channels of KC rows of
-  // tg taps; TB: as (cin, cout, k * k), one box KC channels of NA rows
-  const int inner = TB ? cin : cout, outer = TB ? cout : cin;
-  const cuuint64_t wdim[3] = {(cuuint64_t)inner, (cuuint64_t)outer,
-                              (cuuint64_t)kk * kk};
-  const cuuint64_t wstride[2] = {(cuuint64_t)inner * 2,
-                                 (cuuint64_t)cin * cout * 2};
-  const cuuint32_t wbox[3] = {(cuuint32_t)(TB ? KC : NA),
-                              (cuuint32_t)(TB ? NA : KC), (cuuint32_t)tg};
-  if (encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-             const_cast<bf16*>(w), wdim, wstride, wbox, ones,
+  // w as (cout, cin, k * k), or in pairs (cout, cin, k * k, K groups, N
+  // groups) of groups wgk x wgn; one box an atom: NA channels of KC rows
+  // of tg taps; TB: (cin, cout, ...), one box KC channels of NA rows
+  const int wgroups = a.pack_k || a.pack_n;
+  const int wgk = a.pack_k ? 64 : cin, wgn = a.pack_n ? 64 : cout;
+  const int inner = TB ? wgk : wgn, outer = TB ? wgn : wgk;
+  const cuuint64_t group = (cuuint64_t)kk * kk * wgk * wgn * 2;
+  const cuuint64_t wdim[5] = {(cuuint64_t)inner, (cuuint64_t)outer,
+                              (cuuint64_t)kk * kk, (cuuint64_t)(cin / wgk),
+                              (cuuint64_t)(cout / wgn)};
+  const cuuint64_t wstride[4] = {(cuuint64_t)inner * 2,
+                                 (cuuint64_t)wgk * wgn * 2, group,
+                                 group * (cin / wgk)};
+  const cuuint32_t wbox[5] = {(cuuint32_t)(TB ? KC : NA),
+                              (cuuint32_t)(TB ? NA : KC), (cuuint32_t)tg, 1,
+                              1};
+  if (encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, wgroups ? 5 : 3,
+             const_cast<bf16*>(a.w), wdim, wstride, wbox, ones,
              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(TB ? KC * 2 : NA * 2),
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
 
-  Params p;
-  p.bias = bias;
-  p.out = out;
+  typename ParamsFor<EPI>::type p = {};
+  p.bias = a.bias;
+  p.out = static_cast<bf16*>(a.out);
   p.H = H;
   p.W = W;
   p.cout = cout;
-  p.relu = relu;
+  p.relu = a.relu;
   p.kk = kk;
   p.taps = kk * kk;
   p.nslices = cin / KC;
@@ -423,7 +676,19 @@ cudaError_t launch(const bf16* x, const bf16* w, const float* bias, bf16* out,
   p.b_bytes = b_bytes;
   p.a_stage = align1024(a_bytes);
   p.b_stage = align1024(b_bytes);
-  const int smem = 1024 + sa * p.a_stage + sb * p.b_stage + 16 * (sa + sb);
+  if constexpr (EPI != 0) {
+    p.ops = a.ops;
+    p.wgroups = wgroups;
+    p.wgk = wgk;
+    p.wgn = wgn;
+    p.res = a.res;
+    p.out2 = a.out2;
+    p.rps = a.rps;
+    p.o2ps = a.o2ps;
+    p.ch = a.ch;
+  }
+  const int smem = 1024 + sa * p.a_stage + sb * p.b_stage + 16 * (sa + sb) +
+                   (EPI == 2 ? 2048 : 0);
   if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
   // a split's partial sums land in block 0's rings: 256 threads x BN / 2
   // f32 from each other block
@@ -457,59 +722,87 @@ cudaError_t launch(const bf16* x, const bf16* w, const float* bias, bf16* out,
 // Where cout is at most 64 (so a block's sums are few), cin has four
 // 64-channel slices or more and the blocks would not fill the card twice
 // over, two blocks share each tile, each summing half of cin.
-template <int NA, int NAT, bool TB>
-cudaError_t launch_kc(const bf16* x, const bf16* w, const float* b,
-                      bf16* out, int B, int H, int W, int cin, int cout,
-                      int kk, int relu, cudaStream_t s) {
-  if constexpr (NA * NAT <= 64) {
-    const long blocks = (long)((W + kTW - 1) / kTW) * ((H + kTH - 1) / kTH) *
-                        (cout / (NA * NAT)) * B;
-    if (cin % 64 == 0 && cin >= 256 && blocks < 2L * sm_count())
-      return launch<NA, NAT, 4, 2, TB>(x, w, b, out, B, H, W, cin, cout, kk,
-                                       relu, s);
-  }
-  if (cin % 64 == 0)
-    return launch<NA, NAT, 4, 1, TB>(x, w, b, out, B, H, W, cin, cout, kk,
-                                     relu, s);
-  if (cin % 32 == 0)
-    return launch<NA, NAT, 2, 1, TB>(x, w, b, out, B, H, W, cin, cout, kk,
-                                     relu, s);
-  return launch<NA, NAT, 1, 1, TB>(x, w, b, out, B, H, W, cin, cout, kk,
-                                   relu, s);
+inline bool split_cin(const ConvArgs& a, int bn) {
+  const long blocks = (long)((a.W + kTW - 1) / kTW) *
+                      ((a.H + kTH - 1) / kTH) * (a.cout / bn) * a.B;
+  return bn <= 64 && a.cin % 64 == 0 && a.cin >= 256 &&
+         blocks < 2L * sm_count();
 }
 
-// The engine's N: the widest of 192, 128, 64, 48, 32, 16 that divides
-// cout (every multiple of 16 has one). 256 would hold 128 f32 sums a
-// thread beside A's registers, past the 168 registers a thread gets.
-// TB: the transposed conv of the forward weight w (k, k, cout, cin).
+// The channel slices and split for BN = NA * NAT (not under the chain's
+// epilogue, whose sums are whole).
+template <int NA, int NAT, bool TB, int EPI>
+cudaError_t launch_kc(const ConvArgs& a, cudaStream_t s) {
+  if constexpr (NA * NAT <= 64 && EPI != 2) {
+    if (split_cin(a, NA * NAT)) return launch<NA, NAT, 4, 2, TB, EPI>(a, s);
+  }
+  if (a.cin % 64 == 0) return launch<NA, NAT, 4, 1, TB, EPI>(a, s);
+  if (a.cin % 32 == 0) return launch<NA, NAT, 2, 1, TB, EPI>(a, s);
+  return launch<NA, NAT, 1, 1, TB, EPI>(a, s);
+}
+
+// The operands' shapes the engine takes: k = 1, 3 or 5, channel counts
+// multiples of 16, the strides at least the channels and 16-byte
+// multiples, a pack of 64-channel groups where its extent is a multiple
+// of 64.
+inline bool takes(const ConvArgs& a) {
+  return a.cin > 0 && a.cout > 0 && a.cin % 16 == 0 && a.cout % 16 == 0 &&
+         (a.kk == 1 || a.kk == 3 || a.kk == 5) && a.B > 0 && a.B <= 65535 &&
+         a.H > 0 && a.W > 0 && a.xps >= a.cin && a.xps % 8 == 0 &&
+         a.ops >= a.cout && (!a.pack_k || a.cin % 64 == 0) &&
+         (!a.pack_n || a.cout % 64 == 0);
+}
+
+// K6's launches (EPI 1-3), cin and cout multiples of 64: only the
+// instances those reach, N and the split of cin picked as conv picks them
+// (the fusion's, EPI 3, at cout 64 alone).
+template <bool TB, int EPI>
+cudaError_t run64(const ConvArgs& a, cudaStream_t s) {
+  static_assert(EPI != 0, "K2's launches go through conv");
+  if (!takes(a) || a.cin % 64 || a.cout % 64) return cudaErrorInvalidValue;
+  if constexpr (EPI != 3) {
+    if (a.cout % 192 == 0) return launch<64, 3, 4, 1, TB, EPI>(a, s);
+    if (a.cout % 128 == 0) return launch<64, 2, 4, 1, TB, EPI>(a, s);
+  } else if (a.cout != 64) {
+    return cudaErrorInvalidValue;
+  }
+  if constexpr (EPI != 2) {
+    if (split_cin(a, 64)) return launch<64, 1, 4, 2, TB, EPI>(a, s);
+  }
+  return launch<64, 1, 4, 1, TB, EPI>(a, s);
+}
+
+// K2: x (B, H, W, cin) and w (k, k, cin, cout) HWIO, k = 3 or 5, out (B,
+// H, W, cout); TB: the transposed conv of the forward weight w (k, k,
+// cout, cin). The engine's N: the widest of 192, 128, 64, 48, 32, 16 that
+// divides cout (every multiple of 16 has one). 256 would hold 128 f32
+// sums a thread beside A's registers, past the 168 registers a thread
+// gets.
 template <bool TB>
 cudaError_t conv(const void* x, const void* w, const void* b, void* out,
                  int B, int H, int W, int cin, int cout, int kk, int relu,
                  cudaStream_t s) {
-  if (cin % 16 || cout % 16 || cin <= 0 || cout <= 0 || (kk != 3 && kk != 5) ||
-      B <= 0 || B > 65535 || H <= 0 || W <= 0)
-    return cudaErrorInvalidValue;
-  const bf16* xx = static_cast<const bf16*>(x);
-  const bf16* ww = static_cast<const bf16*>(w);
-  const float* bb = static_cast<const float*>(b);
-  bf16* oo = static_cast<bf16*>(out);
-  if (cout % 192 == 0)
-    return launch_kc<64, 3, TB>(xx, ww, bb, oo, B, H, W, cin, cout, kk,
-                                relu, s);
-  if (cout % 128 == 0)
-    return launch_kc<64, 2, TB>(xx, ww, bb, oo, B, H, W, cin, cout, kk,
-                                relu, s);
-  if (cout % 64 == 0)
-    return launch_kc<64, 1, TB>(xx, ww, bb, oo, B, H, W, cin, cout, kk,
-                                relu, s);
-  if (cout % 48 == 0)
-    return launch_kc<16, 3, TB>(xx, ww, bb, oo, B, H, W, cin, cout, kk,
-                                relu, s);
-  if (cout % 32 == 0)
-    return launch_kc<32, 1, TB>(xx, ww, bb, oo, B, H, W, cin, cout, kk,
-                                relu, s);
-  return launch_kc<16, 1, TB>(xx, ww, bb, oo, B, H, W, cin, cout, kk, relu,
-                              s);
+  ConvArgs a = {};
+  a.x = static_cast<const bf16*>(x);
+  a.xps = cin;
+  a.w = static_cast<const bf16*>(w);
+  a.bias = static_cast<const float*>(b);
+  a.out = out;
+  a.ops = cout;
+  a.B = B;
+  a.H = H;
+  a.W = W;
+  a.cin = cin;
+  a.cout = cout;
+  a.kk = kk;
+  a.relu = relu;
+  if ((kk != 3 && kk != 5) || !takes(a)) return cudaErrorInvalidValue;
+  if (cout % 192 == 0) return launch_kc<64, 3, TB, 0>(a, s);
+  if (cout % 128 == 0) return launch_kc<64, 2, TB, 0>(a, s);
+  if (cout % 64 == 0) return launch_kc<64, 1, TB, 0>(a, s);
+  if (cout % 48 == 0) return launch_kc<16, 3, TB, 0>(a, s);
+  if (cout % 32 == 0) return launch_kc<32, 1, TB, 0>(a, s);
+  return launch_kc<16, 1, TB, 0>(a, s);
 }
 
 }  // namespace srt90

@@ -76,8 +76,16 @@
 // r = 2 gather (K3's dW): G is the fine (B, 2H, 2W, cg) tensor read
 // phase-major as cout = 4 cg channels, through a 5-D tensor map (r cg,
 // W, r, H, B): a tile's N chunk is one phase (a, b) at coarse pixels.
+//
+// K6's weight grads (rdn.cu) run here too: X may be a channel prefix of a
+// wider tensor (its pixel stride apart from its channels); k = 1 (the
+// fusion's dwf, M = one 64-channel chunk a block); and the pairs mode,
+// the C (C + 1) / 2 (layer i, chunk j) 3x3 grads of a dense block as
+// jobs of 64 -> 64 in one launch, job i (i + 1) / 2 + j reading X's chunk
+// j (the block's buffer) against G's chunk i (the chain's dout) and
+// writing its own slot: rdn.py:pack's pair order.
 
-#include "sm90.cuh"
+#include "wgrad.cuh"
 
 namespace {
 
@@ -114,6 +122,7 @@ struct WParams {
   uint32_t a_region, stage;   // bytes: A's part of a stage; a stage
   uint32_t a_bytes, b_bytes;  // bytes a stage's TMA loads write
   uint32_t body;              // the rings, or the sums after them
+  int pairs;  // K6: job = (layer i, chunk j), X's chunk j, G's chunk i
 };
 
 // bf16(s * v) for 8 bf16 values, rounded to nearest even
@@ -208,8 +217,9 @@ __host__ __device__ constexpr uint32_t red_bytes(int na, int mt) {
 // nch * NA .. + NA - 1. NA: 64, 32 or 16 (B's swizzle 128, 64 or 32
 // bytes); AWP: A's staged channels (the same three). Warpgroups 0-2 are
 // the consumers (kConsumerRegs registers a thread); warpgroup 3 the
-// producer warp and the G warps (kControlRegs).
-template <int NA, int AWP, int MT>
+// producer warp and the G warps (kControlRegs). K6: K6's launches (no db;
+// the pairs mode), kept out of the other instances' code.
+template <int NA, int AWP, int MT, bool K6>
 __global__ void __launch_bounds__(kThreads, 1)
     wgrad_sm90_kernel(const __grid_constant__ CUtensorMap amap,
                       const __grid_constant__ CUtensorMap bmap,
@@ -238,7 +248,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int ntl = (int)((long long)(part + 1) * p.ntiles / p.parts) - t0;
   // db comes from the blocks of the first M-group (A = X: G is B) or of
   // the first N chunk (A = G)
-  const bool db_block = mga == 0 && (!p.form_g || nch == 0);
+  bool db_block = mga == 0 && (!p.form_g || nch == 0);
+  if constexpr (K6) db_block = false;
   auto tile_at = [&](int t, int& b, int& y0, int& x0) {
     b = t / p.tiles_img;
     const int rem = t - b * p.tiles_img;
@@ -257,23 +268,34 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (warp >= kCWarps) {
     regs_dec<kControlRegs>();
     if (warp == kCWarps) {
-      // The producer: the stages' TMA loads, in tile order.
+      // The producer: the stages' TMA loads, in tile order. Pairs: X's and
+      // G's channel offsets, and one job in the tensor maps.
       if (lane == 0) {
+        int xoff = 0, goff = 0, tjob = job;
+        if constexpr (K6) {
+          if (p.pairs) {
+            int i = 0, j = job;
+            while (j > i) j -= ++i;
+            xoff = 64 * j;
+            goff = 64 * i;
+            tjob = 0;
+          }
+        }
         for (int i = 0; i < ntl; ++i) {
           int b, y0, x0;
           tile_at(t0 + i, b, y0, x0);
           empty.wait_free(i);
           const uint32_t st = ring + (uint32_t)(i % p.stages) * p.stage;
           mbar_expect_tx(full.at(i), p.a_bytes + p.b_bytes);
-          tma_load_5d(st, &amap, full.at(i), cc * p.aw, x0 - h, y0 - h, b,
-                      job);
+          tma_load_5d(st, &amap, full.at(i), xoff + cc * p.aw, x0 - h,
+                      y0 - h, b, tjob);
           if (p.gather) {
             const int ab = n0 / p.cg;  // the chunk's phase (a, b)
             tma_load_5d(st + p.a_region, &bmap, full.at(i),
                         ab % p.r * p.cg + n0 % p.cg, x0, ab / p.r, y0, b);
           } else {
-            tma_load_5d(st + p.a_region, &bmap, full.at(i), n0, x0, y0, b,
-                        job);
+            tma_load_5d(st + p.a_region, &bmap, full.at(i), goff + n0, x0,
+                        y0, b, tjob);
           }
         }
       }
@@ -519,15 +541,15 @@ cudaError_t encode5(CUtensorMap* map, const void* base, const cuuint64_t* dim,
              : cudaErrorInvalidValue;
 }
 
-// An NHWC tensor of J jobs (job_stride elements apart) as (C, W, H, B,
-// J), a box of bc channels x bw x bh pixels.
-cudaError_t encode_nhwc(CUtensorMap* map, const void* t, int C, int W, int H,
-                        int B, int J, long long job_stride, int bc, int bw,
-                        int bh) {
+// An NHWC tensor of J jobs (job_stride elements apart) at pixel stride ps
+// as (C, W, H, B, J), a box of bc channels x bw x bh pixels.
+cudaError_t encode_nhwc(CUtensorMap* map, const void* t, int C, int ps, int W,
+                        int H, int B, int J, long long job_stride, int bc,
+                        int bw, int bh) {
   const cuuint64_t dim[5] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
                              (cuuint64_t)B, (cuuint64_t)J};
-  const cuuint64_t str[4] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
-                             (cuuint64_t)H * W * C * 2,
+  const cuuint64_t str[4] = {(cuuint64_t)ps * 2, (cuuint64_t)W * ps * 2,
+                             (cuuint64_t)H * W * ps * 2,
                              (cuuint64_t)job_stride * 2};
   const cuuint32_t box[5] = {(cuuint32_t)bc, (cuuint32_t)bw, (cuuint32_t)bh,
                              1, 1};
@@ -547,10 +569,10 @@ cudaError_t encode_fine(CUtensorMap* map, const void* g, int r, int cg, int W,
   return encode5(map, g, dim, str, box);
 }
 
-template <int NA, int AWP, int MT>
+template <int NA, int AWP, int MT, bool K6 = false>
 cudaError_t launch(const CUtensorMap& amap, const CUtensorMap& bmap,
                    WParams p, int J, int ychunks, cudaStream_t s) {
-  auto kernel = wgrad_sm90_kernel<NA, AWP, MT>;
+  auto kernel = wgrad_sm90_kernel<NA, AWP, MT, K6>;
   static const cudaError_t allowed = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (allowed != cudaSuccess) return allowed;
@@ -580,7 +602,8 @@ cudaError_t launch(const CUtensorMap& amap, const CUtensorMap& bmap,
 
 // The instances a chunk width can reach: aw 48 or 64 has 7 or more
 // M-tiles (AWP 64, MT 3); aw 32, 5 (3x3: MT 2) or 13 (5x5: MT 3); aw 16,
-// 3 (MT 1) or 7 (MT 3).
+// 3 (MT 1) or 7 (MT 3). K6's (NA = AWP = 64): its pairs (MT 3) and its
+// dwf at 1x1 (one M-tile: MT 1).
 template <int NA>
 cudaError_t launch_awp(int awp, int mt, const CUtensorMap& amap,
                        const CUtensorMap& bmap, const WParams& p, int J,
@@ -595,33 +618,31 @@ cudaError_t launch_awp(int awp, int mt, const CUtensorMap& amap,
 
 }  // namespace
 
+namespace srt90 {
 
-// J jobs; job j reads x + j * x_stride (B, H, W, cin) bf16 and
-// g + j * g_stride: (B, H, W, cout) bf16, or with r > 1 (J = 1) the fine
-// (B, r H, r W, cout / r^2) bf16 read phase-major. Writes dw (J, k, k,
-// cin, cout) f32 and db (J, cout) f32. k = 3 or 5; cin and cout multiples
-// of 16; r > 1 needs cout / r^2 a multiple of 16; reflect != 0 (REFLECT
-// boundaries) k = 3, cin = 64, cout a multiple of 64, r = 1, H, W >= 2.
-// The pixel tiles of a job are summed by cluster * nclusters blocks
-// (srtpu_torch/ops/wgrad.py:wgrad_parts; cluster <= 8): with nclusters > 1,
-// ws_w (J, nclusters, k k cin cout) and ws_b (J, nclusters, cout) f32 hold
-// the clusters' partials, else they are not read. Returns a cudaError_t.
-extern "C" int srt_conv_wgrad(const void* x, const void* g, void* ws_w,
-                              void* ws_b, void* dw, void* db, int J,
-                              long long x_stride, long long g_stride, int B,
-                              int H, int W, int cin, int cout, int r,
-                              float gscale, int cluster, int nclusters, int k,
-                              int reflect, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (r < 1) r = 1;
+cudaError_t wgrad(const WgradArgs& a, cudaStream_t s) {
+  const int k = a.k, cin = a.cin, cout = a.cout, B = a.B, H = a.H, W = a.W;
+  const int J = a.J;
+  const int r = a.r < 1 ? 1 : a.r;
   const int cg = cout / (r * r);
-  if ((k != 3 && k != 5) || cin <= 0 || cout <= 0 || cin % 16 ||
+  const int xps = a.xps ? a.xps : cin, xch = a.xch ? a.xch : cin;
+  const bool k6 = !a.db;  // K6's launches: no bias grad
+  const int gch = a.gch ? a.gch : cout;
+  int pairs_c = 0;  // pairs: the block's C, J = C (C + 1) / 2
+  while (a.pairs && pairs_c * (pairs_c + 1) / 2 < J) ++pairs_c;
+  if ((k != 1 && k != 3 && k != 5) || cin <= 0 || cout <= 0 || cin % 16 ||
       cout % 16 || B <= 0 || H <= 0 || W <= 0 || J <= 0 || J > 65535 ||
-      cluster < 1 || cluster > kMaxCluster || nclusters < 1 ||
-      (r > 1 && (cout % (r * r) || cg % 16 || J != 1)) ||
-      (reflect && (k != 3 || cin != 64 || cout % 64 || r > 1 || H < 2 ||
-                   W < 2)))
-    return (int)cudaErrorInvalidValue;
+      a.cluster < 1 || a.cluster > kMaxCluster || a.nclusters < 1 ||
+      xch < cin || xps < xch || xps % 8 || gch < cout || gch % 8 ||
+      (r > 1 && (cout % (r * r) || cg % 16 || J != 1 || gch != cout)) ||
+      (a.reflect && (k != 3 || cin != 64 || cout % 64 || r > 1 || H < 2 ||
+                     W < 2)) ||
+      (k == 1 && (r > 1 || a.reflect || cin % 64 || cout % 64 || !k6)) ||
+      (a.pairs && !k6) ||
+      (a.pairs && (cin != 64 || cout != 64 || r > 1 || a.reflect ||
+                   pairs_c * (pairs_c + 1) / 2 != J ||
+                   xch < 64 * pairs_c || gch < 64 * pairs_c)))
+    return cudaErrorInvalidValue;
   WParams p = {};
   p.H = H;
   p.W = W;
@@ -637,17 +658,20 @@ extern "C" int srt_conv_wgrad(const void* x, const void* g, void* ws_w,
   p.gather = r > 1;
   p.r = r;
   p.cg = cg;
-  p.reflect = reflect;
-  p.gscale = gscale;
-  p.cluster = cluster;
-  p.nclusters = nclusters;
-  p.parts = cluster * nclusters;
+  p.reflect = a.reflect;
+  p.pairs = a.pairs;
+  p.gscale = a.gscale;
+  p.cluster = a.cluster;
+  p.nclusters = a.nclusters;
+  p.parts = a.cluster * a.nclusters;
   const int hx = kTH + k - 1;
-  const bool direct = nclusters == 1;
-  p.dw = static_cast<float*>(direct ? dw : ws_w);
-  p.db = static_cast<float*>(direct ? db : ws_b);
-  const long long xj = J > 1 ? x_stride : (long long)B * H * W * cin;
-  const long long gj = J > 1 ? g_stride : (long long)B * H * W * cout;
+  const bool direct = a.nclusters == 1;
+  p.dw = static_cast<float*>(direct ? a.dw : a.ws_w);
+  p.db = k6 ? nullptr : static_cast<float*>(direct ? a.db : a.ws_b);
+  // the tensor maps' jobs: J, or one (pairs: the jobs are channel offsets)
+  const int mj = a.pairs ? 1 : J;
+  const long long xj = mj > 1 ? a.x_stride : (long long)B * H * W * xps;
+  const long long gj = mj > 1 ? a.g_stride : (long long)B * H * W * gch;
   // A: the shifted tensor's tile and halo, aw channels a block; B: the
   // other's tile, NA channels
   p.ca = p.form_g ? cout : cin;
@@ -668,26 +692,75 @@ extern "C" int srt_conv_wgrad(const void* x, const void* g, void* ws_w,
   p.b_bytes = (uint32_t)na * 2 * kTH * kTW;
   CUtensorMap amap, bmap;
   cudaError_t err =
-      p.form_g ? encode_nhwc(&amap, g, cout, W, H, B, J, gj, awp, p.wx, hx)
-               : encode_nhwc(&amap, x, cin, W, H, B, J, xj, awp, p.wx, hx);
+      p.form_g
+          ? encode_nhwc(&amap, a.g, cout, gch, W, H, B, mj, gj, awp, p.wx, hx)
+          : encode_nhwc(&amap, a.x, xch, xps, W, H, B, mj, xj, awp, p.wx, hx);
   if (err == cudaSuccess)
-    err = p.gather ? encode_fine(&bmap, g, r, cg, W, H, B, na)
+    err = p.gather ? encode_fine(&bmap, a.g, r, cg, W, H, B, na)
           : p.form_g
-              ? encode_nhwc(&bmap, x, cin, W, H, B, J, xj, na, kTW, kTH)
-              : encode_nhwc(&bmap, g, cout, W, H, B, J, gj, na, kTW, kTH);
-  if (err != cudaSuccess) return (int)err;
+              ? encode_nhwc(&bmap, a.x, xch, xps, W, H, B, mj, xj, na, kTW,
+                            kTH)
+              : encode_nhwc(&bmap, a.g, gch, gch, W, H, B, mj, gj, na, kTW,
+                            kTH);
+  if (err != cudaSuccess) return err;
   p.a_region = align1024(p.a_bytes);
   p.stage = p.a_region + align1024(p.b_bytes);
-  if (ychunks > 65535) return (int)cudaErrorInvalidValue;
-  err = na == 64   ? launch_awp<64>(awp, mt, amap, bmap, p, J, ychunks, s)
+  if (ychunks > 65535) return cudaErrorInvalidValue;
+  if (k6 && (na != 64 || awp != 64)) return cudaErrorInvalidValue;
+  err = k6 ? (mt == 1 ? launch<64, 64, 1, true>(amap, bmap, p, J, ychunks, s)
+                      : launch<64, 64, 3, true>(amap, bmap, p, J, ychunks, s))
+        : na == 64 ? launch_awp<64>(awp, mt, amap, bmap, p, J, ychunks, s)
         : na == 32 ? launch_awp<32>(awp, mt, amap, bmap, p, J, ychunks, s)
                    : launch_awp<16>(awp, mt, amap, bmap, p, J, ychunks, s);
-  if (err != cudaSuccess || direct) return (int)err;
-  const long long nw = (long long)k * k * cin * cout;
-  const long long want = ((nw + cout) * J + 255) / 256;
+  if (err != cudaSuccess || direct) return err;
+  const long long nw = (long long)k * k * cin * cout, nb_ = p.db ? cout : 0;
+  const long long want = ((nw + nb_) * J + 255) / 256;
   wgrad_reduce<<<(int)(want < 4096 ? want : 4096), 256, 0, s>>>(
-      static_cast<const float*>(ws_w), static_cast<const float*>(ws_b),
-      static_cast<float*>(dw), static_cast<float*>(db), nclusters, nw, cout,
-      J);
-  return (int)cudaGetLastError();
+      static_cast<const float*>(a.ws_w), static_cast<const float*>(a.ws_b),
+      static_cast<float*>(a.dw), static_cast<float*>(a.db), a.nclusters, nw,
+      nb_, J);
+  return cudaGetLastError();
+}
+
+}  // namespace srt90
+
+// J jobs; job j reads x + j * x_stride (B, H, W, cin) bf16 and
+// g + j * g_stride: (B, H, W, cout) bf16, or with r > 1 (J = 1) the fine
+// (B, r H, r W, cout / r^2) bf16 read phase-major. Writes dw (J, k, k,
+// cin, cout) f32 and db (J, cout) f32. k = 3 or 5; cin and cout multiples
+// of 16; r > 1 needs cout / r^2 a multiple of 16; reflect != 0 (REFLECT
+// boundaries) k = 3, cin = 64, cout a multiple of 64, r = 1, H, W >= 2.
+// The pixel tiles of a job are summed by cluster * nclusters blocks
+// (srtpu_torch/ops/wgrad.py:wgrad_parts; cluster <= 8): with nclusters > 1,
+// ws_w (J, nclusters, k k cin cout) and ws_b (J, nclusters, cout) f32 hold
+// the clusters' partials, else they are not read. Returns a cudaError_t.
+extern "C" int srt_conv_wgrad(const void* x, const void* g, void* ws_w,
+                              void* ws_b, void* dw, void* db, int J,
+                              long long x_stride, long long g_stride, int B,
+                              int H, int W, int cin, int cout, int r,
+                              float gscale, int cluster, int nclusters, int k,
+                              int reflect, void* stream) {
+  if (k != 3 && k != 5) return (int)cudaErrorInvalidValue;
+  srt90::WgradArgs a = {};
+  a.x = x;
+  a.g = g;
+  a.ws_w = ws_w;
+  a.ws_b = ws_b;
+  a.dw = dw;
+  a.db = db;
+  a.J = J;
+  a.x_stride = x_stride;
+  a.g_stride = g_stride;
+  a.B = B;
+  a.H = H;
+  a.W = W;
+  a.cin = cin;
+  a.cout = cout;
+  a.r = r;
+  a.gscale = gscale;
+  a.cluster = cluster;
+  a.nclusters = nclusters;
+  a.k = k;
+  a.reflect = reflect;
+  return (int)srt90::wgrad(a, static_cast<cudaStream_t>(stream));
 }

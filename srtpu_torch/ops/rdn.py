@@ -5,10 +5,17 @@ Replaces ``srtpu/ops/cs_conv.py:rdn_all_fwd`` (body
 (``_rdb_bwd_chain_kernel_sp``) and ``rdb_bwd_dw_all``
 (``_rdb_bwd_dw_kernel_sp``), behind ``rdn_trunk_cat_cs``. The kernels are
 ``csrc/rdn.cu``, whose head note says what bounds them on the H100 and
-how the design replaces the TPU kernels' VMEM-resident concat buffer.
-:func:`rdn_fwd`, :func:`rdb_bwd_chain` and :func:`rdb_bwd_dw` launch the
-kernels for CUDA tensors and take the plain versions only for CPU
-tensors; :func:`rdn_trunk` is the differentiable op (:class:`RDNTrunkFn`).
+how the design replaces the TPU kernels' VMEM-resident concat buffer:
+every product runs on the port's two wgmma engines, K2's
+(``csrc/conv_sm90.cuh``: the forward's dense layers and fusion, the
+chain's fusion backward and dx per layer) and W's (``csrc/wgrad.cu``:
+the fusion's dwf, the pair weight grads). :func:`fwd_plan`,
+:func:`chain_plan` and :func:`dw_plan` are those launches' plans in
+plain Python; :func:`engine_conv` is K2's engine at K6's strides, which
+the card tests hold to K2 on contiguous copies. :func:`rdn_fwd`, :func:`rdb_bwd_chain` and
+:func:`rdb_bwd_dw` launch the kernels for CUDA tensors and take the
+plain versions only for CPU tensors; :func:`rdn_trunk` is the
+differentiable op (:class:`RDNTrunkFn`).
 
 srtpu's two other trunk forms run on the same stored parameters:
 
@@ -53,13 +60,11 @@ from . import _build
 from .conv import conv3x3_bwd, conv3x3_bwd_plain, conv3x3_fwd, conv3x3_plain
 from .conv import conv_f32
 from .layout import w_t
-from .wgrad import conv_wgrad_plain
+from .wgrad import conv_wgrad_plain, wgrad_parts, wgrad_workspace
 
 G = 64                  # the kernels' growth: one 64-channel chunk
-CONV_TH, CONV_TW = 7, 16  # the dense layers' and the chain's pixel tile
-DW_TH, DW_TW = 8, 16    # the weight-grad kernel's pixel tile
-FUSE_PIX = 64           # pixels per block of the 1x1 fusion kernels
-TARGET_BLOCKS = 264     # two blocks per SM of the H100's 132
+TILE_H, TILE_W = 8, 16  # K2's engine's pixel tile (csrc/conv_sm90.cuh)
+FUSE_PIX = 64           # pixels per block of the chain's gc kernel
 
 
 def n_pairs(n_layers: int) -> int:
@@ -89,6 +94,53 @@ def unpack(wpk: torch.Tensor, n_layers: int) -> tuple:
         out.append(v.permute(0, 2, 3, 1, 4, 5).reshape(d, kh, kw, n * g0, g))
         p += i + 1
     return tuple(out)
+
+
+def engine_bn(cout: int) -> int:
+    """K2's engine's N a block (``conv_sm90.cuh:run``): the widest of
+    192, 128, 64, 48, 32, 16 that divides cout."""
+    return next(n for n in (192, 128, 64, 48, 32, 16) if cout % n == 0)
+
+
+def fwd_plan(n_blocks: int, n_layers: int) -> tuple:
+    """The launches of one block of :func:`rdn_fwd` on K2's engine, each
+    (k, cin, cout, input pixel stride, output pixel stride, output
+    channel offset): dense layer i reads the buffer's channel prefix [0,
+    64 (i + 1)) at pixel stride c_tot and writes chunk i + 1 of it; the
+    fusion reads all c_tot channels and writes the block's slice of cat
+    (pixel stride 64 D; the block's offset in it apart) and the next
+    block's chunk 0."""
+    c_tot = G * (n_layers + 1)
+    return (*((3, G * (i + 1), G, c_tot, c_tot, G * (i + 1))
+              for i in range(n_layers)),
+            (1, c_tot, G, c_tot, G * n_blocks, 0))
+
+
+def chain_plan(n_layers: int) -> tuple:
+    """The engine launches of :func:`rdb_bwd_chain` in order: the
+    fusion's backward (k = 1, gc -> dbuf's c_tot channels), then layer i
+    from C - 1 down to 0 (k = 3, doutb_i -> dbuf's chunks 0..i). Each
+    (k, cin, cout, input pixel stride, input channel offset, the N tiles
+    (n0, n1) of its blocks, the chunk m whose mask it forms (dout_{m-1};
+    None at layer 0, which writes dx), the index of the N tile that holds
+    chunk m)."""
+    c_tot = G * (n_layers + 1)
+
+    def launch(k, cin, cout, xps, xoff, m):
+        bn = engine_bn(cout)
+        tiles = tuple((n, n + bn) for n in range(0, cout, bn))
+        return (k, cin, cout, xps, xoff, tiles, m,
+                None if m is None else G * m // bn)
+    return (launch(1, G, c_tot, G, 0, n_layers),
+            *(launch(3, G, G * (i + 1), G * n_layers, G * i, i or None)
+              for i in reversed(range(n_layers))))
+
+
+def dw_plan(n_layers: int) -> tuple:
+    """The jobs of :func:`rdb_bwd_dw`'s one launch (W's pairs mode), in
+    job order, which is :func:`pack`'s pair order: (layer i, chunk j),
+    the buffer's chunk j against dout's chunk i, 64 -> 64 each."""
+    return tuple((i, j) for i in range(n_layers) for j in range(i + 1))
 
 
 def _layer_t(wtpk_l: torch.Tensor, i: int) -> torch.Tensor:
@@ -182,9 +234,10 @@ def _check(name: str, t: torch.Tensor) -> None:
 
 def rdn_fwd(x, wpk, b, wf, bf, save: bool = False):
     """As :func:`rdn_fwd_plain`. On CUDA: G0 = G = 64, bf16 activations
-    and weights; one call is D (C + 1) launches plus one copy of x into
-    the first buffer (without ``save`` the blocks share one buffer, the
-    fusion writing the next block's input in place)."""
+    and weights; one call is D (C + 1) launches of K2's engine
+    (:func:`fwd_plan`) plus one copy of x into the first buffer (without
+    ``save`` the blocks share one buffer, the fusion writing the next
+    block's input in place)."""
     if x.device.type == 'cpu':
         return rdn_fwd_plain(x, wpk, b, wf, bf, save)
     _check('rdn_fwd', x)
@@ -211,8 +264,9 @@ def rdn_fwd(x, wpk, b, wf, bf, save: bool = False):
     return (cat, bufs) if save else cat
 
 
-def _tiles(bsz: int, h: int, w: int, th: int, tw: int) -> int:
-    return bsz * -(-h // th) * -(-w // tw)
+def _tiles(bsz: int, h: int, w: int) -> int:
+    """K2's engine's pixel tiles over the images."""
+    return bsz * -(-h // TILE_H) * -(-w // TILE_W)
 
 
 def _expect_bufs(bufs, l: int, dev):
@@ -227,9 +281,10 @@ def _expect_bufs(bufs, l: int, dev):
 
 def rdb_bwd_chain(bufs, l: int, g_run, ct, wtpk, wft):
     """As :func:`rdb_bwd_chain_plain`. On CUDA: G0 = 64, bf16 buffers,
-    cotangents and weights; one call is C + 5 launches (the fusion's
-    backward, its weight grad and a reduction, one dx-chain step per
-    layer, the bias-grad reductions)."""
+    cotangents and weights; one call is C + 5 launches (gc and dbf's
+    partials, dwf on W's engine (and its slots' sum where the split has
+    them), the fusion's backward and one dx per layer on K2's engine
+    (:func:`chain_plan`), the bias grads' reductions)."""
     if g_run.device.type == 'cpu':
         return rdb_bwd_chain_plain(bufs, l, g_run, ct, wtpk, wft)
     _check('rdb_bwd_chain', g_run)
@@ -242,14 +297,11 @@ def rdb_bwd_chain(bufs, l: int, g_run, ct, wtpk, wft):
     _build.expect(wtpk, 'wtpk', bf16, (d, n_pairs(n_layers), 3, 3, G, G),
                   dev)
     _build.expect(wft, 'wft', bf16, (d, G, c_tot), dev)
-    jobs = c_tot // G
-    nparts = max(1, min(_tiles(bsz, h, w, DW_TH, DW_TW),
-                        TARGET_BLOCKS // jobs))
     f32 = dict(dtype=torch.float32, device=dev)
-    part = torch.empty(
-        (-(-bsz * h * w // FUSE_PIX)
-         + n_layers * _tiles(bsz, h, w, CONV_TH, CONV_TW)) * G
-        + jobs * nparts * G * G, **f32)
+    part = torch.empty((-(-bsz * h * w // FUSE_PIX)
+                        + n_layers * _tiles(bsz, h, w)) * G, **f32)
+    cluster, clusters = wgrad_parts(bsz, h, w, c_tot, G, 1, 1)
+    ws_w, ws_b = wgrad_workspace(1, cluster, clusters, c_tot, G, 1, dev)
     dbuf = torch.empty((bsz, h, w, c_tot), **f32)
     gc = torch.empty_like(g_run)
     dx = torch.empty_like(g_run)
@@ -262,8 +314,9 @@ def rdb_bwd_chain(bufs, l: int, g_run, ct, wtpk, wft):
             bufs[l].data_ptr(), g_run.data_ptr(), ct.data_ptr(), l, d,
             wtpk[l].data_ptr(), wft[l].data_ptr(), dbuf.data_ptr(),
             gc.data_ptr(), part.data_ptr(), dout.data_ptr(), dx.data_ptr(),
-            dwf.data_ptr(), dbf.data_ptr(), db.data_ptr(), bsz, h, w,
-            n_layers, nparts, _build.stream(dev))
+            dwf.data_ptr(), dbf.data_ptr(), db.data_ptr(), ws_w.data_ptr(),
+            ws_b.data_ptr(), bsz, h, w, n_layers, cluster, clusters,
+            _build.stream(dev))
     _build.check(err, 'srt_rdb_bwd_chain')
     rdb_bwd_chain.launches += 1
     return dx, dout, dwf, dbf, db
@@ -271,8 +324,9 @@ def rdb_bwd_chain(bufs, l: int, g_run, ct, wtpk, wft):
 
 def rdb_bwd_dw(bufs, l: int, dout):
     """As :func:`rdb_bwd_dw_plain`. On CUDA: G0 = 64, bf16; one call is
-    two launches (the n_pairs weight grads as per-block partials, then a
-    fixed-order reduction)."""
+    one launch of W's engine over the n_pairs jobs of :func:`dw_plan`
+    (and its slots' sum where the split, :func:`~.wgrad.wgrad_parts` of
+    n_pairs jobs of 64 -> 64, has them)."""
     if dout.device.type == 'cpu':
         return rdb_bwd_dw_plain(bufs, l, dout)
     dev = dout.device
@@ -283,23 +337,57 @@ def rdb_bwd_dw(bufs, l: int, dout):
     _build.expect(dout, 'dout', torch.bfloat16, (bsz, h, w, n_layers * G),
                   dev)
     jobs = n_pairs(n_layers)
-    nparts = max(1, min(_tiles(bsz, h, w, DW_TH, DW_TW),
-                        TARGET_BLOCKS // jobs))
-    f32 = dict(dtype=torch.float32, device=dev)
-    ws = torch.empty((jobs, nparts, 9 * G * G), **f32)
-    dw = torch.empty((jobs, 3, 3, G, G), **f32)
+    cluster, clusters = wgrad_parts(bsz, h, w, G, G, 1, 3, jobs)
+    ws = wgrad_workspace(jobs, cluster, clusters, G, G, 3, dev)[0]
+    dw = torch.empty((jobs, 3, 3, G, G), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _build.library().srt_rdb_bwd_dw(
             bufs[l].data_ptr(), dout.data_ptr(), ws.data_ptr(),
-            dw.data_ptr(), bsz, h, w, n_layers, nparts, _build.stream(dev))
+            dw.data_ptr(), bsz, h, w, n_layers, cluster, clusters,
+            _build.stream(dev))
     _build.check(err, 'srt_rdb_bwd_dw')
     rdb_bwd_dw.launches += 1
     return dw
 
 
+def engine_conv(x, x_off: int, cin: int, w, pack: int, b, out,
+                out_off: int, relu: bool = False) -> None:
+    """K2's engine as :func:`rdn_fwd` runs it, on CUDA tensors, for the
+    card tests: the 3x3 conv of x's channels [x_off, x_off + cin) (x (B,
+    H, W, Cx) bf16, read at its pixel stride Cx) with w, one HWIO weight
+    (pack 0: (3, 3, cin, cout)) or pairs (pack 1: a layer's pairs of
+    :func:`pack`, (i + 1, 3, 3, 64, 64), K in 64-channel groups; 2: their
+    transposed pairs, N in groups), plus b (cout,) f32 (ReLU with
+    ``relu``), written in place into out's channels [out_off, out_off +
+    cout) (out (B, H, W, Co) bf16)."""
+    dev = x.device
+    if dev.type != 'cuda':
+        raise ValueError(f'engine_conv: no kernel for device {dev}')
+    bsz, h, w_, cx = x.shape
+    cout = b.shape[0]
+    _build.expect(x, 'x', torch.bfloat16, x.shape, dev)
+    _build.expect(out, 'out', torch.bfloat16, (bsz, h, w_, out.shape[-1]),
+                  dev)
+    _build.expect(b, 'b', torch.float32, (cout,), dev)
+    w_shape = ((3, 3, cin, cout), (cin // G, 3, 3, G, cout),
+               (cout // G, 3, 3, cin, G))[pack]
+    _build.expect(w, 'w', torch.bfloat16, w_shape, dev)
+    if (x_off % 8 or out_off % 8 or x_off + cin > cx
+            or out_off + cout > out.shape[-1]):
+        raise ValueError('engine_conv: channels outside x or out')
+    with _build.on(dev):
+        err = _build.library().srt_rdn_conv(
+            x.data_ptr() + 2 * x_off, cx, w.data_ptr(), pack, b.data_ptr(),
+            out.data_ptr() + 2 * out_off, out.shape[-1], bsz, h, w_, cin,
+            cout, int(relu), _build.stream(dev))
+    _build.check(err, 'srt_rdn_conv')
+    engine_conv.launches += 1
+
+
 rdn_fwd.launches = 0
 rdb_bwd_chain.launches = 0
 rdb_bwd_dw.launches = 0
+engine_conv.launches = 0
 
 
 def rdn_trunk_bwd(bufs, ct, wpk, wf, plain: bool = False):

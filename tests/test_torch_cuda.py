@@ -26,7 +26,9 @@ K6 (RDN's dense blocks): the bf16 outputs (cat, the buffers, dx, dout)
 within two steps: a value a step apart is read by the later layers of
 its block; the chain's bias grads db within one step of their largest
 magnitude (they sum f32 dout behind such a value), its dwf, dbf and the
-pair weight grads (the same bf16 operands) within 1e-4.
+pair weight grads (the same bf16 operands) within 1e-4. K6 runs on K2's
+and W's engines at its own strides: those launches are bit-equal to K2
+and W on contiguous copies of the same operands.
 K7 (WDSR-B's block): out and dx within two steps (h1 and h2 round at the
 same points, but a value a step apart is read by the next product), the
 f32 weight and bias grads within one step (they sum products of those
@@ -655,6 +657,64 @@ def test_k6_wrappers_reject_what_the_kernels_do_not_take(device):
         k6.rdn_fwd(x.float(), wpk, b, wf, bf)
     with pytest.raises(ValueError):
         k6.rdn_fwd(x, wpk, b, wf[:, :128].contiguous(), bf)
+
+
+@pytest.mark.parametrize('layer', [0, 3, 7])
+def test_k6_engine_on_strided_operands_matches_k2_on_copies(device, layer):
+    """K2's engine as K6 runs it, on a channel prefix of a strided buffer
+    and into a channel slice, is bit-equal to K2 (conv3x3_fwd) on
+    contiguous copies: the forward direction (dense layer i: the prefix of
+    chunks 0..i at pixel stride 576, the layer's pairs of wpk along K,
+    into chunk i + 1) and the chain's (chunk i of dout at pixel stride
+    512, the layer's transposed pairs along N, into channels [0, 64 (i +
+    1)) of a wider buffer). Same sums in the same order, one rounding."""
+    gen = torch.Generator().manual_seed(300 + layer)
+    c, c_tot = 8, 576
+    bsz, h, w = 2, 9, 33
+    ws = [_u(gen, (1, 3, 3, 64 * (i + 1), 64), (576 * (i + 1)) ** -0.5,
+             device) for i in range(c)]
+    wpk = k6.pack(ws)[0]
+    wtpk = w_t(wpk).contiguous()
+    p0, cin = k6.n_pairs(layer), 64 * (layer + 1)
+    buf = _u(gen, (bsz, h, w, c_tot), 1.0, device)
+    b = _u(gen, (64,), 0.05, device, torch.float32)
+    out = torch.zeros((bsz, h, w, c_tot), dtype=torch.bfloat16,
+                      device=device)
+    before = k6.engine_conv.launches
+    k6.engine_conv(buf, 0, cin, wpk[p0:p0 + layer + 1].contiguous(), 1, b,
+                   out, cin, relu=True)
+    ref = conv3x3_fwd(buf[..., :cin].contiguous(), ws[layer][0], b,
+                      relu=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out[..., cin:cin + 64], ref)
+    dout = _u(gen, (bsz, h, w, 64 * c), 1.0, device)
+    zero = torch.zeros((cin,), dtype=torch.float32, device=device)
+    k6.engine_conv(dout, 64 * layer, 64, wtpk[p0:p0 + layer + 1].contiguous(),
+                   2, zero, out, 0)
+    ref = conv3x3_fwd(dout[..., 64 * layer:64 * (layer + 1)].contiguous(),
+                      k6._layer_t(wtpk, layer).contiguous(), zero)
+    torch.cuda.synchronize()
+    assert k6.engine_conv.launches == before + 2
+    assert torch.equal(out[..., :cin], ref)
+
+
+@pytest.mark.parametrize('bsz,h,w', [(2, 9, 33), (16, 32, 32)])
+def test_k6_pair_weight_grads_match_w_on_copies(device, bsz, h, w):
+    """The pair weight grads (W's engine in its pairs mode: X chunk j of the
+    buffer at pixel stride 576, G chunk i of dout at 512) are bit-equal to
+    conv_wgrad on contiguous copies of the same 36 (X, G) pairs stacked as
+    jobs (the same split of the pixels, so the same order of the sums)."""
+    gen = torch.Generator().manual_seed(bsz * 100 + h)
+    c = 8
+    bufs = _u(gen, (1, bsz, h, w, 64 * (c + 1)), 1.0, device)
+    dout = _u(gen, (bsz, h, w, 64 * c), 1.0, device)
+    dw = k6.rdb_bwd_dw(bufs, 0, dout)
+    pairs = k6.dw_plan(c)
+    xs = torch.stack([bufs[0, ..., 64 * j:64 * (j + 1)] for _, j in pairs])
+    gs = torch.stack([dout[..., 64 * i:64 * (i + 1)] for i, _ in pairs])
+    ref, _ = conv_wgrad(xs.contiguous(), gs.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(dw, ref)
 
 
 def _k7_case(gen, device, bsz, h, w, c):

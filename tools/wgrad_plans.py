@@ -43,35 +43,7 @@ _spec.loader.exec_module(chip_smoke)
 from srtpu_torch.ops import wgrad  # noqa: E402
 
 COUNTS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)
-
-
-def graph_ms(fn, calls: int = 20, windows: int = 5) -> float:
-    """Median over ``windows`` of the CUDA-event time of one replay of a
-    CUDA graph of ``calls`` calls of ``fn``, per call: the device's time
-    alone. Back-to-back calls (``chip_smoke.median_ms``) measure the
-    host's enqueue instead where a kernel is faster than its wrapper."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(windows):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return float(sorted(times)[len(times) // 2])
+graph_ms = chip_smoke.graph_ms
 
 
 def splits(tiles: int, base: int):
