@@ -41,7 +41,10 @@ Phases, each of which raises on failure (nothing is caught):
    (batch 16, LR 32x32), one RCAB at the predict shape (batch 1,
    128x128) and at a ragged batch 2 of 67x45: the forward's out, h1 and
    r2, the backward's dx and eight f32 grads (the group's: ten), errors
-   beside tolerances, two calls bit-identical, kernel and plain times;
+   beside tolerances, the forward without saving bit-identical to the
+   saving one's output, two calls bit-identical, kernel and plain times,
+   device and host time a call and a group, device time by part (the
+   conv pair, the passes, the dx chain, the weight grads);
 5. the RCAN predict slice: phase 3's path and images with ``--model
    RCAN`` at full width and depth (64 features, 10 groups of 16 RCABs,
    reduction 16): per image 160 K5 forward and 11 K2 forward launches,
@@ -181,7 +184,9 @@ Phases, each of which raises on failure (nothing is caught):
    term): per step K4r F1 and B3 17, F2 and B2 16, K4's F3 and B1 17 and
    33 reflect weight grads; g_loss and d_loss finite, the running
    statistics moved; a kernel-path and a plain-path step held to an f32
-   step (every generator gradient, each block's BN2 dy); the step's time
+   step (every generator gradient, each block's BN2 dy; cuDNN's
+   deterministic algorithms, so the held ratios repeat bit for bit:
+   ``gan_held_repeat`` runs it four times); the step's time
    on the kernel and plain paths (and the kernel path with TF32 off),
    patches/s, the device share and device time by group (K4r, Adam, the
    rest; D, VGG19 and the generator timed alone).
@@ -367,6 +372,14 @@ RCAN_STEP_LAUNCHES = {rcab_fwd: GROUPS * RCABS, rcab_bwd: GROUPS * RCABS,
 # 16-block group four steps for everything, as K1's trunk: a step in one
 # block's output moves every later block's pool, gate and grads.
 RCAB_STEPS, RCAB_MLP_REL, GROUP_STEPS = 1, 1e-4, 4
+# Phase 2c's K5 shapes (the training shape, the predict shape and a ragged
+# batch) and the group lengths K5 is held at on the card: 1 (one RCAB,
+# each shape) and RCABS (a group, the training shape), each way and, in
+# the forward, saving and not (tests/test_torch_k5_plans.py holds that
+# these cover the plans RCAN launches)
+K5_SHAPES = ((TRAIN_BATCH, TRAIN_PATCH // SCALE, TRAIN_PATCH // SCALE),
+             (1, 128, 128), (2, 67, 45))
+K5_GROUPS = (1, RCABS)
 # SRResNet x4 (srtpu bench.py's row, srtpu's defaults): 64 features, 16
 # BN resblocks, the CLI's shared --n_feats / --n_resblocks
 K4_FNS = {'F1': f1_conv_stats, 'F2': f2_norm_act_conv_stats,
@@ -1111,17 +1124,32 @@ def _check_all(label, names, got, ref, tols) -> float:
     return first
 
 
-def check_rcab_kernels(device) -> dict:
+def _k5_parts(tag: str, fwd, bwd, smi: str) -> None:
+    """K5's device time by part (torch.profiler), a call of ``fwd`` and of
+    ``bwd``: the forward's conv pair (K2's engine) and passes (pool + MLP,
+    gate); the backward's passes (pool sums, MLP, dr2), dx chain (the
+    engine's two transposed convs) and weight grads (W)."""
+    parts = {'fwd conv pair': (fwd, ('conv_sm90_kernel',)),
+             'fwd passes': (fwd, ('rcab_',)),
+             'bwd passes': (bwd, ('rcab_',)),
+             'bwd dx chain': (bwd, ('conv_sm90_kernel',)),
+             'bwd weight grads': (bwd, ('wgrad',))}
+    print(f'K5 {tag} device ms by part (torch.profiler): ' + ', '.join(
+        f'{k} {_kernel_device_ms(fn, names):.4f}'
+        for k, (fn, names) in parts.items()) + f'  [{smi}]')
+
+
+def check_rcab_kernels(device, smi: str) -> dict:
     """Phase 2c. K5's forward (saving) and backward against the plain
     versions, one RCAB at the training, predict and ragged shapes and a
-    16-block group at the training shape; two calls bit-identical.
-    Returns K5 / K5b stats, timed at the training shape (per RCAB call)."""
+    16-block group at the training shape (K5_SHAPES, K5_GROUPS); the
+    forward without saving bit-identical to the saving one's output; two
+    calls bit-identical. Returns K5 / K5b stats, timed at the training
+    shape (per RCAB call; device time by part)."""
     stats = new_stats(('K5', 'K5b'))
     mlp_tol = [RCAB_MLP_REL] * 4
     bwd_names = ('dx', 'dw1', 'db1', 'dw2', 'db2', 'dwd', 'dbd', 'dwu', 'dbu')
-    shapes = ((TRAIN_BATCH, TRAIN_PATCH // SCALE, TRAIN_PATCH // SCALE),
-              (1, 128, 128), (2, 67, 45))
-    for i, (bsz, h, w) in enumerate(shapes):
+    for i, (bsz, h, w) in enumerate(K5_SHAPES):
         gen = torch.Generator().manual_seed(bsz * 7919 + h * 101 + w)
         prm = rcab_params(gen, device)
         x = _uniform(gen, (bsz, h, w, C), 1.0, device, torch.bfloat16)
@@ -1133,6 +1161,8 @@ def check_rcab_kernels(device) -> dict:
         need(all(torch.equal(a, b) for a, b in
                  zip(got, rcab_fwd(x, *prm, save=True))),
              f'K5 fwd {tag}: two calls differ')
+        need(torch.equal(rcab_fwd(x, *prm), got[0]),
+             f'K5 fwd {tag}: without saving, another output')
         err = _check_all(f'K5 rcab fwd (saving) {tag}', ('out', 'h1', 'r2'),
                          got, ref, [RCAB_STEPS] * 3)
         stats['K5']['max_abs_err'] = max(stats['K5']['max_abs_err'], err)
@@ -1160,17 +1190,19 @@ def check_rcab_kernels(device) -> dict:
                    nbytes(x, prm, got))
             record(stats['K5b'], bms, bpl, 4 * conv_flops(px, C, C),
                    nbytes(bargs, bgot))
-            # the device's time alone (CUDA graphs): the backward's seven
-            # launches are host-bound in back-to-back calls
+            # the device's time alone (CUDA graphs): back-to-back calls
+            # measure the host where the kernels are faster than it
             for kid, fn in (('K5', lambda: rcab_fwd(x, *prm, save=True)),
                             ('K5b', lambda: rcab_bwd(*bargs))):
                 stats[kid]['device_ms'] = graph_ms(fn)
                 stats[kid]['host_ms'] = host_ms(fn)
                 print(f'{kid} {tag}: device {stats[kid]["device_ms"]:.4f} ms '
                       f'a call, host {stats[kid]["host_ms"]:.4f} ms')
+            _k5_parts(tag, lambda: rcab_fwd(x, *prm, save=True),
+                      lambda: rcab_bwd(*bargs), smi)
 
     # a 16-block residual group at the training shape
-    bsz, h, w = shapes[0]
+    bsz, h, w = K5_SHAPES[0]
     gen = torch.Generator().manual_seed(2024)
     w1, b1, w2, b2, wd, bd, wu, bu = rcab_params(gen, device, (RCABS,))
     wc = _uniform(gen, (3, 3, C, C), 1.0 / (9 * C) ** 0.5, device,
@@ -1186,6 +1218,8 @@ def check_rcab_kernels(device) -> dict:
     need(all(torch.equal(a, b) for a, b in
              zip(got, resgroup_fwd(x, *prm, save=True))),
          f'group fwd {tag}: two calls differ')
+    need(torch.equal(resgroup_fwd(x, *prm), got[0]),
+         f'group fwd {tag}: without saving, another output')
     _check_all(f'K5 group fwd (saving) {tag}', ('out', 'xs', 'h1s', 'r2s'),
                got, ref, [GROUP_STEPS] * 4)
     bargs = (*ref[1:], g, w1, w2, wd, bd, wu, bu, wc)
@@ -1196,13 +1230,17 @@ def check_rcab_kernels(device) -> dict:
          f'group bwd {tag}: two calls differ')
     _check_all(f'K5 group bwd {tag}', (*bwd_names, 'dwc', 'dbc'), bgot, bref,
                [GROUP_STEPS] * 11)
-    times = [median_ms(fn, 5, 3) for fn in (
-        lambda: resgroup_fwd(x, *prm, save=True),
-        lambda: resgroup_plain(x, *prm, save=True),
-        lambda: resgroup_bwd(*bargs), lambda: resgroup_bwd_plain(*bargs))]
-    print(f'K5 group {tag}: fwd saving kernel {times[0]:.4f} ms plain '
-          f'{times[1]:.4f} ms; bwd kernel {times[2]:.4f} ms plain '
-          f'{times[3]:.4f} ms')
+    fns = {'fwd saving': lambda: resgroup_fwd(x, *prm, save=True),
+           'fwd predict': lambda: resgroup_fwd(x, *prm),
+           'bwd': lambda: resgroup_bwd(*bargs)}
+    plain = {'fwd saving': lambda: resgroup_plain(x, *prm, save=True),
+             'bwd': lambda: resgroup_bwd_plain(*bargs)}
+    print(f'K5 group {tag} (with its close conv; bwd with the weight '
+          f'grads), ms a call: ' + '; '.join(
+              f'{k} kernel {median_ms(fn, 5, 3):.4f}, device '
+              f'{graph_ms(fn, 5, 3):.4f}, host {host_ms(fn):.4f}'
+              + (f', plain {median_ms(plain[k], 5, 3):.4f}' if k in plain
+                 else '') for k, fn in fns.items()) + f'  [{smi}]')
     return stats
 
 
@@ -2726,16 +2764,21 @@ EDSR_PROFILE = (('resblock_bwd_kernel', 'K1 bwd dx chain'),
                 ('conv3x3_kernel<64, 64, 7, 16, true', 'K3 fwd'),
                 ('conv3x3_kernel<256, 16, 7, 16, false, true', 'K3 bwd dx'),
                 ('conv_sm90_kernel', 'K2 fwd + bwd dx'))
-RCAN_PROFILE = (('rcab_pair_kernel', 'K5 fwd conv pair (F1)'),
+# K5's conv1 is K2's own 64 -> 64 instance, as the group close convs
+RCAN_PROFILE = (('conv_sm90_kernel<64, 1, 4, 1, false, 4>',
+                 'K5 fwd conv2 (K2 engine, EPI 4)'),
+                ('conv_sm90_kernel<64, 1, 4, 1, true, 5>',
+                 'K5 bwd dx chain (K2 engine TB, EPI 5)'),
                 ('rcab_pool_mlp_kernel', 'K5 fwd pool + MLP (F2)'),
                 ('rcab_gate_kernel', 'K5 fwd gate (F3)'),
                 ('rcab_ca_sums_kernel', 'K5 bwd pool sums (B1)'),
                 ('rcab_ca_bwd_kernel', 'K5 bwd MLP (B2)'),
                 ('rcab_mlp_grads_kernel', 'K5 bwd MLP (B2)'),
                 ('rcab_dr2_kernel', 'K5 bwd dr2 (B3)'),
-                ('rcab_chain_kernel', 'K5 bwd dx chain (B4)'),
                 ('wgrad', 'weight grads'),
-                ('conv_sm90_kernel', 'K2 fwd + bwd dx'))
+                ('conv_sm90_kernel<64, 1, 4, 1, false, 0>',
+                 'K5 fwd conv1 + K2 close convs (EPI 0)'),
+                ('conv_sm90_kernel', 'K2 bwd dx'))
 SRRESNET_PROFILE = (
     ('bn_conv_stats_kernel<false', 'K4 F1 conv + stats'),
     ('bn_conv_stats_kernel<true', 'K4 F2 norm + PReLU + conv + stats'),
@@ -3235,26 +3278,111 @@ def _gan_parts(net, vgg, lr, hr, smi: str) -> None:
               f'{k} {v:.3f}' for k, v in parts.items()))
 
 
+def _gan_argv(data: Path, run: Path) -> list:
+    """Phase 18's ``fit --model SRGAN`` command line."""
+    return ['fit', '--model', 'SRGAN', '--scale_factor', str(SCALE),
+            *SRGAN_ARGS, '--datasets_dir', str(data), '--train_datasets',
+            'Train', '--batch_size', str(TRAIN_BATCH), '--patch_size',
+            str(TRAIN_PATCH), '--optimizer_params', 'lr=1e-4',
+            '--max_epochs', str(TRAIN_STEPS), '--precision', 'bf16',
+            '--device', 'cuda', '--seed', str(SEED), '--default_root_dir',
+            str(run)]
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic():
+    """cuDNN's deterministic algorithms and no benchmark mode inside the
+    block, the settings restored after: the stock f32 convs of the SRGAN
+    step (D, VGG19, the f32 path's generator) otherwise take algorithms
+    whose sums change order from call to call, and the held step's
+    invariants sit at that noise."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
+def gan_held_step(net, vgg, lr, hr, scale: int) -> tuple[dict, list]:
+    """Phase 18's held step: from ``net``'s parameters and one batch, a
+    kernel-path, a plain-path and an f32 step (cuDNN deterministic), every
+    generator gradient and each block's BN2 dy of the kernel path held to
+    the f32 step (as phase 8). Returns the two paths ({plain: (step,
+    state)}, each one step on) and the (error / limit, text) rows."""
+    def path(plain, dtype=torch.bfloat16):
+        m = copy.deepcopy(net)
+        m.generator.dtype = m.discriminator.dtype = dtype
+        return (make_gan_train_step(vgg_loss=vgg, plain=plain),
+                create_gan_state(m, 1e-4))
+    scales, rk, rp, rf = {}, [], [], []
+    with _cudnn_deterministic():
+        paths = {False: path(False), True: path(True)}
+        with _dy_record(bn_block.KERNELS, rk):
+            paths[False][0](paths[False][1], lr, hr)
+        with _dy_record(bn_block.PLAIN, rp):
+            paths[True][0](paths[True][1], lr, hr)
+        step32, st32 = path(True, None)
+        with _db_scales(scales, 'trunk.'), _dy_record(bn_block.PLAIN, rf):
+            step32(st32, lr, hr)
+    gk, gp, gf = (_grads(s.generator) for s in (
+        paths[False][1], paths[True][1], st32))
+    for n, t in gk.items():
+        need(t.dtype == torch.float32, f'{n} grad dtype')
+    rows = _vs_f32(gk, gp, gf, scales)
+    dy_rows = _dy_rows(rk, rp, rf)
+    label = f'SRGAN x{scale} train step generator gradients'
+    need(all(r <= 1.0 for r, _ in rows + dy_rows),
+         f'{label}: ' + '; '.join(t for r, t in rows + dy_rows
+                                  if not r <= 1.0))
+    print(f'{label}, max_abs vs the f32 step, kernel/plain/tol (|f32|), '
+          f'the four nearest their tolerance: '
+          + ', '.join(t for _, t in rows[:4]) + '; the pre-BN biases: '
+          + ', '.join(t for _, t in rows if '|grad|' in t)
+          + '; per block, error/limit: '
+          + ', '.join(f'{t} = {r:.4g}' for r, t in dy_rows))
+    return paths, rows + dy_rows
+
+
+def gan_held_repeat(device, smi: str, runs: int = 4) -> None:
+    """Phase 18's held step ``runs`` times on one set of parameters and
+    batch: every error / limit ratio must repeat bit for bit (F13)."""
+    with tempfile.TemporaryDirectory(prefix='srtpu_smoke_gan_') as tmp:
+        data = fit_data(Path(tmp), SCALE, TRAIN_PATCH)
+        argv = _gan_argv(data, Path(tmp) / 'run')
+        net = cli.build_model(cli.build_parser().parse_args(argv), device)
+        net.train()
+        lr, hr = fit_batches(data, SCALE, TRAIN_PATCH, device, 1)[0]
+        vgg = VGGLoss(device=device)
+        seen = []
+        for i in range(runs):
+            rows = gan_held_step(net, vgg, lr, hr, SCALE)[1]
+            seen.append([r for r, _ in rows])
+            print(f'held step {i + 1} of {runs}: largest error/limit '
+                  f'{max(seen[-1])!r}; per block dy, invariant: '
+                  + ', '.join(repr(r) for r in seen[-1][-2:])
+                  + f'  [{smi}]')
+        need(all(r == seen[0] for r in seen),
+             f'the held SRGAN step moved between calls: {seen}')
+        print(f'held SRGAN step: {runs} calls, every one of its '
+              f'{len(seen[0])} error/limit ratios the same each call')
+
+
 def run_gan_train(device, smi: str) -> dict:
     """Phase 18. ``fit --model SRGAN --use_pallas cs`` through the CLI at
     batch 16, patch 128, TRAIN_STEPS adversarial steps: the launch
     counters per step, g_loss and d_loss finite, the running statistics
     moved; from one set of params and batch, a kernel-path and a
-    plain-path step held to an f32 step (every generator gradient and each
-    block's BN2 dy, as phase 8); five steps' losses; the step's time on
+    plain-path step held to an f32 step (:func:`gan_held_step`, cuDNN
+    deterministic); five steps' losses; the step's time on
     both paths (TF32 at PyTorch's default, on, for the VGG19's f32 convs
     as the CLI runs them; the kernel path also with it off); the device
     share and time by group. Returns the launch counts of the fit run."""
     scale, patch, steps = SCALE, TRAIN_PATCH, TRAIN_STEPS
     with tempfile.TemporaryDirectory(prefix='srtpu_smoke_gan_') as tmp:
         data = fit_data(Path(tmp), scale, patch)
-        argv = ['fit', '--model', 'SRGAN', '--scale_factor', str(scale),
-                *SRGAN_ARGS, '--datasets_dir', str(data),
-                '--train_datasets', 'Train', '--batch_size',
-                str(TRAIN_BATCH), '--patch_size', str(patch),
-                '--optimizer_params', 'lr=1e-4', '--max_epochs', str(steps),
-                '--precision', 'bf16', '--device', 'cuda', '--seed',
-                str(SEED), '--default_root_dir', str(Path(tmp) / 'run')]
+        argv = _gan_argv(data, Path(tmp) / 'run')
         log = _LossLog()
         logging.getLogger('srtpu_torch.train.loop').addHandler(log)
         for k in SRGAN_STEP_LAUNCHES:
@@ -3285,43 +3413,11 @@ def run_gan_train(device, smi: str) -> dict:
                  f'{name}: running statistics not finite or never moved')
         print(f'SRGAN fit: {len(stats)} running statistics finite and moved')
 
-        # kernel path, plain path and an f32 step from one set of params
         net = cli.build_model(cli.build_parser().parse_args(argv), device)
         net.train()
         batches = fit_batches(data, scale, patch, device)
         vgg = VGGLoss(device=device)
-
-        def path(plain, dtype=torch.bfloat16):
-            m = copy.deepcopy(net)
-            m.generator.dtype = m.discriminator.dtype = dtype
-            return (make_gan_train_step(vgg_loss=vgg, plain=plain),
-                    create_gan_state(m, 1e-4))
-        paths = {False: path(False), True: path(True)}
-        lr, hr = batches[0]
-        scales, rk, rp, rf = {}, [], [], []
-        with _dy_record(bn_block.KERNELS, rk):
-            paths[False][0](paths[False][1], lr, hr)
-        with _dy_record(bn_block.PLAIN, rp):
-            paths[True][0](paths[True][1], lr, hr)
-        step32, st32 = path(True, None)
-        with _db_scales(scales, 'trunk.'), _dy_record(bn_block.PLAIN, rf):
-            step32(st32, lr, hr)
-        gk, gp, gf = (_grads(s.generator) for s in (
-            paths[False][1], paths[True][1], st32))
-        for n, t in gk.items():
-            need(t.dtype == torch.float32, f'{n} grad dtype')
-        rows = _vs_f32(gk, gp, gf, scales)
-        dy_rows = _dy_rows(rk, rp, rf)
-        label = f'SRGAN x{scale} train step generator gradients'
-        need(all(r <= 1.0 for r, _ in rows + dy_rows),
-             f'{label}: ' + '; '.join(t for r, t in rows + dy_rows
-                                      if not r <= 1.0))
-        print(f'{label}, max_abs vs the f32 step, kernel/plain/tol (|f32|), '
-              f'the four nearest their tolerance: '
-              + ', '.join(t for _, t in rows[:4]) + '; the pre-BN biases: '
-              + ', '.join(t for _, t in rows if '|grad|' in t)
-              + '; per block, error/limit: '
-              + ', '.join(f'{t} = {r:.4g}' for r, t in dy_rows))
+        paths, _ = gan_held_step(net, vgg, *batches[0], scale)
         losses = {False: [], True: []}
         for j, (lr, hr) in enumerate(batches[1:]):
             for plain, (step, state) in paths.items():
@@ -3370,7 +3466,7 @@ def main() -> None:
     device, smi = card()
     stats = check_kernels(device)
     stats.update(check_bwd_kernels(device, smi))
-    stats.update(check_rcab_kernels(device))
+    stats.update(check_rcab_kernels(device, smi))
     stats.update(check_bn_kernels(device))
     stats.update(check_rdn_kernels(device, smi))
     stats.update(check_k2_general(device, smi))

@@ -31,7 +31,7 @@ from ..ops import conv3x3, resblock_fused, trunk, upsample
 from ..ops.bn_block import bn_close, bn_close_ref, bn_resblock, bn_resblock_ref
 from ..ops.conv import conv3x3_plain, conv_f32
 from ..ops.layout import (b_phase_dense, b_pm, pixel_shuffle, pm_to_nhwc,
-                          w_phase_dense, w_pm_hwio)
+                          reflect_pad, w_phase_dense, w_pm_hwio)
 from ..ops.trunk import trunk_xla
 
 # DIV2K training-set RGB statistics (srtpu/models/common.py:29-30)
@@ -98,7 +98,7 @@ def _conv(x, w, b, dtype, reflect: bool = False, stride: int = 1):
     p = w.shape[0] // 2
     xc = x.to(dtype).permute(0, 3, 1, 2).float()
     if reflect:
-        xc, p = F.pad(xc, (p, p, p, p), mode='reflect'), 0
+        xc, p = reflect_pad(xc, p), 0
     y = F.conv2d(xc, w.permute(3, 2, 0, 1).float(), stride=stride, padding=p)
     return y.permute(0, 2, 3, 1).to(dtype) + b.to(dtype)
 

@@ -4,7 +4,8 @@ counterpart of srtpu's mega trunk and of its per-block ``trunk_cs`` and
 ``resblock_cs`` alike), K2 ``conv3x3_fwd`` / ``conv3x3_bwd`` (3x3 and
 5x5, counted apart), K3 ``upsample_fwd`` / ``upsample_bwd``, K4
 ``f1_conv_stats`` ... ``b3_call`` (SRResNet's BN block), K5 ``rcab_fwd``
-/ ``rcab_bwd``, K6 ``rdn_fwd`` / ``rdb_bwd_chain`` / ``rdb_bwd_dw``
+/ ``rcab_bwd`` (one RCAB; ``rcab.group_fwd`` / ``group_chain`` a
+residual group's RCABs in one call), K6 ``rdn_fwd`` / ``rdb_bwd_chain`` / ``rdb_bwd_dw``
 (RDN's dense blocks, all D or one per call), K7 ``wdsr_fwd`` /
 ``wdsr_bwd`` (WDSR-B's block, in :mod:`.wdsr`), K8 (srtpu's
 ``use_pallas=True`` forms): K8a ``resblock_fused_fwd`` (EDSR's block)

@@ -43,8 +43,8 @@ SIGNATURES = {
     'srt_bn_norm_skip': [_P] * 4 + [_L, _P],
     'srt_bn_sums': [_P] * 5 + [_L, _P],
     'srt_bn_bwd_conv': [_P] * 16 + [_I] * 4 + [_P],
-    'srt_rcab_fwd': [_P] * 15 + [_I] * 5 + [_P],
-    'srt_rcab_bwd': [_P] * 19 + [_I] * 5 + [_P],
+    'srt_rcab_group_fwd': [_P] * 15 + [_I] * 7 + [_P],
+    'srt_rcab_group_chain': [_P] * 19 + [_I] * 6 + [_P],
     'srt_rdn_fwd': [_P] * 7 + [_I] * 6 + [_P],
     'srt_rdb_bwd_chain': [_P] * 3 + [_I] * 2 + [_P] * 12 + [_I] * 6 + [_P],
     'srt_rdb_bwd_dw': [_P] * 4 + [_I] * 6 + [_P],

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 
 from . import _build
 from .conv import conv_f32
-from .layout import w_t
+from .layout import reflect_fold, w_t
 from .wgrad import conv_wgrad, conv_wgrad_plain
 
 EPS = 1e-5
@@ -88,14 +88,13 @@ def _conv_t(g, w, reflect: bool = False):
     g, f32: SAME, the transposed conv conv(g, w_t(w)); REFLECT, that conv
     over the padded grid (g zero-padded by 2: rows and columns -1 .. H,
     W), whose ring is then added at its mirrored sources (the adjoint of
-    the reflect pad: rows 1, H - 2, columns 1, W - 2)."""
+    the reflect pad, ``reflect_fold``: rows 1, H - 2, columns 1, W - 2,
+    in a fixed order)."""
     if not reflect:
         return conv_f32(g, w_t(w))
     gp = F.pad(g.permute(0, 3, 1, 2).float(), (2, 2, 2, 2))
     full = F.conv2d(gp, w_t(w).permute(3, 2, 0, 1).float())
-    dx = torch.ops.aten.reflection_pad2d_backward(
-        full, full[:, :, 1:-1, 1:-1], [1, 1, 1, 1])
-    return dx.permute(0, 2, 3, 1)
+    return reflect_fold(full, 1).permute(0, 2, 3, 1)
 
 
 # ------------------------------------------------------- plain versions

@@ -74,6 +74,15 @@
 // the sums into its dbuf (each atom's loads issued together), the mask of
 // the layer below formed by the block that holds that layer's chunk, its
 // bias grad's per-tile partials, and the last layer's dx.
+//
+// K5 (rcab.cu) runs its RCAB's second conv and its dx chain on the same
+// engine at K2's own plan for 64 -> 64 (one HWIO weight, pixel stride
+// cout), with epilogues of its own (ParamsK5): EPI 4, the second conv's
+// r2f = sums + bias in f32, r2 = bf16(r2f) and each tile's per-channel
+// f32 sum of r2f (the pool's partials, pixels in a fixed order, those
+// outside the image left out); EPI 5 (TB), the chain's dh1 = bf16(h1 > 0
+// ? sums : 0) with the mask read in the epilogue, or dx = bf16(sums +
+// f32(g)).
 #pragma once
 
 #include "sm90.cuh"
@@ -133,6 +142,22 @@ struct ParamsK6 : Params {
   ChainEpi ch;  // EPI 2
 };
 
+// K5's epilogues (EPI 4, 5): what RcabEpi names, written at pixel stride
+// cout (64). EPI 4: r2f (f32), r2 (bf16) unless null, and part (B *
+// tiles, 64) f32, a tile's sum of r2f per channel. EPI 5: with h, out =
+// bf16(h > 0 ? sums : 0); else out = bf16(sums + f32(res)).
+struct RcabEpi {
+  float* r2f;
+  bf16* r2;
+  float* part;
+  const bf16* h;
+  const bf16* res;
+};
+
+struct ParamsK5 : Params {
+  RcabEpi k5;
+};
+
 template <int EPI>
 struct ParamsFor {
   typedef ParamsK6 type;
@@ -141,6 +166,24 @@ template <>
 struct ParamsFor<0> {
   typedef Params type;
 };
+template <>
+struct ParamsFor<4> {
+  typedef ParamsK5 type;
+};
+template <>
+struct ParamsFor<5> {
+  typedef ParamsK5 type;
+};
+
+// K6's epilogues: runtime pixel strides and weights in pairs.
+__host__ __device__ constexpr bool k6_epi(int epi) {
+  return epi >= 1 && epi <= 3;
+}
+// Shared memory an epilogue adds after the barriers: the 2 KB of warp sums
+// of those that sum over a tile's pixels (EPI 2's db, EPI 4's pool).
+__host__ __device__ constexpr int red_bytes(int epi) {
+  return epi == 2 || epi == 4 ? 2048 : 0;
+}
 
 // K6's chain epilogue (EPI 2; ChainEpi says what it writes). acc: the
 // block's sums, atom at's register 4 j + 2 h + e at pixel column lane / 4
@@ -259,6 +302,90 @@ __device__ __forceinline__ void chain_epilogue(float (&acc)[NAT][NA / 2],
   }
 }
 
+// K5's epilogues (EPI 4, 5; RcabEpi says what they write), on K2's plan
+// for 64 -> 64: one atom of 64 channels, register 4 j + 2 h + e of a
+// thread at pixel column lane / 4 + 8 h of tile row `warp`, channel 8 j +
+// 2 (lane % 4) + e. EPI 4's pool partial of a channel: each thread adds
+// its two pixels (column lane / 4, then + 8), the 8 lanes of one lane % 4
+// add theirs in a butterfly, then the 8 warps (tile rows) are added in
+// order; pixels outside the image are left out. red: 2 KB of shared
+// memory for the warp sums.
+template <int EPI>
+__device__ __forceinline__ void rcab_epilogue(float (&acc)[1][32],
+                                              const ParamsK5& p, float* red,
+                                              int warp, int lane, int b,
+                                              int y0, int x0, int gtile) {
+  constexpr int J = 8;
+  const RcabEpi& e = p.k5;
+  const int gy = y0 + warp, cl = 2 * (lane & 3);
+  float psum[J][2];
+#pragma unroll
+  for (int j = 0; j < J; ++j) psum[j][0] = psum[j][1] = 0.0f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gx = x0 + (lane >> 2) + 8 * h;
+    if (gy >= p.H || gx >= p.W) continue;
+    const size_t o = (((size_t)b * p.H + gy) * p.W + gx) * 64 + cl;
+    if constexpr (EPI == 4) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const float v0 = acc[0][4 * j + 2 * h] + __ldg(p.bias + cl + 8 * j);
+        const float v1 =
+            acc[0][4 * j + 2 * h + 1] + __ldg(p.bias + cl + 8 * j + 1);
+        *reinterpret_cast<float2*>(e.r2f + o + 8 * j) = make_float2(v0, v1);
+        if (e.r2)
+          *reinterpret_cast<__nv_bfloat162*>(e.r2 + o + 8 * j) =
+              __floats2bfloat162_rn(v0, v1);
+        psum[j][0] += v0;
+        psum[j][1] += v1;
+      }
+    } else {
+      // the pixel's operand loads together, then its stores
+      const bf16* src = e.h ? e.h : e.res;
+      __nv_bfloat162 t[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        t[j] = *reinterpret_cast<const __nv_bfloat162*>(src + o + 8 * j);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const float2 f = __bfloat1622float2(t[j]);
+        float v0 = acc[0][4 * j + 2 * h], v1 = acc[0][4 * j + 2 * h + 1];
+        if (e.h) {
+          v0 = f.x > 0.0f ? v0 : 0.0f;
+          v1 = f.y > 0.0f ? v1 : 0.0f;
+        } else {
+          v0 += f.x;
+          v1 += f.y;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(p.out + o + 8 * j) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+    }
+  }
+  if constexpr (EPI == 4) {
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1)
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        psum[j][0] += __shfl_xor_sync(0xffffffffu, psum[j][0], o);
+        psum[j][1] += __shfl_xor_sync(0xffffffffu, psum[j][1], o);
+      }
+    if (lane < 4)
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        red[warp * 64 + 8 * j + 2 * lane] = psum[j][0];
+        red[warp * 64 + 8 * j + 2 * lane + 1] = psum[j][1];
+      }
+    asm volatile("bar.sync 1, %0;" ::"n"(4 * kConsumers * 32) : "memory");
+    if (threadIdx.x < 64) {
+      float sum = red[threadIdx.x];
+#pragma unroll
+      for (int w = 1; w < 4 * kConsumers; ++w) sum += red[w * 64 + threadIdx.x];
+      e.part[(size_t)gtile * 64 + threadIdx.x] = sum;
+    }
+  }
+}
+
 // Blocks an SM is to hold: two where the f32 sums (BN / 2 a thread) and
 // A's two register buffers (8 NKS) leave room for two blocks' registers.
 __host__ __device__ constexpr int min_blocks(int bn, int nks) {
@@ -343,13 +470,13 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NA * NAT, NKS))
             const uint32_t dst = b_ring + sb * p.b_stage + at * p.tg * BTAP;
             const int n = n0 + at * NA, k = s * KC;
             bool pairs = false;
-            if constexpr (EPI != 0) pairs = p.wgroups;
+            if constexpr (k6_epi(EPI)) pairs = p.wgroups;
             if (!pairs) {  // one HWIO tensor: the 3-D map
               if (TB)
                 tma_load_3d(dst, &wmap, b_full.at(g), k, n, tap0);
               else
                 tma_load_3d(dst, &wmap, b_full.at(g), n, k, tap0);
-            } else if constexpr (EPI != 0) {
+            } else if constexpr (k6_epi(EPI)) {
               // pairs: the atom's N and the slice's K as (group, offset)
               const int gn = n / p.wgn, gk = k / p.wgk;
               if (TB)
@@ -494,6 +621,15 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NA * NAT, NKS))
         b * (int)(gridDim.x / (p.ntiles * SPLIT)) + tile);
     return;
   }
+  if constexpr (EPI == 4 || EPI == 5) {
+    static_assert(NA == 64 && NAT == 1 && SPLIT == 1, "K2's 64 -> 64 plan");
+    const uint32_t red = b_empty.bar + 8u * p.sb;
+    rcab_epilogue<EPI>(
+        acc, p,
+        reinterpret_cast<float*>(smem_raw + (red - smem_u32(smem_raw))),
+        warp, lane, b, y0, x0, b * (int)(gridDim.x / p.ntiles) + tile);
+    return;
+  }
 
   // Epilogue: register d[4 j + 2 h + e] of an atom is pixel column
   // lane / 4 + 8 h, channel 8 j + 2 (lane % 4) + e.
@@ -507,7 +643,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NA * NAT, NKS))
     const int c0 = n0 + 2 * (lane & 3);
     const size_t pix = ((size_t)b * p.H + gy) * p.W + gx;
     bf16* dst;
-    if constexpr (EPI == 0)
+    if constexpr (!k6_epi(EPI))
       dst = p.out + pix * p.cout + c0;
     else
       dst = p.out + pix * p.ops + c0;
@@ -558,8 +694,8 @@ int blocks_per_sm(K kernel) {
 // channel groups, each group's (k, k, 64, cout) ((k, k, cin, 64)) block
 // whole and the groups consecutive: K6's pairs (rdn.py:pack). out: (B, H,
 // W, ops) bf16, channels [0, cout) written. res, out2: EPI 3's; ch: EPI
-// 2's (its dbuf at pixel stride ops). EPI 0 (K2) takes xps = cin, ops =
-// cout and one HWIO weight.
+// 2's (its dbuf at pixel stride ops); k5: EPI 4's and 5's. EPI 0 (K2) and
+// 4, 5 (K5) take xps = cin, ops = cout and one HWIO weight.
 struct ConvArgs {
   const bf16* x;
   int xps;
@@ -574,6 +710,7 @@ struct ConvArgs {
   bf16* out2;
   int o2ps;
   ChainEpi ch;
+  RcabEpi k5;
 };
 
 // Launch the engine at BN = NA * NAT (a divisor of cout), KC = 16 NKS
@@ -584,7 +721,8 @@ cudaError_t launch(const ConvArgs& a, cudaStream_t stream) {
   constexpr int BN = NA * NAT, KC = 16 * NKS;
   const EncodeTiled encode = encode_tiled();
   if (!encode) return cudaErrorNotSupported;
-  if (EPI == 0 && (a.xps != a.cin || a.ops != a.cout || a.pack_k || a.pack_n))
+  if (!k6_epi(EPI) &&
+      (a.xps != a.cin || a.ops != a.cout || a.pack_k || a.pack_n))
     return cudaErrorInvalidValue;
   auto kernel = conv_sm90_kernel<NA, NAT, NKS, SPLIT, TB, EPI>;
   static const cudaError_t allowed = cudaFuncSetAttribute(
@@ -595,9 +733,9 @@ cudaError_t launch(const ConvArgs& a, cudaStream_t stream) {
   const uint32_t a_bytes = (uint32_t)KC * 2 * wx * hx;
   const uint32_t b_tap = (uint32_t)KC * BN * 2;
   const int sa = cin / KC < 2 ? cin / KC : 2;
-  // EPI 2: the bias grad's warp sums after the barriers
+  // EPI 2, 4: the tile sums' warp sums after the barriers
   const int fixed = 1024 + sa * (int)align1024(a_bytes) + 16 * (sa + 8) +
-                    (EPI == 2 ? 2048 : 0);
+                    red_bytes(EPI);
   // B stages of a row of k taps, two of them beside A, in the shared
   // memory of as many blocks an SM as the registers allow (looked up once
   // for this instance) or as fewer blocks make room for (rows of taps
@@ -676,7 +814,7 @@ cudaError_t launch(const ConvArgs& a, cudaStream_t stream) {
   p.b_bytes = b_bytes;
   p.a_stage = align1024(a_bytes);
   p.b_stage = align1024(b_bytes);
-  if constexpr (EPI != 0) {
+  if constexpr (k6_epi(EPI)) {
     p.ops = a.ops;
     p.wgroups = wgroups;
     p.wgk = wgk;
@@ -687,8 +825,9 @@ cudaError_t launch(const ConvArgs& a, cudaStream_t stream) {
     p.o2ps = a.o2ps;
     p.ch = a.ch;
   }
+  if constexpr (EPI == 4 || EPI == 5) p.k5 = a.k5;
   const int smem = 1024 + sa * p.a_stage + sb * p.b_stage + 16 * (sa + sb) +
-                   (EPI == 2 ? 2048 : 0);
+                   red_bytes(EPI);
   if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
   // a split's partial sums land in block 0's rings: 256 threads x BN / 2
   // f32 from each other block
@@ -758,7 +897,7 @@ inline bool takes(const ConvArgs& a) {
 // (the fusion's, EPI 3, at cout 64 alone).
 template <bool TB, int EPI>
 cudaError_t run64(const ConvArgs& a, cudaStream_t s) {
-  static_assert(EPI != 0, "K2's launches go through conv");
+  static_assert(k6_epi(EPI), "K6's epilogues");
   if (!takes(a) || a.cin % 64 || a.cout % 64) return cudaErrorInvalidValue;
   if constexpr (EPI != 3) {
     if (a.cout % 192 == 0) return launch<64, 3, 4, 1, TB, EPI>(a, s);
@@ -769,6 +908,16 @@ cudaError_t run64(const ConvArgs& a, cudaStream_t s) {
   if constexpr (EPI != 2) {
     if (split_cin(a, 64)) return launch<64, 1, 4, 2, TB, EPI>(a, s);
   }
+  return launch<64, 1, 4, 1, TB, EPI>(a, s);
+}
+
+// K5's launches (EPI 4; 5 with TB), 3x3 64 -> 64 on one HWIO weight: K2's
+// plan for that class (N = 64, 64-channel slices, no split).
+template <bool TB, int EPI>
+cudaError_t run_k5(const ConvArgs& a, cudaStream_t s) {
+  static_assert(EPI == 4 || EPI == 5, "K5's epilogues");
+  if (!takes(a) || a.cin != 64 || a.cout != 64 || a.kk != 3)
+    return cudaErrorInvalidValue;
   return launch<64, 1, 4, 1, TB, EPI>(a, s);
 }
 

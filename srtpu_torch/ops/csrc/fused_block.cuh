@@ -1,6 +1,5 @@
-// The fused 3x3 conv pair shared by K1 (EDSR's resblock, trunk.cu) and
-// K5 (RCAN's RCAB, rcab.cu), at 64 channels, NHWC bf16, f32 sums. A
-// block owns one 8 x 16 output tile of one image, grid (ceil(W / 16),
+// The fused 3x3 conv pair of K1 (EDSR's resblock, trunk.cu), at 64
+// channels, NHWC bf16, f32 sums. A block owns one 8 x 16 output tile of one image, grid (ceil(W / 16),
 // ceil(H / 8), B):
 //
 //   pair_forward:  h1 = bf16(relu(conv(x, W1) + b1)) over the tile and its
@@ -11,7 +10,7 @@
 //   pair_backward: dh1 = bf16(h1 > 0 ? convT(bf16(scale * gin), W2) : 0)
 //                  over the tile and its halo (interior to dh1_out), then
 //                  dx = bf16(convT(dh1, W1) + skip). K1 passes gin = skip
-//                  = g; an RCAB passes gin = dr2 and skip = g.
+//                  = g.
 //
 // The x (or gin) tile is staged with a 2-pixel halo, h1 (or dh1) with a
 // 1-pixel halo, and one conv's weights at a time (W1, then W2 over it),

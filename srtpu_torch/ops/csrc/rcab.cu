@@ -13,20 +13,25 @@
 // VMEM, so one kernel body pools r2 over the image and gates it. On
 // Hopper a block holds one 8 x 16 tile, the blocks run in no order, and
 // the gate of every pixel needs the mean over all pixels of its image. So
-// each direction runs as passes on one stream, and every cross-block sum
-// goes through per-block partials added in a fixed order (no float
-// atomics: the same bits on every call, as wgrad.cu).
-//  Forward:
-//   F1 rcab_pair_kernel: the fused conv pair of K1 (fused_block.cuh) per
-//      tile. Its epilogue writes r2f in f32 (the gate multiplies the
-//      unrounded value, as srtpu does), r2 and h1 when saving, and the
-//      tile's per-channel f32 sum of r2f, added in pixel order in shared
-//      memory, to the tile's own workspace slot;
+// each direction runs as launches on one stream, and every cross-block
+// sum goes through per-tile partials added in a fixed order (no float
+// atomics: the same bits on every call).
+//
+// The convs run on K2's wgmma engine (conv_sm90.cuh) at its own plan for
+// 3x3 64 -> 64 (8 x 16 pixel tiles, N = 64, TMA-staged tile and weight
+// rings); rcab.cu is the glue and the passes that do no matrix work.
+//  Forward, per RCAB (five launches):
+//   conv1: K2's own instance (srt_conv3x3_fwd, bias + ReLU): h1;
+//   conv2: the engine with K5's epilogue (EPI 4): r2f = sums + b2 in f32
+//      (the gate multiplies the unrounded value, as srtpu does), r2 when
+//      saving, and each tile's per-channel f32 sum of r2f (pixels in a
+//      fixed order, those outside the image left out) to its slot;
 //   F2 rcab_pool_mlp_kernel: one block per image adds its tiles' partials
 //      in a fixed order, divides by H * W and runs the MLP (as the TPU
 //      kernel does in its body: no library matmul);
 //   F3 rcab_gate_kernel: out = bf16(x + r2f * q[b, c]), elementwise.
-//  Backward (p, z, q recomputed from the saved bf16 r2, as srtpu does):
+//  Backward, per RCAB (p, z, q recomputed from the saved bf16 r2, as
+//  srtpu does; six launches):
 //   B1 rcab_ca_sums_kernel: per 128-pixel chunk of an image, f32
 //      partials of sum(r2) and sum(g * r2);
 //   B2 rcab_ca_bwd_kernel: one block per image: p, z, q, dq,
@@ -34,12 +39,18 @@
 //      rcab_mlp_grads_kernel sums dWu, dbu, dWd, dbd over the images in
 //      order;
 //   B3 rcab_dr2_kernel: dr2 = bf16(g * q + dp / (H * W)), materialised
-//      (the weight-grad kernel reads it);
-//   B4 rcab_chain_kernel: K1's dx chain (fused_block.cuh pair_backward)
-//      with conv input dr2 and skip g: dh1 = bf16(h1 > 0 ?
-//      convT(dr2, W2) : 0), dx = bf16(convT(dh1, W1) + g).
+//      (the weight grads read it);
+//   the dx chain, two transposed-conv launches of the engine (TB: the
+//      forward's HWIO weight read K-major, the taps reversed, no
+//      transposed copy) with K5's epilogue (EPI 5): dh1 = bf16(h1 > 0 ?
+//      convT(dr2, W2) : 0), the mask read from h1 in the epilogue; dx =
+//      bf16(convT(dh1, W1) + f32(g)).
 //  dW1/db1 and dW2/db2 come from wgrad.cu (srtpu_torch/ops/rcab.py
 //  batches all blocks of a residual group into one launch per conv).
+//  One host call runs a residual group's L RCABs each way
+//  (srt_rcab_group_fwd, srt_rcab_group_chain): the wrapper checks and
+//  allocates once per group, and the scratch (r2f, the partials, q) is
+//  reused RCAB after RCAB, which the one stream orders.
 //
 // What bounds it on the H100: the conv pair is 2 * 2 * 9 * 64 * 64 = 147
 // kFLOP per pixel; the function's own bytes are x in and out, h1, r2 out
@@ -49,64 +60,30 @@
 // (one 512 x 352 image, no saving) it is compute bound, 26.6 GFLOP
 // >= 26.9 us. The backward does twice the conv work (dx chain; the
 // weight grads in wgrad.cu). The split costs bytes the TPU kernel never
-// moves: r2f's f32 round trip (512 B per pixel) between F1 and F3 and
-// the pooled partials; F2, B1, B2 and B3 do no matrix work. Fusing F3
-// into the next RCAB's tile load is later work. No wgmma/TMA yet.
+// moves: h1's round trip between the two convs, r2f's f32 round trip
+// (512 B per pixel) between conv2 and F3 and the pooled partials; F2,
+// B1, B2 and B3 do no matrix work. At 16,384 pixels each conv is 128
+// tiles, one wave of the card's 132 SMs.
 
-#include "fused_block.cuh"
+#include "conv_sm90.cuh"
+
+// K2's forward (conv.cu), the RCAB's first conv.
+extern "C" int srt_conv3x3_fwd(const void* x, const void* w, const void* b,
+                               void* out, int B, int H, int W, int cin,
+                               int cout, int relu, void* stream);
 
 namespace {
 
-using srt::bf16;
-namespace fb = srt::fused;
-constexpr int kC = fb::kC;
-constexpr int kTilePix = fb::kTH * fb::kTW;  // 128 pixels per forward tile
+using srt90::bf16;
+using srt90::pack8;
+using srt90::unpack8;
+constexpr int kC = 64;
 constexpr int kChunk = 128;                  // pixels per backward-sum block
 constexpr int kSlices = 16;                  // partial-sum lanes per channel
+constexpr size_t kConvW = 9 * kC * kC;       // one 3x3 weight's elements
 
 __device__ __forceinline__ float sigmoid_f32(float a) {
   return 1.0f / (1.0f + expf(-a));
-}
-
-// F1. grid (ceil(W / 16), ceil(H / 8), B).
-__global__ void __launch_bounds__(srt::kThreads)
-    rcab_pair_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                     const float* __restrict__ b1,
-                     const bf16* __restrict__ w2,
-                     const float* __restrict__ b2, float* __restrict__ r2f,
-                     bf16* __restrict__ h1_out, bf16* __restrict__ r2_out,
-                     float* __restrict__ part, int H, int W) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  // The tile's r2f, (128 pixels, 64) f32, over x's staging area: the
-  // second conv reads only h1 and W2, and this epilogue never reads x.
-  float* rs = reinterpret_cast<float*>(smem);
-  static_assert((size_t)kTilePix * kC * 4 <= fb::Plan::XS, "tile sums");
-  fb::pair_forward(
-      x, w1, b1, w2, h1_out, H, W, smem,
-      [&](int oy, int ox, size_t pix, int c, float (&v)[8]) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] += b2[c + j];
-        float4* d = reinterpret_cast<float4*>(r2f + pix * kC + c);
-        d[0] = make_float4(v[0], v[1], v[2], v[3]);
-        d[1] = make_float4(v[4], v[5], v[6], v[7]);
-        if (r2_out)
-          *reinterpret_cast<uint4*>(r2_out + pix * kC + c) = srt::pack8(v);
-        float* t = rs + (oy * fb::kTW + ox) * kC + c;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) t[j] = v[j];
-      });
-  __syncthreads();
-  if (threadIdx.x < kC) {
-    const int y0 = blockIdx.y * fb::kTH, x0 = blockIdx.x * fb::kTW;
-    float s = 0.0f;
-    for (int p = 0; p < kTilePix; ++p) {
-      const int gy = y0 + p / fb::kTW, gx = x0 + p % fb::kTW;
-      if (gy < H && gx < W) s += rs[p * kC + threadIdx.x];
-    }
-    const size_t tile =
-        ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-    part[tile * kC + threadIdx.x] = s;
-  }
 }
 
 // Sum of part[(b * n + t) * kC + c] over t, in a fixed order: lane
@@ -165,13 +142,13 @@ __global__ void rcab_gate_kernel(const bf16* __restrict__ x,
     const int c = (int)(i % (kC / 8)) * 8;
     const float* qb = q + (pix / hw) * kC + c;
     float xv[8];
-    srt::unpack8(reinterpret_cast<const uint4*>(x)[i], xv);
+    unpack8(reinterpret_cast<const uint4*>(x)[i], xv);
     const float4 r0 = reinterpret_cast<const float4*>(r2f)[2 * i];
     const float4 r1 = reinterpret_cast<const float4*>(r2f)[2 * i + 1];
     const float rv[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
 #pragma unroll
     for (int j = 0; j < 8; ++j) xv[j] = __fadd_rn(xv[j], __fmul_rn(rv[j], qb[j]));
-    reinterpret_cast<uint4*>(out)[i] = srt::pack8(xv);
+    reinterpret_cast<uint4*>(out)[i] = pack8(xv);
   }
 }
 
@@ -293,24 +270,12 @@ __global__ void rcab_dr2_kernel(const bf16* __restrict__ g,
     const int c = (int)(i % (kC / 8)) * 8;
     const long long o = (pix / hw) * kC + c;
     float gv[8];
-    srt::unpack8(reinterpret_cast<const uint4*>(g)[i], gv);
+    unpack8(reinterpret_cast<const uint4*>(g)[i], gv);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       gv[j] = __fadd_rn(__fmul_rn(gv[j], q[o + j]), dpn[o + j]);
-    reinterpret_cast<uint4*>(dr2)[i] = srt::pack8(gv);
+    reinterpret_cast<uint4*>(dr2)[i] = pack8(gv);
   }
-}
-
-// B4. grid (ceil(W / 16), ceil(H / 8), B).
-__global__ void __launch_bounds__(srt::kThreads)
-    rcab_chain_kernel(const bf16* __restrict__ dr2,
-                      const bf16* __restrict__ g,
-                      const bf16* __restrict__ h1,
-                      const bf16* __restrict__ w2t,
-                      const bf16* __restrict__ w1t, bf16* __restrict__ dx,
-                      bf16* __restrict__ dh1, int H, int W) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  fb::pair_backward(dr2, 1.0f, g, h1, w2t, w1t, dx, dh1, H, W, smem);
 }
 
 int elementwise_blocks(long long nvec) {
@@ -318,93 +283,153 @@ int elementwise_blocks(long long nvec) {
   return (int)(want < (1 << 20) ? want : (1 << 20));
 }
 
-}  // namespace
 
-// x, out (B, H, W, 64) bf16 (distinct); w1, w2 (3, 3, 64, 64) bf16; b1,
-// b2, bu (64) f32; wd (64, cr), bd (cr), wu (cr, 64) f32, 1 <= cr <= 64.
-// Scratch: r2f (B, H, W, 64) f32, part (B, ceil(H / 8) * ceil(W / 16), 64)
-// f32, q (B, 64) f32. h1, r2 (B, H, W, 64) bf16, or both null (no
-// saving). Three launches (F1, F2, F3). Returns a cudaError_t.
-extern "C" int srt_rcab_fwd(const void* x, const void* w1, const void* b1,
-                            const void* w2, const void* b2, const void* wd,
-                            const void* bd, const void* wu, const void* bu,
-                            void* r2f, void* part, void* q, void* out,
-                            void* h1, void* r2, int B, int H, int W, int C,
-                            int cr, void* stream) {
-  if (C != kC || cr < 1 || cr > kC) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = srt::allow_smem(rcab_pair_kernel, fb::Plan::SMEM);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((W + fb::kTW - 1) / fb::kTW, (H + fb::kTH - 1) / fb::kTH, B);
-  rcab_pair_kernel<<<grid, srt::kThreads, fb::Plan::SMEM, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
-      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const float*>(b2), static_cast<float*>(r2f),
-      static_cast<bf16*>(h1), static_cast<bf16*>(r2),
-      static_cast<float*>(part), H, W);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  rcab_pool_mlp_kernel<<<B, kSlices * kC, 0, s>>>(
-      static_cast<const float*>(part), (int)(grid.x * grid.y),
-      (float)H * (float)W, static_cast<const float*>(wd),
-      static_cast<const float*>(bd), static_cast<const float*>(wu),
-      static_cast<const float*>(bu), cr, static_cast<float*>(q));
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const long long nvec = (long long)B * H * W * (kC / 8);
-  rcab_gate_kernel<<<elementwise_blocks(nvec), 256, 0, s>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(r2f),
-      static_cast<const float*>(q), static_cast<bf16*>(out), nvec,
-      (long long)H * W);
-  return (int)cudaGetLastError();
+#define SRT_TRY(...)                            \
+  do {                                          \
+    cudaError_t e_ = (__VA_ARGS__);             \
+    if (e_ != cudaSuccess) return (int)e_;      \
+  } while (0)
+
+// The engine's 3x3 64 -> 64 launch over the (B, H, W) images.
+srt90::ConvArgs conv_args(const bf16* x, const bf16* w, const float* bias,
+                          bf16* out, int B, int H, int W) {
+  srt90::ConvArgs a = {};
+  a.x = x;
+  a.xps = kC;
+  a.w = w;
+  a.bias = bias;
+  a.out = out;
+  a.ops = kC;
+  a.B = B;
+  a.H = H;
+  a.W = W;
+  a.cin = kC;
+  a.cout = kC;
+  a.kk = 3;
+  a.ch.mask_chunk = -1;
+  return a;
 }
 
-// h1, r2, g, dr2, dh1, dx (B, H, W, 64) bf16 (dx distinct from g); w2t,
-// w1t (3, 3, 64, 64) bf16 transposed weights; wd, bd, wu, bu as the
-// forward. Scratch: part (2 * B * ceil(H * W / 128) * 64 + B * (128 +
-// 2 * cr)) f32, q, dpn (B, 64) f32. Writes dr2, dh1 (for the weight
-// grads), dx and the f32 MLP grads dwd (64, cr), dbd (cr), dwu (cr, 64),
-// dbu (64). Five launches (B1, B2a, B2b, B3, B4).
-// Returns a cudaError_t.
-extern "C" int srt_rcab_bwd(const void* h1, const void* r2, const void* g,
-                            const void* w2t, const void* w1t, const void* wd,
-                            const void* bd, const void* wu, const void* bu,
-                            void* part, void* q, void* dpn, void* dr2,
-                            void* dh1, void* dx, void* dwd, void* dbd,
-                            void* dwu, void* dbu, int B, int H, int W, int C,
-                            int cr, void* stream) {
-  if (C != kC || cr < 1 || cr > kC) return (int)cudaErrorInvalidValue;
+}  // namespace
+
+// The forward of one residual group's L RCABs (L = 1: one RCAB). x (B, H,
+// W, 64) bf16, the group's input; w1, w2 (L, 3, 3, 64, 64) bf16; b1, b2,
+// bu (L, 64), wd (L, 64, cr), bd (L, cr), wu (L, cr, 64) f32, 1 <= cr <=
+// 64. save: ys, h1, r2 (L, B, H, W, 64) bf16 take RCAB i's output, h1 and
+// r2 in slot i. Else ys (2, B, H, W, 64) (one slot when L = 1) takes RCAB
+// i's output in slot i % 2, h1 (B, H, W, 64) is scratch and r2 null.
+// Scratch, reused RCAB after RCAB: r2f (B, H, W, 64) f32, part (B, tiles,
+// 64) f32 (tiles = ceil(H / 8) ceil(W / 16), the engine's), q (B, 64)
+// f32. Five launches an RCAB. Returns a cudaError_t.
+extern "C" int srt_rcab_group_fwd(const void* x, const void* w1,
+                                  const void* b1, const void* w2,
+                                  const void* b2, const void* wd,
+                                  const void* bd, const void* wu,
+                                  const void* bu, void* ys, void* h1,
+                                  void* r2, void* r2f, void* part, void* q,
+                                  int L, int save, int B, int H, int W,
+                                  int C, int cr, void* stream) {
+  if (C != kC || cr < 1 || cr > kC || L < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t act = (size_t)B * H * W * kC;
+  const int ntiles = ((H + srt90::kTH - 1) / srt90::kTH) *
+                     ((W + srt90::kTW - 1) / srt90::kTW);
+  const long long nvec = (long long)B * H * W * (kC / 8);
+  bf16* y = static_cast<bf16*>(ys);
+  const bf16* cur = static_cast<const bf16*>(x);
+  for (int i = 0; i < L; ++i) {
+    bf16* out = y + (save ? i : i % 2) * act;
+    bf16* h1i = static_cast<bf16*>(h1) + (save ? i * act : 0);
+    const bf16* w1i = static_cast<const bf16*>(w1) + i * kConvW;
+    const bf16* w2i = static_cast<const bf16*>(w2) + i * kConvW;
+    const float* b1i = static_cast<const float*>(b1) + i * kC;
+    const float* b2i = static_cast<const float*>(b2) + i * kC;
+    SRT_TRY((cudaError_t)srt_conv3x3_fwd(cur, w1i, b1i, h1i, B, H, W, kC, kC,
+                                         1, stream));
+    srt90::ConvArgs a = conv_args(h1i, w2i, b2i, nullptr, B, H, W);
+    a.k5.r2f = static_cast<float*>(r2f);
+    a.k5.r2 = save ? static_cast<bf16*>(r2) + i * act : nullptr;
+    a.k5.part = static_cast<float*>(part);
+    SRT_TRY((srt90::run_k5<false, 4>(a, s)));
+    rcab_pool_mlp_kernel<<<B, kSlices * kC, 0, s>>>(
+        static_cast<const float*>(part), ntiles, (float)H * (float)W,
+        static_cast<const float*>(wd) + (size_t)i * kC * cr,
+        static_cast<const float*>(bd) + (size_t)i * cr,
+        static_cast<const float*>(wu) + (size_t)i * cr * kC,
+        static_cast<const float*>(bu) + i * kC, cr, static_cast<float*>(q));
+    SRT_TRY(cudaGetLastError());
+    rcab_gate_kernel<<<elementwise_blocks(nvec), 256, 0, s>>>(
+        cur, static_cast<const float*>(r2f), static_cast<const float*>(q),
+        out, nvec, (long long)H * W);
+    SRT_TRY(cudaGetLastError());
+    cur = out;
+  }
+  return 0;
+}
+
+// The dx chain of one residual group's L RCABs, the last first (L = 1: one
+// RCAB), without the conv weight grads. h1, r2 (L, B, H, W, 64) bf16, the
+// saved activations; g (B, H, W, 64) bf16, the cotangent of RCAB L - 1's
+// output; w1, w2 (L, 3, 3, 64, 64) bf16, the forward weights (the engine
+// reads them transposed); wd, bd, wu, bu as the forward. Writes dr2, dh1
+// (L, B, H, W, 64) bf16 (the weight grads read them), the MLP grads dwd
+// (L, 64, cr), dbd (L, cr), dwu (L, cr, 64), dbu (L, 64) f32, and RCAB i's
+// input cotangent into slot i % 2 of gs (2, B, H, W, 64) bf16 (one slot
+// when L = 1): slot 0 ends with dx. Scratch, reused RCAB after RCAB: part
+// (2 B ceil(H W / 128) 64 + B (128 + 2 cr)) f32, q, dpn (B, 64) f32. Six
+// launches an RCAB. Returns a cudaError_t.
+extern "C" int srt_rcab_group_chain(
+    const void* h1, const void* r2, const void* g, const void* w1,
+    const void* w2, const void* wd, const void* bd, const void* wu,
+    const void* bu, void* part, void* q, void* dpn, void* dr2, void* dh1,
+    void* gs, void* dwd, void* dbd, void* dwu, void* dbu, int L, int B,
+    int H, int W, int C, int cr, void* stream) {
+  if (C != kC || cr < 1 || cr > kC || L < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t act = (size_t)B * H * W * kC;
   const int hw = H * W, nchunks = (hw + kChunk - 1) / kChunk;
+  const long long nvec = (long long)B * hw * (kC / 8);
   float* part_r2 = static_cast<float*>(part);
   float* part_gr2 = part_r2 + (size_t)B * nchunks * kC;
-  rcab_ca_sums_kernel<<<dim3(nchunks, B), 4 * kC, 0, s>>>(
-      static_cast<const bf16*>(g), static_cast<const bf16*>(r2), part_r2,
-      part_gr2, hw);
-  cudaError_t err;
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   float* vec = part_gr2 + (size_t)B * nchunks * kC;
-  rcab_ca_bwd_kernel<<<B, kSlices * kC, 0, s>>>(
-      part_r2, part_gr2, nchunks, (float)H * (float)W,
-      static_cast<const float*>(wd), static_cast<const float*>(bd),
-      static_cast<const float*>(wu), static_cast<const float*>(bu), cr,
-      static_cast<float*>(q), static_cast<float*>(dpn), vec);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  rcab_mlp_grads_kernel<<<1, kC, 0, s>>>(
-      vec, B, cr, static_cast<float*>(dwd), static_cast<float*>(dbd),
-      static_cast<float*>(dwu), static_cast<float*>(dbu));
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const long long nvec = (long long)B * hw * (kC / 8);
-  rcab_dr2_kernel<<<elementwise_blocks(nvec), 256, 0, s>>>(
-      static_cast<const bf16*>(g), static_cast<const float*>(q),
-      static_cast<const float*>(dpn), static_cast<bf16*>(dr2), nvec, hw);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if ((err = srt::allow_smem(rcab_chain_kernel, fb::Plan::SMEM)) !=
-      cudaSuccess)
-    return (int)err;
-  dim3 grid((W + fb::kTW - 1) / fb::kTW, (H + fb::kTH - 1) / fb::kTH, B);
-  rcab_chain_kernel<<<grid, srt::kThreads, fb::Plan::SMEM, s>>>(
-      static_cast<const bf16*>(dr2), static_cast<const bf16*>(g),
-      static_cast<const bf16*>(h1), static_cast<const bf16*>(w2t),
-      static_cast<const bf16*>(w1t), static_cast<bf16*>(dx),
-      static_cast<bf16*>(dh1), H, W);
-  return (int)cudaGetLastError();
+  const bf16* gin = static_cast<const bf16*>(g);
+  for (int i = L - 1; i >= 0; --i) {
+    const bf16* h1i = static_cast<const bf16*>(h1) + i * act;
+    const bf16* r2i = static_cast<const bf16*>(r2) + i * act;
+    bf16* dr2i = static_cast<bf16*>(dr2) + i * act;
+    bf16* dh1i = static_cast<bf16*>(dh1) + i * act;
+    bf16* gout = static_cast<bf16*>(gs) + (i % 2) * act;
+    const float* wdi = static_cast<const float*>(wd) + (size_t)i * kC * cr;
+    const float* bdi = static_cast<const float*>(bd) + (size_t)i * cr;
+    const float* wui = static_cast<const float*>(wu) + (size_t)i * cr * kC;
+    const float* bui = static_cast<const float*>(bu) + i * kC;
+    rcab_ca_sums_kernel<<<dim3(nchunks, B), 4 * kC, 0, s>>>(
+        gin, r2i, part_r2, part_gr2, hw);
+    SRT_TRY(cudaGetLastError());
+    rcab_ca_bwd_kernel<<<B, kSlices * kC, 0, s>>>(
+        part_r2, part_gr2, nchunks, (float)H * (float)W, wdi, bdi, wui, bui,
+        cr, static_cast<float*>(q), static_cast<float*>(dpn), vec);
+    SRT_TRY(cudaGetLastError());
+    rcab_mlp_grads_kernel<<<1, kC, 0, s>>>(
+        vec, B, cr, static_cast<float*>(dwd) + (size_t)i * kC * cr,
+        static_cast<float*>(dbd) + (size_t)i * cr,
+        static_cast<float*>(dwu) + (size_t)i * cr * kC,
+        static_cast<float*>(dbu) + i * kC);
+    SRT_TRY(cudaGetLastError());
+    rcab_dr2_kernel<<<elementwise_blocks(nvec), 256, 0, s>>>(
+        gin, static_cast<const float*>(q), static_cast<const float*>(dpn),
+        dr2i, nvec, hw);
+    SRT_TRY(cudaGetLastError());
+    srt90::ConvArgs a = conv_args(
+        dr2i, static_cast<const bf16*>(w2) + i * kConvW, nullptr, dh1i, B, H,
+        W);
+    a.k5.h = h1i;
+    SRT_TRY((srt90::run_k5<true, 5>(a, s)));
+    a = conv_args(dh1i, static_cast<const bf16*>(w1) + i * kConvW, nullptr,
+                  gout, B, H, W);
+    a.k5.res = gin;
+    SRT_TRY((srt90::run_k5<true, 5>(a, s)));
+    gin = gout;
+  }
+  return 0;
 }

@@ -87,6 +87,8 @@
 namespace {
 
 using srt90::bf16;
+using srt90::pack8;
+using srt90::unpack8;
 
 constexpr int kG = 64;               // growth: one 64-channel chunk
 constexpr int kPairW = 9 * kG * kG;  // elements of one pair's weights
@@ -105,25 +107,6 @@ __global__ void rdn_copy_in_kernel(const bf16* __restrict__ x,
     *reinterpret_cast<uint4*>(buf + p * ctot + v * 8) =
         *reinterpret_cast<const uint4*>(x + p * kG + v * 8);
   }
-}
-
-// 8 bf16 as f32, and back.
-__device__ __forceinline__ void unpack8(uint4 u, float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 v = __bfloat1622float2(h[i]);
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
-}
-
-__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  return u;
 }
 
 // gc = bf16(gf), gf = f32(g_run) + f32(ct) (ct: the block's slice, pixel

@@ -11,7 +11,8 @@
 //  - ldmatrix (plain and transposed) into wgmma's register A operand at
 //    the swizzled offsets TMA leaves, and wgmma m64nNk16 (N = 16, 32, 64)
 //    bf16 -> f32 with B read from shared memory through a descriptor,
-//    N-major or K-major.
+//    N-major or K-major;
+//  - 16-byte packs of 8 bf16 to f32 and back, for elementwise passes.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -270,6 +271,25 @@ inline CUtensorMapSwizzle swizzle_of(int row_bytes) {
   return row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
          : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                            : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
+// 8 bf16 (16 bytes) as f32, and back (round to nearest even).
+__device__ __forceinline__ void unpack8(uint4 u, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(h[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  return u;
 }
 
 inline uint32_t align1024(uint32_t n) { return (n + 1023u) & ~1023u; }

@@ -18,7 +18,7 @@
 // What bounds it on the H100: 2 * 2 * 9 * 64 * 64 = 147 kFLOP per pixel
 // against 256 bytes of device traffic (x in, out), ~576 FLOP/byte: compute
 // bound, above the card's bf16 ridge (~295). The design (the fused conv
-// pair of fused_block.cuh, shared with K5's RCAB) feeds the tensor cores
+// pair of fused_block.cuh) feeds the tensor cores
 // (wmma bf16 tiles, f32 sums) from shared memory: the x tile with a
 // 2-pixel halo, h1 with a 1-pixel halo, and one conv's weights at a time
 // (W1, then W2 loaded over it). The halo recompute costs 1.44x the ideal
@@ -72,8 +72,7 @@ __global__ void __launch_bounds__(srt::kThreads)
 // blocks at once. Bound as the forward: 147 kFLOP per
 // pixel against 512 bytes (g, h1 in; dx, dh1 out), ~290 FLOP/byte, at
 // the card's bf16 ridge. The tile plan is the forward's
-// (fused_block.cuh pair_backward, which rcab.cu shares with its own
-// conv input and skip).
+// (fused_block.cuh pair_backward).
 __global__ void __launch_bounds__(srt::kThreads)
     resblock_bwd_kernel(const srt::bf16* __restrict__ g,
                         const srt::bf16* __restrict__ h1,

@@ -11,6 +11,10 @@ port runs NHWC activations and HWIO weights, so it needs only:
   ``b_pm``), the fine final conv recast as a coarse "phase-dense" conv
   over those channels (``w_phase_dense``), and the final phase-major ->
   NHWC rearrangement (``pm_to_nhwc``);
+* REFLECT boundaries (SRGAN's convs): the reflect pad of NCHW
+  activations as mirrored slices (``reflect_pad``) and its adjoint
+  (``reflect_fold``), each adding a pixel's mirrored terms in a fixed
+  order where the stock pad's CUDA backward uses atomics;
 * for the backward passes: the transposed conv weight (``w_t``), the
   fine cotangent read phase-major (``pm_from_fine``, the work of
   ``_ups_deint_kernel``) and the inverses of ``w_pm_hwio`` / ``b_pm``
@@ -145,3 +149,30 @@ def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
     c = crr // (r * r)
     x = x.reshape(bsz, h, w, c, r, r).permute(0, 1, 4, 2, 5, 3)
     return x.reshape(bsz, h * r, w * r, c)
+
+
+def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
+    """``F.pad(x, (p, p, p, p), mode='reflect')`` of NCHW x (H, W > p),
+    built from mirrored slices: the same values, and an autograd backward
+    that adds a pixel's mirrored gradients in a fixed order (the stock
+    pad's CUDA backward adds them with atomics, in an order that changes
+    from call to call)."""
+    x = torch.cat((x[..., 1:p + 1].flip(-1), x, x[..., -p - 1:-1].flip(-1)),
+                  -1)
+    return torch.cat((x[..., 1:p + 1, :].flip(-2), x,
+                      x[..., -p - 1:-1, :].flip(-2)), -2)
+
+
+def reflect_fold(g: torch.Tensor, p: int) -> torch.Tensor:
+    """The adjoint of :func:`reflect_pad`: g (N, C, H + 2p, W + 2p) to
+    (N, C, H, W), each pad pixel's value added to the pixel it mirrors,
+    columns first, then rows, in a fixed order."""
+    g = g.clone()
+    h, w = g.shape[-2] - 2 * p, g.shape[-1] - 2 * p
+    for k in range(1, p + 1):
+        g[..., p + k] += g[..., p - k]
+        g[..., p + w - 1 - k] += g[..., p + w - 1 + k]
+    for k in range(1, p + 1):
+        g[..., p + k, :] += g[..., p - k, :]
+        g[..., p + h - 1 - k, :] += g[..., p + h - 1 + k, :]
+    return g[..., p:p + h, p:p + w]

@@ -58,7 +58,8 @@ from srtpu_torch.convert import params_from_jax
 from srtpu_torch.losses import VGGLoss, gan_loss, tv_loss
 from srtpu_torch.models import create_model
 from srtpu_torch.ops import bn_block
-from srtpu_torch.ops.layout import w_hwio_from_cs
+from srtpu_torch.ops.layout import (reflect_fold, reflect_pad,
+                                   w_hwio_from_cs)
 from srtpu_torch.ops.wgrad import conv_wgrad_plain
 
 torch.set_num_threads(1)
@@ -582,6 +583,27 @@ def test_tv_loss_matches_srtpu_and_unknown_gan_mode_raises():
                                float(jax_tv_loss(jnp.asarray(x))), rtol=1e-6)
     with pytest.raises(NotImplementedError, match='hinge'):
         gan_loss(torch.zeros(1), True, 'hinge')
+
+
+@pytest.mark.parametrize('p,h,w', [(1, 2, 2), (1, 5, 7), (4, 9, 12)])
+def test_reflect_pad_and_fold_match_jnp_pad(p, h, w):
+    """The port's reflect pad (the generator's 9x9 convs, K4r's plain
+    backward) gives jnp.pad's reflect values bit for bit; reflect_fold,
+    its adjoint in a fixed order, equals jax.vjp of jnp.pad and the
+    autograd backward of reflect_pad within f32 rounding."""
+    rng = np.random.default_rng(p * 100 + h * 10 + w)
+    x = rng.standard_normal((2, 3, h, w)).astype(np.float32)
+    g = rng.standard_normal((2, 3, h + 2 * p, w + 2 * p)).astype(np.float32)
+    pads = ((0, 0), (0, 0), (p, p), (p, p))
+    ref, vjp = jax.vjp(lambda a: jnp.pad(a, pads, mode='reflect'),
+                       jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    got = reflect_pad(xt, p)
+    np.testing.assert_array_equal(_np(got), np.asarray(ref))
+    got.backward(torch.from_numpy(g))
+    fold = reflect_fold(torch.from_numpy(g), p)
+    _close(fold, vjp(jnp.asarray(g))[0], 1e-6, 'fold vs jax.vjp')
+    _close(xt.grad, fold, 1e-6, 'autograd vs fold')
 
 
 # ------------------------------------------------- (f) adversarial steps

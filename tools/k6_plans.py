@@ -24,23 +24,15 @@ To compare two trees on one card, run both in one call, in turns
 from __future__ import annotations
 
 import argparse
-import importlib.util
-import sys
-from pathlib import Path
 
 import torch
 
+from tree_timing import engine_times, load_chip_smoke
+
 ARGS = argparse.ArgumentParser(description=__doc__.splitlines()[0])
 ARGS.add_argument('--tree', help="time this checkout's srtpu_torch")
-TREE = ARGS.parse_args().tree
-ROOT = Path(__file__).resolve().parents[1]
-# TREE's srtpu_torch first; chip_smoke always this checkout's
-sys.path.insert(0, str(Path(TREE).resolve() if TREE else ROOT))
-_spec = importlib.util.spec_from_file_location('chip_smoke',
-                                               ROOT / 'chip_smoke.py')
-chip_smoke = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(chip_smoke)
-from srtpu_torch.ops import conv, rdn, wgrad  # noqa: E402
+chip_smoke = load_chip_smoke(ARGS.parse_args().tree)
+from srtpu_torch.ops import rdn  # noqa: E402
 
 
 def k6_times(device, smi: str) -> None:
@@ -81,45 +73,11 @@ def k6_times(device, smi: str) -> None:
         torch.cuda.empty_cache()
 
 
-def engine_times(device, smi: str) -> None:
-    """Device times of K2's and W's classes at the training shape."""
-    cs = chip_smoke
-    bsz, lr = cs.TRAIN_BATCH, cs.TRAIN_PATCH // cs.SCALE
-    shapes = ([s for v in cs.K2_TRAIN_FWD.values() for s in v]
-              + [(k, ci, co, 1) for ci, co, k in cs.K2G_SHAPES]
-              + [(3, cs.RDN_G0 * i, cs.RDN_G0, 1) for i in range(1, 9)])
-    total = [0.0, 0.0]
-    for k, cin, cout, m in shapes:
-        hh = lr * m
-        gen = torch.Generator().manual_seed(k * 100003 + cin * 101 + cout)
-        x = cs._uniform(gen, (bsz, hh, hh, cin), 1.0, device, torch.bfloat16)
-        wt = cs._uniform(gen, (k, k, cin, cout), (k * k * cin) ** -0.5,
-                         device, torch.bfloat16)
-        b = cs._uniform(gen, (cout,), 0.1, device, torch.float32)
-        gg = cs._uniform(gen, (bsz, hh, hh, cout), 1.0, device,
-                         torch.bfloat16)
-        fwd = cs.graph_ms(lambda: conv.conv3x3_fwd(x, wt, b))
-        dx = cs.graph_ms(lambda: conv.conv3x3_dx(gg, wt))
-        total[0] += fwd
-        total[1] += dx
-        print(f'K2 {k}x{k} {cin}->{cout} {bsz}x{hh}x{hh}: device fwd '
-              f'{fwd:.4f} ms, dx {dx:.4f} ms  [{smi}]', flush=True)
-    print(f'K2 classes summed: device fwd {total[0]:.4f} ms, dx '
-          f'{total[1]:.4f} ms  [{smi}]')
-    w_total = 0.0
-    for label, k, cin, cout, r, rf, gs, jobs, x, g in cs.w_cases(
-            device, bsz, lr, lr):
-        ms = cs.graph_ms(lambda: wgrad.conv_wgrad(x, g, gs, r, k, rf))
-        w_total += ms
-        print(f'W {label}: device {ms:.4f} ms  [{smi}]', flush=True)
-    print(f'W classes summed: device {w_total:.4f} ms  [{smi}]')
-
-
 def main() -> None:
     device, smi = chip_smoke.card()
     print(f'srtpu_torch from {rdn.__file__}')
     k6_times(device, smi)
-    engine_times(device, smi)
+    engine_times(chip_smoke, device, smi)
 
 
 if __name__ == '__main__':

@@ -23,23 +23,16 @@ classes' times before. Needs a CUDA card::
 from __future__ import annotations
 
 import argparse
-import importlib.util
-import sys
-from pathlib import Path
 
 import torch
+
+from tree_timing import load_chip_smoke
 
 ARGS = argparse.ArgumentParser(description=__doc__.splitlines()[0])
 ARGS.add_argument('--tree', help='time this checkout\'s srtpu_torch, at '
                   'its own split')
 TREE = ARGS.parse_args().tree
-ROOT = Path(__file__).resolve().parents[1]
-# TREE's srtpu_torch first; chip_smoke always this checkout's
-sys.path.insert(0, str(Path(TREE).resolve() if TREE else ROOT))
-_spec = importlib.util.spec_from_file_location('chip_smoke',
-                                               ROOT / 'chip_smoke.py')
-chip_smoke = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(chip_smoke)
+chip_smoke = load_chip_smoke(TREE)
 from srtpu_torch.ops import wgrad  # noqa: E402
 
 COUNTS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)
