@@ -19,7 +19,8 @@ Phases, each of which raises on failure (nothing is caught):
    batch 2 of 67x45, with errors, tolerances and times, and two calls
    bit-identical (the weight grads use no float atomics); K2's backward
    rows (and those of 2f and 2j) also split into their two launches, dx
-   and the weight grads, each timed beside its bound;
+   and the weight grads, each timed beside its bound; K1 also at
+   res_scale 0.1 beside 1.0 (forward saving and not, the backward);
 3. the predict slice: ``python -m srtpu_torch predict``'s own function
    on three synthetic LR images (128x128, 250x170 which needs bucket
    padding, 512x352), EDSR-baseline x4 (64 features, 16 resblocks,
@@ -225,6 +226,13 @@ Phases, each of which raises on failure (nothing is caught):
    and ``rdn_trunk_layers`` at RDN-B's trunk shape, each forward and
    backward with its launches counted and its gradients against its
    plain path;
+2m. K1 at L = 16 (the training shape and LR 128x128 at res_scale 1.0),
+   86 and 1 (the training shape at 0.1): the forward saving and not and
+   the backward against their plain versions within phases 2b's and
+   2j's limits, two calls bit-identical; the device time of a call
+   alone (a CUDA graph of the calls) and its host time, forward saving
+   and not, the dx chain alone and with its weight grads, beside
+   cuDNN's calls for the same work (``trunk_reference``);
 22. EDSR x4 at 64 features and 86 resblocks (res_scale 0.1), the
    shallowest 64-feature trunk srtpu sends to ``trunk_cs``: a 10-step
    ``fit`` through the CLI on K1 (86 launches each way per step), the
@@ -630,11 +638,37 @@ NO_KERNEL = {k: 0 for k in (
 # one step, its f32 dW and db within 1e-4 of their largest magnitude
 # (f32 sums of f32 products in another order).
 K1S_STEPS, K1S_DW_STEPS = 8, 1
+# Phase 2b holds K1 at these res_scales (0.1: EDSR 64 x 86's and phase
+# 2j's resblock_cs'); phase 2m times K1 at (blocks, res_scale, batch, H,
+# W): EDSR-baseline's trunk at the training shape and at LR 128x128, EDSR
+# 64 x 86's and one block (resblock_cs), each held within the limits of
+# its depth (16: 2b's; 86: K1S_STEPS; 1: one step)
+K1_SCALES = (1.0, 0.1)
+K1_TIMED = ((L, 1.0, TRAIN_BATCH, 32, 32), (L, 1.0, 1, 128, 128),
+            (EDSR86_L, EDSR86_RS, TRAIN_BATCH, 32, 32),
+            (1, EDSR86_RS, TRAIN_BATCH, 32, 32))
 # the op runs of phase 2j: EDSR True's training shape (K9d, resblock_cs),
 # RDN-B's trunk at the training shape (the calls trunk, K9c)
 K9D_SCALES = (1.0, 0.1)
 # The H100 SXM's published peaks (NVIDIA data sheet), for bound_ms
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
+
+
+def k1_held() -> set:
+    """(kind, blocks, save, res_scale) of the K1 calls phases 2, 2b, 2j
+    and 2m hold against their plain versions on the card ('fwd': the
+    forward saving or not; 'chain': the backward)."""
+    held = {('fwd', L, False, 1.0)}
+    for s in K1_SCALES:
+        held |= {('fwd', L, True, s), ('fwd', L, False, s),
+                 ('chain', L, False, s)}
+    for nb in (EDSR86_L, 1):
+        held |= {('fwd', nb, True, EDSR86_RS), ('chain', nb, False,
+                                                EDSR86_RS)}
+    for nb, s, *_ in K1_TIMED:
+        held |= {('fwd', nb, True, s), ('fwd', nb, False, s),
+                 ('chain', nb, False, s)}
+    return held
 
 
 def need(cond, msg: str) -> None:
@@ -1042,6 +1076,12 @@ def check_bwd_kernels(device, smi: str) -> dict:
                    2 * L * conv_flops(bsz * h * w, C, C), nbytes(args, got))
             print(f'K1s trunk fwd, saving, L={L} {bsz}x{h}x{w}: kernel '
                   f'{st["ms"]:.4f} ms plain {st["plain_ms"]:.4f} ms')
+        # K1 at res_scale 0.1 beside 1.0, within the same limits
+        rs = K1_SCALES[1]
+        _k1_hold((*args[:5], rs),
+                 _uniform(gen, (bsz, h, w, C), 1.0, device, torch.bfloat16),
+                 (TOL_STEPS['K1'], BWD_DX_STEPS['K1'], BWD_DW_STEPS['K1']),
+                 f'K1 trunk L={L} res_scale {rs} {bsz}x{h}x{w}')
         for kid, label, fn, plain, args, flops, lib in bwd_cases(
                 bsz, h, w, device):
             got = fn(*args)
@@ -1122,6 +1162,28 @@ def _check_all(label, names, got, ref, tols) -> float:
         first = err if first is None else first
     print(f'{label}: max_abs/tol ' + ', '.join(parts))
     return first
+
+
+def _k1_hold(args, g, steps, tag: str) -> tuple:
+    """K1 on ``args`` (trunk_fwd's) and the cotangent ``g`` against the
+    plain versions: the forward saving (out, xs, h1s within steps[0]),
+    the forward without saving (bit-identical to the saving one's out),
+    the backward (dx within steps[1], the f32 weight grads steps[2]); two
+    calls bit-identical. Returns the backward's arguments."""
+    got = trunk_fwd(*args, save=True)
+    torch.cuda.synchronize()
+    _same_twice(lambda: trunk_fwd(*args, save=True), got, f'{tag} fwd')
+    need(torch.equal(trunk_fwd(*args), got[0]),
+         f'{tag}: the forward without saving differs from the saving one')
+    _check_all(f'{tag} fwd (saving)', ('out', 'xs', 'h1s'), got,
+               trunk_plain(*args, save=True), [steps[0]] * 3)
+    bargs = (got[1], got[2], g, args[1], args[3], args[5])
+    bgot = trunk_bwd(*bargs)
+    torch.cuda.synchronize()
+    _same_twice(lambda: trunk_bwd(*bargs), bgot, f'{tag} bwd')
+    _check_all(f'{tag} bwd', ('dx', 'dW1', 'db1', 'dW2', 'db2'), bgot,
+               trunk_bwd_plain(*bargs), [steps[1]] + [steps[2]] * 4)
+    return bargs
 
 
 def _k5_parts(tag: str, fwd, bwd, smi: str) -> None:
@@ -2149,9 +2211,10 @@ def check_wdsr_kernels(device, smi: str) -> dict:
     the training shape (batch 16, LR 32x32), the predict shape (batch 1,
     128x128) and a ragged batch 2 of 67x45, C = 128, res_scale 1 (srtpu's
     default): every output beside its tolerance, two calls bit-identical,
-    kernel and plain times, the bound; and one stock-route block (cuDNN)
-    timed beside, each way. Returns K7 / K7b stats, timed at the training
-    shape (per block)."""
+    kernel and plain times (and the device's alone, a CUDA graph of the
+    calls), the bound; and one stock-route block (cuDNN) timed beside,
+    each way. Returns K7 / K7b stats, timed at the training shape (per
+    block)."""
     stats = new_stats(('K7', 'K7b'))
     shapes = ((TRAIN_BATCH, TRAIN_PATCH // SCALE, TRAIN_PATCH // SCALE),
               (1, 128, 128), (2, 67, 45))
@@ -2190,6 +2253,9 @@ def check_wdsr_kernels(device, smi: str) -> dict:
         fpl = median_ms(lambda: wdsr_fwd_plain(*fargs), 3, 3)
         bms = median_ms(lambda: wdsr_bwd(*bargs), 10, 3)
         bpl = median_ms(lambda: wdsr_bwd_plain(*bargs), 3, 3)
+        # the device's time alone (a CUDA graph of the calls)
+        fdev = graph_ms(lambda: wdsr_fwd(*fargs), 10, 3)
+        bdev = graph_ms(lambda: wdsr_bwd(*bargs), 10, 3)
         f_moved = nbytes(fun, got)
         b_moved = nbytes(g, fun[:6], bgot[:3], bgot[3][:, :lv],
                          bgot[4][:lv], bgot[5][:, :, :lv], bgot[6])
@@ -2206,9 +2272,10 @@ def check_wdsr_kernels(device, smi: str) -> dict:
         sbms = median_ms(lambda: torch.autograd.grad(
             stock_block(*sw), sw, gc), 10, 3)
         torch.backends.cudnn.benchmark = bench_mode
-        print(f'K7 {tag}: fwd kernel {fms:.4f} ms plain {fpl:.4f} ms bound '
-              f'{f_bound:.5f} ms; bwd (incl. dW3 / db3) kernel {bms:.4f} ms '
-              f'plain {bpl:.4f} ms bound {b_bound:.5f} ms  [{smi}]')
+        print(f'K7 {tag}: fwd kernel {fms:.4f} ms (device {fdev:.4f}) plain '
+              f'{fpl:.4f} ms bound {f_bound:.5f} ms; bwd (incl. dW3 / db3) '
+              f'kernel {bms:.4f} ms (device {bdev:.4f}) plain {bpl:.4f} ms '
+              f'bound {b_bound:.5f} ms  [{smi}]')
         print(f'K7 {tag}: stock route, one block on cuDNN (1x1, ReLU, 1x1, '
               f'3x3, x res_scale + x; bf16, activations and weights '
               f'channels-last, benchmark mode): fwd {sms:.4f} ms, fwd + bwd '
@@ -2217,6 +2284,8 @@ def check_wdsr_kernels(device, smi: str) -> dict:
         if i == 0:
             record(stats['K7'], fms, fpl, fwd_flops, f_moved)
             record(stats['K7b'], bms, bpl, 2 * fwd_flops, b_moved)
+            stats['K7']['device_ms'] = fdev
+            stats['K7b']['device_ms'] = bdev
         del got, ref, bgot, bref, sw
         torch.cuda.empty_cache()
     return stats
@@ -2621,6 +2690,106 @@ def run_op_paths(device, smi: str) -> dict:
     return runs
 
 
+def trunk_reference(x, w1s, b1s, w2s, b2s, res_scale, h1s, g) -> tuple:
+    """cuDNN's calls for the work of a K1 trunk (bf16, channels-last; no
+    PyTorch call computes a resblock, so this is a target, not a library
+    time): the forward, per block two ``F.conv2d`` with their biases,
+    ReLU and the scaled skip; the dx chain, per block in reverse two
+    ``aten.convolution_backward`` for dx alone (the mask and the skips
+    left out). x, g (B, H, W, C); h1s (L, B, H, W, C) the saved h1."""
+    cl = torch.channels_last
+    w1c = [w.permute(3, 2, 0, 1).contiguous(memory_format=cl) for w in w1s]
+    w2c = [w.permute(3, 2, 0, 1).contiguous(memory_format=cl) for w in w2s]
+    b1c, b2c = b1s.to(x.dtype), b2s.to(x.dtype)
+    xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    hc = h1s.permute(0, 1, 4, 2, 3)
+
+    def fwd():
+        y = xc
+        for w1, b1, w2, b2 in zip(w1c, b1c, w2c, b2c):
+            h = F.conv2d(y, w1, b1, padding=1).relu_()
+            y = torch.add(y, F.conv2d(h, w2, b2, padding=1), alpha=res_scale)
+        return y
+
+    def dx(d, inp, w):
+        return torch.ops.aten.convolution_backward(
+            d, inp, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            [True, False, False])[0]
+
+    def bwd():
+        d = gc
+        for l in reversed(range(len(w1c))):
+            d = dx(dx(d, hc[l], w2c[l]), hc[l], w1c[l])
+        return d
+    return fwd, bwd
+
+
+def check_trunk_times(device, smi: str, stats: dict) -> None:
+    """Phase 2m. K1 at K1_TIMED's cases: the forward (saving and not) and
+    the backward against their plain versions (:func:`_k1_hold`), then
+    each call's device time alone (a CUDA graph of the calls), CUDA-event
+    time and host time, forward saving and not, the dx chain alone
+    (``trunk_chain``) and with its two weight-grad launches, beside
+    cuDNN's calls for the same work (:func:`trunk_reference`). The rows
+    of the JSON line take theirs: K1 (LR 128x128, not saving), K1b (the
+    training shape), K1s / K1sb (86 blocks), K9a / K9ab (one block)."""
+    # here, not at the top: tools/tree_timing.py loads this file over
+    # trees that have no trunk_chain
+    from srtpu_torch.ops.trunk import trunk_chain
+    # the rows each K1_TIMED case times, forward and backward
+    rows = ((None, 'K1b'), ('K1', None), ('K1s', 'K1sb'), ('K9a', 'K9ab'))
+    cb = (9 * C) ** -0.5
+    bf, f32 = torch.bfloat16, torch.float32
+    for (nb, rs, bsz, h, w), (fwd_id, bwd_id) in zip(K1_TIMED, rows):
+        gen = torch.Generator().manual_seed(nb * 1009 + bsz * 31 + h)
+        args = (_uniform(gen, (bsz, h, w, C), 1.0, device, bf),
+                _uniform(gen, (nb, 3, 3, C, C), cb, device, bf),
+                _uniform(gen, (nb, C), cb, device, f32),
+                _uniform(gen, (nb, 3, 3, C, C), cb, device, bf),
+                _uniform(gen, (nb, C), cb, device, f32), rs)
+        g = _uniform(gen, (bsz, h, w, C), 1.0, device, bf)
+        steps = {L: (TOL_STEPS['K1'], BWD_DX_STEPS['K1'],
+                     BWD_DW_STEPS['K1']),
+                 EDSR86_L: (K1S_STEPS, K1S_STEPS, K1S_DW_STEPS)}.get(
+                     nb, (1, 1, 1))
+        tag = f'K1 L={nb} res_scale {rs} {bsz}x{h}x{w}'
+        bargs = _k1_hold(args, g, steps, tag)
+        xs, h1s = bargs[:2]
+        ref_fwd, ref_bwd = trunk_reference(*args, h1s, g)
+        fns = {'fwd (saving)': lambda: trunk_fwd(*args, save=True),
+               'fwd (predict)': lambda: trunk_fwd(*args),
+               'dx chain': lambda: trunk_chain(h1s, g, args[1], args[3],
+                                               rs),
+               'bwd (chain + 2 weight grads)': lambda: trunk_bwd(*bargs),
+               'cuDNN reference fwd': ref_fwd,
+               'cuDNN reference dx (2 convolution_backward a block)':
+                   ref_bwd}
+        calls = 5 if nb > 1 else 20
+        times = {}
+        for name, fn in fns.items():
+            times[name] = (graph_ms(fn, calls, 3), median_ms(fn, calls, 3),
+                           host_ms(fn))
+            d, e, hh = times[name]
+            print(f'{tag} {name}: device {d:.4f} ms ({d / nb:.5f} a block), '
+                  f'CUDA events {e:.4f} ms, host {hh:.4f} ms a call  [{smi}]',
+                  flush=True)
+        if fwd_id:
+            name = 'fwd (saving)' if fwd_id != 'K1' else 'fwd (predict)'
+            stats[fwd_id].update(
+                device_ms=times[name][0], host_ms=times[name][2],
+                reference_ms=times['cuDNN reference fwd'][1],
+                reference_device_ms=times['cuDNN reference fwd'][0])
+        if bwd_id:
+            ref = times['cuDNN reference dx (2 convolution_backward a block)']
+            stats[bwd_id].update(
+                device_ms=times['bwd (chain + 2 weight grads)'][0],
+                host_ms=times['bwd (chain + 2 weight grads)'][2],
+                chain_device_ms=times['dx chain'][0],
+                reference_ms=ref[1], reference_device_ms=ref[0])
+        del args, g, bargs, xs, h1s, ref_fwd, ref_bwd, fns
+        torch.cuda.empty_cache()
+
+
 def png_size(path: Path) -> tuple[int, int]:
     """(height, width) from a PNG's IHDR chunk."""
     head = path.read_bytes()[:24]
@@ -2759,10 +2928,17 @@ class _LossLog(logging.Handler):
 
 
 # kernel-name substring -> group of the profile, first match wins
-EDSR_PROFILE = (('resblock_bwd_kernel', 'K1 bwd dx chain'),
-                ('resblock_kernel', 'K1 fwd'), ('wgrad', 'weight grads'),
+# K1's conv1 is K2's own 64 -> 64 instance, as the trunk's close conv
+EDSR_PROFILE = (('conv_sm90_kernel<64, 1, 4, 1, false, 6>',
+                 'K1 fwd conv2 (K2 engine, EPI 6)'),
+                ('conv_sm90_kernel<64, 1, 4, 1, true, 5>',
+                 'K1 bwd dx chain (K2 engine TB, EPI 5)'),
+                ('trunk_gs_kernel', 'K1 bwd gs pass'),
+                ('wgrad', 'weight grads'),
                 ('conv3x3_kernel<64, 64, 7, 16, true', 'K3 fwd'),
                 ('conv3x3_kernel<256, 16, 7, 16, false, true', 'K3 bwd dx'),
+                ('conv_sm90_kernel<64, 1, 4, 1, false, 0>',
+                 'K1 fwd conv1 + K2 close conv (EPI 0)'),
                 ('conv_sm90_kernel', 'K2 fwd + bwd dx'))
 # K5's conv1 is K2's own 64 -> 64 instance, as the group close convs
 RCAN_PROFILE = (('conv_sm90_kernel<64, 1, 4, 1, false, 4>',
@@ -2922,16 +3098,21 @@ def _kernel_device_ms(run, names, calls: int = 10) -> float:
     """Device time per call of ``run`` (torch.profiler, ``calls`` calls)
     of the kernels whose names contain one of ``names``: a kernel's own
     time, without its wrapper's other launches (a transposed weight's
-    copy) or host work."""
+    copy) or host work. A trace with no device record is taken once
+    more: the profiler has now and then handed back none for kernels
+    that ran."""
     from torch.profiler import ProfilerActivity, profile
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            run()
-        torch.cuda.synchronize()
-    us = sum(_device_us(prof, names).values())
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+        us = sum(_device_us(prof, names).values())
+        if us > 0:
+            break
     need(us > 0, f'profiler: no device time for {names}')
     return us / 1e3 / calls
 
@@ -3477,6 +3658,7 @@ def main() -> None:
     stats.update(check_bn_reflect_kernels(device, smi))
     stats.update(check_k8_kernels(device, smi))
     stats.update(check_form_kernels(device, smi))
+    check_trunk_times(device, smi, stats)
     # the main-path runs, each with the counters set to 0 before it
     runs = run_op_paths(device, smi)
     runs['edsr_predict'] = run_slice(device, smi)
@@ -3545,12 +3727,15 @@ def main() -> None:
                                      steps=EDSR_BIG_STEPS)
     rep = 'srtpu/ops/cs_conv.py:'
     bn = 'srtpu/ops/bn_resblock_cs.py:'
-    meta = [('K1', 'K1 trunk_fwd (fused resblock)', trunk_fwd, 'trunk.cu',
+    meta = [('K1', 'K1 trunk_fwd (per block conv1 at K2 EPI 0, conv2 at '
+             'EPI 6 on K2\'s engine; one host call)', trunk_fwd, 'trunk.cu',
              rep + '1496'),
             ('K2', 'K2 conv3x3_fwd', conv3x3_fwd, 'conv.cu', rep + '538'),
             ('K3', 'K3 upsample_fwd', upsample_fwd, 'upsample.cu',
              rep + '952'),
-            ('K1b', 'K1 trunk_bwd (resblock dx chain)', trunk_bwd, 'trunk.cu',
+            ('K1b', 'K1 trunk_bwd (dx chain: two transposed launches of K2\'s '
+             'engine a block at EPI 5, a gs pass where res_scale != 1, one '
+             'host call; with its weight grads)', trunk_bwd, 'trunk.cu',
              rep + '1527'),
             ('K2b', 'K2 conv3x3_bwd (dx; with its weight grads)', conv3x3_bwd,
              'conv.cu', rep + '581'),
@@ -3637,11 +3822,11 @@ def main() -> None:
             ('K8c', 'K8c wdsr_block_fused_fwd (WDSR-B use_pallas=True: 1x1 '
              'pair with f32 a and v as hi + lo, 3x3 + res_scale + skip)',
              wdsr_block_fused_fwd, 'wdsr.cu', 'srtpu/ops/wdsr_block.py:71'),
-            ('K1s', "K1 trunk_fwd as srtpu's per-block trunk_cs (one fused "
-             'resblock launch per block; EDSR 64 x 86)', trunk_fwd,
+            ('K1s', "K1 trunk_fwd as srtpu's per-block trunk_cs (EDSR 64 x "
+             '86, one host call)', trunk_fwd,
              'trunk.cu', rep + '1271', ('edsr86',)),
-            ('K1sb', "K1 trunk_bwd as srtpu's per-block trunk_cs (one dx-chain "
-             'launch per block; with its weight grads; EDSR 64 x 86)',
+            ('K1sb', "K1 trunk_bwd as srtpu's per-block trunk_cs (dx chain; "
+             'with its weight grads; EDSR 64 x 86)',
              trunk_bwd, 'trunk.cu', rep + '1297', ('edsr86',)),
             ('K9a', 'K1 trunk_fwd at L = 1 as srtpu resblock_cs (one '
              'resblock on HWIO weights, saving h1)', trunk_fwd, 'trunk.cu',
@@ -3693,7 +3878,7 @@ def main() -> None:
                                         'wgrad_bound_ms', 'wgrad_library_ms',
                                         'wgrad_library_bench_ms', 'classes',
                                         'device_ms', 'host_ms',
-                                        'reference_ms',
+                                        'chain_device_ms', 'reference_ms',
                                         'reference_device_ms')
                if st.get(key) is not None}})
     print(f'chip_smoke ran {time.perf_counter() - t_start:.1f} s '

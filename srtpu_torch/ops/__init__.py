@@ -1,6 +1,6 @@
 """The port's kernels, each beside its plain PyTorch version: K1
-``trunk_fwd`` / ``trunk_bwd`` (EDSR's trunk: one launch per block, the
-counterpart of srtpu's mega trunk and of its per-block ``trunk_cs`` and
+``trunk_fwd`` / ``trunk_bwd`` (EDSR's trunk: one host call each way,
+its convs on K2's engine, the counterpart of srtpu's mega trunk and of its per-block ``trunk_cs`` and
 ``resblock_cs`` alike), K2 ``conv3x3_fwd`` / ``conv3x3_bwd`` (3x3 and
 5x5, counted apart), K3 ``upsample_fwd`` / ``upsample_bwd``, K4
 ``f1_conv_stats`` ... ``b3_call`` (SRResNet's BN block), K5 ``rcab_fwd``

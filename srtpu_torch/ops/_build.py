@@ -33,8 +33,8 @@ SIGNATURES = {
     'srt_conv3x3_fwd': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     'srt_upsample_fwd': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     'srt_upsample_bwd_dx': [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    'srt_resblock_fwd': [_P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P],
-    'srt_resblock_bwd': [_P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P],
+    'srt_trunk_fwd': [_P] * 5 + [_F] + [_P] * 3 + [_I] * 6 + [_P],
+    'srt_trunk_chain': [_P] * 4 + [_F] + [_P] * 4 + [_I] * 5 + [_P],
     'srt_conv5x5_fwd': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     'srt_conv_dx': [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     'srt_conv_wgrad': [_P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _I,

@@ -69,7 +69,7 @@
 //
 // Hopper against the TPU. The batch statistics sit between each conv and
 // its normalisation and cover the whole batch, so the passes cannot fuse
-// into one block as K1's pair does (fused_block.cuh): each pass is a
+// into one block as K8a's pair does (fused_block.cuh): each pass is a
 // launch, and on a TPU the sequential grid carries the sums in resident
 // accumulators, while here blocks run in no order. Every cross-block sum
 // is therefore written as per-block partials (per tile and channel; a

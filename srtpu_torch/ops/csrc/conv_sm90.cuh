@@ -83,6 +83,10 @@
 // outside the image left out); EPI 5 (TB), the chain's dh1 = bf16(h1 > 0
 // ? sums : 0) with the mask read in the epilogue, or dx = bf16(sums +
 // f32(g)).
+//
+// K1 (trunk.cu) runs EDSR's resblock on it the same way: conv1 K2's own
+// instance, conv2 at EPI 6 (ParamsK1: out = bf16(f32(x) + res_scale *
+// (sums + bias)), the scaled skip), the dx chain at K5's EPI 5 forms.
 #pragma once
 
 #include "sm90.cuh"
@@ -158,6 +162,18 @@ struct ParamsK5 : Params {
   RcabEpi k5;
 };
 
+// K1's epilogue (EPI 6), at pixel stride cout (64): out = bf16(f32(res) +
+// scale * (sums + bias)), the product and the sum each rounded to f32 (no
+// fused multiply-add: the plain version's rounding).
+struct TrunkEpi {
+  const bf16* res;
+  float scale;
+};
+
+struct ParamsK1 : Params {
+  TrunkEpi k1;
+};
+
 template <int EPI>
 struct ParamsFor {
   typedef ParamsK6 type;
@@ -173,6 +189,10 @@ struct ParamsFor<4> {
 template <>
 struct ParamsFor<5> {
   typedef ParamsK5 type;
+};
+template <>
+struct ParamsFor<6> {
+  typedef ParamsK1 type;
 };
 
 // K6's epilogues: runtime pixel strides and weights in pairs.
@@ -386,6 +406,39 @@ __device__ __forceinline__ void rcab_epilogue(float (&acc)[1][32],
   }
 }
 
+// K1's epilogue (EPI 6; TrunkEpi says what it writes), on K2's plan for 64
+// -> 64, registers as rcab_epilogue's.
+__device__ __forceinline__ void trunk_epilogue(float (&acc)[1][32],
+                                               const ParamsK1& p, int warp,
+                                               int lane, int b, int y0,
+                                               int x0) {
+  constexpr int J = 8;
+  const TrunkEpi& e = p.k1;
+  const int gy = y0 + warp, cl = 2 * (lane & 3);
+  if (gy >= p.H) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gx = x0 + (lane >> 2) + 8 * h;
+    if (gx >= p.W) continue;
+    const size_t o = (((size_t)b * p.H + gy) * p.W + gx) * 64 + cl;
+    // the pixel's operand loads together, then its stores
+    __nv_bfloat162 t[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      t[j] = *reinterpret_cast<const __nv_bfloat162*>(e.res + o + 8 * j);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float2 r = __bfloat1622float2(t[j]);
+      const float v0 = acc[0][4 * j + 2 * h] + __ldg(p.bias + cl + 8 * j);
+      const float v1 =
+          acc[0][4 * j + 2 * h + 1] + __ldg(p.bias + cl + 8 * j + 1);
+      *reinterpret_cast<__nv_bfloat162*>(p.out + o + 8 * j) =
+          __floats2bfloat162_rn(__fadd_rn(__fmul_rn(v0, e.scale), r.x),
+                                __fadd_rn(__fmul_rn(v1, e.scale), r.y));
+    }
+  }
+}
+
 // Blocks an SM is to hold: two where the f32 sums (BN / 2 a thread) and
 // A's two register buffers (8 NKS) leave room for two blocks' registers.
 __host__ __device__ constexpr int min_blocks(int bn, int nks) {
@@ -407,7 +460,8 @@ __host__ __device__ constexpr int min_blocks(int bn, int nks) {
 // with no transposed copy of the weight. EPI: 0, K2's (one HWIO weight,
 // bf16(act(sums + bias)) stored at pixel stride cout); 1 and 2, K6's
 // (ParamsK6): 1 the forward's dense layers (K2's epilogue at an output
-// pixel stride), 2 the backward chain's, 3 the fusion's residual.
+// pixel stride), 2 the backward chain's, 3 the fusion's residual; 4 and
+// 5, K5's (ParamsK5); 6, K1's (ParamsK1).
 template <int NA, int NAT, int NKS, int SPLIT, bool TB, int EPI>
 __global__ void __launch_bounds__(kThreads, min_blocks(NA * NAT, NKS))
     conv_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
@@ -630,6 +684,11 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NA * NAT, NKS))
         warp, lane, b, y0, x0, b * (int)(gridDim.x / p.ntiles) + tile);
     return;
   }
+  if constexpr (EPI == 6) {
+    static_assert(NA == 64 && NAT == 1 && SPLIT == 1, "K2's 64 -> 64 plan");
+    trunk_epilogue(acc, p, warp, lane, b, y0, x0);
+    return;
+  }
 
   // Epilogue: register d[4 j + 2 h + e] of an atom is pixel column
   // lane / 4 + 8 h, channel 8 j + 2 (lane % 4) + e.
@@ -694,8 +753,9 @@ int blocks_per_sm(K kernel) {
 // channel groups, each group's (k, k, 64, cout) ((k, k, cin, 64)) block
 // whole and the groups consecutive: K6's pairs (rdn.py:pack). out: (B, H,
 // W, ops) bf16, channels [0, cout) written. res, out2: EPI 3's; ch: EPI
-// 2's (its dbuf at pixel stride ops); k5: EPI 4's and 5's. EPI 0 (K2) and
-// 4, 5 (K5) take xps = cin, ops = cout and one HWIO weight.
+// 2's (its dbuf at pixel stride ops); k5: EPI 4's and 5's; k1: EPI 6's.
+// EPI 0 (K2), 4, 5 (K5) and 6 (K1) take xps = cin, ops = cout and one
+// HWIO weight.
 struct ConvArgs {
   const bf16* x;
   int xps;
@@ -711,6 +771,7 @@ struct ConvArgs {
   int o2ps;
   ChainEpi ch;
   RcabEpi k5;
+  TrunkEpi k1;
 };
 
 // Launch the engine at BN = NA * NAT (a divisor of cout), KC = 16 NKS
@@ -826,6 +887,7 @@ cudaError_t launch(const ConvArgs& a, cudaStream_t stream) {
     p.ch = a.ch;
   }
   if constexpr (EPI == 4 || EPI == 5) p.k5 = a.k5;
+  if constexpr (EPI == 6) p.k1 = a.k1;
   const int smem = 1024 + sa * p.a_stage + sb * p.b_stage + 16 * (sa + sb) +
                    red_bytes(EPI);
   if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
@@ -911,11 +973,33 @@ cudaError_t run64(const ConvArgs& a, cudaStream_t s) {
   return launch<64, 1, 4, 1, TB, EPI>(a, s);
 }
 
-// K5's launches (EPI 4; 5 with TB), 3x3 64 -> 64 on one HWIO weight: K2's
-// plan for that class (N = 64, 64-channel slices, no split).
+// The operands of a 3x3 64 -> 64 launch over the (B, H, W) images, x, w
+// and out at K2's strides (K5's and K1's convs); bias may be null.
+inline ConvArgs args_3x3_64(const bf16* x, const bf16* w, const float* bias,
+                            bf16* out, int B, int H, int W) {
+  ConvArgs a = {};
+  a.x = x;
+  a.xps = 64;
+  a.w = w;
+  a.bias = bias;
+  a.out = out;
+  a.ops = 64;
+  a.B = B;
+  a.H = H;
+  a.W = W;
+  a.cin = 64;
+  a.cout = 64;
+  a.kk = 3;
+  a.ch.mask_chunk = -1;
+  return a;
+}
+
+// K5's launches (EPI 4; 5 with TB) and K1's (EPI 6), 3x3 64 -> 64 on one
+// HWIO weight: K2's plan for that class (N = 64, 64-channel slices, no
+// split).
 template <bool TB, int EPI>
-cudaError_t run_k5(const ConvArgs& a, cudaStream_t s) {
-  static_assert(EPI == 4 || EPI == 5, "K5's epilogues");
+cudaError_t run_3x3_64(const ConvArgs& a, cudaStream_t s) {
+  static_assert(EPI >= 4 && EPI <= 6, "K5's and K1's epilogues");
   if (!takes(a) || a.cin != 64 || a.cout != 64 || a.kk != 3)
     return cudaErrorInvalidValue;
   return launch<64, 1, 4, 1, TB, EPI>(a, s);

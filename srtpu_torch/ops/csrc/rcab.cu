@@ -290,26 +290,6 @@ int elementwise_blocks(long long nvec) {
     if (e_ != cudaSuccess) return (int)e_;      \
   } while (0)
 
-// The engine's 3x3 64 -> 64 launch over the (B, H, W) images.
-srt90::ConvArgs conv_args(const bf16* x, const bf16* w, const float* bias,
-                          bf16* out, int B, int H, int W) {
-  srt90::ConvArgs a = {};
-  a.x = x;
-  a.xps = kC;
-  a.w = w;
-  a.bias = bias;
-  a.out = out;
-  a.ops = kC;
-  a.B = B;
-  a.H = H;
-  a.W = W;
-  a.cin = kC;
-  a.cout = kC;
-  a.kk = 3;
-  a.ch.mask_chunk = -1;
-  return a;
-}
-
 }  // namespace
 
 // The forward of one residual group's L RCABs (L = 1: one RCAB). x (B, H,
@@ -346,11 +326,11 @@ extern "C" int srt_rcab_group_fwd(const void* x, const void* w1,
     const float* b2i = static_cast<const float*>(b2) + i * kC;
     SRT_TRY((cudaError_t)srt_conv3x3_fwd(cur, w1i, b1i, h1i, B, H, W, kC, kC,
                                          1, stream));
-    srt90::ConvArgs a = conv_args(h1i, w2i, b2i, nullptr, B, H, W);
+    srt90::ConvArgs a = srt90::args_3x3_64(h1i, w2i, b2i, nullptr, B, H, W);
     a.k5.r2f = static_cast<float*>(r2f);
     a.k5.r2 = save ? static_cast<bf16*>(r2) + i * act : nullptr;
     a.k5.part = static_cast<float*>(part);
-    SRT_TRY((srt90::run_k5<false, 4>(a, s)));
+    SRT_TRY((srt90::run_3x3_64<false, 4>(a, s)));
     rcab_pool_mlp_kernel<<<B, kSlices * kC, 0, s>>>(
         static_cast<const float*>(part), ntiles, (float)H * (float)W,
         static_cast<const float*>(wd) + (size_t)i * kC * cr,
@@ -420,15 +400,16 @@ extern "C" int srt_rcab_group_chain(
         gin, static_cast<const float*>(q), static_cast<const float*>(dpn),
         dr2i, nvec, hw);
     SRT_TRY(cudaGetLastError());
-    srt90::ConvArgs a = conv_args(
+    srt90::ConvArgs a = srt90::args_3x3_64(
         dr2i, static_cast<const bf16*>(w2) + i * kConvW, nullptr, dh1i, B, H,
         W);
     a.k5.h = h1i;
-    SRT_TRY((srt90::run_k5<true, 5>(a, s)));
-    a = conv_args(dh1i, static_cast<const bf16*>(w1) + i * kConvW, nullptr,
-                  gout, B, H, W);
+    SRT_TRY((srt90::run_3x3_64<true, 5>(a, s)));
+    a = srt90::args_3x3_64(dh1i,
+                           static_cast<const bf16*>(w1) + i * kConvW,
+                           nullptr, gout, B, H, W);
     a.k5.res = gin;
-    SRT_TRY((srt90::run_k5<true, 5>(a, s)));
+    SRT_TRY((srt90::run_3x3_64<true, 5>(a, s)));
     gin = gout;
   }
   return 0;

@@ -24,9 +24,9 @@
 // * 64 = 147 kFLOP per pixel (2.42 GFLOP at the training shape, 16 x 32 x
 // 32) against 256 bytes (x in, out out; 384 with h1): operations. The lo
 // half adds conv2 once more (1.5x the function's tensor-core work), and
-// the halo recompute of K1's tile plan 1.44x on conv1.
+// the halo recompute of the tile plan 1.44x on conv1.
 //
-// Design: K1's tile plan (fused_block.cuh's Plan): a block owns an 8 x 16
+// Design: fused_block.cuh's tile plan (Plan): a block owns an 8 x 16
 // output tile of one image, grid (ceil(W / 16), ceil(H / 8), B). The x
 // tile with a 2-pixel halo, h1's hi and lo halves with a 1-pixel halo and
 // one conv's weights at a time (W1, then W2 over it) sit in shared memory

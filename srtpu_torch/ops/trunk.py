@@ -1,5 +1,5 @@
-"""K1: the EDSR resblock chain, one fused-block kernel per block, and its
-backward.
+"""K1: the EDSR resblock trunk, forward and backward, one host call per
+trunk each way.
 
 Replaces ``srtpu/ops/cs_conv.py:trunk_fwd_mega`` and ``trunk_bwd_mega``
 (behind ``trunk_cs_mega``), and with them srtpu's per-block forms of the
@@ -7,20 +7,24 @@ same block: ``_rb_fwd_call_stk`` / ``_rb_bwd_call_stk`` (behind
 ``trunk_cs``, which srtpu's ``CSTrunk`` takes once the mega backward's
 dW accumulators pass its TPU VMEM budget) and ``resblock_cs_fwd_h1`` /
 ``resblock_cs_bwd`` (behind ``resblock_cs``, one block on HWIO weights).
-Those compute what K1 computes, block by block; K1 already launches one
-kernel per block and keeps no such accumulators, so one route serves
-every depth, and :func:`resblock_cs` is :func:`trunk` at L = 1. srtpu's
-``s_valid`` (the dead lanes of a padded CS packing) has no counterpart:
-NHWC has no dead lanes.
+Those compute what K1 computes, block by block; K1 keeps no such
+accumulators, so one route serves every depth, and :func:`resblock_cs`
+is :func:`trunk` at L = 1. srtpu's ``s_valid`` (the dead lanes of a
+padded CS packing) has no counterpart: NHWC has no dead lanes.
 
-The kernels are ``csrc/trunk.cu``, whose head notes say what bounds them
-on the H100, how their design answers that, and why the loop over blocks
-runs here on the host. The backward's weight grads come from the
-weight-grad kernel (:mod:`.wgrad`), one launch per conv for all blocks.
-:func:`trunk_fwd` and :func:`trunk_bwd` launch the kernels for CUDA
-tensors and take the plain versions only for CPU tensors. :func:`trunk`
-is the differentiable op (:class:`TrunkFn`). :func:`trunk_xla` is
-srtpu's XLA trunk past 96 features, in stock ops (no kernel).
+The kernels are ``csrc/trunk.cu``, whose head note says what bounds them
+on the H100 and how they run: each conv one launch of K2's wgmma engine
+(``csrc/conv_sm90.cuh``: conv1 K2's own instance, conv2 at K1's
+epilogue, the dx chain's transposed convs at K5's), the blocks in order
+on one stream. :func:`trunk_fwd` and :func:`trunk_bwd` run a trunk in one
+host call each way (checks and scratch once per trunk; the backward's
+weight grads then come from the weight-grad kernel, :mod:`.wgrad`, one
+launch per conv for all blocks) for CUDA tensors, and take the plain
+versions only for CPU tensors (:func:`trunk_chain` is the backward's
+dx chain alone, on CUDA). :func:`fwd_plan` and :func:`chain_plan`
+say in plain Python what trunk.cu launches. :func:`trunk` is the
+differentiable op (:class:`TrunkFn`). :func:`trunk_xla` is srtpu's XLA
+trunk past 96 features, in stock ops (no kernel).
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ from .layout import w_t
 from .resblock import resblock_fused_plain
 from .wgrad import conv_wgrad, conv_wgrad_plain
 
-KERNEL_C = 64           # the kernels' one width (EDSR-baseline's)
+KERNEL_C = C = 64       # the kernels' one width (EDSR-baseline's)
+EPI_K2, EPI_K5, EPI_K1 = 0, 5, 6   # the engine's epilogues K1 launches
 
 
 def trunk_plain(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
@@ -78,6 +83,34 @@ def trunk_bwd_plain(xs: torch.Tensor, h1s: torch.Tensor, g: torch.Tensor,
     return g.contiguous(), dw1, db1, dw2, db2
 
 
+def fwd_plan(save: bool, scale: float, n_blocks: int = 1) -> tuple:
+    """trunk.cu's launches for a forward call of ``n_blocks`` blocks, in
+    order, each (kernel, EPI, k, cin, cout, transposed, scale, what it
+    writes): 'engine' is K2's engine over the images' 8 x 16 tiles (EPI
+    0, K2's own instance: conv1 with bias and ReLU; EPI 6, K1's: conv2,
+    its bias, the scale and the skip), 'copy' a device copy. ``scale`` is
+    the res_scale a launch applies (None: none)."""
+    block = (('engine', EPI_K2, 3, C, C, False, None, ('h1',)),
+             ('engine', EPI_K1, 3, C, C, False, float(scale), ('out',)))
+    head = (('copy', None, None, None, None, None, None, ('xs',)),)
+    return (head if save else ()) + block * n_blocks
+
+
+def chain_plan(scale: float, n_blocks: int = 1) -> tuple:
+    """trunk.cu's launches for a dx chain of ``n_blocks`` blocks (the last
+    block first), as :func:`fwd_plan`: g copied into the weight grads'
+    stack, then per block, where res_scale is not 1, a 'gs' pass making
+    gs = bf16(res_scale * g), and the two transposed launches of the
+    engine at K5's dx epilogue (EPI 5: h1's mask, then the skip g)."""
+    gs = (('gs', None, None, None, None, None, float(scale), ('gs',)),)
+    block = (('engine', EPI_K5, 3, C, C, True, None, ('dh1',)),
+             ('engine', EPI_K5, 3, C, C, True, None, ('dx',)))
+    if float(scale) != 1.0:
+        block = gs + block
+    return (('copy', None, None, None, None, None, None, ('g',)),
+            ) + block * n_blocks
+
+
 def _check(name: str, x: torch.Tensor) -> None:
     if x.device.type != 'cuda':
         raise ValueError(f'{name}: no kernel for device {x.device}')
@@ -92,7 +125,8 @@ def trunk_fwd(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
     """x (B, H, W, C) bf16; w1s, w2s (L, 3, 3, C, C) bf16 HWIO stacks;
     b1s, b2s (L, C) f32 -> (B, H, W, C) bf16 after L resblocks, or with
     ``save`` ``(out, xs, h1s)`` as :func:`trunk_plain`. On CUDA: C = 64;
-    one launch per block."""
+    one host call (two launches a block; ``trunk_fwd.launches`` counts
+    the blocks)."""
     if x.device.type == 'cpu':
         return trunk_plain(x, w1s, b1s, w2s, b2s, res_scale, save)
     _check('trunk_fwd', x)
@@ -104,65 +138,69 @@ def trunk_fwd(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
         _build.expect(t, name, torch.bfloat16, (n_blocks, 3, 3, c, c), dev)
     for name, t in (('b1s', b1s), ('b2s', b2s)):
         _build.expect(t, name, torch.float32, (n_blocks, c), dev)
+    out = torch.empty_like(x)
     if save:    # every block's input and h1 stay for the backward
         xs = torch.empty((n_blocks, *x.shape), dtype=x.dtype, device=dev)
-        xs[0].copy_(x)
         h1s = torch.empty_like(xs)
-        out = torch.empty_like(x)
-        dsts = [*xs[1:], out]
-    else:       # ping-pong: a block never reads its output
-        bufs = [torch.empty_like(x) for _ in range(min(n_blocks, 2))]
-        dsts = [bufs[i % 2] for i in range(n_blocks)]
+    else:       # the other of two outputs a block alternates on; h1 scratch
+        xs = torch.empty_like(x) if n_blocks > 1 else None
+        h1s = torch.empty_like(x)
     lib = _build.library()
-    src = x
-    with torch.cuda.device(dev):
-        s = _build.stream(dev)
-        for i, dst in enumerate(dsts):
-            err = lib.srt_resblock_fwd(
-                src.data_ptr(), w1s[i].data_ptr(), b1s[i].data_ptr(),
-                w2s[i].data_ptr(), b2s[i].data_ptr(), float(res_scale),
-                dst.data_ptr(), h1s[i].data_ptr() if save else None, bsz, h,
-                wd, c, s)
-            _build.check(err, 'srt_resblock_fwd')
-            trunk_fwd.launches += 1
-            src = dst
-    return (src, xs, h1s) if save else src
+    with _build.on(dev):
+        err = lib.srt_trunk_fwd(
+            x.data_ptr(), w1s.data_ptr(), b1s.data_ptr(), w2s.data_ptr(),
+            b2s.data_ptr(), float(res_scale),
+            None if xs is None else xs.data_ptr(), h1s.data_ptr(),
+            out.data_ptr(), n_blocks, int(save), bsz, h, wd, c,
+            _build.stream(dev))
+    _build.check(err, 'srt_trunk_fwd')
+    trunk_fwd.launches += n_blocks
+    return (out, xs, h1s) if save else out
+
+
+def trunk_chain(h1s: torch.Tensor, g: torch.Tensor, w1s: torch.Tensor,
+                w2s: torch.Tensor, res_scale: float) -> tuple:
+    """K1's dx chain on CUDA, without the weight grads: h1s (L, B, H, W,
+    64) bf16 saved by the forward; g (B, H, W, 64) bf16; w1s, w2s (L, 3,
+    3, 64, 64) bf16 -> (dx, gbuf, dh1s): the trunk's input cotangent,
+    every block's output cotangent (L, ...) and dh1 (L, ...), as the
+    weight grads read them. One host call (two launches a block;
+    ``trunk_bwd.launches`` counts the blocks)."""
+    _check('trunk_chain', g)
+    n_blocks = h1s.shape[0]
+    bsz, h, wd, c = g.shape
+    dev = g.device
+    _build.expect(h1s, 'h1s', torch.bfloat16, (n_blocks, bsz, h, wd, c), dev)
+    _build.expect(g, 'g', torch.bfloat16, (bsz, h, wd, c), dev)
+    for name, t in (('w1s', w1s), ('w2s', w2s)):
+        _build.expect(t, name, torch.bfloat16, (n_blocks, 3, 3, c, c), dev)
+    gbuf = torch.empty_like(h1s)    # gbuf[l]: cotangent of block l's output
+    dh1s = torch.empty_like(h1s)
+    dx = torch.empty_like(g)
+    gs = torch.empty_like(g) if float(res_scale) != 1.0 else None
+    lib = _build.library()
+    with _build.on(dev):
+        err = lib.srt_trunk_chain(
+            h1s.data_ptr(), g.data_ptr(), w1s.data_ptr(), w2s.data_ptr(),
+            float(res_scale), gbuf.data_ptr(), dh1s.data_ptr(),
+            None if gs is None else gs.data_ptr(), dx.data_ptr(), n_blocks,
+            bsz, h, wd, c, _build.stream(dev))
+    _build.check(err, 'srt_trunk_chain')
+    trunk_bwd.launches += n_blocks
+    return dx, gbuf, dh1s
 
 
 def trunk_bwd(xs: torch.Tensor, h1s: torch.Tensor, g: torch.Tensor,
               w1s: torch.Tensor, w2s: torch.Tensor, res_scale: float):
     """xs, h1s (L, B, H, W, C) bf16 from ``trunk_fwd(save=True)``; g
     (B, H, W, C) bf16; w1s, w2s (L, 3, 3, C, C) bf16 -> as
-    :func:`trunk_bwd_plain`. On CUDA: C = 64; one dx-chain launch per
-    block, in reverse, then one weight-grad launch per conv."""
+    :func:`trunk_bwd_plain`. On CUDA: C = 64; :func:`trunk_chain`, then
+    one weight-grad launch per conv."""
     if g.device.type == 'cpu':
         return trunk_bwd_plain(xs, h1s, g, w1s, w2s, res_scale)
     _check('trunk_bwd', g)
-    n_blocks = xs.shape[0]
-    bsz, h, wd, c = g.shape
-    dev = g.device
-    for name, t in (('xs', xs), ('h1s', h1s)):
-        _build.expect(t, name, torch.bfloat16, (n_blocks, bsz, h, wd, c), dev)
-    _build.expect(g, 'g', torch.bfloat16, (bsz, h, wd, c), dev)
-    for name, t in (('w1s', w1s), ('w2s', w2s)):
-        _build.expect(t, name, torch.bfloat16, (n_blocks, 3, 3, c, c), dev)
-    w1t = w_t(w1s).contiguous()
-    w2t = w_t(w2s).contiguous()
-    gbuf = torch.empty_like(xs)     # gbuf[l]: cotangent of block l's output
-    gbuf[-1].copy_(g)
-    dh1s = torch.empty_like(xs)
-    dx = torch.empty_like(g)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        s = _build.stream(dev)
-        for i in reversed(range(n_blocks)):
-            dst = gbuf[i - 1] if i else dx
-            err = lib.srt_resblock_bwd(
-                gbuf[i].data_ptr(), h1s[i].data_ptr(), w2t[i].data_ptr(),
-                w1t[i].data_ptr(), float(res_scale), dst.data_ptr(),
-                dh1s[i].data_ptr(), bsz, h, wd, c, s)
-            _build.check(err, 'srt_resblock_bwd')
-            trunk_bwd.launches += 1
+    _build.expect(xs, 'xs', torch.bfloat16, h1s.shape, g.device)
+    dx, gbuf, dh1s = trunk_chain(h1s, g, w1s, w2s, res_scale)
     dw2, db2 = conv_wgrad(h1s, gbuf, gscale=res_scale)
     dw1, db1 = conv_wgrad(xs, dh1s)
     return dx, dw1, db1, dw2, db2

@@ -4,6 +4,9 @@ train-step and predict times of the models chip_smoke.py runs.
     python tools/ab_torch_step.py TREE_A TREE_B [--models EDSR,DDBPN]
                                   [--rounds 2]
 
+``--models`` names keys of MODELS: a model, or EDSR86 (EDSR x4 at 64
+features, 86 resblocks, res_scale 0.1).
+
 TREE_A and TREE_B are checkouts of this repository (for example the
 parent commit unpacked with ``git archive`` into a git-ignored directory,
 and ``.``). Each (tree, model) runs in a process of its own that imports
@@ -36,7 +39,10 @@ MODELS = {
     'DDBPN': ['--n0', '128', '--nr', '32', '--depth', '6'],
     'WDSR': ['--n_feats', '128', '--n_resblocks', '16', '--use_pallas',
              'cs'],
+    # chip_smoke's phase 22: EDSR x4 at 64 features and 86 resblocks
+    'EDSR86': ['--n_resblocks', '86', '--res_scale', '0.1'],
 }
+MODEL_OF = {'EDSR86': 'EDSR'}   # a configuration's model, where it differs
 
 
 def median_ms(fn, calls: int, windows: int) -> float:
@@ -68,9 +74,9 @@ def worker(tree: str, model: str) -> None:
     from srtpu_torch.train import TrainState, make_train_step
 
     device = torch.device('cuda', 0)
-    argv = ['fit', '--model', model, '--scale_factor', '4', '--precision',
-            'bf16', '--device', 'cuda', '--seed', '0', '--train_datasets',
-            'Train', *MODELS[model]]
+    argv = ['fit', '--model', MODEL_OF.get(model, model), '--scale_factor',
+            '4', '--precision', 'bf16', '--device', 'cuda', '--seed', '0',
+            '--train_datasets', 'Train', *MODELS[model]]
     net = cli.build_model(cli.build_parser().parse_args(argv), device)
     gen = torch.Generator().manual_seed(0)
     lr = torch.rand((16, 32, 32, 3), generator=gen).to(device)

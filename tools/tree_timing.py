@@ -1,8 +1,9 @@
 """What the tools that time two trees of srtpu_torch in turns share
-(``tools/k5_plans.py``, ``tools/k6_plans.py``, ``tools/wgrad_plans.py``):
-this checkout's chip_smoke.py loaded over another tree's srtpu_torch,
-and the device times of the classes of the two wgmma engines, K2's
-(``conv_sm90.cuh``) and W's (``wgrad.cu``)."""
+(``tools/k1_plans.py``, ``tools/k5_plans.py``, ``tools/k6_plans.py``,
+``tools/wgrad_plans.py``): this checkout's chip_smoke.py loaded over
+another tree's srtpu_torch, the device times of the classes of the two
+wgmma engines, K2's (``conv_sm90.cuh``) and W's (``wgrad.cu``), and of
+the kernels that run K2's at epilogues of their own, K5's and K6's."""
 
 from __future__ import annotations
 
@@ -62,3 +63,45 @@ def engine_times(cs, device, smi: str) -> None:
         w_total += ms
         print(f'W {label}: device {ms:.4f} ms  [{smi}]', flush=True)
     print(f'W classes summed: device {w_total:.4f} ms  [{smi}]')
+
+
+def epilogue_times(cs, device, smi: str) -> None:
+    """Device times at the training shape of the kernels that run K2's
+    engine at epilogues of their own: K5 (one RCAB and a 16-RCAB group,
+    forward saving and backward) and K6 (the 16-block forward saving, one
+    block's chain and its pair weight grads)."""
+    from srtpu_torch.ops import rcab, rdn
+    bsz, lr = cs.TRAIN_BATCH, cs.TRAIN_PATCH // cs.SCALE
+    bf = torch.bfloat16
+    gen = torch.Generator().manual_seed(15)
+    prm = cs.rcab_params(gen, device)
+    x = cs._uniform(gen, (bsz, lr, lr, cs.C), 1.0, device, bf)
+    g = cs._uniform(gen, (bsz, lr, lr, cs.C), 1.0, device, bf)
+    _, h1, r2 = rcab.rcab_fwd(x, *prm, save=True)
+    gprm = (*cs.rcab_params(gen, device, (cs.RCABS,)),
+            *cs.rcab_params(gen, device)[:2])
+    _, xs, h1s, r2s = rcab.resgroup_fwd(x, *gprm, save=True)
+    gargs = (xs, h1s, r2s, g, gprm[0], gprm[2], *gprm[4:8], gprm[8])
+    fns = {'K5 RCAB fwd (saving)': lambda: rcab.rcab_fwd(x, *prm, save=True),
+           'K5 RCAB bwd': lambda: rcab.rcab_bwd(x, h1, r2, g, prm[0], prm[2],
+                                                *prm[4:]),
+           f'K5 group of {cs.RCABS} fwd (saving)':
+               lambda: rcab.resgroup_fwd(x, *gprm, save=True),
+           f'K5 group of {cs.RCABS} bwd': lambda: rcab.resgroup_bwd(*gargs)}
+    args = cs.rdn_case(gen, device, bsz, lr, lr)
+    _, bufs = rdn.rdn_fwd(*args, save=True)
+    gr = cs._uniform(gen, (bsz, lr, lr, cs.RDN_G0), 1.0, device, bf)
+    ct = cs._uniform(gen, (bsz, lr, lr, cs.RDN_D * cs.RDN_G0), 1.0, device,
+                     bf)
+    l = cs.RDN_D - 1
+    bargs = (bufs, l, gr, ct, cs.w_t(args[1]).contiguous(),
+             args[3].transpose(1, 2).contiguous())
+    dout = rdn.rdb_bwd_chain(*bargs)[1]
+    fns.update({
+        'K6 fwd (16 blocks, saving)': lambda: rdn.rdn_fwd(*args, save=True),
+        'K6 chain (one block)': lambda: rdn.rdb_bwd_chain(*bargs),
+        'K6 pair weight grads (one block)':
+            lambda: rdn.rdb_bwd_dw(bufs, l, dout)})
+    for name, fn in fns.items():
+        print(f'{name} {bsz}x{lr}x{lr}: device {cs.graph_ms(fn, 5, 3):.4f} '
+              f'ms  [{smi}]', flush=True)
