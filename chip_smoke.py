@@ -123,7 +123,7 @@ Phases, each of which raises on failure (nothing is caught):
 2l. the weight-grad engine (W) at every class the main paths launch
    (``W_CASES``: stacked jobs, a scaled cotangent, the r = 2 gather,
    REFLECT, 3x3 and 5x5 256 -> 16, DDBPN x4's three, 576 -> 32 at 3x3
-   and 5x5, K9c's 64 i -> 64, K7's 112 -> 128, K9d's 64 -> 128) at the
+   and 5x5, K9c's 64 i -> 64, K7's 128 -> 128, K9d's 64 -> 128) at the
    training shape and at 2 x 67 x 45, against its plain version within
    1e-4 of the largest magnitude, two calls bit-identical, with its
    time, bound and ``conv2d_weight``'s (cuDNN's heuristics and benchmark
@@ -143,13 +143,15 @@ Phases, each of which raises on failure (nothing is caught):
    the CLI (their phase-dense 576 -> 32 tails, 3x3 and 5x5, on K2's
    general path), kernel path against plain path.
 2g. K7 (WDSR-B's block) forward and backward against their plain
-   versions at C = 128 (e 768, Lp 112): the training shape (batch 16, LR
-   32x32), the predict shape (batch 1, 128x128) and a ragged batch 2 of
-   67x45; out, dx and the six f32 grads beside their tolerances, two
-   calls bit-identical, kernel, plain and bound times (the bound counts
-   the block's work at its bottleneck L = 102, not the kernels' padded
-   Lp), and one bf16 block on cuDNN (channels-last weights, benchmark
-   mode) timed each way beside;
+   versions at C = 128 (e 768, Lp 112; the kernels pad to 128): the
+   training shape (batch 16, LR 32x32), the predict shape (batch 1,
+   128x128) and a ragged batch 2 of 67x45, one block and the 16-block
+   trunk in one host call each way; out, the saved block inputs, dx and
+   the six f32 grads beside their tolerances, two calls bit-identical,
+   kernel, plain and bound times (the bound counts the block's work at
+   its bottleneck L = 102, not the kernels' padded Lp), the trunk's
+   device and host times, and one bf16 block on cuDNN (channels-last
+   weights, benchmark mode) timed each way beside, on the device too;
 14. the WDSR-B predict slice: phase 3's path and images with ``--model
    WDSR --use_pallas cs`` at srtpu's defaults (128 features, 16 blocks,
    x4): per image 16 K7 forward launches and no K1-K6; PNGs at 4x;
@@ -198,6 +200,8 @@ Phases, each of which raises on failure (nothing is caught):
    ragged batch 2 of 67x45: every output within one bf16 step of its
    largest magnitude, two calls bit-identical, kernel, plain and bound
    times (no single PyTorch call computes any of them: library null);
+   K8c over 16 blocks (one call a block, as the True route runs it),
+   device and host time;
 19. the EDSR True route: phase 3's path and images with ``--model EDSR
    --use_pallas true`` (64 features, 16 blocks): per image 16 K8a
    launches and no K1, K2 or K3; PNGs at 4x; kernel path against plain
@@ -310,6 +314,7 @@ from srtpu_torch.ops.resblock import (resblock_bwd_fused,
                                       resblock_fused_bwd, resblock_fused_fwd,
                                       resblock_fused_plain,
                                       resblock_fused_v3)
+from srtpu_torch.ops import wdsr as k7ops
 from srtpu_torch.ops.wdsr import (wdsr_bwd, wdsr_bwd_plain, wdsr_fwd,
                                   wdsr_fwd_plain, wdsr_lp)
 from srtpu_torch.ops.wdsr_block import (wdsr_block_fused_fwd,
@@ -579,6 +584,19 @@ WDSR_STEP_LAUNCHES = {wdsr_fwd: WDSR_L, wdsr_bwd: WDSR_L, conv3x3_bwd: 0,
 K7_STEPS = {'out': 2}
 K7B_STEPS = {'dx': 2, 'dw1': 1, 'db1': 1, 'dw2': 1, 'db2': 1, 'dw3': 1,
              'db3': 1}
+# K7's trunk of WDSR_L blocks in one call each way against the plain
+# versions block after block: each block's input carries the earlier
+# blocks' one-step differences, so out, the saved block inputs and dx
+# within four steps, as K1's 16-block trunk (TOL_STEPS['K1']); the
+# weight and bias grads, each a sum over the pixels of products with a
+# block's cotangent, which carries the later blocks' dx differences,
+# within two steps (one block's are held to one, K7B_STEPS).
+K7T_STEPS = {'out': 4, 'xs': 4}
+K7TB_STEPS = {'dx': 4, 'dw1': 2, 'db1': 2, 'dw2': 2, 'db2': 2, 'dw3': 2,
+              'db3': 2}
+# phase 2g holds the trunk at srtpu's res_scale and, at the ragged shape,
+# at 0.1 (the backward's gs pass)
+K7_SCALES = (1.0, 0.1)
 # srtpu's use_pallas=True routes (K8), at the same full widths and depths
 # as their 'cs' runs: EDSR-baseline (K8a per block), RCAN-10x16 (K8b per
 # RCAB), WDSR-B at 128 features (K8c per block); the 'cs' route of the
@@ -668,6 +686,19 @@ def k1_held() -> set:
     for nb, s, *_ in K1_TIMED:
         held |= {('fwd', nb, True, s), ('fwd', nb, False, s),
                  ('chain', nb, False, s)}
+    return held
+
+
+def k7_held() -> set:
+    """(kind, C, blocks, save, res_scale) of the K7 calls phase 2g holds
+    against their plain versions on the card ('fwd'; 'bwd' from the
+    forward's saved block inputs and h2), and K8c's in 2i ('k8c')."""
+    held = {('fwd', WDSR_C, 1, False, 1.0), ('bwd', WDSR_C, 1, False, 1.0),
+            ('k8c', WDSR_C, 1, False, 1.0)}
+    for s in K7_SCALES:
+        held |= {('fwd', WDSR_C, WDSR_L, True, s),
+                 ('fwd', WDSR_C, WDSR_L, False, s),
+                 ('bwd', WDSR_C, WDSR_L, False, s)}
     return held
 
 
@@ -2035,7 +2066,7 @@ W_CASES = (
     # K6's pair weight grads' split (rdb_bwd_dw: 36 jobs of 64 -> 64 in
     # one launch, its pairs mode), here on stacked copies
     ('K6 pairs 64->64, 36 stacked jobs', 3, C, C, 1, False, 1.0, 36, 1),
-    ('K7 dW3 112->128', 3, 112, WDSR_C, 1, False, 1.0, 1, 1),
+    ('K7 dW3 128->128', 3, WDSR_C, WDSR_C, 1, False, 1.0, 1, 1),
     ('K9d [hi | lo] 64->128', 3, C, 2 * C, 1, False, 1.0, 1, 1),
 )
 
@@ -2161,22 +2192,27 @@ def check_k2_train_fwd(device, smi: str) -> dict:
     return stats
 
 
-def wdsr_case(gen, device, bsz: int, h: int, w: int) -> tuple:
+def wdsr_case(gen, device, bsz: int, h: int, w: int, lp: int = WDSR_LP,
+              n: int | None = None) -> tuple:
     """K7's operands at WDSR-B's width (C 128, e 768, L 102 padded to Lp
-    112 with zero rows) at srtpu's init bounds, and a cotangent g."""
+    ``lp`` with zero rows: srtpu's 112, or the kernels' 128) at srtpu's
+    init bounds, stacked ``n`` deep when given, and a cotangent g."""
     bf, f32 = torch.bfloat16, torch.float32
-    c, e, lv, lp = WDSR_C, WDSR_E, WDSR_LV, WDSR_LP
+    c, e, lv = WDSR_C, WDSR_E, WDSR_LV
+    lead = () if n is None else (n,)
+
+    def u(shape, bound, dt=bf):
+        return _uniform(gen, (*lead, *shape), bound, device, dt)
 
     def padded(t, dim):
+        dim += len(lead)
         return F.pad(t, (0, 0) * (t.dim() - 1 - dim) + (0, lp - lv))
     return (_uniform(gen, (bsz, h, w, c), 1.0, device, bf),
-            _uniform(gen, (c, e), c ** -0.5, device, bf),
-            _uniform(gen, (e,), c ** -0.5, device, f32),
-            padded(_uniform(gen, (e, lv), e ** -0.5, device, bf), 1),
-            padded(_uniform(gen, (lv,), e ** -0.5, device, f32), 0),
-            padded(_uniform(gen, (3, 3, lv, c), (9 * lv) ** -0.5, device,
-                            bf), 2).contiguous(),
-            _uniform(gen, (c,), (9 * lv) ** -0.5, device, f32),
+            u((c, e), c ** -0.5), u((e,), c ** -0.5, f32),
+            padded(u((e, lv), e ** -0.5), 1),
+            padded(u((lv,), e ** -0.5, f32), 0),
+            padded(u((3, 3, lv, c), (9 * lv) ** -0.5), 2).contiguous(),
+            u((c,), (9 * lv) ** -0.5, f32),
             _uniform(gen, (bsz, h, w, c), 1.0, device, bf))
 
 
@@ -2206,15 +2242,67 @@ def stock_operands(x, w1, b1, w2, b2, w3, b3) -> list:
              b3.to(x.dtype))]
 
 
+def _k7_trunk(device, smi: str, stats: dict, bsz: int, h: int, w: int,
+              timed: bool, rs: float = 1.0) -> None:
+    """K7's trunk of WDSR_L blocks, one host call each way, at the
+    kernels' Lp, against the plain versions block after block (the
+    backward's from the kernel's saved block inputs): out, the saved
+    inputs, dx and the stacked grads within K7T_STEPS / K7TB_STEPS; the
+    forward without saving bit-identical to the saving one's out; two
+    calls bit-identical; timed (device and host) where ``timed``."""
+    gen = torch.Generator().manual_seed(bsz * 7937 + h * 131 + w)
+    x, *sp, g = wdsr_case(gen, device, bsz, h, w, k7ops.kernel_lp(WDSR_C),
+                          WDSR_L)
+    tag = f'K7 trunk L={WDSR_L} res_scale {rs} {bsz}x{h}x{w}'
+    fargs = (x, *sp, rs)
+    got = k7ops.wdsr_trunk_fwd(*fargs, save=True)
+    torch.cuda.synchronize()
+    _same_twice(lambda: k7ops.wdsr_trunk_fwd(*fargs, save=True), got,
+                f'{tag} fwd')
+    need(torch.equal(k7ops.wdsr_trunk_fwd(*fargs), got[0]),
+         f'{tag}: the forward without saving differs from the saving one')
+    ref = k7ops.wdsr_trunk_plain(*fargs, save=True)
+    err = _check_all(f'{tag} fwd (saving)', K7T_STEPS, got[:2], ref[:2],
+                     list(K7T_STEPS.values()))
+    stats['K7']['max_abs_err'] = max(stats['K7']['max_abs_err'], err)
+    bargs = (got[1], got[2], g, *sp[:5], rs)
+    bgot = k7ops.wdsr_trunk_bwd(*bargs)
+    torch.cuda.synchronize()
+    _same_twice(lambda: k7ops.wdsr_trunk_bwd(*bargs), bgot, f'{tag} bwd')
+    bref = k7ops.wdsr_trunk_bwd_plain(got[1], g, *sp[:5], rs)
+    err = _check_all(f'{tag} bwd', K7TB_STEPS, bgot, bref,
+                     list(K7TB_STEPS.values()))
+    stats['K7b']['max_abs_err'] = max(stats['K7b']['max_abs_err'], err)
+    if not timed:
+        return
+    times = {}
+    for kid, fn in (('K7', lambda: k7ops.wdsr_trunk_fwd(*fargs)),
+                    ('K7b', lambda: k7ops.wdsr_trunk_bwd(*bargs))):
+        times[kid] = (graph_ms(fn, 3, 3), host_ms(fn))
+    print(f'{tag}, one host call each way: fwd device {times["K7"][0]:.4f} '
+          f'ms ({times["K7"][0] / WDSR_L:.5f} a block), host '
+          f'{times["K7"][1]:.4f} ms; bwd device {times["K7b"][0]:.4f} ms '
+          f'({times["K7b"][0] / WDSR_L:.5f} a block), host '
+          f'{times["K7b"][1]:.4f} ms  [{smi}]')
+    if bsz == TRAIN_BATCH:
+        for kid, (dev, host) in times.items():
+            stats[kid]['trunk_device_ms'] = dev
+            stats[kid]['trunk_host_ms'] = host
+
+
 def check_wdsr_kernels(device, smi: str) -> dict:
     """Phase 2g. K7's forward and backward against the plain versions at
     the training shape (batch 16, LR 32x32), the predict shape (batch 1,
     128x128) and a ragged batch 2 of 67x45, C = 128, res_scale 1 (srtpu's
-    default): every output beside its tolerance, two calls bit-identical,
-    kernel and plain times (and the device's alone, a CUDA graph of the
-    calls), the bound; and one stock-route block (cuDNN) timed beside,
-    each way. Returns K7 / K7b stats, timed at the training shape (per
-    block)."""
+    default): one block at srtpu's Lp 112 (the wrappers pad to the
+    kernels' 128; its backward from the block input and h2 that its
+    saving forward kept, as WDSR-B runs it) and the 16-block trunk in
+    one host call each way (:func:`_k7_trunk`; at the ragged shape at
+    res_scale 0.1 too); every output beside its tolerance, two calls
+    bit-identical, kernel, plain and bound times (and the device's
+    alone, a CUDA graph of the calls), and one stock-route block (cuDNN)
+    timed beside each way, on the device too. Returns K7 / K7b stats,
+    timed at the training shape (per block)."""
     stats = new_stats(('K7', 'K7b'))
     shapes = ((TRAIN_BATCH, TRAIN_PATCH // SCALE, TRAIN_PATCH // SCALE),
               (1, 128, 128), (2, 67, 45))
@@ -2231,15 +2319,25 @@ def check_wdsr_kernels(device, smi: str) -> dict:
         err = _check_all(f'K7 wdsr fwd {tag}', K7_STEPS, [got], [ref],
                          list(K7_STEPS.values()))
         stats['K7']['max_abs_err'] = max(stats['K7']['max_abs_err'], err)
-        bgot = wdsr_bwd(*bargs)
+        # the backward as WDSR-B runs it: a trunk of one, from the block
+        # input and h2 its forward saved
+        one = [t[None] for t in prm]
+        _, xs1, h2s1 = k7ops.wdsr_trunk_fwd(x, *one, 1.0, save=True)
+
+        def kbwd():
+            out = k7ops.wdsr_trunk_bwd(xs1, h2s1, g, *one[:5], 1.0)
+            return (out[0], *(t[0] for t in out[1:]))
+        bgot = kbwd()
         torch.cuda.synchronize()
         bref = wdsr_bwd_plain(*bargs)
-        need(all(torch.equal(a, b) for a, b in zip(bgot, wdsr_bwd(*bargs))),
+        need(all(torch.equal(a, b) for a, b in zip(bgot, kbwd())),
              f'K7 bwd {tag}: two calls differ')
         err = _check_all(f'K7 wdsr bwd {tag}', K7B_STEPS, bgot, bref,
                          list(K7B_STEPS.values()))
         stats['K7b']['max_abs_err'] = max(stats['K7b']['max_abs_err'], err)
+        _k7_trunk(device, smi, stats, bsz, h, w, i != 2)
         if i == 2:
+            _k7_trunk(device, smi, stats, bsz, h, w, False, K7_SCALES[1])
             continue
         # the function's work and bytes at the bottleneck width L (the
         # padding to Lp is the kernels' choice): wdsr_cs.py:154 (forward)
@@ -2251,26 +2349,33 @@ def check_wdsr_kernels(device, smi: str) -> dict:
                prm[4][:, :, :lv], prm[5])
         fms = median_ms(lambda: wdsr_fwd(*fargs), 10, 3)
         fpl = median_ms(lambda: wdsr_fwd_plain(*fargs), 3, 3)
-        bms = median_ms(lambda: wdsr_bwd(*bargs), 10, 3)
+        bms = median_ms(kbwd, 10, 3)
         bpl = median_ms(lambda: wdsr_bwd_plain(*bargs), 3, 3)
         # the device's time alone (a CUDA graph of the calls)
         fdev = graph_ms(lambda: wdsr_fwd(*fargs), 10, 3)
-        bdev = graph_ms(lambda: wdsr_bwd(*bargs), 10, 3)
+        bdev = graph_ms(kbwd, 10, 3)
         f_moved = nbytes(fun, got)
         b_moved = nbytes(g, fun[:6], bgot[:3], bgot[3][:, :lv],
                          bgot[4][:lv], bgot[5][:, :, :lv], bgot[6])
         f_bound = max(bound(fwd_flops, f_moved))
         b_bound = max(bound(2 * fwd_flops, b_moved))
         # the stock route's block, forward and forward + backward, with
-        # cuDNN's benchmark mode on (its fastest algorithms)
+        # cuDNN's benchmark mode on (its fastest algorithms), back to
+        # back and on the device alone
         sw = stock_operands(*fun)
         gc = g.permute(0, 3, 1, 2)
         bench_mode = torch.backends.cudnn.benchmark
         torch.backends.cudnn.benchmark = True
-        with torch.no_grad():
-            sms = median_ms(lambda: stock_block(*sw), 10, 3)
-        sbms = median_ms(lambda: torch.autograd.grad(
-            stock_block(*sw), sw, gc), 10, 3)
+
+        def stock_fwd():
+            with torch.no_grad():
+                return stock_block(*sw)
+
+        def stock_both():
+            return torch.autograd.grad(stock_block(*sw), sw, gc)
+        sms, sdev = median_ms(stock_fwd, 10, 3), graph_ms(stock_fwd, 10, 3)
+        sbms, sbdev = (median_ms(stock_both, 10, 3),
+                       graph_ms(stock_both, 10, 3))
         torch.backends.cudnn.benchmark = bench_mode
         print(f'K7 {tag}: fwd kernel {fms:.4f} ms (device {fdev:.4f}) plain '
               f'{fpl:.4f} ms bound {f_bound:.5f} ms; bwd (incl. dW3 / db3) '
@@ -2278,15 +2383,20 @@ def check_wdsr_kernels(device, smi: str) -> dict:
               f'bound {b_bound:.5f} ms  [{smi}]')
         print(f'K7 {tag}: stock route, one block on cuDNN (1x1, ReLU, 1x1, '
               f'3x3, x res_scale + x; bf16, activations and weights '
-              f'channels-last, benchmark mode): fwd {sms:.4f} ms, fwd + bwd '
-              f'{sbms:.4f} ms (a reference, not library_ms: no single '
-              f'PyTorch call computes the block)  [{smi}]')
+              f'channels-last, benchmark mode): fwd {sms:.4f} ms (device '
+              f'{sdev:.4f}), fwd + bwd {sbms:.4f} ms (device {sbdev:.4f}) '
+              f'(a reference, not library_ms: no single PyTorch call '
+              f'computes the block)  [{smi}]')
         if i == 0:
             record(stats['K7'], fms, fpl, fwd_flops, f_moved)
             record(stats['K7b'], bms, bpl, 2 * fwd_flops, b_moved)
             stats['K7']['device_ms'] = fdev
             stats['K7b']['device_ms'] = bdev
-        del got, ref, bgot, bref, sw
+            stats['K7']['reference_ms'] = sms
+            stats['K7']['reference_device_ms'] = sdev
+            stats['K7b']['reference_ms'] = sbms
+            stats['K7b']['reference_device_ms'] = sbdev
+        del got, ref, bgot, bref, sw, xs1, h2s1
         torch.cuda.empty_cache()
     return stats
 
@@ -2326,13 +2436,35 @@ def k8_cases(gen, device, bsz: int, h: int, w: int) -> dict:
                 2.0 * px * (e * c + lv * e + 9 * c * lv))}
 
 
+def _k8c_blocks(device, smi: str, stats: dict, bsz: int, h: int,
+                w: int) -> None:
+    """K8c over WDSR_L blocks, one call a block as the True route runs
+    it: the device's time (a CUDA graph) and the host's."""
+    gen = torch.Generator().manual_seed(bsz * 7949 + h * 137 + w)
+    x, *sp, _ = wdsr_case(gen, device, bsz, h, w, WDSR_LV, WDSR_L)
+
+    def blocks():
+        y = x
+        for i in range(WDSR_L):
+            y = wdsr_block_fused_fwd(y, *(t[i] for t in sp), 1.0)
+        return y
+    dev, host = graph_ms(blocks, 3, 3), host_ms(blocks)
+    print(f'K8c over {WDSR_L} blocks {bsz}x{h}x{w}: device {dev:.4f} ms '
+          f'({dev / WDSR_L:.5f} a block), host {host:.4f} ms  [{smi}]')
+    if bsz == TRAIN_BATCH:
+        stats['K8c']['trunk_device_ms'] = dev
+        stats['K8c']['trunk_host_ms'] = host
+
+
 def check_k8_kernels(device, smi: str) -> dict:
     """Phase 2i. K8a (out and h1), K8b and K8c against their plain versions
     at the training shape (batch 16, LR 32x32), the predict shape (batch
     1, 128x128) and a ragged batch 2 of 67x45: every output within one
     bf16 step of its largest magnitude, two calls bit-identical; kernel,
-    plain and bound times (no library call computes any of the three).
-    Returns K8a / K8b / K8c stats, timed at the training shape."""
+    plain and bound times (no library call computes any of the three);
+    K8c over 16 blocks timed at the two unragged shapes
+    (:func:`_k8c_blocks`). Returns K8a / K8b / K8c stats, timed at the
+    training shape."""
     stats = new_stats(('K8a', 'K8b', 'K8c'))
     shapes = ((TRAIN_BATCH, TRAIN_PATCH // SCALE, TRAIN_PATCH // SCALE),
               (1, 128, 128), (2, 67, 45))
@@ -2361,6 +2493,8 @@ def check_k8_kernels(device, smi: str) -> dict:
             if i == 0:
                 record(stats[kid], ms, plain_ms, flops, moved)
             del got, ref
+        if i != 2:
+            _k8c_blocks(device, smi, stats, bsz, h, w)
         torch.cuda.empty_cache()
     return stats
 
@@ -2997,14 +3131,19 @@ DDBPN_PROFILE = (
     ('gemm', '1x1 bottlenecks and head (cuBLAS)'),
     ('nvjet', '1x1 bottlenecks and head (cuBLAS)'))
 WDSR_PROFILE = (
-    ('wdsr_pw_fwd_kernel', 'K7 fused 1x1 pair -> h2 (h1 in shared memory)'),
-    ('Dh2Out', 'K7b dh2 = convT(gs)'),
-    ('ScaleSkipOut', 'K7 3x3 + res_scale + skip'),
-    ('wdsr_pw_bwd_kernel', 'K7b fused pointwise bwd (h1 recomputed; dx, '
-     'dW1, dW2)'),
-    ('wdsr_reduce', 'K7b fixed-order reductions'),
-    ('wgrad_sm90_kernel', 'K7b dW3, db3 (weight-grad kernel)'),
-    ('wgrad_reduce', 'K7b dW3, db3 reductions'),
+    ('wdsr_chain_fwd_kernel<128, false>',
+     'K7 chained 1x1 pair -> h2 (h1 in registers)'),
+    ('conv_sm90_kernel<64, 2, 4, 1, false, 8>',
+     'K7 3x3 + res_scale + skip (K2 engine, EPI 8)'),
+    ('conv_sm90_kernel<64, 2, 4, 1, true, 7>',
+     'K7b dh2 = convT(gs) + db2 partials (K2 engine TB, EPI 7)'),
+    ('wdsr_chain_bwd_kernel', 'K7b chained pointwise bwd (h1 recomputed; '
+     'dx, h1, dh1b, db1 partials)'),
+    ('wgrad_sm90_kernel<64, 64, 1, true>', 'K7b dW1, dW2 (W engine, k = 1)'),
+    ('wdsr_colsum', 'K7b db1, db2 fixed-order sums'),
+    ('trunk_gs_kernel', 'K7b gs pass'),
+    ('wgrad_sm90_kernel', 'K7b dW3, db3 (W engine)'),
+    ('wgrad_reduce', 'K7b weight-grad reductions'),
     ('fprop', 'stock route: cuDNN conv forward'),
     ('dgrad', 'stock route: cuDNN conv dx'),
     ('wgrad', 'stock route: cuDNN conv dW'),
@@ -3075,8 +3214,10 @@ RCAN_TRUE_PROFILE = _true_profile(
      ('ca_mlp_kernel', 'K8b pool + MLP + sigmoid'),
      ('ca_apply_kernel', 'K8b gating')), RCAN_PROFILE)
 WDSR_TRUE_PROFILE = _true_profile(
-    (('wdsr_pw_fwd_kernel<true>', 'K8c 1x1 pair -> v (hi, lo)'),
-     ('ScaleSkipOut', 'K8c / K7 3x3 + res_scale + skip')), WDSR_PROFILE)
+    (('wdsr_chain_fwd_kernel<128, true>',
+      'K8c chained 1x1 pair -> v (hi, lo)'),
+     ('conv_sm90_kernel<64, 2, 4, 1, false, 8>',
+      'K8c / K7 3x3 + res_scale + skip (K2 engine, EPI 8)')), WDSR_PROFILE)
 OTHER = 'other (cuDNN head/tail, Adam, casts, copies)'
 
 
@@ -3796,12 +3937,14 @@ def main() -> None:
             ('K2g5b', 'K2 conv3x3_bwd at 5x5, general shapes (SRResNet x3 dx '
              '32->576; with its weight grads)', K2G5_BWD, 'conv.cu',
              rep + '581'),
-            ('K7', 'K7 wdsr_fwd (WDSR-B block: fused 1x1 pair, h1 in shared '
-             'memory; 3x3 + res_scale + skip)', wdsr_fwd, 'wdsr.cu',
+            ('K7', 'K7 wdsr_trunk_fwd (WDSR-B blocks, one host call a '
+             'trunk: chained 1x1 pair with h1 in registers; 3x3 + res_scale '
+             '+ skip on K2 engine EPI 8)', wdsr_fwd, 'wdsr.cu',
              'srtpu/ops/wdsr_cs.py:135'),
-            ('K7b', 'K7 wdsr_bwd (h2 recomputed, dh2, fused pointwise bwd '
-             'with h1 recomputed, reductions; with dW3, db3)', wdsr_bwd,
-             'wdsr.cu', 'srtpu/ops/wdsr_cs.py:159'),
+            ('K7b', 'K7 wdsr_trunk_bwd (one host call a trunk: dh2 on K2 '
+             'engine TB EPI 7, chained pointwise bwd with h1 recomputed, '
+             'dW1 dW2 dW3 db3 on W engine, db1 db2 fixed-order sums)',
+             wdsr_bwd, 'wdsr.cu', 'srtpu/ops/wdsr_cs.py:159'),
             ('F1r', 'K4r f1_conv_stats, reflect (mirrored halo; stats of '
              'the stored y)', K4R_COUNTERS['F1'], 'bn_block.cu', bn + '315'),
             ('F2r', 'K4r f2_norm_act_conv_stats, reflect (h1 of the '
@@ -3819,8 +3962,9 @@ def main() -> None:
             ('K8b', 'K8b ca_layer_fwd (RCAN use_pallas=True: channel sums, '
              'per-image gate, gating)', ca_layer_fwd, 'ca_layer.cu',
              'srtpu/ops/ca_layer.py:41'),
-            ('K8c', 'K8c wdsr_block_fused_fwd (WDSR-B use_pallas=True: 1x1 '
-             'pair with f32 a and v as hi + lo, 3x3 + res_scale + skip)',
+            ('K8c', 'K8c wdsr_block_fused_fwd (WDSR-B use_pallas=True: '
+             'chained 1x1 pair with f32 a and v as hi + lo, 3x3 over [hi | '
+             'lo] + res_scale + skip on K2 engine EPI 8)',
              wdsr_block_fused_fwd, 'wdsr.cu', 'srtpu/ops/wdsr_block.py:71'),
             ('K1s', "K1 trunk_fwd as srtpu's per-block trunk_cs (EDSR 64 x "
              '86, one host call)', trunk_fwd,
@@ -3879,7 +4023,8 @@ def main() -> None:
                                         'wgrad_library_bench_ms', 'classes',
                                         'device_ms', 'host_ms',
                                         'chain_device_ms', 'reference_ms',
-                                        'reference_device_ms')
+                                        'reference_device_ms',
+                                        'trunk_device_ms', 'trunk_host_ms')
                if st.get(key) is not None}})
     print(f'chip_smoke ran {time.perf_counter() - t_start:.1f} s '
           f'(kernel build included)')

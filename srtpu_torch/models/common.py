@@ -103,6 +103,18 @@ def _conv(x, w, b, dtype, reflect: bool = False, stride: int = 1):
     return y.permute(0, 2, 3, 1).to(dtype) + b.to(dtype)
 
 
+def only_cs(model: str, use_pallas, item: int) -> None:
+    """F14: srtpu gives ``model`` a ``use_pallas`` field, 'cs' by default,
+    and runs its XLA math (with XLA's roundings) for any other value. The
+    port runs 'cs' alone, so any other value raises, naming the ROADMAP
+    item that will port that route."""
+    if use_pallas != 'cs':
+        raise NotImplementedError(
+            f"{model}: use_pallas={use_pallas!r} is srtpu's XLA route, "
+            f"which is not ported (ROADMAP.md F14, queue 1 item {item}); "
+            f"the port runs use_pallas='cs'")
+
+
 class WNConv2d(nn.Module):
     """Weight-normed 'same' k x k conv (srtpu ``WNConv2d``,
     srtpu/models/common.py:142-188): parameters ``v`` (HWIO), ``g``

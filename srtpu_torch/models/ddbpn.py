@@ -37,7 +37,7 @@ from torch import nn
 from ..ops import conv3x3
 from ..ops.ddbpn import _PROJ_PARAMS, down_mask, final_mask, up_mask
 from ..ops.layout import b_phase_dense, pm_to_nhwc
-from .common import Conv2d, mean_shift, prelu, uniform_param
+from .common import Conv2d, mean_shift, only_cs, prelu, uniform_param
 
 
 def _alpha(n: int, device) -> nn.Parameter:
@@ -120,7 +120,8 @@ class DDBPN(nn.Module):
     per HR block with CO = 16 * ceil(r*r*channels / 16), and out_bias
     (channels,). The live-tap masks are buffers (not saved). ``device``
     places them; ``generator`` (a CPU ``torch.Generator``) draws the
-    parameters at srtpu's init bounds."""
+    parameters at srtpu's init bounds. ``use_pallas``: srtpu's, 'cs'
+    alone (any other value raises, F14)."""
 
     GLOBAL_POOLING = False
     # Scales the card runs: srtpu's kernel path covers x2 and x4; at x8 it
@@ -129,9 +130,11 @@ class DDBPN(nn.Module):
 
     def __init__(self, scale_factor: int = 4, channels: int = 3,
                  n0: int = 128, nr: int = 32, depth: int = 6,
+                 use_pallas: bool | str = 'cs',
                  dtype: torch.dtype | None = None, *, device=None,
                  generator: torch.Generator):
         super().__init__()
+        only_cs('DDBPN', use_pallas, 21)
         if scale_factor not in _PROJ_PARAMS:
             raise ValueError(f'DDBPN scale must be 2, 4 or 8, got '
                              f'{scale_factor}')

@@ -34,7 +34,7 @@ import torch
 from torch import nn
 
 from ..ops import conv3x3, rdn_trunk
-from .common import Conv2d, UpscaleBlock, uniform_param
+from .common import Conv2d, UpscaleBlock, only_cs, uniform_param
 
 RDN_CONFIGS = {
     'A': (20, 6, 32),
@@ -59,16 +59,19 @@ class RDN(nn.Module):
     lff_weight (D, c_tot, G0) and lff_bias (D, G0); gff1_weight (D G0,
     G0) and gff1_bias; gff2_weight (3, 3, G0, G0) and gff2_bias;
     upscale (UpscaleBlock) and final (Conv2d). ``device`` places them;
-    ``generator`` (a CPU ``torch.Generator``) draws them."""
+    ``generator`` (a CPU ``torch.Generator``) draws them. ``use_pallas``:
+    srtpu's, 'cs' alone (any other value raises, F14)."""
 
     # Scales the card runs: the tail is cuDNN, so every RDN scale.
     CARD_SCALES = (2, 3, 4)
 
     def __init__(self, scale_factor: int = 4, channels: int = 3,
                  rdn_config: str = 'B', growth0: int = 64,
+                 use_pallas: bool | str = 'cs',
                  dtype: torch.dtype | None = None, *, device=None,
                  generator: torch.Generator):
         super().__init__()
+        only_cs('RDN', use_pallas, 12)
         if scale_factor not in self.CARD_SCALES:
             raise ValueError('RDN scale must be 2, 3 or 4.')
         d, c, g = RDN_CONFIGS[rdn_config]

@@ -3,16 +3,17 @@ strided conv discriminator (srtpu/models/srgan.py). The flagship
 configuration is SRGAN x4: ngf = ndf = 64, 16 blocks, bf16 compute on f32
 parameters, trained adversarially (:mod:`srtpu_torch.train.gan`).
 
-One route on the card, whatever ``use_pallas`` says: in train mode the
-generator's 16 BN blocks and closing conv + BN run K4r (K4 with REFLECT
-boundaries, :class:`~srtpu_torch.models.common.BNTrunk` with
-``reflect=True``); in eval mode they run reflect-padded stock convs on
-the running statistics, as srtpu runs eval on XLA. srtpu's default,
-``use_pallas=False``, runs its trunk on XLA; ``'cs'`` reaches its Pallas
-K4r. ``use_pallas`` stays a key the CLI and the converter accept: both of
-srtpu's trees load into the one stacked trunk. The 9x9 head and output
-convs, the upscaler and the discriminator are stock PyTorch (cuDNN on
-the card), as srtpu leaves them to XLA.
+The generator's trunk (16 BN blocks, the closing conv + BN, the skip)
+follows srtpu's ``use_pallas`` in train mode: ``'cs'`` runs K4r (K4 with
+REFLECT boundaries, :class:`~srtpu_torch.models.common.BNTrunk` with
+``reflect=True``), as srtpu's Pallas trunk; srtpu's default, ``False``
+(and ``True``, which srtpu's generator treats alike), runs srtpu's XLA
+blocks in stock ops (:func:`xla_trunk`: reflect-padded convs, flax's
+batch norm, PReLU, with srtpu's roundings). In eval mode both run
+reflect-padded stock convs on the running statistics, as srtpu runs eval
+on XLA. Both of srtpu's trees load into the one stacked trunk. The 9x9
+head and output convs, the upscaler and the discriminator are stock
+PyTorch (cuDNN on the card), as srtpu leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import BNTrunk, Conv2d, PReLU, UpscaleBlock
+from .common import BNTrunk, Conv2d, PReLU, UpscaleBlock, _conv, prelu
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
@@ -33,15 +34,34 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
     return F.leaky_relu(x, float(torch.tensor(slope, dtype=x.dtype)))
 
 
+MOMENTUM, EPS = 0.9, 1e-5     # flax nn.BatchNorm(momentum=0.9, epsilon=1e-5)
+
+
+def batch_norm(x: torch.Tensor, scale, bias, mean, var,
+               training: bool) -> torch.Tensor:
+    """flax 0.12 ``nn.BatchNorm`` on NHWC x: in training, the batch's mean
+    and E[x^2] - mean^2 (clamped at 0) in f32, and the running statistics
+    ``mean``, ``var`` (updated in place) move ra <- 0.9 ra + 0.1 batch
+    with that biased variance; else those running statistics. y = (x -
+    mean) * (scale * rsqrt(var + 1e-5)) + bias in f32, rounded to x's
+    dtype once."""
+    xf = x.float()
+    if training:
+        dims = tuple(range(x.dim() - 1))
+        bm = xf.mean(dims)
+        bv = ((xf * xf).mean(dims) - bm * bm).clamp_min(0.0)
+        with torch.no_grad():
+            mean.copy_(MOMENTUM * mean + (1 - MOMENTUM) * bm)
+            var.copy_(MOMENTUM * var + (1 - MOMENTUM) * bv)
+        mean, var = bm, bv
+    y = (xf - mean) * (scale * torch.rsqrt(var + EPS))
+    return (y + bias).to(x.dtype)
+
+
 class BatchNorm(nn.Module):
     """flax 0.12 ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` on NHWC, not
-    ``nn.BatchNorm2d``: in train mode the mean and E[x^2] - mean^2
-    (clamped at 0) of the batch in f32, and the running statistics move
-    ra <- 0.9 ra + 0.1 batch with that biased variance; y = (x - mean) *
-    (scale * rsqrt(var + 1e-5)) + bias in f32, rounded to x's dtype once.
-    Eval mode reads the running statistics (buffers ``mean``, ``var``)."""
-
-    MOMENTUM, EPS = 0.9, 1e-5
+    ``nn.BatchNorm2d`` (:func:`batch_norm`). Eval mode reads the running
+    statistics (buffers ``mean``, ``var``)."""
 
     def __init__(self, n: int, *, device=None):
         super().__init__()
@@ -51,19 +71,34 @@ class BatchNorm(nn.Module):
         self.register_buffer('var', torch.ones(n, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        if self.training:
-            dims = tuple(range(x.dim() - 1))
-            mean = xf.mean(dims)
-            var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
-            with torch.no_grad():
-                m = self.MOMENTUM
-                self.mean.copy_(m * self.mean + (1 - m) * mean)
-                self.var.copy_(m * self.var + (1 - m) * var)
-        else:
-            mean, var = self.mean, self.var
-        y = (xf - mean) * (self.scale * torch.rsqrt(var + self.EPS))
-        return (y + self.bias).to(x.dtype)
+        return batch_norm(x, self.scale, self.bias, self.mean, self.var,
+                          self.training)
+
+
+def xla_trunk(trunk: BNTrunk, x: torch.Tensor, dtype) -> torch.Tensor:
+    """srtpu ``SRGANGenerator``'s trunk in train mode off its 'cs' route
+    (srtpu/models/srgan.py:81-89, ``_SRGANBlock`` :25), in stock ops on
+    ``trunk``'s stacked parameters: per block a reflect-padded 3x3 conv
+    (srtpu's ``Conv2d``: the conv rounds to ``dtype``, then the bias in
+    ``dtype`` is added), :func:`batch_norm` on the batch statistics
+    (moving block i's running statistics), PReLU (the slope in x's
+    dtype), the second conv and batch norm, and the skip x + res in
+    ``dtype``; then the closing conv + batch norm and the global skip. No
+    kernel of the port runs here."""
+    xd = x.to(dtype)
+    res = xd
+    for i, (w1, b1, ga1, be1, alpha, w2, b2, ga2, be2) in enumerate(
+            trunk._blocks()):
+        h = batch_norm(_conv(res, w1, b1, dtype, reflect=True), ga1, be1,
+                       trunk.mean1[i], trunk.var1[i], True)
+        h = batch_norm(_conv(prelu(h, alpha), w2, b2, dtype, reflect=True),
+                       ga2, be2, trunk.mean2[i], trunk.var2[i], True)
+        res = res + h
+    h = batch_norm(_conv(res, trunk.close_w, trunk.close_b, dtype,
+                         reflect=True), trunk.close_bn_scale,
+                   trunk.close_bn_bias, trunk.mean_close, trunk.var_close,
+                   True)
+    return xd + h
 
 
 class SRGANGenerator(nn.Module):
@@ -71,14 +106,15 @@ class SRGANGenerator(nn.Module):
     PReLU; the reflect BN trunk (n_blocks blocks, the closing conv + BN,
     the global skip); the PReLU sub-pixel upscaler; reflect pad 4 + 9x9
     output conv ngf -> channels; (tanh + 1) / 2. NHWC in, NHWC out in
-    ``dtype`` (the input's when None)."""
+    ``dtype`` (the input's when None). ``use_pallas``: srtpu's; in train
+    mode 'cs' runs K4r, any other value :func:`xla_trunk`."""
 
     def __init__(self, scale_factor: int = 4, channels: int = 3,
                  ngf: int = 64, n_blocks: int = 16,
                  dtype: torch.dtype | None = None, *, device=None,
-                 generator: torch.Generator):
+                 generator: torch.Generator, use_pallas=False):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.use_pallas = dtype, use_pallas
         kw = dict(device=device, generator=generator)
         self.head = Conv2d(channels, ngf, 9, padding='reflect', **kw)
         self.head_act = PReLU(device=device)
@@ -89,7 +125,10 @@ class SRGANGenerator(nn.Module):
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         dtype = self.dtype or x.dtype
         x = self.head_act(self.head(x, dtype))
-        x = self.trunk(x, dtype, plain)
+        if self.training and self.use_pallas != 'cs':
+            x = xla_trunk(self.trunk, x, dtype)
+        else:
+            x = self.trunk(x, dtype, plain)
         x = self.out(self.upscale(x, dtype), dtype)
         return (torch.tanh(x) + 1.0) / 2.0
 
@@ -135,8 +174,8 @@ class SRGAN(nn.Module):
     ``Trainer.fit`` trains it adversarially. The constructor's
     ``generator`` is the CPU ``torch.Generator`` that draws the weights
     (the generator's first, then the discriminator's). ``use_pallas``
-    (srtpu's False, True or 'cs') selects nothing here (see the module
-    note)."""
+    (srtpu's False, True or 'cs') picks the generator's trunk in train
+    mode (see the module note)."""
 
     # eval-mode batch norm is per pixel (running statistics)
     GLOBAL_POOLING = False
@@ -154,7 +193,8 @@ class SRGAN(nn.Module):
         self.dtype = dtype
         kw = dict(device=device, generator=generator)
         self.generator = SRGANGenerator(scale_factor, channels, ngf,
-                                        n_blocks, dtype, **kw)
+                                        n_blocks, dtype, use_pallas=use_pallas,
+                                        **kw)
         self.discriminator = SRGANDiscriminator(ndf, channels, dtype, **kw)
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:

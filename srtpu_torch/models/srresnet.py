@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .common import BNTrunk, Conv2d, PReLU, UpscaleTail
+from .common import BNTrunk, Conv2d, PReLU, UpscaleTail, only_cs
 
 
 class SRResNet(nn.Module):
@@ -19,7 +19,8 @@ class SRResNet(nn.Module):
     dtype when None). ``device`` places the parameters; ``generator`` (a
     CPU ``torch.Generator``) draws them. Batch norm follows the module's
     mode: ``train()`` normalises with batch statistics and updates the
-    running ones, ``eval()`` reads the running ones (srtpu's ``train``)."""
+    running ones, ``eval()`` reads the running ones (srtpu's ``train``).
+    ``use_pallas``: srtpu's, 'cs' alone (any other value raises, F14)."""
 
     # Eval-mode batch norm is per pixel (running statistics), so a padded
     # or tiled image gives the same values on its real pixels.
@@ -30,9 +31,11 @@ class SRResNet(nn.Module):
 
     def __init__(self, scale_factor: int = 4, channels: int = 3,
                  n_feats: int = 64, n_resblocks: int = 16,
+                 use_pallas: bool | str = 'cs',
                  dtype: torch.dtype | None = None, *, device=None,
                  generator: torch.Generator):
         super().__init__()
+        only_cs('SRResNet', use_pallas, 20)
         self.scale_factor = scale_factor
         self.channels = channels
         self.dtype = dtype

@@ -15,12 +15,15 @@ Routes, as srtpu's ``use_pallas``:
 * ``False`` (srtpu's default): every conv is a stock weight-normed conv
   (``WNConv2d``: cuDNN on the card, as XLA in srtpu);
 * ``'cs'``, block B: each block's weight norm is taken in f32 under
-  autograd and K7 runs the block (``ops.wdsr.wdsr_block``). srtpu runs
+  autograd, the blocks' weights are stacked, and K7 runs the whole trunk
+  in one call each way (``ops.wdsr.wdsr_trunk``). srtpu runs
   its XLA fallback on the same parameters where its VMEM plan fails
   (every predict size above about 32x32 LR) or its width gate does
   (n_feats % 64 != 0); that limit is VMEM, not math, so on the card K7
   runs at every size and every width it takes (C a multiple of 16 up to
-  128). Block A with ``'cs'`` runs its stock convs, as srtpu does;
+  128, run zero-padded to the kernels' 64 or 128; others raise on the
+  card, ROADMAP.md F4). Block A with ``'cs'`` runs its
+  stock convs, as srtpu does;
 * ``True``, block B: srtpu's fused NHWC block (``_BlockB._fused``):
   each block's weight norm in f32 under autograd, then K8c, which keeps
   the expanded activation and the bottleneck in f32 (``ops.wdsr_block``;
@@ -29,7 +32,8 @@ Routes, as srtpu's ``use_pallas``:
   cast weights' bf16). srtpu's VMEM gate ``wdsr_block_fits`` fails at its
   own 128 features even at LR 32x32 and sends the block to its XLA
   reference, the same f32 function; K8c runs at every size here (C a
-  multiple of 16 up to 128; others raise on the card, ROADMAP.md F4).
+  multiple of 16 up to 128, padded as K7's; others raise on the card,
+  ROADMAP.md F4).
   Block A ignores the flag, as srtpu's does.
 
 Every route stores the same parameters: per conv ``v``, ``g`` and
@@ -43,7 +47,7 @@ import torch
 from torch import nn
 
 from ..ops.layout import pixel_shuffle
-from ..ops.wdsr import wdsr_block
+from ..ops.wdsr import wdsr_trunk
 from ..ops.wdsr_block import wdsr_block_fused
 from .common import DIV2K_RGB_MEAN, WNConv2d
 
@@ -63,25 +67,29 @@ class _BlockA(nn.Module):
 
 
 class _BlockB(nn.Module):
-    """``kernel``: K7 (the 'cs' route); ``fused``: K8c (True); neither:
-    stock convs."""
+    """``fused``: K8c (True); else stock convs. The 'cs' route's K7 runs
+    all blocks at once (:class:`WDSR`, on :meth:`weights`)."""
 
     def __init__(self, n: int, res_scale: float, use_pallas: bool | str,
                  **kw):
         super().__init__()
         self.res_scale = res_scale
-        self.kernel, self.fused = use_pallas == 'cs', use_pallas is True
+        self.fused = use_pallas is True
         self.expand = WNConv2d(n, n * EXPAND, 1, **kw)
         self.linear = WNConv2d(n * EXPAND, int(n * LINEAR), 1, **kw)
         self.conv = WNConv2d(int(n * LINEAR), n, 3, **kw)
 
+    def weights(self) -> tuple:
+        """The weight-normed f32 operands (w1 (C, e), b1, w2 (e, L), b2, w3
+        (3, 3, L, C), b3), differentiable in v, g and the biases."""
+        return (self.expand.weight()[0, 0], self.expand.bias,
+                self.linear.weight()[0, 0], self.linear.bias,
+                self.conv.weight(), self.conv.bias)
+
     def forward(self, x, dtype, plain: bool = False):
-        if self.kernel or self.fused:
-            op = wdsr_block if self.kernel else wdsr_block_fused
-            return op(x, self.expand.weight()[0, 0], self.expand.bias,
-                      self.linear.weight()[0, 0], self.linear.bias,
-                      self.conv.weight(), self.conv.bias, self.res_scale,
-                      plain)
+        if self.fused:
+            return wdsr_block_fused(x, *self.weights(), self.res_scale,
+                                    plain)
         res = torch.relu(self.expand(x, dtype))
         res = self.conv(self.linear(res, dtype), dtype)
         return res * self.res_scale + x
@@ -124,6 +132,9 @@ class WDSR(nn.Module):
             else _BlockB(n_feats, res_scale, use_pallas, **kw)
             for _ in range(n_resblocks))
         self.tail = WNConv2d(n_feats, out, 3, **kw)
+        self.kernel_trunk = (block_type == 'B' and use_pallas == 'cs'
+                             and n_resblocks > 0)
+        self.res_scale = res_scale
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """``plain=True`` runs K7's or K8c's plain PyTorch version
@@ -139,8 +150,14 @@ class WDSR(nn.Module):
         # cuDNN may hand the head's output back in NCHW memory (a permuted
         # view); K7 and K8c read dense NHWC
         y = self.head(x, dtype).contiguous()
-        for blk in self.blocks:
-            y = blk(y, dtype, plain)
+        if self.kernel_trunk:
+            # the 'cs' route: K7 over the stacked blocks, one call each way
+            stacked = [torch.stack(t) for t in
+                       zip(*(blk.weights() for blk in self.blocks))]
+            y = wdsr_trunk(y, *stacked, self.res_scale, plain)
+        else:
+            for blk in self.blocks:
+                y = blk(y, dtype, plain)
         y = pixel_shuffle(self.tail(y, dtype), r) + s
         return y + mean if self.channels == 3 else y
 

@@ -7,7 +7,8 @@ its convs on K2's engine, the counterpart of srtpu's mega trunk and of its per-b
 / ``rcab_bwd`` (one RCAB; ``rcab.group_fwd`` / ``group_chain`` a
 residual group's RCABs in one call), K6 ``rdn_fwd`` / ``rdb_bwd_chain`` / ``rdb_bwd_dw``
 (RDN's dense blocks, all D or one per call), K7 ``wdsr_fwd`` /
-``wdsr_bwd`` (WDSR-B's block, in :mod:`.wdsr`), K8 (srtpu's
+``wdsr_bwd`` (WDSR-B's block, in :mod:`.wdsr`; ``wdsr_trunk_fwd`` /
+``wdsr_trunk_bwd`` its trunk in one host call each way), K8 (srtpu's
 ``use_pallas=True`` forms): K8a ``resblock_fused_fwd`` (EDSR's block)
 with K9d ``resblock_bwd_fused`` (its fused backward), K8b
 ``ca_layer_fwd`` (RCAN's attention gate), K8c ``wdsr_block_fused_fwd``
@@ -17,7 +18,8 @@ kernel ``conv_wgrad``. The differentiable ops: ``trunk``,
 ``upsample``, ``bn_resblock``, ``bn_close``, ``resgroup``, ``rdn_trunk``
 and, in :mod:`.rdn`, ``rdn_trunk_calls`` (srtpu's per-block 'calls'
 trunk on K6) and ``rdn_trunk_layers`` (srtpu's round-2 trunk, one K2
-launch per dense layer), ``wdsr.wdsr_block``, ``resblock_fused``,
+launch per dense layer), ``wdsr.wdsr_trunk`` (and ``wdsr.wdsr_block``,
+one block of it), ``resblock_fused``,
 ``resblock_fused_v3`` (K8a forward, K9d backward), ``ca_gate`` and
 ``wdsr_block.wdsr_block_fused``. ``trunk.trunk_xla`` is srtpu's XLA
 trunk past 96 features (stock ops), ``rcab.resgroup_xla`` its RCAN

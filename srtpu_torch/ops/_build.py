@@ -49,8 +49,8 @@ SIGNATURES = {
     'srt_rdb_bwd_chain': [_P] * 3 + [_I] * 2 + [_P] * 12 + [_I] * 6 + [_P],
     'srt_rdb_bwd_dw': [_P] * 4 + [_I] * 6 + [_P],
     'srt_rdn_conv': [_P, _I, _P, _I, _P, _P] + [_I] * 7 + [_P],
-    'srt_wdsr_fwd': [_P] * 7 + [_F] + [_P] * 2 + [_I] * 6 + [_P],
-    'srt_wdsr_bwd': [_P] * 7 + [_F] + [_P] * 5 + [_I] * 7 + [_P],
+    'srt_wdsr_trunk_fwd': [_P] * 7 + [_F] + [_P] * 3 + [_I] * 8 + [_P],
+    'srt_wdsr_trunk_bwd': [_P] * 7 + [_F] + [_P] * 16 + [_I] * 13 + [_P],
     'srt_resblock_f32_fwd': [_P] * 5 + [_F] + [_P] * 2 + [_I] * 4 + [_P],
     'srt_ca_layer_fwd': [_P] * 7 + [_I] * 5 + [_P],
     'srt_wdsr_block_fwd': [_P] * 7 + [_F] + [_P] * 2 + [_I] * 6 + [_P],
@@ -150,6 +150,11 @@ def expect(t, name: str, dtype, shape, device, aligned: bool = True) -> None:
                          f'{tuple(shape)}')
     if not t.is_contiguous() or (aligned and t.data_ptr() % 16):
         raise ValueError(f'{name} must be contiguous and 16-byte aligned')
+
+
+def ptr(t) -> int | None:
+    """A tensor's data pointer, or None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
 
 
 def on(device):

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._build import ptr
 from .conv import conv_f32
 from .layout import reflect_fold, w_t
 from .wgrad import conv_wgrad, conv_wgrad_plain
@@ -288,10 +289,6 @@ def _f32(*shape, dev):
     return torch.empty(shape, dtype=torch.float32, device=dev)
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
 def _conv_stats(x, st_in, alpha, w, b, gamma, beta, reflect, name):
     _check(name, x, reflect)
     dev, c = x.device, 64
@@ -306,9 +303,9 @@ def _conv_stats(x, st_in, alpha, w, b, gamma, beta, reflect, name):
     bsz, hh, ww, _ = x.shape
     with torch.cuda.device(dev):
         err = _build.library().srt_bn_conv_stats(
-            x.data_ptr(), _ptr(st_in), _ptr(alpha), w.data_ptr(),
+            x.data_ptr(), ptr(st_in), ptr(alpha), w.data_ptr(),
             b.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-            _ptr(h), part.data_ptr(), st.data_ptr(), bsz, hh, ww,
+            ptr(h), part.data_ptr(), st.data_ptr(), bsz, hh, ww,
             int(reflect), _build.stream(dev))
     _build.check(err, 'srt_bn_conv_stats')
     return y, h, st
@@ -400,8 +397,8 @@ def _bwd_conv(g, y, st, gamma, sums, w, y1, st1, alpha, skip, reflect,
         err = _build.library().srt_bn_bwd_conv(
             g.data_ptr(), y.data_ptr(), st.data_ptr(), gamma.data_ptr(),
             sums.data_ptr(), wt.data_ptr(), dy.data_ptr(), out.data_ptr(),
-            _ptr(y1), _ptr(st1), _ptr(alpha), _ptr(skip), part.data_ptr(),
-            red.data_ptr(), _ptr(dal), _ptr(ring), bsz, hh, ww, int(reflect),
+            ptr(y1), ptr(st1), ptr(alpha), ptr(skip), part.data_ptr(),
+            red.data_ptr(), ptr(dal), ptr(ring), bsz, hh, ww, int(reflect),
             _build.stream(dev))
     _build.check(err, 'srt_bn_bwd_conv')
     return out, dy, red, dal

@@ -87,6 +87,11 @@
 // K1 (trunk.cu) runs EDSR's resblock on it the same way: conv1 K2's own
 // instance, conv2 at EPI 6 (ParamsK1: out = bf16(f32(x) + res_scale *
 // (sums + bias)), the scaled skip), the dx chain at K5's EPI 5 forms.
+//
+// K7 (wdsr.cu) runs WDSR-B's 3x3 at EPI 8 (K1's EPI 6 math) and its dh2
+// at EPI 7 (TB; K5's EPI 4 partials, storing bf16 dh2 alone), at K2's
+// plan for 128 -> 128 (two atoms of 64) or 64 -> 64: NAT atoms at pixel
+// stride cout (ParamsK7).
 #pragma once
 
 #include "sm90.cuh"
@@ -174,6 +179,12 @@ struct ParamsK1 : Params {
   TrunkEpi k1;
 };
 
+// K7's epilogues (EPI 7: dh2, r2 and part of k5; EPI 8: the skip, k1's).
+struct ParamsK7 : Params {
+  RcabEpi k5;
+  TrunkEpi k1;
+};
+
 template <int EPI>
 struct ParamsFor {
   typedef ParamsK6 type;
@@ -194,15 +205,24 @@ template <>
 struct ParamsFor<6> {
   typedef ParamsK1 type;
 };
+template <>
+struct ParamsFor<7> {
+  typedef ParamsK7 type;
+};
+template <>
+struct ParamsFor<8> {
+  typedef ParamsK7 type;
+};
 
 // K6's epilogues: runtime pixel strides and weights in pairs.
 __host__ __device__ constexpr bool k6_epi(int epi) {
   return epi >= 1 && epi <= 3;
 }
-// Shared memory an epilogue adds after the barriers: the 2 KB of warp sums
-// of those that sum over a tile's pixels (EPI 2's db, EPI 4's pool).
-__host__ __device__ constexpr int red_bytes(int epi) {
-  return epi == 2 || epi == 4 ? 2048 : 0;
+// Shared memory an epilogue adds after the barriers: the warp sums of
+// those that sum over a tile's pixels (EPI 2's db and EPI 4's pool, 64
+// channels; EPI 7's db2, the block's bn), 8 warps of them.
+__host__ __device__ constexpr int red_bytes(int epi, int bn) {
+  return epi == 2 || epi == 4 ? 2048 : epi == 7 ? 32 * bn : 0;
 }
 
 // K6's chain epilogue (EPI 2; ChainEpi says what it writes). acc: the
@@ -435,6 +455,96 @@ __device__ __forceinline__ void trunk_epilogue(float (&acc)[1][32],
       *reinterpret_cast<__nv_bfloat162*>(p.out + o + 8 * j) =
           __floats2bfloat162_rn(__fadd_rn(__fmul_rn(v0, e.scale), r.x),
                                 __fadd_rn(__fmul_rn(v1, e.scale), r.y));
+    }
+  }
+}
+
+// K7's epilogues (EPI 7, 8; wdsr.cu), K5's EPI 4 and K1's EPI 6 at any
+// width: NAT atoms of 64 channels from n0 at pixel stride cout, registers
+// as rcab_epilogue's. EPI 7 (TB, the backward's dh2): r2 = bf16(sums)
+// and each tile's per-channel f32 sum of the sums (db2's partials, in
+// rcab_epilogue's order; pixels outside the image left out), no bias;
+// EPI 8: out = bf16(f32(res) + scale * (sums + bias)), mul then add, as
+// K1's. red: red_bytes(7, BN) of shared memory for the warp sums.
+template <int EPI, int NA, int NAT>
+__device__ __forceinline__ void k7_epilogue(float (&acc)[NAT][NA / 2],
+                                            const ParamsK7& p, float* red,
+                                            int warp, int lane, int b,
+                                            int y0, int x0, int n0,
+                                            int gtile) {
+  static_assert(NA == 64, "atoms of 64 channels");
+  constexpr int J = 8, BN = NA * NAT;
+  const int gy = y0 + warp, cl = 2 * (lane & 3);
+  float psum[NAT][J][2];
+#pragma unroll
+  for (int at = 0; at < NAT; ++at)
+#pragma unroll
+    for (int j = 0; j < J; ++j) psum[at][j][0] = psum[at][j][1] = 0.0f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gx = x0 + (lane >> 2) + 8 * h;
+    if (gy >= p.H || gx >= p.W) continue;
+    const size_t pix = ((size_t)b * p.H + gy) * p.W + gx;
+#pragma unroll
+    for (int at = 0; at < NAT; ++at) {
+      const int c0 = n0 + at * NA + cl;
+      const size_t o = pix * p.cout + c0;
+      if constexpr (EPI == 7) {
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const float v0 = acc[at][4 * j + 2 * h];
+          const float v1 = acc[at][4 * j + 2 * h + 1];
+          *reinterpret_cast<__nv_bfloat162*>(p.k5.r2 + o + 8 * j) =
+              __floats2bfloat162_rn(v0, v1);
+          psum[at][j][0] += v0;
+          psum[at][j][1] += v1;
+        }
+      } else {
+        // the pixel's operand loads together, then its stores
+        __nv_bfloat162 t[J];
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+          t[j] = *reinterpret_cast<const __nv_bfloat162*>(p.k1.res + o +
+                                                          8 * j);
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const float2 r = __bfloat1622float2(t[j]);
+          const float v0 =
+              acc[at][4 * j + 2 * h] + __ldg(p.bias + c0 + 8 * j);
+          const float v1 =
+              acc[at][4 * j + 2 * h + 1] + __ldg(p.bias + c0 + 8 * j + 1);
+          *reinterpret_cast<__nv_bfloat162*>(p.out + o + 8 * j) =
+              __floats2bfloat162_rn(
+                  __fadd_rn(__fmul_rn(v0, p.k1.scale), r.x),
+                  __fadd_rn(__fmul_rn(v1, p.k1.scale), r.y));
+        }
+      }
+    }
+  }
+  if constexpr (EPI == 7) {
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1)
+#pragma unroll
+      for (int at = 0; at < NAT; ++at)
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          psum[at][j][0] += __shfl_xor_sync(0xffffffffu, psum[at][j][0], o);
+          psum[at][j][1] += __shfl_xor_sync(0xffffffffu, psum[at][j][1], o);
+        }
+    if (lane < 4)
+#pragma unroll
+      for (int at = 0; at < NAT; ++at)
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          red[warp * BN + at * NA + 8 * j + 2 * lane] = psum[at][j][0];
+          red[warp * BN + at * NA + 8 * j + 2 * lane + 1] = psum[at][j][1];
+        }
+    asm volatile("bar.sync 1, %0;" ::"n"(4 * kConsumers * 32) : "memory");
+    if (threadIdx.x < BN) {
+      float sum = red[threadIdx.x];
+#pragma unroll
+      for (int w = 1; w < 4 * kConsumers; ++w) sum += red[w * BN + threadIdx.x];
+      p.k5.part[(size_t)gtile * p.cout + n0 + threadIdx.x] = sum;
     }
   }
 }
@@ -689,6 +799,15 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NA * NAT, NKS))
     trunk_epilogue(acc, p, warp, lane, b, y0, x0);
     return;
   }
+  if constexpr (EPI == 7 || EPI == 8) {
+    static_assert(SPLIT == 1, "K7's sums are whole");
+    const uint32_t red = b_empty.bar + 8u * p.sb;
+    k7_epilogue<EPI, NA, NAT>(
+        acc, p,
+        reinterpret_cast<float*>(smem_raw + (red - smem_u32(smem_raw))),
+        warp, lane, b, y0, x0, n0, b * (int)(gridDim.x / p.ntiles) + tile);
+    return;
+  }
 
   // Epilogue: register d[4 j + 2 h + e] of an atom is pixel column
   // lane / 4 + 8 h, channel 8 j + 2 (lane % 4) + e.
@@ -796,7 +915,7 @@ cudaError_t launch(const ConvArgs& a, cudaStream_t stream) {
   const int sa = cin / KC < 2 ? cin / KC : 2;
   // EPI 2, 4: the tile sums' warp sums after the barriers
   const int fixed = 1024 + sa * (int)align1024(a_bytes) + 16 * (sa + 8) +
-                    red_bytes(EPI);
+                    red_bytes(EPI, BN);
   // B stages of a row of k taps, two of them beside A, in the shared
   // memory of as many blocks an SM as the registers allow (looked up once
   // for this instance) or as fewer blocks make room for (rows of taps
@@ -886,10 +1005,10 @@ cudaError_t launch(const ConvArgs& a, cudaStream_t stream) {
     p.o2ps = a.o2ps;
     p.ch = a.ch;
   }
-  if constexpr (EPI == 4 || EPI == 5) p.k5 = a.k5;
-  if constexpr (EPI == 6) p.k1 = a.k1;
+  if constexpr (EPI == 4 || EPI == 5 || EPI >= 7) p.k5 = a.k5;
+  if constexpr (EPI == 6 || EPI >= 7) p.k1 = a.k1;
   const int smem = 1024 + sa * p.a_stage + sb * p.b_stage + 16 * (sa + sb) +
-                   red_bytes(EPI);
+                   red_bytes(EPI, BN);
   if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
   // a split's partial sums land in block 0's rings: 256 threads x BN / 2
   // f32 from each other block
@@ -1003,6 +1122,21 @@ cudaError_t run_3x3_64(const ConvArgs& a, cudaStream_t s) {
   if (!takes(a) || a.cin != 64 || a.cout != 64 || a.kk != 3)
     return cudaErrorInvalidValue;
   return launch<64, 1, 4, 1, TB, EPI>(a, s);
+}
+
+// K7's and K8c's launches (wdsr.cu), 3x3 on one HWIO weight: EPI 8, the
+// block's 3x3 to C with the bias, res_scale and the skip; EPI 7 with TB,
+// dh2 = convT(gs; W3) stored as bf16 with its per-tile channel sums. cin
+// a multiple of 64 (K8c's [hi | lo] reads 2 C), cout 64 or 128: K2's
+// plan for those classes (N = cout in atoms of 64, 64-channel slices, no
+// split).
+template <bool TB, int EPI>
+cudaError_t run_3x3_wide(const ConvArgs& a, cudaStream_t s) {
+  static_assert(EPI == 7 || EPI == 8, "K7's epilogues");
+  if (!takes(a) || a.cin % 64 || a.kk != 3) return cudaErrorInvalidValue;
+  if (a.cout == 128) return launch<64, 2, 4, 1, TB, EPI>(a, s);
+  if (a.cout == 64) return launch<64, 1, 4, 1, TB, EPI>(a, s);
+  return cudaErrorInvalidValue;
 }
 
 // K2: x (B, H, W, cin) and w (k, k, cin, cout) HWIO, k = 3 or 5, out (B,

@@ -5,13 +5,13 @@
 //    phase (i / n) & 1 of its barrier; a producer waits on the other
 //    parity of the stage's "empty" barrier for the previous use to be
 //    released;
-//  - TMA tile loads (cp.async.bulk.tensor, 3-5 dims) completing on an
+//  - TMA tile loads (cp.async.bulk.tensor, 2-5 dims) completing on an
 //    mbarrier, and the host's tensor-map encoder, taken through
 //    cudaGetDriverEntryPoint (no -lcuda);
 //  - ldmatrix (plain and transposed) into wgmma's register A operand at
 //    the swizzled offsets TMA leaves, and wgmma m64nNk16 (N = 16, 32, 64)
 //    bf16 -> f32 with B read from shared memory through a descriptor,
-//    N-major or K-major;
+//    N-major or K-major (and at N = 64 A through one too, K-major);
 //  - 16-byte packs of 8 bf16 to f32 and back, for elementwise passes.
 #pragma once
 
@@ -61,6 +61,16 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
 }
 
 __device__ __forceinline__ void tma_load_4d(uint32_t dst,
@@ -175,6 +185,31 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32],
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
         "n"(TRANSB));
+}
+
+// D[64 x 64] += A (shared memory, K-major, through a descriptor) * B
+// (shared memory; TRANSB 1: N-major, 0: K-major): the SS form, A read by
+// the tensor cores straight from the tile TMA left (K7's chained
+// kernels, wdsr.cu).
+template <int TRANSB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t adesc,
+                                             uint64_t bdesc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(adesc), "l"(bdesc), "r"(1), "n"(TRANSB));
 }
 
 template <int NA, bool TB>

@@ -178,3 +178,13 @@ extern "C" int srt_trunk_chain(const void* h1, const void* g, const void* w1,
   }
   return 0;
 }
+
+// gs = bf16(scale * f32(g)) over n bf16 values (a multiple of 8): the
+// chain's gs pass, which K7's backward (wdsr.cu) runs as well. Returns a
+// cudaError_t.
+extern "C" int srt_gs_pass(const void* g, float scale, void* gs, long long n,
+                           void* stream) {
+  return (int)gs_pass(static_cast<const bf16*>(g), scale,
+                      static_cast<bf16*>(gs), n / 8,
+                      static_cast<cudaStream_t>(stream));
+}

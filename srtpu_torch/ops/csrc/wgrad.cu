@@ -79,11 +79,17 @@
 //
 // K6's weight grads (rdn.cu) run here too: X may be a channel prefix of a
 // wider tensor (its pixel stride apart from its channels); k = 1 (the
-// fusion's dwf, M = one 64-channel chunk a block); and the pairs mode,
+// fusion's dwf); and the pairs mode,
 // the C (C + 1) / 2 (layer i, chunk j) 3x3 grads of a dense block as
 // jobs of 64 -> 64 in one launch, job i (i + 1) / 2 + j reading X's chunk
 // j (the block's buffer) against G's chunk i (the chain's dout) and
 // writing its own slot: rdn.py:pack's pair order.
+//
+// K7's dW1 and dW2 (wdsr.cu) run here at k = 1 too. At k = 1 a chunk of
+// A is 192 or 128 channels where they divide its channels (staged as
+// sub-tiles of 64), so the three consumer warpgroups each sum an M-tile
+// of their own, where a chunk of 64 (one M-tile) would leave two of them
+// summing tiles past M (K6's dwf and K7's).
 
 #include "wgrad.cuh"
 
@@ -111,6 +117,8 @@ struct WParams {
   int tiles_x, tiles_img, ntiles;   // tiles per image row, image, job
   int cin, cout;
   int ca, aw;           // A's channels; a chunk of them (one a block)
+  int nsub;             // a chunk's sub-tiles of AWP channels (k = 1: 1-3)
+  uint32_t a_sub;       // bytes: one sub-tile of a stage's A
   int mtiles, mgroups;  // M-tiles of a chunk; blocks of 3 MT over them
   int nchunks;          // N chunks
   int form_g;           // A = G (shifted by -tap), B = X
@@ -287,8 +295,15 @@ __global__ void __launch_bounds__(kThreads, 1)
           empty.wait_free(i);
           const uint32_t st = ring + (uint32_t)(i % p.stages) * p.stage;
           mbar_expect_tx(full.at(i), p.a_bytes + p.b_bytes);
-          tma_load_5d(st, &amap, full.at(i), xoff + cc * p.aw, x0 - h,
-                      y0 - h, b, tjob);
+          if constexpr (K6) {  // k = 1: a chunk of A may be sub-tiles
+            for (int q = 0; q < p.nsub; ++q)
+              tma_load_5d(st + q * p.a_sub, &amap, full.at(i),
+                          xoff + cc * p.aw + q * AWP, x0 - h, y0 - h, b,
+                          tjob);
+          } else {
+            tma_load_5d(st, &amap, full.at(i), xoff + cc * p.aw, x0 - h,
+                        y0 - h, b, tjob);
+          }
           if (p.gather) {
             const int ab = n0 / p.cg;  // the chunk's phase (a, b)
             tma_load_5d(st + p.a_region, &bmap, full.at(i),
@@ -393,7 +408,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       ty = p.kk - 1 - ty;
       tx = p.kk - 1 - tx;
     }
-    aoff[i] = (uint32_t)(ty * p.wx + ox + tx) * AROW + (uint32_t)(c >> 3) * 16;
+    if constexpr (K6)  // the row's sub-tile of A's chunk
+      aoff[i] = (uint32_t)(c / AWP) * p.a_sub +
+                (uint32_t)(ty * p.wx + ox + tx) * AROW +
+                (uint32_t)((c % AWP) >> 3) * 16;
+    else
+      aoff[i] =
+          (uint32_t)(ty * p.wx + ox + tx) * AROW + (uint32_t)(c >> 3) * 16;
 #pragma unroll
     for (int j = 0; j < NA / 2; ++j) acc[i][j] = 0.0f;
   }
@@ -675,8 +696,13 @@ cudaError_t wgrad(const WgradArgs& a, cudaStream_t s) {
   // A: the shifted tensor's tile and halo, aw channels a block; B: the
   // other's tile, NA channels
   p.ca = p.form_g ? cout : cin;
-  p.aw = p.ca <= 64 ? p.ca : 64;
+  // A in chunks of 64 channels; at k = 1 (one tap: a 64-channel chunk
+  // is one M-tile) of 192 or 128 where they divide it, so that the three
+  // consumer warpgroups each sum an M-tile of their own
+  p.aw = k == 1 ? (p.ca % 192 == 0 ? 192 : p.ca % 128 == 0 ? 128 : 64)
+                : (p.ca <= 64 ? p.ca : 64);
   const int awp = p.aw <= 16 ? 16 : p.aw <= 32 ? 32 : 64;
+  p.nsub = (p.aw + awp - 1) / awp;
   p.mtiles = (p.taps * p.aw + 63) / 64;
   // M-tiles a warpgroup keeps: as few as hold the chunk's, at most 3
   const int mt = p.mtiles >= 7 ? 3 : (p.mtiles + kWG - 1) / kWG;
@@ -688,7 +714,8 @@ cudaError_t wgrad(const WgradArgs& a, cudaStream_t s) {
                                                  : 16;
   p.nchunks = nb / na;
   const int ychunks = (p.ca + p.aw - 1) / p.aw * p.mgroups * p.nchunks;
-  p.a_bytes = (uint32_t)awp * 2 * p.wx * hx;
+  p.a_sub = align1024((uint32_t)awp * 2 * p.wx * hx);
+  p.a_bytes = (uint32_t)p.nsub * awp * 2 * p.wx * hx;
   p.b_bytes = (uint32_t)na * 2 * kTH * kTW;
   CUtensorMap amap, bmap;
   cudaError_t err =
@@ -703,9 +730,10 @@ cudaError_t wgrad(const WgradArgs& a, cudaStream_t s) {
               : encode_nhwc(&bmap, a.g, gch, gch, W, H, B, mj, gj, na, kTW,
                             kTH);
   if (err != cudaSuccess) return err;
-  p.a_region = align1024(p.a_bytes);
+  p.a_region = p.nsub * p.a_sub;
   p.stage = p.a_region + align1024(p.b_bytes);
-  if (ychunks > 65535) return cudaErrorInvalidValue;
+  if (ychunks > 65535 || (p.nsub > 1 && (p.ca % p.aw || !k6)))
+    return cudaErrorInvalidValue;
   if (k6 && (na != 64 || awp != 64)) return cudaErrorInvalidValue;
   err = k6 ? (mt == 1 ? launch<64, 64, 1, true>(amap, bmap, p, J, ychunks, s)
                       : launch<64, 64, 3, true>(amap, bmap, p, J, ychunks, s))

@@ -3,10 +3,10 @@ forward on the card, its backward by autograd through the plain version.
 
 Replaces ``srtpu/ops/wdsr_block.py:wdsr_block_fused_fwd`` (body
 ``_wdsr_kernel``), behind ``wdsr_block_fused`` / ``_BlockB._fused``. The
-kernel is ``srt_wdsr_block_fwd`` in ``csrc/wdsr.cu``, a variant of K7's
-pointwise kernel and the chunked 3x3 of ``tile_conv.cuh``; its head note
-says what bounds it on the H100 and how it keeps the f32 activations on
-bf16 tensor cores. :func:`wdsr_block_fused_fwd` launches it for CUDA
+kernel is ``srt_wdsr_block_fwd`` in ``csrc/wdsr.cu``: K7's chained 1x1
+pair in its hi / lo form and the 3x3 on K2's engine; its head note says
+what bounds it on the H100 and how it keeps the f32 activations on bf16
+tensor cores. :func:`wdsr_block_fused_fwd` launches it for CUDA
 tensors and takes the plain version only for CPU tensors; it counts its
 calls in ``launches``. :func:`wdsr_block_fused` is the differentiable op
 (:class:`WDSRFusedFn`).
@@ -14,7 +14,8 @@ calls in ``launches``. :func:`wdsr_block_fused` is the differentiable op
 One block, NHWC x (B, H, W, C) in the compute dtype, w1 (C, e), w2 (e,
 L), w3 HWIO (3, 3, L, C) in x's dtype, f32 biases: a = relu(x w1 + b1)
 and v = a w2 + b2 in f32, out = x.dtype((conv3x3(v, w3) + b3) * res_scale
-+ x). The kernel pads L to the 16-multiple Lp with zero rows (exact).
++ x). The kernel wrapper pads L, and C where it is narrower than the
+kernels' 64 or 128, with zeros (exact; ``ops.wdsr.widen``).
 
 srtpu's backward (``_wb_bwd``) is ``jax.vjp`` of ``wdsr_block_reference``
 in XLA; here autograd runs through :func:`wdsr_block_fused_plain` on the
@@ -25,11 +26,10 @@ their dtypes (bf16 on the card), the bias grads f32, as srtpu's.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from . import _build
 from .conv import conv_f32
-from .wdsr import _cast, _check
+from .wdsr import _cast, _check, kernel_c, widen
 
 
 def wdsr_block_fused_plain(x, w1, b1, w2, b2, w3, b3, res_scale: float
@@ -46,18 +46,19 @@ def wdsr_block_fused_plain(x, w1, b1, w2, b2, w3, b3, res_scale: float
 def wdsr_block_fused_fwd(x, w1, b1, w2, b2, w3, b3, res_scale: float
                          ) -> torch.Tensor:
     """As :func:`wdsr_block_fused_plain`. On CUDA: bf16 x (B, H, W, C), w1
-    (C, e), w2 (e, L), w3 (3, 3, L, C); f32 b1, b2, b3; C a multiple of 16
-    up to 128 (ROADMAP.md F4), e a multiple of 96, Lp up to 128. One call
-    is two launches (the 1x1 pair writing v as bf16 hi and lo halves, then
-    the 3x3 over both with the res_scale and skip epilogue)."""
+    (C, e), w2 (e, L), w3 (3, 3, L, C); f32 b1, b2, b3; C a multiple of
+    16 up to 128, e at most 6 C (ROADMAP.md F4), all run padded to the
+    kernels' width (64 or 128; ``ops.wdsr.widen``). One call is two
+    launches (the chained 1x1 pair writing v as bf16 hi and lo halves,
+    then the 3x3 on K2's engine over both with the res_scale and skip
+    epilogue)."""
     if x.device.type == 'cpu':
         return wdsr_block_fused_plain(x, w1, b1, w2, b2, w3, b3, res_scale)
-    pad = -w2.shape[-1] % 16
-    w2, b2 = F.pad(w2, (0, pad)), F.pad(b2, (0, pad))
-    w3 = F.pad(w3, (0, 0, 0, pad))
-    _check('wdsr_block_fused_fwd', x, w1, w2)
-    bsz, h, w, c = x.shape
-    e, lp = w1.shape[-1], w2.shape[-1]
+    _check('wdsr_block_fused_fwd', x, w1.shape[-1], w2.shape[-1])
+    bsz, h, w, c_in = x.shape
+    (x,), w1, b1, w2, b2, w3, b3 = widen(c_in, (x,), w1, b1, w2, b2, w3, b3)
+    c = lp = kernel_c(c_in)
+    e = 6 * c
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
     _build.expect(x, 'x', bf16, (bsz, h, w, c), dev)
     _build.expect(w1, 'w1', bf16, (c, e), dev)
@@ -68,7 +69,7 @@ def wdsr_block_fused_fwd(x, w1, b1, w2, b2, w3, b3, res_scale: float
     _build.expect(w3cat, 'w3cat', bf16, (3, 3, 2 * lp, c), dev)
     vcat = torch.empty((bsz, h, w, 2 * lp), dtype=bf16, device=dev)
     out = torch.empty_like(x)
-    with torch.cuda.device(dev):
+    with _build.on(dev):
         err = _build.library().srt_wdsr_block_fwd(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), w3cat.data_ptr(), b3.data_ptr(), float(res_scale),
@@ -76,7 +77,7 @@ def wdsr_block_fused_fwd(x, w1, b1, w2, b2, w3, b3, res_scale: float
             _build.stream(dev))
     _build.check(err, 'srt_wdsr_block_fwd')
     wdsr_block_fused_fwd.launches += 1
-    return out
+    return out if c == c_in else out[..., :c_in].contiguous()
 
 
 wdsr_block_fused_fwd.launches = 0

@@ -112,13 +112,16 @@ def _kernel_takes(cin: int, cout: int, r: int, k: int,
 def geometry(cin: int, cout: int, r: int = 1, k: int = 3) -> dict:
     """The engine's split of one job's dW (wgrad.cu, srt_conv_wgrad):
     ``form_g`` (cout 16-48: A = G, the taps stacked along M; else A = X),
-    A's channels ``ca`` in chunks of ``aw``, ``mtiles`` 64-row M-tiles a
+    A's channels ``ca`` in chunks of ``aw`` (64; at k = 1, where the
+    engine takes 64-multiples, 192 or 128 where they divide it, an M-tile
+    a consumer warpgroup), ``mtiles`` 64-row M-tiles a
     chunk in ``mgroups`` blocks of three warpgroups keeping ``mt`` each
     (at most 3: 96 f32 sums a thread at ``na`` = 64), B's channels in
     ``nchunks`` of ``na``; ``blocks``: the blocks over one pixel part."""
     form_g = cout <= 48 and r <= 1
     ca, nb = (cout, cin) if form_g else (cin, cout)
-    aw = min(ca, 64)
+    aw = (next(a for a in (192, 128, 64) if ca % a == 0) if k == 1
+          else min(ca, 64))
     fit = cout // (r * r) if r > 1 else nb
     na = next(n for n in (64, 32, 16) if nb % n == 0 and fit % n == 0)
     mtiles = -(-k * k * aw // 64)

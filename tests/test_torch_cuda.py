@@ -744,8 +744,9 @@ def test_k7_kernels_match_plain(device, c, h, w):
     0.5: out and dx within two bf16 steps of their largest magnitude (h1
     and h2 round at the same points, but a value next to a rounding
     boundary may land a step apart and the next product reads it), the
-    f32 grads within one step; each call counted once, bit-identical on a
-    second call (no float atomics)."""
+    f32 grads within one step; each call counted once (a backward call
+    also counts the forward it launches for the block's saved h2),
+    bit-identical on a second call (no float atomics)."""
     gen = torch.Generator().manual_seed(c * 1000 + h * 100 + w)
     x, w1, b1, w2, b2, w3, b3, g = _k7_case(gen, device, 2, h, w, c)
     before = k7.wdsr_fwd.launches, k7.wdsr_bwd.launches
@@ -761,7 +762,7 @@ def test_k7_kernels_match_plain(device, c, h, w):
     assert all(torch.equal(a, b) for a, b in
                zip(got, k7.wdsr_bwd(x, g, w1, b1, w2, b2, w3, 0.5)))
     assert (k7.wdsr_fwd.launches, k7.wdsr_bwd.launches) == (
-        before[0] + 2, before[1] + 2)
+        before[0] + 4, before[1] + 2)
 
 
 def test_k7_wrappers_reject_what_the_kernels_do_not_take(device):
@@ -805,6 +806,16 @@ def test_wdsr_train_step_kernel_path_matches_plain(device):
     the same params and batch: the loss within 2^-7 relative, every
     gradient (v, g and bias of every conv) f32 and within 2^-4 of its
     largest magnitude (as RDN's); K7 once each way per block."""
+    _wdsr_step_matches_plain(device, 128)
+
+
+def test_wdsr_train_step_at_a_padded_width_matches_plain(device):
+    """As test_wdsr_train_step_kernel_path_matches_plain at n_feats 32,
+    which K7's wrappers run zero-padded to the kernels' 64 channels."""
+    _wdsr_step_matches_plain(device, 32)
+
+
+def _wdsr_step_matches_plain(device, n_feats):
     from srtpu_torch.losses import parse_losses
     from srtpu_torch.optim import build_optimizer
     from srtpu_torch.train import TrainState, make_train_step
@@ -813,7 +824,7 @@ def test_wdsr_train_step_kernel_path_matches_plain(device):
     hr = torch.rand((2, 48, 80, 3), generator=gen).to(device)
     grads, losses = [], []
     for plain in (False, True):
-        model = _wdsr(device, 4)
+        model = _wdsr(device, 4, n_feats)
         state = TrainState(model, build_optimizer(
             'ADAM', ['lr=1e-4'], model.parameters()))
         before = k7.wdsr_fwd.launches, k7.wdsr_bwd.launches
@@ -1060,6 +1071,20 @@ def test_k8_kernel_matches_plain(device, kind, bsz, h, w):
     again = fn(*args, **kw)
     assert all(torch.equal(a, b) for a, b in
                zip(got, again if kind == 'a' else [again]))
+
+
+@pytest.mark.parametrize('c', [16, 48, 96])
+def test_k8c_kernel_matches_plain_at_padded_widths(device, c):
+    """K8c at widths the wrapper pads to the kernels' 64 or 128 (zero
+    channels, exact) against its plain version at the width given:
+    within one bf16 step of the largest magnitude, the same bits on a
+    second call."""
+    gen = torch.Generator().manual_seed(c)
+    args = (*_k8_case(gen, device, 'c', 2, 9, 33, c), 0.5)
+    got = k8c.wdsr_block_fused_fwd(*args)
+    torch.cuda.synchronize()
+    _assert_close(got, k8c.wdsr_block_fused_plain(*args), 1)
+    assert torch.equal(got, k8c.wdsr_block_fused_fwd(*args))
 
 
 def test_k8_wrappers_reject_what_the_kernels_do_not_take(device):

@@ -24,7 +24,9 @@ few of which may sit a step apart). Wider ones carry their reason.
     bn_resblock_cs and bn_close_cs: output, statistics and every grad;
 (c) the generator on both of srtpu's trees, train and eval, x2 and x4,
     the running statistics after a train-mode forward; srtpu's 'cs' tree
-    on its Pallas path in f32 and bf16; (d) the discriminator (flax's
+    on its Pallas path in f32 and bf16; F14: the train-mode trunk follows
+    use_pallas ('cs' K4r, False and True srtpu's XLA blocks, checked in
+    bf16 against srtpu's); (d) the discriminator (flax's
     BatchNorm, not torch's): values and running statistics after two
     train-mode calls, and eval mode;
 (e) VGGLoss (vgg19, relu2_2 and relu5_4), gan_loss (three modes), tv_loss;
@@ -501,6 +503,58 @@ def test_generator_train_matches_srtpu_pallas_interpret(interpret, dtype):
     _close(got, np.asarray(ref.astype(jnp.float32)), out_tol)
     _stats_close(model, {'params': v['params'],
                          'batch_stats': _copy(mut['batch_stats'])}, st_tol)
+
+
+def _count_k4r_plain(monkeypatch) -> list:
+    """Record each call of K4r's plain forward functions (what its
+    wrappers run on CPU tensors)."""
+    calls = []
+    for name in ('f1_plain', 'f2_plain', 'f3_plain'):
+        def counted(*args, _fn=getattr(bn_block, name), _name=name, **kw):
+            calls.append(_name)
+            return _fn(*args, **kw)
+        monkeypatch.setattr(bn_block, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize('use_pallas', [False, True, 'cs'])
+def test_generator_train_route_follows_use_pallas(monkeypatch, use_pallas):
+    """F14: in train mode 'cs' runs K4r (its plain functions here), and
+    srtpu's default False, like True, its XLA blocks in stock ops: none
+    of K4r's functions. Eval mode runs neither."""
+    x = np.random.default_rng(7).random((B, H, W, 3), np.float32)
+    _, v = _jax_gan(4, False)
+    model = _port(4, v, use_pallas)
+    calls = _count_k4r_plain(monkeypatch)
+    model.train()(torch.from_numpy(x))
+    assert bool(calls) == (use_pallas == 'cs'), calls
+    calls.clear()
+    with torch.inference_mode():
+        model.eval()(torch.from_numpy(x))
+    assert not calls
+
+
+def test_generator_false_route_train_matches_srtpu_bf16():
+    """F14: SRGAN(use_pallas=False) in train mode in bf16, the port's
+    stock XLA trunk against srtpu's SRGANGenerator on its XLA blocks
+    (``_SRGANBlock``), from the same numpy-filled tree and input: both
+    round at the same points (each conv once, then its bias in bf16; each
+    batch norm once; PReLU; the skips in bf16), and only the f32 conv
+    sums' order differs, so the image within one bf16 step (2^-7) of its
+    largest magnitude (below 1), where the 'cs' route's K4r is held to
+    2^-5; the running statistics within 2^-6, as K4r's. This checks
+    values only: at this size K4r's plain version also lands within these
+    limits, so which route ran is held by
+    ``test_generator_train_route_follows_use_pallas``."""
+    x = np.random.default_rng(8).random((B, H, W, 3), np.float32)
+    m, v = _jax_gan(4, False, jnp.bfloat16)
+    ref, mut = m.apply(v, jnp.asarray(x), train=True, mutable=['batch_stats'])
+    model = _port(4, v, False, torch.bfloat16).train()
+    got = model(torch.from_numpy(x))
+    assert got.dtype == torch.bfloat16
+    _close(got, np.asarray(ref.astype(jnp.float32)), STEP)
+    _stats_close(model, {'params': v['params'],
+                         'batch_stats': _copy(mut['batch_stats'])}, 2.0 ** -6)
 
 
 # -------------------------------------------------- (d) the discriminator

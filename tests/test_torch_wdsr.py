@@ -463,10 +463,10 @@ def test_cli_wdsr_takes_its_own_defaults():
     model = _built(['--model', 'WDSR'])
     assert model.head.v.shape[-1] == 128 and len(model.blocks) == 16
     assert model.blocks[0].expand.v.shape == (1, 1, 128, 768)
-    assert not model.blocks[0].kernel
+    assert not model.kernel_trunk
     model = _built(['--model', 'WDSR', '--n_feats', '32', '--use_pallas',
                     'cs', '--block_type', 'B', '--res_scale', '0.5'])
-    assert model.head.v.shape[-1] == 32 and model.blocks[0].kernel
+    assert model.head.v.shape[-1] == 32 and model.kernel_trunk
     assert model.blocks[0].res_scale == 0.5
 
 

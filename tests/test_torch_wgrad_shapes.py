@@ -12,8 +12,9 @@ on the CPU (where the wrapper runs its plain version), each model at full
 width on a tiny image runs a train-mode forward and backward, every (k,
 c_in, c_out, r, reflect, gscale != 1, J > 1) reaching ``conv_wgrad`` is
 recorded at the kernel path's callers and at the plain paths they take
-on the CPU, which make the same calls to ``conv_wgrad_plain`` (K7's off
-``wdsr_bwd``, whose dW3 launch is CUDA-only), and each
+on the CPU, which make the same calls to ``conv_wgrad_plain`` (K7's dW3
+off ``wdsr_trunk_bwd``, whose launches are CUDA-only; its dW1 and dW2 at
+k = 1 are K7's own, held by chip_smoke's phase 2g), and each
 must be among chip_smoke's W cases, built here with device ``cpu``. One
 case per model, so each counts; K9d's (64, 128) from ``ops/resblock.py``.
 
@@ -106,13 +107,16 @@ def test_main_path_wgrad_classes_are_held_by_chip_smoke(monkeypatch, held,
             return fn(x, g, gscale, r, k, reflect)
         return wrapped
 
-    def wdsr_bwd(x, g, w1, b1, w2, b2, w3, res_scale):
-        seen.add(_key(3, w3.shape[-2], w3.shape[-1], 1, False, res_scale, 1))
-        return wdsr_bwd_orig(x, g, w1, b1, w2, b2, w3, res_scale)
+    def wdsr_trunk_bwd(xs, h2s, g, w1s, b1s, w2s, b2s, w3s, res_scale):
+        # K7's dW3 per block, at the kernels' width (the wrapper pads to it)
+        c = wdsr_mod.kernel_c(w3s.shape[-1])
+        seen.add(_key(3, c, c, 1, False, res_scale, 1))
+        return wdsr_trunk_bwd_orig(xs, h2s, g, w1s, b1s, w2s, b2s, w3s,
+                                   res_scale)
 
     # the kernel path's callers, and the plain paths they take on the CPU
     # (each makes the kernel path's call to conv_wgrad_plain)
-    wdsr_bwd_orig = wdsr_mod.wdsr_bwd
+    wdsr_trunk_bwd_orig = wdsr_mod.wdsr_trunk_bwd
     for mod in (trunk_mod, rcab_mod, conv_mod, ups_mod):
         monkeypatch.setattr(mod, 'conv_wgrad', recorder(wgrad.conv_wgrad))
         monkeypatch.setattr(mod, 'conv_wgrad_plain',
@@ -120,7 +124,7 @@ def test_main_path_wgrad_classes_are_held_by_chip_smoke(monkeypatch, held,
     monkeypatch.setitem(bn_mod.KERNELS, 'wgrad', recorder(wgrad.conv_wgrad))
     monkeypatch.setitem(bn_mod.PLAIN, 'wgrad',
                         recorder(wgrad.conv_wgrad_plain))
-    monkeypatch.setattr(wdsr_mod, 'wdsr_bwd', wdsr_bwd)
+    monkeypatch.setattr(wdsr_mod, 'wdsr_trunk_bwd', wdsr_trunk_bwd)
     model = create_model(name, scale_factor=scale, dtype=torch.bfloat16,
                          generator=torch.Generator().manual_seed(0), **kw)
     lr = torch.rand((1, 8, 8, 3), generator=torch.Generator().manual_seed(1))
@@ -151,7 +155,9 @@ SPLITS = [(16, 32, 32, 64, 64, 1, 3, 16), (16, 32, 32, 64, 64, 1, 3, 86),
           (16, 32, 32, 64, 64, 1, 3, 1), (16, 64, 64, 64, 256, 1, 3, 1),
           (16, 32, 32, 64, 256, 2, 3, 1), (16, 64, 64, 256, 16, 1, 5, 1),
           (16, 32, 32, 512, 48, 1, 3, 1), (16, 32, 32, 576, 32, 1, 5, 1),
-          (16, 32, 32, 112, 128, 1, 3, 1), (2, 67, 45, 64, 64, 1, 3, 1),
+          (16, 32, 32, 112, 128, 1, 3, 1), (16, 32, 32, 128, 128, 1, 3, 1),
+          (16, 32, 32, 128, 768, 1, 1, 1), (16, 32, 32, 768, 128, 1, 1, 1),
+          (2, 67, 45, 64, 64, 1, 3, 1),
           (2, 3, 5, 64, 64, 1, 3, 1), (1, 9, 33, 16, 16, 1, 3, 3)]
 
 

@@ -4,8 +4,10 @@ train-step and predict times of the models chip_smoke.py runs.
     python tools/ab_torch_step.py TREE_A TREE_B [--models EDSR,DDBPN]
                                   [--rounds 2]
 
-``--models`` names keys of MODELS: a model, or EDSR86 (EDSR x4 at 64
-features, 86 resblocks, res_scale 0.1).
+``--models`` names keys of MODELS: a model, EDSR86 (EDSR x4 at 64
+features, 86 resblocks, res_scale 0.1), or WDSR_STOCK (WDSR-B at 128
+features, 16 blocks, on its default stock route, no kernel in the
+trunk).
 
 TREE_A and TREE_B are checkouts of this repository (for example the
 parent commit unpacked with ``git archive`` into a git-ignored directory,
@@ -41,8 +43,11 @@ MODELS = {
              'cs'],
     # chip_smoke's phase 22: EDSR x4 at 64 features and 86 resblocks
     'EDSR86': ['--n_resblocks', '86', '--res_scale', '0.1'],
+    # WDSR-B's stock route (use_pallas False, srtpu's default)
+    'WDSR_STOCK': ['--n_feats', '128', '--n_resblocks', '16'],
 }
-MODEL_OF = {'EDSR86': 'EDSR'}   # a configuration's model, where it differs
+# a configuration's model, where it differs
+MODEL_OF = {'EDSR86': 'EDSR', 'WDSR_STOCK': 'WDSR'}
 
 
 def median_ms(fn, calls: int, windows: int) -> float:
