@@ -62,28 +62,23 @@ Phases, each of which raises on failure (nothing is caught):
    dbeta / dgamma, dz, dy, du, db, dalpha) within per-element limits
    (bn_block.kernel_limits: an f32 sum within its f32 rounding), the
    backward fed sums that make db a real value, a db summed from the
-   bf16 dy shown to fail its limit, two calls bit-identical, kernel and
-   plain times; then a 16-block trunk + close, forward and backward
-   (every grad, dW1 / dW2 through the weight-grad kernel, and the
-   running statistics) against an f32 path, and two faults planted in
-   B2 caught by that check: besides every tensor's largest error, each
-   block's BN2 backward dy per element against the f32 path, and its
-   invariants (per channel, dy sums to 0 and is orthogonal to xhat, so
-   mean(dy) and mean(dy * xhat) are 0 in f32) against the f32 path's;
-   the margin of each fault is printed. Phases 2 and 2b also hold K2 at 5x5
-   (SRResNet's phase-dense 256 -> 16) forward and backward at the tail's
-   shapes;
+   bf16 dy shown to fail its limit, two calls bit-identical, each
+   function's device time alone (a CUDA graph of its calls), host time a
+   call and the plain version's time. Phases 2 and 2b also hold K2 at
+   5x5 (SRResNet's phase-dense 256 -> 16) forward and backward at the
+   tail's shapes;
 7. the SRResNet predict slice: phase 3's path and images with ``--model
    SRResNet`` (64 features, 16 resblocks, x4): eval mode, so per image
    K3 1, K2 3x3 1, K2 5x5 1 and no K4; PNGs at 4x; kernel path against
    plain path;
 8. the SRResNet fit slice: phase 4 with ``--model SRResNet`` at full
-   width and depth: per step F1, F3, B1, B3 17 times (16 blocks + the
-   close), F2 and B2 16, K2 and K3 forward and backward, 36 weight-grad
-   launches; the loss falling, the running statistics finite and moved;
-   the gradients of a kernel-path and a plain-path step against an f32
-   step (with phase 2d's per-block dy checks), the planted faults caught
-   there too; five steps' losses,
+   width and depth: per step K4's trunk op once each way (16 blocks + the
+   close in one host call, its 33 weight grads inside) and no
+   per-function K4 call, K2 and K3 forward and backward and their 3
+   weight-grad launches; the loss falling, the running statistics finite
+   and moved; the gradients of a kernel-path and a plain-path step
+   against an f32 step (with phase 2n's per-block dy checks), the planted
+   faults caught there too; five steps' losses,
    ms/step, patches/s, device time by kernel group.
 2e. K6 (RDN's dense-block trunk) against its plain versions at the full
    B config (16 blocks of 8 layers, G = G0 = 64): the forward (cat and
@@ -173,10 +168,23 @@ Phases, each of which raises on failure (nothing is caught):
    within bn_block.kernel_limits, two calls bit-identical; two planted
    faults, the forward's halo left at zero (the SAME kernel in place of
    F1 and F2) and B2 / B3 with the fold dropped, must fail those limits
-   (each margin printed); each K4r function's time beside K4's on the
-   same inputs; one reflect block on cuDNN in bf16 (channels-last
-   weights, benchmark mode) timed beside a K4r block, forward and
-   forward + backward;
+   (each margin printed); each K4r function's device time (a CUDA graph)
+   beside K4's on the same inputs, and its host time; one reflect block
+   on cuDNN in bf16 (channels-last weights, benchmark mode) timed beside
+   a K4r block, forward and forward + backward;
+2n. K4's and K4r's trunk op (one host call each way: 16 blocks + the
+   close, the 33 weight grads in one launch of W) through the model's
+   trunk at the training shape, SAME and REFLECT: the kernel and plain
+   paths (both bf16) against an f32 path (every grad, dx, out, within
+   BN_TRUNK_VS_F32 times the plain path's error; each block's BN2
+   backward dy per element and its invariants, per channel mean(dy) and
+   mean(dy * xhat), 0 in f32, within BN_INVARIANT_VS_F32), the running
+   statistics kernel vs plain, two faults planted in B2 caught by that
+   check (margins printed), two calls bit-identical, and the trunk op
+   against its blocks run one by one through the per-function kernels
+   (bit for bit but for the weight grads, whose W split differs: 1e-4);
+   its device time each way (a CUDA graph), host time and the plain
+   trunk's time;
 17. the SRGAN predict slice: phase 3's path and images with ``--model
    SRGAN`` at srtpu's sizes (ngf = ndf = 64, 16 blocks, x4): eval mode,
    so no kernel of the port runs (the trunk on its running statistics
@@ -184,8 +192,8 @@ Phases, each of which raises on failure (nothing is caught):
    4x; the forward times;
 18. the SRGAN fit slice: ``fit --model SRGAN --use_pallas cs`` at batch
    16, patch 128, 20 adversarial steps (D then G, VGG19 relu5_4 content
-   term): per step K4r F1 and B3 17, F2 and B2 16, K4's F3 and B1 17 and
-   33 reflect weight grads; g_loss and d_loss finite, the running
+   term): per step K4r's trunk op once each way (its 33 reflect weight
+   grads inside) and no other K4 call; g_loss and d_loss finite, the running
    statistics moved; a kernel-path and a plain-path step held to an f32
    step (every generator gradient, each block's BN2 dy; cuDNN's
    deterministic algorithms, so the held ratios repeat bit for bit:
@@ -197,11 +205,12 @@ Phases, each of which raises on failure (nothing is caught):
    h1), K8b (RCAN's channel-attention gate) and K8c (WDSR-B's fused
    block at C = 128) against their plain versions at the training shape
    (batch 16, LR 32x32), the predict shape (batch 1, 128x128) and a
-   ragged batch 2 of 67x45: every output within one bf16 step of its
-   largest magnitude, two calls bit-identical, kernel, plain and bound
-   times (no single PyTorch call computes any of them: library null);
-   K8c over 16 blocks (one call a block, as the True route runs it),
-   device and host time;
+   ragged batch 2 of 67x45 (K8b also at 1 x 512 x 352, past its
+   K_PIX blocks): every output within one bf16 step of its largest magnitude,
+   two calls bit-identical, kernel, plain and bound times (no single
+   PyTorch call computes any of them: library null); K8b's pixels a
+   block, device time (a CUDA graph) and host time at each shape; K8c over 16 blocks
+   (one call a block, as the True route runs it), device and host time;
 19. the EDSR True route: phase 3's path and images with ``--model EDSR
    --use_pallas true`` (64 features, 16 blocks): per image 16 K8a
    launches and no K1, K2 or K3; PNGs at 4x; kernel path against plain
@@ -229,7 +238,9 @@ Phases, each of which raises on failure (nothing is caught):
    ``rdn_trunk_calls`` (its forward bit-identical to the grid trunk's)
    and ``rdn_trunk_layers`` at RDN-B's trunk shape, each forward and
    backward with its launches counted and its gradients against its
-   plain path;
+   plain path; one BN block and the close through the per-function K4
+   wrappers (``bn_resblock``, ``bn_close``), SAME and REFLECT, likewise
+   (the pre-BN biases' grads, rounding noise, held in 2n);
 2m. K1 at L = 16 (the training shape and LR 128x128 at res_scale 1.0),
    86 and 1 (the training shape at 0.1): the forward saving and not and
    the backward against their plain versions within phases 2b's and
@@ -251,8 +262,9 @@ predict and fit, EDSR and SRResNet x3 predict, SRResNet x3 fit, the
 EDSR, RCAN and WDSR-B True routes' predict and fit, EDSR 64 x 86 fit,
 and phase 2j's op runs;
 ``launches`` is their sum), its largest error against its plain
-version, its time (K4's and K4r's: its kernels' own device time from
-torch.profiler; the others: the wrapper's CUDA-event time) and the
+version, its time (K4's, K4r's and the trunk op's: its device time
+alone, a CUDA graph of its calls; the others: the wrapper's CUDA-event
+time) and the
 plain version's at the main path's shapes, the least time the card could take for the same
 work (``bound_ms``: the larger of the bytes the function must move over
 3.35 TB/s and its matrix FLOPs over 989 TFLOP/s bf16, NVIDIA's H100 SXM
@@ -273,6 +285,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import json
 import logging
 import struct
@@ -302,6 +315,7 @@ from srtpu_torch.ops import (_build, b1_plain, b1_sums, b2_call, b2_plain,
                              trunk_fwd, trunk_plain, upsample_bwd,
                              upsample_bwd_plain, upsample_fwd,
                              upsample_plain)
+from srtpu_torch.ops import ca_layer as k8b_ops
 from srtpu_torch.ops.ca_layer import ca_layer_fwd, ca_layer_plain
 from srtpu_torch.ops.conv import conv3x3_dx
 from srtpu_torch.ops.layout import w_t
@@ -323,6 +337,11 @@ from srtpu_torch.optim import build_optimizer
 from srtpu_torch.train import (TrainState, create_gan_state,
                                make_gan_train_step, make_train_step)
 from srtpu_torch.utils.logging import save_image
+
+# K4's trunk op, looked up with getattr: tools/tree_timing.py loads this
+# file over other trees' srtpu_torch, and a tree from before it has none
+bn_trunk_fwd = getattr(bn_block, 'bn_trunk_fwd', None)
+bn_trunk_bwd = getattr(bn_block, 'bn_trunk_bwd', None)
 
 C, L, SCALE = 64, 16, 4
 KERNEL_SIZES = ((128, 128), (67, 45))
@@ -408,16 +427,22 @@ CONV5_FWD, CONV5_BWD = (conv3x3_fwd, 'launches_5x5'), (conv3x3_bwd,
 # the tail runs K3 (first x2 stage), K2 3x3 (phase-major last stage) and
 # K2 5x5 (the 9x9 output conv, phase-dense)
 SRRESNET_PREDICT_LAUNCHES = {upsample_fwd: 1, conv3x3_fwd: 1, CONV5_FWD: 1,
-                             trunk_fwd: 0, rcab_fwd: 0,
+                             trunk_fwd: 0, rcab_fwd: 0, bn_trunk_fwd: 0,
                              **{fn: 0 for fn in K4_FNS.values()}}
-# per SRResNet train step: F1, F3, B1, B3 in every block and the close,
-# F2 and B2 in every block; the tail's K2 and K3 each way; weight grads
-# twice per block, once for the close, the K2 3x3 and 5x5 and K3
+# K4's trunk op (one host call a trunk each way: the 16 blocks, the close
+# and, in the backward, their 33 weight grads in one launch of W), with
+# SAME boundaries (counted on launches) and REFLECT (launches_reflect)
+K4T = {False: (bn_trunk_fwd, bn_trunk_bwd),
+       True: ((bn_trunk_fwd, 'launches_reflect'),
+              (bn_trunk_bwd, 'launches_reflect'))}
+# per SRResNet train step: the trunk op once each way (none of the
+# per-function wrappers); the tail's K2 and K3 each way and their weight
+# grads (K2 3x3 and 5x5, K3)
 SRRESNET_STEP_LAUNCHES = {
-    f1_conv_stats: L + 1, f2_norm_act_conv_stats: L, f3_norm_skip: L + 1,
-    b1_sums: L + 1, b2_call: L, b3_call: L + 1, conv3x3_fwd: 1,
+    K4T[False][0]: 1, K4T[False][1]: 1, K4T[True][0]: 0, K4T[True][1]: 0,
+    **{fn: 0 for fn in K4_FNS.values()}, conv3x3_fwd: 1,
     conv3x3_bwd: 1, CONV5_FWD: 1, CONV5_BWD: 1, upsample_fwd: 1,
-    upsample_bwd: 1, conv_wgrad: 2 * L + 4, trunk_fwd: 0, trunk_bwd: 0,
+    upsample_bwd: 1, conv_wgrad: 3, trunk_fwd: 0, trunk_bwd: 0,
     rcab_fwd: 0, rcab_bwd: 0}
 # K4 against its plain version, one function on the same inputs: per
 # element limits from bn_block.kernel_limits (a bf16 output one step of
@@ -434,13 +459,18 @@ BN_TRUNK_VS_F32, BN_TRUNK_STAT_REL = 2.0, 2.0 ** -6
 # path, held to the f32 rounding of that sum (bn_block.F32_SUM of its
 # bn_block.db_scale per channel, taken on the f32 path).
 PRE_BN = ('b1', 'b2', 'close_b')
-# the K4 kernels' names (torch.profiler), for their own device time
-K4_KERNELS = ('bn_conv_stats_kernel', 'bn_norm_skip_kernel', 'bn_sums_kernel',
-              'bn_bwd_conv_kernel', 'bn_reduce_kernel', 'bn_fold_ring_kernel')
+# the K4 kernels' names (torch.profiler), for their own device time: its
+# convs on K2's engine at K4's epilogues (EPI 9: F1, F2; 10: B2; 11: B3)
+# and its passes
+K4_KERNELS = ('conv_sm90_kernel<64, 1, 4, 1, false, 9>',
+              'conv_sm90_kernel<64, 1, 4, 1, true, 10>',
+              'conv_sm90_kernel<64, 1, 4, 1, true, 11>', 'bn_act_kernel',
+              'bn_norm_skip_kernel', 'bn_sums_kernel', 'bn_dy_kernel',
+              'bn_reduce_kernel', 'bn_fold_ring_kernel')
 # K4r (SRGAN's generator block): F1, F2, B2 and B3 with reflect=True,
 # counted apart from K4's SAME launches; F3 and B1 pad nothing and are
 # K4's own. Phase 2h's shapes: the training shape and a ragged one (not a
-# multiple of the 7 x 16 tile).
+# multiple of the 8 x 16 tile).
 K4R = ('F1', 'F2', 'B2', 'B3')
 K4R_COUNTERS = {k: (K4_FNS[k], 'launches_reflect') for k in K4R}
 K4R_SIZES = ((TRAIN_BATCH, TRAIN_PATCH // SCALE, TRAIN_PATCH // SCALE),
@@ -503,16 +533,16 @@ SRGAN_ARGS = ['--ngf', str(C), '--ndf', str(C), '--n_blocks', str(L),
 # per image of an SRGAN x4 predict: eval mode, no kernel of the port
 SRGAN_PREDICT_LAUNCHES = {**{k: 0 for k in K4R_COUNTERS.values()},
                           **{fn: 0 for fn in K4_FNS.values()},
+                          K4T[True][0]: 0, K4T[False][0]: 0,
                           conv3x3_fwd: 0, upsample_fwd: 0, conv_wgrad: 0}
-# per SRGAN train step: K4r F1 and B3 in every block and the close, F2
-# and B2 in every block; K4's F3 and B1 likewise; the reflect weight
-# grads twice per block and once for the close; no SAME K4, K2 or K3
+# per SRGAN train step: K4r's trunk op once each way (its 33 reflect
+# weight grads inside); no per-function K4 / K4r call, no SAME K4, K2 or
+# K3, no other weight grad
 SRGAN_STEP_LAUNCHES = {
-    K4R_COUNTERS['F1']: L + 1, K4R_COUNTERS['F2']: L,
-    K4R_COUNTERS['B2']: L, K4R_COUNTERS['B3']: L + 1, f3_norm_skip: L + 1,
-    b1_sums: L + 1, conv_wgrad: 2 * L + 1, WGG: 0,
-    **{K4_FNS[k]: 0 for k in K4R}, conv3x3_fwd: 0, conv3x3_bwd: 0,
-    upsample_fwd: 0, upsample_bwd: 0}
+    K4T[True][0]: 1, K4T[True][1]: 1, K4T[False][0]: 0, K4T[False][1]: 0,
+    **{k: 0 for k in K4R_COUNTERS.values()},
+    **{fn: 0 for fn in K4_FNS.values()}, conv_wgrad: 0, WGG: 0,
+    conv3x3_fwd: 0, conv3x3_bwd: 0, upsample_fwd: 0, upsample_bwd: 0}
 # (c_in, c_out, k) of phase 2f: DDBPN x4 (nr 32) up, down and output
 # convs, x2 up, down and output convs, EDSR's and SRResNet's x3
 # phase-dense convs, and the x3 tails' phase-major 64 -> 576 (counted on
@@ -554,7 +584,8 @@ K2G5_BWD = (conv3x3_bwd, 'launches_general_5x5')
 X3_FIT_BLOCKS, X3_FIT_PATCH, X3_FIT_STEPS = 4, 96, 10
 SRRESNET_X3_STEP_LAUNCHES = {conv3x3_fwd: 1, K2G5_FWD: 1, K2G5_BWD: 1,
                              WGG: 1, CONV5_FWD: 0, CONV5_BWD: 0,
-                             upsample_fwd: 0, upsample_bwd: 0}
+                             upsample_fwd: 0, upsample_bwd: 0,
+                             K4T[False][0]: 1, K4T[False][1]: 1}
 # WDSR-B x4 at srtpu's defaults (srtpu/models/wdsr.py:124-133, srtpu
 # bench.py:99-100): block B, 128 features, 16 blocks, res_scale 1, on
 # srtpu's kernel route ('cs': K7 runs each block); the stock route
@@ -620,6 +651,9 @@ WDSR_TRUE_STEP_LAUNCHES = {**WDSR_TRUE_LAUNCHES, **K8_OFF_BWD}
 # pairs within 2^-17 of f32: every output within one bf16 step of its
 # largest magnitude
 K8_STEPS = 1
+# K8b beyond phase 2i's three shapes: RCAN's predict at the slices' largest
+# LR (an image past MAX_SPLITS blocks of K_PIX pixels)
+K8B_SHAPES = ((1, 512, 352),)
 # EDSR x4 at 64 features and 86 resblocks: the shallowest 64-feature trunk
 # srtpu sends to its per-block trunk_cs: 2 * 86 * 192^2 * 4 bytes of
 # mega-trunk dW accumulators pass its 24 MiB TPU budget (85 blocks do
@@ -699,6 +733,19 @@ def k7_held() -> set:
         held |= {('fwd', WDSR_C, WDSR_L, True, s),
                  ('fwd', WDSR_C, WDSR_L, False, s),
                  ('bwd', WDSR_C, WDSR_L, False, s)}
+    return held
+
+
+def k4_held() -> set:
+    """(kind, blocks, reflect) of the K4 / K4r calls phases 2d, 2h and 2n
+    hold against their plain versions on the card: each per-function
+    wrapper ('f1' ... 'b3'; blocks None) with SAME boundaries (2d) and
+    the four that take reflect with REFLECT (2h); the trunk op each way
+    ('trunk_fwd', 'trunk_bwd') at L blocks, both modes (2n)."""
+    held = {(k.lower(), None, False) for k in K4_FNS}
+    held |= {(k.lower(), None, True) for k in K4R}
+    for rf in (False, True):
+        held |= {('trunk_fwd', L, rf), ('trunk_bwd', L, rf)}
     return held
 
 
@@ -1436,13 +1483,22 @@ PLANTED = {'B2 without the PReLU backward': _no_prelu_bwd,
 
 @contextlib.contextmanager
 def _planted(fault):
-    """The kernel path's B2 replaced by ``fault`` of it inside the block."""
+    """The kernel path's B2 replaced by ``fault`` of it inside the block:
+    the trunk op's kernel path runs there as calls of the per-function
+    kernels in its order (bn_block.trunk_fwd_calls and trunk_bwd_calls
+    over KERNELS), whose B2 is the fault."""
     b2 = bn_block.KERNELS['b2']
+    fwd, bwd = bn_block.bn_trunk_fwd, bn_block.bn_trunk_bwd
     bn_block.KERNELS['b2'] = fault(b2)
+    bn_block.bn_trunk_fwd = functools.partial(bn_block.trunk_fwd_calls,
+                                              bn_block.KERNELS)
+    bn_block.bn_trunk_bwd = functools.partial(bn_block.trunk_bwd_calls,
+                                              bn_block.KERNELS)
     try:
         yield
     finally:
         bn_block.KERNELS['b2'] = b2
+        bn_block.bn_trunk_fwd, bn_block.bn_trunk_bwd = fwd, bwd
 
 
 def _vs_f32(got: dict, plain: dict, f32: dict, scales: dict) -> list:
@@ -1487,27 +1543,46 @@ def _catches(rows: list, what: str, label: str) -> None:
 
 @contextlib.contextmanager
 def _dy_record(table: dict, store):
-    """Inside the block, each call of ``table``'s B2 (bn_block.KERNELS or
-    PLAIN; a planted fault included) appends its block's BN2 backward dy
-    (f32) and that dy's invariants per channel, (mean(dy), mean(dy *
-    xhat2)) as (2, C), to ``store`` (blocks L-1 ... 0). No-op for None."""
+    """Inside the block, each block's BN2 backward dy (f32) and that dy's
+    invariants per channel, (mean(dy), mean(dy * xhat2)) as (2, C), are
+    appended to ``store`` (blocks L-1 ... 0): on the plain path
+    (bn_block.PLAIN) from each call of its B2, on the kernel path
+    (bn_block.KERNELS) from the dy that each trunk-op backward returns (a
+    planted fault's included). No-op for None."""
     if store is None:
         yield
         return
-    saved = table['b2']
 
-    def call(g, y2, st2, *rest):
-        out = saved(g, y2, st2, *rest)
-        dy = out[1].float()
+    def add(dy, y2, st2):
+        dy = dy.float()
         xh = bn_block._xhat(y2, st2)
         store.append((dy, torch.stack([dy.mean((0, 1, 2)),
                                        (dy * xh).mean((0, 1, 2))])))
+    if table is bn_block.PLAIN:
+        saved = table['b2']
+
+        def call(g, y2, st2, *rest):
+            out = saved(g, y2, st2, *rest)
+            add(out[1], y2, st2)
+            return out
+        table['b2'] = call
+        try:
+            yield
+        finally:
+            table['b2'] = saved
+        return
+    trunk = bn_block.bn_trunk_bwd
+
+    def trunk_call(acts, ys, sts, *rest, **kw):
+        out = trunk(acts, ys, sts, *rest, **kw)
+        for i in reversed(range(out[1].shape[0] // 2)):
+            add(out[1][2 * i + 1], ys[2 * i + 1], sts[2 * i + 1])
         return out
-    table['b2'] = call
+    bn_block.bn_trunk_bwd = trunk_call
     try:
         yield
     finally:
-        table['b2'] = saved
+        bn_block.bn_trunk_bwd = trunk
 
 
 def _dy_rows(rk: list, rp: list, rf: list) -> list:
@@ -1543,15 +1618,14 @@ def _dy_rows(rk: list, rp: list, rf: list) -> list:
     return [el, inv]
 
 
-def check_bn_kernels(device) -> dict:
+def check_bn_kernels(device, smi: str) -> dict:
     """Phase 2d. K4's six functions against their plain versions at the
     training shape and a ragged one (per-element limits of
     bn_block.kernel_limits; a db summed from the bf16 dy shown to fail
-    them), two calls bit-identical, times at the training shape (the K4
-    kernels' own device time from torch.profiler, and the wrapper's
-    CUDA-event time); then a 16-block BN trunk + close, forward and
-    backward, kernel path against plain path and f32 path, and each
-    planted fault caught. Returns per-function stats."""
+    them), two calls bit-identical, times at the training shape: each
+    function's device time alone (a CUDA graph of its calls), its host
+    time a call and the plain version's time. Returns per-function
+    stats."""
     stats = new_stats(K4_FNS)
     for i, (bsz, h, w) in enumerate(((TRAIN_BATCH, TRAIN_PATCH // SCALE,
                                       TRAIN_PATCH // SCALE), (2, 67, 45))):
@@ -1581,76 +1655,174 @@ def check_bn_kernels(device) -> dict:
             st = stats[kid]
             st['max_abs_err'] = max(st['max_abs_err'], err)
             if i == 0:
-                ms = median_ms(lambda: fn(*args))
-                dev_ms = _kernel_device_ms(lambda: fn(*args), K4_KERNELS)
+                dev_ms = graph_ms(lambda: fn(*args))
+                host = host_ms(lambda: fn(*args))
                 plain_ms = median_ms(lambda: K4_PLAIN[kid](*args))
-                print(f'K4 {kid} {tag}: kernel {dev_ms:.4f} ms (its kernels'
-                      f' on the device, torch.profiler; the wrapper call '
-                      f'{ms:.4f} ms, CUDA events) plain {plain_ms:.4f} ms')
+                print(f'K4 {kid} {tag}: device {dev_ms:.4f} ms (a CUDA graph '
+                      f'of its calls), host {host:.4f} ms a call; plain '
+                      f'{plain_ms:.4f} ms  [{smi}]')
                 record(st, dev_ms, plain_ms, flops, nbytes(args, got))
+                st['device_ms'], st['host_ms'] = dev_ms, host
+    return stats
 
-    # a 16-block trunk + close at the training shape, train mode
-    bsz, h, w = TRAIN_BATCH, TRAIN_PATCH // SCALE, TRAIN_PATCH // SCALE
+
+def _trunk_model(device, reflect: bool):
+    """SRResNet's BN trunk (16 blocks + close, 64 channels) from seed 7,
+    with REFLECT boundaries (SRGAN's) or SAME, its BN scales moved off
+    their init (seed 8)."""
     trunk = create_model('SRResNet', scale_factor=SCALE, n_feats=C,
                          n_resblocks=L, dtype=torch.bfloat16, device=device,
                          generator=torch.Generator().manual_seed(7)).trunk
+    trunk.reflect = reflect
     gen = torch.Generator().manual_seed(8)
     with torch.no_grad():
         for name in ('bn1_scale', 'bn2_scale', 'close_bn_scale'):
             getattr(trunk, name).add_(
                 _uniform(gen, getattr(trunk, name).shape, 0.5, device,
                          torch.float32))
-    x = _uniform(gen, (bsz, h, w, C), 1.0, device, torch.bfloat16)
-    g = _uniform(gen, (bsz, h, w, C), 1.0, device, torch.bfloat16)
+    return trunk, gen
 
-    def run(dtype, plain, rec):
-        m = copy.deepcopy(trunk).train()
-        xi = x.to(dtype).clone().requires_grad_()
-        with _dy_record(bn_block.PLAIN if plain else bn_block.KERNELS, rec):
-            out = m(xi, dtype, plain)
-            out.backward(g.to(dtype))
-        return m, {'out': out, 'dx': xi.grad,
-                   **{n: p.grad for n, p in m.named_parameters()}}
 
-    # the kernel path, the plain path (both bf16) and the plain path in
-    # f32 with no rounding at all, from one set of params and inputs
-    scales, rk, rp, rf = {}, [], [], []
-    mk, tk = run(torch.bfloat16, False, rk)
-    mp, tp = run(torch.bfloat16, True, rp)
-    with _db_scales(scales):
-        _, tf = run(torch.float32, True, rf)
-    torch.cuda.synchronize()
-    # Through 16 batch norms the two bf16 paths part by more than a few
-    # rounding steps (each BN divides a difference by its channel's batch
-    # deviation), so both are held to the unrounded f32 path (_vs_f32),
-    # and so is each block's BN2 backward dy (_dy_rows).
-    rows = _vs_f32(tk, tp, tf, scales)
-    dy_rows = _dy_rows(rk, rp, rf)
-    label = f'K4 BN trunk L={L} + close {bsz}x{h}x{w}, fwd and bwd'
-    print(f'{label}, max_abs vs the f32 path, kernel/plain/tol (|f32|): '
-          + ', '.join(t for _, t in rows) + '; per block, error/limit: '
-          + ', '.join(f'{t} = {r:.4g}' for r, t in dy_rows))
-    rows = sorted(rows + dy_rows, key=lambda r: -r[0])
-    need(all(r <= 1.0 for r, _ in rows),
-         f'{label}: ' + '; '.join(t for r, t in rows if not r <= 1.0))
-    bk, bp = dict(mk.named_buffers()), dict(mp.named_buffers())
-    _check_all('K4 BN trunk running statistics, kernel vs plain', list(bk),
-               list(bk.values()), list(bp.values()),
-               [BN_TRUNK_STAT_REL] * len(bk))
-    for what, fault in PLANTED.items():
-        bad_dy = []
-        with _planted(fault):
-            _, bad = run(torch.bfloat16, False, bad_dy)
-        _catches(_vs_f32(bad, tp, tf, scales) + _dy_rows(bad_dy, rp, rf),
-                 what, label)
+def bn_trunk_by_blocks(m, x, dtype, plain: bool = False):
+    """A BNTrunk ``m``'s train-mode forward with its blocks called one by
+    one through the per-function wrappers (bn_block.bn_resblock a block,
+    then bn_close; ``plain``: their plain versions), the running
+    statistics updated by the module's own rule: what the trunk op is held
+    against here and in the tests."""
+    xd, rf = x.to(dtype).contiguous(), m.reflect
+    u, stats = xd, []
+    for prm in m._blocks():
+        u, st = bn_block.bn_resblock(u, *prm, plain=plain, reflect=rf)
+        stats.append(st)
+    out, (mc, vc) = bn_block.bn_close(
+        u, xd, m.close_w, m.close_b, m.close_bn_scale, m.close_bn_bias,
+        plain=plain, reflect=rf)
+    m.update_running(*(torch.stack(s) for s in zip(*stats)), mc, vc)
+    return out
 
-    def step(m, plain):
-        xi = x.clone().requires_grad_()
-        m(xi, torch.bfloat16, plain).backward(g)
-    times = [median_ms(lambda: step(mk, False), 3, 3),
-             median_ms(lambda: step(mp, True), 3, 3)]
-    print(f'K4 BN trunk L={L} + close {bsz}x{h}x{w}: fwd + bwd kernel '
-          f'{times[0]:.4f} ms plain {times[1]:.4f} ms')
+
+def check_bn_trunk(device, smi: str) -> dict:
+    """Phase 2n. K4's and K4r's trunk op (bn_block.bn_trunk_fwd and
+    bn_trunk_bwd: 16 blocks + the close in one host call each way, the
+    33 weight grads in one launch of W) at the training shape, train
+    mode, SAME and REFLECT: forward and backward through the model's
+    trunk, the kernel path and the plain path (both bf16) held to the
+    unrounded f32 path (every grad within BN_TRUNK_VS_F32 times the plain
+    path's error, each block's BN2 dy and its invariants, _dy_rows), the
+    running statistics kernel vs plain, two planted faults in B2 caught,
+    two calls bit-identical, and the trunk op against the per-function
+    kernels block by block (bn_trunk_by_blocks: the same bits but for
+    the weight grads, whose W split differs with the job count: 1e-4 of
+    their largest magnitude); the trunk op's device time each way (a
+    CUDA graph) and host time a call, the plain trunk's time. Returns the
+    stats of K4t, K4tb (SAME) and K4rt, K4rtb (REFLECT)."""
+    stats = new_stats(('K4t', 'K4tb', 'K4rt', 'K4rtb'))
+    bsz, h, w = TRAIN_BATCH, TRAIN_PATCH // SCALE, TRAIN_PATCH // SCALE
+    for rf in (False, True):
+        trunk, gen = _trunk_model(device, rf)
+        x = _uniform(gen, (bsz, h, w, C), 1.0, device, torch.bfloat16)
+        g = _uniform(gen, (bsz, h, w, C), 1.0, device, torch.bfloat16)
+
+        def run(dtype, plain, rec, by_blocks=False):
+            m = copy.deepcopy(trunk).train()
+            xi = x.to(dtype).clone().requires_grad_()
+            with _dy_record(bn_block.PLAIN if plain else bn_block.KERNELS,
+                            rec):
+                out = (bn_trunk_by_blocks(m, xi, dtype, plain) if by_blocks
+                       else m(xi, dtype, plain))
+                out.backward(g.to(dtype))
+            return m, {'out': out, 'dx': xi.grad,
+                       **{n: p.grad for n, p in m.named_parameters()}}
+
+        scales, rk, rp, rf32 = {}, [], [], []
+        mk, tk = run(torch.bfloat16, False, rk)
+        mp, tp = run(torch.bfloat16, True, rp)
+        with _db_scales(scales):
+            _, tf = run(torch.float32, True, rf32)
+        torch.cuda.synchronize()
+        rows = _vs_f32(tk, tp, tf, scales)
+        dy_rows = _dy_rows(rk, rp, rf32)
+        kind = 'K4r' if rf else 'K4'
+        label = (f'{kind} trunk op L={L} + close {bsz}x{h}x{w}, fwd and '
+                 f'bwd')
+        print(f'{label}, max_abs vs the f32 path, kernel/plain/tol (|f32|): '
+              + ', '.join(t for _, t in rows) + '; per block, error/limit: '
+              + ', '.join(f'{t} = {r:.4g}' for r, t in dy_rows))
+        rows = sorted(rows + dy_rows, key=lambda r: -r[0])
+        need(all(r <= 1.0 for r, _ in rows),
+             f'{label}: ' + '; '.join(t for r, t in rows if not r <= 1.0))
+        bk, bp = dict(mk.named_buffers()), dict(mp.named_buffers())
+        _check_all(f'{kind} trunk op running statistics, kernel vs plain',
+                   list(bk), list(bk.values()), list(bp.values()),
+                   [BN_TRUNK_STAT_REL] * len(bk))
+        for what, fault in PLANTED.items():
+            bad_dy = []
+            with _planted(fault):
+                _, bad = run(torch.bfloat16, False, bad_dy)
+            _catches(_vs_f32(bad, tp, tf, scales)
+                     + _dy_rows(bad_dy, rp, rf32), what, label)
+        mk2, tk2 = run(torch.bfloat16, False, None)
+        need(all(torch.equal(tk[n], tk2[n]) for n in tk) and all(
+            torch.equal(a, b) for a, b in zip(mk.buffers(), mk2.buffers())),
+             f'{label}: two calls differ')
+        mb, tb = run(torch.bfloat16, False, None, by_blocks=True)
+        weights = ('w1', 'w2', 'close_w')
+        same = [n for n in tk if n not in weights]
+        need(all(torch.equal(tk[n], tb[n]) for n in same) and all(
+            torch.equal(a, b) for a, b in zip(mk.buffers(), mb.buffers())),
+             f'{label}: the trunk op differs from its blocks called one by '
+             'one: ' + ', '.join(n for n in same
+                                 if not torch.equal(tk[n], tb[n])))
+        worst = max(((tk[n] - tb[n]).abs().max() / tb[n].abs().max()).item()
+                    for n in weights)
+        print(f'{label}: against its blocks called one by one (the '
+              f'per-function kernels): out, dx, running statistics and '
+              f'every grad but the conv weights\' bit for bit; the weight '
+              f'grads (W split over 33 jobs, not 1) within {worst:.3g} of '
+              f'their largest magnitude (tol 1e-4)  [{smi}]')
+        need(worst <= 1e-4, f'{label}: weight grads against its blocks')
+
+        # the trunk op alone, each way, on the model's parameters
+        m = trunk
+        prm = [m.w1, m.b1, m.bn1_scale, m.bn1_bias, m.alpha, m.w2, m.b2,
+               m.bn2_scale, m.bn2_bias, m.close_w, m.close_b,
+               m.close_bn_scale, m.close_bn_bias]
+        bf = torch.bfloat16
+        fargs = [t.detach().to(bf if t.dim() >= 4 else torch.float32)
+                 .contiguous() for t in prm]
+        fwd = lambda: bn_trunk_fwd(x, *fargs, reflect=rf)  # noqa: E731
+        out, acts, ys, sts = fwd()
+        bargs = (acts, ys, sts, g, fargs[0], fargs[5], fargs[9], fargs[2],
+                 fargs[7], fargs[11], fargs[4])
+        bwd = lambda: bn_trunk_bwd(*bargs, reflect=rf)  # noqa: E731
+        pf = lambda: bn_block.bn_trunk_fwd_plain(  # noqa: E731
+            x, *fargs, reflect=rf)
+        pb = lambda: bn_block.bn_trunk_bwd_plain(  # noqa: E731
+            *bargs, reflect=rf)
+        px = bsz * h * w
+        cf = (2 * L + 1) * conv_flops(px, C, C)
+        for key, fn, plain, flops, moved in (
+                ('t', fwd, pf, cf, nbytes(x, fargs, out, acts, ys, sts)),
+                ('tb', bwd, pb, 2 * cf, nbytes(bargs, fargs, bwd()))):
+            kid = kind + key
+            dev_ms = graph_ms(fn, 3, 3)
+            host = host_ms(fn)
+            plain_ms = median_ms(plain, 2, 3)
+            st = stats[kid]
+            record(st, dev_ms, plain_ms, flops, moved)
+            st['device_ms'], st['host_ms'] = dev_ms, host
+            st['max_abs_err'] = max(
+                st['max_abs_err'],
+                (tk['out'] - tp['out']).float().abs().max().item()
+                if key == 't' else
+                (tk['dx'] - tp['dx']).float().abs().max().item())
+            print(f'{kid} (trunk op, {"bwd" if key == "tb" else "fwd"}, '
+                  f'L={L} + close) {bsz}x{h}x{w}: device {dev_ms:.4f} ms (a '
+                  f'CUDA graph; {dev_ms / (L + 1):.5f} a conv pair), host '
+                  f'{host:.4f} ms a call, plain {plain_ms:.4f} ms, bound '
+                  f'{st["bound_ms"]:.5f} ms  [{smi}]', flush=True)
+        del acts, ys, sts, bargs
+        torch.cuda.empty_cache()
     return stats
 
 
@@ -1708,16 +1880,17 @@ def check_bn_reflect_kernels(device, smi: str) -> dict:
             st = stats[kid + 'r']
             st['max_abs_err'] = max(st['max_abs_err'], err)
             if i == 0:
-                dev_ms = _kernel_device_ms(lambda: fn(*args), K4_KERNELS)
-                same_ms = _kernel_device_ms(lambda: fn(*args[:-1], False),
-                                            K4_KERNELS)
+                dev_ms = graph_ms(lambda: fn(*args))
+                same_ms = graph_ms(lambda: fn(*args[:-1], False))
+                host = host_ms(lambda: fn(*args))
                 plain_ms = median_ms(lambda: plain(*args))
-                print(f'K4r {kid} {tag}: kernel {dev_ms:.4f} ms (its '
-                      f'kernels on the device, torch.profiler) against K4 '
-                      f'(SAME) {same_ms:.4f} ms on the same inputs = '
-                      f'{dev_ms / same_ms:.3f}x; plain {plain_ms:.4f} ms  '
+                print(f'K4r {kid} {tag}: device {dev_ms:.4f} ms (a CUDA '
+                      f'graph of its calls) against K4 (SAME) {same_ms:.4f} '
+                      f'ms on the same inputs = {dev_ms / same_ms:.3f}x; host '
+                      f'{host:.4f} ms a call; plain {plain_ms:.4f} ms  '
                       f'[{smi}]')
                 record(st, dev_ms, plain_ms, flops, nbytes(args, got))
+                st['device_ms'], st['host_ms'] = dev_ms, host
 
     # one block, K4r against a bf16 cuDNN reflect block, at the training
     # shape with the same weights
@@ -2056,6 +2229,11 @@ W_CASES = (
     ('phase-dense 256->16 at 2x', 3, 4 * C, 16, 1, False, 1.0, 1, 2),
     ('phase-dense 5x5 256->16 at 2x', 5, 4 * C, 16, 1, False, 1.0, 1, 2),
     ('K4r reflect 64->64 (SRGAN)', 3, C, C, 1, True, 1.0, 1, 1),
+    # K4's trunk op: every conv's weight grads of a trunk in one launch
+    ('K4 BN trunk 64->64, 33 stacked jobs', 3, C, C, 1, False, 1.0,
+     2 * L + 1, 1),
+    ('K4r BN trunk reflect 64->64, 33 stacked jobs', 3, C, C, 1, True, 1.0,
+     2 * L + 1, 1),
     *((f'DDBPN x4 {ci}->{co}', k, ci, co, 1, False, 1.0, 1, 1)
       for ci, co, k in K2G_X4),
     ('x3 phase-major 64->576', 3, C, 9 * C, 1, False, 1.0, 1, 1),
@@ -2492,11 +2670,38 @@ def check_k8_kernels(device, smi: str) -> dict:
                   f' GFLOP, {moved / 1e6:.3f} MB)  [{smi}]')
             if i == 0:
                 record(stats[kid], ms, plain_ms, flops, moved)
+            if kid == 'K8b':
+                _k8b_times(stats[kid], fn, args, i == 0, smi, tag)
             del got, ref
         if i != 2:
             _k8c_blocks(device, smi, stats, bsz, h, w)
         torch.cuda.empty_cache()
+    for bsz, h, w in K8B_SHAPES:
+        gen = torch.Generator().manual_seed(bsz * 7919 + h * 127 + w)
+        fn, plain, args, _, _ = k8_cases(gen, device, bsz, h, w)['K8b']
+        got = fn(*args)
+        torch.cuda.synchronize()
+        tag = f'K8b {bsz}x{h}x{w}x{C}'
+        need(torch.equal(got, fn(*args)), f'{tag}: two calls differ')
+        err = _check_all(tag, ('out',), [got], [plain(*args)], [K8_STEPS])
+        stats['K8b']['max_abs_err'] = max(stats['K8b']['max_abs_err'], err)
+        _k8b_times(stats['K8b'], fn, args, False, smi, tag)
+        del got, args
+        torch.cuda.empty_cache()
     return stats
+
+
+def _k8b_times(st: dict, fn, args, keep: bool, smi: str, tag: str) -> None:
+    """K8b's device time alone (a CUDA graph of its calls), host time a
+    call and its pixels a block (ca_layer.block_pixels); ``keep``: into
+    ``st`` as its device_ms and host_ms."""
+    dev_ms, host = graph_ms(lambda: fn(*args)), host_ms(lambda: fn(*args))
+    kpix = k8b_ops.block_pixels(*args[0].shape[1:3])
+    print(f'{tag}: {kpix} pixels a block, device {dev_ms:.5f} ms '
+          f'(a CUDA graph of its calls), host {host:.4f} ms a call  '
+          f'[{smi}]', flush=True)
+    if keep:
+        st['device_ms'], st['host_ms'] = dev_ms, host
 
 
 def _timed(st: dict, fn, plain, flops: float, moved: int, lib=None,
@@ -2769,6 +2974,26 @@ def run_op_paths(device, smi: str) -> dict:
                        f32),
               _uniform(gen, (RDN_D, RDN_G0), c_tot ** -0.5, device, f32)])
 
+    bn_prm = [_uniform(gen, (3, 3, C, C), cb, device, f32),
+              _uniform(gen, (C,), cb, device, f32),
+              1.0 + _uniform(gen, (C,), 0.5, device, f32),
+              _uniform(gen, (C,), 0.3, device, f32),
+              torch.full((1,), 0.25, device=device),
+              _uniform(gen, (3, 3, C, C), cb, device, f32),
+              _uniform(gen, (C,), cb, device, f32),
+              1.0 + _uniform(gen, (C,), 0.5, device, f32),
+              _uniform(gen, (C,), 0.3, device, f32),
+              _uniform(gen, (3, 3, C, C), cb, device, f32),
+              _uniform(gen, (C,), cb, device, f32),
+              1.0 + _uniform(gen, (C,), 0.5, device, f32),
+              _uniform(gen, (C,), 0.3, device, f32)]
+
+    def bn_op(reflect):
+        def op(prm, plain):
+            u, _ = bn_block.bn_resblock(x, *prm[:9], plain, reflect)
+            return [bn_block.bn_close(u, x, *prm[9:], plain, reflect)[0]]
+        return op
+
     def op_resblock_cs(prm, plain):
         return [resblock_cs(x, *prm, 0.1, plain)]
 
@@ -2788,7 +3013,16 @@ def run_op_paths(device, smi: str) -> dict:
              'rdn_trunk_calls: forward differs from the grid trunk')
 
     runs = {}
+    # one BN block + the close through the per-function wrappers: F1, F3,
+    # B1, B3 twice, F2, B2 once
+    bn_calls = {'F1': 2, 'F2': 1, 'F3': 2, 'B1': 2, 'B2': 1, 'B3': 2}
     for key, op, params, expected in (
+            ('bn_block_op', bn_op(False), bn_prm,
+             {K4_FNS[k]: n for k, n in bn_calls.items()}),
+            ('bn_block_r_op', bn_op(True), bn_prm,
+             {**{K4R_COUNTERS.get(k, K4_FNS[k]): n
+                 for k, n in bn_calls.items()},
+              **{K4_FNS[k]: 0 for k in K4R}}),
             ('resblock_cs_op', op_resblock_cs, block,
              {trunk_fwd: 1, trunk_bwd: 1}),
             ('resblock_v3_op', op_v3, block,
@@ -2814,8 +3048,17 @@ def run_op_paths(device, smi: str) -> dict:
             grads[plain] = [t.grad for t in prm]
         need(runs[key] == expected,
              f'{key}: launches {runs[key]}, expected {expected}')
+        # a conv bias right before a batch norm gets f32 rounding noise
+        # for its gradient on every path (PRE_BN), and with reflect so
+        # does BN2's shift (the block's output cotangent, a transposed
+        # reflect conv of the close's zero-mean dy, sums to 0): held in
+        # phase 2n
+        noise = {'bn_block_op': (1, 6, 10),
+                 'bn_block_r_op': (1, 6, 8, 10)}.get(key, ())
         worst = max((gk - gp).abs().max().item() / gp.abs().max().item()
-                    for gk, gp in zip(grads[False], grads[True]))
+                    for i, (gk, gp) in enumerate(zip(grads[False],
+                                                     grads[True]))
+                    if i not in noise)
         print(f'{key}: launches ' + ', '.join(
             f'{_counter_name(k)} {v}' for k, v in runs[key].items())
             + f'; gradients kernel vs plain path, worst max_abs/max|ref| '
@@ -3089,14 +3332,20 @@ RCAN_PROFILE = (('conv_sm90_kernel<64, 1, 4, 1, false, 4>',
                 ('conv_sm90_kernel<64, 1, 4, 1, false, 0>',
                  'K5 fwd conv1 + K2 close convs (EPI 0)'),
                 ('conv_sm90_kernel', 'K2 bwd dx'))
-SRRESNET_PROFILE = (
-    ('bn_conv_stats_kernel<false', 'K4 F1 conv + stats'),
-    ('bn_conv_stats_kernel<true', 'K4 F2 norm + PReLU + conv + stats'),
+K4_RULES = (
+    ('conv_sm90_kernel<64, 1, 4, 1, false, 9>',
+     'K4 F1 / F2 conv + stats partials (K2 engine, EPI 9)'),
+    ('conv_sm90_kernel<64, 1, 4, 1, true, 10>',
+     'K4 B2 convT + PReLU bwd + BN1 sums (K2 engine TB, EPI 10)'),
+    ('conv_sm90_kernel<64, 1, 4, 1, true, 11>',
+     'K4 B3 convT + skip (K2 engine TB, EPI 11)'),
+    ('bn_act_kernel', 'K4 F2 h1 pass'),
+    ('bn_dy_kernel', 'K4 B2 / B3 dy pass + db partials'),
     ('bn_norm_skip_kernel', 'K4 F3 norm + skip'),
     ('bn_sums_kernel', 'K4 B1 sums'),
-    ('bn_bwd_conv_kernel<true', 'K4 B2 BN2 bwd + convT + PReLU bwd'),
-    ('bn_bwd_conv_kernel<false', 'K4 B3 BN1 bwd + convT + skip'),
-    ('bn_reduce_kernel', 'K4 fixed-order reductions + finalize'),
+    ('bn_reduce_kernel', 'K4 fixed-order reductions + finalize'))
+SRRESNET_PROFILE = (
+    *K4_RULES,
     ('wgrad', 'weight grads'),
     ('conv3x3_kernel<64, 64, 7, 16, true', 'K3 fwd'),
     ('conv3x3_kernel<256, 16, 7, 16, false, true', 'K3 bwd dx'),
@@ -3156,16 +3405,14 @@ SRRESNET_X3_PROFILE = (
     *SRRESNET_PROFILE)
 SRGAN_PROFILE = (
     ('bn_fold_ring_kernel', 'K4r B2 / B3 fold ring'),
-    ('bn_conv_stats_kernel<false, true', 'K4r F1 conv + stats'),
-    ('bn_conv_stats_kernel<true, true', 'K4r F2 norm + PReLU + conv + '
-     'stats'),
-    ('bn_bwd_conv_kernel<true, true', 'K4r B2 BN2 bwd + convT + fold + '
-     'PReLU bwd'),
-    ('bn_bwd_conv_kernel<false, true', 'K4r B3 BN1 bwd + convT + fold + '
-     'skip'),
-    ('bn_norm_skip_kernel', 'K4 F3 norm + skip'),
-    ('bn_sums_kernel', 'K4 B1 sums'),
-    ('bn_reduce_kernel', 'K4 fixed-order reductions + finalize'),
+    ('conv_sm90_kernel<64, 1, 4, 1, false, 9>',
+     'K4r F1 / F2 conv + mirrored halo + stats partials (K2 engine, '
+     'EPI 9)'),
+    ('conv_sm90_kernel<64, 1, 4, 1, true, 10>',
+     'K4r B2 convT + fold + PReLU bwd + BN1 sums (K2 engine TB, EPI 10)'),
+    ('conv_sm90_kernel<64, 1, 4, 1, true, 11>',
+     'K4r B3 convT + fold + skip (K2 engine TB, EPI 11)'),
+    *K4_RULES[3:],
     ('wgrad_sm90_kernel', 'K4r weight grads (reflect)'),
     ('wgrad_reduce', 'K4r weight grads (reflect)'),
     ('multi_tensor_apply', 'Adam (G and D)'))
@@ -3211,8 +3458,8 @@ EDSR_TRUE_PROFILE = _true_profile(
     (('resblock_f32_kernel', 'K8a fused block (f32 h1)'),), EDSR_PROFILE)
 RCAN_TRUE_PROFILE = _true_profile(
     (('ca_pool_kernel', 'K8b channel sums'),
-     ('ca_mlp_kernel', 'K8b pool + MLP + sigmoid'),
-     ('ca_apply_kernel', 'K8b gating')), RCAN_PROFILE)
+     ('ca_gate_apply_kernel', 'K8b gate + gating')),
+    RCAN_PROFILE)
 WDSR_TRUE_PROFILE = _true_profile(
     (('wdsr_chain_fwd_kernel<128, true>',
       'K8c chained 1x1 pair -> v (hi, lo)'),
@@ -3789,7 +4036,7 @@ def main() -> None:
     stats = check_kernels(device)
     stats.update(check_bwd_kernels(device, smi))
     stats.update(check_rcab_kernels(device, smi))
-    stats.update(check_bn_kernels(device))
+    stats.update(check_bn_kernels(device, smi))
     stats.update(check_rdn_kernels(device, smi))
     stats.update(check_k2_general(device, smi))
     stats.update(check_k2_train_fwd(device, smi))
@@ -3797,6 +4044,7 @@ def main() -> None:
     stats['W']['max_abs_err'] = max(stats['W']['max_abs_err'], w_err)
     stats.update(check_wdsr_kernels(device, smi))
     stats.update(check_bn_reflect_kernels(device, smi))
+    stats.update(check_bn_trunk(device, smi))
     stats.update(check_k8_kernels(device, smi))
     stats.update(check_form_kernels(device, smi))
     check_trunk_times(device, smi, stats)
@@ -3905,19 +4153,29 @@ def main() -> None:
              ('edsr_x3', 'srresnet_x3')),
             ('K25b', 'K2 conv3x3_bwd at 5x5 (dx 16->256; with its 5x5 '
              'weight grads)', CONV5_BWD, 'conv.cu', rep + '581'),
-            ('F1', 'K4 f1_conv_stats (conv + bias, stats of the stored y; '
-             'reduce + finalize)', f1_conv_stats, 'bn_block.cu', bn + '315'),
-            ('F2', 'K4 f2_norm_act_conv_stats (h1 = prelu(BN1) in the load, '
-             'conv, stats)', f2_norm_act_conv_stats, 'bn_block.cu',
-             bn + '324'),
+            ('F1', 'K4 f1_conv_stats (conv + bias on K2 engine EPI 9, stats '
+             'of the stored y; reduce + finalize)', f1_conv_stats,
+             'bn_block.cu', bn + '315', ('bn_block',)),
+            ('F2', 'K4 f2_norm_act_conv_stats (h1 = prelu(BN1) pass, conv '
+             'on K2 engine EPI 9, stats)', f2_norm_act_conv_stats,
+             'bn_block.cu', bn + '324', ('bn_block',)),
             ('F3', 'K4 f3_norm_skip', f3_norm_skip, 'bn_block.cu',
-             bn + '333'),
+             bn + '333', ('bn_block',)),
             ('B1', 'K4 b1_sums (S_g, S_gx)', b1_sums, 'bn_block.cu',
-             bn + '346'),
-            ('B2', 'K4 b2_call (BN2 bwd in the load, convT, PReLU bwd, BN1 '
-             'sums)', b2_call, 'bn_block.cu', bn + '360'),
-            ('B3', 'K4 b3_call (BN1 bwd in the load, convT, skip)', b3_call,
-             'bn_block.cu', bn + '387'),
+             bn + '346', ('bn_block',)),
+            ('B2', 'K4 b2_call (BN2 bwd dy pass, convT + PReLU bwd + BN1 '
+             'sums on K2 engine TB EPI 10)', b2_call, 'bn_block.cu',
+             bn + '360', ('bn_block',)),
+            ('B3', 'K4 b3_call (BN1 bwd dy pass, convT + skip on K2 engine '
+             'TB EPI 11)', b3_call, 'bn_block.cu', bn + '387',
+             ('bn_block',)),
+            ('K4t', 'K4 bn_trunk_fwd (SRResNet BN trunk, one host call: per '
+             'block F1, h1 pass, F2 on K2 engine EPI 9, F3; the close)',
+             K4T[False][0], 'bn_block.cu', bn + '435'),
+            ('K4tb', 'K4 bn_trunk_bwd (one host call: per block B1, dy '
+             'passes, B2 / B3 on K2 engine TB EPI 10 / 11; the 33 weight '
+             'grads in one W launch)', K4T[False][1], 'bn_block.cu',
+             bn + '490'),
             ('K6', 'K6 rdn_fwd (16 dense blocks: 8 dense layers + the 1x1 '
              'fusion each; saving)', rdn_fwd, 'rdn.cu', rep + '2174'),
             ('K6b', 'K6 rdb_bwd_chain (one block: fusion bwd, dwf, dx chain, '
@@ -3945,23 +4203,30 @@ def main() -> None:
              'engine TB EPI 7, chained pointwise bwd with h1 recomputed, '
              'dW1 dW2 dW3 db3 on W engine, db1 db2 fixed-order sums)',
              wdsr_bwd, 'wdsr.cu', 'srtpu/ops/wdsr_cs.py:159'),
-            ('F1r', 'K4r f1_conv_stats, reflect (mirrored halo; stats of '
-             'the stored y)', K4R_COUNTERS['F1'], 'bn_block.cu', bn + '315'),
+            ('F1r', 'K4r f1_conv_stats, reflect (halo mirrored in shared '
+             'memory after the TMA load; stats of the stored y)',
+             K4R_COUNTERS['F1'], 'bn_block.cu', bn + '315', ('bn_block',)),
             ('F2r', 'K4r f2_norm_act_conv_stats, reflect (h1 of the '
              'mirrored pixel in the halo)', K4R_COUNTERS['F2'],
-             'bn_block.cu', bn + '324'),
+             'bn_block.cu', bn + '324', ('bn_block',)),
             ('B2r', 'K4r b2_call, reflect (fold ring launch, convT + fold '
              'before the PReLU bwd and BN1 sums)', K4R_COUNTERS['B2'],
-             'bn_block.cu', bn + '360'),
+             'bn_block.cu', bn + '360', ('bn_block',)),
             ('B3r', 'K4r b3_call, reflect (fold ring launch, convT + fold '
              'before the skip and its rounding)', K4R_COUNTERS['B3'],
-             'bn_block.cu', bn + '387'),
+             'bn_block.cu', bn + '387', ('bn_block',)),
+            ('K4rt', 'K4r bn_trunk_fwd, reflect (SRGAN generator trunk, one '
+             'host call)', K4T[True][0], 'bn_block.cu', bn + '435'),
+            ('K4rtb', 'K4r bn_trunk_bwd, reflect (one host call; fold ring '
+             'launches; the 33 reflect weight grads in one W launch)',
+             K4T[True][1], 'bn_block.cu', bn + '490'),
             ('K8a', 'K8a resblock_fused_fwd (EDSR use_pallas=True: fused '
              'block, f32 h1 as bf16 hi + lo; saving h1)', resblock_fused_fwd,
              'resblock.cu', 'srtpu/ops/resblock.py:165'),
-            ('K8b', 'K8b ca_layer_fwd (RCAN use_pallas=True: channel sums, '
-             'per-image gate, gating)', ca_layer_fwd, 'ca_layer.cu',
-             'srtpu/ops/ca_layer.py:41'),
+            ('K8b', 'K8b ca_layer_fwd (RCAN use_pallas=True: two launches, '
+             'fixed-order partial sums, then gate + gating in every block)',
+             ca_layer_fwd,
+             'ca_layer.cu', 'srtpu/ops/ca_layer.py:41'),
             ('K8c', 'K8c wdsr_block_fused_fwd (WDSR-B use_pallas=True: '
              'chained 1x1 pair with f32 a and v as hi + lo, 3x3 over [hi | '
              'lo] + res_scale + skip on K2 engine EPI 8)',

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import conv3x3, resblock_fused, trunk, upsample
-from ..ops.bn_block import bn_close, bn_close_ref, bn_resblock, bn_resblock_ref
+from ..ops.bn_block import bn_close_ref, bn_resblock_ref, bn_trunk
 from ..ops.conv import conv3x3_plain, conv_f32
 from ..ops.layout import (b_phase_dense, b_pm, pixel_shuffle, pm_to_nhwc,
                           reflect_pad, w_phase_dense, w_pm_hwio)
@@ -235,10 +235,9 @@ class BNTrunk(nn.Module):
     (C,). Running statistics are buffers: mean1, var1, mean2, var2 (L, C),
     mean_close, var_close (C,) (srtpu's ``batch_stats``).
 
-    Train mode runs K4 (:func:`bn_resblock` per block, :func:`bn_close`)
-    on batch statistics and then updates the running statistics once,
-    ra <- 0.9 ra + 0.1 batch with the biased batch variance (srtpu's
-    BatchNorm, momentum 0.9). Eval mode normalises with the running
+    Train mode runs K4 on batch statistics, the whole trunk in one host
+    call each way (:func:`bn_trunk`), and then updates the running
+    statistics once (:meth:`update_running`). Eval mode normalises with the running
     statistics on stock PyTorch convs (:func:`bn_resblock_ref`), as srtpu
     runs eval on XLA; ``plain`` changes nothing there. ``reflect`` gives
     every conv REFLECT boundaries (SRGAN's generator): K4r in train mode,
@@ -300,20 +299,27 @@ class BNTrunk(nn.Module):
             raise ValueError(
                 f'BNTrunk: K4 takes 64 channels on CUDA, got '
                 f'{xd.shape[-1]} (train mode; eval mode runs any width)')
-        u, stats = xd, []
-        for prm in self._blocks():
-            u, st = bn_resblock(u, *prm, plain=plain, reflect=rf)
-            stats.append(st)
-        out, (mc, vc) = bn_close(u, xd, *close, plain=plain, reflect=rf)
-        with torch.no_grad():
-            mom = self.MOMENTUM
-            for name, batch in zip(('mean1', 'var1', 'mean2', 'var2'),
-                                   (torch.stack(s) for s in zip(*stats))):
-                ra = getattr(self, name)
-                ra.copy_(mom * ra + (1 - mom) * batch)
-            for ra, batch in ((self.mean_close, mc), (self.var_close, vc)):
-                ra.copy_(mom * ra + (1 - mom) * batch)
+        out, sts = bn_trunk(xd, self.w1, self.b1, self.bn1_scale,
+                            self.bn1_bias, self.alpha, self.w2, self.b2,
+                            self.bn2_scale, self.bn2_bias, *close,
+                            plain=plain, reflect=rf)
+        c = sts.shape[0] - 1
+        self.update_running(sts[0:c:2, 0], sts[0:c:2, 1], sts[1:c:2, 0],
+                            sts[1:c:2, 1], sts[c, 0], sts[c, 1])
         return out
+
+    @torch.no_grad()
+    def update_running(self, mean1, var1, mean2, var2, mean_close,
+                       var_close) -> None:
+        """ra <- 0.9 ra + 0.1 batch for each running statistic, from the
+        batch means and biased variances in the buffers' shapes (srtpu's
+        BatchNorm, momentum 0.9)."""
+        mom = self.MOMENTUM
+        for name, b in zip(('mean1', 'var1', 'mean2', 'var2', 'mean_close',
+                            'var_close'),
+                           (mean1, var1, mean2, var2, mean_close, var_close)):
+            ra = getattr(self, name)
+            ra.copy_(mom * ra + (1 - mom) * b)
 
 
 class UpscaleTail(nn.Module):

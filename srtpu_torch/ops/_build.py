@@ -42,7 +42,9 @@ SIGNATURES = {
     'srt_bn_conv_stats': [_P] * 11 + [_I] * 4 + [_P],
     'srt_bn_norm_skip': [_P] * 4 + [_L, _P],
     'srt_bn_sums': [_P] * 5 + [_L, _P],
-    'srt_bn_bwd_conv': [_P] * 16 + [_I] * 4 + [_P],
+    'srt_bn_bwd_conv': [_P] * 17 + [_I] * 4 + [_P],
+    'srt_bn_trunk_fwd': [_P] * 19 + [_I] * 5 + [_P],
+    'srt_bn_trunk_bwd': [_P] * 26 + [_I] * 7 + [_P],
     'srt_rcab_group_fwd': [_P] * 15 + [_I] * 7 + [_P],
     'srt_rcab_group_chain': [_P] * 19 + [_I] * 6 + [_P],
     'srt_rdn_fwd': [_P] * 7 + [_I] * 6 + [_P],

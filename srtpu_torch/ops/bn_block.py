@@ -10,14 +10,24 @@ Replaces ``srtpu/ops/bn_resblock_cs.py``: ``_conv_stats_call`` (behind
 (:class:`BNResBlockFn`) and ``bn_close_cs`` (:class:`BNCloseFn`), each
 with ``reflect`` as srtpu's (``f3_norm_skip`` and ``b1_sums`` have no
 conv and take none). The kernels are ``csrc/bn_block.cu``, whose head
-note says what bounds them on the H100, how the batch statistics are
-reduced without float atomics and what reflect changes (template
-instances of the same kernels; the backward's fold of the mirrored
-reads); the weight grads come from the weight-grad kernel
-(:mod:`.wgrad`). Each wrapper (:func:`f1_conv_stats` ... :func:`b3_call`)
-launches its kernels for CUDA tensors, takes its plain version
-(``*_plain``) only for CPU tensors, and counts one launch per call:
-``launches`` with SAME boundaries, ``launches_reflect`` with REFLECT.
+note says what bounds them on the H100, how the convs run on K2's
+Hopper engine (``csrc/conv_sm90.cuh``, K4's own epilogues ``EPI`` 9-11),
+how the batch statistics are reduced without float atomics and what
+reflect changes (the halo mirrored in shared memory; the backward's fold
+of the mirrored reads); the weight grads come from the weight-grad
+kernel (:mod:`.wgrad`). Each wrapper (:func:`f1_conv_stats` ...
+:func:`b3_call`) launches its kernels for CUDA tensors, takes its plain
+version (``*_plain``) only for CPU tensors, and counts one launch per
+call: ``launches`` with SAME boundaries, ``launches_reflect`` with
+REFLECT.
+
+The trunk op (:func:`bn_trunk`, :class:`BNTrunkFn`) runs a whole BN
+trunk, L blocks and the closing conv + BN + global skip, in one host
+call each way (:func:`bn_trunk_fwd`, :func:`bn_trunk_bwd`: the per-block
+loop in C++, every weight grad in one stacked launch of W); its plain
+versions are the per-function plain versions in the same order, so the
+trunk op equals L calls of :func:`bn_resblock` and one of
+:func:`bn_close`.
 
 Shapes: activations NHWC (B, H, W, C) in the compute dtype; conv weights
 HWIO (3, 3, C, C) in it; biases, BN scale (gamma) and shift (beta), the
@@ -42,11 +52,15 @@ from . import _build
 from ._build import ptr
 from .conv import conv_f32
 from .layout import reflect_fold, w_t
-from .wgrad import conv_wgrad, conv_wgrad_plain
+from .wgrad import (conv_wgrad, conv_wgrad_plain, wgrad_parts,
+                    wgrad_workspace)
 
 EPS = 1e-5
-TH, TW = 7, 16      # the conv kernels' pixel tile
-CHUNK = 256         # pixels per block of B1's sums
+TH, TW = 8, 16      # K2's engine's pixel tile (the convs' partials)
+CHUNK = 128         # pixels per block of B1's sums and the dy pass
+# K4's epilogues on K2's engine (csrc/conv_sm90.cuh): F1 / F2's conv and
+# its statistics' partials; B2's and B3's transposed convs
+EPI_F, EPI_B2, EPI_B3 = 9, 10, 11
 _DIMS = (0, 1, 2)
 
 
@@ -301,7 +315,7 @@ def _conv_stats(x, st_in, alpha, w, b, gamma, beta, reflect, name):
     st = _f32(5, c, dev=dev)
     part = _f32(_tiles(x), 2, c, dev=dev)
     bsz, hh, ww, _ = x.shape
-    with torch.cuda.device(dev):
+    with _build.on(dev):
         err = _build.library().srt_bn_conv_stats(
             x.data_ptr(), ptr(st_in), ptr(alpha), w.data_ptr(),
             b.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
@@ -314,7 +328,8 @@ def _conv_stats(x, st_in, alpha, w, b, gamma, beta, reflect, name):
 def f1_conv_stats(u, w, b, gamma, beta, reflect: bool = False):
     """F1 (srtpu ``f1_conv_stats``): u (B, H, W, C) bf16, w (3, 3, C, C)
     bf16, b, gamma, beta (C,) f32 -> (y, st). On CUDA: conv + per-tile
-    sums, then the fixed-order reduction and finalize (two launches).
+    sums on K2's engine (EPI 9), then the fixed-order reduction and
+    finalize (two launches).
     ``reflect``: REFLECT boundaries (H, W >= 2)."""
     if u.device.type == 'cpu':
         return f1_plain(u, w, b, gamma, beta, reflect)
@@ -328,8 +343,8 @@ def f2_norm_act_conv_stats(y1, st1, alpha, w, b, gamma, beta,
                            reflect: bool = False):
     """F2 (srtpu ``f2_norm_act_conv_stats``): y1 and its statistics st1,
     the PReLU slope alpha (1,) f32 -> (y2, h1, st2); h1 =
-    bf16(prelu(a1 * y1 + c1)) is saved for dW2. ``reflect``: the conv's
-    ring mirrors h1."""
+    bf16(prelu(a1 * y1 + c1)) is saved for dW2. On CUDA: a pass writes h1,
+    then F1's conv reads it. ``reflect``: the conv's ring mirrors h1."""
     if y1.device.type == 'cpu':
         return f2_plain(y1, st1, alpha, w, b, gamma, beta, reflect)
     y2, h1, st2 = _conv_stats(y1, st1, alpha, w, b, gamma, beta, reflect,
@@ -346,7 +361,7 @@ def f3_norm_skip(y, st, u):
     dev = y.device
     _expect(dev, [('y', y), ('u', u)], [('st', st, (5, 64))])
     out = torch.empty_like(y)
-    with torch.cuda.device(dev):
+    with _build.on(dev):
         err = _build.library().srt_bn_norm_skip(
             y.data_ptr(), st.data_ptr(), u.data_ptr(), out.data_ptr(),
             int(_npix(y)), _build.stream(dev))
@@ -365,7 +380,7 @@ def b1_sums(g, y, st):
     npix = int(_npix(g))
     part = _f32(-(-npix // CHUNK), 2, 64, dev=dev)
     sums = _f32(2, 64, dev=dev)
-    with torch.cuda.device(dev):
+    with _build.on(dev):
         err = _build.library().srt_bn_sums(
             g.data_ptr(), y.data_ptr(), st.data_ptr(), part.data_ptr(),
             sums.data_ptr(), npix, _build.stream(dev))
@@ -385,21 +400,21 @@ def _bwd_conv(g, y, st, gamma, sums, w, y1, st1, alpha, skip, reflect,
     if b2:
         vecs += [('st1', st1, (5, c)), ('alpha', alpha, (1,))]
     _expect(dev, acts, vecs, [('w', w)])
-    wt = w_t(w).contiguous()
     nq = 4 if b2 else 1
     bsz, hh, ww, _ = g.shape
     dy, out = torch.empty_like(g), torch.empty_like(g)
-    part = _f32(_tiles(g), nq, c, dev=dev)
+    part = _f32(_tiles(g), 3, c, dev=dev) if b2 else None
+    dbpart = _f32(-(-int(_npix(g)) // CHUNK), c, dev=dev)
     red = _f32(nq, c, dev=dev)
     dal = _f32(1, dev=dev) if b2 else None
     ring = _f32(bsz, 2 * (hh + ww), c, dev=dev) if reflect else None
-    with torch.cuda.device(dev):
+    with _build.on(dev):
         err = _build.library().srt_bn_bwd_conv(
             g.data_ptr(), y.data_ptr(), st.data_ptr(), gamma.data_ptr(),
-            sums.data_ptr(), wt.data_ptr(), dy.data_ptr(), out.data_ptr(),
-            ptr(y1), ptr(st1), ptr(alpha), ptr(skip), part.data_ptr(),
-            red.data_ptr(), ptr(dal), ptr(ring), bsz, hh, ww, int(reflect),
-            _build.stream(dev))
+            sums.data_ptr(), w.data_ptr(), dy.data_ptr(), out.data_ptr(),
+            ptr(y1), ptr(st1), ptr(alpha), ptr(skip), ptr(part),
+            dbpart.data_ptr(), red.data_ptr(), ptr(dal), ptr(ring), bsz, hh,
+            ww, int(reflect), _build.stream(dev))
     _build.check(err, 'srt_bn_bwd_conv')
     return out, dy, red, dal
 
@@ -407,9 +422,12 @@ def _bwd_conv(g, y, st, gamma, sums, w, y1, st1, alpha, skip, reflect,
 def b2_call(g, y2, st2, gamma2, sums2, y1, st1, alpha, w2,
             reflect: bool = False):
     """B2 (srtpu ``b2_call``), as :func:`b2_plain`: w2 is the forward
-    weight (transposed inside). ``reflect``: a ring launch computes the
-    transposed conv's values on the pad ring, which B2 adds at their
-    mirrored sources before its epilogue."""
+    weight (K2's transposed engine reads it as it lies). On CUDA: a pass
+    writes bf16 dy2 and db2's partials, the transposed conv runs at EPI
+    10, and two reductions give db2 and BN1's sums. ``reflect``: a ring
+    launch computes the transposed conv's values on the pad ring from the
+    stored dy2, which B2 adds at their mirrored sources before its
+    epilogue."""
     if g.device.type == 'cpu':
         return b2_plain(g, y2, st2, gamma2, sums2, y1, st1, alpha, w2,
                         reflect)
@@ -421,7 +439,7 @@ def b2_call(g, y2, st2, gamma2, sums2, y1, st1, alpha, w2,
 
 def b3_call(dz, y1, st1, gamma1, sums1, w1, skip, reflect: bool = False):
     """B3 (srtpu ``b3_call``), as :func:`b3_plain`: w1 is the forward
-    weight (transposed inside); skip None for the close conv;
+    weight; skip None for the close conv; the transposed conv at EPI 11;
     ``reflect`` as :func:`b2_call`."""
     if dz.device.type == 'cpu':
         return b3_plain(dz, y1, st1, gamma1, sums1, w1, skip, reflect)
@@ -544,6 +562,295 @@ def bn_close(u, x_skip, wc, bc, gac, bec, plain: bool = False,
     returns ``(out, (mean, var))``."""
     out, st = BNCloseFn.apply(u, x_skip, wc, bc, gac, bec, plain, reflect)
     return out, (st[0], st[1])
+
+
+# ------------------------------------------------------ the trunk op
+
+
+def trunk_fwd_calls(k: dict, x, w1s, b1s, g1s, be1s, alphas, w2s, b2s, g2s,
+                    be2s, wc, bc, gc, bec, reflect: bool = False):
+    """:func:`bn_trunk_fwd` as calls of the per-function table ``k``
+    (``PLAIN`` or ``KERNELS``), block after block, then the close."""
+    acts, ys, sts = [x], [], []
+    u = x
+    for i in range(w1s.shape[0]):
+        y1, st1 = k['f1'](u, w1s[i], b1s[i], g1s[i], be1s[i], reflect)
+        y2, h1, st2 = k['f2'](y1, st1, alphas[i].reshape(1), w2s[i], b2s[i],
+                              g2s[i], be2s[i], reflect)
+        u = k['f3'](y2, st2, u)
+        acts += [h1, u]
+        ys += [y1, y2]
+        sts += [st1, st2]
+    yc, stc = k['f1'](u, wc, bc, gc, bec, reflect)
+    return (k['f3'](yc, stc, x), torch.stack(acts), torch.stack(ys + [yc]),
+            torch.stack(sts + [stc]))
+
+
+def trunk_bwd_calls(k: dict, acts, ys, sts, g, w1s, w2s, wc, g1s, g2s, gc,
+                    alphas, reflect: bool = False):
+    """:func:`bn_trunk_bwd` as calls of the per-function table ``k``: the
+    close's B1 and B3, then blocks L - 1 .. 0 (B1, B2, B3), dx = block
+    0's du + g, and every conv's weight grads from its saved input and
+    bf16 dy."""
+    n = w1s.shape[0]
+    c = 2 * n
+    dys, dbs, sums, dal = [None] * (c + 1), [None] * (c + 1), \
+        [None] * (c + 1), [None] * n
+    sums[c] = k['b1'](g, ys[c], sts[c])
+    gcur, dys[c], dbs[c] = k['b3'](g, ys[c], sts[c], gc, sums[c], wc, None,
+                                   reflect)
+    for i in reversed(range(n)):
+        k1, k2 = 2 * i, 2 * i + 1
+        sums[k2] = k['b1'](gcur, ys[k2], sts[k2])
+        dz, dys[k2], dbs[k2], dal[i], sums[k1] = k['b2'](
+            gcur, ys[k2], sts[k2], g2s[i], sums[k2], ys[k1], sts[k1],
+            alphas[i].reshape(1), w2s[i], reflect)
+        gcur, dys[k1], dbs[k1] = k['b3'](dz, ys[k1], sts[k1], g1s[i],
+                                         sums[k1], w1s[i], gcur, reflect)
+    dys = torch.stack(dys)
+    dws, _ = k['wgrad'](acts, dys, reflect=reflect)
+    return (gcur + g, dys, dws, torch.stack(dbs), torch.stack(sums),
+            torch.cat(dal))
+
+
+def bn_trunk_fwd_plain(*args, **kw):
+    """Plain version of :func:`bn_trunk_fwd`: the per-function plain
+    versions in its order (:func:`trunk_fwd_calls` over ``PLAIN``)."""
+    return trunk_fwd_calls(PLAIN, *args, **kw)
+
+
+def bn_trunk_bwd_plain(*args, **kw):
+    """Plain version of :func:`bn_trunk_bwd` (:func:`trunk_bwd_calls`
+    over ``PLAIN``)."""
+    return trunk_bwd_calls(PLAIN, *args, **kw)
+
+
+def fwd_plan(n_blocks: int, reflect: bool) -> tuple:
+    """bn_block.cu's launches for a trunk forward of ``n_blocks`` blocks
+    (srt_bn_trunk_fwd), in order, each (kernel, EPI, transposed, reflect,
+    what it writes): 'engine' K2's engine over the 8 x 16 tiles at K4's
+    EPI, 'reduce' the fixed-order reduction (and finalize), 'act' the
+    h1 pass, 'norm_skip' F3, 'copy' a device copy."""
+    rf = bool(reflect)
+    conv = (('engine', EPI_F, False, rf, ('y', 'part')),
+            ('reduce', None, False, False, ('st',)))
+    block = (conv + (('act', None, False, False, ('h1',)),) + conv
+             + (('norm_skip', None, False, False, ('u',)),))
+    return ((('copy', None, False, False, ('acts',)),) + block * n_blocks
+            + conv + (('norm_skip', None, False, False, ('out',)),))
+
+
+def bwd_plan(n_blocks: int, reflect: bool) -> tuple:
+    """bn_block.cu's launches for a trunk backward (srt_bn_trunk_bwd), as
+    :func:`fwd_plan`: 'sums' B1, 'dy' a BN backward's bf16 dy and db's
+    partials, 'ring' REFLECT's fold ring, the transposed convs at EPI 10
+    (B2) and 11 (B3), then one 'wgrad' launch of 2 L + 1 stacked jobs (W
+    in REFLECT mode for K4r) and one 'reduce' of every db."""
+    rf = bool(reflect)
+    ring = (('ring', None, False, True, ('ring',)),) if rf else ()
+    sums = (('sums', None, False, False, ('part',)),
+            ('reduce', None, False, False, ('sums',)))
+    dy = (('dy', None, False, False, ('dy', 'dbpart')),) + ring
+    close = sums + dy + (('engine', EPI_B3, True, rf, ('du',)),)
+    block = (sums + dy + (('engine', EPI_B2, True, rf, ('dz', 'part')),
+                          ('reduce', None, False, False, ('sums', 'dal')))
+             + dy + (('engine', EPI_B3, True, rf, ('du',)),))
+    return (close + block * n_blocks
+            + (('wgrad', None, False, rf, ('dws',)),
+               ('reduce', None, False, False, ('dbs',))))
+
+
+def fn_plan(kind: str, reflect: bool) -> tuple:
+    """The launches of one per-function wrapper ('f1' ... 'b3'), as
+    :func:`fwd_plan`."""
+    rf = bool(reflect)
+    conv = (('engine', EPI_F, False, rf, ('y', 'part')),
+            ('reduce', None, False, False, ('st',)))
+    dy = (('dy', None, False, False, ('dy', 'dbpart')),) + (
+        (('ring', None, False, True, ('ring',)),) if rf else ())
+    db = (('reduce', None, False, False, ('db',)),)
+    return {'f1': conv,
+            'f2': (('act', None, False, False, ('h1',)),) + conv,
+            'f3': (('norm_skip', None, False, False, ('out',)),),
+            'b1': (('sums', None, False, False, ('part',)),
+                   ('reduce', None, False, False, ('sums',))),
+            'b2': dy + (('engine', EPI_B2, True, rf, ('dz', 'part')),
+                        ('reduce', None, False, False, ('sums', 'dal')))
+            + db,
+            'b3': dy + (('engine', EPI_B3, True, rf, ('du',)),) + db}[kind]
+
+
+def _trunk_expect(dev, x, n, weights, vecs, alphas, close):
+    """The trunk op's operands: x (B, H, W, 64) bf16; (L, 3, 3, 64, 64)
+    bf16 weights; (L, 64) f32 vectors; alphas (L) or (L, 1) f32; the
+    close's (3, 3, 64, 64) bf16 weight and (64) f32 vectors."""
+    _build.expect(x, 'x', torch.bfloat16, tuple(x.shape), dev)
+    for name, t in weights:
+        _build.expect(t, name, torch.bfloat16, (n, 3, 3, 64, 64), dev)
+    for name, t in vecs:
+        _build.expect(t, name, torch.float32, (n, 64), dev, aligned=False)
+    _build.expect(alphas, 'alphas', torch.float32, tuple(alphas.shape), dev,
+                  aligned=False)
+    if alphas.numel() != n:
+        raise ValueError(f'alphas has {alphas.numel()} slopes for {n} '
+                         f'blocks')
+    wc, *cv = close
+    _build.expect(wc, 'wc', torch.bfloat16, (3, 3, 64, 64), dev)
+    for i, t in enumerate(cv):
+        _build.expect(t, f'close vector {i}', torch.float32, (64,), dev,
+                      aligned=False)
+
+
+def bn_trunk_fwd(x, w1s, b1s, g1s, be1s, alphas, w2s, b2s, g2s, be2s, wc,
+                 bc, gc, bec, reflect: bool = False):
+    """A BN trunk's training-mode forward, L blocks (weights stacked L
+    deep, bf16; vectors f32) and the close conv + BN + the skip x, in one
+    host call (srt_bn_trunk_fwd). Returns (out, acts, ys, sts): acts (2 L
+    + 1, B, H, W, C) every conv's input (block i's u in slot 2 i, its h1
+    in 2 i + 1, the close's u in 2 L), ys their y, sts (2 L + 1, 5, C)
+    their batch statistics. CPU tensors: :func:`bn_trunk_fwd_plain`.
+    Counts one call on ``launches`` (SAME) or ``launches_reflect``."""
+    if x.device.type == 'cpu':
+        return bn_trunk_fwd_plain(x, w1s, b1s, g1s, be1s, alphas, w2s, b2s,
+                                  g2s, be2s, wc, bc, gc, bec, reflect)
+    _check('bn_trunk_fwd', x, reflect)
+    dev, n = x.device, w1s.shape[0]
+    _trunk_expect(dev, x, n, [('w1s', w1s), ('w2s', w2s)],
+                  [('b1s', b1s), ('g1s', g1s), ('be1s', be1s), ('b2s', b2s),
+                   ('g2s', g2s), ('be2s', be2s)], alphas, (wc, bc, gc, bec))
+    bsz, hh, ww, c = x.shape
+    acts = x.new_empty((2 * n + 1, bsz, hh, ww, c))
+    ys = torch.empty_like(acts)
+    out = torch.empty_like(x)
+    f32 = _f32((2 * n + 1) * 5 * c + _tiles(x) * 2 * c, dev=dev)
+    sts = f32[:(2 * n + 1) * 5 * c].view(2 * n + 1, 5, c)
+    with _build.on(dev):
+        err = _build.library().srt_bn_trunk_fwd(
+            x.data_ptr(), w1s.data_ptr(), b1s.data_ptr(), g1s.data_ptr(),
+            be1s.data_ptr(), alphas.data_ptr(), w2s.data_ptr(),
+            b2s.data_ptr(), g2s.data_ptr(), be2s.data_ptr(), wc.data_ptr(),
+            bc.data_ptr(), gc.data_ptr(), bec.data_ptr(), acts.data_ptr(),
+            ys.data_ptr(), sts.data_ptr(), f32[sts.numel():].data_ptr(),
+            out.data_ptr(), n, bsz, hh, ww, int(reflect), _build.stream(dev))
+    _build.check(err, 'srt_bn_trunk_fwd')
+    _count(_TRUNK[0], reflect)
+    return out, acts, ys, sts
+
+
+def bn_trunk_bwd(acts, ys, sts, g, w1s, w2s, wc, g1s, g2s, gc, alphas,
+                 reflect: bool = False):
+    """The backward of :func:`bn_trunk_fwd` from what it returned and g,
+    the cotangent of out, in one host call (srt_bn_trunk_bwd). Returns
+    (dx, dys, dws, dbs, sums, dal): dys (2 L + 1, B, H, W, C) every conv's
+    bf16 dy in acts' order, dws (2 L + 1, 3, 3, C, C) their weight grads,
+    dbs (2 L + 1, C) their bias grads (sums of the f32 dy), sums (2 L + 1,
+    2, C) each BN's S_g and S_gx (its beta's and gamma's grads), dal (L)
+    each PReLU slope's grad. CPU tensors: :func:`bn_trunk_bwd_plain`."""
+    if g.device.type == 'cpu':
+        return bn_trunk_bwd_plain(acts, ys, sts, g, w1s, w2s, wc, g1s, g2s,
+                                  gc, alphas, reflect)
+    _check('bn_trunk_bwd', g, reflect)
+    dev, n = g.device, w1s.shape[0]
+    bsz, hh, ww, c = g.shape
+    k = 2 * n + 1
+    _trunk_expect(dev, g, n, [('w1s', w1s), ('w2s', w2s)],
+                  [('g1s', g1s), ('g2s', g2s)], alphas, (wc, gc))
+    for name, t in (('acts', acts), ('ys', ys)):
+        _build.expect(t, name, torch.bfloat16, (k, bsz, hh, ww, c), dev)
+    _build.expect(sts, 'sts', torch.float32, (k, 5, c), dev)
+    cluster, clusters = wgrad_parts(bsz, hh, ww, c, c, 1, 3, k)
+    ws = (wgrad_workspace(k, cluster, clusters, c, c, 3, dev)
+          if clusters > 1 else None)
+    npix = bsz * hh * ww
+    nch = -(-npix // CHUNK)
+    # the bf16 dy of every conv, then the cotangents between blocks and dz
+    bf = g.new_empty((k + 3, bsz, hh, ww, c))
+    dx = torch.empty_like(g)
+    sizes = dict(dws=k * 9 * c * c, dbs=k * c, sums=k * 2 * c, dal=n,
+                 ring=bsz * 2 * (hh + ww) * c if reflect else 0,
+                 part=_tiles(g) * 3 * c, sp=nch * 2 * c, dbpart=k * nch * c,
+                 dbw=k * c)
+    # each part 128-byte aligned (the kernels read the ring as float2)
+    f32 = _f32(sum(-(-n // 32) * 32 for n in sizes.values()), dev=dev)
+    v, at = {}, 0
+    for name, size in sizes.items():
+        v[name] = f32[at:at + size]
+        at += -(-size // 32) * 32
+    with _build.on(dev):
+        err = _build.library().srt_bn_trunk_bwd(
+            acts.data_ptr(), ys.data_ptr(), sts.data_ptr(), g.data_ptr(),
+            w1s.data_ptr(), w2s.data_ptr(), wc.data_ptr(), g1s.data_ptr(),
+            g2s.data_ptr(), gc.data_ptr(), alphas.data_ptr(), bf.data_ptr(),
+            bf[k].data_ptr(), bf[k + 2].data_ptr(),
+            v['ring'].data_ptr() if reflect else None,
+            v['part'].data_ptr(), v['sp'].data_ptr(), v['dbpart'].data_ptr(),
+            ws and ws[0].data_ptr(), ws and ws[1].data_ptr(),
+            v['dbw'].data_ptr(), v['dws'].data_ptr(), v['dbs'].data_ptr(),
+            v['sums'].data_ptr(), v['dal'].data_ptr(), dx.data_ptr(), n,
+            bsz, hh, ww, int(reflect), cluster, clusters, _build.stream(dev))
+    _build.check(err, 'srt_bn_trunk_bwd')
+    _count(_TRUNK[1], reflect)
+    return (dx, bf[:k], v['dws'].view(k, 3, 3, c, c), v['dbs'].view(k, c),
+            v['sums'].view(k, 2, c), v['dal'])
+
+
+# the trunk op's wrappers, whose counters each call adds to (a caller may
+# wrap the module's names)
+_TRUNK = (bn_trunk_fwd, bn_trunk_bwd)
+for _k in _TRUNK:
+    _k.launches = _k.launches_reflect = 0
+
+
+class BNTrunkFn(torch.autograd.Function):
+    """A BN trunk in training mode (srtpu's ``CSBNTrunk``: L
+    ``bn_resblock_cs`` and ``bn_close_cs``), one host call each way:
+    out = close(blocks(x)) + x with batch statistics; ``reflect`` as
+    :class:`BNResBlockFn`. Takes the stacked f32 parameters of
+    :class:`~srtpu_torch.models.common.BNTrunk` (conv weights cast to x's
+    dtype inside), returns ``(out, sts)``: sts (2 L + 1, 5, C), each BN's
+    batch statistics in acts' order (non-differentiable), and f32 grads
+    for every parameter. ``plain`` runs the plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, ga1, be1, alpha, w2, b2, ga2, be2, wc, bc,
+                gac, bec, plain: bool, reflect: bool = False):
+        w1d, w2d, wcd = (w.to(x.dtype).contiguous() for w in (w1, w2, wc))
+        vf = [_f32c(t) for t in (b1, ga1, be1, alpha, b2, ga2, be2, bc, gac,
+                                 bec)]
+        fwd = bn_trunk_fwd_plain if plain else bn_trunk_fwd
+        out, acts, ys, sts = fwd(x, w1d, *vf[:4], w2d, *vf[4:7], wcd,
+                                 *vf[7:], reflect=reflect)
+        ctx.save_for_backward(acts, ys, sts, w1d, w2d, wcd, vf[1], vf[5],
+                              vf[8], vf[3])
+        ctx.plain, ctx.reflect = plain, reflect
+        ctx.meta = tuple((t.dtype, t.shape) for t in (
+            w1, b1, ga1, be1, alpha, w2, b2, ga2, be2, wc, bc, gac, bec))
+        ctx.mark_non_differentiable(sts)
+        return out, sts
+
+    @staticmethod
+    def backward(ctx, g, _sts):
+        acts, ys, sts, w1d, w2d, wcd, ga1, ga2, gac, al = ctx.saved_tensors
+        bwd = bn_trunk_bwd_plain if ctx.plain else bn_trunk_bwd
+        dx, _, dws, dbs, sums, dal = bwd(acts, ys, sts, g.contiguous(), w1d,
+                                         w2d, wcd, ga1, ga2, gac, al,
+                                         reflect=ctx.reflect)
+        c = 2 * w1d.shape[0]
+        grads = (dws[0:c:2], dbs[0:c:2], sums[0:c:2, 1], sums[0:c:2, 0], dal,
+                 dws[1:c:2], dbs[1:c:2], sums[1:c:2, 1], sums[1:c:2, 0],
+                 dws[c], dbs[c], sums[c, 1], sums[c, 0])
+        return (dx, *(d.reshape(shape).to(dt)
+                      for d, (dt, shape) in zip(grads, ctx.meta)),
+                None, None)
+
+
+def bn_trunk(x, w1, b1, ga1, be1, alpha, w2, b2, ga2, be2, wc, bc, gac, bec,
+             plain: bool = False, reflect: bool = False):
+    """A BN trunk in training mode (:class:`BNTrunkFn`): the stacked
+    block parameters (L deep), the close's, x in the compute dtype.
+    Returns ``(out, sts)``."""
+    return BNTrunkFn.apply(x, w1, b1, ga1, be1, alpha, w2, b2, ga2, be2, wc,
+                           bc, gac, bec, plain, reflect)
 
 
 # --------------------------------------------------- eval mode (XLA's)

@@ -4,11 +4,12 @@ autograd through the plain version.
 
 Replaces ``srtpu/ops/ca_layer.py:ca_layer_fused`` (body ``_ca_kernel``),
 behind ``ca_layer_fused_trainable``. The kernel is ``csrc/ca_layer.cu``,
-whose head note says what bounds it on the H100 and why it takes two
-passes over x. :func:`ca_layer_fwd` launches it for CUDA tensors and takes the
-plain version only for CPU tensors; it counts its calls in
-``launches``. :func:`ca_gate` is the differentiable op
-(:class:`CALayerFn`).
+whose head note says what bounds it on the H100: two launches, the
+partial sums and then the gating, over blocks of :func:`block_pixels`
+pixels. :func:`ca_layer_fwd` launches it
+for CUDA tensors and takes the plain version only for CPU tensors; it
+counts its calls in ``launches``. :func:`ca_gate` is the differentiable
+op (:class:`CALayerFn`).
 
 x (B, H, W, C) in the compute dtype; f32 w1 (C, C/r), b1 (C/r,), w2
 (C/r, C), b2 (C,) (srtpu does not cast them): per image pool = mean over
@@ -28,10 +29,20 @@ import torch
 
 from . import _build
 
-# pixels per block of the passes over x: K_PIX, or more where an image
-# would give more than MAX_SPLITS blocks (the gate sums one partial per
-# block, in order)
+# Pixels a block: K_PIX, or more where an image would give more than
+# MAX_SPLITS blocks (each block of the second launch adds all of its
+# image's partials; measured on the H100 at 1 x 512 x 352: 256 blocks an
+# image 0.040 device-ms, 128 0.053).
 K_PIX, MAX_SPLITS = 128, 256
+# the partial sums, one buffer per (device, stream, size), kept from call
+# to call (a stream's calls run in order, so they never share it at once)
+_SCRATCH: dict = {}
+
+
+def block_pixels(h: int, w: int) -> int:
+    """Pixels a block of K8b's two launches for an h x w image, as
+    ca_layer.cu takes them."""
+    return max(K_PIX, -(-h * w // MAX_SPLITS))
 
 
 def ca_layer_plain(x, w1, b1, w2, b2) -> torch.Tensor:
@@ -45,9 +56,8 @@ def ca_layer_plain(x, w1, b1, w2, b2) -> torch.Tensor:
 
 def ca_layer_fwd(x, w1, b1, w2, b2) -> torch.Tensor:
     """As :func:`ca_layer_plain`. On CUDA: bf16 x (B, H, W, C) with C a
-    multiple of 8, f32 w1 (C, C/r), b1, w2 (C/r, C), b2; one call is three
-    launches (the per-block channel sums, the per-image gate, the
-    gating), counted once."""
+    multiple of 8, f32 w1 (C, C/r), b1, w2 (C/r, C), b2; two launches,
+    counted once."""
     if x.device.type == 'cpu':
         return ca_layer_plain(x, w1, b1, w2, b2)
     bsz, h, w, c = x.shape
@@ -62,16 +72,24 @@ def ca_layer_fwd(x, w1, b1, w2, b2) -> torch.Tensor:
     for name, t, shape in (('w1', w1, (c, cr)), ('b1', b1, (cr,)),
                            ('w2', w2, (cr, c)), ('b2', b2, (c,))):
         _build.expect(t, name, f32, shape, dev, aligned=False)
-    kpix = max(K_PIX, -(-h * w // MAX_SPLITS))
-    # the per-block partial sums, then the per-image gates
-    scratch = torch.empty((bsz * (-(-h * w // kpix) + 1) * c,), dtype=f32,
-                          device=dev)
+    kpix, stream = block_pixels(h, w), _build.stream(dev)
+    size = bsz * -(-h * w // kpix) * c
+    if torch.cuda.is_current_stream_capturing():
+        # a buffer of the CUDA graph's own pool, not one shared with eager
+        # calls
+        scratch = torch.empty((size,), dtype=f32, device=dev)
+    else:
+        key = (dev, stream, size)
+        scratch = _SCRATCH.get(key)
+        if scratch is None:
+            scratch = _SCRATCH[key] = torch.empty((size,), dtype=f32,
+                                                  device=dev)
     out = torch.empty_like(x)
-    with torch.cuda.device(dev):
+    with _build.on(dev):
         err = _build.library().srt_ca_layer_fwd(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), scratch.data_ptr(), out.data_ptr(), bsz, h * w,
-            c, cr, kpix, _build.stream(dev))
+            c, cr, kpix, stream)
     _build.check(err, 'srt_ca_layer_fwd')
     ca_layer_fwd.launches += 1
     return out

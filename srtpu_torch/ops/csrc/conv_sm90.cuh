@@ -92,6 +92,18 @@
 // at EPI 7 (TB; K5's EPI 4 partials, storing bf16 dh2 alone), at K2's
 // plan for 128 -> 128 (two atoms of 64) or 64 -> 64: NAT atoms at pixel
 // stride cout (ParamsK7).
+//
+// K4 (bn_block.cu) runs its BN block's four convs on it at K2's plan for
+// 64 -> 64 (ParamsK4, BnEpi): EPI 9, F1 / F2's y = bf16(sums + bias) and
+// each tile's f32 sum and sum of squares of the stored y per channel;
+// with reflect, the staged tile's one-pixel ring outside the image is
+// mirrored in shared memory after its TMA load (mirror_halo, one warp,
+// then a barrier of the consumers) before any tap reads it. EPI 10 (TB),
+// B2's PReLU backward on z = a1 y1 + c1: dz = bf16(...) and each tile's
+// dalpha, sum dz and sum dz * xhat1 partials; EPI 11 (TB), B3's du =
+// bf16(sums + f32(skip)) (and optionally bf16(du + f32(skip2))). With
+// reflect, EPI 10 and 11 add the fold ring (bn_block.cu's ring launch)
+// to the f32 sums at rows 1, H - 2 and columns 1, W - 2 first.
 #pragma once
 
 #include "sm90.cuh"
@@ -185,6 +197,27 @@ struct ParamsK7 : Params {
   TrunkEpi k1;
 };
 
+// K4's epilogues (EPI 9-11), at pixel stride cout (64). part: (B tiles,
+// nq, 64) f32 per-tile partials (EPI 9: nq 2, sum y, sum y^2; EPI 10: nq
+// 3, dalpha, sum dz, sum dz * xhat1). EPI 10 reads y1, st1 (5, 64: mean,
+// var, inv, a, c) and alpha; EPI 11 adds skip (unless null), then skip2
+// (unless null) after a rounding. ring: the REFLECT fold (B, 2 W + 2 H,
+// 64) f32 of EPI 10 and 11, or null; reflect: EPI 9 mirrors the halo.
+struct BnEpi {
+  float* part;
+  const bf16* y1;
+  const float* st1;
+  const float* alpha;
+  const bf16* skip;
+  const bf16* skip2;
+  const float* ring;
+  int reflect;
+};
+
+struct ParamsK4 : Params {
+  BnEpi k4;
+};
+
 template <int EPI>
 struct ParamsFor {
   typedef ParamsK6 type;
@@ -213,6 +246,18 @@ template <>
 struct ParamsFor<8> {
   typedef ParamsK7 type;
 };
+template <>
+struct ParamsFor<9> {
+  typedef ParamsK4 type;
+};
+template <>
+struct ParamsFor<10> {
+  typedef ParamsK4 type;
+};
+template <>
+struct ParamsFor<11> {
+  typedef ParamsK4 type;
+};
 
 // K6's epilogues: runtime pixel strides and weights in pairs.
 __host__ __device__ constexpr bool k6_epi(int epi) {
@@ -220,9 +265,14 @@ __host__ __device__ constexpr bool k6_epi(int epi) {
 }
 // Shared memory an epilogue adds after the barriers: the warp sums of
 // those that sum over a tile's pixels (EPI 2's db and EPI 4's pool, 64
-// channels; EPI 7's db2, the block's bn), 8 warps of them.
+// channels; EPI 7's db2, the block's bn; EPI 9's two and EPI 10's three
+// quantities of 64 channels), 8 warps of them.
 __host__ __device__ constexpr int red_bytes(int epi, int bn) {
-  return epi == 2 || epi == 4 ? 2048 : epi == 7 ? 32 * bn : 0;
+  return epi == 2 || epi == 4 ? 2048
+         : epi == 7           ? 32 * bn
+         : epi == 9           ? 4096
+         : epi == 10          ? 6144
+                              : 0;
 }
 
 // K6's chain epilogue (EPI 2; ChainEpi says what it writes). acc: the
@@ -549,6 +599,166 @@ __device__ __forceinline__ void k7_epilogue(float (&acc)[NAT][NA / 2],
   }
 }
 
+// K4's epilogues (EPI 9-11; BnEpi says what they write), on K2's plan for
+// 64 -> 64, registers as rcab_epilogue's. A tile's partial of a channel:
+// each thread adds its two pixels (column lane / 4, then + 8), the 8
+// lanes of one lane % 4 add theirs in a butterfly, then the 8 warps
+// (tile rows) are added in order; pixels outside the image are left out.
+// Products and sums that the plain version writes as separate f32
+// operations use the _rn intrinsics (no contraction into an FMA). red:
+// red_bytes(EPI, 64) of shared memory.
+template <int EPI>
+__device__ __forceinline__ void bn_epilogue(float (&acc)[1][32],
+                                            const ParamsK4& p, float* red,
+                                            int warp, int lane, int b,
+                                            int y0, int x0, int gtile) {
+  constexpr int J = 8, NQ = EPI == 9 ? 2 : EPI == 10 ? 3 : 0;
+  const BnEpi& e = p.k4;
+  const int gy = y0 + warp, cl = 2 * (lane & 3);
+  float q[NQ > 0 ? NQ : 1][J][2];
+#pragma unroll
+  for (int k = 0; k < (NQ > 0 ? NQ : 1); ++k)
+#pragma unroll
+    for (int j = 0; j < J; ++j) q[k][j][0] = q[k][j][1] = 0.0f;
+  const float al = EPI == 10 ? __ldg(e.alpha) : 0.0f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gx = x0 + (lane >> 2) + 8 * h;
+    if (gy >= p.H || gx >= p.W) continue;
+    const size_t pix = ((size_t)b * p.H + gy) * p.W + gx;
+    const size_t o = pix * 64 + cl;
+    float v[J][2];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      v[j][0] = acc[0][4 * j + 2 * h];
+      v[j][1] = acc[0][4 * j + 2 * h + 1];
+    }
+    if constexpr (EPI == 9) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const __nv_bfloat162 yb = __floats2bfloat162_rn(
+            __fadd_rn(v[j][0], __ldg(p.bias + cl + 8 * j)),
+            __fadd_rn(v[j][1], __ldg(p.bias + cl + 8 * j + 1)));
+        *reinterpret_cast<__nv_bfloat162*>(p.out + o + 8 * j) = yb;
+        const float2 y = __bfloat1622float2(yb);  // the stored y's stats
+        q[0][j][0] = __fadd_rn(q[0][j][0], y.x);
+        q[0][j][1] = __fadd_rn(q[0][j][1], y.y);
+        q[1][j][0] = __fadd_rn(q[1][j][0], __fmul_rn(y.x, y.x));
+        q[1][j][1] = __fadd_rn(q[1][j][1], __fmul_rn(y.y, y.y));
+      }
+      continue;
+    }
+    if (e.ring) {  // REFLECT's fold, in f32, before any rounding
+      const float* rb = e.ring + (size_t)b * (2 * p.W + 2 * p.H) * 64 + cl;
+      auto fold = [&](int at) {
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const float2 r =
+              *reinterpret_cast<const float2*>(rb + (size_t)at * 64 + 8 * j);
+          v[j][0] = __fadd_rn(v[j][0], r.x);
+          v[j][1] = __fadd_rn(v[j][1], r.y);
+        }
+      };
+      if (gy == 1) fold(gx);
+      if (gy == p.H - 2) fold(p.W + gx);
+      if (gx == 1) fold(2 * p.W + gy);
+      if (gx == p.W - 2) fold(2 * p.W + p.H + gy);
+    }
+    if constexpr (EPI == 10) {
+      __nv_bfloat162 yv[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        yv[j] = *reinterpret_cast<const __nv_bfloat162*>(e.y1 + o + 8 * j);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const float2 y = __bfloat1622float2(yv[j]);
+        float dz[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int c = cl + 8 * j + k;
+          const float z = __fadd_rn(__fmul_rn(__ldg(e.st1 + 3 * 64 + c),
+                                              k ? y.y : y.x),
+                                    __ldg(e.st1 + 4 * 64 + c));
+          dz[k] = z >= 0.0f ? v[j][k] : __fmul_rn(al, v[j][k]);
+          q[0][j][k] = __fadd_rn(q[0][j][k],
+                                 z >= 0.0f ? 0.0f : __fmul_rn(v[j][k], z));
+        }
+        const __nv_bfloat162 db = __floats2bfloat162_rn(dz[0], dz[1]);
+        *reinterpret_cast<__nv_bfloat162*>(p.out + o + 8 * j) = db;
+        const float2 d = __bfloat1622float2(db);  // BN1's sums: stored dz
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int c = cl + 8 * j + k;
+          const float xhat =
+              __fmul_rn(__fsub_rn(k ? y.y : y.x, __ldg(e.st1 + c)),
+                        __ldg(e.st1 + 2 * 64 + c));
+          const float dk = k ? d.y : d.x;
+          q[1][j][k] = __fadd_rn(q[1][j][k], dk);
+          q[2][j][k] = __fadd_rn(q[2][j][k], __fmul_rn(dk, xhat));
+        }
+      }
+    } else {  // EPI 11
+      __nv_bfloat162 t[J], t2[J];
+      if (e.skip) {
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+          t[j] = *reinterpret_cast<const __nv_bfloat162*>(e.skip + o + 8 * j);
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const float2 f = __bfloat1622float2(t[j]);
+          v[j][0] = __fadd_rn(v[j][0], f.x);
+          v[j][1] = __fadd_rn(v[j][1], f.y);
+        }
+      }
+      if (e.skip2) {
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+          t2[j] = *reinterpret_cast<const __nv_bfloat162*>(e.skip2 + o + 8 * j);
+      }
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        __nv_bfloat162 r = __floats2bfloat162_rn(v[j][0], v[j][1]);
+        if (e.skip2) {
+          const float2 a = __bfloat1622float2(r);
+          const float2 c = __bfloat1622float2(t2[j]);
+          r = __floats2bfloat162_rn(__fadd_rn(a.x, c.x), __fadd_rn(a.y, c.y));
+        }
+        *reinterpret_cast<__nv_bfloat162*>(p.out + o + 8 * j) = r;
+      }
+    }
+  }
+  if constexpr (NQ > 0) {
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1)
+#pragma unroll
+      for (int k = 0; k < NQ; ++k)
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          q[k][j][0] = __fadd_rn(q[k][j][0],
+                                 __shfl_xor_sync(0xffffffffu, q[k][j][0], o));
+          q[k][j][1] = __fadd_rn(q[k][j][1],
+                                 __shfl_xor_sync(0xffffffffu, q[k][j][1], o));
+        }
+    if (lane < 4)
+#pragma unroll
+      for (int k = 0; k < NQ; ++k)
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          red[(k * 8 + warp) * 64 + 8 * j + 2 * lane] = q[k][j][0];
+          red[(k * 8 + warp) * 64 + 8 * j + 2 * lane + 1] = q[k][j][1];
+        }
+    asm volatile("bar.sync 1, %0;" ::"n"(4 * kConsumers * 32) : "memory");
+    if (threadIdx.x < NQ * 64) {
+      const int k = threadIdx.x / 64, c = threadIdx.x % 64;
+      float sum = red[(k * 8) * 64 + c];
+#pragma unroll
+      for (int w = 1; w < 4 * kConsumers; ++w)
+        sum = __fadd_rn(sum, red[(k * 8 + w) * 64 + c]);
+      e.part[((size_t)gtile * NQ + k) * 64 + c] = sum;
+    }
+  }
+}
+
 // Blocks an SM is to hold: two where the f32 sums (BN / 2 a thread) and
 // A's two register buffers (8 NKS) leave room for two blocks' registers.
 __host__ __device__ constexpr int min_blocks(int bn, int nks) {
@@ -680,7 +890,23 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NA * NAT, NKS))
       const int s = i / p.taps, t = i - s * p.taps;  // s counts from s0
       const int g = i / p.tg, tg = i - g * p.tg;  // B stage, its tap
       const int sa = s % p.sa, sb = g % p.sb;
-      if (t == 0) a_full.wait(s);
+      if (t == 0) {
+        a_full.wait(s);
+        if constexpr (EPI == 9) {
+          // REFLECT: the ring outside the image takes the mirrored pixel
+          // (one slice: K4 runs at cin 64, so no later TMA load reuses
+          // the stage)
+          if (p.k4.reflect && (y0 == 0 || x0 == 0 || y0 + kTH >= p.H ||
+                               x0 + kTW >= p.W)) {
+            if (warp == 0)
+              mirror_halo<KC>(smem_raw + (a_ring + sa * p.a_stage -
+                                          smem_u32(smem_raw)),
+                              lane, y0, x0, p.H, p.W, p.wx, kTH + 2);
+            asm volatile("bar.sync 2, %0;" ::"n"(4 * kConsumers * 32)
+                         : "memory");
+          }
+        }
+      }
       if (tg == 0) b_full.wait(g);
       const int ty = t / p.kk, tx = t - ty * p.kk;
       const uint32_t pix = (oy + ty) * p.wx + frow + tx;
@@ -799,6 +1025,16 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NA * NAT, NKS))
     trunk_epilogue(acc, p, warp, lane, b, y0, x0);
     return;
   }
+  if constexpr (EPI >= 9) {
+    static_assert(NA == 64 && NAT == 1 && SPLIT == 1 && NKS == 4,
+                  "K2's 64 -> 64 plan");
+    const uint32_t red = b_empty.bar + 8u * p.sb;
+    bn_epilogue<EPI>(
+        acc, p,
+        reinterpret_cast<float*>(smem_raw + (red - smem_u32(smem_raw))),
+        warp, lane, b, y0, x0, b * (int)(gridDim.x / p.ntiles) + tile);
+    return;
+  }
   if constexpr (EPI == 7 || EPI == 8) {
     static_assert(SPLIT == 1, "K7's sums are whole");
     const uint32_t red = b_empty.bar + 8u * p.sb;
@@ -872,7 +1108,8 @@ int blocks_per_sm(K kernel) {
 // channel groups, each group's (k, k, 64, cout) ((k, k, cin, 64)) block
 // whole and the groups consecutive: K6's pairs (rdn.py:pack). out: (B, H,
 // W, ops) bf16, channels [0, cout) written. res, out2: EPI 3's; ch: EPI
-// 2's (its dbuf at pixel stride ops); k5: EPI 4's and 5's; k1: EPI 6's.
+// 2's (its dbuf at pixel stride ops); k5: EPI 4's and 5's; k1: EPI 6's;
+// k4: EPI 9-11's.
 // EPI 0 (K2), 4, 5 (K5) and 6 (K1) take xps = cin, ops = cout and one
 // HWIO weight.
 struct ConvArgs {
@@ -891,6 +1128,7 @@ struct ConvArgs {
   ChainEpi ch;
   RcabEpi k5;
   TrunkEpi k1;
+  BnEpi k4;
 };
 
 // Launch the engine at BN = NA * NAT (a divisor of cout), KC = 16 NKS
@@ -1005,8 +1243,9 @@ cudaError_t launch(const ConvArgs& a, cudaStream_t stream) {
     p.o2ps = a.o2ps;
     p.ch = a.ch;
   }
-  if constexpr (EPI == 4 || EPI == 5 || EPI >= 7) p.k5 = a.k5;
-  if constexpr (EPI == 6 || EPI >= 7) p.k1 = a.k1;
+  if constexpr (EPI == 4 || EPI == 5 || EPI == 7 || EPI == 8) p.k5 = a.k5;
+  if constexpr (EPI >= 6 && EPI <= 8) p.k1 = a.k1;
+  if constexpr (EPI >= 9) p.k4 = a.k4;
   const int smem = 1024 + sa * p.a_stage + sb * p.b_stage + 16 * (sa + sb) +
                    red_bytes(EPI, BN);
   if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
@@ -1119,6 +1358,17 @@ inline ConvArgs args_3x3_64(const bf16* x, const bf16* w, const float* bias,
 template <bool TB, int EPI>
 cudaError_t run_3x3_64(const ConvArgs& a, cudaStream_t s) {
   static_assert(EPI >= 4 && EPI <= 6, "K5's and K1's epilogues");
+  if (!takes(a) || a.cin != 64 || a.cout != 64 || a.kk != 3)
+    return cudaErrorInvalidValue;
+  return launch<64, 1, 4, 1, TB, EPI>(a, s);
+}
+
+// K4's launches (bn_block.cu), 3x3 64 -> 64 on one HWIO weight: EPI 9
+// (F1, F2) forward, EPI 10 and 11 (B2, B3) with TB; K2's plan for that
+// class (N = 64, one 64-channel slice, no split).
+template <bool TB, int EPI>
+cudaError_t run_bn(const ConvArgs& a, cudaStream_t s) {
+  static_assert(EPI >= 9 && EPI <= 11 && TB == (EPI != 9), "K4's epilogues");
   if (!takes(a) || a.cin != 64 || a.cout != 64 || a.kk != 3)
     return cudaErrorInvalidValue;
   return launch<64, 1, 4, 1, TB, EPI>(a, s);

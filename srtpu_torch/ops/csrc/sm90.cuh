@@ -258,6 +258,37 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
+// REFLECT (3x3), one warp: the halo rows, then columns, of a staged
+// tile (origin (y0 - 1, x0 - 1), wx x hx pixels of AWP channels, 16-byte
+// chunks swizzled as TMA left them) at image row
+// or column -1 and H or W take the mirrored pixel (1, H - 2). Both lie
+// inside the tile when H, W >= 2.
+template <int AWP>
+__device__ void mirror_halo(unsigned char* a, int lane, int y0, int x0,
+                            int H, int W, int wx, int hx) {
+  constexpr int CH = AWP / 8;
+  constexpr uint32_t ROW = AWP * 2, MASK = CH - 1;
+  const int rows[2] = {y0 == 0 ? 0 : -1, H - y0 + 1 < hx ? H - y0 + 1 : -1};
+  const int cols[2] = {x0 == 0 ? 0 : -1, W - x0 + 1 < wx ? W - x0 + 1 : -1};
+  auto copy = [&](int dst, int src, int c) {
+    *reinterpret_cast<uint4*>(a + swz(dst * ROW + c * 16, MASK)) =
+        *reinterpret_cast<const uint4*>(a + swz(src * ROW + c * 16, MASK));
+  };
+  for (int side = 0; side < 2; ++side) {
+    const int y = rows[side], from = side ? y - 2 : y + 2;
+    if (y < 0) continue;
+    for (int q = lane; q < wx * CH; q += 32)
+      copy(y * wx + q / CH, from * wx + q / CH, q % CH);
+  }
+  __syncwarp();
+  for (int side = 0; side < 2; ++side) {
+    const int x = cols[side], from = side ? x - 2 : x + 2;
+    if (x < 0) continue;
+    for (int q = lane; q < hx * CH; q += 32)
+      copy(q / CH * wx + x, q / CH * wx + from, q % CH);
+  }
+}
+
 // n mbarriers, 8 bytes apart from ``bar``, used in turn: use i of the
 // ring is stage i % n in its (i / n)-th round.
 struct Ring {

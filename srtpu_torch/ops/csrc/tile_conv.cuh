@@ -74,25 +74,14 @@ __device__ __forceinline__ uint4 scale8(uint4 u, float scale) {
   return pack8(v);
 }
 
-// The source index of position i of a line of n >= 2 pixels under
-// REFLECT boundaries (torch ReflectionPad2d(1)): -1 -> 1, n -> n - 2, the
-// inside as it is; -1 (no pixel: zero) farther out, where a halo feeds
-// only outputs past the image.
-__device__ __forceinline__ int mirror1(int i, int n) {
-  if (i == -1) return 1;
-  if (i == n) return n - 2;
-  return i >= 0 && i < n ? i : -1;
-}
-
 // Copy the (rows x wx) NHWC window of image b whose top-left pixel is
 // (y0, x0) into dst as npix flattened pixels of stride CIN + 16. Pixels
-// outside the image are zero (SAME padding), or with REFLECT the one-pixel
-// ring around the image holds the mirrored pixel (mirror1; H, W >= 2);
-// the slack past rows * wx is zero. scale != 1 stores bf16(scale * x)
+// outside the image are zero (SAME padding); the slack past rows * wx is
+// zero. scale != 1 stores bf16(scale * x)
 // instead of x. ps is x's pixel stride in elements: CIN for a tensor of
 // CIN channels, more for a CIN-channel slice of a wider one (RDN's concat
 // buffer).
-template <int CIN, bool REFLECT = false>
+template <int CIN>
 __device__ __forceinline__ void load_tile(bf16* __restrict__ dst,
                                           const bf16* __restrict__ x, int b,
                                           int H, int W, int y0, int x0,
@@ -104,11 +93,7 @@ __device__ __forceinline__ void load_tile(bf16* __restrict__ dst,
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
     const int p = i / VEC, v = i % VEC;
     const int ly = p / wx, lx = p % wx;
-    int gy = y0 + ly, gx = x0 + lx;
-    if (REFLECT) {
-      gy = mirror1(gy, H);
-      gx = mirror1(gx, W);
-    }
+    const int gy = y0 + ly, gx = x0 + lx;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (ly < rows && gy >= 0 && gy < H && gx >= 0 && gx < W) {
       val = *reinterpret_cast<const uint4*>(

@@ -154,36 +154,6 @@ __device__ __forceinline__ void add8(float (&d)[8], uint4 v) {
   }
 }
 
-// REFLECT (3x3): the halo rows, then columns, of the A tile (X, origin
-// (y0 - 1, x0 - 1), 16-byte chunks swizzled as TMA left them) at image row
-// or column -1 and H or W take the mirrored pixel (1, H - 2). Both lie
-// inside the tile when H, W >= 2.
-template <int AWP>
-__device__ void mirror_halo(unsigned char* a, int lane, int y0, int x0,
-                            int H, int W, int wx, int hx) {
-  constexpr int CH = AWP / 8;
-  constexpr uint32_t ROW = AWP * 2, MASK = CH - 1;
-  const int rows[2] = {y0 == 0 ? 0 : -1, H - y0 + 1 < hx ? H - y0 + 1 : -1};
-  const int cols[2] = {x0 == 0 ? 0 : -1, W - x0 + 1 < wx ? W - x0 + 1 : -1};
-  auto copy = [&](int dst, int src, int c) {
-    *reinterpret_cast<uint4*>(a + swz(dst * ROW + c * 16, MASK)) =
-        *reinterpret_cast<const uint4*>(a + swz(src * ROW + c * 16, MASK));
-  };
-  for (int side = 0; side < 2; ++side) {
-    const int y = rows[side], from = side ? y - 2 : y + 2;
-    if (y < 0) continue;
-    for (int q = lane; q < wx * CH; q += 32)
-      copy(y * wx + q / CH, from * wx + q / CH, q % CH);
-  }
-  __syncwarp();
-  for (int side = 0; side < 2; ++side) {
-    const int x = cols[side], from = side ? x - 2 : x + 2;
-    if (x < 0) continue;
-    for (int q = lane; q < hx * CH; q += 32)
-      copy(q / CH * wx + x, q / CH * wx + from, q % CH);
-  }
-}
-
 template <uint32_t N>
 __device__ __forceinline__ void regs_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));

@@ -55,6 +55,7 @@ within 1e-4 of their largest magnitude.
 import pytest
 import torch
 
+import chip_smoke
 from srtpu_torch.models import create_model
 from srtpu_torch.models import rdn as rdn_model
 from srtpu_torch.ops import (b1_plain, b1_sums, b2_call, b2_plain, b3_call,
@@ -423,16 +424,18 @@ def test_conv5x5_kernel_matches_plain(device, h, w):
 def test_srresnet_kernel_path_matches_plain(device, scale, train):
     """SRResNet (2 resblocks, 64 features) on the card, kernel path
     against plain path: eval mode (K2, K3; the BN trunk on running
-    statistics) and train mode (K4 too, batch statistics); x3's 576 -> 32
-    5x5 tail on K2's general path."""
+    statistics) and train mode (K4's trunk op too, once, batch
+    statistics); x3's 576 -> 32 5x5 tail on K2's general path."""
     model = create_model('SRResNet', scale_factor=scale, n_feats=64,
                          n_resblocks=2, dtype=torch.bfloat16, device=device,
                          generator=torch.Generator().manual_seed(scale))
     model.train(train)
     gen = torch.Generator().manual_seed(2)
     lr = torch.rand((2, 20, 28, 3), generator=gen).to(device)
+    before = bn_block.bn_trunk_fwd.launches
     with torch.no_grad():
         got = model(lr).float()
+        assert bn_block.bn_trunk_fwd.launches == before + (1 if train else 0)
         ref = model(lr, plain=True).float()
     assert got.shape == (2, 20 * scale, 28 * scale, 3)
     # batch norm rescales a step's difference by the batch deviation
@@ -909,6 +912,53 @@ def test_k4r_and_reflect_wgrad_refuse_what_they_do_not_take(device):
         conv_wgrad(y, y, reflect=True)
 
 
+@pytest.mark.parametrize('reflect', [False, True], ids=['same', 'reflect'])
+@pytest.mark.parametrize('bsz,h,w', [(16, 32, 32), (2, 23, 37)])
+def test_k4_trunk_op_is_its_blocks(device, reflect, bsz, h, w):
+    """K4's trunk op (one host call each way: 3 blocks and the close)
+    against the same trunk's blocks called one by one through the
+    per-function kernels (chip_smoke.bn_trunk_by_blocks): output, dx,
+    running statistics and every grad but the conv weights' bit for bit,
+    the weight grads (W's split over 7 stacked jobs, not 1) within 1e-4
+    of their largest magnitude; each trunk-op wrapper counted once a
+    step; two steps bit-identical."""
+    import copy
+    trunk = create_model('SRResNet', scale_factor=4, n_feats=64,
+                         n_resblocks=3, dtype=torch.bfloat16, device=device,
+                         generator=torch.Generator().manual_seed(bsz + h)
+                         ).trunk
+    trunk.reflect = reflect
+    gen = torch.Generator().manual_seed(w)
+    x, g = (_u(gen, (bsz, h, w, 64), 1.0, device) for _ in range(2))
+    attr = 'launches_reflect' if reflect else 'launches'
+    ops = (bn_block.bn_trunk_fwd, bn_block.bn_trunk_bwd)
+
+    def step(by_blocks):
+        m = copy.deepcopy(trunk).train()
+        xi = x.clone().requires_grad_()
+        before = [getattr(k, attr) for k in ops]
+        out = (chip_smoke.bn_trunk_by_blocks(m, xi, torch.bfloat16)
+               if by_blocks else m(xi, torch.bfloat16))
+        out.backward(g)
+        torch.cuda.synchronize()
+        assert [getattr(k, attr) - b for k, b in zip(ops, before)] == (
+            [0, 0] if by_blocks else [1, 1])
+        return m, {'dx': xi.grad, **{n: p.grad for n, p in
+                                     m.named_parameters()}}
+    mk, tk = step(False)
+    mk2, tk2 = step(False)
+    mb, tb = step(True)
+    for n in tk:
+        assert torch.equal(tk[n], tk2[n]), n
+        if n in ('w1', 'w2', 'close_w'):
+            err = (tk[n] - tb[n]).abs().max() / tb[n].abs().max()
+            assert err.item() <= 1e-4, n
+        else:
+            assert torch.equal(tk[n], tb[n]), n
+    for a, b, c in zip(mk.buffers(), mk2.buffers(), mb.buffers()):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
 @pytest.mark.parametrize('bsz,h,w', [(16, 32, 32), (2, 23, 37), (2, 3, 5)])
 def test_reflect_wgrad_kernel_matches_plain(device, bsz, h, w):
     """The weight grad of a REFLECT conv (x's halo mirrored): dW and db
@@ -936,17 +986,18 @@ def _srgan(device, scale, ngf=64, seed=0):
 def test_srgan_kernel_path_matches_plain(device, scale, train):
     """SRGAN's generator (2 blocks, 64 features) on the card at every
     scale: eval mode runs no kernel of the port (the same image on both
-    paths); train mode runs K4r (F1 three times: two blocks and the
-    close), the SR image within 2^-5 of the plain path's (batch norm
-    rescales a step's difference by the batch deviation)."""
+    paths); train mode runs K4r (its trunk op once: two blocks and the
+    close in one host call), the SR image within 2^-5 of the plain path's
+    (batch norm rescales a step's difference by the batch deviation)."""
     model = _srgan(device, scale)
     model.train(train)
     lr = torch.rand((2, 20, 28, 3),
                     generator=torch.Generator().manual_seed(3)).to(device)
-    before = f1_conv_stats.launches_reflect
+    before = bn_block.bn_trunk_fwd.launches_reflect
     with torch.no_grad():
         got = model(lr).float()
-        assert f1_conv_stats.launches_reflect == before + (3 if train else 0)
+        assert bn_block.bn_trunk_fwd.launches_reflect == before + (
+            1 if train else 0)
         ref = model(lr, plain=True).float()
     assert got.shape == (2, 20 * scale, 28 * scale, 3)
     assert bool(torch.isfinite(got).all())
@@ -957,7 +1008,7 @@ def test_srgan_gan_step_kernel_path_matches_plain(device):
     """One adversarial step (D then G, VGG19 relu5_4) at x4 on the kernel
     path, the plain path and the plain path in f32 (the generator and
     discriminator unrounded), from the same params and batch: K4r's
-    launches per step (F1 and B3: blocks + close); every log of the
+    trunk op once each way per step; every log of the
     kernel path within 2^-7 relative of the plain path's (vgg_loss, a
     feature MSE of ~1e-16 on random weights, and adv_loss at 2^-4: they
     sum differences the two paths' images move most); each generator
@@ -978,15 +1029,14 @@ def test_srgan_gan_step_kernel_path_matches_plain(device):
         model = _srgan(device, 4).train()
         model.generator.dtype = model.discriminator.dtype = dtype
         state = create_gan_state(model, 1e-4)
-        before = [k.launches_reflect for k in (f1_conv_stats, b2_call,
-                                               b3_call)]
+        trunk = (bn_block.bn_trunk_fwd, bn_block.bn_trunk_bwd)
+        before = [k.launches_reflect for k in trunk]
         logs.append(make_gan_train_step(vgg_loss=vgg, plain=plain)(
             state, lr, hr))
         torch.cuda.synchronize()
-        after = [k.launches_reflect for k in (f1_conv_stats, b2_call,
-                                              b3_call)]
+        after = [k.launches_reflect for k in trunk]
         assert [a - b for a, b in zip(after, before)] == (
-            [0, 0, 0] if plain else [3, 2, 3])
+            [0, 0] if plain else [1, 1])
         grads.append(dict(model.generator.named_parameters()))
     for k, ref in logs[1].items():
         tol = 2.0 ** -4 if k in ('vgg_loss', 'adv_loss') else 2.0 ** -7
@@ -1071,6 +1121,21 @@ def test_k8_kernel_matches_plain(device, kind, bsz, h, w):
     again = fn(*args, **kw)
     assert all(torch.equal(a, b) for a, b in
                zip(got, again if kind == 'a' else [again]))
+
+
+@pytest.mark.parametrize('bsz,h,w,c', [(1, 1, 1, 8), (3, 5, 7, 24),
+                                       (2, 40, 30, 264), (1, 256, 192, 64),
+                                       (1, 512, 352, 64)])
+def test_k8b_forms_match_plain(device, bsz, h, w, c):
+    """K8b (two launches over blocks of ca_layer.block_pixels pixels) at
+    odd widths and sizes: within one bf16 step of the largest magnitude,
+    the same bits twice."""
+    gen = torch.Generator().manual_seed(bsz * 100 + h + w + c)
+    args = _k8_case(gen, device, 'b', bsz, h, w, c)
+    got = k8b.ca_layer_fwd(*args)
+    torch.cuda.synchronize()
+    _assert_close(got, k8b.ca_layer_plain(*args), 1)
+    assert torch.equal(got, k8b.ca_layer_fwd(*args))
 
 
 @pytest.mark.parametrize('c', [16, 48, 96])

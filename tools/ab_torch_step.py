@@ -5,9 +5,12 @@ train-step and predict times of the models chip_smoke.py runs.
                                   [--rounds 2]
 
 ``--models`` names keys of MODELS: a model, EDSR86 (EDSR x4 at 64
-features, 86 resblocks, res_scale 0.1), or WDSR_STOCK (WDSR-B at 128
+features, 86 resblocks, res_scale 0.1), WDSR_STOCK (WDSR-B at 128
 features, 16 blocks, on its default stock route, no kernel in the
-trunk).
+trunk), SRGAN_CS (SRGAN x4 at srtpu's sizes on its kernel route 'cs':
+the adversarial step, D then G with the VGG19 relu5_4 term, K4r in the
+generator's trunk) or RCAN_TRUE (RCAN-10x16 on srtpu's use_pallas=True
+route: K8b per RCAB, the rest stock).
 
 TREE_A and TREE_B are checkouts of this repository (for example the
 parent commit unpacked with ``git archive`` into a git-ignored directory,
@@ -45,9 +48,16 @@ MODELS = {
     'EDSR86': ['--n_resblocks', '86', '--res_scale', '0.1'],
     # WDSR-B's stock route (use_pallas False, srtpu's default)
     'WDSR_STOCK': ['--n_feats', '128', '--n_resblocks', '16'],
+    # chip_smoke's phase 18: SRGAN x4 on srtpu's kernel route
+    'SRGAN_CS': ['--ngf', '64', '--ndf', '64', '--n_blocks', '16',
+                 '--use_pallas', 'cs'],
+    # chip_smoke's phase 20: RCAN-10x16 on srtpu's use_pallas=True route
+    'RCAN_TRUE': ['--n_resgroups', '10', '--n_resblocks', '16',
+                  '--reduction', '16', '--use_pallas', 'true'],
 }
 # a configuration's model, where it differs
-MODEL_OF = {'EDSR86': 'EDSR', 'WDSR_STOCK': 'WDSR'}
+MODEL_OF = {'EDSR86': 'EDSR', 'WDSR_STOCK': 'WDSR', 'SRGAN_CS': 'SRGAN',
+            'RCAN_TRUE': 'RCAN'}
 
 
 def median_ms(fn, calls: int, windows: int) -> float:
@@ -86,9 +96,17 @@ def worker(tree: str, model: str) -> None:
     gen = torch.Generator().manual_seed(0)
     lr = torch.rand((16, 32, 32, 3), generator=gen).to(device)
     hr = torch.rand((16, 128, 128, 3), generator=gen).to(device)
-    step = make_train_step(parse_losses('l1'))
-    state = TrainState(net, build_optimizer('ADAM', ['lr=1e-4'],
-                                            net.parameters()))
+    if MODEL_OF.get(model, model) == 'SRGAN':
+        # the adversarial step (D then G, VGG19 relu5_4), as fit runs it
+        from srtpu_torch.losses import VGGLoss
+        from srtpu_torch.train import create_gan_state, make_gan_train_step
+        net.train()
+        step = make_gan_train_step(vgg_loss=VGGLoss(device=device))
+        state = create_gan_state(net, 1e-4)
+    else:
+        step = make_train_step(parse_losses('l1'))
+        state = TrainState(net, build_optimizer('ADAM', ['lr=1e-4'],
+                                                net.parameters()))
     step_ms = median_ms(lambda: step(state, lr, hr), 5, 3)
     net.eval()
     image = torch.rand((1, 128, 128, 3), generator=gen).to(device)
