@@ -12,7 +12,8 @@ Phases, each of which raises on failure (nothing is caught):
 2. each forward kernel against its plain PyTorch version on the card,
    at the shapes the predict path gives it (LR 128x128 and a ragged
    67x45; batch 1, 64 channels, bf16), with the tolerance printed beside
-   the error and median CUDA-event times of both;
+   the error and median CUDA-event times of both; K3 also at the x8
+   path's second stage (LR 256x256 and 134x90);
 2b. each backward kernel (and K1's forward in its saving variant)
    against its plain version at the training shapes (batch 16, LR 32x32,
    64 channels, 16 resblocks; the tail's convs at 64x64) and at a ragged
@@ -20,7 +21,13 @@ Phases, each of which raises on failure (nothing is caught):
    bit-identical (the weight grads use no float atomics); K2's backward
    rows (and those of 2f and 2j) also split into their two launches, dx
    and the weight grads, each timed beside its bound; K1 also at
-   res_scale 0.1 beside 1.0 (forward saving and not, the backward);
+   res_scale 0.1 beside 1.0 (forward saving and not, the backward); K3b
+   also at the x8 path's second stage (batch 16 of 64x64, 2 x 134 x 90);
+   K3's forward (LR 128x128 and the training shape) and backward (the
+   training shape; its dx alone too) timed on the device alone (a CUDA
+   graph of the calls) and on the host, beside cuDNN's calls for the
+   same work (``F.conv2d`` 64 -> 256 then ``F.pixel_shuffle``;
+   ``aten.convolution_backward`` of that conv);
 3. the predict slice: ``python -m srtpu_torch predict``'s own function
    on three synthetic LR images (128x128, 250x170 which needs bucket
    padding, 512x352), EDSR-baseline x4 (64 features, 16 resblocks,
@@ -211,11 +218,22 @@ Phases, each of which raises on failure (nothing is caught):
    PyTorch call computes any of them: library null); K8b's pixels a
    block, device time (a CUDA graph) and host time at each shape; K8c over 16 blocks
    (one call a block, as the True route runs it), device and host time;
+   K8a's block device and host time beside cuDNN's calls for its work
+   (two ``F.conv2d``, ReLU and the scaled skip: h1 rounded, so a
+   reference, not the same function), and its trunk op over 16 blocks
+   (one host call) at the training shape, 1 x 128 x 128 and 2 x 67 x 45,
+   forward saving and not against the per-block plain route (within
+   four bf16 steps of the largest magnitude, as K1's trunk), two calls
+   bit-identical, the trunk's output equal to 16 per-block kernel calls,
+   and through autograd each way bit for bit the per-block kernel
+   route's output and gradients (the plain route's gradients printed
+   beside), with its device and host time and cuDNN's 16 blocks beside;
 19. the EDSR True route: phase 3's path and images with ``--model EDSR
    --use_pallas true`` (64 features, 16 blocks): per image 16 K8a
-   launches and no K1, K2 or K3; PNGs at 4x; kernel path against plain
-   path; then ``fit --use_pallas true`` (phase 4's recipe, 20 steps): 16
-   K8a launches per step (the backward stock) and none of K1-K3 or the
+   blocks in one trunk call and no K1, K2 or K3; PNGs at 4x; kernel path
+   against plain path; then ``fit --use_pallas true`` (phase 4's recipe,
+   20 steps): 16 K8a blocks per step in one trunk call (the backward
+   stock) and none of K1-K3 or the
    weight-grad kernel, the loss falling, kernel-path against plain-path
    gradients and five losses, ms/step, patches/s, the device share and
    device time by kernel group; the 'cs' route of the same weights timed
@@ -286,6 +304,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import importlib
 import json
 import logging
 import struct
@@ -318,7 +337,7 @@ from srtpu_torch.ops import (_build, b1_plain, b1_sums, b2_call, b2_plain,
 from srtpu_torch.ops import ca_layer as k8b_ops
 from srtpu_torch.ops.ca_layer import ca_layer_fwd, ca_layer_plain
 from srtpu_torch.ops.conv import conv3x3_dx
-from srtpu_torch.ops.layout import w_t
+from srtpu_torch.ops.layout import pm_from_fine, w_pm_hwio, w_t
 from srtpu_torch.ops.rdn import (pack, rdb_bwd_chain, rdb_bwd_chain_plain,
                                  rdb_bwd_dw, rdb_bwd_dw_plain, rdn_fwd,
                                  rdn_fwd_plain, rdn_trunk, rdn_trunk_calls,
@@ -326,7 +345,7 @@ from srtpu_torch.ops.rdn import (pack, rdb_bwd_chain, rdb_bwd_chain_plain,
 from srtpu_torch.ops.resblock import (resblock_bwd_fused,
                                       resblock_bwd_fused_plain,
                                       resblock_fused_bwd, resblock_fused_fwd,
-                                      resblock_fused_plain,
+                                      resblock_fused, resblock_fused_plain,
                                       resblock_fused_v3)
 from srtpu_torch.ops import wdsr as k7ops
 from srtpu_torch.ops.wdsr import (wdsr_bwd, wdsr_bwd_plain, wdsr_fwd,
@@ -342,6 +361,13 @@ from srtpu_torch.utils.logging import save_image
 # file over other trees' srtpu_torch, and a tree from before it has none
 bn_trunk_fwd = getattr(bn_block, 'bn_trunk_fwd', None)
 bn_trunk_bwd = getattr(bn_block, 'bn_trunk_bwd', None)
+# K8a's trunk op and K3's dx alone, the same way
+k8a_ops = importlib.import_module('srtpu_torch.ops.resblock')
+k3_ops = importlib.import_module('srtpu_torch.ops.upsample')
+resblock_trunk_fwd = getattr(k8a_ops, 'resblock_trunk_fwd', None)
+resblock_trunk_plain = getattr(k8a_ops, 'resblock_trunk_plain', None)
+resblock_fused_trunk = getattr(k8a_ops, 'resblock_fused_trunk', None)
+upsample_dx = getattr(k3_ops, 'upsample_dx', None)
 
 C, L, SCALE = 64, 16, 4
 KERNEL_SIZES = ((128, 128), (67, 45))
@@ -355,6 +381,9 @@ EXPECTED_LAUNCHES = {trunk_fwd: L, conv3x3_fwd: 3, upsample_fwd: 1}
 STEP_LAUNCHES = {trunk_fwd: L, trunk_bwd: L, conv3x3_fwd: 3, conv3x3_bwd: 3,
                  upsample_fwd: 1, upsample_bwd: 1, conv_wgrad: 6}
 TRAIN_BATCH, TRAIN_PATCH, TRAIN_STEPS = 16, 128, 20
+# phase 2b's batches of LR patches: the training shape and a ragged one
+BWD_SIZES = ((TRAIN_BATCH, TRAIN_PATCH // SCALE, TRAIN_PATCH // SCALE),
+             (2, 67, 45))
 # Kernel and plain version round at the same points; they differ only in
 # the order of the f32 sums, so a result next to a bf16 rounding boundary
 # can come out one step apart. K2/K3: one step at the largest magnitude.
@@ -637,10 +666,14 @@ K8_OFF = {trunk_fwd: 0, upsample_fwd: 0, conv3x3_fwd: 0, rcab_fwd: 0,
           wdsr_fwd: 0}
 K8_OFF_BWD = {trunk_bwd: 0, upsample_bwd: 0, conv3x3_bwd: 0, rcab_bwd: 0,
               wdsr_bwd: 0, conv_wgrad: 0}
-# per image and per train step: the K8 kernel once per block (per RCAB);
-# the backward is stock PyTorch (srtpu's is XLA), and so are the close
-# convs and the tail: no K1-K3, K5 or K7 launch
-EDSR_TRUE_LAUNCHES = {resblock_fused_fwd: L, **K8_OFF}
+# per image and per train step: the K8 kernel once per block (per RCAB;
+# K8a's L blocks in one trunk call, counted on the trunk op's launches
+# and calls, and no per-block call); the backward is stock PyTorch
+# (srtpu's is XLA), and so are the close convs and the tail: no K1-K3,
+# K5 or K7 launch
+K8A_TRUNK = ({resblock_trunk_fwd: L, (resblock_trunk_fwd, 'calls'): 1}
+             if resblock_trunk_fwd else {})
+EDSR_TRUE_LAUNCHES = {**K8A_TRUNK, resblock_fused_fwd: 0, **K8_OFF}
 EDSR_TRUE_STEP_LAUNCHES = {**EDSR_TRUE_LAUNCHES, **K8_OFF_BWD}
 RCAN_TRUE_LAUNCHES = {ca_layer_fwd: GROUPS * RCABS, **K8_OFF}
 RCAN_TRUE_STEP_LAUNCHES = {**RCAN_TRUE_LAUNCHES, **K8_OFF_BWD}
@@ -733,6 +766,30 @@ def k7_held() -> set:
         held |= {('fwd', WDSR_C, WDSR_L, True, s),
                  ('fwd', WDSR_C, WDSR_L, False, s),
                  ('bwd', WDSR_C, WDSR_L, False, s)}
+    return held
+
+
+def k8a_held() -> set:
+    """(kind, blocks, save, res_scale) of the K8a calls phases 2i and 2j
+    hold against their plain versions on the card: the per-block op
+    ('block', saving h1) at res_scale 1 (2i) and at K9D_SCALES (2j's K9d
+    and ``resblock_fused_v3`` runs); the trunk op ('trunk') at L blocks,
+    saving and not (2i)."""
+    held = {('block', 1, True, s) for s in (1.0, *K9D_SCALES)}
+    held |= {('trunk', L, save, 1.0) for save in (False, True)}
+    return held
+
+
+def k3_held() -> set:
+    """(kind, r, batch, H, W at the LR) of the K3 calls phases 2 and 2b
+    hold against their plain versions on the card: the forward ('fwd') at
+    KERNEL_SIZES (batch 1) and at the x8 path's second stage (twice each
+    size), the backward ('bwd') at BWD_SIZES and their second stages."""
+    held = set()
+    for h, w in KERNEL_SIZES:
+        held |= {('fwd', 2, 1, h, w), ('fwd', 2, 1, 2 * h, 2 * w)}
+    for bsz, h, w in BWD_SIZES:
+        held |= {('bwd', 2, bsz, h, w), ('bwd', 2, bsz, 2 * h, 2 * w)}
     return held
 
 
@@ -1057,7 +1114,31 @@ def check_kernels(device) -> dict:
             s['max_abs_err'] = max(s['max_abs_err'], err)
             if i == 0:
                 record(s, ms, plain_ms, flops, nbytes(args, got), lib)
+    # the x8 path's second stage: K3 at twice each LR size
+    for h, w in KERNEL_SIZES:
+        gen = torch.Generator().manual_seed(2000 * h + 2 * w)
+        args = (_uniform(gen, (1, 2 * h, 2 * w, C), 1.0, device,
+                         torch.bfloat16),
+                _uniform(gen, (3, 3, C, 4 * C), (9 * C) ** -0.5, device,
+                         torch.bfloat16),
+                _uniform(gen, (4 * C,), (9 * C) ** -0.5, device,
+                         torch.float32), 2)
+        err = _k3_hold(f'K3 upsample r=2, the x8 second stage, {2 * h}x'
+                       f'{2 * w}', upsample_fwd, upsample_plain, args,
+                       (TOL_STEPS['K3'],))
+        stats['K3']['max_abs_err'] = max(stats['K3']['max_abs_err'], err)
     return stats
+
+
+def _k3_hold(tag: str, fn, plain, args, steps) -> float:
+    """K3 (``fn``) against its plain version on ``args``, each output
+    within its ``steps`` (bf16 steps of its largest magnitude; None: 1e-4
+    of it), two calls bit-identical; returns the first output's error."""
+    got = _as_list(fn(*args))
+    torch.cuda.synchronize()
+    _same_twice(lambda: fn(*args), got, tag)
+    return _check_all(tag, ('out',) if len(got) == 1 else ('dx', 'dW', 'db'),
+                      got, _as_list(plain(*args)), steps)
 
 
 def _err(got, ref, steps) -> tuple[float, float, float]:
@@ -1129,8 +1210,7 @@ def check_bwd_kernels(device, smi: str) -> dict:
     kernel: max dW error) over all shapes, and kernel / plain / bound /
     library ms summed over its uses at the training shapes."""
     stats = new_stats(('K1sv', 'K1b', 'K2b', 'K3b', 'W', 'K25b'))
-    for i, (bsz, h, w) in enumerate(((TRAIN_BATCH, TRAIN_PATCH // SCALE,
-                                      TRAIN_PATCH // SCALE), (2, 67, 45))):
+    for i, (bsz, h, w) in enumerate(BWD_SIZES):
         # K1's forward in its saving variant: output, block inputs, h1
         gen = torch.Generator().manual_seed(h * w)
         args = (_uniform(gen, (bsz, h, w, C), 1.0, device, torch.bfloat16),
@@ -1189,7 +1269,72 @@ def check_bwd_kernels(device, smi: str) -> dict:
                 record(st, ms, plain_ms, flops, nbytes(args, got), lib)
                 if kid in ('K2b', 'K25b'):
                     bwd_split(st, *args, smi, f'{kid} {label}')
+    # the x8 path's second stage: K3's backward at twice each LR size
+    cb = (9 * C) ** -0.5
+    for bsz, h, w in BWD_SIZES:
+        gen = torch.Generator().manual_seed(bsz * 20011 + h * 101 + w)
+        args = (_uniform(gen, (bsz, 2 * h, 2 * w, C), 1.0, device,
+                         torch.bfloat16),
+                _uniform(gen, (3, 3, C, 4 * C), cb, device, torch.bfloat16),
+                _uniform(gen, (bsz, 4 * h, 4 * w, C), 1.0, device,
+                         torch.bfloat16), 2)
+        err = _k3_hold(f'K3b upsample bwd r=2, the x8 second stage, '
+                       f'{bsz}x{2 * h}x{2 * w}', upsample_bwd,
+                       upsample_bwd_plain, args,
+                       (BWD_DX_STEPS['K3'], 1e-4, 1e-4))
+        stats['K3b']['max_abs_err'] = max(stats['K3b']['max_abs_err'], err)
+        del args
+    torch.cuda.empty_cache()
     return stats
+
+
+def _k3_times(device, smi: str, stats: dict) -> None:
+    """K3's device time alone (a CUDA graph of its calls), CUDA-event time
+    and host time a call: the forward at LR 128x128 (the K3 row) and at
+    the training shape, the backward and its dx alone (``upsample_dx``)
+    at the training shape (the K3b row), each beside cuDNN's calls for
+    the same work (bf16, channels-last): ``F.conv2d`` 64 -> 256 with its
+    bias, then ``F.pixel_shuffle``; ``aten.convolution_backward`` of that
+    conv (dx, dW, db) at the coarse cotangent."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cb = (9 * C) ** -0.5
+    gen = torch.Generator().manual_seed(4243)
+    wt = _uniform(gen, (3, 3, C, 4 * C), cb, device, bf)
+    b = _uniform(gen, (4 * C,), cb, device, f32)
+    w_pm = w_pm_hwio(wt, 2).contiguous()
+    for bsz, h, w in ((1, 128, 128), BWD_SIZES[0]):
+        x = _uniform(gen, (bsz, h, w, C), 1.0, device, bf)
+        conv = lib_conv(x, wt, b)
+        fns = {'fwd': lambda: upsample_fwd(x, wt, b, 2),
+               'cuDNN reference fwd (F.conv2d + F.pixel_shuffle)':
+                   lambda: F.pixel_shuffle(conv(), 2)}
+        train = bsz == TRAIN_BATCH
+        if train:
+            g = _uniform(gen, (bsz, 2 * h, 2 * w, C), 1.0, device, bf)
+            fns.update({
+                'bwd (dx + weight grads)': lambda: upsample_bwd(x, wt, g, 2),
+                'dx alone': lambda: upsample_dx(g, w_pm, 2),
+                'cuDNN reference bwd (convolution_backward)': lib_conv_bwd(
+                    x, wt, pm_from_fine(g, 2).contiguous())})
+        times = {}
+        for name, fn in fns.items():
+            times[name] = (graph_ms(fn), median_ms(fn), host_ms(fn))
+            d, e, hh = times[name]
+            print(f'K3 {name} {bsz}x{h}x{w}: device {d:.4f} ms, CUDA events '
+                  f'{e:.4f} ms, host {hh:.4f} ms a call  [{smi}]', flush=True)
+        ref = times['cuDNN reference fwd (F.conv2d + F.pixel_shuffle)']
+        if not train:
+            stats['K3'].update(device_ms=times['fwd'][0],
+                               host_ms=times['fwd'][2], reference_ms=ref[1],
+                               reference_device_ms=ref[0])
+            continue
+        ref = times['cuDNN reference bwd (convolution_backward)']
+        stats['K3b'].update(
+            device_ms=times['bwd (dx + weight grads)'][0],
+            host_ms=times['bwd (dx + weight grads)'][2],
+            dx_device_ms=times['dx alone'][0], reference_ms=ref[1],
+            reference_device_ms=ref[0])
+    torch.cuda.empty_cache()
 
 
 def rcab_params(gen, device, lead=()):
@@ -2634,6 +2779,121 @@ def _k8c_blocks(device, smi: str, stats: dict, bsz: int, h: int,
         stats['K8c']['trunk_host_ms'] = host
 
 
+def _k8a_trunk(device, smi: str, stats: dict, bsz: int, h: int,
+               w: int) -> None:
+    """K8a's trunk op over L blocks at one shape (srtpu's init bounds, f32
+    parameters as EDSR holds them, res_scale 1): the forward call saving
+    and not against the per-block plain route (out, xs, h1s within
+    TOL_STEPS['K1'], as K1's 16-block trunk), two calls bit-identical,
+    the output equal to L per-block kernel calls; at the training shape,
+    through autograd each way the per-block kernel route's bits (``resblock_fused`` a block,
+    cuDNN's deterministic algorithms for the stock backward), and
+    against the per-block plain route out within TOL_STEPS['K1']. The
+    backward is stock on every path, fed each path's saved bf16
+    activations: where a block's input sits a step apart, a ReLU mask
+    (h1 > 0) flips at pixels whose pre-activation is that near 0 and
+    moves dh1 there by its whole value, so the gradients against the
+    plain route are printed, and held at the model's level by phase 19
+    (STEP_GRAD_TOL on the parameters' gradients). Unragged shapes: the trunk's device and host
+    time beside cuDNN's calls for its work (:func:`trunk_reference`); at
+    the training shape also one block's (the K8a row's device_ms,
+    host_ms, reference_ms, reference_device_ms; trunk_device_ms,
+    trunk_host_ms, trunk_reference_device_ms)."""
+    gen = torch.Generator().manual_seed(bsz * 7937 + h * 131 + w)
+    cb = (9 * C) ** -0.5
+    bf, f32 = torch.bfloat16, torch.float32
+    x = _uniform(gen, (bsz, h, w, C), 1.0, device, bf)
+    prm = [_uniform(gen, shape, cb, device, f32)
+           for shape in ((L, 3, 3, C, C), (L, C), (L, 3, 3, C, C), (L, C))]
+    ops = k8a_ops._cast(x, *prm)
+    tag = f'K8a trunk op L={L} {bsz}x{h}x{w}x{C}'
+    for save in (False, True):
+        got = _as_list(resblock_trunk_fwd(x, *ops, 1.0, save=save))
+        torch.cuda.synchronize()
+        _same_twice(lambda: resblock_trunk_fwd(x, *ops, 1.0, save=save),
+                    got, f'{tag} save={save}')
+        ref = _as_list(resblock_trunk_plain(x, *ops, 1.0, save=save))
+        _check_all(f'{tag} fwd, saving {save}', ('out', 'xs', 'h1s'), got,
+                   ref, [TOL_STEPS['K1']] * 3)
+        if not save:
+            y = x
+            for i in range(L):
+                y = resblock_fused_fwd(y, *(t[i] for t in ops), 1.0)
+            need(torch.equal(y, got[0]), f'{tag}: not its blocks\' bits')
+        del got, ref
+    if bsz == TRAIN_BATCH:     # each way at the shape training runs
+        _k8a_trunk_grads(x, prm, tag, smi)
+    if (bsz, h, w) != (2, 67, 45):
+        _k8a_trunk_times(x, ops, smi, stats, bsz, h, w)
+
+
+def _k8a_trunk_grads(x, prm, tag: str, smi: str) -> None:
+    """:func:`_k8a_trunk` through autograd, each way."""
+    res = {}
+    for route in ('trunk', 'blocks', 'plain'):
+        xx = x.clone().requires_grad_()
+        pp = [t.clone().requires_grad_() for t in prm]
+        with _cudnn_deterministic():    # the stock backward's cuDNN convs
+            if route == 'trunk':
+                out = resblock_fused_trunk(xx, *pp, 1.0)
+            else:
+                out = xx
+                for i in range(L):
+                    out = resblock_fused(out, *(t[i] for t in pp), 1.0,
+                                         route == 'plain')
+            out.float().square().mean().backward()
+        res[route] = [out.detach(), xx.grad, *(t.grad for t in pp)]
+    names = ('out', 'dx', 'dW1', 'db1', 'dW2', 'db2')
+    differ = [n for n, a, b in zip(names, res['trunk'], res['blocks'])
+              if not torch.equal(a, b)]
+    need(not differ, f'{tag}: through autograd, {differ} not its blocks\' '
+         f'bits')
+    _check_all(f'{tag} through autograd, out', ('out',), res['trunk'][:1],
+               res['plain'][:1], [TOL_STEPS['K1']])
+    rel = ', '.join(
+        f'{name} {(gk - gp).abs().max().item() / gp.abs().max().item():.4g}'
+        for name, gk, gp in zip(names[1:], res['trunk'][1:],
+                                res['plain'][1:]))
+    print(f'{tag} each way: output and gradients the per-block kernel '
+          f'route\'s bits; against the per-block plain route (a stock '
+          f'backward on each path\'s saved activations) max_abs/max|ref| '
+          f'{rel}  [{smi}]')
+
+
+def _k8a_trunk_times(x, ops, smi: str, stats: dict, bsz: int, h: int,
+                     w: int) -> None:
+    """:func:`_k8a_trunk`'s times."""
+    ref_fwd = trunk_reference(x, *ops, 1.0, x.expand((L, *x.shape)), x)[0]
+    one = [t[:1] for t in ops]
+    ref_one = trunk_reference(x, *one, 1.0, x[None], x)[0]
+    fns = {'trunk fwd (predict)': lambda: resblock_trunk_fwd(x, *ops, 1.0),
+           'trunk fwd (saving)':
+               lambda: resblock_trunk_fwd(x, *ops, 1.0, save=True),
+           'cuDNN reference, 16 blocks (2 F.conv2d, ReLU, scaled skip '
+           'a block)': ref_fwd,
+           'one block (saving h1)': lambda: resblock_fused_fwd(
+               x, *(t[0] for t in ops), 1.0, save_h1=True),
+           'cuDNN reference, one block': ref_one}
+    times = {}
+    for name, fn in fns.items():
+        times[name] = (graph_ms(fn, 5 if 'one' not in name else 20, 3),
+                       median_ms(fn, 5, 3), host_ms(fn))
+        d, e, hh = times[name]
+        print(f'K8a {name} {bsz}x{h}x{w}: device {d:.4f} ms, CUDA events '
+              f'{e:.4f} ms, host {hh:.4f} ms a call  [{smi}]', flush=True)
+    if bsz == TRAIN_BATCH:
+        one_ref = times['cuDNN reference, one block']
+        stats['K8a'].update(
+            device_ms=times['one block (saving h1)'][0],
+            host_ms=times['one block (saving h1)'][2],
+            reference_ms=one_ref[1], reference_device_ms=one_ref[0],
+            trunk_device_ms=times['trunk fwd (saving)'][0],
+            trunk_host_ms=times['trunk fwd (saving)'][2],
+            trunk_reference_device_ms=times[
+                'cuDNN reference, 16 blocks (2 F.conv2d, ReLU, scaled skip '
+                'a block)'][0])
+
+
 def check_k8_kernels(device, smi: str) -> dict:
     """Phase 2i. K8a (out and h1), K8b and K8c against their plain versions
     at the training shape (batch 16, LR 32x32), the predict shape (batch
@@ -2675,6 +2935,7 @@ def check_k8_kernels(device, smi: str) -> dict:
             del got, ref
         if i != 2:
             _k8c_blocks(device, smi, stats, bsz, h, w)
+        _k8a_trunk(device, smi, stats, bsz, h, w)
         torch.cuda.empty_cache()
     for bsz, h, w in K8B_SHAPES:
         gen = torch.Generator().manual_seed(bsz * 7919 + h * 127 + w)
@@ -3312,8 +3573,10 @@ EDSR_PROFILE = (('conv_sm90_kernel<64, 1, 4, 1, false, 6>',
                  'K1 bwd dx chain (K2 engine TB, EPI 5)'),
                 ('trunk_gs_kernel', 'K1 bwd gs pass'),
                 ('wgrad', 'weight grads'),
-                ('conv3x3_kernel<64, 64, 7, 16, true', 'K3 fwd'),
-                ('conv3x3_kernel<256, 16, 7, 16, false, true', 'K3 bwd dx'),
+                ('false, 13>', 'K3 fwd (K2 engine, EPI 13: the shuffle in '
+                 'the store)'),
+                ('true, 14>', 'K3 bwd dx (K2 engine TB, EPI 14: the fine '
+                 'map)'),
                 ('conv_sm90_kernel<64, 1, 4, 1, false, 0>',
                  'K1 fwd conv1 + K2 close conv (EPI 0)'),
                 ('conv_sm90_kernel', 'K2 fwd + bwd dx'))
@@ -3347,8 +3610,8 @@ K4_RULES = (
 SRRESNET_PROFILE = (
     *K4_RULES,
     ('wgrad', 'weight grads'),
-    ('conv3x3_kernel<64, 64, 7, 16, true', 'K3 fwd'),
-    ('conv3x3_kernel<256, 16, 7, 16, false, true', 'K3 bwd dx'),
+    ('false, 13>', 'K3 fwd (K2 engine, EPI 13: the shuffle in the store)'),
+    ('true, 14>', 'K3 bwd dx (K2 engine TB, EPI 14: the fine map)'),
     # K2's engine by (N atom, atoms, k16 steps a slice, split, dx): the 5x5
     # 256 -> 16 and its 16 -> 256 dx; the 3x3 64 -> 256 and its dx
     ('conv_sm90_kernel<16, 1, 4,', 'K2 5x5 fwd'),
@@ -3455,7 +3718,11 @@ def _true_profile(k8_rules, cs_rules) -> tuple:
 
 
 EDSR_TRUE_PROFILE = _true_profile(
-    (('resblock_f32_kernel', 'K8a fused block (f32 h1)'),), EDSR_PROFILE)
+    (('conv_sm90_kernel<64, 1, 4, 1, false, 12>',
+      'K8a conv1 + [hi | lo] split (K2 engine, EPI 12)'),
+     ('conv_sm90_kernel<64, 1, 4, 1, false, 15>',
+      'K8a conv2 over [hi | lo] + res_scale + skip (K2 engine, EPI 15)')),
+    EDSR_PROFILE)
 RCAN_TRUE_PROFILE = _true_profile(
     (('ca_pool_kernel', 'K8b channel sums'),
      ('ca_gate_apply_kernel', 'K8b gate + gating')),
@@ -4032,9 +4299,15 @@ def run_gan_train(device, smi: str) -> dict:
 
 def main() -> None:
     t_start = time.perf_counter()
+
+    def lap(what: str) -> None:
+        print(f'chip_smoke: {what} done at {time.perf_counter() - t_start:.1f}'
+              ' s', flush=True)
     device, smi = card()
     stats = check_kernels(device)
     stats.update(check_bwd_kernels(device, smi))
+    _k3_times(device, smi, stats)
+    lap('phases 2 and 2b')
     stats.update(check_rcab_kernels(device, smi))
     stats.update(check_bn_kernels(device, smi))
     stats.update(check_rdn_kernels(device, smi))
@@ -4045,9 +4318,12 @@ def main() -> None:
     stats.update(check_wdsr_kernels(device, smi))
     stats.update(check_bn_reflect_kernels(device, smi))
     stats.update(check_bn_trunk(device, smi))
+    lap('phases 2c-2h, 2k, 2l and 2n')
     stats.update(check_k8_kernels(device, smi))
+    lap('phase 2i')
     stats.update(check_form_kernels(device, smi))
     check_trunk_times(device, smi, stats)
+    lap('phases 2j and 2m')
     # the main-path runs, each with the counters set to 0 before it
     runs = run_op_paths(device, smi)
     runs['edsr_predict'] = run_slice(device, smi)
@@ -4089,6 +4365,7 @@ def main() -> None:
                                       SRGAN_PREDICT_LAUNCHES,
                                       SRGAN_PREDICT_PROFILE, profile_all=True)
     runs['srgan_fit'] = run_gan_train(device, smi)
+    lap('the op runs and phases 3-18')
     for model, args, (pred, step), rules in (
             ('EDSR', TRUE_ARGS, (EDSR_TRUE_LAUNCHES, EDSR_TRUE_STEP_LAUNCHES),
              EDSR_TRUE_PROFILE),
@@ -4102,6 +4379,7 @@ def main() -> None:
                                            rules, alt=CS_ROUTE)
         runs[key + '_fit'] = run_train(device, smi, model, args, step, rules,
                                        alt=CS_ROUTE)
+    lap('phases 19-21')
     runs['edsr86_fit'] = run_train(device, smi, 'EDSR', EDSR86_ARGS,
                                    EDSR86_STEP_LAUNCHES, EDSR_PROFILE,
                                    steps=EDSR86_STEPS)
@@ -4120,16 +4398,19 @@ def main() -> None:
              'EPI 6 on K2\'s engine; one host call)', trunk_fwd, 'trunk.cu',
              rep + '1496'),
             ('K2', 'K2 conv3x3_fwd', conv3x3_fwd, 'conv.cu', rep + '538'),
-            ('K3', 'K3 upsample_fwd', upsample_fwd, 'upsample.cu',
-             rep + '952'),
+            ('K3', "K3 upsample_fwd (64 -> 256 on K2's engine at EPI 13: "
+             'N 128, two phases a block, the pixel shuffle in the store)',
+             upsample_fwd, 'upsample.cu', rep + '952'),
             ('K1b', 'K1 trunk_bwd (dx chain: two transposed launches of K2\'s '
              'engine a block at EPI 5, a gs pass where res_scale != 1, one '
              'host call; with its weight grads)', trunk_bwd, 'trunk.cu',
              rep + '1527'),
             ('K2b', 'K2 conv3x3_bwd (dx; with its weight grads)', conv3x3_bwd,
              'conv.cu', rep + '581'),
-            ('K3b', 'K3 upsample_bwd (dx, de-interleave in the load; with '
-             'its weight grads)', upsample_bwd, 'upsample.cu', rep + '975'),
+            ('K3b', "K3 upsample_bwd (dx on K2's transposed engine at EPI "
+             "14, the fine cotangent read phase-major through a 5-D tensor "
+             'map; with its weight grads)', upsample_bwd, 'upsample.cu',
+             rep + '975'),
             ('W', 'conv_wgrad (dW, db of the K1/K2/K3/K5 backward passes)',
              conv_wgrad, 'wgrad.cu', rep + '452'),
             ('K5', 'K5 rcab_fwd (RCAB conv pair, pool + MLP, gate)',
@@ -4220,9 +4501,12 @@ def main() -> None:
             ('K4rtb', 'K4r bn_trunk_bwd, reflect (one host call; fold ring '
              'launches; the 33 reflect weight grads in one W launch)',
              K4T[True][1], 'bn_block.cu', bn + '490'),
-            ('K8a', 'K8a resblock_fused_fwd (EDSR use_pallas=True: fused '
-             'block, f32 h1 as bf16 hi + lo; saving h1)', resblock_fused_fwd,
-             'resblock.cu', 'srtpu/ops/resblock.py:165'),
+            ('K8a', "K8a resblock_trunk_fwd / resblock_fused_fwd (EDSR "
+             "use_pallas=True: per block conv1 on K2's engine at EPI 12, "
+             'f32 h1 stored as bf16 [hi | lo], conv2 over the pair at EPI '
+             '15; one host call a trunk; a block saving h1)',
+             [resblock_fused_fwd, resblock_trunk_fwd], 'resblock.cu',
+             'srtpu/ops/resblock.py:165'),
             ('K8b', 'K8b ca_layer_fwd (RCAN use_pallas=True: two launches, '
              'fixed-order partial sums, then gate + gating in every block)',
              ca_layer_fwd,
@@ -4287,9 +4571,11 @@ def main() -> None:
                                         'wgrad_bound_ms', 'wgrad_library_ms',
                                         'wgrad_library_bench_ms', 'classes',
                                         'device_ms', 'host_ms',
-                                        'chain_device_ms', 'reference_ms',
+                                        'chain_device_ms', 'dx_device_ms',
+                                        'reference_ms',
                                         'reference_device_ms',
-                                        'trunk_device_ms', 'trunk_host_ms')
+                                        'trunk_device_ms', 'trunk_host_ms',
+                                        'trunk_reference_device_ms')
                if st.get(key) is not None}})
     print(f'chip_smoke ran {time.perf_counter() - t_start:.1f} s '
           f'(kernel build included)')

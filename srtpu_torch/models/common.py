@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import conv3x3, resblock_fused, trunk, upsample
+from ..ops import conv3x3, resblock_fused_trunk, trunk, upsample
 from ..ops.bn_block import bn_close_ref, bn_resblock_ref, bn_trunk
 from ..ops.conv import conv3x3_plain, conv_f32
 from ..ops.layout import (b_phase_dense, b_pm, pixel_shuffle, pm_to_nhwc,
@@ -207,19 +207,20 @@ class Trunk(nn.Module):
 
     def forward_nhwc(self, x: torch.Tensor, dtype: torch.dtype,
                      fused: bool, plain: bool = False) -> torch.Tensor:
-        """srtpu's NHWC routes on these parameters: ``fused`` runs K8a per
-        block (``FusedResBlock``: f32 h1, bf16 weight grads), else srtpu's
+        """srtpu's NHWC routes on these parameters: ``fused`` runs K8a's
+        trunk op (srtpu's ``FusedResBlock`` block after block: f32 h1,
+        bf16 weight grads; one host call forward), else srtpu's
         ``ResBlock`` (stock convs, ``res * res_scale + x`` in ``dtype``);
         both close with a stock conv and the global skip, as srtpu's XLA.
         ``plain`` runs K8a's plain version."""
         xd = x.to(dtype)
-        res = xd
-        for w1, b1, w2, b2 in zip(*(t.unbind(0) for t in (
-                self.w1, self.b1, self.w2, self.b2))):
-            if fused:
-                res = resblock_fused(res, w1, b1, w2, b2, self.res_scale,
-                                     plain)
-            else:
+        if fused:
+            res = resblock_fused_trunk(xd, self.w1, self.b1, self.w2,
+                                       self.b2, self.res_scale, plain)
+        else:
+            res = xd
+            for w1, b1, w2, b2 in zip(*(t.unbind(0) for t in (
+                    self.w1, self.b1, self.w2, self.b2))):
                 r = _conv(torch.relu(_conv(res, w1, b1, dtype)), w2, b2,
                           dtype)
                 res = r * self.res_scale + res

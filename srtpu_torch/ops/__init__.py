@@ -9,8 +9,8 @@ residual group's RCABs in one call), K6 ``rdn_fwd`` / ``rdb_bwd_chain`` / ``rdb_
 (RDN's dense blocks, all D or one per call), K7 ``wdsr_fwd`` /
 ``wdsr_bwd`` (WDSR-B's block, in :mod:`.wdsr`; ``wdsr_trunk_fwd`` /
 ``wdsr_trunk_bwd`` its trunk in one host call each way), K8 (srtpu's
-``use_pallas=True`` forms): K8a ``resblock_fused_fwd`` (EDSR's block)
-with K9d ``resblock_bwd_fused`` (its fused backward), K8b
+``use_pallas=True`` forms): K8a ``resblock_trunk_fwd`` (EDSR's blocks,
+one host call; ``resblock_fused_fwd`` one block) with K9d ``resblock_bwd_fused`` (its fused backward), K8b
 ``ca_layer_fwd`` (RCAN's attention gate), K8c ``wdsr_block_fused_fwd``
 (WDSR-B's block, in :mod:`.wdsr_block`), and the shared weight-grad
 kernel ``conv_wgrad``. The differentiable ops: ``trunk``,
@@ -19,8 +19,8 @@ kernel ``conv_wgrad``. The differentiable ops: ``trunk``,
 and, in :mod:`.rdn`, ``rdn_trunk_calls`` (srtpu's per-block 'calls'
 trunk on K6) and ``rdn_trunk_layers`` (srtpu's round-2 trunk, one K2
 launch per dense layer), ``wdsr.wdsr_trunk`` (and ``wdsr.wdsr_block``,
-one block of it), ``resblock_fused``,
-``resblock_fused_v3`` (K8a forward, K9d backward), ``ca_gate`` and
+one block of it), ``resblock_fused_trunk`` (EDSR's True-route trunk) and
+``resblock_fused`` (one block of it), ``resblock_fused_v3`` (K8a forward, K9d backward), ``ca_gate`` and
 ``wdsr_block.wdsr_block_fused``. ``trunk.trunk_xla`` is srtpu's XLA
 trunk past 96 features (stock ops), ``rcab.resgroup_xla`` its RCAN
 residual group there. Kernels build on first use
@@ -37,11 +37,12 @@ from .conv import (Conv3x3Fn, conv3x3, conv3x3_bwd, conv3x3_bwd_plain,
 from .rcab import (ResGroupFn, rcab_bwd, rcab_bwd_plain, rcab_fwd,
                    rcab_fwd_plain, resgroup, resgroup_bwd, resgroup_bwd_plain,
                    resgroup_fwd, resgroup_plain, resgroup_xla)
-from .resblock import (FusedResBlockFn, FusedResBlockV3Fn,
+from .resblock import (FusedResBlockFn, FusedResBlockV3Fn, FusedTrunkFn,
                        resblock_bwd_fused, resblock_bwd_fused_plain,
                        resblock_fused, resblock_fused_bwd,
                        resblock_fused_fwd, resblock_fused_plain,
-                       resblock_fused_v3)
+                       resblock_fused_trunk, resblock_fused_v3,
+                       resblock_trunk_fwd, resblock_trunk_plain)
 from .rdn import (RDNCallsFn, RDNLayersFn, RDNTrunkFn, rdb_bwd_chain,
                   rdb_bwd_chain_plain, rdb_bwd_dw, rdb_bwd_dw_plain, rdn_fwd,
                   rdn_fwd_plain, rdn_trunk, rdn_trunk_calls,
@@ -53,7 +54,8 @@ from .upsample import (UpsampleFn, upsample, upsample_bwd, upsample_bwd_plain,
 from .wgrad import conv_wgrad, conv_wgrad_plain
 
 __all__ = ['BNCloseFn', 'BNResBlockFn', 'CALayerFn', 'Conv3x3Fn',
-           'FusedResBlockFn', 'FusedResBlockV3Fn', 'RDNCallsFn',
+           'FusedResBlockFn', 'FusedResBlockV3Fn', 'FusedTrunkFn',
+           'RDNCallsFn',
            'RDNLayersFn', 'RDNTrunkFn', 'ResGroupFn', 'TrunkFn',
            'rdn_trunk_calls', 'rdn_trunk_layers', 'resblock_bwd_fused',
            'resblock_bwd_fused_plain', 'resblock_cs', 'resblock_fused_v3',
@@ -69,7 +71,9 @@ __all__ = ['BNCloseFn', 'BNResBlockFn', 'CALayerFn', 'Conv3x3Fn',
            'rdb_bwd_chain_plain', 'rdb_bwd_dw', 'rdb_bwd_dw_plain', 'rdn_fwd',
            'rdn_fwd_plain',
            'rdn_trunk', 'resblock_fused', 'resblock_fused_bwd',
-           'resblock_fused_fwd', 'resblock_fused_plain', 'resgroup',
+           'resblock_fused_fwd', 'resblock_fused_plain',
+           'resblock_fused_trunk', 'resblock_trunk_fwd',
+           'resblock_trunk_plain', 'resgroup',
            'resgroup_bwd',
            'resgroup_bwd_plain', 'resgroup_fwd', 'resgroup_plain', 'trunk',
            'trunk_bwd', 'trunk_bwd_plain', 'trunk_fwd', 'trunk_plain',

@@ -53,7 +53,7 @@ SIGNATURES = {
     'srt_rdn_conv': [_P, _I, _P, _I, _P, _P] + [_I] * 7 + [_P],
     'srt_wdsr_trunk_fwd': [_P] * 7 + [_F] + [_P] * 3 + [_I] * 8 + [_P],
     'srt_wdsr_trunk_bwd': [_P] * 7 + [_F] + [_P] * 16 + [_I] * 13 + [_P],
-    'srt_resblock_f32_fwd': [_P] * 5 + [_F] + [_P] * 2 + [_I] * 4 + [_P],
+    'srt_resblock_f32_fwd': [_P] * 5 + [_F] + [_P] * 4 + [_I] * 6 + [_P],
     'srt_ca_layer_fwd': [_P] * 7 + [_I] * 5 + [_P],
     'srt_wdsr_block_fwd': [_P] * 7 + [_F] + [_P] * 2 + [_I] * 6 + [_P],
     'srt_resblock_f32_bwd': [_P] * 5 + [_F] + [_P] * 11 + [_I] * 6 + [_P],

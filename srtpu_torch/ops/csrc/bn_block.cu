@@ -57,8 +57,8 @@
 // SAME: h1 and dy are zero there.
 //
 // The batch statistics sit between each conv and its normalisation and
-// cover the whole batch, so the passes cannot fuse into one block as
-// K8a's pair does (fused_block.cuh); blocks run in no order, so every
+// cover the whole batch, so the passes cannot fuse into one block; and
+// blocks run in no order, so every
 // cross-block sum is written as per-tile (per-chunk) partials and added
 // by bn_reduce_kernel in a fixed order, which also finalizes the
 // statistics. No float atomics: two calls give the same bits. NHWC has no

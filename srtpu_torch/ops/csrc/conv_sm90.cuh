@@ -104,6 +104,23 @@
 // bf16(sums + f32(skip)) (and optionally bf16(du + f32(skip2))). With
 // reflect, EPI 10 and 11 add the fold ring (bn_block.cu's ring launch)
 // to the f32 sums at rows 1, H - 2 and columns 1, W - 2 first.
+//
+// K8a (resblock.cu) runs EDSR's True-route block on it: conv1 at EPI 12
+// (ParamsK8a: h1 = relu(sums + b1) in f32, split into hi = bf16(h1) and
+// lo = bf16(h1 - hi), stored as one [hi | lo] pixel of 128 channels, and
+// hi alone where the caller keeps h1), conv2 over that pair at cin 128
+// (W2 stacked twice) at EPI 15 (ParamsK1: EPI 6's skip with the product
+// and the sum one fused rounding, out = bf16(fma(sums + b2, res_scale,
+// f32(x))), as the kernel it replaces rounded it).
+//
+// K3 (upsample.cu) runs the sub-pixel stage on it (ParamsK3): EPI 13, the
+// forward C -> r r C with its N a run of d phases of one phase row (d = 3,
+// 2 or 1, whichever divides r) and the pixel shuffle in the store: those
+// d phases of a coarse pixel are d consecutive fine pixels, one run of d
+// C channels; EPI 14 (TB), the dx, EPI 0's epilogue with operand A read
+// through a 5-D tensor map of the fine cotangent, (r C, W, r, H, B): a
+// 64-channel slice is one phase (a, b) at coarse pixels, TMA's zero fill
+// the coarse SAME padding.
 #pragma once
 
 #include "sm90.cuh"
@@ -218,6 +235,18 @@ struct ParamsK4 : Params {
   BnEpi k4;
 };
 
+// K8a's conv1 (EPI 12): out is the [hi | lo] pair (pixel stride 128), h1
+// (pixel stride 64) takes hi unless null.
+struct ParamsK8a : Params {
+  bf16* h1;
+};
+
+// K3's launches (EPI 13, 14): r, the upscale factor (out of EPI 13 is the
+// fine (B, r H, r W, 64) image; x of EPI 14 the fine cotangent).
+struct ParamsK3 : Params {
+  int r;
+};
+
 template <int EPI>
 struct ParamsFor {
   typedef ParamsK6 type;
@@ -257,6 +286,22 @@ struct ParamsFor<10> {
 template <>
 struct ParamsFor<11> {
   typedef ParamsK4 type;
+};
+template <>
+struct ParamsFor<12> {
+  typedef ParamsK8a type;
+};
+template <>
+struct ParamsFor<13> {
+  typedef ParamsK3 type;
+};
+template <>
+struct ParamsFor<14> {
+  typedef ParamsK3 type;
+};
+template <>
+struct ParamsFor<15> {
+  typedef ParamsK1 type;
 };
 
 // K6's epilogues: runtime pixel strides and weights in pairs.
@@ -477,7 +522,9 @@ __device__ __forceinline__ void rcab_epilogue(float (&acc)[1][32],
 }
 
 // K1's epilogue (EPI 6; TrunkEpi says what it writes), on K2's plan for 64
-// -> 64, registers as rcab_epilogue's.
+// -> 64, registers as rcab_epilogue's; FMA (K8a's EPI 15): the product and
+// the sum one fused rounding, fma(sums + bias, scale, f32(res)).
+template <bool FMA>
 __device__ __forceinline__ void trunk_epilogue(float (&acc)[1][32],
                                                const ParamsK1& p, int warp,
                                                int lane, int b, int y0,
@@ -503,8 +550,10 @@ __device__ __forceinline__ void trunk_epilogue(float (&acc)[1][32],
       const float v1 =
           acc[0][4 * j + 2 * h + 1] + __ldg(p.bias + cl + 8 * j + 1);
       *reinterpret_cast<__nv_bfloat162*>(p.out + o + 8 * j) =
-          __floats2bfloat162_rn(__fadd_rn(__fmul_rn(v0, e.scale), r.x),
-                                __fadd_rn(__fmul_rn(v1, e.scale), r.y));
+          FMA ? __floats2bfloat162_rn(__fmaf_rn(v0, e.scale, r.x),
+                                      __fmaf_rn(v1, e.scale, r.y))
+              : __floats2bfloat162_rn(__fadd_rn(__fmul_rn(v0, e.scale), r.x),
+                                      __fadd_rn(__fmul_rn(v1, e.scale), r.y));
     }
   }
 }
@@ -759,6 +808,79 @@ __device__ __forceinline__ void bn_epilogue(float (&acc)[1][32],
   }
 }
 
+// K8a's conv1 (EPI 12; ParamsK8a says what it writes), on K2's plan for
+// 64 -> 64, registers as rcab_epilogue's: h = relu(sums + bias) in f32, hi
+// = bf16(h), lo = bf16(h - hi), the pair stored at channels c and 64 + c
+// of the pixel's 128. Pixels outside the image are not stored: conv2's
+// TMA zero fill is their h1, as SAME padding wants.
+__device__ __forceinline__ void hilo_epilogue(float (&acc)[1][32],
+                                              const ParamsK8a& p, int warp,
+                                              int lane, int b, int y0,
+                                              int x0) {
+  constexpr int J = 8;
+  const int gy = y0 + warp, cl = 2 * (lane & 3);
+  if (gy >= p.H) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gx = x0 + (lane >> 2) + 8 * h;
+    if (gx >= p.W) continue;
+    const size_t pix = ((size_t)b * p.H + gy) * p.W + gx;
+    bf16* const v = p.out + pix * 128 + cl;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float h0 = fmaxf(
+          __fadd_rn(acc[0][4 * j + 2 * h], __ldg(p.bias + cl + 8 * j)), 0.0f);
+      const float h1 = fmaxf(__fadd_rn(acc[0][4 * j + 2 * h + 1],
+                                       __ldg(p.bias + cl + 8 * j + 1)),
+                             0.0f);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(h0, h1);
+      const float2 f = __bfloat1622float2(hi);
+      *reinterpret_cast<__nv_bfloat162*>(v + 8 * j) = hi;
+      *reinterpret_cast<__nv_bfloat162*>(v + 64 + 8 * j) =
+          __floats2bfloat162_rn(__fsub_rn(h0, f.x), __fsub_rn(h1, f.y));
+      if (p.h1)
+        *reinterpret_cast<__nv_bfloat162*>(p.h1 + pix * 64 + cl + 8 * j) = hi;
+    }
+  }
+}
+
+// K3's forward (EPI 13; ParamsK3): the block's NAT atoms are phases p0 ..
+// p0 + NAT - 1 (p0 = n0 / 64) of phase row a = p0 / r (NAT divides r), so
+// a coarse pixel (gy, gx) puts them on fine pixels (r gy + a, r gx + b0 +
+// at), b0 = p0 % r: one run of NAT * 64 channels of the fine image. out =
+// bf16(sums + bias), the bias phase-major; registers as rcab_epilogue's.
+template <int NAT>
+__device__ __forceinline__ void shuffle_epilogue(float (&acc)[NAT][32],
+                                                 const ParamsK3& p, int warp,
+                                                 int lane, int b, int y0,
+                                                 int x0, int n0) {
+  constexpr int J = 8;
+  const int gy = y0 + warp, cl = 2 * (lane & 3);
+  if (gy >= p.H) return;
+  const int p0 = n0 / 64, a = p0 / p.r, b0 = p0 - a * p.r;
+  const size_t fw = (size_t)p.r * p.W;  // fine pixels a fine row
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gx = x0 + (lane >> 2) + 8 * h;
+    if (gx >= p.W) continue;
+    bf16* const dst =
+        p.out +
+        ((((size_t)b * p.H + gy) * p.r + a) * fw + (size_t)p.r * gx + b0) *
+            64 +
+        cl;
+#pragma unroll
+    for (int at = 0; at < NAT; ++at)
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int c = n0 + at * 64 + cl + 8 * j;
+        *reinterpret_cast<__nv_bfloat162*>(dst + at * 64 + 8 * j) =
+            __floats2bfloat162_rn(acc[at][4 * j + 2 * h] + __ldg(p.bias + c),
+                                  acc[at][4 * j + 2 * h + 1] +
+                                      __ldg(p.bias + c + 1));
+      }
+  }
+}
+
 // Blocks an SM is to hold: two where the f32 sums (BN / 2 a thread) and
 // A's two register buffers (8 NKS) leave room for two blocks' registers.
 __host__ __device__ constexpr int min_blocks(int bn, int nks) {
@@ -781,7 +903,9 @@ __host__ __device__ constexpr int min_blocks(int bn, int nks) {
 // bf16(act(sums + bias)) stored at pixel stride cout); 1 and 2, K6's
 // (ParamsK6): 1 the forward's dense layers (K2's epilogue at an output
 // pixel stride), 2 the backward chain's, 3 the fusion's residual; 4 and
-// 5, K5's (ParamsK5); 6, K1's (ParamsK1).
+// 5, K5's (ParamsK5); 6, K1's (ParamsK1); 7 and 8, K7's; 9-11, K4's; 12,
+// K8a's conv1 and 15 its conv2; 13 and 14, K3's (14 reads x through the
+// fine map).
 template <int NA, int NAT, int NKS, int SPLIT, bool TB, int EPI>
 __global__ void __launch_bounds__(kThreads, min_blocks(NA * NAT, NKS))
     conv_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
@@ -831,8 +955,17 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NA * NAT, NKS))
         const int sa = (s - s0) % p.sa;
         a_empty.wait_free(s - s0);
         mbar_expect_tx(a_full.at(s - s0), p.a_bytes);
-        tma_load_4d(a_ring + sa * p.a_stage, &xmap, a_full.at(s - s0),
-                    s * KC, x0 - halo, y0 - halo, b);
+        if constexpr (EPI == 14) {
+          // the fine cotangent: channel c of the phase-major view is
+          // channel c % 64 of phase (a, b) = (c / 64 / r, c / 64 % r)
+          const int c = s * KC, ph = c / 64;
+          tma_load_5d(a_ring + sa * p.a_stage, &xmap, a_full.at(s - s0),
+                      (ph % p.r) * 64 + c % 64, x0 - halo, ph / p.r,
+                      y0 - halo, b);
+        } else {
+          tma_load_4d(a_ring + sa * p.a_stage, &xmap, a_full.at(s - s0),
+                      s * KC, x0 - halo, y0 - halo, b);
+        }
         for (int r = 0; r < rows; ++r, ++g) {
           const int sb = g % p.sb;
           b_empty.wait_free(g);
@@ -1020,12 +1153,22 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NA * NAT, NKS))
         warp, lane, b, y0, x0, b * (int)(gridDim.x / p.ntiles) + tile);
     return;
   }
-  if constexpr (EPI == 6) {
-    static_assert(NA == 64 && NAT == 1 && SPLIT == 1, "K2's 64 -> 64 plan");
-    trunk_epilogue(acc, p, warp, lane, b, y0, x0);
+  if constexpr (EPI == 6 || EPI == 15) {
+    static_assert(NA == 64 && NAT == 1 && SPLIT == 1, "N = 64");
+    trunk_epilogue<EPI == 15>(acc, p, warp, lane, b, y0, x0);
     return;
   }
-  if constexpr (EPI >= 9) {
+  if constexpr (EPI == 12) {
+    static_assert(NA == 64 && NAT == 1 && SPLIT == 1, "K2's 64 -> 64 plan");
+    hilo_epilogue(acc, p, warp, lane, b, y0, x0);
+    return;
+  }
+  if constexpr (EPI == 13) {
+    static_assert(NA == 64 && SPLIT == 1, "phases of 64 channels");
+    shuffle_epilogue<NAT>(acc, p, warp, lane, b, y0, x0, n0);
+    return;
+  }
+  if constexpr (EPI >= 9 && EPI <= 11) {
     static_assert(NA == 64 && NAT == 1 && SPLIT == 1 && NKS == 4,
                   "K2's 64 -> 64 plan");
     const uint32_t red = b_empty.bar + 8u * p.sb;
@@ -1109,7 +1252,9 @@ int blocks_per_sm(K kernel) {
 // whole and the groups consecutive: K6's pairs (rdn.py:pack). out: (B, H,
 // W, ops) bf16, channels [0, cout) written. res, out2: EPI 3's; ch: EPI
 // 2's (its dbuf at pixel stride ops); k5: EPI 4's and 5's; k1: EPI 6's;
-// k4: EPI 9-11's.
+// k4: EPI 9-11's; h1: EPI 12's (out its [hi | lo] pair, ops = cout all
+// the same); r: EPI 13's and 14's (x of EPI 14 the fine cotangent, xps =
+// cin).
 // EPI 0 (K2), 4, 5 (K5) and 6 (K1) take xps = cin, ops = cout and one
 // HWIO weight.
 struct ConvArgs {
@@ -1129,6 +1274,8 @@ struct ConvArgs {
   RcabEpi k5;
   TrunkEpi k1;
   BnEpi k4;
+  bf16* h1;
+  int r;
 };
 
 // Launch the engine at BN = NA * NAT (a divisor of cout), KC = 16 NKS
@@ -1183,11 +1330,26 @@ cudaError_t launch(const ConvArgs& a, cudaStream_t stream) {
   const cuuint64_t xstride[3] = {xps, W * xps, H * W * xps};
   const cuuint32_t xbox[4] = {(cuuint32_t)KC, (cuuint32_t)wx, (cuuint32_t)hx,
                               1};
-  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-             const_cast<bf16*>(a.x), xdim, xstride, xbox, ones,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(KC * 2),
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  // EPI 14: the fine (B, r H, r W, 64) cotangent as (r 64, W, r, H, B) at
+  // coarse H x W; one box is KC channels of one phase (a, b), the tile
+  // with its halo (wgrad.cu's encode_fine, with the halo)
+  const cuuint64_t frow = (cuuint64_t)a.r * W * 64 * 2;  // a fine row
+  const cuuint64_t fdim[5] = {(cuuint64_t)a.r * 64, (cuuint64_t)W,
+                              (cuuint64_t)a.r, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t fstride[4] = {(cuuint64_t)a.r * 64 * 2, frow, a.r * frow,
+                                 H * a.r * frow};
+  const cuuint32_t fbox[5] = {(cuuint32_t)KC, (cuuint32_t)wx, 1,
+                              (cuuint32_t)hx, 1};
+  if (EPI == 14 ? encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5,
+                         const_cast<bf16*>(a.x), fdim, fstride, fbox, ones,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(KC * 2),
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS
+                : encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                         const_cast<bf16*>(a.x), xdim, xstride, xbox, ones,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(KC * 2),
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   // w as (cout, cin, k * k), or in pairs (cout, cin, k * k, K groups, N
   // groups) of groups wgk x wgn; one box an atom: NA channels of KC rows
@@ -1244,8 +1406,10 @@ cudaError_t launch(const ConvArgs& a, cudaStream_t stream) {
     p.ch = a.ch;
   }
   if constexpr (EPI == 4 || EPI == 5 || EPI == 7 || EPI == 8) p.k5 = a.k5;
-  if constexpr (EPI >= 6 && EPI <= 8) p.k1 = a.k1;
-  if constexpr (EPI >= 9) p.k4 = a.k4;
+  if constexpr ((EPI >= 6 && EPI <= 8) || EPI == 15) p.k1 = a.k1;
+  if constexpr (EPI >= 9 && EPI <= 11) p.k4 = a.k4;
+  if constexpr (EPI == 12) p.h1 = a.h1;
+  if constexpr (EPI == 13 || EPI == 14) p.r = a.r;
   const int smem = 1024 + sa * p.a_stage + sb * p.b_stage + 16 * (sa + sb) +
                    red_bytes(EPI, BN);
   if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
@@ -1387,6 +1551,52 @@ cudaError_t run_3x3_wide(const ConvArgs& a, cudaStream_t s) {
   if (a.cout == 128) return launch<64, 2, 4, 1, TB, EPI>(a, s);
   if (a.cout == 64) return launch<64, 1, 4, 1, TB, EPI>(a, s);
   return cudaErrorInvalidValue;
+}
+
+// K8a's conv1 (EPI 12), 3x3 64 -> 64 on one HWIO weight: K2's plan for
+// that class; out the [hi | lo] pair (B, H, W, 128), h1 (B, H, W, 64) or
+// null.
+inline cudaError_t run_hilo(const ConvArgs& a, cudaStream_t s) {
+  if (!takes(a) || a.cin != 64 || a.cout != 64 || a.kk != 3)
+    return cudaErrorInvalidValue;
+  return launch<64, 1, 4, 1, false, 12>(a, s);
+}
+
+// K8a's conv2 (EPI 15), 3x3 128 -> 64 over the [hi | lo] pair on W2
+// stacked twice: K2's plan for that class (N = 64, two 64-channel
+// slices, no split).
+inline cudaError_t run_k8a_skip(const ConvArgs& a, cudaStream_t s) {
+  if (!takes(a) || a.cin != 128 || a.cout != 64 || a.kk != 3)
+    return cudaErrorInvalidValue;
+  return launch<64, 1, 4, 1, false, 15>(a, s);
+}
+
+// K3's phases a block: d = 3, 2 or 1, the widest that divides r (so a
+// block's phases lie in one phase row).
+inline int k3_phases(int r) { return r % 3 == 0 ? 3 : r % 2 == 0 ? 2 : 1; }
+
+// K3's forward (EPI 13): x (B, H, W, 64), w the phase-major HWIO weight
+// (3, 3, 64, r r 64), cout = r r 64, N = 64 d (no split: N past 64).
+inline cudaError_t run_k3_fwd(const ConvArgs& a, cudaStream_t s) {
+  if (!takes(a) || a.r < 2 || a.cin != 64 || a.cout != a.r * a.r * 64 ||
+      a.kk != 3)
+    return cudaErrorInvalidValue;
+  const int d = k3_phases(a.r);
+  if (d == 3) return launch<64, 3, 4, 1, false, 13>(a, s);
+  if (d == 2) return launch<64, 2, 4, 1, false, 13>(a, s);
+  return launch<64, 1, 4, 1, false, 13>(a, s);
+}
+
+// K3's dx (EPI 14, TB): x the fine cotangent (B, r H, r W, 64) read
+// phase-major at cin = r r 64, w the forward's phase-major weight (3, 3,
+// 64, r r 64) read K-major, cout 64; K2's plan for r r 64 -> 64 (N = 64,
+// the 2-block split where split_cin picks it).
+inline cudaError_t run_k3_dx(const ConvArgs& a, cudaStream_t s) {
+  if (!takes(a) || a.r < 2 || a.cin != a.r * a.r * 64 || a.cout != 64 ||
+      a.kk != 3)
+    return cudaErrorInvalidValue;
+  if (split_cin(a, 64)) return launch<64, 1, 4, 2, true, 14>(a, s);
+  return launch<64, 1, 4, 1, true, 14>(a, s);
 }
 
 // K2: x (B, H, W, cin) and w (k, k, cin, cout) HWIO, k = 3 or 5, out (B,

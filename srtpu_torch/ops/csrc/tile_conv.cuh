@@ -1,5 +1,5 @@
-// Shared building blocks of the port's 3x3 (and 5x5) convolution kernels
-// (sm_90a).
+// The wmma convolution of K9d (resblock_bwd.cu), the last kernel of the
+// port not yet on the wgmma engines (sm_90a).
 //
 // Layout: activations are NHWC bf16, weights HWIO bf16 (k, k, Cin, Cout),
 // biases f32. A block computes one output tile of TH x TW pixels of one
@@ -38,7 +38,6 @@ typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> AFrag;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> BFrag;
 
-__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ constexpr size_t align128(size_t n) {
   return (n + 127) / 128 * 128;
 }
@@ -104,51 +103,6 @@ __device__ __forceinline__ void load_tile(bf16* __restrict__ dst,
   }
 }
 
-// load_tile for the phase-major coarse view of a fine NHWC tensor xf
-// (B, r*H, r*W, CIN / (r*r)): coarse pixel (gy, gx), channel
-// (a*r + b)*c + k is fine pixel (r*gy + a, r*gx + b), channel k. This
-// is the gather of srtpu's _ups_deint_kernel, done while loading.
-template <int CIN>
-__device__ __forceinline__ void load_tile_gather(bf16* __restrict__ dst,
-                                                 const bf16* __restrict__ xf,
-                                                 int b, int H, int W, int y0,
-                                                 int x0, int rows, int wx,
-                                                 int npix, int r) {
-  constexpr int PS = CIN + 16;
-  constexpr int VEC = CIN / 8;
-  const int c = CIN / (r * r);
-  const int total = npix * VEC;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int p = i / VEC, v = i % VEC;
-    const int ly = p / wx, lx = p % wx;
-    const int gy = y0 + ly, gx = x0 + lx;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (ly < rows && gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      const int ab = v * 8 / c, k = v * 8 % c;
-      val = *reinterpret_cast<const uint4*>(
-          xf + (((size_t)b * H * r + (size_t)gy * r + ab / r) * W * r +
-                (size_t)gx * r + ab % r) * c + k);
-    }
-    *reinterpret_cast<uint4*>(dst + (size_t)p * PS + v * 8) = val;
-  }
-}
-
-// Copy output columns [n0, n0 + NB) of TAPS taps of an HWIO weight
-// (TAPS * CIN rows of cout, from w) into dst as (TAPS * CIN, NB)
-// row-major.
-template <int CIN, int NB, int TAPS = 9>
-__device__ __forceinline__ void load_weights(bf16* __restrict__ dst,
-                                             const bf16* __restrict__ w,
-                                             int cout, int n0) {
-  constexpr int VEC = NB / 8;
-  constexpr int total = TAPS * CIN * VEC;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int row = i / VEC, v = i % VEC;
-    *reinterpret_cast<uint4*>(dst + (size_t)row * NB + v * 8) =
-        *reinterpret_cast<const uint4*>(w + (size_t)row * cout + n0 + v * 8);
-  }
-}
-
 // acc[n] += the taps of rows ky0 .. ky0 + ROWS - 1 of a KK x KK conv of
 // the staged tile xs at the 16 flattened positions starting at p0, for
 // output columns [16 n, 16 n + 16) of the staged weights ws (those rows'
@@ -178,19 +132,6 @@ __device__ __forceinline__ void mma_taps(AccFrag (&acc)[NB / 16],
   }
 }
 
-// acc[n] = 3x3 conv of the staged tile xs at the 16 flattened positions
-// starting at p0, for output columns [16 n, 16 n + 16) of the staged
-// weights ws (all 9 taps).
-template <int CIN, int NB>
-__device__ __forceinline__ void mma_3x3(AccFrag (&acc)[NB / 16],
-                                        const bf16* __restrict__ xs,
-                                        const bf16* __restrict__ ws, int p0,
-                                        int wx) {
-#pragma unroll
-  for (int n = 0; n < NB / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
-  mma_taps<CIN, NB, 3, 3>(acc, xs, ws, p0, wx, 0);
-}
-
 // Stage one 16x16 accumulator in the warp's f32 scratch and hand back the
 // 8 values this lane owns: row lane / 2, columns 8 * (lane % 2) .. +7.
 __device__ __forceinline__ void lane_values(float* __restrict__ scr,
@@ -212,7 +153,7 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// Shared-memory plan of conv3x3_kernel: a KK x KK conv (KK = 3 or 5)
+// Shared-memory plan of conv_chunked_kernel: a KK x KK conv (KK = 3 or 5)
 // whose weights are staged WROWS rows of taps at a time.
 template <int CIN, int NB, int TH, int TW, int KK = 3, int WROWS = KK>
 struct ConvPlan {
@@ -228,96 +169,6 @@ struct ConvPlan {
   static constexpr size_t SCR = (size_t)kWarps * 256 * 4;
   static constexpr size_t SMEM = XS + WS + SCR;
 };
-
-// One KK x KK SAME conv + bias (+ ReLU) over an NHWC image batch (KK = 3
-// unless given; 5 for SRResNet's phase-dense final conv). bias may be
-// null (no bias: the transposed convs of the backward passes). The
-// weights are staged WROWS rows of taps at a time (fewer than KK where
-// the whole weight would not fit beside the tile), each warp keeping its
-// tiles' sums in registers across the rows.
-//
-// grid = (ceil(W / TW), ceil(H / TH), B * cout / NB); block z covers image
-// z / (cout / NB) and the NB output channels of chunk z % (cout / NB).
-// SHUFFLE = false: out is NHWC (B, H, W, cout).
-// SHUFFLE = true: the weight's output channels are phase-major
-// ((a * r + b) * NB + c) and chunk j = a * r + b is stored straight to
-// fine pixel (r * y + a, r * x + b) of out (B, r H, r W, NB): the pixel
-// shuffle is the store's indexing.
-// GATHER = true: x is a fine NHWC tensor (B, r H, r W, CIN / (r r)) read
-// as its phase-major coarse view (load_tile_gather); H, W are coarse.
-template <int CIN, int NB, int TH, int TW, bool SHUFFLE, bool GATHER = false,
-          int KK = 3, int WROWS = KK>
-__global__ void __launch_bounds__(kThreads)
-    conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                   const float* __restrict__ bias, bf16* __restrict__ out,
-                   int H, int W, int cout, int relu, int r) {
-  typedef ConvPlan<CIN, NB, TH, TW, KK, WROWS> P;
-  constexpr int HALO = KK / 2;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  bf16* ws = reinterpret_cast<bf16*>(smem + P::XS);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* scr = reinterpret_cast<float*>(smem + P::XS + P::WS) + warp * 256;
-
-  const int nchunks = cout / NB;
-  const int b = blockIdx.z / nchunks, chunk = blockIdx.z % nchunks;
-  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-
-  if (GATHER)
-    load_tile_gather<CIN>(xs, x, b, H, W, y0 - HALO, x0 - HALO, TH + KK - 1,
-                          P::WX, P::NPIX, r);
-  else
-    load_tile<CIN>(xs, x, b, H, W, y0 - HALO, x0 - HALO, TH + KK - 1, P::WX,
-                   P::NPIX);
-  AccFrag acc[P::MT][NB / 16];
-#pragma unroll
-  for (int t = 0; t < P::MT; ++t)
-#pragma unroll
-    for (int n = 0; n < NB / 16; ++n) wmma::fill_fragment(acc[t][n], 0.0f);
-  for (int ky0 = 0; ky0 < KK; ky0 += WROWS) {
-    if (ky0) __syncthreads();  // every warp is done with the previous rows
-    load_weights<CIN, NB, WROWS * KK>(ws, w + (size_t)ky0 * KK * CIN * cout,
-                                      cout, chunk * NB);
-    __syncthreads();
-#pragma unroll
-    for (int t = 0; t < P::MT; ++t) {
-      const int mf = warp + t * kWarps;
-      if (mf < P::MF)
-        mma_taps<CIN, NB, KK, WROWS>(acc[t], xs, ws, mf * 16, P::WX, ky0);
-    }
-  }
-
-#pragma unroll
-  for (int t = 0; t < P::MT; ++t) {
-    const int mf = warp + t * kWarps;
-    if (mf >= P::MF) continue;
-    const int p = mf * 16 + (lane >> 1);
-    const int oy = p / P::WX, ox = p % P::WX;
-    const int gy = y0 + oy, gx = x0 + ox;
-    const bool valid = oy < TH && ox < TW && gy < H && gx < W;
-#pragma unroll
-    for (int n = 0; n < NB / 16; ++n) {
-      float v[8];
-      lane_values(scr, acc[t][n], lane, v);
-      if (!valid) continue;
-      const int c0 = n * 16 + (lane & 1) * 8;  // channel within the chunk
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (bias) v[j] += bias[chunk * NB + c0 + j];
-        if (relu) v[j] = fmaxf(v[j], 0.0f);
-      }
-      bf16* dst;
-      if (SHUFFLE) {
-        const int a = chunk / r, bb = chunk % r;
-        dst = out + (((size_t)b * H * r + gy * r + a) * ((size_t)W * r) +
-                     (size_t)gx * r + bb) * NB + c0;
-      } else {
-        dst = out + (((size_t)b * H + gy) * W + gx) * cout + chunk * NB + c0;
-      }
-      *reinterpret_cast<uint4*>(dst) = pack8(v);
-    }
-  }
-}
 
 // Copy output columns [n0, n0 + NB) of the rows of one CK-channel chunk of
 // TAPS taps of an HWIO weight with cin input channels (w points at the
@@ -343,12 +194,12 @@ __device__ __forceinline__ void load_weights_chunk(bf16* __restrict__ dst,
 // (load_tile with the pixel stride cin; in_scale != 1 stages bf16(in_scale
 // * x)) and that chunk's weights (WROWS rows of taps at a time) are added
 // into the same f32 accumulators in registers, so the result is summed
-// once over all of cin. K2's general path (conv.cu) and K7's 3x3 and dh2
-// (wdsr.cu) share it; they differ only in the epilogue: epi(v, at, co)
-// receives the 8 f32 sums v of output channels co .. co + 7 of the pixel
-// whose first output element is at - co in the NHWC (B, H, W, cout)
-// output, and stores them. grid and chunks as conv3x3_kernel (SHUFFLE =
-// false); the plan is its ConvPlan at CK.
+// once over all of cin. The epilogue epi(v, at, co) receives the 8 f32
+// sums v of output channels co .. co + 7 of the pixel whose first output
+// element is at - co in the NHWC (B, H, W, cout) output, and stores them.
+// grid = (ceil(W / TW), ceil(H / TH), B * cout / NB); block z covers
+// image z / (cout / NB) and the NB output channels of chunk z % (cout /
+// NB); the plan is ConvPlan at CK.
 template <int CK, int NB, int TH, int TW, int KK, int WROWS, class Epi>
 __global__ void __launch_bounds__(kThreads)
     conv_chunked_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,

@@ -4,11 +4,18 @@ forward on the card, its backward in stock PyTorch.
 Replaces ``srtpu/ops/resblock.py:resblock_fused_h1`` (body
 ``_resblock_kernel_h1``) behind ``resblock_fused_v2`` / ``FusedResBlock``,
 and ``resblock_fused`` (``_resblock_kernel``, the same body without h1).
-The kernel is ``csrc/resblock.cu``, whose head note says what bounds it
-on the H100 and how it keeps the f32 h1 on bf16 tensor cores.
-:func:`resblock_fused_fwd` launches it for CUDA tensors and takes the
-plain version only for CPU tensors; it counts its calls in ``launches``.
-:func:`resblock_fused` is the differentiable op
+The kernels are ``csrc/resblock.cu``, whose head note says what bounds
+them on the H100 and how they keep the f32 h1 on bf16 tensor cores: per
+block two launches of K2's wgmma engine, conv1 storing h1 as a bf16
+``[hi | lo]`` pair and conv2 over that pair. :func:`resblock_trunk_fwd`
+runs L blocks on stacked weights in one host call for CUDA tensors and
+takes the plain version (:func:`resblock_trunk_plain`) only for CPU
+tensors; :func:`resblock_fused_fwd` is one block (the same kernels, L =
+1). Each counts its blocks in its ``launches``
+(``resblock_trunk_fwd.calls`` counts its host calls). :func:`fwd_plan`
+says in plain Python what ``resblock.cu`` launches.
+:func:`resblock_fused_trunk` is EDSR's True-route trunk op
+(:class:`FusedTrunkFn`), :func:`resblock_fused` one block of it
 (:class:`FusedResBlockFn`).
 
 One block, NHWC x (B, H, W, C) in the compute dtype, HWIO w1, w2 (3, 3,
@@ -20,7 +27,8 @@ srtpu's backward of ``resblock_fused_v2`` (``_rb2_bwd``) is XLA, so it
 is stock PyTorch here (:func:`resblock_fused_bwd`): f32 conv VJPs from
 the saved x and x.dtype h1, the ReLU mask from that saved h1, and the
 weight grads rounded to the weights' dtype (bf16 on the card), as srtpu
-returns them. EDSR's True route runs that structure.
+returns them. EDSR's True route runs that structure, block after block
+in one autograd node.
 
 K9d: srtpu's ``resblock_fused_v3`` computes the same backward in its
 Pallas kernel ``resblock_bwd_fused`` (``_resblock_bwd_kernel``); here
@@ -43,6 +51,7 @@ from .layout import w_t
 from .wgrad import wgrad_parts, wgrad_workspace
 
 KERNEL_C = 64           # the kernel's one width (EDSR-baseline's)
+EPI_HILO, EPI_SKIP = 12, 15  # the engine's epilogues K8a launches
 
 
 def resblock_fused_plain(x, w1, b1, w2, b2, res_scale: float,
@@ -56,6 +65,43 @@ def resblock_fused_plain(x, w1, b1, w2, b2, res_scale: float,
     return (out, h1.to(x.dtype).contiguous()) if save_h1 else out
 
 
+def resblock_trunk_plain(x, w1s, b1s, w2s, b2s, res_scale: float,
+                         save: bool = False):
+    """L blocks of :func:`resblock_fused_plain` on stacked weights (w1s,
+    w2s (L, 3, 3, C, C), b1s, b2s (L, C)). ``save`` returns ``(out, xs,
+    h1s)``: xs (L - 1, B, H, W, C) the inputs of blocks 1 .. L - 1 (block
+    0's is x), h1s (L, B, H, W, C) each block's h1 rounded to x.dtype, as
+    the kernel path saves them."""
+    if not save:
+        for w1, b1, w2, b2 in zip(w1s, b1s, w2s, b2s):
+            x = resblock_fused_plain(x, w1, b1, w2, b2, res_scale)
+        return x
+    xs, h1s = [], []
+    for w1, b1, w2, b2 in zip(w1s, b1s, w2s, b2s):
+        if h1s:
+            xs.append(x)
+        x, h1 = resblock_fused_plain(x, w1, b1, w2, b2, res_scale, True)
+        h1s.append(h1)
+    xs = torch.stack(xs) if xs else x.new_empty((0, *x.shape))
+    return x, xs, torch.stack(h1s)
+
+
+def fwd_plan(save: bool, scale: float, n_blocks: int = 1) -> tuple:
+    """resblock.cu's launches for a forward call of ``n_blocks`` blocks, in
+    order, each (kernel, EPI, k, cin, cout, transposed, scale, what it
+    writes): 'engine' is K2's engine over the images' 8 x 16 tiles at K2's
+    plan (N = 64): conv1 at EPI 12 (bias, ReLU, the [hi | lo] pair, and h1
+    where the call saves), conv2 over the pair (cin 128, W2 stacked twice)
+    at EPI 15 (bias, the scale, the skip: one fused multiply-add, one
+    rounding). ``scale`` is the res_scale a launch applies (None: none)."""
+    c = KERNEL_C
+    block = (('engine', EPI_HILO, 3, c, c, False, None,
+              ('vcat', 'h1') if save else ('vcat',)),
+             ('engine', EPI_SKIP, 3, 2 * c, c, False, float(scale),
+              ('out',)))
+    return block * n_blocks
+
+
 def _check(name: str, x) -> None:
     """Raise unless the kernel takes x: 64 channels, on a CUDA tensor."""
     if x.shape[-1] != KERNEL_C:
@@ -66,34 +112,70 @@ def _check(name: str, x) -> None:
         raise ValueError(f'{name}: no kernel for device {x.device}')
 
 
+def _launch(name: str, x, w1s, b1s, w2s, b2s, res_scale: float,
+            save: bool) -> tuple:
+    """One ``srt_resblock_f32_fwd`` call over the len(w1s) blocks: (out,
+    xs, h1s) as :func:`resblock_trunk_plain` saves them (xs and h1s None
+    unless ``save``)."""
+    _check(name, x)
+    bsz, h, w, c = x.shape
+    n_blocks = w1s.shape[0]
+    dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
+    _build.expect(x, 'x', bf16, (bsz, h, w, c), dev)
+    for nm, t in (('w1', w1s), ('w2', w2s)):
+        _build.expect(t, nm, bf16, (n_blocks, 3, 3, c, c), dev)
+    for nm, t in (('b1', b1s), ('b2', b2s)):
+        _build.expect(t, nm, f32, (n_blocks, c), dev, aligned=False)
+    w2cat = torch.cat((w2s, w2s), -2)       # [W2; W2] over [hi | lo]
+    vcat = torch.empty((bsz, h, w, 2 * c), dtype=bf16, device=dev)
+    out = torch.empty_like(x)
+    if save:    # the later blocks' inputs and every h1 stay
+        xs = torch.empty((n_blocks - 1, *x.shape), dtype=bf16, device=dev)
+        h1s = torch.empty((n_blocks, *x.shape), dtype=bf16, device=dev)
+    else:       # the other of two outputs a block alternates on
+        xs = torch.empty_like(x) if n_blocks > 1 else None
+        h1s = None
+    with _build.on(dev):
+        err = _build.library().srt_resblock_f32_fwd(
+            x.data_ptr(), w1s.data_ptr(), b1s.data_ptr(), w2cat.data_ptr(),
+            b2s.data_ptr(), float(res_scale), vcat.data_ptr(),
+            _build.ptr(xs) if n_blocks > 1 else None, _build.ptr(h1s),
+            out.data_ptr(), n_blocks, int(save), bsz, h, w, c,
+            _build.stream(dev))
+    _build.check(err, 'srt_resblock_f32_fwd')
+    return (out, xs, h1s) if save else (out, None, None)
+
+
+def resblock_trunk_fwd(x, w1s, b1s, w2s, b2s, res_scale: float,
+                       save: bool = False):
+    """As :func:`resblock_trunk_plain`. On CUDA: bf16 x (B, H, W, 64), w1s,
+    w2s (L, 3, 3, 64, 64) bf16, b1s, b2s (L, 64) f32; one host call, two
+    launches a block (``launches`` counts the blocks, ``calls`` the host
+    calls)."""
+    if x.device.type == 'cpu':
+        return resblock_trunk_plain(x, w1s, b1s, w2s, b2s, res_scale, save)
+    out, xs, h1s = _launch('resblock_trunk_fwd', x, w1s, b1s, w2s, b2s,
+                           res_scale, save)
+    resblock_trunk_fwd.launches += w1s.shape[0]
+    resblock_trunk_fwd.calls += 1
+    return (out, xs, h1s) if save else out
+
+
 def resblock_fused_fwd(x, w1, b1, w2, b2, res_scale: float,
                        save_h1: bool = False):
     """As :func:`resblock_fused_plain`. On CUDA: bf16 x (B, H, W, 64), w1,
-    w2 (3, 3, 64, 64) bf16, b1, b2 (64,) f32; one launch, which writes h1
-    only with ``save_h1``."""
+    w2 (3, 3, 64, 64) bf16, b1, b2 (64,) f32; one block (two launches),
+    which writes h1 only with ``save_h1``."""
     if x.device.type == 'cpu':
         return resblock_fused_plain(x, w1, b1, w2, b2, res_scale, save_h1)
-    _check('resblock_fused_fwd', x)
-    bsz, h, w, c = x.shape
-    dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
-    _build.expect(x, 'x', bf16, (bsz, h, w, c), dev)
-    for name, t in (('w1', w1), ('w2', w2)):
-        _build.expect(t, name, bf16, (3, 3, c, c), dev)
-    for name, t in (('b1', b1), ('b2', b2)):
-        _build.expect(t, name, f32, (c,), dev, aligned=False)
-    out = torch.empty_like(x)
-    h1 = torch.empty_like(x) if save_h1 else None
-    with torch.cuda.device(dev):
-        err = _build.library().srt_resblock_f32_fwd(
-            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), float(res_scale), out.data_ptr(),
-            h1.data_ptr() if save_h1 else None, bsz, h, w, c,
-            _build.stream(dev))
-    _build.check(err, 'srt_resblock_f32_fwd')
+    out, _, h1s = _launch('resblock_fused_fwd', x, w1[None], b1[None],
+                          w2[None], b2[None], res_scale, save_h1)
     resblock_fused_fwd.launches += 1
-    return (out, h1) if save_h1 else out
+    return (out, h1s[0]) if save_h1 else out
 
 
+resblock_trunk_fwd.launches = 0
+resblock_trunk_fwd.calls = 0
 resblock_fused_fwd.launches = 0
 
 
@@ -262,4 +344,55 @@ def resblock_fused_v3(x, w1, b1, w2, b2, res_scale: float = 1.0,
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
         return FusedResBlockV3Fn.apply(x, *params, res_scale, plain)
     return (resblock_fused_plain if plain else resblock_fused_fwd)(
+        x, *_cast(x, *params), res_scale)
+
+
+class FusedTrunkFn(torch.autograd.Function):
+    """Differentiable K8a trunk (srtpu's ``resblock_fused_v2`` block after
+    block, as ``FusedResBlock`` runs it): f32 (or any) stacked parameters
+    in, cast to x's dtype (the biases to f32) inside; one forward call
+    (:func:`resblock_trunk_fwd`) saves every block's input and x.dtype
+    h1; the backward is :func:`resblock_fused_bwd` per block, the last
+    first, in one node, the grads of the weights their x.dtype values in
+    the parameters' dtype: the per-block route's bits
+    (:class:`FusedResBlockFn`)."""
+
+    @staticmethod
+    def forward(ctx, x, w1s, b1s, w2s, b2s, res_scale: float, plain: bool):
+        ops = _cast(x, w1s, b1s, w2s, b2s)
+        out, xs, h1s = (resblock_trunk_plain if plain
+                        else resblock_trunk_fwd)(x, *ops, res_scale,
+                                                 save=True)
+        ctx.save_for_backward(x, xs, h1s, ops[0], ops[2])
+        ctx.res_scale = res_scale
+        ctx.dtypes = tuple(t.dtype for t in (w1s, b1s, w2s, b2s))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, xs, h1s, w1s, w2s = ctx.saved_tensors
+        inputs = (x, *xs.unbind(0))
+        g = g.contiguous()
+        grads = []
+        for i in reversed(range(h1s.shape[0])):
+            g, *gi = resblock_fused_bwd(inputs[i], h1s[i], g, w1s[i], w2s[i],
+                                        ctx.res_scale)
+            grads.append(gi)
+        stacked = (torch.stack(t[::-1]) for t in zip(*grads))
+        return (g, *(t.to(d) for t, d in zip(stacked, ctx.dtypes)), None,
+                None)
+
+
+def resblock_fused_trunk(x, w1s, b1s, w2s, b2s, res_scale: float = 1.0,
+                         plain: bool = False) -> torch.Tensor:
+    """EDSR's True-route trunk: L blocks of :func:`resblock_fused` on
+    stacked f32 (or any) weights (w1s, w2s (L, 3, 3, C, C), b1s, b2s (L,
+    C)) in x's dtype, one host call forward: the autograd op when a
+    gradient is wanted, else the forward alone without h1. ``plain`` runs
+    the plain versions on any device."""
+    x = x.contiguous()
+    params = (w1s, b1s, w2s, b2s)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
+        return FusedTrunkFn.apply(x, *params, res_scale, plain)
+    return (resblock_trunk_plain if plain else resblock_trunk_fwd)(
         x, *_cast(x, *params), res_scale)

@@ -1123,6 +1123,33 @@ def test_k8_kernel_matches_plain(device, kind, bsz, h, w):
                zip(got, again if kind == 'a' else [again]))
 
 
+@pytest.mark.parametrize('bsz,h,w', [(16, 32, 32), (2, 67, 45)])
+def test_k8a_trunk_op_matches_plain_and_its_blocks(device, bsz, h, w):
+    """K8a's trunk op (one host call over 4 blocks, res_scale 0.5) against
+    its plain version, saving (out, the later blocks' inputs, every h1)
+    and not: within two bf16 steps of the largest magnitude (a step apart
+    in one block is carried on by the skips); its output the bits of 4
+    per-block calls; the blocks counted on ``launches``, the call on
+    ``calls``."""
+    gen = torch.Generator().manual_seed(bsz + h + w)
+    x = _u(gen, (bsz, h, w, 64), 1.0, device)
+    (w1, b1), (w2, b2) = (_conv(gen, 64, 64, device, (4,)) for _ in 'ab')
+    fn = k8a.resblock_trunk_fwd
+    for save in (False, True):
+        before = fn.launches, fn.calls
+        got = fn(x, w1, b1, w2, b2, 0.5, save=save)
+        torch.cuda.synchronize()
+        assert (fn.launches, fn.calls) == (before[0] + 4, before[1] + 1)
+        ref = k8a.resblock_trunk_plain(x, w1, b1, w2, b2, 0.5, save=save)
+        got, ref = (list(t) if save else [t] for t in (got, ref))
+        for g_t, r_t in zip(got, ref):
+            _assert_close(g_t, r_t, 2)
+    y = x
+    for i in range(4):
+        y = k8a.resblock_fused_fwd(y, w1[i], b1[i], w2[i], b2[i], 0.5)
+    assert torch.equal(y, fn(x, w1, b1, w2, b2, 0.5))
+
+
 @pytest.mark.parametrize('bsz,h,w,c', [(1, 1, 1, 8), (3, 5, 7, 24),
                                        (2, 40, 30, 264), (1, 256, 192, 64),
                                        (1, 512, 352, 64)])
@@ -1165,7 +1192,7 @@ def test_k8_wrappers_reject_what_the_kernels_do_not_take(device):
 
 
 K8_MODELS = {'EDSR': (dict(n_feats=64, n_resblocks=2),
-                      k8a.resblock_fused_fwd, 2),
+                      k8a.resblock_trunk_fwd, 2),
              'RCAN': (dict(n_feats=64, n_resgroups=2, n_resblocks=2),
                       k8b.ca_layer_fwd, 4),
              'WDSR': (dict(n_feats=128, n_resblocks=2),

@@ -9,8 +9,9 @@ features, 86 resblocks, res_scale 0.1), WDSR_STOCK (WDSR-B at 128
 features, 16 blocks, on its default stock route, no kernel in the
 trunk), SRGAN_CS (SRGAN x4 at srtpu's sizes on its kernel route 'cs':
 the adversarial step, D then G with the VGG19 relu5_4 term, K4r in the
-generator's trunk) or RCAN_TRUE (RCAN-10x16 on srtpu's use_pallas=True
-route: K8b per RCAB, the rest stock).
+generator's trunk), RCAN_TRUE (RCAN-10x16 on srtpu's use_pallas=True
+route: K8b per RCAB, the rest stock) or EDSR_TRUE (EDSR-baseline on that
+route: K8a's trunk op forward, the rest stock).
 
 TREE_A and TREE_B are checkouts of this repository (for example the
 parent commit unpacked with ``git archive`` into a git-ignored directory,
@@ -54,10 +55,12 @@ MODELS = {
     # chip_smoke's phase 20: RCAN-10x16 on srtpu's use_pallas=True route
     'RCAN_TRUE': ['--n_resgroups', '10', '--n_resblocks', '16',
                   '--reduction', '16', '--use_pallas', 'true'],
+    # chip_smoke's phase 19: EDSR-baseline on the use_pallas=True route
+    'EDSR_TRUE': ['--use_pallas', 'true'],
 }
 # a configuration's model, where it differs
 MODEL_OF = {'EDSR86': 'EDSR', 'WDSR_STOCK': 'WDSR', 'SRGAN_CS': 'SRGAN',
-            'RCAN_TRUE': 'RCAN'}
+            'RCAN_TRUE': 'RCAN', 'EDSR_TRUE': 'EDSR'}
 
 
 def median_ms(fn, calls: int, windows: int) -> float:

@@ -34,7 +34,8 @@ import importlib
 
 import torch
 
-from tree_timing import engine_times, epilogue_times, load_chip_smoke
+from tree_timing import (engine_times, epilogue_times, load_chip_smoke,
+                         trunk_times as k1_k7_times)
 
 ARGS = argparse.ArgumentParser(description=__doc__.splitlines()[0])
 ARGS.add_argument('--tree', help="time this checkout's srtpu_torch")
@@ -57,52 +58,6 @@ def show(tag: str, fn, smi: str, calls: int = 10) -> float:
     print(f'{tag}: {how} {dev:.4f} ms, host {host:.4f} ms a call  [{smi}]',
           flush=True)
     return dev
-
-
-def k1_k7_times(device, smi: str) -> None:
-    """K1's and K7's 16-block trunks at the training shape, res_scale 1:
-    the forward saving and the backward, device time."""
-    cs = chip_smoke
-    trunk = importlib.import_module('srtpu_torch.ops.trunk')
-    k7 = importlib.import_module('srtpu_torch.ops.wdsr')
-    bsz, lr = cs.TRAIN_BATCH, cs.TRAIN_PATCH // cs.SCALE
-    bf, f32 = torch.bfloat16, torch.float32
-    cb = (9 * cs.C) ** -0.5
-    gen = torch.Generator().manual_seed(2029)
-    args = (cs._uniform(gen, (bsz, lr, lr, cs.C), 1.0, device, bf),
-            cs._uniform(gen, (cs.L, 3, 3, cs.C, cs.C), cb, device, bf),
-            cs._uniform(gen, (cs.L, cs.C), cb, device, f32),
-            cs._uniform(gen, (cs.L, 3, 3, cs.C, cs.C), cb, device, bf),
-            cs._uniform(gen, (cs.L, cs.C), cb, device, f32), 1.0)
-    g = cs._uniform(gen, (bsz, lr, lr, cs.C), 1.0, device, bf)
-    _, xs, h1s = trunk.trunk_fwd(*args, save=True)
-    fwd = cs.graph_ms(lambda: trunk.trunk_fwd(*args, save=True), 5, 3)
-    bwd = cs.graph_ms(lambda: trunk.trunk_bwd(xs, h1s, g, args[1], args[3],
-                                              1.0), 5, 3)
-    print(f'K1 trunk of {cs.L} {bsz}x{lr}x{lr}: device fwd (saving) '
-          f'{fwd:.4f} ms, bwd {bwd:.4f} ms  [{smi}]', flush=True)
-    c, e, lv = cs.WDSR_C, cs.WDSR_E, cs.WDSR_LV
-    lp = k7.kernel_lp(c) if hasattr(k7, 'kernel_lp') else cs.WDSR_LP
-    gen = torch.Generator().manual_seed(2030)
-
-    def u(shape, bound, dt=bf):
-        return cs._uniform(gen, (cs.L, *shape), bound, device, dt)
-    x = cs._uniform(gen, (bsz, lr, lr, c), 1.0, device, bf)
-    pad = torch.nn.functional.pad
-    wts = (u((c, e), c ** -0.5), u((e,), c ** -0.5, f32),
-           pad(u((e, lv), e ** -0.5), (0, lp - lv)),
-           pad(u((lv,), e ** -0.5, f32), (0, lp - lv)),
-           pad(u((3, 3, lv, c), (9 * lv) ** -0.5),
-               (0, 0, 0, lp - lv)).contiguous(),
-           u((c,), (9 * lv) ** -0.5, f32))
-    gw = cs._uniform(gen, (bsz, lr, lr, c), 1.0, device, bf)
-    _, xs7, h2s = k7.wdsr_trunk_fwd(x, *wts, 1.0, save=True)
-    fwd = cs.graph_ms(lambda: k7.wdsr_trunk_fwd(x, *wts, 1.0, save=True),
-                      3, 3)
-    bwd = cs.graph_ms(lambda: k7.wdsr_trunk_bwd(xs7, h2s, gw, *wts[:5], 1.0),
-                      3, 3)
-    print(f'K7 trunk of {cs.L} {bsz}x{lr}x{lr} (C {c}): device fwd (saving) '
-          f'{fwd:.4f} ms, bwd {bwd:.4f} ms  [{smi}]', flush=True)
 
 
 def k4_fn_times(device, smi: str) -> None:
@@ -250,7 +205,7 @@ def main() -> None:
     print(f'srtpu_torch from {bn.__file__}')
     engine_times(chip_smoke, device, smi)
     epilogue_times(chip_smoke, device, smi)
-    k1_k7_times(device, smi)
+    k1_k7_times(chip_smoke, device, smi, bn_trunk=False)
     k4_fn_times(device, smi)
     trunk_times(device, smi)
     k8b_times(device, smi)

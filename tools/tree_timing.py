@@ -3,10 +3,12 @@
 ``tools/wgrad_plans.py``): this checkout's chip_smoke.py loaded over
 another tree's srtpu_torch, the device times of the classes of the two
 wgmma engines, K2's (``conv_sm90.cuh``) and W's (``wgrad.cu``), and of
-the kernels that run K2's at epilogues of their own, K5's and K6's."""
+the kernels that run K2's at epilogues of their own, K5's and K6's, and
+the trunks of K1, K4 and K7."""
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import sys
 from pathlib import Path
@@ -105,3 +107,70 @@ def epilogue_times(cs, device, smi: str) -> None:
     for name, fn in fns.items():
         print(f'{name} {bsz}x{lr}x{lr}: device {cs.graph_ms(fn, 5, 3):.4f} '
               f'ms  [{smi}]', flush=True)
+
+
+def trunk_times(cs, device, smi: str, bn_trunk: bool = True) -> None:
+    """Device times at the training shape of the trunks that run K2's
+    engine at epilogues of their own, res_scale 1: K1's and K7's (WDSR-B
+    at 128 features) 16 blocks, the forward saving and the backward;
+    with ``bn_trunk``, K4's trunk op (16 BN blocks and the close, SAME)
+    each way on trees that have it (``bn_trunk_fwd``)."""
+    trunk = importlib.import_module('srtpu_torch.ops.trunk')
+    k7 = importlib.import_module('srtpu_torch.ops.wdsr')
+    bsz, lr = cs.TRAIN_BATCH, cs.TRAIN_PATCH // cs.SCALE
+    bf, f32 = torch.bfloat16, torch.float32
+    cb = (9 * cs.C) ** -0.5
+    gen = torch.Generator().manual_seed(2029)
+    args = (cs._uniform(gen, (bsz, lr, lr, cs.C), 1.0, device, bf),
+            cs._uniform(gen, (cs.L, 3, 3, cs.C, cs.C), cb, device, bf),
+            cs._uniform(gen, (cs.L, cs.C), cb, device, f32),
+            cs._uniform(gen, (cs.L, 3, 3, cs.C, cs.C), cb, device, bf),
+            cs._uniform(gen, (cs.L, cs.C), cb, device, f32), 1.0)
+    g = cs._uniform(gen, (bsz, lr, lr, cs.C), 1.0, device, bf)
+    _, xs, h1s = trunk.trunk_fwd(*args, save=True)
+    fwd = cs.graph_ms(lambda: trunk.trunk_fwd(*args, save=True), 5, 3)
+    bwd = cs.graph_ms(lambda: trunk.trunk_bwd(xs, h1s, g, args[1], args[3],
+                                              1.0), 5, 3)
+    print(f'K1 trunk of {cs.L} {bsz}x{lr}x{lr}: device fwd (saving) '
+          f'{fwd:.4f} ms, bwd {bwd:.4f} ms  [{smi}]', flush=True)
+    c, e, lv = cs.WDSR_C, cs.WDSR_E, cs.WDSR_LV
+    lp = k7.kernel_lp(c) if hasattr(k7, 'kernel_lp') else cs.WDSR_LP
+    gen = torch.Generator().manual_seed(2030)
+
+    def u(shape, bound, dt=bf):
+        return cs._uniform(gen, (cs.L, *shape), bound, device, dt)
+    x = cs._uniform(gen, (bsz, lr, lr, c), 1.0, device, bf)
+    pad = torch.nn.functional.pad
+    wts = (u((c, e), c ** -0.5), u((e,), c ** -0.5, f32),
+           pad(u((e, lv), e ** -0.5), (0, lp - lv)),
+           pad(u((lv,), e ** -0.5, f32), (0, lp - lv)),
+           pad(u((3, 3, lv, c), (9 * lv) ** -0.5),
+               (0, 0, 0, lp - lv)).contiguous(),
+           u((c,), (9 * lv) ** -0.5, f32))
+    gw = cs._uniform(gen, (bsz, lr, lr, c), 1.0, device, bf)
+    _, xs7, h2s = k7.wdsr_trunk_fwd(x, *wts, 1.0, save=True)
+    fwd = cs.graph_ms(lambda: k7.wdsr_trunk_fwd(x, *wts, 1.0, save=True),
+                      3, 3)
+    bwd = cs.graph_ms(lambda: k7.wdsr_trunk_bwd(xs7, h2s, gw, *wts[:5], 1.0),
+                      3, 3)
+    print(f'K7 trunk of {cs.L} {bsz}x{lr}x{lr} (C {c}): device fwd (saving) '
+          f'{fwd:.4f} ms, bwd {bwd:.4f} ms  [{smi}]', flush=True)
+    bn = importlib.import_module('srtpu_torch.ops.bn_block')
+    if not bn_trunk or not hasattr(bn, 'bn_trunk_fwd'):
+        return
+    m = cs.create_model('SRResNet', scale_factor=cs.SCALE, n_feats=cs.C,
+                        n_resblocks=cs.L, dtype=bf, device=device,
+                        generator=torch.Generator().manual_seed(7)).trunk
+    a = [t.detach().to(bf if t.dim() >= 4 else f32).contiguous() for t in (
+        m.w1, m.b1, m.bn1_scale, m.bn1_bias, m.alpha, m.w2, m.b2,
+        m.bn2_scale, m.bn2_bias, m.close_w, m.close_b, m.close_bn_scale,
+        m.close_bn_bias)]
+    gen = torch.Generator().manual_seed(8)
+    x = cs._uniform(gen, (bsz, lr, lr, cs.C), 1.0, device, bf)
+    g = cs._uniform(gen, (bsz, lr, lr, cs.C), 1.0, device, bf)
+    _, acts, ys, sts = bn.bn_trunk_fwd(x, *a)
+    fwd = cs.graph_ms(lambda: bn.bn_trunk_fwd(x, *a), 3, 3)
+    bwd = cs.graph_ms(lambda: bn.bn_trunk_bwd(
+        acts, ys, sts, g, a[0], a[5], a[9], a[2], a[7], a[11], a[4]), 3, 3)
+    print(f'K4 trunk of {cs.L} + close {bsz}x{lr}x{lr}: device fwd '
+          f'{fwd:.4f} ms, bwd {bwd:.4f} ms  [{smi}]', flush=True)
