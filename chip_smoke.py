@@ -250,7 +250,9 @@ Phases, each of which raises on failure (nothing is caught):
    (the 'calls' trunk: forward, chain, pair weight grads), K9c (the 8
    dense-layer convs of one block, forward and backward; ``F.conv2d``
    and ``aten.convolution_backward`` beside), K9d at res_scale 1.0 and
-   0.1 (the True route's stock backward beside); then the main-path runs
+   0.1 (each call's plan among ``k9d_held``'s; its device and host time
+   beside the True route's stock f32 backward and the bf16 cuDNN calls
+   of its two conv VJPs); then the main-path runs
    of the ops no model keyword reaches: ``resblock_cs`` and
    ``resblock_fused_v3`` at EDSR True's training shape,
    ``rdn_trunk_calls`` (its forward bit-identical to the grid trunk's)
@@ -778,6 +780,14 @@ def k8a_held() -> set:
     held = {('block', 1, True, s) for s in (1.0, *K9D_SCALES)}
     held |= {('trunk', L, save, 1.0) for save in (False, True)}
     return held
+
+
+def k9d_held() -> set:
+    """(kind, res_scale) of the K9d calls phase 2j holds against its
+    plain version on the card: the wrapper alone ('kernel') at
+    K9D_SCALES and under ``resblock_fused_v3``'s op run ('op', at 0.1).
+    ``ops.resblock.bwd_plan`` of the res_scale is each one's plan."""
+    return {('kernel', s) for s in K9D_SCALES} | {('op', 0.1)}
 
 
 def k3_held() -> set:
@@ -3182,7 +3192,10 @@ def check_form_kernels(device, smi: str) -> dict:
     torch.cuda.empty_cache()
 
     # K9d at EDSR True's training shape, res_scale 1.0 and 0.1
+    held = {k8a_ops.bwd_plan(rs) for _, rs in k9d_held()}
     for j, rs in enumerate(K9D_SCALES):
+        need(k8a_ops.bwd_plan(rs) in held,
+             f'K9d at res_scale {rs}: plan not held')
         a = k8_cases(gen, device, bsz, h, w)['K8a'][2][:5]
         _, h1 = resblock_fused_fwd(*a, rs, save_h1=True)
         dargs = (a[0], h1, _uniform(gen, (bsz, h, w, C), 1.0, device, bf),
@@ -3197,15 +3210,34 @@ def check_form_kernels(device, smi: str) -> dict:
         stats['K9d']['max_abs_err'] = max(stats['K9d']['max_abs_err'], err)
         flops, moved = 4 * conv_flops(px, C, C), nbytes(dargs, got[0])
         ms = median_ms(lambda: resblock_bwd_fused(*dargs))
+        dev = graph_ms(lambda: resblock_bwd_fused(*dargs), 10, 3)
+        host = host_ms(lambda: resblock_bwd_fused(*dargs))
         pms = median_ms(lambda: resblock_bwd_fused_plain(*dargs), 5, 3)
         stock = median_ms(lambda: resblock_fused_bwd(*dargs), 5, 3)
+        cudnn = k9d_reference(*dargs)
+        ref_dev = graph_ms(cudnn, 10, 3)
         if j == 0:
             record(stats['K9d'], ms, pms, flops, moved)
         _print_times(tag, ms, pms, flops, moved, smi,
-                     f'; the stock backward of the True route {stock:.4f} ms')
+                     f'; device {dev:.4f} ms, host {host:.4f} ms; the stock '
+                     f'f32 backward of the True route {stock:.4f} ms; bf16 '
+                     f'cuDNN (two convolution_backward) {median_ms(cudnn):.4f}'
+                     f' ms, device {ref_dev:.4f} ms')
         del got, dargs, a, h1
     torch.cuda.empty_cache()
     return stats
+
+
+def k9d_reference(x, h1, g, w1, w2, res_scale: float):
+    """K9d's work as bf16 cuDNN calls (a reference, not the same
+    function: gs and dh1 rounded to bf16): the two
+    ``aten.convolution_backward`` of the block's convs, at (h1, W2, gs)
+    and (x, W1, dh1) with dh1 that of the first, masked."""
+    gs = (g.float() * res_scale).bfloat16()
+    dh1 = (lib_conv_bwd(h1, w2, gs)()[0].permute(0, 2, 3, 1)
+           * (h1 > 0)).contiguous()
+    first, second = lib_conv_bwd(h1, w2, gs), lib_conv_bwd(x, w1, dh1)
+    return lambda: (first(), second())
 
 
 def run_op_paths(device, smi: str) -> dict:
@@ -4546,7 +4578,8 @@ def main() -> None:
              [conv3x3_bwd, K2G_BWD], 'conv.cu', rep + '1648',
              ('rdn_layers',)),
             ('K9d', "K9d resblock_bwd_fused (K8a's backward: gs and dh1 as "
-             'bf16 hi + lo, two chunked convs, weight grads, fold)',
+             "bf16 hi + lo, its two transposed convs on K2's wgmma engine "
+             "at EPI 16 / 17, weight grads on W's, fold)",
              resblock_bwd_fused, 'resblock_bwd.cu',
              'srtpu/ops/resblock.py:316')]
     rows = []

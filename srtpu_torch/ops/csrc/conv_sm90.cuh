@@ -121,6 +121,14 @@
 // through a 5-D tensor map of the fine cotangent, (r C, W, r, H, B): a
 // 64-channel slice is one phase (a, b) at coarse pixels, TMA's zero fill
 // the coarse SAME padding.
+//
+// K9d (resblock_bwd.cu) runs K8a's fused backward's two transposed convs
+// on it over [hi | lo] pairs at cin 128 (ParamsK5): the forward's HWIO
+// (3, 3, 64, 64) weight read K-major as it lies, once for each half (its
+// K coordinate taken modulo its 64 channels: no stacked or transposed
+// copy). EPI 16, dh1: h1's mask (EPI 5's) on the f32 sums, then EPI 12's
+// split, stored as one [hi | lo] pixel of 128 channels; EPI 17, dx: EPI
+// 5's dx form, bf16(sums + f32(g)).
 #pragma once
 
 #include "sm90.cuh"
@@ -303,10 +311,23 @@ template <>
 struct ParamsFor<15> {
   typedef ParamsK1 type;
 };
+template <>
+struct ParamsFor<16> {
+  typedef ParamsK5 type;
+};
+template <>
+struct ParamsFor<17> {
+  typedef ParamsK5 type;
+};
 
 // K6's epilogues: runtime pixel strides and weights in pairs.
 __host__ __device__ constexpr bool k6_epi(int epi) {
   return epi >= 1 && epi <= 3;
+}
+// K9d's epilogues: x is a [hi | lo] pair whose halves both read the one
+// weight, of half x's channels.
+__host__ __device__ constexpr bool pair_k(int epi) {
+  return epi == 16 || epi == 17;
 }
 // Shared memory an epilogue adds after the barriers: the warp sums of
 // those that sum over a tile's pixels (EPI 2's db and EPI 4's pool, 64
@@ -844,6 +865,46 @@ __device__ __forceinline__ void hilo_epilogue(float (&acc)[1][32],
   }
 }
 
+// K9d's dh1 (EPI 16, TB; ParamsK5), on K2's plan for 128 -> 64 over the
+// [hi | lo] pair of gs, registers as rcab_epilogue's: dh1 = h1 > 0 ? sums
+// : 0 in f32 (h1 = k5.h, pixel stride 64; EPI 5's mask), split into hi =
+// bf16(dh1) and lo = bf16(dh1 - hi) and stored at channels c and 64 + c
+// of the pixel's 128 (EPI 12's split). Pixels outside the image are not
+// stored: the dx launch's TMA zero fill is their dh1, as SAME padding
+// wants.
+__device__ __forceinline__ void dh1_epilogue(float (&acc)[1][32],
+                                             const ParamsK5& p, int warp,
+                                             int lane, int b, int y0,
+                                             int x0) {
+  constexpr int J = 8;
+  const int gy = y0 + warp, cl = 2 * (lane & 3);
+  if (gy >= p.H) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gx = x0 + (lane >> 2) + 8 * h;
+    if (gx >= p.W) continue;
+    const size_t pix = ((size_t)b * p.H + gy) * p.W + gx;
+    // the pixel's mask loads together, then its stores
+    __nv_bfloat162 t[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      t[j] = *reinterpret_cast<const __nv_bfloat162*>(p.k5.h + pix * 64 +
+                                                      cl + 8 * j);
+    bf16* const v = p.out + pix * 128 + cl;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float2 m = __bfloat1622float2(t[j]);
+      const float d0 = m.x > 0.0f ? acc[0][4 * j + 2 * h] : 0.0f;
+      const float d1 = m.y > 0.0f ? acc[0][4 * j + 2 * h + 1] : 0.0f;
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(d0, d1);
+      const float2 f = __bfloat1622float2(hi);
+      *reinterpret_cast<__nv_bfloat162*>(v + 8 * j) = hi;
+      *reinterpret_cast<__nv_bfloat162*>(v + 64 + 8 * j) =
+          __floats2bfloat162_rn(__fsub_rn(d0, f.x), __fsub_rn(d1, f.y));
+    }
+  }
+}
+
 // K3's forward (EPI 13; ParamsK3): the block's NAT atoms are phases p0 ..
 // p0 + NAT - 1 (p0 = n0 / 64) of phase row a = p0 / r (NAT divides r), so
 // a coarse pixel (gy, gx) puts them on fine pixels (r gy + a, r gx + b0 +
@@ -905,7 +966,7 @@ __host__ __device__ constexpr int min_blocks(int bn, int nks) {
 // pixel stride), 2 the backward chain's, 3 the fusion's residual; 4 and
 // 5, K5's (ParamsK5); 6, K1's (ParamsK1); 7 and 8, K7's; 9-11, K4's; 12,
 // K8a's conv1 and 15 its conv2; 13 and 14, K3's (14 reads x through the
-// fine map).
+// fine map); 16 and 17, K9d's (x a [hi | lo] pair, TB).
 template <int NA, int NAT, int NKS, int SPLIT, bool TB, int EPI>
 __global__ void __launch_bounds__(kThreads, min_blocks(NA * NAT, NKS))
     conv_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
@@ -975,7 +1036,9 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NA * NAT, NKS))
 #pragma unroll
           for (int at = 0; at < NAT; ++at) {
             const uint32_t dst = b_ring + sb * p.b_stage + at * p.tg * BTAP;
-            const int n = n0 + at * NA, k = s * KC;
+            // pair_k: both halves of the pair read the weight's K rows
+            const int n = n0 + at * NA,
+                      k = pair_k(EPI) ? s % (p.nslices / 2) * KC : s * KC;
             bool pairs = false;
             if constexpr (k6_epi(EPI)) pairs = p.wgroups;
             if (!pairs) {  // one HWIO tensor: the 3-D map
@@ -1163,6 +1226,15 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NA * NAT, NKS))
     hilo_epilogue(acc, p, warp, lane, b, y0, x0);
     return;
   }
+  if constexpr (EPI == 16 || EPI == 17) {
+    static_assert(NA == 64 && NAT == 1 && SPLIT == 1 && TB,
+                  "K2's transposed plan for 128 -> 64");
+    if constexpr (EPI == 16)
+      dh1_epilogue(acc, p, warp, lane, b, y0, x0);
+    else  // EPI 5's dx form: bf16(sums + f32(g)), g = k5.res
+      rcab_epilogue<5>(acc, p, nullptr, warp, lane, b, y0, x0, 0);
+    return;
+  }
   if constexpr (EPI == 13) {
     static_assert(NA == 64 && SPLIT == 1, "phases of 64 channels");
     shuffle_epilogue<NAT>(acc, p, warp, lane, b, y0, x0, n0);
@@ -1254,7 +1326,7 @@ int blocks_per_sm(K kernel) {
 // 2's (its dbuf at pixel stride ops); k5: EPI 4's and 5's; k1: EPI 6's;
 // k4: EPI 9-11's; h1: EPI 12's (out its [hi | lo] pair, ops = cout all
 // the same); r: EPI 13's and 14's (x of EPI 14 the fine cotangent, xps =
-// cin).
+// cin); EPI 16 and 17 (k5: h, res) read a (k, k, cout, cin / 2) w.
 // EPI 0 (K2), 4, 5 (K5) and 6 (K1) take xps = cin, ops = cout and one
 // HWIO weight.
 struct ConvArgs {
@@ -1355,7 +1427,8 @@ cudaError_t launch(const ConvArgs& a, cudaStream_t stream) {
   // groups) of groups wgk x wgn; one box an atom: NA channels of KC rows
   // of tg taps; TB: (cin, cout, ...), one box KC channels of NA rows
   const int wgroups = a.pack_k || a.pack_n;
-  const int wgk = a.pack_k ? 64 : cin, wgn = a.pack_n ? 64 : cout;
+  const int wgk = a.pack_k ? 64 : pair_k(EPI) ? cin / 2 : cin;
+  const int wgn = a.pack_n ? 64 : cout;
   const int inner = TB ? wgk : wgn, outer = TB ? wgn : wgk;
   const cuuint64_t group = (cuuint64_t)kk * kk * wgk * wgn * 2;
   const cuuint64_t wdim[5] = {(cuuint64_t)inner, (cuuint64_t)outer,
@@ -1405,7 +1478,8 @@ cudaError_t launch(const ConvArgs& a, cudaStream_t stream) {
     p.o2ps = a.o2ps;
     p.ch = a.ch;
   }
-  if constexpr (EPI == 4 || EPI == 5 || EPI == 7 || EPI == 8) p.k5 = a.k5;
+  if constexpr (EPI == 4 || EPI == 5 || EPI == 7 || EPI == 8 || pair_k(EPI))
+    p.k5 = a.k5;
   if constexpr ((EPI >= 6 && EPI <= 8) || EPI == 15) p.k1 = a.k1;
   if constexpr (EPI >= 9 && EPI <= 11) p.k4 = a.k4;
   if constexpr (EPI == 12) p.h1 = a.h1;
@@ -1569,6 +1643,18 @@ inline cudaError_t run_k8a_skip(const ConvArgs& a, cudaStream_t s) {
   if (!takes(a) || a.cin != 128 || a.cout != 64 || a.kk != 3)
     return cudaErrorInvalidValue;
   return launch<64, 1, 4, 1, false, 15>(a, s);
+}
+
+// K9d's transposed convs over a [hi | lo] pair (EPI 16: dh1, stored as
+// its own pair; EPI 17: dx), 3x3 128 -> 64 on the forward's HWIO (3, 3,
+// 64, 64) weight, read K-major for each half: K2's plan for that class
+// (N = 64, two 64-channel slices, no split).
+template <int EPI>
+cudaError_t run_k9d(const ConvArgs& a, cudaStream_t s) {
+  static_assert(pair_k(EPI), "K9d's epilogues");
+  if (!takes(a) || a.cin != 128 || a.cout != 64 || a.kk != 3)
+    return cudaErrorInvalidValue;
+  return launch<64, 1, 4, 1, true, EPI>(a, s);
 }
 
 // K3's phases a block: d = 3, 2 or 1, the widest that divides r (so a

@@ -33,12 +33,14 @@ in one autograd node.
 K9d: srtpu's ``resblock_fused_v3`` computes the same backward in its
 Pallas kernel ``resblock_bwd_fused`` (``_resblock_bwd_kernel``); here
 ``csrc/resblock_bwd.cu``, whose head note says what bounds it and how it
-keeps gs and dh1 in f32 on bf16 tensor cores. :func:`resblock_bwd_fused`
-launches it for CUDA tensors (counted in ``launches``) and takes the
-plain version (:func:`resblock_bwd_fused_plain`, the f32 math of
-``_rb2_bwd``) only for CPU tensors; :func:`resblock_fused_v3` is the
-differentiable op (:class:`FusedResBlockV3Fn`: K8a forward, K9d
-backward).
+keeps gs and dh1 in f32 on bf16 tensor cores: its two transposed convs
+on K2's engine over [hi | lo] pairs, its weight grads on W's.
+:func:`resblock_bwd_fused` launches it for CUDA tensors (counted in
+``launches``) and takes the plain version
+(:func:`resblock_bwd_fused_plain`, the f32 math of ``_rb2_bwd``) only for
+CPU tensors; :func:`bwd_plan` says in plain Python what it launches.
+:func:`resblock_fused_v3` is the differentiable op
+(:class:`FusedResBlockV3Fn`: K8a forward, K9d backward).
 """
 
 from __future__ import annotations
@@ -47,11 +49,11 @@ import torch
 
 from . import _build
 from .conv import conv_f32
-from .layout import w_t
 from .wgrad import wgrad_parts, wgrad_workspace
 
 KERNEL_C = 64           # the kernel's one width (EDSR-baseline's)
 EPI_HILO, EPI_SKIP = 12, 15  # the engine's epilogues K8a launches
+EPI_DH1, EPI_DX = 16, 17     # and K9d's, transposed over [hi | lo] pairs
 
 
 def resblock_fused_plain(x, w1, b1, w2, b2, res_scale: float,
@@ -100,6 +102,26 @@ def fwd_plan(save: bool, scale: float, n_blocks: int = 1) -> tuple:
              ('engine', EPI_SKIP, 3, 2 * c, c, False, float(scale),
               ('out',)))
     return block * n_blocks
+
+
+def bwd_plan(scale: float) -> tuple:
+    """resblock_bwd.cu's launches for one K9d call, in order, each
+    (kernel, EPI, k, cin, cout, transposed, scale, what it writes), as
+    :func:`fwd_plan`: 'split' the pass writing gsp, the [hi | lo] pair of
+    g * ``scale`` (64 -> 128 channels); 'engine' K2's engine at K2's plan
+    (N = 64), transposed, over a pair (cin 128) with the forward's weight
+    read for both halves: dh1 at EPI 16 (h1's mask, the split, the pair
+    dh1p), dx at EPI 17 (the sums + g, one rounding); 'wgrad' W's job at
+    3x3 64 -> 128, one launch each (dW1 on (x, dh1p), dW2 on (h1, gsp)),
+    into the 128-column dwx and dbx; 'fold' the hi + lo halves of both."""
+    c = KERNEL_C
+    return (('split', None, None, c, 2 * c, False, float(scale), ('gsp',)),
+            ('engine', EPI_DH1, 3, 2 * c, c, True, None, ('dh1p',)),
+            ('engine', EPI_DX, 3, 2 * c, c, True, None, ('dx',)),
+            ('wgrad', None, 3, c, 2 * c, False, None, ('dwx', 'dbx')),
+            ('wgrad', None, 3, c, 2 * c, False, None, ('dwx', 'dbx')),
+            ('fold', None, None, 2 * c, c, False, None,
+             ('dw1', 'db1', 'dw2', 'db2')))
 
 
 def _check(name: str, x) -> None:
@@ -215,11 +237,10 @@ def resblock_fused_bwd(x, h1, g, w1, w2, res_scale: float):
 
 def resblock_bwd_fused(x, h1, g, w1, w2, res_scale: float):
     """K9d: as :func:`resblock_bwd_fused_plain`. On CUDA: bf16 x, h1, g
-    (B, H, W, 64) and w1, w2 (3, 3, 64, 64); one call is the gs split,
-    two chunked convs, two weight-grad launches (each with the in-order
+    (B, H, W, 64) and w1, w2 (3, 3, 64, 64), read as they lie; one call
+    runs :func:`bwd_plan`'s launches (each W launch with the in-order
     reductions of its partial slots where its split has more than one
-    cluster, :func:`.wgrad.wgrad_parts`) and the fold of the hi and lo
-    halves."""
+    cluster, :func:`.wgrad.wgrad_parts`)."""
     if g.device.type == 'cpu':
         return resblock_bwd_fused_plain(x, h1, g, w1, w2, res_scale)
     _check('resblock_bwd_fused', g)
@@ -229,9 +250,6 @@ def resblock_bwd_fused(x, h1, g, w1, w2, res_scale: float):
         _build.expect(t, name, bf16, (bsz, h, w, c), dev)
     for name, t in (('w1', w1), ('w2', w2)):
         _build.expect(t, name, bf16, (3, 3, c, c), dev)
-    # the transposed kernels, stacked twice along their inputs: the
-    # convs read [hi | lo] pairs
-    w1t2, w2t2 = (torch.cat([w_t(t)] * 2, 2).contiguous() for t in (w1, w2))
     # the weight grads' split at the [hi | lo] pairs (64 -> 128)
     cluster, clusters = wgrad_parts(bsz, h, w, c, 2 * c)
     ws_w, ws_b = wgrad_workspace(1, cluster, clusters, c, 2 * c, 3, dev)
@@ -243,10 +261,10 @@ def resblock_bwd_fused(x, h1, g, w1, w2, res_scale: float):
     dx = torch.empty_like(g)
     dw1, dw2 = (torch.empty((3, 3, c, c), **f32) for _ in 'ab')
     db1, db2 = (torch.empty((c,), **f32) for _ in 'ab')
-    with torch.cuda.device(dev):
+    with _build.on(dev):
         err = _build.library().srt_resblock_f32_bwd(
-            x.data_ptr(), h1.data_ptr(), g.data_ptr(), w1t2.data_ptr(),
-            w2t2.data_ptr(), float(res_scale), gsp.data_ptr(),
+            x.data_ptr(), h1.data_ptr(), g.data_ptr(), w1.data_ptr(),
+            w2.data_ptr(), float(res_scale), gsp.data_ptr(),
             dh1p.data_ptr(), dx.data_ptr(), ws_w.data_ptr(), ws_b.data_ptr(),
             dwx.data_ptr(), dbx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
             dw2.data_ptr(), db2.data_ptr(), bsz, h, w, c, cluster, clusters,

@@ -1433,12 +1433,18 @@ def test_k9c_layers_trunk_matches_plain(device):
         _assert_close(got, ref, 2)
 
 
+# K9d's ragged shapes beside K8's: H x W off the engine's 8 x 16 tiles,
+# smaller than one tile and across several
+K9D_RAGGED = [(2, 6, 5), (2, 20, 28), (3, 9, 17)]
+
+
 @pytest.mark.parametrize('res_scale', [1.0, 0.1])
-@pytest.mark.parametrize('bsz,h,w', K8_SHAPES)
+@pytest.mark.parametrize('bsz,h,w', K8_SHAPES + K9D_RAGGED)
 def test_k9d_matches_plain(device, bsz, h, w, res_scale):
-    """K9d (K8a's fused backward) against its plain version: dx within
-    one bf16 step, the f32 dW1, db1, dW2, db2 within 1e-4 of their
-    largest magnitude; one launch counted; the same bits twice."""
+    """K9d (K8a's fused backward, its convs on K2's transposed engine)
+    against its plain version: dx within one bf16 step, the f32 dW1,
+    db1, dW2, db2 within 1e-4 of their largest magnitude; one launch
+    counted; the same bits twice."""
     gen = torch.Generator().manual_seed(bsz * 31 + h + w)
     x, w1, b1, w2, b2 = _k8_case(gen, device, 'a', bsz, h, w, 64)
     g = _u(gen, (bsz, h, w, 64), 1.0, device)

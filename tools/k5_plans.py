@@ -26,26 +26,12 @@ import argparse
 
 import torch
 
-from tree_timing import engine_times, load_chip_smoke
+from tree_timing import engine_times, kernels_ms, load_chip_smoke
 
 ARGS = argparse.ArgumentParser(description=__doc__.splitlines()[0])
 ARGS.add_argument('--tree', help="time this checkout's srtpu_torch")
 chip_smoke = load_chip_smoke(ARGS.parse_args().tree)
 from srtpu_torch.ops import rcab  # noqa: E402
-
-
-def kernels_ms(fn, calls: int = 10) -> dict:
-    """Device ms a call of ``fn`` by kernel name (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {k: us / 1e3 / calls
-            for k, us in chip_smoke._device_us(prof).items()}
 
 
 def k5_times(device, smi: str) -> None:
@@ -86,7 +72,7 @@ def k5_times(device, smi: str) -> None:
                   f'{ev:.4f} ms, host {host:.4f} ms a call  [{smi}]',
                   flush=True)
             if name in one:
-                for k, ms in sorted(kernels_ms(fn).items(),
+                for k, ms in sorted(kernels_ms(chip_smoke, fn).items(),
                                     key=lambda kv: -kv[1]):
                     print(f'    {ms:.4f} ms  {k[:100]}')
 

@@ -1,10 +1,11 @@
 """What the tools that time two trees of srtpu_torch in turns share
 (``tools/k1_plans.py``, ``tools/k5_plans.py``, ``tools/k6_plans.py``,
-``tools/wgrad_plans.py``): this checkout's chip_smoke.py loaded over
-another tree's srtpu_torch, the device times of the classes of the two
-wgmma engines, K2's (``conv_sm90.cuh``) and W's (``wgrad.cu``), and of
-the kernels that run K2's at epilogues of their own, K5's and K6's, and
-the trunks of K1, K4 and K7."""
+``tools/wgrad_plans.py`` and the other ``tools/*_plans.py``): this
+checkout's chip_smoke.py loaded over another tree's srtpu_torch, the
+device times of the classes of the two wgmma engines, K2's
+(``conv_sm90.cuh``) and W's (``wgrad.cu``), and of the kernels that run
+K2's at epilogues of their own, K5's and K6's, and the trunks of K1,
+K4, K7 and K8a."""
 
 from __future__ import annotations
 
@@ -28,6 +29,19 @@ def load_chip_smoke(tree: str | None):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def kernels_ms(cs, fn, calls: int = 10) -> dict:
+    """Device ms a call of ``fn`` by kernel name (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {k: us / 1e3 / calls for k, us in cs._device_us(prof).items()}
 
 
 def engine_times(cs, device, smi: str) -> None:
@@ -113,6 +127,7 @@ def trunk_times(cs, device, smi: str, bn_trunk: bool = True) -> None:
     """Device times at the training shape of the trunks that run K2's
     engine at epilogues of their own, res_scale 1: K1's and K7's (WDSR-B
     at 128 features) 16 blocks, the forward saving and the backward;
+    K8a's 16-block forward saving (the trunk op, on trees that have it);
     with ``bn_trunk``, K4's trunk op (16 BN blocks and the close, SAME)
     each way on trees that have it (``bn_trunk_fwd``)."""
     trunk = importlib.import_module('srtpu_torch.ops.trunk')
@@ -133,6 +148,12 @@ def trunk_times(cs, device, smi: str, bn_trunk: bool = True) -> None:
                                               1.0), 5, 3)
     print(f'K1 trunk of {cs.L} {bsz}x{lr}x{lr}: device fwd (saving) '
           f'{fwd:.4f} ms, bwd {bwd:.4f} ms  [{smi}]', flush=True)
+    k8a = importlib.import_module('srtpu_torch.ops.resblock')
+    if hasattr(k8a, 'resblock_trunk_fwd'):
+        fwd = cs.graph_ms(lambda: k8a.resblock_trunk_fwd(*args, save=True),
+                          5, 3)
+        print(f'K8a trunk of {cs.L} {bsz}x{lr}x{lr}: device fwd (saving) '
+              f'{fwd:.4f} ms  [{smi}]', flush=True)
     c, e, lv = cs.WDSR_C, cs.WDSR_E, cs.WDSR_LV
     lp = k7.kernel_lp(c) if hasattr(k7, 'kernel_lp') else cs.WDSR_LP
     gen = torch.Generator().manual_seed(2030)
