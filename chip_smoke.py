@@ -1,6 +1,7 @@
 """Drive srtpu_torch's EDSR-baseline x4, RCAN-10x16 x4, SRResNet x4,
-RDN-B x4, DDBPN x4, WDSR-B x4 and SRGAN x4 predict and training on one
-CUDA card, EDSR's, RCAN's and WDSR-B's ``use_pallas=True`` routes, the
+RDN-B x4, DDBPN x4, WDSR-B x4, SRGAN x4 and SRCNN x4 predict and
+training, EDSR's and RCAN's validate and EDSR's tiled eval and predict on
+one CUDA card, EDSR's, RCAN's and WDSR-B's ``use_pallas=True`` routes, the
 ops of srtpu's other trunk forms, EDSR at 86 resblocks (where srtpu
 leaves its mega trunk) and EDSR at 256 features (srtpu's XLA trunk).
 
@@ -275,12 +276,31 @@ Phases, each of which raises on failure (nothing is caught):
 23. EDSR x4 at 256 features, 32 resblocks, res_scale 0.1 (the EDSR
    paper's): predict at LR 128x128 and a 10-step ``fit`` through the
    CLI on srtpu's XLA trunk and tail (stock ops): no kernel of the port
-   runs, which the counters show; ms and patches/s.
+   runs, which the counters show; ms and patches/s;
+24. SRCNN x4: phase 3's predict (no kernel counter moves: its bicubic is
+   two f32 matmuls, its convs cuDNN's) and phase 4's 20-step fit;
+25. ``python -m srtpu_torch validate``'s own function, EDSR-baseline x4
+   on an eval set of HR 512x512, 1000x680 (bucket-padded) and 2048x1408
+   with PSNR, SSIM and MS-SSIM: K1, K2 and K3 on every image (the
+   counters); per image the kernel path's metrics against the plain
+   path's, the card's metric functions against the CPU's on the same SR
+   and HR (PSNR 1e-4 dB, SSIM and MS-SSIM 1e-5), the masked values
+   against the unpadded image's; eval ms per image, forward and metrics
+   apart, and images/s; then RCAN-10x16 on the same set (K5 and K2 on
+   every image, its metrics against its plain path);
+26. the tiled steps: K1-K3 at the 16 x 80 x 80 tile batch against their
+   plain versions; EDSR ``validate`` and ``predict`` with ``--eval_tile
+   80 --eval_tile_overlap 8`` on the 2048x1408 image (K1-K3 on every
+   16-tile batch) and ``predict --predict_tile 128`` (the host tiles),
+   each PNG byte-equal to the route's SR checked here; the tiled kernel
+   path against the tiled plain path and against the direct forward
+   (beside srtpu's seam figure, ROADMAP F2); tiled ms against direct.
 The line before the last is a JSON object with, per kernel, its launches
-in the main-path runs (EDSR, RCAN, SRResNet, RDN, DDBPN, WDSR and SRGAN
-predict and fit, EDSR and SRResNet x3 predict, SRResNet x3 fit, the
-EDSR, RCAN and WDSR-B True routes' predict and fit, EDSR 64 x 86 fit,
-and phase 2j's op runs;
+in the main-path runs (EDSR, RCAN, SRResNet, RDN, DDBPN, WDSR, SRGAN
+and SRCNN predict and fit, EDSR and SRResNet x3 predict, SRResNet x3
+fit, the EDSR, RCAN and WDSR-B True routes' predict and fit, EDSR 64 x
+86 fit, EDSR's and RCAN's validate, EDSR's tiled validate and predict
+and its host tiles, and phase 2j's op runs;
 ``launches`` is their sum), its largest error against its plain
 version, its time (K4's, K4r's and the trunk op's: its device time
 alone, a CUDA graph of its calls; the others: the wrapper's CUDA-event
@@ -307,6 +327,7 @@ import contextlib
 import copy
 import functools
 import importlib
+import io
 import json
 import logging
 import struct
@@ -320,8 +341,9 @@ import torch
 import torch.nn.functional as F
 
 from srtpu_torch import cli
-from srtpu_torch.data import pad_to_bucket
+from srtpu_torch.data import SRData, pad_to_bucket
 from srtpu_torch.losses import VGGLoss, parse_losses
+from srtpu_torch.metrics import build_metrics
 from srtpu_torch.models import create_model
 from srtpu_torch.ops import (_build, b1_plain, b1_sums, b2_call, b2_plain,
                              b3_call, b3_plain, bn_block, conv3x3_bwd,
@@ -356,7 +378,10 @@ from srtpu_torch.ops.wdsr_block import (wdsr_block_fused_fwd,
                                         wdsr_block_fused_plain)
 from srtpu_torch.optim import build_optimizer
 from srtpu_torch.train import (TrainState, create_gan_state,
-                               make_gan_train_step, make_train_step)
+                               make_eval_step, make_gan_train_step,
+                               make_predict_step, make_tiled_predict_step,
+                               make_train_step, tiled_predict)
+from srtpu_torch.train.tiled import _anchors
 from srtpu_torch.utils.logging import save_image
 
 # K4's trunk op, looked up with getattr: tools/tree_timing.py loads this
@@ -739,6 +764,32 @@ K1_TIMED = ((L, 1.0, TRAIN_BATCH, 32, 32), (L, 1.0, 1, 128, 128),
 K9D_SCALES = (1.0, 0.1)
 # The H100 SXM's published peaks (NVIDIA data sheet), for bound_ms
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
+# Phase 24, SRCNN x4: no kernel of the port runs (its bicubic is two f32
+# matmuls and its three convs are cuDNN's, as srtpu leaves them to XLA)
+SRCNN_LAUNCHES = {**NO_KERNEL, rcab_fwd: 0, rcab_bwd: 0}
+# Phase 25, validate: an eval set of HR 512x512, 1000x680 (LR 250x170,
+# bucket-padded to 256x192: the mask takes the padding out) and 2048x1408
+# (LR 128x128, 250x170 and 512x352, phase 3's sizes), scored with srtpu's
+# three full-reference metrics the port has
+VAL_HR_SIZES = ((512, 512), (1000, 680), (2048, 1408))
+VAL_METRICS = ('PSNR', 'SSIM', 'MS-SSIM')
+# The kernel path's metrics against the plain path's, per image: their SR
+# images differ within SLICE_MAX_TOL / SLICE_MEAN_TOL (a bf16 step here
+# and there), which moves a mean square error or an SSIM mean by far
+# less than these
+VAL_PATH_TOL = {'PSNR': 0.02, 'SSIM': 2e-3, 'MS-SSIM': 2e-3}
+# The card's metric functions against the same functions on the CPU, on
+# the same f32 SR and HR: the same elementwise f32 arithmetic, the means
+# reduced in another order; and masked (padded) against unpadded
+METRIC_DEVICE_TOL = {'PSNR': 1e-4, 'SSIM': 1e-5, 'MS-SSIM': 1e-5}
+# Phase 26, the tiled steps: srtpu's TPU routing (eval_tile 80, overlap 8,
+# batches of 16 tiles) and the host tiles (predict_tile 128, overlap 32)
+TILE, TILE_OVERLAP, TILE_BATCH = 80, 8, 16
+HOST_TILE, HOST_OVERLAP = 128, 32
+TILE_ARGS = ['--eval_tile', str(TILE), '--eval_tile_overlap',
+             str(TILE_OVERLAP)]
+# srtpu's bf16 tile seams against its direct forward (ROADMAP.md F2)
+F2_SEAM = 3e-3
 
 
 def k1_held() -> set:
@@ -1046,11 +1097,11 @@ def _uniform(gen, shape, bound, device, dtype):
     return t.to(device, dtype)
 
 
-def kernel_cases(h: int, w: int, device) -> list[tuple]:
+def kernel_cases(h: int, w: int, device, bsz: int = 1) -> list[tuple]:
     """(kernel id, label, wrapper, plain, args, matrix FLOPs, library
-    call or None) at the shapes predict gives each kernel for an h x w LR
-    image."""
-    gen = torch.Generator().manual_seed(h * 1000 + w)
+    call or None) at the shapes predict gives each kernel for a batch of
+    ``bsz`` h x w LR images (phase 26: the tiled steps' batches)."""
+    gen = torch.Generator().manual_seed(h * 1000 + w + (bsz - 1) * 7)
     bf = torch.bfloat16
 
     def act(*shape):
@@ -1064,28 +1115,32 @@ def kernel_cases(h: int, w: int, device) -> list[tuple]:
     w1, b1 = conv(C, C, (L,))
     w2, b2 = conv(C, C, (L,))
     # drawn in the order of the cases (the data of earlier runs)
-    trunk = (act(1, h, w, C), w1, b1, w2, b2, 1.0)
-    close = (act(1, h, w, C), *conv(C, C))
-    ups = (act(1, h, w, C), *conv(C, 4 * C), 2)
-    pm = (act(1, 2 * h, 2 * w, C), *conv(C, 4 * C))
-    pd = (act(1, 2 * h, 2 * w, 4 * C), *conv(4 * C, 16))
+    n = bsz
+    trunk = (act(n, h, w, C), w1, b1, w2, b2, 1.0)
+    close = (act(n, h, w, C), *conv(C, C))
+    ups = (act(n, h, w, C), *conv(C, 4 * C), 2)
+    pm = (act(n, 2 * h, 2 * w, C), *conv(C, 4 * C))
+    pd = (act(n, 2 * h, 2 * w, 4 * C), *conv(4 * C, 16))
     # SRResNet's phase-dense 9x9 output conv: 5x5, 256 -> 16
     w5 = _uniform(gen, (5, 5, 4 * C, 16), (25 * 4 * C) ** -0.5, device, bf)
-    pd5 = (act(1, 2 * h, 2 * w, 4 * C), w5,
+    pd5 = (act(n, 2 * h, 2 * w, 4 * C), w5,
            _uniform(gen, (16,), 0.05, device, torch.float32))
+    at = '' if n == 1 else f'{n} x '
     return [
-        ('K1', f'trunk L={L} {h}x{w}', trunk_fwd, trunk_plain, trunk,
-         2 * L * conv_flops(h * w, C, C), None),
-        ('K2', f'close 64->64 {h}x{w}', conv3x3_fwd, conv3x3_plain, close,
-         conv_flops(h * w, C, C), lib_conv(*close)),
-        ('K3', f'upsample r=2 {h}x{w}', upsample_fwd, upsample_plain, ups,
-         conv_flops(h * w, C, 4 * C), None),
-        ('K2', f'phase-major 64->256 {2 * h}x{2 * w}', conv3x3_fwd,
-         conv3x3_plain, pm, conv_flops(4 * h * w, C, 4 * C), lib_conv(*pm)),
-        ('K2', f'phase-dense 256->16 {2 * h}x{2 * w}', conv3x3_fwd,
-         conv3x3_plain, pd, conv_flops(4 * h * w, 4 * C, 16), lib_conv(*pd)),
-        ('K25', f'phase-dense 5x5 256->16 {2 * h}x{2 * w}', conv3x3_fwd,
-         conv3x3_plain, pd5, conv_flops(4 * h * w, 4 * C, 16, 5),
+        ('K1', f'trunk L={L} {at}{h}x{w}', trunk_fwd, trunk_plain, trunk,
+         2 * L * conv_flops(n * h * w, C, C), None),
+        ('K2', f'close 64->64 {at}{h}x{w}', conv3x3_fwd, conv3x3_plain,
+         close, conv_flops(n * h * w, C, C), lib_conv(*close)),
+        ('K3', f'upsample r=2 {at}{h}x{w}', upsample_fwd, upsample_plain,
+         ups, conv_flops(n * h * w, C, 4 * C), None),
+        ('K2', f'phase-major 64->256 {at}{2 * h}x{2 * w}', conv3x3_fwd,
+         conv3x3_plain, pm, conv_flops(4 * n * h * w, C, 4 * C),
+         lib_conv(*pm)),
+        ('K2', f'phase-dense 256->16 {at}{2 * h}x{2 * w}', conv3x3_fwd,
+         conv3x3_plain, pd, conv_flops(4 * n * h * w, 4 * C, 16),
+         lib_conv(*pd)),
+        ('K25', f'phase-dense 5x5 256->16 {at}{2 * h}x{2 * w}', conv3x3_fwd,
+         conv3x3_plain, pd5, conv_flops(4 * n * h * w, 4 * C, 16, 5),
          lib_conv(*pd5)),
     ]
 
@@ -4329,6 +4384,286 @@ def run_gan_train(device, smi: str) -> dict:
     return counts
 
 
+def val_data(root: Path, sizes, name: str = 'Val') -> Path:
+    """An eval set ``<root>/datasets/<name>``: smooth-plus-noise .npy HR
+    images of ``sizes`` drawn from SEED and their box-filtered LR at
+    SCALE (``LR/X4``); returns the datasets directory."""
+    rng = np.random.default_rng(SEED)
+    data = root / 'datasets'
+    hr_dir, lr_dir = data / name / 'HR', data / name / 'LR' / f'X{SCALE}'
+    hr_dir.mkdir(parents=True)
+    lr_dir.mkdir(parents=True)
+    for h, w in sizes:
+        lo = rng.random((h // 8 + 1, w // 8 + 1, 3))
+        hr = (np.kron(lo, np.ones((8, 8, 1)))[:h, :w] * 0.8
+              + rng.random((h, w, 3)) * 0.2).astype(np.float32)
+        np.save(hr_dir / f'img{h}x{w}.npy', hr)
+        lr = hr.reshape(h // SCALE, SCALE, w // SCALE, SCALE, 3).mean((1, 3))
+        np.save(lr_dir / f'img{h}x{w}.npy', lr.astype(np.float32))
+    return data
+
+
+def _cli_counted(argv, expected, what: str) -> tuple[dict, float, str]:
+    """``cli.main(argv)`` with every counter of ``expected`` set to 0
+    before it: (the counts after, its wall seconds, its stdout)."""
+    for k in expected:
+        setattr(*_counter(k), 0)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    need(rc == 0, f'{what} returned {rc}')
+    return {k: getattr(*_counter(k)) for k in expected}, wall, out.getvalue()
+
+
+def _need_counts(counts: dict, expected: dict, times: int, what: str):
+    for k, per in expected.items():
+        need(counts[k] == per * times,
+             f'{what}: {_counter_name(k)} {counts[k]} launches, expected '
+             f'{per} x {times}')
+
+
+def _metrics_at(fns: dict, sr, hr, mask) -> dict:
+    with torch.inference_mode():
+        return {k: float(fn(sr, hr, mask=mask)) for k, fn in fns.items()}
+
+
+def run_validate(device, smi: str, model: str = 'EDSR', extra=(),
+                 expected=EXPECTED_LAUNCHES, full: bool = True) -> dict:
+    """Phase 25: ``python -m srtpu_torch validate``'s own function on
+    VAL_HR_SIZES with PSNR, SSIM and MS-SSIM, the launch counters per
+    image (``expected``); per image, the kernel path's metrics against
+    the plain path's and the masked values against the unpadded image's;
+    the printed means against the per-image values; with ``full``, also
+    the card's metric functions against the CPU's on the same SR and HR,
+    and eval ms per image split into forward and metrics, kernel and
+    plain paths. Returns the launch counts of the CLI run."""
+    with tempfile.TemporaryDirectory(prefix='srtpu_smoke_val_') as tmp:
+        data = val_data(Path(tmp), VAL_HR_SIZES)
+        argv = ['validate', '--model', model, '--scale_factor', str(SCALE),
+                '--n_feats', str(C), '--n_resblocks', str(L), *extra,
+                '--datasets_dir', str(data), '--eval_datasets', 'Val',
+                '--metrics', *VAL_METRICS, '--precision', 'bf16',
+                '--device', 'cuda', '--seed', str(SEED),
+                '--default_root_dir', str(Path(tmp) / 'out')]
+        _cli_counted(argv, {}, 'warm-up validate')  # cuDNN plans, allocator
+        n = len(VAL_HR_SIZES)
+        counts, wall, out = _cli_counted(argv, expected, f'{model} validate')
+        _need_counts(counts, expected, n, f'{model} validate')
+        printed = dict(ln.split(': ') for ln in out.strip().splitlines())
+        need(list(printed) == sorted(f'Val/{m}' for m in VAL_METRICS),
+             f'validate printed {list(printed)}')
+        print(f'{model} x{SCALE} validate CLI: {n} images in {wall:.3f} s = '
+              f'{n / wall:.3f} images/s (incl. .npy reads, padding, H2D); '
+              + ', '.join(f'{k} {v}' for k, v in printed.items())
+              + f'  [{smi}]')
+
+        net = cli.build_model(cli.build_parser().parse_args(argv),
+                              device).eval()
+        fns = build_metrics(VAL_METRICS)
+        steps = {False: make_eval_step(net, fns),
+                 True: make_eval_step(net, fns, plain=True)}
+        dm = SRData(datasets_dir=str(data), eval_datasets=['Val'],
+                    scale_factor=SCALE)
+        dm.setup('validate')
+        kernel_vals = {m: [] for m in VAL_METRICS}
+        for batch in dm.eval_loaders()[0]:
+            lr, hr, mask = (torch.from_numpy(a).to(device)
+                            for a in (batch.lr, batch.hr, batch.mask))
+            hs, ws = batch.hr_size
+            tag = f'{model} validate {batch.names[0]} (LR ' \
+                  f'{tuple(lr.shape[1:3])}, HR {hs}x{ws})'
+            sr, res_k = steps[False](lr, hr, mask)
+            _, res_p = steps[True](lr, hr, mask)
+            res_k = {k: float(v) for k, v in res_k.items()}
+            res_p = {k: float(v) for k, v in res_p.items()}
+            need(sr.shape == hr.shape and bool(torch.isfinite(sr).all()),
+                 f'{tag}: SR {tuple(sr.shape)} or non-finite')
+            for m in VAL_METRICS:
+                need(np.isfinite(res_k[m]), f'{tag}: {m} {res_k[m]}')
+                kernel_vals[m].append(res_k[m])
+            d_path = {m: abs(res_k[m] - res_p[m]) for m in VAL_METRICS}
+            hr32 = hr.float().clamp(0, 1)
+            d_cpu = {m: 0.0 for m in VAL_METRICS}
+            if full:    # the card's metric functions against the CPU's
+                cpu = _metrics_at(fns, sr.cpu(), hr32.cpu(), mask.cpu())
+                d_cpu = {m: abs(res_k[m] - cpu[m]) for m in VAL_METRICS}
+            # masked (padded) against the unpadded image, on the card
+            unpad = _metrics_at(fns, sr[:, :hs, :ws].contiguous(),
+                                hr32[:, :hs, :ws].contiguous(), None)
+            d_pad = {m: abs(res_k[m] - unpad[m]) for m in VAL_METRICS}
+            print(f'{tag}: kernel ' + ' '.join(
+                f'{m} {res_k[m]:.6f}' for m in VAL_METRICS) + '; plain '
+                + ' '.join(f'{m} {res_p[m]:.6f}' for m in VAL_METRICS)
+                + ' | |kernel - plain| ' + ' '.join(
+                    f'{m} {d_path[m]:.3g} (tol {VAL_PATH_TOL[m]:.3g})'
+                    for m in VAL_METRICS) + (' | |card - CPU| ' + ' '.join(
+                        f'{m} {d_cpu[m]:.3g}' for m in VAL_METRICS)
+                    if full else '') + ' | |masked - unpadded| '
+                + ' '.join(f'{m} {d_pad[m]:.3g}' for m in VAL_METRICS)
+                + ' (tol ' + ' '.join(f'{m} {METRIC_DEVICE_TOL[m]:.3g}'
+                                      for m in VAL_METRICS) + f')  [{smi}]')
+            for m in VAL_METRICS:
+                need(d_path[m] <= VAL_PATH_TOL[m], f'{tag}: {m} kernel vs '
+                     'plain path')
+                need(d_cpu[m] <= METRIC_DEVICE_TOL[m], f'{tag}: {m} card '
+                     'vs CPU')
+                need(d_pad[m] <= METRIC_DEVICE_TOL[m], f'{tag}: {m} masked '
+                     'vs unpadded')
+            if not full:
+                continue
+            with torch.inference_mode():
+                fwd = median_ms(lambda: net(lr), launches=1)
+                fwd_p = median_ms(lambda: net(lr, plain=True), launches=1)
+                met = median_ms(lambda: [fn(sr, hr32, mask=mask)
+                                         for fn in fns.values()], launches=1)
+                per = {m: median_ms(lambda: fn(sr, hr32, mask=mask),
+                                    launches=1) for m, fn in fns.items()}
+            print(f'{tag} eval ms (CUDA events, median of 5): forward '
+                  f'{fwd:.3f} + metrics {met:.3f} = {fwd + met:.3f} ms = '
+                  f'{1e3 / (fwd + met):.2f} images/s (plain path: forward '
+                  f'{fwd_p:.3f}, total {fwd_p + met:.3f} = '
+                  f'{1e3 / (fwd_p + met):.2f} images/s); metrics alone '
+                  + ', '.join(f'{m} {v:.3f}' for m, v in per.items())
+                  + f'  [{smi}]')
+        for m in VAL_METRICS:
+            mean = float(np.mean(kernel_vals[m]))
+            need(abs(float(printed[f'Val/{m}']) - mean) <= 1e-4,
+                 f'printed Val/{m} {printed[f"Val/{m}"]} vs {mean}')
+    return counts
+
+
+def _tile_batches(h: int, w: int, tile: int, overlap: int,
+                  batch: int) -> int:
+    """Forward calls of ``make_tiled_apply`` on one h x w LR image."""
+    n = len(_anchors(max(h, tile), tile, tile - 2 * overlap)) \
+        * len(_anchors(max(w, tile), tile, tile - 2 * overlap))
+    return -(-n // min(batch, n))
+
+
+def run_tiled(device, smi: str, stats: dict) -> dict:
+    """Phase 26: K1-K3 at the tiled steps' 16 x 80 x 80 batch against
+    their plain versions; EDSR ``validate`` and ``predict`` with
+    ``--eval_tile 80 --eval_tile_overlap 8`` on the 2048x1408 image
+    through the CLI (K1-K3 on every 16-tile batch), the predict PNG
+    byte-equal to the tiled step's SR checked here; the tiled kernel path
+    against the tiled plain path and the direct forward; the host
+    ``--predict_tile`` route once; tiled ms against direct ms. Returns
+    the launch counts of the three CLI runs by run."""
+    for kid, label, fn, plain, args, _, _ in kernel_cases(
+            TILE, TILE, device, TILE_BATCH):
+        if kid == 'K25':
+            continue
+        got = fn(*args)
+        torch.cuda.synchronize()
+        err, tol, top = _err(got, plain(*args), TOL_STEPS[kid])
+        ms = median_ms(lambda: fn(*args))
+        plain_ms = median_ms(lambda: plain(*args))
+        print(f'{kid} {label} (the tiled steps\' batch): max_abs {err:.4g} '
+              f'rel {err / top:.3g} tol {tol:.4g} | kernel {ms:.4f} ms '
+              f'plain {plain_ms:.4f} ms  [{smi}]')
+        need(np.isfinite(err) and err <= tol, f'{label}: {err} > {tol}')
+        stats[kid]['max_abs_err'] = max(stats[kid]['max_abs_err'], err)
+
+    runs = {}
+    hr_h, hr_w = VAL_HR_SIZES[-1]
+    lh, lw = hr_h // SCALE, hr_w // SCALE
+    with tempfile.TemporaryDirectory(prefix='srtpu_smoke_tile_') as tmp:
+        data = val_data(Path(tmp), VAL_HR_SIZES[-1:], 'Big')
+        net_args = ['--model', 'EDSR', '--scale_factor', str(SCALE),
+                    '--n_feats', str(C), '--n_resblocks', str(L),
+                    '--datasets_dir', str(data), '--precision', 'bf16',
+                    '--device', 'cuda', '--seed', str(SEED)]
+        val_argv = ['validate', *net_args, '--eval_datasets', 'Big',
+                    '--metrics', *VAL_METRICS, *TILE_ARGS]
+        nb = _tile_batches(lh, lw, TILE, TILE_OVERLAP, TILE_BATCH)
+        counts, wall, out = _cli_counted(val_argv, EXPECTED_LAUNCHES,
+                                         'tiled validate')
+        _need_counts(counts, EXPECTED_LAUNCHES, nb, 'tiled validate')
+        runs['edsr_tiled_validate'] = counts
+        print(f'EDSR x4 validate --eval_tile {TILE} --eval_tile_overlap '
+              f'{TILE_OVERLAP}, LR {lh}x{lw}: {nb} batches of '
+              f'{TILE_BATCH} tiles, K1-K3 on each (' + ', '.join(
+                  f'{_counter_name(k)} {v}' for k, v in counts.items())
+              + f'); {wall:.3f} s; ' + out.strip().replace('\n', ', ')
+              + f'  [{smi}]')
+        # predict pads the LR to eval_tile multiples (edge), then tiles
+        ph, pw = -(-lh // TILE) * TILE, -(-lw // TILE) * TILE
+        nb_p = _tile_batches(ph, pw, TILE, TILE_OVERLAP, TILE_BATCH)
+        outs = {}
+        for key, extra, per in (
+                ('edsr_tiled_predict', TILE_ARGS, nb_p),
+                ('edsr_host_tiles', ['--predict_tile', str(HOST_TILE),
+                                     '--predict_tile_overlap',
+                                     str(HOST_OVERLAP)],
+                 len(_anchors(lh, HOST_TILE, HOST_TILE - 2 * HOST_OVERLAP))
+                 * len(_anchors(lw, HOST_TILE,
+                                HOST_TILE - 2 * HOST_OVERLAP)))):
+            outs[key] = Path(tmp) / key
+            argv = ['predict', *net_args, '--predict_datasets', 'Big',
+                    *extra, '--default_root_dir', str(outs[key])]
+            counts, wall, _ = _cli_counted(argv, EXPECTED_LAUNCHES, key)
+            _need_counts(counts, EXPECTED_LAUNCHES, per, key)
+            need(png_size(outs[key] / 'Big' / f'img{hr_h}x{hr_w}.png')
+                 == (hr_h, hr_w), f'{key}: PNG size')
+            runs[key] = counts
+            print(f'EDSR x4 predict {" ".join(extra)}: {per} forward calls '
+                  f'(' + ', '.join(f'{_counter_name(k)} {v}'
+                                   for k, v in counts.items())
+                  + f'), {wall:.3f} s incl. PNG encode  [{smi}]')
+
+        net = cli.build_model(cli.build_parser().parse_args(
+            ['predict', *net_args, '--predict_datasets', 'Big']),
+            device).eval()
+        lr_np = np.load(data / 'Big' / 'LR' / 'X4'
+                        / f'img{hr_h}x{hr_w}.npy')[None]
+        lr = torch.from_numpy(lr_np).to(device)
+        tiled_k = make_tiled_predict_step(net, SCALE, TILE, TILE_OVERLAP,
+                                          TILE_BATCH)
+        tiled_p = make_tiled_predict_step(net, SCALE, TILE, TILE_OVERLAP,
+                                          TILE_BATCH, plain=True)
+        direct = make_predict_step(net)
+        sr_k, sr_p, sr_d = tiled_k(lr), tiled_p(lr), direct(lr)
+        need(sr_k.shape == (1, hr_h, hr_w, 3)
+             and bool(torch.isfinite(sr_k).all()), 'tiled SR')
+        diff = (sr_k - sr_p).abs()
+        err, mean = diff.max().item(), diff.mean().item()
+        seam = (sr_k - sr_d).abs()
+        print(f'EDSR x4 tiled predict step, LR {lh}x{lw}: kernel vs plain '
+              f'path max_abs {err:.4g} (tol {SLICE_MAX_TOL:.4g}) mean_abs '
+              f'{mean:.3g} (tol {SLICE_MEAN_TOL:.3g}); tiled vs direct '
+              f'(kernel path) max_abs {seam.max().item():.4g} mean_abs '
+              f'{seam.mean().item():.3g} (srtpu\'s bf16 seams, ROADMAP F2: '
+              f'about {F2_SEAM:g})  [{smi}]')
+        need(err <= SLICE_MAX_TOL and mean <= SLICE_MEAN_TOL,
+             'tiled kernel path vs tiled plain path')
+        # the CLI's PNGs are these routes' SR images, saved the same way
+        src = np.pad(lr_np, ((0, 0), (0, ph - lh), (0, pw - lw), (0, 0)),
+                     mode='edge')
+        host = tiled_predict(
+            lambda t: direct(torch.from_numpy(t).to(device)).cpu().numpy(),
+            lr_np[0], SCALE, tile=HOST_TILE, overlap=HOST_OVERLAP)
+        for key, sr_np in (
+                ('edsr_tiled_predict', tiled_k(torch.from_numpy(src).to(
+                    device))[0, :hr_h, :hr_w].cpu().numpy()),
+                ('edsr_host_tiles', host[:hr_h, :hr_w])):
+            check = Path(tmp) / f'{key}.png'
+            save_image(sr_np, check)
+            need(check.read_bytes() == (outs[key] / 'Big' /
+                                        f'img{hr_h}x{hr_w}.png').read_bytes(),
+                 f'{key}: the PNG differs from the checked SR')
+        t_k = median_ms(lambda: tiled_k(lr), launches=1)
+        t_p = median_ms(lambda: tiled_p(lr), launches=1)
+        t_d = median_ms(lambda: direct(lr), launches=1)
+        print(f'EDSR x4 predict step at LR {lh}x{lw} (CUDA events, median '
+              f'of 5): tiled {t_k:.3f} ms ({nb} batches of {TILE_BATCH} '
+              f'{TILE}x{TILE} tiles, overlap {TILE_OVERLAP}; plain path '
+              f'{t_p:.3f}) against direct {t_d:.3f} ms  [{smi}]')
+    return runs
+
+
 def main() -> None:
     t_start = time.perf_counter()
 
@@ -4424,6 +4759,19 @@ def main() -> None:
     runs['edsr_big_fit'] = run_train(device, smi, 'EDSR', EDSR_BIG_ARGS,
                                      NO_KERNEL, STOCK_RULES,
                                      steps=EDSR_BIG_STEPS)
+    lap('phases 22 and 23')
+    print('SRCNN x4: no kernel of the port runs on this path (srtpu leaves '
+          'its bicubic matmuls and three convs to XLA; cuDNN and cuBLAS '
+          'here)')
+    runs['srcnn_predict'] = run_slice(device, smi, 'SRCNN', (),
+                                      SRCNN_LAUNCHES, STOCK_RULES)
+    runs['srcnn_fit'] = run_train(device, smi, 'SRCNN', (), SRCNN_LAUNCHES,
+                                  STOCK_RULES)
+    runs['edsr_validate'] = run_validate(device, smi)
+    runs['rcan_validate'] = run_validate(device, smi, 'RCAN', RCAN_ARGS,
+                                         RCAN_PREDICT_LAUNCHES, full=False)
+    runs.update(run_tiled(device, smi, stats))
+    lap('phases 24-26')
     rep = 'srtpu/ops/cs_conv.py:'
     bn = 'srtpu/ops/bn_resblock_cs.py:'
     meta = [('K1', 'K1 trunk_fwd (per block conv1 at K2 EPI 0, conv2 at '

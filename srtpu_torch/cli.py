@@ -1,4 +1,5 @@
-"""Command line of the port (srtpu/cli.py): ``fit`` and ``predict``::
+"""Command line of the port (srtpu/cli.py): ``fit``, ``validate`` and
+``predict``::
 
     python -m srtpu_torch fit --datasets_dir D --train_datasets T [U ...] \\
         --model EDSR --scale_factor 4 --n_feats 64 --n_resblocks 16 \\
@@ -10,6 +11,10 @@
         --scale_factor 4 --n_feats 64 --n_resblocks 16 \\
         --datasets_dir D --predict_datasets X [Y ...] \\
         --default_root_dir OUT --precision bf16 --device cuda
+
+    python -m srtpu_torch validate --weights W.pt --model EDSR \\
+        --datasets_dir D --eval_datasets V [U ...] \\
+        --metrics PSNR SSIM MS-SSIM --device cuda
 
 The flags are srtpu's config keys; the defaults follow
 ``srtpu/config.py``. A model's own flags (``--n_feats``,
@@ -45,15 +50,24 @@ SRGAN`` takes ``--ngf``, ``--ndf`` (default 64 each), ``--n_blocks``
 card's train mode runs K4r whatever it says), and ``fit`` trains it
 adversarially (its ``--losses`` and ``--optimizer`` are ignored, the lr
 of ``--optimizer_params`` taken, as srtpu's); a model ignores the flags
-it does not declare. ``fit`` trains in train mode
-(SRResNet's batch norm on batch statistics, updating its running ones)
-and ``predict`` runs eval mode; ``final_weights.pt`` holds the running
-statistics, so ``predict --weights`` reads what ``fit`` left. ``fit``
-runs no validation and writes no checkpoints yet (ROADMAP.md queue 1,
-items 4 and 7). ``--device cuda`` without a card raises: there is no
-fallback to the CPU. On the card ``--precision 32`` raises (the kernels
-take bf16), and so does DDBPN x8, which srtpu runs on XLA rather than its
-kernel path (ROADMAP.md §3, F4; each model's ``CARD_SCALES``).
+it does not declare. ``--model SRCNN`` takes ``--scale_factor`` alone.
+``fit`` trains in train mode (SRResNet's batch norm on batch statistics, updating its
+running ones) and ``predict`` and ``validate`` run eval mode;
+``final_weights.pt`` holds the running statistics, so ``--weights``
+reads what ``fit`` left. ``validate`` scores the eval datasets
+(``<datasets_dir>/<name>/HR`` with ``LR/X{scale}``) with ``--metrics``
+(srtpu's names; PSNR, SSIM and MS-SSIM are ported) and prints ``key:
+value`` lines, sorted. ``--eval_tile`` (default 0: the direct
+full-image forward; srtpu's TPU default is 80) and
+``--eval_tile_overlap`` (8) route large images of a ``'cs'`` model
+without global pooling through the tiled eval and predict steps;
+``predict --predict_tile`` (0: off) and ``--predict_tile_overlap`` (32)
+take srtpu's host tiles. ``fit`` runs no validation and writes no
+checkpoints yet (ROADMAP.md queue 1, item 7). ``--device cuda``
+without a card raises: there is no fallback to the CPU. On the card
+``--precision 32`` raises (the kernels take bf16), and so does DDBPN x8,
+which srtpu runs on XLA rather than its kernel path (ROADMAP.md §3, F4;
+each model's ``CARD_SCALES``).
 """
 
 from __future__ import annotations
@@ -121,7 +135,23 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument('--weights', default=None,
                     help='torch state dict (.pt); default: init from --seed')
     pr.add_argument('--predict_datasets', nargs='+', required=True)
+    pr.add_argument('--predict_tile', type=int, default=0)
+    pr.add_argument('--predict_tile_overlap', type=int, default=32)
+    _tile_args(pr)
+    val = sub.add_parser('validate', help='score eval datasets')
+    _model_args(val, seed=0)
+    val.add_argument('--weights', default=None,
+                     help='torch state dict (.pt); default: init from --seed')
+    val.add_argument('--eval_datasets', nargs='+', required=True)
+    val.add_argument('--metrics', nargs='+', default=['PSNR', 'SSIM'])
+    _tile_args(val)
     return p
+
+
+def _tile_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument('--eval_tile', type=int, default=0,
+                   help="LR tile of the tiled steps; 0: direct forward")
+    p.add_argument('--eval_tile_overlap', type=int, default=8)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -194,8 +224,27 @@ def cmd_predict(args) -> int:
     dm = SRData(datasets_dir=args.datasets_dir,
                 predict_datasets=args.predict_datasets,
                 scale_factor=args.scale_factor)
-    Trainer(TrainerConfig(default_root_dir=args.default_root_dir)) \
-        .predict(model, dm)
+    Trainer(TrainerConfig(
+        default_root_dir=args.default_root_dir,
+        predict_tile=args.predict_tile,
+        predict_tile_overlap=args.predict_tile_overlap,
+        eval_tile=args.eval_tile,
+        eval_tile_overlap=args.eval_tile_overlap)).predict(model, dm)
+    return 0
+
+
+def cmd_validate(args) -> int:
+    device = resolve_device(args.device)
+    model = build_model(args, device).eval()
+    dm = SRData(datasets_dir=args.datasets_dir,
+                eval_datasets=args.eval_datasets,
+                scale_factor=args.scale_factor)
+    metrics = Trainer(TrainerConfig(
+        default_root_dir=args.default_root_dir, metrics=tuple(args.metrics),
+        eval_tile=args.eval_tile,
+        eval_tile_overlap=args.eval_tile_overlap)).validate(model, dm)
+    for k, v in sorted(metrics.items()):
+        print(f'{k}: {v:.4f}')
     return 0
 
 
@@ -203,7 +252,8 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(format='%(asctime)s %(name)s %(message)s')
     _logger.setLevel(logging.INFO)
-    return {'fit': cmd_fit, 'predict': cmd_predict}[args.command](args)
+    return {'fit': cmd_fit, 'predict': cmd_predict,
+            'validate': cmd_validate}[args.command](args)
 
 
 if __name__ == '__main__':

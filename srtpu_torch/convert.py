@@ -1,5 +1,5 @@
-"""JAX EDSR, RCAN, SRResNet, RDN, DDBPN, WDSR and SRGAN parameters -> an
-srtpu_torch state dict.
+"""JAX EDSR, RCAN, SRResNet, RDN, DDBPN, WDSR, SRGAN and SRCNN parameters
+-> an srtpu_torch state dict.
 
 Reads every EDSR tree srtpu stores:
 
@@ -110,7 +110,9 @@ and either SRGAN tree (``params`` and ``batch_stats`` each hold
 * the discriminator: ``Conv2d_0`` .. ``Conv2d_9`` and ``BatchNorm_0`` ..
   ``BatchNorm_6`` with their ``batch_stats``;
 
-both into the port's one stacked trunk.
+both into the port's one stacked trunk; and SRCNN's tree, exactly
+``Conv2d_0`` (9x9), ``Conv2d_1`` (1x1) and ``Conv2d_2`` (5x5), HWIO, into
+``conv1`` .. ``conv3``.
 
 A tree is nested dicts of numpy arrays, with or without the top-level
 ``params`` key (an SRResNet tree with it, beside ``batch_stats``). Any
@@ -460,7 +462,8 @@ def _wdsr_from_jax(p: dict) -> dict[str, torch.Tensor]:
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     """State dict of :class:`srtpu_torch.models.EDSR`, ``RCAN``,
-    ``SRResNet``, ``RDN``, ``DDBPN``, ``WDSR`` or ``SRGAN`` from a JAX tree
+    ``SRResNet``, ``RDN``, ``DDBPN``, ``WDSR``, ``SRGAN`` or ``SRCNN``
+    from a JAX tree
     of that model (an SRResNet or SRGAN tree with its ``batch_stats``),
     dispatched on the tree's keys."""
     p = tree.get('params', tree)
@@ -476,6 +479,11 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
         return _rcan_from_jax(p)
     if 'BasicBlock_0' in p:
         return _srresnet_from_jax(p, tree.get('batch_stats', {}))
+    if set(p) == {'Conv2d_0', 'Conv2d_1', 'Conv2d_2'}:    # SRCNN: 9-1-5
+        sd: dict[str, torch.Tensor] = {}
+        for i in range(3):
+            _conv(sd, f'conv{i + 1}', p[f'Conv2d_{i}'])
+        return sd
     head = p['Conv2d_0']
     sd = {'head.weight': _t(head['kernel']), 'head.bias': _t(head['bias'])}
     n = sd['head.weight'].shape[-1]

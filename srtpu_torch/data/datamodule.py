@@ -1,19 +1,21 @@
-"""SRData (srtpu/data/datamodule.py): training and predict datasets
-under ``datasets_dir``.
+"""SRData (srtpu/data/datamodule.py): training, eval and predict
+datasets under ``datasets_dir``.
 
-A training dataset is ``<datasets_dir>/<name>/HR`` with its LR, when
-present, at ``<name>/LR/X{scale}``; ``.npy``/``.npz`` folders read
+A training or eval dataset is ``<datasets_dir>/<name>/HR`` with its LR,
+when present, at ``<name>/LR/X{scale}``; ``.npy``/``.npz`` folders read
 through :class:`NpySource`, image folders through
 :class:`ImageFolderSource`. A predict dataset is a flat LR folder, or
-``<name>/LR/X{scale}`` / ``<name>/LR``. Validation datasets are not
-ported yet (ROADMAP.md queue 1, items 4 and 7): asking for one raises.
+``<name>/LR/X{scale}`` / ``<name>/LR``. ``setup('fit')`` builds the
+train and the eval sources, ``setup('validate')`` the eval sources, as
+srtpu's; srtpu's hub names (DIV2K, Set5, ...) are local folders here,
+since nothing is downloaded.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
 
-from .pipeline import PredictLoader, TrainLoader
+from .pipeline import EvalLoader, PredictLoader, TrainLoader
 from .sources import ConcatSource, ImageFolderSource, NpySource, predict_dir
 
 
@@ -24,12 +26,9 @@ class SRData:
                  eval_datasets: list[str] | tuple[str, ...] = (),
                  batch_size: int = 16, patch_size: int = 128,
                  scale_factor: int = 4, seed: int = 0, eval_bucket: int = 32):
-        if eval_datasets:
-            raise NotImplementedError(
-                'validation datasets are not ported to srtpu_torch yet '
-                '(ROADMAP.md queue 1, items 4 and 7)')
         self.datasets_dir = Path(datasets_dir)
         self.train_dataset_names = list(train_datasets)
+        self.eval_dataset_names = list(eval_datasets)
         self.predict_dataset_names = list(predict_datasets)
         self.batch_size = batch_size
         self.patch_size = patch_size
@@ -37,6 +36,7 @@ class SRData:
         self.seed = seed
         self.eval_bucket = eval_bucket
         self._train_source = None
+        self._eval_sources = None
         self._folders = None
 
     def _train_source_of(self, name: str):
@@ -51,23 +51,31 @@ class SRData:
                    cache=True)     # every epoch re-reads every image
 
     def setup(self, stage: str = 'predict') -> None:
+        if stage not in ('fit', 'validate', 'predict'):
+            raise ValueError(f'stage must be fit, validate or predict, not '
+                             f'{stage!r}')
         if stage == 'fit':
             self._train_source = ConcatSource(
                 [self._train_source_of(n) for n in self.train_dataset_names])
-        elif stage == 'predict':
+        if stage in ('fit', 'validate'):
+            self._eval_sources = [self._train_source_of(n)
+                                  for n in self.eval_dataset_names]
+        if stage == 'predict':
             self._folders = [predict_dir(self.datasets_dir, n,
                                          self.scale_factor)
                              for n in self.predict_dataset_names]
-        else:
-            raise NotImplementedError(
-                f'srtpu_torch has the fit and predict stages, not '
-                f'{stage!r} (ROADMAP.md queue 1, item 4)')
 
     def train_loader(self) -> TrainLoader:
         if self._train_source is None:
             raise RuntimeError('call setup("fit") first')
         return TrainLoader(self._train_source, self.batch_size,
                            self.patch_size, self.scale_factor, seed=self.seed)
+
+    def eval_loaders(self) -> list[EvalLoader]:
+        if self._eval_sources is None:
+            raise RuntimeError('call setup("validate") first')
+        return [EvalLoader(s, self.scale_factor, self.eval_bucket)
+                for s in self._eval_sources]
 
     def predict_loaders(self) -> list[PredictLoader]:
         if self._folders is None:

@@ -1,6 +1,6 @@
 """Host-side batching (srtpu/data/pipeline.py): the training loader's
-patch sampling and augmentation, predict bucket padding and center
-crops."""
+patch sampling and augmentation, eval and predict bucket padding with
+the eval validity mask, and center crops."""
 
 from __future__ import annotations
 
@@ -16,7 +16,24 @@ class Batch(NamedTuple):
     lr: np.ndarray                # (N, H', W', 3) float32
     hr: np.ndarray | None = None  # training: (N, patch, patch, 3) float32
     names: tuple[str, ...] = ()
-    hr_size: tuple[int, int] | None = None   # predict: SR size unpadded
+    hr_size: tuple[int, int] | None = None   # eval / predict: unpadded SR
+    mask: np.ndarray | None = None  # eval: (1, H'', W'', 1) HR validity
+
+
+def reconcile_eval_pair(lr: np.ndarray, hr: np.ndarray, scale: int):
+    """Center-crop HR to a multiple of scale and LR to HR / scale
+    (srtpu/data/pipeline.py:69-82)."""
+    hh, hw = hr.shape[:2]
+    th, tw = hh - hh % scale, hw - hw % scale
+    if (th, tw) != (hh, hw):
+        top, left = (hh - th) // 2, (hw - tw) // 2
+        hr = hr[top:top + th, left:left + tw]
+    lh, lw = lr.shape[:2]
+    tlh, tlw = th // scale, tw // scale
+    if (lh, lw) != (tlh, tlw):
+        top, left = max((lh - tlh) // 2, 0), max((lw - tlw) // 2, 0)
+        lr = lr[top:top + tlh, left:left + tlw]
+    return lr, hr
 
 
 def center_crop(img: np.ndarray, th: int, tw: int) -> np.ndarray:
@@ -152,3 +169,30 @@ class PredictLoader:
             lr_p, (h, w) = pad_to_bucket(load_image(path), self._bucket)
             yield Batch(lr=lr_p[None], names=(path.stem,),
                         hr_size=(h * self._scale, w * self._scale))
+
+
+class EvalLoader:
+    """One (LR, HR) pair per batch (srtpu ``EvalLoader``, eval mode): the
+    pair reconciled to the scale, the LR edge-padded to ``bucket``
+    multiples and the HR to ``bucket * scale`` multiples, with the HR's
+    NHW1 validity mask and its unpadded size ``hr_size``."""
+
+    def __init__(self, source: Source, scale_factor: int, bucket: int = 32):
+        self._source = source
+        self._scale = scale_factor
+        self._bucket = max(bucket, 1)
+
+    def __len__(self) -> int:
+        return len(self._source)
+
+    def __iter__(self) -> Iterator[Batch]:
+        for i in range(len(self._source)):
+            lr, hr, name = self._source.get(i)
+            lr, hr = reconcile_eval_pair(lr, hr, self._scale)
+            lr_p, (h, w) = pad_to_bucket(lr, self._bucket)
+            hr_p, _ = pad_to_bucket(hr, self._bucket * self._scale)
+            hs, ws = h * self._scale, w * self._scale
+            mask = np.zeros(hr_p.shape[:2] + (1,), np.float32)
+            mask[:hs, :ws] = 1.0
+            yield Batch(lr=lr_p[None], hr=hr_p[None], names=(name,),
+                        hr_size=(hs, ws), mask=mask[None])

@@ -7,8 +7,10 @@ init), ``WNConv2d`` (weight-normed, WDSR's), ``PReLU``, ``mean_shift``,
 sub-pixel upscaler). ``Trunk.forward_nhwc`` and
 ``UpscaleTail.forward_stock`` run srtpu's other EDSR routes (the fused
 NHWC blocks, K8a, or stock ``ResBlock``s; the XLA tail) on the same
-parameters. Past 96 features ``Trunk`` and ``UpscaleTail`` take srtpu's
-XLA fallbacks of its CS modules (stock ops, no kernel), as srtpu does.
+parameters. ``resize_matrix`` / ``bicubic_resize`` are srtpu's bicubic
+matrices and their two f32 matmuls (SRCNN's pre-upsample). Past 96
+features ``Trunk`` and ``UpscaleTail`` take srtpu's XLA fallbacks of
+its CS modules (stock ops, no kernel), as srtpu does.
 Parameters are f32; ``dtype`` is the compute type (bf16 on the card).
 The kernel ops take the f32 parameters and cast inside, so under
 autograd their weight grads come back in f32 (as srtpu's ``custom_vjp``s
@@ -23,6 +25,7 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -38,8 +41,9 @@ from ..ops.trunk import trunk_xla
 DIV2K_RGB_MEAN = (0.4488, 0.4371, 0.4040)
 
 __all__ = ['DIV2K_RGB_MEAN', 'BNTrunk', 'Conv2d', 'PReLU', 'Trunk',
-           'UpscaleBlock', 'UpscaleTail', 'WNConv2d', 'mean_shift',
-           'pixel_shuffle', 'prelu', 'uniform_param']
+           'UpscaleBlock', 'UpscaleTail', 'WNConv2d', 'bicubic_resize',
+           'mean_shift', 'pixel_shuffle', 'prelu', 'resize_matrix',
+           'uniform_param']
 
 
 def uniform_param(shape, bound: float, device, generator: torch.Generator
@@ -453,3 +457,55 @@ class UpscaleBlock(nn.Module):
             if self.acts:
                 x = self.acts[i](x)
         return x
+
+
+def _cubic_kernel(t: np.ndarray, a: float) -> np.ndarray:
+    """Keys cubic convolution kernel with free parameter a
+    (srtpu/models/common.py:664-671)."""
+    t = np.abs(t)
+    t2, t3 = t * t, t * t * t
+    return np.where(t <= 1, (a + 2) * t3 - (a + 3) * t2 + 1,
+                    np.where(t < 2, a * t3 - 5 * a * t2 + 8 * a * t - 4 * a,
+                             0.0))
+
+
+def resize_matrix(in_size: int, out_size: int, a: float = -0.75,
+                  antialias: bool = True) -> np.ndarray:
+    """Dense (out_size, in_size) f32 bicubic interpolation matrix, srtpu's
+    numpy construction (srtpu/models/common.py:674-705): a = -0.75 is
+    ``F.interpolate(mode='bicubic', align_corners=False)``'s kernel;
+    ``antialias`` widens the support on a downscale and renormalises
+    over the in-range taps (PIL's border), otherwise out-of-range taps
+    clamp to the edge pixel (torch's border)."""
+    scale = out_size / in_size
+    support_scale = max(1.0 / scale, 1.0) if antialias and scale < 1 else 1.0
+    support = 2.0 * support_scale
+    out_coords = (np.arange(out_size) + 0.5) / scale - 0.5
+    left = np.floor(out_coords - support).astype(np.int64) + 1
+    n_taps = int(np.ceil(support)) * 2 + 2
+    idx = left[:, None] + np.arange(n_taps)[None, :]
+    weights = _cubic_kernel((out_coords[:, None] - idx) / support_scale, a)
+    if antialias:
+        weights = np.where((idx >= 0) & (idx < in_size), weights, 0.0)
+    weights = weights / np.maximum(weights.sum(axis=1, keepdims=True), 1e-12)
+    idx = np.clip(idx, 0, in_size - 1)
+    mat = np.zeros((out_size, in_size), dtype=np.float32)
+    np.add.at(mat, (np.repeat(np.arange(out_size), n_taps), idx.ravel()),
+              weights.ravel().astype(np.float32))
+    return mat
+
+
+def bicubic_resize(x: torch.Tensor, out_hw: tuple[int, int],
+                   a: float = -0.75, antialias: bool = True) -> torch.Tensor:
+    """Bicubic resize of NHWC ``x`` to ``out_hw``: two f32 matmuls with
+    :func:`resize_matrix` (rows, then columns), cast back to x's dtype
+    (srtpu/models/common.py:708-717). srtpu computes it outside any Pallas
+    kernel, so it is a plain matmul here; TF32 stays off (PyTorch's
+    default for ``matmul``)."""
+    h, w = x.shape[1], x.shape[2]
+    oh, ow = out_hw
+    mh = torch.from_numpy(resize_matrix(h, oh, a, antialias)).to(x.device)
+    mw = torch.from_numpy(resize_matrix(w, ow, a, antialias)).to(x.device)
+    y = torch.einsum('oh,bhwc->bowc', mh, x.float())
+    y = torch.einsum('pw,bhwc->bhpc', mw, y)
+    return y.to(x.dtype)

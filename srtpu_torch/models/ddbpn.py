@@ -140,7 +140,7 @@ class DDBPN(nn.Module):
                              f'{scale_factor}')
         self.scale_factor, self.channels, self.dtype = (scale_factor,
                                                         channels, dtype)
-        self.nr, self.depth = nr, depth
+        self.nr, self.depth, self.use_pallas = nr, depth, use_pallas
         r = scale_factor
         kw = dict(device=device, generator=generator)
         self.head0 = Conv2d(channels, n0, 3, **kw)

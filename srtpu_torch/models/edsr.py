@@ -52,6 +52,7 @@ class EDSR(nn.Module):
         self.scale_factor = scale_factor
         self.channels = channels
         self.use_pallas = use_pallas
+        self.n_feats, self.n_resblocks = n_feats, n_resblocks
         self.dtype = dtype
         kw = dict(device=device, generator=generator)
         self.head = Conv2d(channels, n_feats, 3, **kw)

@@ -119,6 +119,7 @@ class RCAN(nn.Module):
             raise ValueError(f"use_pallas must be False, True or 'cs', got "
                              f'{use_pallas!r}')
         self.use_pallas = use_pallas
+        self.n_feats, self.n_resblocks = n_feats, n_resblocks
         self.xla = n_feats > CS_MAX_FEATS
         self.scale_factor = scale_factor
         self.channels = channels

@@ -81,6 +81,7 @@ class RDN(nn.Module):
                 f"srtpu's per-block XLA path, which is not ported to "
                 f'srtpu_torch yet; see ROADMAP.md item 12')
         self.scale_factor = scale_factor
+        self.use_pallas = use_pallas
         self.channels = channels
         self.dtype = dtype
         self.n_blocks, self.n_layers = d, c

@@ -36,6 +36,8 @@ class SRResNet(nn.Module):
                  generator: torch.Generator):
         super().__init__()
         only_cs('SRResNet', use_pallas, 20)
+        self.use_pallas = use_pallas
+        self.n_feats, self.n_resblocks = n_feats, n_resblocks
         self.scale_factor = scale_factor
         self.channels = channels
         self.dtype = dtype

@@ -123,6 +123,8 @@ class WDSR(nn.Module):
                              f'{use_pallas!r}')
         self.scale_factor, self.channels, self.dtype = (scale_factor,
                                                         channels, dtype)
+        self.use_pallas = use_pallas
+        self.n_feats, self.n_resblocks = n_feats, n_resblocks
         kw = dict(device=device, generator=generator)
         out = scale_factor * scale_factor * channels
         self.skip = WNConv2d(channels, out, 5, **kw)

@@ -1,5 +1,8 @@
-"""Step functions (srtpu/train/steps.py): the train step and the predict
-step."""
+"""Step functions (srtpu/train/steps.py): the train step, the eval and
+predict steps, and their tiled forms (the forward in fixed-shape tile
+batches, ``train/tiled.py``). The eval and predict steps run the model in
+eval mode without autograd; the SR image stays on the model's device and
+the metrics are computed there."""
 
 from __future__ import annotations
 
@@ -34,18 +37,99 @@ def make_train_step(composite_loss, plain: bool = False):
     return train_step
 
 
-def make_predict_step(model: torch.nn.Module):
-    """``lr -> clip(model(lr).float(), 0, 1)`` without autograd, in eval
-    mode (srtpu make_predict_step runs ``train=False``: batch norm reads
-    its running statistics and leaves them as they are); the model's
-    mode is restored after each call."""
-    def predict_step(lr: torch.Tensor) -> torch.Tensor:
+def _eval_forward(model: torch.nn.Module, plain: bool = False):
+    """``lr -> model(lr)`` without autograd, in eval mode (srtpu's
+    ``train=False``: batch norm reads its running statistics and leaves
+    them as they are); the model's mode is restored after each call.
+    ``plain`` runs the kernels' plain versions."""
+    def forward(lr: torch.Tensor) -> torch.Tensor:
         was_training = model.training
         model.eval()
         try:
             with torch.inference_mode():
-                return model(lr).float().clamp(0.0, 1.0)
+                return model(lr, plain=plain)
         finally:
             model.train(was_training)
+
+    return forward
+
+
+def _metric_results(metrics: dict, sr: torch.Tensor, hr: torch.Tensor,
+                    mask: torch.Tensor | None):
+    """SR and HR clipped to [0, 1] in f32, then ``{name: fn(sr, hr,
+    mask)}`` in name order, as srtpu's jitted step returns them (srtpu
+    ``_metric_results``; every metric the port has takes a reference).
+    Returns (the clipped SR, the 0-dim results)."""
+    sr = sr.float().clamp(0.0, 1.0)
+    hr = hr.float().clamp(0.0, 1.0)
+    with torch.inference_mode():
+        return sr, {name: metrics[name](sr, hr, mask=mask)
+                    for name in sorted(metrics)}
+
+
+def make_predict_step(model: torch.nn.Module, plain: bool = False):
+    """``lr -> clip(model(lr).float(), 0, 1)`` without autograd, in eval
+    mode (srtpu ``make_predict_step``)."""
+    forward = _eval_forward(model, plain)
+
+    def predict_step(lr: torch.Tensor) -> torch.Tensor:
+        return forward(lr).float().clamp(0.0, 1.0)
+
+    return predict_step
+
+
+def make_eval_step(model: torch.nn.Module, metrics: dict,
+                   plain: bool = False):
+    """``eval_step(lr, hr, mask) -> (sr, {metric: value})``: the direct
+    full-image forward, then the masked metrics (srtpu
+    ``make_eval_step``)."""
+    forward = _eval_forward(model, plain)
+
+    def eval_step(lr, hr, mask):
+        return _metric_results(metrics, forward(lr), hr, mask)
+
+    return eval_step
+
+
+def _tiled_forward(model, plain: bool, scale: int, tile, overlap: int,
+                   batch: int):
+    """``lr -> sr`` through ``make_tiled_apply`` without autograd."""
+    from .tiled import make_tiled_apply
+    th, tw = (tile, tile) if isinstance(tile, int) else tile
+    tiler = make_tiled_apply(scale, th, tw, overlap, batch)
+    forward = _eval_forward(model, plain)
+
+    def tiled(lr: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return tiler(forward, lr)
+
+    return tiled
+
+
+def make_tiled_eval_step(model: torch.nn.Module, metrics: dict, scale: int,
+                         tile: int | tuple[int, int] = 64, overlap: int = 8,
+                         batch: int = 16, plain: bool = False):
+    """``eval_step`` whose forward runs in batches of at most ``batch``
+    (tile_h, tile_w) LR tiles, stitched on the device
+    (:func:`~srtpu_torch.train.tiled.make_tiled_apply`), then the metrics
+    on the stitched SR (srtpu ``make_tiled_eval_step``)."""
+    forward = _tiled_forward(model, plain, scale, tile, overlap, batch)
+
+    def eval_step(lr, hr, mask):
+        return _metric_results(metrics, forward(lr), hr, mask)
+
+    return eval_step
+
+
+def make_tiled_predict_step(model: torch.nn.Module, scale: int,
+                            tile: int | tuple[int, int] = 64,
+                            overlap: int = 8, batch: int = 16,
+                            plain: bool = False):
+    """``predict_step`` on the tile-batched forward (srtpu
+    ``make_tiled_predict_step``)."""
+    forward = _tiled_forward(model, plain, scale, tile, overlap, batch)
+
+    def predict_step(lr: torch.Tensor) -> torch.Tensor:
+        return forward(lr).float().clamp(0.0, 1.0)
 
     return predict_step

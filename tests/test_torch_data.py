@@ -130,7 +130,12 @@ def test_setup_errors(tmp_path):
         SRData(datasets_dir=str(tmp_path), train_datasets=['X']).setup('fit')
     with pytest.raises(ValueError, match='divisible'):
         TrainLoader(sources.ConcatSource([]), 2, 30, 4)
-    with pytest.raises(NotImplementedError, match='item 4'):
-        SRData().setup('validate')
+    with pytest.raises(FileNotFoundError, match='HR images'):
+        SRData(datasets_dir=str(tmp_path),
+               eval_datasets=['X']).setup('validate')
+    with pytest.raises(ValueError, match='stage'):
+        SRData().setup('test')
+    with pytest.raises(RuntimeError, match='setup'):
+        SRData().eval_loaders()
     with pytest.raises(RuntimeError, match='setup'):
         SRData().train_loader()

@@ -97,8 +97,12 @@ def test_convert_npz_roundtrip(tmp_path):
 
 
 def test_create_model_registry():
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        create_model('SRCNN', generator=torch.Generator())
+    # every srtpu family is registered (SRCNN, the last, since its port)
+    from srtpu.models import MODEL_REGISTRY as JAX_REGISTRY
+    from srtpu_torch.models import MODEL_REGISTRY, SRCNN
+    assert set(MODEL_REGISTRY) == set(JAX_REGISTRY)
+    assert isinstance(create_model('srcnn', generator=torch.Generator()),
+                      SRCNN)
     with pytest.raises(ValueError, match='Unknown model'):
         create_model('NoSuchNet', generator=torch.Generator())
     # kwargs the model doesn't declare are dropped, as in srtpu

@@ -862,12 +862,12 @@ def test_cli_fit_then_predict_srgan(tmp_path):
 
 
 def test_registry_cli_flags_and_converter_refusal():
-    """SRGAN is registered (SRCNN is the family left); --ngf, --ndf and
+    """SRGAN is registered (and SRCNN: no family is left); --ngf, --ndf and
     --n_blocks reach it and are not passed when not given (srtpu's 64,
     64, 16); a tree without batch_stats is refused."""
     from srtpu_torch import cli
-    from srtpu_torch.models import NOT_PORTED, SRGAN, model_class
-    assert model_class('srgan') is SRGAN and NOT_PORTED == ('SRCNN',)
+    from srtpu_torch.models import SRGAN, model_class
+    assert model_class('srgan') is SRGAN
     parse = cli.build_parser().parse_args
     args = parse(['fit', '--model', 'SRGAN', '--train_datasets', 'T',
                   '--ngf', '16', '--ndf', '8', '--n_blocks', '2',
