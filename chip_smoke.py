@@ -294,13 +294,35 @@ Phases, each of which raises on failure (nothing is caught):
    16-tile batch) and ``predict --predict_tile 128`` (the host tiles),
    each PNG byte-equal to the route's SR checked here; the tiled kernel
    path against the tiled plain path and against the direct forward
-   (beside srtpu's seam figure, ROADMAP F2); tiled ms against direct.
+   (beside srtpu's seam figure, ROADMAP F2); tiled ms against direct;
+27. ``fit`` with validation and checkpoints through the CLI, EDSR-baseline
+   x4 at full width (the phase 4 recipe): (a) 4 epochs of 5 steps with
+   ``--eval_datasets Val`` (HR 512x512 and the bucket-padded, masked
+   1000x680), ``--check_val_every_n_epoch 2``, ``--save_top_k 1``: the
+   launch counters equal phase 4's per step x 20 plus the per-image eval
+   launches of the sanity pass and the two val passes; ``checkpoints/
+   top`` holds the one epoch with the best ``Val/PSNR`` of
+   ``metrics.jsonl``; ``last`` and ``hparams.json`` exist; every logged
+   value is finite; (b) the same fit with a step that raises at the start
+   of epoch 3 (a hook here), then ``--ckpt_path last`` to epoch 4: the
+   resumed run's losses of epochs 3-4, its last val pass and its final
+   weights equal (a)'s bit for bit (K1-K3 and W sum in a fixed order;
+   (a) and (b) under ``_cudnn_deterministic``); (c) ``validate
+   --checkpoint`` on (a)'s directory matches (a)'s val pass of the kept
+   epoch within 1e-6 and ``predict --checkpoint`` writes the PNGs of
+   ``predict --weights`` on that state, byte for byte; each of the two
+   launches K1-K3 per image (the model rebuilt from ``hparams.json`` on
+   the kernel route). It prints the
+   fit's wall time with and without its val passes, a checkpoint save's
+   and a restore's ms and the val pass's ms an image.
 The line before the last is a JSON object with, per kernel, its launches
 in the main-path runs (EDSR, RCAN, SRResNet, RDN, DDBPN, WDSR, SRGAN
 and SRCNN predict and fit, EDSR and SRResNet x3 predict, SRResNet x3
 fit, the EDSR, RCAN and WDSR-B True routes' predict and fit, EDSR 64 x
 86 fit, EDSR's and RCAN's validate, EDSR's tiled validate and predict
-and its host tiles, and phase 2j's op runs;
+and its host tiles, phase 27's fit with validation and its ``validate``
+/ ``predict --checkpoint``, and phase 2j's op
+runs;
 ``launches`` is their sum), its largest error against its plain
 version, its time (K4's, K4r's and the trunk op's: its device time
 alone, a CUDA graph of its calls; the others: the wrapper's CUDA-event
@@ -341,6 +363,7 @@ import torch
 import torch.nn.functional as F
 
 from srtpu_torch import cli
+from srtpu_torch.checkpoint import CheckpointManager
 from srtpu_torch.data import SRData, pad_to_bucket
 from srtpu_torch.losses import VGGLoss, parse_losses
 from srtpu_torch.metrics import build_metrics
@@ -377,10 +400,12 @@ from srtpu_torch.ops.wdsr import (wdsr_bwd, wdsr_bwd_plain, wdsr_fwd,
 from srtpu_torch.ops.wdsr_block import (wdsr_block_fused_fwd,
                                         wdsr_block_fused_plain)
 from srtpu_torch.optim import build_optimizer
-from srtpu_torch.train import (TrainState, create_gan_state,
+from srtpu_torch.train import (Trainer, TrainerConfig, TrainState,
+                               create_gan_state,
                                make_eval_step, make_gan_train_step,
                                make_predict_step, make_tiled_predict_step,
                                make_train_step, tiled_predict)
+from srtpu_torch.train import loop as train_loop
 from srtpu_torch.train.tiled import _anchors
 from srtpu_torch.utils.logging import save_image
 
@@ -790,6 +815,14 @@ TILE_ARGS = ['--eval_tile', str(TILE), '--eval_tile_overlap',
              str(TILE_OVERLAP)]
 # srtpu's bf16 tile seams against its direct forward (ROADMAP.md F2)
 F2_SEAM = 3e-3
+
+
+# Phase 27, fit with validation: 4 epochs of 5 steps (80 training
+# images), val every 2 epochs on HR 512x512 and 1000x680, the sanity pass
+# on both; the crash at the start of epoch 3
+FITVAL_EPOCHS, FITVAL_SPE, FITVAL_CRASH_STEP = 4, 5, 10
+FITVAL_HR_SIZES = VAL_HR_SIZES[:2]
+FITVAL_PASSES = 3
 
 
 def k1_held() -> set:
@@ -3647,7 +3680,7 @@ class _LossLog(logging.Handler):
         self.rows: list[tuple] = []
 
     def emit(self, record):
-        if record.msg.startswith('epoch '):
+        if record.msg.startswith('epoch %d/%d'):
             self.rows.append(tuple(float(a) for a in record.args[2:-1]))
             self.losses.append(self.rows[-1][0])
 
@@ -3992,10 +4025,12 @@ def _grads_ddbpn(model: str, net, lr, hr, paths) -> None:
           f'gradient exactly 0 on the card; {live} live slots nonzero')
 
 
-def fit_data(root: Path, scale: int, patch: int) -> Path:
-    """A synthetic training set of TRAIN_BATCH smooth-plus-noise .npy HR
-    images of 1.5 patches (one step per epoch) and their box-filtered LR
-    at ``scale``, drawn from SEED; returns its datasets directory."""
+def fit_data(root: Path, scale: int, patch: int,
+             n: int = TRAIN_BATCH) -> Path:
+    """A synthetic training set of ``n`` smooth-plus-noise .npy HR images
+    of 1.5 patches (TRAIN_BATCH a step: one step per epoch by default)
+    and their box-filtered LR at ``scale``, drawn from SEED; returns its
+    datasets directory."""
     rng = np.random.default_rng(SEED)
     hr_size = 3 * patch // 2
     data = root / 'datasets'
@@ -4003,7 +4038,7 @@ def fit_data(root: Path, scale: int, patch: int) -> Path:
     lr_dir = data / 'Train' / 'LR' / f'X{scale}'
     hr_dir.mkdir(parents=True)
     lr_dir.mkdir(parents=True)
-    for i in range(TRAIN_BATCH):
+    for i in range(n):
         lo = rng.random((hr_size // 8, hr_size // 8, 3))
         hr = (np.kron(lo, np.ones((8, 8, 1))) * 0.8
               + rng.random((hr_size, hr_size, 3)) * 0.2).astype(np.float32)
@@ -4577,7 +4612,8 @@ def run_tiled(device, smi: str, stats: dict) -> dict:
                     '--datasets_dir', str(data), '--precision', 'bf16',
                     '--device', 'cuda', '--seed', str(SEED)]
         val_argv = ['validate', *net_args, '--eval_datasets', 'Big',
-                    '--metrics', *VAL_METRICS, *TILE_ARGS]
+                    '--metrics', *VAL_METRICS, *TILE_ARGS,
+                    '--default_root_dir', str(Path(tmp) / 'v')]
         nb = _tile_batches(lh, lw, TILE, TILE_OVERLAP, TILE_BATCH)
         counts, wall, out = _cli_counted(val_argv, EXPECTED_LAUNCHES,
                                          'tiled validate')
@@ -4661,6 +4697,231 @@ def run_tiled(device, smi: str, stats: dict) -> dict:
               f'of 5): tiled {t_k:.3f} ms ({nb} batches of {TILE_BATCH} '
               f'{TILE}x{TILE} tiles, overlap {TILE_OVERLAP}; plain path '
               f'{t_p:.3f}) against direct {t_d:.3f} ms  [{smi}]')
+    return runs
+
+
+def _recorded_steps(losses: dict, crash_at: int | None = None):
+    """Patch ``loop.make_train_step`` so that each step's loss tensor is
+    kept in ``losses`` by the step the state enters at (read after the
+    run), and, with ``crash_at``, so that the step entering there raises
+    before it does anything. Returns the undo."""
+    real = train_loop.make_train_step
+
+    def make(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def recorded(state, lr, hr):
+            if state.step == crash_at:
+                raise RuntimeError('planted fault at the start of epoch 3')
+            at = state.step
+            logs = step(state, lr, hr)
+            losses[at] = logs['loss']
+            return logs
+        return recorded
+    train_loop.make_train_step = make
+    return lambda: setattr(train_loop, 'make_train_step', real)
+
+
+def _fitval_run(argv, expected, what, crash_at=None):
+    """``cli.main(argv)`` counted (``_cli_counted``), each step's loss by
+    step; a planted crash must come out of it as the RuntimeError."""
+    losses: dict = {}
+    undo = _recorded_steps(losses, crash_at)
+    try:
+        if crash_at is None:
+            counts, wall, _ = _cli_counted(argv, expected, what)
+        else:
+            counts, wall = {}, 0.0
+            try:
+                cli.main(argv)
+            except RuntimeError as e:
+                need('planted fault' in str(e), f'{what}: {e}')
+            else:
+                need(False, f'{what}: the planted crash did not raise')
+    finally:
+        undo()
+    return counts, wall, {k: float(v) for k, v in losses.items()}
+
+
+def _jsonl(path: Path) -> list[dict]:
+    return [json.loads(ln) for ln in path.read_text().splitlines()]
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max((a[k].float() - b[k].float()).abs().max().item() for k in a)
+
+
+def run_fit_val(device, smi: str) -> dict:
+    """Phase 27 (the module note). Returns the launch counts of (a) and
+    of (c)'s ``validate`` / ``predict --checkpoint``."""
+    per_step = {k: v * FITVAL_EPOCHS * FITVAL_SPE
+                for k, v in STEP_LAUNCHES.items()}
+    images = len(FITVAL_HR_SIZES) * FITVAL_PASSES
+    expected = {k: per_step[k] + EXPECTED_LAUNCHES.get(k, 0) * images
+                for k in STEP_LAUNCHES}
+    with tempfile.TemporaryDirectory(prefix='srtpu_smoke_fitval_') as tmp:
+        tmp = Path(tmp)
+        data = fit_data(tmp, SCALE, TRAIN_PATCH,
+                        n=TRAIN_BATCH * FITVAL_SPE)
+        val_data(tmp, FITVAL_HR_SIZES)
+        base = ['fit', '--model', 'EDSR', '--scale_factor', str(SCALE),
+                '--n_feats', str(C), '--n_resblocks', str(L),
+                '--datasets_dir', str(data), '--train_datasets', 'Train',
+                '--batch_size', str(TRAIN_BATCH), '--patch_size',
+                str(TRAIN_PATCH), '--losses', 'l1', '--optimizer', 'ADAM',
+                '--optimizer_params', 'lr=1e-4', '--max_epochs',
+                str(FITVAL_EPOCHS), '--precision', 'bf16', '--device',
+                'cuda', '--seed', str(SEED)]
+        val = ['--eval_datasets', 'Val', '--check_val_every_n_epoch', '2',
+               '--save_top_k', '1']
+
+        def argv(run, *extra):
+            return base + ['--default_root_dir', str(tmp / run), *extra]
+        with _cudnn_deterministic():
+            _, wall0, _ = _fitval_run(argv('a0'), {}, 'fit without val')
+            counts, wall, loss_a = _fitval_run(argv('a', *val), expected,
+                                               'fit with validation')
+            _fitval_run(argv('b', *val), {}, 'the crashing fit',
+                        crash_at=FITVAL_CRASH_STEP)
+            _, _, loss_b = _fitval_run(
+                argv('b', *val, '--ckpt_path', 'last'), {}, 'the resume')
+        _need_counts(counts, expected, 1, 'fit with validation (the '
+                     f'counts: per step x {FITVAL_EPOCHS * FITVAL_SPE} '
+                     f'+ per image x {images})')
+        print('EDSR x4 fit with validation: launches ' + ', '.join(
+            f'{_counter_name(k)} {counts[k]}' for k in expected)
+            + f' = per step x {FITVAL_EPOCHS * FITVAL_SPE} + per eval '
+            f'image x {images} (the sanity pass and 2 val passes on 2 '
+            'images)')
+
+        # (a) top-k, last, hparams, finite values
+        ckpts = tmp / 'a' / 'checkpoints'
+        recs = _jsonl(tmp / 'a' / 'metrics.jsonl')
+        vals = {r['step'] // FITVAL_SPE: r for r in recs if 'Val/PSNR' in r}
+        need(sorted(vals) == [2, 4], f'val passes at epochs {sorted(vals)}')
+        need(all(np.isfinite(v) for r in recs for v in r.values()),
+             'a logged value is not finite')
+        best = max(vals, key=lambda e: (vals[e]['Val/PSNR'], e))
+        top = sorted(int(d.name) for d in (ckpts / 'top').iterdir())
+        need(top == [best], f'checkpoints/top {top}, best Val/PSNR epoch '
+             f'{best}')
+        need((ckpts / 'last' / 'state.pt').is_file()
+             and (ckpts / 'hparams.json').is_file(),
+             'no last checkpoint or hparams.json')
+        print('EDSR x4 fit with validation: Val/PSNR ' + ', '.join(
+            f'epoch {e} {vals[e]["Val/PSNR"]:.6f}' for e in sorted(vals))
+            + f'; checkpoints/top {top}; last, hparams.json; '
+            f'{len(recs)} metrics.jsonl lines, all finite')
+        print(f'EDSR x4 fit CLI, {FITVAL_EPOCHS} epochs x {FITVAL_SPE} '
+              f'steps: {wall:.3f} s with validation (sanity pass + 2 val '
+              f'passes on HR 512x512 and 1000x680, the last pass writing '
+              f'each SR and its centre crop as PNG, top-k and last saves), '
+              f'{wall0:.3f} s without (last saves only)  [{smi}]')
+
+        # (b) the resume against (a), bit for bit
+        steps = range(FITVAL_CRASH_STEP, FITVAL_EPOCHS * FITVAL_SPE)
+        need(sorted(loss_b) == list(steps), f'resumed steps {sorted(loss_b)}')
+        d_loss = max(abs(loss_b[k] - loss_a[k]) for k in steps)
+        w_a = torch.load(tmp / 'a' / 'final_weights.pt', weights_only=True)
+        w_b = torch.load(tmp / 'b' / 'final_weights.pt', weights_only=True)
+        d_w = _max_diff(w_a, w_b)
+        last_a = [r for r in recs if 'Val/PSNR' in r][-1]
+        last_b = [r for r in _jsonl(tmp / 'b' / 'metrics.jsonl')
+                  if 'Val/PSNR' in r][-1]
+        d_val = max(abs(last_a[k] - last_b[k]) for k in ('Val/PSNR',
+                                                         'Val/SSIM'))
+        print(f'EDSR x4 crash at step {FITVAL_CRASH_STEP} (epoch 3) and '
+              f'--ckpt_path last: epochs 3-4 losses max |d| {d_loss:.3g}, '
+              f'final weights max |d| {d_w:.3g}, last val pass max |d| '
+              f'{d_val:.3g} (all must be 0)')
+        need(d_loss == 0 and d_w == 0 and d_val == 0,
+             'the resumed run is not (a) bit for bit')
+
+        # (c) validate / predict --checkpoint
+        common = ['--device', 'cuda']
+        n_val = len(FITVAL_HR_SIZES)
+        runs = {'fitval_edsr': counts}
+        runs['fitval_validate_ckpt'], _, _ = _cli_counted(
+            ['validate', '--checkpoint', str(ckpts), '--default_root_dir',
+             str(tmp / 'c'), *common], EXPECTED_LAUNCHES,
+            'validate --checkpoint')
+        _need_counts(runs['fitval_validate_ckpt'], EXPECTED_LAUNCHES, n_val,
+                     'validate --checkpoint')
+        got = _jsonl(tmp / 'c' / 'metrics.jsonl')[-1]
+        d_c = max(abs(got[k] - vals[best][k]) for k in ('Val/PSNR',
+                                                         'Val/SSIM'))
+        print(f'validate --checkpoint (epoch {best}): ' + ', '.join(
+            f'{k} {got[k]:.6f}' for k in ('Val/PSNR', 'Val/SSIM'))
+            + f'; against the fit\'s val pass max |d| {d_c:.3g} (tol 1e-6)')
+        need(d_c <= 1e-6, 'validate --checkpoint against the fit')
+        state = torch.load(ckpts / 'top' / str(best) / 'state.pt',
+                           weights_only=True)
+        torch.save(state['model'], tmp / 'w.pt')
+        net = ['--n_feats', str(C), '--n_resblocks', str(L)]
+        pred = ['predict', '--datasets_dir', str(tmp / 'datasets'),
+                '--predict_datasets', 'Val', *common]
+        runs['fitval_predict_ckpt'], _, _ = _cli_counted(
+            pred + ['--checkpoint', str(ckpts), '--default_root_dir',
+                    str(tmp / 'pc')], EXPECTED_LAUNCHES,
+            'predict --checkpoint')
+        _need_counts(runs['fitval_predict_ckpt'], EXPECTED_LAUNCHES, n_val,
+                     'predict --checkpoint')
+        _cli_counted(pred + ['--weights', str(tmp / 'w.pt'), *net,
+                             '--default_root_dir', str(tmp / 'pw')], {},
+                     'predict --weights')
+        pngs = sorted(p.name for p in (tmp / 'pw' / 'Val').iterdir())
+        need(len(pngs) == 2 * len(FITVAL_HR_SIZES) and all(
+            (tmp / 'pc' / 'Val' / n).read_bytes()
+            == (tmp / 'pw' / 'Val' / n).read_bytes() for n in pngs),
+            'predict --checkpoint PNGs differ from predict --weights')
+        print('validate / predict --checkpoint: launches ' + '; '.join(
+            ', '.join(f'{_counter_name(k)} {v}' for k, v in runs[key].items())
+            for key in ('fitval_validate_ckpt', 'fitval_predict_ckpt'))
+            + f' = per image x {n_val} each (the model rebuilt from '
+            f'hparams.json on the kernel route); {len(pngs)} PNGs of '
+            'predict --checkpoint byte-equal to predict --weights on the '
+            'same state')
+
+        # checkpoint save / restore and the val pass, timed
+        args = cli.build_parser().parse_args(argv('t'))
+        model = cli.build_model(args, device)
+        st = TrainState(model, build_optimizer('ADAM', ['lr=1e-4'],
+                                               model.parameters()))
+        lr, hr = fit_batches(data, SCALE, TRAIN_PATCH, device, n=1)[0]
+        make_train_step(parse_losses('l1'))(st, lr, hr)
+        mngr = CheckpointManager(tmp / 't' / 'checkpoints',
+                                 monitor='Val/PSNR', save_top_k=1)
+        save_ms, restore_ms = [], []
+        for i in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mngr.save(i + 1, st, {'Val/PSNR': float(i)})
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            mngr.restore_last(st)
+            torch.cuda.synchronize()
+            restore_ms.append((time.perf_counter() - t0) * 1e3)
+        mb = (tmp / 't' / 'checkpoints' / 'last' / 'state.pt').stat(
+        ).st_size / 2 ** 20
+        trainer = Trainer(TrainerConfig(default_root_dir=str(tmp / 'v')))
+        dm = SRData(datasets_dir=str(tmp / 'datasets'),
+                    eval_datasets=['Val'], scale_factor=SCALE)
+        trainer.validate(model, dm)         # warm
+        val_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.validate(model, dm)
+            torch.cuda.synchronize()
+            val_ms.append((time.perf_counter() - t0) * 1e3
+                          / len(FITVAL_HR_SIZES))
+        trainer.close()
+        print(f'EDSR x4 checkpoint ({mb:.2f} MiB: model, Adam state): save '
+              f'(top-k and last) {np.median(save_ms):.3f} ms, restore_last '
+              f'{np.median(restore_ms):.3f} ms (host clock, median of 5); '
+              f'val pass {np.median(val_ms):.3f} ms an image (PSNR, SSIM; '
+              f'HR 512x512 and 1000x680; host clock, median of 3, '
+              f'incl. .npy reads, padding, H2D)  [{smi}]')
     return runs
 
 
@@ -4772,6 +5033,8 @@ def main() -> None:
                                          RCAN_PREDICT_LAUNCHES, full=False)
     runs.update(run_tiled(device, smi, stats))
     lap('phases 24-26')
+    runs.update(run_fit_val(device, smi))
+    lap('phase 27')
     rep = 'srtpu/ops/cs_conv.py:'
     bn = 'srtpu/ops/bn_resblock_cs.py:'
     meta = [('K1', 'K1 trunk_fwd (per block conv1 at K2 EPI 0, conv2 at '

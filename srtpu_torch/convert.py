@@ -118,14 +118,33 @@ A tree is nested dicts of numpy arrays, with or without the top-level
 ``params`` key (an SRResNet tree with it, beside ``batch_stats``). Any
 JAX host can write one as a flat ``.npz`` (``np.savez(path,
 **{'params/CSTrunk_0/w1': ..., 'batch_stats/...': ..., ...})``);
-:func:`load_npz` reads it back. Command line::
+:func:`load_npz` reads it back.
+
+:func:`state_from_jax` carries a whole srtpu training state across (its
+``step``, ``params``, ``batch_stats`` and ``opt_state``, the tree srtpu's
+``CheckpointManager`` keeps) into a port checkpoint that ``Trainer.fit``
+resumes (``--ckpt_path``). The ``.npz`` is written on a JAX host, each
+leaf of srtpu's state tree under its '/'-joined path (dict keys,
+NamedTuple field names, tuple indices: ``opt_state/0/mu/model/...``);
+README.md has the snippet.
+
+Command lines::
 
     python -m srtpu_torch.convert in.npz out.pt
+    python -m srtpu_torch.convert --state state.npz OUT_DIR \\
+        [--hparams RUN/checkpoints/hparams.json]
+
+The second writes ``OUT_DIR/last/state.pt`` and ``OUT_DIR/hparams.json``
+(by default the ``hparams.json`` beside the ``.npz``); ``fit
+--ckpt_path OUT_DIR`` resumes from it, ``validate --checkpoint OUT_DIR``
+scores it.
 """
 
 from __future__ import annotations
 
+import json
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -530,11 +549,177 @@ def load_npz(path) -> dict:
     return tree
 
 
+def _leaves(tree, path=()):
+    """(path, leaf) of a nested dict tree, in key order."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), np.asarray(v)
+
+
+def _like(tree, fn) -> dict:
+    """``tree`` with each leaf ``a`` replaced by ``fn(a)``."""
+    return {k: _like(v, fn) if isinstance(v, dict) else fn(np.asarray(v))
+            for k, v in tree.items()}
+
+
+def _parameter_keys(params: dict, stats: dict) -> list[str]:
+    """The state-dict keys :func:`params_from_jax` fills from ``params``
+    (the others come from ``batch_stats``: batch norm's buffers)."""
+    nan = params_from_jax({'params': _like(params, np.zeros_like),
+                           'batch_stats': _like(stats, lambda a: np.full(
+                               a.shape, np.nan, np.float32))})
+    return [k for k, v in nan.items() if not torch.isnan(v).any()]
+
+
+def check_relayout(params: dict, stats: dict) -> None:
+    """Raise unless :func:`params_from_jax` moves every element of
+    ``params`` to exactly one place and makes no other value (the CS
+    stacking, the phase-major tail and every other rearrangement),
+    which a per-leaf map of Adam's moments needs. Two probes give each
+    element its index as (index // 4096 + 1, index % 4096 + 1), both
+    exact in f32; the mapped pairs must be every index once."""
+    total = sum(leaf.size for _, leaf in _leaves(params))
+    order = {path: n for n, (path, _) in enumerate(_leaves(params))}
+    starts = np.cumsum([0] + [leaf.size for _, leaf in _leaves(params)])
+
+    def probe(fn):
+        def leaf_of(path, a):
+            idx = starts[order[path]] + np.arange(a.size).reshape(a.shape)
+            return fn(idx).astype(np.float32)
+
+        def walk(tree, path=()):
+            return {k: walk(v, path + (k,)) if isinstance(v, dict)
+                    else leaf_of(path + (k,), np.asarray(v))
+                    for k, v in tree.items()}
+        return params_from_jax({'params': walk(params),
+                                'batch_stats': stats})
+
+    out_hi = probe(lambda i: i // 4096 + 1)
+    out_lo = probe(lambda i: i % 4096 + 1)
+    got = {k: ((out_hi[k].double() - 1) * 4096
+               + out_lo[k].double() - 1).reshape(-1).numpy()
+           for k in _parameter_keys(params, stats)}
+    flat = np.sort(np.concatenate(list(got.values())))
+    if flat.shape != (total,) or not np.array_equal(flat, np.arange(total)):
+        bad = [k for k, v in got.items()
+               if np.any(v < 0) or np.any(v >= total)][:3]
+        raise ValueError(
+            "this tree's conversion is not a pure relayout (it pads, sums "
+            f'or repeats elements; e.g. {bad or list(got)[:3]}), so the '
+            "optimizer's moments cannot be carried across per element")
+
+
+def _find_optimizer(node: dict):
+    """(kind, its state node, the MultiSteps node or None) of srtpu's
+    ``opt_state``: ADAM bare or under the clip / weight-decay chain,
+    SGD's trace likewise, either inside ``MultiSteps``."""
+    multi = None
+    if 'inner_opt_state' in node:
+        multi, node = node, node['inner_opt_state']
+    while set(node) == {'1'} or set(node) == {'0'} and not (
+            {'mu', 'nu', 'count', 'trace'} & set(node['0'])):
+        node = node['1'] if '1' in node else node['0']
+    inner = node.get('0', {})
+    if {'mu', 'nu', 'count'} <= set(inner):
+        return 'ADAM', inner, multi
+    if set(inner) == {'trace'}:
+        return 'SGD', inner, multi
+    if {'inner', 'slow', 'count'} <= set(node) or 'nu' in inner:
+        raise NotImplementedError(
+            "this srtpu optimizer state (RMSprop or the Ranger family's) "
+            'is not ported to srtpu_torch yet (ROADMAP.md queue 1, item 16)')
+    raise ValueError(
+        f'unknown srtpu optimizer state structure (keys {sorted(node)}); '
+        'state_from_jax takes ADAM bare or under the clip chain, and SGD '
+        'with its trace (ROADMAP.md queue 1, item 7b)')
+
+
+def state_from_jax(tree: dict) -> dict:
+    """A port checkpoint (:func:`srtpu_torch.train.state.state_to_tree`'s
+    format) from an srtpu training state tree (``step``, ``params``,
+    ``batch_stats``, ``opt_state``; a flattened ``.npz`` read by
+    :func:`load_npz`). The parameters and batch statistics map as
+    :func:`params_from_jax`; Adam's ``mu`` and ``nu`` (SGD's ``trace``,
+    MultiSteps' ``acc_grads``) through the same per-leaf map, which must
+    be a pure relayout (:func:`check_relayout`); ``count`` becomes each
+    parameter's ``step``. An SRGAN state raises (item 7b)."""
+    params = tree['params']
+    stats = tree.get('batch_stats', {})
+    if 'generator' in params:
+        raise NotImplementedError(
+            "state_from_jax of srtpu's SRGAN state (G, D and both "
+            'optimizers) is not ported yet (ROADMAP.md queue 1, item 7b)')
+    model = params_from_jax({'params': params, 'batch_stats': stats})
+    kind, node, multi = _find_optimizer(tree.get('opt_state', {}))
+    check_relayout(params, stats)
+    keys = _parameter_keys(params, stats)
+
+    def mapped(moment: dict) -> dict[str, torch.Tensor]:
+        sd = params_from_jax({'params': moment.get('model', moment),
+                              'batch_stats': stats})
+        return {k: sd[k] for k in keys}
+
+    if kind == 'ADAM':
+        mu, nu = mapped(node['mu']), mapped(node['nu'])
+        step = torch.tensor(float(np.asarray(node['count'])))
+        state = {k: {'step': step.clone(), 'exp_avg': mu[k],
+                     'exp_avg_sq': nu[k]} for k in keys}
+    else:
+        trace = mapped(node['trace'])
+        state = {k: {'momentum_buffer': trace[k]} for k in keys}
+    opt = {'type': {'ADAM': 'Adam', 'SGD': 'SGD'}[kind], 'params': keys,
+           'state': state, 'mini_step': 0, 'acc_grads': None}
+    if multi is not None:
+        opt['mini_step'] = int(np.asarray(multi['mini_step']))
+        if 'acc_grads' in multi:
+            opt['acc_grads'] = mapped(multi['acc_grads'])
+    return {'step': int(np.asarray(tree['step'])), 'model': model,
+            'opt_state': {'model': opt}}
+
+
+def write_state(npz, out_dir, hparams=None) -> Path:
+    """``out_dir/last/state.pt`` from an srtpu state ``.npz`` and
+    ``out_dir/hparams.json`` from ``hparams`` (default: the
+    ``hparams.json`` beside the ``.npz``). Returns ``out_dir``."""
+    hp_path = Path(hparams) if hparams else Path(npz).parent / 'hparams.json'
+    if not hp_path.is_file():
+        raise FileNotFoundError(
+            f'{hp_path}: the run\'s hparams.json (srtpu writes it into its '
+            'checkpoints directory) is needed to rebuild the model; pass '
+            '--hparams')
+    out = Path(out_dir)
+    (out / 'last').mkdir(parents=True, exist_ok=True)
+    torch.save(state_from_jax(load_npz(npz)), out / 'last' / 'state.pt')
+    (out / 'hparams.json').write_text(
+        json.dumps(json.loads(hp_path.read_text()), indent=2))
+    return out
+
+
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
+    argv = sys.argv[1:] if argv is None else list(argv)
+    usage = ('usage: python -m srtpu_torch.convert in.npz out.pt\n'
+             '       python -m srtpu_torch.convert --state in.npz OUT_DIR '
+             '[--hparams FILE]')
+    if argv[:1] == ['--state']:
+        rest = argv[1:]
+        hp = None
+        if '--hparams' in rest:
+            i = rest.index('--hparams')
+            hp = rest[i + 1] if i + 1 < len(rest) else None
+            rest = rest[:i] + rest[i + 2:]
+            if hp is None:
+                print(usage, file=sys.stderr)
+                return 2
+        if len(rest) != 2:
+            print(usage, file=sys.stderr)
+            return 2
+        write_state(rest[0], rest[1], hp)
+        return 0
     if len(argv) != 2:
-        print('usage: python -m srtpu_torch.convert in.npz out.pt',
-              file=sys.stderr)
+        print(usage, file=sys.stderr)
         return 2
     torch.save(params_from_jax(load_npz(argv[0])), argv[1])
     return 0

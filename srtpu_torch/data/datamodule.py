@@ -25,7 +25,8 @@ class SRData:
                  predict_datasets: list[str] | tuple[str, ...] = (),
                  eval_datasets: list[str] | tuple[str, ...] = (),
                  batch_size: int = 16, patch_size: int = 128,
-                 scale_factor: int = 4, seed: int = 0, eval_bucket: int = 32):
+                 scale_factor: int = 4, seed: int = 0, eval_bucket: int = 32,
+                 augment: bool = True):
         self.datasets_dir = Path(datasets_dir)
         self.train_dataset_names = list(train_datasets)
         self.eval_dataset_names = list(eval_datasets)
@@ -35,6 +36,7 @@ class SRData:
         self.scale_factor = scale_factor
         self.seed = seed
         self.eval_bucket = eval_bucket
+        self.augment = augment      # the train loader's 8-way augmentation
         self._train_source = None
         self._eval_sources = None
         self._folders = None
@@ -69,7 +71,8 @@ class SRData:
         if self._train_source is None:
             raise RuntimeError('call setup("fit") first')
         return TrainLoader(self._train_source, self.batch_size,
-                           self.patch_size, self.scale_factor, seed=self.seed)
+                           self.patch_size, self.scale_factor,
+                           augment=self.augment, seed=self.seed)
 
     def eval_loaders(self) -> list[EvalLoader]:
         if self._eval_sources is None:

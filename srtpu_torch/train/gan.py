@@ -21,19 +21,24 @@ exactly once per step, as srtpu's do.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
 from ..losses import VGGLoss, gan_loss, l2_loss, tv_loss
 from ..optim import build_optimizer
+from .state import Updater
 
 
 @dataclass
 class GANTrainState:
     """The generator and discriminator, their optimizers and learning-rate
-    schedules, and the step count (srtpu ``GANTrainState``; PyTorch
-    updates the modules in place)."""
+    schedules, each optimizer's :class:`~srtpu_torch.train.state.Updater`
+    (accumulation and clipping) and the step count (srtpu
+    ``GANTrainState``; PyTorch updates the modules in place). Its
+    checkpoint holds both modules under ``generator.`` and
+    ``discriminator.`` and the optimizers as ``g`` and ``d``, as srtpu's
+    combined view."""
     generator: torch.nn.Module
     discriminator: torch.nn.Module
     g_opt: torch.optim.Optimizer
@@ -41,6 +46,16 @@ class GANTrainState:
     g_sched: torch.optim.lr_scheduler.LRScheduler
     d_sched: torch.optim.lr_scheduler.LRScheduler
     step: int = 0
+    g_updater: Updater = field(default_factory=Updater)
+    d_updater: Updater = field(default_factory=Updater)
+
+    def optimizers(self) -> dict:
+        return {'g': (self.g_opt, self.g_sched, self.g_updater),
+                'd': (self.d_opt, self.d_sched, self.d_updater)}
+
+    def modules(self) -> dict[str, torch.nn.Module]:
+        return {'generator.': self.generator,
+                'discriminator.': self.discriminator}
 
 
 def steplr_adam(parameters, lr: float = 1e-4, step_size: int = 100_000,
@@ -53,13 +68,19 @@ def steplr_adam(parameters, lr: float = 1e-4, step_size: int = 100_000,
     return opt, torch.optim.lr_scheduler.StepLR(opt, step_size, gamma)
 
 
-def create_gan_state(model, lr: float = 1e-4) -> GANTrainState:
+def create_gan_state(model, lr: float = 1e-4, accumulate: int = 1,
+                     clip_val: float | None = None,
+                     clip_algorithm: str = 'norm') -> GANTrainState:
     """The state of an :class:`~srtpu_torch.models.SRGAN` (its
-    ``generator`` and ``discriminator``), each with :func:`steplr_adam`."""
+    ``generator`` and ``discriminator``), each with :func:`steplr_adam`
+    and an updater of ``accumulate`` mini-steps clipping at ``clip_val``
+    (srtpu wraps both optimizers alike; the schedules count updates)."""
     g_opt, g_sched = steplr_adam(model.generator.parameters(), lr)
     d_opt, d_sched = steplr_adam(model.discriminator.parameters(), lr)
-    return GANTrainState(model.generator, model.discriminator, g_opt, d_opt,
-                         g_sched, d_sched)
+    return GANTrainState(
+        model.generator, model.discriminator, g_opt, d_opt, g_sched,
+        d_sched, g_updater=Updater(accumulate, clip_val, clip_algorithm),
+        d_updater=Updater(accumulate, clip_val, clip_algorithm))
 
 
 def make_gan_train_step(gan_mode: str = 'wgangp',
@@ -85,8 +106,7 @@ def make_gan_train_step(gan_mode: str = 'wgangp',
         d_loss = (1.0 + gan_loss(d(hr_img), True, gan_mode)
                   + gan_loss(d(sr.detach()), False, gan_mode))
         d_loss.backward()
-        state.d_opt.step()
-        state.d_sched.step()
+        state.d_updater.apply(state.d_opt, state.d_sched)
 
         state.g_opt.zero_grad(set_to_none=True)
         d.eval()
@@ -103,8 +123,7 @@ def make_gan_train_step(gan_mode: str = 'wgangp',
         finally:
             d.requires_grad_(True)
             d.train()
-        state.g_opt.step()
-        state.g_sched.step()
+        state.g_updater.apply(state.g_opt, state.g_sched)
         state.step += 1
         logs = {'d_loss': d_loss, 'g_loss': g_loss, 'content_loss': content,
                 'adv_loss': adv, 'tv_loss': tv, 'mse_loss': mse,

@@ -1,22 +1,56 @@
 """Trainer (srtpu/train/loop.py): ``fit``, ``validate`` and ``predict``.
 
-``fit`` covers srtpu's epoch loop: ``max_epochs``,
-``limit_train_batches``, ``fast_dev_run``, the per-epoch progress line
-(``epoch %d/%d  loss %.4f  %.1f items/s``) and ``global_step``. An
-:class:`~srtpu_torch.models.SRGAN` trains adversarially instead
-(srtpu's ``_fit_gan``): the loss DSL is ignored, the step is
+``fit`` is srtpu's epoch loop with its knobs:
+
+* ``max_epochs``, ``limit_train_batches``, ``fast_dev_run`` (one epoch
+  of one step, no sanity pass), ``overfit_batches`` (the same first N
+  batches every epoch: the sampler's epoch pinned at 0);
+* the progress lines: per epoch ``epoch %d/%d  loss %.4f  %.1f
+  items/s``, and every ``log_every_n_steps`` batches srtpu's in-epoch
+  ``epoch %d  step %d/%d  loss %.4f  %.1f items/s`` (one host read);
+  every ``log_loss_every_n_epochs`` the last batch's losses go to the
+  trackers;
+* validation: a sanity pass of ``num_sanity_val_steps`` images per
+  dataset first (no logging, no images), then a pass after every
+  ``check_val_every_n_epoch``-th epoch and after the last one, at most
+  ``limit_val_batches`` images each; all metrics go to the trackers,
+  the ``val @ epoch`` line shows those matching ``metrics_for_pbar``;
+  ``save_results`` images per dataset (-1: all) are written as
+  ``<root>/<dataset>/<image>/epoch_%05d[_center].png`` on the epochs
+  ``save_results_from_epoch`` names (``all``, ``last``, ``half``,
+  ``quarter``), with their per-image metrics;
+* checkpoints (:class:`~srtpu_torch.checkpoint.CheckpointManager` in
+  ``<root>/checkpoints``) after each val pass: top ``save_top_k`` on
+  ``monitor`` (default the first eval dataset and the first metric;
+  ``min`` mode for lower-is-better metrics) and ``last``; on any
+  exception ``last`` is saved as the state stands, the traceback goes to
+  ``run.log`` and the exception is raised again; ``ckpt_path`` (``last``
+  or a checkpoints directory) resumes: the state is restored and the
+  loop goes on from epoch ``step // steps_per_epoch``;
+* ``accumulate_grad_batches`` and ``gradient_clip_val`` /
+  ``gradient_clip_algorithm`` (the state's
+  :class:`~srtpu_torch.train.state.Updater`: optax's ``MultiSteps``
+  around srtpu's clip chain);
+* trackers (:class:`~srtpu_torch.utils.tracking.MultiTracker`:
+  ``metrics.jsonl`` always, Comet where it is configured) and
+  ``run.log`` in the root.
+
+An :class:`~srtpu_torch.models.SRGAN` trains adversarially (srtpu's
+``_fit_gan``) with the same knobs: the loss DSL is ignored, the step is
 :func:`~srtpu_torch.train.gan.make_gan_train_step` with its VGG19 term,
 both optimizers take the lr of ``optimizer_params`` (default 1e-4), and
-the line is ``epoch %d/%d  g_loss %.4f  d_loss %.4f  %.1f items/s``. The
-model trains the generator and discriminator it holds, with its own
+the line is ``epoch %d/%d  g_loss %.4f  d_loss %.4f  %.1f items/s``; its
+checkpoints hold the generator, the discriminator and both optimizers.
+The model trains the generator and discriminator it holds, with its own
 ``dtype`` (srtpu's ``_fit_gan`` rebuilds its generator positionally and
 so drops the dtype, ROADMAP.md F8). The model's current weights are the
 initial state (srtpu's ``seed`` draws them; here the caller does, as
 ``python -m srtpu_torch fit --seed`` does for the weights and the
-loader).
-Validation during ``fit``, checkpoints, trackers and image dumps are
-not ported yet (ROADMAP.md queue 1, item 7): ``fit`` with eval datasets,
-``monitor`` or ``ckpt_path`` raises.
+loader). Not ported (ROADMAP.md item 7b; ``steps_per_execution`` item
+18): ``profiler_dir``, ``detect_anomaly``, ``deterministic``, ``remat``,
+``log_weights_every_n_epochs`` and ``steps_per_execution`` raise
+``NotImplementedError`` when set off their defaults; srtpu's run assets
+(source snapshot, model summary, graph) are not written.
 
 ``validate`` scores every eval image (batch 1, bucket-padded, masked)
 with ``metrics`` and returns ``{dataset/metric: mean}``; ``predict``
@@ -39,18 +73,21 @@ import logging
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Any
 
 import numpy as np
 import torch
 
+from ..checkpoint import CheckpointManager
 from ..data.pipeline import center_crop
 from ..losses import VGGLoss, parse_losses
-from ..metrics import build_metrics
+from ..metrics import LOWER_IS_BETTER, build_metrics
 from ..models import SRGAN
 from ..optim import build_optimizer, parse_optimizer_params
-from ..utils.logging import save_image
+from ..utils.logging import attach_run_log, has_run_log, save_image
+from ..utils.tracking import MultiTracker
 from .gan import create_gan_state, make_gan_train_step
-from .state import TrainState
+from .state import TrainState, Updater
 from .steps import (make_eval_step, make_predict_step,
                     make_tiled_eval_step, make_tiled_predict_step,
                     make_train_step)
@@ -63,16 +100,45 @@ _logger = logging.getLogger(__name__)
 class TrainerConfig:
     default_root_dir: str = '.'
     max_epochs: int = 20
-    limit_train_batches: int | None = None
-    fast_dev_run: bool = False      # one epoch of one step
-    monitor: str | None = None      # not ported: raises (item 7)
-    ckpt_path: str | None = None    # not ported: raises (item 7)
+    check_val_every_n_epoch: int = 1
+    log_loss_every_n_epochs: int = 5
+    save_results: int = -1                  # images saved per dataset
+    save_results_from_epoch: str = 'last'   # all | last | half | quarter
     metrics: tuple[str, ...] = ('PSNR', 'SSIM')
+    metrics_for_pbar: tuple[str, ...] = ('PSNR', 'SSIM')
+    monitor: str | None = None              # e.g. 'DIV2K/PSNR'
+    save_top_k: int = 3
+    num_sanity_val_steps: int = 2
+    accumulate_grad_batches: int = 1
+    limit_train_batches: int | None = None
     limit_val_batches: int | None = None
+    overfit_batches: int = 0   # > 0: the same N batches every epoch
+    fast_dev_run: bool = False      # one epoch of one step
+    enable_checkpointing: bool = True
+    enable_progress_log: bool = True
+    log_every_n_steps: int = 50     # in-epoch progress cadence
+    ckpt_path: str | None = None    # 'last' or a checkpoints directory
+    gradient_clip_val: float | None = None
+    gradient_clip_algorithm: str = 'norm'   # 'norm' (global L2) | 'value'
     eval_tile: int = 0              # srtpu: 80 (its TPU's lane budget)
     eval_tile_overlap: int = 8      # LR px halo per tile edge
     predict_tile: int = 0           # > 0: host tiles past this size
     predict_tile_overlap: int = 32  # LR px, >= the receptive radius
+    # not ported (ROADMAP.md item 7b; steps_per_execution item 18): a
+    # value off the default raises
+    log_weights_every_n_epochs: int = 50
+    profiler_dir: str | None = None
+    detect_anomaly: bool = False
+    deterministic: bool = False
+    remat: bool = False
+    steps_per_execution: int = 1
+
+
+# knob -> (its default, the ROADMAP.md item that ports it)
+NOT_PORTED = {'log_weights_every_n_epochs': (50, '7b'),
+              'profiler_dir': (None, '7b'), 'detect_anomaly': (False, '7b'),
+              'deterministic': (False, '7b'), 'remat': (False, '7b'),
+              'steps_per_execution': (1, '18')}
 
 
 class Trainer:
@@ -81,25 +147,56 @@ class Trainer:
         self.root = Path(cfg.default_root_dir)
         self.global_step = 0
         self.current_epoch = 0
+        self._last_progress_step = 0
+        self._tb: MultiTracker | None = None
+        self._ckpt: CheckpointManager | None = None
+        self._edge_ops: list[str] = []
+        self._log: logging.Handler | None = None
+        self._device: torch.device | None = None
+
+    @property
+    def tb(self) -> MultiTracker:
+        """The trackers, made (with the root) at the first record."""
+        if self._tb is None:
+            self._tb = MultiTracker(self.root)
+        return self._tb
+
+    def close(self) -> None:
+        """Close the trackers (idempotent); ``fit``'s run.log handler,
+        when it attached one, is detached."""
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
+        if self._log is not None:
+            logging.getLogger().removeHandler(self._log)
+            self._log.close()
+            self._log = None
+
+    # ------------------------------------------------------------------ fit
 
     def fit(self, model: torch.nn.Module, datamodule, losses: str = 'l1',
             optimizer_name: str = 'ADAM',
-            optimizer_params: list[str] | None = None):
+            optimizer_params: list[str] | None = None,
+            hparams: dict[str, Any] | None = None):
         """Train ``model`` in place on ``datamodule``'s train datasets on
-        the model's device, in train mode (its mode is restored after);
-        returns the final :class:`TrainState` (an SRGAN's:
-        :class:`~srtpu_torch.train.gan.GANTrainState`)."""
+        the model's device, in train mode (its mode is restored after),
+        validating on its eval datasets (the module note); returns the
+        final :class:`TrainState` (an SRGAN's:
+        :class:`~srtpu_torch.train.gan.GANTrainState`). ``hparams`` go to
+        the trackers and to ``checkpoints/hparams.json``."""
         cfg = self.cfg
-        if cfg.monitor or cfg.ckpt_path:
-            raise NotImplementedError(
-                'checkpoints (monitor, ckpt_path) are not ported to '
-                'srtpu_torch yet (ROADMAP.md queue 1, item 7)')
-        if datamodule.eval_dataset_names:
-            raise NotImplementedError(
-                'validation during fit is not ported to srtpu_torch yet '
-                '(ROADMAP.md queue 1, item 7); run validate after fit')
+        for name, (default, item) in NOT_PORTED.items():
+            if getattr(cfg, name) != default:
+                raise NotImplementedError(
+                    f'{name} is not ported to srtpu_torch yet (ROADMAP.md '
+                    f'queue 1, item {item})')
         datamodule.setup('fit')
-        device = next(model.parameters()).device
+        device = self._device = next(model.parameters()).device
+        if not has_run_log(self.root):
+            self._log = attach_run_log(self.root)
+        acc = dict(accumulate=cfg.accumulate_grad_batches,
+                   clip_val=cfg.gradient_clip_val,
+                   clip_algorithm=cfg.gradient_clip_algorithm)
         if isinstance(model, SRGAN):
             lr = parse_optimizer_params(optimizer_params).get('lr', 1e-4)
             vgg = VGGLoss(device=device)
@@ -111,49 +208,248 @@ class Trainer:
                     'objective will not match the reference. Convert '
                     'weights with tools/convert_torch_weights.py into '
                     '$SRTPU_WEIGHTS_DIR.\n' + '=' * 66)
-            state = create_gan_state(model, lr)
+            self._edge_ops = []
+            state = create_gan_state(model, lr, **acc)
             train_step = make_gan_train_step(vgg_loss=vgg)
             keys = ('g_loss', 'd_loss')
+            # srtpu's GAN eval step takes no tiled route
+            eval_step = self._eval_step_of(model, datamodule, tiled=False)
         else:
-            state = TrainState(model, build_optimizer(
-                optimizer_name, optimizer_params, model.parameters()))
-            train_step = make_train_step(parse_losses(losses))
+            state = TrainState(
+                model, build_optimizer(optimizer_name, optimizer_params,
+                                       model.parameters()),
+                updater=Updater(acc['accumulate'], acc['clip_val'],
+                                acc['clip_algorithm']))
+            composite = parse_losses(losses)
+            # srtpu's edge / sketch val images follow these losses
+            self._edge_ops = [n for n in composite.names
+                              if n in ('edge_loss', 'pencil_sketch')]
+            train_step = make_train_step(composite)
             keys = ('loss',)
+            eval_step = self._eval_step_of(model, datamodule)
+        was_training = model.training
+        try:
+            return self._fit(model, datamodule, state, train_step, keys,
+                             eval_step, device, hparams)
+        finally:
+            model.train(was_training)
+
+    def _eval_step_of(self, model, datamodule, tiled: bool = True):
+        """The val passes' eval step on the config's metrics, or None
+        without eval datasets."""
+        if not datamodule.eval_dataset_names:
+            return None
+        metrics = build_metrics(list(self.cfg.metrics))
+        return self._make_eval_step(metrics, model) if tiled else \
+            make_eval_step(model, metrics)
+
+    def _fit(self, model, datamodule, state, train_step, keys, eval_step,
+             device, hparams):
+        cfg = self.cfg
         loader = datamodule.train_loader()
+        limit = cfg.overfit_batches if cfg.overfit_batches > 0 \
+            else cfg.limit_train_batches
+        if cfg.ckpt_path:
+            ckpt_dir = (self.root / 'checkpoints' if cfg.ckpt_path == 'last'
+                        else Path(cfg.ckpt_path))
+            CheckpointManager(ckpt_dir, monitor='').restore_last(state)
+            steps_per_epoch = len(loader)
+            if limit is not None:
+                steps_per_epoch = min(steps_per_epoch, limit)
+            steps_per_epoch = max(steps_per_epoch, 1)
+            self.current_epoch = state.step // steps_per_epoch
+            self.global_step = state.step
+            _logger.info('resumed from %s at epoch %d (step %d)', ckpt_dir,
+                         self.current_epoch, self.global_step)
         n_params = sum(p.numel() for p in model.parameters())
         _logger.info('model parameters: %s (%.2f MB fp32)', f'{n_params:,}',
                      n_params * 4 / 2 ** 20)
-        limit = 1 if cfg.fast_dev_run else cfg.limit_train_batches
+        monitor = cfg.monitor
+        if monitor is None and datamodule.eval_dataset_names and cfg.metrics:
+            monitor = f'{datamodule.eval_dataset_names[0]}/{cfg.metrics[0]}'
+        if cfg.enable_checkpointing:
+            metric_name = monitor.split('/')[-1] if monitor else ''
+            self._ckpt = CheckpointManager(
+                self.root / 'checkpoints', monitor=monitor or '',
+                mode='min' if metric_name in LOWER_IS_BETTER else 'max',
+                save_top_k=cfg.save_top_k, hparams=hparams or {})
+        if hparams:
+            self.tb.params(hparams)
         max_epochs = 1 if cfg.fast_dev_run else cfg.max_epochs
-        was_training = model.training
+        if cfg.num_sanity_val_steps and not cfg.fast_dev_run:
+            self._run_validation(eval_step, datamodule,
+                                 limit=cfg.num_sanity_val_steps, sanity=True)
         model.train()       # srtpu's train=True: batch statistics
+        last_logs = None
         try:
-            self._epochs(state, train_step, loader, device, limit, max_epochs,
-                         keys)
+            for epoch in range(self.current_epoch, max_epochs):
+                self.current_epoch = epoch
+                t0 = time.time()
+                items = 0
+                n_batches = len(loader)
+                if limit is not None:
+                    n_batches = min(n_batches, limit)
+                loader.set_epoch(0 if cfg.overfit_batches > 0 else epoch)
+                for i, batch in enumerate(loader):
+                    if limit is not None and i >= limit:
+                        break
+                    if cfg.fast_dev_run and i >= 1:
+                        break
+                    lr = torch.from_numpy(batch.lr).to(device)
+                    hr = torch.from_numpy(batch.hr).to(device)
+                    last_logs = train_step(state, lr, hr)
+                    self.global_step += 1
+                    items += lr.shape[0]
+                    self._step_progress(i, n_batches, items, t0, last_logs,
+                                        keys)
+                if cfg.enable_progress_log:
+                    # reading a loss waits for the step
+                    vals = [float(last_logs[k]) if last_logs else 0.0
+                            for k in keys]
+                    _logger.info(
+                        'epoch %d/%d  ' + '  '.join(f'{k} %.4f' for k in keys)
+                        + '  %.1f items/s', epoch + 1, max_epochs, *vals,
+                        items / max(time.time() - t0, 1e-9))
+                if last_logs is not None and \
+                        (epoch + 1) % cfg.log_loss_every_n_epochs == 0:
+                    self.tb.scalars(self._loss_scalars(last_logs, keys),
+                                    self.global_step)
+                if (epoch + 1) % cfg.check_val_every_n_epoch == 0 \
+                        or epoch + 1 == max_epochs:
+                    metrics = self._run_validation(eval_step, datamodule)
+                    if self._ckpt is not None:
+                        self._ckpt.save(epoch + 1, state, metrics)
+        except BaseException as e:
+            # srtpu's crash containment: a resumable 'last', the traceback
+            # in run.log, the trackers flushed below, the error raised on
+            if self._ckpt is not None:
+                _logger.info('%s during fit — saving last checkpoint',
+                             type(e).__name__)
+                try:
+                    self._ckpt.save(self.current_epoch + 1, state, {})
+                except Exception:
+                    _logger.exception('failed to save crash checkpoint')
+            if not isinstance(e, KeyboardInterrupt):
+                _logger.exception('fit crashed')
+            raise
         finally:
-            model.train(was_training)
+            self._record_run_artifacts()
         return state
 
-    def _epochs(self, state, train_step, loader, device, limit, max_epochs,
-                keys):
-        for epoch in range(max_epochs):
-            loader.set_epoch(epoch)
-            t0 = time.time()
-            items, logs = 0, None
+    @staticmethod
+    def _loss_scalars(logs: dict, keys) -> dict[str, float]:
+        """The last batch's losses as srtpu logs them each
+        ``log_loss_every_n_epochs``: the parts and ``loss/total``; an
+        SRGAN's every term as ``loss/<name>``."""
+        if keys == ('loss',):
+            out = {k: float(v) for k, v in logs.items() if k != 'loss'}
+            out['loss/total'] = float(logs['loss'])
+            return out
+        return {f'loss/{k}': float(v) for k, v in logs.items()}
+
+    def _step_progress(self, i: int, n_batches: int, items: int, t0: float,
+                       logs, keys) -> None:
+        """srtpu's in-epoch progress line every ``log_every_n_steps``
+        batches (on the global step) and the train losses to the
+        trackers; one host read each time."""
+        cfg = self.cfg
+        n = cfg.log_every_n_steps
+        if not cfg.enable_progress_log or n <= 0 or \
+                self.global_step - self._last_progress_step < n:
+            return
+        self._last_progress_step = self.global_step
+        vals = {k: float(logs[k]) for k in keys if k in logs}
+        _logger.info('epoch %d  step %d%s  %s  %.1f items/s',
+                     self.current_epoch + 1, i + 1,
+                     f'/{n_batches}' if n_batches else '',
+                     '  '.join(f'{k} {v:.4f}' for k, v in vals.items()),
+                     items / max(time.time() - t0, 1e-9))
+        self.tb.scalars({f'train/{k}': v for k, v in vals.items()},
+                        self.global_step)
+
+    def _record_run_artifacts(self) -> None:
+        """The checkpoints and run.log as tracker assets, then a flush
+        (on success and on a crash)."""
+        try:
+            for path in (self.root / 'checkpoints', self.root / 'run.log'):
+                if path.exists():
+                    self.tb.asset(path)
+            self.tb.flush()
+        except Exception:
+            _logger.warning('recording run artifacts failed', exc_info=True)
+
+    # ---------------------------------------------------------- validation
+
+    def _run_validation(self, eval_step, datamodule, limit=None,
+                        sanity: bool = False) -> dict[str, float]:
+        """One val pass (srtpu ``_run_validation``): ``{dataset/metric:
+        mean}``; unless ``sanity``, the metrics to the trackers, the val
+        line and the epoch's images."""
+        cfg = self.cfg
+        all_metrics: dict[str, float] = {}
+        if eval_step is None:
+            return all_metrics
+        limit = limit if limit is not None else cfg.limit_val_batches
+        device = self._device
+        for ds_name, loader in zip(datamodule.eval_dataset_names,
+                                   datamodule.eval_loaders()):
+            per_metric: dict[str, list[float]] = {}
             for i, batch in enumerate(loader):
                 if limit is not None and i >= limit:
                     break
-                lr = torch.from_numpy(batch.lr).to(device)
-                hr = torch.from_numpy(batch.hr).to(device)
-                logs = train_step(state, lr, hr)
-                self.global_step += 1
-                items += lr.shape[0]
-            self.current_epoch = epoch
-            # reading a loss waits for the step
-            losses = [float(logs[k]) if logs else 0.0 for k in keys]
-            _logger.info('epoch %d/%d  ' + '  '.join(f'{k} %.4f' for k in keys)
-                         + '  %.1f items/s', epoch + 1, max_epochs, *losses,
-                         items / max(time.time() - t0, 1e-9))
+                lr, hr, mask = (torch.from_numpy(a).to(device)
+                                for a in (batch.lr, batch.hr, batch.mask))
+                sr, results = eval_step(lr, hr, mask)
+                results = {k: float(v) for k, v in results.items()}
+                for k, v in results.items():
+                    per_metric.setdefault(k, []).append(v)
+                if not sanity and self._should_save_images(i):
+                    self._save_val_images(ds_name, batch, sr, results)
+            for k, vals in per_metric.items():
+                all_metrics[f'{ds_name}/{k}'] = float(np.mean(vals))
+        if not sanity and all_metrics:
+            self.tb.scalars(all_metrics, self.global_step)
+            pbar = {k: v for k, v in all_metrics.items()
+                    for m in cfg.metrics_for_pbar if m in k}
+            _logger.info('val @ epoch %d: %s', self.current_epoch + 1,
+                         '  '.join(f'{k}={v:.4f}' for k, v in
+                                   (pbar or all_metrics).items()))
+        return all_metrics
+
+    def _should_save_images(self, batch_idx: int) -> bool:
+        cfg = self.cfg
+        e, last = self.current_epoch + 1, cfg.max_epochs
+        gate = (cfg.save_results_from_epoch == 'all'
+                or (cfg.save_results_from_epoch == 'last' and e == last)
+                or (cfg.save_results_from_epoch == 'half' and e == last // 2)
+                or (cfg.save_results_from_epoch == 'quarter'
+                    and e == last // 4))
+        return gate and (cfg.save_results == -1
+                         or batch_idx < cfg.save_results)
+
+    def _save_val_images(self, ds_name: str, batch, sr, results) -> None:
+        """The SR and its 96 px centre crop (images of at least 96 x 96)
+        as ``<root>/<dataset>/<image>/epoch_%05d[_center].png``, and the
+        per-image metrics as ``<dataset>/<image>/<metric>`` (srtpu
+        ``_save_val_images``; its edge and sketch variants follow
+        ``_edge_ops``, empty while those losses are unported)."""
+        name = batch.names[0]
+        e = self.current_epoch + 1
+        hs, ws = batch.hr_size
+        sr_np = sr[0, :hs, :ws].float().cpu().numpy()
+        imgs = [(sr_np, '')]
+        if hs >= 96 and ws >= 96:
+            imgs.append((center_crop(sr_np, 96, 96), '_center'))
+        for op in self._edge_ops:
+            raise NotImplementedError(f'{op} val images need {op}, which is '
+                                      'not ported yet (ROADMAP.md item 15)')
+        out_dir = self.root / ds_name / name
+        for img, suffix in imgs:
+            save_image(img, out_dir / f'epoch_{e:05d}{suffix}.png')
+            self.tb.image(f'{ds_name}/{name}/epoch_{e:05d}{suffix}', img,
+                          self.global_step)
+        self.tb.scalars({f'{ds_name}/{name}/{k}': v
+                         for k, v in results.items()}, self.global_step)
 
     # ------------------------------------------------------------ routing
 
@@ -196,33 +492,16 @@ class Trainer:
                  metrics=None) -> dict[str, float]:
         """Score ``model`` (eval mode, on its device) on every eval
         dataset of ``datamodule`` with ``metrics`` (default the config's),
-        at most ``limit_val_batches`` images each; logs srtpu's ``val``
-        line and returns ``{dataset/metric: mean over images}``. Each
-        metric is read to the host once an image."""
+        at most ``limit_val_batches`` images each: srtpu's val pass (the
+        trackers, the ``val`` line, the epoch's images); returns
+        ``{dataset/metric: mean over images}``. Each metric is read to
+        the host once an image."""
         datamodule.setup('validate')
-        device = next(model.parameters()).device
+        self._device = next(model.parameters()).device
         eval_step = self._make_eval_step(
             build_metrics(list(metrics or self.cfg.metrics)), model)
-        limit = self.cfg.limit_val_batches
-        all_metrics: dict[str, float] = {}
-        for ds_name, loader in zip(datamodule.eval_dataset_names,
-                                   datamodule.eval_loaders()):
-            per_metric: dict[str, list[float]] = {}
-            for i, batch in enumerate(loader):
-                if limit is not None and i >= limit:
-                    break
-                lr, hr, mask = (torch.from_numpy(a).to(device)
-                                for a in (batch.lr, batch.hr, batch.mask))
-                _, results = eval_step(lr, hr, mask)
-                for k, v in results.items():
-                    per_metric.setdefault(k, []).append(float(v))
-            for k, vals in per_metric.items():
-                all_metrics[f'{ds_name}/{k}'] = float(np.mean(vals))
-        if all_metrics:
-            _logger.info('val @ epoch %d: %s', self.current_epoch + 1,
-                         '  '.join(f'{k}={v:.4f}'
-                                   for k, v in all_metrics.items()))
-        return all_metrics
+        self._edge_ops = []
+        return self._run_validation(eval_step, datamodule)
 
     # ------------------------------------------------------------ predict
 

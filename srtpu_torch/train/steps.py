@@ -17,7 +17,11 @@ def make_train_step(composite_loss, plain: bool = False):
     hr.float())``, backward, one optimizer step. Gradients are cleared
     (set to None) before the backward, so after a step ``p.grad`` holds
     that step's gradients. Logs are 0-dim tensors on the device, read
-    without a host sync: ``{'loss', 'loss/<name>'}``. ``plain`` runs the
+    without a host sync: ``{'loss', 'loss/<name>'}``. The update is the
+    state's :class:`~srtpu_torch.train.state.Updater` (optax's
+    ``MultiSteps`` with srtpu's clip chain: the parameters move on every
+    ``accumulate_grad_batches``-th step; ``state.step`` counts every
+    batch). ``plain`` runs the
     kernels' plain versions (the reference a card run is held against).
     The step runs the model in the mode it is in: ``Trainer.fit`` puts it
     in train mode (srtpu's ``train=True``).
@@ -28,7 +32,7 @@ def make_train_step(composite_loss, plain: bool = False):
         sr = state.model(lr_img, plain=plain)
         total, parts = composite_loss(sr.float(), hr_img.float())
         total.backward()
-        state.optimizer.step()
+        state.updater.apply(state.optimizer)
         state.step += 1
         logs = {'loss': sum(parts.values()).detach()}
         logs.update({f'loss/{k}': v.detach() for k, v in parts.items()})

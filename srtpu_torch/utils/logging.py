@@ -1,13 +1,44 @@
-"""Image output: ``save_image`` writes PNGs with a small stdlib encoder,
-so saving needs no Pillow."""
+"""Image output and the run log: ``save_image`` writes PNGs with a small
+stdlib encoder, so saving needs no Pillow; ``attach_run_log`` adds a
+run's ``run.log``."""
 
 from __future__ import annotations
 
+import logging
+import logging.handlers
 import struct
 import zlib
 from pathlib import Path
 
 import numpy as np
+
+LOG_FORMAT = '%(asctime)s %(levelname)s %(name)s: %(message)s'
+
+
+def attach_run_log(log_dir, filename: str = 'run.log',
+                   file_log_level: str = 'info') -> logging.Handler:
+    """Attach a rotating ``<log_dir>/<filename>`` handler to the root
+    logger and return it; other handlers and the root's level are left
+    as they are, and the ``srtpu_torch`` loggers are opened to INFO so
+    that their records reach the file (srtpu
+    ``utils/logging.py:attach_run_log``)."""
+    pkg = logging.getLogger('srtpu_torch')
+    if pkg.getEffectiveLevel() > logging.INFO:
+        pkg.setLevel(logging.INFO)
+    Path(log_dir).mkdir(parents=True, exist_ok=True)
+    fileh = logging.handlers.RotatingFileHandler(
+        Path(log_dir) / filename, maxBytes=5 * 1024 * 1024, backupCount=3)
+    fileh.setLevel(getattr(logging, file_log_level.upper(), logging.INFO))
+    fileh.setFormatter(logging.Formatter(LOG_FORMAT))
+    logging.getLogger().addHandler(fileh)
+    return fileh
+
+
+def has_run_log(log_dir, filename: str = 'run.log') -> bool:
+    """Whether a root handler already writes ``<log_dir>/<filename>``."""
+    target = str((Path(log_dir) / filename).absolute())
+    return any(getattr(h, 'baseFilename', None) == target
+               for h in logging.getLogger().handlers)
 
 
 def encode_png(rgb: np.ndarray) -> bytes:

@@ -1,0 +1,269 @@
+"""The port's checkpoints (srtpu_torch/checkpoint.py, train/state.py)
+against srtpu's on the CPU.
+
+(a) top-k retention and its mode rule: the same metric sequences (with
+    ties, rising and falling) through srtpu's Orbax ``CheckpointManager``
+    and the port's keep the same steps after every save and give the
+    same ``best_step``, in ``max`` and ``min`` mode and with
+    ``save_top_k`` 0 (keep all); a step not past the latest is not kept;
+(b) a state round trip is bit for bit (model, Adam's state, the
+    accumulator, the step); a parameter set that does not match the
+    model raises srtpu's named error; another optimizer structure is
+    left fresh with srtpu's warning;
+(c) ``load_hparams`` finds ``hparams.json`` in a parent directory;
+(d) ``state_from_jax``: srtpu's optimizer structures (ADAM bare, under
+    the clip chain, SGD's trace, inside MultiSteps) convert, others raise
+    naming their ROADMAP item, and a conversion that is not a pure
+    relayout raises.
+"""
+
+import json
+import logging
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from srtpu.checkpoint import CheckpointManager as JaxCheckpointManager
+from srtpu.checkpoint import load_hparams as jax_load_hparams
+from srtpu.models import create_model as jax_create_model
+from srtpu.optim import build_optimizer as jax_build_optimizer
+from srtpu.train import create_train_state
+from srtpu_torch import convert
+from srtpu_torch.checkpoint import CheckpointManager, load_hparams
+from srtpu_torch.models import create_model
+from srtpu_torch.optim import build_optimizer
+from srtpu_torch.train import TrainState
+from srtpu_torch.train.state import Updater, state_to_tree
+
+torch.set_num_threads(1)
+
+KW = dict(n_feats=16, n_resblocks=2)
+SEQUENCES = {
+    'rising': [10.0, 11.0, 12.0, 13.0, 14.0],
+    'ties': [12.0, 11.0, 12.0, 12.0, 10.0, 13.0, 13.0],
+    'falling': [14.0, 13.0, 12.0, 12.5, 11.0],
+}
+
+
+def _jax_state():
+    leaf = np.zeros((2,), np.float32)
+    return SimpleNamespace(step=0, params={'w': leaf}, batch_stats={},
+                           loss_params={}, opt_state={'m': leaf})
+
+
+def _port_state(seed=0, **kw):
+    model = create_model('EDSR', generator=torch.Generator().manual_seed(
+        seed), **{**KW, **kw})
+    return TrainState(model, build_optimizer('ADAM', [], model.parameters()))
+
+
+def _kept(path):
+    top = path / 'top'
+    return sorted(int(d.name) for d in top.iterdir()) if top.is_dir() else []
+
+
+@pytest.mark.parametrize('seq', sorted(SEQUENCES))
+@pytest.mark.parametrize('mode,top_k', [('max', 2), ('min', 2), ('max', 1),
+                                        ('min', 3), ('max', 0)])
+def test_top_k_matches_srtpu(tmp_path, seq, mode, top_k):
+    values = SEQUENCES[seq]
+    ref = JaxCheckpointManager(tmp_path / 'jax', monitor='Val/PSNR',
+                               mode=mode, save_top_k=top_k, hparams={})
+    got = CheckpointManager(tmp_path / 'port', monitor='Val/PSNR', mode=mode,
+                            save_top_k=top_k, hparams={})
+    jstate, state = _jax_state(), _port_state()
+    try:
+        for epoch, v in enumerate(values, 1):
+            ref.save(epoch, jstate, {'Val/PSNR': v})
+            got.save(epoch, state, {'Val/PSNR': v})
+            assert _kept(tmp_path / 'port') == _kept(tmp_path / 'jax'), \
+                (epoch, v)
+            assert got.best_step() == ref.best_step(), (epoch, v)
+        # no monitored metric (the crash save), and a step not past the
+        # latest: 'last' alone
+        ref.save(len(values) + 1, jstate, {})
+        got.save(len(values) + 1, state, {})
+        ref.save(1, jstate, {'Val/PSNR': 99.0})
+        got.save(1, state, {'Val/PSNR': 99.0})
+        assert _kept(tmp_path / 'port') == _kept(tmp_path / 'jax')
+        assert got.best_step() == ref.best_step()
+        assert (tmp_path / 'port' / 'last' / 'state.pt').is_file()
+    finally:
+        ref.close()
+    # a manager on the same directory reads what is kept, as Orbax's does
+    again = CheckpointManager(tmp_path / 'port', monitor='Val/PSNR',
+                              mode=mode, save_top_k=top_k)
+    again_ref = JaxCheckpointManager(tmp_path / 'jax', monitor='Val/PSNR',
+                                     mode=mode, save_top_k=top_k)
+    try:
+        assert again.best_step() == again_ref.best_step()
+    finally:
+        again_ref.close()
+
+
+def _step_once(state, accumulate=1):
+    gen = torch.Generator().manual_seed(1)
+    x = torch.rand(2, 8, 8, 3, generator=gen)
+    for _ in range(accumulate + 1):
+        state.optimizer.zero_grad(set_to_none=True)
+        state.model(x).square().mean().backward()
+        state.updater.apply(state.optimizer)
+        state.step += 1
+
+
+def test_round_trip_is_bit_for_bit(tmp_path):
+    state = _port_state(1)
+    state.updater = Updater(every=2)
+    _step_once(state, accumulate=2)         # 3 mini-steps: one pending
+    assert state.updater.mini_step == 1
+    mngr = CheckpointManager(tmp_path, monitor='Val/PSNR')
+    mngr.save(1, state, {'Val/PSNR': 1.0})
+    fresh = _port_state(2)
+    fresh.updater = Updater(every=2)
+    mngr.restore(fresh)
+    a, b = state_to_tree(state), state_to_tree(fresh)
+    assert a['step'] == b['step'] == 3
+    for k, v in a['model'].items():
+        assert torch.equal(v, b['model'][k]), k
+    sa, sb = a['opt_state']['model'], b['opt_state']['model']
+    assert sa['mini_step'] == sb['mini_step'] == 1
+    for name, st in sa['state'].items():
+        for k, v in st.items():
+            assert torch.equal(v, sb['state'][name][k]), (name, k)
+        assert torch.equal(sa['acc_grads'][name], sb['acc_grads'][name])
+
+
+def test_mismatch_raises_and_fresh_optimizer_warns(tmp_path, caplog):
+    mngr = CheckpointManager(tmp_path, monitor='')
+    mngr.save(1, _port_state(), {})
+    with pytest.raises(ValueError, match="does not match the model's"):
+        mngr.restore_last(_port_state(n_resblocks=3))
+    rcan = create_model('RCAN', n_feats=16, n_resgroups=1, n_resblocks=1,
+                        reduction=4, generator=torch.Generator())
+    with pytest.raises(ValueError, match='checkpoint lacks e.g.'):
+        mngr.restore_last(TrainState(rcan, build_optimizer(
+            'ADAM', [], rcan.parameters())))
+    # another optimizer: the weights restore, the optimizer stays fresh
+    sgd = _port_state(5)
+    sgd.optimizer = build_optimizer('SGD', ['momentum=0.9'],
+                                    sgd.model.parameters())
+    with caplog.at_level(logging.WARNING):
+        mngr.restore_last(sgd)
+    assert 'optimizer state structure mismatch' in caplog.text
+    assert not sgd.optimizer.state
+    ref = _port_state()
+    for k, v in ref.model.state_dict().items():
+        assert torch.equal(v, sgd.model.state_dict()[k]), k
+
+
+def test_load_hparams_searches_parents(tmp_path):
+    hp = {'model': 'EDSR', 'init_args': KW}
+    (tmp_path / 'hparams.json').write_text(json.dumps(hp))
+    deep = tmp_path / 'top' / '3'
+    deep.mkdir(parents=True)
+    assert load_hparams(deep) == jax_load_hparams(deep) == hp
+    assert load_hparams(tmp_path) == hp
+
+
+def _flat(tree):
+    def key(k):
+        return str(getattr(k, 'key', getattr(k, 'name', getattr(k, 'idx',
+                                                                   k))))
+    return {'/'.join(key(k) for k in path): np.asarray(v)
+            for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _nested(flat):
+    tree = {}
+    for key, v in flat.items():
+        *parents, leaf = key.split('/')
+        node = tree
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return tree
+
+
+def _srtpu_tree(tx, use_pallas='cs'):
+    from srtpu.checkpoint import _state_to_tree
+    jm = jax_create_model('EDSR', scale_factor=4, use_pallas=use_pallas, **KW)
+    state = create_train_state(jm, tx, jax.random.PRNGKey(0),
+                               jnp.zeros((1, 8, 8, 3)))
+    # give the moments values of their own
+    state = state.replace(step=jnp.asarray(3, jnp.int32),
+                          opt_state=jax.tree_util.tree_map(
+        lambda a: a + 0.5 if a.dtype == jnp.float32 else a + 2,
+        state.opt_state))
+    return _nested(_flat(_state_to_tree(state)))
+
+
+@pytest.mark.parametrize('tx,kind', [
+    (lambda: jax_build_optimizer('ADAM', ['lr=1e-3']), 'Adam'),
+    (lambda: optax.chain(optax.clip_by_global_norm(1.0),
+                         jax_build_optimizer('ADAM', [])), 'Adam'),
+    (lambda: jax_build_optimizer('SGD', ['momentum=0.9']), 'SGD'),
+    (lambda: optax.MultiSteps(jax_build_optimizer('ADAM', []), 2), 'Adam')])
+def test_state_from_jax_structures(tx, kind):
+    tree = _srtpu_tree(tx())
+    out = convert.state_from_jax(tree)
+    opt = out['opt_state']['model']
+    assert opt['type'] == kind
+    assert out['step'] == 3
+    sd = convert.params_from_jax(tree)
+    assert set(opt['params']) == set(sd)
+    mu = convert.params_from_jax({'params': _first(tree['opt_state'],
+                                                   ('mu', 'trace'))})
+    st = opt['state']['trunk.w1']
+    got = st['exp_avg'] if kind == 'Adam' else st['momentum_buffer']
+    assert torch.equal(got, mu['trunk.w1'])
+    if kind == 'Adam':
+        assert float(st['step']) == 2.0       # Adam's count
+    # the port restores it into a live state of that optimizer
+    state = _port_state()
+    if kind == 'SGD':
+        state.optimizer = build_optimizer('SGD', ['momentum=0.9'],
+                                          state.model.parameters())
+    from srtpu_torch.train.state import tree_to_state
+    tree_to_state(state, out)
+    assert state.step == 3 and len(state.optimizer.state) == len(sd)
+
+
+def _first(node, names):
+    """The first subtree under one of ``names`` (its 'model' entry)."""
+    for k, v in node.items():
+        if k in names:
+            return v['model']
+        if isinstance(v, dict):
+            found = _first(v, names)
+            if found is not None:
+                return found
+    return None
+
+
+def test_state_from_jax_refuses():
+    from srtpu.optim import build_optimizer as jbo
+    with pytest.raises(NotImplementedError, match='item 16'):
+        convert.state_from_jax(_srtpu_tree(jbo('Ranger', [])))
+    with pytest.raises(NotImplementedError, match='item 16'):
+        convert.state_from_jax(_srtpu_tree(jbo('RMSprop', [])))
+    with pytest.raises(ValueError, match='unknown srtpu optimizer'):
+        convert.state_from_jax(_srtpu_tree(optax.adagrad(1e-2)))
+
+
+def test_relayout_check_catches_a_padding_map(monkeypatch):
+    tree = _srtpu_tree(jax_build_optimizer('ADAM', []))
+    convert.check_relayout(tree['params'], {})
+    real = convert.w_ps_hwio
+
+    def padded(w, n, r):     # the tail's map with a zero phase
+        out = real(w, n, r).clone()
+        out[..., :n] = 0
+        return out
+    monkeypatch.setattr(convert, 'w_ps_hwio', padded)
+    with pytest.raises(ValueError, match='not a pure relayout'):
+        convert.state_from_jax(tree)

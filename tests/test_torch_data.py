@@ -77,6 +77,24 @@ def test_train_loader_matches_srtpu_through_srdata(tmp_path):
     _assert_same_batches([got.peek()], [ref.peek()])
 
 
+def test_srdata_augment_reaches_the_loader(tmp_path):
+    """``SRData(augment=False)`` gives srtpu's unaugmented batches."""
+    root = _dataset(tmp_path, 'Train', SIZES)
+    kw = dict(batch_size=2, datasets_dir=str(root), patch_size=32,
+              scale_factor=4, train_datasets=['Train'], seed=11,
+              augment=False)
+    ref_dm = JaxSRData(eval_datasets=[], num_workers=1, **kw)
+    ref_dm.setup('fit')
+    dm = SRData(**kw)
+    dm.setup('fit')
+    _assert_same_batches(list(dm.train_loader()),
+                         list(ref_dm.train_loader()))
+    aug = SRData(**dict(kw, augment=True))
+    aug.setup('fit')
+    assert any(not np.array_equal(a.lr, b.lr) for a, b in zip(
+        aug.train_loader(), dm.train_loader()))
+
+
 @pytest.mark.parametrize('drop', [True, False])
 @pytest.mark.parametrize('augment', [True, False])
 def test_train_loader_matches_srtpu_direct(tmp_path, drop, augment):

@@ -151,7 +151,8 @@ def test_validate_matches_srtpu(tmp_path, name, caplog):
     assert any(r.getMessage().startswith('val @ epoch 1: Val/MS-SSIM=')
                for r in caplog.records)
     # limit_val_batches: the first image of each dataset alone
-    one = Trainer(TrainerConfig(limit_val_batches=1)).validate(
+    one = Trainer(TrainerConfig(default_root_dir=str(tmp_path / 'one'),
+                                limit_val_batches=1)).validate(
         model, SRData(datasets_dir=str(datasets), eval_datasets=['Val']),
         metrics=['PSNR'])
     assert list(one) == ['Val/PSNR'] and one['Val/PSNR'] != got['Val/PSNR']
@@ -174,7 +175,8 @@ def test_validate_cli_prints_srtpu_keys(tmp_path, capsys):
     assert main(['validate', '--datasets_dir', str(datasets),
                  '--eval_datasets', 'Val', '--weights', str(tmp_path / 'w.pt'),
                  '--metrics', *METRICS, '--device', 'cpu', '--precision', '32',
-                 '--n_feats', '16', '--n_resblocks', '2']) == 0
+                 '--n_feats', '16', '--n_resblocks', '2',
+                 '--default_root_dir', str(tmp_path / 'out')]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert [ln.split(': ')[0] for ln in lines] == sorted(ref)
     for ln in lines:

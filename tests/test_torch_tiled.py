@@ -235,7 +235,9 @@ def test_trainer_tiled_routes_match_srtpu(edsr, tmp_path):
     np.save(val / 'LR' / 'X4' / 'a.npy', lr)
     # an overlap below the receptive radius, so the seams show
     cfg = dict(eval_tile=40, eval_tile_overlap=2)
-    got = Trainer(TrainerConfig(metrics=METRICS, **cfg)).validate(
+    got = Trainer(TrainerConfig(
+        default_root_dir=str(tmp_path / 'val_tiled'), metrics=METRICS,
+        **cfg)).validate(
         model, SRData(datasets_dir=str(root), eval_datasets=['Val']))
     # srtpu's tiled step on the same bucket-padded batch
     lr_p = np.pad(lr, ((0, 28), (0, 6), (0, 0)), mode='edge')[None]
@@ -248,7 +250,9 @@ def test_trainer_tiled_routes_match_srtpu(edsr, tmp_path):
     for k in METRICS:
         assert abs(got[f'Val/{k}'] - float(ref[k])) <= TOL[k], k
     # without eval_tile: the direct step, which differs at the seams
-    direct = Trainer(TrainerConfig(metrics=METRICS)).validate(
+    direct = Trainer(TrainerConfig(
+        default_root_dir=str(tmp_path / 'val_direct'),
+        metrics=METRICS)).validate(
         model, SRData(datasets_dir=str(root), eval_datasets=['Val']))
     assert direct['Val/PSNR'] != got['Val/PSNR']
 

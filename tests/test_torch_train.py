@@ -339,18 +339,21 @@ def test_fit_cli_matches_srtpu_trainer(tmp_path):
 
 
 def test_fit_refuses_what_is_not_ported(tmp_path):
+    """srtpu's knobs the port leaves to ROADMAP.md item 7b (and
+    steps_per_execution to item 18) raise off their defaults, before
+    any data is read; a missing dataset raises srtpu's error."""
     from srtpu_torch.data import SRData
     from srtpu_torch.train import Trainer, TrainerConfig
     model = create_model('EDSR', generator=torch.Generator(), **KW)
     dm = SRData(datasets_dir=str(tmp_path), train_datasets=['Train'])
-    for kw in (dict(monitor='DIV2K/PSNR'), dict(ckpt_path='last')):
-        with pytest.raises(NotImplementedError, match='item 7'):
+    for kw, item in ((dict(profiler_dir=str(tmp_path)), '7b'),
+                     (dict(detect_anomaly=True), '7b'),
+                     (dict(deterministic=True), '7b'),
+                     (dict(remat=True), '7b'),
+                     (dict(log_weights_every_n_epochs=10), '7b'),
+                     (dict(steps_per_execution=4), '18')):
+        with pytest.raises(NotImplementedError, match=f'item {item}'):
             Trainer(TrainerConfig(**kw)).fit(model, dm)
-    # validation during fit is item 7; validate itself is ported
-    with pytest.raises(NotImplementedError, match='item 7'):
-        Trainer(TrainerConfig()).fit(model, SRData(
-            datasets_dir=str(tmp_path), train_datasets=['Train'],
-            eval_datasets=['Set5']))
     with pytest.raises(FileNotFoundError, match='HR images'):
         Trainer(TrainerConfig()).fit(model, dm)
 
@@ -378,3 +381,29 @@ def test_cli_refuses_x3_and_f32_on_cuda(extra):
         ['fit', '--train_datasets', 'Train', '--device', 'cuda', *extra])
     with pytest.raises(ValueError, match='bf16'):
         cli.build_model(args, torch.device('cuda'))
+
+
+@pytest.mark.parametrize('model,extra,ok', [
+    ('SRCNN', [], True), ('EDSR', ['--use_pallas', 'false'], True),
+    ('RCAN', ['--use_pallas', 'false'], True), ('WDSR', [], True),
+    ('SRGAN', [], True), ('EDSR', [], False),
+    ('EDSR', ['--use_pallas', 'true'], False), ('SRResNet', [], False),
+    ('WDSR', ['--use_pallas', 'cs'], False)])
+def test_cli_f32_on_cuda_where_no_kernel(model, extra, ok):
+    """F4: on CUDA, f32 is refused only where the route reaches a kernel;
+    SRCNN and the use_pallas=False routes take it (srtpu's spellings of
+    the precision too)."""
+    from srtpu_torch import cli
+    for precision in ('32', 'bf16', 'bfloat16', '16'):
+        args = cli.build_parser().parse_args(
+            ['fit', '--train_datasets', 'Train', '--model', model,
+             '--precision', precision, *extra])
+        given = {k: getattr(args, k) for k in cli.MODEL_FLAGS
+                 if hasattr(args, k)}
+        if ok or precision != '32':
+            cli.check_card(model, 4, precision, given)
+        else:
+            with pytest.raises(ValueError, match='bf16'):
+                cli.check_card(model, 4, precision, given)
+        assert cli.model_dtype(precision) == (
+            None if precision == '32' else torch.bfloat16)
