@@ -1,7 +1,7 @@
 """Drive srtpu_torch's EDSR-baseline x4, RCAN-10x16 x4, SRResNet x4,
 RDN-B x4, DDBPN x4, WDSR-B x4, SRGAN x4 and SRCNN x4 predict and
 training, EDSR's and RCAN's validate and EDSR's tiled eval and predict on
-one CUDA card, EDSR's, RCAN's and WDSR-B's ``use_pallas=True`` routes, the
+one CUDA card, every route's ``export``, srtpu's Trainer knobs, EDSR's, RCAN's and WDSR-B's ``use_pallas=True`` routes, the
 ops of srtpu's other trunk forms, EDSR at 86 resblocks (where srtpu
 leaves its mega trunk) and EDSR at 256 features (srtpu's XLA trunk).
 
@@ -314,14 +314,40 @@ Phases, each of which raises on failure (nothing is caught):
    launches K1-K3 per image (the model rebuilt from ``hparams.json`` on
    the kernel route). It prints the
    fit's wall time with and without its val passes, a checkpoint save's
-   and a restore's ms and the val pass's ms an image.
+   and a restore's ms and the val pass's ms an image. (a) also logs the
+   weight histograms every 2 epochs;
+28. on phase 27's run (``run_phase28``): the host time ``srtpu::``
+   operators add to ``conv3x3_fwd`` and ``trunk_fwd`` against their
+   ctypes launches called directly; (1) ``export`` of (a)'s checkpoint,
+   EDSR-baseline x4 at full width and depth, ``--size 128x128``,
+   ``512x352`` and ``512x352 --tile 80`` (no kernel launched while
+   tracing), the three programs loaded and run in one fresh ``python3 -c``
+   process that imports ``srtpu_torch.export`` alone: each output equal
+   to the eager predict step's (the tiled predict step's) bit for bit,
+   K1 one call of 16 blocks, K2 3 and K3 1 per image (per tile batch) by
+   the counters, the exported and the eager ms per image (CUDA events,
+   median of 5); (2) RCAN 'cs', RDN-B, DDBPN, WDSR-B 'cs', SRResNet,
+   SRCNN and the EDSR, RCAN and WDSR-B True routes at 2 blocks or groups,
+   exported, saved, loaded: equal to eager predict bit for bit with its
+   launches; (3) 3 train steps with and without ``remat``, EDSR-baseline
+   and RCAN-10x16: parameters bit for bit, peak memory, step ms; (4) two
+   ``--deterministic`` fits of 5 steps each of EDSR-baseline and SRGAN
+   'cs': final weights bit for bit, torch's and cuDNN's flags back after
+   each; the deterministic step's ms; (5) a fit with a NaN weight under
+   ``detect_anomaly`` raises ``FloatingPointError``; the step ms of the
+   fit without the knob beside phase 4's; (6) a fit with
+   ``--profiler_dir``: one trace naming the ``srtpu::`` operators and
+   the engines' kernels; (7) (a)'s TensorBoard event file read back
+   (CRCs; scalars, images, histograms) and its three run assets, with
+   their wall time.
 The line before the last is a JSON object with, per kernel, its launches
 in the main-path runs (EDSR, RCAN, SRResNet, RDN, DDBPN, WDSR, SRGAN
 and SRCNN predict and fit, EDSR and SRResNet x3 predict, SRResNet x3
 fit, the EDSR, RCAN and WDSR-B True routes' predict and fit, EDSR 64 x
 86 fit, EDSR's and RCAN's validate, EDSR's tiled validate and predict
 and its host tiles, phase 27's fit with validation and its ``validate``
-/ ``predict --checkpoint``, and phase 2j's op
+/ ``predict --checkpoint``, phase 28's exported programs and its
+profiled fit, and phase 2j's op
 runs;
 ``launches`` is their sum), its largest error against its plain
 version, its time (K4's, K4r's and the trunk op's: its device time
@@ -353,7 +379,9 @@ import io
 import json
 import logging
 import struct
+import os
 import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -821,6 +849,7 @@ F2_SEAM = 3e-3
 # images), val every 2 epochs on HR 512x512 and 1000x680, the sanity pass
 # on both; the crash at the start of epoch 3
 FITVAL_EPOCHS, FITVAL_SPE, FITVAL_CRASH_STEP = 4, 5, 10
+PHASE4_STEP_MS: dict = {}   # each model's first kernel-path step ms
 FITVAL_HR_SIZES = VAL_HR_SIZES[:2]
 FITVAL_PASSES = 3
 
@@ -4162,6 +4191,7 @@ def run_train(device, smi: str, model: str = 'EDSR', extra=(),
         for key, (step, state) in paths.items():
             times[key] = median_ms(lambda: step(state, lr, hr),
                                    launches=5, windows=3)
+        PHASE4_STEP_MS.setdefault(model, times[False])   # EDSR: phase 4
         for key, label in labels.items():
             print(f'{model} x{scale} train step ({label}): '
                   f'{times[key]:.3f} ms/step = '
@@ -4751,9 +4781,11 @@ def _max_diff(a: dict, b: dict) -> float:
     return max((a[k].float() - b[k].float()).abs().max().item() for k in a)
 
 
-def run_fit_val(device, smi: str) -> dict:
+def run_fit_val(device, smi: str, then=None) -> dict:
     """Phase 27 (the module note). Returns the launch counts of (a) and
-    of (c)'s ``validate`` / ``predict --checkpoint``."""
+    of (c)'s ``validate`` / ``predict --checkpoint``; with ``then``, also
+    those of ``then(device, smi, tmp, checkpoints, assets_s)`` on its
+    run (phase 28: ``run_phase28``), before the run is deleted."""
     per_step = {k: v * FITVAL_EPOCHS * FITVAL_SPE
                 for k, v in STEP_LAUNCHES.items()}
     images = len(FITVAL_HR_SIZES) * FITVAL_PASSES
@@ -4773,14 +4805,26 @@ def run_fit_val(device, smi: str) -> dict:
                 str(FITVAL_EPOCHS), '--precision', 'bf16', '--device',
                 'cuda', '--seed', str(SEED)]
         val = ['--eval_datasets', 'Val', '--check_val_every_n_epoch', '2',
-               '--save_top_k', '1']
+               '--save_top_k', '1', '--log_weights_every_n_epochs', '2']
 
         def argv(run, *extra):
             return base + ['--default_root_dir', str(tmp / run), *extra]
+        assets_s = []       # the run assets' wall seconds, each fit
+        real_assets = Trainer._log_run_assets
+
+        def timed_assets(self, *args):
+            t0 = time.perf_counter()
+            real_assets(self, *args)
+            assets_s.append(time.perf_counter() - t0)
+        Trainer._log_run_assets = timed_assets
+        try:
+            with _cudnn_deterministic():
+                _, wall0, _ = _fitval_run(argv('a0'), {}, 'fit without val')
+                counts, wall, loss_a = _fitval_run(argv('a', *val), expected,
+                                                   'fit with validation')
+        finally:
+            Trainer._log_run_assets = real_assets
         with _cudnn_deterministic():
-            _, wall0, _ = _fitval_run(argv('a0'), {}, 'fit without val')
-            counts, wall, loss_a = _fitval_run(argv('a', *val), expected,
-                                               'fit with validation')
             _fitval_run(argv('b', *val), {}, 'the crashing fit',
                         crash_at=FITVAL_CRASH_STEP)
             _, _, loss_b = _fitval_run(
@@ -4922,11 +4966,456 @@ def run_fit_val(device, smi: str) -> dict:
               f'val pass {np.median(val_ms):.3f} ms an image (PSNR, SSIM; '
               f'HR 512x512 and 1000x680; host clock, median of 3, '
               f'incl. .npy reads, padding, H2D)  [{smi}]')
+        if then is not None:
+            runs.update(then(device, smi, tmp, ckpts, assets_s))
+    return runs
+
+
+# ----------------------------------------------------------- phase 28
+
+# Phase 28's routes exported at 2 blocks or groups: (label, model, flags)
+EXPORT_ROUTES = (
+    ('RCAN cs', 'RCAN', ['--n_resgroups', '2', '--n_resblocks', '2']),
+    ('RDN-B', 'RDN', RDN_ARGS),
+    ('DDBPN', 'DDBPN', ['--n0', str(DDBPN_N0), '--nr', str(DDBPN_NR),
+                        '--depth', '2']),
+    ('WDSR-B cs', 'WDSR', ['--n_feats', str(WDSR_C), '--n_resblocks', '2',
+                           '--use_pallas', 'cs']),
+    ('SRResNet', 'SRResNet', ['--n_resblocks', '2']),
+    ('SRCNN', 'SRCNN', []),
+    ('EDSR True', 'EDSR', ['--n_resblocks', '2', *TRUE_ARGS]),
+    ('RCAN True', 'RCAN', ['--n_resgroups', '2', '--n_resblocks', '2',
+                           *TRUE_ARGS]),
+    ('WDSR-B True', 'WDSR', ['--n_feats', str(WDSR_C), '--n_resblocks', '2',
+                             *TRUE_ARGS]))
+EXPORT_LR = 64          # the routes' LR side
+# every forward launch counter an eval route can move
+FWD_COUNTERS = (trunk_fwd, conv3x3_fwd, CONV5_FWD, K2G_FWD, K2G5_FWD,
+                upsample_fwd, rcab_fwd, rdn_fwd, wdsr_fwd, resblock_fused_fwd,
+                (resblock_trunk_fwd, 'calls'), ca_layer_fwd,
+                wdsr_block_fused_fwd)
+ASSETS = ('model_summary.txt', 'source_snapshot.zip', 'model_graph.txt')
+KNOB_STEPS = 5          # steps of each deterministic, anomaly, profiled fit
+REMAT_STEPS = 3
+# the fresh process that loads the exported EDSR programs: it imports
+# srtpu_torch.export alone (whose load registers the srtpu:: operators)
+# and reads the launch counters from the modules that import brought in
+EXPORT_CHILD = r'''
+import json, sys
+import numpy as np
+import torch
+from srtpu_torch.export import load
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+out = {}
+for name, path, lr_path in json.loads(sys.argv[1]):
+    program = load(path).module()
+    fns = [(sys.modules['srtpu_torch.ops.' + m], f, 'launches')
+           for m, f in (('trunk', 'trunk_fwd'), ('conv', 'conv3x3_fwd'),
+                        ('upsample', 'upsample_fwd'))]
+    lr = torch.from_numpy(np.load(lr_path)).cuda()
+    for mod, f, a in fns:
+        setattr(getattr(mod, f), a, 0)
+    with torch.inference_mode():
+        sr = program(lr)
+    torch.cuda.synchronize()
+    counts = {f: getattr(getattr(mod, f), a) for mod, f, a in fns}
+    np.save(path + '.sr.npy', sr.cpu().numpy())
+    times = []
+    with torch.inference_mode():
+        for i in range(8):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in 'se')
+            s.record()
+            program(lr)
+            e.record()
+            e.synchronize()
+            if i >= 3:
+                times.append(s.elapsed_time(e))
+    out[name] = {'counts': counts, 'ms': float(np.median(times))}
+print(json.dumps(out))
+'''
+
+
+def _fwd_counts() -> dict:
+    return {_counter_name(k): getattr(*_counter(k)) for k in FWD_COUNTERS}
+
+
+def _zero_fwd() -> None:
+    for k in FWD_COUNTERS:
+        setattr(*_counter(k), 0)
+
+
+def _export_edsr(device, smi: str, tmp: Path, ckpts: Path) -> dict:
+    """Phase 28 (1): EDSR-baseline x4 from phase 27's checkpoint through
+    the export CLI, loaded and run in a fresh process, against the eager
+    predict (and tiled predict) step bit for bit; K1-K3 per image (per
+    tile batch)."""
+    args = cli.build_parser().parse_args(
+        ['validate', '--checkpoint', str(ckpts), '--device', 'cuda'])
+    model, _, _ = cli._restore(args, device)
+    model.eval()
+    jobs, eager, want, per = [], {}, {}, {}
+    for h, w, tile in ((128, 128, 0), (512, 352, 0), (512, 352, TILE)):
+        name = f'{h}x{w}' + (f' --tile {tile}' if tile else '')
+        out = tmp / f'edsr_{h}x{w}_{tile}.pt2'
+        extra = ['--tile', str(tile), '--tile-overlap',
+                 str(TILE_OVERLAP)] if tile else []
+        _zero_fwd()
+        t0 = time.perf_counter()
+        _cli_counted(['export', '--checkpoint', str(ckpts), '--out',
+                      str(out), '--size', f'{h}x{w}', '--device', 'cuda',
+                      *extra], {}, f'export {name}')
+        export_s = time.perf_counter() - t0
+        need(not any(_fwd_counts().values()),
+             f'export {name} launched a kernel: {_fwd_counts()}')
+        lr = torch.from_numpy(np.random.default_rng(SEED + h).random(
+            (1, h, w, 3), dtype=np.float32)).to(device)
+        np.save(tmp / f'lr_{h}x{w}.npy', lr.cpu().numpy())
+        step = (make_tiled_predict_step(model, SCALE, tile, TILE_OVERLAP,
+                                        TILE_BATCH) if tile
+                else make_predict_step(model))
+        want[name] = step(lr).cpu().numpy()
+        eager[name] = median_ms(lambda: step(lr), launches=1, windows=5)
+        per[name] = (_tile_batches(h, w, tile, TILE_OVERLAP, TILE_BATCH)
+                     if tile else 1)
+        print(f'phase 28: export EDSR-baseline x4 {name}: '
+              f'{out.stat().st_size:,} bytes in {export_s:.3f} s (CLI, '
+              f'host clock), no kernel launched while tracing')
+        jobs.append((name, str(out), str(tmp / f'lr_{h}x{w}.npy')))
+    proc = subprocess.run(
+        [sys.executable, '-c', EXPORT_CHILD, json.dumps(jobs)],
+        cwd=Path(__file__).resolve().parent, capture_output=True,
+        text=True, timeout=600)
+    need(proc.returncode == 0, f'the export child failed:\n{proc.stderr}')
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    expect = {'trunk_fwd': L, 'conv3x3_fwd': 3, 'upsample_fwd': 1}
+    counts = {}
+    for name, path, _ in jobs:
+        sr = np.load(path + '.sr.npy')
+        need(sr.shape == want[name].shape and np.array_equal(sr, want[name]),
+             f'exported EDSR {name}: max |d| '
+             f'{np.abs(sr - want[name]).max()} against eager predict')
+        c = got[name]['counts']
+        need(c == {k: v * per[name] for k, v in expect.items()},
+             f'exported EDSR {name}: launches {c}, expected {expect} x '
+             f'{per[name]}')
+        counts[name] = c
+        print(f'phase 28: exported EDSR-baseline x4 {name}, loaded in a '
+              f'fresh process: equal to eager predict bit for bit; '
+              f'launches {c} = K1 1 call ({L} blocks), K2 3, K3 1 per '
+              + ('tile batch x ' + str(per[name]) if per[name] > 1
+                 else 'image')
+              + f'; {got[name]["ms"]:.3f} ms exported against '
+              f'{eager[name]:.3f} ms eager per image (CUDA events, median '
+              f'of 5)  [{smi}]')
+    return {'export_edsr': {trunk_fwd: sum(c['trunk_fwd']
+                                           for c in counts.values()),
+                            conv3x3_fwd: sum(c['conv3x3_fwd']
+                                             for c in counts.values()),
+                            upsample_fwd: sum(c['upsample_fwd']
+                                              for c in counts.values())}}
+
+
+def _export_routes(device, smi: str, tmp: Path) -> dict:
+    """Phase 28 (2): every other route at 2 blocks or groups, exported,
+    saved and loaded, equal to eager predict bit for bit with the same
+    launches."""
+    from srtpu_torch.export import (export_serving, load, save,
+                                    srtpu_ops)
+    runs = {}
+    for label, model_name, flags in EXPORT_ROUTES:
+        args = cli.build_parser().parse_args(
+            ['predict', '--model', model_name, *flags, '--seed',
+             str(SEED), '--device', 'cuda'])
+        model = cli.build_model(args, device).eval()
+        path = tmp / f'{model_name}_{len(runs)}.pt2'
+        t0 = time.perf_counter()
+        save(export_serving(model, 1, EXPORT_LR, EXPORT_LR), path)
+        export_s = time.perf_counter() - t0
+        program = load(path)
+        nodes = srtpu_ops(program)
+        lr = torch.rand((1, EXPORT_LR, EXPORT_LR, 3),
+                        generator=torch.Generator().manual_seed(SEED)).to(
+                            device)
+        _zero_fwd()
+        want = make_predict_step(model)(lr)
+        torch.cuda.synchronize()
+        eager = _fwd_counts()
+        _zero_fwd()
+        with torch.inference_mode():
+            got = program.module()(lr)
+        torch.cuda.synchronize()
+        counts = _fwd_counts()
+        need(torch.equal(got, want), f'exported {label}: max |d| '
+             f'{(got - want).abs().max().item()} against eager')
+        need(counts == eager, f'exported {label}: launches {counts}, '
+             f'eager {eager}')
+        need(bool(nodes) == any(eager.values()),
+             f'exported {label}: nodes {nodes}, eager launches {eager}')
+        runs[f'export_{model_name.lower()}_{len(runs)}'] = {
+            k: getattr(*_counter(k)) for k in FWD_COUNTERS}
+        print(f'phase 28: exported {label} (LR {EXPORT_LR}x{EXPORT_LR}) in '
+              f'{export_s:.3f} s: {nodes or "no srtpu:: operator"}; equal '
+              f'to eager bit for bit, launches '
+              + (', '.join(f'{k} {v}' for k, v in counts.items() if v)
+                 or 'none'))
+    return runs
+
+
+def _peak_steps(net, batches, remat: bool):
+    """REMAT_STEPS train steps of a copy of ``net`` (with or without
+    remat): its final state dict, the peak of allocated memory above
+    what was allocated before, and the median step ms of 5 more."""
+    m = copy.deepcopy(net)
+    st = TrainState(m, build_optimizer('ADAM', ['lr=1e-4'],
+                                       m.parameters()))
+    step = make_train_step(parse_losses('l1'), remat=remat)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for lr, hr in batches:
+        step(st, lr, hr)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    sd = {k: v.clone() for k, v in m.state_dict().items()}
+    lr, hr = batches[0]
+    ms = median_ms(lambda: step(st, lr, hr), launches=1, windows=5)
+    return sd, peak, ms
+
+
+def _remat(device, smi: str, tmp: Path) -> None:
+    """Phase 28 (3): 3 steps with and without remat, EDSR-baseline and
+    RCAN-10x16 at the bench recipe: parameters bit for bit, peak memory,
+    step ms."""
+    data = fit_data(tmp / 'remat', SCALE, TRAIN_PATCH)
+    batches = fit_batches(data, SCALE, TRAIN_PATCH, device, n=REMAT_STEPS)
+    for label, flags in (('EDSR-baseline', []), ('RCAN-10x16', RCAN_ARGS)):
+        model = 'RCAN' if flags else 'EDSR'
+        net = cli.build_model(cli.build_parser().parse_args(
+            ['fit', '--model', model, '--train_datasets', 'Train', *flags,
+             '--seed', str(SEED)]), device)
+        with _cudnn_deterministic():
+            plain_sd, plain_peak, plain_ms = _peak_steps(net, batches, False)
+            remat_sd, remat_peak, remat_ms = _peak_steps(net, batches, True)
+        need(all(torch.equal(plain_sd[k], remat_sd[k]) for k in plain_sd),
+             f'{label}: remat parameters differ from the plain step\'s')
+        print(f'phase 28: {label} x4 remat, {REMAT_STEPS} steps (batch '
+              f'{TRAIN_BATCH}, LR 32x32): parameters equal bit for bit; '
+              f'peak memory above the state {plain_peak / 2 ** 20:.1f} MiB '
+              f'-> {remat_peak / 2 ** 20:.1f} MiB with remat; step '
+              f'{plain_ms:.3f} -> {remat_ms:.3f} ms (CUDA events, median '
+              f'of 5)  [{smi}]')
+
+
+def _fit_argv(data: Path, run: Path, steps: int, *extra) -> list:
+    return ['fit', '--model', 'EDSR', '--scale_factor', str(SCALE),
+            '--datasets_dir', str(data), '--train_datasets', 'Train',
+            '--batch_size', str(TRAIN_BATCH), '--patch_size',
+            str(TRAIN_PATCH), '--optimizer_params', 'lr=1e-4',
+            '--max_epochs', str(steps), '--device', 'cuda', '--seed',
+            str(SEED), '--default_root_dir', str(run), *extra]
+
+
+def _flags() -> tuple:
+    cudnn = torch.backends.cudnn
+    return (torch.are_deterministic_algorithms_enabled(),
+            cudnn.deterministic, cudnn.benchmark)
+
+
+def _deterministic(device, smi: str, tmp: Path) -> None:
+    """Phase 28 (4): two deterministic 5-step fits each of EDSR-baseline
+    and SRGAN 'cs' equal bit for bit; the flags back after; the
+    deterministic step's ms."""
+    data = fit_data(tmp / 'det', SCALE, TRAIN_PATCH)
+    before = _flags()
+    for label in ('EDSR-baseline', 'SRGAN cs'):
+        weights = []
+        for i in range(2):
+            run = tmp / 'det' / f'{label[:4]}{i}'
+            argv = (_gan_argv(data, run) + ['--max_epochs', str(KNOB_STEPS)]
+                    if label.startswith('SRGAN')
+                    else _fit_argv(data, run, KNOB_STEPS))
+            _cli_counted(argv + ['--deterministic', 'true'], {},
+                         f'{label} deterministic fit')
+            need(_flags() == before, f'{label}: deterministic flags '
+                 f'{_flags()} left set, before {before}')
+            weights.append(torch.load(run / 'final_weights.pt',
+                                      weights_only=True))
+        need(all(torch.equal(weights[0][k], weights[1][k])
+                 for k in weights[0]),
+             f'{label}: two deterministic fits differ')
+        print(f'phase 28: {label} x4, two --deterministic fits of '
+              f'{KNOB_STEPS} steps: final weights equal bit for bit; '
+              f'torch.are_deterministic_algorithms_enabled, '
+              f'cudnn.deterministic, cudnn.benchmark back to {before}')
+    net = cli.build_model(cli.build_parser().parse_args(
+        _fit_argv(data, tmp, 1)), device)
+    lr, hr = fit_batches(data, SCALE, TRAIN_PATCH, device, n=1)[0]
+    ms = {}
+    for det in (False, True):
+        m = copy.deepcopy(net)
+        st = TrainState(m, build_optimizer('ADAM', ['lr=1e-4'],
+                                           m.parameters()))
+        step = make_train_step(parse_losses('l1'))
+        prev = train_loop.set_deterministic(device) if det else None
+        try:
+            ms[det] = median_ms(lambda: step(st, lr, hr), launches=1,
+                                windows=5)
+        finally:
+            train_loop.restore_deterministic(prev)
+    print(f'phase 28: EDSR-baseline x4 train step {ms[False]:.3f} ms, '
+          f'deterministic {ms[True]:.3f} ms (CUDA events, median of 5)  '
+          f'[{smi}]')
+
+
+def _step_ms_fit(argv, what: str) -> list:
+    """``cli.main(argv)`` with each train step's ms (CUDA events) kept."""
+    times = []
+    real = train_loop.make_train_step
+
+    def make(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def timed(state, lr, hr):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in 'se')
+            s.record()
+            logs = step(state, lr, hr)
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+            return logs
+        return timed
+    train_loop.make_train_step = make
+    try:
+        _cli_counted(argv, {}, what)
+    finally:
+        train_loop.make_train_step = real
+    return times
+
+
+def _anomaly_profiler(device, smi: str, tmp: Path) -> dict:
+    """Phase 28 (5) and (6): a fit with a NaN weight under detect_anomaly
+    raises FloatingPointError; the fit without the knob, its step ms; a
+    fit with profiler_dir writes a trace naming the srtpu:: operators and
+    the kernels."""
+    data = fit_data(tmp / 'knobs', SCALE, TRAIN_PATCH)
+    argv = _fit_argv(data, tmp / 'nan', KNOB_STEPS)
+    model = cli.build_model(cli.build_parser().parse_args(argv), device)
+    with torch.no_grad():
+        model.head.weight[0, 0, 0, 0] = float('nan')
+    dm = SRData(datasets_dir=str(data), train_datasets=['Train'],
+                batch_size=TRAIN_BATCH, patch_size=TRAIN_PATCH,
+                scale_factor=SCALE, seed=SEED)
+    trainer = Trainer(TrainerConfig(default_root_dir=str(tmp / 'nan'),
+                                    max_epochs=KNOB_STEPS,
+                                    detect_anomaly=True))
+    try:
+        trainer.fit(model, dm, optimizer_params=['lr=1e-4'])
+    except FloatingPointError as e:
+        print(f'phase 28: detect_anomaly, a NaN weight in head.weight: '
+              f'FloatingPointError: {e}')
+    else:
+        need(False, 'detect_anomaly: the NaN fit did not raise')
+    finally:
+        trainer.close()
+    times = _step_ms_fit(_fit_argv(data, tmp / 'plain', KNOB_STEPS),
+                         'the fit without detect_anomaly')
+    print(f'phase 28: EDSR-baseline x4 fit without detect_anomaly: steps '
+          + ' '.join(f'{t:.3f}' for t in times) + ' ms (CUDA events; '
+          f'phase 4: {PHASE4_STEP_MS.get("EDSR", float("nan")):.3f} ms)  '
+          f'[{smi}]')
+    prof = tmp / 'prof'
+    counts, _, _ = _cli_counted(
+        _fit_argv(data, tmp / 'profiled', 2, '--profiler_dir', str(prof)),
+        STEP_LAUNCHES, 'the profiled fit')
+    _need_counts(counts, STEP_LAUNCHES, 2, 'the profiled fit')
+    traces = sorted(prof.glob('*.pt.trace.json'))
+    need(len(traces) == 1, f'profiler_dir holds {traces}')
+    text = traces[0].read_text()
+    names = ('srtpu::trunk_fwd', 'srtpu::conv_fwd', 'srtpu::upsample_fwd',
+             'conv_sm90_kernel', 'wgrad_sm90_kernel')
+    missing = [n for n in names if n not in text]
+    need(not missing, f'the profiler trace lacks {missing}')
+    print(f'phase 28: profiler_dir: {traces[0].name} '
+          f'({len(text) / 2 ** 20:.1f} MiB) names ' + ', '.join(names))
+    return {'profiled_fit': counts}
+
+
+def check_records(root: Path, assets_s: list, smi: str) -> None:
+    """Phase 28 (7): the event file of phase 27's fit reads back (CRCs,
+    scalars, images, histograms) and the three run assets exist."""
+    from srtpu_torch.utils.tensorboard import read_events
+    files = sorted((root / 'tensorboard_logs').glob('events.out.tfevents.*'))
+    need(len(files) == 1, f'tensorboard_logs holds {files}')
+    events = read_events(files[0])
+    need(events[0]['file_version'] == 'brain.Event:2',
+         'the event file has no version record first')
+    kinds = {'simple_value': 0, 'image': 0, 'histo': 0}
+    for ev in events[1:]:
+        for v in ev['values']:
+            for k in kinds:
+                kinds[k] += k in v
+    tags = {v['tag'] for ev in events for v in ev['values']}
+    need(all(kinds.values()) and 'Val/PSNR' in tags
+         and any(t.startswith('weights/') for t in tags),
+         f'the event file holds {kinds}')
+    for name in ASSETS:
+        need((root / name).is_file() and (root / name).stat().st_size > 0,
+             f'run asset {name} missing')
+    print(f'phase 28: TensorBoard: {files[0].name}, {len(events)} records, '
+          f'CRCs good: {kinds["simple_value"]} scalars, {kinds["image"]} '
+          f'images, {kinds["histo"]} histograms; run assets '
+          + ', '.join(f'{n} {(root / n).stat().st_size:,} B' for n in ASSETS)
+          + '; written in ' + ', '.join(f'{s:.3f}' for s in assets_s)
+          + f' s a fit (host clock)  [{smi}]')
+
+
+def _operator_host_cost(device, smi: str) -> None:
+    """Phase 28: the host time an ``srtpu::`` operator adds to a launch:
+    ``conv3x3_fwd`` (the operator) against its CUDA implementation called
+    directly (the ctypes launch alone), and ``trunk_fwd`` the same way, at
+    the predict shape (host clock, median of 51 calls, the device idle
+    before each)."""
+    from srtpu_torch.ops.conv import conv_fwd_cuda
+    from srtpu_torch.ops.trunk import trunk_fwd_cuda
+    gen = torch.Generator().manual_seed(SEED)
+    x = _uniform(gen, (1, 128, 128, C), 1.0, device, torch.bfloat16)
+    w = _uniform(gen, (3, 3, C, C), 0.05, device, torch.bfloat16)
+    b = _uniform(gen, (C,), 0.05, device, torch.float32)
+    ws, bs = w.expand(L, *w.shape).contiguous(), b.expand(L, C).contiguous()
+    pairs = (('conv3x3_fwd', lambda: conv3x3_fwd(x, w, b),
+              lambda: conv_fwd_cuda(x, w, b, False)),
+             ('trunk_fwd', lambda: trunk_fwd(x, ws, bs, ws, bs, 1.0),
+              lambda: trunk_fwd_cuda(x, ws, bs, ws, bs, 1.0, False)))
+    for name, op, direct in pairs:
+        t_op, t_direct = host_ms(op, calls=51), host_ms(direct, calls=51)
+        print(f'phase 28: host time of {name} through srtpu::: '
+              f'{t_op * 1e3:.1f} us, its ctypes launch called directly '
+              f'{t_direct * 1e3:.1f} us: the operator adds '
+              f'{(t_op - t_direct) * 1e3:.1f} us a call  [{smi}]')
+
+
+def run_phase28(device, smi: str, tmp: Path, ckpts: Path,
+                assets_s: list) -> dict:
+    """Phase 28 on phase 27's run (the module note). Returns the launch
+    counts of its main-path runs."""
+    t0 = time.perf_counter()
+    _operator_host_cost(device, smi)
+    runs = _export_edsr(device, smi, tmp, ckpts)
+    runs.update(_export_routes(device, smi, tmp))
+    _remat(device, smi, tmp)
+    _deterministic(device, smi, tmp)
+    runs.update(_anomaly_profiler(device, smi, tmp))
+    check_records(tmp / 'a', assets_s, smi)
+    print(f'phase 28 took {time.perf_counter() - t0:.1f} s')
     return runs
 
 
 def main() -> None:
     t_start = time.perf_counter()
+    # phase 28's deterministic fits need it before the first cuBLAS call
+    os.environ.setdefault('CUBLAS_WORKSPACE_CONFIG',
+                          train_loop.CUBLAS_DETERMINISTIC)
 
     def lap(what: str) -> None:
         print(f'chip_smoke: {what} done at {time.perf_counter() - t_start:.1f}'
@@ -5033,8 +5522,8 @@ def main() -> None:
                                          RCAN_PREDICT_LAUNCHES, full=False)
     runs.update(run_tiled(device, smi, stats))
     lap('phases 24-26')
-    runs.update(run_fit_val(device, smi))
-    lap('phase 27')
+    runs.update(run_fit_val(device, smi, then=run_phase28))
+    lap('phases 27 and 28')
     rep = 'srtpu/ops/cs_conv.py:'
     bn = 'srtpu/ops/bn_resblock_cs.py:'
     meta = [('K1', 'K1 trunk_fwd (per block conv1 at K2 EPI 0, conv2 at '

@@ -1,5 +1,5 @@
-"""Command line of the port (srtpu/cli.py): ``fit``, ``validate`` and
-``predict``::
+"""Command line of the port (srtpu/cli.py): ``fit``, ``validate``,
+``predict`` and ``export``::
 
     python -m srtpu_torch fit --datasets_dir D --train_datasets T [U ...] \\
         --model EDSR --scale_factor 4 --n_feats 64 --n_resblocks 16 \\
@@ -23,6 +23,8 @@
     python -m srtpu_torch validate --checkpoint OUT/checkpoints
     python -m srtpu_torch predict --checkpoint OUT/checkpoints \\
         --predict_datasets X
+    python -m srtpu_torch export --checkpoint OUT/checkpoints \\
+        --out model.pt2 --size 128x128 [--tile 80] [--mlir graph.txt]
 
 The flags are srtpu's config keys; the defaults follow
 ``srtpu/config.py``. A model's own flags (``--n_feats``,
@@ -94,11 +96,25 @@ checkpoints directory) resumes a run; a crash saves ``last`` first.
 ``--save_results`` / ``--save_results_from_epoch`` write val images,
 ``--limit_val_batches``, ``--overfit_batches``,
 ``--accumulate_grad_batches``, ``--gradient_clip_val`` /
-``--gradient_clip_algorithm`` and ``--augment`` are srtpu's knobs. With
+``--gradient_clip_algorithm``, ``--augment``, ``--remat``,
+``--deterministic`` (weights from seed 0, deterministic algorithms on
+the card), ``--detect_anomaly``, ``--profiler_dir`` and
+``--log_weights_every_n_epochs`` are srtpu's knobs (``Trainer``'s
+note); ``fit`` also writes TensorBoard events to
+``<default_root_dir>/tensorboard_logs`` and srtpu's run assets
+(``model_summary.txt``, ``source_snapshot.zip``, ``model_graph.txt``). With
 ``--config`` (srtpu's YAML; needs PyYAML) the config and its dotted
 ``key=value`` overrides set everything but ``--device``. A run that
 ends runs ``$SRTPU_NOTIFY_CMD`` with a message, or POSTs it to
 ``$SRTPU_NOTIFY_URL``, where set (srtpu's ``_notify``).
+
+``export`` (srtpu's) writes the serving forward of ``--checkpoint``'s
+model (rebuilt from ``hparams.json``) as a ``torch.export`` artifact at
+a static ``--batch`` x ``--size`` LR shape, clipped to [0, 1] in f32,
+``--tile N`` the tile-batched forward; load it with
+:func:`srtpu_torch.export.load`. An artifact exported on the card
+launches the port's kernels (``srtpu::`` operators) and runs only on a
+card; ``--platforms`` takes one device, ``cuda`` or ``cpu``.
 """
 
 from __future__ import annotations
@@ -107,6 +123,7 @@ import argparse
 import inspect
 import json
 import logging
+import os
 import sys
 import time
 from pathlib import Path
@@ -198,6 +215,17 @@ def build_parser() -> argparse.ArgumentParser:
     fit.add_argument('--accumulate_grad_batches', type=int, default=1)
     fit.add_argument('--gradient_clip_val', type=float, default=None)
     fit.add_argument('--gradient_clip_algorithm', default='norm')
+    fit.add_argument('--remat', type=_bool, default=False,
+                     help='recompute the forward in the backward')
+    fit.add_argument('--deterministic', type=_bool, default=False,
+                     help='weights from seed 0; deterministic algorithms '
+                          'on the card')
+    fit.add_argument('--detect_anomaly', type=_bool, default=False,
+                     help='raise FloatingPointError at the first NaN')
+    fit.add_argument('--profiler_dir', default=None,
+                     help='write a torch.profiler trace of the training '
+                          'epochs here')
+    fit.add_argument('--log_weights_every_n_epochs', type=int, default=50)
     _tile_args(fit)
     pr = sub.add_parser('predict', help='super-resolve predict datasets')
     _model_args(pr, seed=0)
@@ -213,6 +241,31 @@ def build_parser() -> argparse.ArgumentParser:
     val.add_argument('--metrics', nargs='+', default=None,
                      help="default: the checkpoint's, else PSNR SSIM")
     _tile_args(val)
+    exp = sub.add_parser('export', help='serialize the serving forward '
+                         '(torch.export)')
+    exp.add_argument('--checkpoint', required=True,
+                     help='checkpoints directory written by fit')
+    exp.add_argument('--out', required=True, help='output artifact path')
+    exp.add_argument('--batch', type=int, default=1)
+    exp.add_argument('--size', default='256x256',
+                     help='LR input HxW (static serving shape)')
+    exp.add_argument('--platforms', nargs='+', default=None,
+                     help='one device the artifact is for: cuda or cpu (a '
+                          "torch.export artifact holds one device's "
+                          'operators; default: --device)')
+    exp.add_argument('--mlir', default=None,
+                     help="also write the exported graph's text here (its "
+                          'srtpu:: operators and stock ops; srtpu writes '
+                          'StableHLO)')
+    exp.add_argument('--tile', type=int, default=0,
+                     help='>0: trace the tile-batched forward (batches of '
+                          '16 LR tiles of this side, train/tiled.py); 0: '
+                          'the full-image forward')
+    exp.add_argument('--tile-overlap', type=int, default=8,
+                     help='LR px halo per tile edge for --tile')
+    exp.add_argument('--device', default='cuda')
+    exp.add_argument('overrides', nargs='*',
+                     help='data.<key>=<value> overrides of the checkpoint')
     return p
 
 
@@ -269,12 +322,14 @@ def _make_model(name: str, scale: int, precision, seed: int, device,
                         **model_kw)
 
 
-def build_model(args, device: torch.device) -> torch.nn.Module:
-    """The model drawn from ``args.seed``, then loaded from
-    ``args.weights`` when given."""
+def build_model(args, device: torch.device, seed: int | None = None
+                ) -> torch.nn.Module:
+    """The model drawn from ``seed`` (default ``args.seed``), then loaded
+    from ``args.weights`` when given."""
     given = {k: getattr(args, k) for k in MODEL_FLAGS if hasattr(args, k)}
+    seed = args.seed if seed is None else seed
     model = _make_model(args.model, args.scale_factor, args.precision,
-                        args.seed, device, given)
+                        seed, device, given)
     weights = getattr(args, 'weights', None)
     if weights:
         state = torch.load(weights, map_location='cpu', weights_only=True)
@@ -282,7 +337,7 @@ def build_model(args, device: torch.device) -> torch.nn.Module:
         _logger.info('loaded weights from %s', weights)
     else:
         _logger.info('no --weights: parameters initialised from seed %d',
-                     args.seed)
+                     seed)
     return model
 
 
@@ -292,7 +347,9 @@ def _flag_config(args) -> tuple:
     if not args.train_datasets:
         raise ValueError('fit needs --train_datasets (or --config)')
     device = resolve_device(args.device)
-    model = build_model(args, device)
+    # srtpu's deterministic state comes from seed 0, its loader from seed
+    model = build_model(args, device, seed=0 if args.deterministic
+                        else args.seed)
     given = {k: getattr(args, k) for k in MODEL_FLAGS if hasattr(args, k)}
     data = dict(batch_size=args.batch_size, patch_size=args.patch_size,
                 scale_factor=args.scale_factor, augment=args.augment,
@@ -319,7 +376,10 @@ def _flag_config(args) -> tuple:
         accumulate_grad_batches=args.accumulate_grad_batches,
         gradient_clip_val=args.gradient_clip_val,
         gradient_clip_algorithm=args.gradient_clip_algorithm,
-        eval_tile=args.eval_tile, eval_tile_overlap=args.eval_tile_overlap)
+        eval_tile=args.eval_tile, eval_tile_overlap=args.eval_tile_overlap,
+        remat=args.remat, deterministic=args.deterministic,
+        detect_anomaly=args.detect_anomaly, profiler_dir=args.profiler_dir,
+        log_weights_every_n_epochs=args.log_weights_every_n_epochs)
     hparams = {'model': args.model,
                'init_args': {'scale_factor': args.scale_factor,
                              'channels': 3, **given},
@@ -358,6 +418,12 @@ def cmd_fit(args) -> int:
             raise ValueError(f'key=value overrides need --config: '
                              f'{args.overrides}')
         model, dm, tcfg, fit_kwargs = _flag_config(args)
+    if tcfg.deterministic:
+        # before the process's first cuBLAS call (building the model
+        # makes none), which reads it
+        from .train.loop import CUBLAS_DETERMINISTIC
+        os.environ.setdefault('CUBLAS_WORKSPACE_CONFIG',
+                              CUBLAS_DETERMINISTIC)
     root = Path(tcfg.default_root_dir)
     log = attach_run_log(root)
     name = fit_kwargs['hparams']['model']
@@ -493,6 +559,46 @@ def cmd_validate(args) -> int:
     return 0
 
 
+def export_device(args) -> str:
+    """The device of ``export``'s artifact: ``--platforms``' one value
+    (cuda or cpu), else ``--device``. A torch.export artifact holds one
+    device's operators, so a list of platforms, or a TPU, raises."""
+    if not args.platforms:
+        return args.device
+    if len(args.platforms) != 1:
+        raise ValueError(
+            f'--platforms {" ".join(args.platforms)}: a torch.export '
+            f"artifact holds one device's operators (srtpu_torch's run on "
+            f'cuda, their plain versions on cpu); export once per device')
+    platform = args.platforms[0].lower()
+    if platform not in ('cuda', 'cpu'):
+        raise ValueError(f'--platforms {args.platforms[0]}: srtpu_torch '
+                         f'exports for cuda (its kernels) or cpu (their '
+                         f'plain versions); a TPU artifact is srtpu\'s')
+    return platform
+
+
+def cmd_export(args) -> int:
+    """srtpu's ``cmd_export``: the model rebuilt from the checkpoint's
+    ``hparams.json``, its serving forward exported
+    (:func:`~srtpu_torch.export.export_serving`) and saved."""
+    from .export import export_serving, graph_text, save
+    device = resolve_device(export_device(args))
+    model, hp, data = _restore(args, device)
+    scale = int(data.get('scale_factor', 4))
+    h, w = (int(v) for v in args.size.lower().split('x'))
+    program = export_serving(model, args.batch, h, w, tile=args.tile,
+                             overlap=args.tile_overlap)
+    size = save(program, args.out)
+    if args.mlir:
+        Path(args.mlir).write_text(graph_text(program))
+    print(f'exported {hp["model"]} x{scale}: LR {(args.batch, h, w, 3)} -> '
+          f'SR {(args.batch, h * scale, w * scale, 3)}, platforms '
+          f'[{device.type!r}], {size:,} bytes -> {args.out}'
+          + (f' (+ graph text {args.mlir})' if args.mlir else ''))
+    return 0
+
+
 def _notify(message: str) -> None:
     """srtpu's run notification: runs ``$SRTPU_NOTIFY_CMD message`` and
     POSTs ``{"text": message}`` to ``$SRTPU_NOTIFY_URL``, each where set;
@@ -524,7 +630,8 @@ def main(argv=None) -> int:
     logging.basicConfig(format='%(asctime)s %(name)s %(message)s')
     _logger.setLevel(logging.INFO)
     return {'fit': cmd_fit, 'predict': cmd_predict,
-            'validate': cmd_validate}[args.command](args)
+            'validate': cmd_validate,
+            'export': cmd_export}[args.command](args)
 
 
 if __name__ == '__main__':

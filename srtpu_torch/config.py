@@ -280,7 +280,8 @@ def model_dtype(precision) -> torch.dtype | None:
 
 def build_all(cfg: dict, device=None):
     """cfg -> (model, datamodule, trainer_config, fit_kwargs), as srtpu's
-    ``build_all``: the model on ``device`` drawn from ``seed``, the
+    ``build_all``: the model on ``device`` drawn from ``seed`` (from 0
+    under ``trainer.deterministic``, as srtpu draws its state), the
     loader's stream from the same seed. Keys the port does not read
     (``data.prefetch``, ``cache_train_images``, ``num_workers``,
     ``trainer.devices`` and the multi-host keys) are kept in the hparams
@@ -299,9 +300,11 @@ def build_all(cfg: dict, device=None):
     precision = str(train_kw.get('precision',
                                  trainer.get('precision', 'bf16')))
     seed = cfg.get('seed', 42)
+    # srtpu's deterministic state comes from seed 0, its loader from seed
+    init_seed = 0 if trainer.get('deterministic', False) else seed
     model = create_model(model_cfg['class_path'],
                          dtype=model_dtype(precision), device=device,
-                         generator=torch.Generator().manual_seed(seed),
+                         generator=torch.Generator().manual_seed(init_seed),
                          **model_kw)
     dm = SRData(
         augment=data['augment'], batch_size=data['batch_size'],

@@ -634,7 +634,60 @@ def _find_optimizer(node: dict):
     raise ValueError(
         f'unknown srtpu optimizer state structure (keys {sorted(node)}); '
         'state_from_jax takes ADAM bare or under the clip chain, and SGD '
-        'with its trace (ROADMAP.md queue 1, item 7b)')
+        'with its trace')
+
+
+def _opt_from_jax(opt_state: dict, mapped, keys: list[str]) -> dict:
+    """One port optimizer tree (:func:`~srtpu_torch.train.state
+    .state_to_tree`'s ``opt_state`` entry) from srtpu's ``opt_state`` of
+    the parameters ``keys``: Adam's ``mu`` and ``nu`` (SGD's ``trace``,
+    MultiSteps' ``acc_grads``) through ``mapped`` (a moment tree -> its
+    tensors by key), ``count`` as each parameter's ``step`` and as the
+    schedule's position."""
+    kind, node, multi = _find_optimizer(opt_state)
+    if kind == 'ADAM':
+        mu, nu = mapped(node['mu']), mapped(node['nu'])
+        count = int(np.asarray(node['count']))
+        state = {k: {'step': torch.tensor(float(count)), 'exp_avg': mu[k],
+                     'exp_avg_sq': nu[k]} for k in keys}
+    else:
+        count = None
+        trace = mapped(node['trace'])
+        state = {k: {'momentum_buffer': trace[k]} for k in keys}
+    opt = {'type': {'ADAM': 'Adam', 'SGD': 'SGD'}[kind], 'params': keys,
+           'state': state, 'mini_step': 0, 'acc_grads': None}
+    if multi is not None:
+        opt['mini_step'] = int(np.asarray(multi['mini_step']))
+        if 'acc_grads' in multi:
+            opt['acc_grads'] = mapped(multi['acc_grads'])
+    if count is not None:   # a StepLR's position (the GAN's schedules)
+        opt['schedule'] = {'last_epoch': count, '_step_count': count + 1}
+    return opt
+
+
+def _gan_state_from_jax(tree: dict) -> dict:
+    """srtpu's SRGAN checkpoint (its combined view: ``params`` and
+    ``batch_stats`` under ``generator`` and ``discriminator``,
+    ``opt_state`` under ``g`` and ``d``, srtpu/train/gan.py:33-72) as the
+    port's: the model as :func:`params_from_jax` maps it, each optimizer
+    over its module's parameters, their moments mapped with the other
+    module's leaves at zero."""
+    params, stats = tree['params'], tree.get('batch_stats', {})
+    model = params_from_jax({'params': params, 'batch_stats': stats})
+    check_relayout(params, stats)
+    keys = _parameter_keys(params, stats)
+    opts = {}
+    for key, part in (('g', 'generator'), ('d', 'discriminator')):
+        own = [k for k in keys if k.startswith(part + '.')]
+
+        def mapped(moment: dict, part=part, own=own):
+            full = {n: _like(sub, np.zeros_like) for n, sub in params.items()}
+            full[part] = moment
+            sd = params_from_jax({'params': full, 'batch_stats': stats})
+            return {k: sd[k] for k in own}
+        opts[key] = _opt_from_jax(tree['opt_state'][key], mapped, own)
+    return {'step': int(np.asarray(tree['step'])), 'model': model,
+            'opt_state': opts}
 
 
 def state_from_jax(tree: dict) -> dict:
@@ -645,15 +698,16 @@ def state_from_jax(tree: dict) -> dict:
     :func:`params_from_jax`; Adam's ``mu`` and ``nu`` (SGD's ``trace``,
     MultiSteps' ``acc_grads``) through the same per-leaf map, which must
     be a pure relayout (:func:`check_relayout`); ``count`` becomes each
-    parameter's ``step``. An SRGAN state raises (item 7b)."""
+    parameter's ``step``. srtpu's SRGAN state (G and D, optimizers ``g``
+    and ``d``) becomes the port's SRGAN checkpoint
+    (:func:`_gan_state_from_jax`)."""
     params = tree['params']
     stats = tree.get('batch_stats', {})
     if 'generator' in params:
-        raise NotImplementedError(
-            "state_from_jax of srtpu's SRGAN state (G, D and both "
-            'optimizers) is not ported yet (ROADMAP.md queue 1, item 7b)')
+        return _gan_state_from_jax(tree)
     model = params_from_jax({'params': params, 'batch_stats': stats})
-    kind, node, multi = _find_optimizer(tree.get('opt_state', {}))
+    opt_state = tree.get('opt_state', {})
+    _find_optimizer(opt_state)      # an unported optimizer raises first
     check_relayout(params, stats)
     keys = _parameter_keys(params, stats)
 
@@ -662,20 +716,8 @@ def state_from_jax(tree: dict) -> dict:
                               'batch_stats': stats})
         return {k: sd[k] for k in keys}
 
-    if kind == 'ADAM':
-        mu, nu = mapped(node['mu']), mapped(node['nu'])
-        step = torch.tensor(float(np.asarray(node['count'])))
-        state = {k: {'step': step.clone(), 'exp_avg': mu[k],
-                     'exp_avg_sq': nu[k]} for k in keys}
-    else:
-        trace = mapped(node['trace'])
-        state = {k: {'momentum_buffer': trace[k]} for k in keys}
-    opt = {'type': {'ADAM': 'Adam', 'SGD': 'SGD'}[kind], 'params': keys,
-           'state': state, 'mini_step': 0, 'acc_grads': None}
-    if multi is not None:
-        opt['mini_step'] = int(np.asarray(multi['mini_step']))
-        if 'acc_grads' in multi:
-            opt['acc_grads'] = mapped(multi['acc_grads'])
+    opt = _opt_from_jax(opt_state, mapped, keys)
+    opt.pop('schedule', None)       # the single-model fit has none
     return {'step': int(np.asarray(tree['step'])), 'model': model,
             'opt_state': {'model': opt}}
 

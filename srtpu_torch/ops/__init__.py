@@ -24,7 +24,9 @@ one block of it), ``resblock_fused_trunk`` (EDSR's True-route trunk) and
 ``wdsr_block.wdsr_block_fused``. ``trunk.trunk_xla`` is srtpu's XLA
 trunk past 96 features (stock ops), ``rcab.resgroup_xla`` its RCAN
 residual group there. Kernels build on first use
-(``_build``)."""
+(``_build``). Importing this package registers the forward kernels as
+``srtpu::`` operators (:mod:`._library`), which the forward wrappers
+call."""
 
 from .bn_block import (BNCloseFn, BNResBlockFn, b1_plain, b1_sums, b2_call,
                        b2_plain, b3_call, b3_plain, bn_close, bn_close_ref,
@@ -52,6 +54,7 @@ from .trunk import (TrunkFn, resblock_cs, trunk, trunk_bwd, trunk_bwd_plain,
 from .upsample import (UpsampleFn, upsample, upsample_bwd, upsample_bwd_plain,
                        upsample_fwd, upsample_plain)
 from .wgrad import conv_wgrad, conv_wgrad_plain
+from . import _library  # noqa: E402,F401  registers the srtpu:: operators
 
 __all__ = ['BNCloseFn', 'BNResBlockFn', 'CALayerFn', 'Conv3x3Fn',
            'FusedResBlockFn', 'FusedResBlockV3Fn', 'FusedTrunkFn',

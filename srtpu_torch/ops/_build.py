@@ -154,6 +154,14 @@ def expect(t, name: str, dtype, shape, device, aligned: bool = True) -> None:
         raise ValueError(f'{name} must be contiguous and 16-byte aligned')
 
 
+# the devices an srtpu:: operator has a version for: the card (the
+# kernel) and the CPU (the plain version). A wrapper given a tensor
+# elsewhere (meta, whose fake versions the operators have) calls the
+# kernel's launch directly, whose checks raise; under a fake mode
+# (export) a tensor reports the device it stands for.
+OP_DEVICES = ('cpu', 'cuda')
+
+
 def ptr(t) -> int | None:
     """A tensor's data pointer, or None (a null pointer) for None."""
     return None if t is None else t.data_ptr()

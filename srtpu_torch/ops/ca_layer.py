@@ -57,9 +57,16 @@ def ca_layer_plain(x, w1, b1, w2, b2) -> torch.Tensor:
 def ca_layer_fwd(x, w1, b1, w2, b2) -> torch.Tensor:
     """As :func:`ca_layer_plain`. On CUDA: bf16 x (B, H, W, C) with C a
     multiple of 8, f32 w1 (C, C/r), b1, w2 (C/r, C), b2; two launches,
-    counted once."""
-    if x.device.type == 'cpu':
-        return ca_layer_plain(x, w1, b1, w2, b2)
+    counted once. The registered operator ``srtpu::ca_layer_fwd``
+    (:mod:`._library`)."""
+    if x.device.type not in _build.OP_DEVICES:
+        return ca_layer_fwd_cuda(x, w1, b1, w2, b2)
+    return torch.ops.srtpu.ca_layer_fwd.default(x, w1, b1, w2, b2)
+
+
+def ca_layer_fwd_cuda(x, w1, b1, w2, b2) -> torch.Tensor:
+    """``srtpu::ca_layer_fwd`` on CUDA: the checks, the scratch kept per
+    stream, one ``srt_ca_layer_fwd`` call, the count."""
     bsz, h, w, c = x.shape
     cr = w1.shape[-1]
     if c % 8:

@@ -154,9 +154,16 @@ def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     5x5 256 -> 16 (counted on ``launches*``); DDBPN's projections (x4: 32
     -> 512, 512 -> 32; x2: 32 -> 128, 128 -> 32), its output convs (512
     -> 48, 128 -> 16) and the x3 tails' phase-dense 576 -> 32 (3x3 and
-    5x5) (counted on ``launches_general*``)."""
-    if x.device.type == 'cpu':
-        return conv3x3_plain(x, w, b, relu)
+    5x5) (counted on ``launches_general*``). The registered operator
+    ``srtpu::conv_fwd`` (:mod:`._library`): :func:`conv_fwd_cuda` on the
+    card, :func:`conv3x3_plain` on the CPU."""
+    if x.device.type not in _build.OP_DEVICES:
+        return conv_fwd_cuda(x, w, b, relu)
+    return torch.ops.srtpu.conv_fwd.default(x, w, b, relu)
+
+
+def conv_fwd_cuda(x, w, b, relu: bool) -> torch.Tensor:
+    """``srtpu::conv_fwd`` on CUDA: K2's launch, counted."""
     out = _launch(x, w, b, relu, 'conv3x3_fwd')
     _count(conv3x3_fwd, w.shape[0], w.shape[-2], w.shape[-1])
     return out

@@ -154,29 +154,52 @@ def group_fwd(x, w1s, b1s, w2s, b2s, wds, bds, wus, bus, save: bool = False,
     ``ys`` when given, a contiguous (L, B, H, W, C) of x's dtype). On CUDA
     one host call (five launches an RCAB; ``rcab_fwd.launches`` counts
     the RCABs); with ``plain`` or a CPU tensor :func:`rcab_fwd_plain` per
-    RCAB."""
+    RCAB. Without ``plain`` the registered operator
+    ``srtpu::rcab_group_fwd`` (:mod:`._library`), which writes ys in
+    place."""
+    blocks = (w1s, b1s, w2s, b2s, wds, bds, wus, bus)
+    if save and ys is None:
+        ys = x.new_empty((w1s.shape[0], *x.shape))
+    ys = ys if save else None
+    if plain:
+        got = group_fwd_cpu(x, *blocks, ys)
+    elif x.device.type in _build.OP_DEVICES:
+        got = torch.ops.srtpu.rcab_group_fwd.default(x, *blocks, ys)
+    else:
+        got = group_fwd_cuda(x, *blocks, ys)
+    return (ys, *got) if save else got[0]
+
+
+def group_fwd_cpu(x, w1s, b1s, w2s, b2s, wds, bds, wus, bus, ys) -> list:
+    """``srtpu::rcab_group_fwd`` on the CPU (and the plain route on any
+    device): :func:`rcab_fwd_plain` per RCAB; with ``ys`` the RCABs'
+    outputs go into it and ``[h1s, r2s]`` come back, else ``[out]``."""
     n = w1s.shape[0]
     blocks = (w1s, b1s, w2s, b2s, wds, bds, wus, bus)
-    if plain or x.device.type == 'cpu':
-        if not save:
-            for prm in _blocks(*blocks):
-                x = rcab_fwd_plain(x, *prm)
-            return x
-        ys = x.new_empty((n, *x.shape)) if ys is None else ys
-        h1s, r2s = x.new_empty((n, *x.shape)), x.new_empty((n, *x.shape))
-        cur = x
-        for i, prm in enumerate(_blocks(*blocks)):
-            for dst, src in zip((ys[i], h1s[i], r2s[i]),
-                                rcab_fwd_plain(cur, *prm, save=True)):
-                dst.copy_(src)
-            cur = ys[i]
-        return ys, h1s, r2s
+    if ys is None:
+        for prm in _blocks(*blocks):
+            x = rcab_fwd_plain(x, *prm)
+        return [x]
+    h1s, r2s = x.new_empty((n, *x.shape)), x.new_empty((n, *x.shape))
+    cur = x
+    for i, prm in enumerate(_blocks(*blocks)):
+        for dst, src in zip((ys[i], h1s[i], r2s[i]),
+                            rcab_fwd_plain(cur, *prm, save=True)):
+            dst.copy_(src)
+        cur = ys[i]
+    return [h1s, r2s]
+
+
+def group_fwd_cuda(x, w1s, b1s, w2s, b2s, wds, bds, wus, bus, ys) -> list:
+    """``srtpu::rcab_group_fwd`` on CUDA: the checks, the scratch, one
+    ``srt_rcab_group_fwd`` call, the count; ``[h1s, r2s]`` with ``ys``
+    (written in place), else ``[out]``."""
+    save = ys is not None
+    blocks = (w1s, b1s, w2s, b2s, wds, bds, wus, bus)
     n, cr = _expect_group(x, w1s, w2s, wds, bds, wus, bus, b1s, b2s,
                           'rcab_fwd')
     bsz, h, w, _ = x.shape
     if save:
-        if ys is None:
-            ys = x.new_empty((n, *x.shape))
         _build.expect(ys, 'ys', torch.bfloat16, (n, *x.shape), x.device)
         h1, r2 = x.new_empty((n, *x.shape)), x.new_empty((n, *x.shape))
     else:   # RCAB i's output in slot i % 2; h1 scratch
@@ -196,7 +219,7 @@ def group_fwd(x, w1s, b1s, w2s, b2s, wds, bds, wus, bus, save: bool = False,
             bsz, h, w, C, cr, _build.stream(x.device))
     _build.check(err, 'srt_rcab_group_fwd')
     rcab_fwd.launches += n
-    return (ys, h1, r2) if save else ys[(n - 1) % 2]
+    return [h1, r2] if save else [ys[(n - 1) % 2]]
 
 
 def group_chain(h1s, r2s, g, w1s, w2s, wds, bds, wus, bus,
@@ -370,8 +393,9 @@ class ResGroupFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        dx, *dparams = resgroup_bwd(*ctx.saved_tensors[:3], g.contiguous(),
-                                    *ctx.saved_tensors[3:], plain=ctx.plain)
+        saved = ctx.saved_tensors   # once: a remat forward's unpack
+        dx, *dparams = resgroup_bwd(*saved[:3], g.contiguous(), *saved[3:],
+                                    plain=ctx.plain)
         return (dx, *(d.to(t) for d, t in zip(dparams, ctx.dtypes)), None)
 
 

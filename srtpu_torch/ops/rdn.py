@@ -237,9 +237,17 @@ def rdn_fwd(x, wpk, b, wf, bf, save: bool = False):
     and weights; one call is D (C + 1) launches of K2's engine
     (:func:`fwd_plan`) plus one copy of x into the first buffer (without
     ``save`` the blocks share one buffer, the fusion writing the next
-    block's input in place)."""
-    if x.device.type == 'cpu':
-        return rdn_fwd_plain(x, wpk, b, wf, bf, save)
+    block's input in place). The registered operator ``srtpu::rdn_fwd``
+    (:mod:`._library`)."""
+    op = (torch.ops.srtpu.rdn_fwd.default
+          if x.device.type in _build.OP_DEVICES else rdn_fwd_cuda)
+    got = op(x, wpk, b, wf, bf, save)
+    return tuple(got) if save else got[0]
+
+
+def rdn_fwd_cuda(x, wpk, b, wf, bf, save: bool) -> list:
+    """``srtpu::rdn_fwd`` on CUDA: the checks, the buffers, one
+    ``srt_rdn_fwd`` call, the count."""
     _check('rdn_fwd', x)
     bsz, h, w, _ = x.shape
     d, n_layers, _ = b.shape
@@ -261,7 +269,7 @@ def rdn_fwd(x, wpk, b, wf, bf, save: bool = False):
             h, w, d, n_layers, _build.stream(dev))
     _build.check(err, 'srt_rdn_fwd')
     rdn_fwd.launches += 1
-    return (cat, bufs) if save else cat
+    return [cat, bufs] if save else [cat]
 
 
 def _tiles(bsz: int, h: int, w: int) -> int:

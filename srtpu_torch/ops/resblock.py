@@ -173,14 +173,24 @@ def resblock_trunk_fwd(x, w1s, b1s, w2s, b2s, res_scale: float,
     """As :func:`resblock_trunk_plain`. On CUDA: bf16 x (B, H, W, 64), w1s,
     w2s (L, 3, 3, 64, 64) bf16, b1s, b2s (L, 64) f32; one host call, two
     launches a block (``launches`` counts the blocks, ``calls`` the host
-    calls)."""
-    if x.device.type == 'cpu':
-        return resblock_trunk_plain(x, w1s, b1s, w2s, b2s, res_scale, save)
+    calls). The registered operator ``srtpu::resblock_trunk_fwd``
+    (:mod:`._library`)."""
+    op = (torch.ops.srtpu.resblock_trunk_fwd.default
+          if x.device.type in _build.OP_DEVICES
+          else resblock_trunk_fwd_cuda)
+    got = op(x, w1s, b1s, w2s, b2s, float(res_scale), save)
+    return tuple(got) if save else got[0]
+
+
+def resblock_trunk_fwd_cuda(x, w1s, b1s, w2s, b2s, res_scale: float,
+                            save: bool) -> list:
+    """``srtpu::resblock_trunk_fwd`` on CUDA: one ``_launch`` over the
+    blocks, counted."""
     out, xs, h1s = _launch('resblock_trunk_fwd', x, w1s, b1s, w2s, b2s,
                            res_scale, save)
     resblock_trunk_fwd.launches += w1s.shape[0]
     resblock_trunk_fwd.calls += 1
-    return (out, xs, h1s) if save else out
+    return [out, xs, h1s] if save else [out]
 
 
 def resblock_fused_fwd(x, w1, b1, w2, b2, res_scale: float,

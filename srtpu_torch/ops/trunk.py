@@ -126,9 +126,18 @@ def trunk_fwd(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
     b1s, b2s (L, C) f32 -> (B, H, W, C) bf16 after L resblocks, or with
     ``save`` ``(out, xs, h1s)`` as :func:`trunk_plain`. On CUDA: C = 64;
     one host call (two launches a block; ``trunk_fwd.launches`` counts
-    the blocks)."""
-    if x.device.type == 'cpu':
-        return trunk_plain(x, w1s, b1s, w2s, b2s, res_scale, save)
+    the blocks). The registered operator ``srtpu::trunk_fwd``
+    (:mod:`._library`)."""
+    op = (torch.ops.srtpu.trunk_fwd.default
+          if x.device.type in _build.OP_DEVICES else trunk_fwd_cuda)
+    got = op(x, w1s, b1s, w2s, b2s, float(res_scale), save)
+    return tuple(got) if save else got[0]
+
+
+def trunk_fwd_cuda(x, w1s, b1s, w2s, b2s, res_scale: float, save: bool
+                   ) -> list:
+    """``srtpu::trunk_fwd`` on CUDA: the checks, the outputs and scratch,
+    one ``srt_trunk_fwd`` call, the count."""
     _check('trunk_fwd', x)
     bsz, h, wd, c = x.shape
     n_blocks = w1s.shape[0]
@@ -155,7 +164,7 @@ def trunk_fwd(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
             _build.stream(dev))
     _build.check(err, 'srt_trunk_fwd')
     trunk_fwd.launches += n_blocks
-    return (out, xs, h1s) if save else out
+    return [out, xs, h1s] if save else [out]
 
 
 def trunk_chain(h1s: torch.Tensor, g: torch.Tensor, w1s: torch.Tensor,

@@ -91,9 +91,16 @@ def upsample_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  r: int) -> torch.Tensor:
     """x (B, H, W, C) bf16; w HWIO (3, 3, C, r*r*C) bf16 and b (r*r*C,) f32,
     both in PixelShuffle channel order -> (B, r*H, r*W, C) bf16. On CUDA:
-    C = 64."""
-    if x.device.type == 'cpu':
-        return upsample_plain(x, w, b, r)
+    C = 64. The registered operator ``srtpu::upsample_fwd``
+    (:mod:`._library`)."""
+    if x.device.type not in _build.OP_DEVICES:
+        return upsample_fwd_cuda(x, w, b, r)
+    return torch.ops.srtpu.upsample_fwd.default(x, w, b, r)
+
+
+def upsample_fwd_cuda(x, w, b, r: int) -> torch.Tensor:
+    """``srtpu::upsample_fwd`` on CUDA: the checks, the phase-major weight
+    and bias, one ``srt_upsample_fwd`` call, the count."""
     _check('upsample_fwd', x, r, False)
     bsz, h, wd, c = x.shape
     dev = x.device

@@ -243,10 +243,18 @@ def wdsr_trunk_fwd(x, w1s, b1s, w2s, b2s, w3s, b3s, res_scale: float,
     bf16 after L blocks, or with ``save`` ``(out, xs, h2s)``: every
     block's input and h2 at the kernels' width, stacked (L, B, H, W,
     :func:`kernel_c`), as :func:`wdsr_trunk_bwd` reads them. On CUDA (see
-    :func:`_check`): one host call, two launches a block."""
-    if x.device.type == 'cpu':
-        return wdsr_trunk_plain(x, w1s, b1s, w2s, b2s, w3s, b3s, res_scale,
-                                save)
+    :func:`_check`): one host call, two launches a block. The registered
+    operator ``srtpu::wdsr_trunk_fwd`` (:mod:`._library`)."""
+    op = (torch.ops.srtpu.wdsr_trunk_fwd.default
+          if x.device.type in _build.OP_DEVICES else wdsr_trunk_fwd_cuda)
+    got = op(x, w1s, b1s, w2s, b2s, w3s, b3s, float(res_scale), save)
+    return tuple(got) if save else got[0]
+
+
+def wdsr_trunk_fwd_cuda(x, w1s, b1s, w2s, b2s, w3s, b3s, res_scale: float,
+                        save: bool) -> list:
+    """``srtpu::wdsr_trunk_fwd`` on CUDA: the checks, the padding to the
+    kernels' width, one ``srt_wdsr_trunk_fwd`` call, the count."""
     n_blocks, c, e = w1s.shape
     _check('wdsr_fwd', x, e, w2s.shape[-1])
     (x,), w1s, b1s, w2s, b2s, w3s, b3s = widen(c, (x,), w1s, b1s, w2s, b2s,
@@ -274,7 +282,7 @@ def wdsr_trunk_fwd(x, w1s, b1s, w2s, b2s, w3s, b3s, res_scale: float,
     wdsr_fwd.launches += n_blocks
     if cp != c:
         out = out[..., :c].contiguous()
-    return (out, xs, h2s) if save else out
+    return [out, xs, h2s] if save else [out]
 
 
 def wdsr_trunk_bwd(xs, h2s, g, w1s, b1s, w2s, b2s, w3s, res_scale: float):

@@ -51,9 +51,17 @@ def wdsr_block_fused_fwd(x, w1, b1, w2, b2, w3, b3, res_scale: float
     kernels' width (64 or 128; ``ops.wdsr.widen``). One call is two
     launches (the chained 1x1 pair writing v as bf16 hi and lo halves,
     then the 3x3 on K2's engine over both with the res_scale and skip
-    epilogue)."""
-    if x.device.type == 'cpu':
-        return wdsr_block_fused_plain(x, w1, b1, w2, b2, w3, b3, res_scale)
+    epilogue). The registered operator ``srtpu::wdsr_block_fwd``
+    (:mod:`._library`)."""
+    op = (torch.ops.srtpu.wdsr_block_fwd.default
+          if x.device.type in _build.OP_DEVICES else wdsr_block_fwd_cuda)
+    return op(x, w1, b1, w2, b2, w3, b3, float(res_scale))
+
+
+def wdsr_block_fwd_cuda(x, w1, b1, w2, b2, w3, b3, res_scale: float
+                        ) -> torch.Tensor:
+    """``srtpu::wdsr_block_fwd`` on CUDA: the checks, the padding to the
+    kernels' width, one ``srt_wdsr_block_fwd`` call, the count."""
     _check('wdsr_block_fused_fwd', x, w1.shape[-1], w2.shape[-1])
     bsz, h, w, c_in = x.shape
     (x,), w1, b1, w2, b2, w3, b3 = widen(c_in, (x,), w1, b1, w2, b2, w3, b3)

@@ -46,11 +46,43 @@ The model trains the generator and discriminator it holds, with its own
 so drops the dtype, ROADMAP.md F8). The model's current weights are the
 initial state (srtpu's ``seed`` draws them; here the caller does, as
 ``python -m srtpu_torch fit --seed`` does for the weights and the
-loader). Not ported (ROADMAP.md item 7b; ``steps_per_execution`` item
-18): ``profiler_dir``, ``detect_anomaly``, ``deterministic``, ``remat``,
-``log_weights_every_n_epochs`` and ``steps_per_execution`` raise
-``NotImplementedError`` when set off their defaults; srtpu's run assets
-(source snapshot, model summary, graph) are not written.
+loader).
+
+srtpu's debugging and bookkeeping knobs:
+
+* ``remat``: the model forward under
+  ``torch.utils.checkpoint.checkpoint`` (non-reentrant), its activations
+  recomputed in the backward; the loss stays outside, as srtpu's
+  ``jax.checkpoint``. Ignored, as in srtpu, for batch-norm models
+  (SRResNet; SRGAN's generator) and in the GAN fit;
+* ``deterministic``: srtpu draws the state from seed 0 instead of its
+  ``seed``; here the caller draws the weights (the CLI and
+  ``config.build_all`` draw them from seed 0 under the knob). On a card
+  ``fit`` also sets ``torch.use_deterministic_algorithms(True)``,
+  ``cudnn.deterministic`` and ``cudnn.benchmark = False`` (and
+  ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` where unset; set it before the
+  process's first cuBLAS call, as the CLI does) and restores them all
+  when it returns;
+* ``detect_anomaly`` (srtpu's ``jax_debug_nans``): forward hooks on every
+  submodule and the backward under ``torch.autograd.detect_anomaly``;
+  the first NaN raises ``FloatingPointError`` naming the module or the
+  backward node it came from. Off, nothing is installed;
+* ``profiler_dir``: ``torch.profiler`` (CPU and, on a card, CUDA
+  activity) from after the sanity pass to the end of ``fit``, its trace
+  written to ``<profiler_dir>/<host>.<pid>.pt.trace.json``;
+* ``log_weights_every_n_epochs``: every parameter's histogram to
+  TensorBoard (``weights/<name>``) every that many epochs (0: never);
+* run assets, written to the root and registered with the trackers
+  before training (srtpu ``_log_run_assets``): ``model_summary.txt``
+  (one line a parameter, the total), ``source_snapshot.zip``
+  (``srtpu_torch/**/*.py`` and ``ops/csrc/*``) and ``model_graph.txt``,
+  the exported graph of the eval forward at a train batch's LR shape
+  (:func:`~srtpu_torch.export.graph_text`); a failure there logs a
+  warning and training goes on.
+
+srtpu's ``_fit_gan`` reads none of these knobs; here the GAN fit takes
+all but ``remat``. ``steps_per_execution`` (ROADMAP.md item 18) raises
+``NotImplementedError`` when set off its default.
 
 ``validate`` scores every eval image (batch 1, bucket-padded, masked)
 with ``metrics`` and returns ``{dataset/metric: mean}``; ``predict``
@@ -70,6 +102,8 @@ forward at LR 512x352 takes 44.5 ms on an H100), so here it defaults to
 from __future__ import annotations
 
 import logging
+import os
+import socket
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -124,21 +158,89 @@ class TrainerConfig:
     eval_tile_overlap: int = 8      # LR px halo per tile edge
     predict_tile: int = 0           # > 0: host tiles past this size
     predict_tile_overlap: int = 32  # LR px, >= the receptive radius
-    # not ported (ROADMAP.md item 7b; steps_per_execution item 18): a
-    # value off the default raises
-    log_weights_every_n_epochs: int = 50
-    profiler_dir: str | None = None
-    detect_anomaly: bool = False
-    deterministic: bool = False
-    remat: bool = False
+    log_weights_every_n_epochs: int = 50    # weight histograms; 0: never
+    profiler_dir: str | None = None         # torch.profiler trace directory
+    detect_anomaly: bool = False            # srtpu's jax_debug_nans
+    deterministic: bool = False             # deterministic algorithms
+    remat: bool = False                     # recompute the forward
+    # not ported (ROADMAP.md item 18): a value off the default raises
     steps_per_execution: int = 1
 
 
 # knob -> (its default, the ROADMAP.md item that ports it)
-NOT_PORTED = {'log_weights_every_n_epochs': (50, '7b'),
-              'profiler_dir': (None, '7b'), 'detect_anomaly': (False, '7b'),
-              'deterministic': (False, '7b'), 'remat': (False, '7b'),
-              'steps_per_execution': (1, '18')}
+NOT_PORTED = {'steps_per_execution': (1, '18')}
+CUBLAS_DETERMINISTIC = ':4096:8'    # CUBLAS_WORKSPACE_CONFIG's value
+
+
+def has_batch_stats(model: torch.nn.Module) -> bool:
+    """Whether ``model`` keeps batch-norm running statistics (srtpu's
+    ``batch_stats``): SRResNet, SRGAN."""
+    from ..models.common import BNTrunk
+    from ..models.srgan import BatchNorm
+    return any(isinstance(m, (BNTrunk, BatchNorm)) for m in model.modules())
+
+
+def set_deterministic(device: torch.device):
+    """On a card, torch's deterministic algorithms, cuDNN's deterministic
+    and not benchmarked convs, and ``CUBLAS_WORKSPACE_CONFIG`` where unset;
+    returns what :func:`restore_deterministic` puts back (None off a
+    card)."""
+    if device.type != 'cuda':
+        return None
+    cudnn = torch.backends.cudnn
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            cudnn.deterministic, cudnn.benchmark,
+            os.environ.get('CUBLAS_WORKSPACE_CONFIG'))
+    os.environ.setdefault('CUBLAS_WORKSPACE_CONFIG', CUBLAS_DETERMINISTIC)
+    torch.use_deterministic_algorithms(True)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    return prev
+
+
+def restore_deterministic(prev) -> None:
+    """Undo :func:`set_deterministic`."""
+    if prev is None:
+        return
+    algos, warn_only, cudnn_det, bench, cublas = prev
+    torch.use_deterministic_algorithms(algos, warn_only=warn_only)
+    cudnn = torch.backends.cudnn
+    cudnn.deterministic, cudnn.benchmark = cudnn_det, bench
+    if cublas is None:
+        os.environ.pop('CUBLAS_WORKSPACE_CONFIG', None)
+
+
+def anomaly_guard(model: torch.nn.Module, train_step):
+    """srtpu's ``jax_debug_nans`` for ``train_step``: a forward hook on
+    every submodule raises ``FloatingPointError`` at the first NaN output,
+    naming the module; the step runs under
+    ``torch.autograd.detect_anomaly(check_nan=True)``, whose error at a
+    NaN in the backward is raised again as ``FloatingPointError``.
+    Returns (the guarded step, the hooks' handles)."""
+    def hook_of(name: str):
+        def hook(module, inputs, out):
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            for t in outs:
+                if torch.is_tensor(t) and t.is_floating_point() and \
+                        bool(torch.isnan(t).any()):
+                    raise FloatingPointError(
+                        f'NaN in the forward output of {name or "the model"}'
+                        f' ({type(module).__name__})')
+        return hook
+
+    handles = [m.register_forward_hook(hook_of(name))
+               for name, m in model.named_modules()]
+
+    def guarded(state, lr, hr):
+        with torch.autograd.detect_anomaly(check_nan=True):
+            try:
+                return train_step(state, lr, hr)
+            except RuntimeError as e:
+                if 'nan' not in str(e).lower():
+                    raise
+                raise FloatingPointError(f'NaN in the backward: {e}') from e
+
+    return guarded, handles
 
 
 class Trainer:
@@ -224,15 +326,19 @@ class Trainer:
             # srtpu's edge / sketch val images follow these losses
             self._edge_ops = [n for n in composite.names
                               if n in ('edge_loss', 'pencil_sketch')]
-            train_step = make_train_step(composite)
+            # srtpu's remat skips batch-norm models
+            train_step = make_train_step(
+                composite, remat=cfg.remat and not has_batch_stats(model))
             keys = ('loss',)
             eval_step = self._eval_step_of(model, datamodule)
         was_training = model.training
+        flags = set_deterministic(device) if cfg.deterministic else None
         try:
             return self._fit(model, datamodule, state, train_step, keys,
                              eval_step, device, hparams)
         finally:
             model.train(was_training)
+            restore_deterministic(flags)
 
     def _eval_step_of(self, model, datamodule, tiled: bool = True):
         """The val passes' eval step on the config's metrics, or None
@@ -264,6 +370,7 @@ class Trainer:
         n_params = sum(p.numel() for p in model.parameters())
         _logger.info('model parameters: %s (%.2f MB fp32)', f'{n_params:,}',
                      n_params * 4 / 2 ** 20)
+        self._log_run_assets(model, loader.peek().lr.shape)
         monitor = cfg.monitor
         if monitor is None and datamodule.eval_dataset_names and cfg.metrics:
             monitor = f'{datamodule.eval_dataset_names[0]}/{cfg.metrics[0]}'
@@ -281,6 +388,11 @@ class Trainer:
                                  limit=cfg.num_sanity_val_steps, sanity=True)
         model.train()       # srtpu's train=True: batch statistics
         last_logs = None
+        hooks = []
+        if cfg.detect_anomaly:
+            train_step, hooks = anomaly_guard(model, train_step)
+        profiler = self._start_profiler(device) if cfg.profiler_dir \
+            else None
         try:
             for epoch in range(self.current_epoch, max_epochs):
                 self.current_epoch = epoch
@@ -314,6 +426,9 @@ class Trainer:
                         (epoch + 1) % cfg.log_loss_every_n_epochs == 0:
                     self.tb.scalars(self._loss_scalars(last_logs, keys),
                                     self.global_step)
+                if cfg.log_weights_every_n_epochs > 0 and \
+                        (epoch + 1) % cfg.log_weights_every_n_epochs == 0:
+                    self._log_weight_histograms(model)
                 if (epoch + 1) % cfg.check_val_every_n_epoch == 0 \
                         or epoch + 1 == max_epochs:
                     metrics = self._run_validation(eval_step, datamodule)
@@ -333,8 +448,77 @@ class Trainer:
                 _logger.exception('fit crashed')
             raise
         finally:
+            for h in hooks:
+                h.remove()
+            if profiler is not None:
+                self._stop_profiler(profiler)
             self._record_run_artifacts()
         return state
+
+    def _start_profiler(self, device: torch.device):
+        """torch.profiler over CPU and, on a card, CUDA activity."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == 'cuda':
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=acts)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler) -> None:
+        """Stop and write ``<profiler_dir>/<host>.<pid>.pt.trace.json``."""
+        profiler.stop()
+        out = Path(self.cfg.profiler_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / f'{socket.gethostname()}.{os.getpid()}.pt.trace.json'
+        profiler.export_chrome_trace(str(path))
+        _logger.info('profiler trace written to %s', path)
+
+    def _log_weight_histograms(self, model: torch.nn.Module) -> None:
+        """Every parameter's histogram to TensorBoard as
+        ``weights/<name>`` at the epoch (srtpu ``_log_weight_histograms``)."""
+        for name, p in model.named_parameters():
+            self.tb.histogram(f'weights/{name}',
+                              p.detach().float().cpu().numpy(),
+                              self.current_epoch + 1)
+
+    def _log_run_assets(self, model: torch.nn.Module, sample_shape) -> None:
+        """srtpu's ``_log_run_assets``: ``model_summary.txt`` (a line a
+        parameter: name, shape, dtype, size; the total),
+        ``source_snapshot.zip`` (the package's ``.py`` files and
+        ``ops/csrc``) and ``model_graph.txt`` (the exported eval forward at
+        ``sample_shape``), in the root and as tracker assets. A failure
+        logs a warning; training goes on."""
+        try:
+            import zipfile
+            from ..export import export_serving, graph_text
+            self.root.mkdir(parents=True, exist_ok=True)
+            lines, total = [f'model: {type(model).__name__}', ''], 0
+            for name, p in model.named_parameters():
+                dtype = str(p.dtype).replace('torch.', '')
+                lines.append(f'{name:60s} {str(tuple(p.shape)):20s} '
+                             f'{dtype}  {p.numel():,}')
+                total += p.numel()
+            lines += ['', f'total parameters: {total:,} '
+                      f'({total * 4 / 2 ** 20:.2f} MB fp32)']
+            summary = self.root / 'model_summary.txt'
+            summary.write_text('\n'.join(lines))
+            self.tb.asset(summary)
+
+            pkg = Path(__file__).resolve().parents[1]
+            snap = self.root / 'source_snapshot.zip'
+            with zipfile.ZipFile(snap, 'w', zipfile.ZIP_DEFLATED) as zf:
+                for f in sorted(pkg.rglob('*.py')):
+                    zf.write(f, f'srtpu_torch/{f.relative_to(pkg)}')
+                for f in sorted((pkg / 'ops' / 'csrc').glob('*')):
+                    zf.write(f, f'srtpu_torch/ops/csrc/{f.name}')
+            self.tb.asset(snap)
+
+            b, h, w, _ = sample_shape
+            graph = self.root / 'model_graph.txt'
+            graph.write_text(graph_text(export_serving(model, b, h, w)))
+            self.tb.asset(graph)
+        except Exception:   # bookkeeping never stops training
+            _logger.warning('run-asset logging failed', exc_info=True)
 
     @staticmethod
     def _loss_scalars(logs: dict, keys) -> dict[str, float]:

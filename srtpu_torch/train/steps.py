@@ -7,11 +7,13 @@ the metrics are computed there."""
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from .state import TrainState
 
 
-def make_train_step(composite_loss, plain: bool = False):
+def make_train_step(composite_loss, plain: bool = False,
+                    remat: bool = False):
     """``train_step(state, lr, hr) -> logs`` (srtpu ``train_step_body``):
     the forward in the model's compute dtype, ``composite_loss(sr.float(),
     hr.float())``, backward, one optimizer step. Gradients are cleared
@@ -24,12 +26,21 @@ def make_train_step(composite_loss, plain: bool = False):
     batch). ``plain`` runs the
     kernels' plain versions (the reference a card run is held against).
     The step runs the model in the mode it is in: ``Trainer.fit`` puts it
-    in train mode (srtpu's ``train=True``).
+    in train mode (srtpu's ``train=True``). ``remat`` runs the model
+    forward under ``torch.utils.checkpoint.checkpoint`` (non-reentrant;
+    the forward draws no random numbers, so no RNG state is kept): its
+    activations are recomputed in the backward, the loss stays outside
+    (srtpu's ``jax.checkpoint`` of the forward).
     """
     def train_step(state: TrainState, lr_img: torch.Tensor,
                    hr_img: torch.Tensor) -> dict[str, torch.Tensor]:
         state.optimizer.zero_grad(set_to_none=True)
-        sr = state.model(lr_img, plain=plain)
+        if remat:
+            sr = torch.utils.checkpoint.checkpoint(
+                state.model, lr_img, plain=plain, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            sr = state.model(lr_img, plain=plain)
         total, parts = composite_loss(sr.float(), hr_img.float())
         total.backward()
         state.updater.apply(state.optimizer)

@@ -1,15 +1,15 @@
 """Experiment trackers (srtpu/utils/tracking.py): the Trainer logs
 through one :class:`MultiTracker`, which fans out to
 
+* TensorBoard, always on: an event file in ``<root>/tensorboard_logs``
+  (:class:`~srtpu_torch.utils.tensorboard.EventWriter`, written by hand:
+  scalars, val images and weight histograms, as srtpu's tensorboardX
+  ``TBLogger``);
 * :class:`JsonlTracker`, always on: every scalar dict is one line of
   ``metrics.jsonl`` (``{"step": ..., "time": ..., <key>: <value>}``),
   hyperparameters go to ``params.json`` and artifact paths to
   ``assets.json``, all in the run root;
 * Comet, when ``comet_ml`` imports and ``COMET_API_KEY`` is set.
-
-srtpu's TensorBoard backend is not ported (ROADMAP.md item 7b): the
-tensorboard package can import TensorFlow, and with it JAX, which the
-port never loads.
 
 A backend that fails logs a warning and training goes on.
 """
@@ -23,6 +23,8 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+from .tensorboard import EventWriter
 
 _logger = logging.getLogger(__name__)
 
@@ -96,7 +98,14 @@ class MultiTracker:
 
     def __init__(self, root: str | Path):
         self._closed = False
-        self._backends: list = [JsonlTracker(root)]
+        self._backends: list = []
+        try:
+            self._backends.append(EventWriter(Path(root) /
+                                              'tensorboard_logs'))
+        except Exception:
+            _logger.warning('TensorBoard event file unavailable',
+                            exc_info=True)
+        self._backends.append(JsonlTracker(root))
         if os.environ.get('COMET_API_KEY'):
             try:
                 self._backends.append(CometTracker())
@@ -124,6 +133,11 @@ class MultiTracker:
 
     def image(self, tag: str, img, step: int) -> None:
         self._fanout('image', tag, img, step)
+
+    def histogram(self, tag: str, values, step: int) -> None:
+        """TensorBoard's histogram of ``values`` (srtpu's weight
+        histograms)."""
+        self._fanout('histogram', tag, values, step)
 
     def asset(self, path) -> None:
         self._fanout('asset', path)

@@ -14,7 +14,9 @@ against srtpu's on the CPU.
 (d) ``state_from_jax``: srtpu's optimizer structures (ADAM bare, under
     the clip chain, SGD's trace, inside MultiSteps) convert, others raise
     naming their ROADMAP item, and a conversion that is not a pure
-    relayout raises.
+    relayout raises;
+(e) srtpu's SRGAN state, converted, resumes in the port: its next step
+    matches srtpu's.
 """
 
 import json
@@ -267,3 +269,92 @@ def test_relayout_check_catches_a_padding_map(monkeypatch):
     monkeypatch.setattr(convert, 'w_ps_hwio', padded)
     with pytest.raises(ValueError, match='not a pure relayout'):
         convert.state_from_jax(tree)
+
+
+def test_srgan_state_from_jax_resumes_in_port():
+    """(e) srtpu's SRGAN state after 2 adversarial steps (its combined
+    view: G and D parameters and batch statistics, the optimizers ``g``
+    and ``d``, the step), flattened to ``.npz`` and converted, loaded into
+    a port SRGAN drawn from other weights: the third step's logs match
+    srtpu's third step within ``tests/test_torch_srgan.py``'s step
+    tolerance (1e-5 relative, vgg_loss 2^-8), and the converted Adam
+    counts and schedules stand at 2."""
+    from srtpu.losses.vgg import VGGLoss as JaxVGGLoss
+    from srtpu.train.gan import GANTrainState as JaxGANTrainState
+    from srtpu.train.gan import make_gan_train_step as jax_gan_step
+    from srtpu_torch.losses import VGGLoss
+    from srtpu_torch.train import GANTrainState, make_gan_train_step
+    from srtpu_torch.train.state import tree_to_state
+    from test_torch_resume import _npz
+    from test_torch_srgan import (ADAM_EPS, B, H, KW, LR, W, JaxD, JaxG,
+                                  _jax_gan)
+    rng = np.random.default_rng(5)
+    batches = []
+    for _ in range(3):
+        hr = rng.random((B, 4 * H, 4 * W, 3), np.float32)
+        batches.append((hr.reshape(B, H, 4, W, 4, 3).mean((2, 4))
+                        .astype(np.float32), hr))
+    gen = JaxG(scale_factor=4, channels=3, ngf=KW['ngf'],
+               n_blocks=KW['n_blocks'], use_pallas='cs', dtype=None)
+    disc = JaxD(ndf=KW['ndf'])
+    _, v = _jax_gan(4, 'cs')
+    p, bs = v['params'], v['batch_stats']
+
+    def tx():
+        return optax.adam(optax.exponential_decay(LR, 100_000, 0.1,
+                                                  staircase=True),
+                          eps=ADAM_EPS)
+    g_tx, d_tx = tx(), tx()
+    jstate = JaxGANTrainState(
+        step=jnp.zeros([], jnp.int32),
+        g_params=jax.tree_util.tree_map(jnp.asarray, p['generator']),
+        d_params=jax.tree_util.tree_map(jnp.asarray, p['discriminator']),
+        g_batch_stats=jax.tree_util.tree_map(jnp.asarray, bs['generator']),
+        d_batch_stats=jax.tree_util.tree_map(jnp.asarray,
+                                             bs['discriminator']),
+        g_opt_state=g_tx.init(p['generator']),
+        d_opt_state=d_tx.init(p['discriminator']),
+        g_apply=gen.apply, d_apply=disc.apply, g_tx=g_tx, d_tx=d_tx)
+    jstep = jax_gan_step(vgg_loss=JaxVGGLoss('vgg19', 'relu5_4'))
+    for lr, hr in batches[:2]:
+        jstate, _ = jstep(jstate, jnp.asarray(lr), jnp.asarray(hr))
+    view = {'step': jstate.step,
+            'params': {'generator': jstate.g_params,
+                       'discriminator': jstate.d_params},
+            'batch_stats': {'generator': jstate.g_batch_stats,
+                            'discriminator': jstate.d_batch_stats},
+            'opt_state': {'g': jstate.g_opt_state, 'd': jstate.d_opt_state}}
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        _npz(f'{tmp}/gan.npz', view)
+        tree = convert.state_from_jax(convert.load_npz(f'{tmp}/gan.npz'))
+    assert tree['step'] == 2 and set(tree['opt_state']) == {'g', 'd'}
+    for key, part in (('g', 'generator.'), ('d', 'discriminator.')):
+        opt = tree['opt_state'][key]
+        assert opt['params'] and all(n.startswith(part)
+                                     for n in opt['params'])
+        assert opt['schedule'] == {'last_epoch': 2, '_step_count': 3}
+        assert all(float(s['step']) == 2 for s in opt['state'].values())
+
+    model = create_model('SRGAN', scale_factor=4, use_pallas='cs',
+                         generator=torch.Generator().manual_seed(9), **KW)
+    model.train()
+
+    def opt(params):
+        o = build_optimizer('ADAM', {'lr': LR, 'eps': ADAM_EPS}, params)
+        return o, torch.optim.lr_scheduler.StepLR(o, 100_000, 0.1)
+    (go, gs), (do, ds) = (opt(model.generator.parameters()),
+                          opt(model.discriminator.parameters()))
+    pstate = tree_to_state(GANTrainState(model.generator,
+                                         model.discriminator, go, do, gs,
+                                         ds), tree)
+    assert pstate.step == 2 and gs.last_epoch == 2
+    lr, hr = batches[2]
+    jstate, jlogs = jstep(jstate, jnp.asarray(lr), jnp.asarray(hr))
+    plogs = make_gan_train_step(vgg_loss=VGGLoss())(
+        pstate, torch.from_numpy(lr), torch.from_numpy(hr))
+    assert pstate.step == int(jstate.step) == 3
+    for k, ref in jlogs.items():
+        np.testing.assert_allclose(
+            plogs[k].item(), float(ref),
+            rtol=2.0 ** -8 if k == 'vgg_loss' else 1e-5, err_msg=k)

@@ -270,13 +270,14 @@ def test_trackers_match_srtpu(tmp_path, caplog):
 def test_comet_unavailable_warns_and_jsonl_stays(tmp_path, caplog,
                                                 monkeypatch):
     """``COMET_API_KEY`` set but ``comet_ml`` not importable: one warning,
-    and JSONL, the always-on backend, is the only one."""
+    and the always-on backends, TensorBoard and JSONL, are the only ones."""
+    from srtpu_torch.utils.tensorboard import EventWriter
     from srtpu_torch.utils.tracking import JsonlTracker, MultiTracker
     monkeypatch.setenv('COMET_API_KEY', 'unused')
     monkeypatch.setitem(sys.modules, 'comet_ml', None)
     t = MultiTracker(tmp_path)
     t.scalars({'Val/PSNR': 20.5}, 3)
     t.close()
-    assert [type(b) for b in t._backends] == [JsonlTracker]
+    assert [type(b) for b in t._backends] == [EventWriter, JsonlTracker]
     assert caplog.text.count('Comet tracking disabled') == 1
     assert jsonl(tmp_path) == [{'step': 3, 'Val/PSNR': 20.5}]

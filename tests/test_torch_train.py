@@ -339,19 +339,16 @@ def test_fit_cli_matches_srtpu_trainer(tmp_path):
 
 
 def test_fit_refuses_what_is_not_ported(tmp_path):
-    """srtpu's knobs the port leaves to ROADMAP.md item 7b (and
-    steps_per_execution to item 18) raise off their defaults, before
-    any data is read; a missing dataset raises srtpu's error."""
+    """srtpu's knob the port leaves to ROADMAP.md item 18
+    (steps_per_execution) raises off its default, before any data is
+    read; a missing dataset raises srtpu's error."""
     from srtpu_torch.data import SRData
     from srtpu_torch.train import Trainer, TrainerConfig
+    from srtpu_torch.train.loop import NOT_PORTED
+    assert set(NOT_PORTED) == {'steps_per_execution'}
     model = create_model('EDSR', generator=torch.Generator(), **KW)
     dm = SRData(datasets_dir=str(tmp_path), train_datasets=['Train'])
-    for kw, item in ((dict(profiler_dir=str(tmp_path)), '7b'),
-                     (dict(detect_anomaly=True), '7b'),
-                     (dict(deterministic=True), '7b'),
-                     (dict(remat=True), '7b'),
-                     (dict(log_weights_every_n_epochs=10), '7b'),
-                     (dict(steps_per_execution=4), '18')):
+    for kw, item in ((dict(steps_per_execution=4), '18'),):
         with pytest.raises(NotImplementedError, match=f'item {item}'):
             Trainer(TrainerConfig(**kw)).fit(model, dm)
     with pytest.raises(FileNotFoundError, match='HR images'):
