@@ -1,9 +1,11 @@
 """Drive srtpu_torch's EDSR-baseline x4, RCAN-10x16 x4, SRResNet x4,
 RDN-B x4, DDBPN x4, WDSR-B x4, SRGAN x4 and SRCNN x4 predict and
 training, EDSR's and RCAN's validate and EDSR's tiled eval and predict on
-one CUDA card, every route's ``export``, srtpu's Trainer knobs, EDSR's, RCAN's and WDSR-B's ``use_pallas=True`` routes, the
-ops of srtpu's other trunk forms, EDSR at 86 resblocks (where srtpu
-leaves its mega trunk) and EDSR at 256 features (srtpu's XLA trunk).
+one CUDA card, EDSR's training on srtpu's other losses and its validate
+with srtpu's six metrics, every route's ``export``, srtpu's Trainer
+knobs, EDSR's, RCAN's and WDSR-B's ``use_pallas=True`` routes, the ops
+of srtpu's other trunk forms, EDSR at 86 resblocks (where srtpu leaves
+its mega trunk) and EDSR at 256 features (srtpu's XLA trunk).
 
     python3 chip_smoke.py
 
@@ -339,7 +341,28 @@ Phases, each of which raises on failure (nothing is caught):
    ``--profiler_dir``: one trace naming the ``srtpu::`` operators and
    the engines' kernels; (7) (a)'s TensorBoard event file read back
    (CRCs; scalars, images, histograms) and its three run assets, with
-   their wall time.
+   their wall time;
+29. srtpu's other losses and metrics (``run_phase29``, under PyTorch's
+   TF32 default for cuDNN): (a) for each of ``0.5 * l1 + 0.5 *
+   adaptive``, ``flip``, ``haarpsi``, ``pieapp``, ``lpips``, ``dists``,
+   ``0.5 * l1 + 0.5 * edge_loss``, ``0.5 * l1 + 0.5 * pencil_sketch``
+   and ``edge_loss`` alone, 8 steps of ``fit --losses`` through the
+   CLI's function on EDSR-baseline x4 at the bench recipe: phase 4's
+   launches per step (``edge_loss`` alone: the forward's, no backward),
+   the losses finite and falling (``edge_loss`` alone carries no
+   gradient); on one held batch the loss and its SR gradient
+   on the card against the CPU on the card's SR and HR (the losses'
+   convolutions in full f32; PieAPP's max-pool decisions counted
+   against the CPU's, and its gradient also with the CPU's pool
+   decisions forced on the card); the
+   step's ms (CUDA events, median of 3 windows of 5) beside l1's, its
+   peak memory and its device time by kernel; (b) ``validate --metrics
+   BRISQUE FLIP LPIPS MS-SSIM PSNR SSIM`` on phase 25's HR 512x512 and
+   1000x680: K1-K3 per image, each metric card against CPU per image,
+   BRISQUE on the true shape (the printed mean is the true-shape
+   scores'), each new metric's ms per image beside the forward's; (c) a
+   fit with ``0.5 * l1 + 0.5 * edge_loss`` and val writes each image's
+   SR, centre crop and their ``_edges`` maps, the HR's once.
 The line before the last is a JSON object with, per kernel, its launches
 in the main-path runs (EDSR, RCAN, SRResNet, RDN, DDBPN, WDSR, SRGAN
 and SRCNN predict and fit, EDSR and SRResNet x3 predict, SRResNet x3
@@ -347,7 +370,7 @@ fit, the EDSR, RCAN and WDSR-B True routes' predict and fit, EDSR 64 x
 86 fit, EDSR's and RCAN's validate, EDSR's tiled validate and predict
 and its host tiles, phase 27's fit with validation and its ``validate``
 / ``predict --checkpoint``, phase 28's exported programs and its
-profiled fit, and phase 2j's op
+profiled fit, phase 29's fits and validate, and phase 2j's op
 runs;
 ``launches`` is their sum), its largest error against its plain
 version, its time (K4's, K4r's and the trunk op's: its device time
@@ -385,6 +408,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -394,7 +418,8 @@ from srtpu_torch import cli
 from srtpu_torch.checkpoint import CheckpointManager
 from srtpu_torch.data import SRData, pad_to_bucket
 from srtpu_torch.losses import VGGLoss, parse_losses
-from srtpu_torch.metrics import build_metrics
+from srtpu_torch.metrics import (brisque_exact, brisque_features,
+                                  build_metrics)
 from srtpu_torch.models import create_model
 from srtpu_torch.ops import (_build, b1_plain, b1_sums, b2_call, b2_plain,
                              b3_call, b3_plain, bn_block, conv3x3_bwd,
@@ -429,12 +454,13 @@ from srtpu_torch.ops.wdsr_block import (wdsr_block_fused_fwd,
                                         wdsr_block_fused_plain)
 from srtpu_torch.optim import build_optimizer
 from srtpu_torch.train import (Trainer, TrainerConfig, TrainState,
-                               create_gan_state,
+                               create_gan_state, loss_parameters,
                                make_eval_step, make_gan_train_step,
                                make_predict_step, make_tiled_predict_step,
                                make_train_step, tiled_predict)
 from srtpu_torch.train import loop as train_loop
 from srtpu_torch.train.tiled import _anchors
+from srtpu_torch.utils.imgops import cudnn_tf32
 from srtpu_torch.utils.logging import save_image
 
 # K4's trunk op, looked up with getattr: tools/tree_timing.py loads this
@@ -5411,6 +5437,365 @@ def run_phase28(device, smi: str, tmp: Path, ckpts: Path,
     return runs
 
 
+# ----------------------------------------------------------- phase 29
+
+# Phase 29: srtpu's other losses and metrics on EDSR-baseline x4 at the
+# bench recipe. Each DSL: a short fit through the CLI's function
+# (P29_STEPS steps, one an epoch), its held step against the CPU, its
+# step time and peak memory. No kernel of the port computes a loss or a
+# metric (srtpu leaves them to XLA); K1-K3 and W run the model each way.
+P29_DSLS = ('0.5 * l1 + 0.5 * adaptive', 'flip', 'haarpsi', 'pieapp',
+            'lpips', 'dists', '0.5 * l1 + 0.5 * edge_loss',
+            '0.5 * l1 + 0.5 * pencil_sketch', 'edge_loss')
+P29_STEPS = 8
+# no term carries a gradient: the loss need not fall
+P29_NO_GRAD = {'edge_loss'}
+# The card's loss against the CPU's on the card's SR and HR: the same f32
+# arithmetic (every loss's convolutions in full f32, imgops.conv2d_f32),
+# the sums reduced in another order: the value within 1e-5 relative
+# (edge_loss: 1e-4 absolute, its Canny decisions), the SR gradient within
+# 2^-6 of its largest magnitude, as the kernels' gradients elsewhere.
+P29_VALUE_RTOL, P29_EDGE_ATOL = 1e-5, 1e-4
+P29_GRAD_TOL = 2.0 ** -6
+# PieAPP's max pools send the gradient to the larger of the window's four
+# values. Where two are nearly equal, the card's f32 convs (another sum
+# order) and the CPU's may rank them apart, and the gradient goes to
+# another pixel (ROADMAP.md queue 3, F19). So PieAPP's pool decisions
+# on the card are counted against the CPU's, each differing decision
+# must be a near tie (the CPU's two values within 2^-10 relative), and
+# the card's gradient with the CPU's decisions forced is held to 2^-6;
+# the gradient on the card's own decisions is held to 2^-6 where no
+# decision differs, and printed beside.
+P29_MAXPOOL = {'pieapp'}
+P29_NEAR_TIE = 2.0 ** -10
+# (b): the metrics card vs CPU: BRISQUE's score 1e-3 relative and its
+# shape parameters one table step, FLIP 1e-5, LPIPS 1e-5 relative (its
+# VGG16 in full f32), the others as phase 25
+P29_METRICS = ('BRISQUE', 'FLIP', 'LPIPS', 'MS-SSIM', 'PSNR', 'SSIM')
+P29_METRIC_TOL = {'BRISQUE': ('rel', 1e-3), 'FLIP': ('abs', 1e-5),
+                  'LPIPS': ('rel', 1e-5), 'MS-SSIM': ('abs', 1e-5),
+                  'PSNR': ('abs', 1e-4), 'SSIM': ('abs', 1e-5)}
+P29_HR_SIZES = VAL_HR_SIZES[:2]
+
+
+def _p29_state(net, comp) -> TrainState:
+    return TrainState.create(copy.deepcopy(net), comp, 'ADAM', ['lr=1e-4'])
+
+
+def _loss_grad(comp, sr, hr, lp):
+    """(the composite's value, its gradient with respect to ``sr``)."""
+    x = sr.detach().clone().requires_grad_()
+    total, _ = comp(x, hr) if lp is None else comp(x, hr, lp)
+    if total.requires_grad:
+        total.backward()
+    grad = x.grad if x.grad is not None else torch.zeros_like(x)
+    return float(total.detach()), grad.float().cpu()
+
+
+def _pieapp_pools(comp, sr, hr, g_cpu, scale):
+    """PieAPP's max-pool decisions on the card against the CPU's, on the
+    card's SR and HR: (windows, differing decisions, the largest gap
+    between the CPU's two values at a differing window relative to the
+    larger, the card's value and its SR gradient's error with the CPU's
+    decisions forced)."""
+    from srtpu_torch.losses import pieapp as pieapp_mod
+
+    def recorded(store):
+        def pool(h):
+            out, idx = F.max_pool2d(h, 2, return_indices=True)
+            store.append((h.detach(), idx))
+            return out
+        return pool
+
+    def forced(idxs):
+        it = iter(idxs)
+
+        def pool(h):
+            idx = next(it).to(h.device)
+            return h.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+        return pool
+
+    cpu_rec, card_rec = [], []
+    with mock.patch.object(pieapp_mod, '_pool', recorded(cpu_rec)):
+        _loss_grad(comp, sr.cpu(), hr.cpu(), None)
+    with mock.patch.object(pieapp_mod, '_pool', recorded(card_rec)):
+        _loss_grad(comp, sr, hr, None)
+    windows, flips, worst = 0, 0, 0.0
+    for (h, i_cpu), (_, i_card) in zip(cpu_rec, card_rec, strict=True):
+        i_card = i_card.cpu()
+        windows += i_cpu.numel()
+        diff = (i_cpu != i_card).flatten()
+        flips += int(diff.sum())
+        if diff.any():
+            hf = h.flatten(2)
+            a = hf.gather(2, i_cpu.flatten(2)).flatten()[diff]
+            b = hf.gather(2, i_card.flatten(2)).flatten()[diff]
+            worst = max(worst, float(((a - b).abs() / a.abs().clamp_min(
+                1e-30)).max()))
+    with mock.patch.object(pieapp_mod, '_pool',
+                           forced([i for _, i in cpu_rec])):
+        v_forced, g_forced = _loss_grad(comp, sr, hr, None)
+    return (windows, flips, worst, v_forced,
+            float((g_forced - g_cpu).abs().max()) / scale)
+
+
+def _p29_held(dsl: str, comp, net, lr, hr, device, smi: str) -> None:
+    """The DSL's loss and SR gradient on the card against the CPU's, on
+    the card's SR of one held batch (the kernel path's forward) and its
+    HR; PieAPP's pool decisions against the CPU's (``_pieapp_pools``)."""
+    with torch.no_grad():
+        sr = net(lr).float()
+    hr = hr.float()
+    lp = loss_parameters(comp, device)
+    lp_cpu = loss_parameters(comp, 'cpu')
+    name = dsl.split('*')[-1].strip()
+    v_cpu, g_cpu = _loss_grad(comp, sr.cpu(), hr.cpu(), lp_cpu)
+    v, g = _loss_grad(comp, sr, hr, lp)
+    scale = max(float(g_cpu.abs().max()), 1e-30)
+    g_err = float((g - g_cpu).abs().max()) / scale
+    g_l2 = float((g - g_cpu).norm() / max(float(g_cpu.norm()), 1e-30))
+    if name == 'edge_loss':
+        err, tol, kind = abs(v - v_cpu), P29_EDGE_ATOL, 'abs'
+    else:
+        err, tol, kind = abs(v - v_cpu) / abs(v_cpu), P29_VALUE_RTOL, 'rel'
+    extra, g_ok = '', g_err <= P29_GRAD_TOL
+    if name in P29_MAXPOOL:
+        windows, flips, worst, v_f, g_f = _pieapp_pools(comp, sr, hr, g_cpu,
+                                                        scale)
+        rel_f = abs(v_f - v_cpu) / abs(v_cpu)
+        extra = (f'; max-pool decisions: {flips} of {windows} windows '
+                 f'differ from the CPU\'s, each a near tie (the CPU\'s two '
+                 f'values at most {worst:.3g} apart relative, tol '
+                 f'{P29_NEAR_TIE:.3g}); with the CPU\'s decisions forced: '
+                 f'value rel {rel_f:.3g}, SR grad {g_f:.3g} (tol '
+                 f'{P29_GRAD_TOL:.3g})')
+        need(worst <= P29_NEAR_TIE, f'{dsl}: a max-pool decision that '
+             f'differs from the CPU\'s is no near tie ({worst})')
+        need(rel_f <= P29_VALUE_RTOL and g_f <= P29_GRAD_TOL,
+             f'{dsl}: card with the CPU\'s pool decisions vs CPU')
+        # the card's own decisions: the gradient is excused from 2^-6
+        # only by decisions that differ
+        g_ok = g_ok or flips > 0
+    print(f'phase 29: {dsl!r} held batch, card vs CPU on the card\'s SR: '
+          f'value {v:.7g} / {v_cpu:.7g} ({kind} {err:.3g}, tol {tol:.3g}); '
+          f'SR grad {g_err:.3g} of its largest {scale:.3g}, L2 {g_l2:.3g} '
+          f'(tol {P29_GRAD_TOL:.3g}){extra}  [{smi}]')
+    need(np.isfinite(v) and err <= tol, f'{dsl}: card vs CPU value')
+    need(bool(torch.isfinite(g).all()) and g_ok,
+         f'{dsl}: card vs CPU SR gradient')
+
+
+def _p29_fits(device, smi: str, tmp: Path) -> dict:
+    """(a): each DSL's CLI fit, held step, step time and peak memory."""
+    data = fit_data(tmp, SCALE, TRAIN_PATCH)
+    base = ['fit', '--model', 'EDSR', '--scale_factor', str(SCALE),
+            '--n_feats', str(C), '--n_resblocks', str(L), '--datasets_dir',
+            str(data), '--train_datasets', 'Train', '--batch_size',
+            str(TRAIN_BATCH), '--patch_size', str(TRAIN_PATCH),
+            '--optimizer', 'ADAM', '--optimizer_params', 'lr=1e-4',
+            '--max_epochs', str(P29_STEPS), '--precision', 'bf16',
+            '--device', 'cuda', '--seed', str(SEED)]
+    runs = {}
+    net = cli.build_model(cli.build_parser().parse_args(
+        base + ['--losses', 'l1', '--default_root_dir', str(tmp / 'n')]),
+        device)
+    lr, hr = fit_batches(data, SCALE, TRAIN_PATCH, device, n=1)[0]
+    l1 = parse_losses('l1')
+    st = _p29_state(net, l1)
+    step = make_train_step(l1)
+    ms_l1 = median_ms(lambda: step(st, lr, hr), launches=5, windows=3)
+    del st
+    print(f'phase 29: l1 train step {ms_l1:.3f} ms (CUDA events, median of '
+          f'3 windows of 5 steps; batch {TRAIN_BATCH}, LR 32x32 -> HR '
+          f'128x128, Adam; cuDNN TF32 on, PyTorch\'s default; the losses\' '
+          f'convolutions in full f32)  [{smi}]')
+    for i, dsl in enumerate(P29_DSLS):
+        t0 = time.perf_counter()
+        log = _LossLog()
+        logging.getLogger('srtpu_torch.train.loop').addHandler(log)
+        # without a gradient the step runs no backward: the forward
+        # kernels alone
+        expected = {k: v if dsl not in P29_NO_GRAD or k in
+                    EXPECTED_LAUNCHES else 0
+                    for k, v in STEP_LAUNCHES.items()}
+        try:
+            counts, wall, _ = _cli_counted(
+                base + ['--losses', dsl, '--default_root_dir',
+                        str(tmp / f'r{i}')], expected,
+                f'fit --losses {dsl!r}')
+        finally:
+            logging.getLogger('srtpu_torch.train.loop').removeHandler(log)
+        _need_counts(counts, expected, P29_STEPS, f'fit --losses {dsl!r}')
+        runs[f'p29_fit_{i}'] = counts
+        losses = log.losses
+        need(len(losses) == P29_STEPS and all(map(np.isfinite, losses)),
+             f'{dsl}: fit losses {losses}')
+        first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+        if dsl not in P29_NO_GRAD:
+            need(last < first, f'{dsl}: the fit loss did not fall')
+        comp = parse_losses(dsl)
+        _p29_held(dsl, comp, net, lr, hr, device, smi)
+        st = _p29_state(net, comp)
+        step = make_train_step(comp)
+        step(st, lr, hr)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        step(st, lr, hr)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - before) / 2 ** 20
+        ms = median_ms(lambda: step(st, lr, hr), launches=5, windows=3)
+        _profile(lambda: step(st, lr, hr), ms, smi, EDSR_PROFILE,
+                 f'phase 29: {dsl!r} train step', top=4)
+        del st, comp
+        print(f'phase 29: fit --losses {dsl!r}: {P29_STEPS} steps in '
+              f'{wall:.3f} s (CLI, incl. model and loss init); losses '
+              + ' '.join(f'{v:.5f}' for v in losses)
+              + '; launches ' + ', '.join(
+                  f'{_counter_name(k)} {counts[k]}' for k in expected)
+              + f' = per step x {P29_STEPS}; train step {ms:.3f} ms against '
+              f'l1\'s {ms_l1:.3f} ({ms / ms_l1:.2f}x); step peak '
+              f'{peak:.1f} MiB above the state; {time.perf_counter() - t0:.1f}'
+              f' s with the checks  [{smi}]')
+    return runs
+
+
+def _p29_validate(device, smi: str, tmp: Path) -> dict:
+    """(b): validate with srtpu's six metrics, card vs CPU per image,
+    BRISQUE on the true shape."""
+    data = val_data(tmp, P29_HR_SIZES)
+    argv = ['validate', '--model', 'EDSR', '--scale_factor', str(SCALE),
+            '--n_feats', str(C), '--n_resblocks', str(L), '--datasets_dir',
+            str(data), '--eval_datasets', 'Val', '--metrics', *P29_METRICS,
+            '--precision', 'bf16', '--device', 'cuda', '--seed', str(SEED),
+            '--default_root_dir', str(tmp / 'vout')]
+    n = len(P29_HR_SIZES)
+    counts, wall, out = _cli_counted(argv, EXPECTED_LAUNCHES,
+                                     'validate (phase 29)')
+    _need_counts(counts, EXPECTED_LAUNCHES, n, 'validate (phase 29)')
+    printed = dict(ln.split(': ') for ln in out.strip().splitlines())
+    need(list(printed) == sorted(f'Val/{m}' for m in P29_METRICS),
+         f'validate printed {list(printed)}')
+    print(f'phase 29: validate CLI --metrics {" ".join(P29_METRICS)}: {n} '
+          f'images in {wall:.3f} s; ' + ', '.join(
+              f'{k} {v}' for k, v in printed.items()) + f'  [{smi}]')
+    net = cli.build_model(cli.build_parser().parse_args(argv),
+                          device).eval()
+    fns = build_metrics(P29_METRICS)
+    eval_step = make_eval_step(net, fns)
+    dm = SRData(datasets_dir=str(data), eval_datasets=['Val'],
+                scale_factor=SCALE)
+    dm.setup('validate')
+    exact = []
+    for batch in dm.eval_loaders()[0]:
+        lr, hr, mask = (torch.from_numpy(a).to(device)
+                        for a in (batch.lr, batch.hr, batch.mask))
+        hs, ws = batch.hr_size
+        tag = f'phase 29: validate {batch.names[0]} (HR {hs}x{ws})'
+        sr, res = eval_step(lr, hr, mask)
+        res = {k: float(v) for k, v in res.items()}
+        padded = res['BRISQUE']
+        crop = sr[:, :hs, :ws]
+        res['BRISQUE'] = brisque_exact(crop)
+        exact.append(res['BRISQUE'])
+        hr32 = hr.float().clamp(0, 1)
+        with torch.inference_mode():
+            cpu = {k: float(fn(sr.cpu()) if k == 'BRISQUE' else
+                            fn(sr.cpu(), hr32.cpu(), mask=mask.cpu()))
+                   for k, fn in fns.items()}
+        cpu['BRISQUE'] = brisque_exact(crop.cpu())
+        f_card = brisque_features(crop.float())
+        f_cpu = brisque_features(crop.float().cpu())
+        shape_cols = [0, 2, 6, 10, 14, 18, 20, 24, 28, 32]
+        d_shape = float((f_card.cpu() - f_cpu)[:, shape_cols].abs().max())
+        errs = {}
+        for k, (kind, tol) in P29_METRIC_TOL.items():
+            d = abs(res[k] - cpu[k])
+            errs[k] = d / abs(cpu[k]) if kind == 'rel' else d
+            need(np.isfinite(res[k]) and errs[k] <= tol,
+                 f'{tag}: {k} card {res[k]} vs CPU {cpu[k]}')
+        need(d_shape <= 1e-3 + 1e-6, f'{tag}: BRISQUE shape parameters '
+             f'{d_shape} apart')
+        with torch.inference_mode():
+            per = {'BRISQUE': median_ms(lambda: brisque_exact(crop),
+                                        launches=1),
+                   'FLIP': median_ms(lambda: fns['FLIP'](sr, hr32,
+                                                         mask=mask),
+                                     launches=1),
+                   'LPIPS': median_ms(lambda: fns['LPIPS'](sr, hr32,
+                                                           mask=mask),
+                                      launches=1),
+                   'forward': median_ms(lambda: net(lr), launches=1)}
+        print(f'{tag}: card ' + ' '.join(
+            f'{k} {res[k]:.6g}' for k in P29_METRICS) + ' | |card - CPU| '
+            + ' '.join(f'{k} {errs[k]:.3g} ({P29_METRIC_TOL[k][0]}, tol '
+                       f'{P29_METRIC_TOL[k][1]:.3g})' for k in P29_METRICS)
+            + f'; BRISQUE shape parameters {d_shape:.3g} apart (a table '
+            f'step 0.001); BRISQUE on the padded bucket {padded:.6g}, on '
+            f'the true shape {res["BRISQUE"]:.6g} | ms an image (CUDA '
+            'events, median of 5): ' + ', '.join(
+                f'{k} {v:.3f}' for k, v in per.items()) + f'  [{smi}]')
+    mean = float(np.mean(exact))
+    need(abs(float(printed['Val/BRISQUE']) - mean) <= 1e-4 * abs(mean),
+         f'printed Val/BRISQUE {printed["Val/BRISQUE"]} is not the '
+         f'true-shape mean {mean}')
+    return {'p29_validate': counts}
+
+
+def _p29_fit_val(device, smi: str, tmp: Path) -> dict:
+    """(c): a fit with val and edge_loss in the DSL writes srtpu's
+    ``_edges`` PNGs."""
+    data = fit_data(tmp / 'c', SCALE, TRAIN_PATCH)
+    val_data(tmp / 'c', P29_HR_SIZES)
+    argv = ['fit', '--model', 'EDSR', '--scale_factor', str(SCALE),
+            '--n_feats', str(C), '--n_resblocks', str(L), '--datasets_dir',
+            str(data), '--train_datasets', 'Train', '--eval_datasets', 'Val',
+            '--batch_size', str(TRAIN_BATCH), '--patch_size',
+            str(TRAIN_PATCH), '--losses', '0.5 * l1 + 0.5 * edge_loss',
+            '--optimizer', 'ADAM', '--optimizer_params', 'lr=1e-4',
+            '--max_epochs', '2', '--check_val_every_n_epoch', '2',
+            '--precision', 'bf16', '--device', 'cuda', '--seed', str(SEED),
+            '--default_root_dir', str(tmp / 'c' / 'run')]
+    images = len(P29_HR_SIZES) * 2      # the sanity pass, the val pass
+    expected = {k: v * 2 + EXPECTED_LAUNCHES.get(k, 0) * images
+                for k, v in STEP_LAUNCHES.items()}
+    counts, wall, _ = _cli_counted(argv, expected, 'fit with edge_loss val')
+    _need_counts(counts, expected, 1, 'fit with edge_loss and val')
+    want = {'', '_center', '_edges', '_center_edges', '_hr_edges',
+            '_hr_center_edges'}
+    for h, w in P29_HR_SIZES:
+        d = tmp / 'c' / 'run' / 'Val' / f'img{h}x{w}'
+        got = {p.name[len('epoch_00002'):-len('.png')]
+               for p in d.glob('epoch_00002*.png')}
+        need(got == want, f'{d.name}: val images {sorted(got)}')
+        sizes = {s: png_size(d / f'epoch_00002{s}.png') for s in want}
+        need(sizes['_edges'] == sizes[''] == (h, w)
+             and sizes['_center_edges'] == (96, 96),
+             f'{d.name}: PNG sizes {sizes}')
+    print(f'phase 29: fit --losses "0.5 * l1 + 0.5 * edge_loss" with val '
+          f'(2 steps, sanity + 1 val pass on HR 512x512 and 1000x680): '
+          f'{wall:.3f} s; each image\'s SR, centre crop, _edges, '
+          '_center_edges, _hr_edges, _hr_center_edges PNGs; launches '
+          + ', '.join(f'{_counter_name(k)} {counts[k]}' for k in expected)
+          + f' = per step x 2 + per eval image x {images}  [{smi}]')
+    return {'p29_fit_val': counts}
+
+
+def run_phase29(device, smi: str) -> dict:
+    """Phase 29 (the module note), under PyTorch's TF32 default for
+    cuDNN (the losses' and metrics' convolutions run in full f32 all the
+    same). Returns the launch counts of its main-path runs."""
+    t0 = time.perf_counter()
+    with cudnn_tf32(True), tempfile.TemporaryDirectory(
+            prefix='srtpu_smoke_p29_') as tmp:
+        tmp = Path(tmp)
+        runs = _p29_fits(device, smi, tmp / 'a')
+        runs.update(_p29_validate(device, smi, tmp / 'b'))
+        runs.update(_p29_fit_val(device, smi, tmp))
+    print(f'phase 29 took {time.perf_counter() - t0:.1f} s')
+    return runs
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # phase 28's deterministic fits need it before the first cuBLAS call
@@ -5524,6 +5909,8 @@ def main() -> None:
     lap('phases 24-26')
     runs.update(run_fit_val(device, smi, then=run_phase28))
     lap('phases 27 and 28')
+    runs.update(run_phase29(device, smi))
+    lap('phase 29')
     rep = 'srtpu/ops/cs_conv.py:'
     bn = 'srtpu/ops/bn_resblock_cs.py:'
     meta = [('K1', 'K1 trunk_fwd (per block conv1 at K2 EPI 0, conv2 at '

@@ -66,8 +66,11 @@ running ones) and ``predict`` and ``validate`` run eval mode;
 ``final_weights.pt`` holds the running statistics, so ``--weights``
 reads what ``fit`` left. ``validate`` scores the eval datasets
 (``<datasets_dir>/<name>/HR`` with ``LR/X{scale}``) with ``--metrics``
-(srtpu's names; PSNR, SSIM and MS-SSIM are ported) and prints ``key:
-value`` lines, sorted. ``--eval_tile`` (default 0: the direct
+(srtpu's six: BRISQUE, scored again on each image's true shape, FLIP,
+LPIPS, MS-SSIM, PSNR, SSIM) and prints ``key: value`` lines, sorted.
+``fit --losses`` takes srtpu's DSL over its twelve losses (``"0.5 * l1
++ 0.5 * adaptive"``; the adaptive loss's parameters train and
+checkpoint with the model). ``--eval_tile`` (default 0: the direct
 full-image forward; srtpu's TPU default is 80) and
 ``--eval_tile_overlap`` (8) route large images of a ``'cs'`` model
 without global pooling through the tiled eval and predict steps;
@@ -471,9 +474,9 @@ def _restore(args, device) -> tuple[torch.nn.Module, dict, dict]:
     its latest, else ``last``), through the state fit trains (so an
     SRGAN's combined G + D checkpoint restores as it was saved)."""
     from .checkpoint import CheckpointManager, load_hparams
-    from .optim import build_optimizer
-    from .train import TrainState, create_gan_state
+    from .losses import parse_losses
     from .models import SRGAN
+    from .train import TrainState, create_gan_state
     hp = load_hparams(args.checkpoint)
     data = {**hp.get('data', {}), **_overrides(args.overrides)}
     init = dict(hp.get('init_args', {}))
@@ -483,9 +486,10 @@ def _restore(args, device) -> tuple[torch.nn.Module, dict, dict]:
     if isinstance(model, SRGAN):
         state = create_gan_state(model)
     else:
-        state = TrainState(model, build_optimizer(
-            hp.get('optimizer', 'ADAM'), hp.get('optimizer_params', []),
-            model.parameters()))
+        # with the run's loss parameters: the state it saved
+        state = TrainState.create(
+            model, parse_losses(hp.get('losses', 'l1')),
+            hp.get('optimizer', 'ADAM'), hp.get('optimizer_params', []))
     CheckpointManager(args.checkpoint,
                       monitor=hp.get('monitor') or '').restore(state)
     _logger.info('restored %s (step %d) from %s', hp['model'], state.step,

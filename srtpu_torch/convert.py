@@ -151,6 +151,7 @@ import torch
 
 from .ops.ddbpn import _PROJ_PARAMS, w_down_pd, w_up_pm
 from .ops.layout import w_hwio_from_cs, w_phase_dense, w_ps_hwio
+from .train.state import LOSS_PREFIX
 
 
 def _t(a) -> torch.Tensor:
@@ -698,7 +699,10 @@ def state_from_jax(tree: dict) -> dict:
     :func:`params_from_jax`; Adam's ``mu`` and ``nu`` (SGD's ``trace``,
     MultiSteps' ``acc_grads``) through the same per-leaf map, which must
     be a pure relayout (:func:`check_relayout`); ``count`` becomes each
-    parameter's ``step``. srtpu's SRGAN state (G and D, optimizers ``g``
+    parameter's ``step``. srtpu's ``loss_params`` (the adaptive loss's
+    latents, ``{i}_{name}`` -> {latent: array}) become the checkpoint's
+    ``loss_params`` as they are, and the ``'loss'`` half of each moment
+    their optimizer state. srtpu's SRGAN state (G and D, optimizers ``g``
     and ``d``) becomes the port's SRGAN checkpoint
     (:func:`_gan_state_from_jax`)."""
     params = tree['params']
@@ -711,15 +715,25 @@ def state_from_jax(tree: dict) -> dict:
     check_relayout(params, stats)
     keys = _parameter_keys(params, stats)
 
+    def loss_leaves(loss: dict) -> dict[str, torch.Tensor]:
+        return {f'{key}.{name}': torch.from_numpy(np.asarray(v, np.float32))
+                for key, sub in sorted(loss.items())
+                for name, v in sorted(sub.items())}
+    loss_params = loss_leaves(tree.get('loss_params', {}))
+
     def mapped(moment: dict) -> dict[str, torch.Tensor]:
         sd = params_from_jax({'params': moment.get('model', moment),
                               'batch_stats': stats})
-        return {k: sd[k] for k in keys}
+        out = {k: sd[k] for k in keys}
+        out.update({LOSS_PREFIX + k: v for k, v in loss_leaves(
+            moment.get('loss', {}) if 'model' in moment else {}).items()})
+        return out
 
-    opt = _opt_from_jax(opt_state, mapped, keys)
+    opt = _opt_from_jax(opt_state, mapped,
+                        keys + [LOSS_PREFIX + k for k in loss_params])
     opt.pop('schedule', None)       # the single-model fit has none
     return {'step': int(np.asarray(tree['step'])), 'model': model,
-            'opt_state': {'model': opt}}
+            'loss_params': loss_params, 'opt_state': {'model': opt}}
 
 
 def write_state(npz, out_dir, hparams=None) -> Path:

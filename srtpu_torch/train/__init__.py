@@ -1,14 +1,15 @@
 from .gan import (GANTrainState, create_gan_state, make_gan_train_step,
                   steplr_adam)
 from .loop import Trainer, TrainerConfig
-from .state import TrainState, Updater
+from .state import TrainState, Updater, loss_parameters
 from .steps import (make_eval_step, make_predict_step, make_tiled_eval_step,
                     make_tiled_predict_step, make_train_step)
 from .tiled import make_tiled_apply, receptive_field_radius, tiled_predict
 
 __all__ = ['GANTrainState', 'TrainState', 'Trainer', 'TrainerConfig',
-           'create_gan_state', 'make_eval_step', 'make_gan_train_step',
-           'make_predict_step', 'make_tiled_apply', 'make_tiled_eval_step',
-           'make_tiled_predict_step', 'make_train_step',
+           'create_gan_state', 'loss_parameters', 'make_eval_step',
+           'make_gan_train_step', 'make_predict_step', 'make_tiled_apply',
+           'make_tiled_eval_step', 'make_tiled_predict_step',
+           'make_train_step',
            'receptive_field_radius', 'steplr_adam', 'tiled_predict',
            'Updater']

@@ -18,7 +18,10 @@
   ``save_results`` images per dataset (-1: all) are written as
   ``<root>/<dataset>/<image>/epoch_%05d[_center].png`` on the epochs
   ``save_results_from_epoch`` names (``all``, ``last``, ``half``,
-  ``quarter``), with their per-image metrics;
+  ``quarter``), with their per-image metrics, and with ``edge_loss`` or
+  ``pencil_sketch`` in the DSL their ``_edges`` / ``_sketch`` maps (the
+  HR's once per image); BRISQUE, which reads the SR alone, is scored
+  on each image's true shape, where srtpu scores it again;
 * checkpoints (:class:`~srtpu_torch.checkpoint.CheckpointManager` in
   ``<root>/checkpoints``) after each val pass: top ``save_top_k`` on
   ``monitor`` (default the first eval dataset and the first metric;
@@ -30,7 +33,8 @@
 * ``accumulate_grad_batches`` and ``gradient_clip_val`` /
   ``gradient_clip_algorithm`` (the state's
   :class:`~srtpu_torch.train.state.Updater`: optax's ``MultiSteps``
-  around srtpu's clip chain);
+  around srtpu's clip chain) over the model's parameters and the
+  trainable loss's (the adaptive loss's latents, in the one optimizer);
 * trackers (:class:`~srtpu_torch.utils.tracking.MultiTracker`:
   ``metrics.jsonl`` always, Comet where it is configured) and
   ``run.log`` in the root.
@@ -114,10 +118,10 @@ import torch
 
 from ..checkpoint import CheckpointManager
 from ..data.pipeline import center_crop
-from ..losses import VGGLoss, parse_losses
-from ..metrics import LOWER_IS_BETTER, build_metrics
+from ..losses import VGGLoss, extract_edges, parse_losses, pencil_sketch
+from ..metrics import LOWER_IS_BETTER, NO_REFERENCE, build_metrics
 from ..models import SRGAN
-from ..optim import build_optimizer, parse_optimizer_params
+from ..optim import parse_optimizer_params
 from ..utils.logging import attach_run_log, has_run_log, save_image
 from ..utils.tracking import MultiTracker
 from .gan import create_gan_state, make_gan_train_step
@@ -253,6 +257,7 @@ class Trainer:
         self._tb: MultiTracker | None = None
         self._ckpt: CheckpointManager | None = None
         self._edge_ops: list[str] = []
+        self._saved_hr_versions: set[tuple[str, str, str]] = set()
         self._log: logging.Handler | None = None
         self._device: torch.device | None = None
 
@@ -317,12 +322,12 @@ class Trainer:
             # srtpu's GAN eval step takes no tiled route
             eval_step = self._eval_step_of(model, datamodule, tiled=False)
         else:
-            state = TrainState(
-                model, build_optimizer(optimizer_name, optimizer_params,
-                                       model.parameters()),
-                updater=Updater(acc['accumulate'], acc['clip_val'],
-                                acc['clip_algorithm']))
             composite = parse_losses(losses)
+            self._warn_missing_pretrained(composite)
+            state = TrainState.create(
+                model, composite, optimizer_name, optimizer_params,
+                Updater(acc['accumulate'], acc['clip_val'],
+                        acc['clip_algorithm']))
             # srtpu's edge / sketch val images follow these losses
             self._edge_ops = [n for n in composite.names
                               if n in ('edge_loss', 'pencil_sketch')]
@@ -340,14 +345,28 @@ class Trainer:
             model.train(was_training)
             restore_deterministic(flags)
 
+    @staticmethod
+    def _warn_missing_pretrained(composite) -> None:
+        """srtpu's banner when a perceptual loss runs without converted
+        weights: it trains on random-init features, another objective."""
+        missing = [s.name for s in getattr(composite, 'sub_losses', ())
+                   if getattr(s.fn, 'pretrained', True) is False]
+        if missing:
+            _logger.warning(
+                '=' * 66 + '\nWARNING: perceptual loss(es) %s selected '
+                'WITHOUT converted pretrained weights — running on '
+                'deterministic random-init features. Scores/gradients will '
+                "not match the reference's. Convert weights with "
+                'tools/convert_torch_weights.py into $SRTPU_WEIGHTS_DIR.\n'
+                + '=' * 66, ', '.join(missing))
+
     def _eval_step_of(self, model, datamodule, tiled: bool = True):
         """The val passes' eval step on the config's metrics, or None
         without eval datasets."""
         if not datamodule.eval_dataset_names:
             return None
-        metrics = build_metrics(list(self.cfg.metrics))
-        return self._make_eval_step(metrics, model) if tiled else \
-            make_eval_step(model, metrics)
+        return self._make_eval_step(build_metrics(list(self.cfg.metrics)),
+                                    model, tiled)
 
     def _fit(self, model, datamodule, state, train_step, keys, eval_step,
              device, hparams):
@@ -583,7 +602,7 @@ class Trainer:
                     break
                 lr, hr, mask = (torch.from_numpy(a).to(device)
                                 for a in (batch.lr, batch.hr, batch.mask))
-                sr, results = eval_step(lr, hr, mask)
+                sr, results = eval_step(lr, hr, mask, batch.hr_size)
                 results = {k: float(v) for k, v in results.items()}
                 for k, v in results.items():
                     per_metric.setdefault(k, []).append(v)
@@ -615,18 +634,38 @@ class Trainer:
         """The SR and its 96 px centre crop (images of at least 96 x 96)
         as ``<root>/<dataset>/<image>/epoch_%05d[_center].png``, and the
         per-image metrics as ``<dataset>/<image>/<metric>`` (srtpu
-        ``_save_val_images``; its edge and sketch variants follow
-        ``_edge_ops``, empty while those losses are unported)."""
+        ``_save_val_images``). With ``edge_loss`` or ``pencil_sketch`` in
+        the DSL (``_edge_ops``) also their maps, computed on the card: of
+        the SR and its crop (``_edges``, ``_center_edges``; ``_sketch``,
+        ``_center_sketch``) and, once per image and op, of the HR and its
+        crop (``_hr_edges``, ``_hr_center_edges``, ...)."""
         name = batch.names[0]
         e = self.current_epoch + 1
         hs, ws = batch.hr_size
         sr_np = sr[0, :hs, :ws].float().cpu().numpy()
         imgs = [(sr_np, '')]
+        sr_crop = None
         if hs >= 96 and ws >= 96:
-            imgs.append((center_crop(sr_np, 96, 96), '_center'))
+            sr_crop = center_crop(sr_np, 96, 96)
+            imgs.append((sr_crop, '_center'))
         for op in self._edge_ops:
-            raise NotImplementedError(f'{op} val images need {op}, which is '
-                                      'not ported yet (ROADMAP.md item 15)')
+            fn, sfx = (extract_edges, 'edges') if op == 'edge_loss' else \
+                (pencil_sketch, 'sketch')
+
+            def tform(a, fn=fn):
+                with torch.inference_mode():
+                    x = torch.from_numpy(np.ascontiguousarray(a[None]))
+                    return fn(x.to(self._device))[0].cpu().numpy()
+            imgs.append((tform(sr_np), f'_{sfx}'))
+            if sr_crop is not None:
+                imgs.append((tform(sr_crop), f'_center_{sfx}'))
+            if (ds_name, name, op) not in self._saved_hr_versions:
+                hr_np = np.asarray(batch.hr)[0, :hs, :ws]
+                imgs.append((tform(hr_np), f'_hr_{sfx}'))
+                if sr_crop is not None:
+                    imgs.append((tform(center_crop(hr_np, 96, 96)),
+                                 f'_hr_center_{sfx}'))
+                self._saved_hr_versions.add((ds_name, name, op))
         out_dir = self.root / ds_name / name
         for img, suffix in imgs:
             save_image(img, out_dir / f'epoch_{e:05d}{suffix}.png')
@@ -654,19 +693,32 @@ class Trainer:
         takes (``tiled.route_tiled``)."""
         return route_tiled(lr_shape, getattr(model, 'n_feats', 64))
 
-    def _make_eval_step(self, metrics: dict, model: torch.nn.Module):
-        """The direct eval step, or, where the gate opens, one that sends
-        each shape the router picks through the tiled step."""
-        direct = make_eval_step(model, metrics)
-        gate = self._tiled_gate(model)
-        if gate is None:
-            return direct
-        tiled = make_tiled_eval_step(model, metrics, *gate)
+    def _make_eval_step(self, metrics: dict, model: torch.nn.Module,
+                        tiled: bool = True):
+        """``eval_step(lr, hr, mask, hr_size=None) -> (sr, {name: 0-dim})``
+        in name order: the full-reference metrics in the direct eval step
+        or, where ``tiled`` and the gate open, in the tiled step for each
+        shape the router picks; a no-reference metric (BRISQUE) once, on
+        the SR cropped to ``hr_size``, the image's true shape (the
+        bucket's edge padding moves its global statistics; srtpu scores it
+        again there)."""
+        ref = {k: fn for k, fn in metrics.items() if k not in NO_REFERENCE}
+        no_ref = {k: fn for k, fn in metrics.items() if k in NO_REFERENCE}
+        direct = make_eval_step(model, ref)
+        gate = self._tiled_gate(model) if tiled else None
+        tiled_step = None if gate is None else \
+            make_tiled_eval_step(model, ref, *gate)
 
-        def eval_step(lr, hr, mask):
-            if self._route_tiled(model, lr.shape):
-                return tiled(lr, hr, mask)
-            return direct(lr, hr, mask)
+        def eval_step(lr, hr, mask, hr_size=None):
+            step = direct
+            if tiled_step is not None and self._route_tiled(model, lr.shape):
+                step = tiled_step
+            sr, results = step(lr, hr, mask)
+            hs, ws = hr_size or sr.shape[1:3]
+            with torch.inference_mode():
+                results.update({k: fn(sr[:, :hs, :ws])
+                                for k, fn in no_ref.items()})
+            return sr, {k: results[k] for k in sorted(results)}
 
         return eval_step
 

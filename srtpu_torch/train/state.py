@@ -1,7 +1,11 @@
-"""TrainState: the model, its optimizer and the step count (srtpu
-``train/state.py``). PyTorch updates the parameters in place, so the
-state is one mutable object that the train step advances. No ported loss
-has trainable parameters, so there are none beside the model's yet.
+"""TrainState: the model, the trainable losses' parameters, their one
+optimizer and the step count (srtpu ``train/state.py``). PyTorch updates
+the parameters in place, so the state is one mutable object that the
+train step advances. The loss parameters (the adaptive loss's latents,
+:func:`loss_parameters`) are ``nn.Parameter`` s in a ``ParameterDict``
+keyed ``{i}_{name}`` as srtpu's ``loss_params``; the optimizer runs over
+the model's parameters and theirs together, as srtpu's ``tx`` runs over
+``{'model', 'loss'}``, so gradient clipping's global norm covers both.
 
 :class:`Updater` is what srtpu's Trainer wraps around its optax
 optimizer: ``optax.MultiSteps(chain(clip, tx), k)`` (srtpu
@@ -16,10 +20,14 @@ srtpu's ``TrainState.apply_gradients`` does.
 
 A checkpoint (:func:`state_to_tree`) is a dict of tensors and numbers:
 ``step``, the model's full ``state_dict`` (buffers too: batch norm's
-running statistics) under ``model``, and under ``opt_state`` one entry
+running statistics) under ``model``, the loss parameters under
+``loss_params`` (``{i}_{name}.{latent}``; empty without a trainable
+loss, and a checkpoint without the entry loads as empty), and under
+``opt_state`` one entry
 per optimizer (``model``; an SRGAN's ``g`` and ``d``, as srtpu's
 combined view) with its type, its per-parameter state keyed by the
-parameter's name in ``model`` rather than by index, the accumulator's
+parameter's name in ``model`` (a loss parameter's:
+``loss_params.{i}_{name}.{latent}``) rather than by index, the accumulator's
 ``mini_step`` and ``acc_grads``, and a learning-rate schedule's state.
 """
 
@@ -118,12 +126,42 @@ class Updater:
             schedule.step()
 
 
+def loss_parameters(composite, device=None
+                    ) -> torch.nn.ParameterDict | None:
+    """The trainable losses' initial parameters of ``composite`` (a
+    :class:`~srtpu_torch.losses.CompositeLoss`) as a ``ParameterDict`` of
+    ``ParameterDict`` s on ``device``, or None without a trainable loss."""
+    if not getattr(composite, 'has_trainable', False):
+        return None
+    return torch.nn.ParameterDict({
+        key: torch.nn.ParameterDict({
+            k: torch.nn.Parameter(v.to(device)) for k, v in p.items()})
+        for key, p in composite.init_params().items()})
+
+
 @dataclass
 class TrainState:
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
     updater: Updater = field(default_factory=Updater)
+    loss_params: torch.nn.ParameterDict | None = None
+
+    @classmethod
+    def create(cls, model: torch.nn.Module, composite, optimizer_name: str,
+               optimizer_params, updater: Updater | None = None):
+        """The state of ``model`` trained on ``composite``: the trainable
+        losses' initial parameters on the model's device, one optimizer
+        over the model's parameters and theirs (srtpu
+        ``TrainState.create``)."""
+        from ..optim import build_optimizer
+        loss_params = loss_parameters(composite,
+                                      next(model.parameters()).device)
+        params = list(model.parameters()) + (
+            [] if loss_params is None else list(loss_params.parameters()))
+        return cls(model, build_optimizer(optimizer_name, optimizer_params,
+                                          params),
+                   updater=updater or Updater(), loss_params=loss_params)
 
     def optimizers(self) -> dict:
         """``{key: (optimizer, schedule, updater)}`` as the checkpoint
@@ -144,11 +182,26 @@ def _named(state) -> dict[str, torch.Tensor]:
     return out
 
 
+def _loss_named(state) -> dict[str, torch.Tensor]:
+    """The checkpoint's ``loss_params`` entries of ``state``."""
+    lp = getattr(state, 'loss_params', None)
+    return {} if lp is None else dict(lp.state_dict())
+
+
+LOSS_PREFIX = 'loss_params.'
+
+
 def _param_names(state) -> dict[int, str]:
-    """id(parameter) -> its name in the checkpoint's ``model``."""
-    return {id(p): prefix + name
-            for prefix, module in state.modules().items()
-            for name, p in module.named_parameters()}
+    """id(parameter) -> its name in the checkpoint's ``model``, or
+    ``loss_params.`` and its name in ``loss_params``."""
+    names = {id(p): prefix + name
+             for prefix, module in state.modules().items()
+             for name, p in module.named_parameters()}
+    lp = getattr(state, 'loss_params', None)
+    if lp is not None:
+        names.update({id(p): LOSS_PREFIX + name
+                      for name, p in lp.named_parameters()})
+    return names
 
 
 def _opt_tree(opt, schedule, updater: Updater, names: dict) -> dict:
@@ -176,6 +229,8 @@ def state_to_tree(state) -> dict:
     return {'step': int(state.step),
             'model': {k: v.detach().cpu().clone()
                       for k, v in _named(state).items()},
+            'loss_params': {k: v.detach().cpu().clone()
+                            for k, v in _loss_named(state).items()},
             'opt_state': {key: _opt_tree(opt, sched, upd, names)
                           for key, (opt, sched, upd)
                           in state.optimizers().items()}}
@@ -189,6 +244,8 @@ def _same_structure(state, tree: dict) -> bool:
         return False
     names = _param_names(state)
     shapes = {k: tuple(v.shape) for k, v in tree['model'].items()}
+    shapes.update({LOSS_PREFIX + k: tuple(v.shape)
+                   for k, v in tree.get('loss_params', {}).items()})
     for key, (opt, _, _) in live.items():
         params = [p for g in opt.param_groups for p in g['params']]
         ours = [names[id(p)] for p in params]
@@ -234,10 +291,20 @@ def tree_to_state(state, tree: dict):
             'trained with another model or size than this one: rebuild '
             "the model from the checkpoint's hparams.json, or convert an "
             'srtpu state with python -m srtpu_torch.convert --state.')
+    live_lp = {k: tuple(v.shape) for k, v in _loss_named(state).items()}
+    stored_lp = {k: tuple(v.shape)
+                 for k, v in tree.get('loss_params', {}).items()}
+    if live_lp != stored_lp:
+        raise ValueError(
+            f"checkpoint loss parameters {sorted(stored_lp)} do not match "
+            f"the loss's {sorted(live_lp)}: the checkpoint was trained with "
+            'another --losses than this one')
     for prefix, module in state.modules().items():
         module.load_state_dict({k[len(prefix):]: v
                                 for k, v in tree['model'].items()
                                 if k.startswith(prefix)})
+    if live_lp:
+        state.loss_params.load_state_dict(tree['loss_params'])
     if _same_structure(state, tree):
         names = _param_names(state)
         for key, (opt, sched, upd) in state.optimizers().items():

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 import torch.utils.checkpoint
 
+from ..metrics import NO_REFERENCE
 from .state import TrainState
 
 
@@ -16,17 +17,24 @@ def make_train_step(composite_loss, plain: bool = False,
                     remat: bool = False):
     """``train_step(state, lr, hr) -> logs`` (srtpu ``train_step_body``):
     the forward in the model's compute dtype, ``composite_loss(sr.float(),
-    hr.float())``, backward, one optimizer step. Gradients are cleared
-    (set to None) before the backward, so after a step ``p.grad`` holds
-    that step's gradients. Logs are 0-dim tensors on the device, read
-    without a host sync: ``{'loss', 'loss/<name>'}``. The update is the
-    state's :class:`~srtpu_torch.train.state.Updater` (optax's
-    ``MultiSteps`` with srtpu's clip chain: the parameters move on every
+    hr.float()[, state.loss_params])``, backward, one optimizer step over
+    the model's and the loss's parameters. Gradients are cleared (set to
+    None) before the backward, so after a step ``p.grad`` holds that
+    step's gradients. A parameter the loss does not reach gets a zero
+    gradient, not None, as ``jax.grad`` gives srtpu: the optimizer then
+    steps it as optax does (Adam's count moves and its moments decay;
+    ``torch.optim.Adam`` would skip a parameter without a gradient). A
+    DSL whose every term carries no gradient (``edge_loss``,
+    ``pencil_sketch``) runs no backward and steps on zeros. Logs are
+    0-dim tensors on the device, read without a host sync: ``{'loss',
+    'loss/<name>'}``. The update is the state's
+    :class:`~srtpu_torch.train.state.Updater` (optax's ``MultiSteps``
+    with srtpu's clip chain: the parameters move on every
     ``accumulate_grad_batches``-th step; ``state.step`` counts every
-    batch). ``plain`` runs the
-    kernels' plain versions (the reference a card run is held against).
-    The step runs the model in the mode it is in: ``Trainer.fit`` puts it
-    in train mode (srtpu's ``train=True``). ``remat`` runs the model
+    batch). ``plain`` runs the kernels' plain versions (the reference a
+    card run is held against). The step runs the model in the mode it is
+    in: ``Trainer.fit`` puts it in train mode (srtpu's ``train=True``).
+    ``remat`` runs the model
     forward under ``torch.utils.checkpoint.checkpoint`` (non-reentrant;
     the forward draws no random numbers, so no RNG state is kept): its
     activations are recomputed in the backward, the loss stays outside
@@ -41,8 +49,17 @@ def make_train_step(composite_loss, plain: bool = False,
                 preserve_rng_state=False)
         else:
             sr = state.model(lr_img, plain=plain)
-        total, parts = composite_loss(sr.float(), hr_img.float())
-        total.backward()
+        if state.loss_params is None:
+            total, parts = composite_loss(sr.float(), hr_img.float())
+        else:
+            total, parts = composite_loss(sr.float(), hr_img.float(),
+                                          state.loss_params)
+        if total.requires_grad:
+            total.backward()
+        for group in state.optimizer.param_groups:
+            for p in group['params']:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         state.updater.apply(state.optimizer)
         state.step += 1
         logs = {'loss': sum(parts.values()).detach()}
@@ -73,12 +90,14 @@ def _metric_results(metrics: dict, sr: torch.Tensor, hr: torch.Tensor,
                     mask: torch.Tensor | None):
     """SR and HR clipped to [0, 1] in f32, then ``{name: fn(sr, hr,
     mask)}`` in name order, as srtpu's jitted step returns them (srtpu
-    ``_metric_results``; every metric the port has takes a reference).
-    Returns (the clipped SR, the 0-dim results)."""
+    ``_metric_results``); a no-reference metric (BRISQUE) gets the SR
+    alone, here the edge-padded bucket (the Trainer scores it again on
+    the true shape). Returns (the clipped SR, the 0-dim results)."""
     sr = sr.float().clamp(0.0, 1.0)
     hr = hr.float().clamp(0.0, 1.0)
     with torch.inference_mode():
-        return sr, {name: metrics[name](sr, hr, mask=mask)
+        return sr, {name: metrics[name](sr) if name in NO_REFERENCE
+                    else metrics[name](sr, hr, mask=mask)
                     for name in sorted(metrics)}
 
 

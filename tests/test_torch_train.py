@@ -95,9 +95,17 @@ def test_losses_match_srtpu(dsl):
 
 
 def test_parse_losses_errors_match_srtpu():
-    for name in ('flip', 'lpips', 'adaptive', 'haarpsi'):
-        with pytest.raises(NotImplementedError, match='item 15'):
-            parse_losses(f'0.5 * l1 + 0.5 * {name}')
+    # every srtpu name builds, with srtpu's dispatch flags
+    from srtpu.losses import supported_losses as jax_supported
+    from srtpu_torch.losses import supported_losses
+    assert supported_losses() == jax_supported()
+    for name in supported_losses():
+        comp = parse_losses(f'0.5 * l1 + 0.5 * {name}')
+        assert comp.names == ['l1', name]
+        sub = comp.sub_losses[1]
+        assert sub.trainable == (name == 'adaptive')
+        assert sub.clamp_sr == (name in ('haarpsi', 'pieapp'))
+        assert comp.has_trainable == (name == 'adaptive')
     for bad, exc in (('nosuch', AttributeError), ('x * l1', ValueError),
                      ('1 * 2 * l1', ValueError)):
         with pytest.raises(exc) as got:

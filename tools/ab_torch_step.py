@@ -2,7 +2,7 @@
 train-step and predict times of the models chip_smoke.py runs.
 
     python tools/ab_torch_step.py TREE_A TREE_B [--models EDSR,DDBPN]
-                                  [--rounds 2]
+                                  [--losses 'l1;lpips'] [--rounds 2]
 
 ``--models`` names keys of MODELS: a model, EDSR86 (EDSR x4 at 64
 features, 86 resblocks, res_scale 0.1), WDSR_STOCK (WDSR-B at 128
@@ -19,11 +19,14 @@ and ``.``). Each (tree, model) runs in a process of its own that imports
 srtpu_torch from that tree (its kernels build into that tree's
 ``build/``), draws the model from seed 0 at chip_smoke.py's
 configuration, and times, with CUDA events, the train step (batch 16, LR
-32x32, x4, bf16, L1, Adam at lr 1e-4; 5 steps a window, the median of 3
+32x32, x4, bf16, Adam at lr 1e-4; 5 steps a window, the median of 3
 windows) and one predict forward of an LR 128x128 image (the median of
-5), on random inputs; it prints one JSON line. Each round runs A, B, B,
-A, so a drift of the card or its host falls on both trees alike. The
-last lines are a table of every run and the medians per tree, with the
+5), on random inputs; it prints one JSON line. The step's loss is each
+DSL of ``--losses`` (``;`` between them; default ``l1``) in turn, a
+process for each; a DSL with a trainable loss needs a tree whose
+``TrainState`` has ``create``. Each round runs A, B, B, A, so a drift of
+the card or its host falls on both trees alike. The last lines are a
+table of every run and the medians per tree, model and DSL, with the
 card's name and power limit.
 """
 
@@ -82,8 +85,9 @@ def median_ms(fn, calls: int, windows: int) -> float:
     return float(np.median(times))
 
 
-def worker(tree: str, model: str) -> None:
-    """Time one model from ``tree`` and print one JSON line."""
+def worker(tree: str, model: str, losses: str = 'l1') -> None:
+    """Time one model on the DSL ``losses`` from ``tree`` and print one
+    JSON line."""
     sys.path.insert(0, str(Path(tree).resolve()))
     import torch
     from srtpu_torch import cli
@@ -107,16 +111,21 @@ def worker(tree: str, model: str) -> None:
         step = make_gan_train_step(vgg_loss=VGGLoss(device=device))
         state = create_gan_state(net, 1e-4)
     else:
-        step = make_train_step(parse_losses('l1'))
-        state = TrainState(net, build_optimizer('ADAM', ['lr=1e-4'],
-                                                net.parameters()))
+        composite = parse_losses(losses)
+        step = make_train_step(composite)
+        if hasattr(TrainState, 'create'):
+            state = TrainState.create(net, composite, 'ADAM', ['lr=1e-4'])
+        else:
+            state = TrainState(net, build_optimizer('ADAM', ['lr=1e-4'],
+                                                    net.parameters()))
     step_ms = median_ms(lambda: step(state, lr, hr), 5, 3)
     net.eval()
     image = torch.rand((1, 128, 128, 3), generator=gen).to(device)
     with torch.no_grad():
         predict_ms = median_ms(lambda: net(image), 1, 5)
     import srtpu_torch
-    print(json.dumps({'tree': tree, 'model': model, 'step_ms': step_ms,
+    print(json.dumps({'tree': tree, 'model': model, 'losses': losses,
+                      'step_ms': step_ms,
                       'predict_ms': predict_ms,
                       'package': str(Path(srtpu_torch.__file__).parent)}))
 
@@ -125,8 +134,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('trees', nargs='*')
     ap.add_argument('--models', default='EDSR,DDBPN')
+    ap.add_argument('--losses', default='l1')
     ap.add_argument('--rounds', type=int, default=2)
-    ap.add_argument('--worker', nargs=2, metavar=('TREE', 'MODEL'))
+    ap.add_argument('--worker', nargs=3, metavar=('TREE', 'MODEL', 'LOSSES'))
     args = ap.parse_args()
     if args.worker:
         worker(*args.worker)
@@ -138,24 +148,27 @@ def main() -> None:
                          text=True, check=True).stdout.strip()
     a, b = args.trees
     rows = []
-    for model in args.models.split(','):
+    cases = [(m, dsl) for m in args.models.split(',')
+             for dsl in args.losses.split(';')]
+    for model, dsl in cases:
         for _ in range(args.rounds):
             for tree in (a, b, b, a):
                 proc = subprocess.run(
-                    [sys.executable, __file__, '--worker', tree, model],
+                    [sys.executable, __file__, '--worker', tree, model, dsl],
                     capture_output=True, text=True)
                 if proc.returncode:
-                    raise SystemExit(f'{tree} {model}: {proc.stderr[-4000:]}')
+                    raise SystemExit(f'{tree} {model} {dsl}: '
+                                     f'{proc.stderr[-4000:]}')
                 row = json.loads(proc.stdout.strip().splitlines()[-1])
                 print(json.dumps(row), flush=True)
                 rows.append(row)
     import numpy as np
     print(f'card: {smi}')
-    for model in args.models.split(','):
+    for model, dsl in cases:
         for tree in (a, b):
             got = [r for r in rows if r['model'] == model
-                   and r['tree'] == tree]
-            print(f'{model} {tree}: step ms '
+                   and r['losses'] == dsl and r['tree'] == tree]
+            print(f'{model} {dsl!r} {tree}: step ms '
                   + ' '.join(f'{r["step_ms"]:.3f}' for r in got)
                   + f' (median {np.median([r["step_ms"] for r in got]):.3f})'
                   '; predict LR 128x128 ms '
