@@ -362,7 +362,33 @@ Phases, each of which raises on failure (nothing is caught):
    BRISQUE on the true shape (the printed mean is the true-shape
    scores'), each new metric's ms per image beside the forward's; (c) a
    fit with ``0.5 * l1 + 0.5 * edge_loss`` and val writes each image's
-   SR, centre crop and their ``_edges`` maps, the HR's once.
+   SR, centre crop and their ``_edges`` maps, the HR's once;
+30. ``steps_per_execution`` (``run_phase30``): a window of k train steps
+   is one replay of a CUDA graph (``train.graph.StepGraph``). (a)
+   EDSR-baseline x4 at the bench recipe through the CLI's function: 20
+   steps of ``fit --steps_per_execution 4`` (2 epochs of 10 batches: 2
+   windows and 2 single steps each) against 20 steps at k 1 on the same
+   batches: the weights and each window's last loss bit for bit, phase
+   4's launches per step x 20, one capture and one replay a later
+   window (these fits with cuDNN's deterministic algorithms);
+   ``--accumulate_grad_batches 3`` (30 steps, the phases cycling: one
+   capture per starting phase) held the same way; one epoch with
+   ``--remat true --deterministic true --profiler_dir`` at k 4 against
+   k 1 (the trace holds the graph's launches); a fit stopped after its
+   first epoch and resumed with ``--ckpt_path last`` equal to the
+   uninterrupted fit bit for bit; (b) RCAN 'cs', SRResNet,
+   RDN-B, DDBPN, WDSR-B 'cs', the EDSR, RCAN and WDSR-B True routes and
+   SRCNN at full width (depth 2; RDN config B's 16 blocks): 2 windows of
+   2 steps, graph against eager bit for bit (cuDNN's deterministic
+   algorithms for the stock head and tail convs), their launch counters
+   equal; (c) RMSprop, Ranger, RangerVA and RangerQH on EDSR-baseline
+   x4: graph against eager bit for bit, and the first update on the
+   card against the CPU's on the same gradients; (d) for EDSR-baseline,
+   SRResNet, DDBPN and WDSR-B 'cs' at full depth, the bare step's ms at
+   k 1 and 4 (CUDA events, batches on the card), its device time, the
+   device's share, the SM and memory clocks over 1.5 s of such steps
+   (``nvidia-smi`` every 20 ms), and the 20-step fit's wall at both; a
+   step that reads its loss on the host makes the capture raise.
 The line before the last is a JSON object with, per kernel, its launches
 in the main-path runs (EDSR, RCAN, SRResNet, RDN, DDBPN, WDSR, SRGAN
 and SRCNN predict and fit, EDSR and SRResNet x3 predict, SRResNet x3
@@ -370,8 +396,8 @@ fit, the EDSR, RCAN and WDSR-B True routes' predict and fit, EDSR 64 x
 86 fit, EDSR's and RCAN's validate, EDSR's tiled validate and predict
 and its host tiles, phase 27's fit with validation and its ``validate``
 / ``predict --checkpoint``, phase 28's exported programs and its
-profiled fit, phase 29's fits and validate, and phase 2j's op
-runs;
+profiled fit, phase 29's fits and validate, phase 30's fits and
+routes, and phase 2j's op runs;
 ``launches`` is their sum), its largest error against its plain
 version, its time (K4's, K4r's and the trunk op's: its device time
 alone, a CUDA graph of its calls; the others: the wrapper's CUDA-event
@@ -453,7 +479,7 @@ from srtpu_torch.ops.wdsr import (wdsr_bwd, wdsr_bwd_plain, wdsr_fwd,
 from srtpu_torch.ops.wdsr_block import (wdsr_block_fused_fwd,
                                         wdsr_block_fused_plain)
 from srtpu_torch.optim import build_optimizer
-from srtpu_torch.train import (Trainer, TrainerConfig, TrainState,
+from srtpu_torch.train import (Trainer, TrainerConfig, TrainState, Updater,
                                create_gan_state, loss_parameters,
                                make_eval_step, make_gan_train_step,
                                make_predict_step, make_tiled_predict_step,
@@ -5796,6 +5822,496 @@ def run_phase29(device, smi: str) -> dict:
     return runs
 
 
+# ----------------------------------------------------------- phase 30
+
+P30_K = 4                   # steps_per_execution of (a), (c) and (d)
+P30_BATCHES = 10            # batches an epoch: 2 windows of 4, 2 alone
+P30_EPOCHS = 2              # 20 steps
+P30_ACC, P30_ACC_EPOCHS = 3, 3     # the accumulating pair: 30 steps
+P30_ROUTE_K = 2             # (b): 2 windows of 2 steps a route
+P30_DEPTH = 2               # (b)'s blocks or groups
+P30_OPTS = ('RMSprop', 'Ranger', 'RangerVA', 'RangerQH')
+P30_OPT_PARAMS = ['lr=1e-4']
+# (c): the first update on the card against the CPU's on the same
+# gradients, of its largest magnitude: the same f32 formulas, summed and
+# rounded in another order (the centralisation's means over up to 576
+# values, pow), and the card's rsqrt within 2 ulps
+P30_OPT_TOL = 1e-5
+# (b): route -> (model, its keyword arguments at full width)
+P30_ROUTES = {
+    'RCAN cs': ('RCAN', dict(n_feats=C, n_resgroups=P30_DEPTH,
+                             n_resblocks=P30_DEPTH, reduction=REDUCTION,
+                             use_pallas='cs')),
+    'SRResNet': ('SRResNet', dict(n_feats=C, n_resblocks=P30_DEPTH)),
+    # RDN has no depth knob: config B's 16 blocks
+    'RDN-B': ('RDN', dict(rdn_config='B', growth0=RDN_G0)),
+    'DDBPN': ('DDBPN', dict(n0=DDBPN_N0, nr=DDBPN_NR, depth=P30_DEPTH)),
+    'WDSR-B cs': ('WDSR', dict(n_feats=WDSR_C, n_resblocks=P30_DEPTH,
+                               use_pallas='cs')),
+    'EDSR True': ('EDSR', dict(n_feats=C, n_resblocks=P30_DEPTH,
+                               use_pallas=True)),
+    'RCAN True': ('RCAN', dict(n_feats=C, n_resgroups=P30_DEPTH,
+                               n_resblocks=P30_DEPTH, reduction=REDUCTION,
+                               use_pallas=True)),
+    'WDSR-B True': ('WDSR', dict(n_feats=WDSR_C, n_resblocks=P30_DEPTH,
+                                 use_pallas=True)),
+    'SRCNN': ('SRCNN', {}),
+}
+# (d): model -> its keyword arguments at full width and depth
+P30_TIMED = {'EDSR': dict(n_feats=C, n_resblocks=L),
+             'SRResNet': dict(n_feats=C, n_resblocks=L),
+             'DDBPN': dict(n0=DDBPN_N0, nr=DDBPN_NR, depth=DDBPN_DEPTH),
+             'WDSR': dict(n_feats=WDSR_C, n_resblocks=WDSR_L,
+                          use_pallas='cs')}
+P30_TIMED_ARGS = {'EDSR': ['--n_feats', str(C), '--n_resblocks', str(L)],
+                  'SRResNet': ['--n_feats', str(C), '--n_resblocks', str(L)],
+                  'DDBPN': DDBPN_ARGS, 'WDSR': WDSR_ARGS}
+
+
+class _GraphLog(logging.Handler):
+    """The fit's ``steps_per_execution`` line: (windows, captures,
+    replays, eager windows)."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = None
+
+    def emit(self, record):
+        if record.msg.startswith('steps_per_execution %d'):
+            self.counts = tuple(record.args[1:])
+
+
+def _p30_argv(data: Path, root: Path, model: str = 'EDSR',
+              extra=()) -> list:
+    args = P30_TIMED_ARGS[model] if model != 'EDSR' else \
+        ['--n_feats', str(C), '--n_resblocks', str(L)]
+    return ['fit', '--model', model, '--scale_factor', str(SCALE), *args,
+            '--datasets_dir', str(data), '--train_datasets', 'Train',
+            '--batch_size', str(TRAIN_BATCH), '--patch_size',
+            str(TRAIN_PATCH), '--losses', 'l1', '--optimizer', 'ADAM',
+            '--optimizer_params', 'lr=1e-4', '--max_epochs',
+            str(P30_EPOCHS), '--num_sanity_val_steps', '0', '--precision',
+            'bf16', '--device', 'cuda', '--seed', str(SEED),
+            '--default_root_dir', str(root), *extra]
+
+
+def _p30_fit(argv, expected: dict, steps: int, what: str,
+             spy: bool = True) -> dict:
+    """One fit through the CLI's function with the counters of
+    ``expected`` at 0 before it: its counts (held to ``expected`` per
+    step x ``steps``), wall seconds, the graph line and the final
+    weights. With ``spy`` (a fit held to another bit for bit) also the
+    loss at each progress check (``{global step: loss}``, read there),
+    and cuDNN's deterministic algorithms: the stock head and tail convs'
+    weight grads otherwise sum in an order that changes from run to
+    run."""
+    losses = {}
+    real = train_loop.Trainer._step_progress
+
+    def progress(self, i, n_batches, items, t0, logs, keys):
+        losses[self.global_step] = float(logs['loss'])
+        return real(self, i, n_batches, items, t0, logs, keys)
+
+    log = _GraphLog()
+    logger = logging.getLogger('srtpu_torch.train.loop')
+    logger.addHandler(log)
+    try:
+        with contextlib.ExitStack() as held:
+            if spy:
+                held.enter_context(mock.patch.object(
+                    train_loop.Trainer, '_step_progress', progress))
+                held.enter_context(_cudnn_deterministic())
+            counts, wall, _ = _cli_counted(argv, expected, what)
+    finally:
+        logger.removeHandler(log)
+    _need_counts(counts, expected, steps, what)
+    root = Path(argv[argv.index('--default_root_dir') + 1])
+    weights = torch.load(root / 'final_weights.pt', weights_only=True)
+    return dict(counts=counts, wall=wall, losses=losses, graphs=log.counts,
+                weights=weights)
+
+
+def _same_weights(a: dict, b: dict, what: str) -> None:
+    need(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
+         f'{what}: the weights are not equal bit for bit (e.g. '
+         f'{[k for k in a if not torch.equal(a[k], b.get(k))][:3]})')
+
+
+def _p30_windows(graph: dict, ref: dict, what: str) -> list:
+    """Each window's last loss of ``graph`` against the same step's loss
+    of the one-step fit ``ref``, bit for bit."""
+    steps = sorted(graph['losses'])
+    need(steps and all(graph['losses'][s] == ref['losses'][s]
+                       for s in steps),
+         f'{what}: window losses {graph["losses"]} against the single '
+         f'steps\' {[ref["losses"].get(s) for s in steps]}')
+    return steps
+
+
+def _p30_cli(device, smi: str, tmp: Path) -> dict:
+    """(a): EDSR-baseline x4 through the CLI at k = 4 against k = 1."""
+    data = fit_data(tmp, SCALE, TRAIN_PATCH, n=TRAIN_BATCH * P30_BATCHES)
+    steps = P30_BATCHES * P30_EPOCHS
+    k4 = ['--steps_per_execution', str(P30_K)]
+    runs = {}
+    ref = _p30_fit(_p30_argv(data, tmp / 'k1'), STEP_LAUNCHES, steps,
+                   'fit k 1 (phase 30)')
+    got = _p30_fit(_p30_argv(data, tmp / 'k4', extra=k4), STEP_LAUNCHES,
+                   steps, 'fit k 4 (phase 30)')
+    runs['p30_fit_k1'], runs['p30_fit_k4'] = ref['counts'], got['counts']
+    _same_weights(got['weights'], ref['weights'], 'fit k 4 against k 1')
+    windows = _p30_windows(got, ref, 'fit k 4')
+    n_win = P30_EPOCHS * (P30_BATCHES // P30_K)
+    need(got['graphs'] == (n_win, 1, n_win - 1, 1),
+         f'fit k 4: (windows, captures, replays, eager) {got["graphs"]}, '
+         f'expected ({n_win}, 1, {n_win - 1}, 1)')
+    print(f'phase 30: EDSR-baseline x4 fit --steps_per_execution {P30_K}, '
+          f'{steps} steps ({P30_EPOCHS} epochs of {P30_BATCHES} batches: '
+          f'{P30_BATCHES // P30_K} windows and {P30_BATCHES % P30_K} '
+          f'single steps each): weights equal to k 1\'s bit for bit; '
+          f'window losses at steps {windows} equal: '
+          + ' '.join(f'{got["losses"][s]:.6f}' for s in windows)
+          + f'; windows, captures, replays, eager windows {got["graphs"]}; '
+          'launches ' + ', '.join(f'{_counter_name(k)} {got["counts"][k]}'
+                                  for k in STEP_LAUNCHES)
+          + f' = per step x {steps}; wall {ref["wall"]:.3f} s (k 1) / '
+          f'{got["wall"]:.3f} s (k {P30_K}), losses read each check  [{smi}]')
+
+    acc = ['--accumulate_grad_batches', str(P30_ACC), '--max_epochs',
+           str(P30_ACC_EPOCHS)]
+    steps_acc = P30_BATCHES * P30_ACC_EPOCHS
+    ref_acc = _p30_fit(_p30_argv(data, tmp / 'a1', extra=acc),
+                       STEP_LAUNCHES, steps_acc, 'fit k 1 accumulate 3')
+    got_acc = _p30_fit(_p30_argv(data, tmp / 'a4', extra=acc + k4),
+                       STEP_LAUNCHES, steps_acc, 'fit k 4 accumulate 3')
+    runs['p30_fit_acc_k1'] = ref_acc['counts']
+    runs['p30_fit_acc_k4'] = got_acc['counts']
+    _same_weights(got_acc['weights'], ref_acc['weights'],
+                  'fit k 4 accumulate 3 against k 1')
+    windows = _p30_windows(got_acc, ref_acc, 'fit k 4 accumulate 3')
+    phases = {(s - P30_K) % P30_ACC for s in windows}
+    n_win = len(windows)
+    need(got_acc['graphs'] == (n_win, len(phases), n_win - len(phases),
+                               len(phases)),
+         f'fit k 4 accumulate 3: (windows, captures, replays, eager) '
+         f'{got_acc["graphs"]}: one capture per starting phase '
+         f'{sorted(phases)}')
+    print(f'phase 30: the same with --accumulate_grad_batches {P30_ACC}, '
+          f'{steps_acc} steps: weights equal to k 1\'s bit for bit; window '
+          f'losses at steps {windows} equal; starting phases '
+          f'{sorted(phases)}; windows, captures, replays, eager windows '
+          f'{got_acc["graphs"]}  [{smi}]')
+
+    half = ['--max_epochs', '1']
+    knobs = ['--remat', 'true', '--deterministic', 'true', '--profiler_dir']
+    # remat runs the forward again in the backward: its launches twice
+    remat = {k: v * (2 if k in EXPECTED_LAUNCHES else 1)
+             for k, v in STEP_LAUNCHES.items()}
+    ref_kn = _p30_fit(_p30_argv(data, tmp / 'n1',
+                                extra=knobs + [str(tmp / 'p1')] + half),
+                      remat, steps // 2, 'fit k 1 with the knobs')
+    got_kn = _p30_fit(_p30_argv(data, tmp / 'n4',
+                                extra=knobs + [str(tmp / 'p4')] + half + k4),
+                      remat, steps // 2, 'fit k 4 with the knobs')
+    runs['p30_fit_knobs'] = {k: ref_kn['counts'][k] + got_kn['counts'][k]
+                             for k in remat}
+    _same_weights(got_kn['weights'], ref_kn['weights'],
+                  'fit k 4 with remat, deterministic, profiler_dir')
+    traces = list((tmp / 'p4').glob('*.pt.trace.json'))
+    need(len(traces) == 1 and 'cudaGraphLaunch' in traces[0].read_text(),
+         f'fit k 4 with profiler_dir: traces {traces} without a graph '
+         'launch')
+    print(f'phase 30: fit k {P30_K} and k 1 with --remat true '
+          '--deterministic true --profiler_dir, one epoch: weights equal '
+          f'bit for bit; graphs {got_kn["graphs"]}; the k {P30_K} trace '
+          f'({traces[0].stat().st_size} bytes) holds its cudaGraphLaunch '
+          f'calls  [{smi}]')
+    part = _p30_fit(_p30_argv(data, tmp / 'r', extra=k4 + half),
+                    STEP_LAUNCHES, steps // 2, 'fit k 4, first epoch')
+    rest = _p30_fit(_p30_argv(data, tmp / 'r',
+                              extra=k4 + ['--ckpt_path', 'last']),
+                    STEP_LAUNCHES, steps // 2, 'fit k 4, resumed')
+    runs['p30_fit_resume'] = {k: part['counts'][k] + rest['counts'][k]
+                              for k in STEP_LAUNCHES}
+    _same_weights(rest['weights'], got['weights'],
+                  'fit k 4 resumed at epoch 1 against the uninterrupted fit')
+    print(f'phase 30: fit k {P30_K} stopped after epoch 1 (checkpoint '
+          f'"last" at step {steps // 2}) and resumed with --ckpt_path last: '
+          f'weights equal to the uninterrupted run bit for bit; graphs of '
+          f'the resumed run {rest["graphs"]}  [{smi}]')
+    return runs
+
+
+def _p30_model(name: str, kw: dict, device):
+    return create_model(name, scale_factor=SCALE, dtype=torch.bfloat16,
+                        device=device,
+                        generator=torch.Generator().manual_seed(SEED), **kw)
+
+
+def _p30_window(device, n: int, k: int, scale: int = SCALE,
+                seed: int = SEED) -> list:
+    """``n`` windows of ``k`` stacked random batches at the training
+    shape, on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    lr = TRAIN_PATCH // scale
+    return [(torch.rand(k, TRAIN_BATCH, lr, lr, 3, generator=gen).to(device),
+             torch.rand(k, TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH, 3,
+                        generator=gen).to(device)) for _ in range(n)]
+
+
+def _p30_state_tensors(state) -> dict:
+    out = {f'model.{k}': v for k, v in state.model.state_dict().items()}
+    for i, (p, st) in enumerate(state.optimizer.state.items()):
+        out.update({f'opt.{i}.{k}': v for k, v in st.items()
+                    if torch.is_tensor(v)})
+    return out
+
+
+def _p30_pair(net, windows, k: int, opt: str = 'ADAM',
+              opt_params=('lr=1e-4',), every: int = 1,
+              remat: bool = False) -> tuple:
+    """``windows`` through the eager window (``repeat_step``) and
+    through a StepGraph, each from a copy of ``net`` (``every`` the
+    accumulator's; ``remat`` the step's): (eager state, graph state, the
+    StepGraph, each path's counter totals)."""
+    from srtpu_torch.train.graph import StepGraph, launch_counters
+    from srtpu_torch.train.steps import repeat_step
+    comp = parse_losses('l1')
+    out, counts = [], []
+    for graphed in (False, True):
+        m = copy.deepcopy(net)
+        state = TrainState.create(m, comp, opt, list(opt_params),
+                                  Updater(every))
+        step = make_train_step(comp, remat=remat)
+        run = StepGraph(step, k) if graphed else repeat_step(step, k)
+        counters = launch_counters()
+        for fn, attr in counters:
+            setattr(fn, attr, 0)
+        # the stock head and tail convs' weight grads: cuDNN's default
+        # algorithms sum in an order that changes from call to call
+        with _cudnn_deterministic():
+            for lr, hr in windows:
+                run(state, lr, hr)
+        torch.cuda.synchronize()
+        counts.append({(fn, attr): getattr(fn, attr) for fn, attr in counters})
+        out.append((state, run))
+    return out[0][0], out[1][0], out[1][1], counts
+
+
+def _p30_check_pair(eager, graph, sg, counts, what: str, n: int) -> dict:
+    a, b = _p30_state_tensors(eager), _p30_state_tensors(graph)
+    need(a.keys() == b.keys() and all(torch.equal(a[x], b[x]) for x in a),
+         f'{what}: graph against eager not bit for bit (e.g. '
+         f'{[x for x in a if not torch.equal(a[x], b[x])][:3]})')
+    need(graph.step == eager.step and (sg.captures, sg.replays,
+                                       sg.eager_windows) == (1, n - 1, 1),
+         f'{what}: step {graph.step} / {eager.step}, captures, replays, '
+         f'eager windows {(sg.captures, sg.replays, sg.eager_windows)}')
+    need(counts[0] == counts[1],
+         f'{what}: launch counters after the graph route differ from the '
+         'eager route\'s: ' + ', '.join(
+             f'{_counter_name(key)} {counts[1][key]} / {v}'
+             for key, v in counts[0].items() if counts[1][key] != v))
+    return {key: v for key, v in counts[1].items() if v}
+
+
+def _p30_routes(device, smi: str) -> dict:
+    """(b): every other route that reaches a kernel, and SRCNN."""
+    runs = {}
+    for label, (name, kw) in P30_ROUTES.items():
+        net = _p30_model(name, kw, device)
+        windows = _p30_window(device, 2, P30_ROUTE_K)
+        eager, graph, sg, counts = _p30_pair(net, windows, P30_ROUTE_K)
+        launched = _p30_check_pair(eager, graph, sg, counts, label, 2)
+        runs[f'p30_{label.lower().replace(" ", "_")}'] = {
+            key: v for key, v in launched.items()}
+        print(f'phase 30: {label} x{SCALE} (full width, depth '
+              f'{"16, config B" if name == "RDN" else P30_DEPTH}): 2 '
+              f'windows of {P30_ROUTE_K} steps, graph against eager bit for '
+              'bit (parameters, buffers, Adam\'s state); 1 capture, 1 '
+              'replay; launches equal on both routes: ' + (', '.join(
+                  f'{_counter_name(key)} {v}' for key, v in launched.items())
+                  or 'no kernel') + f'  [{smi}]')
+        del net, eager, graph, sg
+    return {k: {_counter_key(c): v for c, v in d.items()}
+            for k, d in runs.items()}
+
+
+def _counter_key(c: tuple):
+    """A (wrapper, attribute) counter as the kernels' line keys it."""
+    fn, attr = c
+    return fn if attr == 'launches' else (fn, attr)
+
+
+def _p30_optimizers(device, smi: str) -> None:
+    """(c): the four optimizers on EDSR-baseline x4, graph against eager
+    and the first update card against CPU."""
+    from srtpu_torch.convert import centralize_plan
+    net = _p30_model('EDSR', dict(n_feats=C, n_resblocks=L), device)
+    windows = _p30_window(device, 2, P30_K, seed=SEED + 1)
+    comp = parse_losses('l1')
+    for name in P30_OPTS:
+        eager, graph, sg, counts = _p30_pair(net, windows, P30_K, name,
+                                             P30_OPT_PARAMS)
+        _p30_check_pair(eager, graph, sg, counts, f'{name} (phase 30)', 2)
+        # the first update on the same gradients, card and CPU
+        m = copy.deepcopy(net)
+        lr, hr = windows[0][0][0], windows[0][1][0]
+        with _cudnn_deterministic():
+            comp(m(lr).float(), hr.float())[0].backward()
+        plan = centralize_plan(m)
+        params = dict(m.named_parameters())
+        # the update alone: both sides step parameters at 0 (the first
+        # update reads no parameter without weight decay), so that what
+        # is compared is not rounded into the weights' magnitudes
+        with torch.no_grad():
+            for p in params.values():
+                p.zero_()
+        host = {n: torch.nn.Parameter(torch.zeros_like(p, device='cpu'))
+                for n, p in params.items()}
+        for n, p in host.items():
+            p.grad = params[n].grad.detach().cpu().clone()
+        build_optimizer(name, P30_OPT_PARAMS, params.values(),
+                        {params[n]: v for n, v in plan.items()}).step()
+        build_optimizer(name, P30_OPT_PARAMS, host.values(),
+                        {host[n]: v for n, v in plan.items()}).step()
+        err = 0.0
+        for n, p in params.items():
+            d_card, d_cpu = p.detach().cpu(), host[n].detach()
+            scale = float(d_cpu.abs().max())
+            if scale > 0:
+                err = max(err, float((d_card - d_cpu).abs().max()) / scale)
+        need(err <= P30_OPT_TOL, f'{name}: first update card against CPU '
+             f'{err:.3g} of its largest magnitude')
+        print(f'phase 30: {name} {" ".join(P30_OPT_PARAMS)} on '
+              f'EDSR-baseline x4: 2 windows of {P30_K} steps, graph against '
+              'eager bit for bit (parameters and optimizer state); first '
+              f'update card against CPU on the card\'s gradients '
+              f'{err:.3g} of its largest magnitude (tol {P30_OPT_TOL})'
+              f'  [{smi}]')
+        del eager, graph, sg, m
+
+
+def _clocks(run, seconds: float = 1.5) -> str:
+    """The card's SM and memory clocks while ``run`` repeats for
+    ``seconds``: the median and range of ``nvidia-smi``'s samples every
+    20 ms (MHz), or "not measured" where it gave none."""
+    proc = subprocess.Popen(
+        ['nvidia-smi', '--query-gpu=clocks.sm,clocks.mem',
+         '--format=csv,noheader,nounits', '-lms', '20'],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            run()
+        torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+    rows = []
+    for line in out.splitlines():
+        vals = [v.strip() for v in line.split(',')]
+        if len(vals) == 2 and all(v.replace('.', '', 1).isdigit()
+                                  for v in vals):
+            rows.append([float(v) for v in vals])
+    if not rows:
+        return 'clocks not measured'
+    sm, mem = np.array(rows).T
+    return (f'SM clock median {np.median(sm):.0f} MHz ({sm.min():.0f}-'
+            f'{sm.max():.0f}), memory {np.median(mem):.0f} MHz '
+            f'({mem.min():.0f}-{mem.max():.0f}), {len(rows)} samples')
+
+
+def _p30_times(device, smi: str, tmp: Path) -> None:
+    """(d): the bare step at k = 1 and k = 4 (batches on the card), the
+    device's share, and the 20-step fit's wall at both."""
+    from srtpu_torch.train.graph import StepGraph
+    data = fit_data(tmp, SCALE, TRAIN_PATCH, n=TRAIN_BATCH * P30_BATCHES)
+    steps = P30_BATCHES * P30_EPOCHS
+    comp = parse_losses('l1')
+    for name, kw in P30_TIMED.items():
+        net = _p30_model(name, kw, device)
+        (lrs, hrs), = _p30_window(device, 1, P30_K)
+        ms, dev, clock = {}, {}, {}
+        for k in (1, P30_K):
+            state = TrainState.create(copy.deepcopy(net), comp, 'ADAM',
+                                      ['lr=1e-4'])
+            step = make_train_step(comp)
+            if k == 1:
+                def run(state=state, step=step):
+                    for i in range(P30_K):
+                        step(state, lrs[i], hrs[i])
+            else:
+                graph = StepGraph(step, P30_K)
+
+                def run(state=state, graph=graph):
+                    graph(state, lrs, hrs)
+            ms[k] = median_ms(run, launches=1, windows=3) / P30_K
+            dev[k] = _all_device_ms(run) / P30_K
+            clock[k] = _clocks(run)
+        share = {k: dev[k] / ms[k] for k in ms}
+        walls = {}
+        for k in (1, P30_K):
+            argv = _p30_argv(data, tmp / f'{name}{k}', name,
+                             ['--steps_per_execution', str(k)])
+            walls[k] = _p30_fit(argv, {}, steps, f'{name} fit k {k}',
+                                spy=False)['wall']
+        print(f'phase 30: {name} x{SCALE} train step (batch {TRAIN_BATCH}, '
+              f'LR {TRAIN_PATCH // SCALE} -> HR {TRAIN_PATCH}, bf16, L1 + '
+              f'Adam; CUDA events, median of 3 windows of {P30_K} steps, '
+              'batches on the card): ' + '; '.join(
+                  f'k {k}: {ms[k]:.3f} ms/step, device {dev[k]:.3f} ms/step '
+                  f'(torch.profiler), device share {share[k]:.3f}, '
+                  f'{clock[k]} over 1.5 s of steps' for k in ms)
+              + f'; {steps}-step fit wall (CLI, incl. model init, .npy '
+              'reads, run assets): ' + ', '.join(
+                  f'k {k} {w:.3f} s' for k, w in walls.items())
+              + f'  [{smi}]')
+        del net
+
+
+def _p30_capture_fails(device, smi: str) -> None:
+    """A step that reads the device from the host cannot be captured:
+    the StepGraph raises, it does not run the window eagerly."""
+    from srtpu_torch.train.graph import StepGraph
+    net = _p30_model('EDSR', dict(n_feats=C, n_resblocks=P30_DEPTH), device)
+    comp = parse_losses('l1')
+    state = TrainState.create(net, comp, 'ADAM', ['lr=1e-4'])
+    step = make_train_step(comp)
+
+    def reads_host(state, lr, hr):
+        logs = step(state, lr, hr)
+        float(logs['loss'])
+        return logs
+    graph = StepGraph(reads_host, P30_ROUTE_K)
+    (lrs, hrs), = _p30_window(device, 1, P30_ROUTE_K)
+    try:
+        graph(state, lrs, hrs)
+    except RuntimeError as e:
+        raised = str(e).splitlines()[0][:160]
+    else:
+        raised = None
+    need(raised is not None and graph.captures == 0,
+         'a step with a host read was captured, or ran without raising')
+    print(f'phase 30: a step that reads its loss on the host: the capture '
+          f'raised ({raised}); no eager fallback  [{smi}]')
+
+
+def run_phase30(device, smi: str) -> dict:
+    """Phase 30 (the module note). Returns the launch counts of its
+    main-path runs."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='srtpu_smoke_p30_') as tmp:
+        tmp = Path(tmp)
+        runs = _p30_cli(device, smi, tmp / 'a')
+        runs.update(_p30_routes(device, smi))
+        _p30_optimizers(device, smi)
+        _p30_times(device, smi, tmp / 'd')
+        _p30_capture_fails(device, smi)
+    print(f'phase 30 took {time.perf_counter() - t0:.1f} s')
+    return runs
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # phase 28's deterministic fits need it before the first cuBLAS call
@@ -5911,6 +6427,8 @@ def main() -> None:
     lap('phases 27 and 28')
     runs.update(run_phase29(device, smi))
     lap('phase 29')
+    runs.update(run_phase30(device, smi))
+    lap('phase 30')
     rep = 'srtpu/ops/cs_conv.py:'
     bn = 'srtpu/ops/bn_resblock_cs.py:'
     meta = [('K1', 'K1 trunk_fwd (per block conv1 at K2 EPI 0, conv2 at '

@@ -101,9 +101,10 @@ checkpoints directory) resumes a run; a crash saves ``last`` first.
 ``--accumulate_grad_batches``, ``--gradient_clip_val`` /
 ``--gradient_clip_algorithm``, ``--augment``, ``--remat``,
 ``--deterministic`` (weights from seed 0, deterministic algorithms on
-the card), ``--detect_anomaly``, ``--profiler_dir`` and
-``--log_weights_every_n_epochs`` are srtpu's knobs (``Trainer``'s
-note); ``fit`` also writes TensorBoard events to
+the card), ``--detect_anomaly``, ``--profiler_dir``,
+``--log_weights_every_n_epochs`` and ``--steps_per_execution`` (k
+train steps a dispatch: on the card one CUDA graph replay a window) are
+srtpu's knobs (``Trainer``'s note); ``fit`` also writes TensorBoard events to
 ``<default_root_dir>/tensorboard_logs`` and srtpu's run assets
 (``model_summary.txt``, ``source_snapshot.zip``, ``model_graph.txt``). With
 ``--config`` (srtpu's YAML; needs PyYAML) the config and its dotted
@@ -229,6 +230,9 @@ def build_parser() -> argparse.ArgumentParser:
                      help='write a torch.profiler trace of the training '
                           'epochs here')
     fit.add_argument('--log_weights_every_n_epochs', type=int, default=50)
+    fit.add_argument('--steps_per_execution', type=int, default=1,
+                     help='train steps a dispatch (on the card one CUDA '
+                          'graph of k steps)')
     _tile_args(fit)
     pr = sub.add_parser('predict', help='super-resolve predict datasets')
     _model_args(pr, seed=0)
@@ -382,7 +386,8 @@ def _flag_config(args) -> tuple:
         eval_tile=args.eval_tile, eval_tile_overlap=args.eval_tile_overlap,
         remat=args.remat, deterministic=args.deterministic,
         detect_anomaly=args.detect_anomaly, profiler_dir=args.profiler_dir,
-        log_weights_every_n_epochs=args.log_weights_every_n_epochs)
+        log_weights_every_n_epochs=args.log_weights_every_n_epochs,
+        steps_per_execution=args.steps_per_execution)
     hparams = {'model': args.model,
                'init_args': {'scale_factor': args.scale_factor,
                              'channels': 3, **given},

@@ -613,10 +613,70 @@ def check_relayout(params: dict, stats: dict) -> None:
             "optimizer's moments cannot be carried across per element")
 
 
+def _central_default(shape) -> tuple | None:
+    """srtpu's centralisation of a port parameter that came from an HWIO
+    kernel (4-D) or from a stack of them, HWIO or CS-arranged (5-D):
+    per output channel over the taps and the input channels."""
+    if len(shape) == 5:
+        return tuple(shape), (1, 2, 3)
+    if len(shape) == 4:
+        return tuple(shape), (0, 1, 2)
+    return None
+
+
+def centralize_plan(model) -> dict[str, tuple | None]:
+    """RangerVA's gradient centralisation (srtpu ``optim._centralize``)
+    on ``model``'s parameters: ``{name: (view, axes) or None}``, the
+    means srtpu takes on its tree of the same model and route, mapped
+    onto the port's layout by the maps above. srtpu centralises its 4-D
+    HWIO kernels and its 3-D leaves whose last two sides are multiples
+    of 3 (its CS stacks, and also RCAN's 'cs' attention weights and
+    RDN's fusion kernels at such widths), and leaves its 2-D CS-arranged
+    kernels as they are: the 'cs' tails' final convs, RCAN's group and
+    trunk closes, RDN's SFE2, GFF1 and GFF2, DDBPN's projections."""
+    from .optim import srtpu_centralize_rule
+    kind = type(model).__name__
+    route = getattr(model, 'use_pallas', 'cs')
+    plan = {name: _central_default(p.shape)
+            for name, p in model.named_parameters()}
+    two_d = set()
+    if kind in ('EDSR', 'SRResNet') and route == 'cs':
+        two_d = {'tail.final_weight'}
+    elif kind == 'RCAN':
+        for name, p in model.named_parameters():
+            leaf = name.rsplit('.', 1)[-1]
+            if route == 'cs' and leaf == 'wc':
+                two_d.add(name)
+            elif leaf in ('wd', 'wu'):
+                # 'cs': srtpu's (L, C, C / r) stacks as they are; False:
+                # its 1x1 kernels, per output over c_in; True: 2-D
+                plan[name] = (srtpu_centralize_rule(p.shape)
+                              if route == 'cs' else
+                              (tuple(p.shape), (1,)) if route is False
+                              else None)
+        if route == 'cs':
+            two_d.add('trunk_close_weight')
+    elif kind == 'RDN':
+        two_d = {'sfe2_weight', 'gff1_weight', 'gff2_weight'}
+        d, c_tot, g0 = model.lff_weight.shape
+        # srtpu's (D, G0, c_tot), the port's its transpose
+        plan['lff_weight'] = (((d, c_tot, 3, g0 // 3), (1, 2))
+                              if g0 % 3 == 0 and c_tot % 3 == 0 else None)
+    elif kind == 'DDBPN':
+        two_d = {name for name in plan
+                 if name.endswith(('a0_weight', 'a1_weight', 'b0_weight'))}
+    for name in two_d:
+        plan[name] = None
+    return plan
+
+
 def _find_optimizer(node: dict):
     """(kind, its state node, the MultiSteps node or None) of srtpu's
-    ``opt_state``: ADAM bare or under the clip / weight-decay chain,
-    SGD's trace likewise, either inside ``MultiSteps``."""
+    ``opt_state``: each of srtpu's optimizers (ADAM, SGD's trace,
+    RMSprop's ``nu`` and trace, the Ranger family's lookahead around
+    RAdam's or QHAdam's moments, RangerVA's RAdam second in its chain
+    after the centralisation) bare or under the clip / weight-decay
+    chain, either inside ``MultiSteps``."""
     multi = None
     if 'inner_opt_state' in node:
         multi, node = node, node['inner_opt_state']
@@ -624,39 +684,66 @@ def _find_optimizer(node: dict):
             {'mu', 'nu', 'count', 'trace'} & set(node['0'])):
         node = node['1'] if '1' in node else node['0']
     inner = node.get('0', {})
-    if {'mu', 'nu', 'count'} <= set(inner):
+    if {'inner', 'slow', 'count'} <= set(node):
+        chain = node['inner']
+        if {'count', 'm', 'v'} <= set(chain.get('0', {})):
+            return 'RangerQH', node, multi
+        if {'count', 'mu', 'nu'} <= set(chain.get('0', {})):
+            return 'Ranger', node, multi
+        if {'count', 'mu', 'nu'} <= set(chain.get('1', {})):
+            return 'RangerVA', node, multi
+    elif {'mu', 'nu', 'count'} <= set(inner):
         return 'ADAM', inner, multi
-    if set(inner) == {'trace'}:
+    elif set(inner) == {'trace'}:
         return 'SGD', inner, multi
-    if {'inner', 'slow', 'count'} <= set(node) or 'nu' in inner:
-        raise NotImplementedError(
-            "this srtpu optimizer state (RMSprop or the Ranger family's) "
-            'is not ported to srtpu_torch yet (ROADMAP.md queue 1, item 16)')
+    elif set(inner) == {'nu'} and set(node.get('2', {})) == {'trace'}:
+        return 'RMSprop', node, multi
     raise ValueError(
         f'unknown srtpu optimizer state structure (keys {sorted(node)}); '
-        'state_from_jax takes ADAM bare or under the clip chain, and SGD '
-        'with its trace')
+        'state_from_jax takes ADAM, SGD, RMSprop, Ranger, RangerVA and '
+        'RangerQH, bare, under the clip chain or inside MultiSteps')
+
+
+OPT_TYPES = {'ADAM': 'Adam', 'SGD': 'SGD', 'RMSprop': 'RMSprop',
+             'Ranger': 'Ranger', 'RangerVA': 'RangerVA',
+             'RangerQH': 'RangerQH'}
+
+
+def _opt_state(kind: str, node: dict, mapped, keys: list[str]):
+    """(each parameter's state as the port's optimizer ``kind`` keeps
+    it, Adam's count or None) from srtpu's state ``node``."""
+    if kind == 'ADAM':
+        mu, nu = mapped(node['mu']), mapped(node['nu'])
+        count = int(np.asarray(node['count']))
+        return {k: {'step': torch.tensor(float(count)), 'exp_avg': mu[k],
+                    'exp_avg_sq': nu[k]} for k in keys}, count
+    if kind == 'SGD':
+        trace = mapped(node['trace'])
+        return {k: {'momentum_buffer': trace[k]} for k in keys}, None
+    if kind == 'RMSprop':
+        nu, trace = mapped(node['0']['nu']), mapped(node['2']['trace'])
+        return {k: {'nu': nu[k], 'trace': trace[k]} for k in keys}, None
+    # the lookahead's count and its inner chain's move together
+    inner = node['inner']['1' if kind == 'RangerVA' else '0']
+    count = torch.tensor(float(int(np.asarray(node['count']))))
+    slow = mapped(node['slow'])
+    names = ('m', 'v') if kind == 'RangerQH' else ('mu', 'nu')
+    moments = {n: mapped(inner[n]) for n in names}
+    return {k: {'count': count.clone(), 'slow': slow[k],
+                **{n: moments[n][k] for n in names}} for k in keys}, None
 
 
 def _opt_from_jax(opt_state: dict, mapped, keys: list[str]) -> dict:
     """One port optimizer tree (:func:`~srtpu_torch.train.state
     .state_to_tree`'s ``opt_state`` entry) from srtpu's ``opt_state`` of
-    the parameters ``keys``: Adam's ``mu`` and ``nu`` (SGD's ``trace``,
-    MultiSteps' ``acc_grads``) through ``mapped`` (a moment tree -> its
-    tensors by key), ``count`` as each parameter's ``step`` and as the
-    schedule's position."""
+    the parameters ``keys``: its moments, traces and slow weights
+    (MultiSteps' ``acc_grads`` too) through ``mapped`` (a moment tree ->
+    its tensors by key), each count as each parameter's (Adam's
+    ``step``, also the schedule's position)."""
     kind, node, multi = _find_optimizer(opt_state)
-    if kind == 'ADAM':
-        mu, nu = mapped(node['mu']), mapped(node['nu'])
-        count = int(np.asarray(node['count']))
-        state = {k: {'step': torch.tensor(float(count)), 'exp_avg': mu[k],
-                     'exp_avg_sq': nu[k]} for k in keys}
-    else:
-        count = None
-        trace = mapped(node['trace'])
-        state = {k: {'momentum_buffer': trace[k]} for k in keys}
-    opt = {'type': {'ADAM': 'Adam', 'SGD': 'SGD'}[kind], 'params': keys,
-           'state': state, 'mini_step': 0, 'acc_grads': None}
+    state, count = _opt_state(kind, node, mapped, keys)
+    opt = {'type': OPT_TYPES[kind], 'params': keys, 'state': state,
+           'mini_step': 0, 'acc_grads': None}
     if multi is not None:
         opt['mini_step'] = int(np.asarray(multi['mini_step']))
         if 'acc_grads' in multi:
@@ -696,22 +783,24 @@ def state_from_jax(tree: dict) -> dict:
     format) from an srtpu training state tree (``step``, ``params``,
     ``batch_stats``, ``opt_state``; a flattened ``.npz`` read by
     :func:`load_npz`). The parameters and batch statistics map as
-    :func:`params_from_jax`; Adam's ``mu`` and ``nu`` (SGD's ``trace``,
+    :func:`params_from_jax`; every per-parameter tree of the optimizer's
+    state (Adam's ``mu`` and ``nu``, SGD's and RMSprop's ``trace``,
+    RMSprop's ``nu``, the Ranger family's moments and slow weights,
     MultiSteps' ``acc_grads``) through the same per-leaf map, which must
-    be a pure relayout (:func:`check_relayout`); ``count`` becomes each
-    parameter's ``step``. srtpu's ``loss_params`` (the adaptive loss's
-    latents, ``{i}_{name}`` -> {latent: array}) become the checkpoint's
-    ``loss_params`` as they are, and the ``'loss'`` half of each moment
-    their optimizer state. srtpu's SRGAN state (G and D, optimizers ``g``
-    and ``d``) becomes the port's SRGAN checkpoint
-    (:func:`_gan_state_from_jax`)."""
+    be a pure relayout (:func:`check_relayout`); each count becomes each
+    parameter's (Adam's ``step``, the Ranger family's ``count``). srtpu's
+    ``loss_params`` (the adaptive loss's latents, ``{i}_{name}`` ->
+    {latent: array}) become the checkpoint's ``loss_params`` as they are,
+    and the ``'loss'`` half of each such tree their optimizer state.
+    srtpu's SRGAN state (G and D, optimizers ``g`` and ``d``) becomes the
+    port's SRGAN checkpoint (:func:`_gan_state_from_jax`)."""
     params = tree['params']
     stats = tree.get('batch_stats', {})
     if 'generator' in params:
         return _gan_state_from_jax(tree)
     model = params_from_jax({'params': params, 'batch_stats': stats})
     opt_state = tree.get('opt_state', {})
-    _find_optimizer(opt_state)      # an unported optimizer raises first
+    _find_optimizer(opt_state)      # an unknown structure raises first
     check_relayout(params, stats)
     keys = _parameter_keys(params, stats)
 

@@ -42,8 +42,26 @@ DIV2K_RGB_MEAN = (0.4488, 0.4371, 0.4040)
 
 __all__ = ['DIV2K_RGB_MEAN', 'BNTrunk', 'Conv2d', 'PReLU', 'Trunk',
            'UpscaleBlock', 'UpscaleTail', 'WNConv2d', 'bicubic_resize',
-           'mean_shift', 'pixel_shuffle', 'prelu', 'resize_matrix',
-           'uniform_param']
+           'device_const', 'mean_shift', 'pixel_shuffle', 'prelu',
+           'resize_matrix', 'uniform_param']
+
+_CONSTS: dict[tuple, torch.Tensor] = {}
+
+
+def device_const(key: tuple, make) -> torch.Tensor:
+    """The constant ``make()`` (a tensor on its device) under ``key``,
+    made at its first use and kept: a forward makes no host-to-device
+    copy a call, which a CUDA graph of the train step could not capture.
+    Made outside inference mode, so a training step may save it; under
+    ``torch.export``'s tracing made anew (a traced value is no
+    constant to keep)."""
+    if torch.compiler.is_compiling():
+        return make()
+    t = _CONSTS.get(key)
+    if t is None:
+        with torch.inference_mode(False):
+            t = _CONSTS[key] = make()
+    return t
 
 
 def uniform_param(shape, bound: float, device, generator: torch.Generator
@@ -60,8 +78,10 @@ def mean_shift(x: torch.Tensor, sign: int, rgb_range: float = 1.0,
                rgb_std: Sequence[float] = (1.0, 1.0, 1.0)) -> torch.Tensor:
     """Frozen DIV2K mean shift in x's dtype: sign=-1 subtracts the mean,
     +1 adds it back (srtpu/models/common.py:206-216)."""
-    mean = torch.tensor(rgb_mean, dtype=x.dtype, device=x.device)
-    std = torch.tensor(rgb_std, dtype=x.dtype, device=x.device)
+    mean, std = (device_const(
+        ('rgb', tuple(v), x.dtype, x.device),
+        lambda v=v: torch.tensor(v, dtype=x.dtype, device=x.device))
+        for v in (rgb_mean, rgb_std))
     return x / std + sign * rgb_range * mean / std
 
 
@@ -504,8 +524,11 @@ def bicubic_resize(x: torch.Tensor, out_hw: tuple[int, int],
     default for ``matmul``)."""
     h, w = x.shape[1], x.shape[2]
     oh, ow = out_hw
-    mh = torch.from_numpy(resize_matrix(h, oh, a, antialias)).to(x.device)
-    mw = torch.from_numpy(resize_matrix(w, ow, a, antialias)).to(x.device)
+    mh, mw = (device_const(
+        ('bicubic', n, on, a, antialias, x.device),
+        lambda n=n, on=on: torch.from_numpy(resize_matrix(
+            n, on, a, antialias)).to(x.device))
+        for n, on in ((h, oh), (w, ow)))
     y = torch.einsum('oh,bhwc->bowc', mh, x.float())
     y = torch.einsum('pw,bhwc->bhpc', mw, y)
     return y.to(x.dtype)

@@ -49,7 +49,7 @@ from torch import nn
 from ..ops.layout import pixel_shuffle
 from ..ops.wdsr import wdsr_trunk
 from ..ops.wdsr_block import wdsr_block_fused
-from .common import DIV2K_RGB_MEAN, WNConv2d
+from .common import DIV2K_RGB_MEAN, WNConv2d, device_const
 
 EXPAND, LINEAR = 6, 0.8
 
@@ -145,8 +145,10 @@ class WDSR(nn.Module):
         dtype = self.dtype or x.dtype
         r = self.scale_factor
         if self.channels == 3:
-            mean = torch.tensor(DIV2K_RGB_MEAN, dtype=x.dtype,
-                                device=x.device)
+            mean = device_const(
+                ('rgb', DIV2K_RGB_MEAN, x.dtype, x.device),
+                lambda: torch.tensor(DIV2K_RGB_MEAN, dtype=x.dtype,
+                                     device=x.device))
             x = x - mean
         s = pixel_shuffle(self.skip(x, dtype), r)
         # cuDNN may hand the head's output back in NCHW memory (a permuted

@@ -85,8 +85,21 @@ srtpu's debugging and bookkeeping knobs:
   warning and training goes on.
 
 srtpu's ``_fit_gan`` reads none of these knobs; here the GAN fit takes
-all but ``remat``. ``steps_per_execution`` (ROADMAP.md item 18) raises
-``NotImplementedError`` when set off its default.
+all but ``remat`` and ``steps_per_execution``.
+
+``steps_per_execution`` k > 1 is srtpu's window loop (srtpu
+``loop.py:304-326``): k batches are stacked into a window and run as k
+train steps in one call, ``global_step`` moves by k and the in-epoch
+progress line is checked at window boundaries (its cadence is on the
+global step); an epoch's remainder batches run through the single step.
+On the card a window is one replay of a CUDA graph of its k steps
+(:class:`~srtpu_torch.train.graph.StepGraph`: one host dispatch per k
+steps; a capture that fails raises), on the CPU its k eager steps
+(:func:`~srtpu_torch.train.steps.repeat_step`), the same arithmetic.
+``fast_dev_run`` runs one step (k 1, as srtpu); the GAN fit runs one
+step a dispatch, as srtpu's ``_fit_gan``, which never reads the key;
+with ``detect_anomaly`` (whose hooks read the host, which no graph can
+capture) each window's k steps run eagerly, with one warning.
 
 ``validate`` scores every eval image (batch 1, bucket-padded, masked)
 with ``metrics`` and returns ``{dataset/metric: mean}``; ``predict``
@@ -125,10 +138,11 @@ from ..optim import parse_optimizer_params
 from ..utils.logging import attach_run_log, has_run_log, save_image
 from ..utils.tracking import MultiTracker
 from .gan import create_gan_state, make_gan_train_step
+from .graph import StepGraph
 from .state import TrainState, Updater
 from .steps import (make_eval_step, make_predict_step,
                     make_tiled_eval_step, make_tiled_predict_step,
-                    make_train_step)
+                    make_train_step, repeat_step)
 from .tiled import route_tiled, tiled_predict
 
 _logger = logging.getLogger(__name__)
@@ -167,12 +181,9 @@ class TrainerConfig:
     detect_anomaly: bool = False            # srtpu's jax_debug_nans
     deterministic: bool = False             # deterministic algorithms
     remat: bool = False                     # recompute the forward
-    # not ported (ROADMAP.md item 18): a value off the default raises
-    steps_per_execution: int = 1
+    steps_per_execution: int = 1            # train steps a dispatch
 
 
-# knob -> (its default, the ROADMAP.md item that ports it)
-NOT_PORTED = {'steps_per_execution': (1, '18')}
 CUBLAS_DETERMINISTIC = ':4096:8'    # CUBLAS_WORKSPACE_CONFIG's value
 
 
@@ -260,6 +271,7 @@ class Trainer:
         self._saved_hr_versions: set[tuple[str, str, str]] = set()
         self._log: logging.Handler | None = None
         self._device: torch.device | None = None
+        self.step_graph = None          # the last fit's StepGraph (card)
 
     @property
     def tb(self) -> MultiTracker:
@@ -292,11 +304,6 @@ class Trainer:
         :class:`~srtpu_torch.train.gan.GANTrainState`). ``hparams`` go to
         the trackers and to ``checkpoints/hparams.json``."""
         cfg = self.cfg
-        for name, (default, item) in NOT_PORTED.items():
-            if getattr(cfg, name) != default:
-                raise NotImplementedError(
-                    f'{name} is not ported to srtpu_torch yet (ROADMAP.md '
-                    f'queue 1, item {item})')
         datamodule.setup('fit')
         device = self._device = next(model.parameters()).device
         if not has_run_log(self.root):
@@ -410,6 +417,16 @@ class Trainer:
         hooks = []
         if cfg.detect_anomaly:
             train_step, hooks = anomaly_guard(model, train_step)
+        # srtpu's k: at least 1; one observable step under fast_dev_run;
+        # the GAN fit one step a dispatch
+        spe = max(int(cfg.steps_per_execution), 1)
+        if cfg.fast_dev_run or isinstance(model, SRGAN):
+            spe = 1
+        multi_step = self._window_step(train_step, spe, device)
+
+        def single(batch):
+            return train_step(state, torch.from_numpy(batch.lr).to(device),
+                              torch.from_numpy(batch.hr).to(device))
         profiler = self._start_profiler(device) if cfg.profiler_dir \
             else None
         try:
@@ -421,18 +438,29 @@ class Trainer:
                 if limit is not None:
                     n_batches = min(n_batches, limit)
                 loader.set_epoch(0 if cfg.overfit_batches > 0 else epoch)
+                pending = []
                 for i, batch in enumerate(loader):
                     if limit is not None and i >= limit:
                         break
                     if cfg.fast_dev_run and i >= 1:
                         break
-                    lr = torch.from_numpy(batch.lr).to(device)
-                    hr = torch.from_numpy(batch.hr).to(device)
-                    last_logs = train_step(state, lr, hr)
-                    self.global_step += 1
-                    items += lr.shape[0]
+                    pending.append(batch)
+                    if len(pending) < spe:
+                        continue
+                    last_logs = single(batch) if multi_step is None else \
+                        multi_step(state, *(
+                            torch.from_numpy(np.stack(arrays)) for arrays
+                            in zip(*((b.lr, b.hr) for b in pending))))
+                    self.global_step += len(pending)
+                    items += sum(b.lr.shape[0] for b in pending)
+                    pending = []
                     self._step_progress(i, n_batches, items, t0, last_logs,
                                         keys)
+                # an epoch's remainder batches run through the single step
+                for b in pending:
+                    last_logs = single(b)
+                    self.global_step += 1
+                    items += b.lr.shape[0]
                 if cfg.enable_progress_log:
                     # reading a loss waits for the step
                     vals = [float(last_logs[k]) if last_logs else 0.0
@@ -471,8 +499,32 @@ class Trainer:
                 h.remove()
             if profiler is not None:
                 self._stop_profiler(profiler)
+            graphs = self.step_graph
+            if graphs is not None:
+                _logger.info('steps_per_execution %d: %d windows as CUDA '
+                             'graphs (%d graphs captured, %d replays, %d '
+                             'eager windows)', graphs.k,
+                             graphs.replays + graphs.eager_windows,
+                             graphs.captures, graphs.replays,
+                             graphs.eager_windows)
             self._record_run_artifacts()
         return state
+
+    def _window_step(self, train_step, k: int, device):
+        """The window form of ``train_step`` at k > 1 steps a window (the
+        module note), or None at k 1."""
+        self.step_graph = None
+        if k == 1:
+            return None
+        if self.cfg.detect_anomaly:
+            _logger.warning(
+                'steps_per_execution=%d with detect_anomaly: its NaN hooks '
+                'read the device from the host, which a CUDA graph cannot '
+                'capture; each window runs its %d steps eagerly', k, k)
+        elif device.type == 'cuda':
+            self.step_graph = StepGraph(train_step, k)
+            return self.step_graph
+        return repeat_step(train_step, k)
 
     def _start_profiler(self, device: torch.device):
         """torch.profiler over CPU and, on a card, CUDA activity."""

@@ -27,8 +27,13 @@ loss, and a checkpoint without the entry loads as empty), and under
 per optimizer (``model``; an SRGAN's ``g`` and ``d``, as srtpu's
 combined view) with its type, its per-parameter state keyed by the
 parameter's name in ``model`` (a loss parameter's:
-``loss_params.{i}_{name}.{latent}``) rather than by index, the accumulator's
-``mini_step`` and ``acc_grads``, and a learning-rate schedule's state.
+``loss_params.{i}_{name}.{latent}``) rather than by index (Adam's
+``step``, ``exp_avg``, ``exp_avg_sq``; SGD's ``momentum_buffer``;
+RMSprop's ``nu`` and ``trace``; the Ranger family's ``count``, ``slow``
+and moments), the accumulator's ``mini_step`` and ``acc_grads``, and a
+learning-rate schedule's state. Restoring replaces the optimizer's and
+the accumulator's tensors: a CUDA graph captured before it is dropped
+(:class:`~srtpu_torch.train.graph.StepGraph`).
 """
 
 from __future__ import annotations
@@ -159,8 +164,16 @@ class TrainState:
                                       next(model.parameters()).device)
         params = list(model.parameters()) + (
             [] if loss_params is None else list(loss_params.parameters()))
+        centralize = None
+        if optimizer_name.lower() == 'rangerva':
+            # srtpu's centralisation on its own layout of each parameter;
+            # the loss's latents take its rule on their own shapes
+            from ..convert import centralize_plan
+            named = dict(model.named_parameters())
+            centralize = {named[n]: v
+                          for n, v in centralize_plan(model).items()}
         return cls(model, build_optimizer(optimizer_name, optimizer_params,
-                                          params),
+                                          params, centralize),
                    updater=updater or Updater(), loss_params=loss_params)
 
     def optimizers(self) -> dict:

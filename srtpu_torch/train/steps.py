@@ -69,6 +69,44 @@ def make_train_step(composite_loss, plain: bool = False,
     return train_step
 
 
+def repeat_step(train_step, k: int):
+    """``multi_step(state, lr_stack, hr_stack) -> logs``: ``train_step``
+    on each of the ``k`` batches of the stacked window (``(k, B, ...)``,
+    on the model's device or on the host, then moved there once), in
+    order; the last step's logs. The eager form of a window: the CPU's,
+    and the card's where a CUDA graph cannot take the step
+    (``detect_anomaly``)."""
+    if k < 1:
+        raise ValueError(f'steps_per_execution must be >= 1, got {k}')
+
+    def multi_step(state: TrainState, lr_stack: torch.Tensor,
+                   hr_stack: torch.Tensor) -> dict[str, torch.Tensor]:
+        if lr_stack.shape[0] != k or hr_stack.shape[0] != k:
+            raise ValueError(f'a window of {k} steps takes (k, B, ...) '
+                             f'stacks, got {tuple(lr_stack.shape)} and '
+                             f'{tuple(hr_stack.shape)}')
+        device = next(state.model.parameters()).device
+        lr_stack, hr_stack = lr_stack.to(device), hr_stack.to(device)
+        logs = None
+        for i in range(k):
+            logs = train_step(state, lr_stack[i], hr_stack[i])
+        return logs
+
+    return multi_step
+
+
+def make_multi_train_step(composite_loss, k: int, remat: bool = False,
+                          plain: bool = False):
+    """srtpu's ``make_multi_train_step``: ``multi_step(state, lr_stack,
+    hr_stack) -> logs``, ``k`` train steps (:func:`make_train_step`'s)
+    over a stacked window ``(k, B, ...)`` in order, the last step's logs
+    returned. This is the eager form, the reference the card's
+    :class:`~srtpu_torch.train.graph.StepGraph` (the same ``k`` steps as
+    one CUDA graph) is held to."""
+    return repeat_step(make_train_step(composite_loss, plain=plain,
+                                       remat=remat), k)
+
+
 def _eval_forward(model: torch.nn.Module, plain: bool = False):
     """``lr -> model(lr)`` without autograd, in eval mode (srtpu's
     ``train=False``: batch norm reads its running statistics and leaves

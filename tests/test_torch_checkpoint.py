@@ -248,11 +248,13 @@ def _first(node, names):
 
 
 def test_state_from_jax_refuses():
+    """Only an optimizer srtpu does not build raises (Adagrad's state);
+    RMSprop's and Ranger's, refused before item 16, convert to the
+    port's optimizer of that name."""
     from srtpu.optim import build_optimizer as jbo
-    with pytest.raises(NotImplementedError, match='item 16'):
-        convert.state_from_jax(_srtpu_tree(jbo('Ranger', [])))
-    with pytest.raises(NotImplementedError, match='item 16'):
-        convert.state_from_jax(_srtpu_tree(jbo('RMSprop', [])))
+    for name in ('Ranger', 'RMSprop'):
+        out = convert.state_from_jax(_srtpu_tree(jbo(name, [])))
+        assert out['opt_state']['model']['type'] == name
     with pytest.raises(ValueError, match='unknown srtpu optimizer'):
         convert.state_from_jax(_srtpu_tree(optax.adagrad(1e-2)))
 
@@ -358,3 +360,123 @@ def test_srgan_state_from_jax_resumes_in_port():
         np.testing.assert_allclose(
             plogs[k].item(), float(ref),
             rtol=2.0 ** -8 if k == 'vgg_loss' else 1e-5, err_msg=k)
+
+
+# --------------------------- RMSprop and the Ranger family (item 16)
+
+ITEM16_TX = {
+    'RMSprop': lambda: jax_build_optimizer('RMSprop', ['momentum=0.9']),
+    'Ranger': lambda: jax_build_optimizer('Ranger', ['k=2']),
+    'RangerVA': lambda: optax.chain(optax.clip_by_global_norm(1.0),
+                                    jax_build_optimizer(
+                                        'RangerVA', ['weight_decay=1e-2'])),
+    'RangerQH': lambda: optax.MultiSteps(jax_build_optimizer(
+        'RangerQH', ['k=2']), 2)}
+ITEM16_PORT = {'RMSprop': (['momentum=0.9'], {}),
+               'Ranger': (['k=2'], {}),
+               'RangerVA': (['weight_decay=1e-2'],
+                            dict(clip_val=1.0)),
+               'RangerQH': (['k=2'], dict(every=2))}
+
+
+def _grad_trees(params, n, seed=7):
+    rng = np.random.default_rng(seed)
+    return [jax.tree_util.tree_map(
+        lambda a: rng.standard_normal(a.shape).astype(np.float32) * 0.1,
+        params) for _ in range(n)]
+
+
+def _srtpu_stepped(tx, grads):
+    """srtpu's tiny EDSR state after ``grads`` (trees of its params) as
+    its ``apply_gradients`` takes them."""
+    jm = jax_create_model('EDSR', scale_factor=4, use_pallas='cs', **KW)
+    state = create_train_state(jm, tx, jax.random.PRNGKey(0),
+                               jnp.zeros((1, 8, 8, 3)))
+    for g in grads:
+        state = state.apply_gradients({'model': g, 'loss': {}})
+    return state
+
+
+def _port_step(state, grads) -> None:
+    """The port's update on srtpu-layout gradient trees (through convert),
+    one ``Updater.apply`` each."""
+    named = dict(state.model.named_parameters())
+    for g in grads:
+        for n, t in convert.params_from_jax({'params': g}).items():
+            named[n].grad = t.clone()
+        state.updater.apply(state.optimizer)
+        state.step += 1
+
+
+def _port_of(name, params=None):
+    from srtpu_torch.losses import parse_losses
+    opt, upd = ITEM16_PORT[name]
+    model = create_model('EDSR', scale_factor=4,
+                         generator=torch.Generator().manual_seed(0), **KW)
+    if params is not None:
+        model.load_state_dict(convert.params_from_jax(
+            {'params': jax.tree_util.tree_map(np.asarray, params)}))
+    return TrainState.create(model, parse_losses('l1'), name, opt,
+                             Updater(**upd))
+
+
+@pytest.mark.parametrize('name', sorted(ITEM16_TX))
+def test_item16_state_from_jax_resumes_as_srtpu(name):
+    """srtpu's state after 3 updates (bare, under the clip / weight-decay
+    chain, inside MultiSteps), converted and restored into the port,
+    takes the next 3 updates as srtpu does: parameters within 1e-5 of each
+    tensor's largest magnitude (test_torch_optim.py's tolerances, over
+    fewer steps), its moments, traces and slow weights mapped by
+    ``convert``."""
+    from srtpu.checkpoint import _state_to_tree
+    from srtpu_torch.train.state import tree_to_state
+    jm_params = _srtpu_stepped(ITEM16_TX[name](), []).params
+    grads = _grad_trees(jm_params, 6)
+    before = _srtpu_stepped(ITEM16_TX[name](), grads[:3])
+    after = _srtpu_stepped(ITEM16_TX[name](), grads)
+    nested = _nested(_flat(_state_to_tree(before)))
+    tree = convert.state_from_jax(nested)
+    opt = tree['opt_state']['model']
+    assert opt['type'] == name and tree['step'] == 3
+    st = opt['state']['trunk.w1']
+    if name == 'RMSprop':
+        assert set(st) == {'nu', 'trace'}
+    else:
+        slow = convert.params_from_jax(
+            {'params': _first(nested['opt_state'], ('slow',))})
+        assert torch.equal(st['slow'], slow['trunk.w1'])
+        assert float(st['count']) == (1.0 if name == 'RangerQH' else 3.0)
+    state = _port_of(name)
+    tree_to_state(state, tree)
+    _port_step(state, grads[3:])
+    want = convert.params_from_jax({'params': jax.tree_util.tree_map(
+        np.asarray, after.params)})
+    for n, ref in want.items():
+        np.testing.assert_allclose(
+            state.model.state_dict()[n].numpy(), ref.numpy(), rtol=0,
+            atol=1e-5 * ref.abs().max().item(), err_msg=n)
+
+
+@pytest.mark.parametrize('name', sorted(ITEM16_TX))
+def test_item16_round_trip_resumes_bit_for_bit(tmp_path, name):
+    """A checkpoint of each optimizer's state, restored into a fresh
+    state, continues exactly as the uninterrupted state."""
+    grads = _grad_trees(_srtpu_stepped(ITEM16_TX[name](), []).params, 6)
+    whole, cut = _port_of(name), _port_of(name)
+    _port_step(whole, grads)
+    _port_step(cut, grads[:3])
+    mngr = CheckpointManager(tmp_path, monitor='')
+    mngr.save(1, cut, {})
+    fresh = _port_of(name)
+    mngr.restore_last(fresh)
+    _port_step(fresh, grads[3:])
+    a, b = state_to_tree(whole), state_to_tree(fresh)
+    assert a['step'] == b['step'] == 6
+    for k, v in a['model'].items():
+        assert torch.equal(v, b['model'][k]), k
+    sa, sb = a['opt_state']['model'], b['opt_state']['model']
+    assert sa['type'] == sb['type'] == name
+    assert sa['mini_step'] == sb['mini_step']
+    for pname, st in sa['state'].items():
+        for k, v in st.items():
+            assert torch.equal(v, sb['state'][pname][k]), (pname, k)

@@ -1484,3 +1484,117 @@ def test_k9d_op_and_wrappers(device):
     with pytest.raises(ValueError, match='no kernel for C=32.*F4'):
         k8a.resblock_bwd_fused(args[0], args[0], args[0], args[1], args[3],
                                1.0)
+
+
+# ------------------------------------------------ StepGraph (item 18)
+
+def _graph_windows(device, n, k, bsz=4, lr=16, scale=4, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return [(torch.rand(k, bsz, lr, lr, 3, generator=gen).to(device),
+             torch.rand(k, bsz, lr * scale, lr * scale, 3,
+                        generator=gen).to(device)) for _ in range(n)]
+
+
+def _graph_pair(device, name, kw, opt='ADAM', every=1, windows=3, k=2,
+                remat=False):
+    """Eager windows and StepGraph windows from one init
+    (``chip_smoke._p30_pair``: cuDNN's deterministic algorithms, since
+    the stock head and tail convs' weight grads otherwise sum in an order
+    that changes from call to call): (eager state, graph state, the
+    StepGraph, each route's counter totals)."""
+    net = create_model(name, scale_factor=4, dtype=torch.bfloat16,
+                       device=device,
+                       generator=torch.Generator().manual_seed(0), **kw)
+    a, b, sg, (ca, cb) = chip_smoke._p30_pair(
+        net, _graph_windows(device, windows, k), k, opt, every=every,
+        remat=remat)
+    return a, b, sg, ca, cb
+
+
+def _state_equal(a, b):
+    ta, tb = chip_smoke._p30_state_tensors(a), chip_smoke._p30_state_tensors(b)
+    assert ta.keys() == tb.keys()
+    for key in ta:
+        assert torch.equal(ta[key], tb[key]), key
+    assert a.step == b.step
+
+
+@pytest.mark.parametrize('name,kw,remat', [
+    ('EDSR', dict(n_feats=64, n_resblocks=2), False),
+    ('EDSR', dict(n_feats=64, n_resblocks=2), True),
+    ('SRResNet', dict(n_feats=64, n_resblocks=2), False),
+    ('WDSR', dict(n_feats=128, n_resblocks=2, use_pallas='cs'), False),
+    ('WDSR', dict(n_feats=128, n_resblocks=2, use_pallas='cs'), True),
+    ('EDSR', dict(n_feats=64, n_resblocks=2, use_pallas=True), False)])
+def test_step_graph_matches_eager(device, name, kw, remat):
+    """Three windows of 2 steps: the first eager (the warm-up) then
+    captured, two replays; the state bit for bit against the eager
+    windows, and the launch counters equal; with ``remat`` (the forward
+    recomputed in the backward; the Trainer takes it for models without
+    batch norm) too."""
+    a, b, sg, ca, cb = _graph_pair(device, name, kw, remat=remat)
+    _state_equal(a, b)
+    assert (sg.captures, sg.replays, sg.eager_windows) == (1, 2, 1)
+    assert ca == cb and any(ca.values())
+
+
+@pytest.mark.parametrize('opt', ['RMSprop', 'Ranger', 'RangerVA',
+                                 'RangerQH', 'SGD'])
+def test_step_graph_optimizers(device, opt):
+    a, b, sg, ca, cb = _graph_pair(device, 'EDSR',
+                                   dict(n_feats=64, n_resblocks=2), opt)
+    _state_equal(a, b)
+    assert sg.replays == 2 and ca == cb
+
+
+def test_step_graph_accumulates_by_phase(device):
+    """accumulate_grad_batches 3 with k 2, six windows from phases 0, 2,
+    1, 0, 2, 1: the first takes no optimizer step, so Adam's state does
+    not exist yet and it is not captured; the next three each capture
+    their phase's graph, the last two replay them."""
+    a, b, sg, ca, cb = _graph_pair(device, 'EDSR',
+                                   dict(n_feats=64, n_resblocks=2),
+                                   every=3, windows=6)
+    _state_equal(a, b)
+    assert (sg.captures, sg.replays, sg.eager_windows) == (3, 2, 4)
+    assert a.updater.mini_step == b.updater.mini_step == 0
+    assert ca == cb
+
+
+def test_step_graph_drops_graphs_when_the_state_is_reloaded(device):
+    """A checkpoint's restore replaces the optimizer's tensors
+    (``load_state_dict``): the next window runs eagerly and captures
+    again, the one after replays the new graph."""
+    from srtpu_torch.train.state import state_to_tree, tree_to_state
+    a, b, sg, _, _ = _graph_pair(device, 'EDSR',
+                                 dict(n_feats=64, n_resblocks=2))
+    tree_to_state(b, state_to_tree(b))
+    (lr, hr), = _graph_windows(device, 1, 2, seed=5)
+    sg(b, lr, hr)
+    assert (sg.captures, sg.eager_windows) == (2, 2)
+    sg(b, lr, hr)
+    assert sg.replays == 3
+
+
+def test_step_graph_capture_failure_raises(device):
+    """A step that reads the device from the host cannot be captured:
+    the StepGraph raises (no eager fallback) and keeps no graph."""
+    from srtpu_torch.losses import parse_losses
+    from srtpu_torch.train import TrainState, make_train_step
+    from srtpu_torch.train.graph import StepGraph
+    net = create_model('EDSR', scale_factor=4, dtype=torch.bfloat16,
+                       device=device, n_feats=64, n_resblocks=2,
+                       generator=torch.Generator().manual_seed(0))
+    comp = parse_losses('l1')
+    state = TrainState.create(net, comp, 'ADAM', ['lr=1e-4'])
+    step = make_train_step(comp)
+
+    def reads_host(state, lr, hr):
+        logs = step(state, lr, hr)
+        float(logs['loss'])
+        return logs
+    sg = StepGraph(reads_host, 2)
+    (lr, hr), = _graph_windows(device, 1, 2)
+    with pytest.raises(RuntimeError):
+        sg(state, lr, hr)
+    assert sg.captures == 0 and not sg.graphs and state.step == 2

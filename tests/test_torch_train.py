@@ -145,14 +145,31 @@ def test_optimizer_matches_optax(name, params):
 
 
 def test_optimizer_errors():
+    """Parameters an optimizer does not take and unknown names raise
+    srtpu's errors; RMSprop and the Ranger family build with srtpu's
+    defaults (srtpu/optim.py:142-177) and refuse what srtpu refuses."""
     p = [torch.nn.Parameter(torch.zeros(2))]
     with pytest.raises(ValueError, match='not supported by ADAM'):
         build_optimizer('ADAM', ['momentum=0.9'], p)
     with pytest.raises(ValueError, match='not recognized'):
         build_optimizer('Adagrad', [], p)
-    for name in ('Ranger', 'RangerVA', 'RangerQH', 'RMSprop'):
-        with pytest.raises(NotImplementedError, match='item 16'):
-            build_optimizer(name, [], p)
+    defaults = {'RMSprop': dict(lr=1e-2, alpha=0.99, eps=1e-8, momentum=0.0),
+                'Ranger': dict(lr=1e-3, betas=(0.95, 0.999), eps=1e-5, k=6,
+                               alpha=0.5),
+                'RangerVA': dict(lr=1e-3, betas=(0.95, 0.999), eps=1e-5,
+                                 k=6, alpha=0.5),
+                'RangerQH': dict(lr=1e-3, betas=(0.95, 0.999), eps=1e-5,
+                                 k=6, alpha=0.5, nus=(0.7, 1.0))}
+    for name, want in defaults.items():
+        group = build_optimizer(name, [], p).param_groups[0]
+        assert type(build_optimizer(name, [], p)).__name__ == name
+        assert {k: group[k] for k in want} == want, name
+        assert group['weight_decay'] == 0.0
+        bad = 'nesterov=true' if name == 'RMSprop' else 'momentum=0.9'
+        with pytest.raises(ValueError, match=f'not supported by {name}'):
+            build_optimizer(name, [bad], p)
+    with pytest.raises(ValueError, match="not supported by Ranger: .'nus'"):
+        build_optimizer('Ranger', ['nus=0.7,1.0'], p)
 
 
 # ------------------------------------------------------ (b) train step
@@ -347,20 +364,24 @@ def test_fit_cli_matches_srtpu_trainer(tmp_path):
 
 
 def test_fit_refuses_what_is_not_ported(tmp_path):
-    """srtpu's knob the port leaves to ROADMAP.md item 18
-    (steps_per_execution) raises off its default, before any data is
-    read; a missing dataset raises srtpu's error."""
+    """Every srtpu knob is ported: the loop keeps no list of refused
+    ones, and ``steps_per_execution`` (ROADMAP.md item 18, once refused)
+    is taken, from the CLI too, so a missing dataset raises srtpu's error
+    whatever its value (at most 0, srtpu's k 1)."""
+    from srtpu_torch import cli
     from srtpu_torch.data import SRData
     from srtpu_torch.train import Trainer, TrainerConfig
-    from srtpu_torch.train.loop import NOT_PORTED
-    assert set(NOT_PORTED) == {'steps_per_execution'}
+    from srtpu_torch.train import loop
+    assert not hasattr(loop, 'NOT_PORTED')
     model = create_model('EDSR', generator=torch.Generator(), **KW)
     dm = SRData(datasets_dir=str(tmp_path), train_datasets=['Train'])
-    for kw, item in ((dict(steps_per_execution=4), '18'),):
-        with pytest.raises(NotImplementedError, match=f'item {item}'):
-            Trainer(TrainerConfig(**kw)).fit(model, dm)
-    with pytest.raises(FileNotFoundError, match='HR images'):
-        Trainer(TrainerConfig()).fit(model, dm)
+    for k in (1, 4, 0):
+        with pytest.raises(FileNotFoundError, match='HR images'):
+            Trainer(TrainerConfig(steps_per_execution=k)).fit(model, dm)
+    args = cli.build_parser().parse_args(
+        ['fit', '--train_datasets', 'Train', '--steps_per_execution', '4',
+         '--datasets_dir', str(tmp_path), '--device', 'cpu'])
+    assert cli._flag_config(args)[2].steps_per_execution == 4
 
 
 def test_fit_cli_cuda_without_card_raises(tmp_path):
