@@ -388,7 +388,24 @@ Phases, each of which raises on failure (nothing is caught):
    k 1 and 4 (CUDA events, batches on the card), its device time, the
    device's share, the SM and memory clocks over 1.5 s of such steps
    (``nvidia-smi`` every 20 ms), and the 20-step fit's wall at both; a
-   step that reads its loss on the host makes the capture raise.
+   step that reads its loss on the host makes the capture raise;
+31. the training loader's throughput path (``run_phase31``): 800 HR
+   images of 256x256 and their LR at 64x64 (``LR/X4``), uint8 ``.npy``
+   drawn from SEED (DIV2K's count of training images: 50 steps an
+   epoch at batch 16; about 168 MB). (a) the loader alone, batches
+   prefetched to the card: patches/s over an epoch (its RAM cache
+   filled) for the numpy and the native core at ``num_workers`` 1 and
+   auto, ``prefetch`` 2; (b) its batches on the card, copied back,
+   against the host loader's for two epochs, bit for bit; (c)
+   EDSR-baseline x4 ``fit`` at the bench recipe for 3 epochs through the
+   CLI's function at k 1 and at k 4 (epoch 1 fills the RAM cache and
+   captures; epochs 2 and 3 are the steady state, cuDNN's deterministic
+   algorithms): ms a step and patches/s, the consumer's wait in
+   ``next()`` a step, the copy to the card a batch (CUDA events on the
+   producer's stream), phase 30's bare step beside them; held: the k 4
+   weights equal to the k 1 weights bit for bit, a capture made while the
+   producer thread is live, the native core in ``run.log``, phase 4's
+   launches per step x 150.
 The line before the last is a JSON object with, per kernel, its launches
 in the main-path runs (EDSR, RCAN, SRResNet, RDN, DDBPN, WDSR, SRGAN
 and SRCNN predict and fit, EDSR and SRResNet x3 predict, SRResNet x3
@@ -397,7 +414,7 @@ fit, the EDSR, RCAN and WDSR-B True routes' predict and fit, EDSR 64 x
 and its host tiles, phase 27's fit with validation and its ``validate``
 / ``predict --checkpoint``, phase 28's exported programs and its
 profiled fit, phase 29's fits and validate, phase 30's fits and
-routes, and phase 2j's op runs;
+routes, phase 31's fits, and phase 2j's op runs;
 ``launches`` is their sum), its largest error against its plain
 version, its time (K4's, K4r's and the trunk op's: its device time
 alone, a CUDA graph of its calls; the others: the wrapper's CUDA-event
@@ -432,6 +449,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 from unittest import mock
@@ -6222,33 +6240,42 @@ def _clocks(run, seconds: float = 1.5) -> str:
             f'({mem.min():.0f}-{mem.max():.0f}), {len(rows)} samples')
 
 
-def _p30_times(device, smi: str, tmp: Path) -> None:
-    """(d): the bare step at k = 1 and k = 4 (batches on the card), the
-    device's share, and the 20-step fit's wall at both."""
+def _p30_bare(device, name: str, kw: dict) -> tuple:
+    """The bare step of ``name`` at k = 1 and k = P30_K (batches on the
+    card): ms a step, device ms a step, the clocks, each by k."""
     from srtpu_torch.train.graph import StepGraph
+    comp = parse_losses('l1')
+    net = _p30_model(name, kw, device)
+    (lrs, hrs), = _p30_window(device, 1, P30_K)
+    ms, dev, clock = {}, {}, {}
+    for k in (1, P30_K):
+        state = TrainState.create(copy.deepcopy(net), comp, 'ADAM',
+                                  ['lr=1e-4'])
+        step = make_train_step(comp)
+        if k == 1:
+            def run(state=state, step=step):
+                for i in range(P30_K):
+                    step(state, lrs[i], hrs[i])
+        else:
+            graph = StepGraph(step, P30_K)
+
+            def run(state=state, graph=graph):
+                graph(state, lrs, hrs)
+        ms[k] = median_ms(run, launches=1, windows=3) / P30_K
+        dev[k] = _all_device_ms(run) / P30_K
+        clock[k] = _clocks(run)
+    return ms, dev, clock
+
+
+def _p30_times(device, smi: str, tmp: Path, bare: dict) -> None:
+    """(d): the bare step at k = 1 and k = 4 (batches on the card), the
+    device's share, and the 20-step fit's wall at both; ``bare[name]``
+    the ms a step by k."""
     data = fit_data(tmp, SCALE, TRAIN_PATCH, n=TRAIN_BATCH * P30_BATCHES)
     steps = P30_BATCHES * P30_EPOCHS
-    comp = parse_losses('l1')
     for name, kw in P30_TIMED.items():
-        net = _p30_model(name, kw, device)
-        (lrs, hrs), = _p30_window(device, 1, P30_K)
-        ms, dev, clock = {}, {}, {}
-        for k in (1, P30_K):
-            state = TrainState.create(copy.deepcopy(net), comp, 'ADAM',
-                                      ['lr=1e-4'])
-            step = make_train_step(comp)
-            if k == 1:
-                def run(state=state, step=step):
-                    for i in range(P30_K):
-                        step(state, lrs[i], hrs[i])
-            else:
-                graph = StepGraph(step, P30_K)
-
-                def run(state=state, graph=graph):
-                    graph(state, lrs, hrs)
-            ms[k] = median_ms(run, launches=1, windows=3) / P30_K
-            dev[k] = _all_device_ms(run) / P30_K
-            clock[k] = _clocks(run)
+        ms, dev, clock = _p30_bare(device, name, kw)
+        bare[name] = ms
         share = {k: dev[k] / ms[k] for k in ms}
         walls = {}
         for k in (1, P30_K):
@@ -6267,7 +6294,6 @@ def _p30_times(device, smi: str, tmp: Path) -> None:
               'reads, run assets): ' + ', '.join(
                   f'k {k} {w:.3f} s' for k, w in walls.items())
               + f'  [{smi}]')
-        del net
 
 
 def _p30_capture_fails(device, smi: str) -> None:
@@ -6297,19 +6323,247 @@ def _p30_capture_fails(device, smi: str) -> None:
           f'raised ({raised}); no eager fallback  [{smi}]')
 
 
-def run_phase30(device, smi: str) -> dict:
+def run_phase30(device, smi: str, bare: dict | None = None) -> dict:
     """Phase 30 (the module note). Returns the launch counts of its
-    main-path runs."""
+    main-path runs; (d)'s bare steps (ms by k) go into ``bare``."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix='srtpu_smoke_p30_') as tmp:
         tmp = Path(tmp)
         runs = _p30_cli(device, smi, tmp / 'a')
         runs.update(_p30_routes(device, smi))
         _p30_optimizers(device, smi)
-        _p30_times(device, smi, tmp / 'd')
+        _p30_times(device, smi, tmp / 'd', {} if bare is None else bare)
         _p30_capture_fails(device, smi)
     print(f'phase 30 took {time.perf_counter() - t0:.1f} s')
     return runs
+
+
+# ----------------------------------------------------------- phase 31
+
+P31_IMAGES = 800            # DIV2K's training images: 50 batches of 16
+P31_HR = 256                # HR 256x256, LR 64x64 at x4, uint8 .npy
+P31_EPOCHS = 3              # epoch 1 fills the RAM cache and captures
+P31_K = 4
+P31_PRODUCER = 'srtpu-torch-train-producer'
+
+
+def p31_data(root: Path) -> Path:
+    """P31_IMAGES uint8 HR images of P31_HR squared drawn from SEED and
+    their box-filtered LR at x4; returns the datasets directory."""
+    rng = np.random.default_rng(SEED)
+    data = root / 'datasets'
+    hr_dir = data / 'Train' / 'HR'
+    lr_dir = data / 'Train' / 'LR' / f'X{SCALE}'
+    hr_dir.mkdir(parents=True)
+    lr_dir.mkdir(parents=True)
+    n = P31_HR // SCALE
+    for i in range(P31_IMAGES):
+        hr = rng.integers(0, 256, (P31_HR, P31_HR, 3), dtype=np.uint8)
+        lr = hr.reshape(n, SCALE, n, SCALE, 3).mean((1, 3))
+        np.save(hr_dir / f'{i:03d}.npy', hr)
+        np.save(lr_dir / f'{i:03d}.npy', (lr + 0.5).astype(np.uint8))
+    return data
+
+
+def _p31_source(data: Path):
+    from srtpu_torch.data import ConcatSource, NpySource
+    train = data / 'Train'
+    return ConcatSource([NpySource(train / 'HR', train / 'LR' / f'X{SCALE}',
+                                   SCALE, cache=True)])
+
+
+def _p31_loader(source, device, workers: int, core: str):
+    """The fit's loader on ``source`` (seed SEED, prefetch 2), on ``core``
+    (the numpy core by reporting the native one unavailable)."""
+    from srtpu_torch.data import TrainLoader
+    from srtpu_torch.data import native as data_native
+    with mock.patch.object(data_native, 'available',
+                           return_value=core == 'native'):
+        loader = TrainLoader(source, TRAIN_BATCH, TRAIN_PATCH, SCALE,
+                             seed=SEED, device=device, num_workers=workers)
+    need(loader.core == core, f'loader core {loader.core}, wanted {core}')
+    return loader
+
+
+def _p31_rates(device, smi: str, data: Path) -> dict:
+    """(a) and (b): the loader alone. Returns patches/s by (core,
+    workers)."""
+    from srtpu_torch.data import native as data_native
+    need(data_native.available(), 'the native patch core did not build on '
+         'the card\'s machine')
+    source = _p31_source(data)
+    t0 = time.perf_counter()
+    for i in range(len(source)):
+        source.get(i)
+    fill = time.perf_counter() - t0
+    rates = {}
+    for core in ('numpy', 'native'):
+        for workers in (1, 0):
+            loader = _p31_loader(source, device, workers, core)
+            for _ in loader:            # the ring, the stream, the pool
+                pass
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = sum(b.lr.shape[0] for b in loader)
+            torch.cuda.synchronize()
+            rates[core, workers] = n / (time.perf_counter() - t0)
+            loader.close()
+    # (b): the card's batches, copied back, against the host loader's
+    dev = _p31_loader(source, device, 0, 'native')
+    host = _p31_loader(source, None, 1, 'numpy')
+    n = 0
+    for _ in range(2):
+        for a, b in zip(dev, host, strict=True):
+            need(a.lr.is_cuda and torch.equal(a.lr.cpu(),
+                                              torch.from_numpy(b.lr))
+                 and torch.equal(a.hr.cpu(), torch.from_numpy(b.hr))
+                 and a.names == b.names,
+                 f'batch {n}: the card\'s batch is not the host loader\'s')
+            n += 1
+    dev.close()
+    print(f'phase 31: the loader alone ({P31_IMAGES} images, batch '
+          f'{TRAIN_BATCH}, patch {TRAIN_PATCH} x{SCALE}, prefetch 2, batches '
+          f'prefetched to the card; its RAM cache filled in {fill:.2f} s), '
+          'patches/s over an epoch: ' + ', '.join(
+              f'{core} core {"auto" if w == 0 else w} worker'
+              f'{"s" if w != 1 else ""} ({os.cpu_count()} cores) {r:.1f}'
+              for (core, w), r in rates.items())
+          + f'; {n} batches of two epochs on the card (native core, auto '
+          'workers) equal to the host loader\'s (numpy core) bit for bit  '
+          f'[{smi}]')
+    return rates
+
+
+class _EpochLog(logging.Handler):
+    """The fit's per-epoch ``items/s``."""
+
+    def __init__(self):
+        super().__init__()
+        self.rates = []
+
+    def emit(self, record):
+        if record.msg.startswith('epoch %d/%d'):
+            self.rates.append(float(record.args[-1]))
+
+
+def _p31_fit(argv, steps: int, what: str) -> dict:
+    """``_p30_fit`` (cuDNN's deterministic algorithms, the losses at each
+    progress check) with the feed timed: per epoch the consumer's
+    seconds blocked in ``next()`` and its batches, each batch's copy to
+    the card (events on the producer's stream, read after), whether a
+    producer thread was live at each capture, the epochs' items/s."""
+    from srtpu_torch.data import TrainLoader
+    from srtpu_torch.train.graph import StepGraph
+    real_iter, real_copy = TrainLoader.__iter__, TrainLoader._to_device
+    real_capture = StepGraph._capture
+    waits, copies, live = [], [], []
+
+    def timed_iter(self):
+        it, rec = real_iter(self), [0.0, 0]
+        waits.append(rec)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                rec[0] += time.perf_counter() - t0
+                rec[1] += 1
+                yield batch
+        finally:
+            it.close()
+
+    def timed_copy(self, lr, hr, stream):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        out = real_copy(self, lr, hr, stream)
+        end.record(stream)
+        copies.append((start, end))
+        return out
+
+    def capture(self, *args):
+        live.append(any(t.name == P31_PRODUCER and t.is_alive()
+                        for t in threading.enumerate()))
+        return real_capture(self, *args)
+
+    log = _EpochLog()
+    logger = logging.getLogger('srtpu_torch.train.loop')
+    logger.addHandler(log)
+    try:
+        with mock.patch.object(TrainLoader, '__iter__', timed_iter), \
+                mock.patch.object(TrainLoader, '_to_device', timed_copy), \
+                mock.patch.object(StepGraph, '_capture', capture):
+            run = _p30_fit(argv, STEP_LAUNCHES, steps, what)
+    finally:
+        logger.removeHandler(log)
+    torch.cuda.synchronize()
+    run.update(waits=waits, live=live, rates=log.rates,
+               copy_ms=[a.elapsed_time(b) for a, b in copies])
+    root = Path(argv[argv.index('--default_root_dir') + 1])
+    need('train loader: the native core, batches prefetched to cuda'
+         in (root / 'run.log').read_text(),
+         f'{what}: run.log names no native core on the card')
+    return run
+
+
+def run_phase31(device, smi: str, bare: dict | None = None) -> dict:
+    """Phase 31 (the module note). Returns the launch counts of its fits;
+    ``bare`` is phase 30's bare EDSR step (ms by k), measured here when
+    phase 30 did not run."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='srtpu_smoke_p31_') as tmp:
+        tmp = Path(tmp)
+        data = p31_data(tmp)
+        made = time.perf_counter() - t0
+        _p31_rates(device, smi, data)
+        steps = P31_EPOCHS * (P31_IMAGES // TRAIN_BATCH)
+        epochs = ['--max_epochs', str(P31_EPOCHS)]
+        k1 = _p31_fit(_p30_argv(data, tmp / 'k1', extra=epochs), steps,
+                      'fit k 1 (phase 31)')
+        k4 = _p31_fit(_p30_argv(data, tmp / 'k4', extra=epochs + [
+            '--steps_per_execution', str(P31_K)]), steps,
+            'fit k 4 (phase 31)')
+    _same_weights(k4['weights'], k1['weights'], 'phase 31: fit k 4 against '
+                  'k 1')
+    n_win = P31_EPOCHS * (P31_IMAGES // TRAIN_BATCH // P31_K)
+    need(k4['graphs'] == (n_win, 1, n_win - 1, 1),
+         f'phase 31 fit k 4: (windows, captures, replays, eager) '
+         f'{k4["graphs"]}, expected ({n_win}, 1, {n_win - 1}, 1)')
+    need(k4['live'] and all(k4['live']),
+         f'phase 31: captures with a live producer {k4["live"]}')
+    if not bare:
+        bare = _p30_bare(device, 'EDSR', P30_TIMED['EDSR'])[0]
+        where = 'measured here'
+    else:
+        bare = bare['EDSR']
+        where = 'phase 30'
+    for k, run in ((1, k1), (P31_K, k4)):
+        rates = run['rates'][1:]
+        need(len(rates) == P31_EPOCHS - 1, f'epoch lines {run["rates"]}')
+        rate = float(np.mean(rates))
+        wait = [w / max(n, 1) * 1e3 for w, n in run['waits'][1:]]
+        copy_ms = run['copy_ms']
+        print(f'phase 31: EDSR-baseline x{SCALE} fit k {k}, {P31_EPOCHS} '
+              f'epochs of {P31_IMAGES // TRAIN_BATCH} batches (native core, '
+              'auto workers, prefetch 2, batches prefetched to the card): '
+              f'epochs 2-{P31_EPOCHS} {TRAIN_BATCH * 1e3 / rate:.3f} ms a '
+              f'step, {rate:.1f} patches/s (epoch 1 {run["rates"][0]:.1f}); '
+              'the consumer\'s wait in next() a step '
+              + ', '.join(f'{w:.3f}' for w in wait) + ' ms (epoch 1 '
+              f'{run["waits"][0][0] / max(run["waits"][0][1], 1) * 1e3:.3f}); '
+              f'the copy to the card a batch median {np.median(copy_ms):.4f}'
+              f' ms ({min(copy_ms):.4f}-{max(copy_ms):.4f}, {len(copy_ms)} '
+              f'copies); the bare step ({where}) {bare[k]:.3f} ms; wall '
+              f'{run["wall"]:.3f} s  [{smi}]')
+    print(f'phase 31: fit k {P31_K} weights equal to k 1\'s bit for bit; '
+          f'windows, captures, replays, eager windows {k4["graphs"]}; '
+          f'{len(k4["live"])} capture(s), each with the producer thread live; '
+          f'run.log names the native core; launches per step x {steps}; '
+          f'data made in {made:.2f} s; phase 31 took '
+          f'{time.perf_counter() - t0:.1f} s')
+    return {'p31_fit_k1': k1['counts'], 'p31_fit_k4': k4['counts']}
 
 
 def main() -> None:
@@ -6427,8 +6681,11 @@ def main() -> None:
     lap('phases 27 and 28')
     runs.update(run_phase29(device, smi))
     lap('phase 29')
-    runs.update(run_phase30(device, smi))
+    bare = {}
+    runs.update(run_phase30(device, smi, bare))
     lap('phase 30')
+    runs.update(run_phase31(device, smi, bare))
+    lap('phase 31')
     rep = 'srtpu/ops/cs_conv.py:'
     bn = 'srtpu/ops/bn_resblock_cs.py:'
     meta = [('K1', 'K1 trunk_fwd (per block conv1 at K2 EPI 0, conv2 at '

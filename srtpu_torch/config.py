@@ -282,9 +282,9 @@ def build_all(cfg: dict, device=None):
     """cfg -> (model, datamodule, trainer_config, fit_kwargs), as srtpu's
     ``build_all``: the model on ``device`` drawn from ``seed`` (from 0
     under ``trainer.deterministic``, as srtpu draws its state), the
-    loader's stream from the same seed. Keys the port does not read
-    (``data.prefetch``, ``cache_train_images``, ``num_workers``,
-    ``trainer.devices`` and the multi-host keys) are kept in the hparams
+    loader's stream from the same seed, and its knobs (``data.prefetch``,
+    ``cache_train_images``, ``num_workers``). Keys the port does not read
+    (``trainer.devices`` and the multi-host keys) are kept in the hparams
     and have no effect; nor has ``trainer.eval_tile``, whose default 80
     is srtpu's TPU lane budget, which srtpu applies only on a TPU: the
     port's val passes take the direct forward (``--eval_tile`` on the
@@ -314,7 +314,10 @@ def build_all(cfg: dict, device=None):
         predict_datasets=data['predict_datasets'],
         scale_factor=data['scale_factor'],
         train_datasets=data['train_datasets'],
-        eval_bucket=data.get('eval_bucket', 32), seed=seed)
+        eval_bucket=data.get('eval_bucket', 32), seed=seed,
+        prefetch=data.get('prefetch', 2),
+        cache_train_images=data.get('cache_train_images', True),
+        num_workers=data.get('num_workers', 0))
 
     monitor = trainer.get('monitor')
     if monitor is None and data['eval_datasets']:

@@ -11,13 +11,30 @@ arrays in [0, 1] with srtpu's uint8/uint16 -> float conversion.
 through Pillow, and a dataset without ``LR/X{scale}`` synthesizes its LR
 with Pillow's bicubic resize, as srtpu does; Pillow is imported only
 then, and its absence raises a clear error: supply the LR instead.
+
+srtpu's on-disk decode cache: an image file's decoded raw array (uint8
+or uint16, before the float conversion: bit-exact, half f32's bytes) is
+written once to ``$SRTPU_DECODE_CACHE`` (a folder; default
+``~/.cache/srtpu/decoded``; ``0`` / ``off`` disables it), keyed by the
+file's resolved path (hashed), mtime and size, and read back later
+instead of decoding. Writes are atomic (a temp file, then a rename), so
+processes can share the folder; an entry that does not load is decoded
+again. An image folder's synthesized LR is cached raw too, under a key
+that names its algorithm (:data:`LR_TAG`), where srtpu's key has none.
+``.npy`` folders keep no disk cache.
 """
 
 from __future__ import annotations
 
+import hashlib
+import logging
+import os
+import threading
 from pathlib import Path
 
 import numpy as np
+
+_logger = logging.getLogger(__name__)
 
 IMG_EXTENSIONS = {'.jpg', '.jpeg', '.png', '.ppm', '.bmp'}
 NPY_EXTENSIONS = {'.npy', '.npz'}
@@ -42,6 +59,61 @@ def _pillow(what: str):
     return Image
 
 
+# the synthesized LR's algorithm: Pillow's bicubic resize of the HR
+# (quantized to uint8 first), a uint8 result
+LR_TAG = 'pil-bicubic-u8'
+
+
+def decode_cache_dir() -> Path | None:
+    val = os.environ.get('SRTPU_DECODE_CACHE', '')
+    if val.lower() in ('0', 'off', 'none', 'disable', 'disabled'):
+        return None
+    if val:
+        return Path(val)
+    return Path.home() / '.cache' / 'srtpu' / 'decoded'
+
+
+def decode_cache_path(path, suffix: str = '') -> Path | None:
+    """The cache entry of ``path`` (None: the cache is off, or the file
+    cannot be read)."""
+    root = decode_cache_dir()
+    if root is None:
+        return None
+    try:
+        p = Path(path).resolve()
+        st = p.stat()
+    except OSError:
+        return None
+    key = hashlib.sha1(str(p).encode()).hexdigest()[:24]
+    return root / f'{key}-{st.st_mtime_ns}-{st.st_size}{suffix}.npy'
+
+
+def _cache_load(cache: Path | None) -> np.ndarray | None:
+    if cache is None or not cache.exists():
+        return None
+    try:
+        return np.load(cache)
+    except (OSError, ValueError, EOFError) as e:    # a torn entry
+        _logger.warning('unreadable decode-cache entry %s (%s); decoding '
+                        'again', cache, e)
+        return None
+
+
+def _cache_store(cache: Path | None, raw: np.ndarray) -> None:
+    if cache is None:
+        return
+    tmp = cache.with_suffix(f'.{os.getpid()}.{threading.get_ident()}'
+                            '.tmp.npy')
+    try:
+        cache.parent.mkdir(parents=True, exist_ok=True)
+        np.save(tmp, raw)
+        os.replace(tmp, cache)
+    except OSError as e:    # a full or read-only disk: train uncached
+        tmp.unlink(missing_ok=True)
+        _logger.warning('decode-cache write of %s failed (%s); continuing '
+                        'uncached', cache, e)
+
+
 def _load_npy(path) -> np.ndarray:
     arr = np.load(path)
     if not isinstance(arr, np.ndarray):  # .npz archive: first array
@@ -50,7 +122,8 @@ def _load_npy(path) -> np.ndarray:
 
 
 def load_image(path) -> np.ndarray:
-    """(H, W, 3) float32 image from ``.npy``/``.npz`` or an image file."""
+    """(H, W, 3) float32 image from ``.npy``/``.npz`` or an image file
+    (decoded through the on-disk cache)."""
     path = Path(path)
     if path.suffix.lower() in NPY_EXTENSIONS:
         arr = _load_npy(path)
@@ -58,28 +131,40 @@ def load_image(path) -> np.ndarray:
             raise ValueError(f'{path}: expected an (H, W, 3) array, got '
                              f'{arr.shape}')
         return arr
-    with _pillow(f'decoding {path}').open(path) as im:
-        return to_float(np.asarray(im.convert('RGB')))
+    cache = decode_cache_path(path)
+    raw = _cache_load(cache)
+    if raw is None:
+        with _pillow(f'decoding {path}').open(path) as im:
+            raw = np.asarray(im.convert('RGB'))
+        _cache_store(cache, raw)
+    return to_float(raw)
 
 
-def bicubic_downscale(hr: np.ndarray, scale: int) -> np.ndarray:
-    """Pillow bicubic downscale of a [0, 1] image, quantized to uint8 as
-    srtpu's ``bicubic_downscale`` does."""
+def bicubic_downscale_raw(hr: np.ndarray, scale: int) -> np.ndarray:
+    """Pillow bicubic downscale of a [0, 1] image quantized to uint8, as
+    srtpu's ``bicubic_downscale_raw``: the uint8 LR."""
     image = _pillow('synthesizing a missing LR (no LR/X<scale> folder)')
     h, w = hr.shape[:2]
     img = image.fromarray((np.clip(hr, 0, 1) * 255.0 + 0.5).astype(np.uint8))
-    return to_float(np.asarray(img.resize((w // scale, h // scale),
-                                          image.BICUBIC)))
+    return np.asarray(img.resize((w // scale, h // scale), image.BICUBIC))
+
+
+def bicubic_downscale(hr: np.ndarray, scale: int) -> np.ndarray:
+    return to_float(bicubic_downscale_raw(hr, scale))
 
 
 class Source:
-    """Interface: len() items; get(i) -> (lr, hr, name)."""
+    """Interface: len() items; get(i) -> (lr, hr, name); cached(i): whether
+    get(i) is a RAM lookup (the loader fetches those without threads)."""
 
     def __len__(self) -> int:
         raise NotImplementedError
 
     def get(self, index: int):
         raise NotImplementedError
+
+    def cached(self, index: int) -> bool:
+        return False
 
 
 class _FolderSource(Source):
@@ -106,17 +191,23 @@ class _FolderSource(Source):
     def __len__(self) -> int:
         return len(self._hr_files)
 
+    def cached(self, index: int) -> bool:
+        return self._cache is not None and index in self._cache
+
     def get(self, index: int):
         if self._cache is not None and index in self._cache:
             return self._cache[index]
         path = self._hr_files[index]
         hr = load_image(path)
-        lr = bicubic_downscale(hr, self._scale) if self._lr_files is None \
+        lr = self._synthesized_lr(path, hr) if self._lr_files is None \
             else load_image(self._lr_files[index])
         item = (lr, hr, path.stem)
         if self._cache is not None:
             self._cache[index] = item
         return item
+
+    def _synthesized_lr(self, path: Path, hr: np.ndarray) -> np.ndarray:
+        return bicubic_downscale(hr, self._scale)
 
 
 class NpySource(_FolderSource):
@@ -124,7 +215,18 @@ class NpySource(_FolderSource):
 
 
 class ImageFolderSource(_FolderSource):
+    """Image files; decoded arrays and the synthesized LR go through the
+    on-disk decode cache (module note)."""
+
     extensions = IMG_EXTENSIONS
+
+    def _synthesized_lr(self, path: Path, hr: np.ndarray) -> np.ndarray:
+        cache = decode_cache_path(path, f'-x{self._scale}lr-{LR_TAG}')
+        raw = _cache_load(cache)
+        if raw is None:
+            raw = bicubic_downscale_raw(hr, self._scale)
+            _cache_store(cache, raw)
+        return to_float(raw)
 
 
 class ConcatSource(Source):
@@ -137,9 +239,17 @@ class ConcatSource(Source):
     def __len__(self):
         return int(self._offsets[-1])
 
-    def get(self, index):
+    def _locate(self, index) -> tuple:
         src = int(np.searchsorted(self._offsets, index, side='right')) - 1
-        return self._sources[src].get(index - int(self._offsets[src]))
+        return self._sources[src], index - int(self._offsets[src])
+
+    def get(self, index):
+        source, i = self._locate(index)
+        return source.get(i)
+
+    def cached(self, index) -> bool:
+        source, i = self._locate(index)
+        return source.cached(i)
 
 
 def predict_dir(datasets_dir, name: str, scale: int) -> Path:

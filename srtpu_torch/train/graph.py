@@ -3,7 +3,8 @@
 ``torch.cuda.CUDAGraph`` and replayed once a window: one dispatch from
 the host per ``k`` steps, as srtpu's ``lax.scan`` inside one jitted call.
 
-A window is ``(k, B, ...)`` stacks of LR and HR batches. Its steps are
+A window is ``k`` LR and ``k`` HR batches on the card (the loader's;
+a ``(k, B, ...)`` stack is ``k`` such batches). Its steps are
 :func:`~srtpu_torch.train.steps.make_train_step`'s, so the graph runs
 the kernels' forward and backward launches, the loss and the optimizer
 exactly as the eager step does; :func:`~srtpu_torch.train.steps
@@ -14,8 +15,11 @@ exactly as the eager step does; :func:`~srtpu_torch.train.steps
   initialisation, cuDNN's and cuBLAS's handles, the kernels' build), and
   they are that window's real steps, counted and logged, on its batches.
   Then the same ``k`` steps are captured (capture runs nothing on the
-  device) and every later window of the key is one host-to-device copy
-  of each stack into the graph's static buffers and one replay. The
+  device) and every later window of the key is one stacking launch of
+  its ``k`` LR and of its ``k`` HR batches into the graph's static
+  buffers, and one replay. The capture holds
+  ``data.pipeline.capture_lock``: a loader's producer thread makes no
+  CUDA call while it runs. The
   graph's static outputs are the last step's logs (returned as copies).
 * The key is the accumulator's phase at the window's start (the
   :class:`~srtpu_torch.train.state.Updater`'s ``mini_step``; at most
@@ -47,6 +51,8 @@ import sys
 from dataclasses import dataclass
 
 import torch
+
+from ..data.pipeline import capture_lock
 
 
 def _counter_attrs(fn) -> list[str]:
@@ -124,10 +130,10 @@ class _Captured:
 
 
 class StepGraph:
-    """``graph_step(state, lr_stack, hr_stack) -> logs``: ``k`` steps of
+    """``graph_step(state, lrs, hrs) -> logs``: ``k`` steps of
     ``train_step`` a window, replayed from CUDA graphs (module note).
-    ``lr_stack`` and ``hr_stack`` are ``(k, B, ...)``, on the host or on
-    the card; ``state`` lies on the card."""
+    ``lrs`` and ``hrs`` are ``k`` batches each, on the card, where
+    ``state`` lies."""
 
     def __init__(self, train_step, k: int):
         if k < 1:
@@ -136,34 +142,35 @@ class StepGraph:
         self.graphs: dict[tuple, _Captured] = {}
         self.captures = self.replays = self.eager_windows = 0
 
-    def _key(self, state, lr_stack, hr_stack) -> tuple:
+    def _key(self, state, lrs, hrs) -> tuple:
         phases = tuple(u.mini_step for _, _, u in state.optimizers().values())
-        return (phases, tuple(lr_stack.shape), tuple(hr_stack.shape),
-                lr_stack.dtype, hr_stack.dtype)
+        return (phases, (len(lrs), *lrs[0].shape), (len(hrs), *hrs[0].shape),
+                lrs[0].dtype, hrs[0].dtype)
 
-    def __call__(self, state, lr_stack: torch.Tensor,
-                 hr_stack: torch.Tensor) -> dict[str, torch.Tensor]:
+    def __call__(self, state, lrs, hrs) -> dict[str, torch.Tensor]:
         k = self.k
-        if lr_stack.shape[0] != k or hr_stack.shape[0] != k:
-            raise ValueError(f'a window of {k} steps takes (k, B, ...) '
-                             f'stacks, got {tuple(lr_stack.shape)} and '
-                             f'{tuple(hr_stack.shape)}')
+        if len(lrs) != k or len(hrs) != k:
+            raise ValueError(f'a window of {k} steps takes {k} batches '
+                             f'(k, B, ...), got {len(lrs)} and {len(hrs)}')
         device = next(state.model.parameters()).device
         if device.type != 'cuda':
             raise ValueError(f'StepGraph runs on a card, not on {device}')
-        key = self._key(state, lr_stack, hr_stack)
+        if lrs[0].device != device or hrs[0].device != device:
+            raise ValueError(f'a window\'s batches lie on {device}, got '
+                             f'{lrs[0].device} and {hrs[0].device}')
+        key = self._key(state, lrs, hrs)
         cap = self.graphs.get(key)
         if cap is not None and not cap.valid(state):
             self.graphs.clear()         # the state was reloaded
             cap = None
         if cap is None:
-            lr_dev, hr_dev = lr_stack.to(device), hr_stack.to(device)
+            lr_dev, hr_dev = torch.stack(list(lrs)), torch.stack(list(hrs))
             logs = self._eager(state, lr_dev, hr_dev, device)
             if state_ready(state):
                 self.graphs[key] = self._capture(state, key, lr_dev, hr_dev)
             return logs
-        cap.lr.copy_(lr_stack)
-        cap.hr.copy_(hr_stack)
+        torch.stack(list(lrs), out=cap.lr)
+        torch.stack(list(hrs), out=cap.hr)
         cap.graph.replay()
         self.replays += 1
         state.step += k
@@ -198,7 +205,7 @@ class StepGraph:
         try:
             for u, phase in zip(updaters, key[0]):
                 u.mini_step = phase
-            with torch.cuda.graph(graph):
+            with capture_lock, torch.cuda.graph(graph):
                 for i in range(self.k):
                     logs = self.step(state, static_lr[i], static_hr[i])
         finally:

@@ -87,8 +87,13 @@ srtpu's debugging and bookkeeping knobs:
 srtpu's ``_fit_gan`` reads none of these knobs; here the GAN fit takes
 all but ``remat`` and ``steps_per_execution``.
 
+The train loader (:class:`~srtpu_torch.data.TrainLoader`, srtpu's)
+makes the batches on a producer thread and, on a card, copies them
+there ahead of the step (device prefetch); the step takes them as they
+come. Its core (``native`` or ``numpy``) is written to ``run.log``.
+
 ``steps_per_execution`` k > 1 is srtpu's window loop (srtpu
-``loop.py:304-326``): k batches are stacked into a window and run as k
+``loop.py:304-326``): k batches make a window and run as k
 train steps in one call, ``global_step`` moves by k and the in-epoch
 progress line is checked at window boundaries (its cadence is on the
 global step); an epoch's remainder batches run through the single step.
@@ -378,7 +383,10 @@ class Trainer:
     def _fit(self, model, datamodule, state, train_step, keys, eval_step,
              device, hparams):
         cfg = self.cfg
-        loader = datamodule.train_loader()
+        loader = datamodule.train_loader(device=device)
+        _logger.info('train loader: the %s core, batches %s', loader.core,
+                     f'prefetched to {device}' if device.type == 'cuda'
+                     else 'on the host')
         limit = cfg.overfit_batches if cfg.overfit_batches > 0 \
             else cfg.limit_train_batches
         if cfg.ckpt_path:
@@ -424,9 +432,11 @@ class Trainer:
             spe = 1
         multi_step = self._window_step(train_step, spe, device)
 
+        def on_device(a):       # the card's loader has put it there
+            return a if torch.is_tensor(a) else torch.from_numpy(a).to(device)
+
         def single(batch):
-            return train_step(state, torch.from_numpy(batch.lr).to(device),
-                              torch.from_numpy(batch.hr).to(device))
+            return train_step(state, on_device(batch.lr), on_device(batch.hr))
         profiler = self._start_profiler(device) if cfg.profiler_dir \
             else None
         try:
@@ -448,9 +458,9 @@ class Trainer:
                     if len(pending) < spe:
                         continue
                     last_logs = single(batch) if multi_step is None else \
-                        multi_step(state, *(
-                            torch.from_numpy(np.stack(arrays)) for arrays
-                            in zip(*((b.lr, b.hr) for b in pending))))
+                        multi_step(state,
+                                   [on_device(b.lr) for b in pending],
+                                   [on_device(b.hr) for b in pending])
                     self.global_step += len(pending)
                     items += sum(b.lr.shape[0] for b in pending)
                     pending = []
@@ -495,6 +505,7 @@ class Trainer:
                 _logger.exception('fit crashed')
             raise
         finally:
+            loader.close()
             for h in hooks:
                 h.remove()
             if profiler is not None:

@@ -70,26 +70,21 @@ def make_train_step(composite_loss, plain: bool = False,
 
 
 def repeat_step(train_step, k: int):
-    """``multi_step(state, lr_stack, hr_stack) -> logs``: ``train_step``
-    on each of the ``k`` batches of the stacked window (``(k, B, ...)``,
-    on the model's device or on the host, then moved there once), in
-    order; the last step's logs. The eager form of a window: the CPU's,
-    and the card's where a CUDA graph cannot take the step
-    (``detect_anomaly``)."""
+    """``multi_step(state, lrs, hrs) -> logs``: ``train_step`` on each of
+    the window's ``k`` LR and HR batches in order, on the model's device
+    (a ``(k, B, ...)`` stack is ``k`` such batches); the last step's
+    logs. The eager form of a window: the CPU's, and the card's where a
+    CUDA graph cannot take the step (``detect_anomaly``)."""
     if k < 1:
         raise ValueError(f'steps_per_execution must be >= 1, got {k}')
 
-    def multi_step(state: TrainState, lr_stack: torch.Tensor,
-                   hr_stack: torch.Tensor) -> dict[str, torch.Tensor]:
-        if lr_stack.shape[0] != k or hr_stack.shape[0] != k:
-            raise ValueError(f'a window of {k} steps takes (k, B, ...) '
-                             f'stacks, got {tuple(lr_stack.shape)} and '
-                             f'{tuple(hr_stack.shape)}')
-        device = next(state.model.parameters()).device
-        lr_stack, hr_stack = lr_stack.to(device), hr_stack.to(device)
+    def multi_step(state: TrainState, lrs, hrs) -> dict[str, torch.Tensor]:
+        if len(lrs) != k or len(hrs) != k:
+            raise ValueError(f'a window of {k} steps takes {k} batches '
+                             f'(k, B, ...), got {len(lrs)} and {len(hrs)}')
         logs = None
-        for i in range(k):
-            logs = train_step(state, lr_stack[i], hr_stack[i])
+        for lr, hr in zip(lrs, hrs):
+            logs = train_step(state, lr, hr)
         return logs
 
     return multi_step

@@ -1598,3 +1598,161 @@ def test_step_graph_capture_failure_raises(device):
     with pytest.raises(RuntimeError):
         sg(state, lr, hr)
     assert sg.captures == 0 and not sg.graphs and state.step == 2
+
+
+# ------------------------------------------- the training loader (item 19)
+
+def _loader_set(tmp_path, n=24, sizes=((96, 112), (80, 80), (128, 96))):
+    import numpy as np
+    from srtpu_torch.data import ConcatSource, NpySource
+    rng = np.random.default_rng(0)
+    hr_dir, lr_dir = tmp_path / 'HR', tmp_path / 'LR'
+    hr_dir.mkdir(parents=True)
+    lr_dir.mkdir(parents=True)
+    for i in range(n):
+        h, w = sizes[i % len(sizes)]
+        hr = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        np.save(hr_dir / f'{i:02d}.npy', hr)
+        np.save(lr_dir / f'{i:02d}.npy', hr.reshape(
+            h // 4, 4, w // 4, 4, 3).mean((1, 3)).astype(np.uint8))
+    return ConcatSource([NpySource(hr_dir, lr_dir, 4, cache=True)])
+
+
+def _loader(source, device=None, **kw):
+    from srtpu_torch.data import TrainLoader
+    return TrainLoader(source, 4, 32, 4, seed=3, device=device, **kw)
+
+
+def _same_as_host(got, want):
+    assert got.lr.is_cuda and got.hr.is_cuda
+    assert torch.equal(got.lr.cpu(), torch.from_numpy(want.lr))
+    assert torch.equal(got.hr.cpu(), torch.from_numpy(want.hr))
+    assert got.names == want.names
+
+
+@pytest.mark.parametrize('workers,prefetch', [(1, 2), (3, 1), (0, 2)])
+def test_device_prefetched_batches_equal_the_hosts(device, tmp_path,
+                                                   workers, prefetch):
+    source = _loader_set(tmp_path)
+    dev = _loader(source, device, num_workers=workers, prefetch=prefetch)
+    host = _loader(source, num_workers=1)
+    assert dev.core == 'native'
+    for _ in range(2):
+        pairs = list(zip(dev, host, strict=True))
+        assert len(pairs) == 6
+        for got, want in pairs:
+            _same_as_host(got, want)
+
+
+@pytest.mark.parametrize('prefetch', [0, 1])
+def test_ring_overrun_keeps_every_batch(device, tmp_path, prefetch):
+    """The producer runs far ahead of a consumer that waits (prefetch 0:
+    an unbounded queue over a ring of 2 pinned slots, each rewritten many
+    times): a slot is written again only after its copy completed, so
+    every batch arrives as the host's."""
+    import time
+    source = _loader_set(tmp_path, n=96)
+    dev = _loader(source, device, num_workers=2, prefetch=prefetch)
+    host = list(_loader(source, num_workers=1))
+    it = iter(dev)
+    got = [next(it)]
+    time.sleep(1.0)
+    got.extend(it)
+    torch.cuda.synchronize()
+    assert len(got) == len(host) == 24
+    for g, w in zip(got, host):
+        _same_as_host(g, w)
+
+
+def test_step_graph_captures_with_the_producer_live(device, tmp_path):
+    """k 2 windows of the device loader's batches through a StepGraph:
+    the capture happens while the producer thread runs (it holds its CUDA
+    calls behind ``capture_lock``), and the state equals the eager
+    windows' on the host loader's batches bit for bit."""
+    import copy
+    import threading
+    from srtpu_torch.losses import parse_losses
+    from srtpu_torch.train import TrainState, make_train_step
+    from srtpu_torch.train.graph import StepGraph
+    from srtpu_torch.train.steps import repeat_step
+    source = _loader_set(tmp_path, n=48)
+    net = create_model('EDSR', scale_factor=4, dtype=torch.bfloat16,
+                       device=device, n_feats=64, n_resblocks=2,
+                       generator=torch.Generator().manual_seed(0))
+    comp = parse_losses('l1')
+    live = []
+    real = StepGraph._capture
+
+    def capture(self, *args):
+        live.append(any(t.name == 'srtpu-torch-train-producer'
+                        and t.is_alive() for t in threading.enumerate()))
+        return real(self, *args)
+
+    states = []
+    for graphed in (False, True):
+        state = TrainState.create(copy.deepcopy(net), comp, 'ADAM',
+                                  ['lr=1e-4'])
+        step = make_train_step(comp)
+        run = StepGraph(step, 2) if graphed else repeat_step(step, 2)
+        loader = _loader(source, device if graphed else None,
+                         num_workers=2, prefetch=2)
+        with chip_smoke._cudnn_deterministic(), \
+                pytest.MonkeyPatch.context() as mp:
+            mp.setattr(StepGraph, '_capture', capture)
+            pending = []
+            for batch in loader:
+                pending.append(batch)
+                if len(pending) == 2:
+                    lrs = [torch.as_tensor(b.lr).to(device) for b in pending]
+                    hrs = [torch.as_tensor(b.hr).to(device) for b in pending]
+                    run(state, lrs, hrs)
+                    pending = []
+        torch.cuda.synchronize()
+        states.append((state, run))
+    (a, _), (b, sg) = states
+    assert sg.captures == 1 and sg.replays == 5 and live == [True]
+    _state_equal(a, b)
+
+
+def test_pinned_allocation_or_copy_failure_raises(device, tmp_path,
+                                                  monkeypatch):
+    """A failed pinned allocation or copy reaches the consumer and leaves
+    no producer behind: nothing falls back to host batches."""
+    import threading
+    from srtpu_torch.data import TrainLoader, pipeline
+    source = _loader_set(tmp_path)
+
+    def no_pinned(shape):
+        raise RuntimeError('pinned allocation failed')
+    monkeypatch.setattr(pipeline, '_pinned', no_pinned)
+    with pytest.raises(RuntimeError, match='pinned allocation failed'):
+        list(_loader(source, device))
+    monkeypatch.undo()
+
+    def no_copy(self, lr, hr, stream):
+        raise RuntimeError('copy failed')
+    monkeypatch.setattr(TrainLoader, '_to_device', no_copy)
+    with pytest.raises(RuntimeError, match='copy failed'):
+        list(_loader(source, device))
+    for t in threading.enumerate():
+        if t.name == 'srtpu-torch-train-producer':
+            t.join(10)
+            assert not t.is_alive()
+
+
+def test_failed_native_build_raises(device, tmp_path, monkeypatch):
+    """On the card's machine too: a source g++ refuses makes build()
+    raise with g++'s output; the loader then runs its numpy core."""
+    from srtpu_torch.data import native
+    bad = tmp_path / 'patchops.cc'
+    bad.write_text('extern "C" void extract_patch_pair( { }\n')
+    monkeypatch.setattr(native, 'SOURCE', bad)
+    monkeypatch.setattr(native, 'BUILD_DIR', tmp_path / 'build')
+    monkeypatch.setattr(native, '_lib', None)
+    monkeypatch.setattr(native, '_failed', None)
+    with pytest.raises(RuntimeError, match='g\\+\\+ failed'):
+        native.build()
+    assert not native.available()
+    with pytest.raises(RuntimeError, match='unavailable'):
+        native.get_lib()
+    assert _loader(_loader_set(tmp_path / 'd'), device).core == 'numpy'

@@ -7,9 +7,21 @@
     whose LR is synthesized (Pillow bicubic, as srtpu), and
     concatenated datasets give srtpu's arrays exactly; without Pillow a
     missing LR raises a clear error;
-(c) setup errors.
+(c) setup errors;
+(d) the on-disk decode cache (every case points ``SRTPU_DECODE_CACHE``
+    at its own ``tmp_path``): a miss writes the raw decode, a hit reads
+    it, a torn entry is decoded again and rewritten, ``0`` / ``off``
+    writes nothing, and a cached item equals an uncached one and srtpu's
+    bit for bit; the synthesized LR's entry carries its algorithm tag, so
+    an entry under srtpu's untagged key is not read as the port's;
+(e) srtpu's loader knobs: YAML ``data.num_workers``, ``prefetch`` and
+    ``cache_train_images`` reach the loader through ``build_all`` and
+    ``SRData``, as srtpu's; ``Trainer.fit`` with ``num_workers`` 3 and
+    ``prefetch`` 1 ends at srtpu's weights (within 1e-4 of each tensor's
+    largest magnitude, as ``test_torch_train``'s fit).
 """
 
+import logging
 import sys
 
 import numpy as np
@@ -157,3 +169,170 @@ def test_setup_errors(tmp_path):
         SRData().eval_loaders()
     with pytest.raises(RuntimeError, match='setup'):
         SRData().train_loader()
+
+
+# ---------------------------------------------------------- decode cache
+
+def _png_item(tmp_path, with_lr=True):
+    root = _dataset(tmp_path, 'A', SIZES[:2], fmt='png', with_lr=with_lr)
+    return root / 'A' / 'HR', (root / 'A' / 'LR' / 'X4' if with_lr
+                               else None)
+
+
+def _entries(cache):
+    return sorted(p.name for p in cache.iterdir()) if cache.exists() else []
+
+
+def test_decode_cache_miss_hit_and_uncached_equal(tmp_path, monkeypatch):
+    hr_dir, lr_dir = _png_item(tmp_path)
+    path = sorted(hr_dir.iterdir())[0]
+    monkeypatch.setenv('SRTPU_DECODE_CACHE', 'off')
+    uncached = sources.load_image(path)
+    cache = tmp_path / 'cache'
+    monkeypatch.setenv('SRTPU_DECODE_CACHE', str(cache))
+    entry = sources.decode_cache_path(path)
+    assert entry.parent == cache and not entry.exists()
+    first = sources.load_image(path)            # a miss: decoded, stored
+    assert entry.exists() and np.load(entry).dtype == np.uint8
+    second = sources.load_image(path)           # a hit
+    for got in (first, second):
+        np.testing.assert_array_equal(got, uncached)
+    np.testing.assert_array_equal(first, jax_sources._load_image(path))
+    # the hit reads the entry, not the file
+    np.save(entry, np.full((2, 2, 3), 255, np.uint8))
+    np.testing.assert_array_equal(sources.load_image(path),
+                                  np.ones((2, 2, 3), np.float32))
+    # a source over the folder: every item as the uncached source's
+    cached = sources.ImageFolderSource(hr_dir, lr_dir, 4)
+    monkeypatch.setenv('SRTPU_DECODE_CACHE', '0')
+    plain = sources.ImageFolderSource(hr_dir, lr_dir, 4)
+    for i in (1,):
+        for a, b in zip(cached.get(i), plain.get(i)):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_decode_cache_torn_entry_is_decoded_again(tmp_path, monkeypatch,
+                                                   caplog):
+    hr_dir, _ = _png_item(tmp_path)
+    path = sorted(hr_dir.iterdir())[0]
+    monkeypatch.setenv('SRTPU_DECODE_CACHE', str(tmp_path / 'cache'))
+    want = sources.load_image(path)
+    entry = sources.decode_cache_path(path)
+    entry.write_bytes(entry.read_bytes()[:100])     # torn mid-write
+    with caplog.at_level(logging.WARNING, logger=sources.__name__):
+        np.testing.assert_array_equal(sources.load_image(path), want)
+    assert 'unreadable decode-cache entry' in caplog.text
+    np.testing.assert_array_equal(np.load(entry).astype(np.float32) / 255,
+                                  want)             # written again
+
+
+@pytest.mark.parametrize('off', ['0', 'off'])
+def test_decode_cache_off_writes_nothing(tmp_path, monkeypatch, off):
+    hr_dir, lr_dir = _png_item(tmp_path, with_lr=False)
+    monkeypatch.setenv('HOME', str(tmp_path / 'home'))
+    monkeypatch.setenv('SRTPU_DECODE_CACHE', off)
+    assert sources.decode_cache_dir() is None
+    src = sources.ImageFolderSource(hr_dir, None, 4)
+    src.get(0)
+    assert not (tmp_path / 'home').exists()
+    monkeypatch.setenv('SRTPU_DECODE_CACHE', '')
+    assert sources.decode_cache_dir() == \
+        tmp_path / 'home' / '.cache' / 'srtpu' / 'decoded'
+
+
+def test_synthesized_lr_entry_carries_its_algorithm_tag(tmp_path,
+                                                        monkeypatch):
+    """An HR-only image folder's LR is cached raw under a key naming
+    Pillow's bicubic and uint8; srtpu's untagged ``-x4lr`` entry (here
+    holding something else) is not read as it."""
+    hr_dir, _ = _png_item(tmp_path, with_lr=False)
+    path = sorted(hr_dir.iterdir())[0]
+    cache = tmp_path / 'cache'
+    monkeypatch.setenv('SRTPU_DECODE_CACHE', str(cache))
+    untagged = sources.decode_cache_path(path, '-x4lr')
+    cache.mkdir()
+    stale = np.zeros((16, 20, 3), np.uint8)
+    np.save(untagged, stale)
+    ref = jax_sources.ImageFolderSource(hr_dir, None, 4)
+    lr, hr, _ = sources.ImageFolderSource(hr_dir, None, 4).get(0)
+    np.testing.assert_array_equal(ref.get(0)[0], 0)    # srtpu reads it
+    monkeypatch.setenv('SRTPU_DECODE_CACHE', 'off')
+    want_lr, want_hr, _ = jax_sources.ImageFolderSource(hr_dir, None,
+                                                        4).get(0)
+    np.testing.assert_array_equal(lr, want_lr)
+    np.testing.assert_array_equal(hr, want_hr)
+    assert lr.max() > 0
+    monkeypatch.setenv('SRTPU_DECODE_CACHE', str(cache))
+    entry = sources.decode_cache_path(path, f'-x4lr-{sources.LR_TAG}')
+    assert sources.LR_TAG == 'pil-bicubic-u8' and entry.exists()
+    assert np.load(entry).dtype == np.uint8
+    np.testing.assert_array_equal(np.load(entry).astype(np.float32) / 255,
+                                  lr)
+    np.testing.assert_array_equal(np.load(untagged), stale)
+
+
+# ------------------------------------------------------------ the knobs
+
+def test_yaml_loader_knobs_reach_the_loader(tmp_path):
+    from srtpu import config as jax_config
+    from srtpu_torch import config
+    from test_torch_config import DEFAULT, OVERRIDES
+    from test_torch_fit_val import write_sets
+    datasets = write_sets(tmp_path, n_train=2)
+    over = OVERRIDES + [f'data.datasets_dir={datasets}',
+                        'data.train_datasets=[Train]', 'data.patch_size=32',
+                        'data.scale_factor=4', 'data.num_workers=3',
+                        'data.prefetch=1', 'data.cache_train_images=false']
+    _, dm, _, fit_kw = config.build_all(config.load_config([DEFAULT], over))
+    _, jdm, _, jfit_kw = jax_config.build_all(
+        jax_config.load_config([DEFAULT], over))
+    assert (dm.num_workers, dm.prefetch, dm.cache_train_images) == \
+        (jdm._num_workers, jdm._prefetch, jdm._cache_train) == (3, 1, False)
+    dm.setup('fit')
+    jdm.setup('fit')
+    got, ref = dm.train_loader(), jdm.train_loader()
+    assert (got._workers, got._prefetch) == (ref._workers, ref._prefetch) \
+        == (3, 1)
+    assert got._source._sources[0]._cache is None
+    assert not ref._source._sources[0]._cache_enabled
+    _assert_same_batches(list(got), list(ref))
+    on = SRData(datasets_dir=str(datasets), train_datasets=['Train'])
+    on.setup('fit')                 # srtpu's default: the RAM cache on
+    assert on._train_source._sources[0]._cache == {}
+
+
+def test_fit_with_item_threads_matches_srtpu(tmp_path):
+    """``Trainer.fit`` on ``SRData(num_workers=3, prefetch=1)`` against
+    srtpu's ``Trainer.fit`` with the same knobs, from the same state."""
+    from srtpu.train import Trainer as JaxTrainer
+    from srtpu.train import TrainerConfig as JaxTrainerConfig
+    from srtpu_torch.train import Trainer, TrainerConfig
+    from test_torch_fit_val import (OPT, SEED, assert_params_close,
+                                    jax_initial, port_model, write_sets)
+    datasets = write_sets(tmp_path)
+    jm, state = jax_initial()
+    model = port_model(state.params)
+    kw = dict(batch_size=2, datasets_dir=str(datasets), eval_datasets=[],
+              patch_size=32, scale_factor=4, train_datasets=['Train'],
+              seed=SEED, num_workers=3, prefetch=1)
+    cfg = dict(max_epochs=2, num_sanity_val_steps=0,
+               enable_checkpointing=False)
+    trainer = JaxTrainer(JaxTrainerConfig(
+        default_root_dir=str(tmp_path / 'jax'), seed=SEED, **cfg))
+    try:
+        ref = trainer.fit(jm, JaxSRData(**kw), losses='l1',
+                          optimizer_name='ADAM', optimizer_params=OPT,
+                          state=state)
+    finally:
+        trainer.close()
+    port = Trainer(TrainerConfig(default_root_dir=str(tmp_path / 'port'),
+                                 **cfg))
+    try:
+        port.fit(model, SRData(**kw), losses='l1', optimizer_name='ADAM',
+                 optimizer_params=OPT)
+    finally:
+        port.close()
+    assert port.global_step == trainer.global_step == 6
+    log = (tmp_path / 'port' / 'run.log').read_text()
+    assert 'train loader: the native core, batches on the host' in log
+    assert_params_close(model.state_dict(), ref.params)
