@@ -231,16 +231,18 @@ Phases, each of which raises on failure (nothing is caught):
    and through autograd each way bit for bit the per-block kernel
    route's output and gradients (the plain route's gradients printed
    beside), with its device and host time and cuDNN's 16 blocks beside;
-19. the EDSR True route: phase 3's path and images with ``--model EDSR
-   --use_pallas true`` (64 features, 16 blocks): per image 16 K8a
-   blocks in one trunk call and no K1, K2 or K3; PNGs at 4x; kernel path
-   against plain path; then ``fit --use_pallas true`` (phase 4's recipe,
-   20 steps): 16 K8a blocks per step in one trunk call (the backward
+19. the EDSR True route: phase 3's path on its LR 128x128 image with
+   ``--model EDSR --use_pallas true`` (64 features, 16 blocks; no
+   device profile): per image 16 K8a blocks in one trunk call and no
+   K1, K2 or K3; PNGs at 4x; kernel path against plain path; then ``fit
+   --use_pallas true``
+   (phase 4's recipe, 10 steps; the step timed in 3 windows of 2): 16
+   K8a blocks per step in one trunk call (the backward
    stock) and none of K1-K3 or the
    weight-grad kernel, the loss falling, kernel-path against plain-path
-   gradients and five losses, ms/step, patches/s, the device share and
-   device time by kernel group; the 'cs' route of the same weights timed
-   beside (forward per image, step, profile);
+   gradients and five losses, ms/step, patches/s; the 'cs' route of the
+   same weights beside the forward per image (its time, the largest
+   difference);
 20. the RCAN True route, as 19 with ``--model RCAN`` (10 groups of 16
    RCABs): per image and step 160 K8b launches and no K5 or K2;
 21. the WDSR-B True route, as 19 with ``--model WDSR`` (128 features, 16
@@ -406,6 +408,19 @@ Phases, each of which raises on failure (nothing is caught):
    weights equal to the k 1 weights bit for bit, a capture made while the
    producer thread is live, the native core in ``run.log``, phase 4's
    launches per step x 150.
+32. srtpu's XLA routes (``run_phase32``), at full width: SRResNet x4
+   ``--use_pallas false`` (64 features, 16 blocks), RDN x4 ``--rdn_config
+   A`` (D 20, C 6, G 32, G0 64: srtpu's per-block path on 'cs'), RDN-B x4
+   ``--use_pallas false`` (predict only), DDBPN x4 ``--use_pallas
+   false`` (n0 128, nr 32, depth 6: the fine ``ConvTranspose2d`` and
+   strided convs) and DDBPN x8 'cs' (srtpu's XLA coarse branch, stock
+   convs at c_in 2048): phase 3's predict at LR 128x128 (RDN-B's at
+   ``--precision 32``; no device profile) and a 10-step ``fit`` at phase
+   4's recipe through the CLI's functions (with the step's device
+   profile), every kernel counter of the port at 0 on each; then each
+   model's eval forward on the card against the
+   same forward on the CPU (the card's parameters, one LR 32x32 image)
+   within one bf16 step (2^-7) of the largest magnitude.
 The line before the last is a JSON object with, per kernel, its launches
 in the main-path runs (EDSR, RCAN, SRResNet, RDN, DDBPN, WDSR, SRGAN
 and SRCNN predict and fit, EDSR and SRResNet x3 predict, SRResNet x3
@@ -414,7 +429,8 @@ fit, the EDSR, RCAN and WDSR-B True routes' predict and fit, EDSR 64 x
 and its host tiles, phase 27's fit with validation and its ``validate``
 / ``predict --checkpoint``, phase 28's exported programs and its
 profiled fit, phase 29's fits and validate, phase 30's fits and
-routes, phase 31's fits, and phase 2j's op runs;
+routes, phase 31's fits, and phase 2j's op runs; phase 32's runs count
+none;
 ``launches`` is their sum), its largest error against its plain
 version, its time (K4's, K4r's and the trunk op's: its device time
 alone, a CUDA graph of its calls; the others: the wrapper's CUDA-event
@@ -812,6 +828,11 @@ K7_SCALES = (1.0, 0.1)
 # RCAB), WDSR-B at 128 features (K8c per block); the 'cs' route of the
 # same weights is timed beside each
 TRUE_ARGS, CS_ROUTE = ['--use_pallas', 'true'], ('--use_pallas', 'cs')
+# the True routes' runs, cut to hold the script's time: predict at LR
+# 128x128 alone, 10 fit steps (the falling-loss check's two halves of 5),
+# each route's step timed in 3 windows of 2 steps, no device profile and
+# no 'cs' step beside
+TRUE_FIT_STEPS, TRUE_TIMING = 10, (2, 3)
 K8_OFF = {trunk_fwd: 0, upsample_fwd: 0, conv3x3_fwd: 0, rcab_fwd: 0,
           wdsr_fwd: 0}
 K8_OFF_BWD = {trunk_bwd: 0, upsample_bwd: 0, conv3x3_bwd: 0, rcab_bwd: 0,
@@ -3658,8 +3679,9 @@ def png_size(path: Path) -> tuple[int, int]:
 
 def run_slice(device, smi: str, model: str = 'EDSR', extra=(),
               expected=EXPECTED_LAUNCHES, rules=None, scale: int = SCALE,
-              sizes=SLICE_SIZES, alt=(), profile_all: bool = False) -> dict:
-    """Phase 3 (EDSR) and 5, 7, 9, 11, 13, 14, 19-21 (``extra`` the
+              sizes=SLICE_SIZES, alt=(), profile_all: bool = False,
+              precision: str = 'bf16') -> dict:
+    """Phase 3 (EDSR) and 5, 7, 9, 11, 13, 14, 19-21, 32 (``extra`` the
     model's CLI flags): predict at ``scale`` through the CLI on images of
     ``sizes``, the launch counters per image (``expected``), the PNGs,
     kernel path against plain path; with ``rules``, device time by kernel
@@ -3682,7 +3704,7 @@ def run_slice(device, smi: str, model: str = 'EDSR', extra=(),
         argv = ['predict', '--model', model, '--scale_factor', str(scale),
                 '--n_feats', str(C), '--n_resblocks', str(L), *extra,
                 '--datasets_dir', str(Path(tmp) / 'datasets'),
-                '--predict_datasets', 'Demo', '--precision', 'bf16',
+                '--predict_datasets', 'Demo', '--precision', precision,
                 '--device', 'cuda', '--seed', str(SEED)]
         warm = argv + ['--default_root_dir', str(Path(tmp) / 'warm')]
         need(cli.main(warm) == 0, 'warm-up predict')   # cuDNN plans, allocator
@@ -3705,7 +3727,8 @@ def run_slice(device, smi: str, model: str = 'EDSR', extra=(),
                  f'{name}.png is {size}')
         mpix = sum(scale * scale * img.shape[0] * img.shape[1]
                    for img in images.values()) / 1e6
-        print(f'{model} x{scale} predict CLI (incl. PNG encode + write): '
+        print(f'{model} x{scale} {" ".join(extra)} --precision {precision} '
+              f'predict CLI (incl. PNG encode + write): '
               f'{len(images)} images '
               f'in {wall:.3f} s = {len(images) / wall:.3f} images/s, '
               f'{mpix / wall:.3f} MPix/s  [{smi}]')
@@ -3907,12 +3930,8 @@ SRGAN_PREDICT_PROFILE = (
     ('fprop', 'cuDNN convs (implicit GEMM)'),
     ('convolve', 'cuDNN convs (implicit GEMM)'),
     ('elementwise', 'elementwise (casts, BN apply, PReLU, adds, tanh)'))
-# srtpu's use_pallas=True routes and, beside each, its 'cs' route: the
-# route's K8 kernel, the port's own weight-grad kernels (the 'cs' routes'),
-# the 'cs' route's kernels, then the stock ops the True routes run (cuDNN
-# convs in f32, cuBLAS, Adam)
-PORT_WGRAD_RULES = (('wgrad_sm90_kernel', 'weight grads (wgrad.cu)'),
-                    ('wgrad_reduce', 'weight grads (wgrad.cu)'))
+# the stock ops of the routes without a kernel of the port (cuDNN convs
+# in f32, cuBLAS, Adam)
 STOCK_RULES = (('dgrad', 'stock: cuDNN conv dx'),
                ('wgrad', 'stock: cuDNN conv dW'),
                ('fprop', 'stock: cuDNN conv forward'),
@@ -3924,33 +3943,6 @@ STOCK_RULES = (('dgrad', 'stock: cuDNN conv dx'),
                ('elementwise', 'stock: elementwise (casts, masks, skips)'))
 
 
-def _true_profile(k8_rules, cs_rules) -> tuple:
-    """The True route's K8 rules, the port's weight grads (apart from
-    cuDNN's 'wgrad'), the 'cs' route's own kernels, then the stock ops'."""
-    stock = dict(STOCK_RULES)
-    rules = {}
-    for sub, label in (*k8_rules, *PORT_WGRAD_RULES,
-                       *(r for r in cs_rules if r[0] not in stock),
-                       *STOCK_RULES):
-        rules.setdefault(sub, label)        # the first rule of a name wins
-    return tuple(rules.items())
-
-
-EDSR_TRUE_PROFILE = _true_profile(
-    (('conv_sm90_kernel<64, 1, 4, 1, false, 12>',
-      'K8a conv1 + [hi | lo] split (K2 engine, EPI 12)'),
-     ('conv_sm90_kernel<64, 1, 4, 1, false, 15>',
-      'K8a conv2 over [hi | lo] + res_scale + skip (K2 engine, EPI 15)')),
-    EDSR_PROFILE)
-RCAN_TRUE_PROFILE = _true_profile(
-    (('ca_pool_kernel', 'K8b channel sums'),
-     ('ca_gate_apply_kernel', 'K8b gate + gating')),
-    RCAN_PROFILE)
-WDSR_TRUE_PROFILE = _true_profile(
-    (('wdsr_chain_fwd_kernel<128, true>',
-      'K8c chained 1x1 pair -> v (hi, lo)'),
-     ('conv_sm90_kernel<64, 2, 4, 1, false, 8>',
-      'K8c / K7 3x3 + res_scale + skip (K2 engine, EPI 8)')), WDSR_PROFILE)
 OTHER = 'other (cuDNN head/tail, Adam, casts, copies)'
 
 
@@ -4170,15 +4162,16 @@ def run_train(device, smi: str, model: str = 'EDSR', extra=(),
               expected=STEP_LAUNCHES, rules=EDSR_PROFILE,
               compare=_grads_vs_plain, scale: int = SCALE,
               patch: int = TRAIN_PATCH, steps: int = TRAIN_STEPS,
-              alt=()) -> dict:
-    """Phase 4 (EDSR), 6 (RCAN), 8 (SRResNet), 10, 12, 15, 16 and 19-21
-    (``extra`` the model's CLI flags): fit through the CLI at ``scale``
-    on ``patch`` HR patches for ``steps`` steps, the launch counters per
-    step (``expected``), the loss, the first kernel-path and plain-path
-    steps' gradients (``compare``), five steps' losses, step times (with
+              alt=(), timing: tuple = (5, 3)) -> dict:
+    """Phase 4 (EDSR), 6 (RCAN), 8 (SRResNet), 10, 12, 15, 16, 19-21 and
+    32 (``extra`` the model's CLI flags): fit through the CLI at
+    ``scale`` on ``patch`` HR patches for ``steps`` steps, the launch
+    counters per step (``expected``), the loss, the first kernel-path and
+    plain-path steps' gradients (``compare``), five steps' losses, step
+    times (CUDA events, ``timing``: steps a window and windows; with
     ``alt``, flags of another route of the same model, that route's step
-    time from the same params beside), the profile. Returns the launch
-    counts of the fit run."""
+    time from the same params beside), with ``rules`` the profile.
+    Returns the launch counts of the fit run."""
     with tempfile.TemporaryDirectory(prefix='srtpu_smoke_fit_') as tmp:
         data = fit_data(Path(tmp), scale, patch)
         argv = ['fit', '--model', model, '--scale_factor', str(scale),
@@ -4260,7 +4253,7 @@ def run_train(device, smi: str, model: str = 'EDSR', extra=(),
         times = {}
         for key, (step, state) in paths.items():
             times[key] = median_ms(lambda: step(state, lr, hr),
-                                   launches=5, windows=3)
+                                   launches=timing[0], windows=timing[1])
         PHASE4_STEP_MS.setdefault(model, times[False])   # EDSR: phase 4
         for key, label in labels.items():
             print(f'{model} x{scale} train step ({label}): '
@@ -4269,7 +4262,7 @@ def run_train(device, smi: str, model: str = 'EDSR', extra=(),
                   f'(batch {TRAIN_BATCH}, LR {patch // scale}x'
                   f'{patch // scale} -> HR {patch}x{patch}, '
                   f'L1 + Adam)  [{smi}]')
-        for key in (False, 'alt') if alt else (False,):
+        for key in ((False, 'alt') if alt else (False,)) if rules else ():
             step, state = paths[key]
             _profile(lambda: step(state, lr, hr), times[key], smi, rules,
                      f'{model} x{scale} train step'
@@ -6566,6 +6559,132 @@ def run_phase31(device, smi: str, bare: dict | None = None) -> dict:
     return {'p31_fit_k1': k1['counts'], 'p31_fit_k4': k4['counts']}
 
 
+def run_true_routes(device, smi: str) -> dict:
+    """Phases 19-21 (the module note): each True route's predict and fit,
+    with the 'cs' route of the same weights beside. Returns their launch
+    counts."""
+    runs = {}
+    for model, args, (pred, step) in (
+            ('EDSR', TRUE_ARGS, (EDSR_TRUE_LAUNCHES, EDSR_TRUE_STEP_LAUNCHES)),
+            ('RCAN', RCAN_ARGS + TRUE_ARGS,
+             (RCAN_TRUE_LAUNCHES, RCAN_TRUE_STEP_LAUNCHES)),
+            ('WDSR', WDSR_ARGS + TRUE_ARGS,
+             (WDSR_TRUE_LAUNCHES, WDSR_TRUE_STEP_LAUNCHES))):
+        key = model.lower() + '_true'
+        runs[key + '_predict'] = run_slice(device, smi, model, args, pred,
+                                           alt=CS_ROUTE,
+                                           sizes=SLICE_SIZES[:1])
+        runs[key + '_fit'] = run_train(device, smi, model, args, step, None,
+                                       steps=TRUE_FIT_STEPS,
+                                       timing=TRUE_TIMING)
+    return runs
+
+
+# ----------------------------------------------------------- phase 32
+
+# srtpu's XLA routes at full width: (model, CLI flags, scale, fit too);
+# no kernel of the port runs on them, forward or backward
+# RDN-B's predict runs at --precision 32, the others' in bf16
+P32_ROUTES = (('SRResNet', ['--use_pallas', 'false'], SCALE, True),
+              ('RDN', ['--rdn_config', 'A'], SCALE, True),
+              ('RDN', RDN_ARGS + ['--use_pallas', 'false'], SCALE, False),
+              ('DDBPN', DDBPN_ARGS + ['--use_pallas', 'false'], SCALE, True),
+              ('DDBPN', DDBPN_ARGS, 8, True))
+P32_STEPS = 10
+# the card's eval forward against the CPU's, one LR image of this side
+P32_CPU_SIDE = 32
+P32_CPU_TOL = 2.0 ** -7
+# every launch counter of the port: each must stay at 0 on these routes
+NO_PORT_KERNEL = {k: 0 for d in (
+    NO_KERNEL, STEP_LAUNCHES, RCAN_STEP_LAUNCHES, SRRESNET_STEP_LAUNCHES,
+    RDN_STEP_LAUNCHES, DDBPN_STEP_LAUNCHES, WDSR_STEP_LAUNCHES,
+    SRGAN_STEP_LAUNCHES, SRRESNET_X3_STEP_LAUNCHES, EDSR_TRUE_STEP_LAUNCHES,
+    RCAN_TRUE_STEP_LAUNCHES, WDSR_TRUE_STEP_LAUNCHES,
+    {CONV5_BWD: 0, K2G5_BWD: 0, rdb_bwd_dw: 0, resblock_fused_fwd: 0,
+     resblock_bwd_fused: 0, ca_layer_fwd: 0, wdsr_block_fused_fwd: 0,
+     **{k: 0 for k in K4R_COUNTERS.values()}}) for k in d}
+
+
+def _grads_stock(model: str, net, lr, hr, paths) -> None:
+    """Phase 32's train step: on a route without a kernel both paths run
+    the same stock ops, so every gradient is finite and within
+    STEP_GRAD_TOL of the other path's largest; a conv bias right before
+    a batch norm (SRResNet's PRE_BN: its exact gradient is 0, each path's
+    rounding noise) within that of its conv kernel's largest."""
+    grads = [dict(paths[plain][1].model.named_parameters())
+             for plain in (False, True)]
+    worst = (0.0, '')
+    for name, pk in grads[0].items():
+        gk, gp = pk.grad, grads[1][name].grad
+        need(bool(torch.isfinite(gk).all()), f'{name}: gradient not finite')
+        leaf = name.rsplit('.', 1)[-1]
+        if model == 'SRResNet' and leaf in PRE_BN:
+            w = {'b1': 'w1', 'b2': 'w2', 'close_b': 'close_w'}[leaf]
+            lim = STEP_GRAD_TOL * grads[1][name.replace(leaf, w)].grad \
+                .abs().max()
+            need(bool(gk.abs().max() <= lim and gp.abs().max() <= lim),
+                 f'{name}: a pre-BN bias gradient above noise')
+            continue
+        rel = ((gk - gp).abs().max() / gp.abs().max()).item()
+        worst = max(worst, (rel, name))
+    print(f'{model} train step (stock route), path against path: worst '
+          f'gradient max_abs/max|ref| {worst[1]} {worst[0]:.4g} (tol '
+          f'{STEP_GRAD_TOL:.4g})')
+    need(worst[0] <= STEP_GRAD_TOL, f'{worst[1]} gradient')
+
+
+def _p32_card_vs_cpu(device, smi: str, model: str, flags, scale: int):
+    """The model of ``flags`` drawn from SEED on the card, its parameters
+    and buffers copied to the CPU: the eval forward of one LR image on
+    each, within P32_CPU_TOL of the CPU's largest magnitude."""
+    argv = ['predict', '--model', model, '--scale_factor', str(scale),
+            '--n_feats', str(C), '--n_resblocks', str(L), *flags,
+            '--precision', 'bf16', '--seed', str(SEED)]
+    args = cli.build_parser().parse_args(argv)
+    net = cli.build_model(args, device).eval()
+    cpu = cli.build_model(args, torch.device('cpu')).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    lr = torch.from_numpy(np.random.default_rng(SEED).random(
+        (1, P32_CPU_SIDE, P32_CPU_SIDE, 3), np.float32))
+    with torch.inference_mode():
+        got = net(lr.to(device)).float().cpu()
+        t0 = time.perf_counter()
+        ref = cpu(lr).float()
+        cpu_s = time.perf_counter() - t0
+    need(got.shape == ref.shape == (1, scale * P32_CPU_SIDE,
+                                    scale * P32_CPU_SIDE, 3)
+         and bool(torch.isfinite(got).all()), f'{model}: SR shape or values')
+    err, top = (got - ref).abs().max().item(), ref.abs().max().item()
+    print(f'phase 32: {model} x{scale} {" ".join(flags)} eval forward, card '
+          f'against CPU (LR {P32_CPU_SIDE}x{P32_CPU_SIDE}, bf16): max_abs '
+          f'{err:.4g} of max {top:.4g} (tol {P32_CPU_TOL:.4g} of it); CPU '
+          f'forward {cpu_s:.3f} s  [{smi}]')
+    need(err <= P32_CPU_TOL * top, f'{model} {flags}: card against CPU')
+
+
+def run_phase32(device, smi: str) -> dict:
+    """Phase 32 (the module note). Returns the launch counts of its runs,
+    every one 0 (no row of the kernels line counts them)."""
+    runs = {}
+    for model, flags, scale, fit in P32_ROUTES:
+        print(f'phase 32: {model} x{scale} {" ".join(flags)}: no kernel of '
+              "the port runs on this route (srtpu's XLA math, stock ops)")
+        key = f'{model.lower()}_x{scale}_{"_".join(flags[-2:])}'
+        runs[key + '_predict'] = run_slice(
+            device, smi, model, flags, NO_PORT_KERNEL, scale=scale,
+            sizes=SLICE_SIZES[:1], precision='bf16' if fit else '32')
+        if fit:
+            runs[key + '_fit'] = run_train(
+                device, smi, model, flags, NO_PORT_KERNEL, STOCK_RULES,
+                _grads_stock, scale=scale, steps=P32_STEPS,
+                timing=TRUE_TIMING)
+    for model, flags, scale, _ in P32_ROUTES:
+        _p32_card_vs_cpu(device, smi, model, flags, scale)
+    for counts in runs.values():
+        need(not any(counts.values()), f'phase 32: a kernel ran: {counts}')
+    return runs
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # phase 28's deterministic fits need it before the first cuBLAS call
@@ -6638,19 +6757,7 @@ def main() -> None:
                                       SRGAN_PREDICT_PROFILE, profile_all=True)
     runs['srgan_fit'] = run_gan_train(device, smi)
     lap('the op runs and phases 3-18')
-    for model, args, (pred, step), rules in (
-            ('EDSR', TRUE_ARGS, (EDSR_TRUE_LAUNCHES, EDSR_TRUE_STEP_LAUNCHES),
-             EDSR_TRUE_PROFILE),
-            ('RCAN', RCAN_ARGS + TRUE_ARGS,
-             (RCAN_TRUE_LAUNCHES, RCAN_TRUE_STEP_LAUNCHES), RCAN_TRUE_PROFILE),
-            ('WDSR', WDSR_ARGS + TRUE_ARGS,
-             (WDSR_TRUE_LAUNCHES, WDSR_TRUE_STEP_LAUNCHES),
-             WDSR_TRUE_PROFILE)):
-        key = model.lower() + '_true'
-        runs[key + '_predict'] = run_slice(device, smi, model, args, pred,
-                                           rules, alt=CS_ROUTE)
-        runs[key + '_fit'] = run_train(device, smi, model, args, step, rules,
-                                       alt=CS_ROUTE)
+    runs.update(run_true_routes(device, smi))
     lap('phases 19-21')
     runs['edsr86_fit'] = run_train(device, smi, 'EDSR', EDSR86_ARGS,
                                    EDSR86_STEP_LAUNCHES, EDSR_PROFILE,
@@ -6686,6 +6793,8 @@ def main() -> None:
     lap('phase 30')
     runs.update(run_phase31(device, smi, bare))
     lap('phase 31')
+    run_phase32(device, smi)
+    lap('phase 32')
     rep = 'srtpu/ops/cs_conv.py:'
     bn = 'srtpu/ops/bn_resblock_cs.py:'
     meta = [('K1', 'K1 trunk_fwd (per block conv1 at K2 EPI 0, conv2 at '

@@ -78,10 +78,12 @@ without global pooling through the tiled eval and predict steps;
 take srtpu's host tiles. ``--device cuda``
 without a card raises: there is no fallback to the CPU. On the card
 ``--precision 32`` raises where the route reaches a kernel (the kernels
-take bf16; SRCNN and the ``use_pallas=false`` routes of EDSR, RCAN,
-WDSR and SRGAN take f32), and so does DDBPN x8, which srtpu runs on XLA
-rather than its kernel path (ROADMAP.md §3, F4; each model's
-``CARD_SCALES``). ``--precision`` takes srtpu's spellings: ``bf16``,
+take bf16; each model class's ``reaches_kernel`` says where: SRCNN,
+the ``use_pallas=false`` routes of every family, SRResNet's, RDN's,
+DDBPN's and SRGAN's ``true`` routes, RDN's configs its kernels do not
+take and DDBPN x8 take f32), and so does a scale outside the model's
+``CARD_SCALES`` (ROADMAP.md §3, F4). ``--precision`` takes srtpu's
+spellings: ``bf16``,
 ``bfloat16`` and ``16`` (bf16 compute on f32 parameters) and ``32``.
 
 ``fit`` validates on ``--eval_datasets`` every
@@ -124,7 +126,6 @@ card; ``--platforms`` takes one device, ``cuda`` or ``cpu``.
 from __future__ import annotations
 
 import argparse
-import inspect
 import json
 import logging
 import os
@@ -302,16 +303,14 @@ def resolve_device(name: str) -> torch.device:
 
 def check_card(name: str, scale: int, precision, model_kw: dict) -> None:
     """What the card refuses, before any card is touched: a scale without
-    a kernel path, and f32 where the route reaches a kernel (the kernels
-    take bf16): every route but SRCNN's and the ``use_pallas=False``
-    routes of EDSR, RCAN, WDSR and SRGAN (ROADMAP.md F4)."""
+    a card path, and f32 where the route reaches a kernel (the kernels
+    take bf16). The model class says which routes do at a scale
+    (``reaches_kernel``): SRCNN's and srtpu's XLA routes take f32
+    (ROADMAP.md F4)."""
     cls = model_class(name)
-    param = inspect.signature(cls).parameters.get('use_pallas')
-    route = model_kw.get('use_pallas', None if param is None
-                         else param.default)
-    stock = param is None or route is False
     f32 = model_dtype(precision) is None
-    if scale not in cls.CARD_SCALES or (f32 and not stock):
+    if scale not in cls.CARD_SCALES or (
+            f32 and cls.reaches_kernel(scale, model_kw)):
         raise ValueError(
             f'on CUDA the kernels take bf16 and {name} runs scales '
             f'{", ".join(map(str, cls.CARD_SCALES))}: pass --precision bf16 '

@@ -50,7 +50,8 @@ and either SRResNet tree, which also needs its ``batch_stats`` collection
   conv) and ``batch_stats/{ResBlock_{i}/BatchNorm_{0,1}, BasicBlock_1/
   BatchNorm_0}/{mean, var}``.
 
-and either RDN tree (configs the port runs: G = G0, a 16-multiple):
+and either RDN tree (its 'cs' tree at the configs srtpu's ``cs_ok`` takes,
+its False tree at every config, config A's G = 32 with G0 = 64 too):
 
 * ``use_pallas='cs'``: ``Conv2d_0`` (SFE1), ``sfe2_kernel`` (CS),
   ``sfe2_bias``, ``dense{i}_kernel`` (D, 3G, 3 (i + 1) G0) CS stacks and
@@ -72,13 +73,16 @@ and either DDBPN tree:
   projection kernels (up (3 r*r*nr, 3 nr), down (3 nr, 3 r*r*nr)),
   ``out_kernel`` (depth, 3 CO, 3 r*r*nr) (CS, one phase-dense conv per HR
   block) and ``out_bias``;
-* ``use_pallas=False``: ``Conv2d_{0,1}`` and ``PReLU_{0,1}`` (the head),
-  ``DenseProjection_{i}/{Conv2d_0, PReLU_0}`` (the bottleneck, where
-  present) and ``_ProjectionConv_{j}/{ConvTranspose2d_0 | Conv2d_0}`` with
-  its ``PReLU``, the fine k x k kernels rearranged by ``ops.ddbpn``'s
-  ``w_up_pm`` / ``w_down_pd``, and ``Conv2d_2`` (the output conv) by
+* ``use_pallas=False`` (or True): ``Conv2d_{0,1}`` and ``PReLU_{0,1}``
+  (the head), ``DenseProjection_{i}/{Conv2d_0, PReLU_0}`` (the
+  bottleneck, where present) and ``_ProjectionConv_{j}/{ConvTranspose2d_0
+  | Conv2d_0}`` with its ``PReLU``, and ``Conv2d_2`` (the output conv):
+  by default onto the 'cs' model, the fine k x k kernels rearranged by
+  ``ops.ddbpn``'s ``w_up_pm`` / ``w_down_pd`` and the output conv by
   ``layout.w_phase_dense`` per block (srtpu/ops/ddbpn_cs.py:145-185 maps
-  one tree onto the other).
+  one tree onto the other); with ``use_pallas`` False one to one onto the
+  model of its own route (``FineProjection``'s fine kernels and the fine
+  output conv).
 
 and every WDSR tree:
 
@@ -120,6 +124,9 @@ JAX host can write one as a flat ``.npz`` (``np.savez(path,
 **{'params/CSTrunk_0/w1': ..., 'batch_stats/...': ..., ...})``);
 :func:`load_npz` reads it back.
 
+:func:`params_from_jax`'s ``use_pallas`` is the route of the model the
+state dict is for; it matters for DDBPN alone, whose routes keep two
+trees (the other families' routes share one state dict).
 :func:`state_from_jax` carries a whole srtpu training state across (its
 ``step``, ``params``, ``batch_stats`` and ``opt_state``, the tree srtpu's
 ``CheckpointManager`` keeps) into a port checkpoint that ``Trainer.fit``
@@ -404,12 +411,16 @@ def _cs_hwio(w) -> torch.Tensor:
     return out.reshape(*lead, *out.shape[1:]).contiguous()
 
 
-def _ddbpn_from_jax(p: dict) -> dict[str, torch.Tensor]:
+def _ddbpn_from_jax(p: dict, use_pallas) -> dict[str, torch.Tensor]:
     sd: dict[str, torch.Tensor] = {}
     for i in (0, 1):
         _conv(sd, f'head{i}', p[f'Conv2d_{i}'])
     nr = sd['head1.weight'].shape[-1]
     if 'CSDenseProjection_0' in p:
+        if use_pallas != 'cs':
+            raise ValueError(
+                "a DDBPN 'cs' tree holds coarse phase-major kernels; the "
+                'fine kernels of use_pallas=False cannot be taken from it')
         for i in (0, 1):
             sd[f'head_alpha{i}'] = _t(p[f'head_alpha{i}'])
         for i, unit in enumerate(_seq(p, 'CSDenseProjection_')):
@@ -422,6 +433,9 @@ def _ddbpn_from_jax(p: dict) -> dict[str, torch.Tensor]:
         sd['out_weight'] = _cs_hwio(p['out_kernel'])
         sd['out_bias'] = _t(p['out_bias'])
         return sd
+    # the False tree: one to one onto the model of its own route, or
+    # rearranged onto the 'cs' model's coarse kernels
+    fine = use_pallas != 'cs'
     for i in (0, 1):
         sd[f'head_alpha{i}'] = _t(p[f'PReLU_{i}']['alpha'])
     units = _seq(p, 'DenseProjection_')
@@ -432,7 +446,8 @@ def _ddbpn_from_jax(p: dict) -> dict[str, torch.Tensor]:
         pre = f'units.{i}.'
         off = 0
         if 'Conv2d_0' in unit:              # the 1x1 bottleneck
-            sd[pre + 'bneck_weight'] = _t(unit['Conv2d_0']['kernel'])[0, 0]
+            w = _t(unit['Conv2d_0']['kernel'])
+            sd[pre + 'bneck_weight'] = w if fine else w[0, 0]
             sd[pre + 'bneck_bias'] = _t(unit['Conv2d_0']['bias'])
             sd[pre + 'bneck_alpha'] = _t(unit['PReLU_0']['alpha'])
             off = 1
@@ -440,17 +455,29 @@ def _ddbpn_from_jax(p: dict) -> dict[str, torch.Tensor]:
             pc = unit[f'_ProjectionConv_{j}']
             leaf = pc.get('ConvTranspose2d_0', pc.get('Conv2d_0'))
             w = _t(leaf['kernel'])
-            sd[f'{pre}{name}_weight'] = (
+            sd[f'{pre}{name}_weight'] = w if fine else (
                 w_up_pm(w, r) if 'ConvTranspose2d_0' in pc
                 else w_down_pd(w, r))
             sd[f'{pre}{name}_bias'] = _t(leaf['bias'])
             sd[f'{pre}{name}_alpha'] = _t(unit[f'PReLU_{off + j}']['alpha'])
     wf = _t(p['Conv2d_2']['kernel'])               # (3, 3, depth * nr, ch)
-    sd['out_weight'] = torch.stack([
+    sd['out_weight'] = wf if fine else torch.stack([
         w_phase_dense(wf[:, :, t * nr:(t + 1) * nr], r)
         for t in range(wf.shape[2] // nr)])
     sd['out_bias'] = _t(p['Conv2d_2']['bias'])
     return sd
+
+
+def tree_route(tree: dict):
+    """The ``use_pallas`` an srtpu tree was trained on, as far as its
+    layout shows it: 'cs' for the trees of a kernel route (CS-arranged
+    leaves), False for the per-module XLA trees (srtpu's True trees are
+    the same)."""
+    p = tree.get('params', tree)
+    cs = ('CSTrunk_0', 'CSResidualGroup_0', 'CSBNTrunk_0', 'sfe2_kernel',
+          'CSDenseProjection_0')
+    gen = p.get('generator', {})
+    return 'cs' if any(k in p or k in gen for k in cs) else False
 
 
 def _wn(sd: dict, name: str, node: dict, prefix: str = '') -> None:
@@ -480,12 +507,15 @@ def _wdsr_from_jax(p: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
-def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+def params_from_jax(tree: dict, use_pallas='cs'
+                    ) -> dict[str, torch.Tensor]:
     """State dict of :class:`srtpu_torch.models.EDSR`, ``RCAN``,
     ``SRResNet``, ``RDN``, ``DDBPN``, ``WDSR``, ``SRGAN`` or ``SRCNN``
     from a JAX tree
     of that model (an SRResNet or SRGAN tree with its ``batch_stats``),
-    dispatched on the tree's keys."""
+    dispatched on the tree's keys, for the model of route ``use_pallas``
+    (DDBPN's False and True routes keep a tree of their own; see the
+    module note)."""
     p = tree.get('params', tree)
     if 'generator' in p:
         return _srgan_from_jax(p, tree.get('batch_stats', {}))
@@ -494,7 +524,7 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     if 'sfe2_kernel' in p or '_RDB_0' in p:
         return _rdn_from_jax(p)
     if 'CSDenseProjection_0' in p or 'DenseProjection_0' in p:
-        return _ddbpn_from_jax(p)
+        return _ddbpn_from_jax(p, use_pallas)
     if 'CSResidualGroup_0' in p or 'ResidualGroup_0' in p:
         return _rcan_from_jax(p)
     if 'BasicBlock_0' in p:
@@ -566,16 +596,17 @@ def _like(tree, fn) -> dict:
             for k, v in tree.items()}
 
 
-def _parameter_keys(params: dict, stats: dict) -> list[str]:
+def _parameter_keys(params: dict, stats: dict, use_pallas='cs'
+                    ) -> list[str]:
     """The state-dict keys :func:`params_from_jax` fills from ``params``
     (the others come from ``batch_stats``: batch norm's buffers)."""
     nan = params_from_jax({'params': _like(params, np.zeros_like),
                            'batch_stats': _like(stats, lambda a: np.full(
-                               a.shape, np.nan, np.float32))})
+                               a.shape, np.nan, np.float32))}, use_pallas)
     return [k for k, v in nan.items() if not torch.isnan(v).any()]
 
 
-def check_relayout(params: dict, stats: dict) -> None:
+def check_relayout(params: dict, stats: dict, use_pallas='cs') -> None:
     """Raise unless :func:`params_from_jax` moves every element of
     ``params`` to exactly one place and makes no other value (the CS
     stacking, the phase-major tail and every other rearrangement),
@@ -596,13 +627,13 @@ def check_relayout(params: dict, stats: dict) -> None:
                     else leaf_of(path + (k,), np.asarray(v))
                     for k, v in tree.items()}
         return params_from_jax({'params': walk(params),
-                                'batch_stats': stats})
+                                'batch_stats': stats}, use_pallas)
 
     out_hi = probe(lambda i: i // 4096 + 1)
     out_lo = probe(lambda i: i % 4096 + 1)
     got = {k: ((out_hi[k].double() - 1) * 4096
                + out_lo[k].double() - 1).reshape(-1).numpy()
-           for k in _parameter_keys(params, stats)}
+           for k in _parameter_keys(params, stats, use_pallas)}
     flat = np.sort(np.concatenate(list(got.values())))
     if flat.shape != (total,) or not np.array_equal(flat, np.arange(total)):
         bad = [k for k, v in got.items()
@@ -629,11 +660,17 @@ def centralize_plan(model) -> dict[str, tuple | None]:
     on ``model``'s parameters: ``{name: (view, axes) or None}``, the
     means srtpu takes on its tree of the same model and route, mapped
     onto the port's layout by the maps above. srtpu centralises its 4-D
-    HWIO kernels and its 3-D leaves whose last two sides are multiples
-    of 3 (its CS stacks, and also RCAN's 'cs' attention weights and
-    RDN's fusion kernels at such widths), and leaves its 2-D CS-arranged
-    kernels as they are: the 'cs' tails' final convs, RCAN's group and
-    trunk closes, RDN's SFE2, GFF1 and GFF2, DDBPN's projections."""
+    kernels over axes (0, 1, 2) whatever their layout (HWIO per output,
+    DDBPN's HWOI transposed convs per input channel) and its 3-D leaves
+    whose last two sides are multiples of 3 (its CS stacks, and also
+    RCAN's 'cs' attention weights and RDN's fusion kernels at such
+    widths), and leaves its 2-D CS-arranged kernels as they are: the
+    'cs' tails' final convs, RCAN's group and trunk closes, RDN's SFE2,
+    GFF1 and GFF2, DDBPN's projections. Off those routes srtpu's trees
+    are per-module HWIO (HWOI) kernels: RDN's per-block path (config A
+    on 'cs' too) centralises its 1x1 fusions and GFF1 per output, and
+    DDBPN's fine projections, bottlenecks and output conv are the port's
+    4-D kernels as they are."""
     from .optim import srtpu_centralize_rule
     kind = type(model).__name__
     route = getattr(model, 'use_pallas', 'cs')
@@ -657,12 +694,19 @@ def centralize_plan(model) -> dict[str, tuple | None]:
         if route == 'cs':
             two_d.add('trunk_close_weight')
     elif kind == 'RDN':
-        two_d = {'sfe2_weight', 'gff1_weight', 'gff2_weight'}
         d, c_tot, g0 = model.lff_weight.shape
-        # srtpu's (D, G0, c_tot), the port's its transpose
-        plan['lff_weight'] = (((d, c_tot, 3, g0 // 3), (1, 2))
-                              if g0 % 3 == 0 and c_tot % 3 == 0 else None)
-    elif kind == 'DDBPN':
+        if model.per_block:
+            # srtpu's False tree: the fusions and GFF1 are 1x1 HWIO
+            # kernels, per output over their inputs; SFE2, GFF2 4-D
+            plan['lff_weight'] = (d, c_tot, g0), (1,)
+            plan['gff1_weight'] = tuple(model.gff1_weight.shape), (0,)
+        else:
+            two_d = {'sfe2_weight', 'gff1_weight', 'gff2_weight'}
+            # srtpu's (D, G0, c_tot), the port's its transpose
+            plan['lff_weight'] = (((d, c_tot, 3, g0 // 3), (1, 2))
+                                  if g0 % 3 == 0 and c_tot % 3 == 0
+                                  else None)
+    elif kind == 'DDBPN' and route == 'cs':
         two_d = {name for name in plan
                  if name.endswith(('a0_weight', 'a1_weight', 'b0_weight'))}
     for name in two_d:
@@ -783,7 +827,8 @@ def state_from_jax(tree: dict) -> dict:
     format) from an srtpu training state tree (``step``, ``params``,
     ``batch_stats``, ``opt_state``; a flattened ``.npz`` read by
     :func:`load_npz`). The parameters and batch statistics map as
-    :func:`params_from_jax`; every per-parameter tree of the optimizer's
+    :func:`params_from_jax` for the model of the tree's own route
+    (:func:`tree_route`); every per-parameter tree of the optimizer's
     state (Adam's ``mu`` and ``nu``, SGD's and RMSprop's ``trace``,
     RMSprop's ``nu``, the Ranger family's moments and slow weights,
     MultiSteps' ``acc_grads``) through the same per-leaf map, which must
@@ -798,11 +843,12 @@ def state_from_jax(tree: dict) -> dict:
     stats = tree.get('batch_stats', {})
     if 'generator' in params:
         return _gan_state_from_jax(tree)
-    model = params_from_jax({'params': params, 'batch_stats': stats})
+    route = tree_route(params)
+    model = params_from_jax({'params': params, 'batch_stats': stats}, route)
     opt_state = tree.get('opt_state', {})
     _find_optimizer(opt_state)      # an unknown structure raises first
-    check_relayout(params, stats)
-    keys = _parameter_keys(params, stats)
+    check_relayout(params, stats, route)
+    keys = _parameter_keys(params, stats, route)
 
     def loss_leaves(loss: dict) -> dict[str, torch.Tensor]:
         return {f'{key}.{name}': torch.from_numpy(np.asarray(v, np.float32))
@@ -812,7 +858,7 @@ def state_from_jax(tree: dict) -> dict:
 
     def mapped(moment: dict) -> dict[str, torch.Tensor]:
         sd = params_from_jax({'params': moment.get('model', moment),
-                              'batch_stats': stats})
+                              'batch_stats': stats}, route)
         out = {k: sd[k] for k in keys}
         out.update({LOSS_PREFIX + k: v for k, v in loss_leaves(
             moment.get('loss', {}) if 'model' in moment else {}).items()})

@@ -7,8 +7,15 @@ init), ``WNConv2d`` (weight-normed, WDSR's), ``PReLU``, ``mean_shift``,
 sub-pixel upscaler). ``Trunk.forward_nhwc`` and
 ``UpscaleTail.forward_stock`` run srtpu's other EDSR routes (the fused
 NHWC blocks, K8a, or stock ``ResBlock``s; the XLA tail) on the same
-parameters. ``resize_matrix`` / ``bicubic_resize`` are srtpu's bicubic
-matrices and their two f32 matmuls (SRCNN's pre-upsample). Past 96
+parameters; :func:`xla_trunk` runs srtpu's XLA BN blocks (SRResNet's and
+SRGAN's routes off 'cs', flax's :func:`batch_norm`) on ``BNTrunk``'s.
+``_conv``, ``_conv_transpose`` and :func:`conv_xla` are srtpu's XLA
+convs with its roundings (``Conv2d``, ``ConvTranspose2d``,
+``conv3x3_reference``), stock ``F.conv2d`` (the transposed conv as one
+forward conv per output phase and a pixel shuffle);
+each model class's ``reaches_kernel`` says which routes run a kernel
+(:func:`route_of` reads the route). ``resize_matrix`` /
+``bicubic_resize`` are srtpu's bicubic matrices and their two f32 matmuls (SRCNN's pre-upsample). Past 96
 features ``Trunk`` and ``UpscaleTail`` take srtpu's XLA fallbacks of
 its CS modules (stock ops, no kernel), as srtpu does.
 Parameters are f32; ``dtype`` is the compute type (bf16 on the card).
@@ -22,6 +29,7 @@ how a run on the card is held against the kernels.
 
 from __future__ import annotations
 
+import inspect
 import math
 from typing import Sequence
 
@@ -41,9 +49,10 @@ from ..ops.trunk import trunk_xla
 DIV2K_RGB_MEAN = (0.4488, 0.4371, 0.4040)
 
 __all__ = ['DIV2K_RGB_MEAN', 'BNTrunk', 'Conv2d', 'PReLU', 'Trunk',
-           'UpscaleBlock', 'UpscaleTail', 'WNConv2d', 'bicubic_resize',
-           'device_const', 'mean_shift', 'pixel_shuffle', 'prelu',
-           'resize_matrix', 'uniform_param']
+           'UpscaleBlock', 'UpscaleTail', 'WNConv2d', 'batch_norm',
+           'bicubic_resize', 'conv_xla', 'device_const', 'mean_shift',
+           'pixel_shuffle', 'prelu', 'resize_matrix', 'route_of',
+           'uniform_param', 'xla_trunk']
 
 _CONSTS: dict[tuple, torch.Tensor] = {}
 
@@ -114,12 +123,14 @@ class Conv2d(nn.Module):
                      self.stride)
 
 
-def _conv(x, w, b, dtype, reflect: bool = False, stride: int = 1):
+def _conv(x, w, b, dtype, reflect: bool = False, stride: int = 1,
+          padding: int | None = None):
     """'same' (or reflect-padded) conv of NHWC x with HWIO w in ``dtype``:
     the result rounds to ``dtype``, then b (cast to ``dtype``) is
-    added."""
+    added. ``padding`` (zeros on each side) replaces the k // 2 of
+    'same' (DDBPN's strided projections)."""
     w = w.to(dtype)
-    p = w.shape[0] // 2
+    p = w.shape[0] // 2 if padding is None else padding
     xc = x.to(dtype).permute(0, 3, 1, 2).float()
     if reflect:
         xc, p = reflect_pad(xc, p), 0
@@ -127,16 +138,67 @@ def _conv(x, w, b, dtype, reflect: bool = False, stride: int = 1):
     return y.permute(0, 2, 3, 1).to(dtype) + b.to(dtype)
 
 
-def only_cs(model: str, use_pallas, item: int) -> None:
-    """F14: srtpu gives ``model`` a ``use_pallas`` field, 'cs' by default,
-    and runs its XLA math (with XLA's roundings) for any other value. The
-    port runs 'cs' alone, so any other value raises, naming the ROADMAP
-    item that will port that route."""
-    if use_pallas != 'cs':
-        raise NotImplementedError(
-            f"{model}: use_pallas={use_pallas!r} is srtpu's XLA route, "
-            f"which is not ported (ROADMAP.md F14, queue 1 item {item}); "
-            f"the port runs use_pallas='cs'")
+def _conv_transpose(x, w, b, dtype, stride: int, padding: int):
+    """srtpu ``ConvTranspose2d`` (torch's geometry, here k = stride + 2
+    padding: out = stride in) of NHWC x with its HWOI kernel w in
+    ``dtype``: the f32 product sum of the rounded operands rounds to
+    ``dtype``, then b (cast to ``dtype``) is added. srtpu states it as an
+    input-dilated conv with the flipped kernel; this runs the same sums as
+    one forward conv over the LR grid, each output phase (a, b) of the s x
+    s block its own channels (:func:`phase_kernel`), then a pixel shuffle.
+    A forward conv repeats on cuDNN (F.conv_transpose2d is cuDNN's data
+    gradient, whose default algorithms add with atomics: one input gave
+    images a bf16 step apart from call to call); the backward follows the
+    caller's ``torch.backends.cudnn.deterministic``."""
+    k = w.shape[0]
+    if k != stride + 2 * padding:
+        raise ValueError(f'transposed conv needs k = stride + 2 padding, got '
+                         f'k {k}, stride {stride}, padding {padding}')
+    wp, lo, hi = phase_kernel(w.to(dtype).float(), stride, padding)
+    xc = F.pad(x.to(dtype).permute(0, 3, 1, 2).float(), (lo, hi, lo, hi))
+    y = F.pixel_shuffle(F.conv2d(xc, wp), stride)
+    return y.permute(0, 2, 3, 1).to(dtype) + b.to(dtype)
+
+
+def phase_kernel(w: torch.Tensor, stride: int, padding: int):
+    """The forward-conv form of a transposed conv's HWOI kernel w (k, k,
+    O, I): output pixel s i + a takes x[i + d] w[a + p - s d] over the
+    offsets d whose tap lies in [0, k). Returns the OIHW weight (O s s, I,
+    n, n), channel (o, a, b) in ``F.pixel_shuffle``'s order, and the LR
+    zero padding (lo, hi) before and after, n = lo + hi + 1; the taps
+    outside the kernel are 0. Differentiable in w."""
+    k, s, p = w.shape[0], stride, padding
+    lo = max((k - 1 - a - p) // s for a in range(s))
+    hi = max((a + p) // s for a in range(s))
+    d = torch.arange(-lo, hi + 1, device=w.device)
+    tap = torch.arange(s, device=w.device)[:, None] + p - s * d  # (s, n)
+    live = (tap >= 0) & (tap < k)
+    idx = tap.clamp(0, k - 1)
+    g = w[idx][:, :, idx]                       # (a, dy, b, dx, O, I)
+    g = g * (live[:, :, None, None] & live[None, None]).to(w.dtype)[
+        ..., None, None]
+    n = lo + hi + 1
+    return (g.permute(4, 0, 2, 5, 1, 3).reshape(-1, w.shape[3], n, n),
+            lo, hi)
+
+
+def conv_xla(x, w, b):
+    """srtpu ``conv3x3_reference``, which its kernel routes run where the
+    kernels do not (DDBPN x8's coarse branch): the 'same' conv of NHWC x
+    with HWIO w (cast to x's dtype) in f32, plus b in f32, rounded once
+    to x's dtype. Stock ``F.conv2d`` (cuDNN on the card)."""
+    y = F.conv2d(x.permute(0, 3, 1, 2).float(),
+                 w.to(x.dtype).permute(3, 2, 0, 1).float(),
+                 padding=w.shape[0] // 2)
+    return (y.permute(0, 2, 3, 1) + b.float()).to(x.dtype)
+
+
+def route_of(cls, kw: dict, name: str = 'use_pallas'):
+    """The ``use_pallas`` (or keyword ``name``) a model class builds from
+    the keywords ``kw``: the given one, else the class's default (None
+    for a class without one)."""
+    param = inspect.signature(cls).parameters.get(name)
+    return kw.get(name, None if param is None else param.default)
 
 
 class WNConv2d(nn.Module):
@@ -347,6 +409,60 @@ class BNTrunk(nn.Module):
             ra.copy_(mom * ra + (1 - mom) * b)
 
 
+MOMENTUM, EPS = 0.9, 1e-5     # flax nn.BatchNorm(momentum=0.9, epsilon=1e-5)
+
+
+def batch_norm(x: torch.Tensor, scale, bias, mean, var,
+               training: bool) -> torch.Tensor:
+    """flax 0.12 ``nn.BatchNorm`` on NHWC x: in training, the batch's mean
+    and E[x^2] - mean^2 (clamped at 0) in f32, and the running statistics
+    ``mean``, ``var`` (updated in place) move ra <- 0.9 ra + 0.1 batch
+    with that biased variance; else those running statistics. y = (x -
+    mean) * (scale * rsqrt(var + 1e-5)) + bias in f32, rounded to x's
+    dtype once."""
+    xf = x.float()
+    if training:
+        dims = tuple(range(x.dim() - 1))
+        bm = xf.mean(dims)
+        bv = ((xf * xf).mean(dims) - bm * bm).clamp_min(0.0)
+        with torch.no_grad():
+            mean.copy_(MOMENTUM * mean + (1 - MOMENTUM) * bm)
+            var.copy_(MOMENTUM * var + (1 - MOMENTUM) * bv)
+        mean, var = bm, bv
+    y = (xf - mean) * (scale * torch.rsqrt(var + EPS))
+    return (y + bias).to(x.dtype)
+
+
+def xla_trunk(trunk: BNTrunk, x: torch.Tensor, dtype) -> torch.Tensor:
+    """srtpu's BN trunk off its 'cs' route, in stock ops on ``trunk``'s
+    stacked parameters: per block a 3x3 conv (srtpu's ``Conv2d``: the
+    conv rounds to ``dtype``, then the bias in ``dtype`` is added),
+    :func:`batch_norm`, PReLU (the slope in x's dtype), the second conv
+    and batch norm, and the skip x + res in ``dtype``; then the closing
+    conv + batch norm and the global skip. A ``reflect`` trunk pads
+    every conv by mirroring, as SRGAN's ``_SRGANBlock`` and its close
+    (srtpu/models/srgan.py:25-41, :87-93); with zeros the blocks are
+    srtpu's ``ResBlock(norm='batch', act=PReLU)``
+    (srtpu/models/common.py:269-296) and the close its ``BasicBlock``
+    (:241-266), SRResNet's. In the trunk's train mode each batch norm
+    normalises with the batch statistics and moves its running ones, in
+    eval mode it reads them. No kernel of the port runs here."""
+    rf, tr = trunk.reflect, trunk.training
+    xd = x.to(dtype)
+    res = xd
+    for i, (w1, b1, ga1, be1, alpha, w2, b2, ga2, be2) in enumerate(
+            trunk._blocks()):
+        h = batch_norm(_conv(res, w1, b1, dtype, reflect=rf), ga1, be1,
+                       trunk.mean1[i], trunk.var1[i], tr)
+        h = batch_norm(_conv(prelu(h, alpha), w2, b2, dtype, reflect=rf),
+                       ga2, be2, trunk.mean2[i], trunk.var2[i], tr)
+        res = res + h
+    h = batch_norm(_conv(res, trunk.close_w, trunk.close_b, dtype,
+                         reflect=rf), trunk.close_bn_scale,
+                   trunk.close_bn_bias, trunk.mean_close, trunk.var_close, tr)
+    return xd + h
+
+
 class UpscaleTail(nn.Module):
     """Sub-pixel upscaler + final conv (srtpu ``CSUpscaleTail``). EDSR's:
     act=None, final_ksize=3 (reference UpscaleBlock + Conv2d); SRResNet's:
@@ -450,13 +566,15 @@ class UpscaleBlock(nn.Module):
     """Sub-pixel upscaler (srtpu ``UpscaleBlock``): log2(scale) stages
     (one at x3) of a 3x3 conv C -> r*r*C, r = 3 at x3 and 2 otherwise,
     then ``pixel_shuffle``; with ``act='prelu'`` (SRGAN's) a PReLU after
-    each stage's shuffle, one slope per stage (``acts``). srtpu runs it
+    each stage's shuffle, one slope per stage (``acts``); ``in_feats``
+    (default ``n_feats``) is the first conv's input width (RDN's G0 where
+    its growth G differs). srtpu runs it
     in XLA, outside any Pallas kernel, so each conv is the port's
     ``Conv2d`` (cuDNN on the card); ``plain`` changes nothing here."""
 
     def __init__(self, scale_factor: int = 4, n_feats: int = 64,
-                 act: str | None = None, *, device=None,
-                 generator: torch.Generator):
+                 act: str | None = None, *, in_feats: int | None = None,
+                 device=None, generator: torch.Generator):
         super().__init__()
         if scale_factor not in (2, 3, 4, 8):
             raise ValueError(f'scale_factor must be 2, 3, 4 or 8, got '
@@ -466,8 +584,9 @@ class UpscaleBlock(nn.Module):
         self.r = 3 if scale_factor == 3 else 2
         stages = int(math.log2(scale_factor))
         self.convs = nn.ModuleList(
-            Conv2d(n_feats, n_feats * self.r * self.r, 3, device=device,
-                   generator=generator) for _ in range(stages))
+            Conv2d((in_feats or n_feats) if i == 0 else n_feats,
+                   n_feats * self.r * self.r, 3, device=device,
+                   generator=generator) for i in range(stages))
         self.acts = nn.ModuleList(
             PReLU(device=device) for _ in range(stages if act else 0))
 

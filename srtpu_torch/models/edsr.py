@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .common import Conv2d, Trunk, UpscaleTail, mean_shift
+from .common import Conv2d, Trunk, UpscaleTail, mean_shift, route_of
 
 
 class EDSR(nn.Module):
@@ -58,6 +58,12 @@ class EDSR(nn.Module):
         self.head = Conv2d(channels, n_feats, 3, **kw)
         self.trunk = Trunk(n_feats, n_resblocks, res_scale, **kw)
         self.tail = UpscaleTail(scale_factor, n_feats, channels, **kw)
+
+    @classmethod
+    def reaches_kernel(cls, scale: int, kw: dict) -> bool:
+        """Whether the route ``kw`` picks runs a kernel of the port: all
+        but srtpu's stock ``use_pallas=False``."""
+        return route_of(cls, kw) is not False
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """``plain=True`` runs every kernel's plain PyTorch version instead

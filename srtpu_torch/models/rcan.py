@@ -32,7 +32,7 @@ from torch import nn
 
 from ..ops import ca_gate, conv3x3, conv3x3_plain, resgroup, resgroup_xla
 from .common import (CS_MAX_FEATS, Conv2d, UpscaleBlock, _conv, mean_shift,
-                     uniform_param)
+                     route_of, uniform_param)
 
 
 class ResidualGroup(nn.Module):
@@ -136,6 +136,12 @@ class RCAN(nn.Module):
         self.trunk_close_bias = uniform_param((n,), cb, device, generator)
         self.upscale = UpscaleBlock(scale_factor, n, **kw)
         self.final = Conv2d(n, channels, 3, **kw)
+
+    @classmethod
+    def reaches_kernel(cls, scale: int, kw: dict) -> bool:
+        """Whether the route ``kw`` picks runs a kernel of the port: all
+        but srtpu's stock ``use_pallas=False``."""
+        return route_of(cls, kw) is not False
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """``plain=True`` runs every kernel's plain PyTorch version instead

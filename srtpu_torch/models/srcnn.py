@@ -40,6 +40,11 @@ class SRCNN(nn.Module):
         self.conv2 = Conv2d(64, 32, 1, **kw)
         self.conv3 = Conv2d(32, channels, 5, **kw)
 
+    @classmethod
+    def reaches_kernel(cls, scale: int, kw: dict) -> bool:
+        """SRCNN runs no kernel of the port (srtpu leaves it to XLA)."""
+        return False
+
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """``plain`` is accepted for the step functions' sake; no kernel
         runs here, so it changes nothing."""

@@ -8,8 +8,8 @@ follows srtpu's ``use_pallas`` in train mode: ``'cs'`` runs K4r (K4 with
 REFLECT boundaries, :class:`~srtpu_torch.models.common.BNTrunk` with
 ``reflect=True``), as srtpu's Pallas trunk; srtpu's default, ``False``
 (and ``True``, which srtpu's generator treats alike), runs srtpu's XLA
-blocks in stock ops (:func:`xla_trunk`: reflect-padded convs, flax's
-batch norm, PReLU, with srtpu's roundings). In eval mode both run
+blocks in stock ops (:func:`~.common.xla_trunk`: reflect-padded convs,
+flax's batch norm, PReLU, with srtpu's roundings). In eval mode both run
 reflect-padded stock convs on the running statistics, as srtpu runs eval
 on XLA. Both of srtpu's trees load into the one stacked trunk. The 9x9
 head and output convs, the upscaler and the discriminator are stock
@@ -22,7 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import BNTrunk, Conv2d, PReLU, UpscaleBlock, _conv, prelu
+from .common import (BNTrunk, Conv2d, PReLU, UpscaleBlock, batch_norm,
+                     route_of, xla_trunk)
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
@@ -32,30 +33,6 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
     synchronisation per call). PyTorch multiplies in f32, where a bf16
     x times a bf16 slope is exact, and rounds once: JAX's bf16 product."""
     return F.leaky_relu(x, float(torch.tensor(slope, dtype=x.dtype)))
-
-
-MOMENTUM, EPS = 0.9, 1e-5     # flax nn.BatchNorm(momentum=0.9, epsilon=1e-5)
-
-
-def batch_norm(x: torch.Tensor, scale, bias, mean, var,
-               training: bool) -> torch.Tensor:
-    """flax 0.12 ``nn.BatchNorm`` on NHWC x: in training, the batch's mean
-    and E[x^2] - mean^2 (clamped at 0) in f32, and the running statistics
-    ``mean``, ``var`` (updated in place) move ra <- 0.9 ra + 0.1 batch
-    with that biased variance; else those running statistics. y = (x -
-    mean) * (scale * rsqrt(var + 1e-5)) + bias in f32, rounded to x's
-    dtype once."""
-    xf = x.float()
-    if training:
-        dims = tuple(range(x.dim() - 1))
-        bm = xf.mean(dims)
-        bv = ((xf * xf).mean(dims) - bm * bm).clamp_min(0.0)
-        with torch.no_grad():
-            mean.copy_(MOMENTUM * mean + (1 - MOMENTUM) * bm)
-            var.copy_(MOMENTUM * var + (1 - MOMENTUM) * bv)
-        mean, var = bm, bv
-    y = (xf - mean) * (scale * torch.rsqrt(var + EPS))
-    return (y + bias).to(x.dtype)
 
 
 class BatchNorm(nn.Module):
@@ -73,32 +50,6 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return batch_norm(x, self.scale, self.bias, self.mean, self.var,
                           self.training)
-
-
-def xla_trunk(trunk: BNTrunk, x: torch.Tensor, dtype) -> torch.Tensor:
-    """srtpu ``SRGANGenerator``'s trunk in train mode off its 'cs' route
-    (srtpu/models/srgan.py:81-89, ``_SRGANBlock`` :25), in stock ops on
-    ``trunk``'s stacked parameters: per block a reflect-padded 3x3 conv
-    (srtpu's ``Conv2d``: the conv rounds to ``dtype``, then the bias in
-    ``dtype`` is added), :func:`batch_norm` on the batch statistics
-    (moving block i's running statistics), PReLU (the slope in x's
-    dtype), the second conv and batch norm, and the skip x + res in
-    ``dtype``; then the closing conv + batch norm and the global skip. No
-    kernel of the port runs here."""
-    xd = x.to(dtype)
-    res = xd
-    for i, (w1, b1, ga1, be1, alpha, w2, b2, ga2, be2) in enumerate(
-            trunk._blocks()):
-        h = batch_norm(_conv(res, w1, b1, dtype, reflect=True), ga1, be1,
-                       trunk.mean1[i], trunk.var1[i], True)
-        h = batch_norm(_conv(prelu(h, alpha), w2, b2, dtype, reflect=True),
-                       ga2, be2, trunk.mean2[i], trunk.var2[i], True)
-        res = res + h
-    h = batch_norm(_conv(res, trunk.close_w, trunk.close_b, dtype,
-                         reflect=True), trunk.close_bn_scale,
-                   trunk.close_bn_bias, trunk.mean_close, trunk.var_close,
-                   True)
-    return xd + h
 
 
 class SRGANGenerator(nn.Module):
@@ -196,6 +147,12 @@ class SRGAN(nn.Module):
                                         n_blocks, dtype, use_pallas=use_pallas,
                                         **kw)
         self.discriminator = SRGANDiscriminator(ndf, channels, dtype, **kw)
+
+    @classmethod
+    def reaches_kernel(cls, scale: int, kw: dict) -> bool:
+        """Whether the route ``kw`` picks runs a kernel of the port: 'cs'
+        alone (K4r in train mode)."""
+        return route_of(cls, kw) == 'cs'
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         return self.generator(x, plain)

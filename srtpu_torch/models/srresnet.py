@@ -1,9 +1,18 @@
-"""SRResNet: a 9x9 head conv with PReLU, BatchNorm resblocks (K4 in
-training), the closing conv + BN and the global skip, then the PReLU
-sub-pixel tail whose 9x9 HR output conv runs as a 5x5 phase-dense coarse
-conv (K2) (srtpu/models/srresnet.py, use_pallas='cs'). The flagship
-configuration is SRResNet x4: 64 features, 16 resblocks, bf16 compute on
-f32 parameters. No mean shift: srtpu's has none.
+"""SRResNet: a 9x9 head conv with PReLU, BatchNorm resblocks, the closing
+conv + BN and the global skip, then the PReLU sub-pixel tail and a 9x9 HR
+output conv (srtpu/models/srresnet.py). The flagship configuration is
+SRResNet x4: 64 features, 16 resblocks, bf16 compute on f32 parameters.
+No mean shift: srtpu's has none.
+
+``use_pallas='cs'`` (srtpu's default) runs K4 in training and the tail
+on K3 and K2, its 9x9 output conv as a 5x5 phase-dense coarse conv. Any
+other value runs srtpu's XLA route (srtpu/models/srresnet.py:51-64) in
+stock ops with srtpu's roundings: the blocks as srtpu's
+``ResBlock(norm='batch', act=PReLU)`` and the close as its
+``BasicBlock`` (:func:`~.common.xla_trunk`, in either mode), then
+``UpscaleBlock(act=PReLU)`` and the 9x9 conv at HR
+(:meth:`~.common.UpscaleTail.forward_stock`). Both routes keep one state
+dict; srtpu's two trees both load into it.
 """
 
 from __future__ import annotations
@@ -11,7 +20,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .common import BNTrunk, Conv2d, PReLU, UpscaleTail, only_cs
+from .common import BNTrunk, Conv2d, PReLU, UpscaleTail, route_of, xla_trunk
 
 
 class SRResNet(nn.Module):
@@ -20,7 +29,8 @@ class SRResNet(nn.Module):
     CPU ``torch.Generator``) draws them. Batch norm follows the module's
     mode: ``train()`` normalises with batch statistics and updates the
     running ones, ``eval()`` reads the running ones (srtpu's ``train``).
-    ``use_pallas``: srtpu's, 'cs' alone (any other value raises, F14)."""
+    ``use_pallas``: srtpu's; 'cs' the kernel route, False or True its
+    XLA route (see the module note)."""
 
     # Eval-mode batch norm is per pixel (running statistics), so a padded
     # or tiled image gives the same values on its real pixels.
@@ -35,7 +45,9 @@ class SRResNet(nn.Module):
                  dtype: torch.dtype | None = None, *, device=None,
                  generator: torch.Generator):
         super().__init__()
-        only_cs('SRResNet', use_pallas, 20)
+        if use_pallas not in (False, True, 'cs'):
+            raise ValueError(f"use_pallas must be False, True or 'cs', got "
+                             f'{use_pallas!r}')
         self.use_pallas = use_pallas
         self.n_feats, self.n_resblocks = n_feats, n_resblocks
         self.scale_factor = scale_factor
@@ -48,10 +60,20 @@ class SRResNet(nn.Module):
         self.tail = UpscaleTail(scale_factor, n_feats, channels, act='prelu',
                                 final_ksize=9, **kw)
 
+    @classmethod
+    def reaches_kernel(cls, scale: int, kw: dict) -> bool:
+        """Whether the route ``kw`` picks runs a kernel of the port at
+        ``scale``: 'cs' alone."""
+        return route_of(cls, kw) == 'cs'
+
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """``plain=True`` runs every kernel's plain PyTorch version instead
-        (the reference the kernels are held against on the card)."""
+        (the reference the kernels are held against on the card); the XLA
+        route has none and ignores it."""
         dtype = self.dtype or x.dtype
         x = self.head_act(self.head(x, dtype))
+        if self.use_pallas != 'cs':
+            return self.tail.forward_stock(xla_trunk(self.trunk, x, dtype),
+                                           dtype)
         x = self.trunk(x, dtype, plain)
         return self.tail(x, dtype, plain)

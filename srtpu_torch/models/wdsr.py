@@ -49,7 +49,7 @@ from torch import nn
 from ..ops.layout import pixel_shuffle
 from ..ops.wdsr import wdsr_trunk
 from ..ops.wdsr_block import wdsr_block_fused
-from .common import DIV2K_RGB_MEAN, WNConv2d, device_const
+from .common import DIV2K_RGB_MEAN, WNConv2d, device_const, route_of
 
 EXPAND, LINEAR = 6, 0.8
 
@@ -137,6 +137,12 @@ class WDSR(nn.Module):
         self.kernel_trunk = (block_type == 'B' and use_pallas == 'cs'
                              and n_resblocks > 0)
         self.res_scale = res_scale
+
+    @classmethod
+    def reaches_kernel(cls, scale: int, kw: dict) -> bool:
+        """Whether the route ``kw`` picks runs a kernel of the port: all
+        but srtpu's stock ``use_pallas=False``."""
+        return route_of(cls, kw) is not False
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """``plain=True`` runs K7's or K8c's plain PyTorch version

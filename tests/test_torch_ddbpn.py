@@ -387,7 +387,8 @@ def test_convert_npz_roundtrip(tmp_path, use_pallas):
 def test_x3_tails_and_ddbpn_shapes_are_taken():
     """F4: K2 and the weight-grad kernel take the x3 tails' 576 -> 32 at
     3x3 and 5x5 and their 32 -> 576 dx, and DDBPN's shapes; EDSR and
-    SRResNet run x3 on the card, DDBPN x2 and x4."""
+    SRResNet run x3 on the card, DDBPN x2 and x4 on K2 and x8 on srtpu's
+    XLA branch (stock convs)."""
     from srtpu_torch.models import DDBPN, EDSR, SRResNet
     from srtpu_torch.ops import conv as k2
     from srtpu_torch.ops import wgrad
@@ -400,7 +401,7 @@ def test_x3_tails_and_ddbpn_shapes_are_taken():
         assert not k2._engine_takes(cin, cout, k)
         assert not wgrad._kernel_takes(cin, cout, 1, k)
     assert 3 in EDSR.CARD_SCALES and 3 in SRResNet.CARD_SCALES
-    assert DDBPN.CARD_SCALES == (2, 4)
+    assert DDBPN.CARD_SCALES == (2, 4, 8)
 
 
 def test_wrappers_launch_or_raise():

@@ -3,9 +3,10 @@ operators on the CPU, where each operator runs its kernel's plain
 version.
 
 * every family (EDSR, RCAN, SRResNet, RDN-B, DDBPN, WDSR-B, SRCNN,
-  SRGAN; and EDSR's, RCAN's and WDSR-B's ``use_pallas=True`` routes) at
-  2 blocks or groups and 16-32 features (RDN at srtpu's config B, the
-  only one the port runs): a checkpoint written by the port, exported by
+  SRGAN; EDSR's, RCAN's and WDSR-B's ``use_pallas=True`` routes; the
+  XLA routes of SRResNet and DDBPN and RDN's config A, which hold no
+  ``srtpu::`` operator) at 2 blocks or groups and 16-32 features (RDN
+  at srtpu's configs B and A): a checkpoint written by the port, exported by
   the CLI with ``--device cpu``, loaded in this process with
   ``srtpu_torch.export.load``, equals the eager eval forward bit for
   bit, and holds the ``srtpu::`` operators the route launches on a card
@@ -68,6 +69,12 @@ FAMILIES = {
                   8, {'srtpu::wdsr_block_fwd': 2}),
     'SRCNN': ('SRCNN', {}, 8, {}),
     'SRGAN': ('SRGAN', dict(ngf=16, ndf=8, n_blocks=2), 8, {}),
+    # srtpu's XLA routes: stock ops, no srtpu:: operator
+    'SRRESNET_FALSE': ('SRResNet', dict(n_feats=16, n_resblocks=2,
+                                        use_pallas=False), 8, {}),
+    'RDN_A': ('RDN', dict(rdn_config='A', growth0=64), 6, {}),
+    'DDBPN_FALSE': ('DDBPN', dict(n0=32, nr=16, depth=2, use_pallas=False),
+                    8, {}),
 }
 
 

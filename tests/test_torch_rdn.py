@@ -35,9 +35,10 @@ SRTPU_CS_OFF_TPU=1, Pallas in interpret mode, cs_conv.PATH_LOG showing
 (e) ``python -m srtpu_torch predict --model RDN --device cpu`` against
     srtpu's Trainer.predict: PNGs within one uint8 level.
 (f) the .npz converter for both RDN trees, through convert.main.
-(g) configs the kernels do not take (config A, G != G0; widths that are
-    not 16-multiples) raise NotImplementedError naming ROADMAP.md, and
-    the wrappers raise for what their kernels do not take.
+(g) the wrappers raise for what their kernels do not take. The configs
+    srtpu's kernels do not take (config A, G != G0; widths that are not
+    16-multiples) run srtpu's per-block path, held against srtpu in
+    test_torch_xla_routes.py.
 """
 
 import jax
@@ -459,17 +460,6 @@ def test_convert_npz_roundtrip(tiny, tmp_path, use_pallas):
 
 
 # ---------------------------------------------------------- (g) refusals
-
-@pytest.mark.parametrize('kw', [dict(rdn_config='A'),
-                                dict(rdn_config='B', growth0=24)])
-def test_configs_the_kernels_do_not_take_raise(kw):
-    """Config A (G = 32 != G0) and a width that is not a 16-multiple take
-    srtpu's per-block XLA path, not ported: refused on every device."""
-    for device in ('cpu', 'meta'):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            create_model('RDN', device=device, **kw,
-                         generator=torch.Generator())
-
 
 def test_rdn_scales_and_wrappers_refuse():
     """x8 is no RDN scale; the K6 wrappers raise for a tensor the kernels

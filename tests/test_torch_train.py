@@ -396,12 +396,13 @@ def test_fit_cli_cuda_without_card_raises(tmp_path):
     assert not (tmp_path / 'out').exists()
 
 
-@pytest.mark.parametrize('extra', [['--model', 'DDBPN', '--scale_factor',
+@pytest.mark.parametrize('extra', [['--model', 'RDN', '--scale_factor',
                                     '8'], ['--precision', '32']])
 def test_cli_refuses_x3_and_f32_on_cuda(extra):
-    """The kernels take bf16, and a scale with no kernel path (since K2
-    took the x3 tails' 576 -> 32, that is DDBPN x8, which srtpu runs on
-    XLA) is refused: at model build, before any card is touched."""
+    """The kernels take bf16, and a scale outside the model's card scales
+    (since K2 took the x3 tails' 576 -> 32 and DDBPN x8 runs srtpu's XLA
+    branch in stock convs, only a scale the model has nowhere: RDN x8)
+    is refused: at model build, before any card is touched."""
     from srtpu_torch import cli
     args = cli.build_parser().parse_args(
         ['fit', '--train_datasets', 'Train', '--device', 'cuda', *extra])
